@@ -1,0 +1,354 @@
+// The GossipSub heartbeat's receive half, one thread per peer (Hopper,
+// sm_90a).
+//
+// Replaces: go_libp2p_pubsub_tpu/ops/pallas/receive.py, _receive_kernel
+// (built by make_receive_update), for the scored, unpaired flagship
+// options: no flood publish, promise tracking, PX, shared-IP gater,
+// faults, telemetry, knobs or delays; Bernoulli gossip targets.  Same
+// semantics and op order, so every output is bit-identical to the plain
+// version (ops/kernels/receive.py receive_update_plain):
+//
+//   stage 1, per receiving edge j: the sender q = (p + o_j) mod N, its
+//     ctrl byte (row cinv[j]) and its fresh/advert words, gated by this
+//     peer's payload and gossip gate bits; news = got & ~seen, the valid
+//     and invalid popcounts (P2/P4 provenance); the GRAFT/PRUNE/A
+//     handshake resolves into mesh and backoff;
+//   per row c: backoff restart/decrement, time in mesh, the decayed
+//     first/invalid-delivery and behaviour-penalty counters (f32
+//     arithmetic, stored with round-to-nearest-even bf16 where the
+//     counter dtype is bf16), the IWANT-serve ledger;
+//   stage 2: the next tick's seven gate words from the stored counters:
+//     the score thresholds, the RED gater (in-kernel lane hash, gater
+//     pressure summed over c = 0..C-1 in order) and the Bernoulli gossip
+//     targets.
+//
+// Every multiply, add and divide is written with the _rn intrinsics and
+// the file is built with --fmad=false: XLA and PyTorch round each
+// operation separately, and a contracted FMA would change score bits.
+//
+// Bound on this card: memory.  Counting each operand byte once, the
+// flagship tick (C = 16, W = 1, no static score term) reads about 268
+// B/peer (six i16/bf16 [C, N] counter/backoff rows, the C ctrl bytes,
+// eleven packed [N] words, the seen/injected/fresh/advert words) and
+// writes about 228 B/peer: about 0.5 GB per tick at 1M peers, about
+// 150 us at 3.35 TB/s.  The arithmetic (a few hundred integer and f32
+// operations per peer) is far below the card's rate.  Design: each
+// thread keeps its per-edge counts and packed words in registers and
+// touches every [C, N] row once, at c * N + p, so neighbouring threads
+// read neighbouring addresses; the sender's fresh/advert words are read
+// only over edges whose gates are open.  Staging the sender windows in
+// shared memory is left for later work.
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+struct ReceiveArgs {
+  // inputs
+  const uint8_t* ctrl;       // [C, N] sender ctrl bytes, row = sender edge
+  const uint32_t* fresh;     // [W, N] sender fresh words
+  const uint32_t* adv;       // [W, N] sender advert words
+  const uint32_t* pay;       // [N] payload gate bits
+  const uint32_t* gsp;       // [N] gossip gate bits
+  const uint32_t* acc;       // [N] accept (graylist) gate bits
+  const uint32_t* sub_all;   // [N] all-ones (C bits) iff subscribed
+  const uint32_t* cand_sub;  // [N] subscribed candidates
+  const uint32_t* fanout;    // [N] this tick's fanout
+  const uint32_t* wa;        // [N] would-accept bits
+  const uint32_t* bo2;       // [N] post-write backoff bits
+  const uint32_t* grafts;    // [N] GRAFTs sent
+  const uint32_t* dropped;   // [N] PRUNEs sent
+  const uint32_t* meshsel;   // [N] mesh after maintenance selections
+  const uint32_t* seen;      // [W, N] held or injected this tick
+  const uint32_t* inj;       // [W, N] injected this tick
+  const uint32_t* valid;     // [W] message validity masks
+  const int16_t* backoff;    // [C, N] remaining backoff ticks
+  const float* stat;         // [C, N] static P5+P6 term, or null
+  const void* fd;            // [C, N] first deliveries (counter dtype)
+  const void* inv;           // [C, N] invalid deliveries (counter dtype)
+  const void* bp;            // [C, N] behaviour penalty (bp dtype)
+  const int16_t* tim;        // [C, N] time in mesh
+  const int16_t* iws;        // [C, N] IWANT-serve ledger
+  // outputs
+  uint32_t* acq;             // [W, N]
+  uint32_t* mesh;            // [N]
+  int16_t* backoff_out;      // [C, N]
+  uint32_t* gates;           // [7, N]
+  void* fd_out;
+  void* inv_out;
+  void* bp_out;
+  int16_t* tim_out;
+  int16_t* iws_out;
+  // scalars
+  long long n;
+  int offsets[16];           // o_j mod N, in [0, N)
+  int cinv[16];
+  unsigned int seed_gater;   // lane_seed(tick + 1, 6, salt)
+  unsigned int seed_targets; // lane_seed(tick + 1, 1, salt)
+  unsigned int stride;       // lane stream row stride (true N)
+  int backoff_restart;       // backoff_ticks - 1
+  int d_lazy;
+  int history_length;
+  int has_topic_cap;
+  float gossip_factor;
+  float fd_cap;
+  float fd_decay;
+  float inv_decay;
+  float bp_decay;
+  float decay_to_zero;
+  float c_tim;               // f32(topic_weight * time_in_mesh_weight)
+  float tim_quantum;
+  float tim_cap;
+  float c_fd;                // f32(topic_weight * fmd_weight)
+  float c_inv;               // f32(topic_weight * imd_weight)
+  float topic_cap;
+  float bp_thr;
+  float w_bp;
+  float gray_thr;
+  float gossip_thr;
+  float publish_thr;
+};
+
+namespace {
+
+constexpr int CTRL_OUT = 0, CTRL_TGT = 1, CTRL_GRAFT = 2, CTRL_DROP = 3,
+              CTRL_A = 4;
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// lane_uniform's draw for lane c * stride + p (u32 wrap)
+__device__ __forceinline__ float lane_u(uint32_t seed, int c, long long p,
+                                        uint32_t stride) {
+  uint32_t lane = (uint32_t)c * stride + (uint32_t)p;
+  uint32_t h = fmix32(lane ^ seed);
+  return __fmul_rn((float)(h >> 8), 1.0f / 16777216.0f);
+}
+
+template <bool BF>
+__device__ __forceinline__ float load_ctr(const void* p, long long i) {
+  if constexpr (BF) {
+    return __bfloat162float(((const __nv_bfloat16*)p)[i]);
+  } else {
+    return ((const float*)p)[i];
+  }
+}
+
+// store in the counter dtype; returns the stored value read back as f32
+template <bool BF>
+__device__ __forceinline__ float store_ctr(void* p, long long i, float x) {
+  if constexpr (BF) {
+    __nv_bfloat16 b = __float2bfloat16_rn(x);
+    ((__nv_bfloat16*)p)[i] = b;
+    return __bfloat162float(b);
+  } else {
+    ((float*)p)[i] = x;
+    return x;
+  }
+}
+
+// decay, then snap below decay_to_zero to 0 (the reference's dk())
+__device__ __forceinline__ float decay_keep(float x, float decay, float dtz) {
+  x = __fmul_rn(x, decay);
+  return x < dtz ? 0.0f : x;
+}
+
+__device__ __forceinline__ int floordiv(int a, int b) {
+  int q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+template <int C, int W, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256)
+receive_kernel(const ReceiveArgs a) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long n = a.n;
+  if (p >= n) return;
+  constexpr uint32_t ALL = (C == 32) ? 0xFFFFFFFFu : ((1u << C) - 1u);
+
+  uint32_t seen[W], heard[W], valid[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    seen[w] = a.seen[w * n + p];
+    heard[w] = 0u;
+    valid[w] = a.valid[w];
+  }
+  const uint32_t pay = a.pay[p];
+  const uint32_t gsp = a.gsp[p];
+
+  // ---- stage 1: the C receiving edges
+  uint32_t graft_recv = 0u, prune_recv = 0u, a_recv = 0u;
+  int fdc[C], ivc[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    long long q = p + a.offsets[j];
+    if (q >= n) q -= n;
+    const uint32_t ctl = a.ctrl[(long long)a.cinv[j] * n + q];
+    graft_recv |= ((ctl >> CTRL_GRAFT) & 1u) << j;
+    prune_recv |= ((ctl >> CTRL_DROP) & 1u) << j;
+    a_recv |= ((ctl >> CTRL_A) & 1u) << j;
+    const uint32_t ok_p = (pay >> j) & 1u;
+    const uint32_t ok_g = ok_p & ((gsp >> j) & 1u);
+    const bool fwd_on = ((ctl >> CTRL_OUT) & ok_p & 1u) != 0u;
+    const bool gsp_on = ((ctl >> CTRL_TGT) & ok_g & 1u) != 0u;
+    int fd_j = 0, iv_j = 0;
+    if (fwd_on || gsp_on) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        uint32_t got = 0u;
+        if (fwd_on) got |= a.fresh[w * n + q];
+        if (gsp_on) got |= a.adv[w * n + q];
+        const uint32_t news = got & ~seen[w];
+        heard[w] |= news;
+        fd_j += __popc(news & valid[w]);
+        iv_j += __popc(news & ~valid[w]);
+      }
+    }
+    fdc[j] = fd_j;
+    ivc[j] = iv_j;
+  }
+
+  // ---- handshake resolution
+  const uint32_t accb = a.acc[p];
+  graft_recv &= accb;
+  prune_recv &= accb;
+  const uint32_t viol = graft_recv & a.bo2[p];
+  const uint32_t accept = graft_recv & a.wa[p];
+  const uint32_t retract = a.grafts[p] & ~a_recv;
+  const uint32_t mesh = ((a.meshsel[p] | accept) & ~prune_recv) & ~retract;
+  a.mesh[p] = mesh;
+  const uint32_t bo_trig = a.dropped[p] | prune_recv | retract;
+  const uint32_t sub_all = a.sub_all[p];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    a.acq[w * n + p] = (sub_all != 0u ? heard[w] : 0u) | a.inj[w * n + p];
+  }
+
+  // ---- per row: backoff, time in mesh, counters, serve ledger, score
+  const float dtz = a.decay_to_zero;
+  const int H = a.history_length;
+  uint32_t bo_gate = 0u, accept_g = 0u, gossip_g = 0u, pub_g = 0u,
+           nonneg_g = 0u, gater = 0u;
+  float inv_tot = 0.0f, del_tot = 0.0f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const long long idx = (long long)c * n + p;
+    const int bo = a.backoff[idx];
+    const int bo_new = ((bo_trig >> c) & 1u) ? a.backoff_restart
+                                             : (bo - 1 > 0 ? bo - 1 : 0);
+    a.backoff_out[idx] = (int16_t)bo_new;
+    bo_gate |= (uint32_t)(bo_new > 0) << c;
+
+    const int tim = a.tim[idx];
+    const int tim_new = ((mesh >> c) & 1u) ? (tim + 1 < 32766 ? tim + 1
+                                                               : 32766)
+                                           : 0;
+    a.tim_out[idx] = (int16_t)tim_new;
+
+    float fdv = __fadd_rn(load_ctr<CBF>(a.fd, idx), (float)fdc[c]);
+    fdv = fminf(fdv, a.fd_cap);
+    const float fd_n = store_ctr<CBF>(a.fd_out, idx,
+                                      decay_keep(fdv, a.fd_decay, dtz));
+    const float invv = __fadd_rn(load_ctr<CBF>(a.inv, idx), (float)ivc[c]);
+    const float inv_n = store_ctr<CBF>(a.inv_out, idx,
+                                       decay_keep(invv, a.inv_decay, dtz));
+    const float bpv = __fadd_rn(load_ctr<BBF>(a.bp, idx),
+                                (float)((viol >> c) & 1u));
+    const float bp_n = store_ctr<BBF>(a.bp_out, idx,
+                                      decay_keep(bpv, a.bp_decay, dtz));
+
+    const int s = a.iws[idx];
+    int srv = s - floordiv(s + (H - 1), H) + fdc[c] + ivc[c];
+    srv = srv < 0 ? 0 : (srv > 30000 ? 30000 : srv);
+    a.iws_out[idx] = (int16_t)srv;
+
+    // the peer-score formula on the stored counters, reference op order
+    const float tq = fminf(__fdiv_rn((float)tim_new, a.tim_quantum),
+                           a.tim_cap);
+    float topic = __fadd_rn(
+        __fadd_rn(__fmul_rn(a.c_tim, tq), __fmul_rn(a.c_fd, fd_n)),
+        __fmul_rn(__fmul_rn(a.c_inv, inv_n), inv_n));
+    if (a.has_topic_cap) topic = fminf(topic, a.topic_cap);
+    const float bp_ex = fmaxf(0.0f, __fsub_rn(bp_n, a.bp_thr));
+    if (a.stat != nullptr) topic = __fadd_rn(topic, a.stat[idx]);
+    const float score =
+        __fadd_rn(topic, __fmul_rn(__fmul_rn(a.w_bp, bp_ex), bp_ex));
+    accept_g |= (uint32_t)(score >= a.gray_thr) << c;
+    gossip_g |= (uint32_t)(score >= a.gossip_thr) << c;
+    pub_g |= (uint32_t)(score >= a.publish_thr) << c;
+    nonneg_g |= (uint32_t)(score >= 0.0f) << c;
+
+    // RED gater draw; the pressure sums run in c order
+    inv_tot = __fadd_rn(inv_tot, inv_n);
+    del_tot = __fadd_rn(del_tot, fd_n);
+    const float one_fd = __fadd_rn(1.0f, fd_n);
+    const float goodput =
+        __fdiv_rn(one_fd, __fadd_rn(one_fd, __fmul_rn(16.0f, inv_n)));
+    gater |= (uint32_t)(lane_u(a.seed_gater, c, p, a.stride) < goodput) << c;
+  }
+  const float inv16 = __fmul_rn(16.0f, inv_tot);
+  const float pressure =
+      __fdiv_rn(inv16, __fadd_rn(__fadd_rn(1.0f, del_tot), inv16));
+  if (!(pressure > 0.33f)) gater |= ALL;
+
+  // next tick's Bernoulli gossip targets
+  const uint32_t elig =
+      a.cand_sub[p] & ~mesh & ~a.fanout[p] & sub_all & gossip_g;
+  const int n_el = __popc(elig);
+  const int n_fac = (int)__fmul_rn(a.gossip_factor, (float)n_el);
+  const int n_go = a.d_lazy > n_fac ? a.d_lazy : n_fac;
+  const float p_g =
+      fminf(1.0f, __fdiv_rn((float)n_go, (float)(n_el > 1 ? n_el : 1)));
+  uint32_t tgt = 0u;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    tgt |= (uint32_t)(lane_u(a.seed_targets, c, p, a.stride) < p_g) << c;
+  }
+
+  a.gates[0 * n + p] = accept_g;
+  a.gates[1 * n + p] = gossip_g;
+  a.gates[2 * n + p] = pub_g;
+  a.gates[3 * n + p] = nonneg_g;
+  a.gates[4 * n + p] = accept_g & gater;
+  a.gates[5 * n + p] = elig & tgt;
+  a.gates[6 * n + p] = bo_gate;
+}
+
+template <int C, int W, bool CBF, bool BBF>
+int launch(const ReceiveArgs& a, cudaStream_t s) {
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((a.n + threads - 1) / threads);
+  receive_kernel<C, W, CBF, BBF><<<blocks, threads, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int C, int W>
+int launch_dtypes(const ReceiveArgs& a, int ctr_bf16, int bp_bf16,
+                  cudaStream_t s) {
+  if (ctr_bf16 && bp_bf16) return launch<C, W, true, true>(a, s);
+  if (ctr_bf16) return launch<C, W, true, false>(a, s);
+  if (!bp_bf16) return launch<C, W, false, false>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// c in {8, 16}, w in {1, 2}; counter/bp storage bf16 (1) or f32 (0).
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for a shape with no instantiation (the wrapper refuses those first).
+extern "C" int gossip_receive_update(const ReceiveArgs* args, int c, int w,
+                                     int ctr_bf16, int bp_bf16,
+                                     void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (args->n <= 0) return 0;
+  if (c == 16 && w == 1) return launch_dtypes<16, 1>(*args, ctr_bf16, bp_bf16, s);
+  if (c == 16 && w == 2) return launch_dtypes<16, 2>(*args, ctr_bf16, bp_bf16, s);
+  if (c == 8 && w == 1) return launch_dtypes<8, 1>(*args, ctr_bf16, bp_bf16, s);
+  if (c == 8 && w == 2) return launch_dtypes<8, 2>(*args, ctr_bf16, bp_bf16, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,788 @@
+"""GossipSub simulator, scored v1.1 heartbeat, in PyTorch.
+
+Counterpart of ``go_libp2p_pubsub_tpu/models/gossipsub.py`` on its
+receive-kernel path: one ``step`` advances one heartbeat for every
+simulated peer — publish injection, fanout maintenance, eager forward
+over mesh ∪ fanout, lazy IHAVE/IWANT gossip, graft/prune maintenance
+with backoff, the P1-P7 score, the threshold gates and the RED gater.
+The receive half (payload receive, handshake, counter updates, next
+tick's gates) is one kernel launch (``ops/kernels/receive.py``); every
+random top-k selection is one launch of the select kernel
+(``ops/kernels/select.py``).  Everything else is plain PyTorch, as the
+reference leaves it to XLA.
+
+Representation (as in the reference): peer p belongs to topic p mod T
+and has C circulant candidates p + o_c; mesh/fanout/gate masks are
+packed words [N] over the candidate bits; message possession is packed
+words [W, N]; per-edge counters are [C, N], peer axis last.  Packed u32
+words are int32 tensors holding the u32 bits.
+
+PyTorch idiom: params and state are dataclasses of tensors, the tick
+and the run salt (the reference's ``key_data(PRNGKey(seed))[-1]``) are
+host ints, and the reference's ``lax.cond`` branches are Python ``if``s
+— run unconditionally where that gives the same bits (a selection with
+k = 0 selects nothing), so the step syncs with the host once per tick
+(the prune check).  The port runs unpadded; options outside the slice
+raise their named refusal (``models/plan.py``).
+"""
+
+from __future__ import annotations
+
+import zlib
+from dataclasses import dataclass, fields, replace
+
+import numpy as np
+import torch
+
+from ..device import check_on, resolve_device
+from ..ops import graph
+from ..ops.graph import (
+    WORD_BITS,
+    expand_bits,
+    lane_seed,
+    lane_uniform,
+    pack_bits,
+    pack_rows,
+    popcount32,
+    ranks_desc,
+    select_k_by_priority_bits,
+)
+from ..ops.kernels import receive as krecv
+from ..ops.kernels import select as kselect
+from . import plan
+from ._delivery import reach_counts_from_first_tick, update_first_tick
+
+
+# --------------------------------------------------------------------------
+# Static configuration (own copies of the reference's dataclasses)
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class GossipSimConfig:
+    """Static simulator config.  Protocol defaults mirror GossipSubParams
+    (reference gossipsub.go:31-59)."""
+
+    offsets: tuple[int, ...]       # C candidate ring offsets, ± paired
+    n_topics: int = 1
+    px_rotation: bool = True
+    paired_topics: bool = False
+    d: int = 6                     # GossipSubD
+    d_lo: int = 5                  # GossipSubDlo
+    d_hi: int = 12                 # GossipSubDhi
+    d_score: int = 4               # GossipSubDscore
+    d_out: int = 2                 # GossipSubDout
+    d_lazy: int = 6                # GossipSubDlazy
+    gossip_factor: float = 0.25    # GossipSubGossipFactor
+    history_gossip: int = 3        # GossipSubHistoryGossip (IHAVE window)
+    history_length: int = 5        # GossipSubHistoryLength (mcache span)
+    backoff_ticks: int = 60        # GossipSubPruneBackoff / heartbeat
+    fanout_ttl_ticks: int = 60     # GossipSubFanoutTTL / heartbeat
+    gossip_retransmission: int = 3   # GossipSubGossipRetransmission
+    max_ihave_length: int = 5000     # GossipSubMaxIHaveLength
+    max_ihave_messages: int = 10     # GossipSubMaxIHaveMessages
+    binomial_gossip_sampling: bool = True
+
+    def __post_init__(self):
+        offs = np.asarray(self.offsets, dtype=np.int64)
+        if len(offs) == 0 or len(set(offs.tolist())) != len(offs):
+            raise ValueError("offsets must be distinct and non-empty")
+        if len(offs) > 32:
+            raise ValueError("at most 32 candidates (uint32 bitmasks)")
+        if not all((-o) in set(offs.tolist()) for o in offs.tolist()):
+            raise ValueError("offsets must be closed under negation")
+        if self.paired_topics and (self.n_topics < 2
+                                   or self.n_topics % 2):
+            raise ValueError("paired_topics needs an even n_topics >= 2")
+        modulus = (self.n_topics // 2 if self.paired_topics
+                   else self.n_topics)
+        if any(o % modulus for o in offs.tolist()):
+            raise ValueError(
+                "offsets must be multiples of n_topics"
+                + ("/2 (paired mode)" if self.paired_topics else ""))
+        if not (self.d_lo <= self.d <= self.d_hi):
+            raise ValueError("need Dlo <= D <= Dhi (gossipsub.go:33-35)")
+        if self.d_score > self.d:
+            raise ValueError("need Dscore <= D")
+        if self.d_out >= self.d_lo or self.d_out > self.d // 2:
+            raise ValueError(
+                "need Dout < Dlo and Dout <= D/2 (gossipsub.go:266-272)")
+        if self.d_hi >= len(offs):
+            raise ValueError("need C > Dhi candidate columns")
+        if self.history_gossip > self.history_length:
+            raise ValueError(
+                "need HistoryGossip <= HistoryLength (gossipsub.go:47)")
+        if self.gossip_retransmission < 1:
+            raise ValueError("gossip_retransmission must be >= 1")
+        if not (1 <= self.backoff_ticks <= 32767):
+            raise ValueError(
+                "backoff_ticks must fit int16 remaining-tick storage")
+        if self.max_ihave_length < 1 or self.max_ihave_messages < 1:
+            raise ValueError("IHAVE caps must be >= 1")
+
+    @property
+    def n_candidates(self) -> int:
+        return len(self.offsets)
+
+    @property
+    def cinv(self) -> tuple[int, ...]:
+        """cinv[c] = bit of the negated offset (the partner's view of
+        edge bit c)."""
+        idx = {o: i for i, o in enumerate(self.offsets)}
+        return tuple(idx[-o] for o in self.offsets)
+
+    @property
+    def outbound_mask(self) -> int:
+        """Bitmask of outbound candidate bits (positive offsets)."""
+        return sum(1 << c for c, o in enumerate(self.offsets) if o > 0)
+
+
+def _pack_bits_pm_np(bits: np.ndarray) -> np.ndarray:
+    """Host-side bool [N, M] -> uint32 [W, N] (little-endian bit order:
+    bit j of word w = column w*32 + j)."""
+    n, m = bits.shape
+    w = (m + WORD_BITS - 1) // WORD_BITS
+    pad = w * WORD_BITS - m
+    if pad:
+        bits = np.concatenate(
+            [bits, np.zeros((n, pad), dtype=bits.dtype)], axis=-1)
+    words = np.packbits(bits.astype(np.uint8), axis=-1,
+                        bitorder="little").view("<u4").astype(
+                            np.uint32, copy=False)
+    return np.ascontiguousarray(words.T)
+
+
+def make_gossip_offsets(n_topics: int, n_candidates: int, n_peers: int,
+                        seed: int = 0,
+                        paired: bool = False) -> tuple[int, ...]:
+    """Random ± paired circulant offsets ≡ 0 (mod n_topics)."""
+    modulus = n_topics // 2 if paired else n_topics
+    offs = graph.make_circulant_offsets(modulus, n_candidates, n_peers,
+                                        seed=seed)
+    return tuple(int(o) for o in offs)
+
+
+@dataclass(frozen=True)
+class ScoreSimConfig:
+    """Static v1.1 hardening config: the peer-score formula (P1..P7,
+    score.go:256-333), thresholds (score_params.go:12-32) and the sybil
+    behaviour toggles.  Decays are per-tick factors."""
+
+    topic_weight: float = 1.0
+    topic_score_cap: float = 0.0
+    time_in_mesh_weight: float = 0.1
+    time_in_mesh_quantum: int = 1
+    time_in_mesh_cap: float = 10.0
+    first_message_deliveries_weight: float = 1.0
+    first_message_deliveries_decay: float = 0.9
+    first_message_deliveries_cap: float = 50.0
+    mesh_message_deliveries_weight: float = 0.0
+    mesh_message_deliveries_decay: float = 0.9
+    mesh_message_deliveries_cap: float = 20.0
+    mesh_message_deliveries_threshold: float = 1.0
+    mesh_message_deliveries_activation: int = 5
+    mesh_failure_penalty_weight: float = 0.0
+    mesh_failure_penalty_decay: float = 0.9
+    invalid_message_deliveries_weight: float = -10.0
+    invalid_message_deliveries_decay: float = 0.95
+    app_specific_weight: float = 1.0
+    ip_colocation_factor_weight: float = -5.0
+    ip_colocation_factor_threshold: float = 1.0
+    behaviour_penalty_weight: float = -10.0
+    behaviour_penalty_decay: float = 0.9
+    behaviour_penalty_threshold: float = 0.0
+    decay_to_zero: float = 0.01
+    gossip_threshold: float = -10.0
+    publish_threshold: float = -50.0
+    graylist_threshold: float = -80.0
+    opportunistic_graft_threshold: float = 1.0
+    opportunistic_graft_ticks: int = 60
+    opportunistic_graft_peers: int = 2
+    flood_publish: bool = False
+    sybil_ihave_spam: bool = False
+    sybil_graft_flood: bool = False
+    sybil_iwant_spam: bool = False
+    sybil_eclipse: bool = False
+    byzantine_mutation: bool = False
+    counter_dtype: str = "bfloat16"
+
+    @property
+    def bp_dtype(self) -> str:
+        """behaviour_penalty storage dtype: counter_dtype while the
+        decaying counter's worst case 2/(1-decay) stays far below bf16's
+        +1-absorption point, else float32."""
+        if self.counter_dtype == "float32":
+            return "float32"
+        if 2.0 / (1.0 - self.behaviour_penalty_decay) < 128.0:
+            return self.counter_dtype
+        return "float32"
+
+    @property
+    def track_p3(self) -> bool:
+        """P3/P3b bookkeeping is on when either weight is nonzero."""
+        return (self.mesh_message_deliveries_weight != 0
+                or self.mesh_failure_penalty_weight != 0)
+
+    def validate(self) -> None:
+        """The reference's sign/range invariants (score_params.go)."""
+        if self.topic_weight < 0:
+            raise ValueError("topic_weight must be >= 0")
+        for name in ("time_in_mesh_weight", "first_message_deliveries_weight",
+                     "app_specific_weight"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0")
+        for name in ("mesh_message_deliveries_weight",
+                     "mesh_failure_penalty_weight",
+                     "invalid_message_deliveries_weight",
+                     "ip_colocation_factor_weight",
+                     "behaviour_penalty_weight"):
+            if getattr(self, name) > 0:
+                raise ValueError(f"{name} must be <= 0")
+        for name in ("first_message_deliveries_decay",
+                     "mesh_message_deliveries_decay",
+                     "mesh_failure_penalty_decay",
+                     "invalid_message_deliveries_decay",
+                     "behaviour_penalty_decay"):
+            d = getattr(self, name)
+            if not (0 < d < 1):
+                raise ValueError(f"{name} must be in (0, 1)")
+        if not (self.graylist_threshold <= self.publish_threshold
+                <= self.gossip_threshold <= 0):
+            raise ValueError(
+                "need graylist <= publish <= gossip threshold <= 0")
+
+
+# --------------------------------------------------------------------------
+# Params and state: dataclasses of tensors
+# --------------------------------------------------------------------------
+
+
+@dataclass
+class GossipParams:
+    """Per-simulation tensors.  Row c, column p of a [C, N] view
+    describes candidate p + o_c."""
+
+    subscribed: torch.Tensor        # bool [N]
+    cand_sub_bits: torch.Tensor     # int32 [N]: bit c = candidate subscribed
+    origin_words: torch.Tensor      # int32 [W, N]: bit m set at origin[m]
+    deliver_words: torch.Tensor     # int32 [W, N]: msg m counts as delivery
+    publish_tick: torch.Tensor      # int32 [M]
+    invalid_words: torch.Tensor     # int32 [W]: msg fails validation
+    cand_app_score: torch.Tensor    # f32 [C, N]: P5 of candidate
+    cand_colo_excess: torch.Tensor  # f32 [C, N]: P6 surplus
+    cand_static_score: torch.Tensor  # f32 [C, N]: baked P5 + P6 term
+    static_score_weights: tuple     # (app weight, colocation weight)
+    static_score_zero: bool         # baked term identically zero
+    cand_sybil: torch.Tensor        # bool [C, N]
+    sybil: torch.Tensor             # bool [N]
+
+
+@dataclass
+class ScoreState:
+    """Per-edge reputation counters, [C, N]: p's view of candidate
+    p + o_c."""
+
+    time_in_mesh: torch.Tensor        # int16 (P1)
+    first_deliveries: torch.Tensor    # counter dtype (P2)
+    invalid_deliveries: torch.Tensor  # counter dtype (P4)
+    behaviour_penalty: torch.Tensor   # bp dtype (P7)
+
+
+@dataclass
+class GossipState:
+    mesh: torch.Tensor          # int32 [N] mesh membership bitmask
+    fanout: torch.Tensor        # int32 [N] publish-without-join bitmask
+    last_pub: torch.Tensor      # int32 [N] last publish tick
+    backoff: torch.Tensor       # int16 [C, N] remaining backoff ticks
+    have: torch.Tensor          # int32 [W, N]
+    recent: torch.Tensor        # int32 [Hg, W, N] mcache ring
+    first_tick: torch.Tensor | None  # int16 [W, 32, N]
+    scores: ScoreState
+    iwant_serves: torch.Tensor  # int16 [C, N] IWANT-serve ledger
+    gates: tuple                # 7 x int32 [N], this tick's gate words
+    gates_fp: int               # fingerprint of the gates' config
+    salt: int                   # run seed, key_data(PRNGKey(seed))[-1]
+    tick: int
+
+
+# --------------------------------------------------------------------------
+# Building a sim
+# --------------------------------------------------------------------------
+
+
+def _words(a: np.ndarray, device) -> torch.Tensor:
+    """Host uint32 words -> int32 tensor of the same bits."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32)
+                            .view(np.int32)).to(device)
+
+
+def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
+                    msg_topic: np.ndarray, msg_origin: np.ndarray,
+                    msg_publish_tick: np.ndarray, seed: int = 0,
+                    track_first_tick: bool = True,
+                    score_cfg: ScoreSimConfig | None = None,
+                    app_score: np.ndarray | None = None,
+                    peer_ip: np.ndarray | None = None,
+                    sybil: np.ndarray | None = None,
+                    msg_invalid: np.ndarray | None = None,
+                    flood_proto=None, promise_break=None,
+                    px_candidates=None, direct_edges=None,
+                    pad_to_block=None, fault_schedule=None,
+                    eclipse_sybil=None, eclipse_victim=None,
+                    byzantine=None, score_knobs=None, sim_knobs=None,
+                    delays=None, delays_split: bool = False,
+                    delays_counters: bool = False,
+                    delays_probe: bool = False, *,
+                    device: str | torch.device | None = None):
+    """Build (params, state) on ``device`` (default ``cuda``).
+
+    subs: bool [N, T], each peer subscribed to at most its residue-class
+    topic.  score_cfg is required (the unscored step is refused);
+    app_score [N] f32 is P5, sybil [N] flags peers that forward invalid
+    messages, msg_invalid [M] marks messages failing validation, peer_ip
+    [N] must give every peer its own address."""
+    dev = resolve_device(device)
+    plan.check_sim_options(
+        flood_proto=flood_proto, promise_break=promise_break,
+        px_candidates=px_candidates, direct_edges=direct_edges,
+        pad_to_block=pad_to_block, fault_schedule=fault_schedule,
+        eclipse_sybil=eclipse_sybil, eclipse_victim=eclipse_victim,
+        byzantine=byzantine, score_knobs=score_knobs, sim_knobs=sim_knobs,
+        delays=delays, delays_split=delays_split,
+        delays_counters=delays_counters, delays_probe=delays_probe)
+    plan.check_kernel_config(cfg, score_cfg)
+    sc = score_cfg
+    n, t = subs.shape
+    if t != cfg.n_topics:
+        raise ValueError("subs topic dim != cfg.n_topics")
+    own_topic = np.arange(n) % cfg.n_topics
+    m = len(msg_topic)
+    if m == 0:
+        plan.refuse("no_messages")
+    if m > cfg.max_ihave_length:
+        raise ValueError(
+            f"n_msgs={m} exceeds max_ihave_length="
+            f"{cfg.max_ihave_length}: the sim's one-IHAVE-per-edge "
+            "advert must fit the reference cap")
+    origin_bits = np.zeros((n, m), dtype=bool)
+    origin_bits[msg_origin, np.arange(m)] = True
+    cross = subs & ~(np.arange(t)[None, :] == own_topic[:, None])
+    if cross.any():
+        raise ValueError("peers may only subscribe to topic (p mod T)")
+    subscribed = subs[np.arange(n), own_topic]
+    if ((msg_origin % cfg.n_topics) != msg_topic).any():
+        raise ValueError("msg origin must be in the topic's residue class")
+    deliver_bits = subscribed[:, None] & (own_topic[:, None]
+                                          == msg_topic[None, :])
+
+    def cand_view(per_peer):
+        """out[c, p] = per_peer[p + o_c]."""
+        return np.stack([np.roll(per_peer, -o) for o in cfg.offsets],
+                        axis=0)
+
+    def cand_bits(per_peer_bool):
+        """Packed: bit c set iff per_peer[p + o_c]."""
+        out = np.zeros(n, dtype=np.uint32)
+        for c, o in enumerate(cfg.offsets):
+            out |= np.roll(per_peer_bool, -o).astype(np.uint32) << c
+        return out
+
+    sc.validate()
+    app = (np.zeros(n, dtype=np.float32) if app_score is None
+           else np.asarray(app_score, dtype=np.float32))
+    syb = (np.zeros(n, dtype=bool) if sybil is None
+           else np.asarray(sybil, dtype=bool))
+    if peer_ip is None:
+        peer_ip = np.arange(n)
+    _, ip_idx = np.unique(np.asarray(peer_ip), return_inverse=True)
+    colo_count = np.bincount(ip_idx)[ip_idx].astype(np.float32)
+    if (colo_count > 1).any():
+        plan.refuse("shared_ip")
+    colo_excess = np.maximum(
+        0.0, colo_count - sc.ip_colocation_factor_threshold)
+    inv = (np.zeros(m, dtype=bool) if msg_invalid is None
+           else np.asarray(msg_invalid, dtype=bool))
+    app_v = cand_view(app)
+    colo_v = cand_view(colo_excess)
+    static = (sc.app_specific_weight * app_v
+              + sc.ip_colocation_factor_weight * colo_v * colo_v)
+
+    def t_(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    params = GossipParams(
+        subscribed=t_(subscribed),
+        cand_sub_bits=_words(cand_bits(subscribed), dev),
+        origin_words=_words(_pack_bits_pm_np(origin_bits), dev),
+        deliver_words=_words(_pack_bits_pm_np(deliver_bits), dev),
+        publish_tick=t_(np.asarray(msg_publish_tick, dtype=np.int32)),
+        invalid_words=_words(_pack_bits_pm_np(inv[None, :])[:, 0], dev),
+        cand_app_score=t_(app_v.astype(np.float32)),
+        cand_colo_excess=t_(colo_v.astype(np.float32)),
+        cand_static_score=t_(static.astype(np.float32)),
+        static_score_weights=(sc.app_specific_weight,
+                              sc.ip_colocation_factor_weight),
+        static_score_zero=bool(not app_v.any() and not colo_v.any()),
+        cand_sybil=t_(cand_view(syb)),
+        sybil=t_(syb))
+    w = params.origin_words.shape[0]
+    c = cfg.n_candidates
+    cdt = krecv.DTYPES[sc.counter_dtype]
+    i16 = lambda: torch.zeros((c, n), dtype=torch.int16, device=dev)  # noqa: E731
+    zbits = lambda: torch.zeros((n,), dtype=torch.int32, device=dev)  # noqa: E731
+    state = GossipState(
+        mesh=zbits(), fanout=zbits(),
+        last_pub=torch.full((n,), -(10 ** 9), dtype=torch.int32,
+                            device=dev),
+        backoff=i16(),
+        have=torch.zeros((w, n), dtype=torch.int32, device=dev),
+        recent=torch.zeros((cfg.history_gossip, w, n), dtype=torch.int32,
+                           device=dev),
+        first_tick=(torch.full((w, WORD_BITS, n), -1, dtype=torch.int16,
+                               device=dev) if track_first_tick else None),
+        scores=ScoreState(
+            time_in_mesh=i16(),
+            first_deliveries=torch.zeros((c, n), dtype=cdt, device=dev),
+            invalid_deliveries=torch.zeros((c, n), dtype=cdt, device=dev),
+            behaviour_penalty=torch.zeros(
+                (c, n), dtype=krecv.DTYPES[sc.bp_dtype], device=dev)),
+        iwant_serves=i16(), gates=(), gates_fp=0,
+        salt=seed & graph.MASK32, tick=0)
+    # seed the gate pipeline: tick 0's gate words
+    return params, refresh_gates(cfg, sc, params, state)
+
+
+# --------------------------------------------------------------------------
+# Scores and gates
+# --------------------------------------------------------------------------
+
+
+def _static_term(sc: ScoreSimConfig, params: GossipParams):
+    """The baked P5+P6 term, or None when it is identically zero."""
+    if params.static_score_zero:
+        return None
+    if params.static_score_weights != (sc.app_specific_weight,
+                                       sc.ip_colocation_factor_weight):
+        plan.refuse("reweighted_static")
+    return params.cand_static_score
+
+
+def compute_scores(sc: ScoreSimConfig, params: GossipParams,
+                   st: GossipState,
+                   cols: torch.Tensor | None = None) -> torch.Tensor:
+    """The peer-score formula, densified: f32 [C, N] — peer p's opinion
+    of candidate p + o_c (score.go:256-333).  ``cols`` (int64 peer
+    indices) computes only those columns."""
+    s = st.scores
+
+    def g(x):
+        return x if cols is None else x.index_select(1, cols)
+
+    static = _static_term(sc, params)
+    return krecv.score_from_counters(
+        krecv.score_consts(sc), g(s.time_in_mesh).to(torch.float32),
+        g(s.first_deliveries).to(torch.float32),
+        g(s.invalid_deliveries).to(torch.float32),
+        g(s.behaviour_penalty).to(torch.float32),
+        None if static is None else g(static))
+
+
+def gates_fingerprint(cfg: GossipSimConfig,
+                      sc: ScoreSimConfig | None) -> int:
+    """Stable fingerprint of the scalar config fields the carried gate
+    words depend on (the reference's, field for field)."""
+    def scalars(obj):
+        return tuple(
+            (f.name, getattr(obj, f.name)) for f in fields(obj)
+            if isinstance(getattr(obj, f.name),
+                          (bool, int, float, str, type(None))))
+
+    desc = (("C", cfg.n_candidates),
+            ("offsets", tuple(int(o) for o in cfg.offsets)),
+            scalars(cfg), None if sc is None else scalars(sc))
+    return zlib.crc32(repr(desc).encode())
+
+
+def gossip_targets_row(cfg: GossipSimConfig, sc: ScoreSimConfig,
+                       params: GossipParams, *, mesh, fanout, gossip_row,
+                       tick: int, salt: int) -> torch.Tensor:
+    """The lazy-gossip targets gate row: Bernoulli(k/|elig|) over the
+    non-mesh subscribed candidates above the gossip threshold, k =
+    max(Dlazy, factor * |elig|) (emitGossip gossipsub.go:1656-1712)."""
+    k = krecv.receive_consts(cfg, sc)
+    all_c = (1 << cfg.n_candidates) - 1
+    sub_all = torch.where(params.subscribed, all_c, 0).to(torch.int32)
+    elig = params.cand_sub_bits & ~mesh & ~fanout & sub_all & gossip_row
+    return krecv.targets_row(k, elig, lane_seed(tick, 1, salt),
+                             mesh.shape[0])
+
+
+def compute_gates(cfg: GossipSimConfig, sc: ScoreSimConfig,
+                  params: GossipParams, st: GossipState,
+                  salt: int) -> tuple:
+    """The packed gate words for ``st.tick`` (tuple of 7 int32 [N]):
+    accept, gossip, publish, nonneg, payload (accept ∧ RED gater),
+    targets, backoff — the reference's compute_gates rows."""
+    k = krecv.receive_consts(cfg, sc)
+    n = st.mesh.shape[0]
+    score = compute_scores(sc, params, st)
+    accept = pack_rows(score >= k.gray_thr)
+    gossip = pack_rows(score >= k.gossip_thr)
+    rows = [accept, gossip, pack_rows(score >= k.publish_thr),
+            pack_rows(score >= 0)]
+    s0 = st.scores
+    gater = krecv.gater_row(s0.first_deliveries.to(torch.float32),
+                            s0.invalid_deliveries.to(torch.float32),
+                            lane_seed(st.tick, 6, salt), n)
+    rows.append(accept & gater)
+    rows.append(gossip_targets_row(cfg, sc, params, mesh=st.mesh,
+                                   fanout=st.fanout, gossip_row=gossip,
+                                   tick=st.tick, salt=salt))
+    rows.append(pack_rows(st.backoff > 0))
+    return tuple(rows)
+
+
+def refresh_gates(cfg: GossipSimConfig, sc: ScoreSimConfig,
+                  params: GossipParams, st: GossipState) -> GossipState:
+    """Recompute the carried gate words (after building a state, or
+    after editing any field they read)."""
+    return replace(st, gates=compute_gates(cfg, sc, params, st, st.salt),
+                   gates_fp=gates_fingerprint(cfg, sc))
+
+
+# --------------------------------------------------------------------------
+# The step
+# --------------------------------------------------------------------------
+
+
+def _prunes(cfg: GossipSimConfig, sc: ScoreSimConfig,
+            params: GossipParams, state: GossipState,
+            mesh_ng: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
+    """Prune to D where deg > Dhi: keep the Dscore best by score, then
+    at least Dout outbound, random fill to D (v1.1, gossipsub.go:
+    1376-1435).  Per-peer independent, so computed on the columns of
+    the over-subscribed peers only — the step's one host sync."""
+    C = cfg.n_candidates
+    idx = torch.nonzero(deg > cfg.d_hi).flatten()
+    prunes = torch.zeros_like(mesh_ng)
+    if idx.numel() == 0:
+        return prunes
+    n = mesh_ng.shape[0]
+    score = compute_scores(sc, params, state, cols=idx)
+    rnd = lane_uniform((C, n), state.tick, 3, state.salt, stride=n,
+                       device=mesh_ng.device, cols=idx)
+    m_s = mesh_ng.index_select(0, idx)
+    top = select_k_by_priority_bits(m_s, score,
+                                    torch.full_like(m_s, cfg.d_score),
+                                    tiebreak=rnd)
+    out = cfg.outbound_mask
+    need_out = (cfg.d_out - popcount32(top & out)).clamp(min=0)
+    taken = top | select_k_by_priority_bits(m_s & ~top & out, rnd,
+                                            need_out)
+    fill = select_k_by_priority_bits(
+        m_s & ~taken, rnd, (cfg.d - popcount32(taken)).clamp(min=0))
+    prunes[idx] = m_s & ~(taken | fill)
+    return prunes
+
+
+def _opportunistic(sc: ScoreSimConfig, params: GossipParams,
+                   state: GossipState, mesh_ng: torch.Tensor,
+                   deg: torch.Tensor, can_graft: torch.Tensor):
+    """Opportunistic grafting (gossipsub.go:1467-1498): where the mesh's
+    median score is below the threshold, up to opportunistic_graft_peers
+    graftable candidates scoring above the median.  Returns the
+    selection's (eligible bits, k)."""
+    C = state.backoff.shape[0]
+    score = compute_scores(sc, params, state)
+    in_mesh = expand_bits(mesh_ng, C)
+    # median = the mesh bit at descending rank C-1-deg//2 (non-mesh bits
+    # pinned to +inf rank first); one pick per peer with deg > 0, so
+    # the sum over C is exact in any order
+    mesh_rank = ranks_desc(torch.where(in_mesh, score, torch.inf))
+    med_pick = in_mesh & (mesh_rank == (C - 1 - deg // 2)[None, :])
+    median = torch.where(deg > 0,
+                         torch.where(med_pick, score, 0.0).sum(0), 0.0)
+    og_row = (median < sc.opportunistic_graft_threshold) & params.subscribed
+    og_elig = can_graft & pack_rows(score > median[None, :])
+    og_need = torch.where(og_row, sc.opportunistic_graft_peers, 0)
+    return og_elig, og_need.to(torch.int32)
+
+
+def make_gossip_step(cfg: GossipSimConfig,
+                     score_cfg: ScoreSimConfig | None = None, *,
+                     device: str | torch.device | None = None,
+                     force_split: bool = False,
+                     pipeline_gates: bool = True, shard_mesh=None,
+                     telemetry=None, rpc_probe: bool = False,
+                     invariants=None):
+    """Build ``step(params, state) -> (state, delivered_words)``.
+
+    Per tick: 1. inject due publishes; 1b. fanout TTL and refill;
+    2. eager forward over mesh ∪ fanout; 3. lazy gossip over this
+    tick's target row; 4. maintenance selections (negative-score drops,
+    graft to D below Dlo, score-ranked prune to D above Dhi,
+    opportunistic graft every opportunistic_graft_ticks); then the
+    receive kernel resolves the exchange and emits next tick's gates.
+    """
+    dev = resolve_device(device)
+    plan.check_step_options(force_split=force_split,
+                            pipeline_gates=pipeline_gates,
+                            shard_mesh=shard_mesh, telemetry=telemetry,
+                            rpc_probe=rpc_probe, invariants=invariants)
+    k = krecv.receive_consts(cfg, score_cfg)
+    sc = score_cfg
+    C = cfg.n_candidates
+    ALL = (1 << C) - 1
+    Hg = cfg.history_gossip
+    step_fp = gates_fingerprint(cfg, sc)
+
+    def step(params: GossipParams, state: GossipState):
+        check_on(dev, subscribed=params.subscribed, mesh=state.mesh)
+        if len(state.gates) != krecv.N_GATES:
+            raise ValueError(
+                f"state carries {len(state.gates)} gate words, the step "
+                f"expects {krecv.N_GATES}: refresh_gates first")
+        if state.gates_fp != step_fp:
+            raise ValueError(
+                "state's carried gates were emitted under a different "
+                "(cfg, score_cfg) than this step's — refresh_gates with "
+                "the new config before stepping")
+        tick, salt = state.tick, state.salt
+        sub = params.subscribed
+        n = sub.shape[0]
+        sub_all = torch.where(sub, ALL, 0).to(torch.int32)
+        cand_sub = params.cand_sub_bits
+        (accept_bits, gossip_bits, pub_ok_bits, nonneg_bits, payload_bits,
+         targets, bo_row) = state.gates
+        valid = ~params.invalid_words                       # [W]
+        static = _static_term(sc, params)
+
+        def sel_k(elig, kk, phase):
+            return kselect.select_k_bits(elig, kk, C,
+                                         lane_seed(tick, phase, salt), n)
+
+        # -- 1. publish injection
+        due = pack_bits(params.publish_tick == tick)        # [W]
+        injected = params.origin_words & due[:, None] & ~state.have
+        publishing = (injected != 0).any(0)
+
+        # -- 1b. fanout TTL + refill (own publishes only)
+        last_pub = torch.where(publishing, tick, state.last_pub)
+        alive = ~sub & ((tick - last_pub) < cfg.fanout_ttl_ticks)
+        fanout = torch.where(alive, state.fanout, 0)
+        f_need = torch.where(alive, cfg.d - popcount32(fanout), 0)
+        f_elig = cand_sub & ~fanout & pub_ok_bits
+        fanout = fanout | sel_k(f_elig, f_need.to(torch.int32), 4)
+
+        # -- 2. eager-forward and 3. advert words (honest peers drop
+        # invalid messages; sybils forward them)
+        syb = params.sybil[None, :]
+        fresh = state.recent[(tick - 1) % Hg] | injected
+        fresh = torch.where(syb, fresh, fresh & valid[:, None])
+        adv = injected
+        for h in range(Hg):
+            adv = adv | state.recent[h]
+        adv = torch.where(syb, adv, adv & valid[:, None])
+        out_bits = state.mesh | fanout
+        seen = state.have | injected
+
+        # -- 4. maintenance selections (start-of-tick state only)
+        mesh0 = state.mesh
+        neg = mesh0 & ~nonneg_bits
+        mesh_ng = mesh0 & nonneg_bits
+        deg = popcount32(mesh_ng)
+        can_graft = (cand_sub & ~mesh_ng & ~bo_row & sub_all
+                     & nonneg_bits)
+        need = torch.where(deg < cfg.d_lo, cfg.d - deg, 0).to(torch.int32)
+        grafts = sel_k(can_graft, need, 2)
+        prunes = _prunes(cfg, sc, params, state, mesh_ng, deg)
+        if tick % sc.opportunistic_graft_ticks == 0:
+            grafts = grafts | sel_k(
+                *_opportunistic(sc, params, state, mesh_ng, deg,
+                                can_graft & ~grafts), 5)
+        mesh_sel = (mesh_ng | grafts) & ~prunes
+        dropped = prunes | neg
+        backoff_bits2 = bo_row | dropped
+        would_accept = sub_all & ~backoff_bits2 & nonneg_bits
+        a_sent = would_accept | ~accept_bits
+
+        # -- the receive kernel: exchange, handshake, counters, gates
+        # no withholding senders in the slice: the delivering advert
+        # (CTRL_TGT) is the raw advert (CTRL_ADV)
+        ctrl = krecv.ctrl_bytes(C, out=out_bits, tgt=targets, graft=grafts,
+                                drop=dropped, a=a_sent, adv=targets)
+        s0 = state.scores
+        outs = krecv.receive_update(
+            k, valid=valid,
+            gseeds=(lane_seed(tick + 1, 6, salt),
+                    lane_seed(tick + 1, 1, salt)),
+            ctrl=ctrl, fresh=fresh, adv=adv, pay=payload_bits,
+            gsp=gossip_bits, acc=accept_bits, sub_all=sub_all,
+            cand_sub=cand_sub, fanout=fanout, wa=would_accept,
+            bo2=backoff_bits2, grafts=grafts, dropped=dropped,
+            meshsel=mesh_sel, seen=seen, injected=injected,
+            backoff=state.backoff, static=static,
+            fd=s0.first_deliveries, inv=s0.invalid_deliveries,
+            bp=s0.behaviour_penalty, tim=s0.time_in_mesh,
+            iws=state.iwant_serves)
+        acq, mesh_new, backoff_new = outs[:3]
+        gates_new = tuple(outs[3:3 + krecv.N_GATES])
+        fd_o, inv_o, bp_o, tim_o, iws_o = outs[3 + krecv.N_GATES:]
+
+        # -- epilogue: possession, mcache ring, deliveries, tick
+        recent = state.recent.clone()
+        recent[tick % Hg] = acq
+        delivered_now = (acq & params.deliver_words
+                         & ~params.invalid_words[:, None])
+        new_state = GossipState(
+            mesh=mesh_new, fanout=fanout, last_pub=last_pub,
+            backoff=backoff_new, have=state.have | acq, recent=recent,
+            first_tick=update_first_tick(state.first_tick, delivered_now,
+                                         tick),
+            scores=ScoreState(time_in_mesh=tim_o, first_deliveries=fd_o,
+                              invalid_deliveries=inv_o,
+                              behaviour_penalty=bp_o),
+            iwant_serves=iws_o, gates=gates_new, gates_fp=state.gates_fp,
+            salt=salt, tick=tick + 1)
+        return new_state, delivered_now
+
+    return step
+
+
+# --------------------------------------------------------------------------
+# Runners and readouts
+# --------------------------------------------------------------------------
+
+
+def gossip_run(params: GossipParams, state: GossipState, n_ticks: int,
+               step, *, device: str | torch.device | None = None
+               ) -> GossipState:
+    """Advance ``n_ticks`` heartbeats on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    check_on(dev, subscribed=params.subscribed, mesh=state.mesh)
+    for _ in range(n_ticks):
+        state = step(params, state)[0]
+    return state
+
+
+def reach_counts(params: GossipParams, state: GossipState) -> torch.Tensor:
+    return reach_counts_from_first_tick(state.first_tick,
+                                        params.publish_tick.shape[0])
+
+
+def reach_counts_from_have(params: GossipParams, state: GossipState,
+                           mask: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """Per-message reached-peer counts from the possession words
+    (optional bool [N] ``mask`` restricts the count)."""
+    m = params.publish_tick.shape[0]
+    shifts = torch.arange(WORD_BITS, dtype=torch.int32,
+                          device=state.have.device)
+    bits = (state.have[:, None, :] >> shifts[None, :, None]) & 1
+    if mask is not None:
+        bits = bits * mask.to(torch.int32)[None, None, :]
+    return bits.sum(2, dtype=torch.int32).reshape(-1)[:m]
+
+
+def mesh_degrees(state: GossipState) -> torch.Tensor:
+    return popcount32(state.mesh)

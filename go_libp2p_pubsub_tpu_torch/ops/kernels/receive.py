@@ -1,0 +1,430 @@
+"""The heartbeat's receive half: the CUDA kernel ``csrc/receive.cu`` and
+its plain PyTorch version.
+
+Counterpart of ``go_libp2p_pubsub_tpu/ops/pallas/receive.py``
+(``make_receive_update`` / ``_receive_kernel``) for the scored, unpaired
+flagship options.  The port runs unpadded, so the sender view of edge j
+is the plain ``(p + o_j) mod N`` read — no wrap-extended flats.
+
+Operands (peer axis last, packed u32 words as int32):
+
+- ``valid`` int32 [W]: message validity masks (``~invalid_words``);
+- ``gseeds`` (gater, targets): host u32 lane seeds for tick + 1;
+- ``ctrl`` uint8 [C, N]: per sender edge bit, the CTRL_* flags;
+- ``fresh``, ``adv`` [W, N]: the senders' eager and advert words;
+- ``pay``, ``gsp``, ``acc``, ``sub_all``, ``cand_sub``, ``fanout``,
+  ``wa``, ``bo2``, ``grafts``, ``dropped``, ``meshsel`` [N];
+- ``seen``, ``injected`` [W, N]; ``backoff`` int16 [C, N];
+- ``static`` f32 [C, N] or None (an all-zero static score is elided);
+- ``fd``, ``inv`` (counter dtype), ``bp`` (bp dtype), ``tim``, ``iws``
+  int16, all [C, N].
+
+Returns ``(acq [W, N], mesh [N], backoff [C, N], *gates (7 x [N]), fd,
+inv, bp, tim, iws)`` — make_receive_update's output order.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import graph
+from ...models import plan
+from . import _build
+
+# ctrl byte layout (receive.py CTRL_*): per sender edge bit c, one byte
+CTRL_OUT = 0       # eager-forward member (mesh | fanout)
+CTRL_TGT = 1       # lazy-gossip target (delivering)
+CTRL_GRAFT = 2     # GRAFT sent
+CTRL_DROP = 3      # PRUNE sent (prunes | negative-score drops)
+CTRL_A = 4         # "no PRUNE would come back"
+CTRL_ADV = 5       # raw IHAVE advert
+N_GATES = 7        # accept, gossip, publish, nonneg, payload, targets, backoff
+
+#: launches of the CUDA kernel (a plain integer; chip_smoke.py resets it
+#: before the main path and reads it after)
+launches = 0
+
+#: (C, W) shapes the CUDA kernel is instantiated for
+KERNEL_SHAPES = {(8, 1), (8, 2), (16, 1), (16, 2)}
+
+#: ScoreSimConfig counter_dtype / bp_dtype names -> torch dtypes
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _f32(x: float) -> float:
+    """A host scalar rounded once to f32, as a weak-typed JAX scalar is
+    (products of config floats fold in double first)."""
+    return float(np.float32(x))
+
+
+@dataclass(frozen=True)
+class ScoreConsts:
+    """The peer-score formula's scalars, each folded on the host (in
+    double) and rounded once to f32."""
+
+    c_tim: float           # topic_weight * time_in_mesh_weight
+    tim_quantum: float
+    tim_cap: float
+    c_fd: float            # topic_weight * first_message_deliveries_weight
+    c_inv: float           # topic_weight * invalid_message_deliveries_weight
+    topic_cap: float
+    bp_thr: float
+    w_bp: float
+
+
+def score_consts(sc) -> ScoreConsts:
+    w_t = sc.topic_weight
+    return ScoreConsts(
+        c_tim=_f32(w_t * sc.time_in_mesh_weight),
+        tim_quantum=_f32(sc.time_in_mesh_quantum),
+        tim_cap=_f32(sc.time_in_mesh_cap),
+        c_fd=_f32(w_t * sc.first_message_deliveries_weight),
+        c_inv=_f32(w_t * sc.invalid_message_deliveries_weight),
+        topic_cap=_f32(sc.topic_score_cap),
+        bp_thr=_f32(sc.behaviour_penalty_threshold),
+        w_bp=_f32(sc.behaviour_penalty_weight))
+
+
+@dataclass(frozen=True)
+class ReceiveConsts:
+    """The static scalars of one (cfg, score_cfg), folded on the host."""
+
+    offsets: tuple[int, ...]
+    cinv: tuple[int, ...]
+    counter_dtype: torch.dtype
+    bp_dtype: torch.dtype
+    backoff_restart: int
+    d_lazy: int
+    history_length: int
+    gossip_factor: float
+    fd_cap: float
+    fd_decay: float
+    inv_decay: float
+    bp_decay: float
+    decay_to_zero: float
+    gray_thr: float
+    gossip_thr: float
+    publish_thr: float
+    score: ScoreConsts
+
+    @property
+    def n_candidates(self) -> int:
+        return len(self.offsets)
+
+
+def receive_consts(cfg, sc) -> ReceiveConsts:
+    """Check the options (named refusals outside the slice) and fold the
+    constants."""
+    plan.check_kernel_config(cfg, sc)
+    return ReceiveConsts(
+        offsets=tuple(int(o) for o in cfg.offsets), cinv=tuple(cfg.cinv),
+        counter_dtype=DTYPES[sc.counter_dtype],
+        bp_dtype=DTYPES[sc.bp_dtype],
+        backoff_restart=cfg.backoff_ticks - 1, d_lazy=cfg.d_lazy,
+        history_length=cfg.history_length,
+        gossip_factor=_f32(cfg.gossip_factor),
+        fd_cap=_f32(sc.first_message_deliveries_cap),
+        fd_decay=_f32(sc.first_message_deliveries_decay),
+        inv_decay=_f32(sc.invalid_message_deliveries_decay),
+        bp_decay=_f32(sc.behaviour_penalty_decay),
+        decay_to_zero=_f32(sc.decay_to_zero),
+        gray_thr=_f32(sc.graylist_threshold),
+        gossip_thr=_f32(sc.gossip_threshold),
+        publish_thr=_f32(sc.publish_threshold),
+        score=score_consts(sc))
+
+
+def score_from_counters(s: ScoreConsts, tim: torch.Tensor,
+                        fd: torch.Tensor, inv: torch.Tensor,
+                        bp: torch.Tensor,
+                        static: torch.Tensor | None) -> torch.Tensor:
+    """The peer-score formula on f32 counters, in the reference's op
+    order (compute_scores / the kernel's stage 2)."""
+    tq = tim / torch.full_like(tim, s.tim_quantum)
+    topic = (s.c_tim * tq.clamp(max=s.tim_cap) + s.c_fd * fd
+             + s.c_inv * inv * inv)
+    if s.topic_cap > 0:
+        topic = topic.clamp(max=s.topic_cap)
+    bp_ex = (bp - s.bp_thr).clamp(min=0.0)
+    if static is not None:
+        topic = topic + static
+    return topic + s.w_bp * bp_ex * bp_ex
+
+
+def sum_rows(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the candidate axis in c = 0..C-1 order from 0.0 (the
+    kernel's sequential sum; torch's own reduction order is not fixed)."""
+    acc = torch.zeros_like(x[0])
+    for c in range(x.shape[0]):
+        acc = acc + x[c]
+    return acc
+
+
+def gater_row(fd: torch.Tensor, inv: torch.Tensor, seed: int,
+              stride: int) -> torch.Tensor:
+    """The RED gater's packed payload-acceptance draw (peer_gater.go:
+    320-363) from f32 stored counters: all-ones where the peer is not
+    under invalid-traffic pressure."""
+    C = fd.shape[0]
+    inv_tot = sum_rows(inv)
+    del_tot = sum_rows(fd)
+    pressure = 16.0 * inv_tot / (1.0 + del_tot + 16.0 * inv_tot)
+    gater_on = pressure > _f32(0.33)
+    goodput = (1.0 + fd) / (1.0 + fd + 16.0 * inv)
+    u = graph.lane_uniform_from_seed(fd.shape, seed, stride, fd.device)
+    all_c = (1 << C) - 1
+    return graph.pack_rows(u < goodput) | torch.where(
+        gater_on, 0, all_c).to(torch.int32)
+
+
+def targets_row(k: ReceiveConsts, elig: torch.Tensor, seed: int,
+                stride: int) -> torch.Tensor:
+    """Bernoulli(k/|elig|) lazy-gossip targets over packed ``elig``."""
+    C = k.n_candidates
+    n_el = graph.popcount32(elig)
+    n_go = torch.clamp((k.gossip_factor * n_el.to(torch.float32)).to(
+        torch.int32), min=k.d_lazy)
+    p_g = (n_go.to(torch.float32)
+           / n_el.clamp(min=1).to(torch.float32)).clamp(max=1.0)
+    u = graph.lane_uniform_from_seed((C, elig.shape[0]), seed, stride,
+                                     elig.device)
+    return elig & graph.pack_rows(u < p_g[None, :])
+
+
+def ctrl_bytes(C: int, *, out, tgt, graft, drop, a, adv) -> torch.Tensor:
+    """The ctrl operand, uint8 [C, N]: byte c of sender p packs bit c of
+    each per-sender flag word at its CTRL_* position."""
+    cidx = torch.arange(C, dtype=torch.int32, device=out.device)[:, None]
+    ctrl = torch.zeros((C, out.shape[0]), dtype=torch.uint8,
+                       device=out.device)
+    for bit, word in ((CTRL_OUT, out), (CTRL_TGT, tgt), (CTRL_GRAFT, graft),
+                      (CTRL_DROP, drop), (CTRL_A, a), (CTRL_ADV, adv)):
+        ctrl |= (((word[None, :] >> cidx) & 1) << bit).to(torch.uint8)
+    return ctrl
+
+
+def _decay_keep(k: ReceiveConsts, x: torch.Tensor, decay: float,
+                dtype: torch.dtype) -> torch.Tensor:
+    x = x * decay
+    return torch.where(x < k.decay_to_zero, 0.0, x).to(dtype)
+
+
+def receive_update_plain(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
+                         adv, pay, gsp, acc, sub_all, cand_sub, fanout, wa,
+                         bo2, grafts, dropped, meshsel, seen, injected,
+                         backoff, static, fd, inv, bp, tim, iws):
+    """Plain PyTorch version of the receive kernel (same operands, same
+    outputs, bit-identical)."""
+    C = k.n_candidates
+    W = fresh.shape[0]
+    n = pay.shape[0]
+    z = torch.zeros_like(pay)
+    heard = [z] * W
+    fd_cnt, iv_cnt = [], []
+    graft_recv = prune_recv = a_recv = z
+    for j, (o, ci) in enumerate(zip(k.offsets, k.cinv)):
+        # sender q = (p + o_j) mod N: roll(x, -o)[p] = x[(p + o) mod N]
+        ctl = torch.roll(ctrl[ci], -o).to(torch.int32)
+        graft_recv = graft_recv | (((ctl >> CTRL_GRAFT) & 1) << j)
+        prune_recv = prune_recv | (((ctl >> CTRL_DROP) & 1) << j)
+        a_recv = a_recv | (((ctl >> CTRL_A) & 1) << j)
+        ok_p = (pay >> j) & 1
+        ok_g = ok_p & ((gsp >> j) & 1)
+        fwd_on = ((ctl >> CTRL_OUT) & ok_p & 1) != 0
+        gsp_on = ((ctl >> CTRL_TGT) & ok_g & 1) != 0
+        fd_j = iv_j = torch.zeros((n,), dtype=torch.int32,
+                                  device=pay.device)
+        for w in range(W):
+            got = (torch.where(fwd_on, torch.roll(fresh[w], -o), 0)
+                   | torch.where(gsp_on, torch.roll(adv[w], -o), 0))
+            news = got & ~seen[w]
+            heard[w] = heard[w] | news
+            fd_j = fd_j + graph.popcount32(news & valid[w])
+            iv_j = iv_j + graph.popcount32(news & ~valid[w])
+        fd_cnt.append(fd_j)
+        iv_cnt.append(iv_j)
+
+    graft_recv = graft_recv & acc
+    prune_recv = prune_recv & acc
+    viol = graft_recv & bo2
+    accept = graft_recv & wa
+    retract = grafts & ~a_recv
+    mesh = ((meshsel | accept) & ~prune_recv) & ~retract
+    bo_trig = dropped | prune_recv | retract
+    subbed = sub_all != 0
+    acq = torch.stack([torch.where(subbed, heard[w], 0) | injected[w]
+                       for w in range(W)])
+
+    bo32 = backoff.to(torch.int32)
+    bo_new = torch.where(graph.expand_bits(bo_trig, C), k.backoff_restart,
+                         (bo32 - 1).clamp(min=0))
+    bo_gate = graph.pack_rows(bo_new > 0)
+    in_mesh = graph.expand_bits(mesh, C)
+    tim_new = torch.where(in_mesh, (tim.to(torch.int32) + 1).clamp(
+        max=32766), 0).to(torch.int16)
+    fd_stack = torch.stack(fd_cnt)
+    iv_stack = torch.stack(iv_cnt)
+    fd_f = (fd.to(torch.float32) + fd_stack.to(torch.float32)).clamp(
+        max=k.fd_cap)
+    fd_new = _decay_keep(k, fd_f, k.fd_decay, k.counter_dtype)
+    inv_new = _decay_keep(
+        k, inv.to(torch.float32) + iv_stack.to(torch.float32),
+        k.inv_decay, k.counter_dtype)
+    bp_f = bp.to(torch.float32) + graph.expand_bits(viol, C).to(
+        torch.float32)
+    bp_new = _decay_keep(k, bp_f, k.bp_decay, k.bp_dtype)
+    s32 = iws.to(torch.int32)
+    H = k.history_length
+    dec = s32 - torch.div(s32 + (H - 1), H, rounding_mode="floor")
+    iws_new = (dec + fd_stack + iv_stack).clamp(0, 30000).to(torch.int16)
+
+    # stage 2: next tick's gates from the stored (rounded) counters
+    fd_n = fd_new.to(torch.float32)
+    inv_n = inv_new.to(torch.float32)
+    score = score_from_counters(k.score, tim_new.to(torch.float32), fd_n,
+                                inv_n, bp_new.to(torch.float32), static)
+    accept_g = graph.pack_rows(score >= k.gray_thr)
+    gossip_g = graph.pack_rows(score >= k.gossip_thr)
+    pub_g = graph.pack_rows(score >= k.publish_thr)
+    nonneg_g = graph.pack_rows(score >= 0)
+    gater = gater_row(fd_n, inv_n, gseeds[0], n)
+    elig = cand_sub & ~mesh & ~fanout & sub_all & gossip_g
+    tgt = targets_row(k, elig, gseeds[1], n)
+    gates = (accept_g, gossip_g, pub_g, nonneg_g, accept_g & gater, tgt,
+             bo_gate)
+    return (acq, mesh, bo_new.to(torch.int16), *gates, fd_new, inv_new,
+            bp_new, tim_new, iws_new)
+
+
+class _Args(ctypes.Structure):
+    """Mirror of ``struct ReceiveArgs`` in csrc/receive.cu."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "ctrl", "fresh", "adv", "pay", "gsp", "acc", "sub_all",
+            "cand_sub", "fanout", "wa", "bo2", "grafts", "dropped",
+            "meshsel", "seen", "inj", "valid", "backoff", "stat", "fd",
+            "inv", "bp", "tim", "iws", "acq", "mesh", "backoff_out",
+            "gates", "fd_out", "inv_out", "bp_out", "tim_out", "iws_out")]
+        + [("n", ctypes.c_longlong),
+           ("offsets", ctypes.c_int * 16), ("cinv", ctypes.c_int * 16),
+           ("seed_gater", ctypes.c_uint), ("seed_targets", ctypes.c_uint),
+           ("stride", ctypes.c_uint),
+           ("backoff_restart", ctypes.c_int), ("d_lazy", ctypes.c_int),
+           ("history_length", ctypes.c_int),
+           ("has_topic_cap", ctypes.c_int)]
+        + [(name, ctypes.c_float) for name in (
+            "gossip_factor", "fd_cap", "fd_decay", "inv_decay",
+            "bp_decay", "decay_to_zero", "c_tim", "tim_quantum",
+            "tim_cap", "c_fd", "c_inv", "topic_cap", "bp_thr", "w_bp",
+            "gray_thr", "gossip_thr", "publish_thr")])
+
+
+_WORDS_N = ("pay", "gsp", "acc", "sub_all", "cand_sub", "fanout", "wa",
+            "bo2", "grafts", "dropped", "meshsel")
+
+
+def _check_operands(k: ReceiveConsts, ops: dict) -> None:
+    C = k.n_candidates
+    W, n = ops["fresh"].shape
+    if (C, W) not in KERNEL_SHAPES:
+        plan.refuse("kernel_shape")
+    want = {"valid": ((W,), torch.int32), "ctrl": ((C, n), torch.uint8),
+            "fresh": ((W, n), torch.int32), "adv": ((W, n), torch.int32),
+            "seen": ((W, n), torch.int32),
+            "injected": ((W, n), torch.int32),
+            "backoff": ((C, n), torch.int16),
+            "fd": ((C, n), k.counter_dtype),
+            "inv": ((C, n), k.counter_dtype), "bp": ((C, n), k.bp_dtype),
+            "tim": ((C, n), torch.int16), "iws": ((C, n), torch.int16)}
+    want.update({name: ((n,), torch.int32) for name in _WORDS_N})
+    if ops["static"] is not None:
+        want["static"] = ((C, n), torch.float32)
+    device = ops["pay"].device
+    for name, (shape, dtype) in want.items():
+        t = ops[name]
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, pay on {device}")
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: want {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def receive_update(k: ReceiveConsts, **ops):
+    """One tick's receive half (operands and outputs: module docstring).
+
+    CUDA tensors launch the kernel (a failed build or launch raises);
+    CPU tensors run ``receive_update_plain``."""
+    global launches
+    _check_operands(k, ops)
+    if ops["pay"].device.type == "cpu":
+        return receive_update_plain(k, **ops)
+    C = k.n_candidates
+    W, n = ops["fresh"].shape
+    dev = ops["pay"].device
+    acq = torch.empty((W, n), dtype=torch.int32, device=dev)
+    mesh = torch.empty((n,), dtype=torch.int32, device=dev)
+    bo_out = torch.empty((C, n), dtype=torch.int16, device=dev)
+    gates = torch.empty((N_GATES, n), dtype=torch.int32, device=dev)
+    fd_out = torch.empty_like(ops["fd"])
+    inv_out = torch.empty_like(ops["inv"])
+    bp_out = torch.empty_like(ops["bp"])
+    tim_out = torch.empty_like(ops["tim"])
+    iws_out = torch.empty_like(ops["iws"])
+    a = _Args()
+    for name in ("ctrl", "fresh", "adv", *_WORDS_N, "seen", "valid",
+                 "backoff", "fd", "inv", "bp", "tim", "iws"):
+        setattr(a, name, ops[name].data_ptr())
+    a.inj = ops["injected"].data_ptr()
+    a.stat = None if ops["static"] is None else ops["static"].data_ptr()
+    for name, t in (("acq", acq), ("mesh", mesh), ("backoff_out", bo_out),
+                    ("gates", gates), ("fd_out", fd_out),
+                    ("inv_out", inv_out), ("bp_out", bp_out),
+                    ("tim_out", tim_out), ("iws_out", iws_out)):
+        setattr(a, name, t.data_ptr())
+    a.n = n
+    for j in range(C):
+        a.offsets[j] = k.offsets[j] % n
+        a.cinv[j] = k.cinv[j]
+    a.seed_gater, a.seed_targets = (int(g) & graph.MASK32
+                                    for g in ops["gseeds"])
+    a.stride = n & graph.MASK32
+    a.backoff_restart = k.backoff_restart
+    a.d_lazy = k.d_lazy
+    a.history_length = k.history_length
+    a.has_topic_cap = int(k.score.topic_cap > 0)
+    for name in ("gossip_factor", "fd_cap", "fd_decay", "inv_decay",
+                 "bp_decay", "decay_to_zero", "gray_thr", "gossip_thr",
+                 "publish_thr"):
+        setattr(a, name, getattr(k, name))
+    for name in ("c_tim", "tim_quantum", "tim_cap", "c_fd", "c_inv",
+                 "topic_cap", "bp_thr", "w_bp"):
+        setattr(a, name, getattr(k.score, name))
+    lib = _build.load("receive")
+    fn = lib.gossip_receive_update
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(ctypes.byref(a), C, W,
+                 int(k.counter_dtype == torch.bfloat16),
+                 int(k.bp_dtype == torch.bfloat16), stream)
+    _build.check(err, "receive_update")
+    launches += 1
+    return (acq, mesh, bo_out, *gates.unbind(0), fd_out, inv_out, bp_out,
+            tim_out, iws_out)
+
+
+def operand_bytes(ops: dict, outs) -> int:
+    """Bytes the receive half must move: each operand read once, each
+    output written once."""
+    total = sum(t.numel() * t.element_size() for name, t in ops.items()
+                if isinstance(t, torch.Tensor))
+    return total + sum(t.numel() * t.element_size() for t in outs)

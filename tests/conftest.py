@@ -29,6 +29,11 @@ def pytest_configure(config):
         "markers",
         "slow: multi-host cluster tests with wall-clock warm-up "
         "(deselect with '-m \"not slow\"')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (skips without a card; on the "
+        "card: python -m pytest tests/test_torch_cuda.py -m cuda "
+        "--noconftest)")
 
 
 def pytest_pyfunc_call(pyfuncitem):
