@@ -5,7 +5,7 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. the device: torch's name and count, nvidia-smi's name and power limit;
-2. build both CUDA kernels from ``go_libp2p_pubsub_tpu_torch/csrc``
+2. build the three CUDA sources from ``go_libp2p_pubsub_tpu_torch/csrc``
    (one nvcc per source, concurrently), printing ptxas' register and
    spill lines;
 3. the select kernel against its plain version at 1,000,000 peers,
@@ -19,14 +19,34 @@ Phases (any failure exits non-zero; nothing is caught):
    make_gossip_sim / make_gossip_step / gossip_run, 100 warm-up and 300
    timed heartbeats, with the benchmark's mesh and delivery gates; the
    kernels' launch counts are reset just before and read just after;
-6. one JSON line with every kernel's numbers;
-7. the last line: ``{"ok": true, "device": {...}}``.
+6. the unscored receive kernel against its plain version at the resident
+   configuration's shapes (N = 1,048,576, C = 16, W = 1), on seeded random
+   operands and on the operands of a real unscored tick: every output
+   bit-identical; both timed;
+7. the fused-window kernel against its plain version at N = 1,048,576,
+   T = 8, on two real carries, the built state (mesh formation) and the
+   state after 12 warm-up ticks: every output bit-identical; both timed
+   on the second (CUDA events over back-to-back launches);
+8. full-size identity: from one built state, 16 per-tick unscored steps
+   and 2 fused windows give equal digests of the carry;
+9. the resident main path: the unscored v1.0 configuration of the JAX
+   package's resident-window benchmark (1,048,576 peers, 10 topics,
+   C = 16, M = 24) through make_fused_window / gossip_run_fused, 64
+   warm-up and 256 timed heartbeats (32 windows), with the mesh and
+   delivery gates and the fused kernel launched once per window and no
+   other kernel; then the per-tick unscored step over the same ticks
+   (make_gossip_step(cfg, None) / gossip_run) for comparison, each with
+   its counts reset just before and read just after;
+10. one line with both resident paths' heartbeats/s, one JSON line with
+    every kernel's numbers;
+11. the last line: ``{"ok": true, "device": {...}}``.
 
 It needs no network and imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import sys
 import time
@@ -34,6 +54,7 @@ import time
 import torch
 
 WARMUP, TIMED = 100, 300
+RES_WARMUP, RES_TIMED = 64, 256     # the resident path, 8-tick windows
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 
@@ -111,7 +132,8 @@ def check_identical(name: str, got, want) -> float:
 
 
 def random_receive_operands(k, n: int, w: int, device, seed: int):
-    """Seeded random receive operands (the kernel's full input space)."""
+    """Seeded random receive operands (the kernel's full input space;
+    the scored variant's own operands only for a scored ``k``)."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     C = k.n_candidates
@@ -127,22 +149,24 @@ def random_receive_operands(k, n: int, w: int, device, seed: int):
             k.counter_dtype)
 
     sub = torch.rand(n, generator=g, device=device) < 0.8
-    return dict(
-        valid=words((w,)), gseeds=(0x9E3779B9, 0x85EBCA6B),
+    ops = dict(
+        gseeds=(0x9E3779B9, 0x85EBCA6B),
         ctrl=torch.randint(0, 64, (C, n), generator=g, device=device).to(
             torch.uint8),
         fresh=words((w, n)) & words((w, n)), adv=words((w, n)),
-        pay=words((n,), C), gsp=words((n,), C), acc=words((n,), C),
         sub_all=torch.where(sub, (1 << C) - 1, 0).to(torch.int32),
         cand_sub=words((n,), C), fanout=words((n,), C) & words((n,), C),
-        wa=words((n,), C), bo2=words((n,), C),
-        grafts=words((n,), C) & words((n,), C),
+        wa=words((n,), C), grafts=words((n,), C) & words((n,), C),
         dropped=words((n,), C) & words((n,), C), meshsel=words((n,), C),
         seen=words((w, n)) & words((w, n)), injected=words((w, n)) & 0x0F0F,
         backoff=torch.randint(0, 61, (C, n), generator=g,
-                              device=device).to(torch.int16),
-        static=None, fd=ctr(60.0), inv=ctr(3.0),
-        bp=ctr(3.0).to(k.bp_dtype),
+                              device=device).to(torch.int16))
+    if not k.scored:
+        return ops
+    return dict(
+        ops, valid=words((w,)), pay=words((n,), C), gsp=words((n,), C),
+        acc=words((n,), C), bo2=words((n,), C), static=None,
+        fd=ctr(60.0), inv=ctr(3.0), bp=ctr(3.0).to(k.bp_dtype),
         tim=torch.randint(0, 32767, (C, n), generator=g,
                           device=device).to(torch.int16),
         iws=torch.randint(0, 30001, (C, n), generator=g,
@@ -152,29 +176,80 @@ def random_receive_operands(k, n: int, w: int, device, seed: int):
 def receive_ops(k, ops) -> int:
     """Operations the receive half needs on these operands: ~15 integer
     ops per edge, ~8 per message word over an edge whose gates are open
-    (this tick's data), ~60 integer/f32 ops per counter row and ~10 per
-    lane-hash draw (two draws per row)."""
-    n = ops["pay"].shape[0]
+    (this tick's data); scored, ~60 integer/f32 ops per counter row and
+    ~10 per lane-hash draw (two draws per row); unscored, ~6 per backoff
+    row and one draw per row."""
+    n = ops["sub_all"].shape[0]
     W = ops["fresh"].shape[0]
     C = k.n_candidates
     open_words = 0
     for j, (o, ci) in enumerate(zip(k.offsets, k.cinv)):
         ctl = torch.roll(ops["ctrl"][ci], -o).to(torch.int32)
-        ok_p = (ops["pay"] >> j) & 1
-        ok_g = ok_p & ((ops["gsp"] >> j) & 1)
+        ok_p = (ops["pay"] >> j) & 1 if k.scored else 1
+        ok_g = ok_p & ((ops["gsp"] >> j) & 1) if k.scored else 1
         on = (ctl & ok_p & 1) | ((ctl >> 1) & ok_g & 1)
         open_words += W * int(on.sum())
-    return n * C * (15 + 60 + 2 * 10) + 8 * open_words
+    per_row = 60 + 2 * 10 if k.scored else 6 + 10
+    return n * C * (15 + per_row) + 8 * open_words
+
+
+def bound(nbytes: float, nops: float) -> tuple[float, str]:
+    """The least time (ms) for the work, and what bounds it."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def capture_receive(run, krecv):
+    """Run ``run()`` with receive_update wrapped; the last call's
+    operands."""
+    captured = []
+    real = krecv.receive_update
+
+    def capture(k_, **ops_):
+        captured[:] = [ops_]            # keep the latest tick only
+        return real(k_, **ops_)
+
+    krecv.receive_update = capture
+    try:
+        run()
+    finally:
+        krecv.receive_update = real
+    return captured[-1]
+
+
+def digest(state) -> str:
+    """sha256 of the resident carry and the tick (the JAX package's
+    resident-benchmark contract, plus the carried gates)."""
+    h = hashlib.sha256()
+    for leaf in (state.have, state.recent, state.mesh, state.fanout,
+                 state.last_pub, state.backoff, *state.gates):
+        h.update(leaf.cpu().numpy().tobytes())
+    h.update(str(state.tick).encode())
+    return h.hexdigest()[:16]
+
+
+def fused_window_ops(k, ops, select_rows: int) -> int:
+    """Operations one window needs on these operands: per peer-tick ~90
+    for the two fronts, handshake and ring, ~38 per candidate row
+    (ctrl pack, edge read, backoff, targets draw), ~6 per message word
+    per edge at most; per selection the data runs (k > 0), C lane-hash
+    draws (~10 each) and C * C rank compares (~3 each)."""
+    C = k.n_candidates
+    W, n = ops["have"].shape
+    T = len(ops["seeds"])
+    return (n * T * (90 + 38 * C + 6 * C * W)
+            + select_rows * (10 * C + 3 * C * C))
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs "
              "an NVIDIA GPU")
-    from go_libp2p_pubsub_tpu_torch import flagship
+    from go_libp2p_pubsub_tpu_torch import flagship, resident
     from go_libp2p_pubsub_tpu_torch.models import gossipsub as pg
     from go_libp2p_pubsub_tpu_torch.ops import graph
     from go_libp2p_pubsub_tpu_torch.ops.kernels import _build
+    from go_libp2p_pubsub_tpu_torch.ops.kernels import fused as kfused
     from go_libp2p_pubsub_tpu_torch.ops.kernels import receive as krecv
     from go_libp2p_pubsub_tpu_torch.ops.kernels import select as ksel
 
@@ -192,9 +267,9 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
-    # -- 2. build both kernels, concurrently
+    # -- 2. build the three kernels, concurrently
     t0 = time.perf_counter()
-    logs = _build.build(("select", "receive"))
+    logs = _build.build(("select", "receive", "fused"))
     for src, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -202,7 +277,6 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s")
 
     n, C = flagship.N_PEERS, flagship.N_CAND
-    kernels = {}
 
     # -- 3. select kernel vs plain at 1M peers, C = 16
     g = torch.Generator(device=dev)
@@ -238,22 +312,8 @@ def main() -> None:
                                krecv.receive_update(k, **ops),
                                krecv.receive_update_plain(k, **ops))
     step = pg.make_gossip_step(cfg, sc, device=dev)
-    captured = []
-    real = krecv.receive_update
-
-    def capture(k_, **ops_):
-        captured[:] = [ops_]            # keep the latest tick only
-        return real(k_, **ops_)
-
-    krecv.receive_update = capture
-    try:
-        st = state
-        for _ in range(40):
-            st = step(params, st)[0]
-    finally:
-        krecv.receive_update = real
-    tick_ops = captured[-1]
-    del captured, st
+    tick_ops = capture_receive(
+        lambda: pg.gossip_run(params, state, 40, step, device=dev), krecv)
     want = krecv.receive_update_plain(k, **tick_ops)
     got = krecv.receive_update(k, **tick_ops)
     torch.cuda.synchronize()
@@ -311,36 +371,207 @@ def main() -> None:
           f"peers, peak memory {peak} B, launches {launches} "
           f"[{name}, {smi}]")
 
-    # -- 6. the kernels line
-    kernels["receive"] = dict(
-        name="receive_update", route="cuda",
-        source="go_libp2p_pubsub_tpu_torch/csrc/receive.cu",
-        replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
-        launches=launches["receive"], max_abs_err=max(err_rand, err_tick),
-        ms=rcv_ms, plain_ms=rcv_plain_ms,
-        bound_ms=max(rcv_bytes / HBM_BYTES_PER_S,
-                     rcv_ops / F32_OPS_PER_S) * 1e3,
-        bound_by=("bytes" if rcv_bytes / HBM_BYTES_PER_S
-                  >= rcv_ops / F32_OPS_PER_S else "operations"),
-        library_ms=None)
-    kernels["select"] = dict(
-        name="select_k_bits", route="cuda",
-        source="go_libp2p_pubsub_tpu_torch/csrc/select.cu",
-        replaces="go_libp2p_pubsub_tpu/ops/pallas/select.py:39",
-        launches=launches["select"], max_abs_err=sel_err,
-        ms=sel_ms, plain_ms=sel_plain_ms,
-        bound_ms=max(sel_bytes / HBM_BYTES_PER_S,
-                     sel_ops / F32_OPS_PER_S) * 1e3,
-        bound_by=("bytes" if sel_bytes / HBM_BYTES_PER_S
-                  >= sel_ops / F32_OPS_PER_S else "operations"),
-        library_ms=None)
-    print(json.dumps({"main_path": {
+    main_flagship = {
         "heartbeats_per_s": hb, "ms_per_tick": dt * 1e3 / TIMED,
-        "peak_bytes": peak, "mean_mesh_degree": deg, "card": smi,
+        "peak_bytes": peak, "mean_mesh_degree": deg}
+    del params, state, step
+
+    # -- 6. the unscored receive kernel vs plain at the resident shapes
+    n_r = resident.N_PEERS
+    cfg_r, params, state, msg_topic, _ = resident.build(dev)
+    k_u = krecv.receive_consts(cfg_r, None)
+    ops = random_receive_operands(k_u, n_r, 1, dev, seed=13)
+    err_urand = check_identical("unscored receive (random operands)",
+                                krecv.receive_update(k_u, **ops),
+                                krecv.receive_update_plain(k_u, **ops))
+    step_u = pg.make_gossip_step(cfg_r, None, device=dev)
+    tick_ops = capture_receive(
+        lambda: pg.gossip_run(params, state, 12, step_u, device=dev), krecv)
+    want = krecv.receive_update_plain(k_u, **tick_ops)
+    got = krecv.receive_update(k_u, **tick_ops)
+    torch.cuda.synchronize()
+    err_utick = check_identical("unscored receive (a real tick)", got, want)
+    urcv_ms = device_ms(lambda: krecv.receive_update(k_u, **tick_ops), 50)
+    urcv_plain_ms = device_ms(
+        lambda: krecv.receive_update_plain(k_u, **tick_ops), 5)
+    urcv_bytes = krecv.operand_bytes(tick_ops, got)
+    urcv_bound = bound(urcv_bytes, receive_ops(k_u, tick_ops))
+    print(f"unscored receive: identical at N={n_r}, C={C}, W=1 (random "
+          f"and real tick); device time: kernel {urcv_ms:.4f} ms, plain "
+          f"{urcv_plain_ms:.3f} ms; {urcv_bytes / n_r:.1f} B/peer")
+    del want, got, ops, tick_ops
+
+    # -- 7. the fused-window kernel vs plain, N = 1M, T = 8, on two real
+    # carries: the built state (mesh formation: grafts and prunes run)
+    # and the state after warm-up (12 per-tick steps), where it is timed
+    Tw = resident.WINDOW
+    k_f = kfused.fused_consts(cfg_r)
+    all_c = (1 << cfg_r.n_candidates) - 1
+    real_sel = kfused.select_plain
+    err_fused = 0.0
+    for st in (state, pg.gossip_run(params, state, 12, step_u, device=dev)):
+        tk = torch.arange(st.tick, st.tick + Tw, dtype=torch.int32,
+                          device=dev)
+        fops = dict(
+            tick0=st.tick, seeds=kfused.window_seeds(st.tick, Tw, st.salt),
+            due=graph.pack_bits(params.publish_tick[None, :] == tk[:, None]),
+            sub_all=torch.where(params.subscribed, all_c, 0).to(torch.int32),
+            cand_sub=params.cand_sub_bits, origin=params.origin_words,
+            have=st.have, recent=st.recent, mesh=st.mesh, fanout=st.fanout,
+            last_pub=st.last_pub, backoff=st.backoff, tgt=st.gates[0],
+            bog=st.gates[1])
+        sel_rows = [0]
+
+        def count_sel(elig, kk, c, seed):
+            sel_rows[0] += int((kk > 0).sum())
+            return real_sel(elig, kk, c, seed)
+
+        kfused.select_plain = count_sel
+        try:
+            want = kfused.fused_gossip_update_plain(k_f, **fops)
+        finally:
+            kfused.select_plain = real_sel
+        got = kfused.fused_gossip_update(k_f, **fops)
+        torch.cuda.synchronize()
+        err_fused = max(err_fused, check_identical(
+            f"fused window from tick {st.tick}", got, want))
+        print(f"fused window: identical at N={n_r}, C={C}, W=1, T={Tw} "
+              f"from tick {st.tick} ({sel_rows[0]} selection rows)")
+    # a cooperative launch is timed by CUDA events over back-to-back
+    # launches (no CUDA-graph capture)
+    fused_ms = eager_ms(lambda: kfused.fused_gossip_update(k_f, **fops), 20)
+    fused_plain_ms = eager_ms(
+        lambda: kfused.fused_gossip_update_plain(k_f, **fops), 2)
+    fused_bytes = kfused.window_operand_bytes(fops)
+    fused_bound = bound(fused_bytes,
+                        fused_window_ops(k_f, fops, sel_rows[0]))
+    print(f"fused window from tick {st.tick}: kernel {fused_ms:.4f} ms, "
+          f"plain {fused_plain_ms:.3f} ms per window; operands "
+          f"{fused_bytes / n_r:.1f} B/peer, bound {fused_bound[0]:.4f} ms "
+          f"({fused_bound[1]}); the kernel's stage, apart: "
+          f"{kfused.stage_bytes(k_f, fops) / n_r:.1f} B/peer")
+    del want, got, fops, st
+
+    # -- 8. full-size identity: 16 per-tick steps vs 2 fused windows
+    win = pg.make_fused_window(cfg_r, None, ticks_fused=Tw, device=dev)
+    d_tick = digest(pg.gossip_run(params, state, 2 * Tw, step_u,
+                                  device=dev))
+    d_fused = digest(pg.gossip_run_fused(params, state, 2 * Tw, win,
+                                         device=dev))
+    if d_tick != d_fused:
+        fail(f"digest: per-tick {d_tick} != fused {d_fused}")
+    print(f"identity: {2 * Tw} per-tick ticks and 2 fused windows at "
+          f"N={n_r}: digest {d_fused} both")
+    del params, state
+
+    # -- 9. the resident main path, then the per-tick path, each with its
+    # counts reset just before and read just after
+    horizon = RES_WARMUP + RES_TIMED
+    paths = {}
+    for path in ("fused", "per_tick"):
+        cfg_r, params, state, msg_topic, msg_tick = resident.build(
+            dev, horizon=horizon)
+        if path == "fused":
+            win = pg.make_fused_window(cfg_r, None, ticks_fused=Tw,
+                                       device=dev)
+
+            def run_n(st, n_ticks):
+                return pg.gossip_run_fused(params, st, n_ticks, win,
+                                           device=dev)
+        else:
+            step_u = pg.make_gossip_step(cfg_r, None, device=dev)
+
+            def run_n(st, n_ticks):
+                return pg.gossip_run(params, st, n_ticks, step_u,
+                                     device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        krecv.launches = krecv.launches_unscored = 0
+        ksel.launches = kfused.launches = 0
+        state = run_n(state, RES_WARMUP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = run_n(state, RES_TIMED)
+        torch.cuda.synchronize()
+        dt_r = time.perf_counter() - t0
+        counts = {"receive": krecv.launches,
+                  "receive_unscored": krecv.launches_unscored,
+                  "select": ksel.launches, "fused": kfused.launches}
+        peak_r = torch.cuda.max_memory_allocated()
+        sub = params.subscribed
+        deg_r = pg.mesh_degrees(state)[sub].to(torch.float64).mean().item()
+        if not deg_r >= cfg_r.d_lo:
+            fail(f"{path}: mesh failed to form: mean degree {deg_r}")
+        reach, members = resident.topic_reach(params, state, msg_topic,
+                                              resident.N_TOPICS)
+        settled = msg_tick < horizon - 30
+        if not (reach[settled] == members[settled]).all():
+            fail(f"{path}: delivery gate: reach {reach[settled].tolist()} "
+                 f"!= members {members[settled].tolist()}")
+        if state.tick != horizon:
+            fail(f"{path}: state tick {state.tick}")
+        if path == "fused":
+            want_counts = {"receive": 0, "receive_unscored": 0, "select": 0,
+                           "fused": horizon // Tw}
+            if counts != want_counts:
+                fail(f"fused path launches {counts} != {want_counts}")
+        elif (counts["receive_unscored"] != horizon or counts["fused"]
+              or counts["receive"] or counts["select"] != 3 * horizon):
+            fail(f"per-tick path launches {counts}")
+        paths[path] = dict(
+            heartbeats_per_s=RES_TIMED / dt_r,
+            ms_per_tick=dt_r * 1e3 / RES_TIMED, peak_bytes=peak_r,
+            mean_mesh_degree=deg_r, launches=counts,
+            settled_messages=int(settled.sum()))
+        print(f"resident {path}: {n_r} peers x {resident.N_TOPICS} topics, "
+              f"C={C}, M={resident.N_MSGS}: {RES_TIMED / dt_r:.2f} "
+              f"heartbeats/s ({dt_r * 1e3 / RES_TIMED:.3f} ms/tick), mean "
+              f"mesh degree {deg_r:.3f}, {int(settled.sum())} settled "
+              f"messages each at all {members[settled].tolist()} members, "
+              f"peak memory {peak_r} B, launches {counts}")
+        del params, state
+
+    # -- 10. the numbers
+    print(f"heartbeats/s [{name}, {smi}]: flagship scored per-tick "
+          f"{hb:.2f}; resident unscored fused "
+          f"{paths['fused']['heartbeats_per_s']:.2f}, per-tick "
+          f"{paths['per_tick']['heartbeats_per_s']:.2f}")
+    rcv_bound = bound(rcv_bytes, rcv_ops)
+    sel_bound = bound(sel_bytes, sel_ops)
+    kernels = [
+        dict(name="receive_update", route="cuda",
+             source="go_libp2p_pubsub_tpu_torch/csrc/receive.cu",
+             replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
+             launches=launches["receive"],
+             max_abs_err=max(err_rand, err_tick), ms=rcv_ms,
+             plain_ms=rcv_plain_ms, bound_ms=rcv_bound[0],
+             bound_by=rcv_bound[1], library_ms=None),
+        dict(name="receive_update_unscored", route="cuda",
+             source="go_libp2p_pubsub_tpu_torch/csrc/receive.cu",
+             replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
+             launches=paths["per_tick"]["launches"]["receive_unscored"],
+             max_abs_err=max(err_urand, err_utick), ms=urcv_ms,
+             plain_ms=urcv_plain_ms, bound_ms=urcv_bound[0],
+             bound_by=urcv_bound[1], library_ms=None),
+        dict(name="select_k_bits", route="cuda",
+             source="go_libp2p_pubsub_tpu_torch/csrc/select.cu",
+             replaces="go_libp2p_pubsub_tpu/ops/pallas/select.py:39",
+             launches=launches["select"], max_abs_err=sel_err,
+             ms=sel_ms, plain_ms=sel_plain_ms, bound_ms=sel_bound[0],
+             bound_by=sel_bound[1], library_ms=None),
+        dict(name="fused_gossip_update", route="cuda",
+             source="go_libp2p_pubsub_tpu_torch/csrc/fused.cu",
+             replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:1662",
+             launches=paths["fused"]["launches"]["fused"],
+             max_abs_err=err_fused, ms=fused_ms, plain_ms=fused_plain_ms,
+             bound_ms=fused_bound[0], bound_by=fused_bound[1],
+             library_ms=None)]
+    print(json.dumps({"main_path": {
+        "flagship": main_flagship, "resident": paths, "card": smi,
         "eager_ms": {"receive": rcv_eager_ms, "select": sel_eager_ms},
         "seconds": time.perf_counter() - t_start}}))
-    print(json.dumps({"kernels": list(kernels.values())}))
-    # -- 7. the result
+    print(json.dumps({"kernels": kernels}))
+    # -- 11. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))
 

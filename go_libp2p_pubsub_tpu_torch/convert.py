@@ -2,7 +2,9 @@
 
 The reference's ``GossipParams`` / ``GossipState`` arrive as dicts of
 numpy arrays, leaf by leaf (field name -> array, ``None`` for absent
-leaves, ``scores`` a nested dict, ``gates`` a sequence of words).  This
+leaves — the v1.1 params, ``scores`` and ``iwant_serves`` of an unscored
+sim — ``scores`` a nested dict, ``gates`` a sequence of words: seven
+scored, two unscored).  This
 module never imports the reference; the caller flattens it.
 
 - uint32 leaves are viewed as int32 (same bits);
@@ -69,24 +71,34 @@ def _array(t: torch.Tensor, word: bool = False) -> np.ndarray:
 
 def params_from_numpy(d: dict, device) -> GossipParams:
     """The port's GossipParams from the reference's leaves."""
-    kw = {name: _tensor(d[name], device) for name in PARAM_TENSORS}
+    kw = {name: (None if d[name] is None else _tensor(d[name], device))
+          for name in PARAM_TENSORS}
+    weights = d["static_score_weights"]
     return GossipParams(
-        **kw, static_score_weights=tuple(d["static_score_weights"]),
+        **kw, static_score_weights=(None if weights is None
+                                    else tuple(weights)),
         static_score_zero=bool(d["static_score_zero"]))
 
 
-def state_from_numpy(d: dict, sc: ScoreSimConfig, device) -> GossipState:
+def state_from_numpy(d: dict, sc: ScoreSimConfig | None,
+                     device) -> GossipState:
     """The port's GossipState from the reference's leaves; ``sc`` gives
-    the counter storage dtypes."""
+    the counter storage dtypes (None: an unscored state)."""
     kw = {name: (None if d[name] is None else _tensor(d[name], device))
           for name in STATE_TENSORS}
     s = d["scores"]
-    cdt, bdt = DTYPES[sc.counter_dtype], DTYPES[sc.bp_dtype]
-    scores = ScoreState(
-        time_in_mesh=_tensor(s["time_in_mesh"], device),
-        first_deliveries=_tensor(s["first_deliveries"], device, cdt),
-        invalid_deliveries=_tensor(s["invalid_deliveries"], device, cdt),
-        behaviour_penalty=_tensor(s["behaviour_penalty"], device, bdt))
+    if (sc is None) != (s is None):
+        raise ValueError("scores leaves present iff a ScoreSimConfig is "
+                         "given")
+    scores = None
+    if sc is not None:
+        cdt, bdt = DTYPES[sc.counter_dtype], DTYPES[sc.bp_dtype]
+        scores = ScoreState(
+            time_in_mesh=_tensor(s["time_in_mesh"], device),
+            first_deliveries=_tensor(s["first_deliveries"], device, cdt),
+            invalid_deliveries=_tensor(s["invalid_deliveries"], device,
+                                       cdt),
+            behaviour_penalty=_tensor(s["behaviour_penalty"], device, bdt))
     key = np.asarray(d["key"]).astype(np.uint32)
     return GossipState(
         **kw, scores=scores,
@@ -96,7 +108,8 @@ def state_from_numpy(d: dict, sc: ScoreSimConfig, device) -> GossipState:
 
 
 def params_to_numpy(p: GossipParams) -> dict:
-    out = {name: _array(getattr(p, name), name in PARAM_WORDS)
+    out = {name: (None if getattr(p, name) is None
+                  else _array(getattr(p, name), name in PARAM_WORDS))
            for name in PARAM_TENSORS}
     out.update(static_score_weights=p.static_score_weights,
                static_score_zero=p.static_score_zero)
@@ -107,8 +120,9 @@ def state_to_numpy(s: GossipState) -> dict:
     out = {name: (None if getattr(s, name) is None
                   else _array(getattr(s, name), name in STATE_WORDS))
            for name in STATE_TENSORS}
-    out["scores"] = {name: _array(getattr(s.scores, name))
-                     for name in SCORE_TENSORS}
+    out["scores"] = (None if s.scores is None else
+                     {name: _array(getattr(s.scores, name))
+                      for name in SCORE_TENSORS})
     out["gates"] = [_array(g, True) for g in s.gates]
     out.update(gates_fp=s.gates_fp,
                key=np.array([0, s.salt], dtype=np.uint32),

@@ -2,37 +2,43 @@
 // sm_90a).
 //
 // Replaces: go_libp2p_pubsub_tpu/ops/pallas/receive.py, _receive_kernel
-// (built by make_receive_update), for the scored, unpaired flagship
-// options: no flood publish, promise tracking, PX, shared-IP gater,
-// faults, telemetry, knobs or delays; Bernoulli gossip targets.  Same
-// semantics and op order, so every output is bit-identical to the plain
-// version (ops/kernels/receive.py receive_update_plain):
+// (built by make_receive_update), for the unpaired options the port
+// runs: the scored v1.1 step (SCORED = true) and the unscored v1.0 step
+// (SCORED = false: no validity masks, payload/gossip/accept gates,
+// counters or scores, two gate rows); no flood publish, promise
+// tracking, PX, shared-IP gater, faults, telemetry, knobs or delays;
+// Bernoulli gossip targets.  Same semantics and op order, so every
+// output is bit-identical to the plain version
+// (ops/kernels/receive.py receive_update_plain):
 //
 //   stage 1, per receiving edge j: the sender q = (p + o_j) mod N, its
-//     ctrl byte (row cinv[j]) and its fresh/advert words, gated by this
-//     peer's payload and gossip gate bits; news = got & ~seen, the valid
-//     and invalid popcounts (P2/P4 provenance); the GRAFT/PRUNE/A
-//     handshake resolves into mesh and backoff;
-//   per row c: backoff restart/decrement, time in mesh, the decayed
-//     first/invalid-delivery and behaviour-penalty counters (f32
+//     ctrl byte (row cinv[j]) and its fresh/advert words, gated (scored)
+//     by this peer's payload and gossip gate bits; news = got & ~seen,
+//     and (scored) the valid and invalid popcounts (P2/P4 provenance);
+//     the GRAFT/PRUNE/A handshake resolves into mesh and backoff;
+//   per row c: backoff restart/decrement; scored: time in mesh, the
+//     decayed first/invalid-delivery and behaviour-penalty counters (f32
 //     arithmetic, stored with round-to-nearest-even bf16 where the
 //     counter dtype is bf16), the IWANT-serve ledger;
-//   stage 2: the next tick's seven gate words from the stored counters:
-//     the score thresholds, the RED gater (in-kernel lane hash, gater
-//     pressure summed over c = 0..C-1 in order) and the Bernoulli gossip
-//     targets.
+//   stage 2: the next tick's gate words: scored, the seven rows from the
+//     stored counters (the score thresholds, the RED gater with an
+//     in-kernel lane hash and its pressure summed over c = 0..C-1 in
+//     order, the Bernoulli gossip targets); unscored, the targets and
+//     backoff rows.
 //
 // Every multiply, add and divide is written with the _rn intrinsics and
 // the file is built with --fmad=false: XLA and PyTorch round each
 // operation separately, and a contracted FMA would change score bits.
 //
 // Bound on this card: memory.  Counting each operand byte once, the
-// flagship tick (C = 16, W = 1, no static score term) reads about 268
-// B/peer (six i16/bf16 [C, N] counter/backoff rows, the C ctrl bytes,
+// scored flagship tick (C = 16, W = 1, no static score term) reads about
+// 268 B/peer (six i16/bf16 [C, N] counter/backoff rows, the C ctrl bytes,
 // eleven packed [N] words, the seen/injected/fresh/advert words) and
 // writes about 228 B/peer: about 0.5 GB per tick at 1M peers, about
-// 150 us at 3.35 TB/s.  The arithmetic (a few hundred integer and f32
-// operations per peer) is far below the card's rate.  Design: each
+// 150 us at 3.35 TB/s.  The unscored tick moves about 140 B/peer at
+// W = 1 (ctrl 16, backoff in and out 64, seven [N] words 28, four
+// [W, N] words 16, acq 4, mesh 4, two gate rows 8).  The arithmetic (a few hundred integer and
+// f32 operations per peer) is far below the card's rate.  Design: each
 // thread keeps its per-edge counts and packed words in registers and
 // touches every [C, N] row once, at c * N + p, so neighbouring threads
 // read neighbouring addresses; the sender's fresh/advert words are read
@@ -42,26 +48,30 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "lane.cuh"
+
+// Pointers marked (scored) are null for the unscored variant.
 struct ReceiveArgs {
   // inputs
   const uint8_t* ctrl;       // [C, N] sender ctrl bytes, row = sender edge
   const uint32_t* fresh;     // [W, N] sender fresh words
   const uint32_t* adv;       // [W, N] sender advert words
-  const uint32_t* pay;       // [N] payload gate bits
-  const uint32_t* gsp;       // [N] gossip gate bits
-  const uint32_t* acc;       // [N] accept (graylist) gate bits
+  const uint32_t* pay;       // [N] payload gate bits (scored)
+  const uint32_t* gsp;       // [N] gossip gate bits (scored)
+  const uint32_t* acc;       // [N] accept (graylist) gate bits (scored)
   const uint32_t* sub_all;   // [N] all-ones (C bits) iff subscribed
   const uint32_t* cand_sub;  // [N] subscribed candidates
   const uint32_t* fanout;    // [N] this tick's fanout
   const uint32_t* wa;        // [N] would-accept bits
-  const uint32_t* bo2;       // [N] post-write backoff bits
+  const uint32_t* bo2;       // [N] post-write backoff bits (scored)
   const uint32_t* grafts;    // [N] GRAFTs sent
   const uint32_t* dropped;   // [N] PRUNEs sent
   const uint32_t* meshsel;   // [N] mesh after maintenance selections
   const uint32_t* seen;      // [W, N] held or injected this tick
   const uint32_t* inj;       // [W, N] injected this tick
-  const uint32_t* valid;     // [W] message validity masks
+  const uint32_t* valid;     // [W] message validity masks (scored)
   const int16_t* backoff;    // [C, N] remaining backoff ticks
+  // (scored) the score counters
   const float* stat;         // [C, N] static P5+P6 term, or null
   const void* fd;            // [C, N] first deliveries (counter dtype)
   const void* inv;           // [C, N] invalid deliveries (counter dtype)
@@ -72,7 +82,8 @@ struct ReceiveArgs {
   uint32_t* acq;             // [W, N]
   uint32_t* mesh;            // [N]
   int16_t* backoff_out;      // [C, N]
-  uint32_t* gates;           // [7, N]
+  uint32_t* gates;           // [7, N] scored, [2, N] unscored
+  // (scored) the updated counters
   void* fd_out;
   void* inv_out;
   void* bp_out;
@@ -82,7 +93,7 @@ struct ReceiveArgs {
   long long n;
   int offsets[16];           // o_j mod N, in [0, N)
   int cinv[16];
-  unsigned int seed_gater;   // lane_seed(tick + 1, 6, salt)
+  unsigned int seed_gater;   // lane_seed(tick + 1, 6, salt) (scored)
   unsigned int seed_targets; // lane_seed(tick + 1, 1, salt)
   unsigned int stride;       // lane stream row stride (true N)
   int backoff_restart;       // backoff_ticks - 1
@@ -113,22 +124,7 @@ namespace {
 constexpr int CTRL_OUT = 0, CTRL_TGT = 1, CTRL_GRAFT = 2, CTRL_DROP = 3,
               CTRL_A = 4;
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-// lane_uniform's draw for lane c * stride + p (u32 wrap)
-__device__ __forceinline__ float lane_u(uint32_t seed, int c, long long p,
-                                        uint32_t stride) {
-  uint32_t lane = (uint32_t)c * stride + (uint32_t)p;
-  uint32_t h = fmix32(lane ^ seed);
-  return __fmul_rn((float)(h >> 8), 1.0f / 16777216.0f);
-}
+using gossip::lane_u;
 
 template <bool BF>
 __device__ __forceinline__ float load_ctr(const void* p, long long i) {
@@ -163,7 +159,7 @@ __device__ __forceinline__ int floordiv(int a, int b) {
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 
-template <int C, int W, bool CBF, bool BBF>
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
 __global__ void __launch_bounds__(256)
 receive_kernel(const ReceiveArgs a) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -176,10 +172,11 @@ receive_kernel(const ReceiveArgs a) {
   for (int w = 0; w < W; ++w) {
     seen[w] = a.seen[w * n + p];
     heard[w] = 0u;
-    valid[w] = a.valid[w];
+    valid[w] = SCORED ? a.valid[w] : 0xFFFFFFFFu;
   }
-  const uint32_t pay = a.pay[p];
-  const uint32_t gsp = a.gsp[p];
+  // unscored: every sender's payload and advert pass (no gates)
+  const uint32_t pay = SCORED ? a.pay[p] : ALL;
+  const uint32_t gsp = SCORED ? a.gsp[p] : ALL;
 
   // ---- stage 1: the C receiving edges
   uint32_t graft_recv = 0u, prune_recv = 0u, a_recv = 0u;
@@ -205,8 +202,10 @@ receive_kernel(const ReceiveArgs a) {
         if (gsp_on) got |= a.adv[w * n + q];
         const uint32_t news = got & ~seen[w];
         heard[w] |= news;
-        fd_j += __popc(news & valid[w]);
-        iv_j += __popc(news & ~valid[w]);
+        if constexpr (SCORED) {
+          fd_j += __popc(news & valid[w]);
+          iv_j += __popc(news & ~valid[w]);
+        }
       }
     }
     fdc[j] = fd_j;
@@ -214,10 +213,13 @@ receive_kernel(const ReceiveArgs a) {
   }
 
   // ---- handshake resolution
-  const uint32_t accb = a.acc[p];
-  graft_recv &= accb;
-  prune_recv &= accb;
-  const uint32_t viol = graft_recv & a.bo2[p];
+  uint32_t viol = 0u;
+  if constexpr (SCORED) {
+    const uint32_t accb = a.acc[p];
+    graft_recv &= accb;
+    prune_recv &= accb;
+    viol = graft_recv & a.bo2[p];
+  }
   const uint32_t accept = graft_recv & a.wa[p];
   const uint32_t retract = a.grafts[p] & ~a_recv;
   const uint32_t mesh = ((a.meshsel[p] | accept) & ~prune_recv) & ~retract;
@@ -229,7 +231,8 @@ receive_kernel(const ReceiveArgs a) {
     a.acq[w * n + p] = (sub_all != 0u ? heard[w] : 0u) | a.inj[w * n + p];
   }
 
-  // ---- per row: backoff, time in mesh, counters, serve ledger, score
+  // ---- per row: backoff; scored: time in mesh, counters, serve
+  // ledger, score
   const float dtz = a.decay_to_zero;
   const int H = a.history_length;
   uint32_t bo_gate = 0u, accept_g = 0u, gossip_g = 0u, pub_g = 0u,
@@ -243,6 +246,7 @@ receive_kernel(const ReceiveArgs a) {
                                              : (bo - 1 > 0 ? bo - 1 : 0);
     a.backoff_out[idx] = (int16_t)bo_new;
     bo_gate |= (uint32_t)(bo_new > 0) << c;
+    if constexpr (!SCORED) continue;
 
     const int tim = a.tim[idx];
     const int tim_new = ((mesh >> c) & 1u) ? (tim + 1 < 32766 ? tim + 1
@@ -291,14 +295,17 @@ receive_kernel(const ReceiveArgs a) {
         __fdiv_rn(one_fd, __fadd_rn(one_fd, __fmul_rn(16.0f, inv_n)));
     gater |= (uint32_t)(lane_u(a.seed_gater, c, p, a.stride) < goodput) << c;
   }
-  const float inv16 = __fmul_rn(16.0f, inv_tot);
-  const float pressure =
-      __fdiv_rn(inv16, __fadd_rn(__fadd_rn(1.0f, del_tot), inv16));
-  if (!(pressure > 0.33f)) gater |= ALL;
+  if constexpr (SCORED) {
+    const float inv16 = __fmul_rn(16.0f, inv_tot);
+    const float pressure =
+        __fdiv_rn(inv16, __fadd_rn(__fadd_rn(1.0f, del_tot), inv16));
+    if (!(pressure > 0.33f)) gater |= ALL;
+  }
 
-  // next tick's Bernoulli gossip targets
-  const uint32_t elig =
-      a.cand_sub[p] & ~mesh & ~a.fanout[p] & sub_all & gossip_g;
+  // next tick's Bernoulli gossip targets (scored: above the gossip
+  // threshold)
+  uint32_t elig = a.cand_sub[p] & ~mesh & ~a.fanout[p] & sub_all;
+  if constexpr (SCORED) elig &= gossip_g;
   const int n_el = __popc(elig);
   const int n_fac = (int)__fmul_rn(a.gossip_factor, (float)n_el);
   const int n_go = a.d_lazy > n_fac ? a.d_lazy : n_fac;
@@ -310,45 +317,54 @@ receive_kernel(const ReceiveArgs a) {
     tgt |= (uint32_t)(lane_u(a.seed_targets, c, p, a.stride) < p_g) << c;
   }
 
-  a.gates[0 * n + p] = accept_g;
-  a.gates[1 * n + p] = gossip_g;
-  a.gates[2 * n + p] = pub_g;
-  a.gates[3 * n + p] = nonneg_g;
-  a.gates[4 * n + p] = accept_g & gater;
-  a.gates[5 * n + p] = elig & tgt;
-  a.gates[6 * n + p] = bo_gate;
+  if constexpr (SCORED) {
+    a.gates[0 * n + p] = accept_g;
+    a.gates[1 * n + p] = gossip_g;
+    a.gates[2 * n + p] = pub_g;
+    a.gates[3 * n + p] = nonneg_g;
+    a.gates[4 * n + p] = accept_g & gater;
+    a.gates[5 * n + p] = elig & tgt;
+    a.gates[6 * n + p] = bo_gate;
+  } else {
+    a.gates[0 * n + p] = elig & tgt;
+    a.gates[1 * n + p] = bo_gate;
+  }
 }
 
-template <int C, int W, bool CBF, bool BBF>
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
 int launch(const ReceiveArgs& a, cudaStream_t s) {
   const int threads = 256;
   const unsigned blocks = (unsigned)((a.n + threads - 1) / threads);
-  receive_kernel<C, W, CBF, BBF><<<blocks, threads, 0, s>>>(a);
+  receive_kernel<C, W, SCORED, CBF, BBF><<<blocks, threads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
+// scored: 1 (v1.1) or 0 (v1.0: counter dtypes ignored)
 template <int C, int W>
-int launch_dtypes(const ReceiveArgs& a, int ctr_bf16, int bp_bf16,
-                  cudaStream_t s) {
-  if (ctr_bf16 && bp_bf16) return launch<C, W, true, true>(a, s);
-  if (ctr_bf16) return launch<C, W, true, false>(a, s);
-  if (!bp_bf16) return launch<C, W, false, false>(a, s);
+int launch_variant(const ReceiveArgs& a, int scored, int ctr_bf16,
+                   int bp_bf16, cudaStream_t s) {
+  if (!scored) return launch<C, W, false, false, false>(a, s);
+  if (ctr_bf16 && bp_bf16) return launch<C, W, true, true, true>(a, s);
+  if (ctr_bf16) return launch<C, W, true, true, false>(a, s);
+  if (!bp_bf16) return launch<C, W, true, false, false>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// c in {8, 16}, w in {1, 2}; counter/bp storage bf16 (1) or f32 (0).
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
-// for a shape with no instantiation (the wrapper refuses those first).
+// c in {8, 16}, w in {1, 2}; scored (1) or unscored (0); counter/bp
+// storage bf16 (1) or f32 (0).  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a shape with no instantiation
+// (the wrapper refuses those first).
 extern "C" int gossip_receive_update(const ReceiveArgs* args, int c, int w,
-                                     int ctr_bf16, int bp_bf16,
+                                     int scored, int ctr_bf16, int bp_bf16,
                                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (args->n <= 0) return 0;
-  if (c == 16 && w == 1) return launch_dtypes<16, 1>(*args, ctr_bf16, bp_bf16, s);
-  if (c == 16 && w == 2) return launch_dtypes<16, 2>(*args, ctr_bf16, bp_bf16, s);
-  if (c == 8 && w == 1) return launch_dtypes<8, 1>(*args, ctr_bf16, bp_bf16, s);
-  if (c == 8 && w == 2) return launch_dtypes<8, 2>(*args, ctr_bf16, bp_bf16, s);
+  const ReceiveArgs& a = *args;
+  if (c == 16 && w == 1) return launch_variant<16, 1>(a, scored, ctr_bf16, bp_bf16, s);
+  if (c == 16 && w == 2) return launch_variant<16, 2>(a, scored, ctr_bf16, bp_bf16, s);
+  if (c == 8 && w == 1) return launch_variant<8, 1>(a, scored, ctr_bf16, bp_bf16, s);
+  if (c == 8 && w == 2) return launch_variant<8, 2>(a, scored, ctr_bf16, bp_bf16, s);
   return (int)cudaErrorInvalidValue;
 }

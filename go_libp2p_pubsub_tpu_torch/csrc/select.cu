@@ -7,7 +7,8 @@
 // (fmix32((c * stride + p) ^ seed) >> 8) * 2^-24, unset bits get -1, a
 // candidate's rank is the count of candidates with a higher priority
 // (ties: the lower candidate index wins), and bit c is kept iff it is
-// eligible and its rank < k[p].
+// eligible and its rank < k[p] (lane.cuh select_k, shared with the fused
+// window kernel).
 //
 // Bound on this card: bytes.  It moves 12 bytes per peer (elig and k
 // in, the packed word out), 12 MB per call at 1M peers, about 3.6 us at
@@ -21,16 +22,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+#include "lane.cuh"
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
+namespace {
 
 template <int CMAX>
 __global__ void select_k_bits_kernel(const uint32_t* __restrict__ elig,
@@ -39,32 +33,7 @@ __global__ void select_k_bits_kernel(const uint32_t* __restrict__ elig,
                                      int c, uint32_t seed, uint32_t stride) {
   long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
-  const uint32_t bits = elig[p];
-  const int kk = k[p];
-  float prio[CMAX];
-#pragma unroll
-  for (int i = 0; i < CMAX; ++i) {
-    if (i < c && ((bits >> i) & 1u)) {
-      uint32_t lane = (uint32_t)i * stride + (uint32_t)p;  // u32 wrap
-      uint32_t h = fmix32(lane ^ seed);
-      prio[i] = __fmul_rn((float)(h >> 8), 1.0f / 16777216.0f);
-    } else {
-      prio[i] = -1.0f;
-    }
-  }
-  uint32_t sel = 0;
-#pragma unroll
-  for (int i = 0; i < CMAX; ++i) {
-    if (i >= c || !((bits >> i) & 1u)) continue;
-    int rank = 0;
-#pragma unroll
-    for (int j = 0; j < CMAX; ++j) {
-      if (j >= c) continue;
-      rank += (prio[j] > prio[i]) || (prio[j] == prio[i] && j < i);
-    }
-    if (rank < kk) sel |= 1u << i;
-  }
-  out[p] = sel;
+  out[p] = gossip::select_k<CMAX>(elig[p], c, k[p], seed, p, stride);
 }
 
 }  // namespace

@@ -60,25 +60,21 @@ def card() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def profile(warmup: int, ticks: int) -> dict:
-    """Time ``ticks`` heartbeats after ``warmup``, then profile as many
-    more: device time per kernel and per PyTorch op, and the device's
-    busy time against the unprofiled wall time."""
+def profile_ticks(run, ticks: int) -> dict:
+    """Time ``run()`` (``ticks`` heartbeats on the GPU) unprofiled, then
+    profile a second call: device time per kernel and per PyTorch op,
+    and the device's busy time against the unprofiled wall time."""
     from torch.autograd import DeviceType
 
-    dev = torch.device("cuda")
-    cfg, sc, params, state, _ = build(dev, horizon=warmup + 2 * ticks)
-    step = gs.make_gossip_step(cfg, sc, device=dev)
-    state = gs.gossip_run(params, state, warmup, step, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = gs.gossip_run(params, state, ticks, step, device=dev)
+    run()
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        state = gs.gossip_run(params, state, ticks, step, device=dev)
+        run()
         torch.cuda.synchronize()
     events = prof.key_averages()
     kernels = sorted(((e.key, e.self_device_time_total, e.count)
@@ -101,6 +97,19 @@ def profile(warmup: int, ticks: int) -> dict:
         "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
         "kernels": per_tick(kernels), "ops": per_tick(ops),
     }
+
+
+def profile(warmup: int, ticks: int) -> dict:
+    """Time ``ticks`` heartbeats after ``warmup``, then profile as many
+    more (``profile_ticks``)."""
+    dev = torch.device("cuda")
+    cfg, sc, params, state, _ = build(dev, horizon=warmup + 2 * ticks)
+    step = gs.make_gossip_step(cfg, sc, device=dev)
+    box = [gs.gossip_run(params, state, warmup, step, device=dev)]
+
+    def run():
+        box[0] = gs.gossip_run(params, box[0], ticks, step, device=dev)
+    return profile_ticks(run, ticks)
 
 
 def main() -> None:

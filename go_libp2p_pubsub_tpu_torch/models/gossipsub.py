@@ -1,15 +1,21 @@
-"""GossipSub simulator, scored v1.1 heartbeat, in PyTorch.
+"""GossipSub simulator, scored v1.1 and unscored v1.0 heartbeats, in
+PyTorch.
 
 Counterpart of ``go_libp2p_pubsub_tpu/models/gossipsub.py`` on its
 receive-kernel path: one ``step`` advances one heartbeat for every
 simulated peer — publish injection, fanout maintenance, eager forward
 over mesh ∪ fanout, lazy IHAVE/IWANT gossip, graft/prune maintenance
-with backoff, the P1-P7 score, the threshold gates and the RED gater.
-The receive half (payload receive, handshake, counter updates, next
-tick's gates) is one kernel launch (``ops/kernels/receive.py``); every
-random top-k selection is one launch of the select kernel
-(``ops/kernels/select.py``).  Everything else is plain PyTorch, as the
-reference leaves it to XLA.
+with backoff and, with a ``ScoreSimConfig``, the P1-P7 score, the
+threshold gates and the RED gater.  The receive half (payload receive,
+handshake, counter updates, next tick's gates) is one kernel launch
+(``ops/kernels/receive.py``); every random top-k selection is one launch
+of the select kernel (``ops/kernels/select.py``).  Everything else is
+plain PyTorch, as the reference leaves it to XLA.
+
+The unscored heartbeat also runs T ticks per launch: ``make_fused_window``
+(the fused-window kernel, ``ops/kernels/fused.py``) and its runners
+``gossip_run_fused`` / ``gossip_run_curve_fused``, bit-identical to T
+per-tick steps.
 
 Representation (as in the reference): peer p belongs to topic p mod T
 and has C circulant candidates p + o_c; mesh/fanout/gate masks are
@@ -21,9 +27,10 @@ PyTorch idiom: params and state are dataclasses of tensors, the tick
 and the run salt (the reference's ``key_data(PRNGKey(seed))[-1]``) are
 host ints, and the reference's ``lax.cond`` branches are Python ``if``s
 — run unconditionally where that gives the same bits (a selection with
-k = 0 selects nothing), so the step syncs with the host once per tick
-(the prune check).  The port runs unpadded; options outside the slice
-raise their named refusal (``models/plan.py``).
+k = 0 selects nothing), so the scored step syncs with the host once per
+tick (the prune check) and the unscored step never does.  The port runs
+unpadded; options outside the slice raise their named refusal
+(``models/plan.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from ..device import check_on, resolve_device
 from ..ops import graph
 from ..ops.graph import (
     WORD_BITS,
+    count_bits_per_position,
     expand_bits,
     lane_seed,
     lane_uniform,
@@ -47,6 +55,7 @@ from ..ops.graph import (
     ranks_desc,
     select_k_by_priority_bits,
 )
+from ..ops.kernels import fused as kfused
 from ..ops.kernels import receive as krecv
 from ..ops.kernels import select as kselect
 from . import plan
@@ -267,14 +276,15 @@ class GossipParams:
     origin_words: torch.Tensor      # int32 [W, N]: bit m set at origin[m]
     deliver_words: torch.Tensor     # int32 [W, N]: msg m counts as delivery
     publish_tick: torch.Tensor      # int32 [M]
-    invalid_words: torch.Tensor     # int32 [W]: msg fails validation
-    cand_app_score: torch.Tensor    # f32 [C, N]: P5 of candidate
-    cand_colo_excess: torch.Tensor  # f32 [C, N]: P6 surplus
-    cand_static_score: torch.Tensor  # f32 [C, N]: baked P5 + P6 term
-    static_score_weights: tuple     # (app weight, colocation weight)
-    static_score_zero: bool         # baked term identically zero
-    cand_sybil: torch.Tensor        # bool [C, N]
-    sybil: torch.Tensor             # bool [N]
+    # the v1.1 fields, None when scoring is off
+    invalid_words: torch.Tensor | None = None    # int32 [W]: msg invalid
+    cand_app_score: torch.Tensor | None = None   # f32 [C, N]: P5
+    cand_colo_excess: torch.Tensor | None = None  # f32 [C, N]: P6 surplus
+    cand_static_score: torch.Tensor | None = None  # f32 [C, N]: P5 + P6
+    static_score_weights: tuple | None = None    # (app, colocation) weight
+    static_score_zero: bool = False              # baked term all zero
+    cand_sybil: torch.Tensor | None = None       # bool [C, N]
+    sybil: torch.Tensor | None = None            # bool [N]
 
 
 @dataclass
@@ -297,9 +307,10 @@ class GossipState:
     have: torch.Tensor          # int32 [W, N]
     recent: torch.Tensor        # int32 [Hg, W, N] mcache ring
     first_tick: torch.Tensor | None  # int16 [W, 32, N]
-    scores: ScoreState
-    iwant_serves: torch.Tensor  # int16 [C, N] IWANT-serve ledger
-    gates: tuple                # 7 x int32 [N], this tick's gate words
+    scores: ScoreState | None   # None unscored
+    iwant_serves: torch.Tensor | None  # int16 [C, N] IWANT-serve ledger
+    gates: tuple                # 7 (2 unscored) x int32 [N], this
+    #                             tick's gate words
     gates_fp: int               # fingerprint of the gates' config
     salt: int                   # run seed, key_data(PRNGKey(seed))[-1]
     tick: int
@@ -337,10 +348,11 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
     """Build (params, state) on ``device`` (default ``cuda``).
 
     subs: bool [N, T], each peer subscribed to at most its residue-class
-    topic.  score_cfg is required (the unscored step is refused);
-    app_score [N] f32 is P5, sybil [N] flags peers that forward invalid
-    messages, msg_invalid [M] marks messages failing validation, peer_ip
-    [N] must give every peer its own address."""
+    topic.  Without score_cfg the sim runs the unscored v1.0 step (state
+    without scores; two gate words).  With it: app_score [N] f32 is P5,
+    sybil [N] flags peers that forward invalid messages, msg_invalid [M]
+    marks messages failing validation, peer_ip [N] must give every peer
+    its own address."""
     dev = resolve_device(device)
     plan.check_sim_options(
         flood_proto=flood_proto, promise_break=promise_break,
@@ -387,28 +399,46 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
             out |= np.roll(per_peer_bool, -o).astype(np.uint32) << c
         return out
 
-    sc.validate()
-    app = (np.zeros(n, dtype=np.float32) if app_score is None
-           else np.asarray(app_score, dtype=np.float32))
-    syb = (np.zeros(n, dtype=bool) if sybil is None
-           else np.asarray(sybil, dtype=bool))
-    if peer_ip is None:
-        peer_ip = np.arange(n)
-    _, ip_idx = np.unique(np.asarray(peer_ip), return_inverse=True)
-    colo_count = np.bincount(ip_idx)[ip_idx].astype(np.float32)
-    if (colo_count > 1).any():
-        plan.refuse("shared_ip")
-    colo_excess = np.maximum(
-        0.0, colo_count - sc.ip_colocation_factor_threshold)
-    inv = (np.zeros(m, dtype=bool) if msg_invalid is None
-           else np.asarray(msg_invalid, dtype=bool))
-    app_v = cand_view(app)
-    colo_v = cand_view(colo_excess)
-    static = (sc.app_specific_weight * app_v
-              + sc.ip_colocation_factor_weight * colo_v * colo_v)
-
     def t_(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    scored = {}
+    if sc is None:
+        if (app_score is not None or peer_ip is not None
+                or sybil is not None or msg_invalid is not None):
+            raise ValueError("app_score, peer_ip, sybil and msg_invalid "
+                             "are v1.1 score inputs: they need score_cfg")
+    else:
+        sc.validate()
+        app = (np.zeros(n, dtype=np.float32) if app_score is None
+               else np.asarray(app_score, dtype=np.float32))
+        syb = (np.zeros(n, dtype=bool) if sybil is None
+               else np.asarray(sybil, dtype=bool))
+        if peer_ip is None:
+            peer_ip = np.arange(n)
+        _, ip_idx = np.unique(np.asarray(peer_ip), return_inverse=True)
+        colo_count = np.bincount(ip_idx)[ip_idx].astype(np.float32)
+        if (colo_count > 1).any():
+            plan.refuse("shared_ip")
+        colo_excess = np.maximum(
+            0.0, colo_count - sc.ip_colocation_factor_threshold)
+        inv = (np.zeros(m, dtype=bool) if msg_invalid is None
+               else np.asarray(msg_invalid, dtype=bool))
+        app_v = cand_view(app)
+        colo_v = cand_view(colo_excess)
+        static = (sc.app_specific_weight * app_v
+                  + sc.ip_colocation_factor_weight * colo_v * colo_v)
+        scored = dict(
+            invalid_words=_words(_pack_bits_pm_np(inv[None, :])[:, 0],
+                                 dev),
+            cand_app_score=t_(app_v.astype(np.float32)),
+            cand_colo_excess=t_(colo_v.astype(np.float32)),
+            cand_static_score=t_(static.astype(np.float32)),
+            static_score_weights=(sc.app_specific_weight,
+                                  sc.ip_colocation_factor_weight),
+            static_score_zero=bool(not app_v.any() and not colo_v.any()),
+            cand_sybil=t_(cand_view(syb)),
+            sybil=t_(syb))
 
     params = GossipParams(
         subscribed=t_(subscribed),
@@ -416,20 +446,20 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
         origin_words=_words(_pack_bits_pm_np(origin_bits), dev),
         deliver_words=_words(_pack_bits_pm_np(deliver_bits), dev),
         publish_tick=t_(np.asarray(msg_publish_tick, dtype=np.int32)),
-        invalid_words=_words(_pack_bits_pm_np(inv[None, :])[:, 0], dev),
-        cand_app_score=t_(app_v.astype(np.float32)),
-        cand_colo_excess=t_(colo_v.astype(np.float32)),
-        cand_static_score=t_(static.astype(np.float32)),
-        static_score_weights=(sc.app_specific_weight,
-                              sc.ip_colocation_factor_weight),
-        static_score_zero=bool(not app_v.any() and not colo_v.any()),
-        cand_sybil=t_(cand_view(syb)),
-        sybil=t_(syb))
+        **scored)
     w = params.origin_words.shape[0]
     c = cfg.n_candidates
-    cdt = krecv.DTYPES[sc.counter_dtype]
     i16 = lambda: torch.zeros((c, n), dtype=torch.int16, device=dev)  # noqa: E731
     zbits = lambda: torch.zeros((n,), dtype=torch.int32, device=dev)  # noqa: E731
+    scores = None
+    if sc is not None:
+        cdt = krecv.DTYPES[sc.counter_dtype]
+        scores = ScoreState(
+            time_in_mesh=i16(),
+            first_deliveries=torch.zeros((c, n), dtype=cdt, device=dev),
+            invalid_deliveries=torch.zeros((c, n), dtype=cdt, device=dev),
+            behaviour_penalty=torch.zeros(
+                (c, n), dtype=krecv.DTYPES[sc.bp_dtype], device=dev))
     state = GossipState(
         mesh=zbits(), fanout=zbits(),
         last_pub=torch.full((n,), -(10 ** 9), dtype=torch.int32,
@@ -440,13 +470,8 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
                            device=dev),
         first_tick=(torch.full((w, WORD_BITS, n), -1, dtype=torch.int16,
                                device=dev) if track_first_tick else None),
-        scores=ScoreState(
-            time_in_mesh=i16(),
-            first_deliveries=torch.zeros((c, n), dtype=cdt, device=dev),
-            invalid_deliveries=torch.zeros((c, n), dtype=cdt, device=dev),
-            behaviour_penalty=torch.zeros(
-                (c, n), dtype=krecv.DTYPES[sc.bp_dtype], device=dev)),
-        iwant_serves=i16(), gates=(), gates_fp=0,
+        scores=scores, iwant_serves=None if sc is None else i16(),
+        gates=(), gates_fp=0,
         salt=seed & graph.MASK32, tick=0)
     # seed the gate pipeline: tick 0's gate words
     return params, refresh_gates(cfg, sc, params, state)
@@ -503,26 +528,35 @@ def gates_fingerprint(cfg: GossipSimConfig,
     return zlib.crc32(repr(desc).encode())
 
 
-def gossip_targets_row(cfg: GossipSimConfig, sc: ScoreSimConfig,
+def gossip_targets_row(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
                        params: GossipParams, *, mesh, fanout, gossip_row,
                        tick: int, salt: int) -> torch.Tensor:
     """The lazy-gossip targets gate row: Bernoulli(k/|elig|) over the
-    non-mesh subscribed candidates above the gossip threshold, k =
-    max(Dlazy, factor * |elig|) (emitGossip gossipsub.go:1656-1712)."""
+    non-mesh subscribed candidates (scored: above the gossip threshold,
+    ``gossip_row``), k = max(Dlazy, factor * |elig|) (emitGossip
+    gossipsub.go:1656-1712)."""
     k = krecv.receive_consts(cfg, sc)
     all_c = (1 << cfg.n_candidates) - 1
     sub_all = torch.where(params.subscribed, all_c, 0).to(torch.int32)
-    elig = params.cand_sub_bits & ~mesh & ~fanout & sub_all & gossip_row
+    elig = params.cand_sub_bits & ~mesh & ~fanout & sub_all
+    if gossip_row is not None:
+        elig = elig & gossip_row
     return krecv.targets_row(k, elig, lane_seed(tick, 1, salt),
                              mesh.shape[0])
 
 
-def compute_gates(cfg: GossipSimConfig, sc: ScoreSimConfig,
+def compute_gates(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
                   params: GossipParams, st: GossipState,
                   salt: int) -> tuple:
-    """The packed gate words for ``st.tick`` (tuple of 7 int32 [N]):
-    accept, gossip, publish, nonneg, payload (accept ∧ RED gater),
-    targets, backoff — the reference's compute_gates rows."""
+    """The packed gate words for ``st.tick`` (tuple of int32 [N]) — the
+    reference's compute_gates rows: scored, accept, gossip, publish,
+    nonneg, payload (accept ∧ RED gater), targets, backoff; unscored,
+    targets and backoff."""
+    if sc is None:
+        return (gossip_targets_row(cfg, None, params, mesh=st.mesh,
+                                   fanout=st.fanout, gossip_row=None,
+                                   tick=st.tick, salt=salt),
+                pack_rows(st.backoff > 0))
     k = krecv.receive_consts(cfg, sc)
     n = st.mesh.shape[0]
     score = compute_scores(sc, params, st)
@@ -542,7 +576,7 @@ def compute_gates(cfg: GossipSimConfig, sc: ScoreSimConfig,
     return tuple(rows)
 
 
-def refresh_gates(cfg: GossipSimConfig, sc: ScoreSimConfig,
+def refresh_gates(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
                   params: GossipParams, st: GossipState) -> GossipState:
     """Recompute the carried gate words (after building a state, or
     after editing any field they read)."""
@@ -619,10 +653,12 @@ def make_gossip_step(cfg: GossipSimConfig,
 
     Per tick: 1. inject due publishes; 1b. fanout TTL and refill;
     2. eager forward over mesh ∪ fanout; 3. lazy gossip over this
-    tick's target row; 4. maintenance selections (negative-score drops,
-    graft to D below Dlo, score-ranked prune to D above Dhi,
-    opportunistic graft every opportunistic_graft_ticks); then the
-    receive kernel resolves the exchange and emits next tick's gates.
+    tick's target row; 4. maintenance selections (scored: negative-score
+    drops, graft to D below Dlo, score-ranked prune to D above Dhi,
+    opportunistic graft every opportunistic_graft_ticks; unscored
+    (``score_cfg`` None, v1.0): graft to D below Dlo, random prune to D
+    above Dhi); then the receive kernel resolves the exchange and emits
+    next tick's gates.
     """
     dev = resolve_device(device)
     plan.check_step_options(force_split=force_split,
@@ -635,13 +671,14 @@ def make_gossip_step(cfg: GossipSimConfig,
     ALL = (1 << C) - 1
     Hg = cfg.history_gossip
     step_fp = gates_fingerprint(cfg, sc)
+    n_gates = krecv.N_GATES if sc is not None else krecv.N_GATES_UNSCORED
 
     def step(params: GossipParams, state: GossipState):
         check_on(dev, subscribed=params.subscribed, mesh=state.mesh)
-        if len(state.gates) != krecv.N_GATES:
+        if len(state.gates) != n_gates:
             raise ValueError(
                 f"state carries {len(state.gates)} gate words, the step "
-                f"expects {krecv.N_GATES}: refresh_gates first")
+                f"expects {n_gates}: refresh_gates first")
         if state.gates_fp != step_fp:
             raise ValueError(
                 "state's carried gates were emitted under a different "
@@ -652,10 +689,12 @@ def make_gossip_step(cfg: GossipSimConfig,
         n = sub.shape[0]
         sub_all = torch.where(sub, ALL, 0).to(torch.int32)
         cand_sub = params.cand_sub_bits
-        (accept_bits, gossip_bits, pub_ok_bits, nonneg_bits, payload_bits,
-         targets, bo_row) = state.gates
-        valid = ~params.invalid_words                       # [W]
-        static = _static_term(sc, params)
+        if sc is not None:
+            (accept_bits, gossip_bits, pub_ok_bits, nonneg_bits,
+             payload_bits, targets, bo_row) = state.gates
+            valid = ~params.invalid_words                   # [W]
+        else:
+            targets, bo_row = state.gates
 
         def sel_k(elig, kk, phase):
             return kselect.select_k_bits(elig, kk, C,
@@ -666,84 +705,107 @@ def make_gossip_step(cfg: GossipSimConfig,
         injected = params.origin_words & due[:, None] & ~state.have
         publishing = (injected != 0).any(0)
 
-        # -- 1b. fanout TTL + refill (own publishes only)
+        # -- 1b. fanout TTL + refill (own publishes only; scored: above
+        # the publish threshold)
         last_pub = torch.where(publishing, tick, state.last_pub)
         alive = ~sub & ((tick - last_pub) < cfg.fanout_ttl_ticks)
         fanout = torch.where(alive, state.fanout, 0)
         f_need = torch.where(alive, cfg.d - popcount32(fanout), 0)
-        f_elig = cand_sub & ~fanout & pub_ok_bits
+        f_elig = cand_sub & ~fanout
+        if sc is not None:
+            f_elig = f_elig & pub_ok_bits
         fanout = fanout | sel_k(f_elig, f_need.to(torch.int32), 4)
 
-        # -- 2. eager-forward and 3. advert words (honest peers drop
-        # invalid messages; sybils forward them)
-        syb = params.sybil[None, :]
+        # -- 2. eager-forward and 3. advert words (scored: honest peers
+        # drop invalid messages; sybils forward them)
         fresh = state.recent[(tick - 1) % Hg] | injected
-        fresh = torch.where(syb, fresh, fresh & valid[:, None])
         adv = injected
         for h in range(Hg):
             adv = adv | state.recent[h]
-        adv = torch.where(syb, adv, adv & valid[:, None])
+        if sc is not None:
+            syb = params.sybil[None, :]
+            fresh = torch.where(syb, fresh, fresh & valid[:, None])
+            adv = torch.where(syb, adv, adv & valid[:, None])
         out_bits = state.mesh | fanout
         seen = state.have | injected
 
         # -- 4. maintenance selections (start-of-tick state only)
         mesh0 = state.mesh
-        neg = mesh0 & ~nonneg_bits
-        mesh_ng = mesh0 & nonneg_bits
+        neg = None
+        mesh_ng = mesh0
+        if sc is not None:
+            neg = mesh0 & ~nonneg_bits
+            mesh_ng = mesh0 & nonneg_bits
         deg = popcount32(mesh_ng)
-        can_graft = (cand_sub & ~mesh_ng & ~bo_row & sub_all
-                     & nonneg_bits)
+        can_graft = cand_sub & ~mesh_ng & ~bo_row & sub_all
+        if sc is not None:
+            can_graft = can_graft & nonneg_bits
         need = torch.where(deg < cfg.d_lo, cfg.d - deg, 0).to(torch.int32)
         grafts = sel_k(can_graft, need, 2)
-        prunes = _prunes(cfg, sc, params, state, mesh_ng, deg)
-        if tick % sc.opportunistic_graft_ticks == 0:
-            grafts = grafts | sel_k(
-                *_opportunistic(sc, params, state, mesh_ng, deg,
-                                can_graft & ~grafts), 5)
+        if sc is None:
+            # v1.0 random retention of D where deg > Dhi, drawn for
+            # every peer (no host sync; masked to the over-full ones)
+            keep = sel_k(mesh_ng, torch.full_like(deg, cfg.d), 3)
+            prunes = torch.where(deg > cfg.d_hi, mesh_ng & ~keep, 0)
+        else:
+            prunes = _prunes(cfg, sc, params, state, mesh_ng, deg)
+            if tick % sc.opportunistic_graft_ticks == 0:
+                grafts = grafts | sel_k(
+                    *_opportunistic(sc, params, state, mesh_ng, deg,
+                                    can_graft & ~grafts), 5)
         mesh_sel = (mesh_ng | grafts) & ~prunes
-        dropped = prunes | neg
+        dropped = prunes if neg is None else prunes | neg
         backoff_bits2 = bo_row | dropped
-        would_accept = sub_all & ~backoff_bits2 & nonneg_bits
-        a_sent = would_accept | ~accept_bits
+        would_accept = sub_all & ~backoff_bits2
+        if sc is not None:
+            would_accept = would_accept & nonneg_bits
+            a_sent = would_accept | ~accept_bits
+        else:
+            a_sent = would_accept
 
         # -- the receive kernel: exchange, handshake, counters, gates
         # no withholding senders in the slice: the delivering advert
         # (CTRL_TGT) is the raw advert (CTRL_ADV)
         ctrl = krecv.ctrl_bytes(C, out=out_bits, tgt=targets, graft=grafts,
                                 drop=dropped, a=a_sent, adv=targets)
-        s0 = state.scores
-        outs = krecv.receive_update(
-            k, valid=valid,
+        ops = dict(
             gseeds=(lane_seed(tick + 1, 6, salt),
                     lane_seed(tick + 1, 1, salt)),
-            ctrl=ctrl, fresh=fresh, adv=adv, pay=payload_bits,
-            gsp=gossip_bits, acc=accept_bits, sub_all=sub_all,
+            ctrl=ctrl, fresh=fresh, adv=adv, sub_all=sub_all,
             cand_sub=cand_sub, fanout=fanout, wa=would_accept,
-            bo2=backoff_bits2, grafts=grafts, dropped=dropped,
-            meshsel=mesh_sel, seen=seen, injected=injected,
-            backoff=state.backoff, static=static,
-            fd=s0.first_deliveries, inv=s0.invalid_deliveries,
-            bp=s0.behaviour_penalty, tim=s0.time_in_mesh,
-            iws=state.iwant_serves)
+            grafts=grafts, dropped=dropped, meshsel=mesh_sel, seen=seen,
+            injected=injected, backoff=state.backoff)
+        if sc is not None:
+            s0 = state.scores
+            ops.update(
+                valid=valid, pay=payload_bits, gsp=gossip_bits,
+                acc=accept_bits, bo2=backoff_bits2,
+                static=_static_term(sc, params), fd=s0.first_deliveries,
+                inv=s0.invalid_deliveries, bp=s0.behaviour_penalty,
+                tim=s0.time_in_mesh, iws=state.iwant_serves)
+        outs = krecv.receive_update(k, **ops)
         acq, mesh_new, backoff_new = outs[:3]
-        gates_new = tuple(outs[3:3 + krecv.N_GATES])
-        fd_o, inv_o, bp_o, tim_o, iws_o = outs[3 + krecv.N_GATES:]
+        gates_new = tuple(outs[3:3 + n_gates])
+        scores = iws_o = None
+        if sc is not None:
+            fd_o, inv_o, bp_o, tim_o, iws_o = outs[3 + n_gates:]
+            scores = ScoreState(time_in_mesh=tim_o, first_deliveries=fd_o,
+                                invalid_deliveries=inv_o,
+                                behaviour_penalty=bp_o)
 
         # -- epilogue: possession, mcache ring, deliveries, tick
         recent = state.recent.clone()
         recent[tick % Hg] = acq
-        delivered_now = (acq & params.deliver_words
-                         & ~params.invalid_words[:, None])
+        delivered_now = acq & params.deliver_words
+        if sc is not None:
+            delivered_now = delivered_now & ~params.invalid_words[:, None]
         new_state = GossipState(
             mesh=mesh_new, fanout=fanout, last_pub=last_pub,
             backoff=backoff_new, have=state.have | acq, recent=recent,
             first_tick=update_first_tick(state.first_tick, delivered_now,
                                          tick),
-            scores=ScoreState(time_in_mesh=tim_o, first_deliveries=fd_o,
-                              invalid_deliveries=inv_o,
-                              behaviour_penalty=bp_o),
-            iwant_serves=iws_o, gates=gates_new, gates_fp=state.gates_fp,
-            salt=salt, tick=tick + 1)
+            scores=scores, iwant_serves=iws_o, gates=gates_new,
+            gates_fp=state.gates_fp, salt=salt, tick=tick + 1)
         return new_state, delivered_now
 
     return step
@@ -752,6 +814,71 @@ def make_gossip_step(cfg: GossipSimConfig,
 # --------------------------------------------------------------------------
 # Runners and readouts
 # --------------------------------------------------------------------------
+
+
+def make_fused_window(cfg: GossipSimConfig,
+                      score_cfg: ScoreSimConfig | None = None, *,
+                      ticks_fused: int = 8,
+                      device: str | torch.device | None = None,
+                      telemetry=None, shard_mesh=None):
+    """Build ``window(params, state) -> (state, delivered)``: T =
+    ``ticks_fused`` unscored ticks in ONE launch of the fused kernel
+    (``ops/kernels/fused.py``), the carry read and written once per
+    window.  ``delivered`` is int32 [T, W, N] — row t is tick
+    ``state.tick + t``'s delivered words.  Bit-identical to T per-tick
+    steps of ``make_gossip_step(cfg, None)``.
+
+    On the host the window computes the T x 4 lane seeds; the T due
+    words are computed on the device, so a window never syncs with the
+    host.  A window the port does not run raises its named refusal
+    (``plan.check_fused_window``; on the card, ``fused_grid`` from the
+    launch) — there is no per-tick fallback."""
+    dev = resolve_device(device)
+    T = int(ticks_fused)
+    plan.check_fused_window(cfg, score_cfg, T, telemetry=telemetry,
+                            shard_mesh=shard_mesh)
+    k = kfused.fused_consts(cfg)
+    all_c = (1 << cfg.n_candidates) - 1
+    step_fp = gates_fingerprint(cfg, None)
+
+    def window(params: GossipParams, state: GossipState):
+        check_on(dev, subscribed=params.subscribed, mesh=state.mesh)
+        if len(state.gates) != krecv.N_GATES_UNSCORED:
+            raise ValueError(
+                f"state carries {len(state.gates)} gate words, the "
+                f"unscored window expects {krecv.N_GATES_UNSCORED}: the "
+                "state was built for a scored config")
+        if state.gates_fp != step_fp:
+            raise ValueError(
+                "state's carried gates were emitted under a different "
+                "(cfg, score_cfg) than this window's — refresh_gates "
+                "with the new config first")
+        tick0 = state.tick
+        ticks = torch.arange(tick0, tick0 + T, dtype=torch.int32,
+                             device=dev)
+        due = pack_bits(params.publish_tick[None, :] == ticks[:, None])
+        (have, recent, mesh, fanout, last_pub, backoff, tgt, bog,
+         acq) = kfused.fused_gossip_update(
+            k, tick0=tick0, seeds=kfused.window_seeds(tick0, T, state.salt),
+            due=due,
+            sub_all=torch.where(params.subscribed, all_c, 0).to(
+                torch.int32),
+            cand_sub=params.cand_sub_bits, origin=params.origin_words,
+            have=state.have, recent=state.recent, mesh=state.mesh,
+            fanout=state.fanout, last_pub=state.last_pub,
+            backoff=state.backoff, tgt=state.gates[0], bog=state.gates[1])
+        delivered = acq & params.deliver_words[None]
+        first_tick = state.first_tick
+        for t in range(T):
+            first_tick = update_first_tick(first_tick, delivered[t],
+                                           tick0 + t)
+        return replace(state, mesh=mesh, fanout=fanout, last_pub=last_pub,
+                       backoff=backoff, have=have, recent=recent,
+                       first_tick=first_tick, gates=(tgt, bog),
+                       tick=tick0 + T), delivered
+
+    window.ticks_fused = T
+    return window
 
 
 def gossip_run(params: GossipParams, state: GossipState, n_ticks: int,
@@ -763,6 +890,54 @@ def gossip_run(params: GossipParams, state: GossipState, n_ticks: int,
     for _ in range(n_ticks):
         state = step(params, state)[0]
     return state
+
+
+def gossip_run_curve(params: GossipParams, state: GossipState,
+                     n_ticks: int, step, n_msgs: int, *,
+                     device: str | torch.device | None = None):
+    """``gossip_run`` collecting per-tick delivered counts: returns
+    ``(state, counts int32 [n_ticks, n_msgs])``."""
+    dev = resolve_device(device)
+    check_on(dev, subscribed=params.subscribed, mesh=state.mesh)
+    rows = []
+    for _ in range(n_ticks):
+        state, delivered = step(params, state)
+        rows.append(count_bits_per_position(delivered, n_msgs))
+    counts = (torch.stack(rows) if rows else
+              torch.zeros((0, n_msgs), dtype=torch.int32, device=dev))
+    return state, counts
+
+
+def gossip_run_fused(params: GossipParams, state: GossipState,
+                     n_ticks: int, window, *,
+                     device: str | torch.device | None = None
+                     ) -> GossipState:
+    """``gossip_run`` over fused windows (``make_fused_window``): one
+    launch per ``window.ticks_fused`` ticks, the final state
+    bit-identical to ``gossip_run`` with the per-tick step.  A horizon
+    the window does not divide raises ``fused_horizon``."""
+    dev = resolve_device(device)
+    check_on(dev, subscribed=params.subscribed, mesh=state.mesh)
+    for _ in range(plan.check_fused_horizon(n_ticks, window.ticks_fused)):
+        state = window(params, state)[0]
+    return state
+
+
+def gossip_run_curve_fused(params: GossipParams, state: GossipState,
+                           n_ticks: int, window, n_msgs: int, *,
+                           device: str | torch.device | None = None):
+    """``gossip_run_curve`` over fused windows: per-tick delivered
+    counts [n_ticks, n_msgs], rows bit-identical to the per-tick
+    runner's."""
+    dev = resolve_device(device)
+    check_on(dev, subscribed=params.subscribed, mesh=state.mesh)
+    rows = []
+    for _ in range(plan.check_fused_horizon(n_ticks, window.ticks_fused)):
+        state, delivered = window(params, state)
+        rows += [count_bits_per_position(d, n_msgs) for d in delivered]
+    counts = (torch.stack(rows) if rows else
+              torch.zeros((0, n_msgs), dtype=torch.int32, device=dev))
+    return state, counts
 
 
 def reach_counts(params: GossipParams, state: GossipState) -> torch.Tensor:

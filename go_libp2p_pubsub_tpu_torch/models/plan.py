@@ -1,18 +1,21 @@
 """Named refusals: every option of ``make_gossip_sim`` /
-``make_gossip_step`` that the port does not run raises one of these,
-never a silent fallback.
+``make_gossip_step`` / ``make_fused_window`` that the port does not run
+raises one of these, never a silent fallback.
 
-The port runs the scored GossipSub v1.1 heartbeat on its receive kernel
-(unpadded, pipelined gates, Bernoulli gossip targets, one topic per
-peer).  Each refusal has a stable name (``SliceRefusal.name``) and its
-own message; tests match on the name.
+The port runs the scored GossipSub v1.1 heartbeat and the unscored v1.0
+heartbeat on its receive kernel (unpadded, pipelined gates, Bernoulli
+gossip targets, one topic per peer), and the unscored heartbeat T ticks
+per launch on the fused-window kernel.  Each refusal has a stable name
+(``SliceRefusal.name``) and its own message; tests match on the name.
 """
 
 from __future__ import annotations
 
+#: the longest fused window: its lane seeds ride the launch's argument
+#: block (4 u32 per tick)
+MAX_WINDOW = 64
+
 REFUSALS: dict[str, str] = {
-    "unscored": "the unscored (v1.0) step is not ported yet: pass a "
-                "ScoreSimConfig",
     "paired": "paired-topic overlays (paired_topics=True) are not "
               "ported yet",
     "faults": "fault schedules (churn, link loss, partitions) are not "
@@ -52,6 +55,14 @@ REFUSALS: dict[str, str] = {
     "counter_dtype": "counter_dtype must be 'bfloat16' or 'float32'",
     "reweighted_static": "the baked static P5+P6 score term was built "
                          "under other weights than this score config",
+    "fused_window": f"the fused window runs 1 to {MAX_WINDOW} ticks per "
+                    "launch",
+    "fused_horizon": "the run's horizon is not a whole number of fused "
+                     "windows",
+    "fused_scored": "the fused window runs the unscored (v1.0) step only: "
+                    "scored sims step per tick",
+    "fused_grid": "the fused kernel cannot keep one block resident on "
+                  "the device, so its cooperative launch cannot run",
 }
 
 
@@ -68,15 +79,16 @@ def refuse(name: str):
 
 
 def check_kernel_config(cfg, sc) -> None:
-    """Refuse a static config the step and receive kernel do not run."""
-    if sc is None:
-        refuse("unscored")
+    """Refuse a static config the step and receive kernel do not run
+    (``sc`` None is the unscored v1.0 step)."""
     if cfg.paired_topics:
         refuse("paired")
     if not cfg.binomial_gossip_sampling:
         refuse("exact_k")
     if cfg.n_candidates > 16:
         refuse("wide_candidates")
+    if sc is None:
+        return
     if sc.track_p3:
         refuse("track_p3")
     if sc.flood_publish:
@@ -127,3 +139,28 @@ def check_sim_options(*, flood_proto, promise_break, px_candidates,
     if (delays is not None or delays_split or delays_counters
             or delays_probe):
         refuse("delays")
+
+
+def check_fused_window(cfg, sc, ticks: int, *, telemetry=None,
+                       shard_mesh=None) -> None:
+    """Refuse a fused window the port does not run (static config).
+
+    Faults, delays, knobs, PX and direct peers are refused by the same
+    names when the sim is built (``check_sim_options``), so no window
+    ever sees them; the window refuses the rest here."""
+    if not 1 <= int(ticks) <= MAX_WINDOW:
+        refuse("fused_window")
+    check_kernel_config(cfg, sc)
+    if sc is not None:
+        refuse("fused_scored")
+    if telemetry is not None:
+        refuse("telemetry")
+    if shard_mesh is not None:
+        refuse("shard_mesh")
+
+
+def check_fused_horizon(n_ticks: int, ticks: int) -> int:
+    """The number of windows in ``n_ticks``, or the named refusal."""
+    if n_ticks < 0 or n_ticks % ticks:
+        refuse("fused_horizon")
+    return n_ticks // ticks

@@ -5,7 +5,8 @@ library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds, not minutes).  All requested sources
 build concurrently, one ``nvcc`` process each.  Libraries go to
 ``build/torch_kernels/`` at the repository root (git-ignored), named by a
-hash of the source and the flags, so an edited source rebuilds.
+hash of the source, the shared headers it may include (``csrc/*.cuh``)
+and the flags, so an edited source or header rebuilds.
 
 Nothing here runs at import: the first call of a kernel wrapper builds.
 """
@@ -45,10 +46,11 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: tuple[str, ...]) -> dict[str, str]:

@@ -2,25 +2,32 @@
 its plain PyTorch version.
 
 Counterpart of ``go_libp2p_pubsub_tpu/ops/pallas/receive.py``
-(``make_receive_update`` / ``_receive_kernel``) for the scored, unpaired
-flagship options.  The port runs unpadded, so the sender view of edge j
-is the plain ``(p + o_j) mod N`` read — no wrap-extended flats.
+(``make_receive_update`` / ``_receive_kernel``) for the unpaired options
+the port runs, scored (v1.1) and unscored (v1.0, ``score_cfg=None``).
+The port runs unpadded, so the sender view of edge j is the plain
+``(p + o_j) mod N`` read — no wrap-extended flats.
 
-Operands (peer axis last, packed u32 words as int32):
+Operands (peer axis last, packed u32 words as int32), both variants:
 
-- ``valid`` int32 [W]: message validity masks (``~invalid_words``);
-- ``gseeds`` (gater, targets): host u32 lane seeds for tick + 1;
+- ``gseeds`` (gater, targets): host u32 lane seeds for tick + 1 (the
+  unscored variant draws only the targets);
 - ``ctrl`` uint8 [C, N]: per sender edge bit, the CTRL_* flags;
 - ``fresh``, ``adv`` [W, N]: the senders' eager and advert words;
-- ``pay``, ``gsp``, ``acc``, ``sub_all``, ``cand_sub``, ``fanout``,
-  ``wa``, ``bo2``, ``grafts``, ``dropped``, ``meshsel`` [N];
-- ``seen``, ``injected`` [W, N]; ``backoff`` int16 [C, N];
+- ``sub_all``, ``cand_sub``, ``fanout``, ``wa``, ``grafts``,
+  ``dropped``, ``meshsel`` [N];
+- ``seen``, ``injected`` [W, N]; ``backoff`` int16 [C, N].
+
+Scored only (``SCORED_OPERANDS``):
+
+- ``valid`` int32 [W]: message validity masks (``~invalid_words``);
+- ``pay``, ``gsp``, ``acc``, ``bo2`` [N];
 - ``static`` f32 [C, N] or None (an all-zero static score is elided);
 - ``fd``, ``inv`` (counter dtype), ``bp`` (bp dtype), ``tim``, ``iws``
   int16, all [C, N].
 
-Returns ``(acq [W, N], mesh [N], backoff [C, N], *gates (7 x [N]), fd,
-inv, bp, tim, iws)`` — make_receive_update's output order.
+Returns make_receive_update's output order: scored ``(acq [W, N], mesh
+[N], backoff [C, N], *gates (7 x [N]), fd, inv, bp, tim, iws)``,
+unscored ``(acq, mesh, backoff, targets, backoff gate)``.
 """
 
 from __future__ import annotations
@@ -43,13 +50,21 @@ CTRL_DROP = 3      # PRUNE sent (prunes | negative-score drops)
 CTRL_A = 4         # "no PRUNE would come back"
 CTRL_ADV = 5       # raw IHAVE advert
 N_GATES = 7        # accept, gossip, publish, nonneg, payload, targets, backoff
+N_GATES_UNSCORED = 2   # targets, backoff
 
-#: launches of the CUDA kernel (a plain integer; chip_smoke.py resets it
-#: before the main path and reads it after)
+#: launches of the CUDA kernel, scored and unscored variants (plain
+#: integers; chip_smoke.py resets them before the main path and reads
+#: them after)
 launches = 0
+launches_unscored = 0
 
-#: (C, W) shapes the CUDA kernel is instantiated for
-KERNEL_SHAPES = {(8, 1), (8, 2), (16, 1), (16, 2)}
+#: (C, W, scored) variants the CUDA kernel is instantiated for
+KERNEL_SHAPES = {(c, w, scored) for c in (8, 16) for w in (1, 2)
+                 for scored in (True, False)}
+
+#: operands only the scored variant takes
+SCORED_OPERANDS = ("valid", "pay", "gsp", "acc", "bo2", "static", "fd",
+                   "inv", "bp", "tim", "iws")
 
 #: ScoreSimConfig counter_dtype / bp_dtype names -> torch dtypes
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -91,35 +106,46 @@ def score_consts(sc) -> ScoreConsts:
 
 @dataclass(frozen=True)
 class ReceiveConsts:
-    """The static scalars of one (cfg, score_cfg), folded on the host."""
+    """The static scalars of one (cfg, score_cfg), folded on the host;
+    the score fields are None for the unscored step."""
 
     offsets: tuple[int, ...]
     cinv: tuple[int, ...]
-    counter_dtype: torch.dtype
-    bp_dtype: torch.dtype
     backoff_restart: int
     d_lazy: int
     history_length: int
     gossip_factor: float
-    fd_cap: float
-    fd_decay: float
-    inv_decay: float
-    bp_decay: float
-    decay_to_zero: float
-    gray_thr: float
-    gossip_thr: float
-    publish_thr: float
-    score: ScoreConsts
+    counter_dtype: torch.dtype | None = None
+    bp_dtype: torch.dtype | None = None
+    fd_cap: float | None = None
+    fd_decay: float | None = None
+    inv_decay: float | None = None
+    bp_decay: float | None = None
+    decay_to_zero: float | None = None
+    gray_thr: float | None = None
+    gossip_thr: float | None = None
+    publish_thr: float | None = None
+    score: ScoreConsts | None = None
 
     @property
     def n_candidates(self) -> int:
         return len(self.offsets)
 
+    @property
+    def scored(self) -> bool:
+        return self.score is not None
+
 
 def receive_consts(cfg, sc) -> ReceiveConsts:
     """Check the options (named refusals outside the slice) and fold the
-    constants."""
+    constants (``sc`` None: the unscored step's)."""
     plan.check_kernel_config(cfg, sc)
+    if sc is None:
+        return ReceiveConsts(
+            offsets=tuple(int(o) for o in cfg.offsets),
+            cinv=tuple(cfg.cinv), backoff_restart=cfg.backoff_ticks - 1,
+            d_lazy=cfg.d_lazy, history_length=cfg.history_length,
+            gossip_factor=_f32(cfg.gossip_factor))
     return ReceiveConsts(
         offsets=tuple(int(o) for o in cfg.offsets), cinv=tuple(cfg.cinv),
         counter_dtype=DTYPES[sc.counter_dtype],
@@ -213,16 +239,15 @@ def _decay_keep(k: ReceiveConsts, x: torch.Tensor, decay: float,
     return torch.where(x < k.decay_to_zero, 0.0, x).to(dtype)
 
 
-def receive_update_plain(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
-                         adv, pay, gsp, acc, sub_all, cand_sub, fanout, wa,
-                         bo2, grafts, dropped, meshsel, seen, injected,
-                         backoff, static, fd, inv, bp, tim, iws):
-    """Plain PyTorch version of the receive kernel (same operands, same
-    outputs, bit-identical)."""
-    C = k.n_candidates
+def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
+              gsp=None, valid=None):
+    """Stage 1 over the C receiving edges: the senders' words heard
+    (``news`` per message word), the GRAFT/PRUNE/A bits received and,
+    with ``valid`` (scored), the per-edge valid/invalid news counts.
+    Unscored (``pay`` None) no gate closes an edge."""
     W = fresh.shape[0]
-    n = pay.shape[0]
-    z = torch.zeros_like(pay)
+    n = seen.shape[1]
+    z = torch.zeros((n,), dtype=torch.int32, device=seen.device)
     heard = [z] * W
     fd_cnt, iv_cnt = [], []
     graft_recv = prune_recv = a_recv = z
@@ -232,37 +257,79 @@ def receive_update_plain(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
         graft_recv = graft_recv | (((ctl >> CTRL_GRAFT) & 1) << j)
         prune_recv = prune_recv | (((ctl >> CTRL_DROP) & 1) << j)
         a_recv = a_recv | (((ctl >> CTRL_A) & 1) << j)
-        ok_p = (pay >> j) & 1
-        ok_g = ok_p & ((gsp >> j) & 1)
+        ok_p = 1 if pay is None else (pay >> j) & 1
+        ok_g = 1 if gsp is None else ok_p & ((gsp >> j) & 1)
         fwd_on = ((ctl >> CTRL_OUT) & ok_p & 1) != 0
         gsp_on = ((ctl >> CTRL_TGT) & ok_g & 1) != 0
-        fd_j = iv_j = torch.zeros((n,), dtype=torch.int32,
-                                  device=pay.device)
+        fd_j = iv_j = z
         for w in range(W):
             got = (torch.where(fwd_on, torch.roll(fresh[w], -o), 0)
                    | torch.where(gsp_on, torch.roll(adv[w], -o), 0))
             news = got & ~seen[w]
             heard[w] = heard[w] | news
-            fd_j = fd_j + graph.popcount32(news & valid[w])
-            iv_j = iv_j + graph.popcount32(news & ~valid[w])
+            if valid is not None:
+                fd_j = fd_j + graph.popcount32(news & valid[w])
+                iv_j = iv_j + graph.popcount32(news & ~valid[w])
         fd_cnt.append(fd_j)
         iv_cnt.append(iv_j)
+    return heard, graft_recv, prune_recv, a_recv, fd_cnt, iv_cnt
 
+
+def _acquired(heard, sub_all, injected) -> torch.Tensor:
+    subbed = sub_all != 0
+    return torch.stack([torch.where(subbed, heard[w], 0) | injected[w]
+                        for w in range(len(heard))])
+
+
+def _backoff(k: ReceiveConsts, backoff, bo_trig):
+    """The backoff write (trigger: restart, else count down to 0) and
+    its packed > 0 gate row."""
+    bo32 = backoff.to(torch.int32)
+    bo_new = torch.where(graph.expand_bits(bo_trig, k.n_candidates),
+                         k.backoff_restart, (bo32 - 1).clamp(min=0))
+    return bo_new.to(torch.int16), graph.pack_rows(bo_new > 0)
+
+
+def receive_update_plain(k: ReceiveConsts, **ops):
+    """Plain PyTorch version of the receive kernel (same operands, same
+    outputs, bit-identical)."""
+    if k.scored:
+        return _receive_plain_scored(k, **ops)
+    return _receive_plain_unscored(k, **ops)
+
+
+def _receive_plain_unscored(k: ReceiveConsts, *, gseeds, ctrl, fresh, adv,
+                            sub_all, cand_sub, fanout, wa, grafts, dropped,
+                            meshsel, seen, injected, backoff):
+    heard, graft_recv, prune_recv, a_recv, _, _ = _exchange(
+        k, ctrl, fresh, adv, seen)
+    accept = graft_recv & wa
+    retract = grafts & ~a_recv
+    mesh = ((meshsel | accept) & ~prune_recv) & ~retract
+    bo_new, bo_gate = _backoff(k, backoff, dropped | prune_recv | retract)
+    tgt = targets_row(k, cand_sub & ~mesh & ~fanout & sub_all, gseeds[1],
+                      mesh.shape[0])
+    return (_acquired(heard, sub_all, injected), mesh, bo_new, tgt,
+            bo_gate)
+
+
+def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
+                          adv, pay, gsp, acc, sub_all, cand_sub, fanout, wa,
+                          bo2, grafts, dropped, meshsel, seen, injected,
+                          backoff, static, fd, inv, bp, tim, iws):
+    C = k.n_candidates
+    n = pay.shape[0]
+    heard, graft_recv, prune_recv, a_recv, fd_cnt, iv_cnt = _exchange(
+        k, ctrl, fresh, adv, seen, pay, gsp, valid)
     graft_recv = graft_recv & acc
     prune_recv = prune_recv & acc
     viol = graft_recv & bo2
     accept = graft_recv & wa
     retract = grafts & ~a_recv
     mesh = ((meshsel | accept) & ~prune_recv) & ~retract
-    bo_trig = dropped | prune_recv | retract
-    subbed = sub_all != 0
-    acq = torch.stack([torch.where(subbed, heard[w], 0) | injected[w]
-                       for w in range(W)])
+    acq = _acquired(heard, sub_all, injected)
+    bo_new, bo_gate = _backoff(k, backoff, dropped | prune_recv | retract)
 
-    bo32 = backoff.to(torch.int32)
-    bo_new = torch.where(graph.expand_bits(bo_trig, C), k.backoff_restart,
-                         (bo32 - 1).clamp(min=0))
-    bo_gate = graph.pack_rows(bo_new > 0)
     in_mesh = graph.expand_bits(mesh, C)
     tim_new = torch.where(in_mesh, (tim.to(torch.int32) + 1).clamp(
         max=32766), 0).to(torch.int16)
@@ -296,8 +363,8 @@ def receive_update_plain(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
     tgt = targets_row(k, elig, gseeds[1], n)
     gates = (accept_g, gossip_g, pub_g, nonneg_g, accept_g & gater, tgt,
              bo_gate)
-    return (acq, mesh, bo_new.to(torch.int16), *gates, fd_new, inv_new,
-            bp_new, tim_new, iws_new)
+    return (acq, mesh, bo_new, *gates, fd_new, inv_new, bp_new, tim_new,
+            iws_new)
 
 
 class _Args(ctypes.Structure):
@@ -324,31 +391,48 @@ class _Args(ctypes.Structure):
             "gray_thr", "gossip_thr", "publish_thr")])
 
 
-_WORDS_N = ("pay", "gsp", "acc", "sub_all", "cand_sub", "fanout", "wa",
-            "bo2", "grafts", "dropped", "meshsel")
+_WORDS_N = ("sub_all", "cand_sub", "fanout", "wa", "grafts", "dropped",
+            "meshsel")
+_WORDS_N_SCORED = ("pay", "gsp", "acc", "bo2")
 
 
 def _check_operands(k: ReceiveConsts, ops: dict) -> None:
     C = k.n_candidates
     W, n = ops["fresh"].shape
-    if (C, W) not in KERNEL_SHAPES:
+    if (C, W, k.scored) not in KERNEL_SHAPES:
         plan.refuse("kernel_shape")
-    want = {"valid": ((W,), torch.int32), "ctrl": ((C, n), torch.uint8),
+    names = set(ops) - {"gseeds"}
+    want_names = {"ctrl", "fresh", "adv", "seen", "injected", "backoff",
+                  *_WORDS_N}
+    if k.scored:
+        want_names |= set(SCORED_OPERANDS)
+    if names != want_names:
+        raise ValueError(
+            f"{'scored' if k.scored else 'unscored'} receive operands: "
+            f"missing {sorted(want_names - names)}, unexpected "
+            f"{sorted(names - want_names)}")
+    want = {"ctrl": ((C, n), torch.uint8),
             "fresh": ((W, n), torch.int32), "adv": ((W, n), torch.int32),
             "seen": ((W, n), torch.int32),
             "injected": ((W, n), torch.int32),
-            "backoff": ((C, n), torch.int16),
-            "fd": ((C, n), k.counter_dtype),
-            "inv": ((C, n), k.counter_dtype), "bp": ((C, n), k.bp_dtype),
-            "tim": ((C, n), torch.int16), "iws": ((C, n), torch.int16)}
+            "backoff": ((C, n), torch.int16)}
     want.update({name: ((n,), torch.int32) for name in _WORDS_N})
-    if ops["static"] is not None:
-        want["static"] = ((C, n), torch.float32)
-    device = ops["pay"].device
+    if k.scored:
+        want.update({"valid": ((W,), torch.int32),
+                     "fd": ((C, n), k.counter_dtype),
+                     "inv": ((C, n), k.counter_dtype),
+                     "bp": ((C, n), k.bp_dtype),
+                     "tim": ((C, n), torch.int16),
+                     "iws": ((C, n), torch.int16)})
+        want.update({name: ((n,), torch.int32)
+                     for name in _WORDS_N_SCORED})
+        if ops["static"] is not None:
+            want["static"] = ((C, n), torch.float32)
+    device = ops["sub_all"].device
     for name, (shape, dtype) in want.items():
         t = ops[name]
         if t.device != device:
-            raise ValueError(f"{name} on {t.device}, pay on {device}")
+            raise ValueError(f"{name} on {t.device}, sub_all on {device}")
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{name}: want {dtype} {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
@@ -361,33 +445,24 @@ def receive_update(k: ReceiveConsts, **ops):
 
     CUDA tensors launch the kernel (a failed build or launch raises);
     CPU tensors run ``receive_update_plain``."""
-    global launches
+    global launches, launches_unscored
     _check_operands(k, ops)
-    if ops["pay"].device.type == "cpu":
+    if ops["sub_all"].device.type == "cpu":
         return receive_update_plain(k, **ops)
     C = k.n_candidates
     W, n = ops["fresh"].shape
-    dev = ops["pay"].device
+    dev = ops["sub_all"].device
+    n_gates = N_GATES if k.scored else N_GATES_UNSCORED
     acq = torch.empty((W, n), dtype=torch.int32, device=dev)
     mesh = torch.empty((n,), dtype=torch.int32, device=dev)
     bo_out = torch.empty((C, n), dtype=torch.int16, device=dev)
-    gates = torch.empty((N_GATES, n), dtype=torch.int32, device=dev)
-    fd_out = torch.empty_like(ops["fd"])
-    inv_out = torch.empty_like(ops["inv"])
-    bp_out = torch.empty_like(ops["bp"])
-    tim_out = torch.empty_like(ops["tim"])
-    iws_out = torch.empty_like(ops["iws"])
+    gates = torch.empty((n_gates, n), dtype=torch.int32, device=dev)
+    outs = [("acq", acq), ("mesh", mesh), ("backoff_out", bo_out),
+            ("gates", gates)]
     a = _Args()
-    for name in ("ctrl", "fresh", "adv", *_WORDS_N, "seen", "valid",
-                 "backoff", "fd", "inv", "bp", "tim", "iws"):
+    for name in ("ctrl", "fresh", "adv", *_WORDS_N, "seen", "backoff"):
         setattr(a, name, ops[name].data_ptr())
     a.inj = ops["injected"].data_ptr()
-    a.stat = None if ops["static"] is None else ops["static"].data_ptr()
-    for name, t in (("acq", acq), ("mesh", mesh), ("backoff_out", bo_out),
-                    ("gates", gates), ("fd_out", fd_out),
-                    ("inv_out", inv_out), ("bp_out", bp_out),
-                    ("tim_out", tim_out), ("iws_out", iws_out)):
-        setattr(a, name, t.data_ptr())
     a.n = n
     for j in range(C):
         a.offsets[j] = k.offsets[j] % n
@@ -398,28 +473,44 @@ def receive_update(k: ReceiveConsts, **ops):
     a.backoff_restart = k.backoff_restart
     a.d_lazy = k.d_lazy
     a.history_length = k.history_length
-    a.has_topic_cap = int(k.score.topic_cap > 0)
-    for name in ("gossip_factor", "fd_cap", "fd_decay", "inv_decay",
-                 "bp_decay", "decay_to_zero", "gray_thr", "gossip_thr",
-                 "publish_thr"):
-        setattr(a, name, getattr(k, name))
-    for name in ("c_tim", "tim_quantum", "tim_cap", "c_fd", "c_inv",
-                 "topic_cap", "bp_thr", "w_bp"):
-        setattr(a, name, getattr(k.score, name))
+    a.gossip_factor = k.gossip_factor
+    if k.scored:
+        counters = [(name, torch.empty_like(ops[name]))
+                    for name in ("fd", "inv", "bp", "tim", "iws")]
+        outs += [(f"{name}_out", t) for name, t in counters]
+        for name in (*_WORDS_N_SCORED, "valid", "fd", "inv", "bp", "tim",
+                     "iws"):
+            setattr(a, name, ops[name].data_ptr())
+        a.stat = (None if ops["static"] is None
+                  else ops["static"].data_ptr())
+        a.has_topic_cap = int(k.score.topic_cap > 0)
+        for name in ("fd_cap", "fd_decay", "inv_decay", "bp_decay",
+                     "decay_to_zero", "gray_thr", "gossip_thr",
+                     "publish_thr"):
+            setattr(a, name, getattr(k, name))
+        for name in ("c_tim", "tim_quantum", "tim_cap", "c_fd", "c_inv",
+                     "topic_cap", "bp_thr", "w_bp"):
+            setattr(a, name, getattr(k.score, name))
+    for name, t in outs:
+        setattr(a, name, t.data_ptr())
     lib = _build.load("receive")
     fn = lib.gossip_receive_update
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ctypes.byref(a), C, W,
+        err = fn(ctypes.byref(a), C, W, int(k.scored),
                  int(k.counter_dtype == torch.bfloat16),
                  int(k.bp_dtype == torch.bfloat16), stream)
     _build.check(err, "receive_update")
-    launches += 1
-    return (acq, mesh, bo_out, *gates.unbind(0), fd_out, inv_out, bp_out,
-            tim_out, iws_out)
+    if k.scored:
+        launches += 1
+    else:
+        launches_unscored += 1
+    return (acq, mesh, bo_out, *gates.unbind(0),
+            *(t for _, t in outs[4:]))
 
 
 def operand_bytes(ops: dict, outs) -> int:

@@ -1,6 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain
-PyTorch version at a small size, and the step on the card against the
-step on the CPU.  Exact: every output bit for bit.
+PyTorch version at a small size (the receive kernel scored and unscored,
+the select kernel, the fused-window kernel), and the scored step and the
+unscored fused window on the card against the CPU.  Exact: every output
+bit for bit.
 
 They skip without a card; on the card run
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest``
@@ -15,6 +17,7 @@ import torch
 from go_libp2p_pubsub_tpu_torch import convert
 from go_libp2p_pubsub_tpu_torch.models import gossipsub as pgs
 from go_libp2p_pubsub_tpu_torch.ops import graph as pg
+from go_libp2p_pubsub_tpu_torch.ops.kernels import fused as pfused
 from go_libp2p_pubsub_tpu_torch.ops.kernels import receive as prc
 from go_libp2p_pubsub_tpu_torch.ops.kernels import select as psel
 
@@ -135,3 +138,109 @@ def test_step_on_the_card_matches_the_cpu(cuda):
             np.testing.assert_array_equal(x, y, err_msg=f"{tick} gate {i}")
     assert prc.launches - r0 == 25
     assert psel.launches - s0 >= 50
+
+
+SMALL = dict(d=3, d_lo=2, d_hi=6, d_score=2, d_out=1, d_lazy=2)
+
+
+def _unscored_sim(c, w_words, n=4096, t=4, seed=1):
+    offsets = pgs.make_gossip_offsets(t, c, n, seed=seed)
+    cfg = pgs.GossipSimConfig(offsets=offsets, n_topics=t,
+                              **(SMALL if c == 8 else {}))
+    rng = np.random.default_rng(seed + w_words)
+    m = 32 * w_words - 4
+    subs = np.zeros((n, t), dtype=bool)
+    subs[np.arange(n), np.arange(n) % t] = True
+    subs[rng.random(n) < 0.05] = False
+    topic = rng.integers(0, t, m)
+    origin = rng.integers(0, n // t, m) * t + topic
+    ticks = np.sort(rng.integers(0, 20, m)).astype(np.int32)
+    return (cfg, *pgs.make_gossip_sim(cfg, subs, topic, origin, ticks,
+                                      seed=seed, device="cpu"))
+
+
+def _to(ops, dev):
+    return {name: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+            for name, v in ops.items()}
+
+
+@pytest.mark.parametrize("c", [8, 16])
+@pytest.mark.parametrize("w_words", [1, 2])
+def test_unscored_receive_kernel_matches_plain_on_a_real_tick(cuda, c,
+                                                              w_words):
+    cfg, params, state = _unscored_sim(c, w_words)
+    step = pgs.make_gossip_step(cfg, None, device="cpu")
+    captured = []
+    real = prc.receive_update
+
+    def capture(k, **ops):
+        captured.append((k, ops))
+        return real(k, **ops)
+
+    prc.receive_update = capture
+    try:
+        for _ in range(6):
+            state = step(params, state)[0]
+    finally:
+        prc.receive_update = real
+    before = prc.launches_unscored
+    for k, ops in (captured[1], captured[-1]):
+        want = prc.receive_update_plain(k, **ops)
+        got = prc.receive_update(k, **_to(ops, cuda))
+        torch.cuda.synchronize()
+        assert len(got) == 5
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert torch.equal(g.cpu(), w), f"output {i}"
+    assert prc.launches_unscored == before + 2
+
+
+@pytest.mark.parametrize("c", [8, 16])
+@pytest.mark.parametrize("w_words", [1, 2])
+def test_fused_kernel_matches_plain(cuda, c, w_words):
+    cfg, params, state = _unscored_sim(c, w_words)
+    state = pgs.make_gossip_step(cfg, None, device="cpu")(params, state)[0]
+    T = 8
+    tk = torch.arange(state.tick, state.tick + T, dtype=torch.int32)
+    all_c = (1 << c) - 1
+    ops = dict(
+        tick0=state.tick, seeds=pfused.window_seeds(state.tick, T,
+                                                    state.salt),
+        due=pg.pack_bits(params.publish_tick[None, :] == tk[:, None]),
+        sub_all=torch.where(params.subscribed, all_c, 0).to(torch.int32),
+        cand_sub=params.cand_sub_bits, origin=params.origin_words,
+        have=state.have, recent=state.recent, mesh=state.mesh,
+        fanout=state.fanout, last_pub=state.last_pub,
+        backoff=state.backoff, tgt=state.gates[0], bog=state.gates[1])
+    k = pfused.fused_consts(cfg)
+    want = pfused.fused_gossip_update_plain(k, **ops)
+    before = pfused.launches
+    ops_g = _to(ops, cuda)
+    got = pfused.fused_gossip_update(k, **ops_g)
+    torch.cuda.synchronize()
+    assert pfused.launches == before + 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g.cpu(), w), f"output {i}"
+    # the inputs are not modified
+    for name in ("have", "recent", "mesh", "backoff"):
+        assert torch.equal(ops_g[name].cpu(), ops[name]), name
+
+
+def test_fused_window_on_the_card_matches_the_cpu(cuda):
+    cfg, p_c, s_c = _unscored_sim(16, 1, n=8192, t=8, seed=3)
+    p_g = pgs.GossipParams(**{
+        f: (v.to(cuda) if isinstance(v, torch.Tensor) else v)
+        for f, v in vars(p_c).items()})
+    s_g = convert.state_from_numpy(convert.state_to_numpy(s_c), None, cuda)
+    win_c = pgs.make_fused_window(cfg, None, ticks_fused=8, device="cpu")
+    win_g = pgs.make_fused_window(cfg, None, ticks_fused=8, device=cuda)
+    r0, s0, f0 = prc.launches_unscored, psel.launches, pfused.launches
+    s_c = pgs.gossip_run_fused(p_c, s_c, 32, win_c, device="cpu")
+    s_g = pgs.gossip_run_fused(p_g, s_g, 32, win_g, device=cuda)
+    a, b = convert.state_to_numpy(s_c), convert.state_to_numpy(s_g)
+    for name in ("mesh", "fanout", "last_pub", "backoff", "have", "recent",
+                 "first_tick"):
+        np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+    for i, (x, y) in enumerate(zip(a["gates"], b["gates"])):
+        np.testing.assert_array_equal(x, y, err_msg=f"gate {i}")
+    assert pfused.launches - f0 == 4
+    assert (prc.launches_unscored, psel.launches) == (r0, s0)

@@ -14,6 +14,7 @@ import torch
 from go_libp2p_pubsub_tpu_torch import device as pdev
 from go_libp2p_pubsub_tpu_torch.models import gossipsub as pgs
 from go_libp2p_pubsub_tpu_torch.models import plan
+from go_libp2p_pubsub_tpu_torch.ops.kernels import fused as kfused
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "go_libp2p_pubsub_tpu_torch").rglob("*.py")) + [
@@ -67,6 +68,8 @@ def test_default_device_is_cuda_and_never_falls_back():
         pgs.make_gossip_sim(cfg, *sim_args, score_cfg=sc)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pgs.make_gossip_step(cfg, sc)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pgs.make_fused_window(cfg, None)
     params, state = pgs.make_gossip_sim(cfg, *sim_args, score_cfg=sc,
                                         device="cpu")
     step = pgs.make_gossip_step(cfg, sc, device="cpu")
@@ -117,12 +120,26 @@ def _cfg(**kw):
     return pgs.GossipSimConfig(offsets=cfg.offsets, n_topics=4, **kw)
 
 
+def _window(**kw):
+    cfg, _, _ = _small()
+    cfg = kw.pop("cfg", cfg)
+    sc = kw.pop("sc", None)
+    return pgs.make_fused_window(cfg, sc, device="cpu", **kw)
+
+
+def _fused_run(n_ticks):
+    params, state = _sim(sc=None)
+    return pgs.gossip_run_fused(params, state, n_ticks, _window(),
+                                device="cpu")
+
+
 N = 256
 REFUSED = {
-    "unscored": [lambda: _sim(sc=None), lambda: _step(sc=None)],
-    "paired": [lambda: _step(cfg=_cfg(paired_topics=True))],
+    "paired": [lambda: _step(cfg=_cfg(paired_topics=True)),
+               lambda: _window(cfg=_cfg(paired_topics=True))],
     "faults": [lambda: _sim(fault_schedule=object())],
-    "telemetry": [lambda: _step(telemetry=object())],
+    "telemetry": [lambda: _step(telemetry=object()),
+                  lambda: _window(telemetry=object())],
     "knobs": [lambda: _sim(score_knobs={}), lambda: _sim(sim_knobs={})],
     "delays": [lambda: _sim(delays=object()),
                lambda: _sim(delays_probe=True)],
@@ -141,17 +158,25 @@ REFUSED = {
     "flood_publish": [
         lambda: _step(sc=pgs.ScoreSimConfig(flood_publish=True))],
     "flood_proto": [lambda: _sim(flood_proto=np.zeros(N, bool))],
-    "exact_k": [lambda: _step(cfg=_cfg(binomial_gossip_sampling=False))],
+    "exact_k": [lambda: _step(cfg=_cfg(binomial_gossip_sampling=False)),
+                lambda: _window(cfg=_cfg(binomial_gossip_sampling=False))],
     "shared_ip": [lambda: _sim(peer_ip=np.arange(N) // 2)],
     "track_p3": [
         lambda: _step(sc=pgs.ScoreSimConfig(
             mesh_message_deliveries_weight=-1.0)),
         lambda: _step(force_split=True)],
-    "shard_mesh": [lambda: _step(shard_mesh=object())],
+    "shard_mesh": [lambda: _step(shard_mesh=object()),
+                   lambda: _window(shard_mesh=object())],
     "pad_to_block": [lambda: _sim(pad_to_block=128)],
     "pipeline_gates": [lambda: _step(pipeline_gates=False)],
     "counter_dtype": [
         lambda: _step(sc=pgs.ScoreSimConfig(counter_dtype="float16"))],
+    "fused_window": [lambda: _window(ticks_fused=0),
+                     lambda: _window(ticks_fused=plan.MAX_WINDOW + 1)],
+    "fused_horizon": [lambda: _fused_run(12), lambda: _fused_run(-8)],
+    "fused_scored": [lambda: _window(sc=pgs.ScoreSimConfig())],
+    # the launch's own error when not one block of the grid is resident
+    "fused_grid": [lambda: kfused.check_launch(kfused.COOPERATIVE_TOO_LARGE)],
 }
 
 
