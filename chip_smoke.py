@@ -19,6 +19,19 @@ Phases (any failure exits non-zero; nothing is caught):
    make_gossip_sim / make_gossip_step / gossip_run, 100 warm-up and 300
    timed heartbeats, with the benchmark's mesh and delivery gates; the
    kernels' launch counts are reset just before and read just after;
+5a. the receive kernel's attack variant against its plain version at
+   N = 1,000,000, C = 16, W = 1 with all three attack options on, on
+   seeded random operands (a fifth of the peers carrying the sybil word)
+   and on the operands of a real tick of the 1M-peer adversarial sim
+   after warm-up: every output bit-identical; both timed;
+5b. the adversarial main path: the JAX package's adversarial benchmark
+   configuration (the flagship with 20% sybils running IHAVE
+   broken-promise spam and the IWANT flood, honest origins) through
+   make_gossip_sim / make_gossip_step / gossip_run, 100 warm-up and 300
+   timed heartbeats, with the benchmark's honest mesh-degree, honest
+   delivery and IWANT-containment gates and the attacks live; the
+   attack variant launched once per tick, counts reset just before and
+   read just after;
 6. the unscored receive kernel against its plain version at the resident
    configuration's shapes (N = 1,048,576, C = 16, W = 1), on seeded random
    operands and on the operands of a real unscored tick: every output
@@ -37,7 +50,7 @@ Phases (any failure exits non-zero; nothing is caught):
    other kernel; then the per-tick unscored step over the same ticks
    (make_gossip_step(cfg, None) / gossip_run) for comparison, each with
    its counts reset just before and read just after;
-10. one line with both resident paths' heartbeats/s, one JSON line with
+10. one line with every main path's heartbeats/s, one JSON line with
     every kernel's numbers;
 11. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -48,6 +61,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 import sys
 import time
 
@@ -173,12 +187,33 @@ def random_receive_operands(k, n: int, w: int, device, seed: int):
                           device=device).to(torch.int16))
 
 
+def ptxas_summary(log: str) -> list[str]:
+    """One line per compiled kernel: its name with its template
+    arguments (``receive_kernel<16,1,1,0,1,1>``), registers and spill
+    bytes, from nvcc's ``-Xptxas -v`` report."""
+    out, entry, spill = [], "?", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"\d+([A-Za-z_]+)I((?:L[ib]\d+E)+)EEv", line)
+            entry = (f"{m.group(1)}<"
+                     f"{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
+                     if m else line.strip())
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            out.append(f"{entry}: {line.split(':', 1)[-1].strip()}; "
+                       f"{spill}")
+    return out
+
+
 def receive_ops(k, ops) -> int:
     """Operations the receive half needs on these operands: ~15 integer
     ops per edge, ~8 per message word over an edge whose gates are open
     (this tick's data); scored, ~60 integer/f32 ops per counter row and
     ~10 per lane-hash draw (two draws per row); unscored, ~6 per backoff
-    row and one draw per row."""
+    row and one draw per row; the attack options, ~12 per edge (broken
+    bit, P7 add, flood budget) and ~3 per advert word a sybil receiver
+    counts."""
     n = ops["sub_all"].shape[0]
     W = ops["fresh"].shape[0]
     C = k.n_candidates
@@ -190,7 +225,11 @@ def receive_ops(k, ops) -> int:
         on = (ctl & ok_p & 1) | ((ctl >> 1) & ok_g & 1)
         open_words += W * int(on.sum())
     per_row = 60 + 2 * 10 if k.scored else 6 + 10
-    return n * C * (15 + per_row) + 8 * open_words
+    extra = 0
+    if k.attacks:
+        n_syb = int((ops["syb"] != 0).sum())
+        extra = n * C * 12 + 3 * n_syb * C * W
+    return n * C * (15 + per_row) + 8 * open_words + extra
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
@@ -245,7 +284,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs "
              "an NVIDIA GPU")
-    from go_libp2p_pubsub_tpu_torch import flagship, resident
+    from go_libp2p_pubsub_tpu_torch import adversarial, flagship, resident
     from go_libp2p_pubsub_tpu_torch.models import gossipsub as pg
     from go_libp2p_pubsub_tpu_torch.ops import graph
     from go_libp2p_pubsub_tpu_torch.ops.kernels import _build
@@ -271,9 +310,8 @@ def main() -> None:
     t0 = time.perf_counter()
     logs = _build.build(("select", "receive", "fused"))
     for src, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas[{src}]: {line.strip()}")
+        for line in ptxas_summary(log):
+            print(f"ptxas[{src}]: {line}")
     print(f"build: {time.perf_counter() - t0:.1f} s")
 
     n, C = flagship.N_PEERS, flagship.N_CAND
@@ -374,6 +412,106 @@ def main() -> None:
     main_flagship = {
         "heartbeats_per_s": hb, "ms_per_tick": dt * 1e3 / TIMED,
         "peak_bytes": peak, "mean_mesh_degree": deg}
+    del params, state, step
+
+    # -- 5a. the attack variant vs plain at the adversarial shapes, all
+    # three attack options on
+    horizon = WARMUP + TIMED
+    cfg, sc, params, state, *_ = adversarial.build(dev, horizon=horizon)
+    k_a = krecv.receive_consts(cfg, sc)
+    if not (k_a.track_promises and k_a.ihave_spam and k_a.iwant_spam):
+        fail(f"adversarial receive consts: {k_a}")
+    ops = random_receive_operands(k_a, n, 1, dev, seed=17)
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+    ops["syb"] = torch.where(
+        torch.rand(n, generator=g, device=dev) < 0.2, (1 << C) - 1, 0).to(
+            torch.int32)
+    # ledgers around the flood budget (3 windows of up to 32 ids)
+    ops["iws"] = torch.randint(0, 4 * 32, (C, n), generator=g,
+                               device=dev).to(torch.int16)
+    err_arand = check_identical("attack receive (random operands)",
+                                krecv.receive_update(k_a, **ops),
+                                krecv.receive_update_plain(k_a, **ops))
+    step = pg.make_gossip_step(cfg, sc, device=dev)
+    tick_ops = capture_receive(
+        lambda: pg.gossip_run(params, state, 40, step, device=dev), krecv)
+    want = krecv.receive_update_plain(k_a, **tick_ops)
+    got = krecv.receive_update(k_a, **tick_ops)
+    torch.cuda.synchronize()
+    err_atick = check_identical("attack receive (a real tick)", got, want)
+    arcv_ms = device_ms(lambda: krecv.receive_update(k_a, **tick_ops), 50)
+    arcv_plain_ms = device_ms(
+        lambda: krecv.receive_update_plain(k_a, **tick_ops), 5)
+    arcv_bytes = krecv.operand_bytes(tick_ops, got)
+    arcv_bound = bound(arcv_bytes, receive_ops(k_a, tick_ops))
+    print(f"attack receive: identical at N={n}, C={C}, W=1 (random and "
+          f"real tick, {int((tick_ops['syb'] != 0).sum())} sybil words); "
+          f"device time: kernel {arcv_ms:.4f} ms, plain "
+          f"{arcv_plain_ms:.3f} ms; {arcv_bytes / n:.1f} B/peer, bound "
+          f"{arcv_bound[0]:.4f} ms ({arcv_bound[1]})")
+    del want, got, ops, tick_ops, params, state, step
+
+    # -- 5b. the adversarial main path, counts reset just before and read
+    # just after
+    cfg, sc, params, state, msg_topic, msg_tick, _ = adversarial.build(
+        dev, horizon=horizon)
+    step = pg.make_gossip_step(cfg, sc, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    krecv.launches = krecv.launches_attacks = 0
+    ksel.launches = 0
+    # warm-up tick by tick: the attacks' levels (they fade between
+    # publishes, so the end state alone may not show them) and the
+    # ledger's bound on every tick
+    bp_max = syb_serves = serves_warm = 0
+    for _ in range(WARMUP):
+        state = pg.gossip_run(params, state, 1, step, device=dev)
+        bp_t, syb_t = adversarial.attack_levels(params, state)
+        bp_max, syb_serves = max(bp_max, bp_t), max(syb_serves, syb_t)
+        serves_warm = max(serves_warm, int(state.iwant_serves.max()))
+    torch.cuda.synchronize()
+    deg_a = adversarial.honest_degree(params, state)
+    if not deg_a >= cfg.d_lo:
+        fail(f"adversarial: honest mesh failed to form: mean degree {deg_a}")
+    t0 = time.perf_counter()
+    state = pg.gossip_run(params, state, TIMED, step, device=dev)
+    torch.cuda.synchronize()
+    dt_a = time.perf_counter() - t0
+    launches_adv = {"receive_attacks": krecv.launches_attacks,
+                    "receive": krecv.launches, "select": ksel.launches}
+    peak_a = torch.cuda.max_memory_allocated()
+    gates = adversarial.gates(cfg, params, state, msg_topic, msg_tick,
+                              horizon)
+    bp_t, syb_t = adversarial.attack_levels(params, state)
+    gates.update(behaviour_penalty_max=max(bp_max, bp_t),
+                 sybil_serves_max=max(syb_serves, syb_t),
+                 warmup_serves_max=serves_warm)
+    if not gates["ok"] or serves_warm >= gates["serves_cap"]:
+        fail(f"adversarial gates: {gates}")
+    if not (gates["behaviour_penalty_max"] > 0
+            and gates["sybil_serves_max"] > 0):
+        fail(f"adversarial: the attacks were not live: {gates}")
+    if (launches_adv["receive_attacks"] != horizon
+            or launches_adv["receive"] or launches_adv["select"] <= 0):
+        fail(f"adversarial launches {launches_adv}")
+    if state.tick != horizon:
+        fail(f"adversarial: state tick {state.tick}")
+    hb_a = TIMED / dt_a
+    print(f"adversarial path: {n} peers x {adversarial.N_TOPICS} topics, "
+          f"20% sybils spamming IHAVEs and flooding IWANTs: {hb_a:.2f} "
+          f"heartbeats/s ({dt_a * 1e3 / TIMED:.3f} ms/tick), honest mean "
+          f"mesh degree {gates['honest_mean_degree']:.3f}, "
+          f"{gates['settled_messages']} settled messages at every honest "
+          f"member, iwant_serves max {gates['serves_max']} at the end, "
+          f"{serves_warm} over the warm-up ticks (< {gates['serves_cap']}), "
+          f"sybil rows max "
+          f"{gates['sybil_serves_max']}, behaviour_penalty max "
+          f"{gates['behaviour_penalty_max']}, peak memory {peak_a} B, "
+          f"launches {launches_adv} [{name}, {smi}]")
+    main_adversarial = dict(
+        gates, heartbeats_per_s=hb_a, ms_per_tick=dt_a * 1e3 / TIMED,
+        peak_bytes=peak_a, launches=launches_adv)
     del params, state, step
 
     # -- 6. the unscored receive kernel vs plain at the resident shapes
@@ -533,7 +671,8 @@ def main() -> None:
 
     # -- 10. the numbers
     print(f"heartbeats/s [{name}, {smi}]: flagship scored per-tick "
-          f"{hb:.2f}; resident unscored fused "
+          f"{hb:.2f}; adversarial scored per-tick {hb_a:.2f}; resident "
+          f"unscored fused "
           f"{paths['fused']['heartbeats_per_s']:.2f}, per-tick "
           f"{paths['per_tick']['heartbeats_per_s']:.2f}")
     rcv_bound = bound(rcv_bytes, rcv_ops)
@@ -546,6 +685,13 @@ def main() -> None:
              max_abs_err=max(err_rand, err_tick), ms=rcv_ms,
              plain_ms=rcv_plain_ms, bound_ms=rcv_bound[0],
              bound_by=rcv_bound[1], library_ms=None),
+        dict(name="receive_update_attacks", route="cuda",
+             source="go_libp2p_pubsub_tpu_torch/csrc/receive.cu",
+             replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
+             launches=launches_adv["receive_attacks"],
+             max_abs_err=max(err_arand, err_atick), ms=arcv_ms,
+             plain_ms=arcv_plain_ms, bound_ms=arcv_bound[0],
+             bound_by=arcv_bound[1], library_ms=None),
         dict(name="receive_update_unscored", route="cuda",
              source="go_libp2p_pubsub_tpu_torch/csrc/receive.cu",
              replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
@@ -567,7 +713,8 @@ def main() -> None:
              bound_ms=fused_bound[0], bound_by=fused_bound[1],
              library_ms=None)]
     print(json.dumps({"main_path": {
-        "flagship": main_flagship, "resident": paths, "card": smi,
+        "flagship": main_flagship, "adversarial": main_adversarial,
+        "resident": paths, "card": smi,
         "eager_ms": {"receive": rcv_eager_ms, "select": sel_eager_ms},
         "seconds": time.perf_counter() - t_start}}))
     print(json.dumps({"kernels": kernels}))

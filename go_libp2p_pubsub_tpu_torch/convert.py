@@ -3,9 +3,9 @@
 The reference's ``GossipParams`` / ``GossipState`` arrive as dicts of
 numpy arrays, leaf by leaf (field name -> array, ``None`` for absent
 leaves — the v1.1 params, ``scores`` and ``iwant_serves`` of an unscored
-sim — ``scores`` a nested dict, ``gates`` a sequence of words: seven
-scored, two unscored).  This
-module never imports the reference; the caller flattens it.
+sim, the attack formations' params of a sim without them — ``scores`` a
+nested dict, ``gates`` a sequence of words: seven scored, two unscored).
+This module never imports the reference; the caller flattens it.
 
 - uint32 leaves are viewed as int32 (same bits);
 - bf16 leaves arrive as their raw 16-bit patterns (uint16/int16) or as
@@ -32,10 +32,11 @@ from .models.gossipsub import (
 from .ops.kernels.receive import DTYPES
 
 PARAM_WORDS = ("cand_sub_bits", "origin_words", "deliver_words",
-               "invalid_words")
+               "invalid_words", "cand_victim_bits")
 PARAM_TENSORS = ("subscribed", *PARAM_WORDS, "publish_tick",
                  "cand_app_score", "cand_colo_excess", "cand_static_score",
-                 "cand_sybil", "sybil")
+                 "cand_sybil", "sybil", "promise_break", "eclipse_sybil",
+                 "eclipse_victim")
 STATE_WORDS = ("mesh", "fanout", "have", "recent")
 STATE_TENSORS = (*STATE_WORDS, "last_pub", "backoff", "first_tick",
                  "iwant_serves")

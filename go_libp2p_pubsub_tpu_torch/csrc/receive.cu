@@ -5,8 +5,10 @@
 // (built by make_receive_update), for the unpaired options the port
 // runs: the scored v1.1 step (SCORED = true) and the unscored v1.0 step
 // (SCORED = false: no validity masks, payload/gossip/accept gates,
-// counters or scores, two gate rows); no flood publish, promise
-// tracking, PX, shared-IP gater, faults, telemetry, knobs or delays;
+// counters or scores, two gate rows); scored, the attack options (ATK =
+// true: track_promises, the IHAVE-spam targets override and the
+// IWANT-flood serve accrual, each a warp-uniform runtime flag); no flood
+// publish, PX, shared-IP gater, faults, telemetry, knobs or delays;
 // Bernoulli gossip targets.  Same semantics and op order, so every
 // output is bit-identical to the plain version
 // (ops/kernels/receive.py receive_update_plain):
@@ -15,15 +17,23 @@
 //     ctrl byte (row cinv[j]) and its fresh/advert words, gated (scored)
 //     by this peer's payload and gossip gate bits; news = got & ~seen,
 //     and (scored) the valid and invalid popcounts (P2/P4 provenance);
+//     (ATK) the broken-promise bit (advertised, CTRL_ADV, without
+//     delivering, CTRL_TGT, the receiver's gossip gate open and some id
+//     lacked) and the edge's IWANT-serve ledger, where a sybil
+//     receiver's pull under the IWANT flood is the popcount of the
+//     sender's raw advert words while the ledger before decay is under
+//     gossip_retransmission such windows;
 //     the GRAFT/PRUNE/A handshake resolves into mesh and backoff;
 //   per row c: backoff restart/decrement; scored: time in mesh, the
 //     decayed first/invalid-delivery and behaviour-penalty counters (f32
 //     arithmetic, stored with round-to-nearest-even bf16 where the
-//     counter dtype is bf16), the IWANT-serve ledger;
+//     counter dtype is bf16; ATK: the broken promises added to P7 after
+//     the backoff violations), the IWANT-serve ledger (ATK: stage 1);
 //   stage 2: the next tick's gate words: scored, the seven rows from the
 //     stored counters (the score thresholds, the RED gater with an
 //     in-kernel lane hash and its pressure summed over c = 0..C-1 in
-//     order, the Bernoulli gossip targets); unscored, the targets and
+//     order, the Bernoulli gossip targets; ATK: IHAVE-spamming sybils
+//     target every subscribed candidate); unscored, the targets and
 //     backoff rows.
 //
 // Every multiply, add and divide is written with the _rn intrinsics and
@@ -35,15 +45,20 @@
 // 268 B/peer (six i16/bf16 [C, N] counter/backoff rows, the C ctrl bytes,
 // eleven packed [N] words, the seen/injected/fresh/advert words) and
 // writes about 228 B/peer: about 0.5 GB per tick at 1M peers, about
-// 150 us at 3.35 TB/s.  The unscored tick moves about 140 B/peer at
+// 150 us at 3.35 TB/s; the attack variant adds the sybil word, 4 B/peer.
+// The unscored tick moves about 140 B/peer at
 // W = 1 (ctrl 16, backoff in and out 64, seven [N] words 28, four
 // [W, N] words 16, acq 4, mesh 4, two gate rows 8).  The arithmetic (a few hundred integer and
 // f32 operations per peer) is far below the card's rate.  Design: each
 // thread keeps its per-edge counts and packed words in registers and
 // touches every [C, N] row once, at c * N + p, so neighbouring threads
 // read neighbouring addresses; the sender's fresh/advert words are read
-// only over edges whose gates are open.  Staging the sender windows in
-// shared memory is left for later work.
+// only over edges whose gates are open; (ATK) under the IWANT flood its
+// advert words over every edge, one read serving both the gossip news
+// and the window count, and the ledger is written in stage 1 so no
+// per-edge window count stays live in registers; the attack variant is
+// its own kernel, held to 64 registers a thread (receive_kernel_attacks).
+// Staging the sender windows in shared memory is left for later work.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,6 +93,7 @@ struct ReceiveArgs {
   const void* bp;            // [C, N] behaviour penalty (bp dtype)
   const int16_t* tim;        // [C, N] time in mesh
   const int16_t* iws;        // [C, N] IWANT-serve ledger
+  const uint32_t* syb;       // [N] (ATK) ALL for a spamming sybil, else 0
   // outputs
   uint32_t* acq;             // [W, N]
   uint32_t* mesh;            // [N]
@@ -100,6 +116,10 @@ struct ReceiveArgs {
   int d_lazy;
   int history_length;
   int has_topic_cap;
+  int track_promises;        // (ATK) P7 for broken promises
+  int ihave_spam;            // (ATK) sybils target every candidate
+  int iwant_spam;            // (ATK) sybil receivers flood IWANTs
+  int retransmission;        // (ATK) gossip_retransmission
   float gossip_factor;
   float fd_cap;
   float fd_decay;
@@ -122,7 +142,7 @@ struct ReceiveArgs {
 namespace {
 
 constexpr int CTRL_OUT = 0, CTRL_TGT = 1, CTRL_GRAFT = 2, CTRL_DROP = 3,
-              CTRL_A = 4;
+              CTRL_A = 4, CTRL_ADV = 5;
 
 using gossip::lane_u;
 
@@ -159,9 +179,10 @@ __device__ __forceinline__ int floordiv(int a, int b) {
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 
-template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256)
-receive_kernel(const ReceiveArgs a) {
+// One thread per peer; the kernels below instantiate it.
+template <int C, int W, bool SCORED, bool ATK, bool CBF, bool BBF>
+__device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
+  static_assert(SCORED || !ATK, "the attack options need scoring");
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long n = a.n;
   if (p >= n) return;
@@ -177,9 +198,19 @@ receive_kernel(const ReceiveArgs a) {
   // unscored: every sender's payload and advert pass (no gates)
   const uint32_t pay = SCORED ? a.pay[p] : ALL;
   const uint32_t gsp = SCORED ? a.gsp[p] : ALL;
+  // (ATK) the sybil word; the receiver lacks some possible id
+  const uint32_t syb = ATK ? a.syb[p] : 0u;
+  const bool track = ATK && a.track_promises != 0;
+  const bool adv_all = ATK && a.iwant_spam != 0;
+  const bool flood_rx = adv_all && syb != 0u;
+  uint32_t lacked = 0u;
+  if constexpr (ATK) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) lacked |= (~seen[w] != 0u) ? 1u : 0u;
+  }
 
   // ---- stage 1: the C receiving edges
-  uint32_t graft_recv = 0u, prune_recv = 0u, a_recv = 0u;
+  uint32_t graft_recv = 0u, prune_recv = 0u, a_recv = 0u, broken = 0u;
   int fdc[C], ivc[C];
 #pragma unroll
   for (int j = 0; j < C; ++j) {
@@ -194,17 +225,53 @@ receive_kernel(const ReceiveArgs a) {
     const bool fwd_on = ((ctl >> CTRL_OUT) & ok_p & 1u) != 0u;
     const bool gsp_on = ((ctl >> CTRL_TGT) & ok_g & 1u) != 0u;
     int fd_j = 0, iv_j = 0;
-    if (fwd_on || gsp_on) {
+    if constexpr (ATK) {
+      // one read of the sender's advert words serves the gossip news
+      // and, under the IWANT flood, the window count (read whatever the
+      // gates say)
+      int pa = 0;
+      if (fwd_on || gsp_on || adv_all) {
 #pragma unroll
-      for (int w = 0; w < W; ++w) {
-        uint32_t got = 0u;
-        if (fwd_on) got |= a.fresh[w * n + q];
-        if (gsp_on) got |= a.adv[w * n + q];
-        const uint32_t news = got & ~seen[w];
-        heard[w] |= news;
-        if constexpr (SCORED) {
+        for (int w = 0; w < W; ++w) {
+          uint32_t got = fwd_on ? a.fresh[w * n + q] : 0u;
+          const uint32_t adv_q = (gsp_on || adv_all) ? a.adv[w * n + q] : 0u;
+          if (gsp_on) got |= adv_q;
+          const uint32_t news = got & ~seen[w];
+          heard[w] |= news;
           fd_j += __popc(news & valid[w]);
           iv_j += __popc(news & ~valid[w]);
+          pa += __popc(adv_q);
+        }
+      }
+      if (track) {
+        broken |= ((ctl >> CTRL_ADV) & ~(ctl >> CTRL_TGT) & ok_g & lacked &
+                   1u) << j;
+      }
+      // this edge's serve ledger (row j), written here so no per-edge
+      // window count stays live: a sybil receiver's pull is the
+      // partner's whole window while the ledger before decay is under
+      // gossip_retransmission windows
+      const long long idx = (long long)j * n + p;
+      const int s = a.iws[idx];
+      const int H = a.history_length;
+      int pull = fd_j + iv_j;
+      if (flood_rx) pull = (s < a.retransmission * pa && pa > 0) ? pa : 0;
+      int srv = s - floordiv(s + (H - 1), H) + pull;
+      srv = srv < 0 ? 0 : (srv > 30000 ? 30000 : srv);
+      a.iws_out[idx] = (int16_t)srv;
+    } else {
+      if (fwd_on || gsp_on) {
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          uint32_t got = 0u;
+          if (fwd_on) got |= a.fresh[w * n + q];
+          if (gsp_on) got |= a.adv[w * n + q];
+          const uint32_t news = got & ~seen[w];
+          heard[w] |= news;
+          if constexpr (SCORED) {
+            fd_j += __popc(news & valid[w]);
+            iv_j += __popc(news & ~valid[w]);
+          }
         }
       }
     }
@@ -261,15 +328,20 @@ receive_kernel(const ReceiveArgs a) {
     const float invv = __fadd_rn(load_ctr<CBF>(a.inv, idx), (float)ivc[c]);
     const float inv_n = store_ctr<CBF>(a.inv_out, idx,
                                        decay_keep(invv, a.inv_decay, dtz));
-    const float bpv = __fadd_rn(load_ctr<BBF>(a.bp, idx),
-                                (float)((viol >> c) & 1u));
+    float bpv = __fadd_rn(load_ctr<BBF>(a.bp, idx),
+                          (float)((viol >> c) & 1u));
+    if constexpr (ATK) {
+      if (track) bpv = __fadd_rn(bpv, (float)((broken >> c) & 1u));
+    }
     const float bp_n = store_ctr<BBF>(a.bp_out, idx,
                                       decay_keep(bpv, a.bp_decay, dtz));
 
-    const int s = a.iws[idx];
-    int srv = s - floordiv(s + (H - 1), H) + fdc[c] + ivc[c];
-    srv = srv < 0 ? 0 : (srv > 30000 ? 30000 : srv);
-    a.iws_out[idx] = (int16_t)srv;
+    if constexpr (!ATK) {   // (ATK: written in stage 1)
+      const int s = a.iws[idx];
+      int srv = s - floordiv(s + (H - 1), H) + fdc[c] + ivc[c];
+      srv = srv < 0 ? 0 : (srv > 30000 ? 30000 : srv);
+      a.iws_out[idx] = (int16_t)srv;
+    }
 
     // the peer-score formula on the stored counters, reference op order
     const float tq = fminf(__fdiv_rn((float)tim_new, a.tim_quantum),
@@ -323,7 +395,11 @@ receive_kernel(const ReceiveArgs a) {
     a.gates[2 * n + p] = pub_g;
     a.gates[3 * n + p] = nonneg_g;
     a.gates[4 * n + p] = accept_g & gater;
-    a.gates[5 * n + p] = elig & tgt;
+    uint32_t tgt_row = elig & tgt;
+    if constexpr (ATK) {
+      if (a.ihave_spam) tgt_row = (tgt_row & ~syb) | (a.cand_sub[p] & syb);
+    }
+    a.gates[5 * n + p] = tgt_row;
     a.gates[6 * n + p] = bo_gate;
   } else {
     a.gates[0 * n + p] = elig & tgt;
@@ -332,39 +408,73 @@ receive_kernel(const ReceiveArgs a) {
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256) receive_kernel(const ReceiveArgs a) {
+  receive_body<C, W, SCORED, false, CBF, BBF>(a);
+}
+
+// The attack variant, held to four blocks of 256 threads a
+// multiprocessor (at most 64 registers a thread, a few spills), as the
+// others reach unbidden: left free, ptxas gives it 72-100 registers (100
+// with bf16 counters: two blocks), and this latency-bound kernel runs
+// about 1.5x slower on an H100 (kernel_ab.py).  Its own kernel, so that
+// the bound leaves the other variants' code as it is.
+template <int C, int W, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256, 4)
+receive_kernel_attacks(const ReceiveArgs a) {
+  receive_body<C, W, true, true, CBF, BBF>(a);
+}
+
+template <int C, int W, bool SCORED, bool ATK, bool CBF, bool BBF>
 int launch(const ReceiveArgs& a, cudaStream_t s) {
   const int threads = 256;
   const unsigned blocks = (unsigned)((a.n + threads - 1) / threads);
-  receive_kernel<C, W, SCORED, CBF, BBF><<<blocks, threads, 0, s>>>(a);
+  if constexpr (ATK) {
+    receive_kernel_attacks<C, W, CBF, BBF><<<blocks, threads, 0, s>>>(a);
+  } else {
+    receive_kernel<C, W, SCORED, CBF, BBF><<<blocks, threads, 0, s>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
-// scored: 1 (v1.1) or 0 (v1.0: counter dtypes ignored)
-template <int C, int W>
-int launch_variant(const ReceiveArgs& a, int scored, int ctr_bf16,
-                   int bp_bf16, cudaStream_t s) {
-  if (!scored) return launch<C, W, false, false, false>(a, s);
-  if (ctr_bf16 && bp_bf16) return launch<C, W, true, true, true>(a, s);
-  if (ctr_bf16) return launch<C, W, true, true, false>(a, s);
-  if (!bp_bf16) return launch<C, W, true, false, false>(a, s);
+template <int C, int W, bool ATK>
+int launch_scored(const ReceiveArgs& a, int ctr_bf16, int bp_bf16,
+                  cudaStream_t s) {
+  if (ctr_bf16 && bp_bf16) return launch<C, W, true, ATK, true, true>(a, s);
+  if (ctr_bf16) return launch<C, W, true, ATK, true, false>(a, s);
+  if (!bp_bf16) return launch<C, W, true, ATK, false, false>(a, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// scored: 1 (v1.1) or 0 (v1.0: counter dtypes ignored); attacks: 1 for
+// the attack variant (scored only)
+template <int C, int W>
+int launch_variant(const ReceiveArgs& a, int scored, int attacks,
+                   int ctr_bf16, int bp_bf16, cudaStream_t s) {
+  if (!scored) {
+    if (attacks) return (int)cudaErrorInvalidValue;
+    return launch<C, W, false, false, false, false>(a, s);
+  }
+  if (attacks) return launch_scored<C, W, true>(a, ctr_bf16, bp_bf16, s);
+  return launch_scored<C, W, false>(a, ctr_bf16, bp_bf16, s);
 }
 
 }  // namespace
 
-// c in {8, 16}, w in {1, 2}; scored (1) or unscored (0); counter/bp
-// storage bf16 (1) or f32 (0).  Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for a shape with no instantiation
-// (the wrapper refuses those first).
+// c in {8, 16}, w in {1, 2}; scored (1) or unscored (0); the attack
+// variant (1, scored only) or not (0); counter/bp storage bf16 (1) or
+// f32 (0).  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a shape with no instantiation (the wrapper
+// refuses those first).
 extern "C" int gossip_receive_update(const ReceiveArgs* args, int c, int w,
-                                     int scored, int ctr_bf16, int bp_bf16,
-                                     void* stream) {
+                                     int scored, int attacks, int ctr_bf16,
+                                     int bp_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (args->n <= 0) return 0;
   const ReceiveArgs& a = *args;
-  if (c == 16 && w == 1) return launch_variant<16, 1>(a, scored, ctr_bf16, bp_bf16, s);
-  if (c == 16 && w == 2) return launch_variant<16, 2>(a, scored, ctr_bf16, bp_bf16, s);
-  if (c == 8 && w == 1) return launch_variant<8, 1>(a, scored, ctr_bf16, bp_bf16, s);
-  if (c == 8 && w == 2) return launch_variant<8, 2>(a, scored, ctr_bf16, bp_bf16, s);
+  const int k = attacks;
+  if (c == 16 && w == 1) return launch_variant<16, 1>(a, scored, k, ctr_bf16, bp_bf16, s);
+  if (c == 16 && w == 2) return launch_variant<16, 2>(a, scored, k, ctr_bf16, bp_bf16, s);
+  if (c == 8 && w == 1) return launch_variant<8, 1>(a, scored, k, ctr_bf16, bp_bf16, s);
+  if (c == 8 && w == 2) return launch_variant<8, 2>(a, scored, k, ctr_bf16, bp_bf16, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,7 +6,9 @@ receive-kernel path: one ``step`` advances one heartbeat for every
 simulated peer — publish injection, fanout maintenance, eager forward
 over mesh ∪ fanout, lazy IHAVE/IWANT gossip, graft/prune maintenance
 with backoff and, with a ``ScoreSimConfig``, the P1-P7 score, the
-threshold gates and the RED gater.  The receive half (payload receive,
+threshold gates and the RED gater, and the v1.1 attack formations
+(IHAVE broken-promise spam, the IWANT flood, graft flood, stealthy
+promise breakers, eclipse).  The receive half (payload receive,
 handshake, counter updates, next tick's gates) is one kernel launch
 (``ops/kernels/receive.py``); every random top-k selection is one launch
 of the select kernel (``ops/kernels/select.py``).  Everything else is
@@ -285,6 +287,14 @@ class GossipParams:
     static_score_zero: bool = False              # baked term all zero
     cand_sybil: torch.Tensor | None = None       # bool [C, N]
     sybil: torch.Tensor | None = None            # bool [N]
+    # the attack formations (None when absent): unflagged peers that
+    # advertise gossip but withhold the payload (behavioural P7)
+    promise_break: torch.Tensor | None = None    # bool [N]
+    # eclipse attackers and their victims; bit c of cand_victim_bits[p]
+    # = candidate p + o_c is a victim
+    eclipse_sybil: torch.Tensor | None = None    # bool [N]
+    eclipse_victim: torch.Tensor | None = None   # bool [N]
+    cand_victim_bits: torch.Tensor | None = None  # int32 [N]
 
 
 @dataclass
@@ -350,18 +360,21 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
     subs: bool [N, T], each peer subscribed to at most its residue-class
     topic.  Without score_cfg the sim runs the unscored v1.0 step (state
     without scores; two gate words).  With it: app_score [N] f32 is P5,
-    sybil [N] flags peers that forward invalid messages, msg_invalid [M]
-    marks messages failing validation, peer_ip [N] must give every peer
-    its own address."""
+    sybil [N] flags peers that forward invalid messages (and, under the
+    score config's sybil toggles, spam IHAVEs, flood IWANTs or flood
+    GRAFTs), msg_invalid [M] marks messages failing validation, peer_ip
+    [N] must give every peer its own address, promise_break [N] flags
+    unflagged peers that withhold the payloads they advertise, and
+    eclipse_sybil / eclipse_victim [N] (disjoint, both or neither) are
+    the eclipse formation of ``score_cfg.sybil_eclipse``."""
     dev = resolve_device(device)
     plan.check_sim_options(
-        flood_proto=flood_proto, promise_break=promise_break,
-        px_candidates=px_candidates, direct_edges=direct_edges,
-        pad_to_block=pad_to_block, fault_schedule=fault_schedule,
-        eclipse_sybil=eclipse_sybil, eclipse_victim=eclipse_victim,
-        byzantine=byzantine, score_knobs=score_knobs, sim_knobs=sim_knobs,
-        delays=delays, delays_split=delays_split,
-        delays_counters=delays_counters, delays_probe=delays_probe)
+        flood_proto=flood_proto, px_candidates=px_candidates,
+        direct_edges=direct_edges, pad_to_block=pad_to_block,
+        fault_schedule=fault_schedule, byzantine=byzantine,
+        score_knobs=score_knobs, sim_knobs=sim_knobs, delays=delays,
+        delays_split=delays_split, delays_counters=delays_counters,
+        delays_probe=delays_probe)
     plan.check_kernel_config(cfg, score_cfg)
     sc = score_cfg
     n, t = subs.shape
@@ -439,6 +452,25 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
             static_score_zero=bool(not app_v.any() and not colo_v.any()),
             cand_sybil=t_(cand_view(syb)),
             sybil=t_(syb))
+    if promise_break is not None:
+        if sc is None:
+            raise ValueError("promise_break requires score_cfg (P7)")
+        scored["promise_break"] = t_(np.asarray(promise_break, dtype=bool))
+    if eclipse_sybil is not None or eclipse_victim is not None:
+        if sc is None:
+            raise ValueError("eclipse_sybil/eclipse_victim require "
+                             "score_cfg (the defense under test)")
+        if eclipse_sybil is None or eclipse_victim is None:
+            raise ValueError("eclipse formations need BOTH "
+                             "eclipse_sybil and eclipse_victim")
+        es = np.asarray(eclipse_sybil, dtype=bool)
+        ev = np.asarray(eclipse_victim, dtype=bool)
+        if (es & ev).any():
+            raise ValueError(
+                "eclipse_sybil and eclipse_victim must be disjoint "
+                "(an attacker cannot eclipse itself)")
+        scored.update(eclipse_sybil=t_(es), eclipse_victim=t_(ev),
+                      cand_victim_bits=_words(cand_bits(ev), dev))
 
     params = GossipParams(
         subscribed=t_(subscribed),
@@ -534,15 +566,19 @@ def gossip_targets_row(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
     """The lazy-gossip targets gate row: Bernoulli(k/|elig|) over the
     non-mesh subscribed candidates (scored: above the gossip threshold,
     ``gossip_row``), k = max(Dlazy, factor * |elig|) (emitGossip
-    gossipsub.go:1656-1712)."""
+    gossipsub.go:1656-1712); IHAVE-spamming sybils target every
+    subscribed candidate (gossipsub_spam_test.go:135)."""
     k = krecv.receive_consts(cfg, sc)
     all_c = (1 << cfg.n_candidates) - 1
     sub_all = torch.where(params.subscribed, all_c, 0).to(torch.int32)
     elig = params.cand_sub_bits & ~mesh & ~fanout & sub_all
     if gossip_row is not None:
         elig = elig & gossip_row
-    return krecv.targets_row(k, elig, lane_seed(tick, 1, salt),
-                             mesh.shape[0])
+    targets = krecv.targets_row(k, elig, lane_seed(tick, 1, salt),
+                                mesh.shape[0])
+    if sc is not None and sc.sybil_ihave_spam:
+        targets = torch.where(params.sybil, params.cand_sub_bits, targets)
+    return targets
 
 
 def compute_gates(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
@@ -655,10 +691,18 @@ def make_gossip_step(cfg: GossipSimConfig,
     2. eager forward over mesh ∪ fanout; 3. lazy gossip over this
     tick's target row; 4. maintenance selections (scored: negative-score
     drops, graft to D below Dlo, score-ranked prune to D above Dhi,
-    opportunistic graft every opportunistic_graft_ticks; unscored
-    (``score_cfg`` None, v1.0): graft to D below Dlo, random prune to D
-    above Dhi); then the receive kernel resolves the exchange and emits
-    next tick's gates.
+    opportunistic graft every opportunistic_graft_ticks, then the
+    graft-flood and eclipse graft overrides; unscored (``score_cfg``
+    None, v1.0): graft to D below Dlo, random prune to D above Dhi);
+    then the receive kernel resolves the exchange and emits next tick's
+    gates.
+
+    Attacks (scored, in the reference kernel path's order): eclipse
+    attackers forward and advertise nothing; IHAVE-spamming sybils and
+    promise breakers advertise (CTRL_ADV) without delivering (CTRL_TGT),
+    so the receiver's kernel charges the broken promise to P7; the
+    sybil word carries the IHAVE targets override and the IWANT-flood
+    serve accrual into the kernel.
     """
     dev = resolve_device(device)
     plan.check_step_options(force_split=force_split,
@@ -666,6 +710,9 @@ def make_gossip_step(cfg: GossipSimConfig,
                             shard_mesh=shard_mesh, telemetry=telemetry,
                             rpc_probe=rpc_probe, invariants=invariants)
     k = krecv.receive_consts(cfg, score_cfg)
+    # with promise breakers in the params the receiver tracks promises
+    k_breakers = (None if score_cfg is None else
+                  krecv.receive_consts(cfg, score_cfg, promise_break=True))
     sc = score_cfg
     C = cfg.n_candidates
     ALL = (1 << C) - 1
@@ -728,6 +775,21 @@ def make_gossip_step(cfg: GossipSimConfig,
             adv = torch.where(syb, adv, adv & valid[:, None])
         out_bits = state.mesh | fanout
         seen = state.have | injected
+        eclipse = (sc is not None and sc.sybil_eclipse
+                   and params.eclipse_sybil is not None)
+        if eclipse:
+            # eclipse attackers are silent occupiers: inside a victim's
+            # mesh they forward and advertise nothing
+            out_bits = torch.where(params.eclipse_sybil, 0, out_bits)
+            targets = torch.where(params.eclipse_sybil, 0, targets)
+        # promise withholding: these peers advertise but never deliver;
+        # the receiver derives the broken promise (behavioural P7)
+        withhold = None
+        if sc is not None and sc.sybil_ihave_spam:
+            withhold = params.sybil
+        if sc is not None and params.promise_break is not None:
+            withhold = (params.promise_break if withhold is None
+                        else withhold | params.promise_break)
 
         # -- 4. maintenance selections (start-of-tick state only)
         mesh0 = state.mesh
@@ -753,6 +815,17 @@ def make_gossip_step(cfg: GossipSimConfig,
                 grafts = grafts | sel_k(
                     *_opportunistic(sc, params, state, mesh_ng, deg,
                                     can_graft & ~grafts), 5)
+            if sc.sybil_graft_flood:
+                # GRAFT-flooding sybils re-graft every tick, ignoring
+                # their own backoff (gossipsub_spam_test.go:349)
+                grafts = torch.where(params.sybil, cand_sub & ~mesh_ng,
+                                     grafts)
+            if eclipse:
+                # eclipse attackers GRAFT at every subscribed victim
+                # candidate every tick, ignoring their own backoff
+                grafts = torch.where(
+                    params.eclipse_sybil,
+                    params.cand_victim_bits & cand_sub & ~mesh_ng, grafts)
         mesh_sel = (mesh_ng | grafts) & ~prunes
         dropped = prunes if neg is None else prunes | neg
         backoff_bits2 = bo_row | dropped
@@ -763,11 +836,14 @@ def make_gossip_step(cfg: GossipSimConfig,
         else:
             a_sent = would_accept
 
-        # -- the receive kernel: exchange, handshake, counters, gates
-        # no withholding senders in the slice: the delivering advert
-        # (CTRL_TGT) is the raw advert (CTRL_ADV)
-        ctrl = krecv.ctrl_bytes(C, out=out_bits, tgt=targets, graft=grafts,
-                                drop=dropped, a=a_sent, adv=targets)
+        # -- the receive kernel: exchange, handshake, counters, gates;
+        # the raw advert (CTRL_ADV) against the delivering one (CTRL_TGT)
+        # is the broken promise the receiver sees
+        tgt_deliver = (targets if withhold is None
+                       else torch.where(withhold, 0, targets))
+        ctrl = krecv.ctrl_bytes(C, out=out_bits, tgt=tgt_deliver,
+                                graft=grafts, drop=dropped, a=a_sent,
+                                adv=targets)
         ops = dict(
             gseeds=(lane_seed(tick + 1, 6, salt),
                     lane_seed(tick + 1, 1, salt)),
@@ -783,7 +859,14 @@ def make_gossip_step(cfg: GossipSimConfig,
                 static=_static_term(sc, params), fd=s0.first_deliveries,
                 inv=s0.invalid_deliveries, bp=s0.behaviour_penalty,
                 tim=s0.time_in_mesh, iws=state.iwant_serves)
-        outs = krecv.receive_update(k, **ops)
+        kk = k if withhold is None else k_breakers
+        if kk.attacks:
+            # the sybil word: the IHAVE targets override and the IWANT
+            # flood's receivers
+            spam = sc.sybil_ihave_spam or sc.sybil_iwant_spam
+            ops["syb"] = (torch.where(params.sybil, ALL, 0).to(torch.int32)
+                          if spam else torch.zeros_like(sub_all))
+        outs = krecv.receive_update(kk, **ops)
         acq, mesh_new, backoff_new = outs[:3]
         gates_new = tuple(outs[3:3 + n_gates])
         scores = iws_o = None
@@ -961,3 +1044,30 @@ def reach_counts_from_have(params: GossipParams, state: GossipState,
 
 def mesh_degrees(state: GossipState) -> torch.Tensor:
     return popcount32(state.mesh)
+
+
+def eclipse_takeover(state: GossipState, params: GossipParams,
+                     cfg: GossipSimConfig) -> float:
+    """The eclipse metric: the share of the victim set's occupied mesh
+    slots held by eclipse attackers (0 = clean meshes, 1 = fully
+    eclipsed), over victims with nonzero degree."""
+    es, ev = params.eclipse_sybil, params.eclipse_victim
+    occ = torch.zeros(es.shape, dtype=torch.int64, device=es.device)
+    deg = torch.zeros_like(occ)
+    for c, o in enumerate(cfg.offsets):
+        bit = ((state.mesh >> c) & 1).bool()
+        deg += bit
+        occ += bit & torch.roll(es, -int(o))
+    return float(occ[ev].sum()) / max(int(deg[ev].sum()), 1)
+
+
+def iwant_serve_level(state: GossipState,
+                      cfg: GossipSimConfig) -> torch.Tensor:
+    """Per serving peer, its outstanding gossip-retransmission load,
+    int32 [N]: ledger row c is kept at the requester p and burdens its
+    candidate p + o_c, so each row is rolled back to the server."""
+    s32 = state.iwant_serves.to(torch.int32)
+    level = torch.zeros_like(s32[0])
+    for c, o in enumerate(cfg.offsets):
+        level += torch.roll(s32[c], int(o))
+    return level

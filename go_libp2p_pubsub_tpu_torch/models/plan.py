@@ -2,10 +2,12 @@
 ``make_gossip_step`` / ``make_fused_window`` that the port does not run
 raises one of these, never a silent fallback.
 
-The port runs the scored GossipSub v1.1 heartbeat and the unscored v1.0
-heartbeat on its receive kernel (unpadded, pipelined gates, Bernoulli
-gossip targets, one topic per peer), and the unscored heartbeat T ticks
-per launch on the fused-window kernel.  Each refusal has a stable name
+The port runs the scored GossipSub v1.1 heartbeat (with its attack
+formations: IHAVE broken-promise spam, the IWANT flood, graft flood,
+promise breakers, eclipse) and the unscored v1.0 heartbeat on its
+receive kernel (unpadded, pipelined gates, Bernoulli gossip targets, one
+topic per peer), and the unscored heartbeat T ticks per launch on the
+fused-window kernel.  Each refusal has a stable name
 (``SliceRefusal.name``) and its own message; tests match on the name.
 """
 
@@ -27,9 +29,9 @@ REFUSALS: dict[str, str] = {
               "not ported yet",
     "rpc_probe": "the per-RPC probe snapshot is not ported yet",
     "invariants": "the in-step invariant checker is not ported yet",
-    "attacks": "attack behaviours (IHAVE/IWANT spam, graft flood, "
-               "eclipse, byzantine mutation, promise breakers) are not "
-               "ported yet",
+    "byzantine": "byzantine payload mutation (byzantine_mutation, "
+                 "byzantine) is not ported: the JAX package's kernel path "
+                 "refuses it too (it needs per-edge receive loops)",
     "px": "PX candidate rotation (px_candidates) is not ported yet",
     "direct_peers": "direct peers (direct_edges) are not ported yet",
     "flood_publish": "flood publishing (flood_publish=True) is not "
@@ -93,9 +95,8 @@ def check_kernel_config(cfg, sc) -> None:
         refuse("track_p3")
     if sc.flood_publish:
         refuse("flood_publish")
-    if (sc.sybil_ihave_spam or sc.sybil_iwant_spam or sc.sybil_graft_flood
-            or sc.sybil_eclipse or sc.byzantine_mutation):
-        refuse("attacks")
+    if sc.byzantine_mutation:
+        refuse("byzantine")
     if sc.counter_dtype not in ("bfloat16", "float32"):
         refuse("counter_dtype")
 
@@ -116,18 +117,16 @@ def check_step_options(*, force_split, pipeline_gates, shard_mesh,
         refuse("invariants")
 
 
-def check_sim_options(*, flood_proto, promise_break, px_candidates,
-                      direct_edges, pad_to_block, fault_schedule,
-                      eclipse_sybil, eclipse_victim, byzantine,
-                      score_knobs, sim_knobs, delays, delays_split,
-                      delays_counters, delays_probe) -> None:
+def check_sim_options(*, flood_proto, px_candidates, direct_edges,
+                      pad_to_block, fault_schedule, byzantine, score_knobs,
+                      sim_knobs, delays, delays_split, delays_counters,
+                      delays_probe) -> None:
     if pad_to_block is not None:
         refuse("pad_to_block")
     if flood_proto is not None:
         refuse("flood_proto")
-    if (promise_break is not None or eclipse_sybil is not None
-            or eclipse_victim is not None or byzantine is not None):
-        refuse("attacks")
+    if byzantine is not None:
+        refuse("byzantine")
     if px_candidates is not None:
         refuse("px")
     if direct_edges is not None:

@@ -3,7 +3,9 @@ its plain PyTorch version.
 
 Counterpart of ``go_libp2p_pubsub_tpu/ops/pallas/receive.py``
 (``make_receive_update`` / ``_receive_kernel``) for the unpaired options
-the port runs, scored (v1.1) and unscored (v1.0, ``score_cfg=None``).
+the port runs, scored (v1.1) and unscored (v1.0, ``score_cfg=None``);
+scored, with or without the attack options (``track_promises``, the
+IHAVE-spam targets override and the IWANT-flood serve accrual).
 The port runs unpadded, so the sender view of edge j is the plain
 ``(p + o_j) mod N`` read — no wrap-extended flats.
 
@@ -24,6 +26,9 @@ Scored only (``SCORED_OPERANDS``):
 - ``static`` f32 [C, N] or None (an all-zero static score is elided);
 - ``fd``, ``inv`` (counter dtype), ``bp`` (bp dtype), ``tim``, ``iws``
   int16, all [C, N].
+
+Attack variant only (``ReceiveConsts.attacks``): ``syb`` int32 [N], the
+sybil word (all C bits for an IHAVE- or IWANT-spamming sybil, else 0).
 
 Returns make_receive_update's output order: scored ``(acq [W, N], mesh
 [N], backoff [C, N], *gates (7 x [N]), fd, inv, bp, tim, iws)``,
@@ -52,11 +57,12 @@ CTRL_ADV = 5       # raw IHAVE advert
 N_GATES = 7        # accept, gossip, publish, nonneg, payload, targets, backoff
 N_GATES_UNSCORED = 2   # targets, backoff
 
-#: launches of the CUDA kernel, scored and unscored variants (plain
-#: integers; chip_smoke.py resets them before the main path and reads
-#: them after)
+#: launches of the CUDA kernel: the scored, unscored and scored attack
+#: variants (plain integers; chip_smoke.py resets them before a main path
+#: and reads them after)
 launches = 0
 launches_unscored = 0
+launches_attacks = 0
 
 #: (C, W, scored) variants the CUDA kernel is instantiated for
 KERNEL_SHAPES = {(c, w, scored) for c in (8, 16) for w in (1, 2)
@@ -115,6 +121,7 @@ class ReceiveConsts:
     d_lazy: int
     history_length: int
     gossip_factor: float
+    retransmission: int = 0
     counter_dtype: torch.dtype | None = None
     bp_dtype: torch.dtype | None = None
     fd_cap: float | None = None
@@ -126,6 +133,11 @@ class ReceiveConsts:
     gossip_thr: float | None = None
     publish_thr: float | None = None
     score: ScoreConsts | None = None
+    # the attack options (scored only): P7 for broken promises at the
+    # receiver, the IHAVE-spam targets override, the IWANT-flood accrual
+    track_promises: bool = False
+    ihave_spam: bool = False
+    iwant_spam: bool = False
 
     @property
     def n_candidates(self) -> int:
@@ -135,10 +147,18 @@ class ReceiveConsts:
     def scored(self) -> bool:
         return self.score is not None
 
+    @property
+    def attacks(self) -> bool:
+        """The attack variant: it takes the ``syb`` operand."""
+        return self.track_promises or self.ihave_spam or self.iwant_spam
 
-def receive_consts(cfg, sc) -> ReceiveConsts:
+
+def receive_consts(cfg, sc, *, promise_break: bool = False
+                   ) -> ReceiveConsts:
     """Check the options (named refusals outside the slice) and fold the
-    constants (``sc`` None: the unscored step's)."""
+    constants (``sc`` None: the unscored step's).  The receiver tracks
+    broken promises when sybils spam IHAVEs or ``promise_break`` (the
+    sim has promise breakers)."""
     plan.check_kernel_config(cfg, sc)
     if sc is None:
         return ReceiveConsts(
@@ -153,6 +173,9 @@ def receive_consts(cfg, sc) -> ReceiveConsts:
         backoff_restart=cfg.backoff_ticks - 1, d_lazy=cfg.d_lazy,
         history_length=cfg.history_length,
         gossip_factor=_f32(cfg.gossip_factor),
+        retransmission=cfg.gossip_retransmission,
+        track_promises=sc.sybil_ihave_spam or promise_break,
+        ihave_spam=sc.sybil_ihave_spam, iwant_spam=sc.sybil_iwant_spam,
         fd_cap=_f32(sc.first_message_deliveries_cap),
         fd_decay=_f32(sc.first_message_deliveries_decay),
         inv_decay=_f32(sc.invalid_message_deliveries_decay),
@@ -244,13 +267,23 @@ def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
     """Stage 1 over the C receiving edges: the senders' words heard
     (``news`` per message word), the GRAFT/PRUNE/A bits received and,
     with ``valid`` (scored), the per-edge valid/invalid news counts.
-    Unscored (``pay`` None) no gate closes an edge."""
+    Unscored (``pay`` None) no gate closes an edge.  With
+    ``k.track_promises``, the broken-promise bits: the sender advertised
+    (CTRL_ADV) without delivering (CTRL_TGT), the receiver's gossip gate
+    is open and it lacks some id; with ``k.iwant_spam``, per edge the
+    popcount of the sender's raw advert words (read whatever the gates
+    say)."""
     W = fresh.shape[0]
     n = seen.shape[1]
     z = torch.zeros((n,), dtype=torch.int32, device=seen.device)
     heard = [z] * W
-    fd_cnt, iv_cnt = [], []
-    graft_recv = prune_recv = a_recv = z
+    fd_cnt, iv_cnt, padv = [], [], []
+    graft_recv = prune_recv = a_recv = broken = z
+    if k.track_promises:
+        lacked = torch.zeros((n,), dtype=torch.bool, device=seen.device)
+        for w in range(W):
+            lacked = lacked | (~seen[w] != 0)
+        lacked = lacked.to(torch.int32)
     for j, (o, ci) in enumerate(zip(k.offsets, k.cinv)):
         # sender q = (p + o_j) mod N: roll(x, -o)[p] = x[(p + o) mod N]
         ctl = torch.roll(ctrl[ci], -o).to(torch.int32)
@@ -272,7 +305,17 @@ def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
                 iv_j = iv_j + graph.popcount32(news & ~valid[w])
         fd_cnt.append(fd_j)
         iv_cnt.append(iv_j)
-    return heard, graft_recv, prune_recv, a_recv, fd_cnt, iv_cnt
+        if k.track_promises:
+            adv_r = (ctl >> CTRL_ADV) & 1
+            m_g = (ctl >> CTRL_TGT) & 1
+            broken = broken | ((adv_r & (1 ^ m_g) & ok_g & lacked) << j)
+        if k.iwant_spam:
+            pa_j = z
+            for w in range(W):
+                pa_j = pa_j + graph.popcount32(torch.roll(adv[w], -o))
+            padv.append(pa_j)
+    return (heard, graft_recv, prune_recv, a_recv, fd_cnt, iv_cnt, broken,
+            padv)
 
 
 def _acquired(heard, sub_all, injected) -> torch.Tensor:
@@ -301,8 +344,8 @@ def receive_update_plain(k: ReceiveConsts, **ops):
 def _receive_plain_unscored(k: ReceiveConsts, *, gseeds, ctrl, fresh, adv,
                             sub_all, cand_sub, fanout, wa, grafts, dropped,
                             meshsel, seen, injected, backoff):
-    heard, graft_recv, prune_recv, a_recv, _, _ = _exchange(
-        k, ctrl, fresh, adv, seen)
+    heard, graft_recv, prune_recv, a_recv = _exchange(
+        k, ctrl, fresh, adv, seen)[:4]
     accept = graft_recv & wa
     retract = grafts & ~a_recv
     mesh = ((meshsel | accept) & ~prune_recv) & ~retract
@@ -316,11 +359,11 @@ def _receive_plain_unscored(k: ReceiveConsts, *, gseeds, ctrl, fresh, adv,
 def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
                           adv, pay, gsp, acc, sub_all, cand_sub, fanout, wa,
                           bo2, grafts, dropped, meshsel, seen, injected,
-                          backoff, static, fd, inv, bp, tim, iws):
+                          backoff, static, fd, inv, bp, tim, iws, syb=None):
     C = k.n_candidates
     n = pay.shape[0]
-    heard, graft_recv, prune_recv, a_recv, fd_cnt, iv_cnt = _exchange(
-        k, ctrl, fresh, adv, seen, pay, gsp, valid)
+    (heard, graft_recv, prune_recv, a_recv, fd_cnt, iv_cnt, broken,
+     padv) = _exchange(k, ctrl, fresh, adv, seen, pay, gsp, valid)
     graft_recv = graft_recv & acc
     prune_recv = prune_recv & acc
     viol = graft_recv & bo2
@@ -343,11 +386,21 @@ def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
         k.inv_decay, k.counter_dtype)
     bp_f = bp.to(torch.float32) + graph.expand_bits(viol, C).to(
         torch.float32)
+    if k.track_promises:
+        bp_f = bp_f + graph.expand_bits(broken, C).to(torch.float32)
     bp_new = _decay_keep(k, bp_f, k.bp_decay, k.bp_dtype)
     s32 = iws.to(torch.int32)
+    pull = fd_stack + iv_stack
+    if k.iwant_spam:
+        # sybil receivers re-request the partner's whole advertised
+        # window until the edge's retransmission budget (taken on the
+        # ledger before its decay) is spent
+        pa = torch.stack(padv)
+        flood = torch.where((s32 < k.retransmission * pa) & (pa > 0), pa, 0)
+        pull = torch.where((syb != 0)[None, :], flood, pull)
     H = k.history_length
     dec = s32 - torch.div(s32 + (H - 1), H, rounding_mode="floor")
-    iws_new = (dec + fd_stack + iv_stack).clamp(0, 30000).to(torch.int16)
+    iws_new = (dec + pull).clamp(0, 30000).to(torch.int16)
 
     # stage 2: next tick's gates from the stored (rounded) counters
     fd_n = fd_new.to(torch.float32)
@@ -361,6 +414,9 @@ def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
     gater = gater_row(fd_n, inv_n, gseeds[0], n)
     elig = cand_sub & ~mesh & ~fanout & sub_all & gossip_g
     tgt = targets_row(k, elig, gseeds[1], n)
+    if k.ihave_spam:
+        # IHAVE-spamming sybils target every subscribed candidate
+        tgt = (tgt & ~syb) | (cand_sub & syb)
     gates = (accept_g, gossip_g, pub_g, nonneg_g, accept_g & gater, tgt,
              bo_gate)
     return (acq, mesh, bo_new, *gates, fd_new, inv_new, bp_new, tim_new,
@@ -375,7 +431,7 @@ class _Args(ctypes.Structure):
             "ctrl", "fresh", "adv", "pay", "gsp", "acc", "sub_all",
             "cand_sub", "fanout", "wa", "bo2", "grafts", "dropped",
             "meshsel", "seen", "inj", "valid", "backoff", "stat", "fd",
-            "inv", "bp", "tim", "iws", "acq", "mesh", "backoff_out",
+            "inv", "bp", "tim", "iws", "syb", "acq", "mesh", "backoff_out",
             "gates", "fd_out", "inv_out", "bp_out", "tim_out", "iws_out")]
         + [("n", ctypes.c_longlong),
            ("offsets", ctypes.c_int * 16), ("cinv", ctypes.c_int * 16),
@@ -383,7 +439,9 @@ class _Args(ctypes.Structure):
            ("stride", ctypes.c_uint),
            ("backoff_restart", ctypes.c_int), ("d_lazy", ctypes.c_int),
            ("history_length", ctypes.c_int),
-           ("has_topic_cap", ctypes.c_int)]
+           ("has_topic_cap", ctypes.c_int),
+           ("track_promises", ctypes.c_int), ("ihave_spam", ctypes.c_int),
+           ("iwant_spam", ctypes.c_int), ("retransmission", ctypes.c_int)]
         + [(name, ctypes.c_float) for name in (
             "gossip_factor", "fd_cap", "fd_decay", "inv_decay",
             "bp_decay", "decay_to_zero", "c_tim", "tim_quantum",
@@ -406,9 +464,13 @@ def _check_operands(k: ReceiveConsts, ops: dict) -> None:
                   *_WORDS_N}
     if k.scored:
         want_names |= set(SCORED_OPERANDS)
+    if k.attacks:
+        want_names.add("syb")
     if names != want_names:
+        variant = ("attack" if k.attacks else
+                   "scored" if k.scored else "unscored")
         raise ValueError(
-            f"{'scored' if k.scored else 'unscored'} receive operands: "
+            f"{variant} receive operands: "
             f"missing {sorted(want_names - names)}, unexpected "
             f"{sorted(names - want_names)}")
     want = {"ctrl": ((C, n), torch.uint8),
@@ -417,6 +479,8 @@ def _check_operands(k: ReceiveConsts, ops: dict) -> None:
             "injected": ((W, n), torch.int32),
             "backoff": ((C, n), torch.int16)}
     want.update({name: ((n,), torch.int32) for name in _WORDS_N})
+    if k.attacks:
+        want["syb"] = ((n,), torch.int32)
     if k.scored:
         want.update({"valid": ((W,), torch.int32),
                      "fd": ((C, n), k.counter_dtype),
@@ -445,7 +509,7 @@ def receive_update(k: ReceiveConsts, **ops):
 
     CUDA tensors launch the kernel (a failed build or launch raises);
     CPU tensors run ``receive_update_plain``."""
-    global launches, launches_unscored
+    global launches, launches_unscored, launches_attacks
     _check_operands(k, ops)
     if ops["sub_all"].device.type == "cpu":
         return receive_update_plain(k, **ops)
@@ -491,21 +555,28 @@ def receive_update(k: ReceiveConsts, **ops):
         for name in ("c_tim", "tim_quantum", "tim_cap", "c_fd", "c_inv",
                      "topic_cap", "bp_thr", "w_bp"):
             setattr(a, name, getattr(k.score, name))
+    if k.attacks:
+        a.syb = ops["syb"].data_ptr()
+        for name in ("track_promises", "ihave_spam", "iwant_spam",
+                     "retransmission"):
+            setattr(a, name, int(getattr(k, name)))
     for name, t in outs:
         setattr(a, name, t.data_ptr())
     lib = _build.load("receive")
     fn = lib.gossip_receive_update
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ctypes.byref(a), C, W, int(k.scored),
+        err = fn(ctypes.byref(a), C, W, int(k.scored), int(k.attacks),
                  int(k.counter_dtype == torch.bfloat16),
                  int(k.bp_dtype == torch.bfloat16), stream)
     _build.check(err, "receive_update")
-    if k.scored:
+    if k.attacks:
+        launches_attacks += 1
+    elif k.scored:
         launches += 1
     else:
         launches_unscored += 1

@@ -1,7 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain
-PyTorch version at a small size (the receive kernel scored and unscored,
-the select kernel, the fused-window kernel), and the scored step and the
-unscored fused window on the card against the CPU.  Exact: every output
+PyTorch version at a small size (the receive kernel scored, unscored and
+with its attack options, the select kernel, the fused-window kernel),
+and the scored step (plain and under every attack formation at once)
+and the unscored fused window on the card against the CPU.  Exact: every output
 bit for bit.
 
 They skip without a card; on the card run
@@ -9,6 +10,8 @@ They skip without a card; on the card run
 (``tests/conftest.py`` imports JAX, which the port's machine need not
 have).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -244,3 +247,95 @@ def test_fused_window_on_the_card_matches_the_cpu(cuda):
         np.testing.assert_array_equal(x, y, err_msg=f"gate {i}")
     assert pfused.launches - f0 == 4
     assert (prc.launches_unscored, psel.launches) == (r0, s0)
+
+
+ATTACK_FLAGS = {
+    "track_promises": dict(track_promises=True),
+    "ihave_spam": dict(ihave_spam=True),
+    "iwant_spam": dict(iwant_spam=True),
+    "all": dict(track_promises=True, ihave_spam=True, iwant_spam=True),
+}
+
+
+def _attack_sim(c, w_words, n=4096, t=4, seed=5, device="cpu"):
+    """Every attack formation at once: IHAVE and IWANT spam, graft flood
+    and eclipse, promise breakers, invalid messages."""
+    offsets = pgs.make_gossip_offsets(t, c, n, seed=seed)
+    cfg = pgs.GossipSimConfig(offsets=offsets, n_topics=t, backoff_ticks=6,
+                              **(SMALL if c == 8 else {}))
+    sc = pgs.ScoreSimConfig(sybil_ihave_spam=True, sybil_iwant_spam=True,
+                            sybil_graft_flood=True, sybil_eclipse=True)
+    rng = np.random.default_rng(seed + w_words)
+    m = 32 * w_words - 2
+    subs = np.zeros((n, t), dtype=bool)
+    subs[np.arange(n), np.arange(n) % t] = True
+    es = np.zeros(n, dtype=bool)
+    es[: n // 10] = True
+    ev = np.zeros(n, dtype=bool)
+    ev[n // 10: n // 5] = True
+    origin = rng.integers(n // 5, n, m)
+    ticks = np.sort(rng.integers(0, 20, m)).astype(np.int32)
+    sim = pgs.make_gossip_sim(
+        cfg, subs, origin % t, origin, ticks, score_cfg=sc, device=device,
+        msg_invalid=rng.random(m) < 0.2, sybil=rng.random(n) < 0.2,
+        promise_break=rng.random(n) < 0.1, eclipse_sybil=es,
+        eclipse_victim=ev)
+    return (cfg, sc, *sim)
+
+
+@pytest.mark.parametrize("flags", sorted(ATTACK_FLAGS))
+@pytest.mark.parametrize("c", [8, 16])
+@pytest.mark.parametrize("w_words", [1, 2])
+def test_attack_receive_kernel_matches_plain_on_a_real_tick(cuda, flags, c,
+                                                            w_words):
+    cfg, sc, params, state = _attack_sim(c, w_words)
+    step = pgs.make_gossip_step(cfg, sc, device="cpu")
+    captured = []
+    real = prc.receive_update
+
+    def capture(k, **ops):
+        captured.append((k, ops))
+        return real(k, **ops)
+
+    prc.receive_update = capture
+    try:
+        for _ in range(12):
+            state = step(params, state)[0]
+    finally:
+        prc.receive_update = real
+    k, ops = captured[-1]
+    off = dict(track_promises=False, ihave_spam=False, iwant_spam=False)
+    k = dataclasses.replace(k, **{**off, **ATTACK_FLAGS[flags]})
+    assert int(ops["syb"].ne(0).sum()) > 0
+    want = prc.receive_update_plain(k, **ops)
+    before = prc.launches_attacks
+    got = prc.receive_update(k, **_to(ops, cuda))
+    torch.cuda.synchronize()
+    assert prc.launches_attacks == before + 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g.cpu(), w), f"output {i}"
+
+
+def test_attack_step_on_the_card_matches_the_cpu(cuda):
+    cfg, sc, p_c, s_c = _attack_sim(16, 1, n=8192, t=8)
+    _, _, p_g, s_g = _attack_sim(16, 1, n=8192, t=8, device=cuda)
+    step_c = pgs.make_gossip_step(cfg, sc, device="cpu")
+    step_g = pgs.make_gossip_step(cfg, sc, device=cuda)
+    r0, a0 = prc.launches, prc.launches_attacks
+    for tick in range(20):
+        s_c = step_c(p_c, s_c)[0]
+        s_g = step_g(p_g, s_g)[0]
+        a, b = convert.state_to_numpy(s_c), convert.state_to_numpy(s_g)
+        for name in ("mesh", "fanout", "backoff", "have", "recent",
+                     "iwant_serves"):
+            np.testing.assert_array_equal(a[name], b[name],
+                                          err_msg=f"{tick} {name}")
+        for name in a["scores"]:
+            np.testing.assert_array_equal(a["scores"][name],
+                                          b["scores"][name],
+                                          err_msg=f"{tick} {name}")
+        for i, (x, y) in enumerate(zip(a["gates"], b["gates"])):
+            np.testing.assert_array_equal(x, y, err_msg=f"{tick} gate {i}")
+    assert (prc.launches_attacks - a0, prc.launches - r0) == (20, 0)
+    assert float(s_g.scores.behaviour_penalty.float().max()) > 0
+    assert pgs.eclipse_takeover(s_g, p_g, cfg) > 0

@@ -145,13 +145,9 @@ REFUSED = {
                lambda: _sim(delays_probe=True)],
     "rpc_probe": [lambda: _step(rpc_probe=True)],
     "invariants": [lambda: _step(invariants=object())],
-    "attacks": [
-        lambda: _step(sc=pgs.ScoreSimConfig(sybil_ihave_spam=True)),
-        lambda: _step(sc=pgs.ScoreSimConfig(sybil_iwant_spam=True)),
-        lambda: _step(sc=pgs.ScoreSimConfig(sybil_graft_flood=True)),
-        lambda: _step(sc=pgs.ScoreSimConfig(sybil_eclipse=True)),
+    "byzantine": [
         lambda: _step(sc=pgs.ScoreSimConfig(byzantine_mutation=True)),
-        lambda: _sim(promise_break=np.zeros(N, bool)),
+        lambda: _sim(sc=pgs.ScoreSimConfig(byzantine_mutation=True)),
         lambda: _sim(byzantine=np.zeros(N, bool))],
     "px": [lambda: _sim(px_candidates=14)],
     "direct_peers": [lambda: _sim(direct_edges=np.zeros((N, 16), bool))],
