@@ -32,6 +32,33 @@ Phases (any failure exits non-zero; nothing is caught):
    delivery and IWANT-containment gates and the attacks live; the
    attack variant launched once per tick, counts reset just before and
    read just after;
+5c. the receive kernel's full variant (the router-surface options)
+   against its plain version at N = 1,000,000, C = 16, W = 1: flood
+   publishing, exact-k targets, the PX trigger word and the shared-IP
+   gater with the three attack options, on seeded random operands and on
+   the operands of two real ticks of the 1M-peer everything-on sim
+   (tick 3, where the trigger word is live, and a publishing tick after
+   warm-up, there also as the main path runs it, with Bernoulli
+   targets): every output bit-identical, the trigger word too; both
+   timed; and exact-k alone on the flagship's options, the same two
+   ways (on phase 4's operands);
+5d. the everything-on main path: the flagship with topic_score_cap=50,
+   20% sybils four to an address running both gossip-repair attacks,
+   flood publishing, PX rotation over 14 of the 16 candidates and a
+   sparse direct overlay (go_libp2p_pubsub_tpu_torch/everything.py)
+   through make_gossip_sim / make_gossip_step / gossip_run, 100 warm-up
+   and 300 timed heartbeats, with the adversarial path's three gates and
+   every option shown live (the active set rotated, no direct edge ever
+   in a mesh, some ctrl byte carrying CTRL_FLOOD during warm-up, the
+   same-IP words present and some sybil's static score below 0); the
+   full variant launched once per tick and no other receive variant,
+   counts reset just before and read just after;
+5e. exact-k on the fused path: the fused-window kernel with exact-k
+   targets against its plain version at the resident shapes, one window;
+   timed; then 64 heartbeats of the exact-k resident configuration
+   through make_fused_window / gossip_run_fused (counts reset just
+   before and read just after) against the same ticks stepped one by one
+   (the unscored full variant), equal digests;
 6. the unscored receive kernel against its plain version at the resident
    configuration's shapes (N = 1,048,576, C = 16, W = 1), on seeded random
    operands and on the operands of a real unscored tick: every output
@@ -187,6 +214,31 @@ def random_receive_operands(k, n: int, w: int, device, seed: int):
                           device=device).to(torch.int16))
 
 
+def full_receive_operands(k, n: int, device, seed: int):
+    """Seeded random operands of the full variant with every option on:
+    the attack variant's (a fifth of the peers carrying the sybil word,
+    ledgers around the flood budget) plus ctrl bytes with CTRL_FLOOD,
+    sparse injected sender words and same-IP sibling words."""
+    C = k.n_candidates
+    ops = random_receive_operands(k, n, 1, device, seed)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 2)
+    ops["syb"] = torch.where(
+        torch.rand(n, generator=g, device=device) < 0.2, (1 << C) - 1, 0).to(
+            torch.int32)
+    ops["iws"] = torch.randint(0, 4 * 32, (C, n), generator=g,
+                               device=device).to(torch.int16)
+    ops["ctrl"] = torch.randint(0, 128, (C, n), generator=g,
+                                device=device).to(torch.uint8)
+    ops["inj_send"] = (ops["fresh"] & ops["adv"]).contiguous()
+    group = torch.randint(0, 6, (C, n), generator=g, device=device)
+    same = torch.zeros((C, n), dtype=torch.int32, device=device)
+    for c in range(C):
+        same |= (group == group[c][None, :]).to(torch.int32) << c
+    ops["same_ip"] = same
+    return ops
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per compiled kernel: its name with its template
     arguments (``receive_kernel<16,1,1,0,1,1>``), registers and spill
@@ -213,7 +265,9 @@ def receive_ops(k, ops) -> int:
     ~10 per lane-hash draw (two draws per row); unscored, ~6 per backoff
     row and one draw per row; the attack options, ~12 per edge (broken
     bit, P7 add, flood budget) and ~3 per advert word a sybil receiver
-    counts."""
+    counts; the router-surface options, ~3 per edge for the flood bit,
+    ~4 per candidate pair for the same-IP sums and ~3 per candidate pair
+    for the exact-k ranks."""
     n = ops["sub_all"].shape[0]
     W = ops["fresh"].shape[0]
     C = k.n_candidates
@@ -229,6 +283,8 @@ def receive_ops(k, ops) -> int:
     if k.attacks:
         n_syb = int((ops["syb"] != 0).sum())
         extra = n * C * 12 + 3 * n_syb * C * W
+    extra += n * C * (3 * k.flood_publish + 4 * C * k.with_same_ip
+                      + 3 * C * k.exact_k)
     return n * C * (15 + per_row) + 8 * open_words + extra
 
 
@@ -284,7 +340,14 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs "
              "an NVIDIA GPU")
-    from go_libp2p_pubsub_tpu_torch import adversarial, flagship, resident
+    import dataclasses
+
+    from go_libp2p_pubsub_tpu_torch import (
+        adversarial,
+        everything,
+        flagship,
+        resident,
+    )
     from go_libp2p_pubsub_tpu_torch.models import gossipsub as pg
     from go_libp2p_pubsub_tpu_torch.ops import graph
     from go_libp2p_pubsub_tpu_torch.ops.kernels import _build
@@ -362,6 +425,19 @@ def main() -> None:
     rcv_eager_ms = eager_ms(lambda: krecv.receive_update(k, **tick_ops), 50)
     rcv_bytes = krecv.operand_bytes(tick_ops, got)
     rcv_ops = receive_ops(k, tick_ops)
+    # (5c) exact-k targets alone, on the same two operand sets
+    k_xk = dataclasses.replace(k, exact_k=True)
+    err_xk = 0.0
+    for label, o in (("random operands", ops), ("a real tick", tick_ops)):
+        got_xk = krecv.receive_update(k_xk, **o)
+        torch.cuda.synchronize()
+        err_xk = max(err_xk, check_identical(
+            f"exact-k receive ({label})", got_xk,
+            krecv.receive_update_plain(k_xk, **o)))
+    if torch.equal(got_xk[8], got[8]):
+        fail("exact-k receive: the targets equal the Bernoulli draw")
+    xk_ms = device_ms(lambda: krecv.receive_update(k_xk, **tick_ops), 50)
+    del got_xk, o
     print(f"receive: identical at N={n}, C={C}, W=1 (random and real "
           f"tick); device time: kernel {rcv_ms:.4f} ms, plain "
           f"{rcv_plain_ms:.3f} ms; issued from Python: {rcv_eager_ms:.4f} "
@@ -514,6 +590,233 @@ def main() -> None:
         peak_bytes=peak_a, launches=launches_adv)
     del params, state, step
 
+    # -- 5c. the full variant vs plain: all four router-surface options
+    # and the three attack options, on random operands and on a real tick
+    # of the everything-on sim (there also as the main path runs it)
+    cfg, sc, params, state, _, msg_tick, _ = everything.build(
+        dev, horizon=horizon)
+    k_e = krecv.receive_consts(cfg, sc, px=True, same_ip=True)
+    k_all = dataclasses.replace(k_e, exact_k=True)
+    if not (k_all.flood_publish and k_all.with_px and k_all.with_same_ip
+            and k_all.track_promises and k_all.ihave_spam
+            and k_all.iwant_spam and k_e.full and not k_e.exact_k):
+        fail(f"everything receive consts: {k_e}")
+    ops = full_receive_operands(k_all, n, dev, seed=23)
+    got = krecv.receive_update(k_all, **ops)
+    torch.cuda.synchronize()
+    err_full = check_identical("full receive (random operands)", got,
+                               krecv.receive_update_plain(k_all, **ops))
+    if len(got) != 16 or not got[-1].any():
+        fail("full receive: no PX trigger word")
+    step = pg.make_gossip_step(cfg, sc, device=dev)
+    # two real ticks: tick 3, mesh formation (PRUNEs and PRUNE-responses
+    # arrive: the trigger word is live), and the first tick after warm-up
+    # on which some peer publishes (its ctrl bytes carry CTRL_FLOOD)
+    box = [state]
+
+    def run_to(tick):
+        box[0] = pg.gossip_run(params, box[0], tick + 1 - box[0].tick, step,
+                               device=dev)
+
+    tick_ops = capture_receive(lambda: run_to(3), krecv)
+    got = krecv.receive_update(k_all, **tick_ops)
+    torch.cuda.synchronize()
+    err_full = max(err_full, check_identical(
+        "full receive (tick 3, all options)", got,
+        krecv.receive_update_plain(k_all, **tick_ops)))
+    triggers = int((got[-1] != 0).sum())
+    if triggers <= 0:
+        fail("full receive: no PX trigger word on tick 3")
+    t_pub = int(msg_tick[msg_tick >= 30][0])
+    tick_ops = capture_receive(lambda: run_to(t_pub), krecv)
+    for label, k_ in (("all options", k_all), ("as the main path", k_e)):
+        want = krecv.receive_update_plain(k_, **tick_ops)
+        got = krecv.receive_update(k_, **tick_ops)
+        torch.cuda.synchronize()
+        err_full = max(err_full, check_identical(
+            f"full receive (a real tick, {label})", got, want))
+    full_ms = device_ms(lambda: krecv.receive_update(k_e, **tick_ops), 50)
+    full_all_ms = device_ms(lambda: krecv.receive_update(k_all, **tick_ops),
+                            50)
+    full_plain_ms = device_ms(
+        lambda: krecv.receive_update_plain(k_e, **tick_ops), 5)
+    full_bytes = krecv.operand_bytes(tick_ops, got)
+    full_bound = bound(full_bytes, receive_ops(k_e, tick_ops))
+    flood_edges = int(((tick_ops["ctrl"] >> krecv.CTRL_FLOOD) & 1).sum())
+    if flood_edges <= 0:
+        fail(f"full receive: no flood edge on tick {t_pub}")
+    print(f"full receive: identical at N={n}, C={C}, W=1 (random and real "
+          f"ticks 3 and {t_pub}; flood, exact-k, PX, same-IP and the attack "
+          f"options; {triggers} trigger words on tick 3, {flood_edges} "
+          f"flood edges on tick {t_pub}); "
+          f"device time: kernel {full_ms:.4f} ms as the main path runs it "
+          f"(Bernoulli targets), {full_all_ms:.4f} ms with exact-k too, "
+          f"plain {full_plain_ms:.3f} ms; {full_bytes / n:.1f} B/peer, bound "
+          f"{full_bound[0]:.4f} ms ({full_bound[1]}); exact-k alone on the "
+          f"flagship's options: identical, {xk_ms:.4f} ms")
+    del want, got, ops, tick_ops, params, state, step, box
+
+    # -- 5d. the everything-on main path, counts reset just before and
+    # read just after
+    cfg, sc, params, state, msg_topic, msg_tick, _ = everything.build(
+        dev, horizon=horizon)
+    state0 = state
+    step = pg.make_gossip_step(cfg, sc, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    krecv.launches = krecv.launches_attacks = krecv.launches_full = 0
+    krecv.launches_unscored = 0
+    ksel.launches = 0
+    # warm-up tick by tick: the attacks' levels, the ledger's bound, the
+    # direct edges out of every mesh and the flood bits on the ctrl bytes
+    bp_max = syb_serves = serves_warm = direct_meshed = 0
+    flood_bytes = torch.zeros((), dtype=torch.int64, device=dev)
+    real_receive = krecv.receive_update
+
+    def watch_flood(k_, **ops_):
+        flood_bytes.add_(((ops_["ctrl"] >> krecv.CTRL_FLOOD) & 1).sum())
+        return real_receive(k_, **ops_)
+
+    krecv.receive_update = watch_flood
+    try:
+        for _ in range(WARMUP):
+            state = pg.gossip_run(params, state, 1, step, device=dev)
+            bp_t, syb_t = adversarial.attack_levels(params, state)
+            bp_max, syb_serves = max(bp_max, bp_t), max(syb_serves, syb_t)
+            serves_warm = max(serves_warm, int(state.iwant_serves.max()))
+            direct_meshed += everything.direct_in_mesh(params, state)
+    finally:
+        krecv.receive_update = real_receive
+    torch.cuda.synchronize()
+    deg_e = adversarial.honest_degree(params, state)
+    if not deg_e >= cfg.d_lo:
+        fail(f"everything: honest mesh failed to form: mean degree {deg_e}")
+    t0 = time.perf_counter()
+    state = pg.gossip_run(params, state, TIMED, step, device=dev)
+    torch.cuda.synchronize()
+    dt_e = time.perf_counter() - t0
+    launches_ev = {"receive_full": krecv.launches_full,
+                   "receive_attacks": krecv.launches_attacks,
+                   "receive": krecv.launches,
+                   "receive_unscored": krecv.launches_unscored,
+                   "select": ksel.launches}
+    peak_e = torch.cuda.max_memory_allocated()
+    gates_e = adversarial.gates(cfg, params, state, msg_topic, msg_tick,
+                                horizon)
+    bp_t, syb_t = adversarial.attack_levels(params, state)
+    live = everything.options_live(params, state0, state)
+    live["direct_in_mesh"] += direct_meshed
+    live["flood_ctrl_bytes_warmup"] = int(flood_bytes)
+    gates_e.update(behaviour_penalty_max=max(bp_max, bp_t),
+                   sybil_serves_max=max(syb_serves, syb_t),
+                   warmup_serves_max=serves_warm, **live)
+    if not gates_e["ok"] or serves_warm >= gates_e["serves_cap"]:
+        fail(f"everything gates: {gates_e}")
+    # (the attacks' levels are reported, not gated: behind shared
+    # addresses P6 graylists the sybils, which mutes their adverts)
+    if not (live["active_rotated"] > 0 and live["direct_in_mesh"] == 0
+            and int(params.cand_direct.ne(0).sum()) > 0
+            and live["flood_ctrl_bytes_warmup"] > 0
+            and live["same_ip_words"] and live["sybil_static_min"] < 0):
+        fail(f"everything: an option was not live: {live}")
+    if (launches_ev["receive_full"] != horizon
+            or launches_ev["receive_attacks"] or launches_ev["receive"]
+            or launches_ev["receive_unscored"]
+            or launches_ev["select"] <= 0):
+        fail(f"everything launches {launches_ev}")
+    if state.tick != horizon:
+        fail(f"everything: state tick {state.tick}")
+    hb_e = TIMED / dt_e
+    print(f"everything path: {n} peers x {adversarial.N_TOPICS} topics, 20% "
+          f"sybils four to an address spamming IHAVEs and flooding IWANTs, "
+          f"flood publishing, PX over {everything.PX_CANDIDATES} of {C} "
+          f"candidates, direct overlay: {hb_e:.2f} heartbeats/s "
+          f"({dt_e * 1e3 / TIMED:.3f} ms/tick), honest mean mesh degree "
+          f"{gates_e['honest_mean_degree']:.3f}, "
+          f"{gates_e['settled_messages']} settled messages at every honest "
+          f"member, iwant_serves max {gates_e['serves_max']} at the end, "
+          f"{serves_warm} over the warm-up ticks (< {gates_e['serves_cap']}),"
+          f" sybil rows max {gates_e['sybil_serves_max']}, "
+          f"behaviour_penalty max {gates_e['behaviour_penalty_max']}, "
+          f"options {live}, peak memory {peak_e} B, launches {launches_ev} "
+          f"[{name}, {smi}]")
+    main_everything = dict(
+        gates_e, heartbeats_per_s=hb_e, ms_per_tick=dt_e * 1e3 / TIMED,
+        peak_bytes=peak_e, launches=launches_ev)
+    del params, state, state0, step
+
+    # -- 5e. exact-k on the fused path: the kernel vs plain on one window
+    # of the exact-k resident configuration after 12 per-tick steps, then
+    # 64 heartbeats on fused windows against the same ticks one by one
+    Tw = resident.WINDOW
+    cfg_x, params, state, *_ = resident.build(dev, horizon=64, exact_k=True)
+    n_x = resident.N_PEERS
+    k_fx = kfused.fused_consts(cfg_x)
+    if not k_fx.receive.exact_k:
+        fail(f"exact-k fused consts: {k_fx}")
+    step_x = pg.make_gossip_step(cfg_x, None, device=dev)
+    st = pg.gossip_run(params, state, 12, step_x, device=dev)
+    tk = torch.arange(st.tick, st.tick + Tw, dtype=torch.int32, device=dev)
+    all_c = (1 << cfg_x.n_candidates) - 1
+    fops = dict(
+        tick0=st.tick, seeds=kfused.window_seeds(st.tick, Tw, st.salt),
+        due=graph.pack_bits(params.publish_tick[None, :] == tk[:, None]),
+        sub_all=torch.where(params.subscribed, all_c, 0).to(torch.int32),
+        cand_sub=params.cand_sub_bits, origin=params.origin_words,
+        have=st.have, recent=st.recent, mesh=st.mesh, fanout=st.fanout,
+        last_pub=st.last_pub, backoff=st.backoff, tgt=st.gates[0],
+        bog=st.gates[1])
+    sel_rows_x = [0]
+    real_sel = kfused.select_plain
+
+    def count_sel_x(elig, kk, c, seed):
+        sel_rows_x[0] += int((kk > 0).sum())
+        return real_sel(elig, kk, c, seed)
+
+    kfused.select_plain = count_sel_x
+    try:
+        want = kfused.fused_gossip_update_plain(k_fx, **fops)
+    finally:
+        kfused.select_plain = real_sel
+    got = kfused.fused_gossip_update(k_fx, **fops)
+    torch.cuda.synchronize()
+    err_fx = check_identical("exact-k fused window", got, want)
+    fx_ms = eager_ms(lambda: kfused.fused_gossip_update(k_fx, **fops), 20)
+    fx_plain_ms = eager_ms(
+        lambda: kfused.fused_gossip_update_plain(k_fx, **fops), 2)
+    # the targets' selections: one more per peer-tick with candidates
+    fx_rows = sel_rows_x[0] + n_x * Tw
+    fx_bound = bound(kfused.window_operand_bytes(fops),
+                     fused_window_ops(k_fx, fops, fx_rows))
+    del want, got, fops, st
+    win_x = pg.make_fused_window(cfg_x, None, ticks_fused=Tw, device=dev)
+    krecv.launches_full = krecv.launches_unscored = 0
+    ksel.launches = kfused.launches = 0
+    end_fused = pg.gossip_run_fused(params, state, 64, win_x, device=dev)
+    torch.cuda.synchronize()
+    counts_x = {"fused": kfused.launches, "receive_full": krecv.launches_full,
+                "receive_unscored": krecv.launches_unscored,
+                "select": ksel.launches}
+    if counts_x != {"fused": 64 // Tw, "receive_full": 0,
+                    "receive_unscored": 0, "select": 0}:
+        fail(f"exact-k fused launches {counts_x}")
+    d_fx = digest(end_fused)
+    d_tx = digest(pg.gossip_run(params, state, 64, step_x, device=dev))
+    if d_fx != d_tx or krecv.launches_full != 64:
+        fail(f"exact-k digest: per-tick {d_tx} != fused {d_fx} "
+             f"(full launches {krecv.launches_full})")
+    deg_x = pg.mesh_degrees(end_fused)[params.subscribed].to(
+        torch.float64).mean().item()
+    if not deg_x >= cfg_x.d_lo:
+        fail(f"exact-k fused: mesh failed to form: mean degree {deg_x}")
+    print(f"exact-k fused window: identical at N={n_x}, C={C}, W=1, T={Tw}; "
+          f"kernel {fx_ms:.4f} ms, plain {fx_plain_ms:.3f} ms per window, "
+          f"bound {fx_bound[0]:.4f} ms ({fx_bound[1]}); 64 heartbeats on "
+          f"{counts_x['fused']} fused windows and one by one (the unscored "
+          f"full variant, 64 launches): digest {d_fx} both, mean mesh "
+          f"degree {deg_x:.3f}")
+    del params, state, end_fused
+
     # -- 6. the unscored receive kernel vs plain at the resident shapes
     n_r = resident.N_PEERS
     cfg_r, params, state, msg_topic, _ = resident.build(dev)
@@ -542,7 +845,6 @@ def main() -> None:
     # -- 7. the fused-window kernel vs plain, N = 1M, T = 8, on two real
     # carries: the built state (mesh formation: grafts and prunes run)
     # and the state after warm-up (12 per-tick steps), where it is timed
-    Tw = resident.WINDOW
     k_f = kfused.fused_consts(cfg_r)
     all_c = (1 << cfg_r.n_candidates) - 1
     real_sel = kfused.select_plain
@@ -671,8 +973,9 @@ def main() -> None:
 
     # -- 10. the numbers
     print(f"heartbeats/s [{name}, {smi}]: flagship scored per-tick "
-          f"{hb:.2f}; adversarial scored per-tick {hb_a:.2f}; resident "
-          f"unscored fused "
+          f"{hb:.2f}; adversarial scored per-tick {hb_a:.2f}; "
+          f"everything-on scored per-tick {hb_e:.2f}; resident unscored "
+          f"fused "
           f"{paths['fused']['heartbeats_per_s']:.2f}, per-tick "
           f"{paths['per_tick']['heartbeats_per_s']:.2f}")
     rcv_bound = bound(rcv_bytes, rcv_ops)
@@ -692,6 +995,13 @@ def main() -> None:
              max_abs_err=max(err_arand, err_atick), ms=arcv_ms,
              plain_ms=arcv_plain_ms, bound_ms=arcv_bound[0],
              bound_by=arcv_bound[1], library_ms=None),
+        dict(name="receive_update_full", route="cuda",
+             source="go_libp2p_pubsub_tpu_torch/csrc/receive.cu",
+             replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
+             launches=launches_ev["receive_full"],
+             max_abs_err=max(err_full, err_xk), ms=full_ms,
+             plain_ms=full_plain_ms, bound_ms=full_bound[0],
+             bound_by=full_bound[1], library_ms=None),
         dict(name="receive_update_unscored", route="cuda",
              source="go_libp2p_pubsub_tpu_torch/csrc/receive.cu",
              replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
@@ -711,11 +1021,19 @@ def main() -> None:
              launches=paths["fused"]["launches"]["fused"],
              max_abs_err=err_fused, ms=fused_ms, plain_ms=fused_plain_ms,
              bound_ms=fused_bound[0], bound_by=fused_bound[1],
-             library_ms=None)]
+             library_ms=None),
+        dict(name="fused_gossip_update_exact_k", route="cuda",
+             source="go_libp2p_pubsub_tpu_torch/csrc/fused.cu",
+             replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:1662",
+             launches=counts_x["fused"], max_abs_err=err_fx, ms=fx_ms,
+             plain_ms=fx_plain_ms, bound_ms=fx_bound[0],
+             bound_by=fx_bound[1], library_ms=None)]
     print(json.dumps({"main_path": {
         "flagship": main_flagship, "adversarial": main_adversarial,
-        "resident": paths, "card": smi,
+        "everything": main_everything, "resident": paths, "card": smi,
         "eager_ms": {"receive": rcv_eager_ms, "select": sel_eager_ms},
+        "full_receive_ms": {"main_path": full_ms, "all_options": full_all_ms,
+                            "exact_k_alone": xk_ms},
         "seconds": time.perf_counter() - t_start}}))
     print(json.dumps({"kernels": kernels}))
     # -- 11. the result

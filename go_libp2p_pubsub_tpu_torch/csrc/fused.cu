@@ -9,8 +9,10 @@
 // tick, publish injection, fanout TTL and refill, the graft and v1.0
 // random-prune selections, the eager/lazy exchange over the C circulant
 // edges, the GRAFT/PRUNE/A handshake, the backoff write, the mcache ring
-// update and the next tick's targets and backoff gate rows; it emits
-// each tick's acquisitions.
+// update and the next tick's targets (Bernoulli, or with EXACTK the
+// exact uniform k-subset: the same select_k as the other selections, at
+// the targets' lane seed) and backoff gate rows; it emits each tick's
+// acquisitions.
 //
 // Design.  On the TPU the whole ring is one block resident in VMEM and
 // the candidate views are whole-ring lane rolls.  Here every tick reads
@@ -102,6 +104,7 @@ struct FusedArgs {
   // per tick: fanout (phase 4), graft (2), prune (3), next tick's
   // targets (phase 1 at tick + 1) lane seeds
   unsigned int seeds[MAX_WINDOW][4];
+  int exact_k;               // exact-k gossip targets (else Bernoulli)
 };
 
 namespace {
@@ -173,7 +176,7 @@ __device__ __forceinline__ void tick_front(const FusedArgs& a, int t,
   f.targets = tgt[p];
 }
 
-template <int C, int W>
+template <int C, int W, bool EXACTK>
 __global__ void __launch_bounds__(256)
 fused_window_kernel(const FusedArgs a) {
   cg::grid_group grid = cg::this_grid();
@@ -282,18 +285,23 @@ fused_window_kernel(const FusedArgs a) {
         bo_gate |= (uint32_t)(bo_new > 0) << c;
       }
 
-      // next tick's Bernoulli gossip targets
+      // next tick's gossip targets: Bernoulli(k/|elig|), or the exact
+      // uniform k-subset
       const uint32_t elig = f.cand_sub & ~mesh_new & ~f.fanout & f.sub_all;
       const int n_el = __popc(elig);
       const int n_fac = (int)__fmul_rn(a.gossip_factor, (float)n_el);
       const int n_go = a.d_lazy > n_fac ? a.d_lazy : n_fac;
-      const float p_g = fminf(
-          1.0f, __fdiv_rn((float)n_go, (float)(n_el > 1 ? n_el : 1)));
       uint32_t tgt = 0u;
+      if constexpr (EXACTK) {
+        tgt = gossip::select_k<C>(elig, C, n_go, a.seeds[t][3], p, a.stride);
+      } else {
+        const float p_g = fminf(
+            1.0f, __fdiv_rn((float)n_go, (float)(n_el > 1 ? n_el : 1)));
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        tgt |= (uint32_t)(gossip::lane_u(a.seeds[t][3], c, p, a.stride)
-                          < p_g) << c;
+        for (int c = 0; c < C; ++c) {
+          tgt |= (uint32_t)(gossip::lane_u(a.seeds[t][3], c, p, a.stride)
+                            < p_g) << c;
+        }
       }
 
       a.mesh[p] = mesh_new;
@@ -305,7 +313,7 @@ fused_window_kernel(const FusedArgs a) {
   }
 }
 
-template <int C, int W>
+template <int C, int W, bool EXACTK>
 int resident_blocks(int threads, int* out) {
   int per_sm = 0, sms = 0, dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -313,26 +321,32 @@ int resident_blocks(int threads, int* out) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_window_kernel<C, W>, threads, 0);
+        &per_sm, fused_window_kernel<C, W, EXACTK>, threads, 0);
   *out = per_sm * sms;
   return (int)err;
 }
 
-template <int C, int W>
-int launch(const FusedArgs& a, cudaStream_t s) {
+template <int C, int W, bool EXACTK>
+int launch_variant(const FusedArgs& a, cudaStream_t s) {
   const int threads = 256;
   int resident = 0;
-  int err = resident_blocks<C, W>(threads, &resident);
+  int err = resident_blocks<C, W, EXACTK>(threads, &resident);
   if (err != 0) return err;
   if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   const long long want = (a.n + threads - 1) / threads;
   const int blocks = (int)(want < resident ? want : resident);
   void* args[] = {(void*)&a};
-  err = (int)cudaLaunchCooperativeKernel((void*)fused_window_kernel<C, W>,
-                                         dim3(blocks), dim3(threads), args,
-                                         0, s);
+  err = (int)cudaLaunchCooperativeKernel(
+      (void*)fused_window_kernel<C, W, EXACTK>, dim3(blocks), dim3(threads),
+      args, 0, s);
   if (err != 0) return err;
   return (int)cudaGetLastError();
+}
+
+template <int C, int W>
+int launch(const FusedArgs& a, cudaStream_t s) {
+  if (a.exact_k) return launch_variant<C, W, true>(a, s);
+  return launch_variant<C, W, false>(a, s);
 }
 
 }  // namespace

@@ -7,10 +7,20 @@
 // (SCORED = false: no validity masks, payload/gossip/accept gates,
 // counters or scores, two gate rows); scored, the attack options (ATK =
 // true: track_promises, the IHAVE-spam targets override and the
-// IWANT-flood serve accrual, each a warp-uniform runtime flag); no flood
-// publish, PX, shared-IP gater, faults, telemetry, knobs or delays;
-// Bernoulli gossip targets.  Same semantics and op order, so every
-// output is bit-identical to the plain version
+// IWANT-flood serve accrual, each a warp-uniform runtime flag); and the
+// router-surface options, compiled in by the template flags FLOOD,
+// EXACTK, PX and SAMEIP (all false in the variants above) and served by
+// one more kernel, receive_kernel_full, where each is again a
+// warp-uniform runtime choice: flood publishing (FLOOD: the sender's
+// injected words, a fourth sender stream, over the edges whose ctrl byte
+// carries CTRL_FLOOD, under the receiver's payload gate), exact-k gossip
+// targets (EXACTK: the exact uniform k-subset, select_k of lane.cuh at
+// the targets' lane seed, instead of the Bernoulli draw), the PX trigger
+// word (PX: one more output, the PRUNEs and PRUNE-responses received)
+// and the shared-IP gater (SAMEIP: each edge's goodput from the f32 sums
+// of the stored counters over its same-IP siblings, added in candidate
+// order 0..C-1).  No faults, telemetry, knobs or delays.  Same semantics
+// and op order, so every output is bit-identical to the plain version
 // (ops/kernels/receive.py receive_update_plain):
 //
 //   stage 1, per receiving edge j: the sender q = (p + o_j) mod N, its
@@ -58,6 +68,12 @@
 // and the window count, and the ledger is written in stage 1 so no
 // per-edge window count stays live in registers; the attack variant is
 // its own kernel, held to 64 registers a thread (receive_kernel_attacks).
+// The full variant adds, per peer at C = 16 and W = 1, up to 4 B of
+// injected words, 64 B of sibling words and the 4 B trigger word; its
+// flood read happens only over an edge whose flood bit is set (the
+// injected words are zero at almost every sender on almost every tick);
+// the shared-IP gater keeps the C stored first- and invalid-delivery
+// values and the C sibling words in registers for its C x C masked sums.
 // Staging the sender windows in shared memory is left for later work.
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -137,12 +153,20 @@ struct ReceiveArgs {
   float gray_thr;
   float gossip_thr;
   float publish_thr;
+  // the full variant's fields, last, so that the struct's head is the
+  // same for every variant
+  const uint32_t* inj_send;  // [W, N] (FLOOD) injected words, sender view
+  const uint32_t* same_ip;   // [C, N] (SAMEIP) same-IP sibling words
+  uint32_t* px_rot;          // [N] (PX) PRUNEs / PRUNE-responses received
+  int full;                  // launch receive_kernel_full
+  int flood_publish;         // (FLOOD) read CTRL_FLOOD and inj_send
+  int exact_k;               // (EXACTK) exact-k targets, else Bernoulli
 };
 
 namespace {
 
 constexpr int CTRL_OUT = 0, CTRL_TGT = 1, CTRL_GRAFT = 2, CTRL_DROP = 3,
-              CTRL_A = 4, CTRL_ADV = 5;
+              CTRL_A = 4, CTRL_ADV = 5, CTRL_FLOOD = 6;
 
 using gossip::lane_u;
 
@@ -180,9 +204,15 @@ __device__ __forceinline__ int floordiv(int a, int b) {
 }
 
 // One thread per peer; the kernels below instantiate it.
-template <int C, int W, bool SCORED, bool ATK, bool CBF, bool BBF>
+template <int C, int W, bool SCORED, bool ATK, bool CBF, bool BBF,
+          bool FLOOD = false, bool EXACTK = false, bool PX = false,
+          bool SAMEIP = false>
 __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
   static_assert(SCORED || !ATK, "the attack options need scoring");
+  static_assert(ATK || !(FLOOD || SAMEIP),
+                "flood publishing and the shared-IP gater ride the attack "
+                "variant's stage 1 and need scoring");
+  constexpr bool FULL = FLOOD || EXACTK || PX || SAMEIP;
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long n = a.n;
   if (p >= n) return;
@@ -199,7 +229,8 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
   const uint32_t pay = SCORED ? a.pay[p] : ALL;
   const uint32_t gsp = SCORED ? a.gsp[p] : ALL;
   // (ATK) the sybil word; the receiver lacks some possible id
-  const uint32_t syb = ATK ? a.syb[p] : 0u;
+  // (FULL: no sybil word without an attack option)
+  const uint32_t syb = (ATK && (!FULL || a.syb != nullptr)) ? a.syb[p] : 0u;
   const bool track = ATK && a.track_promises != 0;
   const bool adv_all = ATK && a.iwant_spam != 0;
   const bool flood_rx = adv_all && syb != 0u;
@@ -230,10 +261,22 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
       // and, under the IWANT flood, the window count (read whatever the
       // gates say)
       int pa = 0;
-      if (fwd_on || gsp_on || adv_all) {
+      bool any_on = fwd_on || gsp_on || adv_all;
+      // (FLOOD) the sender flood-publishes over this edge and the
+      // receiver's payload gate is open
+      bool fl_on = false;
+      if constexpr (FLOOD) {
+        fl_on = a.flood_publish != 0 &&
+                ((ctl >> CTRL_FLOOD) & ok_p & 1u) != 0u;
+        any_on = any_on || fl_on;
+      }
+      if (any_on) {
 #pragma unroll
         for (int w = 0; w < W; ++w) {
           uint32_t got = fwd_on ? a.fresh[w * n + q] : 0u;
+          if constexpr (FLOOD) {
+            if (fl_on) got |= a.inj_send[w * n + q];
+          }
           const uint32_t adv_q = (gsp_on || adv_all) ? a.adv[w * n + q] : 0u;
           if (gsp_on) got |= adv_q;
           const uint32_t news = got & ~seen[w];
@@ -292,6 +335,9 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
   const uint32_t mesh = ((a.meshsel[p] | accept) & ~prune_recv) & ~retract;
   a.mesh[p] = mesh;
   const uint32_t bo_trig = a.dropped[p] | prune_recv | retract;
+  if constexpr (PX) {
+    if (a.px_rot != nullptr) a.px_rot[p] = prune_recv | retract;
+  }
   const uint32_t sub_all = a.sub_all[p];
 #pragma unroll
   for (int w = 0; w < W; ++w) {
@@ -305,6 +351,8 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
   uint32_t bo_gate = 0u, accept_g = 0u, gossip_g = 0u, pub_g = 0u,
            nonneg_g = 0u, gater = 0u;
   float inv_tot = 0.0f, del_tot = 0.0f;
+  // (SAMEIP) the stored counters, kept for the sibling sums
+  float fd_keep[SAMEIP ? C : 1], inv_keep[SAMEIP ? C : 1];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const long long idx = (long long)c * n + p;
@@ -362,10 +410,47 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
     // RED gater draw; the pressure sums run in c order
     inv_tot = __fadd_rn(inv_tot, inv_n);
     del_tot = __fadd_rn(del_tot, fd_n);
-    const float one_fd = __fadd_rn(1.0f, fd_n);
-    const float goodput =
-        __fdiv_rn(one_fd, __fadd_rn(one_fd, __fmul_rn(16.0f, inv_n)));
-    gater |= (uint32_t)(lane_u(a.seed_gater, c, p, a.stride) < goodput) << c;
+    if constexpr (SAMEIP) {   // drawn below, from the sibling sums
+      fd_keep[c] = fd_n;
+      inv_keep[c] = inv_n;
+    } else {
+      const float one_fd = __fadd_rn(1.0f, fd_n);
+      const float goodput =
+          __fdiv_rn(one_fd, __fadd_rn(one_fd, __fmul_rn(16.0f, inv_n)));
+      gater |= (uint32_t)(lane_u(a.seed_gater, c, p, a.stride) < goodput)
+               << c;
+    }
+  }
+  if constexpr (SAMEIP) {
+    // the gater's statistics keyed by source IP: edge c's goodput from
+    // the sums over the candidates cc whose sibling word carries bit c,
+    // added in cc order from 0.0 (no reassociation); per edge where no
+    // address is shared
+    const bool grouped = a.same_ip != nullptr;
+    uint32_t sib[C];
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc) {
+      sib[cc] = grouped ? a.same_ip[(long long)cc * n + p] : 0u;
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      float fd_g = fd_keep[c], inv_g = inv_keep[c];
+      if (grouped) {
+        fd_g = 0.0f;
+        inv_g = 0.0f;
+#pragma unroll
+        for (int cc = 0; cc < C; ++cc) {
+          const bool on = ((sib[cc] >> c) & 1u) != 0u;
+          inv_g = __fadd_rn(inv_g, on ? inv_keep[cc] : 0.0f);
+          fd_g = __fadd_rn(fd_g, on ? fd_keep[cc] : 0.0f);
+        }
+      }
+      const float one_fd = __fadd_rn(1.0f, fd_g);
+      const float goodput =
+          __fdiv_rn(one_fd, __fadd_rn(one_fd, __fmul_rn(16.0f, inv_g)));
+      gater |= (uint32_t)(lane_u(a.seed_gater, c, p, a.stride) < goodput)
+               << c;
+    }
   }
   if constexpr (SCORED) {
     const float inv16 = __fmul_rn(16.0f, inv_tot);
@@ -374,19 +459,28 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
     if (!(pressure > 0.33f)) gater |= ALL;
   }
 
-  // next tick's Bernoulli gossip targets (scored: above the gossip
-  // threshold)
+  // next tick's gossip targets (scored: above the gossip threshold):
+  // Bernoulli(k/|elig|), or (EXACTK) the exact uniform k-subset
   uint32_t elig = a.cand_sub[p] & ~mesh & ~a.fanout[p] & sub_all;
   if constexpr (SCORED) elig &= gossip_g;
   const int n_el = __popc(elig);
   const int n_fac = (int)__fmul_rn(a.gossip_factor, (float)n_el);
   const int n_go = a.d_lazy > n_fac ? a.d_lazy : n_fac;
-  const float p_g =
-      fminf(1.0f, __fdiv_rn((float)n_go, (float)(n_el > 1 ? n_el : 1)));
   uint32_t tgt = 0u;
+  bool exact = false;
+  if constexpr (EXACTK) {
+    exact = a.exact_k != 0;
+    if (exact) {
+      tgt = gossip::select_k<C>(elig, C, n_go, a.seed_targets, p, a.stride);
+    }
+  }
+  if (!exact) {
+    const float p_g =
+        fminf(1.0f, __fdiv_rn((float)n_go, (float)(n_el > 1 ? n_el : 1)));
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    tgt |= (uint32_t)(lane_u(a.seed_targets, c, p, a.stride) < p_g) << c;
+    for (int c = 0; c < C; ++c) {
+      tgt |= (uint32_t)(lane_u(a.seed_targets, c, p, a.stride) < p_g) << c;
+    }
   }
 
   if constexpr (SCORED) {
@@ -424,6 +518,37 @@ receive_kernel_attacks(const ReceiveArgs a) {
   receive_body<C, W, true, true, CBF, BBF>(a);
 }
 
+// The full variant: every router-surface option compiled in (scored: on
+// the attack variant's stage 1, with FLOOD and SAMEIP; unscored: EXACTK
+// and PX only), each chosen at run time by the launch's arguments.  Its
+// own kernel, so that the other variants' code stays as it is.  Held to
+// four blocks a multiprocessor (64 registers, with spills) as the attack
+// variant is: on a 1M-peer everything-on tick (H100, 700 W) 0.748 ms against
+// 0.764 at three blocks (80 registers) and 0.938 at two (126, no spills).
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256, 4)
+receive_kernel_full(const ReceiveArgs a) {
+  receive_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true, SCORED>(a);
+}
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+int launch_full(const ReceiveArgs& a, cudaStream_t s) {
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((a.n + threads - 1) / threads);
+  receive_kernel_full<C, W, SCORED, CBF, BBF><<<blocks, threads, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int C, int W>
+int launch_full_variant(const ReceiveArgs& a, int scored, int ctr_bf16,
+                        int bp_bf16, cudaStream_t s) {
+  if (!scored) return launch_full<C, W, false, false, false>(a, s);
+  if (ctr_bf16 && bp_bf16) return launch_full<C, W, true, true, true>(a, s);
+  if (ctr_bf16) return launch_full<C, W, true, true, false>(a, s);
+  if (!bp_bf16) return launch_full<C, W, true, false, false>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int C, int W, bool SCORED, bool ATK, bool CBF, bool BBF>
 int launch(const ReceiveArgs& a, cudaStream_t s) {
   const int threads = 256;
@@ -450,6 +575,7 @@ int launch_scored(const ReceiveArgs& a, int ctr_bf16, int bp_bf16,
 template <int C, int W>
 int launch_variant(const ReceiveArgs& a, int scored, int attacks,
                    int ctr_bf16, int bp_bf16, cudaStream_t s) {
+  if (a.full) return launch_full_variant<C, W>(a, scored, ctr_bf16, bp_bf16, s);
   if (!scored) {
     if (attacks) return (int)cudaErrorInvalidValue;
     return launch<C, W, false, false, false, false>(a, s);
@@ -462,7 +588,8 @@ int launch_variant(const ReceiveArgs& a, int scored, int attacks,
 
 // c in {8, 16}, w in {1, 2}; scored (1) or unscored (0); the attack
 // variant (1, scored only) or not (0); counter/bp storage bf16 (1) or
-// f32 (0).  Returns cudaGetLastError() after the launch, or
+// f32 (0); args->full chooses the full variant (the attack options then
+// ride its runtime flags).  Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a shape with no instantiation (the wrapper
 // refuses those first).
 extern "C" int gossip_receive_update(const ReceiveArgs* args, int c, int w,

@@ -6,9 +6,11 @@ Each source is a variant of ``csrc/receive.cu`` with the same C interface
 (``gossip_receive_update`` and ``struct ReceiveArgs`` of this tree's
 wrapper), next to the headers it includes.  Each is built with the
 port's nvcc flags (its ptxas summary printed), then the receive
-operands of tick 40 of the 1M-peer adversarial and flagship sims are
-captured, every build is checked bit-identical to the plain version on
-them, and the builds are timed in turns (``chip_smoke.device_ms``: CUDA
+operands of tick 40 of the 1M-peer adversarial, flagship and
+everything-on sims are captured (the last only for the sources that have
+the full variant, ``receive_kernel_full``), every build is checked
+bit-identical to the plain version on them, and the builds are timed in
+turns (``chip_smoke.device_ms``: CUDA
 events over a CUDA-graph replay of 50 launches), ``--reps`` times each.
 Prints one JSON line with the card and every build's times.
 """
@@ -24,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-from . import adversarial, flagship
+from . import adversarial, everything, flagship
 from .models import gossipsub as gs
 from .ops.kernels import _build
 from .ops.kernels import receive as krecv
@@ -56,10 +58,16 @@ def main() -> None:
         libs[src] = ctypes.CDLL(str(lib))
     dev = torch.device("cuda")
     times = {}
+    full = {src for src in libs
+            if "receive_kernel_full" in Path(src).read_text()}
     for label, build in (("adversarial", adversarial.build),
-                         ("flagship", flagship.build)):
+                         ("flagship", flagship.build),
+                         ("everything", everything.build)):
         cfg, sc, params, state = build(dev, horizon=400)[:4]
-        k = krecv.receive_consts(cfg, sc)
+        k = krecv.receive_consts(cfg, sc, px=state.active is not None,
+                                 same_ip=params.cand_same_ip is not None)
+        if k.full:
+            libs = {src: lib for src, lib in libs.items() if src in full}
         step = gs.make_gossip_step(cfg, sc, device=dev)
         ops = cs.capture_receive(
             lambda: gs.gossip_run(params, state, 40, step, device=dev), krecv)

@@ -6,9 +6,12 @@ receive-kernel path: one ``step`` advances one heartbeat for every
 simulated peer — publish injection, fanout maintenance, eager forward
 over mesh ∪ fanout, lazy IHAVE/IWANT gossip, graft/prune maintenance
 with backoff and, with a ``ScoreSimConfig``, the P1-P7 score, the
-threshold gates and the RED gater, and the v1.1 attack formations
-(IHAVE broken-promise spam, the IWANT flood, graft flood, stealthy
-promise breakers, eclipse).  The receive half (payload receive,
+threshold gates and the RED gater (keyed by source IP where peers share
+addresses), flood publishing, and the v1.1 attack formations (IHAVE
+broken-promise spam, the IWANT flood, graft flood, stealthy promise
+breakers, eclipse); scored or not, operator-pinned direct peers, PX
+candidate rotation over an active subset of the candidates, and
+Bernoulli or exact-k gossip targets.  The receive half (payload receive,
 handshake, counter updates, next tick's gates) is one kernel launch
 (``ops/kernels/receive.py``); every random top-k selection is one launch
 of the select kernel (``ops/kernels/select.py``).  Everything else is
@@ -295,6 +298,11 @@ class GossipParams:
     eclipse_sybil: torch.Tensor | None = None    # bool [N]
     eclipse_victim: torch.Tensor | None = None   # bool [N]
     cand_victim_bits: torch.Tensor | None = None  # int32 [N]
+    # same-IP sibling words, built only when some address is shared: bit
+    # c of cand_same_ip[cc, p] = candidates c and cc of p share an IP
+    cand_same_ip: torch.Tensor | None = None     # int32 [C, N]
+    # operator-pinned direct edges (None when absent), scored or not
+    cand_direct: torch.Tensor | None = None      # int32 [N]
 
 
 @dataclass
@@ -324,6 +332,9 @@ class GossipState:
     gates_fp: int               # fingerprint of the gates' config
     salt: int                   # run seed, key_data(PRNGKey(seed))[-1]
     tick: int
+    # PX: the candidates whose address the peer currently holds (None
+    # without px_candidates)
+    active: torch.Tensor | None = None   # int32 [N]
 
 
 # --------------------------------------------------------------------------
@@ -363,14 +374,18 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
     sybil [N] flags peers that forward invalid messages (and, under the
     score config's sybil toggles, spam IHAVEs, flood IWANTs or flood
     GRAFTs), msg_invalid [M] marks messages failing validation, peer_ip
-    [N] must give every peer its own address, promise_break [N] flags
+    [N] is each peer's address (shared addresses feed P6 and group the
+    gater's statistics by source IP), promise_break [N] flags
     unflagged peers that withhold the payloads they advertise, and
     eclipse_sybil / eclipse_victim [N] (disjoint, both or neither) are
-    the eclipse formation of ``score_cfg.sybil_eclipse``."""
+    the eclipse formation of ``score_cfg.sybil_eclipse``.  Scored or
+    not: direct_edges bool [N, C] pins operator-configured direct peers
+    (symmetric: both ends configure the edge), and px_candidates (Dhi <
+    px_candidates <= C) starts each peer knowing a random subset of that
+    size of its candidates, which PX rotation then refreshes."""
     dev = resolve_device(device)
     plan.check_sim_options(
-        flood_proto=flood_proto, px_candidates=px_candidates,
-        direct_edges=direct_edges, pad_to_block=pad_to_block,
+        flood_proto=flood_proto, pad_to_block=pad_to_block,
         fault_schedule=fault_schedule, byzantine=byzantine,
         score_knobs=score_knobs, sim_knobs=sim_knobs, delays=delays,
         delays_split=delays_split, delays_counters=delays_counters,
@@ -431,17 +446,26 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
             peer_ip = np.arange(n)
         _, ip_idx = np.unique(np.asarray(peer_ip), return_inverse=True)
         colo_count = np.bincount(ip_idx)[ip_idx].astype(np.float32)
-        if (colo_count > 1).any():
-            plan.refuse("shared_ip")
         colo_excess = np.maximum(
             0.0, colo_count - sc.ip_colocation_factor_threshold)
         inv = (np.zeros(m, dtype=bool) if msg_invalid is None
                else np.asarray(msg_invalid, dtype=bool))
         app_v = cand_view(app)
         colo_v = cand_view(colo_excess)
+        same_ip = None
+        if (colo_count > 1).any():
+            # shared addresses: the same-IP sibling masks for the
+            # gater's per-IP grouping
+            ips_v = cand_view(ip_idx)
+            same = np.zeros((cfg.n_candidates, n), dtype=np.uint32)
+            for c2 in range(cfg.n_candidates):
+                same |= (ips_v == ips_v[c2][None, :]).astype(
+                    np.uint32) << c2
+            same_ip = _words(same, dev)
         static = (sc.app_specific_weight * app_v
                   + sc.ip_colocation_factor_weight * colo_v * colo_v)
         scored = dict(
+            cand_same_ip=same_ip,
             invalid_words=_words(_pack_bits_pm_np(inv[None, :])[:, 0],
                                  dev),
             cand_app_score=t_(app_v.astype(np.float32)),
@@ -452,6 +476,22 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
             static_score_zero=bool(not app_v.any() and not colo_v.any()),
             cand_sybil=t_(cand_view(syb)),
             sybil=t_(syb))
+    direct_packed = None
+    if direct_edges is not None:
+        de = np.asarray(direct_edges, dtype=bool)
+        if de.shape != (n, cfg.n_candidates):
+            raise ValueError("direct_edges must be bool [N, C]")
+        # both ends configure a direct edge: de[p, c] == de[p + o_c,
+        # cinv_c]
+        for c, o in enumerate(cfg.offsets):
+            if not (de[:, c] == np.roll(de[:, cfg.cinv[c]], -o)).all():
+                raise ValueError(
+                    "direct_edges must be symmetric: peer p's bit c "
+                    "and peer p+o_c's bit cinv[c] describe one edge")
+        direct_packed = np.zeros(n, dtype=np.uint32)
+        for c in range(cfg.n_candidates):
+            direct_packed |= de[:, c].astype(np.uint32) << c
+        scored["cand_direct"] = _words(direct_packed, dev)
     if promise_break is not None:
         if sc is None:
             raise ValueError("promise_break requires score_cfg (P7)")
@@ -483,6 +523,27 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
     c = cfg.n_candidates
     i16 = lambda: torch.zeros((c, n), dtype=torch.int16, device=dev)  # noqa: E731
     zbits = lambda: torch.zeros((n,), dtype=torch.int32, device=dev)  # noqa: E731
+    active0 = None
+    if px_candidates is not None:
+        if not (cfg.d_hi < px_candidates <= c):
+            raise ValueError("need Dhi < px_candidates <= C")
+        # each peer starts knowing a random px_candidates-subset of its
+        # pool (the reference's draw: its own generator, 65,536-peer
+        # chunks)
+        rng0 = np.random.default_rng(seed ^ 0x5F3759DF)
+        act = np.zeros(n, dtype=np.uint32)
+        for lo in range(0, n, 1 << 16):
+            hi = min(n, lo + (1 << 16))
+            rows = np.argsort(rng0.random((hi - lo, c)),
+                              axis=1)[:, :px_candidates]
+            bits = np.zeros((hi - lo,), dtype=np.uint32)
+            for j in range(px_candidates):
+                bits |= np.uint32(1) << rows[:, j].astype(np.uint32)
+            act[lo:hi] = bits
+        if direct_packed is not None:
+            # direct peers are operator-pinned addresses: always held
+            act |= direct_packed
+        active0 = _words(act, dev)
     scores = None
     if sc is not None:
         cdt = krecv.DTYPES[sc.counter_dtype]
@@ -504,7 +565,7 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
                                device=dev) if track_first_tick else None),
         scores=scores, iwant_serves=None if sc is None else i16(),
         gates=(), gates_fp=0,
-        salt=seed & graph.MASK32, tick=0)
+        salt=seed & graph.MASK32, tick=0, active=active0)
     # seed the gate pipeline: tick 0's gate words
     return params, refresh_gates(cfg, sc, params, state)
 
@@ -561,17 +622,23 @@ def gates_fingerprint(cfg: GossipSimConfig,
 
 
 def gossip_targets_row(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
-                       params: GossipParams, *, mesh, fanout, gossip_row,
-                       tick: int, salt: int) -> torch.Tensor:
-    """The lazy-gossip targets gate row: Bernoulli(k/|elig|) over the
-    non-mesh subscribed candidates (scored: above the gossip threshold,
-    ``gossip_row``), k = max(Dlazy, factor * |elig|) (emitGossip
-    gossipsub.go:1656-1712); IHAVE-spamming sybils target every
-    subscribed candidate (gossipsub_spam_test.go:135)."""
+                       params: GossipParams, *, mesh, fanout, active,
+                       gossip_row, tick: int, salt: int) -> torch.Tensor:
+    """The lazy-gossip targets gate row: Bernoulli(k/|elig|), or the
+    exact uniform k-subset (``binomial_gossip_sampling=False``), over
+    the non-mesh subscribed candidates (under PX: the ``active`` ones;
+    scored: above the gossip threshold, ``gossip_row``), k = max(Dlazy,
+    factor * |elig|) (emitGossip gossipsub.go:1656-1712);
+    IHAVE-spamming sybils target every subscribed candidate
+    (gossipsub_spam_test.go:135).  Shared by compute_gates and the
+    step's PX epilogue, which re-emits the row from the rotated active
+    set."""
     k = krecv.receive_consts(cfg, sc)
     all_c = (1 << cfg.n_candidates) - 1
     sub_all = torch.where(params.subscribed, all_c, 0).to(torch.int32)
     elig = params.cand_sub_bits & ~mesh & ~fanout & sub_all
+    if active is not None:
+        elig = elig & active
     if gossip_row is not None:
         elig = elig & gossip_row
     targets = krecv.targets_row(k, elig, lane_seed(tick, 1, salt),
@@ -587,11 +654,13 @@ def compute_gates(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
     """The packed gate words for ``st.tick`` (tuple of int32 [N]) — the
     reference's compute_gates rows: scored, accept, gossip, publish,
     nonneg, payload (accept ∧ RED gater), targets, backoff; unscored,
-    targets and backoff."""
+    targets and backoff.  Where candidates share addresses the gater's
+    goodput is keyed by source IP (``params.cand_same_ip``)."""
     if sc is None:
         return (gossip_targets_row(cfg, None, params, mesh=st.mesh,
-                                   fanout=st.fanout, gossip_row=None,
-                                   tick=st.tick, salt=salt),
+                                   fanout=st.fanout, active=st.active,
+                                   gossip_row=None, tick=st.tick,
+                                   salt=salt),
                 pack_rows(st.backoff > 0))
     k = krecv.receive_consts(cfg, sc)
     n = st.mesh.shape[0]
@@ -603,13 +672,32 @@ def compute_gates(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
     s0 = st.scores
     gater = krecv.gater_row(s0.first_deliveries.to(torch.float32),
                             s0.invalid_deliveries.to(torch.float32),
-                            lane_seed(st.tick, 6, salt), n)
+                            lane_seed(st.tick, 6, salt), n,
+                            same_ip=params.cand_same_ip)
     rows.append(accept & gater)
     rows.append(gossip_targets_row(cfg, sc, params, mesh=st.mesh,
-                                   fanout=st.fanout, gossip_row=gossip,
-                                   tick=st.tick, salt=salt))
+                                   fanout=st.fanout, active=st.active,
+                                   gossip_row=gossip, tick=st.tick,
+                                   salt=salt))
     rows.append(pack_rows(st.backoff > 0))
     return tuple(rows)
+
+
+def px_rotate(cfg: GossipSimConfig, params: GossipParams, *, active, rot,
+              keep, sel_k) -> torch.Tensor:
+    """PX-driven candidate refresh (gossipsub.go:856-937): the edges in
+    ``rot`` (received PRUNEs and PRUNE-responses, own negative-score
+    drops) leave the active set and as many fresh pool candidates are
+    dialed in (``sel_k`` at phase 7, drawn for every peer: k = 0 selects
+    nothing); edges in ``keep`` (mesh, fanout) and pinned direct peers
+    are never deactivated and fold in."""
+    all_c = (1 << cfg.n_candidates) - 1
+    if params.cand_direct is not None:
+        keep = keep | params.cand_direct
+    deact = rot & active & ~keep
+    pool_new = ~active & ~keep & params.cand_sub_bits & all_c
+    repl = sel_k(pool_new, popcount32(deact), 7)
+    return (active & ~deact) | repl | keep
 
 
 def refresh_gates(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
@@ -697,6 +785,16 @@ def make_gossip_step(cfg: GossipSimConfig,
     then the receive kernel resolves the exchange and emits next tick's
     gates.
 
+    Direct peers (``params.cand_direct``) bypass the graylist and the
+    gater, are always forwarded to, never grafted, and answer a GRAFT
+    with a PRUNE.  Under PX (``state.active``) fanout and grafts draw
+    from the active candidates only; after the kernel, the pruned
+    addresses rotate out of the active set (``px_rotate``, from the
+    kernel's ``px_rot`` word) and the targets gate row is re-emitted
+    from the rotated set.  With ``flood_publish`` a peer's own due
+    publishes also go to every candidate above the publish threshold
+    (CTRL_FLOOD).
+
     Attacks (scored, in the reference kernel path's order): eclipse
     attackers forward and advertise nothing; IHAVE-spamming sybils and
     promise breakers advertise (CTRL_ADV) without delivering (CTRL_TGT),
@@ -709,10 +807,18 @@ def make_gossip_step(cfg: GossipSimConfig,
                             pipeline_gates=pipeline_gates,
                             shard_mesh=shard_mesh, telemetry=telemetry,
                             rpc_probe=rpc_probe, invariants=invariants)
-    k = krecv.receive_consts(cfg, score_cfg)
-    # with promise breakers in the params the receiver tracks promises
-    k_breakers = (None if score_cfg is None else
-                  krecv.receive_consts(cfg, score_cfg, promise_break=True))
+    krecv.receive_consts(cfg, score_cfg)     # the options' refusals
+    consts = {}
+
+    def kernel_consts(**variant):
+        """The receive constants of what this sim carries: promise
+        breakers (the receiver tracks promises), an active set (PX),
+        same-IP sibling words."""
+        key = tuple(sorted(variant.items()))
+        if key not in consts:
+            consts[key] = krecv.receive_consts(cfg, score_cfg, **variant)
+        return consts[key]
+
     sc = score_cfg
     C = cfg.n_candidates
     ALL = (1 << C) - 1
@@ -736,9 +842,15 @@ def make_gossip_step(cfg: GossipSimConfig,
         n = sub.shape[0]
         sub_all = torch.where(sub, ALL, 0).to(torch.int32)
         cand_sub = params.cand_sub_bits
+        direct, active = params.cand_direct, state.active
         if sc is not None:
             (accept_bits, gossip_bits, pub_ok_bits, nonneg_bits,
              payload_bits, targets, bo_row) = state.gates
+            if direct is not None:
+                # direct peers bypass the graylist and the gater for
+                # control and payload (AcceptFrom gossipsub.go:578)
+                accept_bits = accept_bits | direct
+                payload_bits = payload_bits | direct
             valid = ~params.invalid_words                   # [W]
         else:
             targets, bo_row = state.gates
@@ -759,6 +871,11 @@ def make_gossip_step(cfg: GossipSimConfig,
         fanout = torch.where(alive, state.fanout, 0)
         f_need = torch.where(alive, cfg.d - popcount32(fanout), 0)
         f_elig = cand_sub & ~fanout
+        if direct is not None:
+            # direct peers receive everything anyway
+            f_elig = f_elig & ~direct
+        if active is not None:
+            f_elig = f_elig & active
         if sc is not None:
             f_elig = f_elig & pub_ok_bits
         fanout = fanout | sel_k(f_elig, f_need.to(torch.int32), 4)
@@ -774,14 +891,27 @@ def make_gossip_step(cfg: GossipSimConfig,
             fresh = torch.where(syb, fresh, fresh & valid[:, None])
             adv = torch.where(syb, adv, adv & valid[:, None])
         out_bits = state.mesh | fanout
+        if direct is not None:
+            # always eager-forward targets (gossipsub.go:945-950)
+            out_bits = out_bits | (direct & cand_sub)
+        # own publishes flood to every candidate above the publish
+        # threshold (gossipsub.go:953-959); the bits are raised only by
+        # a peer that publishes this tick (another sender's injected
+        # words are zero), so the kernel reads the injected stream over
+        # the few edges that carry it
+        flood_bits = (torch.where(publishing, cand_sub & pub_ok_bits, 0)
+                      if sc is not None and sc.flood_publish else None)
         seen = state.have | injected
         eclipse = (sc is not None and sc.sybil_eclipse
                    and params.eclipse_sybil is not None)
         if eclipse:
             # eclipse attackers are silent occupiers: inside a victim's
-            # mesh they forward and advertise nothing
+            # mesh they forward, advertise and flood nothing
             out_bits = torch.where(params.eclipse_sybil, 0, out_bits)
             targets = torch.where(params.eclipse_sybil, 0, targets)
+            if flood_bits is not None:
+                flood_bits = torch.where(params.eclipse_sybil, 0,
+                                         flood_bits)
         # promise withholding: these peers advertise but never deliver;
         # the receiver derives the broken promise (behavioural P7)
         withhold = None
@@ -800,6 +930,11 @@ def make_gossip_step(cfg: GossipSimConfig,
             mesh_ng = mesh0 & nonneg_bits
         deg = popcount32(mesh_ng)
         can_graft = cand_sub & ~mesh_ng & ~bo_row & sub_all
+        if direct is not None:
+            # never GRAFT at a direct peer (gossipsub.go:1340-1345)
+            can_graft = can_graft & ~direct
+        if active is not None:
+            can_graft = can_graft & active
         if sc is not None:
             can_graft = can_graft & nonneg_bits
         need = torch.where(deg < cfg.d_lo, cfg.d - deg, 0).to(torch.int32)
@@ -830,6 +965,10 @@ def make_gossip_step(cfg: GossipSimConfig,
         dropped = prunes if neg is None else prunes | neg
         backoff_bits2 = bo_row | dropped
         would_accept = sub_all & ~backoff_bits2
+        if direct is not None:
+            # a GRAFT from a direct peer is answered with a PRUNE
+            # (gossipsub.go:737-745)
+            would_accept = would_accept & ~direct
         if sc is not None:
             would_accept = would_accept & nonneg_bits
             a_sent = would_accept | ~accept_bits
@@ -843,7 +982,7 @@ def make_gossip_step(cfg: GossipSimConfig,
                        else torch.where(withhold, 0, targets))
         ctrl = krecv.ctrl_bytes(C, out=out_bits, tgt=tgt_deliver,
                                 graft=grafts, drop=dropped, a=a_sent,
-                                adv=targets)
+                                adv=targets, flood=flood_bits)
         ops = dict(
             gseeds=(lane_seed(tick + 1, 6, salt),
                     lane_seed(tick + 1, 1, salt)),
@@ -859,7 +998,19 @@ def make_gossip_step(cfg: GossipSimConfig,
                 static=_static_term(sc, params), fd=s0.first_deliveries,
                 inv=s0.invalid_deliveries, bp=s0.behaviour_penalty,
                 tim=s0.time_in_mesh, iws=state.iwant_serves)
-        kk = k if withhold is None else k_breakers
+        variant = {}
+        if sc is not None and params.promise_break is not None:
+            variant["promise_break"] = True
+        if active is not None:
+            variant["px"] = True
+        if params.cand_same_ip is not None:
+            variant["same_ip"] = True
+        kk = kernel_consts(**variant)
+        if kk.flood_publish:
+            # the injected words once more, as a sender stream
+            ops["inj_send"] = injected
+        if kk.with_same_ip:
+            ops["same_ip"] = params.cand_same_ip
         if kk.attacks:
             # the sybil word: the IHAVE targets override and the IWANT
             # flood's receivers
@@ -867,6 +1018,8 @@ def make_gossip_step(cfg: GossipSimConfig,
             ops["syb"] = (torch.where(params.sybil, ALL, 0).to(torch.int32)
                           if spam else torch.zeros_like(sub_all))
         outs = krecv.receive_update(kk, **ops)
+        if active is not None:
+            px_word, outs = outs[-1], outs[:-1]
         acq, mesh_new, backoff_new = outs[:3]
         gates_new = tuple(outs[3:3 + n_gates])
         scores = iws_o = None
@@ -875,6 +1028,24 @@ def make_gossip_step(cfg: GossipSimConfig,
             scores = ScoreState(time_in_mesh=tim_o, first_deliveries=fd_o,
                                 invalid_deliveries=inv_o,
                                 behaviour_penalty=bp_o)
+
+        # -- PX: rotate the pruned addresses out of the active set, then
+        # re-emit the targets gate row from the rotated set (the kernel
+        # wrote its row before the rotation was known)
+        if active is not None:
+            if cfg.px_rotation:
+                active = px_rotate(
+                    cfg, params, active=active,
+                    rot=px_word if neg is None else px_word | neg,
+                    keep=mesh_new | fanout, sel_k=sel_k)
+            i_tgt = 5 if sc is not None else 0
+            tgt_new = gossip_targets_row(
+                cfg, sc, params, mesh=mesh_new, fanout=fanout,
+                active=active,
+                gossip_row=gates_new[1] if sc is not None else None,
+                tick=tick + 1, salt=salt)
+            gates_new = (*gates_new[:i_tgt], tgt_new,
+                         *gates_new[i_tgt + 1:])
 
         # -- epilogue: possession, mcache ring, deliveries, tick
         recent = state.recent.clone()
@@ -888,7 +1059,8 @@ def make_gossip_step(cfg: GossipSimConfig,
             first_tick=update_first_tick(state.first_tick, delivered_now,
                                          tick),
             scores=scores, iwant_serves=iws_o, gates=gates_new,
-            gates_fp=state.gates_fp, salt=salt, tick=tick + 1)
+            gates_fp=state.gates_fp, salt=salt, tick=tick + 1,
+            active=active)
         return new_state, delivered_now
 
     return step
@@ -909,7 +1081,8 @@ def make_fused_window(cfg: GossipSimConfig,
     (``ops/kernels/fused.py``), the carry read and written once per
     window.  ``delivered`` is int32 [T, W, N] — row t is tick
     ``state.tick + t``'s delivered words.  Bit-identical to T per-tick
-    steps of ``make_gossip_step(cfg, None)``.
+    steps of ``make_gossip_step(cfg, None)``, with Bernoulli or exact-k
+    gossip targets; a sim with PX or direct peers is refused by name.
 
     On the host the window computes the T x 4 lane seeds; the T due
     words are computed on the device, so a window never syncs with the
@@ -926,6 +1099,7 @@ def make_fused_window(cfg: GossipSimConfig,
 
     def window(params: GossipParams, state: GossipState):
         check_on(dev, subscribed=params.subscribed, mesh=state.mesh)
+        plan.check_fused_operands(params, state)
         if len(state.gates) != krecv.N_GATES_UNSCORED:
             raise ValueError(
                 f"state carries {len(state.gates)} gate words, the "

@@ -5,10 +5,13 @@ raises one of these, never a silent fallback.
 The port runs the scored GossipSub v1.1 heartbeat (with its attack
 formations: IHAVE broken-promise spam, the IWANT flood, graft flood,
 promise breakers, eclipse) and the unscored v1.0 heartbeat on its
-receive kernel (unpadded, pipelined gates, Bernoulli gossip targets, one
-topic per peer), and the unscored heartbeat T ticks per launch on the
-fused-window kernel.  Each refusal has a stable name
-(``SliceRefusal.name``) and its own message; tests match on the name.
+receive kernel (unpadded, pipelined gates, one topic per peer), with the
+single-topic router surface: flood publishing, direct peers, Bernoulli
+or exact-k gossip targets, PX candidate rotation and the shared-IP
+gater; and the unscored heartbeat T ticks per launch on the fused-window
+kernel (Bernoulli or exact-k targets; no PX, no direct peers).  Each
+refusal has a stable name (``SliceRefusal.name``) and its own message;
+tests match on the name.
 """
 
 from __future__ import annotations
@@ -32,16 +35,8 @@ REFUSALS: dict[str, str] = {
     "byzantine": "byzantine payload mutation (byzantine_mutation, "
                  "byzantine) is not ported: the JAX package's kernel path "
                  "refuses it too (it needs per-edge receive loops)",
-    "px": "PX candidate rotation (px_candidates) is not ported yet",
-    "direct_peers": "direct peers (direct_edges) are not ported yet",
-    "flood_publish": "flood publishing (flood_publish=True) is not "
-                     "ported yet",
     "flood_proto": "mixed-protocol overlays (flood_proto) are not "
                    "ported yet",
-    "exact_k": "exact-k gossip sampling (binomial_gossip_sampling=False) "
-               "is not ported yet",
-    "shared_ip": "shared peer addresses (the same-IP gater grouping) are "
-                 "not ported yet",
     "track_p3": "P3/P3b mesh-delivery bookkeeping (track_p3, "
                 "force_split) is not ported yet",
     "shard_mesh": "multi-device sharding (shard_mesh) is not ported yet",
@@ -63,6 +58,10 @@ REFUSALS: dict[str, str] = {
                      "windows",
     "fused_scored": "the fused window runs the unscored (v1.0) step only: "
                     "scored sims step per tick",
+    "fused_px": "the fused window does not run PX candidate rotation "
+                "(a state with an active set): such sims step per tick",
+    "fused_direct": "the fused window does not run direct peers "
+                    "(cand_direct): such sims step per tick",
     "fused_grid": "the fused kernel cannot keep one block resident on "
                   "the device, so its cooperative launch cannot run",
 }
@@ -85,16 +84,12 @@ def check_kernel_config(cfg, sc) -> None:
     (``sc`` None is the unscored v1.0 step)."""
     if cfg.paired_topics:
         refuse("paired")
-    if not cfg.binomial_gossip_sampling:
-        refuse("exact_k")
     if cfg.n_candidates > 16:
         refuse("wide_candidates")
     if sc is None:
         return
     if sc.track_p3:
         refuse("track_p3")
-    if sc.flood_publish:
-        refuse("flood_publish")
     if sc.byzantine_mutation:
         refuse("byzantine")
     if sc.counter_dtype not in ("bfloat16", "float32"):
@@ -117,20 +112,15 @@ def check_step_options(*, force_split, pipeline_gates, shard_mesh,
         refuse("invariants")
 
 
-def check_sim_options(*, flood_proto, px_candidates, direct_edges,
-                      pad_to_block, fault_schedule, byzantine, score_knobs,
-                      sim_knobs, delays, delays_split, delays_counters,
-                      delays_probe) -> None:
+def check_sim_options(*, flood_proto, pad_to_block, fault_schedule,
+                      byzantine, score_knobs, sim_knobs, delays,
+                      delays_split, delays_counters, delays_probe) -> None:
     if pad_to_block is not None:
         refuse("pad_to_block")
     if flood_proto is not None:
         refuse("flood_proto")
     if byzantine is not None:
         refuse("byzantine")
-    if px_candidates is not None:
-        refuse("px")
-    if direct_edges is not None:
-        refuse("direct_peers")
     if fault_schedule is not None:
         refuse("faults")
     if score_knobs is not None or sim_knobs is not None:
@@ -144,9 +134,10 @@ def check_fused_window(cfg, sc, ticks: int, *, telemetry=None,
                        shard_mesh=None) -> None:
     """Refuse a fused window the port does not run (static config).
 
-    Faults, delays, knobs, PX and direct peers are refused by the same
-    names when the sim is built (``check_sim_options``), so no window
-    ever sees them; the window refuses the rest here."""
+    Faults, delays and knobs are refused by the same names when the sim
+    is built (``check_sim_options``), so no window ever sees them; the
+    window refuses the rest here, and PX and direct peers when it is
+    handed their params or state (``check_fused_operands``)."""
     if not 1 <= int(ticks) <= MAX_WINDOW:
         refuse("fused_window")
     check_kernel_config(cfg, sc)
@@ -156,6 +147,15 @@ def check_fused_window(cfg, sc, ticks: int, *, telemetry=None,
         refuse("telemetry")
     if shard_mesh is not None:
         refuse("shard_mesh")
+
+
+def check_fused_operands(params, state) -> None:
+    """Refuse a sim the fused window does not run: one with an active
+    set (PX) or with direct peers."""
+    if state.active is not None:
+        refuse("fused_px")
+    if params.cand_direct is not None:
+        refuse("fused_direct")
 
 
 def check_fused_horizon(n_ticks: int, ticks: int) -> int:

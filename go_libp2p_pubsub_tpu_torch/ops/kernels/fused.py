@@ -5,7 +5,8 @@ Counterpart of ``go_libp2p_pubsub_tpu/ops/pallas/receive.py``
 (``make_fused_gossip_update`` / ``_fused_gossip_kernel``), single
 device, without fault rows, cold restart, telemetry or the sharded halo:
 T ticks of the unscored (v1.0) step in one launch, the carry read once
-and written once per window.
+and written once per window; Bernoulli or exact-k gossip targets
+(``binomial_gossip_sampling``), no PX and no direct peers.
 
 Operands (peer axis last, packed u32 words as int32):
 
@@ -155,7 +156,8 @@ class _Args(ctypes.Structure):
             "d", "d_lo", "d_hi", "fanout_ttl", "backoff_restart",
             "d_lazy")]
         + [("gossip_factor", ctypes.c_float), ("stride", ctypes.c_uint),
-           ("seeds", (ctypes.c_uint * 4) * plan.MAX_WINDOW)])
+           ("seeds", (ctypes.c_uint * 4) * plan.MAX_WINDOW),
+           ("exact_k", ctypes.c_int)])
 
 
 _CARRY = ("have", "recent", "mesh", "fanout", "last_pub", "backoff", "tgt",
@@ -253,6 +255,7 @@ def fused_gossip_update(k: FusedConsts, **ops):
     a.d_lazy = r.d_lazy
     a.gossip_factor = r.gossip_factor
     a.stride = n & graph.MASK32
+    a.exact_k = int(r.exact_k)
     for t, tick_seeds in enumerate(ops["seeds"]):
         for i, seed in enumerate(tick_seeds):
             a.seeds[t][i] = int(seed) & graph.MASK32

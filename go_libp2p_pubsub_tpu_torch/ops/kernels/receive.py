@@ -5,7 +5,11 @@ Counterpart of ``go_libp2p_pubsub_tpu/ops/pallas/receive.py``
 (``make_receive_update`` / ``_receive_kernel``) for the unpaired options
 the port runs, scored (v1.1) and unscored (v1.0, ``score_cfg=None``);
 scored, with or without the attack options (``track_promises``, the
-IHAVE-spam targets override and the IWANT-flood serve accrual).
+IHAVE-spam targets override and the IWANT-flood serve accrual); and the
+router-surface options, served by one more kernel variant
+(``ReceiveConsts.full``): flood publishing and the shared-IP gater
+(scored), exact-k gossip targets and the PX trigger word (scored or
+not).
 The port runs unpadded, so the sender view of edge j is the plain
 ``(p + o_j) mod N`` read — no wrap-extended flats.
 
@@ -27,12 +31,21 @@ Scored only (``SCORED_OPERANDS``):
 - ``fd``, ``inv`` (counter dtype), ``bp`` (bp dtype), ``tim``, ``iws``
   int16, all [C, N].
 
-Attack variant only (``ReceiveConsts.attacks``): ``syb`` int32 [N], the
-sybil word (all C bits for an IHAVE- or IWANT-spamming sybil, else 0).
+With the attack options (``ReceiveConsts.attacks``): ``syb`` int32 [N],
+the sybil word (all C bits for an IHAVE- or IWANT-spamming sybil, else
+0).  With ``flood_publish``: ``inj_send`` int32 [W, N], the injected
+words once more, read as a sender stream over the edges whose ctrl byte
+carries CTRL_FLOOD.  With ``with_same_ip``: ``same_ip`` int32 [C, N],
+the same-IP sibling words (bit c of row cc: candidates c and cc share an
+address).
 
 Returns make_receive_update's output order: scored ``(acq [W, N], mesh
 [N], backoff [C, N], *gates (7 x [N]), fd, inv, bp, tim, iws)``,
-unscored ``(acq, mesh, backoff, targets, backoff gate)``.
+unscored ``(acq, mesh, backoff, targets, backoff gate)``; with
+``with_px`` one more word last, ``px_rot`` int32 [N]: the PRUNEs and
+PRUNE-responses received, which trigger the step's PX rotation (the
+targets row of such a launch is written before the rotation and the
+step overwrites it).
 """
 
 from __future__ import annotations
@@ -54,15 +67,17 @@ CTRL_GRAFT = 2     # GRAFT sent
 CTRL_DROP = 3      # PRUNE sent (prunes | negative-score drops)
 CTRL_A = 4         # "no PRUNE would come back"
 CTRL_ADV = 5       # raw IHAVE advert
+CTRL_FLOOD = 6     # flood-publish target (own publishes, flood_publish)
 N_GATES = 7        # accept, gossip, publish, nonneg, payload, targets, backoff
 N_GATES_UNSCORED = 2   # targets, backoff
 
-#: launches of the CUDA kernel: the scored, unscored and scored attack
-#: variants (plain integers; chip_smoke.py resets them before a main path
-#: and reads them after)
+#: launches of the CUDA kernel: the scored, unscored, scored attack and
+#: full (router-surface options) variants (plain integers; chip_smoke.py
+#: resets them before a main path and reads them after)
 launches = 0
 launches_unscored = 0
 launches_attacks = 0
+launches_full = 0
 
 #: (C, W, scored) variants the CUDA kernel is instantiated for
 KERNEL_SHAPES = {(c, w, scored) for c in (8, 16) for w in (1, 2)
@@ -138,6 +153,13 @@ class ReceiveConsts:
     track_promises: bool = False
     ihave_spam: bool = False
     iwant_spam: bool = False
+    # the router-surface options: flood publishing and the shared-IP
+    # gater (scored only), exact-k gossip targets and the PX trigger
+    # word (scored or not)
+    flood_publish: bool = False
+    exact_k: bool = False
+    with_px: bool = False
+    with_same_ip: bool = False
 
     @property
     def n_candidates(self) -> int:
@@ -152,22 +174,37 @@ class ReceiveConsts:
         """The attack variant: it takes the ``syb`` operand."""
         return self.track_promises or self.ihave_spam or self.iwant_spam
 
+    @property
+    def full(self) -> bool:
+        """The full variant: some router-surface option is on."""
+        return (self.flood_publish or self.exact_k or self.with_px
+                or self.with_same_ip)
 
-def receive_consts(cfg, sc, *, promise_break: bool = False
+
+def receive_consts(cfg, sc, *, promise_break: bool = False,
+                   px: bool = False, same_ip: bool = False
                    ) -> ReceiveConsts:
     """Check the options (named refusals outside the slice) and fold the
     constants (``sc`` None: the unscored step's).  The receiver tracks
     broken promises when sybils spam IHAVEs or ``promise_break`` (the
-    sim has promise breakers)."""
+    sim has promise breakers); ``px`` (the state has an active set) adds
+    the ``px_rot`` output, ``same_ip`` (the params have sibling words)
+    the ``same_ip`` operand."""
     plan.check_kernel_config(cfg, sc)
+    exact_k = not cfg.binomial_gossip_sampling
     if sc is None:
+        if same_ip:
+            raise ValueError("same-IP sibling words need a score config")
         return ReceiveConsts(
             offsets=tuple(int(o) for o in cfg.offsets),
             cinv=tuple(cfg.cinv), backoff_restart=cfg.backoff_ticks - 1,
             d_lazy=cfg.d_lazy, history_length=cfg.history_length,
-            gossip_factor=_f32(cfg.gossip_factor))
+            gossip_factor=_f32(cfg.gossip_factor), exact_k=exact_k,
+            with_px=px)
     return ReceiveConsts(
         offsets=tuple(int(o) for o in cfg.offsets), cinv=tuple(cfg.cinv),
+        flood_publish=sc.flood_publish, exact_k=exact_k, with_px=px,
+        with_same_ip=same_ip,
         counter_dtype=DTYPES[sc.counter_dtype],
         bp_dtype=DTYPES[sc.bp_dtype],
         backoff_restart=cfg.backoff_ticks - 1, d_lazy=cfg.d_lazy,
@@ -214,15 +251,27 @@ def sum_rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def gater_row(fd: torch.Tensor, inv: torch.Tensor, seed: int,
-              stride: int) -> torch.Tensor:
+              stride: int, same_ip: torch.Tensor | None = None
+              ) -> torch.Tensor:
     """The RED gater's packed payload-acceptance draw (peer_gater.go:
     320-363) from f32 stored counters: all-ones where the peer is not
-    under invalid-traffic pressure."""
+    under invalid-traffic pressure.  With ``same_ip`` (sibling words
+    [C, N]) each edge's goodput uses the sums over its same-IP siblings
+    (peer_gater.go:119-151), added in candidate order; the pressure
+    uses the ungrouped totals."""
     C = fd.shape[0]
     inv_tot = sum_rows(inv)
     del_tot = sum_rows(fd)
     pressure = 16.0 * inv_tot / (1.0 + del_tot + 16.0 * inv_tot)
     gater_on = pressure > _f32(0.33)
+    if same_ip is not None:
+        inv_g = torch.zeros_like(inv)
+        fd_g = torch.zeros_like(fd)
+        for cc in range(C):
+            sib = graph.expand_bits(same_ip[cc], C)
+            inv_g = inv_g + torch.where(sib, inv[cc][None, :], 0.0)
+            fd_g = fd_g + torch.where(sib, fd[cc][None, :], 0.0)
+        inv, fd = inv_g, fd_g
     goodput = (1.0 + fd) / (1.0 + fd + 16.0 * inv)
     u = graph.lane_uniform_from_seed(fd.shape, seed, stride, fd.device)
     all_c = (1 << C) - 1
@@ -232,11 +281,17 @@ def gater_row(fd: torch.Tensor, inv: torch.Tensor, seed: int,
 
 def targets_row(k: ReceiveConsts, elig: torch.Tensor, seed: int,
                 stride: int) -> torch.Tensor:
-    """Bernoulli(k/|elig|) lazy-gossip targets over packed ``elig``."""
+    """Lazy-gossip targets over packed ``elig``: Bernoulli(k/|elig|),
+    or with ``k.exact_k`` the exact uniform k-subset
+    (``ops.graph.select_k_bits`` on the same lane stream)."""
     C = k.n_candidates
     n_el = graph.popcount32(elig)
     n_go = torch.clamp((k.gossip_factor * n_el.to(torch.float32)).to(
         torch.int32), min=k.d_lazy)
+    if k.exact_k:
+        return graph.select_k_bits(
+            elig, n_go, graph.lane_uniform_from_seed(
+                (C, elig.shape[0]), seed, stride, elig.device))
     p_g = (n_go.to(torch.float32)
            / n_el.clamp(min=1).to(torch.float32)).clamp(max=1.0)
     u = graph.lane_uniform_from_seed((C, elig.shape[0]), seed, stride,
@@ -244,14 +299,19 @@ def targets_row(k: ReceiveConsts, elig: torch.Tensor, seed: int,
     return elig & graph.pack_rows(u < p_g[None, :])
 
 
-def ctrl_bytes(C: int, *, out, tgt, graft, drop, a, adv) -> torch.Tensor:
+def ctrl_bytes(C: int, *, out, tgt, graft, drop, a, adv,
+               flood=None) -> torch.Tensor:
     """The ctrl operand, uint8 [C, N]: byte c of sender p packs bit c of
-    each per-sender flag word at its CTRL_* position."""
+    each per-sender flag word at its CTRL_* position (``flood``, the
+    flood-publish targets, only with flood publishing)."""
     cidx = torch.arange(C, dtype=torch.int32, device=out.device)[:, None]
     ctrl = torch.zeros((C, out.shape[0]), dtype=torch.uint8,
                        device=out.device)
-    for bit, word in ((CTRL_OUT, out), (CTRL_TGT, tgt), (CTRL_GRAFT, graft),
-                      (CTRL_DROP, drop), (CTRL_A, a), (CTRL_ADV, adv)):
+    words = [(CTRL_OUT, out), (CTRL_TGT, tgt), (CTRL_GRAFT, graft),
+             (CTRL_DROP, drop), (CTRL_A, a), (CTRL_ADV, adv)]
+    if flood is not None:
+        words.append((CTRL_FLOOD, flood))
+    for bit, word in words:
         ctrl |= (((word[None, :] >> cidx) & 1) << bit).to(torch.uint8)
     return ctrl
 
@@ -263,7 +323,7 @@ def _decay_keep(k: ReceiveConsts, x: torch.Tensor, decay: float,
 
 
 def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
-              gsp=None, valid=None):
+              gsp=None, valid=None, inj_send=None):
     """Stage 1 over the C receiving edges: the senders' words heard
     (``news`` per message word), the GRAFT/PRUNE/A bits received and,
     with ``valid`` (scored), the per-edge valid/invalid news counts.
@@ -272,7 +332,9 @@ def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
     (CTRL_ADV) without delivering (CTRL_TGT), the receiver's gossip gate
     is open and it lacks some id; with ``k.iwant_spam``, per edge the
     popcount of the sender's raw advert words (read whatever the gates
-    say)."""
+    say); with ``k.flood_publish``, the sender's injected words
+    (``inj_send``) over the edges it flood-publishes on (CTRL_FLOOD),
+    under the receiver's payload gate."""
     W = fresh.shape[0]
     n = seen.shape[1]
     z = torch.zeros((n,), dtype=torch.int32, device=seen.device)
@@ -294,10 +356,15 @@ def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
         ok_g = 1 if gsp is None else ok_p & ((gsp >> j) & 1)
         fwd_on = ((ctl >> CTRL_OUT) & ok_p & 1) != 0
         gsp_on = ((ctl >> CTRL_TGT) & ok_g & 1) != 0
+        if k.flood_publish:
+            fl_on = ((ctl >> CTRL_FLOOD) & ok_p & 1) != 0
         fd_j = iv_j = z
         for w in range(W):
-            got = (torch.where(fwd_on, torch.roll(fresh[w], -o), 0)
-                   | torch.where(gsp_on, torch.roll(adv[w], -o), 0))
+            got = torch.where(fwd_on, torch.roll(fresh[w], -o), 0)
+            if k.flood_publish:
+                got = got | torch.where(fl_on, torch.roll(inj_send[w], -o),
+                                        0)
+            got = got | torch.where(gsp_on, torch.roll(adv[w], -o), 0)
             news = got & ~seen[w]
             heard[w] = heard[w] | news
             if valid is not None:
@@ -352,18 +419,21 @@ def _receive_plain_unscored(k: ReceiveConsts, *, gseeds, ctrl, fresh, adv,
     bo_new, bo_gate = _backoff(k, backoff, dropped | prune_recv | retract)
     tgt = targets_row(k, cand_sub & ~mesh & ~fanout & sub_all, gseeds[1],
                       mesh.shape[0])
+    px = (prune_recv | retract,) if k.with_px else ()
     return (_acquired(heard, sub_all, injected), mesh, bo_new, tgt,
-            bo_gate)
+            bo_gate, *px)
 
 
 def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
                           adv, pay, gsp, acc, sub_all, cand_sub, fanout, wa,
                           bo2, grafts, dropped, meshsel, seen, injected,
-                          backoff, static, fd, inv, bp, tim, iws, syb=None):
+                          backoff, static, fd, inv, bp, tim, iws, syb=None,
+                          inj_send=None, same_ip=None):
     C = k.n_candidates
     n = pay.shape[0]
     (heard, graft_recv, prune_recv, a_recv, fd_cnt, iv_cnt, broken,
-     padv) = _exchange(k, ctrl, fresh, adv, seen, pay, gsp, valid)
+     padv) = _exchange(k, ctrl, fresh, adv, seen, pay, gsp, valid,
+                       inj_send)
     graft_recv = graft_recv & acc
     prune_recv = prune_recv & acc
     viol = graft_recv & bo2
@@ -411,7 +481,7 @@ def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
     gossip_g = graph.pack_rows(score >= k.gossip_thr)
     pub_g = graph.pack_rows(score >= k.publish_thr)
     nonneg_g = graph.pack_rows(score >= 0)
-    gater = gater_row(fd_n, inv_n, gseeds[0], n)
+    gater = gater_row(fd_n, inv_n, gseeds[0], n, same_ip)
     elig = cand_sub & ~mesh & ~fanout & sub_all & gossip_g
     tgt = targets_row(k, elig, gseeds[1], n)
     if k.ihave_spam:
@@ -419,8 +489,9 @@ def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
         tgt = (tgt & ~syb) | (cand_sub & syb)
     gates = (accept_g, gossip_g, pub_g, nonneg_g, accept_g & gater, tgt,
              bo_gate)
+    px = (prune_recv | retract,) if k.with_px else ()
     return (acq, mesh, bo_new, *gates, fd_new, inv_new, bp_new, tim_new,
-            iws_new)
+            iws_new, *px)
 
 
 class _Args(ctypes.Structure):
@@ -446,7 +517,13 @@ class _Args(ctypes.Structure):
             "gossip_factor", "fd_cap", "fd_decay", "inv_decay",
             "bp_decay", "decay_to_zero", "c_tim", "tim_quantum",
             "tim_cap", "c_fd", "c_inv", "topic_cap", "bp_thr", "w_bp",
-            "gray_thr", "gossip_thr", "publish_thr")])
+            "gray_thr", "gossip_thr", "publish_thr")]
+        # the full variant's fields, last: a source without them reads
+        # the struct's head unchanged (kernel_ab.py)
+        + [(name, ctypes.c_void_p) for name in (
+            "inj_send", "same_ip", "px_rot")]
+        + [("full", ctypes.c_int), ("flood_publish", ctypes.c_int),
+           ("exact_k", ctypes.c_int)])
 
 
 _WORDS_N = ("sub_all", "cand_sub", "fanout", "wa", "grafts", "dropped",
@@ -466,8 +543,12 @@ def _check_operands(k: ReceiveConsts, ops: dict) -> None:
         want_names |= set(SCORED_OPERANDS)
     if k.attacks:
         want_names.add("syb")
+    if k.flood_publish:
+        want_names.add("inj_send")
+    if k.with_same_ip:
+        want_names.add("same_ip")
     if names != want_names:
-        variant = ("attack" if k.attacks else
+        variant = ("full" if k.full else "attack" if k.attacks else
                    "scored" if k.scored else "unscored")
         raise ValueError(
             f"{variant} receive operands: "
@@ -481,6 +562,10 @@ def _check_operands(k: ReceiveConsts, ops: dict) -> None:
     want.update({name: ((n,), torch.int32) for name in _WORDS_N})
     if k.attacks:
         want["syb"] = ((n,), torch.int32)
+    if k.flood_publish:
+        want["inj_send"] = ((W, n), torch.int32)
+    if k.with_same_ip:
+        want["same_ip"] = ((C, n), torch.int32)
     if k.scored:
         want.update({"valid": ((W,), torch.int32),
                      "fd": ((C, n), k.counter_dtype),
@@ -509,7 +594,7 @@ def receive_update(k: ReceiveConsts, **ops):
 
     CUDA tensors launch the kernel (a failed build or launch raises);
     CPU tensors run ``receive_update_plain``."""
-    global launches, launches_unscored, launches_attacks
+    global launches, launches_unscored, launches_attacks, launches_full
     _check_operands(k, ops)
     if ops["sub_all"].device.type == "cpu":
         return receive_update_plain(k, **ops)
@@ -560,6 +645,16 @@ def receive_update(k: ReceiveConsts, **ops):
         for name in ("track_promises", "ihave_spam", "iwant_spam",
                      "retransmission"):
             setattr(a, name, int(getattr(k, name)))
+    a.full = int(k.full)
+    a.flood_publish = int(k.flood_publish)
+    a.exact_k = int(k.exact_k)
+    if k.flood_publish:
+        a.inj_send = ops["inj_send"].data_ptr()
+    if k.with_same_ip:
+        a.same_ip = ops["same_ip"].data_ptr()
+    if k.with_px:
+        outs.append(("px_rot", torch.empty((n,), dtype=torch.int32,
+                                           device=dev)))
     for name, t in outs:
         setattr(a, name, t.data_ptr())
     lib = _build.load("receive")
@@ -574,7 +669,9 @@ def receive_update(k: ReceiveConsts, **ops):
                  int(k.counter_dtype == torch.bfloat16),
                  int(k.bp_dtype == torch.bfloat16), stream)
     _build.check(err, "receive_update")
-    if k.attacks:
+    if k.full:
+        launches_full += 1
+    elif k.attacks:
         launches_attacks += 1
     elif k.scored:
         launches += 1

@@ -50,14 +50,15 @@ def msgs(rng, n: int, t: int, m: int, horizon: int):
 
 
 def build(device, n_peers: int = N_PEERS, n_topics: int = N_TOPICS,
-          horizon: int = 8):
+          horizon: int = 8, exact_k: bool = False):
     """(cfg, params, state, msg_topic, msg_publish_tick); messages are
     published at ticks drawn over [0, horizon) (the benchmark's 8: half
-    its 16-tick run)."""
+    its 16-tick run); ``exact_k`` draws the gossip targets as exact
+    k-subsets (``binomial_gossip_sampling=False``)."""
     n, t = n_peers, n_topics
     cfg = gs.GossipSimConfig(
         offsets=gs.make_gossip_offsets(t, N_CAND, n, seed=OFFSETS_SEED),
-        n_topics=t)
+        n_topics=t, binomial_gossip_sampling=not exact_k)
     topic, origin, tick = msgs(np.random.default_rng(MSG_SEED), n, t,
                                N_MSGS, horizon)
     params, state = gs.make_gossip_sim(cfg, subs_matrix(n, t), topic,

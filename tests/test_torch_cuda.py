@@ -1,9 +1,12 @@
 """Card-only tests of the port: each CUDA kernel against its plain
 PyTorch version at a small size (the receive kernel scored, unscored and
-with its attack options, the select kernel, the fused-window kernel),
-and the scored step (plain and under every attack formation at once)
-and the unscored fused window on the card against the CPU.  Exact: every output
-bit for bit.
+with its attack options, the select kernel, the fused-window kernel with
+Bernoulli and exact-k targets), and the scored step (plain, under every
+attack formation at once, and with each router-surface option — flood
+publishing, exact-k targets, PX rotation, the shared-IP gater, direct
+peers — alone and all together, scored and unscored) and the unscored
+fused window on the card against the CPU.  Exact: every output bit for
+bit.
 
 They skip without a card; on the card run
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest``
@@ -146,10 +149,10 @@ def test_step_on_the_card_matches_the_cpu(cuda):
 SMALL = dict(d=3, d_lo=2, d_hi=6, d_score=2, d_out=1, d_lazy=2)
 
 
-def _unscored_sim(c, w_words, n=4096, t=4, seed=1):
+def _unscored_sim(c, w_words, n=4096, t=4, seed=1, **cfg_kw):
     offsets = pgs.make_gossip_offsets(t, c, n, seed=seed)
     cfg = pgs.GossipSimConfig(offsets=offsets, n_topics=t,
-                              **(SMALL if c == 8 else {}))
+                              **{**(SMALL if c == 8 else {}), **cfg_kw})
     rng = np.random.default_rng(seed + w_words)
     m = 32 * w_words - 4
     subs = np.zeros((n, t), dtype=bool)
@@ -197,10 +200,8 @@ def test_unscored_receive_kernel_matches_plain_on_a_real_tick(cuda, c,
     assert prc.launches_unscored == before + 2
 
 
-@pytest.mark.parametrize("c", [8, 16])
-@pytest.mark.parametrize("w_words", [1, 2])
-def test_fused_kernel_matches_plain(cuda, c, w_words):
-    cfg, params, state = _unscored_sim(c, w_words)
+def _fused_kernel_against_plain(cuda, c, w_words, **cfg_kw):
+    cfg, params, state = _unscored_sim(c, w_words, **cfg_kw)
     state = pgs.make_gossip_step(cfg, None, device="cpu")(params, state)[0]
     T = 8
     tk = torch.arange(state.tick, state.tick + T, dtype=torch.int32)
@@ -226,6 +227,21 @@ def test_fused_kernel_matches_plain(cuda, c, w_words):
     # the inputs are not modified
     for name in ("have", "recent", "mesh", "backoff"):
         assert torch.equal(ops_g[name].cpu(), ops[name]), name
+    return k, got
+
+
+@pytest.mark.parametrize("c", [8, 16])
+@pytest.mark.parametrize("w_words", [1, 2])
+def test_fused_kernel_matches_plain(cuda, c, w_words):
+    _fused_kernel_against_plain(cuda, c, w_words)
+
+
+@pytest.mark.parametrize("c", [8, 16])
+@pytest.mark.parametrize("w_words", [1, 2])
+def test_fused_kernel_exact_k_matches_plain(cuda, c, w_words):
+    k, got = _fused_kernel_against_plain(cuda, c, w_words,
+                                         binomial_gossip_sampling=False)
+    assert k.receive.exact_k and int(pg.popcount32(got[6]).sum()) > 0
 
 
 def test_fused_window_on_the_card_matches_the_cpu(cuda):
@@ -339,3 +355,97 @@ def test_attack_step_on_the_card_matches_the_cpu(cuda):
     assert (prc.launches_attacks - a0, prc.launches - r0) == (20, 0)
     assert float(s_g.scores.behaviour_penalty.float().max()) > 0
     assert pgs.eclipse_takeover(s_g, p_g, cfg) > 0
+
+
+SURFACE = {
+    "flood": dict(sc=dict(flood_publish=True)),
+    "exact_k": dict(exact_k=True),
+    "exact_k_unscored": dict(exact_k=True, score=False),
+    "px": dict(px=True),
+    "px_unscored": dict(px=True, score=False),
+    "same_ip": dict(shared_ip=True),
+    "direct": dict(direct=True),
+    "all": dict(exact_k=True, px=True, shared_ip=True, direct=True,
+                sc=dict(flood_publish=True, sybil_ihave_spam=True,
+                        sybil_iwant_spam=True, topic_score_cap=50.0)),
+}
+
+
+def _surface_sim(option, c, w_words, device, n=4060, t=4, seed=6):
+    """A sim with the named router-surface option (n a multiple of 29:
+    the direct overlay tiles the ring)."""
+    case = SURFACE[option]
+    offsets = pgs.make_gossip_offsets(t, c, n, seed=seed)
+    cfg = pgs.GossipSimConfig(
+        offsets=offsets, n_topics=t, backoff_ticks=6,
+        binomial_gossip_sampling=not case.get("exact_k"),
+        **(SMALL if c == 8 else {}))
+    scored = case.get("score", True)
+    sc = pgs.ScoreSimConfig(**case.get("sc", {})) if scored else None
+    rng = np.random.default_rng(seed + w_words)
+    m = 32 * w_words - 2
+    subs = np.zeros((n, t), dtype=bool)
+    subs[np.arange(n), np.arange(n) % t] = True
+    sybil = rng.random(n) < 0.2
+    origin = np.flatnonzero(~sybil)[rng.integers(0, (~sybil).sum(), m)]
+    ticks = np.sort(rng.integers(0, 16, m)).astype(np.int32)
+    kw = {}
+    if scored:
+        kw = dict(sybil=sybil, msg_invalid=rng.random(m) < 0.25,
+                  app_score=rng.normal(0, 0.1, n).astype(np.float32))
+        if case.get("shared_ip"):
+            ip = np.arange(n)
+            sid = np.flatnonzero(sybil)
+            ip[sid] = n + np.arange(len(sid)) // 4
+            kw["peer_ip"] = ip
+    if case.get("direct"):
+        f = (np.arange(n) % 29) == 0
+        de = np.zeros((n, c), dtype=bool)
+        for c_ in (0, cfg.cinv[0]):
+            de[:, c_] = f | np.roll(f, -int(offsets[c_]))
+        kw["direct_edges"] = de
+    if case.get("px"):
+        kw["px_candidates"] = cfg.d_hi + 1
+    return (cfg, sc, *pgs.make_gossip_sim(
+        cfg, subs, origin % t, origin, ticks, seed=seed, score_cfg=sc,
+        device=device, **kw))
+
+
+@pytest.mark.parametrize("option", sorted(SURFACE))
+@pytest.mark.parametrize("c", [8, 16])
+@pytest.mark.parametrize("w_words", [1, 2])
+def test_surface_step_on_the_card_matches_the_cpu(cuda, option, c, w_words):
+    cfg, sc, p_c, s_c = _surface_sim(option, c, w_words, "cpu")
+    _, _, p_g, s_g = _surface_sim(option, c, w_words, cuda)
+    step_c = pgs.make_gossip_step(cfg, sc, device="cpu")
+    step_g = pgs.make_gossip_step(cfg, sc, device=cuda)
+    active0 = s_c.active
+    before = (prc.launches, prc.launches_attacks, prc.launches_unscored,
+              prc.launches_full)
+    for tick in range(20):
+        s_c = step_c(p_c, s_c)[0]
+        s_g = step_g(p_g, s_g)[0]
+        a, b = convert.state_to_numpy(s_c), convert.state_to_numpy(s_g)
+        for name in ("mesh", "fanout", "backoff", "have", "recent",
+                     "iwant_serves", "active"):
+            if a[name] is None:
+                assert b[name] is None, name
+                continue
+            np.testing.assert_array_equal(a[name], b[name],
+                                          err_msg=f"{tick} {name}")
+        for name in a["scores"] or ():
+            np.testing.assert_array_equal(a["scores"][name],
+                                          b["scores"][name],
+                                          err_msg=f"{tick} {name}")
+        for i, (x, y) in enumerate(zip(a["gates"], b["gates"])):
+            np.testing.assert_array_equal(x, y, err_msg=f"{tick} gate {i}")
+    after = (prc.launches, prc.launches_attacks, prc.launches_unscored,
+             prc.launches_full)
+    moved = tuple(y - x for x, y in zip(before, after))
+    # direct peers ride the gate words: no kernel option of their own
+    assert moved == ((20, 0, 0, 0) if option == "direct" else (0, 0, 0, 20))
+    assert int(pg.popcount32(s_g.have).sum()) > 0
+    if active0 is not None:
+        assert (s_g.active.cpu() != active0).any()
+    if p_g.cand_direct is not None:
+        assert not (s_g.mesh & p_g.cand_direct).any()

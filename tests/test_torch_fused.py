@@ -17,6 +17,8 @@ reference's single-device fused kernel takes (N = 1024, 4 topics):
 Tolerance: exact (integer words, i16 backoff, i32 ticks; bitwise).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -53,12 +55,12 @@ def _inputs(seed=0):
     return subs, topic, origin, ticks
 
 
-def _port_sim(c, seed=0):
+def _port_sim(c, seed=0, cfg_kw=None, **sim_kw):
     offsets = pgs.make_gossip_offsets(T_TOPICS, c, N, seed=seed)
     cfg = pgs.GossipSimConfig(offsets=offsets, n_topics=T_TOPICS,
-                              **_cfg_kw(c))
+                              **{**_cfg_kw(c), **(cfg_kw or {})})
     return (cfg, *pgs.make_gossip_sim(cfg, *_inputs(seed), seed=seed,
-                                      device="cpu"))
+                                      device="cpu", **sim_kw))
 
 
 def window_operands(cfg, params, state, ticks):
@@ -85,12 +87,10 @@ OUT_NAMES = ("have", "recent", "mesh", "fanout", "last_pub", "backoff",
              "tgt", "bog", "acq")
 
 
-@pytest.mark.parametrize("c", [8, 16])
-@pytest.mark.parametrize("ticks", [4, 8])
-def test_fused_plain_matches_pallas_kernel(ref, c, ticks):
+def _fused_plain_against_pallas(ref, c, ticks, **cfg_kw):
     import jax.numpy as jnp
 
-    cfg, params, state = _port_sim(c)
+    cfg, params, state = _port_sim(c, cfg_kw=cfg_kw)
     step = pgs.make_gossip_step(cfg, None, device="cpu")
     state = step(params, state)[0]  # mid mesh formation: grafts + prunes
     ops = window_operands(cfg, params, state, ticks)
@@ -98,7 +98,7 @@ def test_fused_plain_matches_pallas_kernel(ref, c, ticks):
     got = pfused.fused_gossip_update(k, **ops)     # CPU: plain version
 
     cfg_r = ref.gs.GossipSimConfig(offsets=cfg.offsets, n_topics=T_TOPICS,
-                                   **_cfg_kw(c))
+                                   **{**_cfg_kw(c), **cfg_kw})
     W, hg = state.have.shape[0], cfg.history_gossip
     krn = ref.receive.make_fused_gossip_update(cfg_r, N, W, hg, ticks,
                                                interpret=True, stream_n=N)
@@ -120,6 +120,33 @@ def test_fused_plain_matches_pallas_kernel(ref, c, ticks):
     assert int(pg.popcount32(got[8]).sum()) > 0
     assert (got[2] != ops["mesh"]).any()
     assert int(pg.popcount32(got[6]).sum()) > 0
+    return cfg, ops, got
+
+
+@pytest.mark.parametrize("c", [8, 16])
+@pytest.mark.parametrize("ticks", [4, 8])
+def test_fused_plain_matches_pallas_kernel(ref, c, ticks):
+    _fused_plain_against_pallas(ref, c, ticks)
+
+
+@pytest.mark.parametrize("c", [8, 16])
+def test_fused_plain_exact_k_matches_pallas_kernel(ref, c):
+    cfg, ops, got = _fused_plain_against_pallas(
+        ref, c, 4, binomial_gossip_sampling=False)
+    k = pfused.fused_consts(cfg)
+    assert k.receive.exact_k
+    # exactly k targets of the eligible candidates, at every peer, and
+    # another draw than the Bernoulli one
+    elig = ops["cand_sub"] & ~got[2] & ~got[3] & ops["sub_all"]
+    n_el = pg.popcount32(elig)
+    n_go = torch.clamp((k.receive.gossip_factor * n_el.float()).to(
+        torch.int32), min=k.receive.d_lazy)
+    assert torch.equal(pg.popcount32(got[6]), torch.minimum(n_go, n_el))
+    assert bool((n_el > n_go).any())
+    bern = pfused.fused_gossip_update(
+        pfused.fused_consts(dataclasses.replace(
+            cfg, binomial_gossip_sampling=True)), **ops)
+    assert not torch.equal(bern[6], got[6])
 
 
 @pytest.mark.parametrize("c", [8, 16])
@@ -234,3 +261,37 @@ def test_fused_refusals_by_name():
         win(p_s, s_s)
     assert pgs.gossip_run_fused(params, state, 0, win,
                                 device="cpu").tick == 0
+
+
+SURFACE_REFUSALS = {
+    "fused_px": dict(px_candidates=14),
+    "fused_direct": dict(direct_edges=np.zeros((N, 16), dtype=bool)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SURFACE_REFUSALS))
+def test_fused_window_refuses_px_and_direct_peers_by_name(name):
+    """As the reference's planner does: such sims step per tick."""
+    cfg, params, state = _port_sim(16, **SURFACE_REFUSALS[name])
+    win = pgs.make_fused_window(cfg, None, ticks_fused=8, device="cpu")
+    with pytest.raises(plan.SliceRefusal) as err:
+        win(params, state)
+    assert err.value.name == name
+    with pytest.raises(plan.SliceRefusal) as err:
+        pgs.gossip_run_fused(params, state, 8, win, device="cpu")
+    assert err.value.name == name
+    # the per-tick step takes the same sim
+    step = pgs.make_gossip_step(cfg, None, device="cpu")
+    assert step(params, state)[0].tick == 1
+
+
+def test_fused_window_runs_exact_k():
+    """An exact-k window equals exact-k per-tick steps."""
+    cfg, params, state = _port_sim(
+        16, seed=2, cfg_kw=dict(binomial_gossip_sampling=False))
+    step = pgs.make_gossip_step(cfg, None, device="cpu")
+    win = pgs.make_fused_window(cfg, None, ticks_fused=8, device="cpu")
+    a = pgs.gossip_run(params, state, 16, step, device="cpu")
+    b = pgs.gossip_run_fused(params, state, 16, win, device="cpu")
+    _states_equal(a, b)
+    assert b.tick == 16 and int(pg.popcount32(b.have).sum()) > 0

@@ -127,8 +127,8 @@ def _window(**kw):
     return pgs.make_fused_window(cfg, sc, device="cpu", **kw)
 
 
-def _fused_run(n_ticks):
-    params, state = _sim(sc=None)
+def _fused_run(n_ticks, **kw):
+    params, state = _sim(sc=None, **kw)
     return pgs.gossip_run_fused(params, state, n_ticks, _window(),
                                 device="cpu")
 
@@ -149,14 +149,7 @@ REFUSED = {
         lambda: _step(sc=pgs.ScoreSimConfig(byzantine_mutation=True)),
         lambda: _sim(sc=pgs.ScoreSimConfig(byzantine_mutation=True)),
         lambda: _sim(byzantine=np.zeros(N, bool))],
-    "px": [lambda: _sim(px_candidates=14)],
-    "direct_peers": [lambda: _sim(direct_edges=np.zeros((N, 16), bool))],
-    "flood_publish": [
-        lambda: _step(sc=pgs.ScoreSimConfig(flood_publish=True))],
     "flood_proto": [lambda: _sim(flood_proto=np.zeros(N, bool))],
-    "exact_k": [lambda: _step(cfg=_cfg(binomial_gossip_sampling=False)),
-                lambda: _window(cfg=_cfg(binomial_gossip_sampling=False))],
-    "shared_ip": [lambda: _sim(peer_ip=np.arange(N) // 2)],
     "track_p3": [
         lambda: _step(sc=pgs.ScoreSimConfig(
             mesh_message_deliveries_weight=-1.0)),
@@ -171,6 +164,10 @@ REFUSED = {
                      lambda: _window(ticks_fused=plan.MAX_WINDOW + 1)],
     "fused_horizon": [lambda: _fused_run(12), lambda: _fused_run(-8)],
     "fused_scored": [lambda: _window(sc=pgs.ScoreSimConfig())],
+    # a sim with an active set or with direct peers steps per tick
+    "fused_px": [lambda: _fused_run(8, px_candidates=14)],
+    "fused_direct": [
+        lambda: _fused_run(8, direct_edges=np.zeros((N, 16), bool))],
     # the launch's own error when not one block of the grid is resident
     "fused_grid": [lambda: kfused.check_launch(kfused.COOPERATIVE_TOO_LARGE)],
 }

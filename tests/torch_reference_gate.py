@@ -1,8 +1,10 @@
-"""The resident and adversarial configurations' gates, checked on the JAX
-reference.
+"""The resident, adversarial and everything-on configurations' gates,
+checked on the JAX reference.
 
     JAX_PLATFORMS=cpu python tests/torch_reference_gate.py [--n 131072]
     JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --adversarial \
+        [--n 100000] [--ticks 400]
+    JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --everything \
         [--n 100000] [--ticks 400]
 
 Runs the JAX package's unscored per-tick step (XLA) on the resident
@@ -25,6 +27,13 @@ and prints the benchmark's three gates: the honest subscribed peers'
 mean mesh degree against Dlo, every settled message held by every
 honest member of its topic, and the largest IWANT-serve ledger entry
 against (gossip_retransmission + 1) * 32 * W.  Exits 1 if a gate fails.
+
+With ``--everything`` the same three gates on the everything-on
+configuration (go_libp2p_pubsub_tpu_torch/everything.py: the adversarial
+one plus topic_score_cap=50, flood publishing, PX rotation over 14 of the
+16 candidates, the sparse direct overlay and the sybils four to an
+address), and each option shown live: peers whose active word rotated,
+direct edges in a mesh (0), the lowest static score of a sybil candidate.
 """
 
 import argparse
@@ -36,11 +45,17 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from go_libp2p_pubsub_tpu_torch import adversarial, resident  # noqa: E402
+from go_libp2p_pubsub_tpu_torch import (  # noqa: E402
+    adversarial,
+    everything,
+    resident,
+)
 from torch_ref import imported_reference  # noqa: E402
 
 
-def adversarial_gates(n: int, horizon: int) -> int:
+def adversarial_gates(n: int, horizon: int, full: bool = False) -> int:
+    """The three gates on the adversarial configuration, or (``full``)
+    on the everything-on one."""
     t = adversarial.N_TOPICS
     sybil, topic, origin, tick = adversarial.draws(n, t, horizon)
     with imported_reference() as r:
@@ -48,10 +63,22 @@ def adversarial_gates(n: int, horizon: int) -> int:
         cfg = gs.GossipSimConfig(
             offsets=gs.make_gossip_offsets(t, adversarial.N_CAND, n, seed=0),
             n_topics=t)
-        sc = gs.ScoreSimConfig(sybil_ihave_spam=True, sybil_iwant_spam=True)
+        extra = {}
+        if full:
+            sc = gs.ScoreSimConfig(
+                topic_score_cap=everything.TOPIC_SCORE_CAP,
+                sybil_ihave_spam=True, sybil_iwant_spam=True,
+                flood_publish=True)
+            de, ip = everything.overlay(cfg.offsets, cfg.cinv, n, sybil)
+            extra = dict(direct_edges=de, peer_ip=ip,
+                         px_candidates=everything.PX_CANDIDATES)
+        else:
+            sc = gs.ScoreSimConfig(sybil_ihave_spam=True,
+                                   sybil_iwant_spam=True)
         params, state = gs.make_gossip_sim(
             cfg, resident.subs_matrix(n, t), topic, origin, tick,
-            score_cfg=sc, sybil=sybil, track_first_tick=False)
+            score_cfg=sc, sybil=sybil, track_first_tick=False, **extra)
+        active0 = None if not full else np.asarray(state.active)
         # tick by tick: the attacks' levels fade between publishes, so
         # their largest values over the run show them live
         import jax
@@ -72,6 +99,18 @@ def adversarial_gates(n: int, horizon: int) -> int:
         bp_max = float(np.asarray(state.scores.behaviour_penalty,
                                   dtype=np.float32).max())
         w = params.origin_words.shape[0]
+        if full:
+            mesh = np.asarray(state.mesh)
+            static = np.asarray(params.cand_static_score)
+            print(f"options: active rotated at "
+                  f"{int((np.asarray(state.active) != active0).sum())} "
+                  f"peers; direct edges in a mesh "
+                  f"{int((mesh & np.asarray(params.cand_direct) != 0).sum())}"
+                  f" of {int(de.sum())}; same-IP words "
+                  f"{params.cand_same_ip is not None}; lowest sybil "
+                  f"static score "
+                  f"{static[np.asarray(params.cand_sybil)].min()}; "
+                  f"flood_publish {sc.flood_publish}")
     cap = (cfg.gossip_retransmission + 1) * 32 * w
     ok = deg.mean() >= cfg.d_lo and serves.max() < cap
     print(f"N={n}, {horizon} ticks: honest mean mesh degree "
@@ -94,10 +133,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int)
     ap.add_argument("--adversarial", action="store_true")
+    ap.add_argument("--everything", action="store_true")
     ap.add_argument("--ticks", type=int, default=400)
     args = ap.parse_args()
-    if args.adversarial:
-        return adversarial_gates(args.n or 100_000, args.ticks)
+    if args.adversarial or args.everything:
+        return adversarial_gates(args.n or 100_000, args.ticks,
+                                 full=args.everything)
     n = args.n or 131_072
     t, horizon = resident.N_TOPICS, 64 + 256
     with imported_reference() as r:
