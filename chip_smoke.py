@@ -59,6 +59,38 @@ Phases (any failure exits non-zero; nothing is caught):
    through make_fused_window / gossip_run_fused (counts reset just
    before and read just after) against the same ticks stepped one by one
    (the unscored full variant), equal digests;
+5f. the receive kernel's paired variant against its plain version at
+   N = 1,000,000, C = 16, W = 1: the three attack options, PX and the
+   shared-IP gater on (and, on random operands, flood publishing and
+   exact-k too), on seeded random operands with odd and even edges and on
+   the operands of a real tick of the 1M-peer paired everything-on sim
+   after warm-up with some slot-B GRAFT and some GRAFT or PRUNE on an odd
+   edge live (the first such from tick 60, where opportunistic grafting
+   wakes the settled meshes; there also as the main path runs it): every
+   output
+   bit-identical, slot B's mesh, backoff, time in mesh and gate row too;
+   both timed; then the unscored paired variant the same two ways at the
+   resident shapes, its real tick the last of 64 heartbeats of an
+   unscored paired resident sim through make_gossip_sim /
+   make_gossip_step / gossip_run (counts reset just before and read just
+   after: the unscored paired variant launched once per tick, no other
+   receive variant), both slots' mean mesh degree >= Dlo;
+5g. the slice's main path: the JAX package's everything-on benchmark
+   as written (bench_suite.py bench_gossipsub_v11_everything: paired
+   topics, topic_score_cap=50, 20% sybils four to an address running both
+   gossip-repair attacks, PX over 14 of the 16 candidates, the direct
+   overlay; go_libp2p_pubsub_tpu_torch/everything.py ``paired=True``)
+   through make_gossip_sim / make_gossip_step / gossip_run, 100 warm-up
+   and 300 timed heartbeats, with the benchmark's three gates (the
+   delivery gate over both residue classes of a topic), paired topics
+   shown live (a slot-B mesh, slot-B time in mesh, an odd edge in some
+   slot-B mesh; the honest slot-B mean degree >= Dlo, which the
+   reference meets at 100,000 peers) and phase 5d's live checks (the
+   active set rotated, no direct edge ever in a mesh, the same-IP words and a
+   sybil static score below 0); the paired variant launched once per
+   tick and no other receive variant, counts reset just before and read
+   just after; then 20 more heartbeats under torch.profiler for the
+   device's idle share;
 6. the unscored receive kernel against its plain version at the resident
    configuration's shapes (N = 1,048,576, C = 16, W = 1), on seeded random
    operands and on the operands of a real unscored tick: every output
@@ -239,6 +271,37 @@ def full_receive_operands(k, n: int, device, seed: int):
     return ops
 
 
+def paired_receive_operands(k, ops, n: int, device, seed: int):
+    """``ops`` with the paired variant's own operands added, seeded: a
+    second ctrl byte with every slot-B flag, slot-B sender words and
+    handshake words, the slot-B backoff and (scored) time in mesh."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    C = k.n_candidates
+    w = ops["fresh"].shape[0]
+
+    def words(shape, bits=32):
+        hi = torch.randint(0, 1 << 16, shape, generator=g, device=device)
+        lo = torch.randint(0, 1 << 16, shape, generator=g, device=device)
+        v = ((hi << 16) | lo) & ((1 << bits) - 1)
+        return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+    out = dict(
+        ops,
+        ctrl2=torch.randint(0, 16, (C, n), generator=g, device=device).to(
+            torch.uint8),
+        fresh_b=words((w, n)) & words((w, n)), wa_b=words((n,), C),
+        grafts_b=words((n,), C) & words((n,), C),
+        dropped_b=words((n,), C) & words((n,), C), meshsel_b=words((n,), C),
+        backoff_b=torch.randint(0, 61, (C, n), generator=g,
+                                device=device).to(torch.int16))
+    if k.scored:
+        out.update(bo2_b=words((n,), C),
+                   tim_b=torch.randint(0, 32767, (C, n), generator=g,
+                                       device=device).to(torch.int16))
+    return out
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per compiled kernel: its name with its template
     arguments (``receive_kernel<16,1,1,0,1,1>``), registers and spill
@@ -267,7 +330,10 @@ def receive_ops(k, ops) -> int:
     bit, P7 add, flood budget) and ~3 per advert word a sybil receiver
     counts; the router-surface options, ~3 per edge for the flood bit,
     ~4 per candidate pair for the same-IP sums and ~3 per candidate pair
-    for the exact-k ranks."""
+    for the exact-k ranks; paired topics, ~8 per edge for the second ctrl
+    byte and its cross-slot routing, ~20 per row for slot B's backoff and
+    (scored) time in mesh and P1, and ~8 per message word over an edge
+    whose slot-B forward is open (this tick's data)."""
     n = ops["sub_all"].shape[0]
     W = ops["fresh"].shape[0]
     C = k.n_candidates
@@ -278,13 +344,16 @@ def receive_ops(k, ops) -> int:
         ok_g = ok_p & ((ops["gsp"] >> j) & 1) if k.scored else 1
         on = (ctl & ok_p & 1) | ((ctl >> 1) & ok_g & 1)
         open_words += W * int(on.sum())
+        if k.paired:
+            ctl2 = torch.roll(ops["ctrl2"][ci], -o).to(torch.int32)
+            open_words += W * int((ctl2 & ok_p & 1).sum())
     per_row = 60 + 2 * 10 if k.scored else 6 + 10
     extra = 0
     if k.attacks:
         n_syb = int((ops["syb"] != 0).sum())
         extra = n * C * 12 + 3 * n_syb * C * W
     extra += n * C * (3 * k.flood_publish + 4 * C * k.with_same_ip
-                      + 3 * C * k.exact_k)
+                      + 3 * C * k.exact_k + (8 + 20) * k.paired)
     return n * C * (15 + per_row) + 8 * open_words + extra
 
 
@@ -660,10 +729,11 @@ def main() -> None:
     # read just after
     cfg, sc, params, state, msg_topic, msg_tick, _ = everything.build(
         dev, horizon=horizon)
-    state0 = state
+    active0 = state.active
     step = pg.make_gossip_step(cfg, sc, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    alloc0_e = torch.cuda.memory_allocated()
     krecv.launches = krecv.launches_attacks = krecv.launches_full = 0
     krecv.launches_unscored = 0
     ksel.launches = 0
@@ -704,7 +774,7 @@ def main() -> None:
     gates_e = adversarial.gates(cfg, params, state, msg_topic, msg_tick,
                                 horizon)
     bp_t, syb_t = adversarial.attack_levels(params, state)
-    live = everything.options_live(params, state0, state)
+    live = everything.options_live(params, active0, state)
     live["direct_in_mesh"] += direct_meshed
     live["flood_ctrl_bytes_warmup"] = int(flood_bytes)
     gates_e.update(behaviour_penalty_max=max(bp_max, bp_t),
@@ -738,12 +808,13 @@ def main() -> None:
           f"{serves_warm} over the warm-up ticks (< {gates_e['serves_cap']}),"
           f" sybil rows max {gates_e['sybil_serves_max']}, "
           f"behaviour_penalty max {gates_e['behaviour_penalty_max']}, "
-          f"options {live}, peak memory {peak_e} B, launches {launches_ev} "
+          f"options {live}, peak memory {peak_e} B ({alloc0_e} B at the "
+          f"start), launches {launches_ev} "
           f"[{name}, {smi}]")
     main_everything = dict(
         gates_e, heartbeats_per_s=hb_e, ms_per_tick=dt_e * 1e3 / TIMED,
-        peak_bytes=peak_e, launches=launches_ev)
-    del params, state, state0, step
+        peak_bytes=peak_e, start_bytes=alloc0_e, launches=launches_ev)
+    del params, state, active0, step
 
     # -- 5e. exact-k on the fused path: the kernel vs plain on one window
     # of the exact-k resident configuration after 12 per-tick steps, then
@@ -816,6 +887,227 @@ def main() -> None:
           f"full variant, 64 launches): digest {d_fx} both, mean mesh "
           f"degree {deg_x:.3f}")
     del params, state, end_fused
+
+    # -- 5f. the paired variant vs plain: the main path's options (the
+    # three attack options, PX, the shared-IP gater) with slot B, on
+    # random operands (flood publishing and exact-k on too) and on a real
+    # tick of the paired everything-on sim after warm-up
+    cfg, sc, params, state, _, msg_tick, _ = everything.build(
+        dev, horizon=horizon, paired=True)
+    k_p = krecv.receive_consts(cfg, sc, px=True, same_ip=True)
+    k_pall = dataclasses.replace(k_p, flood_publish=True, exact_k=True)
+    if not (k_p.paired and k_p.with_px and k_p.with_same_ip
+            and k_p.track_promises and k_p.ihave_spam and k_p.iwant_spam
+            and not k_p.flood_publish and not k_p.exact_k
+            and 0 < k_p.odd_mask < (1 << C) - 1):
+        fail(f"paired receive consts: {k_p}")
+    ops = paired_receive_operands(
+        k_pall, full_receive_operands(k_pall, n, dev, seed=29), n, dev,
+        seed=31)
+    got = krecv.receive_update(k_pall, **ops)
+    torch.cuda.synchronize()
+    err_paired = check_identical("paired receive (random operands)", got,
+                                 krecv.receive_update_plain(k_pall, **ops))
+    if len(got) != 20 or not got[2].any() or not got[-1].any():
+        fail("paired receive: no slot-B mesh or no PX trigger word")
+    step = pg.make_gossip_step(cfg, sc, device=dev)
+    box = [state]
+
+    def run_to(tick):
+        box[0] = pg.gossip_run(params, box[0], tick + 1 - box[0].tick, step,
+                               device=dev)
+
+    # the first tick after warm-up whose operands carry a slot-B GRAFT
+    # and a GRAFT or PRUNE on an odd edge: the settled meshes are quiet
+    # until opportunistic grafting (tick 60) starts a wave of grafts
+    t_real = sc.opportunistic_graft_ticks
+    for _ in range(20):
+        tick_ops = capture_receive(lambda: run_to(t_real), krecv)
+        sent = (tick_ops["grafts"] | tick_ops["dropped"]
+                | tick_ops["grafts_b"] | tick_ops["dropped_b"])
+        graft_b_live = int((tick_ops["grafts_b"] != 0).sum())
+        odd_live = int((sent & k_p.odd_mask != 0).sum())
+        if graft_b_live and odd_live:
+            break
+        t_real += 1
+    else:
+        fail(f"paired receive: no slot-B GRAFT and odd-edge handshake on "
+             f"ticks {sc.opportunistic_graft_ticks}-{t_real}")
+    ops_all = dict(tick_ops, inj_send=tick_ops["injected"])
+    for label, k_, o in (("all options", k_pall, ops_all),
+                         ("as the main path", k_p, tick_ops)):
+        want = krecv.receive_update_plain(k_, **o)
+        got = krecv.receive_update(k_, **o)
+        torch.cuda.synchronize()
+        err_paired = max(err_paired, check_identical(
+            f"paired receive (tick {t_real}, {label})", got, want))
+    paired_ms = device_ms(lambda: krecv.receive_update(k_p, **tick_ops), 50)
+    paired_plain_ms = device_ms(
+        lambda: krecv.receive_update_plain(k_p, **tick_ops), 5)
+    paired_bytes = krecv.operand_bytes(tick_ops, got)
+    paired_bound = bound(paired_bytes, receive_ops(k_p, tick_ops))
+    print(f"paired receive: identical at N={n}, C={C}, W=1 (random "
+          f"operands with every option; real tick {t_real} with the main "
+          f"path's options and with all: {graft_b_live} slot-B GRAFT words, "
+          f"{odd_live} peers sending on an odd edge, odd mask "
+          f"{k_p.odd_mask:#06x}); device time: kernel {paired_ms:.4f} ms as "
+          f"the main path runs it, plain {paired_plain_ms:.3f} ms; "
+          f"{paired_bytes / n:.1f} B/peer, bound {paired_bound[0]:.4f} ms "
+          f"({paired_bound[1]})")
+    del want, got, o, ops, ops_all, tick_ops, params, state, step, box
+
+    # the unscored paired variant at the resident shapes: random operands,
+    # then the last of 64 heartbeats of an unscored paired sim, its
+    # launches counted
+    n_r = resident.N_PEERS
+    cfg_up, params, state, *_ = resident.build(dev, horizon=RES_WARMUP,
+                                               paired=True)
+    k_up = krecv.receive_consts(cfg_up, None)
+    if not (k_up.paired and not k_up.scored
+            and 0 < k_up.odd_mask < (1 << C) - 1):
+        fail(f"unscored paired receive consts: {k_up}")
+    ops = paired_receive_operands(
+        k_up, random_receive_operands(k_up, n_r, 1, dev, seed=37), n_r, dev,
+        seed=41)
+    err_up = check_identical("unscored paired receive (random operands)",
+                             krecv.receive_update(k_up, **ops),
+                             krecv.receive_update_plain(k_up, **ops))
+    step_up = pg.make_gossip_step(cfg_up, None, device=dev)
+    box = [state]
+    torch.cuda.synchronize()
+    krecv.launches = krecv.launches_unscored = krecv.launches_full = 0
+    krecv.launches_attacks = krecv.launches_paired = 0
+    krecv.launches_paired_unscored = ksel.launches = 0
+    tick_ops = capture_receive(lambda: box.append(pg.gossip_run(
+        params, state, RES_WARMUP, step_up, device=dev)), krecv)
+    torch.cuda.synchronize()
+    launches_up = {"receive_paired_unscored": krecv.launches_paired_unscored,
+                   "receive_unscored": krecv.launches_unscored,
+                   "receive_paired": krecv.launches_paired,
+                   "receive_full": krecv.launches_full,
+                   "select": ksel.launches}
+    if (launches_up["receive_paired_unscored"] != RES_WARMUP
+            or launches_up["receive_unscored"] or launches_up["receive_paired"]
+            or launches_up["receive_full"] or launches_up["select"] <= 0):
+        fail(f"unscored paired launches {launches_up}")
+    end_up = box[-1]
+    sub = params.subscribed
+    deg_ua = pg.mesh_degrees(end_up)[sub].to(torch.float64).mean().item()
+    deg_ub = graph.popcount32(end_up.mesh_b)[sub].to(
+        torch.float64).mean().item()
+    if not (deg_ua >= cfg_up.d_lo and deg_ub >= cfg_up.d_lo):
+        fail(f"unscored paired: meshes failed to form: mean degrees "
+             f"{deg_ua}, {deg_ub}")
+    want = krecv.receive_update_plain(k_up, **tick_ops)
+    got = krecv.receive_update(k_up, **tick_ops)
+    torch.cuda.synchronize()
+    err_up = max(err_up, check_identical(
+        "unscored paired receive (a real tick)", got, want))
+    up_ms = device_ms(lambda: krecv.receive_update(k_up, **tick_ops), 50)
+    up_plain_ms = device_ms(
+        lambda: krecv.receive_update_plain(k_up, **tick_ops), 5)
+    up_bytes = krecv.operand_bytes(tick_ops, got)
+    up_bound = bound(up_bytes, receive_ops(k_up, tick_ops))
+    print(f"unscored paired receive: identical at N={n_r}, C={C}, W=1 "
+          f"(random operands and tick {end_up.tick - 1} of {RES_WARMUP} "
+          f"heartbeats, mean mesh degrees {deg_ua:.3f} and {deg_ub:.3f}, "
+          f"launches {launches_up}); device time: kernel {up_ms:.4f} ms, "
+          f"plain {up_plain_ms:.3f} ms; {up_bytes / n_r:.1f} B/peer, bound "
+          f"{up_bound[0]:.4f} ms ({up_bound[1]})")
+    del want, got, ops, tick_ops, params, state, step_up, box, end_up
+
+    # -- 5g. the slice's main path: the everything-on benchmark as written
+    # (paired topics), counts reset just before and read just after
+    cfg, sc, params, state, msg_topic, msg_tick, _ = everything.build(
+        dev, horizon=horizon, paired=True)
+    active0 = state.active
+    step = pg.make_gossip_step(cfg, sc, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0_p = torch.cuda.memory_allocated()
+    krecv.launches = krecv.launches_unscored = krecv.launches_full = 0
+    krecv.launches_attacks = krecv.launches_paired = 0
+    krecv.launches_paired_unscored = ksel.launches = 0
+    bp_max = syb_serves = serves_warm = direct_meshed = 0
+    for _ in range(WARMUP):
+        state = pg.gossip_run(params, state, 1, step, device=dev)
+        bp_t, syb_t = adversarial.attack_levels(params, state)
+        bp_max, syb_serves = max(bp_max, bp_t), max(syb_serves, syb_t)
+        serves_warm = max(serves_warm, int(state.iwant_serves.max()))
+        direct_meshed += everything.direct_in_mesh(params, state)
+    torch.cuda.synchronize()
+    deg_p = adversarial.honest_degree(params, state)
+    if not deg_p >= cfg.d_lo:
+        fail(f"everything paired: honest mesh failed to form: mean degree "
+             f"{deg_p}")
+    t0 = time.perf_counter()
+    state = pg.gossip_run(params, state, TIMED, step, device=dev)
+    torch.cuda.synchronize()
+    dt_p = time.perf_counter() - t0
+    launches_pp = {"receive_paired": krecv.launches_paired,
+                   "receive_paired_unscored": krecv.launches_paired_unscored,
+                   "receive_full": krecv.launches_full,
+                   "receive_attacks": krecv.launches_attacks,
+                   "receive": krecv.launches,
+                   "receive_unscored": krecv.launches_unscored,
+                   "select": ksel.launches}
+    peak_p = torch.cuda.max_memory_allocated()
+    gates_p = adversarial.gates(cfg, params, state, msg_topic, msg_tick,
+                                horizon)
+    bp_t, syb_t = adversarial.attack_levels(params, state)
+    live = everything.options_live(params, active0, state, cfg)
+    live["direct_in_mesh"] += direct_meshed
+    gates_p.update(behaviour_penalty_max=max(bp_max, bp_t),
+                   sybil_serves_max=max(syb_serves, syb_t),
+                   warmup_serves_max=serves_warm, **live)
+    if not gates_p["ok"] or serves_warm >= gates_p["serves_cap"]:
+        fail(f"everything paired gates: {gates_p}")
+    if not (live["mesh_b_peers"] > 0 and live["time_in_mesh_b_max"] > 0
+            and live["odd_in_mesh_b"] > 0
+            and live["honest_mean_degree_b"] >= cfg.d_lo):
+        fail(f"everything paired: paired topics not live: {live}")
+    if not (live["active_rotated"] > 0 and live["direct_in_mesh"] == 0
+            and int(params.cand_direct.ne(0).sum()) > 0
+            and live["same_ip_words"] and live["sybil_static_min"] < 0):
+        fail(f"everything paired: an option was not live: {live}")
+    if (launches_pp["receive_paired"] != horizon or launches_pp["select"] <= 0
+            or any(v for key, v in launches_pp.items()
+                   if key not in ("receive_paired", "select"))):
+        fail(f"everything paired launches {launches_pp}")
+    if state.tick != horizon:
+        fail(f"everything paired: state tick {state.tick}")
+    box = [state]
+
+    def run_more():
+        box[0] = pg.gossip_run(params, box[0], 20, step, device=dev)
+
+    prof_p = flagship.profile_ticks(run_more, 20)
+    hb_p = TIMED / dt_p
+    print(f"everything paired path (the benchmark as written): {n} peers x "
+          f"{adversarial.N_TOPICS} topics, two topics a peer, 20% sybils "
+          f"four to an address spamming IHAVEs and flooding IWANTs, PX over "
+          f"{everything.PX_CANDIDATES} of {C} candidates, direct overlay: "
+          f"{hb_p:.2f} heartbeats/s ({dt_p * 1e3 / TIMED:.3f} ms/tick), "
+          f"honest mean mesh degree {gates_p['honest_mean_degree']:.3f} "
+          f"(slot B {live['honest_mean_degree_b']:.3f}), "
+          f"{gates_p['settled_messages']} settled messages at every honest "
+          f"member of both classes, iwant_serves max "
+          f"{gates_p['serves_max']} at the end, {serves_warm} over the "
+          f"warm-up ticks (< {gates_p['serves_cap']}), sybil rows max "
+          f"{gates_p['sybil_serves_max']}, behaviour_penalty max "
+          f"{gates_p['behaviour_penalty_max']}, options {live}, peak "
+          f"memory {peak_p} B ({alloc0_p} B at the start), launches "
+          f"{launches_pp}; 20 more heartbeats "
+          f"profiled: {prof_p['wall_ms_per_tick']:.3f} ms/tick wall, "
+          f"{prof_p['device_busy_ms_per_tick']:.3f} busy, idle share "
+          f"{prof_p['device_idle_share']:.3f} [{name}, {smi}]")
+    main_paired = dict(
+        gates_p, heartbeats_per_s=hb_p, ms_per_tick=dt_p * 1e3 / TIMED,
+        peak_bytes=peak_p, start_bytes=alloc0_p, launches=launches_pp,
+        device_idle_share=prof_p["device_idle_share"],
+        device_busy_ms_per_tick=prof_p["device_busy_ms_per_tick"],
+        profile_kernels=prof_p["kernels"][:8])
+    del params, state, active0, step, box
 
     # -- 6. the unscored receive kernel vs plain at the resident shapes
     n_r = resident.N_PEERS
@@ -974,7 +1266,9 @@ def main() -> None:
     # -- 10. the numbers
     print(f"heartbeats/s [{name}, {smi}]: flagship scored per-tick "
           f"{hb:.2f}; adversarial scored per-tick {hb_a:.2f}; "
-          f"everything-on scored per-tick {hb_e:.2f}; resident unscored "
+          f"everything-on scored per-tick {hb_e:.2f}; everything-on paired "
+          f"(the benchmark as written) per-tick {hb_p:.2f}; resident "
+          f"unscored "
           f"fused "
           f"{paths['fused']['heartbeats_per_s']:.2f}, per-tick "
           f"{paths['per_tick']['heartbeats_per_s']:.2f}")
@@ -1002,6 +1296,19 @@ def main() -> None:
              max_abs_err=max(err_full, err_xk), ms=full_ms,
              plain_ms=full_plain_ms, bound_ms=full_bound[0],
              bound_by=full_bound[1], library_ms=None),
+        dict(name="receive_update_paired", route="cuda",
+             source="go_libp2p_pubsub_tpu_torch/csrc/receive.cu",
+             replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
+             launches=launches_pp["receive_paired"],
+             max_abs_err=err_paired, ms=paired_ms, plain_ms=paired_plain_ms,
+             bound_ms=paired_bound[0], bound_by=paired_bound[1],
+             library_ms=None),
+        dict(name="receive_update_paired_unscored", route="cuda",
+             source="go_libp2p_pubsub_tpu_torch/csrc/receive.cu",
+             replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
+             launches=launches_up["receive_paired_unscored"],
+             max_abs_err=err_up, ms=up_ms, plain_ms=up_plain_ms,
+             bound_ms=up_bound[0], bound_by=up_bound[1], library_ms=None),
         dict(name="receive_update_unscored", route="cuda",
              source="go_libp2p_pubsub_tpu_torch/csrc/receive.cu",
              replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
@@ -1030,7 +1337,8 @@ def main() -> None:
              bound_by=fx_bound[1], library_ms=None)]
     print(json.dumps({"main_path": {
         "flagship": main_flagship, "adversarial": main_adversarial,
-        "everything": main_everything, "resident": paths, "card": smi,
+        "everything": main_everything, "everything_paired": main_paired,
+        "resident": paths, "card": smi,
         "eager_ms": {"receive": rcv_eager_ms, "select": sel_eager_ms},
         "full_receive_ms": {"main_path": full_ms, "all_options": full_all_ms,
                             "exact_k_alone": xk_ms},

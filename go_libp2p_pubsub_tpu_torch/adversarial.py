@@ -67,15 +67,21 @@ def build(device, n_peers: int = N_PEERS, n_topics: int = N_TOPICS,
 
 
 def honest_reach(params: gs.GossipParams, state: gs.GossipState,
-                 msg_topic: np.ndarray, n_topics: int):
+                 msg_topic: np.ndarray, n_topics: int,
+                 paired: bool = False):
     """Per message: the honest peers that hold it, and the honest
-    members of its topic (p mod T == topic), as the benchmark counts
-    them."""
+    members of its topic (p mod T == topic; ``paired``, also p mod T +
+    T/2 == topic), as the benchmark counts them."""
     honest = ~params.sybil
     reach = gs.reach_counts_from_have(params, state, mask=honest)
     n = honest.shape[0]
     cls = torch.arange(n, device=honest.device) % n_topics
-    want = torch.stack([(honest & (cls == tau)).sum()
+    second = (cls + n_topics // 2) % n_topics
+
+    def members(tau):
+        return (cls == tau) | (second == tau) if paired else cls == tau
+
+    want = torch.stack([(honest & members(tau)).sum()
                         for tau in msg_topic.tolist()])
     return reach.cpu().numpy(), want.cpu().numpy()
 
@@ -96,10 +102,12 @@ def attack_levels(params: gs.GossipParams, state: gs.GossipState):
 
 
 def gates(cfg, params, state, msg_topic, msg_tick, horizon: int) -> dict:
-    """The benchmark's three gates on the run's end state; ``ok`` is all
-    of them."""
+    """The benchmark's three gates on the run's end state (the mesh
+    degree is slot A's where topics are paired); ``ok`` is all of
+    them."""
     deg = honest_degree(params, state)
-    reach, want = honest_reach(params, state, msg_topic, cfg.n_topics)
+    reach, want = honest_reach(params, state, msg_topic, cfg.n_topics,
+                               cfg.paired_topics)
     settled = msg_tick < horizon - 30
     serves_max = int(state.iwant_serves.max())
     # the IWANT flood accrues only while s < retrans * padv, so every

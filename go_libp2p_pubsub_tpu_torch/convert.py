@@ -4,9 +4,10 @@ The reference's ``GossipParams`` / ``GossipState`` arrive as dicts of
 numpy arrays, leaf by leaf (field name -> array, ``None`` for absent
 leaves — the v1.1 params, ``scores`` and ``iwant_serves`` of an unscored
 sim, the attack formations' params of a sim without them, the same-IP
-sibling words, direct edges and PX active set of a sim without them —
+sibling words, direct edges and PX active set of a sim without them, the
+slot-B words, mesh, backoff and time in mesh of an unpaired one —
 ``scores`` a nested dict, ``gates`` a sequence of words: seven scored,
-two unscored).
+two unscored, one more paired).
 This module never imports the reference; the caller flattens it.
 
 - uint32 leaves are viewed as int32 (same bits);
@@ -35,16 +36,16 @@ from .ops.kernels.receive import DTYPES
 
 PARAM_WORDS = ("cand_sub_bits", "origin_words", "deliver_words",
                "invalid_words", "cand_victim_bits", "cand_same_ip",
-               "cand_direct")
+               "cand_direct", "slot_b_words")
 PARAM_TENSORS = ("subscribed", *PARAM_WORDS, "publish_tick",
                  "cand_app_score", "cand_colo_excess", "cand_static_score",
                  "cand_sybil", "sybil", "promise_break", "eclipse_sybil",
                  "eclipse_victim")
-STATE_WORDS = ("mesh", "fanout", "have", "recent", "active")
+STATE_WORDS = ("mesh", "fanout", "have", "recent", "active", "mesh_b")
 STATE_TENSORS = (*STATE_WORDS, "last_pub", "backoff", "first_tick",
-                 "iwant_serves")
+                 "iwant_serves", "backoff_b")
 SCORE_TENSORS = ("time_in_mesh", "first_deliveries", "invalid_deliveries",
-                 "behaviour_penalty")
+                 "behaviour_penalty", "time_in_mesh_b")
 
 
 def _tensor(a: np.ndarray, device, dtype: torch.dtype | None = None
@@ -102,7 +103,9 @@ def state_from_numpy(d: dict, sc: ScoreSimConfig | None,
             first_deliveries=_tensor(s["first_deliveries"], device, cdt),
             invalid_deliveries=_tensor(s["invalid_deliveries"], device,
                                        cdt),
-            behaviour_penalty=_tensor(s["behaviour_penalty"], device, bdt))
+            behaviour_penalty=_tensor(s["behaviour_penalty"], device, bdt),
+            time_in_mesh_b=(None if s["time_in_mesh_b"] is None
+                            else _tensor(s["time_in_mesh_b"], device)))
     key = np.asarray(d["key"]).astype(np.uint32)
     return GossipState(
         **kw, scores=scores,
@@ -125,7 +128,8 @@ def state_to_numpy(s: GossipState) -> dict:
                   else _array(getattr(s, name), name in STATE_WORDS))
            for name in STATE_TENSORS}
     out["scores"] = (None if s.scores is None else
-                     {name: _array(getattr(s.scores, name))
+                     {name: (None if getattr(s.scores, name) is None
+                             else _array(getattr(s.scores, name)))
                       for name in SCORE_TENSORS})
     out["gates"] = [_array(g, True) for g in s.gates]
     out.update(gates_fp=s.gates_fp,

@@ -2,8 +2,8 @@
 // sm_90a).
 //
 // Replaces: go_libp2p_pubsub_tpu/ops/pallas/receive.py, _receive_kernel
-// (built by make_receive_update), for the unpaired options the port
-// runs: the scored v1.1 step (SCORED = true) and the unscored v1.0 step
+// (built by make_receive_update), for the options the port runs: the
+// scored v1.1 step (SCORED = true) and the unscored v1.0 step
 // (SCORED = false: no validity masks, payload/gossip/accept gates,
 // counters or scores, two gate rows); scored, the attack options (ATK =
 // true: track_promises, the IHAVE-spam targets override and the
@@ -19,7 +19,16 @@
 // word (PX: one more output, the PRUNEs and PRUNE-responses received)
 // and the shared-IP gater (SAMEIP: each edge's goodput from the f32 sums
 // of the stored counters over its same-IP siblings, added in candidate
-// order 0..C-1).  No faults, telemetry, knobs or delays.  Same semantics
+// order 0..C-1); and paired topics (PAIRED, one more kernel,
+// receive_kernel_paired, with every option of the full one: each peer's
+// second topic slot has its own mesh, backoff and time in mesh, its
+// senders' flags on a second ctrl byte and its payload on a fifth sender
+// stream, fresh_b, read over the edges whose second ctrl byte carries
+// CTRL2_OUT_B under the receiver's payload gate; on an edge whose offset
+// is an odd multiple of T/2 the partner holds the topic in its other
+// slot, so the two ctrl bytes' GRAFT/PRUNE/A bits cross slots, a static
+// choice per edge, odd_mask).  No faults, telemetry, knobs or delays.
+// Same semantics
 // and op order, so every output is bit-identical to the plain version
 // (ops/kernels/receive.py receive_update_plain):
 //
@@ -34,17 +43,22 @@
 //     sender's raw advert words while the ledger before decay is under
 //     gossip_retransmission such windows;
 //     the GRAFT/PRUNE/A handshake resolves into mesh and backoff;
-//   per row c: backoff restart/decrement; scored: time in mesh, the
+//   (PAIRED) slot B's handshake the same way, from the routed bits;
+//   per row c: backoff restart/decrement (PAIRED: both slots'); scored:
+//   time in mesh (PAIRED: both slots'), the
 //     decayed first/invalid-delivery and behaviour-penalty counters (f32
 //     arithmetic, stored with round-to-nearest-even bf16 where the
-//     counter dtype is bf16; ATK: the broken promises added to P7 after
-//     the backoff violations), the IWANT-serve ledger (ATK: stage 1);
+//     counter dtype is bf16; PAIRED: slot B's backoff violations added
+//     to P7 after slot A's; ATK: the broken promises after those), the
+//     IWANT-serve ledger (ATK: stage 1);
 //   stage 2: the next tick's gate words: scored, the seven rows from the
 //     stored counters (the score thresholds, the RED gater with an
 //     in-kernel lane hash and its pressure summed over c = 0..C-1 in
 //     order, the Bernoulli gossip targets; ATK: IHAVE-spamming sybils
 //     target every subscribed candidate); unscored, the targets and
-//     backoff rows.
+//     backoff rows; PAIRED: slot B's P1 added to the topic part before
+//     its cap, the targets outside both meshes, and slot B's backoff
+//     row last (eight rows scored, three unscored).
 //
 // Every multiply, add and divide is written with the _rn intrinsics and
 // the file is built with --fmad=false: XLA and PyTorch round each
@@ -74,6 +88,14 @@
 // injected words are zero at almost every sender on almost every tick);
 // the shared-IP gater keeps the C stored first- and invalid-delivery
 // values and the C sibling words in registers for its C x C masked sums.
+// The paired variant adds, per peer at C = 16 and W = 1, the second ctrl
+// byte of each edge (16 B), up to 4 B of slot-B sender words, five
+// slot-B handshake words in (20 B) and the slot-B mesh out (4 B), the
+// slot-B backoff and time-in-mesh rows in and out (128 B) and one gate
+// row (4 B); the second ctrl byte is gathered at the same address as the
+// first, the slot-B words only over an open edge of the sender's slot-B
+// mesh; each row c updates both slots' backoff and time in mesh in the
+// same iteration, so no C-wide array of slot B stays live.
 // Staging the sender windows in shared memory is left for later work.
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -161,12 +183,30 @@ struct ReceiveArgs {
   int full;                  // launch receive_kernel_full
   int flood_publish;         // (FLOOD) read CTRL_FLOOD and inj_send
   int exact_k;               // (EXACTK) exact-k targets, else Bernoulli
+  // the paired variant's fields, after those
+  const uint8_t* ctrl2;      // [C, N] second ctrl bytes, slot-B flags
+  const uint32_t* fresh_b;   // [W, N] sender slot-B fresh words
+  const uint32_t* wa_b;      // [N] slot-B would-accept bits
+  const uint32_t* bo2_b;     // [N] slot-B post-write backoff bits (scored)
+  const uint32_t* grafts_b;  // [N] slot-B GRAFTs sent
+  const uint32_t* dropped_b; // [N] slot-B PRUNEs sent
+  const uint32_t* meshsel_b; // [N] slot-B mesh after maintenance
+  const int16_t* backoff_b;  // [C, N] slot-B remaining backoff ticks
+  const int16_t* tim_b;      // [C, N] slot-B time in mesh (scored)
+  uint32_t* mesh_b_out;      // [N]
+  int16_t* backoff_b_out;    // [C, N]
+  int16_t* tim_b_out;        // [C, N] (scored)
+  unsigned int odd_mask;     // bit j: edge j crosses slots
+  int paired;                // launch receive_kernel_paired
 };
 
 namespace {
 
 constexpr int CTRL_OUT = 0, CTRL_TGT = 1, CTRL_GRAFT = 2, CTRL_DROP = 3,
               CTRL_A = 4, CTRL_ADV = 5, CTRL_FLOOD = 6;
+// the second ctrl byte (PAIRED); GRAFT, PRUNE and A sit in the same
+// order as on the first, so each byte's handshake is one 3-bit field
+constexpr int CTRL2_OUT_B = 0, CTRL2_GRAFT_B = 1;
 
 using gossip::lane_u;
 
@@ -206,7 +246,7 @@ __device__ __forceinline__ int floordiv(int a, int b) {
 // One thread per peer; the kernels below instantiate it.
 template <int C, int W, bool SCORED, bool ATK, bool CBF, bool BBF,
           bool FLOOD = false, bool EXACTK = false, bool PX = false,
-          bool SAMEIP = false>
+          bool SAMEIP = false, bool PAIRED = false>
 __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
   static_assert(SCORED || !ATK, "the attack options need scoring");
   static_assert(ATK || !(FLOOD || SAMEIP),
@@ -242,19 +282,45 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
 
   // ---- stage 1: the C receiving edges
   uint32_t graft_recv = 0u, prune_recv = 0u, a_recv = 0u, broken = 0u;
+  // (PAIRED) slot B's GRAFT, PRUNE and A received
+  uint32_t graft_b = 0u, prune_b = 0u, a_b = 0u;
   int fdc[C], ivc[C];
 #pragma unroll
   for (int j = 0; j < C; ++j) {
     long long q = p + a.offsets[j];
     if (q >= n) q -= n;
     const uint32_t ctl = a.ctrl[(long long)a.cinv[j] * n + q];
-    graft_recv |= ((ctl >> CTRL_GRAFT) & 1u) << j;
-    prune_recv |= ((ctl >> CTRL_DROP) & 1u) << j;
-    a_recv |= ((ctl >> CTRL_A) & 1u) << j;
+    uint32_t ctl2 = 0u;
+    if constexpr (PAIRED) {
+      ctl2 = a.ctrl2[(long long)a.cinv[j] * n + q];
+      // GRAFT, PRUNE, A of each byte as bits 0..2; on an odd edge the
+      // sender's slot A is this peer's slot B (odd_mask is a launch
+      // argument: the same choice in every thread)
+      uint32_t hs = (ctl >> CTRL_GRAFT) & 7u;
+      uint32_t hs2 = (ctl2 >> CTRL2_GRAFT_B) & 7u;
+      if ((a.odd_mask >> j) & 1u) {
+        const uint32_t t = hs;
+        hs = hs2;
+        hs2 = t;
+      }
+      graft_recv |= (hs & 1u) << j;
+      prune_recv |= ((hs >> 1) & 1u) << j;
+      a_recv |= ((hs >> 2) & 1u) << j;
+      graft_b |= (hs2 & 1u) << j;
+      prune_b |= ((hs2 >> 1) & 1u) << j;
+      a_b |= ((hs2 >> 2) & 1u) << j;
+    } else {
+      graft_recv |= ((ctl >> CTRL_GRAFT) & 1u) << j;
+      prune_recv |= ((ctl >> CTRL_DROP) & 1u) << j;
+      a_recv |= ((ctl >> CTRL_A) & 1u) << j;
+    }
     const uint32_t ok_p = (pay >> j) & 1u;
     const uint32_t ok_g = ok_p & ((gsp >> j) & 1u);
     const bool fwd_on = ((ctl >> CTRL_OUT) & ok_p & 1u) != 0u;
     const bool gsp_on = ((ctl >> CTRL_TGT) & ok_g & 1u) != 0u;
+    // (PAIRED) the sender forwards its slot-B words over this edge and
+    // the receiver's payload gate is open
+    const bool fb_on = PAIRED && ((ctl2 >> CTRL2_OUT_B) & ok_p & 1u) != 0u;
     int fd_j = 0, iv_j = 0;
     if constexpr (ATK) {
       // one read of the sender's advert words serves the gossip news
@@ -270,10 +336,14 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
                 ((ctl >> CTRL_FLOOD) & ok_p & 1u) != 0u;
         any_on = any_on || fl_on;
       }
+      if constexpr (PAIRED) any_on = any_on || fb_on;
       if (any_on) {
 #pragma unroll
         for (int w = 0; w < W; ++w) {
           uint32_t got = fwd_on ? a.fresh[w * n + q] : 0u;
+          if constexpr (PAIRED) {
+            if (fb_on) got |= a.fresh_b[w * n + q];
+          }
           if constexpr (FLOOD) {
             if (fl_on) got |= a.inj_send[w * n + q];
           }
@@ -303,11 +373,14 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
       srv = srv < 0 ? 0 : (srv > 30000 ? 30000 : srv);
       a.iws_out[idx] = (int16_t)srv;
     } else {
-      if (fwd_on || gsp_on) {
+      if (fwd_on || gsp_on || fb_on) {
 #pragma unroll
         for (int w = 0; w < W; ++w) {
           uint32_t got = 0u;
           if (fwd_on) got |= a.fresh[w * n + q];
+          if constexpr (PAIRED) {
+            if (fb_on) got |= a.fresh_b[w * n + q];
+          }
           if (gsp_on) got |= a.adv[w * n + q];
           const uint32_t news = got & ~seen[w];
           heard[w] |= news;
@@ -323,20 +396,35 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
   }
 
   // ---- handshake resolution
-  uint32_t viol = 0u;
+  uint32_t viol = 0u, viol_b = 0u;
   if constexpr (SCORED) {
     const uint32_t accb = a.acc[p];
     graft_recv &= accb;
     prune_recv &= accb;
     viol = graft_recv & a.bo2[p];
+    if constexpr (PAIRED) {
+      graft_b &= accb;
+      prune_b &= accb;
+      viol_b = graft_b & a.bo2_b[p];
+    }
   }
   const uint32_t accept = graft_recv & a.wa[p];
   const uint32_t retract = a.grafts[p] & ~a_recv;
   const uint32_t mesh = ((a.meshsel[p] | accept) & ~prune_recv) & ~retract;
   a.mesh[p] = mesh;
   const uint32_t bo_trig = a.dropped[p] | prune_recv | retract;
+  // (PAIRED) slot B's handshake, mesh and backoff triggers
+  uint32_t mesh_b = 0u, bo_trig_b = 0u, px_b = 0u;
+  if constexpr (PAIRED) {
+    const uint32_t accept_b = graft_b & a.wa_b[p];
+    const uint32_t retract_b = a.grafts_b[p] & ~a_b;
+    mesh_b = ((a.meshsel_b[p] | accept_b) & ~prune_b) & ~retract_b;
+    a.mesh_b_out[p] = mesh_b;
+    bo_trig_b = a.dropped_b[p] | prune_b | retract_b;
+    px_b = prune_b | retract_b;
+  }
   if constexpr (PX) {
-    if (a.px_rot != nullptr) a.px_rot[p] = prune_recv | retract;
+    if (a.px_rot != nullptr) a.px_rot[p] = prune_recv | retract | px_b;
   }
   const uint32_t sub_all = a.sub_all[p];
 #pragma unroll
@@ -349,7 +437,7 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
   const float dtz = a.decay_to_zero;
   const int H = a.history_length;
   uint32_t bo_gate = 0u, accept_g = 0u, gossip_g = 0u, pub_g = 0u,
-           nonneg_g = 0u, gater = 0u;
+           nonneg_g = 0u, gater = 0u, bo_gate_b = 0u;
   float inv_tot = 0.0f, del_tot = 0.0f;
   // (SAMEIP) the stored counters, kept for the sibling sums
   float fd_keep[SAMEIP ? C : 1], inv_keep[SAMEIP ? C : 1];
@@ -361,6 +449,23 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
                                              : (bo - 1 > 0 ? bo - 1 : 0);
     a.backoff_out[idx] = (int16_t)bo_new;
     bo_gate |= (uint32_t)(bo_new > 0) << c;
+    // (PAIRED) slot B's row c in the same iteration; scored, its time in
+    // mesh for the P1 term below
+    int tim_b_new = 0;
+    if constexpr (PAIRED) {
+      const int bob = a.backoff_b[idx];
+      const int bob_new = ((bo_trig_b >> c) & 1u)
+                              ? a.backoff_restart
+                              : (bob - 1 > 0 ? bob - 1 : 0);
+      a.backoff_b_out[idx] = (int16_t)bob_new;
+      bo_gate_b |= (uint32_t)(bob_new > 0) << c;
+      if constexpr (SCORED) {
+        const int tb = a.tim_b[idx];
+        tim_b_new = ((mesh_b >> c) & 1u) ? (tb + 1 < 32766 ? tb + 1 : 32766)
+                                         : 0;
+        a.tim_b_out[idx] = (int16_t)tim_b_new;
+      }
+    }
     if constexpr (!SCORED) continue;
 
     const int tim = a.tim[idx];
@@ -378,6 +483,7 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
                                        decay_keep(invv, a.inv_decay, dtz));
     float bpv = __fadd_rn(load_ctr<BBF>(a.bp, idx),
                           (float)((viol >> c) & 1u));
+    if constexpr (PAIRED) bpv = __fadd_rn(bpv, (float)((viol_b >> c) & 1u));
     if constexpr (ATK) {
       if (track) bpv = __fadd_rn(bpv, (float)((broken >> c) & 1u));
     }
@@ -397,6 +503,11 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
     float topic = __fadd_rn(
         __fadd_rn(__fmul_rn(a.c_tim, tq), __fmul_rn(a.c_fd, fd_n)),
         __fmul_rn(__fmul_rn(a.c_inv, inv_n), inv_n));
+    if constexpr (PAIRED) {   // slot B's P1, before the cap
+      const float tqb = fminf(__fdiv_rn((float)tim_b_new, a.tim_quantum),
+                              a.tim_cap);
+      topic = __fadd_rn(topic, __fmul_rn(a.c_tim, tqb));
+    }
     if (a.has_topic_cap) topic = fminf(topic, a.topic_cap);
     const float bp_ex = fmaxf(0.0f, __fsub_rn(bp_n, a.bp_thr));
     if (a.stat != nullptr) topic = __fadd_rn(topic, a.stat[idx]);
@@ -459,9 +570,11 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
     if (!(pressure > 0.33f)) gater |= ALL;
   }
 
-  // next tick's gossip targets (scored: above the gossip threshold):
+  // next tick's gossip targets (scored: above the gossip threshold;
+  // PAIRED: one selection for both slots, outside either mesh):
   // Bernoulli(k/|elig|), or (EXACTK) the exact uniform k-subset
   uint32_t elig = a.cand_sub[p] & ~mesh & ~a.fanout[p] & sub_all;
+  if constexpr (PAIRED) elig &= ~mesh_b;
   if constexpr (SCORED) elig &= gossip_g;
   const int n_el = __popc(elig);
   const int n_fac = (int)__fmul_rn(a.gossip_factor, (float)n_el);
@@ -495,9 +608,11 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
     }
     a.gates[5 * n + p] = tgt_row;
     a.gates[6 * n + p] = bo_gate;
+    if constexpr (PAIRED) a.gates[7 * n + p] = bo_gate_b;
   } else {
     a.gates[0 * n + p] = elig & tgt;
     a.gates[1 * n + p] = bo_gate;
+    if constexpr (PAIRED) a.gates[2 * n + p] = bo_gate_b;
   }
 }
 
@@ -529,6 +644,39 @@ template <int C, int W, bool SCORED, bool CBF, bool BBF>
 __global__ void __launch_bounds__(256, 4)
 receive_kernel_full(const ReceiveArgs a) {
   receive_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true, SCORED>(a);
+}
+
+// The paired variant: the full variant's options, each again a runtime
+// choice, with the second topic slot compiled in.  Its own kernel, so
+// that the other variants' code stays as it is; held to PAIRED_BLOCKS
+// blocks a multiprocessor (64 registers, with spills): on a 1M-peer
+// paired everything-on tick (H100, 700 W; kernel_ab.py) 0.930 ms against
+// 0.997 at three blocks (80 registers) and 1.280 at two (128, no spills).
+constexpr int PAIRED_BLOCKS = 4;
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256, PAIRED_BLOCKS)
+receive_kernel_paired(const ReceiveArgs a) {
+  receive_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true, SCORED,
+               true>(a);
+}
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+int launch_paired(const ReceiveArgs& a, cudaStream_t s) {
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((a.n + threads - 1) / threads);
+  receive_kernel_paired<C, W, SCORED, CBF, BBF><<<blocks, threads, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int C, int W>
+int launch_paired_variant(const ReceiveArgs& a, int scored, int ctr_bf16,
+                          int bp_bf16, cudaStream_t s) {
+  if (!scored) return launch_paired<C, W, false, false, false>(a, s);
+  if (ctr_bf16 && bp_bf16) return launch_paired<C, W, true, true, true>(a, s);
+  if (ctr_bf16) return launch_paired<C, W, true, true, false>(a, s);
+  if (!bp_bf16) return launch_paired<C, W, true, false, false>(a, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
@@ -575,6 +723,9 @@ int launch_scored(const ReceiveArgs& a, int ctr_bf16, int bp_bf16,
 template <int C, int W>
 int launch_variant(const ReceiveArgs& a, int scored, int attacks,
                    int ctr_bf16, int bp_bf16, cudaStream_t s) {
+  if (a.paired) {
+    return launch_paired_variant<C, W>(a, scored, ctr_bf16, bp_bf16, s);
+  }
   if (a.full) return launch_full_variant<C, W>(a, scored, ctr_bf16, bp_bf16, s);
   if (!scored) {
     if (attacks) return (int)cudaErrorInvalidValue;
@@ -588,8 +739,9 @@ int launch_variant(const ReceiveArgs& a, int scored, int attacks,
 
 // c in {8, 16}, w in {1, 2}; scored (1) or unscored (0); the attack
 // variant (1, scored only) or not (0); counter/bp storage bf16 (1) or
-// f32 (0); args->full chooses the full variant (the attack options then
-// ride its runtime flags).  Returns cudaGetLastError() after the launch, or
+// f32 (0); args->paired chooses the paired variant, else args->full the
+// full variant (the attack and router-surface options then ride their
+// runtime flags).  Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a shape with no instantiation (the wrapper
 // refuses those first).
 extern "C" int gossip_receive_update(const ReceiveArgs* args, int c, int w,

@@ -6,9 +6,11 @@ Each source is a variant of ``csrc/receive.cu`` with the same C interface
 (``gossip_receive_update`` and ``struct ReceiveArgs`` of this tree's
 wrapper), next to the headers it includes.  Each is built with the
 port's nvcc flags (its ptxas summary printed), then the receive
-operands of tick 40 of the 1M-peer adversarial, flagship and
-everything-on sims are captured (the last only for the sources that have
-the full variant, ``receive_kernel_full``), every build is checked
+operands of tick 40 of the 1M-peer adversarial, flagship, everything-on
+and paired everything-on sims are captured (the everything-on tick only
+for the sources that have the full variant, ``receive_kernel_full``, the
+paired one only for those with ``receive_kernel_paired``), every build is
+checked
 bit-identical to the plain version on them, and the builds are timed in
 turns (``chip_smoke.device_ms``: CUDA
 events over a CUDA-graph replay of 50 launches), ``--reps`` times each.
@@ -58,16 +60,22 @@ def main() -> None:
         libs[src] = ctypes.CDLL(str(lib))
     dev = torch.device("cuda")
     times = {}
-    full = {src for src in libs
-            if "receive_kernel_full" in Path(src).read_text()}
-    for label, build in (("adversarial", adversarial.build),
-                         ("flagship", flagship.build),
-                         ("everything", everything.build)):
+    has = {name: {src for src in libs if name in Path(src).read_text()}
+           for name in ("receive_kernel_full", "receive_kernel_paired")}
+    for label, build in (
+            ("adversarial", adversarial.build), ("flagship", flagship.build),
+            ("everything", everything.build),
+            ("everything_paired",
+             lambda dev, horizon: everything.build(dev, horizon=horizon,
+                                                   paired=True))):
         cfg, sc, params, state = build(dev, horizon=400)[:4]
         k = krecv.receive_consts(cfg, sc, px=state.active is not None,
                                  same_ip=params.cand_same_ip is not None)
-        if k.full:
-            libs = {src: lib for src, lib in libs.items() if src in full}
+        if k.full or k.paired:
+            need = "receive_kernel_paired" if k.paired else \
+                "receive_kernel_full"
+            libs = {src: lib for src, lib in libs.items()
+                    if src in has[need]}
         step = gs.make_gossip_step(cfg, sc, device=dev)
         ops = cs.capture_receive(
             lambda: gs.gossip_run(params, state, 40, step, device=dev), krecv)

@@ -10,12 +10,14 @@ threshold gates and the RED gater (keyed by source IP where peers share
 addresses), flood publishing, and the v1.1 attack formations (IHAVE
 broken-promise spam, the IWANT flood, graft flood, stealthy promise
 breakers, eclipse); scored or not, operator-pinned direct peers, PX
-candidate rotation over an active subset of the candidates, and
-Bernoulli or exact-k gossip targets.  The receive half (payload receive,
-handshake, counter updates, next tick's gates) is one kernel launch
-(``ops/kernels/receive.py``); every random top-k selection is one launch
-of the select kernel (``ops/kernels/select.py``).  Everything else is
-plain PyTorch, as the reference leaves it to XLA.
+candidate rotation over an active subset of the candidates, Bernoulli
+or exact-k gossip targets, and paired topics (every peer in its class r
+and r + T/2: one mesh, backoff and P1 per topic slot, one maintenance
+pass per slot, slot-B flags on a second ctrl byte).  The receive half
+(payload receive, handshake, counter updates, next tick's gates) is one
+kernel launch (``ops/kernels/receive.py``); every random top-k selection
+is one launch of the select kernel (``ops/kernels/select.py``).
+Everything else is plain PyTorch, as the reference leaves it to XLA.
 
 The unscored heartbeat also runs T ticks per launch: ``make_fused_window``
 (the fused-window kernel, ``ops/kernels/fused.py``) and its runners
@@ -23,7 +25,8 @@ The unscored heartbeat also runs T ticks per launch: ``make_fused_window``
 per-tick steps.
 
 Representation (as in the reference): peer p belongs to topic p mod T
-and has C circulant candidates p + o_c; mesh/fanout/gate masks are
+(paired: also to p mod T + T/2, its slot B) and has C circulant
+candidates p + o_c; mesh/fanout/gate masks are
 packed words [N] over the candidate bits; message possession is packed
 words [W, N]; per-edge counters are [C, N], peer axis last.  Packed u32
 words are int32 tensors holding the u32 bits.
@@ -33,9 +36,9 @@ and the run salt (the reference's ``key_data(PRNGKey(seed))[-1]``) are
 host ints, and the reference's ``lax.cond`` branches are Python ``if``s
 — run unconditionally where that gives the same bits (a selection with
 k = 0 selects nothing), so the scored step syncs with the host once per
-tick (the prune check) and the unscored step never does.  The port runs
-unpadded; options outside the slice raise their named refusal
-(``models/plan.py``).
+tick and topic slot (the prune check) and the unscored step never does.
+The port runs unpadded; options outside the slice raise their named
+refusal (``models/plan.py``).
 """
 
 from __future__ import annotations
@@ -303,6 +306,9 @@ class GossipParams:
     cand_same_ip: torch.Tensor | None = None     # int32 [C, N]
     # operator-pinned direct edges (None when absent), scored or not
     cand_direct: torch.Tensor | None = None      # int32 [N]
+    # paired topics: bit m set iff msg m is peer p's second topic, the
+    # one its slot-B mesh forwards (None unpaired)
+    slot_b_words: torch.Tensor | None = None     # int32 [W, N]
 
 
 @dataclass
@@ -314,6 +320,7 @@ class ScoreState:
     first_deliveries: torch.Tensor    # counter dtype (P2)
     invalid_deliveries: torch.Tensor  # counter dtype (P4)
     behaviour_penalty: torch.Tensor   # bp dtype (P7)
+    time_in_mesh_b: torch.Tensor | None = None  # int16, slot B's P1
 
 
 @dataclass
@@ -327,14 +334,18 @@ class GossipState:
     first_tick: torch.Tensor | None  # int16 [W, 32, N]
     scores: ScoreState | None   # None unscored
     iwant_serves: torch.Tensor | None  # int16 [C, N] IWANT-serve ledger
-    gates: tuple                # 7 (2 unscored) x int32 [N], this
-    #                             tick's gate words
+    gates: tuple                # 7 (2 unscored; one more paired) x
+    #                             int32 [N], this tick's gate words
     gates_fp: int               # fingerprint of the gates' config
     salt: int                   # run seed, key_data(PRNGKey(seed))[-1]
     tick: int
     # PX: the candidates whose address the peer currently holds (None
     # without px_candidates)
     active: torch.Tensor | None = None   # int32 [N]
+    # paired topics: the second topic slot's mesh and backoff (None
+    # unpaired)
+    mesh_b: torch.Tensor | None = None      # int32 [N]
+    backoff_b: torch.Tensor | None = None   # int16 [C, N]
 
 
 # --------------------------------------------------------------------------
@@ -369,8 +380,9 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
     """Build (params, state) on ``device`` (default ``cuda``).
 
     subs: bool [N, T], each peer subscribed to at most its residue-class
-    topic.  Without score_cfg the sim runs the unscored v1.0 step (state
-    without scores; two gate words).  With it: app_score [N] f32 is P5,
+    topic or, with ``cfg.paired_topics``, to both topics of its pair {p
+    mod T, p mod T + T/2} or neither.  Without score_cfg the sim runs the
+    unscored v1.0 step (state without scores; two gate words).  With it: app_score [N] f32 is P5,
     sybil [N] flags peers that forward invalid messages (and, under the
     score config's sybil toggles, spam IHAVEs, flood IWANTs or flood
     GRAFTs), msg_invalid [M] marks messages failing validation, peer_ip
@@ -406,14 +418,43 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
             "advert must fit the reference cap")
     origin_bits = np.zeros((n, m), dtype=bool)
     origin_bits[msg_origin, np.arange(m)] = True
-    cross = subs & ~(np.arange(t)[None, :] == own_topic[:, None])
-    if cross.any():
-        raise ValueError("peers may only subscribe to topic (p mod T)")
-    subscribed = subs[np.arange(n), own_topic]
-    if ((msg_origin % cfg.n_topics) != msg_topic).any():
-        raise ValueError("msg origin must be in the topic's residue class")
-    deliver_bits = subscribed[:, None] & (own_topic[:, None]
-                                          == msg_topic[None, :])
+    slot_b_bits = None
+    if cfg.paired_topics:
+        # every participant subscribes both topics of its pair {r,
+        # r + T/2}; slot B holds the second
+        second = (own_topic + cfg.n_topics // 2) % cfg.n_topics
+        pair = ((np.arange(t)[None, :] == own_topic[:, None])
+                | (np.arange(t)[None, :] == second[:, None]))
+        if (subs & ~pair).any():
+            raise ValueError(
+                "paired mode: peers may only subscribe to "
+                "{p mod T, p mod T + T/2}")
+        both = subs[np.arange(n), own_topic] & subs[np.arange(n), second]
+        neither = ~(subs[np.arange(n), own_topic]
+                    | subs[np.arange(n), second])
+        if not (both | neither).all():
+            raise ValueError("paired mode: subscribe to both topics of "
+                             "the pair, or neither")
+        subscribed = both
+        if (~((own_topic[msg_origin] == msg_topic)
+              | (second[msg_origin] == msg_topic))).any():
+            raise ValueError(
+                "msg origin must subscribe to the message topic")
+        deliver_bits = subscribed[:, None] & (
+            (own_topic[:, None] == msg_topic[None, :])
+            | (second[:, None] == msg_topic[None, :]))
+        # msg m rides peer p's second topic slot (forwarded on mesh_b)
+        slot_b_bits = second[:, None] == msg_topic[None, :]
+    else:
+        cross = subs & ~(np.arange(t)[None, :] == own_topic[:, None])
+        if cross.any():
+            raise ValueError("peers may only subscribe to topic (p mod T)")
+        subscribed = subs[np.arange(n), own_topic]
+        if ((msg_origin % cfg.n_topics) != msg_topic).any():
+            raise ValueError(
+                "msg origin must be in the topic's residue class")
+        deliver_bits = subscribed[:, None] & (own_topic[:, None]
+                                              == msg_topic[None, :])
 
     def cand_view(per_peer):
         """out[c, p] = per_peer[p + o_c]."""
@@ -518,6 +559,8 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
         origin_words=_words(_pack_bits_pm_np(origin_bits), dev),
         deliver_words=_words(_pack_bits_pm_np(deliver_bits), dev),
         publish_tick=t_(np.asarray(msg_publish_tick, dtype=np.int32)),
+        slot_b_words=(None if slot_b_bits is None
+                      else _words(_pack_bits_pm_np(slot_b_bits), dev)),
         **scored)
     w = params.origin_words.shape[0]
     c = cfg.n_candidates
@@ -545,6 +588,7 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
             act |= direct_packed
         active0 = _words(act, dev)
     scores = None
+    paired = cfg.paired_topics
     if sc is not None:
         cdt = krecv.DTYPES[sc.counter_dtype]
         scores = ScoreState(
@@ -552,7 +596,8 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
             first_deliveries=torch.zeros((c, n), dtype=cdt, device=dev),
             invalid_deliveries=torch.zeros((c, n), dtype=cdt, device=dev),
             behaviour_penalty=torch.zeros(
-                (c, n), dtype=krecv.DTYPES[sc.bp_dtype], device=dev))
+                (c, n), dtype=krecv.DTYPES[sc.bp_dtype], device=dev),
+            time_in_mesh_b=i16() if paired else None)
     state = GossipState(
         mesh=zbits(), fanout=zbits(),
         last_pub=torch.full((n,), -(10 ** 9), dtype=torch.int32,
@@ -565,7 +610,9 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
                                device=dev) if track_first_tick else None),
         scores=scores, iwant_serves=None if sc is None else i16(),
         gates=(), gates_fp=0,
-        salt=seed & graph.MASK32, tick=0, active=active0)
+        salt=seed & graph.MASK32, tick=0, active=active0,
+        mesh_b=zbits() if paired else None,
+        backoff_b=i16() if paired else None)
     # seed the gate pipeline: tick 0's gate words
     return params, refresh_gates(cfg, sc, params, state)
 
@@ -602,7 +649,9 @@ def compute_scores(sc: ScoreSimConfig, params: GossipParams,
         g(s.first_deliveries).to(torch.float32),
         g(s.invalid_deliveries).to(torch.float32),
         g(s.behaviour_penalty).to(torch.float32),
-        None if static is None else g(static))
+        None if static is None else g(static),
+        tim_b=(None if s.time_in_mesh_b is None
+               else g(s.time_in_mesh_b).to(torch.float32)))
 
 
 def gates_fingerprint(cfg: GossipSimConfig,
@@ -623,11 +672,13 @@ def gates_fingerprint(cfg: GossipSimConfig,
 
 def gossip_targets_row(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
                        params: GossipParams, *, mesh, fanout, active,
-                       gossip_row, tick: int, salt: int) -> torch.Tensor:
+                       gossip_row, tick: int, salt: int,
+                       mesh_b=None) -> torch.Tensor:
     """The lazy-gossip targets gate row: Bernoulli(k/|elig|), or the
     exact uniform k-subset (``binomial_gossip_sampling=False``), over
     the non-mesh subscribed candidates (under PX: the ``active`` ones;
-    scored: above the gossip threshold, ``gossip_row``), k = max(Dlazy,
+    paired: one selection shared by both topic slots, outside either
+    mesh; scored: above the gossip threshold, ``gossip_row``), k = max(Dlazy,
     factor * |elig|) (emitGossip gossipsub.go:1656-1712);
     IHAVE-spamming sybils target every subscribed candidate
     (gossipsub_spam_test.go:135).  Shared by compute_gates and the
@@ -639,6 +690,8 @@ def gossip_targets_row(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
     elig = params.cand_sub_bits & ~mesh & ~fanout & sub_all
     if active is not None:
         elig = elig & active
+    if mesh_b is not None:
+        elig = elig & ~mesh_b
     if gossip_row is not None:
         elig = elig & gossip_row
     targets = krecv.targets_row(k, elig, lane_seed(tick, 1, salt),
@@ -654,14 +707,17 @@ def compute_gates(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
     """The packed gate words for ``st.tick`` (tuple of int32 [N]) — the
     reference's compute_gates rows: scored, accept, gossip, publish,
     nonneg, payload (accept ∧ RED gater), targets, backoff; unscored,
-    targets and backoff.  Where candidates share addresses the gater's
-    goodput is keyed by source IP (``params.cand_same_ip``)."""
+    targets and backoff; paired, slot B's backoff last.  Where
+    candidates share addresses the gater's goodput is keyed by source IP
+    (``params.cand_same_ip``)."""
+    bo_b = (() if st.backoff_b is None
+            else (pack_rows(st.backoff_b > 0),))
     if sc is None:
         return (gossip_targets_row(cfg, None, params, mesh=st.mesh,
                                    fanout=st.fanout, active=st.active,
                                    gossip_row=None, tick=st.tick,
-                                   salt=salt),
-                pack_rows(st.backoff > 0))
+                                   salt=salt, mesh_b=st.mesh_b),
+                pack_rows(st.backoff > 0), *bo_b)
     k = krecv.receive_consts(cfg, sc)
     n = st.mesh.shape[0]
     score = compute_scores(sc, params, st)
@@ -678,9 +734,9 @@ def compute_gates(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
     rows.append(gossip_targets_row(cfg, sc, params, mesh=st.mesh,
                                    fanout=st.fanout, active=st.active,
                                    gossip_row=gossip, tick=st.tick,
-                                   salt=salt))
+                                   salt=salt, mesh_b=st.mesh_b))
     rows.append(pack_rows(st.backoff > 0))
-    return tuple(rows)
+    return (*rows, *bo_b)
 
 
 def px_rotate(cfg: GossipSimConfig, params: GossipParams, *, active, rot,
@@ -715,11 +771,13 @@ def refresh_gates(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
 
 def _prunes(cfg: GossipSimConfig, sc: ScoreSimConfig,
             params: GossipParams, state: GossipState,
-            mesh_ng: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
+            mesh_ng: torch.Tensor, deg: torch.Tensor,
+            phase: int) -> torch.Tensor:
     """Prune to D where deg > Dhi: keep the Dscore best by score, then
     at least Dout outbound, random fill to D (v1.1, gossipsub.go:
-    1376-1435).  Per-peer independent, so computed on the columns of
-    the over-subscribed peers only — the step's one host sync."""
+    1376-1435), on the lane stream of ``phase``.  Per-peer independent,
+    so computed on the columns of the over-subscribed peers only — the
+    step's host sync, one per topic slot."""
     C = cfg.n_candidates
     idx = torch.nonzero(deg > cfg.d_hi).flatten()
     prunes = torch.zeros_like(mesh_ng)
@@ -727,7 +785,7 @@ def _prunes(cfg: GossipSimConfig, sc: ScoreSimConfig,
         return prunes
     n = mesh_ng.shape[0]
     score = compute_scores(sc, params, state, cols=idx)
-    rnd = lane_uniform((C, n), state.tick, 3, state.salt, stride=n,
+    rnd = lane_uniform((C, n), state.tick, phase, state.salt, stride=n,
                        device=mesh_ng.device, cols=idx)
     m_s = mesh_ng.index_select(0, idx)
     top = select_k_by_priority_bits(m_s, score,
@@ -766,6 +824,98 @@ def _opportunistic(sc: ScoreSimConfig, params: GossipParams,
     return og_elig, og_need.to(torch.int32)
 
 
+#: the lane phases of each topic slot's graft, prune and opportunistic
+#: graft draws: slot A, and slot B under paired topics
+SLOT_PHASES = ((2, 3, 5), (12, 13, 15))
+
+
+def maintain_slot(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
+                  params: GossipParams, state: GossipState, slot: int, *,
+                  sub_all: torch.Tensor,
+                  accept_bits: torch.Tensor | None) -> dict:
+    """One topic slot's heartbeat maintenance selections on the
+    start-of-tick state (gossipsub.go:1299-1552): scored, negative-score
+    drops, graft to D below Dlo, score-ranked prune to D above Dhi,
+    opportunistic graft every opportunistic_graft_ticks, then the
+    graft-flood and eclipse graft overrides; unscored (v1.0), graft to D
+    below Dlo, random prune to D above Dhi.  ``slot`` 0 is the mesh and
+    backoff of the peer's own topic, 1 (paired topics) those of its
+    second, each on its own lane phases (``SLOT_PHASES``).  Returns the
+    words the handshake needs: grafts, dropped, neg (scored), mesh_sel,
+    backoff_bits2, would_accept, a_sent.  ``sub_all`` and (scored)
+    ``accept_bits``, the accept gate row with the direct peers let
+    through, are the step's own.  Scored, one host sync (the prune)."""
+    C = cfg.n_candidates
+    n = params.subscribed.shape[0]
+    tick, salt = state.tick, state.salt
+    ph_graft, ph_prune, ph_og = SLOT_PHASES[slot]
+    mesh0 = state.mesh_b if slot else state.mesh
+    # the slot's backoff gate row: row 6 scored / 1 unscored, slot B's
+    # last
+    bo_row0 = state.gates[-1] if slot else state.gates[6 if sc else 1]
+    cand_sub = params.cand_sub_bits
+    direct, active = params.cand_direct, state.active
+
+    def sel_k(elig, kk, phase):
+        return kselect.select_k_bits(elig, kk, C,
+                                     lane_seed(tick, phase, salt), n)
+
+    neg = None
+    mesh_ng = mesh0
+    if sc is not None:
+        nonneg_bits = state.gates[3]
+        neg = mesh0 & ~nonneg_bits
+        mesh_ng = mesh0 & nonneg_bits
+    deg = popcount32(mesh_ng)
+    can_graft = cand_sub & ~mesh_ng & ~bo_row0 & sub_all
+    if direct is not None:
+        # never GRAFT at a direct peer (gossipsub.go:1340-1345)
+        can_graft = can_graft & ~direct
+    if active is not None:
+        can_graft = can_graft & active
+    if sc is not None:
+        can_graft = can_graft & nonneg_bits
+    need = torch.where(deg < cfg.d_lo, cfg.d - deg, 0).to(torch.int32)
+    grafts = sel_k(can_graft, need, ph_graft)
+    if sc is None:
+        # v1.0 random retention of D where deg > Dhi, drawn for every
+        # peer (no host sync; masked to the over-full ones)
+        keep = sel_k(mesh_ng, torch.full_like(deg, cfg.d), ph_prune)
+        prunes = torch.where(deg > cfg.d_hi, mesh_ng & ~keep, 0)
+    else:
+        prunes = _prunes(cfg, sc, params, state, mesh_ng, deg, ph_prune)
+        if tick % sc.opportunistic_graft_ticks == 0:
+            grafts = grafts | sel_k(
+                *_opportunistic(sc, params, state, mesh_ng, deg,
+                                can_graft & ~grafts), ph_og)
+        if sc.sybil_graft_flood:
+            # GRAFT-flooding sybils re-graft every tick, ignoring their
+            # own backoff (gossipsub_spam_test.go:349)
+            grafts = torch.where(params.sybil, cand_sub & ~mesh_ng, grafts)
+        if sc.sybil_eclipse and params.eclipse_sybil is not None:
+            # eclipse attackers GRAFT at every subscribed victim
+            # candidate every tick, ignoring their own backoff
+            grafts = torch.where(
+                params.eclipse_sybil,
+                params.cand_victim_bits & cand_sub & ~mesh_ng, grafts)
+    mesh_sel = (mesh_ng | grafts) & ~prunes
+    dropped = prunes if neg is None else prunes | neg
+    backoff_bits2 = bo_row0 | dropped
+    would_accept = sub_all & ~backoff_bits2
+    if direct is not None:
+        # a GRAFT from a direct peer is answered with a PRUNE
+        # (gossipsub.go:737-745)
+        would_accept = would_accept & ~direct
+    if sc is not None:
+        would_accept = would_accept & nonneg_bits
+        a_sent = would_accept | ~accept_bits
+    else:
+        a_sent = would_accept
+    return dict(grafts=grafts, dropped=dropped, neg=neg, mesh_sel=mesh_sel,
+                backoff_bits2=backoff_bits2, would_accept=would_accept,
+                a_sent=a_sent)
+
+
 def make_gossip_step(cfg: GossipSimConfig,
                      score_cfg: ScoreSimConfig | None = None, *,
                      device: str | torch.device | None = None,
@@ -777,13 +927,16 @@ def make_gossip_step(cfg: GossipSimConfig,
 
     Per tick: 1. inject due publishes; 1b. fanout TTL and refill;
     2. eager forward over mesh ∪ fanout; 3. lazy gossip over this
-    tick's target row; 4. maintenance selections (scored: negative-score
-    drops, graft to D below Dlo, score-ranked prune to D above Dhi,
-    opportunistic graft every opportunistic_graft_ticks, then the
-    graft-flood and eclipse graft overrides; unscored (``score_cfg``
-    None, v1.0): graft to D below Dlo, random prune to D above Dhi);
-    then the receive kernel resolves the exchange and emits next tick's
-    gates.
+    tick's target row; 4. maintenance selections (``maintain_slot``;
+    paired topics, one pass per topic slot); then the receive kernel
+    resolves the exchange and emits next tick's gates.
+
+    Paired topics (``cfg.paired_topics``): each sender's fresh words
+    split by its slot (slot-B messages forward on ``mesh_b``; an
+    unsubscribed peer sends everything on the slot-A/fanout path), slot
+    B's forwards and handshake ride a second ctrl byte, PX keeps both
+    meshes and rotates both slots' negative-score drops out, and one
+    gossip selection serves both slots outside either mesh.
 
     Direct peers (``params.cand_direct``) bypass the graylist and the
     gater, are always forwarded to, never grafted, and answer a GRAFT
@@ -803,6 +956,7 @@ def make_gossip_step(cfg: GossipSimConfig,
     serve accrual into the kernel.
     """
     dev = resolve_device(device)
+    plan.check_paired_step(cfg, score_cfg, force_split)
     plan.check_step_options(force_split=force_split,
                             pipeline_gates=pipeline_gates,
                             shard_mesh=shard_mesh, telemetry=telemetry,
@@ -824,7 +978,8 @@ def make_gossip_step(cfg: GossipSimConfig,
     ALL = (1 << C) - 1
     Hg = cfg.history_gossip
     step_fp = gates_fingerprint(cfg, sc)
-    n_gates = krecv.N_GATES if sc is not None else krecv.N_GATES_UNSCORED
+    paired = cfg.paired_topics
+    n_gates = krecv.n_gates(sc is not None, paired)
 
     def step(params: GossipParams, state: GossipState):
         check_on(dev, subscribed=params.subscribed, mesh=state.mesh)
@@ -844,8 +999,8 @@ def make_gossip_step(cfg: GossipSimConfig,
         cand_sub = params.cand_sub_bits
         direct, active = params.cand_direct, state.active
         if sc is not None:
-            (accept_bits, gossip_bits, pub_ok_bits, nonneg_bits,
-             payload_bits, targets, bo_row) = state.gates
+            (accept_bits, gossip_bits, pub_ok_bits, _, payload_bits,
+             targets, _) = state.gates[:7]
             if direct is not None:
                 # direct peers bypass the graylist and the gater for
                 # control and payload (AcceptFrom gossipsub.go:578)
@@ -853,7 +1008,7 @@ def make_gossip_step(cfg: GossipSimConfig,
                 payload_bits = payload_bits | direct
             valid = ~params.invalid_words                   # [W]
         else:
-            targets, bo_row = state.gates
+            targets, accept_bits = state.gates[0], None
 
         def sel_k(elig, kk, phase):
             return kselect.select_k_bits(elig, kk, C,
@@ -890,6 +1045,14 @@ def make_gossip_step(cfg: GossipSimConfig,
             syb = params.sybil[None, :]
             fresh = torch.where(syb, fresh, fresh & valid[:, None])
             adv = torch.where(syb, adv, adv & valid[:, None])
+        fresh_b = None
+        if paired:
+            # split by the sender's topic slot: slot-B messages forward
+            # on mesh_b; unsubscribed (fanout-only) peers send all they
+            # have on the slot-A/fanout path (gossipsub.go:989-999)
+            slot_b = params.slot_b_words
+            fresh_b = fresh & slot_b
+            fresh = torch.where(sub[None, :], fresh & ~slot_b, fresh)
         out_bits = state.mesh | fanout
         if direct is not None:
             # always eager-forward targets (gossipsub.go:945-950)
@@ -921,59 +1084,13 @@ def make_gossip_step(cfg: GossipSimConfig,
             withhold = (params.promise_break if withhold is None
                         else withhold | params.promise_break)
 
-        # -- 4. maintenance selections (start-of-tick state only)
-        mesh0 = state.mesh
-        neg = None
-        mesh_ng = mesh0
-        if sc is not None:
-            neg = mesh0 & ~nonneg_bits
-            mesh_ng = mesh0 & nonneg_bits
-        deg = popcount32(mesh_ng)
-        can_graft = cand_sub & ~mesh_ng & ~bo_row & sub_all
-        if direct is not None:
-            # never GRAFT at a direct peer (gossipsub.go:1340-1345)
-            can_graft = can_graft & ~direct
-        if active is not None:
-            can_graft = can_graft & active
-        if sc is not None:
-            can_graft = can_graft & nonneg_bits
-        need = torch.where(deg < cfg.d_lo, cfg.d - deg, 0).to(torch.int32)
-        grafts = sel_k(can_graft, need, 2)
-        if sc is None:
-            # v1.0 random retention of D where deg > Dhi, drawn for
-            # every peer (no host sync; masked to the over-full ones)
-            keep = sel_k(mesh_ng, torch.full_like(deg, cfg.d), 3)
-            prunes = torch.where(deg > cfg.d_hi, mesh_ng & ~keep, 0)
-        else:
-            prunes = _prunes(cfg, sc, params, state, mesh_ng, deg)
-            if tick % sc.opportunistic_graft_ticks == 0:
-                grafts = grafts | sel_k(
-                    *_opportunistic(sc, params, state, mesh_ng, deg,
-                                    can_graft & ~grafts), 5)
-            if sc.sybil_graft_flood:
-                # GRAFT-flooding sybils re-graft every tick, ignoring
-                # their own backoff (gossipsub_spam_test.go:349)
-                grafts = torch.where(params.sybil, cand_sub & ~mesh_ng,
-                                     grafts)
-            if eclipse:
-                # eclipse attackers GRAFT at every subscribed victim
-                # candidate every tick, ignoring their own backoff
-                grafts = torch.where(
-                    params.eclipse_sybil,
-                    params.cand_victim_bits & cand_sub & ~mesh_ng, grafts)
-        mesh_sel = (mesh_ng | grafts) & ~prunes
-        dropped = prunes if neg is None else prunes | neg
-        backoff_bits2 = bo_row | dropped
-        would_accept = sub_all & ~backoff_bits2
-        if direct is not None:
-            # a GRAFT from a direct peer is answered with a PRUNE
-            # (gossipsub.go:737-745)
-            would_accept = would_accept & ~direct
-        if sc is not None:
-            would_accept = would_accept & nonneg_bits
-            a_sent = would_accept | ~accept_bits
-        else:
-            a_sent = would_accept
+        # -- 4. maintenance selections (start-of-tick state only), one
+        # pass per topic slot
+        sel = maintain_slot(cfg, sc, params, state, 0, sub_all=sub_all,
+                            accept_bits=accept_bits)
+        sel_b = (maintain_slot(cfg, sc, params, state, 1, sub_all=sub_all,
+                               accept_bits=accept_bits)
+                 if paired else None)
 
         # -- the receive kernel: exchange, handshake, counters, gates;
         # the raw advert (CTRL_ADV) against the delivering one (CTRL_TGT)
@@ -981,23 +1098,45 @@ def make_gossip_step(cfg: GossipSimConfig,
         tgt_deliver = (targets if withhold is None
                        else torch.where(withhold, 0, targets))
         ctrl = krecv.ctrl_bytes(C, out=out_bits, tgt=tgt_deliver,
-                                graft=grafts, drop=dropped, a=a_sent,
-                                adv=targets, flood=flood_bits)
+                                graft=sel["grafts"], drop=sel["dropped"],
+                                a=sel["a_sent"], adv=targets,
+                                flood=flood_bits)
         ops = dict(
             gseeds=(lane_seed(tick + 1, 6, salt),
                     lane_seed(tick + 1, 1, salt)),
             ctrl=ctrl, fresh=fresh, adv=adv, sub_all=sub_all,
-            cand_sub=cand_sub, fanout=fanout, wa=would_accept,
-            grafts=grafts, dropped=dropped, meshsel=mesh_sel, seen=seen,
-            injected=injected, backoff=state.backoff)
+            cand_sub=cand_sub, fanout=fanout, wa=sel["would_accept"],
+            grafts=sel["grafts"], dropped=sel["dropped"],
+            meshsel=sel["mesh_sel"], seen=seen, injected=injected,
+            backoff=state.backoff)
         if sc is not None:
             s0 = state.scores
             ops.update(
                 valid=valid, pay=payload_bits, gsp=gossip_bits,
-                acc=accept_bits, bo2=backoff_bits2,
+                acc=accept_bits, bo2=sel["backoff_bits2"],
                 static=_static_term(sc, params), fd=s0.first_deliveries,
                 inv=s0.invalid_deliveries, bp=s0.behaviour_penalty,
                 tim=s0.time_in_mesh, iws=state.iwant_serves)
+        if paired:
+            # slot B's sender flags on a second ctrl byte: its eager
+            # forwards (direct peers on every topic; eclipse attackers
+            # silent) and its handshake
+            out_b = state.mesh_b
+            if direct is not None:
+                out_b = out_b | (direct & cand_sub)
+            if eclipse:
+                out_b = torch.where(params.eclipse_sybil, 0, out_b)
+            ops.update(
+                ctrl2=krecv.ctrl2_bytes(C, out_b=out_b,
+                                        graft_b=sel_b["grafts"],
+                                        drop_b=sel_b["dropped"],
+                                        a_b=sel_b["a_sent"]),
+                fresh_b=fresh_b, wa_b=sel_b["would_accept"],
+                grafts_b=sel_b["grafts"], dropped_b=sel_b["dropped"],
+                meshsel_b=sel_b["mesh_sel"], backoff_b=state.backoff_b)
+            if sc is not None:
+                ops.update(bo2_b=sel_b["backoff_bits2"],
+                           tim_b=state.scores.time_in_mesh_b)
         variant = {}
         if sc is not None and params.promise_break is not None:
             variant["promise_break"] = True
@@ -1017,33 +1156,45 @@ def make_gossip_step(cfg: GossipSimConfig,
             spam = sc.sybil_ihave_spam or sc.sybil_iwant_spam
             ops["syb"] = (torch.where(params.sybil, ALL, 0).to(torch.int32)
                           if spam else torch.zeros_like(sub_all))
-        outs = krecv.receive_update(kk, **ops)
-        if active is not None:
-            px_word, outs = outs[-1], outs[:-1]
-        acq, mesh_new, backoff_new = outs[:3]
-        gates_new = tuple(outs[3:3 + n_gates])
+        outs = iter(krecv.receive_update(kk, **ops))
+        acq, mesh_new = next(outs), next(outs)
+        mesh_b_new = next(outs) if paired else None
+        backoff_new = next(outs)
+        backoff_b_new = next(outs) if paired else None
+        gates_new = tuple(next(outs) for _ in range(n_gates))
         scores = iws_o = None
         if sc is not None:
-            fd_o, inv_o, bp_o, tim_o, iws_o = outs[3 + n_gates:]
+            fd_o, inv_o, bp_o, tim_o = (next(outs) for _ in range(4))
+            tim_b_o = next(outs) if paired else None
+            iws_o = next(outs)
             scores = ScoreState(time_in_mesh=tim_o, first_deliveries=fd_o,
                                 invalid_deliveries=inv_o,
-                                behaviour_penalty=bp_o)
+                                behaviour_penalty=bp_o,
+                                time_in_mesh_b=tim_b_o)
 
         # -- PX: rotate the pruned addresses out of the active set, then
         # re-emit the targets gate row from the rotated set (the kernel
         # wrote its row before the rotation was known)
         if active is not None:
+            px_word = next(outs)
             if cfg.px_rotation:
-                active = px_rotate(
-                    cfg, params, active=active,
-                    rot=px_word if neg is None else px_word | neg,
-                    keep=mesh_new | fanout, sel_k=sel_k)
+                # both slots' negative-score drops rotate out; both
+                # slots' meshes stay
+                rot = px_word
+                for s_ in (sel, sel_b):
+                    if s_ is not None and s_["neg"] is not None:
+                        rot = rot | s_["neg"]
+                keep = mesh_new | fanout
+                if paired:
+                    keep = keep | mesh_b_new
+                active = px_rotate(cfg, params, active=active, rot=rot,
+                                   keep=keep, sel_k=sel_k)
             i_tgt = 5 if sc is not None else 0
             tgt_new = gossip_targets_row(
                 cfg, sc, params, mesh=mesh_new, fanout=fanout,
                 active=active,
                 gossip_row=gates_new[1] if sc is not None else None,
-                tick=tick + 1, salt=salt)
+                tick=tick + 1, salt=salt, mesh_b=mesh_b_new)
             gates_new = (*gates_new[:i_tgt], tgt_new,
                          *gates_new[i_tgt + 1:])
 
@@ -1060,7 +1211,7 @@ def make_gossip_step(cfg: GossipSimConfig,
                                          tick),
             scores=scores, iwant_serves=iws_o, gates=gates_new,
             gates_fp=state.gates_fp, salt=salt, tick=tick + 1,
-            active=active)
+            active=active, mesh_b=mesh_b_new, backoff_b=backoff_b_new)
         return new_state, delivered_now
 
     return step

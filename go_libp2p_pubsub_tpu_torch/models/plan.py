@@ -5,11 +5,12 @@ raises one of these, never a silent fallback.
 The port runs the scored GossipSub v1.1 heartbeat (with its attack
 formations: IHAVE broken-promise spam, the IWANT flood, graft flood,
 promise breakers, eclipse) and the unscored v1.0 heartbeat on its
-receive kernel (unpadded, pipelined gates, one topic per peer), with the
-single-topic router surface: flood publishing, direct peers, Bernoulli
-or exact-k gossip targets, PX candidate rotation and the shared-IP
-gater; and the unscored heartbeat T ticks per launch on the fused-window
-kernel (Bernoulli or exact-k targets; no PX, no direct peers).  Each
+receive kernel (unpadded, pipelined gates, one topic per peer or, with
+``paired_topics``, two), with the router surface: flood publishing,
+direct peers, Bernoulli or exact-k gossip targets, PX candidate rotation
+and the shared-IP gater; and the unscored heartbeat T ticks per launch
+on the fused-window kernel (Bernoulli or exact-k targets; one topic per
+peer, no PX, no direct peers).  Each
 refusal has a stable name (``SliceRefusal.name``) and its own message;
 tests match on the name.
 """
@@ -21,8 +22,6 @@ from __future__ import annotations
 MAX_WINDOW = 64
 
 REFUSALS: dict[str, str] = {
-    "paired": "paired-topic overlays (paired_topics=True) are not "
-              "ported yet",
     "faults": "fault schedules (churn, link loss, partitions) are not "
               "ported yet",
     "telemetry": "telemetry frames are not ported yet",
@@ -62,6 +61,10 @@ REFUSALS: dict[str, str] = {
                 "(a state with an active set): such sims step per tick",
     "fused_direct": "the fused window does not run direct peers "
                     "(cand_direct): such sims step per tick",
+    "fused_paired": "the fused window does not run paired-topic overlays "
+                    "(paired_topics=True): such sims step per tick (the "
+                    "slot-B mesh/backoff carry doubles the resident "
+                    "working set)",
     "fused_grid": "the fused kernel cannot keep one block resident on "
                   "the device, so its cooperative launch cannot run",
 }
@@ -82,8 +85,6 @@ def refuse(name: str):
 def check_kernel_config(cfg, sc) -> None:
     """Refuse a static config the step and receive kernel do not run
     (``sc`` None is the unscored v1.0 step)."""
-    if cfg.paired_topics:
-        refuse("paired")
     if cfg.n_candidates > 16:
         refuse("wide_candidates")
     if sc is None:
@@ -94,6 +95,19 @@ def check_kernel_config(cfg, sc) -> None:
         refuse("byzantine")
     if sc.counter_dtype not in ("bfloat16", "float32"):
         refuse("counter_dtype")
+
+
+#: the reference's message for a paired step off its combined path
+MSG_PAIRED_COMBINED = ("paired_topics needs the combined path "
+                       "(C<=16, no track_p3/force_split)")
+
+
+def check_paired_step(cfg, sc, force_split: bool) -> None:
+    """A paired step runs on the combined (kernel) path only: the
+    reference's ``ValueError``, raised before any named refusal."""
+    if cfg.paired_topics and (cfg.n_candidates > 16 or force_split
+                              or (sc is not None and sc.track_p3)):
+        raise ValueError(MSG_PAIRED_COMBINED)
 
 
 def check_step_options(*, force_split, pipeline_gates, shard_mesh,
@@ -143,6 +157,8 @@ def check_fused_window(cfg, sc, ticks: int, *, telemetry=None,
     check_kernel_config(cfg, sc)
     if sc is not None:
         refuse("fused_scored")
+    if cfg.paired_topics:
+        refuse("fused_paired")
     if telemetry is not None:
         refuse("telemetry")
     if shard_mesh is not None:

@@ -2,14 +2,16 @@
 its plain PyTorch version.
 
 Counterpart of ``go_libp2p_pubsub_tpu/ops/pallas/receive.py``
-(``make_receive_update`` / ``_receive_kernel``) for the unpaired options
-the port runs, scored (v1.1) and unscored (v1.0, ``score_cfg=None``);
-scored, with or without the attack options (``track_promises``, the
-IHAVE-spam targets override and the IWANT-flood serve accrual); and the
-router-surface options, served by one more kernel variant
-(``ReceiveConsts.full``): flood publishing and the shared-IP gater
-(scored), exact-k gossip targets and the PX trigger word (scored or
-not).
+(``make_receive_update`` / ``_receive_kernel``) for the options the port
+runs, scored (v1.1) and unscored (v1.0, ``score_cfg=None``); scored,
+with or without the attack options (``track_promises``, the IHAVE-spam
+targets override and the IWANT-flood serve accrual); the router-surface
+options, served by one more kernel variant (``ReceiveConsts.full``):
+flood publishing and the shared-IP gater (scored), exact-k gossip
+targets and the PX trigger word (scored or not); and paired topics
+(``ReceiveConsts.paired``, one more variant with every option of the
+full one): a second topic slot with its own handshake, mesh, backoff
+and, scored, time in mesh.
 The port runs unpadded, so the sender view of edge j is the plain
 ``(p + o_j) mod N`` read — no wrap-extended flats.
 
@@ -37,15 +39,25 @@ the sybil word (all C bits for an IHAVE- or IWANT-spamming sybil, else
 words once more, read as a sender stream over the edges whose ctrl byte
 carries CTRL_FLOOD.  With ``with_same_ip``: ``same_ip`` int32 [C, N],
 the same-IP sibling words (bit c of row cc: candidates c and cc share an
-address).
+address).  Paired (``PAIRED_OPERANDS``): ``ctrl2`` uint8 [C, N], slot
+B's sender flags (CTRL2_*); ``fresh_b`` [W, N], the senders' slot-B
+words, read over the edges whose ``ctrl2`` carries CTRL2_OUT_B;
+``wa_b``, ``grafts_b``, ``dropped_b``, ``meshsel_b`` [N] and, scored,
+``bo2_b`` [N]; ``backoff_b`` int16 [C, N] and, scored, ``tim_b`` int16
+[C, N].  On an edge whose offset is an odd multiple of T/2
+(``ReceiveConsts.odd_mask``) the partner holds the topic in its other
+slot: the two ctrl bytes' GRAFT/PRUNE/A bits cross slots.
 
 Returns make_receive_update's output order: scored ``(acq [W, N], mesh
 [N], backoff [C, N], *gates (7 x [N]), fd, inv, bp, tim, iws)``,
-unscored ``(acq, mesh, backoff, targets, backoff gate)``; with
-``with_px`` one more word last, ``px_rot`` int32 [N]: the PRUNEs and
-PRUNE-responses received, which trigger the step's PX rotation (the
-targets row of such a launch is written before the rotation and the
-step overwrites it).
+unscored ``(acq, mesh, backoff, targets, backoff gate)``; paired, each
+slot-B output after its slot-A twin (``mesh_b`` after ``mesh``,
+``backoff_b`` after ``backoff``, ``tim_b`` after ``tim``) and slot B's
+backoff gate row after the others; with ``with_px`` one more word last,
+``px_rot`` int32 [N]: the PRUNEs and PRUNE-responses received (paired:
+either slot's), which trigger the step's PX rotation (the targets row
+of such a launch is written before the rotation and the step overwrites
+it).
 """
 
 from __future__ import annotations
@@ -68,16 +80,24 @@ CTRL_DROP = 3      # PRUNE sent (prunes | negative-score drops)
 CTRL_A = 4         # "no PRUNE would come back"
 CTRL_ADV = 5       # raw IHAVE advert
 CTRL_FLOOD = 6     # flood-publish target (own publishes, flood_publish)
+# second ctrl byte (paired topics): the slot-B flags of the same edge
+CTRL2_OUT_B = 0    # slot-B eager-forward member (mesh_b | direct)
+CTRL2_GRAFT_B = 1  # slot-B GRAFT sent
+CTRL2_DROP_B = 2   # slot-B PRUNE sent
+CTRL2_A_B = 3      # slot-B "no PRUNE would come back"
 N_GATES = 7        # accept, gossip, publish, nonneg, payload, targets, backoff
 N_GATES_UNSCORED = 2   # targets, backoff
 
-#: launches of the CUDA kernel: the scored, unscored, scored attack and
-#: full (router-surface options) variants (plain integers; chip_smoke.py
-#: resets them before a main path and reads them after)
+#: launches of the CUDA kernel: the scored, unscored, scored attack,
+#: full (router-surface options) and paired (scored, unscored) variants
+#: (plain integers; chip_smoke.py resets them before a main path and
+#: reads them after)
 launches = 0
 launches_unscored = 0
 launches_attacks = 0
 launches_full = 0
+launches_paired = 0
+launches_paired_unscored = 0
 
 #: (C, W, scored) variants the CUDA kernel is instantiated for
 KERNEL_SHAPES = {(c, w, scored) for c in (8, 16) for w in (1, 2)
@@ -87,8 +107,19 @@ KERNEL_SHAPES = {(c, w, scored) for c in (8, 16) for w in (1, 2)
 SCORED_OPERANDS = ("valid", "pay", "gsp", "acc", "bo2", "static", "fd",
                    "inv", "bp", "tim", "iws")
 
+#: operands only the paired variant takes (``bo2_b`` and ``tim_b``
+#: scored only)
+PAIRED_OPERANDS = ("ctrl2", "fresh_b", "wa_b", "bo2_b", "grafts_b",
+                   "dropped_b", "meshsel_b", "backoff_b", "tim_b")
+
 #: ScoreSimConfig counter_dtype / bp_dtype names -> torch dtypes
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def n_gates(scored: bool, paired: bool) -> int:
+    """The carried gate words: seven scored, two unscored, and slot B's
+    backoff row last when paired."""
+    return (N_GATES if scored else N_GATES_UNSCORED) + int(paired)
 
 
 def _f32(x: float) -> float:
@@ -160,6 +191,11 @@ class ReceiveConsts:
     exact_k: bool = False
     with_px: bool = False
     with_same_ip: bool = False
+    # paired topics: the paired variant, and its static cross-slot
+    # routing (bit j: edge j's offset is an odd multiple of T/2, so the
+    # sender's slot-A control is the receiver's slot B and back)
+    paired: bool = False
+    odd_mask: int = 0
 
     @property
     def n_candidates(self) -> int:
@@ -181,6 +217,14 @@ class ReceiveConsts:
                 or self.with_same_ip)
 
 
+def odd_edge_mask(cfg) -> int:
+    """Paired topics: the candidate bits of the odd edges, whose offset
+    is an odd multiple of T/2, so that the partner holds the topic in
+    its other slot (0 without paired topics)."""
+    return sum(1 << j for j, o in enumerate(cfg.offsets)
+               if cfg.paired_topics and o % cfg.n_topics)
+
+
 def receive_consts(cfg, sc, *, promise_break: bool = False,
                    px: bool = False, same_ip: bool = False
                    ) -> ReceiveConsts:
@@ -192,6 +236,7 @@ def receive_consts(cfg, sc, *, promise_break: bool = False,
     the ``same_ip`` operand."""
     plan.check_kernel_config(cfg, sc)
     exact_k = not cfg.binomial_gossip_sampling
+    paired = dict(paired=cfg.paired_topics, odd_mask=odd_edge_mask(cfg))
     if sc is None:
         if same_ip:
             raise ValueError("same-IP sibling words need a score config")
@@ -200,11 +245,11 @@ def receive_consts(cfg, sc, *, promise_break: bool = False,
             cinv=tuple(cfg.cinv), backoff_restart=cfg.backoff_ticks - 1,
             d_lazy=cfg.d_lazy, history_length=cfg.history_length,
             gossip_factor=_f32(cfg.gossip_factor), exact_k=exact_k,
-            with_px=px)
+            with_px=px, **paired)
     return ReceiveConsts(
         offsets=tuple(int(o) for o in cfg.offsets), cinv=tuple(cfg.cinv),
         flood_publish=sc.flood_publish, exact_k=exact_k, with_px=px,
-        with_same_ip=same_ip,
+        with_same_ip=same_ip, **paired,
         counter_dtype=DTYPES[sc.counter_dtype],
         bp_dtype=DTYPES[sc.bp_dtype],
         backoff_restart=cfg.backoff_ticks - 1, d_lazy=cfg.d_lazy,
@@ -227,12 +272,17 @@ def receive_consts(cfg, sc, *, promise_break: bool = False,
 def score_from_counters(s: ScoreConsts, tim: torch.Tensor,
                         fd: torch.Tensor, inv: torch.Tensor,
                         bp: torch.Tensor,
-                        static: torch.Tensor | None) -> torch.Tensor:
+                        static: torch.Tensor | None,
+                        tim_b: torch.Tensor | None = None) -> torch.Tensor:
     """The peer-score formula on f32 counters, in the reference's op
-    order (compute_scores / the kernel's stage 2)."""
+    order (compute_scores / the kernel's stage 2); paired topics add
+    slot B's P1 (``tim_b``) to the topic part before its cap."""
     tq = tim / torch.full_like(tim, s.tim_quantum)
     topic = (s.c_tim * tq.clamp(max=s.tim_cap) + s.c_fd * fd
              + s.c_inv * inv * inv)
+    if tim_b is not None:
+        tqb = tim_b / torch.full_like(tim_b, s.tim_quantum)
+        topic = topic + s.c_tim * tqb.clamp(max=s.tim_cap)
     if s.topic_cap > 0:
         topic = topic.clamp(max=s.topic_cap)
     bp_ex = (bp - s.bp_thr).clamp(min=0.0)
@@ -299,21 +349,35 @@ def targets_row(k: ReceiveConsts, elig: torch.Tensor, seed: int,
     return elig & graph.pack_rows(u < p_g[None, :])
 
 
+def _pack_ctrl(C: int, words) -> torch.Tensor:
+    """uint8 [C, N]: byte c of sender p packs bit c of each (position,
+    flag word) pair at its position."""
+    out = words[0][1]
+    cidx = torch.arange(C, dtype=torch.int32, device=out.device)[:, None]
+    ctrl = torch.zeros((C, out.shape[0]), dtype=torch.uint8,
+                       device=out.device)
+    for bit, word in words:
+        ctrl |= (((word[None, :] >> cidx) & 1) << bit).to(torch.uint8)
+    return ctrl
+
+
 def ctrl_bytes(C: int, *, out, tgt, graft, drop, a, adv,
                flood=None) -> torch.Tensor:
     """The ctrl operand, uint8 [C, N]: byte c of sender p packs bit c of
     each per-sender flag word at its CTRL_* position (``flood``, the
     flood-publish targets, only with flood publishing)."""
-    cidx = torch.arange(C, dtype=torch.int32, device=out.device)[:, None]
-    ctrl = torch.zeros((C, out.shape[0]), dtype=torch.uint8,
-                       device=out.device)
     words = [(CTRL_OUT, out), (CTRL_TGT, tgt), (CTRL_GRAFT, graft),
              (CTRL_DROP, drop), (CTRL_A, a), (CTRL_ADV, adv)]
     if flood is not None:
         words.append((CTRL_FLOOD, flood))
-    for bit, word in words:
-        ctrl |= (((word[None, :] >> cidx) & 1) << bit).to(torch.uint8)
-    return ctrl
+    return _pack_ctrl(C, words)
+
+
+def ctrl2_bytes(C: int, *, out_b, graft_b, drop_b, a_b) -> torch.Tensor:
+    """The paired variant's second ctrl operand, uint8 [C, N]: slot B's
+    flags at their CTRL2_* positions."""
+    return _pack_ctrl(C, [(CTRL2_OUT_B, out_b), (CTRL2_GRAFT_B, graft_b),
+                          (CTRL2_DROP_B, drop_b), (CTRL2_A_B, a_b)])
 
 
 def _decay_keep(k: ReceiveConsts, x: torch.Tensor, decay: float,
@@ -323,7 +387,8 @@ def _decay_keep(k: ReceiveConsts, x: torch.Tensor, decay: float,
 
 
 def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
-              gsp=None, valid=None, inj_send=None):
+              gsp=None, valid=None, inj_send=None, ctrl2=None,
+              fresh_b=None):
     """Stage 1 over the C receiving edges: the senders' words heard
     (``news`` per message word), the GRAFT/PRUNE/A bits received and,
     with ``valid`` (scored), the per-edge valid/invalid news counts.
@@ -334,13 +399,18 @@ def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
     popcount of the sender's raw advert words (read whatever the gates
     say); with ``k.flood_publish``, the sender's injected words
     (``inj_send``) over the edges it flood-publishes on (CTRL_FLOOD),
-    under the receiver's payload gate."""
+    under the receiver's payload gate.  With ``k.paired``, the sender's
+    slot-B words (``fresh_b``) over the edges in its slot-B mesh
+    (CTRL2_OUT_B), under the receiver's payload gate, and the slot-B
+    GRAFT/PRUNE/A bits received (the last output, else None): on an odd
+    edge the two ctrl bytes' handshakes cross slots."""
     W = fresh.shape[0]
     n = seen.shape[1]
     z = torch.zeros((n,), dtype=torch.int32, device=seen.device)
     heard = [z] * W
     fd_cnt, iv_cnt, padv = [], [], []
     graft_recv = prune_recv = a_recv = broken = z
+    hs_b = [z, z, z]                 # slot B: GRAFT, PRUNE, A received
     if k.track_promises:
         lacked = torch.zeros((n,), dtype=torch.bool, device=seen.device)
         for w in range(W):
@@ -349,18 +419,32 @@ def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
     for j, (o, ci) in enumerate(zip(k.offsets, k.cinv)):
         # sender q = (p + o_j) mod N: roll(x, -o)[p] = x[(p + o) mod N]
         ctl = torch.roll(ctrl[ci], -o).to(torch.int32)
-        graft_recv = graft_recv | (((ctl >> CTRL_GRAFT) & 1) << j)
-        prune_recv = prune_recv | (((ctl >> CTRL_DROP) & 1) << j)
-        a_recv = a_recv | (((ctl >> CTRL_A) & 1) << j)
+        hs_a = [(ctl >> CTRL_GRAFT) & 1, (ctl >> CTRL_DROP) & 1,
+                (ctl >> CTRL_A) & 1]
+        if k.paired:
+            ctl2 = torch.roll(ctrl2[ci], -o).to(torch.int32)
+            hs2 = [(ctl2 >> CTRL2_GRAFT_B) & 1, (ctl2 >> CTRL2_DROP_B) & 1,
+                   (ctl2 >> CTRL2_A_B) & 1]
+            if (k.odd_mask >> j) & 1:
+                hs_a, hs2 = hs2, hs_a
+            hs_b = [acc | (bit << j) for acc, bit in zip(hs_b, hs2)]
+        graft_recv = graft_recv | (hs_a[0] << j)
+        prune_recv = prune_recv | (hs_a[1] << j)
+        a_recv = a_recv | (hs_a[2] << j)
         ok_p = 1 if pay is None else (pay >> j) & 1
         ok_g = 1 if gsp is None else ok_p & ((gsp >> j) & 1)
         fwd_on = ((ctl >> CTRL_OUT) & ok_p & 1) != 0
         gsp_on = ((ctl >> CTRL_TGT) & ok_g & 1) != 0
         if k.flood_publish:
             fl_on = ((ctl >> CTRL_FLOOD) & ok_p & 1) != 0
+        if k.paired:
+            fb_on = ((ctl2 >> CTRL2_OUT_B) & ok_p & 1) != 0
         fd_j = iv_j = z
         for w in range(W):
             got = torch.where(fwd_on, torch.roll(fresh[w], -o), 0)
+            if k.paired:
+                got = got | torch.where(fb_on, torch.roll(fresh_b[w], -o),
+                                        0)
             if k.flood_publish:
                 got = got | torch.where(fl_on, torch.roll(inj_send[w], -o),
                                         0)
@@ -382,7 +466,7 @@ def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
                 pa_j = pa_j + graph.popcount32(torch.roll(adv[w], -o))
             padv.append(pa_j)
     return (heard, graft_recv, prune_recv, a_recv, fd_cnt, iv_cnt, broken,
-            padv)
+            padv, hs_b if k.paired else None)
 
 
 def _acquired(heard, sub_all, injected) -> torch.Tensor:
@@ -408,44 +492,85 @@ def receive_update_plain(k: ReceiveConsts, **ops):
     return _receive_plain_unscored(k, **ops)
 
 
-def _receive_plain_unscored(k: ReceiveConsts, *, gseeds, ctrl, fresh, adv,
-                            sub_all, cand_sub, fanout, wa, grafts, dropped,
-                            meshsel, seen, injected, backoff):
-    heard, graft_recv, prune_recv, a_recv = _exchange(
-        k, ctrl, fresh, adv, seen)[:4]
+def _handshake(meshsel, wa, grafts, graft_recv, prune_recv, a_recv):
+    """A slot's handshake resolution: (mesh, retract)."""
     accept = graft_recv & wa
     retract = grafts & ~a_recv
-    mesh = ((meshsel | accept) & ~prune_recv) & ~retract
+    return ((meshsel | accept) & ~prune_recv) & ~retract, retract
+
+
+def _slot_b(k: ReceiveConsts, hs_b, *, wa_b, grafts_b, dropped_b,
+            meshsel_b, backoff_b, acc=None):
+    """Slot B's handshake and backoff (paired): (mesh_b, backoff_b,
+    backoff gate row, viol_b, px trigger bits); scored, the GRAFTs and
+    PRUNEs received pass the accept gate first."""
+    graft_b, prune_b, a_b = hs_b
+    if acc is not None:
+        graft_b, prune_b = graft_b & acc, prune_b & acc
+    mesh_b, retract_b = _handshake(meshsel_b, wa_b, grafts_b, graft_b,
+                                   prune_b, a_b)
+    bo_b, bo_gate_b = _backoff(k, backoff_b, dropped_b | prune_b | retract_b)
+    return mesh_b, bo_b, bo_gate_b, graft_b, prune_b | retract_b
+
+
+def _receive_plain_unscored(k: ReceiveConsts, *, gseeds, ctrl, fresh, adv,
+                            sub_all, cand_sub, fanout, wa, grafts, dropped,
+                            meshsel, seen, injected, backoff, ctrl2=None,
+                            fresh_b=None, **paired_ops):
+    ex = _exchange(k, ctrl, fresh, adv, seen, ctrl2=ctrl2, fresh_b=fresh_b)
+    heard, graft_recv, prune_recv, a_recv = ex[:4]
+    mesh, retract = _handshake(meshsel, wa, grafts, graft_recv, prune_recv,
+                               a_recv)
     bo_new, bo_gate = _backoff(k, backoff, dropped | prune_recv | retract)
-    tgt = targets_row(k, cand_sub & ~mesh & ~fanout & sub_all, gseeds[1],
-                      mesh.shape[0])
-    px = (prune_recv | retract,) if k.with_px else ()
-    return (_acquired(heard, sub_all, injected), mesh, bo_new, tgt,
-            bo_gate, *px)
+    elig = cand_sub & ~mesh & ~fanout & sub_all
+    px_val = prune_recv | retract
+    mesh_b = bo_b = ()
+    gate_b = ()
+    if k.paired:
+        mb, bb, gb, _, px_b = _slot_b(k, ex[-1], **paired_ops)
+        elig = elig & ~mb
+        px_val = px_val | px_b
+        mesh_b, bo_b, gate_b = (mb,), (bb,), (gb,)
+    tgt = targets_row(k, elig, gseeds[1], mesh.shape[0])
+    px = (px_val,) if k.with_px else ()
+    return (_acquired(heard, sub_all, injected), mesh, *mesh_b, bo_new,
+            *bo_b, tgt, bo_gate, *gate_b, *px)
 
 
 def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
                           adv, pay, gsp, acc, sub_all, cand_sub, fanout, wa,
                           bo2, grafts, dropped, meshsel, seen, injected,
                           backoff, static, fd, inv, bp, tim, iws, syb=None,
-                          inj_send=None, same_ip=None):
+                          inj_send=None, same_ip=None, ctrl2=None,
+                          fresh_b=None, bo2_b=None, tim_b=None,
+                          **paired_ops):
     C = k.n_candidates
     n = pay.shape[0]
     (heard, graft_recv, prune_recv, a_recv, fd_cnt, iv_cnt, broken,
-     padv) = _exchange(k, ctrl, fresh, adv, seen, pay, gsp, valid,
-                       inj_send)
+     padv, hs_b) = _exchange(k, ctrl, fresh, adv, seen, pay, gsp, valid,
+                             inj_send, ctrl2, fresh_b)
     graft_recv = graft_recv & acc
     prune_recv = prune_recv & acc
     viol = graft_recv & bo2
-    accept = graft_recv & wa
-    retract = grafts & ~a_recv
-    mesh = ((meshsel | accept) & ~prune_recv) & ~retract
+    mesh, retract = _handshake(meshsel, wa, grafts, graft_recv, prune_recv,
+                               a_recv)
+    px_val = prune_recv | retract
     acq = _acquired(heard, sub_all, injected)
     bo_new, bo_gate = _backoff(k, backoff, dropped | prune_recv | retract)
+    if k.paired:
+        mesh_b, bo_b, bo_gate_b, graft_b, px_b = _slot_b(
+            k, hs_b, acc=acc, **paired_ops)
+        viol_b = graft_b & bo2_b
+        px_val = px_val | px_b
 
     in_mesh = graph.expand_bits(mesh, C)
     tim_new = torch.where(in_mesh, (tim.to(torch.int32) + 1).clamp(
         max=32766), 0).to(torch.int16)
+    tim_b_new = None
+    if k.paired:
+        tim_b_new = torch.where(
+            graph.expand_bits(mesh_b, C),
+            (tim_b.to(torch.int32) + 1).clamp(max=32766), 0).to(torch.int16)
     fd_stack = torch.stack(fd_cnt)
     iv_stack = torch.stack(iv_cnt)
     fd_f = (fd.to(torch.float32) + fd_stack.to(torch.float32)).clamp(
@@ -456,6 +581,9 @@ def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
         k.inv_decay, k.counter_dtype)
     bp_f = bp.to(torch.float32) + graph.expand_bits(viol, C).to(
         torch.float32)
+    if k.paired:
+        # each slot's backoff violations count (gossipsub.go:747-765)
+        bp_f = bp_f + graph.expand_bits(viol_b, C).to(torch.float32)
     if k.track_promises:
         bp_f = bp_f + graph.expand_bits(broken, C).to(torch.float32)
     bp_new = _decay_keep(k, bp_f, k.bp_decay, k.bp_dtype)
@@ -475,23 +603,31 @@ def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
     # stage 2: next tick's gates from the stored (rounded) counters
     fd_n = fd_new.to(torch.float32)
     inv_n = inv_new.to(torch.float32)
-    score = score_from_counters(k.score, tim_new.to(torch.float32), fd_n,
-                                inv_n, bp_new.to(torch.float32), static)
+    score = score_from_counters(
+        k.score, tim_new.to(torch.float32), fd_n, inv_n,
+        bp_new.to(torch.float32), static,
+        tim_b=None if tim_b_new is None else tim_b_new.to(torch.float32))
     accept_g = graph.pack_rows(score >= k.gray_thr)
     gossip_g = graph.pack_rows(score >= k.gossip_thr)
     pub_g = graph.pack_rows(score >= k.publish_thr)
     nonneg_g = graph.pack_rows(score >= 0)
     gater = gater_row(fd_n, inv_n, gseeds[0], n, same_ip)
     elig = cand_sub & ~mesh & ~fanout & sub_all & gossip_g
+    if k.paired:
+        # one gossip selection for both topic slots, outside either mesh
+        elig = elig & ~mesh_b
     tgt = targets_row(k, elig, gseeds[1], n)
     if k.ihave_spam:
         # IHAVE-spamming sybils target every subscribed candidate
         tgt = (tgt & ~syb) | (cand_sub & syb)
     gates = (accept_g, gossip_g, pub_g, nonneg_g, accept_g & gater, tgt,
              bo_gate)
-    px = (prune_recv | retract,) if k.with_px else ()
-    return (acq, mesh, bo_new, *gates, fd_new, inv_new, bp_new, tim_new,
-            iws_new, *px)
+    px = (px_val,) if k.with_px else ()
+    if not k.paired:
+        return (acq, mesh, bo_new, *gates, fd_new, inv_new, bp_new,
+                tim_new, iws_new, *px)
+    return (acq, mesh, mesh_b, bo_new, bo_b, *gates, bo_gate_b, fd_new,
+            inv_new, bp_new, tim_new, tim_b_new, iws_new, *px)
 
 
 class _Args(ctypes.Structure):
@@ -523,7 +659,13 @@ class _Args(ctypes.Structure):
         + [(name, ctypes.c_void_p) for name in (
             "inj_send", "same_ip", "px_rot")]
         + [("full", ctypes.c_int), ("flood_publish", ctypes.c_int),
-           ("exact_k", ctypes.c_int)])
+           ("exact_k", ctypes.c_int)]
+        # the paired variant's fields, after those
+        + [(name, ctypes.c_void_p) for name in (
+            "ctrl2", "fresh_b", "wa_b", "bo2_b", "grafts_b", "dropped_b",
+            "meshsel_b", "backoff_b", "tim_b", "mesh_b_out",
+            "backoff_b_out", "tim_b_out")]
+        + [("odd_mask", ctypes.c_uint), ("paired", ctypes.c_int)])
 
 
 _WORDS_N = ("sub_all", "cand_sub", "fanout", "wa", "grafts", "dropped",
@@ -547,8 +689,13 @@ def _check_operands(k: ReceiveConsts, ops: dict) -> None:
         want_names.add("inj_send")
     if k.with_same_ip:
         want_names.add("same_ip")
+    if k.paired:
+        want_names |= set(PAIRED_OPERANDS)
+        if not k.scored:
+            want_names -= {"bo2_b", "tim_b"}
     if names != want_names:
-        variant = ("full" if k.full else "attack" if k.attacks else
+        variant = ("paired" if k.paired else "full" if k.full else
+                   "attack" if k.attacks else
                    "scored" if k.scored else "unscored")
         raise ValueError(
             f"{variant} receive operands: "
@@ -566,6 +713,15 @@ def _check_operands(k: ReceiveConsts, ops: dict) -> None:
         want["inj_send"] = ((W, n), torch.int32)
     if k.with_same_ip:
         want["same_ip"] = ((C, n), torch.int32)
+    if k.paired:
+        want.update({"ctrl2": ((C, n), torch.uint8),
+                     "fresh_b": ((W, n), torch.int32),
+                     "backoff_b": ((C, n), torch.int16)})
+        want.update({name: ((n,), torch.int32) for name in (
+            "wa_b", "grafts_b", "dropped_b", "meshsel_b")})
+        if k.scored:
+            want.update({"bo2_b": ((n,), torch.int32),
+                         "tim_b": ((C, n), torch.int16)})
     if k.scored:
         want.update({"valid": ((W,), torch.int32),
                      "fd": ((C, n), k.counter_dtype),
@@ -595,17 +751,18 @@ def receive_update(k: ReceiveConsts, **ops):
     CUDA tensors launch the kernel (a failed build or launch raises);
     CPU tensors run ``receive_update_plain``."""
     global launches, launches_unscored, launches_attacks, launches_full
+    global launches_paired, launches_paired_unscored
     _check_operands(k, ops)
     if ops["sub_all"].device.type == "cpu":
         return receive_update_plain(k, **ops)
     C = k.n_candidates
     W, n = ops["fresh"].shape
     dev = ops["sub_all"].device
-    n_gates = N_GATES if k.scored else N_GATES_UNSCORED
     acq = torch.empty((W, n), dtype=torch.int32, device=dev)
     mesh = torch.empty((n,), dtype=torch.int32, device=dev)
     bo_out = torch.empty((C, n), dtype=torch.int16, device=dev)
-    gates = torch.empty((n_gates, n), dtype=torch.int32, device=dev)
+    gates = torch.empty((n_gates(k.scored, k.paired), n), dtype=torch.int32,
+                        device=dev)
     outs = [("acq", acq), ("mesh", mesh), ("backoff_out", bo_out),
             ("gates", gates)]
     a = _Args()
@@ -652,10 +809,21 @@ def receive_update(k: ReceiveConsts, **ops):
         a.inj_send = ops["inj_send"].data_ptr()
     if k.with_same_ip:
         a.same_ip = ops["same_ip"].data_ptr()
+    paired_outs = []
+    if k.paired:
+        a.paired = 1
+        a.odd_mask = k.odd_mask
+        for name in PAIRED_OPERANDS:
+            if name in ops:
+                setattr(a, name, ops[name].data_ptr())
+        paired_outs = [("mesh_b_out", torch.empty_like(mesh)),
+                       ("backoff_b_out", torch.empty_like(bo_out))]
+        if k.scored:
+            paired_outs.append(("tim_b_out", torch.empty_like(ops["tim"])))
     if k.with_px:
         outs.append(("px_rot", torch.empty((n,), dtype=torch.int32,
                                            device=dev)))
-    for name, t in outs:
+    for name, t in outs + paired_outs:
         setattr(a, name, t.data_ptr())
     lib = _build.load("receive")
     fn = lib.gossip_receive_update
@@ -669,7 +837,12 @@ def receive_update(k: ReceiveConsts, **ops):
                  int(k.counter_dtype == torch.bfloat16),
                  int(k.bp_dtype == torch.bfloat16), stream)
     _build.check(err, "receive_update")
-    if k.full:
+    if k.paired:
+        if k.scored:
+            launches_paired += 1
+        else:
+            launches_paired_unscored += 1
+    elif k.full:
         launches_full += 1
     elif k.attacks:
         launches_attacks += 1
@@ -677,8 +850,15 @@ def receive_update(k: ReceiveConsts, **ops):
         launches += 1
     else:
         launches_unscored += 1
-    return (acq, mesh, bo_out, *gates.unbind(0),
-            *(t for _, t in outs[4:]))
+    rest = [t for _, t in outs[4:]]
+    if not k.paired:
+        return (acq, mesh, bo_out, *gates.unbind(0), *rest)
+    # the reference's order: each slot-B output after its slot-A twin
+    mesh_b, bo_b, *tim_b = (t for _, t in paired_outs)
+    if k.scored:
+        fd_o, inv_o, bp_o, tim_o, iws_o, *px = rest
+        rest = [fd_o, inv_o, bp_o, tim_o, *tim_b, iws_o, *px]
+    return (acq, mesh, mesh_b, bo_out, bo_b, *gates.unbind(0), *rest)
 
 
 def operand_bytes(ops: dict, outs) -> int:

@@ -33,10 +33,13 @@ N_PEERS, N_TOPICS, N_CAND, N_MSGS, WINDOW = 1_048_576, 10, 16, 24, 8
 OFFSETS_SEED, SIM_SEED, MSG_SEED = 7, 3, 0
 
 
-def subs_matrix(n: int, t: int) -> np.ndarray:
-    """Every peer subscribed to its residue-class topic p mod t."""
+def subs_matrix(n: int, t: int, paired: bool = False) -> np.ndarray:
+    """Every peer subscribed to its residue-class topic p mod t (and,
+    ``paired``, to p mod t + t/2 as well)."""
     subs = np.zeros((n, t), dtype=bool)
     subs[np.arange(n), np.arange(n) % t] = True
+    if paired:
+        subs[np.arange(n), (np.arange(n) % t + t // 2) % t] = True
     return subs
 
 
@@ -50,19 +53,24 @@ def msgs(rng, n: int, t: int, m: int, horizon: int):
 
 
 def build(device, n_peers: int = N_PEERS, n_topics: int = N_TOPICS,
-          horizon: int = 8, exact_k: bool = False):
+          horizon: int = 8, exact_k: bool = False, paired: bool = False):
     """(cfg, params, state, msg_topic, msg_publish_tick); messages are
     published at ticks drawn over [0, horizon) (the benchmark's 8: half
     its 16-tick run); ``exact_k`` draws the gossip targets as exact
-    k-subsets (``binomial_gossip_sampling=False``)."""
+    k-subsets (``binomial_gossip_sampling=False``); ``paired`` subscribes
+    every peer to its class r and to r + T/2 (paired topics, per tick
+    only: the fused window refuses them)."""
     n, t = n_peers, n_topics
     cfg = gs.GossipSimConfig(
-        offsets=gs.make_gossip_offsets(t, N_CAND, n, seed=OFFSETS_SEED),
-        n_topics=t, binomial_gossip_sampling=not exact_k)
+        offsets=gs.make_gossip_offsets(t, N_CAND, n, seed=OFFSETS_SEED,
+                                       paired=paired),
+        n_topics=t, binomial_gossip_sampling=not exact_k,
+        paired_topics=paired)
     topic, origin, tick = msgs(np.random.default_rng(MSG_SEED), n, t,
                                N_MSGS, horizon)
-    params, state = gs.make_gossip_sim(cfg, subs_matrix(n, t), topic,
-                                       origin, tick, seed=SIM_SEED,
+    params, state = gs.make_gossip_sim(cfg, subs_matrix(n, t, paired),
+                                       topic, origin, tick,
+                                       seed=SIM_SEED,
                                        track_first_tick=False,
                                        device=device)
     return cfg, params, state, topic, tick

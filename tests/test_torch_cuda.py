@@ -1,12 +1,13 @@
 """Card-only tests of the port: each CUDA kernel against its plain
-PyTorch version at a small size (the receive kernel scored, unscored and
-with its attack options, the select kernel, the fused-window kernel with
-Bernoulli and exact-k targets), and the scored step (plain, under every
-attack formation at once, and with each router-surface option — flood
-publishing, exact-k targets, PX rotation, the shared-IP gater, direct
-peers — alone and all together, scored and unscored) and the unscored
-fused window on the card against the CPU.  Exact: every output bit for
-bit.
+PyTorch version at a small size (the receive kernel scored, unscored,
+with its attack options and paired, the select kernel, the fused-window
+kernel with Bernoulli and exact-k targets), and the scored step (plain,
+under every attack formation at once, and with each router-surface
+option — flood publishing, exact-k targets, PX rotation, the shared-IP
+gater, direct peers — alone and all together, scored and unscored), the
+paired step (alone and with everything on, scored and unscored) and the
+unscored fused window on the card against the CPU.  Exact: every output
+bit for bit.
 
 They skip without a card; on the card run
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest``
@@ -449,3 +450,147 @@ def test_surface_step_on_the_card_matches_the_cpu(cuda, option, c, w_words):
         assert (s_g.active.cpu() != active0).any()
     if p_g.cand_direct is not None:
         assert not (s_g.mesh & p_g.cand_direct).any()
+
+
+PAIRED = {
+    "alone": dict(),
+    "unscored": dict(score=False),
+    # every option of the full variant, scored; unscored, PX, direct
+    # peers and exact-k
+    "everything": dict(px=True, shared_ip=True, direct=True,
+                       sc=dict(flood_publish=True, sybil_ihave_spam=True,
+                               sybil_iwant_spam=True, topic_score_cap=50.0)),
+    "everything_unscored": dict(score=False, px=True, direct=True,
+                                exact_k=True),
+}
+
+
+def _paired_sim(option, c, w_words, device, n=4060, t=4, seed=8):
+    """A paired-topic sim with the named options (n a multiple of 29:
+    the direct overlay tiles the ring)."""
+    case = PAIRED[option]
+    offsets = pgs.make_gossip_offsets(t, c, n, seed=seed, paired=True)
+    cfg = pgs.GossipSimConfig(
+        offsets=offsets, n_topics=t, paired_topics=True, backoff_ticks=6,
+        binomial_gossip_sampling=not case.get("exact_k"),
+        **(SMALL if c == 8 else {}))
+    scored = case.get("score", True)
+    sc = pgs.ScoreSimConfig(**case.get("sc", {})) if scored else None
+    rng = np.random.default_rng(seed + w_words)
+    m = 32 * w_words - 2
+    own = np.arange(n) % t
+    subs = np.zeros((n, t), dtype=bool)
+    subs[np.arange(n), own] = True
+    subs[np.arange(n), (own + t // 2) % t] = True
+    sybil = rng.random(n) < 0.2
+    origin = np.flatnonzero(~sybil)[rng.integers(0, (~sybil).sum(), m)]
+    ticks = np.sort(rng.integers(0, 16, m)).astype(np.int32)
+    kw = {}
+    if scored:
+        kw = dict(sybil=sybil, msg_invalid=rng.random(m) < 0.25,
+                  app_score=rng.normal(0, 0.1, n).astype(np.float32))
+        if case.get("shared_ip"):
+            ip = np.arange(n)
+            sid = np.flatnonzero(sybil)
+            ip[sid] = n + np.arange(len(sid)) // 4
+            kw["peer_ip"] = ip
+    if case.get("direct"):
+        f = (np.arange(n) % 29) == 0
+        de = np.zeros((n, c), dtype=bool)
+        for c_ in (0, cfg.cinv[0]):
+            de[:, c_] = f | np.roll(f, -int(offsets[c_]))
+        kw["direct_edges"] = de
+    if case.get("px"):
+        kw["px_candidates"] = cfg.d_hi + 1
+    return (cfg, sc, *pgs.make_gossip_sim(
+        cfg, subs, origin % t, origin, ticks, seed=seed, score_cfg=sc,
+        device=device, **kw))
+
+
+def _launch_counts():
+    return (prc.launches, prc.launches_attacks, prc.launches_unscored,
+            prc.launches_full, prc.launches_paired,
+            prc.launches_paired_unscored)
+
+
+@pytest.mark.parametrize("option", sorted(PAIRED))
+@pytest.mark.parametrize("c", [8, 16])
+@pytest.mark.parametrize("w_words", [1, 2])
+def test_paired_step_on_the_card_matches_the_cpu(cuda, option, c, w_words):
+    cfg, sc, p_c, s_c = _paired_sim(option, c, w_words, "cpu")
+    _, _, p_g, s_g = _paired_sim(option, c, w_words, cuda)
+    step_c = pgs.make_gossip_step(cfg, sc, device="cpu")
+    step_g = pgs.make_gossip_step(cfg, sc, device=cuda)
+    before = _launch_counts()
+    for tick in range(20):
+        s_c = step_c(p_c, s_c)[0]
+        s_g = step_g(p_g, s_g)[0]
+        a, b = convert.state_to_numpy(s_c), convert.state_to_numpy(s_g)
+        for name in ("mesh", "mesh_b", "fanout", "backoff", "backoff_b",
+                     "have", "recent", "iwant_serves", "active"):
+            if a[name] is None:
+                assert b[name] is None, name
+                continue
+            np.testing.assert_array_equal(a[name], b[name],
+                                          err_msg=f"{tick} {name}")
+        for name, v in (a["scores"] or {}).items():
+            if v is not None:
+                np.testing.assert_array_equal(v, b["scores"][name],
+                                              err_msg=f"{tick} {name}")
+        assert len(a["gates"]) == (8 if sc is not None else 3)
+        for i, (x, y) in enumerate(zip(a["gates"], b["gates"])):
+            np.testing.assert_array_equal(x, y, err_msg=f"{tick} gate {i}")
+    moved = tuple(y - x for x, y in zip(before, _launch_counts()))
+    assert moved == ((0, 0, 0, 0, 20, 0) if sc is not None
+                     else (0, 0, 0, 0, 0, 20))
+    assert bool(s_g.mesh_b.any()) and int(pg.popcount32(s_g.have).sum()) > 0
+
+
+@pytest.mark.parametrize("option", ["everything", "everything_unscored"])
+@pytest.mark.parametrize("c", [8, 16])
+@pytest.mark.parametrize("w_words", [1, 2])
+def test_paired_receive_kernel_matches_plain_on_random_operands(
+        cuda, option, c, w_words):
+    """The operands of a real paired tick with every handshake word, both
+    ctrl bytes and the slot-B sender words redrawn at random."""
+    cfg, sc, params, state = _paired_sim(option, c, w_words, "cpu")
+    step = pgs.make_gossip_step(cfg, sc, device="cpu")
+    captured = []
+    real = prc.receive_update
+
+    def capture(k, **ops):
+        captured.append((k, ops))
+        return real(k, **ops)
+
+    prc.receive_update = capture
+    try:
+        for _ in range(6):
+            state = step(params, state)[0]
+    finally:
+        prc.receive_update = real
+    k, ops = captured[-1]
+    assert k.paired and k.odd_mask
+    rng = np.random.default_rng(70 + c + w_words)
+    n = ops["sub_all"].shape[0]
+    for name in ("wa", "grafts", "dropped", "meshsel", "wa_b", "grafts_b",
+                 "dropped_b", "meshsel_b", "fanout"):
+        ops[name] = _words(rng, (n,), c)
+    ops["fresh_b"] = _words(rng, (w_words, n)) & _words(rng, (w_words, n))
+    ops["ctrl"] = torch.from_numpy(
+        rng.integers(0, 128, size=(c, n)).astype(np.uint8))
+    ops["ctrl2"] = torch.from_numpy(
+        rng.integers(0, 16, size=(c, n)).astype(np.uint8))
+    ops["backoff_b"] = torch.from_numpy(
+        rng.integers(0, 7, size=(c, n)).astype(np.int16))
+    if sc is not None:
+        for name in ("bo2", "bo2_b", "acc", "pay"):
+            ops[name] = _words(rng, (n,), c)
+        ops["tim_b"] = torch.from_numpy(
+            rng.integers(0, 32767, size=(c, n)).astype(np.int16))
+    want = prc.receive_update_plain(k, **ops)
+    before = _launch_counts()
+    got = prc.receive_update(k, **_to(ops, cuda))
+    torch.cuda.synchronize()
+    assert sum(_launch_counts()) == sum(before) + 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g.cpu(), w), f"output {i}"

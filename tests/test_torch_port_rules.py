@@ -135,8 +135,8 @@ def _fused_run(n_ticks, **kw):
 
 N = 256
 REFUSED = {
-    "paired": [lambda: _step(cfg=_cfg(paired_topics=True)),
-               lambda: _window(cfg=_cfg(paired_topics=True))],
+    # paired overlays step per tick
+    "fused_paired": [lambda: _window(cfg=_cfg(paired_topics=True))],
     "faults": [lambda: _sim(fault_schedule=object())],
     "telemetry": [lambda: _step(telemetry=object()),
                   lambda: _window(telemetry=object())],

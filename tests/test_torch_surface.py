@@ -496,7 +496,7 @@ def test_everything_build_follows_the_benchmark_draws():
     assert int(pg.popcount32(state.active).min()) >= 14
     step = pgs.make_gossip_step(cfg, sc, device="cpu")
     end = pgs.gossip_run(params, state, 12, step, device="cpu")
-    live = everything.options_live(params, state, end)
+    live = everything.options_live(params, state.active, end)
     assert live["active_rotated"] > 0 and live["direct_in_mesh"] == 0
     assert live["same_ip_words"] and live["sybil_static_min"] < 0
     out = adversarial.gates(cfg, params, end, m_topic, m_tick, 12)
