@@ -75,7 +75,7 @@ Phases (any failure exits non-zero; nothing is caught):
    make_gossip_step / gossip_run (counts reset just before and read just
    after: the unscored paired variant launched once per tick, no other
    receive variant), both slots' mean mesh degree >= Dlo;
-5g. the slice's main path: the JAX package's everything-on benchmark
+5g. the fifth slice's main path: the JAX package's everything-on benchmark
    as written (bench_suite.py bench_gossipsub_v11_everything: paired
    topics, topic_score_cap=50, 20% sybils four to an address running both
    gossip-repair attacks, PX over 14 of the 16 candidates, the direct
@@ -91,6 +91,40 @@ Phases (any failure exits non-zero; nothing is caught):
    tick and no other receive variant, counts reset just before and read
    just after; then 20 more heartbeats under torch.profiler for the
    device's idle share;
+5h. the receive kernel under faults against its plain version, each
+   family at N = 1,000,000, C = 16, W = 1 (the flagship's scored
+   options, the attack options with the IWANT flood's flood_ok word, the
+   full variant, paired) and the unscored one at the resident shapes:
+   on seeded random operands with a tenth of the peers down, and on the
+   operands of a real tick of a 1M-peer sim under the churn benchmark's
+   schedule (the benchmark's own sim for the flagship options, the
+   adversarial, everything-on and paired everything-on sims with it
+   attached for the others; tick 130, inside a churn wave and the
+   partition, with some peer down and some edge cut; unscored, tick 30
+   of the resident configuration under the same kind of schedule), each
+   faulted variant launched once per tick of the run to it and no other
+   receive variant: every output bit-identical; both timed;
+5i. the slice's main path: the JAX package's churn benchmark as written
+   (bench_suite.py bench_gossipsub_v11_churn: the flagship under 10%
+   churn in three staggered waves, 2% link loss and a 30-tick half/half
+   partition; go_libp2p_pubsub_tpu_torch/churn.py) through
+   make_gossip_sim / make_gossip_step / gossip_run + gossip_run_curve,
+   100 warm-up and 150 timed heartbeats: its three rows (heartbeats/s,
+   the delivery fraction of the settled messages, the probes' median
+   recovery ticks) and its two gates (fraction above 0.80, some probe
+   recovered), the faults shown live (peers down, edges cut on tick
+   130, the fraction below 1), the faulted receive variant launched once
+   per tick and no other receive variant, counts reset just before and
+   read just after; one tick's fault masks (the link draw) timed alone;
+   then 20 more heartbeats under torch.profiler for the idle share;
+5j. the fused-window kernel under faults and cold restart against its
+   plain version at N = 1,048,576, T = 8, one window of the resident
+   configuration under the churn benchmark's kind of schedule (cold
+   restart on, rejoins inside the window), timed, the window's fault rows
+   timed apart; then 64 heartbeats on fused windows (counts reset just
+   before and read just after: the faulted fused kernel once per window,
+   nothing else) against the same ticks one by one, equal digests, with
+   rejoins inside the 64 ticks;
 6. the unscored receive kernel against its plain version at the resident
    configuration's shapes (N = 1,048,576, C = 16, W = 1), on seeded random
    operands and on the operands of a real unscored tick: every output
@@ -302,6 +336,22 @@ def paired_receive_operands(k, ops, n: int, device, seed: int):
     return out
 
 
+def fault_operands(k, ops, device, seed: int):
+    """``ops`` with the faulted variant's own operands, seeded: the alive
+    word 0 at a tenth of the peers and, under the IWANT flood, random
+    flood_ok bits."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    n = ops["sub_all"].shape[0]
+    down = torch.rand(n, generator=g, device=device) < 0.1
+    out = dict(ops, alive_w=torch.where(down, 0, -1).to(torch.int32))
+    if k.iwant_spam:
+        out["flood_ok"] = torch.randint(0, 1 << k.n_candidates, (n,),
+                                        generator=g, device=device).to(
+                                            torch.int32)
+    return out
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per compiled kernel: its name with its template
     arguments (``receive_kernel<16,1,1,0,1,1>``), registers and spill
@@ -333,7 +383,9 @@ def receive_ops(k, ops) -> int:
     for the exact-k ranks; paired topics, ~8 per edge for the second ctrl
     byte and its cross-slot routing, ~20 per row for slot B's backoff and
     (scored) time in mesh and P1, and ~8 per message word over an edge
-    whose slot-B forward is open (this tick's data)."""
+    whose slot-B forward is open (this tick's data); faults, ~2 per edge
+    and message word (the heard words masked) and ~8 per peer (the
+    handshake words and the flood's gate)."""
     n = ops["sub_all"].shape[0]
     W = ops["fresh"].shape[0]
     C = k.n_candidates
@@ -353,7 +405,8 @@ def receive_ops(k, ops) -> int:
         n_syb = int((ops["syb"] != 0).sum())
         extra = n * C * 12 + 3 * n_syb * C * W
     extra += n * C * (3 * k.flood_publish + 4 * C * k.with_same_ip
-                      + 3 * C * k.exact_k + (8 + 20) * k.paired)
+                      + 3 * C * k.exact_k + (8 + 20) * k.paired
+                      + 2 * W * k.faults) + 8 * n * k.faults
     return n * C * (15 + per_row) + 8 * open_words + extra
 
 
@@ -397,11 +450,19 @@ def fused_window_ops(k, ops, select_rows: int) -> int:
     for the two fronts, handshake and ring, ~38 per candidate row
     (ctrl pack, edge read, backoff, targets draw), ~6 per message word
     per edge at most; per selection the data runs (k > 0), C lane-hash
-    draws (~10 each) and C * C rank compares (~3 each)."""
+    draws (~10 each) and C * C rank compares (~3 each); under faults
+    ~16 more per peer-tick (the dead edges, the graft, fanout and send
+    masks in both fronts, the handshake masks) and ~2 per message word
+    per edge (the heard words masked); with cold restart ~4 per ring
+    word per peer-tick (the clear in both fronts and the ring write)."""
     C = k.n_candidates
     W, n = ops["have"].shape
     T = len(ops["seeds"])
-    return (n * T * (90 + 38 * C + 6 * C * W)
+    faulted = ops.get("alive") is not None
+    cold = ops.get("rejoin") is not None
+    hg = ops["recent"].shape[0]
+    return (n * T * (90 + 38 * C + 6 * C * W
+                     + faulted * (16 + 2 * C * W) + cold * 4 * hg * W)
             + select_rows * (10 * C + 3 * C * C))
 
 
@@ -411,12 +472,16 @@ def main() -> None:
              "an NVIDIA GPU")
     import dataclasses
 
+    import numpy as np
+
     from go_libp2p_pubsub_tpu_torch import (
         adversarial,
+        churn,
         everything,
         flagship,
         resident,
     )
+    from go_libp2p_pubsub_tpu_torch.models import faults
     from go_libp2p_pubsub_tpu_torch.models import gossipsub as pg
     from go_libp2p_pubsub_tpu_torch.ops import graph
     from go_libp2p_pubsub_tpu_torch.ops.kernels import _build
@@ -519,7 +584,7 @@ def main() -> None:
     step = pg.make_gossip_step(cfg, sc, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    krecv.launches = 0
+    krecv.launches.clear()
     ksel.launches = 0
     state = pg.gossip_run(params, state, WARMUP, step, device=dev)
     torch.cuda.synchronize()
@@ -531,7 +596,8 @@ def main() -> None:
     state = pg.gossip_run(params, state, TIMED, step, device=dev)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"receive": krecv.launches, "select": ksel.launches}
+    launches = {"receive": krecv.launches["scored"],
+                "select": ksel.launches}
     peak = torch.cuda.max_memory_allocated()
     reach = pg.reach_counts_from_have(params, state).cpu().numpy()
     settled = msg_tick < WARMUP + TIMED - 30
@@ -604,7 +670,7 @@ def main() -> None:
     step = pg.make_gossip_step(cfg, sc, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    krecv.launches = krecv.launches_attacks = 0
+    krecv.launches.clear()
     ksel.launches = 0
     # warm-up tick by tick: the attacks' levels (they fade between
     # publishes, so the end state alone may not show them) and the
@@ -623,8 +689,9 @@ def main() -> None:
     state = pg.gossip_run(params, state, TIMED, step, device=dev)
     torch.cuda.synchronize()
     dt_a = time.perf_counter() - t0
-    launches_adv = {"receive_attacks": krecv.launches_attacks,
-                    "receive": krecv.launches, "select": ksel.launches}
+    launches_adv = {"receive_attacks": krecv.launches["attacks"],
+                    "receive": krecv.launches["scored"],
+                    "select": ksel.launches}
     peak_a = torch.cuda.max_memory_allocated()
     gates = adversarial.gates(cfg, params, state, msg_topic, msg_tick,
                               horizon)
@@ -734,8 +801,7 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     alloc0_e = torch.cuda.memory_allocated()
-    krecv.launches = krecv.launches_attacks = krecv.launches_full = 0
-    krecv.launches_unscored = 0
+    krecv.launches.clear()
     ksel.launches = 0
     # warm-up tick by tick: the attacks' levels, the ledger's bound, the
     # direct edges out of every mesh and the flood bits on the ctrl bytes
@@ -765,10 +831,10 @@ def main() -> None:
     state = pg.gossip_run(params, state, TIMED, step, device=dev)
     torch.cuda.synchronize()
     dt_e = time.perf_counter() - t0
-    launches_ev = {"receive_full": krecv.launches_full,
-                   "receive_attacks": krecv.launches_attacks,
-                   "receive": krecv.launches,
-                   "receive_unscored": krecv.launches_unscored,
+    launches_ev = {"receive_full": krecv.launches["full"],
+                   "receive_attacks": krecv.launches["attacks"],
+                   "receive": krecv.launches["scored"],
+                   "receive_unscored": krecv.launches["unscored"],
                    "select": ksel.launches}
     peak_e = torch.cuda.max_memory_allocated()
     gates_e = adversarial.gates(cfg, params, state, msg_topic, msg_tick,
@@ -861,21 +927,22 @@ def main() -> None:
                      fused_window_ops(k_fx, fops, fx_rows))
     del want, got, fops, st
     win_x = pg.make_fused_window(cfg_x, None, ticks_fused=Tw, device=dev)
-    krecv.launches_full = krecv.launches_unscored = 0
+    krecv.launches.clear()
     ksel.launches = kfused.launches = 0
     end_fused = pg.gossip_run_fused(params, state, 64, win_x, device=dev)
     torch.cuda.synchronize()
-    counts_x = {"fused": kfused.launches, "receive_full": krecv.launches_full,
-                "receive_unscored": krecv.launches_unscored,
+    counts_x = {"fused": kfused.launches,
+                "receive_full": krecv.launches["full"],
+                "receive_unscored": krecv.launches["unscored"],
                 "select": ksel.launches}
     if counts_x != {"fused": 64 // Tw, "receive_full": 0,
                     "receive_unscored": 0, "select": 0}:
         fail(f"exact-k fused launches {counts_x}")
     d_fx = digest(end_fused)
     d_tx = digest(pg.gossip_run(params, state, 64, step_x, device=dev))
-    if d_fx != d_tx or krecv.launches_full != 64:
+    if d_fx != d_tx or krecv.launches["full"] != 64:
         fail(f"exact-k digest: per-tick {d_tx} != fused {d_fx} "
-             f"(full launches {krecv.launches_full})")
+             f"(full launches {krecv.launches['full']})")
     deg_x = pg.mesh_degrees(end_fused)[params.subscribed].to(
         torch.float64).mean().item()
     if not deg_x >= cfg_x.d_lo:
@@ -975,16 +1042,16 @@ def main() -> None:
     step_up = pg.make_gossip_step(cfg_up, None, device=dev)
     box = [state]
     torch.cuda.synchronize()
-    krecv.launches = krecv.launches_unscored = krecv.launches_full = 0
-    krecv.launches_attacks = krecv.launches_paired = 0
-    krecv.launches_paired_unscored = ksel.launches = 0
+    krecv.launches.clear()
+    ksel.launches = 0
     tick_ops = capture_receive(lambda: box.append(pg.gossip_run(
         params, state, RES_WARMUP, step_up, device=dev)), krecv)
     torch.cuda.synchronize()
-    launches_up = {"receive_paired_unscored": krecv.launches_paired_unscored,
-                   "receive_unscored": krecv.launches_unscored,
-                   "receive_paired": krecv.launches_paired,
-                   "receive_full": krecv.launches_full,
+    launches_up = {"receive_paired_unscored":
+                   krecv.launches["paired_unscored"],
+                   "receive_unscored": krecv.launches["unscored"],
+                   "receive_paired": krecv.launches["paired"],
+                   "receive_full": krecv.launches["full"],
                    "select": ksel.launches}
     if (launches_up["receive_paired_unscored"] != RES_WARMUP
             or launches_up["receive_unscored"] or launches_up["receive_paired"]
@@ -1016,7 +1083,8 @@ def main() -> None:
           f"{up_bound[0]:.4f} ms ({up_bound[1]})")
     del want, got, ops, tick_ops, params, state, step_up, box, end_up
 
-    # -- 5g. the slice's main path: the everything-on benchmark as written
+    # -- 5g. the fifth slice's main path: the everything-on benchmark as
+    # written
     # (paired topics), counts reset just before and read just after
     cfg, sc, params, state, msg_topic, msg_tick, _ = everything.build(
         dev, horizon=horizon, paired=True)
@@ -1025,9 +1093,8 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     alloc0_p = torch.cuda.memory_allocated()
-    krecv.launches = krecv.launches_unscored = krecv.launches_full = 0
-    krecv.launches_attacks = krecv.launches_paired = 0
-    krecv.launches_paired_unscored = ksel.launches = 0
+    krecv.launches.clear()
+    ksel.launches = 0
     bp_max = syb_serves = serves_warm = direct_meshed = 0
     for _ in range(WARMUP):
         state = pg.gossip_run(params, state, 1, step, device=dev)
@@ -1044,12 +1111,13 @@ def main() -> None:
     state = pg.gossip_run(params, state, TIMED, step, device=dev)
     torch.cuda.synchronize()
     dt_p = time.perf_counter() - t0
-    launches_pp = {"receive_paired": krecv.launches_paired,
-                   "receive_paired_unscored": krecv.launches_paired_unscored,
-                   "receive_full": krecv.launches_full,
-                   "receive_attacks": krecv.launches_attacks,
-                   "receive": krecv.launches,
-                   "receive_unscored": krecv.launches_unscored,
+    launches_pp = {"receive_paired": krecv.launches["paired"],
+                   "receive_paired_unscored":
+                   krecv.launches["paired_unscored"],
+                   "receive_full": krecv.launches["full"],
+                   "receive_attacks": krecv.launches["attacks"],
+                   "receive": krecv.launches["scored"],
+                   "receive_unscored": krecv.launches["unscored"],
                    "select": ksel.launches}
     peak_p = torch.cuda.max_memory_allocated()
     gates_p = adversarial.gates(cfg, params, state, msg_topic, msg_tick,
@@ -1108,6 +1176,306 @@ def main() -> None:
         device_busy_ms_per_tick=prof_p["device_busy_ms_per_tick"],
         profile_kernels=prof_p["kernels"][:8])
     del params, state, active0, step, box
+
+    # -- 5h. B1 under faults against its plain version, each family, on
+    # seeded random operands (a tenth of the peers down) and on a real
+    # tick of a 1M-peer sim under the churn benchmark's schedule: tick
+    # 130, inside the third churn wave and the partition; the faulted
+    # variant's launches counted over the run to it
+    t_real = churn.heal_tick() - 20
+    faulted = {}
+
+    def faulted_tick(label, sim, k):
+        """Run ``sim`` (cfg, sc, params, state), its compiled churn
+        schedule attached, to tick ``t_real`` with the launch counts
+        reset; the operands of that tick, the schedule's masks there and
+        the launches of each receive variant over the run."""
+        cfg_, sc_, params_, state_ = sim
+        step_ = pg.make_gossip_step(cfg_, sc_, device=dev)
+        krecv.launches.clear()
+        ops_ = capture_receive(lambda: pg.gossip_run(
+            params_, state_, t_real + 1, step_, device=dev), krecv)
+        torch.cuda.synchronize()
+        launched = dict(krecv.launches)
+        if launched != {krecv.variant(k): t_real + 1}:
+            fail(f"{label}: launches {launched}")
+        fm = faults.tick_masks(params_.faults, cfg_.offsets, cfg_.cinv,
+                               t_real)
+        down = int((ops_["alive_w"] == 0).sum())
+        cut = int(graph.popcount32(fm.alive_all & ~fm.send_ok).sum())
+        if not (down > 0 and cut > 0):
+            fail(f"{label}: tick {t_real} has {down} down peers and {cut} "
+                 "cut edges")
+        return ops_, down, cut, t_real + 1
+
+    def faulted_check(label, k, rand_ops, tick_ops, down, cut, launched,
+                      tick=t_real, k_rand=None):
+        """The faulted variant ``k`` against its plain version on the
+        random operands (with the options of ``k_rand`` where given) and
+        the real tick's, timed on the real tick."""
+        k_rand = k if k_rand is None else k_rand
+        got = krecv.receive_update(k_rand, **rand_ops)
+        torch.cuda.synchronize()
+        err = check_identical(f"{label} (random operands)", got,
+                              krecv.receive_update_plain(k_rand, **rand_ops))
+        want = krecv.receive_update_plain(k, **tick_ops)
+        got = krecv.receive_update(k, **tick_ops)
+        torch.cuda.synchronize()
+        err = max(err, check_identical(f"{label} (tick {tick})", got,
+                                       want))
+        ms = device_ms(lambda: krecv.receive_update(k, **tick_ops), 50)
+        plain = device_ms(lambda: krecv.receive_update_plain(k, **tick_ops),
+                          5)
+        nbytes = krecv.operand_bytes(tick_ops, got)
+        bnd = bound(nbytes, receive_ops(k, tick_ops))
+        n_ = tick_ops["sub_all"].shape[0]
+        print(f"{label}: identical at N={n_}, C={C}, W=1 (random operands "
+              f"with a tenth of the peers down; tick {tick}: {down} down "
+              f"peers, {cut} cut edges); device time: kernel {ms:.4f} ms, "
+              f"plain {plain:.3f} ms; {nbytes / n_:.1f} B/peer, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}); {launched} launches to tick "
+              f"{tick}")
+        return dict(err=err, ms=ms, plain_ms=plain, bytes_per_peer=nbytes / n_,
+                    bound=bnd, launches=launched)
+
+    def with_schedule(sim, seed):
+        cfg_, sc_, params_, state_ = sim[:4]
+        sched = churn.schedule(n, np.random.default_rng(seed), churn.WARMUP,
+                               churn.WARMUP + churn.TIMED)
+        return cfg_, sc_, dataclasses.replace(
+            params_, faults=faults.compile_faults(sched, cfg_.offsets,
+                                                  device=dev)), state_
+
+    # the scored flagship options: the churn benchmark's own sim, built
+    # once for this check and the main path (5i: the step leaves its input
+    # state as it was)
+    churn_sim = churn.build(dev)
+    k_f = krecv.receive_consts(churn_sim[0], churn_sim[1], faults=True)
+    tick_ops, down, cut, nl = faulted_tick("churn", churn_sim[:4], k_f)
+    faulted["receive_update_faults"] = faulted_check(
+        "faulted receive", k_f,
+        fault_operands(k_f, random_receive_operands(k_f, n, 1, dev, seed=43),
+                       dev, 47), tick_ops, down, cut, nl)
+    del tick_ops
+    # the attack options (the IWANT flood's flood_ok word live)
+    sim = with_schedule(adversarial.build(dev, horizon=horizon), 1)
+    k_fa = krecv.receive_consts(sim[0], sim[1], faults=True)
+    rand = random_receive_operands(k_fa, n, 1, dev, seed=53)
+    g = torch.Generator(device=dev)
+    g.manual_seed(59)
+    rand["syb"] = torch.where(torch.rand(n, generator=g, device=dev) < 0.2,
+                              (1 << C) - 1, 0).to(torch.int32)
+    rand["iws"] = torch.randint(0, 4 * 32, (C, n), generator=g,
+                                device=dev).to(torch.int16)
+    tick_ops, down, cut, nl = faulted_tick("attack", sim, k_fa)
+    faulted["receive_update_attacks_faults"] = faulted_check(
+        "faulted attack receive", k_fa, fault_operands(k_fa, rand, dev, 61),
+        tick_ops, down, cut, nl)
+    del tick_ops, sim, rand
+    # the full variant (flood publishing, PX, the shared-IP gater, the
+    # attack options; exact-k on the random operands)
+    sim = with_schedule(everything.build(dev, horizon=horizon), 2)
+    k_fe = krecv.receive_consts(sim[0], sim[1], px=True, same_ip=True,
+                                faults=True)
+    k_fall = dataclasses.replace(k_fe, exact_k=True)
+    tick_ops, down, cut, nl = faulted_tick("full", sim, k_fe)
+    rand = fault_operands(k_fall, full_receive_operands(k_fall, n, dev,
+                                                        seed=67), dev, 71)
+    r_all = faulted_check("faulted full receive (exact-k too)", k_fall, rand,
+                          tick_ops, down, cut, nl)
+    r = faulted_check("faulted full receive", k_fe, rand, tick_ops, down,
+                      cut, nl, k_rand=k_fall)
+    r["err"] = max(r["err"], r_all["err"])
+    faulted["receive_update_full_faults"] = r
+    del tick_ops, sim, rand
+    # the paired variant
+    sim = with_schedule(everything.build(dev, horizon=horizon, paired=True),
+                        3)
+    k_fp = krecv.receive_consts(sim[0], sim[1], px=True, same_ip=True,
+                                faults=True)
+    k_fpall = dataclasses.replace(k_fp, flood_publish=True, exact_k=True)
+    tick_ops, down, cut, nl = faulted_tick("paired", sim, k_fp)
+    faulted["receive_update_paired_faults"] = faulted_check(
+        "faulted paired receive", k_fp, fault_operands(
+            k_fpall, paired_receive_operands(
+                k_fpall, full_receive_operands(k_fpall, n, dev, seed=73), n,
+                dev, seed=79), dev, 83), tick_ops, down, cut, nl,
+        k_rand=k_fpall)
+    del tick_ops, sim
+
+    # -- 5i. the slice's main path: the churn benchmark as written, counts
+    # reset just before and read just after
+    cfg, sc, params, state, msg_tick, probes = churn_sim
+    del churn_sim
+    step = pg.make_gossip_step(cfg, sc, device=dev)
+    ticks_c = churn.WARMUP + churn.TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0_c = torch.cuda.memory_allocated()
+    krecv.launches.clear()
+    ksel.launches = kfused.launches = kfused.launches_faults = 0
+    state = pg.gossip_run(params, state, churn.WARMUP, step, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, counts_c = pg.gossip_run_curve(params, state, churn.TIMED, step,
+                                          flagship.N_MSGS, device=dev)
+    torch.cuda.synchronize()
+    dt_c = time.perf_counter() - t0
+    launches_c = dict(krecv.launches, select=ksel.launches)
+    peak_c = torch.cuda.max_memory_allocated()
+    rows_c = churn.readouts(params, state, counts_c, probes, cfg.n_topics)
+    fp = params.faults
+    down_c = max(int((~faults.alive_mask(fp, t)).sum())
+                 for t in range(churn.WARMUP, ticks_c, 5))
+    fm = faults.tick_masks(fp, cfg.offsets, cfg.cinv, t_real)
+    cut_c = int(graph.popcount32(fm.alive_all & ~fm.send_ok).sum())
+    if not rows_c["ok"]:
+        fail(f"churn gates: {rows_c}")
+    if not (down_c > 0 and cut_c > 0 and rows_c["delivery_fraction"] < 1):
+        fail(f"churn: faults not live: {down_c} down, {cut_c} cut edges, "
+             f"delivery fraction {rows_c['delivery_fraction']}")
+    if (dict(krecv.launches) != {"scored_faults": ticks_c}
+            or launches_c["select"] <= 0):
+        fail(f"churn launches {launches_c}")
+    if state.tick != ticks_c:
+        fail(f"churn: state tick {state.tick}")
+    link_ms = churn.link_draw_ms(cfg, params, t_real)
+    box = [state]
+
+    def run_more_c():
+        box[0] = pg.gossip_run(params, box[0], 20, step, device=dev)
+
+    prof_c = flagship.profile_ticks(run_more_c, 20)
+    hb_c = churn.TIMED / dt_c
+    print(f"churn path (the benchmark as written): {n} peers x "
+          f"{flagship.N_TOPICS} topics, 10% churn in three waves, 2% link "
+          f"loss, a half/half partition over ticks "
+          f"[{churn.WARMUP + 20}, {churn.heal_tick()}): {hb_c:.2f} "
+          f"heartbeats/s ({dt_c * 1e3 / churn.TIMED:.3f} ms/tick), "
+          f"delivery fraction {rows_c['delivery_fraction']!r} over "
+          f"{rows_c['settled_messages']} settled messages (gate > "
+          f"{churn.MIN_DELIVERY_FRACTION}), probe recovery ticks "
+          f"{rows_c['probe_recovery_ticks']}, median "
+          f"{rows_c['recovery_ticks_median']}; up to {down_c} peers down, "
+          f"{cut_c} cut edges on tick {t_real}; one tick's fault masks "
+          f"(the link draw) {link_ms:.4f} ms; peak memory {peak_c} B "
+          f"({alloc0_c} B at the start), launches {launches_c}; 20 more "
+          f"heartbeats profiled: {prof_c['wall_ms_per_tick']:.3f} ms/tick "
+          f"wall, {prof_c['device_busy_ms_per_tick']:.3f} busy, idle share "
+          f"{prof_c['device_idle_share']:.3f} [{name}, {smi}]")
+    main_churn = dict(
+        rows_c, heartbeats_per_s=hb_c, ms_per_tick=dt_c * 1e3 / churn.TIMED,
+        peak_bytes=peak_c, start_bytes=alloc0_c, launches=launches_c,
+        max_down_peers=down_c, cut_edges=cut_c, link_draw_ms=link_ms,
+        device_idle_share=prof_c["device_idle_share"],
+        device_busy_ms_per_tick=prof_c["device_busy_ms_per_tick"],
+        profile_kernels=prof_c["kernels"][:8])
+    del params, state, step, box, counts_c
+
+    # -- 5j. B2 under faults and cold restart against its plain version at
+    # the resident shapes, one window from tick 24 (rejoins at 25 and 30,
+    # the partition from 20); then 64 heartbeats of the resident
+    # configuration under the churn benchmark's kind of schedule with cold
+    # restart on fused windows and one by one (the faulted unscored
+    # receive, its tick 30 also checked against its plain version)
+    n_r = resident.N_PEERS
+    sched_r = churn.schedule(n_r, np.random.default_rng(5), 0, RES_WARMUP,
+                             cold_restart=True)
+    cfg_c, params, state, *_ = resident.build(dev, horizon=RES_WARMUP,
+                                              fault_schedule=sched_r)
+    k_c = kfused.fused_consts(cfg_c)
+    step_c = pg.make_gossip_step(cfg_c, None, device=dev)
+    k_fu = krecv.receive_consts(cfg_c, None, faults=True)
+    rand_u = fault_operands(k_fu, random_receive_operands(
+        k_fu, n_r, 1, dev, seed=89), dev, 97)
+    t_u = 30
+    krecv.launches.clear()
+    box = [state]
+    tick_ops = capture_receive(lambda: box.append(pg.gossip_run(
+        params, state, t_u + 1, step_c, device=dev)), krecv)
+    fm = faults.tick_masks(params.faults, cfg_c.offsets, cfg_c.cinv, t_u)
+    down = int((tick_ops["alive_w"] == 0).sum())
+    cut = int(graph.popcount32(fm.alive_all & ~fm.send_ok).sum())
+    faulted["receive_update_unscored_faults"] = faulted_check(
+        "faulted unscored receive", k_fu, rand_u, tick_ops, down, cut,
+        krecv.launches["unscored_faults"], tick=t_u)
+    del tick_ops, rand_u, box
+    st = pg.gossip_run(params, state, 24, step_c, device=dev)
+    tk = torch.arange(st.tick, st.tick + Tw, dtype=torch.int32, device=dev)
+    all_c = (1 << cfg_c.n_candidates) - 1
+    rows_r = pg.window_fault_rows(cfg_c, params.faults, st.tick, Tw)
+    fops = dict(
+        tick0=st.tick, seeds=kfused.window_seeds(st.tick, Tw, st.salt),
+        due=graph.pack_bits(params.publish_tick[None, :] == tk[:, None]),
+        sub_all=torch.where(params.subscribed, all_c, 0).to(torch.int32),
+        cand_sub=params.cand_sub_bits, origin=params.origin_words,
+        have=st.have, recent=st.recent, mesh=st.mesh, fanout=st.fanout,
+        last_pub=st.last_pub, backoff=st.backoff, tgt=st.gates[0],
+        bog=st.gates[1], **rows_r)
+    if not (bool(rows_r["rejoin"].any())
+            and bool((rows_r["alive"] == 0).any())):
+        fail("faulted fused window: no rejoin or no down peer in the window")
+    sel_rows_c = [0]
+    real_sel = kfused.select_plain
+
+    def count_sel_c(elig, kk, c, seed):
+        sel_rows_c[0] += int((kk > 0).sum())
+        return real_sel(elig, kk, c, seed)
+
+    kfused.select_plain = count_sel_c
+    try:
+        want = kfused.fused_gossip_update_plain(k_c, **fops)
+    finally:
+        kfused.select_plain = real_sel
+    got = kfused.fused_gossip_update(k_c, **fops)
+    torch.cuda.synchronize()
+    err_fc = check_identical("faulted fused window (cold restart)", got, want)
+    fc_ms = eager_ms(lambda: kfused.fused_gossip_update(k_c, **fops), 20)
+    fc_plain_ms = eager_ms(
+        lambda: kfused.fused_gossip_update_plain(k_c, **fops), 2)
+    rows_ms = eager_ms(lambda: pg.window_fault_rows(
+        cfg_c, params.faults, st.tick, Tw), 20)
+    # exact-k targets add one selection per peer-tick; Bernoulli targets
+    # (this window's) are in the per-row count already
+    fc_rows = sel_rows_c[0] + k_c.receive.exact_k * n_r * Tw
+    fc_bound = bound(kfused.window_operand_bytes(fops),
+                     fused_window_ops(k_c, fops, fc_rows))
+    print(f"faulted fused window (cold restart): identical at N={n_r}, "
+          f"C={C}, W=1, T={Tw} from tick {st.tick} "
+          f"({int((rows_r['alive'] == 0).sum())} down peer-ticks, "
+          f"{int((rows_r['rejoin'] != 0).sum())} rejoins); kernel "
+          f"{fc_ms:.4f} ms, plain {fc_plain_ms:.3f} ms per window, the "
+          f"window's fault rows (T link draws, on the device) "
+          f"{rows_ms:.4f} ms; operands "
+          f"{kfused.window_operand_bytes(fops) / n_r:.1f} B/peer, bound "
+          f"{fc_bound[0]:.4f} ms ({fc_bound[1]})")
+    del want, got, fops, st, rows_r
+    win_c = pg.make_fused_window(cfg_c, None, ticks_fused=Tw, device=dev)
+    krecv.launches.clear()
+    ksel.launches = kfused.launches = kfused.launches_faults = 0
+    end_fused = pg.gossip_run_fused(params, state, RES_WARMUP, win_c,
+                                    device=dev)
+    torch.cuda.synchronize()
+    counts_fc = {"fused_faults": kfused.launches_faults,
+                 "fused": kfused.launches, "select": ksel.launches,
+                 "receive": krecv.launches.total()}
+    if counts_fc != {"fused_faults": RES_WARMUP // Tw, "fused": 0,
+                     "select": 0, "receive": 0}:
+        fail(f"faulted fused launches {counts_fc}")
+    d_fc = digest(end_fused)
+    end_tick = pg.gossip_run(params, state, RES_WARMUP, step_c, device=dev)
+    d_tc = digest(end_tick)
+    rejoins = sum(int(faults.rejoined_mask(params.faults, t).sum())
+                  for t in range(RES_WARMUP))
+    if d_fc != d_tc or rejoins <= 0:
+        fail(f"faulted fused digest: per-tick {d_tc} != fused {d_fc} "
+             f"({rejoins} rejoins)")
+    deg_fc = pg.mesh_degrees(end_fused)[params.subscribed].to(
+        torch.float64).mean().item()
+    print(f"faulted resident (cold restart): {RES_WARMUP} heartbeats on "
+          f"{counts_fc['fused_faults']} fused windows and one by one: digest "
+          f"{d_fc} both, {rejoins} rejoins, mean mesh degree {deg_fc:.3f}")
+    del params, state, end_fused, end_tick
 
     # -- 6. the unscored receive kernel vs plain at the resident shapes
     n_r = resident.N_PEERS
@@ -1218,7 +1586,7 @@ def main() -> None:
                                      device=dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        krecv.launches = krecv.launches_unscored = 0
+        krecv.launches.clear()
         ksel.launches = kfused.launches = 0
         state = run_n(state, RES_WARMUP)
         torch.cuda.synchronize()
@@ -1226,8 +1594,8 @@ def main() -> None:
         state = run_n(state, RES_TIMED)
         torch.cuda.synchronize()
         dt_r = time.perf_counter() - t0
-        counts = {"receive": krecv.launches,
-                  "receive_unscored": krecv.launches_unscored,
+        counts = {"receive": krecv.launches["scored"],
+                  "receive_unscored": krecv.launches["unscored"],
                   "select": ksel.launches, "fused": kfused.launches}
         peak_r = torch.cuda.max_memory_allocated()
         sub = params.subscribed
@@ -1267,11 +1635,17 @@ def main() -> None:
     print(f"heartbeats/s [{name}, {smi}]: flagship scored per-tick "
           f"{hb:.2f}; adversarial scored per-tick {hb_a:.2f}; "
           f"everything-on scored per-tick {hb_e:.2f}; everything-on paired "
-          f"(the benchmark as written) per-tick {hb_p:.2f}; resident "
+          f"(the benchmark as written) per-tick {hb_p:.2f}; churn (the "
+          f"benchmark as written) scored per-tick {hb_c:.2f}; resident "
           f"unscored "
           f"fused "
           f"{paths['fused']['heartbeats_per_s']:.2f}, per-tick "
           f"{paths['per_tick']['heartbeats_per_s']:.2f}")
+    print(f"churn rows [{name}, {smi}]: heartbeats/s {hb_c!r}; delivery "
+          f"fraction {main_churn['delivery_fraction']!r} (gate > "
+          f"{churn.MIN_DELIVERY_FRACTION}); partition recovery ticks, "
+          f"median {main_churn['recovery_ticks_median']!r} of "
+          f"{main_churn['probes_recovered']} recovered probes")
     rcv_bound = bound(rcv_bytes, rcv_ops)
     sel_bound = bound(sel_bytes, sel_ops)
     kernels = [
@@ -1335,10 +1709,36 @@ def main() -> None:
              launches=counts_x["fused"], max_abs_err=err_fx, ms=fx_ms,
              plain_ms=fx_plain_ms, bound_ms=fx_bound[0],
              bound_by=fx_bound[1], library_ms=None)]
+    # the faulted variants: the churn path's launches for the flagship
+    # options, else those of the run to the checked tick
+    for kname, r in faulted.items():
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source="go_libp2p_pubsub_tpu_torch/csrc/receive.cu",
+            replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
+            launches=(launches_c["scored_faults"]
+                      if kname == "receive_update_faults"
+                      else r["launches"]),
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound"][0], bound_by=r["bound"][1],
+            library_ms=None))
+    kernels.append(dict(
+        name="fused_gossip_update_faults", route="cuda",
+        source="go_libp2p_pubsub_tpu_torch/csrc/fused.cu",
+        replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:1662",
+        launches=counts_fc["fused_faults"], max_abs_err=err_fc, ms=fc_ms,
+        plain_ms=fc_plain_ms, bound_ms=fc_bound[0], bound_by=fc_bound[1],
+        library_ms=None))
     print(json.dumps({"main_path": {
         "flagship": main_flagship, "adversarial": main_adversarial,
         "everything": main_everything, "everything_paired": main_paired,
-        "resident": paths, "card": smi,
+        "churn": main_churn, "resident": paths, "card": smi,
+        "faulted_receive": {
+            kname: {key: v for key, v in r.items() if key != "bound"}
+            for kname, r in faulted.items()},
+        "resident_cold_restart": dict(
+            digest=d_fc, rejoins=rejoins, launches=counts_fc,
+            fault_rows_ms=rows_ms, mean_mesh_degree=deg_fc),
         "eager_ms": {"receive": rcv_eager_ms, "select": sel_eager_ms},
         "full_receive_ms": {"main_path": full_ms, "all_options": full_all_ms,
                             "exact_k_alone": xk_ms},

@@ -15,7 +15,11 @@ This module never imports the reference; the caller flattens it.
   float32, and are cast exactly (a float32 value that is not a bf16
   value raises);
 - ``key`` (uint32 [2]) becomes the salt, its last word;
-- ``tick`` becomes a host int.
+- ``tick`` becomes a host int;
+- ``faults`` (a nested dict, or None) becomes ``FaultParams``: its
+  ``seed`` a host int, the partition windows ``part_start`` /
+  ``part_end`` host tuples, the flags ``cold_restart`` and
+  ``directed_drops`` as they are.
 
 The reverse functions give uint32 words back as uint32 and bf16 leaves
 as their raw uint16 patterns, so two trees compare bit for bit.
@@ -26,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.faults import FaultParams
 from .models.gossipsub import (
     GossipParams,
     GossipState,
@@ -74,6 +79,44 @@ def _array(t: torch.Tensor, word: bool = False) -> np.ndarray:
     return a.view(np.uint32) if word else a
 
 
+def faults_from_numpy(f: dict | None, device) -> FaultParams | None:
+    """The port's FaultParams from the reference's leaves (None: no
+    schedule)."""
+    if f is None:
+        return None
+    part = {name: (None if f[name] is None
+                   else tuple(int(v) for v in np.asarray(f[name])))
+            for name in ("part_start", "part_end")}
+    return FaultParams(
+        down_start=_tensor(f["down_start"], device),
+        down_end=_tensor(f["down_end"], device),
+        seed=int(np.asarray(f["seed"])),
+        drop_prob=(None if f["drop_prob"] is None
+                   else _tensor(np.asarray(f["drop_prob"], np.float32),
+                                device)),
+        cross_bits=(None if f["cross_bits"] is None
+                    else _tensor(f["cross_bits"], device)),
+        cold_restart=bool(f["cold_restart"]),
+        directed_drops=bool(f["directed_drops"]), **part)
+
+
+def faults_to_numpy(fp: FaultParams | None) -> dict | None:
+    """FaultParams as the reference's leaves (None: no schedule)."""
+    if fp is None:
+        return None
+    part = {name: (None if getattr(fp, name) is None
+                   else np.asarray(getattr(fp, name), dtype=np.int32))
+            for name in ("part_start", "part_end")}
+    return dict(
+        down_start=_array(fp.down_start), down_end=_array(fp.down_end),
+        seed=np.asarray(fp.seed, dtype=np.uint32),
+        drop_prob=None if fp.drop_prob is None else _array(fp.drop_prob),
+        cross_bits=(None if fp.cross_bits is None
+                    else _array(fp.cross_bits, True)),
+        cold_restart=fp.cold_restart, directed_drops=fp.directed_drops,
+        **part)
+
+
 def params_from_numpy(d: dict, device) -> GossipParams:
     """The port's GossipParams from the reference's leaves."""
     kw = {name: (None if d[name] is None else _tensor(d[name], device))
@@ -82,7 +125,8 @@ def params_from_numpy(d: dict, device) -> GossipParams:
     return GossipParams(
         **kw, static_score_weights=(None if weights is None
                                     else tuple(weights)),
-        static_score_zero=bool(d["static_score_zero"]))
+        static_score_zero=bool(d["static_score_zero"]),
+        faults=faults_from_numpy(d.get("faults"), device))
 
 
 def state_from_numpy(d: dict, sc: ScoreSimConfig | None,
@@ -119,7 +163,8 @@ def params_to_numpy(p: GossipParams) -> dict:
                   else _array(getattr(p, name), name in PARAM_WORDS))
            for name in PARAM_TENSORS}
     out.update(static_score_weights=p.static_score_weights,
-               static_score_zero=p.static_score_zero)
+               static_score_zero=p.static_score_zero,
+               faults=faults_to_numpy(p.faults))
     return out
 
 

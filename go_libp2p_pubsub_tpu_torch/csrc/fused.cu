@@ -3,8 +3,10 @@
 //
 // Replaces: go_libp2p_pubsub_tpu/ops/pallas/receive.py,
 // _fused_gossip_kernel (built by make_fused_gossip_update), single
-// device, without fault rows, cold restart, telemetry or the sharded
-// halo.  It computes what that kernel computes, bit-identical to the
+// device, without telemetry or the sharded halo; with or without fault
+// rows (FAULTS) and cold restart (COLD), each instantiated in a kernel of
+// its own, fused_window_kernel_faults.  It computes what that kernel
+// computes, bit-identical to the
 // plain version (ops/kernels/fused.py fused_gossip_update_plain): per
 // tick, publish injection, fanout TTL and refill, the graft and v1.0
 // random-prune selections, the eager/lazy exchange over the C circulant
@@ -12,7 +14,15 @@
 // update and the next tick's targets (Bernoulli, or with EXACTK the
 // exact uniform k-subset: the same select_k as the other selections, at
 // the targets' lane seed) and backoff gate rows; it emits each tick's
-// acquisitions.
+// acquisitions.  Under faults each tick reads the peer's alive word,
+// send-ok bits and live-candidate bits of that tick ([T, N] rows, made
+// by the window before the launch): a down peer's publish is lost, its
+// sends (forwards, adverts, handshake) are cut at their source by the
+// send-ok bits, it hears nothing and receives no control; mesh edges to
+// or at a dead peer drop with PRUNE and backoff at both ends; nobody
+// grafts at or by a dead peer, and dead candidates take no fanout slot.
+// With cold restart (COLD) a peer rejoining at tick t has its
+// possession words and mcache ring cleared first.
 //
 // Design.  On the TPU the whole ring is one block resident in VMEM and
 // the candidate views are whole-ring lane rolls.  Here every tick reads
@@ -46,7 +56,9 @@
 // once (2 x 68 B/peer), the static rows read once (12 B/peer at W = 1)
 // and per tick the acquisitions written (4W B/peer) and the stage
 // written and read once (2 x (C + 8W) B/peer): about 564 B/peer for an
-// 8-tick window, 0.59 GB at 1M peers, 0.18 ms at 3.35 TB/s.  This first
+// 8-tick window, 0.59 GB at 1M peers, 0.18 ms at 3.35 TB/s; the fault
+// rows add 12 B/peer a tick (16 with cold restart), read by the peer's
+// own thread in both phases.  This first
 // version also re-reads the carry in both phases of every tick; the
 // selections run only where their k is positive (a selection with k = 0
 // selects nothing).
@@ -105,6 +117,13 @@ struct FusedArgs {
   // targets (phase 1 at tick + 1) lane seeds
   unsigned int seeds[MAX_WINDOW][4];
   int exact_k;               // exact-k gossip targets (else Bernoulli)
+  // the fault rows, last: per tick [T, N] words
+  const uint32_t* alive;     // live peer: ~0u, down: 0
+  const uint32_t* sok;       // edges a peer may send on
+  const uint32_t* cal;       // live candidates
+  const uint32_t* rej;       // (cold restart) ~0u at a rejoiner, or null
+  int faults;                // launch the faulted kernel
+  int cold;                  // ... with cold restart
 };
 
 namespace {
@@ -112,16 +131,18 @@ namespace {
 constexpr int CTRL_OUT = 0, CTRL_TGT = 1, CTRL_GRAFT = 2, CTRL_DROP = 3,
               CTRL_A = 4, CTRL_ADV = 5;
 
-// what one peer sends and keeps at the start of tick t (from its carry)
+// what one peer sends and keeps at the start of tick t (from its carry);
+// under faults its alive word, send-ok bits and (cold restart) rejoin
+// word of the tick
 template <int W>
 struct Front {
   uint32_t have[W], inj[W];
   uint32_t sub_all, cand_sub, fanout, grafts, dropped, mesh_sel, wa,
-      out_bits, targets;
+      out_bits, targets, alive, sok, rej;
   int lp;
 };
 
-template <int C, int W>
+template <int C, int W, bool FAULTS, bool COLD>
 __device__ __forceinline__ void tick_front(const FusedArgs& a, int t,
                                            long long p, Front<W>& f) {
   const long long n = a.n;
@@ -134,14 +155,25 @@ __device__ __forceinline__ void tick_front(const FusedArgs& a, int t,
   const uint32_t* tgt = first ? a.tgt_in : a.tgt;
   const uint32_t* bog = first ? a.bog_in : a.bog;
 
-  // 1. publish injection
+  constexpr uint32_t ALL = (1u << C) - 1u;
+  // the tick's fault words (a rejoiner's possession cleared first)
+  const long long tp = (long long)t * n + p;
+  f.alive = FAULTS ? a.alive[tp] : 0xFFFFFFFFu;
+  f.sok = FAULTS ? a.sok[tp] : 0xFFFFFFFFu;
+  f.rej = COLD ? a.rej[tp] : 0u;
+  const uint32_t cal = FAULTS ? a.cal[tp] : ALL;
+  const uint32_t up = f.alive & ALL;
+
+  // 1. publish injection (a down origin's publish is lost)
   f.sub_all = a.sub_all[p];
   f.cand_sub = a.cand_sub[p];
   bool publishing = false;
 #pragma unroll
   for (int w = 0; w < W; ++w) {
     f.have[w] = have[w * n + p];
+    if constexpr (COLD) f.have[w] &= ~f.rej;
     f.inj[w] = a.origin[w * n + p] & a.due[t * W + w] & ~f.have[w];
+    if constexpr (FAULTS) f.inj[w] &= f.alive;
     publishing = publishing || f.inj[w] != 0u;
   }
 
@@ -151,34 +183,47 @@ __device__ __forceinline__ void tick_front(const FusedArgs& a, int t,
   uint32_t fanout = alive ? fan[p] : 0u;
   const int f_need = alive ? a.d - __popc(fanout) : 0;
   if (f_need > 0) {
-    fanout |= gossip::select_k<C>(f.cand_sub & ~fanout, C, f_need,
-                                  a.seeds[t][0], p, a.stride);
+    uint32_t f_elig = f.cand_sub & ~fanout;
+    // (FAULTS) dead candidates make useless fanout targets
+    if constexpr (FAULTS) f_elig &= cal;
+    fanout |= gossip::select_k<C>(f_elig, C, f_need, a.seeds[t][0], p,
+                                  a.stride);
   }
   f.fanout = fanout;
 
   // 4. maintenance: graft to D below Dlo, random retention of D above
-  // Dhi (v1.0)
+  // Dhi (v1.0); (FAULTS) mesh edges to or at a dead peer drop with
+  // PRUNE and backoff at both ends, and nobody grafts at or by a dead
+  // peer
   const uint32_t mesh0 = mesh[p];
   const uint32_t bo_row = bog[p];
-  const int deg = __popc(mesh0);
-  const uint32_t can_graft = f.cand_sub & ~mesh0 & ~bo_row & f.sub_all;
+  const uint32_t dead = FAULTS ? mesh0 & ~(cal & up) : 0u;
+  const uint32_t mesh_ng = mesh0 & ~dead;
+  const int deg = __popc(mesh_ng);
+  uint32_t can_graft = f.cand_sub & ~mesh_ng & ~bo_row & f.sub_all;
+  if constexpr (FAULTS) can_graft &= cal & up;
   const int need = deg < a.d_lo ? a.d - deg : 0;
   f.grafts = need > 0 ? gossip::select_k<C>(can_graft, C, need,
                                             a.seeds[t][1], p, a.stride)
                       : 0u;
-  f.dropped = deg > a.d_hi
-                  ? mesh0 & ~gossip::select_k<C>(mesh0, C, a.d,
-                                                 a.seeds[t][2], p, a.stride)
-                  : 0u;
+  const uint32_t prunes =
+      deg > a.d_hi ? mesh_ng & ~gossip::select_k<C>(mesh_ng, C, a.d,
+                                                    a.seeds[t][2], p,
+                                                    a.stride)
+                   : 0u;
+  f.dropped = prunes | dead;
+  // (grafts never meet dead edges, so this is (mesh_ng | grafts) &
+  // ~prunes)
   f.mesh_sel = (mesh0 | f.grafts) & ~f.dropped;
   f.wa = f.sub_all & ~(bo_row | f.dropped);
   f.out_bits = mesh0 | fanout;
   f.targets = tgt[p];
 }
 
-template <int C, int W, bool EXACTK>
-__global__ void __launch_bounds__(256)
-fused_window_kernel(const FusedArgs a) {
+// The window; FAULTS and COLD compile in the fault rows and cold
+// restart (false in fused_window_kernel, whose code stays as it was).
+template <int C, int W, bool EXACTK, bool FAULTS, bool COLD>
+__device__ __forceinline__ void fused_body(const FusedArgs& a) {
   cg::grid_group grid = cg::this_grid();
   const long long n = a.n;
   const long long first_p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -195,25 +240,39 @@ fused_window_kernel(const FusedArgs a) {
     // ---- phase A: stage this tick's sender words
     for (long long p = first_p; p < n; p += step) {
       Front<W> f;
-      tick_front<C, W>(a, t, p, f);
+      tick_front<C, W, FAULTS, COLD>(a, t, p, f);
       // 2/3a. fresh (the newest ring slot, tick - 1) and advert (the
-      // whole ring) windows
+      // whole ring) windows; (COLD) a rejoiner's ring reads as cleared
       const int newest = (tick - 1 + hg) % hg;
 #pragma unroll
       for (int w = 0; w < W; ++w) {
         uint32_t adv = f.inj[w];
-        for (int h = 0; h < hg; ++h) adv |= rec_cur[(h * W + w) * n + p];
-        spay[w * n + p] = rec_cur[(newest * W + w) * n + p] | f.inj[w];
+        for (int h = 0; h < hg; ++h) {
+          uint32_t r = rec_cur[(h * W + w) * n + p];
+          if constexpr (COLD) r &= ~f.rej;
+          adv |= r;
+        }
+        uint32_t fresh = rec_cur[(newest * W + w) * n + p];
+        if constexpr (COLD) fresh &= ~f.rej;
+        spay[w * n + p] = fresh | f.inj[w];
         spay[(W + w) * n + p] = adv;
       }
+      // (FAULTS) a dead peer, or either end of a down link, sends
+      // nothing: forwards, adverts and the handshake alike (the local
+      // effects of its drops still apply in phase B)
+      const uint32_t out = f.out_bits & f.sok;
+      const uint32_t tgt_tx = f.targets & f.sok;
+      const uint32_t graft_tx = f.grafts & f.sok;
+      const uint32_t drop_tx = f.dropped & f.sok;
+      const uint32_t a_tx = f.wa & f.sok;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        const uint32_t b = (((f.out_bits >> c) & 1u) << CTRL_OUT)
-                           | (((f.targets >> c) & 1u) << CTRL_TGT)
-                           | (((f.grafts >> c) & 1u) << CTRL_GRAFT)
-                           | (((f.dropped >> c) & 1u) << CTRL_DROP)
-                           | (((f.wa >> c) & 1u) << CTRL_A)
-                           | (((f.targets >> c) & 1u) << CTRL_ADV);
+        const uint32_t b = (((out >> c) & 1u) << CTRL_OUT)
+                           | (((tgt_tx >> c) & 1u) << CTRL_TGT)
+                           | (((graft_tx >> c) & 1u) << CTRL_GRAFT)
+                           | (((drop_tx >> c) & 1u) << CTRL_DROP)
+                           | (((a_tx >> c) & 1u) << CTRL_A)
+                           | (((tgt_tx >> c) & 1u) << CTRL_ADV);
         sctl[c * n + p] = (uint8_t)b;
       }
     }
@@ -225,7 +284,7 @@ fused_window_kernel(const FusedArgs a) {
     const int ring_slot = tick % hg;
     for (long long p = first_p; p < n; p += step) {
       Front<W> f;
-      tick_front<C, W>(a, t, p, f);
+      tick_front<C, W, FAULTS, COLD>(a, t, p, f);
       uint32_t heard[W];
 #pragma unroll
       for (int w = 0; w < W; ++w) heard[w] = 0u;
@@ -246,9 +305,16 @@ fused_window_kernel(const FusedArgs a) {
             uint32_t got = 0u;
             if (fwd_on) got |= __ldcg(&spay[w * n + q]);
             if (gsp_on) got |= __ldcg(&spay[(W + w) * n + q]);
+            if constexpr (FAULTS) got &= f.alive;   // a down peer hears 0
             heard[w] |= got & ~(f.have[w] | f.inj[w]);
           }
         }
+      }
+      if constexpr (FAULTS) {
+        // a down receiver processes no inbound control
+        graft_recv &= f.alive;
+        prune_recv &= f.alive;
+        a_recv &= f.alive;
       }
       const uint32_t accept = graft_recv & f.wa;
       const uint32_t retract = f.grafts & ~a_recv;
@@ -268,7 +334,9 @@ fused_window_kernel(const FusedArgs a) {
           if (h == ring_slot) {
             a.rec[r] = acq;
           } else if (t == 0) {
-            a.rec[r] = a.rec_in[r];
+            a.rec[r] = COLD ? a.rec_in[r] & ~f.rej : a.rec_in[r];
+          } else if (COLD && f.rej != 0u) {
+            a.rec[r] &= ~f.rej;     // a rejoiner's ring comes back clear
           }
         }
       }
@@ -314,6 +382,30 @@ fused_window_kernel(const FusedArgs a) {
 }
 
 template <int C, int W, bool EXACTK>
+__global__ void __launch_bounds__(256)
+fused_window_kernel(const FusedArgs a) {
+  fused_body<C, W, EXACTK, false, false>(a);
+}
+
+// The window under a fault schedule: the per-tick alive, send-ok and
+// cand-alive rows, and (COLD) the rejoin row, each read by the peer's own
+// thread at (t, p) in both phases.
+template <int C, int W, bool EXACTK, bool COLD>
+__global__ void __launch_bounds__(256)
+fused_window_kernel_faults(const FusedArgs a) {
+  fused_body<C, W, EXACTK, true, COLD>(a);
+}
+
+template <int C, int W, bool EXACTK, bool FAULTS, bool COLD>
+const void* window_kernel() {
+  if constexpr (FAULTS) {
+    return (const void*)fused_window_kernel_faults<C, W, EXACTK, COLD>;
+  } else {
+    return (const void*)fused_window_kernel<C, W, EXACTK>;
+  }
+}
+
+template <int C, int W, bool EXACTK, bool FAULTS, bool COLD>
 int resident_blocks(int threads, int* out) {
   int per_sm = 0, sms = 0, dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -321,32 +413,39 @@ int resident_blocks(int threads, int* out) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_window_kernel<C, W, EXACTK>, threads, 0);
+        &per_sm, window_kernel<C, W, EXACTK, FAULTS, COLD>(), threads, 0);
   *out = per_sm * sms;
   return (int)err;
 }
 
-template <int C, int W, bool EXACTK>
+template <int C, int W, bool EXACTK, bool FAULTS, bool COLD>
 int launch_variant(const FusedArgs& a, cudaStream_t s) {
   const int threads = 256;
   int resident = 0;
-  int err = resident_blocks<C, W, EXACTK>(threads, &resident);
+  int err = resident_blocks<C, W, EXACTK, FAULTS, COLD>(threads, &resident);
   if (err != 0) return err;
   if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   const long long want = (a.n + threads - 1) / threads;
   const int blocks = (int)(want < resident ? want : resident);
   void* args[] = {(void*)&a};
   err = (int)cudaLaunchCooperativeKernel(
-      (void*)fused_window_kernel<C, W, EXACTK>, dim3(blocks), dim3(threads),
-      args, 0, s);
+      window_kernel<C, W, EXACTK, FAULTS, COLD>(), dim3(blocks),
+      dim3(threads), args, 0, s);
   if (err != 0) return err;
   return (int)cudaGetLastError();
 }
 
+template <int C, int W, bool EXACTK>
+int launch_targets(const FusedArgs& a, cudaStream_t s) {
+  if (!a.faults) return launch_variant<C, W, EXACTK, false, false>(a, s);
+  if (a.cold) return launch_variant<C, W, EXACTK, true, true>(a, s);
+  return launch_variant<C, W, EXACTK, true, false>(a, s);
+}
+
 template <int C, int W>
 int launch(const FusedArgs& a, cudaStream_t s) {
-  if (a.exact_k) return launch_variant<C, W, true>(a, s);
-  return launch_variant<C, W, false>(a, s);
+  if (a.exact_k) return launch_targets<C, W, true>(a, s);
+  return launch_targets<C, W, false>(a, s);
 }
 
 }  // namespace

@@ -27,8 +27,13 @@
 // CTRL2_OUT_B under the receiver's payload gate; on an edge whose offset
 // is an odd multiple of T/2 the partner holds the topic in its other
 // slot, so the two ctrl bytes' GRAFT/PRUNE/A bits cross slots, a static
-// choice per edge, odd_mask).  No faults, telemetry, knobs or delays.
-// Same semantics
+// choice per edge, odd_mask); and each of these under fault schedules
+// (FAULTS, one more kernel per variant with that variant's launch bound:
+// the receiver's alive word, all-ones or 0 at a down peer, gates the
+// words it hears and the GRAFT, PRUNE, A and broken-promise bits it
+// receives, and under the IWANT flood the flood_ok word gates the flood's
+// serve accrual per edge; the senders' masks ride the ctrl bytes).  No
+// telemetry, knobs or delays.  Same semantics
 // and op order, so every output is bit-identical to the plain version
 // (ops/kernels/receive.py receive_update_plain):
 //
@@ -95,7 +100,9 @@
 // row (4 B); the second ctrl byte is gathered at the same address as the
 // first, the slot-B words only over an open edge of the sender's slot-B
 // mesh; each row c updates both slots' backoff and time in mesh in the
-// same iteration, so no C-wide array of slot B stays live.
+// same iteration, so no C-wide array of slot B stays live.  Faults add
+// the alive word (4 B/peer) and, under the IWANT flood, the flood_ok
+// word (4 B/peer); both are read once a thread and applied in registers.
 // Staging the sender windows in shared memory is left for later work.
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -198,6 +205,11 @@ struct ReceiveArgs {
   int16_t* tim_b_out;        // [C, N] (scored)
   unsigned int odd_mask;     // bit j: edge j crosses slots
   int paired;                // launch receive_kernel_paired
+  // the fault options' fields, after those
+  const uint32_t* alive_w;   // [N] (FAULTS) receiver alive: ~0u or 0
+  const uint32_t* flood_ok;  // [N] (FAULTS, IWANT flood) send-ok and
+                             // partner-alive bits, or null
+  int faults;                // launch the variant's faulted kernel
 };
 
 namespace {
@@ -246,7 +258,7 @@ __device__ __forceinline__ int floordiv(int a, int b) {
 // One thread per peer; the kernels below instantiate it.
 template <int C, int W, bool SCORED, bool ATK, bool CBF, bool BBF,
           bool FLOOD = false, bool EXACTK = false, bool PX = false,
-          bool SAMEIP = false, bool PAIRED = false>
+          bool SAMEIP = false, bool PAIRED = false, bool FAULTS = false>
 __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
   static_assert(SCORED || !ATK, "the attack options need scoring");
   static_assert(ATK || !(FLOOD || SAMEIP),
@@ -279,6 +291,10 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
 #pragma unroll
     for (int w = 0; w < W; ++w) lacked |= (~seen[w] != 0u) ? 1u : 0u;
   }
+  // (FAULTS) the receiver's alive word, all-ones or 0 at a down peer;
+  // under the IWANT flood, the edges a flood may cross
+  const uint32_t alive = FAULTS ? a.alive_w[p] : 0xFFFFFFFFu;
+  const uint32_t fok = (FAULTS && flood_rx) ? a.flood_ok[p] : ALL;
 
   // ---- stage 1: the C receiving edges
   uint32_t graft_recv = 0u, prune_recv = 0u, a_recv = 0u, broken = 0u;
@@ -349,6 +365,7 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
           }
           const uint32_t adv_q = (gsp_on || adv_all) ? a.adv[w * n + q] : 0u;
           if (gsp_on) got |= adv_q;
+          if constexpr (FAULTS) got &= alive;   // a down peer hears 0
           const uint32_t news = got & ~seen[w];
           heard[w] |= news;
           fd_j += __popc(news & valid[w]);
@@ -369,6 +386,9 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
       const int H = a.history_length;
       int pull = fd_j + iv_j;
       if (flood_rx) pull = (s < a.retransmission * pa && pa > 0) ? pa : 0;
+      // (FAULTS) no flood over a faulted edge: a dead sybil requests
+      // nothing, a dead or cut-off partner serves nothing
+      if (FAULTS && flood_rx && !((fok >> j) & 1u)) pull = 0;
       int srv = s - floordiv(s + (H - 1), H) + pull;
       srv = srv < 0 ? 0 : (srv > 30000 ? 30000 : srv);
       a.iws_out[idx] = (int16_t)srv;
@@ -382,6 +402,7 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
             if (fb_on) got |= a.fresh_b[w * n + q];
           }
           if (gsp_on) got |= a.adv[w * n + q];
+          if constexpr (FAULTS) got &= alive;   // a down peer hears 0
           const uint32_t news = got & ~seen[w];
           heard[w] |= news;
           if constexpr (SCORED) {
@@ -393,6 +414,18 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a) {
     }
     fdc[j] = fd_j;
     ivc[j] = iv_j;
+  }
+
+  // (FAULTS) a down receiver processes no inbound control and records
+  // no broken promise (the senders' masks rode the ctrl bytes)
+  if constexpr (FAULTS) {
+    graft_recv &= alive;
+    prune_recv &= alive;
+    a_recv &= alive;
+    broken &= alive;
+    graft_b &= alive;
+    prune_b &= alive;
+    a_b &= alive;
   }
 
   // ---- handshake resolution
@@ -661,78 +694,150 @@ receive_kernel_paired(const ReceiveArgs a) {
                true>(a);
 }
 
+// Each variant under fault schedules (FAULTS: the alive_w operand, and
+// flood_ok under the IWANT flood), in kernels of their own with the
+// launch bounds of the variant they fault, so that the unfaulted kernels'
+// code stays as it is.
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256)
+receive_kernel_faults(const ReceiveArgs a) {
+  receive_body<C, W, SCORED, false, CBF, BBF, false, false, false, false,
+               false, true>(a);
+}
+
+template <int C, int W, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256, 4)
+receive_kernel_attacks_faults(const ReceiveArgs a) {
+  receive_body<C, W, true, true, CBF, BBF, false, false, false, false,
+               false, true>(a);
+}
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256, 4)
+receive_kernel_full_faults(const ReceiveArgs a) {
+  receive_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true, SCORED,
+               false, true>(a);
+}
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256, PAIRED_BLOCKS)
+receive_kernel_paired_faults(const ReceiveArgs a) {
+  receive_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true, SCORED,
+               true, true>(a);
+}
+
+inline unsigned grid_blocks(const ReceiveArgs& a, int threads) {
+  return (unsigned)((a.n + threads - 1) / threads);
+}
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF, bool FAULTS>
 int launch_paired(const ReceiveArgs& a, cudaStream_t s) {
   const int threads = 256;
-  const unsigned blocks = (unsigned)((a.n + threads - 1) / threads);
-  receive_kernel_paired<C, W, SCORED, CBF, BBF><<<blocks, threads, 0, s>>>(a);
+  if constexpr (FAULTS) {
+    receive_kernel_paired_faults<C, W, SCORED, CBF, BBF>
+        <<<grid_blocks(a, threads), threads, 0, s>>>(a);
+  } else {
+    receive_kernel_paired<C, W, SCORED, CBF, BBF>
+        <<<grid_blocks(a, threads), threads, 0, s>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
-template <int C, int W>
+template <int C, int W, bool FAULTS>
 int launch_paired_variant(const ReceiveArgs& a, int scored, int ctr_bf16,
                           int bp_bf16, cudaStream_t s) {
-  if (!scored) return launch_paired<C, W, false, false, false>(a, s);
-  if (ctr_bf16 && bp_bf16) return launch_paired<C, W, true, true, true>(a, s);
-  if (ctr_bf16) return launch_paired<C, W, true, true, false>(a, s);
-  if (!bp_bf16) return launch_paired<C, W, true, false, false>(a, s);
+  if (!scored) return launch_paired<C, W, false, false, false, FAULTS>(a, s);
+  if (ctr_bf16 && bp_bf16) {
+    return launch_paired<C, W, true, true, true, FAULTS>(a, s);
+  }
+  if (ctr_bf16) return launch_paired<C, W, true, true, false, FAULTS>(a, s);
+  if (!bp_bf16) return launch_paired<C, W, true, false, false, FAULTS>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
-template <int C, int W, bool SCORED, bool CBF, bool BBF>
+template <int C, int W, bool SCORED, bool CBF, bool BBF, bool FAULTS>
 int launch_full(const ReceiveArgs& a, cudaStream_t s) {
   const int threads = 256;
-  const unsigned blocks = (unsigned)((a.n + threads - 1) / threads);
-  receive_kernel_full<C, W, SCORED, CBF, BBF><<<blocks, threads, 0, s>>>(a);
+  if constexpr (FAULTS) {
+    receive_kernel_full_faults<C, W, SCORED, CBF, BBF>
+        <<<grid_blocks(a, threads), threads, 0, s>>>(a);
+  } else {
+    receive_kernel_full<C, W, SCORED, CBF, BBF>
+        <<<grid_blocks(a, threads), threads, 0, s>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
-template <int C, int W>
+template <int C, int W, bool FAULTS>
 int launch_full_variant(const ReceiveArgs& a, int scored, int ctr_bf16,
                         int bp_bf16, cudaStream_t s) {
-  if (!scored) return launch_full<C, W, false, false, false>(a, s);
-  if (ctr_bf16 && bp_bf16) return launch_full<C, W, true, true, true>(a, s);
-  if (ctr_bf16) return launch_full<C, W, true, true, false>(a, s);
-  if (!bp_bf16) return launch_full<C, W, true, false, false>(a, s);
+  if (!scored) return launch_full<C, W, false, false, false, FAULTS>(a, s);
+  if (ctr_bf16 && bp_bf16) {
+    return launch_full<C, W, true, true, true, FAULTS>(a, s);
+  }
+  if (ctr_bf16) return launch_full<C, W, true, true, false, FAULTS>(a, s);
+  if (!bp_bf16) return launch_full<C, W, true, false, false, FAULTS>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
-template <int C, int W, bool SCORED, bool ATK, bool CBF, bool BBF>
+template <int C, int W, bool SCORED, bool ATK, bool CBF, bool BBF,
+          bool FAULTS>
 int launch(const ReceiveArgs& a, cudaStream_t s) {
   const int threads = 256;
-  const unsigned blocks = (unsigned)((a.n + threads - 1) / threads);
-  if constexpr (ATK) {
+  const unsigned blocks = grid_blocks(a, threads);
+  if constexpr (ATK && FAULTS) {
+    receive_kernel_attacks_faults<C, W, CBF, BBF><<<blocks, threads, 0, s>>>(a);
+  } else if constexpr (ATK) {
     receive_kernel_attacks<C, W, CBF, BBF><<<blocks, threads, 0, s>>>(a);
+  } else if constexpr (FAULTS) {
+    receive_kernel_faults<C, W, SCORED, CBF, BBF><<<blocks, threads, 0, s>>>(a);
   } else {
     receive_kernel<C, W, SCORED, CBF, BBF><<<blocks, threads, 0, s>>>(a);
   }
   return (int)cudaGetLastError();
 }
 
-template <int C, int W, bool ATK>
+template <int C, int W, bool ATK, bool FAULTS>
 int launch_scored(const ReceiveArgs& a, int ctr_bf16, int bp_bf16,
                   cudaStream_t s) {
-  if (ctr_bf16 && bp_bf16) return launch<C, W, true, ATK, true, true>(a, s);
-  if (ctr_bf16) return launch<C, W, true, ATK, true, false>(a, s);
-  if (!bp_bf16) return launch<C, W, true, ATK, false, false>(a, s);
+  if (ctr_bf16 && bp_bf16) {
+    return launch<C, W, true, ATK, true, true, FAULTS>(a, s);
+  }
+  if (ctr_bf16) return launch<C, W, true, ATK, true, false, FAULTS>(a, s);
+  if (!bp_bf16) return launch<C, W, true, ATK, false, false, FAULTS>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // scored: 1 (v1.1) or 0 (v1.0: counter dtypes ignored); attacks: 1 for
 // the attack variant (scored only)
+template <int C, int W, bool FAULTS>
+int launch_family(const ReceiveArgs& a, int scored, int attacks,
+                  int ctr_bf16, int bp_bf16, cudaStream_t s) {
+  if (a.paired) {
+    return launch_paired_variant<C, W, FAULTS>(a, scored, ctr_bf16, bp_bf16,
+                                               s);
+  }
+  if (a.full) {
+    return launch_full_variant<C, W, FAULTS>(a, scored, ctr_bf16, bp_bf16, s);
+  }
+  if (!scored) {
+    if (attacks) return (int)cudaErrorInvalidValue;
+    return launch<C, W, false, false, false, false, FAULTS>(a, s);
+  }
+  if (attacks) {
+    return launch_scored<C, W, true, FAULTS>(a, ctr_bf16, bp_bf16, s);
+  }
+  return launch_scored<C, W, false, FAULTS>(a, ctr_bf16, bp_bf16, s);
+}
+
 template <int C, int W>
 int launch_variant(const ReceiveArgs& a, int scored, int attacks,
                    int ctr_bf16, int bp_bf16, cudaStream_t s) {
-  if (a.paired) {
-    return launch_paired_variant<C, W>(a, scored, ctr_bf16, bp_bf16, s);
+  if (a.faults) {
+    return launch_family<C, W, true>(a, scored, attacks, ctr_bf16, bp_bf16,
+                                     s);
   }
-  if (a.full) return launch_full_variant<C, W>(a, scored, ctr_bf16, bp_bf16, s);
-  if (!scored) {
-    if (attacks) return (int)cudaErrorInvalidValue;
-    return launch<C, W, false, false, false, false>(a, s);
-  }
-  if (attacks) return launch_scored<C, W, true>(a, ctr_bf16, bp_bf16, s);
-  return launch_scored<C, W, false>(a, ctr_bf16, bp_bf16, s);
+  return launch_family<C, W, false>(a, scored, attacks, ctr_bf16, bp_bf16, s);
 }
 
 }  // namespace
@@ -741,7 +846,8 @@ int launch_variant(const ReceiveArgs& a, int scored, int attacks,
 // variant (1, scored only) or not (0); counter/bp storage bf16 (1) or
 // f32 (0); args->paired chooses the paired variant, else args->full the
 // full variant (the attack and router-surface options then ride their
-// runtime flags).  Returns cudaGetLastError() after the launch, or
+// runtime flags); args->faults launches the chosen variant's faulted
+// kernel.  Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a shape with no instantiation (the wrapper
 // refuses those first).
 extern "C" int gossip_receive_update(const ReceiveArgs* args, int c, int w,

@@ -6,11 +6,13 @@ Each source is a variant of ``csrc/receive.cu`` with the same C interface
 (``gossip_receive_update`` and ``struct ReceiveArgs`` of this tree's
 wrapper), next to the headers it includes.  Each is built with the
 port's nvcc flags (its ptxas summary printed), then the receive
-operands of tick 40 of the 1M-peer adversarial, flagship, everything-on
-and paired everything-on sims are captured (the everything-on tick only
-for the sources that have the full variant, ``receive_kernel_full``, the
-paired one only for those with ``receive_kernel_paired``), every build is
-checked
+operands of the last tick of 40 of the 1M-peer adversarial, flagship,
+everything-on and paired everything-on sims and of tick 130 of the churn
+benchmark's sim (inside a churn wave and the partition) are captured (the
+everything-on tick only for the sources that have the full variant,
+``receive_kernel_full``, the paired one only for those with
+``receive_kernel_paired``, the churn tick only for those with
+``receive_kernel_faults``), every build is checked
 bit-identical to the plain version on them, and the builds are timed in
 turns (``chip_smoke.device_ms``: CUDA
 events over a CUDA-graph replay of 50 launches), ``--reps`` times each.
@@ -28,7 +30,7 @@ from pathlib import Path
 
 import torch
 
-from . import adversarial, everything, flagship
+from . import adversarial, churn, everything, flagship
 from .models import gossipsub as gs
 from .ops.kernels import _build
 from .ops.kernels import receive as krecv
@@ -61,24 +63,31 @@ def main() -> None:
     dev = torch.device("cuda")
     times = {}
     has = {name: {src for src in libs if name in Path(src).read_text()}
-           for name in ("receive_kernel_full", "receive_kernel_paired")}
-    for label, build in (
-            ("adversarial", adversarial.build), ("flagship", flagship.build),
-            ("everything", everything.build),
+           for name in ("receive_kernel_full", "receive_kernel_paired",
+                        "receive_kernel_faults")}
+    all_libs = dict(libs)
+    # each sim stepped ``run`` ticks: its last tick's operands
+    for label, build, run in (
+            ("adversarial", adversarial.build, 40),
+            ("flagship", flagship.build, 40),
+            ("everything", everything.build, 40),
             ("everything_paired",
              lambda dev, horizon: everything.build(dev, horizon=horizon,
-                                                   paired=True))):
+                                                   paired=True), 40),
+            ("churn", lambda dev, horizon: churn.build(dev),
+             churn.heal_tick() - 19)):
         cfg, sc, params, state = build(dev, horizon=400)[:4]
         k = krecv.receive_consts(cfg, sc, px=state.active is not None,
-                                 same_ip=params.cand_same_ip is not None)
-        if k.full or k.paired:
-            need = "receive_kernel_paired" if k.paired else \
-                "receive_kernel_full"
-            libs = {src: lib for src, lib in libs.items()
-                    if src in has[need]}
+                                 same_ip=params.cand_same_ip is not None,
+                                 faults=params.faults is not None)
+        need = ("receive_kernel_faults" if k.faults else
+                "receive_kernel_paired" if k.paired else
+                "receive_kernel_full" if k.full else None)
+        libs = {src: lib for src, lib in all_libs.items()
+                if need is None or src in has[need]}
         step = gs.make_gossip_step(cfg, sc, device=dev)
         ops = cs.capture_receive(
-            lambda: gs.gossip_run(params, state, 40, step, device=dev), krecv)
+            lambda: gs.gossip_run(params, state, run, step, device=dev), krecv)
         want = krecv.receive_update_plain(k, **ops)
         for src, lib in libs.items():
             _build._LIBS["receive"] = lib

@@ -13,7 +13,9 @@ breakers, eclipse); scored or not, operator-pinned direct peers, PX
 candidate rotation over an active subset of the candidates, Bernoulli
 or exact-k gossip targets, and paired topics (every peer in its class r
 and r + T/2: one mesh, backoff and P1 per topic slot, one maintenance
-pass per slot, slot-B flags on a second ctrl byte).  The receive half
+pass per slot, slot-B flags on a second ctrl byte); any of these under a
+fault schedule (churn, link loss, partitions, cold restart:
+``models/faults.py``).  The receive half
 (payload receive, handshake, counter updates, next tick's gates) is one
 kernel launch (``ops/kernels/receive.py``); every random top-k selection
 is one launch of the select kernel (``ops/kernels/select.py``).
@@ -66,6 +68,7 @@ from ..ops.graph import (
 from ..ops.kernels import fused as kfused
 from ..ops.kernels import receive as krecv
 from ..ops.kernels import select as kselect
+from . import faults as _faults
 from . import plan
 from ._delivery import reach_counts_from_first_tick, update_first_tick
 
@@ -309,6 +312,8 @@ class GossipParams:
     # paired topics: bit m set iff msg m is peer p's second topic, the
     # one its slot-B mesh forwards (None unpaired)
     slot_b_words: torch.Tensor | None = None     # int32 [W, N]
+    # the compiled fault schedule (None without one)
+    faults: _faults.FaultParams | None = None
 
 
 @dataclass
@@ -394,11 +399,13 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
     not: direct_edges bool [N, C] pins operator-configured direct peers
     (symmetric: both ends configure the edge), and px_candidates (Dhi <
     px_candidates <= C) starts each peer knowing a random subset of that
-    size of its candidates, which PX rotation then refreshes."""
+    size of its candidates, which PX rotation then refreshes.
+    fault_schedule (``models/faults.py`` ``FaultSchedule`` over the sim's
+    peers) injects churn, link loss, partitions and cold restarts."""
     dev = resolve_device(device)
     plan.check_sim_options(
         flood_proto=flood_proto, pad_to_block=pad_to_block,
-        fault_schedule=fault_schedule, byzantine=byzantine,
+        byzantine=byzantine,
         score_knobs=score_knobs, sim_knobs=sim_knobs, delays=delays,
         delays_split=delays_split, delays_counters=delays_counters,
         delays_probe=delays_probe)
@@ -552,6 +559,16 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
                 "(an attacker cannot eclipse itself)")
         scored.update(eclipse_sybil=t_(es), eclipse_victim=t_(ev),
                       cand_victim_bits=_words(cand_bits(ev), dev))
+
+    if fault_schedule is not None:
+        # the schedule covers the true peer count (the port runs
+        # unpadded)
+        if fault_schedule.n_peers != n:
+            raise ValueError(
+                f"fault_schedule.n_peers={fault_schedule.n_peers} != "
+                f"sim peer count {n}")
+        scored["faults"] = _faults.compile_faults(fault_schedule,
+                                                  cfg.offsets, device=dev)
 
     params = GossipParams(
         subscribed=t_(subscribed),
@@ -832,7 +849,8 @@ SLOT_PHASES = ((2, 3, 5), (12, 13, 15))
 def maintain_slot(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
                   params: GossipParams, state: GossipState, slot: int, *,
                   sub_all: torch.Tensor,
-                  accept_bits: torch.Tensor | None) -> dict:
+                  accept_bits: torch.Tensor | None,
+                  fmasks: _faults.TickMasks | None = None) -> dict:
     """One topic slot's heartbeat maintenance selections on the
     start-of-tick state (gossipsub.go:1299-1552): scored, negative-score
     drops, graft to D below Dlo, score-ranked prune to D above Dhi,
@@ -844,7 +862,10 @@ def maintain_slot(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
     words the handshake needs: grafts, dropped, neg (scored), mesh_sel,
     backoff_bits2, would_accept, a_sent.  ``sub_all`` and (scored)
     ``accept_bits``, the accept gate row with the direct peers let
-    through, are the step's own.  Scored, one host sync (the prune)."""
+    through, are the step's own.  Under faults (``fmasks``, the tick's
+    masks) mesh edges to or at a dead peer drop with PRUNE and backoff at
+    both ends (folded into ``dropped``), and nobody grafts at or by a
+    dead peer.  Scored, one host sync (the prune)."""
     C = cfg.n_candidates
     n = params.subscribed.shape[0]
     tick, salt = state.tick, state.salt
@@ -860,6 +881,12 @@ def maintain_slot(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
         return kselect.select_k_bits(elig, kk, C,
                                      lane_seed(tick, phase, salt), n)
 
+    dead = None
+    if fmasks is not None:
+        # both ends start the same backoff at the death tick, so a
+        # rejoiner and its old partners become graftable together
+        dead = mesh0 & ~(fmasks.cand_alive & fmasks.alive_all)
+        mesh0 = mesh0 & ~dead
     neg = None
     mesh_ng = mesh0
     if sc is not None:
@@ -875,6 +902,8 @@ def maintain_slot(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
         can_graft = can_graft & active
     if sc is not None:
         can_graft = can_graft & nonneg_bits
+    if fmasks is not None:
+        can_graft = can_graft & fmasks.cand_alive & fmasks.alive_all
     need = torch.where(deg < cfg.d_lo, cfg.d - deg, 0).to(torch.int32)
     grafts = sel_k(can_graft, need, ph_graft)
     if sc is None:
@@ -898,8 +927,14 @@ def maintain_slot(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
             grafts = torch.where(
                 params.eclipse_sybil,
                 params.cand_victim_bits & cand_sub & ~mesh_ng, grafts)
+    if fmasks is not None:
+        # over the overrides too: not even a graft-flooding sybil grafts
+        # while dead or at the dead
+        grafts = grafts & fmasks.cand_alive & fmasks.alive_all
     mesh_sel = (mesh_ng | grafts) & ~prunes
     dropped = prunes if neg is None else prunes | neg
+    if dead is not None:
+        dropped = dropped | dead
     backoff_bits2 = bo_row0 | dropped
     would_accept = sub_all & ~backoff_bits2
     if direct is not None:
@@ -954,6 +989,18 @@ def make_gossip_step(cfg: GossipSimConfig,
     so the receiver's kernel charges the broken promise to P7; the
     sybil word carries the IHAVE targets override and the IWANT-flood
     serve accrual into the kernel.
+
+    Faults (``params.faults``, ``models/faults.py``): the tick's masks
+    are computed once on the device from the host tick; under cold
+    restart a rejoining peer's possession and mcache are cleared first.
+    A down origin's publish is lost; a down peer, or either end of a
+    down link, sends nothing (forwards, adverts, floods and the handshake
+    bytes are masked by ``send_ok``, the handshake words the kernel reads
+    stay unmasked: only the notification is lost); dead candidates take
+    no fanout slot and no graft, and mesh edges to or at a dead peer drop
+    with PRUNE and backoff at both ends (``maintain_slot``); the kernel's
+    faulted variant gates what a down receiver hears and the control it
+    receives (``alive_w``) and the IWANT flood's edges (``flood_ok``).
     """
     dev = resolve_device(device)
     plan.check_paired_step(cfg, score_cfg, force_split)
@@ -998,6 +1045,19 @@ def make_gossip_step(cfg: GossipSimConfig,
         sub_all = torch.where(sub, ALL, 0).to(torch.int32)
         cand_sub = params.cand_sub_bits
         direct, active = params.cand_direct, state.active
+        # -- fault masks, once per tick on the device from the host tick;
+        # a peer rejoining this tick under cold restart comes back with
+        # its possession words and mcache ring cleared before anything
+        # reads them
+        fp = params.faults
+        fm = None
+        if fp is not None:
+            fm = _faults.tick_masks(fp, cfg.offsets, cfg.cinv, tick)
+            if fp.cold_restart:
+                rejoin_w = _faults.alive_word(
+                    _faults.rejoined_mask(fp, tick))
+                state = replace(state, have=state.have & ~rejoin_w,
+                                recent=state.recent & ~rejoin_w)
         if sc is not None:
             (accept_bits, gossip_bits, pub_ok_bits, _, payload_bits,
              targets, _) = state.gates[:7]
@@ -1017,6 +1077,9 @@ def make_gossip_step(cfg: GossipSimConfig,
         # -- 1. publish injection
         due = pack_bits(params.publish_tick == tick)        # [W]
         injected = params.origin_words & due[:, None] & ~state.have
+        if fm is not None:
+            # a down origin's publish is lost, not deferred
+            injected = injected & fm.alive_w
         publishing = (injected != 0).any(0)
 
         # -- 1b. fanout TTL + refill (own publishes only; scored: above
@@ -1033,6 +1096,9 @@ def make_gossip_step(cfg: GossipSimConfig,
             f_elig = f_elig & active
         if sc is not None:
             f_elig = f_elig & pub_ok_bits
+        if fm is not None:
+            # dead candidates make useless fanout targets
+            f_elig = f_elig & fm.cand_alive
         fanout = fanout | sel_k(f_elig, f_need.to(torch.int32), 4)
 
         # -- 2. eager-forward and 3. advert words (scored: honest peers
@@ -1075,6 +1141,13 @@ def make_gossip_step(cfg: GossipSimConfig,
             if flood_bits is not None:
                 flood_bits = torch.where(params.eclipse_sybil, 0,
                                          flood_bits)
+        if fm is not None:
+            # faults cut sends at their source: a down peer, or either
+            # end of a down link, forwards, gossips and floods nothing
+            out_bits = out_bits & fm.send_ok
+            targets = targets & fm.send_ok
+            if flood_bits is not None:
+                flood_bits = flood_bits & fm.send_ok
         # promise withholding: these peers advertise but never deliver;
         # the receiver derives the broken promise (behavioural P7)
         withhold = None
@@ -1087,10 +1160,17 @@ def make_gossip_step(cfg: GossipSimConfig,
         # -- 4. maintenance selections (start-of-tick state only), one
         # pass per topic slot
         sel = maintain_slot(cfg, sc, params, state, 0, sub_all=sub_all,
-                            accept_bits=accept_bits)
+                            accept_bits=accept_bits, fmasks=fm)
         sel_b = (maintain_slot(cfg, sc, params, state, 1, sub_all=sub_all,
-                               accept_bits=accept_bits)
+                               accept_bits=accept_bits, fmasks=fm)
                  if paired else None)
+
+        def tx(word):
+            """A handshake word as sent: under faults a dead peer or a
+            down link transmits nothing (the local effects of a drop, the
+            mesh removal and own backoff, still apply: the kernel reads
+            the unmasked words)."""
+            return word if fm is None else word & fm.send_ok
 
         # -- the receive kernel: exchange, handshake, counters, gates;
         # the raw advert (CTRL_ADV) against the delivering one (CTRL_TGT)
@@ -1098,8 +1178,9 @@ def make_gossip_step(cfg: GossipSimConfig,
         tgt_deliver = (targets if withhold is None
                        else torch.where(withhold, 0, targets))
         ctrl = krecv.ctrl_bytes(C, out=out_bits, tgt=tgt_deliver,
-                                graft=sel["grafts"], drop=sel["dropped"],
-                                a=sel["a_sent"], adv=targets,
+                                graft=tx(sel["grafts"]),
+                                drop=tx(sel["dropped"]),
+                                a=tx(sel["a_sent"]), adv=targets,
                                 flood=flood_bits)
         ops = dict(
             gseeds=(lane_seed(tick + 1, 6, salt),
@@ -1127,10 +1208,10 @@ def make_gossip_step(cfg: GossipSimConfig,
             if eclipse:
                 out_b = torch.where(params.eclipse_sybil, 0, out_b)
             ops.update(
-                ctrl2=krecv.ctrl2_bytes(C, out_b=out_b,
-                                        graft_b=sel_b["grafts"],
-                                        drop_b=sel_b["dropped"],
-                                        a_b=sel_b["a_sent"]),
+                ctrl2=krecv.ctrl2_bytes(C, out_b=tx(out_b),
+                                        graft_b=tx(sel_b["grafts"]),
+                                        drop_b=tx(sel_b["dropped"]),
+                                        a_b=tx(sel_b["a_sent"])),
                 fresh_b=fresh_b, wa_b=sel_b["would_accept"],
                 grafts_b=sel_b["grafts"], dropped_b=sel_b["dropped"],
                 meshsel_b=sel_b["mesh_sel"], backoff_b=state.backoff_b)
@@ -1144,6 +1225,8 @@ def make_gossip_step(cfg: GossipSimConfig,
             variant["px"] = True
         if params.cand_same_ip is not None:
             variant["same_ip"] = True
+        if fm is not None:
+            variant["faults"] = True
         kk = kernel_consts(**variant)
         if kk.flood_publish:
             # the injected words once more, as a sender stream
@@ -1156,6 +1239,13 @@ def make_gossip_step(cfg: GossipSimConfig,
             spam = sc.sybil_ihave_spam or sc.sybil_iwant_spam
             ops["syb"] = (torch.where(params.sybil, ALL, 0).to(torch.int32)
                           if spam else torch.zeros_like(sub_all))
+        if kk.faults:
+            # the receiver's alive word; under the IWANT flood, the
+            # edges a flood may cross (sender alive, link up, partner
+            # alive)
+            ops["alive_w"] = fm.alive_w
+            if kk.iwant_spam:
+                ops["flood_ok"] = fm.flood_ok
         outs = iter(krecv.receive_update(kk, **ops))
         acq, mesh_new = next(outs), next(outs)
         mesh_b_new = next(outs) if paired else None
@@ -1222,6 +1312,27 @@ def make_gossip_step(cfg: GossipSimConfig,
 # --------------------------------------------------------------------------
 
 
+def window_fault_rows(cfg: GossipSimConfig,
+                      fp: _faults.FaultParams | None, tick0: int,
+                      ticks: int) -> dict:
+    """A fused window's per-tick fault rows, int32 [T, N] on the device:
+    each tick's masks as the step computes them (``alive``, ``send_ok``,
+    ``cand_alive``; with cold restart ``rejoin``), or none without a
+    schedule."""
+    if fp is None:
+        return {}
+    masks = [_faults.tick_masks(fp, cfg.offsets, cfg.cinv, tick0 + t)
+             for t in range(ticks)]
+    rows = dict(alive=torch.stack([m.alive_w for m in masks]),
+                send_ok=torch.stack([m.send_ok for m in masks]),
+                cand_alive=torch.stack([m.cand_alive for m in masks]))
+    if fp.cold_restart:
+        rows["rejoin"] = torch.stack([
+            _faults.alive_word(_faults.rejoined_mask(fp, tick0 + t))
+            for t in range(ticks)])
+    return rows
+
+
 def make_fused_window(cfg: GossipSimConfig,
                       score_cfg: ScoreSimConfig | None = None, *,
                       ticks_fused: int = 8,
@@ -1233,11 +1344,14 @@ def make_fused_window(cfg: GossipSimConfig,
     window.  ``delivered`` is int32 [T, W, N] — row t is tick
     ``state.tick + t``'s delivered words.  Bit-identical to T per-tick
     steps of ``make_gossip_step(cfg, None)``, with Bernoulli or exact-k
-    gossip targets; a sim with PX or direct peers is refused by name.
+    gossip targets, with or without a fault schedule (and cold restart);
+    a sim with PX or direct peers is refused by name.
 
     On the host the window computes the T x 4 lane seeds; the T due
-    words are computed on the device, so a window never syncs with the
-    host.  A window the port does not run raises its named refusal
+    words and, under faults, the T ticks' fault rows
+    (``window_fault_rows``: T link draws) are computed on the device
+    before the launch, so a window never syncs with the host.  A window
+    the port does not run raises its named refusal
     (``plan.check_fused_window``; on the card, ``fused_grid`` from the
     launch) — there is no per-tick fallback."""
     dev = resolve_device(device)
@@ -1274,7 +1388,8 @@ def make_fused_window(cfg: GossipSimConfig,
             cand_sub=params.cand_sub_bits, origin=params.origin_words,
             have=state.have, recent=state.recent, mesh=state.mesh,
             fanout=state.fanout, last_pub=state.last_pub,
-            backoff=state.backoff, tgt=state.gates[0], bog=state.gates[1])
+            backoff=state.backoff, tgt=state.gates[0], bog=state.gates[1],
+            **window_fault_rows(cfg, params.faults, tick0, T))
         delivered = acq & params.deliver_words[None]
         first_tick = state.first_tick
         for t in range(T):

@@ -10,7 +10,10 @@ receive kernel (unpadded, pipelined gates, one topic per peer or, with
 direct peers, Bernoulli or exact-k gossip targets, PX candidate rotation
 and the shared-IP gater; and the unscored heartbeat T ticks per launch
 on the fused-window kernel (Bernoulli or exact-k targets; one topic per
-peer, no PX, no direct peers).  Each
+peer, no PX, no direct peers).  Both run under fault schedules (churn,
+link loss, partitions, cold restart); the fault knob stays refused as
+``knobs``, faults with telemetry as ``telemetry`` and with delays as
+``delays``, each by its own name as without faults.  Each
 refusal has a stable name (``SliceRefusal.name``) and its own message;
 tests match on the name.
 """
@@ -22,8 +25,6 @@ from __future__ import annotations
 MAX_WINDOW = 64
 
 REFUSALS: dict[str, str] = {
-    "faults": "fault schedules (churn, link loss, partitions) are not "
-              "ported yet",
     "telemetry": "telemetry frames are not ported yet",
     "knobs": "traced parameter knobs (score_knobs / sim_knobs) are not "
              "ported yet",
@@ -126,8 +127,8 @@ def check_step_options(*, force_split, pipeline_gates, shard_mesh,
         refuse("invariants")
 
 
-def check_sim_options(*, flood_proto, pad_to_block, fault_schedule,
-                      byzantine, score_knobs, sim_knobs, delays,
+def check_sim_options(*, flood_proto, pad_to_block, byzantine,
+                      score_knobs, sim_knobs, delays,
                       delays_split, delays_counters, delays_probe) -> None:
     if pad_to_block is not None:
         refuse("pad_to_block")
@@ -135,8 +136,6 @@ def check_sim_options(*, flood_proto, pad_to_block, fault_schedule,
         refuse("flood_proto")
     if byzantine is not None:
         refuse("byzantine")
-    if fault_schedule is not None:
-        refuse("faults")
     if score_knobs is not None or sim_knobs is not None:
         refuse("knobs")
     if (delays is not None or delays_split or delays_counters
@@ -148,9 +147,10 @@ def check_fused_window(cfg, sc, ticks: int, *, telemetry=None,
                        shard_mesh=None) -> None:
     """Refuse a fused window the port does not run (static config).
 
-    Faults, delays and knobs are refused by the same names when the sim
-    is built (``check_sim_options``), so no window ever sees them; the
-    window refuses the rest here, and PX and direct peers when it is
+    Delays and knobs are refused by their names when the sim is built
+    (``check_sim_options``), so no window ever sees them; a faulted sim
+    runs (its per-tick fault rows ride the launch); the window refuses
+    the rest here, and PX and direct peers when it is
     handed their params or state (``check_fused_operands``)."""
     if not 1 <= int(ticks) <= MAX_WINDOW:
         refuse("fused_window")

@@ -3,10 +3,11 @@ its plain PyTorch version.
 
 Counterpart of ``go_libp2p_pubsub_tpu/ops/pallas/receive.py``
 (``make_fused_gossip_update`` / ``_fused_gossip_kernel``), single
-device, without fault rows, cold restart, telemetry or the sharded halo:
-T ticks of the unscored (v1.0) step in one launch, the carry read once
-and written once per window; Bernoulli or exact-k gossip targets
-(``binomial_gossip_sampling``), no PX and no direct peers.
+device, without telemetry or the sharded halo: T ticks of the unscored
+(v1.0) step in one launch, the carry read once and written once per
+window; Bernoulli or exact-k gossip targets
+(``binomial_gossip_sampling``), no PX and no direct peers; with or
+without a fault schedule's per-tick rows, and with cold restart.
 
 Operands (peer axis last, packed u32 words as int32):
 
@@ -20,7 +21,12 @@ Operands (peer axis last, packed u32 words as int32):
 - the carry: ``have`` [W, N], ``recent`` [Hg, W, N] (the mcache ring),
   ``mesh``, ``fanout`` [N], ``last_pub`` int32 [N], ``backoff`` int16
   [C, N], ``tgt`` and ``bog`` [N] (the carried targets and backoff gate
-  rows).
+  rows);
+- under faults (``models/faults.py`` ``tick_masks`` of each tick of the
+  window), int32 [T, N] rows: ``alive`` (a live peer's all-ones word),
+  ``send_ok`` (the edges a peer may send on) and ``cand_alive`` (its live
+  candidates); with cold restart also ``rejoin`` (all-ones at a peer
+  coming back up that tick).
 
 Returns ``(have, recent, mesh, fanout, last_pub, backoff, tgt, bog, acq
 [T, W, N])`` — the carry after the window and each tick's acquisitions.
@@ -29,6 +35,7 @@ Returns ``(have, recent, mesh, fanout, last_pub, backoff, tgt, bog, acq
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -38,9 +45,11 @@ from ...models import plan
 from . import _build
 from . import receive as krecv
 
-#: launches of the CUDA kernel (a plain integer; chip_smoke.py resets it
-#: before the main path and reads it after)
+#: launches of the CUDA kernel, without and with fault rows (plain
+#: integers; chip_smoke.py resets them before a main path and reads them
+#: after)
 launches = 0
+launches_faults = 0
 
 #: (C, W) shapes the CUDA kernel is instantiated for
 KERNEL_SHAPES = {(8, 1), (8, 2), (16, 1), (16, 2)}
@@ -88,50 +97,84 @@ def select_plain(elig: torch.Tensor, k: torch.Tensor, c: int,
 
 def fused_gossip_update_plain(k: FusedConsts, *, tick0, seeds, due,
                               sub_all, cand_sub, origin, have, recent, mesh,
-                              fanout, last_pub, backoff, tgt, bog):
+                              fanout, last_pub, backoff, tgt, bog,
+                              alive=None, send_ok=None, cand_alive=None,
+                              rejoin=None):
     """Plain PyTorch version of the fused kernel: the unscored tick body
     looped over the window (same operands, same outputs,
-    bit-identical)."""
+    bit-identical), under faults with the step's fault masks."""
     C = k.n_candidates
     Hg = k.history_gossip
+    ALL = (1 << C) - 1
     subbed = sub_all != 0
+    faults = alive is not None
+    k_recv = dataclasses.replace(k.receive, faults=faults)
     acqs = []
     for t, (s_fan, s_graft, s_prune, s_tgt) in enumerate(seeds):
         tick = tick0 + t
+        if rejoin is not None:
+            # cold restart: a rejoiner's possession and ring are cleared
+            # before anything reads them
+            have = have & ~rejoin[t]
+            recent = recent & ~rejoin[t]
+        fault_ops = {}
+        so = -1                 # the edges a peer may send on: all
+        if faults:
+            aw, so, ca = alive[t], send_ok[t], cand_alive[t]
+            up = aw & ALL
+            fault_ops["alive_w"] = aw
         # 1. publish injection
         inj = origin & due[t][:, None] & ~have
+        if faults:
+            inj = inj & aw
         publishing = (inj != 0).any(0)
         # 1b. fanout TTL + refill
         last_pub = torch.where(publishing, tick, last_pub)
-        alive = ~subbed & ((tick - last_pub) < k.fanout_ttl)
-        fanout = torch.where(alive, fanout, 0)
-        f_need = torch.where(alive, k.d - graph.popcount32(fanout), 0)
-        fanout = fanout | select_plain(cand_sub & ~fanout,
-                                       f_need.to(torch.int32), C, s_fan)
+        alive_f = ~subbed & ((tick - last_pub) < k.fanout_ttl)
+        fanout = torch.where(alive_f, fanout, 0)
+        f_need = torch.where(alive_f, k.d - graph.popcount32(fanout), 0)
+        f_elig = cand_sub & ~fanout
+        if faults:
+            f_elig = f_elig & ca
+        fanout = fanout | select_plain(f_elig, f_need.to(torch.int32), C,
+                                       s_fan)
         # 2/3a. fresh and advert windows from the ring
         fresh = recent[(tick - 1) % Hg] | inj
         adv = inj
         for h in range(Hg):
             adv = adv | recent[h]
-        # 4. maintenance: graft below Dlo, v1.0 random prune above Dhi
-        deg = graph.popcount32(mesh)
+        # 4. maintenance: graft below Dlo, v1.0 random prune above Dhi;
+        # under faults, edges to or at a dead peer drop (PRUNE and
+        # backoff at both ends) and nobody grafts at or by a dead peer
+        mesh_ng, dead = mesh, 0
+        if faults:
+            dead = mesh & ~(ca & up)
+            mesh_ng = mesh & ~dead
+        deg = graph.popcount32(mesh_ng)
         need = torch.where(deg < k.d_lo, k.d - deg, 0).to(torch.int32)
-        grafts = select_plain(cand_sub & ~mesh & ~bog & sub_all, need, C,
-                              s_graft)
+        can_graft = cand_sub & ~mesh_ng & ~bog & sub_all
+        if faults:
+            can_graft = can_graft & ca & up
+        grafts = select_plain(can_graft, need, C, s_graft)
         over = deg > k.d_hi         # retention drawn where it prunes
-        keep = select_plain(mesh, torch.where(over, k.d, 0).to(torch.int32),
-                            C, s_prune)
-        prunes = torch.where(over, mesh & ~keep, 0)
-        would_accept = sub_all & ~(bog | prunes)
-        # the exchange, handshake, backoff and next tick's gate rows
-        ctrl = krecv.ctrl_bytes(C, out=mesh | fanout, tgt=tgt, graft=grafts,
-                                drop=prunes, a=would_accept, adv=tgt)
+        keep = select_plain(mesh_ng,
+                            torch.where(over, k.d, 0).to(torch.int32), C,
+                            s_prune)
+        prunes = torch.where(over, mesh_ng & ~keep, 0)
+        dropped = prunes | dead
+        would_accept = sub_all & ~(bog | dropped)
+        # the exchange, handshake, backoff and next tick's gate rows; a
+        # dead peer or either end of a down link sends nothing
+        targets = tgt & so
+        ctrl = krecv.ctrl_bytes(C, out=(mesh | fanout) & so, tgt=targets,
+                                graft=grafts & so, drop=dropped & so,
+                                a=would_accept & so, adv=targets)
         acq, mesh, backoff, tgt, bog = krecv.receive_update_plain(
-            k.receive, gseeds=(0, s_tgt), ctrl=ctrl, fresh=fresh, adv=adv,
+            k_recv, gseeds=(0, s_tgt), ctrl=ctrl, fresh=fresh, adv=adv,
             sub_all=sub_all, cand_sub=cand_sub, fanout=fanout,
-            wa=would_accept, grafts=grafts, dropped=prunes,
-            meshsel=(mesh | grafts) & ~prunes, seen=have | inj,
-            injected=inj, backoff=backoff)
+            wa=would_accept, grafts=grafts, dropped=dropped,
+            meshsel=(mesh_ng | grafts) & ~prunes, seen=have | inj,
+            injected=inj, backoff=backoff, **fault_ops)
         have = have | acq
         recent = recent.clone()
         recent[tick % Hg] = acq
@@ -157,11 +200,17 @@ class _Args(ctypes.Structure):
             "d_lazy")]
         + [("gossip_factor", ctypes.c_float), ("stride", ctypes.c_uint),
            ("seeds", (ctypes.c_uint * 4) * plan.MAX_WINDOW),
-           ("exact_k", ctypes.c_int)])
+           ("exact_k", ctypes.c_int)]
+        # the fault rows, last
+        + [(name, ctypes.c_void_p) for name in (
+            "alive", "sok", "cal", "rej")]
+        + [("faults", ctypes.c_int), ("cold", ctypes.c_int)])
 
 
 _CARRY = ("have", "recent", "mesh", "fanout", "last_pub", "backoff", "tgt",
           "bog")
+#: the per-tick fault rows (``rejoin`` with cold restart only)
+FAULT_ROWS = ("alive", "send_ok", "cand_alive", "rejoin")
 
 
 def _check_operands(k: FusedConsts, ops: dict) -> None:
@@ -180,6 +229,11 @@ def _check_operands(k: FusedConsts, ops: dict) -> None:
             "last_pub": ((n,), torch.int32),
             "backoff": ((C, n), torch.int16), "tgt": ((n,), torch.int32),
             "bog": ((n,), torch.int32)}
+    rows = [name for name in FAULT_ROWS if ops.get(name) is not None]
+    if rows and rows[:3] != list(FAULT_ROWS[:3]):
+        raise ValueError(f"fault rows {rows}: alive, send_ok and "
+                         "cand_alive go together (rejoin with them)")
+    want.update({name: ((T, n), torch.int32) for name in rows})
     device = ops["have"].device
     for name, (shape, dtype) in want.items():
         t = ops[name]
@@ -219,7 +273,7 @@ def fused_gossip_update(k: FusedConsts, **ops):
 
     CUDA tensors launch the kernel (a failed build or launch raises);
     CPU tensors run ``fused_gossip_update_plain``."""
-    global launches
+    global launches, launches_faults
     _check_operands(k, ops)
     if ops["have"].device.type == "cpu":
         return fused_gossip_update_plain(k, **ops)
@@ -256,6 +310,11 @@ def fused_gossip_update(k: FusedConsts, **ops):
     a.gossip_factor = r.gossip_factor
     a.stride = n & graph.MASK32
     a.exact_k = int(r.exact_k)
+    for field, name in zip(("alive", "sok", "cal", "rej"), FAULT_ROWS):
+        if ops.get(name) is not None:
+            setattr(a, field, ops[name].data_ptr())
+    a.faults = int(ops.get("alive") is not None)
+    a.cold = int(ops.get("rejoin") is not None)
     for t, tick_seeds in enumerate(ops["seeds"]):
         for i, seed in enumerate(tick_seeds):
             a.seeds[t][i] = int(seed) & graph.MASK32
@@ -264,19 +323,24 @@ def fused_gossip_update(k: FusedConsts, **ops):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gossip_fused_window(ctypes.byref(a), C, W, stream)
     check_launch(err)
-    launches += 1
+    if a.faults:
+        launches_faults += 1
+    else:
+        launches += 1
     return (*(outs[name] for name in _CARRY), acq)
 
 
 def window_operand_bytes(ops: dict) -> int:
     """Bytes the window function must move: the carry read and written
-    once, the static rows read once, each tick's acquisitions written
-    once (the kernel's own stage is not the function's and is counted
-    apart, ``stage_bytes``)."""
+    once, the static rows and the fault rows read once, each tick's
+    acquisitions written once (the kernel's own stage is not the
+    function's and is counted apart, ``stage_bytes``)."""
     carry = sum(ops[name].numel() * ops[name].element_size()
                 for name in _CARRY)
     static = sum(ops[name].numel() * ops[name].element_size()
-                 for name in ("sub_all", "cand_sub", "origin", "due"))
+                 for name in ("sub_all", "cand_sub", "origin", "due",
+                              *FAULT_ROWS)
+                 if ops.get(name) is not None)
     W, n = ops["have"].shape
     return 2 * carry + static + 4 * len(ops["seeds"]) * W * n
 

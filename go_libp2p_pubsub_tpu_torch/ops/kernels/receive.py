@@ -11,7 +11,8 @@ flood publishing and the shared-IP gater (scored), exact-k gossip
 targets and the PX trigger word (scored or not); and paired topics
 (``ReceiveConsts.paired``, one more variant with every option of the
 full one): a second topic slot with its own handshake, mesh, backoff
-and, scored, time in mesh.
+and, scored, time in mesh; and each of these under fault schedules
+(``ReceiveConsts.faults``).
 The port runs unpadded, so the sender view of edge j is the plain
 ``(p + o_j) mod N`` read — no wrap-extended flats.
 
@@ -46,7 +47,12 @@ words, read over the edges whose ``ctrl2`` carries CTRL2_OUT_B;
 ``bo2_b`` [N]; ``backoff_b`` int16 [C, N] and, scored, ``tim_b`` int16
 [C, N].  On an edge whose offset is an odd multiple of T/2
 (``ReceiveConsts.odd_mask``) the partner holds the topic in its other
-slot: the two ctrl bytes' GRAFT/PRUNE/A bits cross slots.
+slot: the two ctrl bytes' GRAFT/PRUNE/A bits cross slots.  Under
+faults: ``alive_w`` int32 [N], the receiver's alive word (all-ones, or
+0 at a down peer), which gates the words it hears and the GRAFT, PRUNE,
+A and broken-promise bits it receives (the senders' masks ride the
+ctrl bytes); with the IWANT flood also ``flood_ok`` int32 [N], the
+edges a flood may cross (sender alive, link up, partner alive).
 
 Returns make_receive_update's output order: scored ``(acq [W, N], mesh
 [N], backoff [C, N], *gates (7 x [N]), fd, inv, bp, tim, iws)``,
@@ -63,6 +69,7 @@ it).
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from dataclasses import dataclass
 
 import numpy as np
@@ -88,16 +95,11 @@ CTRL2_A_B = 3      # slot-B "no PRUNE would come back"
 N_GATES = 7        # accept, gossip, publish, nonneg, payload, targets, backoff
 N_GATES_UNSCORED = 2   # targets, backoff
 
-#: launches of the CUDA kernel: the scored, unscored, scored attack,
-#: full (router-surface options) and paired (scored, unscored) variants
-#: (plain integers; chip_smoke.py resets them before a main path and
-#: reads them after)
-launches = 0
-launches_unscored = 0
-launches_attacks = 0
-launches_full = 0
-launches_paired = 0
-launches_paired_unscored = 0
+#: launches of the CUDA kernel by variant (``variant(k)``: scored,
+#: unscored, attacks, full, paired, paired_unscored, each also with a
+#: ``_faults`` suffix); chip_smoke.py clears it before a main path and
+#: reads it after
+launches: Counter[str] = Counter()
 
 #: (C, W, scored) variants the CUDA kernel is instantiated for
 KERNEL_SHAPES = {(c, w, scored) for c in (8, 16) for w in (1, 2)
@@ -196,6 +198,10 @@ class ReceiveConsts:
     # sender's slot-A control is the receiver's slot B and back)
     paired: bool = False
     odd_mask: int = 0
+    # fault schedules: the receiver's alive word gates what it hears and
+    # the handshake it receives; under the IWANT flood, the flood_ok word
+    # gates the flood's accrual
+    faults: bool = False
 
     @property
     def n_candidates(self) -> int:
@@ -226,17 +232,19 @@ def odd_edge_mask(cfg) -> int:
 
 
 def receive_consts(cfg, sc, *, promise_break: bool = False,
-                   px: bool = False, same_ip: bool = False
-                   ) -> ReceiveConsts:
+                   px: bool = False, same_ip: bool = False,
+                   faults: bool = False) -> ReceiveConsts:
     """Check the options (named refusals outside the slice) and fold the
     constants (``sc`` None: the unscored step's).  The receiver tracks
     broken promises when sybils spam IHAVEs or ``promise_break`` (the
     sim has promise breakers); ``px`` (the state has an active set) adds
     the ``px_rot`` output, ``same_ip`` (the params have sibling words)
-    the ``same_ip`` operand."""
+    the ``same_ip`` operand, ``faults`` (the sim has a fault schedule)
+    the ``alive_w`` operand and, under the IWANT flood, ``flood_ok``."""
     plan.check_kernel_config(cfg, sc)
     exact_k = not cfg.binomial_gossip_sampling
-    paired = dict(paired=cfg.paired_topics, odd_mask=odd_edge_mask(cfg))
+    paired = dict(paired=cfg.paired_topics, odd_mask=odd_edge_mask(cfg),
+                  faults=faults)
     if sc is None:
         if same_ip:
             raise ValueError("same-IP sibling words need a score config")
@@ -388,7 +396,7 @@ def _decay_keep(k: ReceiveConsts, x: torch.Tensor, decay: float,
 
 def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
               gsp=None, valid=None, inj_send=None, ctrl2=None,
-              fresh_b=None):
+              fresh_b=None, alive_w=None):
     """Stage 1 over the C receiving edges: the senders' words heard
     (``news`` per message word), the GRAFT/PRUNE/A bits received and,
     with ``valid`` (scored), the per-edge valid/invalid news counts.
@@ -403,7 +411,11 @@ def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
     slot-B words (``fresh_b``) over the edges in its slot-B mesh
     (CTRL2_OUT_B), under the receiver's payload gate, and the slot-B
     GRAFT/PRUNE/A bits received (the last output, else None): on an odd
-    edge the two ctrl bytes' handshakes cross slots."""
+    edge the two ctrl bytes' handshakes cross slots.  With ``k.faults``
+    the receiver's ``alive_w`` word (all-ones or all-zeros) gates what
+    it hears, the handshake bits it receives and its broken promises
+    (the senders' masks ride the ctrl bytes); the advert window count
+    stays raw."""
     W = fresh.shape[0]
     n = seen.shape[1]
     z = torch.zeros((n,), dtype=torch.int32, device=seen.device)
@@ -449,6 +461,8 @@ def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
                 got = got | torch.where(fl_on, torch.roll(inj_send[w], -o),
                                         0)
             got = got | torch.where(gsp_on, torch.roll(adv[w], -o), 0)
+            if k.faults:
+                got = got & alive_w            # a down peer hears nothing
             news = got & ~seen[w]
             heard[w] = heard[w] | news
             if valid is not None:
@@ -465,6 +479,12 @@ def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
             for w in range(W):
                 pa_j = pa_j + graph.popcount32(torch.roll(adv[w], -o))
             padv.append(pa_j)
+    if k.faults:
+        # a down receiver processes no inbound control and records no
+        # broken promise
+        graft_recv, prune_recv, a_recv, broken = (
+            x & alive_w for x in (graft_recv, prune_recv, a_recv, broken))
+        hs_b = [x & alive_w for x in hs_b]
     return (heard, graft_recv, prune_recv, a_recv, fd_cnt, iv_cnt, broken,
             padv, hs_b if k.paired else None)
 
@@ -516,8 +536,9 @@ def _slot_b(k: ReceiveConsts, hs_b, *, wa_b, grafts_b, dropped_b,
 def _receive_plain_unscored(k: ReceiveConsts, *, gseeds, ctrl, fresh, adv,
                             sub_all, cand_sub, fanout, wa, grafts, dropped,
                             meshsel, seen, injected, backoff, ctrl2=None,
-                            fresh_b=None, **paired_ops):
-    ex = _exchange(k, ctrl, fresh, adv, seen, ctrl2=ctrl2, fresh_b=fresh_b)
+                            fresh_b=None, alive_w=None, **paired_ops):
+    ex = _exchange(k, ctrl, fresh, adv, seen, ctrl2=ctrl2, fresh_b=fresh_b,
+                   alive_w=alive_w)
     heard, graft_recv, prune_recv, a_recv = ex[:4]
     mesh, retract = _handshake(meshsel, wa, grafts, graft_recv, prune_recv,
                                a_recv)
@@ -543,12 +564,12 @@ def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
                           backoff, static, fd, inv, bp, tim, iws, syb=None,
                           inj_send=None, same_ip=None, ctrl2=None,
                           fresh_b=None, bo2_b=None, tim_b=None,
-                          **paired_ops):
+                          alive_w=None, flood_ok=None, **paired_ops):
     C = k.n_candidates
     n = pay.shape[0]
     (heard, graft_recv, prune_recv, a_recv, fd_cnt, iv_cnt, broken,
      padv, hs_b) = _exchange(k, ctrl, fresh, adv, seen, pay, gsp, valid,
-                             inj_send, ctrl2, fresh_b)
+                             inj_send, ctrl2, fresh_b, alive_w)
     graft_recv = graft_recv & acc
     prune_recv = prune_recv & acc
     viol = graft_recv & bo2
@@ -595,6 +616,10 @@ def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
         # ledger before its decay) is spent
         pa = torch.stack(padv)
         flood = torch.where((s32 < k.retransmission * pa) & (pa > 0), pa, 0)
+        if k.faults:
+            # no flood over a faulted edge: a dead sybil requests
+            # nothing, a dead or cut-off partner serves nothing
+            flood = torch.where(graph.expand_bits(flood_ok, C), flood, 0)
         pull = torch.where((syb != 0)[None, :], flood, pull)
     H = k.history_length
     dec = s32 - torch.div(s32 + (H - 1), H, rounding_mode="floor")
@@ -665,7 +690,10 @@ class _Args(ctypes.Structure):
             "ctrl2", "fresh_b", "wa_b", "bo2_b", "grafts_b", "dropped_b",
             "meshsel_b", "backoff_b", "tim_b", "mesh_b_out",
             "backoff_b_out", "tim_b_out")]
-        + [("odd_mask", ctypes.c_uint), ("paired", ctypes.c_int)])
+        + [("odd_mask", ctypes.c_uint), ("paired", ctypes.c_int)]
+        # the fault options' fields, after those
+        + [(name, ctypes.c_void_p) for name in ("alive_w", "flood_ok")]
+        + [("faults", ctypes.c_int)])
 
 
 _WORDS_N = ("sub_all", "cand_sub", "fanout", "wa", "grafts", "dropped",
@@ -693,10 +721,16 @@ def _check_operands(k: ReceiveConsts, ops: dict) -> None:
         want_names |= set(PAIRED_OPERANDS)
         if not k.scored:
             want_names -= {"bo2_b", "tim_b"}
+    if k.faults:
+        want_names.add("alive_w")
+        if k.iwant_spam:
+            want_names.add("flood_ok")
     if names != want_names:
         variant = ("paired" if k.paired else "full" if k.full else
                    "attack" if k.attacks else
                    "scored" if k.scored else "unscored")
+        if k.faults:
+            variant += " faulted"
         raise ValueError(
             f"{variant} receive operands: "
             f"missing {sorted(want_names - names)}, unexpected "
@@ -713,6 +747,9 @@ def _check_operands(k: ReceiveConsts, ops: dict) -> None:
         want["inj_send"] = ((W, n), torch.int32)
     if k.with_same_ip:
         want["same_ip"] = ((C, n), torch.int32)
+    for name in ("alive_w", "flood_ok"):
+        if name in want_names:
+            want[name] = ((n,), torch.int32)
     if k.paired:
         want.update({"ctrl2": ((C, n), torch.uint8),
                      "fresh_b": ((W, n), torch.int32),
@@ -750,8 +787,6 @@ def receive_update(k: ReceiveConsts, **ops):
 
     CUDA tensors launch the kernel (a failed build or launch raises);
     CPU tensors run ``receive_update_plain``."""
-    global launches, launches_unscored, launches_attacks, launches_full
-    global launches_paired, launches_paired_unscored
     _check_operands(k, ops)
     if ops["sub_all"].device.type == "cpu":
         return receive_update_plain(k, **ops)
@@ -823,6 +858,11 @@ def receive_update(k: ReceiveConsts, **ops):
     if k.with_px:
         outs.append(("px_rot", torch.empty((n,), dtype=torch.int32,
                                            device=dev)))
+    if k.faults:
+        a.faults = 1
+        a.alive_w = ops["alive_w"].data_ptr()
+        if "flood_ok" in ops:
+            a.flood_ok = ops["flood_ok"].data_ptr()
     for name, t in outs + paired_outs:
         setattr(a, name, t.data_ptr())
     lib = _build.load("receive")
@@ -837,19 +877,7 @@ def receive_update(k: ReceiveConsts, **ops):
                  int(k.counter_dtype == torch.bfloat16),
                  int(k.bp_dtype == torch.bfloat16), stream)
     _build.check(err, "receive_update")
-    if k.paired:
-        if k.scored:
-            launches_paired += 1
-        else:
-            launches_paired_unscored += 1
-    elif k.full:
-        launches_full += 1
-    elif k.attacks:
-        launches_attacks += 1
-    elif k.scored:
-        launches += 1
-    else:
-        launches_unscored += 1
+    launches[variant(k)] += 1
     rest = [t for _, t in outs[4:]]
     if not k.paired:
         return (acq, mesh, bo_out, *gates.unbind(0), *rest)
@@ -859,6 +887,19 @@ def receive_update(k: ReceiveConsts, **ops):
         fd_o, inv_o, bp_o, tim_o, iws_o, *px = rest
         rest = [fd_o, inv_o, bp_o, tim_o, *tim_b, iws_o, *px]
     return (acq, mesh, mesh_b, bo_out, bo_b, *gates.unbind(0), *rest)
+
+
+def variant(k: ReceiveConsts) -> str:
+    """The name of ``k``'s kernel variant, the key of its launch count."""
+    if k.paired:
+        name = "paired" if k.scored else "paired_unscored"
+    elif k.full:
+        name = "full"
+    elif k.attacks:
+        name = "attacks"
+    else:
+        name = "scored" if k.scored else "unscored"
+    return name + "_faults" if k.faults else name
 
 
 def operand_bytes(ops: dict, outs) -> int:

@@ -53,13 +53,15 @@ def msgs(rng, n: int, t: int, m: int, horizon: int):
 
 
 def build(device, n_peers: int = N_PEERS, n_topics: int = N_TOPICS,
-          horizon: int = 8, exact_k: bool = False, paired: bool = False):
+          horizon: int = 8, exact_k: bool = False, paired: bool = False,
+          fault_schedule=None):
     """(cfg, params, state, msg_topic, msg_publish_tick); messages are
     published at ticks drawn over [0, horizon) (the benchmark's 8: half
     its 16-tick run); ``exact_k`` draws the gossip targets as exact
     k-subsets (``binomial_gossip_sampling=False``); ``paired`` subscribes
     every peer to its class r and to r + T/2 (paired topics, per tick
-    only: the fused window refuses them)."""
+    only: the fused window refuses them); ``fault_schedule`` runs it
+    under faults."""
     n, t = n_peers, n_topics
     cfg = gs.GossipSimConfig(
         offsets=gs.make_gossip_offsets(t, N_CAND, n, seed=OFFSETS_SEED,
@@ -72,6 +74,7 @@ def build(device, n_peers: int = N_PEERS, n_topics: int = N_TOPICS,
                                        topic, origin, tick,
                                        seed=SIM_SEED,
                                        track_first_tick=False,
+                                       fault_schedule=fault_schedule,
                                        device=device)
     return cfg, params, state, topic, tick
 

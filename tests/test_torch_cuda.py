@@ -6,8 +6,12 @@ under every attack formation at once, and with each router-surface
 option — flood publishing, exact-k targets, PX rotation, the shared-IP
 gater, direct peers — alone and all together, scored and unscored), the
 paired step (alone and with everything on, scored and unscored) and the
-unscored fused window on the card against the CPU.  Exact: every output
-bit for bit.
+unscored fused window on the card against the CPU; each receive variant
+and the fused window under a fault schedule (churn, link loss, a
+partition; the window also with cold restart); and three whole runs at
+100,000 peers (everything-on single-topic and paired for 400 ticks, the
+churn benchmark for its 250), the card against the CPU by a digest of
+every state leaf every 25th tick.  Exact: every output bit for bit.
 
 They skip without a card; on the card run
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest``
@@ -16,12 +20,14 @@ have).
 """
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import pytest
 import torch
 
-from go_libp2p_pubsub_tpu_torch import convert
+from go_libp2p_pubsub_tpu_torch import churn, convert, everything
+from go_libp2p_pubsub_tpu_torch.models import faults as pfl
 from go_libp2p_pubsub_tpu_torch.models import gossipsub as pgs
 from go_libp2p_pubsub_tpu_torch.ops import graph as pg
 from go_libp2p_pubsub_tpu_torch.ops.kernels import fused as pfused
@@ -128,7 +134,7 @@ def test_step_on_the_card_matches_the_cpu(cuda):
     p_g, s_g = pgs.make_gossip_sim(*args, score_cfg=sc, device=cuda)
     step_c = pgs.make_gossip_step(cfg, sc, device="cpu")
     step_g = pgs.make_gossip_step(cfg, sc, device=cuda)
-    r0, s0 = prc.launches, psel.launches
+    r0, s0 = prc.launches["scored"], psel.launches
     for tick in range(25):
         s_c = step_c(p_c, s_c)[0]
         s_g = step_g(p_g, s_g)[0]
@@ -143,7 +149,7 @@ def test_step_on_the_card_matches_the_cpu(cuda):
                                           err_msg=f"{tick} {name}")
         for i, (x, y) in enumerate(zip(a["gates"], b["gates"])):
             np.testing.assert_array_equal(x, y, err_msg=f"{tick} gate {i}")
-    assert prc.launches - r0 == 25
+    assert prc.launches["scored"] - r0 == 25
     assert psel.launches - s0 >= 50
 
 
@@ -190,7 +196,7 @@ def test_unscored_receive_kernel_matches_plain_on_a_real_tick(cuda, c,
             state = step(params, state)[0]
     finally:
         prc.receive_update = real
-    before = prc.launches_unscored
+    before = prc.launches["unscored"]
     for k, ops in (captured[1], captured[-1]):
         want = prc.receive_update_plain(k, **ops)
         got = prc.receive_update(k, **_to(ops, cuda))
@@ -198,7 +204,7 @@ def test_unscored_receive_kernel_matches_plain_on_a_real_tick(cuda, c,
         assert len(got) == 5
         for i, (g, w) in enumerate(zip(got, want)):
             assert torch.equal(g.cpu(), w), f"output {i}"
-    assert prc.launches_unscored == before + 2
+    assert prc.launches["unscored"] == before + 2
 
 
 def _fused_kernel_against_plain(cuda, c, w_words, **cfg_kw):
@@ -253,7 +259,7 @@ def test_fused_window_on_the_card_matches_the_cpu(cuda):
     s_g = convert.state_from_numpy(convert.state_to_numpy(s_c), None, cuda)
     win_c = pgs.make_fused_window(cfg, None, ticks_fused=8, device="cpu")
     win_g = pgs.make_fused_window(cfg, None, ticks_fused=8, device=cuda)
-    r0, s0, f0 = prc.launches_unscored, psel.launches, pfused.launches
+    r0, s0, f0 = prc.launches["unscored"], psel.launches, pfused.launches
     s_c = pgs.gossip_run_fused(p_c, s_c, 32, win_c, device="cpu")
     s_g = pgs.gossip_run_fused(p_g, s_g, 32, win_g, device=cuda)
     a, b = convert.state_to_numpy(s_c), convert.state_to_numpy(s_g)
@@ -263,7 +269,7 @@ def test_fused_window_on_the_card_matches_the_cpu(cuda):
     for i, (x, y) in enumerate(zip(a["gates"], b["gates"])):
         np.testing.assert_array_equal(x, y, err_msg=f"gate {i}")
     assert pfused.launches - f0 == 4
-    assert (prc.launches_unscored, psel.launches) == (r0, s0)
+    assert (prc.launches["unscored"], psel.launches) == (r0, s0)
 
 
 ATTACK_FLAGS = {
@@ -325,10 +331,10 @@ def test_attack_receive_kernel_matches_plain_on_a_real_tick(cuda, flags, c,
     k = dataclasses.replace(k, **{**off, **ATTACK_FLAGS[flags]})
     assert int(ops["syb"].ne(0).sum()) > 0
     want = prc.receive_update_plain(k, **ops)
-    before = prc.launches_attacks
+    before = prc.launches["attacks"]
     got = prc.receive_update(k, **_to(ops, cuda))
     torch.cuda.synchronize()
-    assert prc.launches_attacks == before + 1
+    assert prc.launches["attacks"] == before + 1
     for i, (g, w) in enumerate(zip(got, want)):
         assert torch.equal(g.cpu(), w), f"output {i}"
 
@@ -338,7 +344,7 @@ def test_attack_step_on_the_card_matches_the_cpu(cuda):
     _, _, p_g, s_g = _attack_sim(16, 1, n=8192, t=8, device=cuda)
     step_c = pgs.make_gossip_step(cfg, sc, device="cpu")
     step_g = pgs.make_gossip_step(cfg, sc, device=cuda)
-    r0, a0 = prc.launches, prc.launches_attacks
+    r0, a0 = prc.launches["scored"], prc.launches["attacks"]
     for tick in range(20):
         s_c = step_c(p_c, s_c)[0]
         s_g = step_g(p_g, s_g)[0]
@@ -353,7 +359,8 @@ def test_attack_step_on_the_card_matches_the_cpu(cuda):
                                           err_msg=f"{tick} {name}")
         for i, (x, y) in enumerate(zip(a["gates"], b["gates"])):
             np.testing.assert_array_equal(x, y, err_msg=f"{tick} gate {i}")
-    assert (prc.launches_attacks - a0, prc.launches - r0) == (20, 0)
+    assert (prc.launches["attacks"] - a0,
+            prc.launches["scored"] - r0) == (20, 0)
     assert float(s_g.scores.behaviour_penalty.float().max()) > 0
     assert pgs.eclipse_takeover(s_g, p_g, cfg) > 0
 
@@ -421,8 +428,7 @@ def test_surface_step_on_the_card_matches_the_cpu(cuda, option, c, w_words):
     step_c = pgs.make_gossip_step(cfg, sc, device="cpu")
     step_g = pgs.make_gossip_step(cfg, sc, device=cuda)
     active0 = s_c.active
-    before = (prc.launches, prc.launches_attacks, prc.launches_unscored,
-              prc.launches_full)
+    before = _launch_counts()[:4]
     for tick in range(20):
         s_c = step_c(p_c, s_c)[0]
         s_g = step_g(p_g, s_g)[0]
@@ -440,8 +446,7 @@ def test_surface_step_on_the_card_matches_the_cpu(cuda, option, c, w_words):
                                           err_msg=f"{tick} {name}")
         for i, (x, y) in enumerate(zip(a["gates"], b["gates"])):
             np.testing.assert_array_equal(x, y, err_msg=f"{tick} gate {i}")
-    after = (prc.launches, prc.launches_attacks, prc.launches_unscored,
-             prc.launches_full)
+    after = _launch_counts()[:4]
     moved = tuple(y - x for x, y in zip(before, after))
     # direct peers ride the gate words: no kernel option of their own
     assert moved == ((20, 0, 0, 0) if option == "direct" else (0, 0, 0, 20))
@@ -508,9 +513,8 @@ def _paired_sim(option, c, w_words, device, n=4060, t=4, seed=8):
 
 
 def _launch_counts():
-    return (prc.launches, prc.launches_attacks, prc.launches_unscored,
-            prc.launches_full, prc.launches_paired,
-            prc.launches_paired_unscored)
+    return tuple(prc.launches[v] for v in (
+        "scored", "attacks", "unscored", "full", "paired", "paired_unscored"))
 
 
 @pytest.mark.parametrize("option", sorted(PAIRED))
@@ -594,3 +598,165 @@ def test_paired_receive_kernel_matches_plain_on_random_operands(
     assert sum(_launch_counts()) == sum(before) + 1
     for i, (g, w) in enumerate(zip(got, want)):
         assert torch.equal(g.cpu(), w), f"output {i}"
+
+
+def _sched(n, cold=False):
+    """Churn waves over ticks 2-12, 5% link loss, a half/half partition
+    over ticks [8, 14)."""
+    rng = np.random.default_rng(n)
+    victims = np.flatnonzero(rng.random(n) < 0.1)
+    return pfl.FaultSchedule(
+        n_peers=n, horizon=64,
+        down_intervals=[(int(p), 2 + int(p % 3), 9 + int(p % 3))
+                        for p in victims],
+        drop_prob=0.05, partition_group=(np.arange(n) < n // 2).astype(int),
+        partition_windows=[(8, 14)], seed=11, cold_restart=cold)
+
+
+def _faulted(sim, device, cold=False):
+    """``sim`` (cfg, sc, params, state) under ``_sched``, compiled as
+    ``make_gossip_sim(fault_schedule=...)`` compiles it."""
+    cfg, sc, params, state = sim
+    n = params.subscribed.shape[0]
+    fp = pfl.compile_faults(_sched(n, cold), cfg.offsets, device=device)
+    return cfg, sc, dataclasses.replace(params, faults=fp), state
+
+
+#: each receive family under faults: its sim, and its kernel variant
+FAULTED = {
+    "scored": (lambda c, w, d: _surface_sim("direct", c, w, d),
+               "scored_faults"),
+    "unscored": (lambda c, w, d: (lambda s: (s[0], None, *s[1:]))(
+        _unscored_sim(c, w, n=4060)), "unscored_faults"),
+    "attack": (lambda c, w, d: _attack_sim(c, w, device=d),
+               "attacks_faults"),
+    "full": (lambda c, w, d: _surface_sim("all", c, w, d),
+             "full_faults"),
+    "full_unscored": (lambda c, w, d: _surface_sim("px_unscored", c, w, d),
+                      "full_faults"),
+    "paired": (lambda c, w, d: _paired_sim("everything", c, w, d),
+               "paired_faults"),
+    "paired_unscored": (
+        lambda c, w, d: _paired_sim("everything_unscored", c, w, d),
+        "paired_unscored_faults"),
+}
+
+
+def _state_digest(state) -> str:
+    """sha256 of every state leaf (bit patterns) and the tick."""
+    h = hashlib.sha256()
+    d = convert.state_to_numpy(state)
+    for name in sorted(d):
+        v = d[name]
+        if isinstance(v, dict):
+            v = [v[k] for k in sorted(v) if v[k] is not None]
+        elif not isinstance(v, list):
+            v = [v]
+        for leaf in v:
+            if leaf is not None:
+                h.update(name.encode() + np.ascontiguousarray(
+                    np.asarray(leaf)).tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("family", sorted(FAULTED))
+@pytest.mark.parametrize("c", [8, 16])
+@pytest.mark.parametrize("w_words", [1, 2])
+def test_faulted_step_on_the_card_matches_the_cpu(cuda, family, c,
+                                                  w_words):
+    build, variant = FAULTED[family]
+    if family == "unscored":
+        cfg, sc, p_c, s_c = _faulted(build(c, w_words, "cpu"), "cpu")
+        p_g = pgs.GossipParams(**{
+            f: (v.to(cuda) if isinstance(v, torch.Tensor) else v)
+            for f, v in vars(p_c).items()})
+        p_g.faults = pfl.compile_faults(_sched(4060), cfg.offsets,
+                                        device=cuda)
+        s_g = convert.state_from_numpy(convert.state_to_numpy(s_c), None,
+                                       cuda)
+    else:
+        cfg, sc, p_c, s_c = _faulted(build(c, w_words, "cpu"), "cpu")
+        _, _, p_g, s_g = _faulted(build(c, w_words, cuda), cuda)
+    step_c = pgs.make_gossip_step(cfg, sc, device="cpu")
+    step_g = pgs.make_gossip_step(cfg, sc, device=cuda)
+    before = prc.launches[variant]
+    for tick in range(20):
+        s_c = step_c(p_c, s_c)[0]
+        s_g = step_g(p_g, s_g)[0]
+        assert _state_digest(s_c) == _state_digest(s_g), tick
+    assert prc.launches[variant] - before == 20
+    assert not bool(pfl.alive_mask(p_g.faults, 5).all())
+    assert int(pg.popcount32(s_g.have).sum()) > 0
+
+
+@pytest.mark.parametrize("cold", [False, True])
+@pytest.mark.parametrize("c", [8, 16])
+@pytest.mark.parametrize("w_words", [1, 2])
+def test_faulted_fused_kernel_matches_plain(cuda, cold, c, w_words):
+    cfg, params, state = _unscored_sim(c, w_words)
+    fp = pfl.compile_faults(_sched(4096, cold), cfg.offsets, device="cpu")
+    params = dataclasses.replace(params, faults=fp)
+    step = pgs.make_gossip_step(cfg, None, device="cpu")
+    state = pgs.gossip_run(params, state, 5, step, device="cpu")
+    T = 8
+    tk = torch.arange(state.tick, state.tick + T, dtype=torch.int32)
+    all_c = (1 << c) - 1
+    ops = dict(
+        tick0=state.tick, seeds=pfused.window_seeds(state.tick, T,
+                                                    state.salt),
+        due=pg.pack_bits(params.publish_tick[None, :] == tk[:, None]),
+        sub_all=torch.where(params.subscribed, all_c, 0).to(torch.int32),
+        cand_sub=params.cand_sub_bits, origin=params.origin_words,
+        have=state.have, recent=state.recent, mesh=state.mesh,
+        fanout=state.fanout, last_pub=state.last_pub,
+        backoff=state.backoff, tgt=state.gates[0], bog=state.gates[1],
+        **pgs.window_fault_rows(cfg, fp, state.tick, T))
+    assert ("rejoin" in ops) == cold
+    k = pfused.fused_consts(cfg)
+    want = pfused.fused_gossip_update_plain(k, **ops)
+    before = pfused.launches_faults
+    got = pfused.fused_gossip_update(k, **_to(ops, cuda))
+    torch.cuda.synchronize()
+    assert pfused.launches_faults == before + 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g.cpu(), w), f"output {i}"
+    if cold:
+        assert bool(ops["rejoin"].any())
+
+
+def _whole_run(build, ticks, cuda):
+    """Step the sim ``build(device)`` makes on the card and on the CPU
+    for ``ticks`` heartbeats; the digests of both every 25th tick."""
+    cfg, sc, p_c, s_c = build("cpu")[:4]
+    _, _, p_g, s_g = build(cuda)[:4]
+    step_c = pgs.make_gossip_step(cfg, sc, device="cpu")
+    step_g = pgs.make_gossip_step(cfg, sc, device=cuda)
+    out = []
+    for tick in range(1, ticks + 1):
+        s_c = step_c(p_c, s_c)[0]
+        s_g = step_g(p_g, s_g)[0]
+        if tick % 25 == 0:
+            out.append((tick, _state_digest(s_c), _state_digest(s_g)))
+    return out
+
+
+WHOLE_RUNS = {
+    "everything": (lambda d: everything.build(d, n_peers=100_000), 400),
+    "everything_paired": (
+        lambda d: everything.build(d, n_peers=100_000, paired=True), 400),
+    "churn": (lambda d: churn.build(d, n_peers=100_000),
+              churn.WARMUP + churn.TIMED),
+}
+
+
+@pytest.mark.parametrize("path", sorted(WHOLE_RUNS))
+def test_whole_run_on_the_card_matches_the_cpu(cuda, path):
+    """The card's trajectory against the plain versions' on the CPU at
+    100,000 peers (the CPU run equals the reference's XLA step, which
+    tests/test_torch_*.py hold at small sizes): equal state digests at
+    every 25th tick."""
+    build, ticks = WHOLE_RUNS[path]
+    digests = _whole_run(build, ticks, cuda)
+    assert len(digests) == ticks // 25
+    for tick, d_c, d_g in digests:
+        assert d_c == d_g, f"{path} tick {tick}"

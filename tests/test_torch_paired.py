@@ -57,6 +57,11 @@ CASES = {
                        sc=dict(sybil_ihave_spam=True, sybil_iwant_spam=True,
                                flood_publish=True)),
     "scored_c16": dict(c=16),
+    # opportunistic grafting every 7 ticks on formed meshes, both slots
+    # (slot B's on lane phase 15); the threshold above the median scores
+    # the meshes reach, so it selects
+    "og": dict(sc=dict(opportunistic_graft_ticks=7,
+                       opportunistic_graft_threshold=5.0)),
 }
 
 
@@ -158,7 +163,7 @@ def test_convert_round_trips_the_paired_fields(ref, name):
 
 STEP_CASES = [(name, m) for name in ("scored", "unscored", "spam",
                                      "everything") for m in (10, 40)]
-STEP_CASES.append(("scored_c16", 10))
+STEP_CASES += [("scored_c16", 10), ("og", 10), ("og", 40)]
 
 
 @pytest.mark.parametrize("name,m", STEP_CASES)
@@ -192,6 +197,24 @@ def test_step_matches_reference_30_ticks(ref, name, m):
     if name == "everything":
         assert p_p.cand_direct.any() and p_p.cand_same_ip is not None
         assert not ((s_p.mesh | s_p.mesh_b) & p_p.cand_direct).any()
+
+
+def test_paired_opportunistic_graft_runs_on_formed_meshes(ref):
+    """The ``og`` case is not vacuous: against the same sim with
+    opportunistic grafting every 60 ticks (only at tick 0), slot B's
+    mesh is equal through tick 6 and differs from tick 7 on."""
+    (_, _, _, _), (cfg, sc, params, state) = _build(ref, "og")
+    sc60 = dataclasses.replace(sc, opportunistic_graft_ticks=60)
+    step, step60 = (pgs.make_gossip_step(cfg, s_, device="cpu")
+                    for s_ in (sc, sc60))
+    # both configs carry the same gates: refresh the second's
+    s60 = pgs.refresh_gates(cfg, sc60, params, state)
+    differs = []
+    for t in range(21):
+        state, _ = step(params, state)
+        s60, _ = step60(params, s60)
+        differs.append(not torch.equal(state.mesh_b, s60.mesh_b))
+    assert not any(differs[:7]) and any(differs[7:])
 
 
 def test_reference_paired_checks_hold_on_the_port():

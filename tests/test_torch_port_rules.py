@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from go_libp2p_pubsub_tpu_torch import device as pdev
+from go_libp2p_pubsub_tpu_torch.models import faults as pfl
 from go_libp2p_pubsub_tpu_torch.models import gossipsub as pgs
 from go_libp2p_pubsub_tpu_torch.models import plan
 from go_libp2p_pubsub_tpu_torch.ops.kernels import fused as kfused
@@ -134,15 +135,36 @@ def _fused_run(n_ticks, **kw):
 
 
 N = 256
+
+
+def _sched(**kw):
+    """A schedule over the small sim's peers: churn, loss, a partition."""
+    return pfl.FaultSchedule(
+        n_peers=N, horizon=40, down_intervals=[(p, 2, 6) for p in
+                                               range(0, N, 9)],
+        drop_prob=0.05, partition_group=np.arange(N) % 2,
+        partition_windows=[(8, 12)], seed=3, **kw)
+
+
+def _faulted_step(**kw):
+    """A faulted sim, then a step with ``kw``."""
+    _sim(fault_schedule=_sched())
+    return _step(**kw)
+
+
 REFUSED = {
     # paired overlays step per tick
     "fused_paired": [lambda: _window(cfg=_cfg(paired_topics=True))],
-    "faults": [lambda: _sim(fault_schedule=object())],
+    # faults with telemetry, knobs or delays keep those options' names
     "telemetry": [lambda: _step(telemetry=object()),
-                  lambda: _window(telemetry=object())],
-    "knobs": [lambda: _sim(score_knobs={}), lambda: _sim(sim_knobs={})],
+                  lambda: _window(telemetry=object()),
+                  lambda: _faulted_step(telemetry=object())],
+    "knobs": [lambda: _sim(score_knobs={}), lambda: _sim(sim_knobs={}),
+              lambda: _sim(fault_schedule=_sched(),
+                           sim_knobs={"drop_prob": 0.1})],
     "delays": [lambda: _sim(delays=object()),
-               lambda: _sim(delays_probe=True)],
+               lambda: _sim(delays_probe=True),
+               lambda: _sim(fault_schedule=_sched(), delays=object())],
     "rpc_probe": [lambda: _step(rpc_probe=True)],
     "invariants": [lambda: _step(invariants=object())],
     "byzantine": [
@@ -181,6 +203,22 @@ def test_option_outside_the_port_is_refused_by_name(name):
             trigger()
         assert err.value.name == name
         assert plan.REFUSALS[name] in str(err.value)
+
+
+def test_fault_schedules_run_on_the_step_and_the_window():
+    """A faulted sim builds and steps (the ``faults`` refusal is gone),
+    scored and unscored, per tick and on fused windows with cold
+    restart; a schedule over another peer count raises the reference's
+    ValueError."""
+    params, state = _sim(fault_schedule=_sched())
+    assert params.faults is not None and params.faults.cross_bits is not None
+    state = pgs.gossip_run(params, state, 10, _step(), device="cpu")
+    assert state.tick == 10
+    params, state = _sim(sc=None, fault_schedule=_sched(cold_restart=True))
+    state = pgs.gossip_run_fused(params, state, 16, _window(), device="cpu")
+    assert state.tick == 16 and params.faults.cold_restart
+    with pytest.raises(ValueError, match="fault_schedule.n_peers=255"):
+        _sim(fault_schedule=pfl.FaultSchedule(n_peers=N - 1, horizon=40))
 
 
 def test_more_refusals():

@@ -8,6 +8,8 @@ checked on the JAX reference.
         [--n 100000] [--ticks 400]
     JAX_PLATFORMS=cpu python tests/torch_reference_gate.py \
         --everything-paired [--n 100000] [--ticks 400]
+    JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --churn \
+        [--n 100000]
 
 Runs the JAX package's unscored per-tick step (XLA) on the resident
 configuration (go_libp2p_pubsub_tpu_torch/resident.py: 10 topics, C = 16,
@@ -44,6 +46,15 @@ residue classes of a topic, and reports the honest subscribed peers'
 mean slot-B mesh degree against Dlo and the share of mesh edges, both
 slots', that the partner holds in the matching slot (the cross-slot
 symmetry of tests/test_gossipsub_paired.py).
+
+With ``--churn`` it runs the JAX package's churn benchmark
+(bench_suite.py ``bench_gossipsub_v11_churn``, the flagship under 10%
+churn in three staggered waves, 2% link loss and a 30-tick half/half
+partition; go_libp2p_pubsub_tpu_torch/churn.py) as written, 100 warm-up
+and 150 curve ticks, at its CPU size, and prints its rows unrounded: the
+delivery fraction of the settled messages against its gate (above
+0.80), each recovery probe's ticks from heal to 99% of its topic and
+their median (gate: at least one probe recovered).
 """
 
 import argparse
@@ -148,6 +159,79 @@ def adversarial_gates(n: int, horizon: int, full: bool = False,
     return 0 if ok else 1
 
 
+def reference_churn_sim(r, n: int):
+    """The reference's churn benchmark sim at ``n`` peers, built as
+    bench_suite.py ``bench_gossipsub_v11_churn`` builds it (its lines, with
+    the reference's modules): (cfg, score_cfg, params, state, schedule,
+    probes, heal, warmup, ticks)."""
+    gs, fl = r.gs, r.faults
+    t = 100
+    m, C = 32, 16
+    warmup, T = 100, 150
+    horizon = warmup + T
+    part_start, heal = warmup + 20, warmup + 50
+    rng = np.random.default_rng(0)
+    cfg = gs.GossipSimConfig(
+        offsets=gs.make_gossip_offsets(t, C, n, seed=0), n_topics=t)
+    score_cfg = gs.ScoreSimConfig()
+    topic = rng.integers(0, t, m)
+    origin = rng.integers(0, n // t, m) * t + topic
+    tick = np.sort(rng.integers(0, horizon - 40, m)).astype(np.int32)
+    grp = (np.arange(n) < n // 2).astype(np.int64)
+    probe = np.arange(m - 4, m)
+    tick[probe] = heal - 2
+    origin[probe] = (origin[probe] % (n // 2 // t)) * t + topic[probe]
+    victims = np.flatnonzero(rng.random(n) < 0.10)
+    ivs = [(int(p), warmup + 5 + int(p % 3) * 5,
+            warmup + 25 + int(p % 3) * 5) for p in victims]
+    sched = fl.FaultSchedule(
+        n_peers=n, horizon=horizon, down_intervals=ivs, drop_prob=0.02,
+        partition_group=grp, partition_windows=[(part_start, heal)],
+        seed=1)
+    subs = resident.subs_matrix(n, t)
+    params, state = gs.make_gossip_sim(
+        cfg, subs, topic, origin, tick, score_cfg=score_cfg,
+        track_first_tick=False, fault_schedule=sched)
+    return cfg, score_cfg, params, state, sched, probe, heal, warmup, T
+
+
+def churn_gates(n: int) -> int:
+    """The churn benchmark's rows and gates on the reference."""
+    with imported_reference() as r:
+        import go_libp2p_pubsub_tpu.models.faults as rfl
+        from go_libp2p_pubsub_tpu.models._delivery import recovery_ticks
+
+        r.faults = rfl
+        (cfg, sc, params, state, _, probe, heal, warmup,
+         T) = reference_churn_sim(r, n)
+        gs = r.gs
+        m, t = params.publish_tick.shape[0], cfg.n_topics
+        step = gs.make_gossip_step(cfg, sc)
+        state = gs.gossip_run(params, state, warmup, step)
+        state, counts = gs.gossip_run_curve(params, state, T, step, m)
+        counts = np.asarray(counts)
+        want = np.full(m, n // t, dtype=np.float32)
+        reach = np.asarray(gs.reach_counts_from_have(params, state))
+        settled = np.ones(m, dtype=bool)
+        settled[probe] = False
+        frac = float((reach[settled] / want[settled]).mean())
+        rec = np.asarray(recovery_ticks(counts, heal - warmup, want,
+                                        frac=0.99))[probe]
+    rec_ok = rec[rec >= 0]
+    ok = frac > 0.80 and len(rec_ok) > 0
+    print(f"N={n}, {warmup} + {T} ticks: delivery fraction {frac!r} over "
+          f"{int(settled.sum())} settled messages (gate > 0.8); probes' "
+          f"recovery ticks {rec.tolist()}, median of the recovered "
+          f"{float(np.median(rec_ok)) if len(rec_ok) else None} "
+          f"({len(rec_ok)} of {len(rec)} recovered)")
+    for j in range(m):
+        print(f"msg {j}: tick {int(params.publish_tick[j])} reach "
+              f"{reach[j]}/{int(want[j])}"
+              f"{'' if settled[j] else ' (recovery probe)'}")
+    print("gates", "pass" if ok else "FAIL")
+    return 0 if ok else 1
+
+
 def paired_report(cfg, params, state, honest, gs) -> None:
     """The slot-B mesh degree of the honest subscribed peers, and the
     cross-slot symmetry: the share of mesh edges, both slots', that the
@@ -182,8 +266,11 @@ def main() -> int:
     ap.add_argument("--adversarial", action="store_true")
     ap.add_argument("--everything", action="store_true")
     ap.add_argument("--everything-paired", action="store_true")
+    ap.add_argument("--churn", action="store_true")
     ap.add_argument("--ticks", type=int, default=400)
     args = ap.parse_args()
+    if args.churn:
+        return churn_gates(args.n or 100_000)
     if args.adversarial or args.everything or args.everything_paired:
         return adversarial_gates(
             args.n or 100_000, args.ticks,
