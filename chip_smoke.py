@@ -5,9 +5,9 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. the device: torch's name and count, nvidia-smi's name and power limit;
-2. build the three CUDA sources from ``go_libp2p_pubsub_tpu_torch/csrc``
-   (one nvcc per source, concurrently), printing ptxas' register and
-   spill lines;
+2. build the four CUDA sources from ``go_libp2p_pubsub_tpu_torch/csrc``
+   (one nvcc per source, concurrently: select, receive, its telemetry
+   twin receive_tel, fused), printing ptxas' register and spill lines;
 3. the select kernel against its plain version at 1,000,000 peers,
    C = 16, seeded: bit-identical; both timed with CUDA events;
 4. the receive kernel against its plain version at the flagship shapes
@@ -125,6 +125,43 @@ Phases (any failure exits non-zero; nothing is caught):
    before and read just after: the faulted fused kernel once per window,
    nothing else) against the same ticks one by one, equal digests, with
    rejoins inside the 64 ticks;
+5k. the receive kernel's telemetry variants (the tally and L = 16
+   latency-bucket rows) against their plain versions, each family with
+   and without faults: the flagship's scored options, the attack options,
+   the full variant and paired (scored) at N = 1,000,000, C = 16, W = 1,
+   unscored and unscored paired at the resident shapes; on seeded random
+   operands and on the operands of a real tick of the family's sim
+   stepped by the telemetry step (clean: tick 40, resident tick 12;
+   faulted, under the churn benchmark's kind of schedule: tick 130,
+   resident tick 30), the telemetry variant launched once per tick of
+   the run to it and no other: every output bit-identical, the tally rows
+   too; the variant, its plain version and its variant without telemetry
+   timed on the real tick;
+5l. the slice's main path: the JAX package's telemetry-kernel benchmark
+   as written (bench_suite.py bench_gossipsub_telemetry_kernel: the
+   flagship at 1,024,000 peers, telemetry off through gossip_run, then on
+   through telemetry_run, each 100 warm-up and 3 x 100 timed heartbeats;
+   go_libp2p_pubsub_tpu_torch/telemetry_flagship.py): both rates, the
+   overhead, the control-overhead ratio and its totals; the flagship's
+   gates on both runs, equal digests of every state leaf after the two
+   runs, some payload sent and a finite ratio, the flagship variant once
+   per tick on the off-run and its telemetry variant once per tick on the
+   on-run, no other receive variant, counts reset just before each run
+   and read just after; then that telemetry variant (no latency rows)
+   against its plain version at the benchmark's shapes, on seeded random
+   operands and on a real tick of the benchmark's sim stepped by its
+   telemetry step (two ticks after its first publish from tick 40):
+   every output bit-identical, the tally too; timed there for the
+   kernel line;
+5m. the fused-window kernel with telemetry against its plain version at
+   N = 1,048,576, T = 8, on one window of the resident configuration
+   (mesh formation) and one under the churn benchmark's kind of schedule
+   with cold restart: every output bit-identical, each tick's mesh row
+   and tally too; timed, and timed again without the latency rows and
+   without telemetry; then 64 heartbeats of each through
+   gossip_run_frames_fused (the telemetry fused kernel once per window,
+   nothing else) against the same ticks through the per-tick telemetry
+   step: frames equal field by field, equal digests;
 6. the unscored receive kernel against its plain version at the resident
    configuration's shapes (N = 1,048,576, C = 16, W = 1), on seeded random
    operands and on the operands of a real unscored tick: every output
@@ -385,7 +422,10 @@ def receive_ops(k, ops) -> int:
     (scored) time in mesh and P1, and ~8 per message word over an edge
     whose slot-B forward is open (this tick's data); faults, ~2 per edge
     and message word (the heard words masked) and ~8 per peer (the
-    handshake words and the flood's gate)."""
+    handshake words and the flood's gate); telemetry, ~10 per edge and
+    message word (four popcounts and their masks), ~4 per edge (the RPC
+    rows), ~3 per message word (the new ids) and ~3 per latency row and
+    word, and the block's sums (~8 + L a peer)."""
     n = ops["sub_all"].shape[0]
     W = ops["fresh"].shape[0]
     C = k.n_candidates
@@ -407,6 +447,9 @@ def receive_ops(k, ops) -> int:
     extra += n * C * (3 * k.flood_publish + 4 * C * k.with_same_ip
                       + 3 * C * k.exact_k + (8 + 20) * k.paired
                       + 2 * W * k.faults) + 8 * n * k.faults
+    L = k.tel_lat_buckets
+    extra += k.telemetry * (n * C * (10 * W + 4)
+                            + n * (3 * W + 3 * L * W + 8 + L))
     return n * C * (15 + per_row) + 8 * open_words + extra
 
 
@@ -477,12 +520,15 @@ def main() -> None:
     from go_libp2p_pubsub_tpu_torch import (
         adversarial,
         churn,
+        convert,
         everything,
         flagship,
         resident,
+        telemetry_flagship,
     )
     from go_libp2p_pubsub_tpu_torch.models import faults
     from go_libp2p_pubsub_tpu_torch.models import gossipsub as pg
+    from go_libp2p_pubsub_tpu_torch.models import telemetry as tl
     from go_libp2p_pubsub_tpu_torch.ops import graph
     from go_libp2p_pubsub_tpu_torch.ops.kernels import _build
     from go_libp2p_pubsub_tpu_torch.ops.kernels import fused as kfused
@@ -503,9 +549,9 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
-    # -- 2. build the three kernels, concurrently
+    # -- 2. build the four kernel sources, concurrently
     t0 = time.perf_counter()
-    logs = _build.build(("select", "receive", "fused"))
+    logs = _build.build(("select", "receive", "receive_tel", "fused"))
     for src, log in logs.items():
         for line in ptxas_summary(log):
             print(f"ptxas[{src}]: {line}")
@@ -1477,6 +1523,331 @@ def main() -> None:
           f"{d_fc} both, {rejoins} rejoins, mean mesh degree {deg_fc:.3f}")
     del params, state, end_fused, end_tick
 
+    # -- 5k. B1 with telemetry against its plain version, each family with
+    # and without faults, on seeded random operands and on a real tick of
+    # the family's sim stepped by the telemetry step
+    L_TEL = 16
+    tcfg_k = tl.TelemetryConfig(latency_hist=True, latency_buckets=L_TEL)
+    tel_k = {}
+
+    def tel_operands(ops, seed):
+        """``ops`` with random latency-bucket masks and deliver words."""
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        w_, n_ = ops["fresh"].shape
+
+        def words(shape):
+            hi = torch.randint(0, 1 << 16, shape, generator=g, device=dev)
+            lo = torch.randint(0, 1 << 16, shape, generator=g, device=dev)
+            v = (hi << 16) | lo
+            return torch.where(v >= 1 << 31, v - (1 << 32), v).to(
+                torch.int32)
+        return dict(ops, lat_masks=words((L_TEL, w_)),
+                    dlv_eff=words((w_, n_)))
+
+    def schedule_on(sim, seed, start, horizon):
+        """``sim`` (cfg, sc, params, state) with the churn benchmark's kind
+        of schedule from ``start`` attached."""
+        cfg_, sc_, params_, state_ = sim[:4]
+        n_ = params_.subscribed.shape[0]
+        sched = churn.schedule(n_, np.random.default_rng(seed), start,
+                               horizon)
+        return cfg_, sc_, dataclasses.replace(
+            params_, faults=faults.compile_faults(sched, cfg_.offsets,
+                                                  device=dev)), state_
+
+    def busy_tick(params_, target):
+        """Two ticks after the first publish at or after ``target``
+        (messages in flight: the tally's rows live), else ``target``."""
+        pt = params_.publish_tick.cpu().numpy()
+        later = pt[pt >= target]
+        return int(later.min()) + 2 if len(later) else target
+
+    def tel_check(label, sim, target, rand_ops, k_rand_kw=None,
+                  tcfg=tcfg_k):
+        """The telemetry variant of ``sim``'s receive against its plain
+        version on ``rand_ops`` and on a real tick of the sim stepped by
+        the telemetry step of ``tcfg`` (``busy_tick`` from ``target``; its
+        launches counted over that run); the variant, its plain version
+        and its twin without telemetry timed on the tick."""
+        cfg_, sc_, params_, state_ = sim
+        tick = busy_tick(params_, target)
+        lat = tcfg.latency_buckets if tcfg.latency_hist else 0
+        k_ = krecv.receive_consts(
+            cfg_, sc_, px=state_.active is not None,
+            same_ip=params_.cand_same_ip is not None,
+            faults=params_.faults is not None, telemetry=True,
+            tel_lat_buckets=lat)
+        k_r = dataclasses.replace(k_, **(k_rand_kw or {}))
+        got = krecv.receive_update(k_r, **rand_ops)
+        torch.cuda.synchronize()
+        err = check_identical(f"{label} (random operands)", got,
+                              krecv.receive_update_plain(k_r, **rand_ops))
+        step_ = pg.make_gossip_step(cfg_, sc_, device=dev, telemetry=tcfg)
+        torch.cuda.synchronize()
+        krecv.launches.clear()
+        ops_ = capture_receive(lambda: pg.gossip_run(
+            params_, state_, tick + 1, step_, device=dev), krecv)
+        torch.cuda.synchronize()
+        launched = dict(krecv.launches)
+        if launched != {krecv.variant(k_): tick + 1}:
+            fail(f"{label}: launches {launched}")
+        want = krecv.receive_update_plain(k_, **ops_)
+        got = krecv.receive_update(k_, **ops_)
+        torch.cuda.synchronize()
+        err = max(err, check_identical(f"{label} (tick {tick})", got, want))
+        tally = got[-1]
+        dlv = (int(graph.popcount32(got[0] & ops_["dlv_eff"]).sum())
+               if lat else 0)
+        if not (tally.shape == (len(krecv.TEL_ROWS) + lat,)
+                and int(tally[krecv.TEL_PAYLOAD]) > 0
+                and int(tally[krecv.TEL_IHAVE_IDS]) > 0
+                and int(tally[len(krecv.TEL_ROWS):].sum()) == dlv):
+            fail(f"{label}: tally {tally.tolist()}, {dlv} delivered")
+        ms = device_ms(lambda: krecv.receive_update(k_, **ops_), 50)
+        plain = device_ms(lambda: krecv.receive_update_plain(k_, **ops_), 5)
+        k_twin = dataclasses.replace(k_, telemetry=False, tel_lat_buckets=0)
+        ops_twin = {key: v for key, v in ops_.items()
+                    if key not in ("lat_masks", "dlv_eff")}
+        twin = device_ms(lambda: krecv.receive_update(k_twin, **ops_twin), 50)
+        n_ = ops_["sub_all"].shape[0]
+        nbytes = krecv.operand_bytes(ops_, got)
+        bnd = bound(nbytes, receive_ops(k_, ops_))
+        print(f"{label}: identical at N={n_}, C={C}, W=1, L={lat} (random "
+              f"operands; tick {tick}, tally {tally.tolist()}); device time: "
+              f"kernel {ms:.4f} ms (without telemetry {twin:.4f}), plain "
+              f"{plain:.3f} ms; {nbytes / n_:.1f} B/peer, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}); {tick + 1} launches to tick "
+              f"{tick}")
+        return dict(err=err, ms=ms, plain_ms=plain, twin_ms=twin,
+                    bytes_per_peer=nbytes / n_, bound=bnd,
+                    launches=tick + 1, tally=tally.tolist())
+
+    horizon = WARMUP + TIMED
+    t_clean, t_fault = 40, churn.heal_tick() - 20
+    families = (
+        ("", lambda: flagship.build(dev, horizon=horizon)[:4], n, None),
+        ("_attacks", lambda: adversarial.build(dev, horizon=horizon)[:4], n,
+         None),
+        ("_full", lambda: everything.build(dev, horizon=horizon)[:4], n,
+         dict(exact_k=True)),
+        ("_paired", lambda: everything.build(dev, horizon=horizon,
+                                             paired=True)[:4], n,
+         dict(flood_publish=True, exact_k=True)))
+    for suffix, make, n_f, k_rand_kw in families:
+        sim = make()
+        for fault_on in (False, True):
+            sim_f = (schedule_on(sim, 1, churn.WARMUP, churn.WARMUP
+                                 + churn.TIMED) if fault_on else sim)
+            k0 = krecv.receive_consts(sim_f[0], sim_f[1], faults=fault_on,
+                                      px=sim_f[3].active is not None,
+                                      same_ip=sim_f[2].cand_same_ip
+                                      is not None)
+            k0r = dataclasses.replace(k0, **(k_rand_kw or {}))
+            seed = 101 + len(tel_k)
+            if k0.paired:
+                rand = paired_receive_operands(
+                    k0r, full_receive_operands(k0r, n_f, dev, seed), n_f,
+                    dev, seed + 1)
+            elif k0.full:
+                rand = full_receive_operands(k0r, n_f, dev, seed)
+            else:
+                rand = random_receive_operands(k0r, n_f, 1, dev, seed)
+                if k0.attacks:
+                    g = torch.Generator(device=dev)
+                    g.manual_seed(seed + 2)
+                    rand["syb"] = torch.where(
+                        torch.rand(n_f, generator=g, device=dev) < 0.2,
+                        (1 << C) - 1, 0).to(torch.int32)
+                    rand["iws"] = torch.randint(0, 4 * 32, (C, n_f),
+                                                generator=g,
+                                                device=dev).to(torch.int16)
+            if fault_on:
+                rand = fault_operands(k0r, rand, dev, seed + 3)
+            name_k = ("receive_update" + suffix
+                      + ("_faults" if fault_on else "") + "_tel")
+            tel_k[name_k] = tel_check(
+                name_k.replace("_", " "), sim_f, t_fault if fault_on
+                else t_clean, tel_operands(rand, seed + 4), k_rand_kw)
+            del rand, sim_f
+        del sim
+    # unscored and unscored paired at the resident shapes
+    n_r = resident.N_PEERS
+    for suffix, paired_ in (("_unscored", False), ("_paired_unscored", True)):
+        cfg_u, params, state, *_ = resident.build(dev, horizon=RES_WARMUP,
+                                                  paired=paired_)
+        sim = (cfg_u, None, params, state)
+        for fault_on in (False, True):
+            sim_f = schedule_on(sim, 5, 0, RES_WARMUP) if fault_on else sim
+            k0 = krecv.receive_consts(cfg_u, None, faults=fault_on)
+            seed = 131 + len(tel_k)
+            rand = random_receive_operands(k0, n_r, 1, dev, seed)
+            if paired_:
+                rand = paired_receive_operands(k0, rand, n_r, dev, seed + 1)
+            if fault_on:
+                rand = fault_operands(k0, rand, dev, seed + 3)
+            name_k = ("receive_update" + suffix
+                      + ("_faults" if fault_on else "") + "_tel")
+            tel_k[name_k] = tel_check(
+                name_k.replace("_", " "), sim_f, 30 if fault_on else 12,
+                tel_operands(rand, seed + 4))
+            del rand, sim_f
+        del sim, params, state
+
+    # -- 5l. the slice's main path: the telemetry-kernel benchmark as
+    # written, counts reset just before each run and read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0_t = torch.cuda.memory_allocated()
+    tel_main = telemetry_flagship.run(dev)
+    peak_t = torch.cuda.max_memory_allocated()
+    if not tel_main["ok"]:
+        fail(f"telemetry benchmark: checks {tel_main['checks']}: {tel_main}")
+    hb_off = tel_main["off"]["heartbeats_per_s"]
+    hb_on = tel_main["on"]["heartbeats_per_s"]
+    print(f"telemetry path (the benchmark as written): "
+          f"{tel_main['n_peers']} peers x {flagship.N_TOPICS} topics, "
+          f"telemetry off {hb_off:.2f} heartbeats/s, on {hb_on:.2f} "
+          f"(overhead {tel_main['telemetry_overhead_pct']:.2f}%); control "
+          f"overhead ratio {tel_main['control_overhead_ratio']!r}, totals "
+          f"{tel_main['totals']}; gates off {tel_main['off']['gates']}, on "
+          f"{tel_main['on']['gates']}; digests {tel_main['off']['digest']} "
+          f"/ {tel_main['on']['digest']}; launches off "
+          f"{tel_main['off']['launches']}, on {tel_main['on']['launches']}; "
+          f"peak memory {peak_t} B ({alloc0_t} B at the start) "
+          f"[{name}, {smi}]")
+    # the main path's variant (TelemetryConfig(): no latency rows) against
+    # its plain version at the main path's shapes, on random operands and
+    # on a busy tick of the benchmark's sim stepped by its telemetry step
+    sim_t = telemetry_flagship.build(dev)[:4]
+    k_t = krecv.receive_consts(sim_t[0], sim_t[1])
+    tel_main_k = tel_check(
+        "receive update tel (main path)", sim_t, 40,
+        random_receive_operands(k_t, telemetry_flagship.N_PEERS, 1, dev, 97),
+        tcfg=tl.TelemetryConfig())
+    del sim_t
+
+    # -- 5m. B2 with telemetry against its plain version, one window of
+    # the resident configuration clean (mesh formation) and under faults
+    # with cold restart; then 64 heartbeats of each on fused windows with
+    # frames against the per-tick telemetry step
+    tcfg_m = tl.TelemetryConfig(latency_hist=True, latency_buckets=L_TEL,
+                                degree_hist=True)
+    sched_m = churn.schedule(n_r, np.random.default_rng(5), 0, RES_WARMUP,
+                             cold_restart=True)
+    fused_tel = {}
+    for label, sched, t0_w in (("fused_gossip_update_tel", None, 1),
+                               ("fused_gossip_update_faults_tel", sched_m,
+                                24)):
+        cfg_m, params, state, *_ = resident.build(
+            dev, horizon=RES_WARMUP, fault_schedule=sched)
+        k_m = kfused.fused_consts(cfg_m, telemetry=True,
+                                  tel_lat_buckets=L_TEL)
+        step_m = pg.make_gossip_step(cfg_m, None, device=dev)
+        st = pg.gossip_run(params, state, t0_w, step_m, device=dev)
+        tk = torch.arange(st.tick, st.tick + Tw, dtype=torch.int32,
+                          device=dev)
+        all_c = (1 << cfg_m.n_candidates) - 1
+        fops = dict(
+            tick0=st.tick, seeds=kfused.window_seeds(st.tick, Tw, st.salt),
+            due=graph.pack_bits(params.publish_tick[None, :] == tk[:, None]),
+            sub_all=torch.where(params.subscribed, all_c, 0).to(torch.int32),
+            cand_sub=params.cand_sub_bits, origin=params.origin_words,
+            have=st.have, recent=st.recent, mesh=st.mesh, fanout=st.fanout,
+            last_pub=st.last_pub, backoff=st.backoff, tgt=st.gates[0],
+            bog=st.gates[1],
+            lat_masks=tl.latency_bucket_masks(
+                params.publish_tick, tk[:, None], L_TEL, st.have.shape[0]),
+            dlv=params.deliver_words,
+            **pg.window_fault_rows(cfg_m, params.faults, st.tick, Tw))
+        sel_rows_m = [0]
+        real_sel = kfused.select_plain
+
+        def count_sel_m(elig, kk, c, seed):
+            sel_rows_m[0] += int((kk > 0).sum())
+            return real_sel(elig, kk, c, seed)
+
+        kfused.select_plain = count_sel_m
+        try:
+            want = kfused.fused_gossip_update_plain(k_m, **fops)
+        finally:
+            kfused.select_plain = real_sel
+        got = kfused.fused_gossip_update(k_m, **fops)
+        torch.cuda.synchronize()
+        err_m = check_identical(label.replace("_", " "), got, want)
+        tally = got[-1]
+        if not (int(tally[:, krecv.TEL_PAYLOAD].sum()) > 0
+                and int(tally[:, -2:].sum()) > 0):
+            fail(f"{label}: tally {tally.tolist()}")
+        r0 = len(krecv.TEL_ROWS)
+        copies_m = int(tally[:, r0:r0 + L_TEL].sum())
+        ms_m = eager_ms(lambda: kfused.fused_gossip_update(k_m, **fops), 20)
+        plain_m = eager_ms(
+            lambda: kfused.fused_gossip_update_plain(k_m, **fops), 2)
+        k_tw = dataclasses.replace(k_m, telemetry=False, tel_lat_buckets=0)
+        fops_tw = {key: v for key, v in fops.items()
+                   if key not in ("lat_masks", "dlv")}
+        twin_m = eager_ms(lambda: kfused.fused_gossip_update(k_tw, **fops_tw),
+                          20)
+        # the tally without its latency rows, apart
+        k_l0 = dataclasses.replace(k_m, tel_lat_buckets=0)
+        l0_m = eager_ms(lambda: kfused.fused_gossip_update(k_l0, **fops_tw),
+                        20)
+        nb_m = (kfused.window_operand_bytes(fops)
+                + sum(t_.numel() * t_.element_size() for t_ in got[9:]))
+        bnd_m = bound(nb_m, fused_window_ops(k_m, fops, sel_rows_m[0])
+                      + Tw * n_r * (16 + C * (10 + 4)))
+        del want, got, fops, fops_tw, st
+        # 64 heartbeats on fused windows against the per-tick telemetry
+        # step, frames field by field
+        win_m = pg.make_fused_window(cfg_m, None, ticks_fused=Tw, device=dev,
+                                     telemetry=tcfg_m)
+        step_t = pg.make_gossip_step(cfg_m, None, device=dev,
+                                     telemetry=tcfg_m)
+        torch.cuda.synchronize()
+        krecv.launches.clear()
+        ksel.launches = kfused.launches = kfused.launches_faults = 0
+        kfused.launches_tel = 0
+        end_f, fr_f = pg.gossip_run_frames_fused(params, state, RES_WARMUP,
+                                                 win_m, device=dev)
+        torch.cuda.synchronize()
+        counts_m = {"fused_tel": kfused.launches_tel,
+                    "fused": kfused.launches + kfused.launches_faults,
+                    "select": ksel.launches,
+                    "receive": krecv.launches.total()}
+        if counts_m != {"fused_tel": RES_WARMUP // Tw, "fused": 0,
+                        "select": 0, "receive": 0}:
+            fail(f"{label}: launches {counts_m}")
+        end_t, fr_t = tl.telemetry_run(params, state, RES_WARMUP, step_t)
+        a_np, b_np = convert.frame_to_numpy(fr_f), convert.frame_to_numpy(
+            fr_t)
+        for key, v in b_np.items():
+            if (v is None) != (a_np[key] is None) or (
+                    v is not None and not np.array_equal(
+                        a_np[key].view(np.uint8), v.view(np.uint8))):
+                fail(f"{label}: frames differ in {key}")
+        d_f, d_t = digest(end_f), digest(end_t)
+        tot_m = tl.summarize_frames(fr_f)
+        if d_f != d_t or not tot_m["payload_sent"] > 0:
+            fail(f"{label}: digests {d_f} / {d_t}, totals {tot_m}")
+        print(f"{label}: identical at N={n_r}, C={C}, W=1, T={Tw}, "
+              f"L={L_TEL} from tick {t0_w}; kernel {ms_m:.4f} ms (without "
+              f"latency rows {l0_m:.4f}, without telemetry {twin_m:.4f}), "
+              f"plain {plain_m:.3f} ms per window ({copies_m} delivered "
+              f"copies in its latency rows); "
+              f"{nb_m / n_r:.1f} B/peer, bound {bnd_m[0]:.4f} ms "
+              f"({bnd_m[1]}); {RES_WARMUP} heartbeats on {counts_m} "
+              f"launches and per tick: frames equal, digest {d_f}, "
+              f"payload {tot_m['payload_sent']}, control overhead ratio "
+              f"{tot_m['control_overhead_ratio']!r}")
+        fused_tel[label] = dict(
+            err=err_m, ms=ms_m, plain_ms=plain_m, twin_ms=twin_m,
+            no_latency_rows_ms=l0_m, latency_row_copies=copies_m,
+            bytes_per_peer=nb_m / n_r, bound=bnd_m,
+            launches=counts_m["fused_tel"], digest=d_f,
+            control_overhead_ratio=tot_m["control_overhead_ratio"])
+        del params, state, end_f, end_t, fr_f, fr_t, win_m, step_t, step_m
+
     # -- 6. the unscored receive kernel vs plain at the resident shapes
     n_r = resident.N_PEERS
     cfg_r, params, state, msg_topic, _ = resident.build(dev)
@@ -1636,7 +2007,9 @@ def main() -> None:
           f"{hb:.2f}; adversarial scored per-tick {hb_a:.2f}; "
           f"everything-on scored per-tick {hb_e:.2f}; everything-on paired "
           f"(the benchmark as written) per-tick {hb_p:.2f}; churn (the "
-          f"benchmark as written) scored per-tick {hb_c:.2f}; resident "
+          f"benchmark as written) scored per-tick {hb_c:.2f}; telemetry "
+          f"(the benchmark as written) off {hb_off:.2f}, on {hb_on:.2f}; "
+          f"resident "
           f"unscored "
           f"fused "
           f"{paths['fused']['heartbeats_per_s']:.2f}, per-tick "
@@ -1729,6 +2102,30 @@ def main() -> None:
         launches=counts_fc["fused_faults"], max_abs_err=err_fc, ms=fc_ms,
         plain_ms=fc_plain_ms, bound_ms=fc_bound[0], bound_by=fc_bound[1],
         library_ms=None))
+    # the telemetry variants: for the flagship options the telemetry
+    # path's launches and the times at its shapes (5l; the L = 16 check of
+    # 5k in the main_path line), else those of the run to the checked tick
+    # (fused: the 64 heartbeats on windows)
+    rows_tel = dict(tel_k, receive_update_tel=dict(
+        tel_main_k, err=max(tel_k["receive_update_tel"]["err"],
+                            tel_main_k["err"]),
+        launches=tel_main["on"]["launches"]["scored+tel"]))
+    for kname, r in rows_tel.items():
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source="go_libp2p_pubsub_tpu_torch/csrc/receive_tel.cu",
+            replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
+            launches=r["launches"], max_abs_err=r["err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+            bound_by=r["bound"][1], library_ms=None))
+    for kname, r in fused_tel.items():
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source="go_libp2p_pubsub_tpu_torch/csrc/fused.cu",
+            replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:1662",
+            launches=r["launches"], max_abs_err=r["err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+            bound_by=r["bound"][1], library_ms=None))
     print(json.dumps({"main_path": {
         "flagship": main_flagship, "adversarial": main_adversarial,
         "everything": main_everything, "everything_paired": main_paired,
@@ -1739,6 +2136,14 @@ def main() -> None:
         "resident_cold_restart": dict(
             digest=d_fc, rejoins=rejoins, launches=counts_fc,
             fault_rows_ms=rows_ms, mean_mesh_degree=deg_fc),
+        "telemetry": dict(tel_main, peak_bytes=peak_t, start_bytes=alloc0_t),
+        "telemetry_receive": {
+            kname: {key: v for key, v in r.items() if key != "bound"}
+            for kname, r in dict(
+                tel_k, receive_update_tel_main_path=tel_main_k).items()},
+        "telemetry_fused": {
+            kname: {key: v for key, v in r.items() if key != "bound"}
+            for kname, r in fused_tel.items()},
         "eager_ms": {"receive": rcv_eager_ms, "select": sel_eager_ms},
         "full_receive_ms": {"main_path": full_ms, "all_options": full_all_ms,
                             "exact_k_alone": xk_ms},

@@ -22,15 +22,22 @@ This module never imports the reference; the caller flattens it.
   ``directed_drops`` as they are.
 
 The reverse functions give uint32 words back as uint32 and bf16 leaves
-as their raw uint16 patterns, so two trees compare bit for bit.
+as their raw uint16 patterns, so two trees compare bit for bit;
+``frame_to_numpy`` gives a telemetry frame (one tick's, or frames stacked
+by a runner) as the same dict of numpy leaves as the reference's frame.
+``TelemetryConfig`` needs no conversion: both packages take the same
+keyword arguments.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .models.faults import FaultParams
+from .models.telemetry import TelemetryFrame
 from .models.gossipsub import (
     GossipParams,
     GossipState,
@@ -181,3 +188,12 @@ def state_to_numpy(s: GossipState) -> dict:
                key=np.array([0, s.salt], dtype=np.uint32),
                tick=np.int32(s.tick))
     return out
+
+
+def frame_to_numpy(frame: TelemetryFrame) -> dict:
+    """A telemetry frame as {field: numpy array} (int32 / float32, with
+    whatever leading axes a runner stacked; ``None`` for a histogram
+    group that is off), leaf for leaf with the reference's frame."""
+    return {f.name: (None if getattr(frame, f.name) is None
+                     else _array(getattr(frame, f.name)))
+            for f in dataclasses.fields(frame)}

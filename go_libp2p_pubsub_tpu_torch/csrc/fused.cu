@@ -3,9 +3,11 @@
 //
 // Replaces: go_libp2p_pubsub_tpu/ops/pallas/receive.py,
 // _fused_gossip_kernel (built by make_fused_gossip_update), single
-// device, without telemetry or the sharded halo; with or without fault
-// rows (FAULTS) and cold restart (COLD), each instantiated in a kernel of
-// its own, fused_window_kernel_faults.  It computes what that kernel
+// device, without the sharded halo; with or without fault rows (FAULTS)
+// and cold restart (COLD), each instantiated in a kernel of its own,
+// fused_window_kernel_faults; with or without the per-tick telemetry rows
+// (TEL, with_telemetry: fused_window_kernel_tel and
+// fused_window_kernel_faults_tel).  It computes what that kernel
 // computes, bit-identical to the
 // plain version (ops/kernels/fused.py fused_gossip_update_plain): per
 // tick, publish injection, fanout TTL and refill, the graft and v1.0
@@ -22,7 +24,19 @@
 // or at a dead peer drop with PRUNE and backoff at both ends; nobody
 // grafts at or by a dead peer, and dead candidates take no fanout slot.
 // With cold restart (COLD) a peer rejoining at tick t has its
-// possession words and mcache ring cleared first.
+// possession words and mcache ring cleared first.  With telemetry (TEL)
+// each tick writes its end-of-tick mesh row and its tally: the receive
+// kernel's rows (receive_body.cuh, TEL) counted per peer in phase B, the
+// L latency-bucket rows of the delivered acquisitions, and the GRAFTs
+// and PRUNEs transmitted (under faults & sok & cal, the reference's
+// :2132-2139).  On the TPU the tick's rows are one 128-lane block per
+// grid step; here each thread sums its peers' rows in registers over the
+// grid-stride loop (the latency rows into shared memory by shared
+// atomics, only for a peer with a delivered acquisition, so no L
+// accumulators stay live), each block reduces its rows by warp shuffles
+// and adds them into the tick's tally row with one i32 atomicAdd per
+// block and row before the next tick's barrier.  The wrapper zeroes the
+// tally on the stream; integer sums are order-free, so it is exact.
 //
 // Design.  On the TPU the whole ring is one block resident in VMEM and
 // the candidate views are whole-ring lane rolls.  Here every tick reads
@@ -124,12 +138,24 @@ struct FusedArgs {
   const uint32_t* rej;       // (cold restart) ~0u at a rejoiner, or null
   int faults;                // launch the faulted kernel
   int cold;                  // ... with cold restart
+  // the telemetry rows, after those
+  const uint32_t* lat_masks; // [T, L, W] latency-bucket masks (L > 0)
+  const uint32_t* dlv;       // [W, N] deliver words (L > 0)
+  uint32_t* meshrow;         // [T, N] each tick's end-of-tick mesh
+  int* tel;                  // [T, 8 + L + 2] tallies, zeroed by the caller
+  int tel_lat_buckets;       // L
+  int telemetry;             // launch the telemetry kernel
 };
 
 namespace {
 
 constexpr int CTRL_OUT = 0, CTRL_TGT = 1, CTRL_GRAFT = 2, CTRL_DROP = 3,
               CTRL_A = 4, CTRL_ADV = 5;
+// the tally's rows (ops/kernels/receive.py TEL_ROWS), then the L latency
+// rows and the transmitted GRAFT and PRUNE rows
+constexpr int TEL_PAYLOAD = 0, TEL_IHAVE_IDS = 1, TEL_IWANT_SERVED = 2,
+              TEL_RECV = 3, TEL_IWANT_REQ = 4, TEL_IHAVE_RPCS = 5,
+              TEL_IWANT_RPCS = 6, TEL_NEW_IDS = 7, TEL_ROWS = 8;
 
 // what one peer sends and keeps at the start of tick t (from its carry);
 // under faults its alive word, send-ok bits and (cold restart) rejoin
@@ -221,9 +247,13 @@ __device__ __forceinline__ void tick_front(const FusedArgs& a, int t,
 }
 
 // The window; FAULTS and COLD compile in the fault rows and cold
-// restart (false in fused_window_kernel, whose code stays as it was).
-template <int C, int W, bool EXACTK, bool FAULTS, bool COLD>
-__device__ __forceinline__ void fused_body(const FusedArgs& a) {
+// restart, TEL the telemetry rows (all false in fused_window_kernel,
+// whose code stays as it was).  (TEL) s_tel: the block's partial tally
+// of the tick, 8 + L + 2 ints of dynamic shared memory.
+template <int C, int W, bool EXACTK, bool FAULTS, bool COLD,
+          bool TEL = false>
+__device__ __forceinline__ void fused_body(const FusedArgs& a,
+                                           int* s_tel = nullptr) {
   cg::grid_group grid = cg::this_grid();
   const long long n = a.n;
   const long long first_p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -276,12 +306,22 @@ __device__ __forceinline__ void fused_body(const FusedArgs& a) {
         sctl[c * n + p] = (uint8_t)b;
       }
     }
+    const int n_lat = TEL ? a.tel_lat_buckets : 0;
+    const int tel_rows = TEL_ROWS + n_lat + 2;
+    if constexpr (TEL) {
+      // the block's partial tally of this tick, cleared before the
+      // barrier; thread r clears and (after phase B) flushes row r
+      for (int r = threadIdx.x; r < tel_rows; r += blockDim.x) s_tel[r] = 0;
+    }
 
     grid.sync();
 
     // ---- phase B: receive, resolve, write the carry
     const int16_t* bo_cur = t == 0 ? a.bo_in : a.bo;
     const int ring_slot = tick % hg;
+    // (TEL) this thread's tally rows over its peers, then the GRAFT and
+    // PRUNE rows
+    int tr[TEL_ROWS + 2] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
     for (long long p = first_p; p < n; p += step) {
       Front<W> f;
       tick_front<C, W, FAULTS, COLD>(a, t, p, f);
@@ -299,14 +339,44 @@ __device__ __forceinline__ void fused_body(const FusedArgs& a) {
         a_recv |= ((ctl >> CTRL_A) & 1u) << j;
         const bool fwd_on = ((ctl >> CTRL_OUT) & 1u) != 0u;
         const bool gsp_on = ((ctl >> CTRL_TGT) & 1u) != 0u;
-        if (fwd_on || gsp_on) {
+        if constexpr (TEL) {
+          // the receive kernel's tallies (receive_body.cuh): sent words
+          // before the alive mask, received, served and requested after
+          const bool adv_on = ((ctl >> CTRL_ADV) & 1u) != 0u;
+          int req_c = 0;
+          bool adv_nz = false;
+          if (fwd_on || gsp_on || adv_on) {
 #pragma unroll
-          for (int w = 0; w < W; ++w) {
-            uint32_t got = 0u;
-            if (fwd_on) got |= __ldcg(&spay[w * n + q]);
-            if (gsp_on) got |= __ldcg(&spay[(W + w) * n + q]);
-            if constexpr (FAULTS) got &= f.alive;   // a down peer hears 0
-            heard[w] |= got & ~(f.have[w] | f.inj[w]);
+            for (int w = 0; w < W; ++w) {
+              const uint32_t fwd_q = fwd_on ? __ldcg(&spay[w * n + q]) : 0u;
+              const uint32_t adv_q =
+                  (gsp_on || adv_on) ? __ldcg(&spay[(W + w) * n + q]) : 0u;
+              const uint32_t gsp_q = gsp_on ? adv_q : 0u;
+              const uint32_t adv_w = adv_on ? adv_q : 0u;
+              const uint32_t seen = f.have[w] | f.inj[w];
+              const uint32_t got = (fwd_q | gsp_q) & f.alive;
+              heard[w] |= got & ~seen;
+              tr[TEL_PAYLOAD] += __popc(fwd_q);
+              tr[TEL_IHAVE_IDS] += __popc(adv_w);
+              tr[TEL_IWANT_SERVED] += __popc(gsp_q & f.alive & ~seen);
+              tr[TEL_RECV] += __popc(got);
+              req_c += __popc(adv_w & f.alive & ~seen);
+              adv_nz = adv_nz || adv_q != 0u;
+            }
+          }
+          tr[TEL_IWANT_REQ] += req_c;
+          tr[TEL_IHAVE_RPCS] += (adv_on && adv_nz) ? 1 : 0;
+          tr[TEL_IWANT_RPCS] += req_c > 0 ? 1 : 0;
+        } else {
+          if (fwd_on || gsp_on) {
+#pragma unroll
+            for (int w = 0; w < W; ++w) {
+              uint32_t got = 0u;
+              if (fwd_on) got |= __ldcg(&spay[w * n + q]);
+              if (gsp_on) got |= __ldcg(&spay[(W + w) * n + q]);
+              if constexpr (FAULTS) got &= f.alive;   // a down peer hears 0
+              heard[w] |= got & ~(f.have[w] | f.inj[w]);
+            }
           }
         }
       }
@@ -321,6 +391,36 @@ __device__ __forceinline__ void fused_body(const FusedArgs& a) {
       const uint32_t mesh_new =
           ((f.mesh_sel | accept) & ~prune_recv) & ~retract;
       const uint32_t bo_trig = f.dropped | prune_recv | retract;
+
+      if constexpr (TEL) {
+        // the new acquisitions; the delivered ones by latency bucket
+        // (shared atomics, only for a peer with a delivery this tick);
+        // the handshake RPCs on the wire
+        uint32_t dw[W];
+        bool any_dw = false;
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          const uint32_t h = f.sub_all != 0u ? heard[w] : 0u;
+          tr[TEL_NEW_IDS] += __popc(h);
+          dw[w] = n_lat > 0 ? (h | f.inj[w]) & a.dlv[w * n + p] : 0u;
+          any_dw = any_dw || dw[w] != 0u;
+        }
+        if (any_dw) {
+          for (int b = 0; b < n_lat; ++b) {
+            int c = 0;
+#pragma unroll
+            for (int w = 0; w < W; ++w) {
+              c += __popc(dw[w] & a.lat_masks[((long long)t * n_lat + b) * W
+                                              + w]);
+            }
+            if (c != 0) atomicAdd(&s_tel[TEL_ROWS + b], c);
+          }
+        }
+        const uint32_t cal = FAULTS ? a.cal[(long long)t * n + p] : ~0u;
+        tr[TEL_ROWS] += __popc(f.grafts & f.sok & cal);
+        tr[TEL_ROWS + 1] += __popc(f.dropped & f.sok & cal);
+        a.meshrow[(long long)t * n + p] = mesh_new;
+      }
 
       // acquisitions, possession and the mcache ring slot tick mod Hg
       // (at window entry the other ring rows carry over too)
@@ -378,6 +478,26 @@ __device__ __forceinline__ void fused_body(const FusedArgs& a) {
       a.tgt[p] = elig & tgt;
       a.bog[p] = bo_gate;
     }
+    if constexpr (TEL) {
+      // the block's partial of each row: warp shuffles, one shared
+      // atomic per warp and row, then one global atomic per block and
+      // row into the tick's tally
+      const int lane = threadIdx.x & 31;
+#pragma unroll
+      for (int r = 0; r < TEL_ROWS + 2; ++r) {
+        int v = tr[r];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          v += __shfl_down_sync(0xFFFFFFFFu, v, off);
+        }
+        const int row = r < TEL_ROWS ? r : r + n_lat;
+        if (lane == 0 && v != 0) atomicAdd(&s_tel[row], v);
+      }
+      __syncthreads();
+      for (int r = threadIdx.x; r < tel_rows; r += blockDim.x) {
+        if (s_tel[r] != 0) atomicAdd(&a.tel[t * tel_rows + r], s_tel[r]);
+      }
+    }
   }
 }
 
@@ -396,50 +516,81 @@ fused_window_kernel_faults(const FusedArgs a) {
   fused_body<C, W, EXACTK, true, COLD>(a);
 }
 
-template <int C, int W, bool EXACTK, bool FAULTS, bool COLD>
+// The window with its telemetry rows, without and with fault rows, in
+// kernels of their own, so that the kernels above keep their code.
+template <int C, int W, bool EXACTK>
+__global__ void __launch_bounds__(256)
+fused_window_kernel_tel(const FusedArgs a) {
+  extern __shared__ int s_tel[];
+  fused_body<C, W, EXACTK, false, false, true>(a, s_tel);
+}
+
+template <int C, int W, bool EXACTK, bool COLD>
+__global__ void __launch_bounds__(256)
+fused_window_kernel_faults_tel(const FusedArgs a) {
+  extern __shared__ int s_tel[];
+  fused_body<C, W, EXACTK, true, COLD, true>(a, s_tel);
+}
+
+template <int C, int W, bool EXACTK, bool FAULTS, bool COLD, bool TEL>
 const void* window_kernel() {
-  if constexpr (FAULTS) {
+  if constexpr (TEL && FAULTS) {
+    return (const void*)fused_window_kernel_faults_tel<C, W, EXACTK, COLD>;
+  } else if constexpr (TEL) {
+    return (const void*)fused_window_kernel_tel<C, W, EXACTK>;
+  } else if constexpr (FAULTS) {
     return (const void*)fused_window_kernel_faults<C, W, EXACTK, COLD>;
   } else {
     return (const void*)fused_window_kernel<C, W, EXACTK>;
   }
 }
 
-template <int C, int W, bool EXACTK, bool FAULTS, bool COLD>
-int resident_blocks(int threads, int* out) {
+template <int C, int W, bool EXACTK, bool FAULTS, bool COLD, bool TEL>
+int resident_blocks(int threads, size_t smem, int* out) {
   int per_sm = 0, sms = 0, dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, window_kernel<C, W, EXACTK, FAULTS, COLD>(), threads, 0);
+        &per_sm, window_kernel<C, W, EXACTK, FAULTS, COLD, TEL>(), threads,
+        smem);
   *out = per_sm * sms;
   return (int)err;
 }
 
-template <int C, int W, bool EXACTK, bool FAULTS, bool COLD>
+template <int C, int W, bool EXACTK, bool FAULTS, bool COLD, bool TEL>
 int launch_variant(const FusedArgs& a, cudaStream_t s) {
   const int threads = 256;
+  // (TEL) the block's partial tally: 8 + L + 2 ints
+  const size_t smem =
+      TEL ? (size_t)(TEL_ROWS + a.tel_lat_buckets + 2) * sizeof(int) : 0;
   int resident = 0;
-  int err = resident_blocks<C, W, EXACTK, FAULTS, COLD>(threads, &resident);
+  int err = resident_blocks<C, W, EXACTK, FAULTS, COLD, TEL>(threads, smem,
+                                                             &resident);
   if (err != 0) return err;
   if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   const long long want = (a.n + threads - 1) / threads;
   const int blocks = (int)(want < resident ? want : resident);
   void* args[] = {(void*)&a};
   err = (int)cudaLaunchCooperativeKernel(
-      window_kernel<C, W, EXACTK, FAULTS, COLD>(), dim3(blocks),
-      dim3(threads), args, 0, s);
+      window_kernel<C, W, EXACTK, FAULTS, COLD, TEL>(), dim3(blocks),
+      dim3(threads), args, smem, s);
   if (err != 0) return err;
   return (int)cudaGetLastError();
 }
 
+template <int C, int W, bool EXACTK, bool TEL>
+int launch_faults(const FusedArgs& a, cudaStream_t s) {
+  if (!a.faults) return launch_variant<C, W, EXACTK, false, false, TEL>(a, s);
+  if (a.cold) return launch_variant<C, W, EXACTK, true, true, TEL>(a, s);
+  return launch_variant<C, W, EXACTK, true, false, TEL>(a, s);
+}
+
 template <int C, int W, bool EXACTK>
 int launch_targets(const FusedArgs& a, cudaStream_t s) {
-  if (!a.faults) return launch_variant<C, W, EXACTK, false, false>(a, s);
-  if (a.cold) return launch_variant<C, W, EXACTK, true, true>(a, s);
-  return launch_variant<C, W, EXACTK, true, false>(a, s);
+  if (a.telemetry) return launch_faults<C, W, EXACTK, true>(a, s);
+  return launch_faults<C, W, EXACTK, false>(a, s);
 }
 
 template <int C, int W>

@@ -1,0 +1,176 @@
+// The receive kernels with the telemetry tally (Hopper, sm_90a): each
+// variant of receive.cu (the flagship options scored and unscored, the
+// attack options, the full and paired variants, each under fault
+// schedules too) with the shared body's TEL flag on, in kernels of their
+// own with the launch bounds of their twins, so that the kernels of
+// receive.cu keep their code, and the C entry point
+// gossip_receive_update_tel.
+//
+// Replaces: go_libp2p_pubsub_tpu/ops/pallas/receive.py, _receive_kernel
+// with with_telemetry (its per-tick RPC and duplicate tallies, :604-668,
+// :738-743, and the latency-bucket tallies, :744-757, emitted at
+// :1000-1024).  On the TPU the grid runs in order on one core and carries
+// the tally across grid steps in one revisited output block of 128 lane
+// partials.  Here blocks run in parallel and in no order: each thread
+// counts its peer's edges in registers through stage 1 (the body), leaves
+// its eight rows and its delivered acquisitions in shared memory before
+// stage 2, and after the body each warp of the block sums one row over
+// the block's 256 peers (the L latency-bucket rows popcount the delivered
+// acquisitions against the tick's bucket masks here, once, so no L
+// accumulators stay live through the edge loop) and adds it into the
+// tally with one i32 atomicAdd per block and row.  Integer sums are
+// order-free, so the tally is exact and the same on every run.  The port
+// runs unpadded, so there are no pad lanes to mask (the reference's
+// :1004-1013): a thread past the last peer leaves zeros.  i32 as in the
+// reference: at 1,024,000 peers, C = 16, W = 2 the largest row (received
+// words, at most 16 * 2 * 32 per peer) stays below 1.05e9.
+//
+// Bound: the body's operand bytes plus the deliver words with latency
+// buckets; the tally itself is 4 (8 + L) bytes and a few hundred integer
+// operations per peer.
+#include "receive_body.cuh"
+
+namespace {
+
+// the paired variant's blocks a multiprocessor (receive.cu PAIRED_BLOCKS)
+constexpr int PAIRED_TEL_BLOCKS = 4;
+
+template <int C, int W, bool SCORED, bool ATK, bool CBF, bool BBF,
+          bool FLOOD, bool EXACTK, bool PX, bool SAMEIP, bool PAIRED,
+          bool FAULTS>
+__device__ __forceinline__ void receive_tel_body(const ReceiveArgs& a) {
+  __shared__ int s_rows[TEL_ROWS * RECEIVE_THREADS];
+  __shared__ uint32_t s_dlv[W * RECEIVE_THREADS];
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < TEL_ROWS; ++r) s_rows[r * RECEIVE_THREADS + t] = 0;
+#pragma unroll
+  for (int w = 0; w < W; ++w) s_dlv[w * RECEIVE_THREADS + t] = 0u;
+  receive_body<C, W, SCORED, ATK, CBF, BBF, FLOOD, EXACTK, PX, SAMEIP,
+               PAIRED, FAULTS, true>(a, s_rows, s_dlv);
+  __syncthreads();
+  // warp k sums rows k, k + 8, ...: the block's partial of each row
+  const int warp = t >> 5, lane = t & 31;
+  const int rows = TEL_ROWS + a.tel_lat_buckets;
+  for (int r = warp; r < rows; r += RECEIVE_THREADS / 32) {
+    int v = 0;
+    if (r < TEL_ROWS) {
+      for (int i = lane; i < RECEIVE_THREADS; i += 32) {
+        v += s_rows[r * RECEIVE_THREADS + i];
+      }
+    } else {
+      const int b = r - TEL_ROWS;
+      uint32_t mask[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) mask[w] = a.lat_masks[b * W + w];
+      for (int i = lane; i < RECEIVE_THREADS; i += 32) {
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          v += __popc(s_dlv[w * RECEIVE_THREADS + i] & mask[w]);
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v += __shfl_down_sync(0xFFFFFFFFu, v, off);
+    }
+    if (lane == 0 && v != 0) atomicAdd(&a.tel[r], v);
+  }
+}
+
+// the variants of receive.cu, each with its twin's launch bound
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256)
+receive_kernel_tel(const ReceiveArgs a) {
+  receive_tel_body<C, W, SCORED, false, CBF, BBF, false, false, false,
+                   false, false, false>(a);
+}
+
+template <int C, int W, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256, 4)
+receive_kernel_attacks_tel(const ReceiveArgs a) {
+  receive_tel_body<C, W, true, true, CBF, BBF, false, false, false, false,
+                   false, false>(a);
+}
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256, 4)
+receive_kernel_full_tel(const ReceiveArgs a) {
+  receive_tel_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true,
+                   SCORED, false, false>(a);
+}
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256, PAIRED_TEL_BLOCKS)
+receive_kernel_paired_tel(const ReceiveArgs a) {
+  receive_tel_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true,
+                   SCORED, true, false>(a);
+}
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256)
+receive_kernel_faults_tel(const ReceiveArgs a) {
+  receive_tel_body<C, W, SCORED, false, CBF, BBF, false, false, false,
+                   false, false, true>(a);
+}
+
+template <int C, int W, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256, 4)
+receive_kernel_attacks_faults_tel(const ReceiveArgs a) {
+  receive_tel_body<C, W, true, true, CBF, BBF, false, false, false, false,
+                   false, true>(a);
+}
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256, 4)
+receive_kernel_full_faults_tel(const ReceiveArgs a) {
+  receive_tel_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true,
+                   SCORED, false, true>(a);
+}
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256, PAIRED_TEL_BLOCKS)
+receive_kernel_paired_faults_tel(const ReceiveArgs a) {
+  receive_tel_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true,
+                   SCORED, true, true>(a);
+}
+
+// this library's launcher for the dispatch of receive_body.cuh
+struct TelKernels {
+  template <int C, int W, int FAMILY, bool SCORED, bool ATK, bool CBF,
+            bool BBF, bool FAULTS>
+  static void launch(const ReceiveArgs& a, unsigned blocks, cudaStream_t s) {
+    constexpr int T = RECEIVE_THREADS;
+    if constexpr (FAMILY == 2 && FAULTS) {
+      receive_kernel_paired_faults_tel<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+    } else if constexpr (FAMILY == 2) {
+      receive_kernel_paired_tel<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+    } else if constexpr (FAMILY == 1 && FAULTS) {
+      receive_kernel_full_faults_tel<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+    } else if constexpr (FAMILY == 1) {
+      receive_kernel_full_tel<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+    } else if constexpr (ATK && FAULTS) {
+      receive_kernel_attacks_faults_tel<C, W, CBF, BBF><<<blocks, T, 0, s>>>(a);
+    } else if constexpr (ATK) {
+      receive_kernel_attacks_tel<C, W, CBF, BBF><<<blocks, T, 0, s>>>(a);
+    } else if constexpr (FAULTS) {
+      receive_kernel_faults_tel<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+    } else {
+      receive_kernel_tel<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+    }
+  }
+};
+
+}  // namespace
+
+// gossip_receive_update's arguments (receive.cu) with args->tel, the
+// zeroed tally [8 + L], and with L = args->tel_lat_buckets > 0 the
+// latency-bucket masks and deliver words; the return value as there.
+extern "C" int gossip_receive_update_tel(const ReceiveArgs* args, int c,
+                                         int w, int scored, int attacks,
+                                         int ctr_bf16, int bp_bf16,
+                                         void* stream) {
+  if (args->n > 0 && args->tel == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_receive<TelKernels>(*args, c, w, scored, attacks, ctr_bf16,
+                                    bp_bf16, (cudaStream_t)stream);
+}

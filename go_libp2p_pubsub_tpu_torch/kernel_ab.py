@@ -4,8 +4,10 @@
 
 Each source is a variant of ``csrc/receive.cu`` with the same C interface
 (``gossip_receive_update`` and ``struct ReceiveArgs`` of this tree's
-wrapper), next to the headers it includes.  Each is built with the
-port's nvcc flags (its ptxas summary printed), then the receive
+wrapper, whose head an older source's struct matches), next to the
+headers it includes (since the telemetry slice, ``receive_body.cuh``).
+Each is built with the port's nvcc flags, all concurrently (its ptxas
+summary printed), then the receive
 operands of the last tick of 40 of the 1M-peer adversarial, flagship,
 everything-on and paired everything-on sims and of tick 130 of the churn
 benchmark's sim (inside a churn wave and the partition) are captured (the
@@ -17,6 +19,13 @@ bit-identical to the plain version on them, and the builds are timed in
 turns (``chip_smoke.device_ms``: CUDA
 events over a CUDA-graph replay of 50 launches), ``--reps`` times each.
 Prints one JSON line with the card and every build's times.
+
+    python -m go_libp2p_pubsub_tpu_torch.kernel_ab --ptxas A.cu B.cu [...]
+
+builds any sources (``select.cu``, ``fused.cu`` too) and stops after
+their ptxas lines, with the first source's lines that each other source
+lacks and the lines it adds: a parent's source first, the change's after
+it.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sources", nargs="+")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--ptxas", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("the comparison needs an NVIDIA GPU")
@@ -50,16 +60,30 @@ def main() -> None:
 
     out_dir = _build.BUILD_DIR / "kernel_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    libs = {}
-    for i, src in enumerate(args.sources):
-        lib = out_dir / f"libreceive{i}.so"
-        r = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                            str(lib), src], capture_output=True, text=True)
-        if r.returncode:
-            raise SystemExit(f"nvcc {src} failed:\n{r.stdout}{r.stderr}")
-        for line in cs.ptxas_summary(r.stdout + r.stderr):
+    # one nvcc per source, all at once
+    procs = {src: (out_dir / f"libreceive{i}.so", subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+         str(out_dir / f"libreceive{i}.so"), src], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True))
+        for i, src in enumerate(args.sources)}
+    libs, lines = {}, {}
+    for src, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc {src} failed:\n{log}")
+        lines[src] = cs.ptxas_summary(log)
+        for line in lines[src]:
             print(f"ptxas[{src}]: {line}")
         libs[src] = ctypes.CDLL(str(lib))
+    if args.ptxas:
+        first, *others = args.sources
+        for src in others:
+            old, new = set(lines[first]), set(lines[src])
+            print(f"{src}: {len(new)} lines; of {first}'s {len(old)}, "
+                  f"{len(old - new)} missing; {len(new - old)} added")
+            for line in sorted(old - new):
+                print(f"  missing: {line}")
+        return
     dev = torch.device("cuda")
     times = {}
     has = {name: {src for src in libs if name in Path(src).read_text()}

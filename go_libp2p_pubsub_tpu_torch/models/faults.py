@@ -32,7 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.graph import lane_uniform, pack_rows
+from ..ops.graph import lane_uniform, pack_rows, popcount32
 
 #: lane_uniform phase of the per-tick link draws, disjoint from the
 #: simulator's phases (1-7, 12, 13, 15)
@@ -312,13 +312,17 @@ class TickMasks:
     live peer (gates its possession words), ``alive_all`` its C-bit form,
     ``send_ok`` the edges a peer may send on (alive and link up),
     ``cand_alive`` the live candidates, ``flood_ok`` = send_ok ∧
-    cand_alive (the IWANT flood's gate)."""
+    cand_alive (the IWANT flood's gate); for the telemetry ``faults``
+    group, ``alive`` the bool [N] peer-up mask and ``link`` the link word
+    alone (bit c: edge c up; None without link faults)."""
 
     alive_w: torch.Tensor
     alive_all: torch.Tensor
     send_ok: torch.Tensor
     cand_alive: torch.Tensor
     flood_ok: torch.Tensor
+    alive: torch.Tensor
+    link: torch.Tensor | None
 
 
 def tick_masks(fp: FaultParams, offsets, cinv, tick: int) -> TickMasks:
@@ -331,4 +335,20 @@ def tick_masks(fp: FaultParams, offsets, cinv, tick: int) -> TickMasks:
     send_ok = alive_all if link is None else alive_all & link
     return TickMasks(alive_w=alive_word(alive),
                      alive_all=alive_all, send_ok=send_ok,
-                     cand_alive=cand_alive, flood_ok=send_ok & cand_alive)
+                     cand_alive=cand_alive, flood_ok=send_ok & cand_alive,
+                     alive=alive, link=link)
+
+
+def fault_counts(fp: FaultParams, masks: TickMasks, n_candidates: int):
+    """The telemetry ``faults`` group of one tick's masks, int32 0-d
+    tensors ``(down_peers, dropped_edge_ticks)``.  Undirected drops show
+    on both views of an edge, so their count is halved to undirected
+    edge-ticks; directed drops count each down direction (a partition cut
+    counts 2); without link faults nothing drops."""
+    down = (~masks.alive).sum(dtype=torch.int32)
+    if masks.link is None:
+        return down, torch.zeros((), dtype=torch.int32, device=down.device)
+    cut = popcount32(~masks.link & ((1 << n_candidates) - 1)).sum(
+        dtype=torch.int32)
+    return down, torch.div(cut, 1 if fp.directed_drops else 2,
+                           rounding_mode="floor")

@@ -70,6 +70,7 @@ from ..ops.kernels import receive as krecv
 from ..ops.kernels import select as kselect
 from . import faults as _faults
 from . import plan
+from . import telemetry as _telemetry
 from ._delivery import reach_counts_from_first_tick, update_first_tick
 
 
@@ -1001,13 +1002,24 @@ def make_gossip_step(cfg: GossipSimConfig,
     with PRUNE and backoff at both ends (``maintain_slot``); the kernel's
     faulted variant gates what a down receiver hears and the control it
     receives (``alive_w``) and the IWANT flood's edges (``flood_ok``).
+
+    Telemetry (``telemetry``, a ``models/telemetry.py`` TelemetryConfig):
+    the step returns ``(state, delivered, frame)``, the state trajectory
+    bit-identical to the step without it (telemetry only reads).  The RPC
+    and duplicate counters and the latency-bucket rows come from the
+    receive kernel's tally (its ``+tel`` variant); GRAFT and PRUNE are
+    counted as transmitted (under faults, over a live link toward a live
+    partner; both slots when paired); the mesh gauges read the end-of-
+    tick mesh (both slots), the score group the start-of-tick scores (one
+    more [C, N] pass), the faults group the tick's masks.  No host sync is
+    added.
     """
     dev = resolve_device(device)
     plan.check_paired_step(cfg, score_cfg, force_split)
     plan.check_step_options(force_split=force_split,
                             pipeline_gates=pipeline_gates,
-                            shard_mesh=shard_mesh, telemetry=telemetry,
-                            rpc_probe=rpc_probe, invariants=invariants)
+                            shard_mesh=shard_mesh, rpc_probe=rpc_probe,
+                            invariants=invariants)
     krecv.receive_consts(cfg, score_cfg)     # the options' refusals
     consts = {}
 
@@ -1027,6 +1039,11 @@ def make_gossip_step(cfg: GossipSimConfig,
     step_fp = gates_fingerprint(cfg, sc)
     paired = cfg.paired_topics
     n_gates = krecv.n_gates(sc is not None, paired)
+    tel = telemetry
+    ws = _telemetry.wire_sizes(tel) if tel is not None else None
+    lat_b = tel.latency_buckets if tel is not None and tel.latency_hist else 0
+    # the kernel's tally runs for the counters or the latency rows
+    with_t = tel is not None and (tel.counters or lat_b > 0)
 
     def step(params: GossipParams, state: GossipState):
         check_on(dev, subscribed=params.subscribed, mesh=state.mesh)
@@ -1227,6 +1244,17 @@ def make_gossip_step(cfg: GossipSimConfig,
             variant["same_ip"] = True
         if fm is not None:
             variant["faults"] = True
+        if with_t:
+            variant.update(telemetry=True, tel_lat_buckets=lat_b)
+            if lat_b:
+                # the tick's bucket masks and the deliver words the
+                # bucket rows count against
+                ops["lat_masks"] = _telemetry.latency_bucket_masks(
+                    params.publish_tick, tick, lat_b, state.have.shape[0])
+                dlv_eff = params.deliver_words
+                if sc is not None:
+                    dlv_eff = dlv_eff & ~params.invalid_words[:, None]
+                ops["dlv_eff"] = dlv_eff
         kk = kernel_consts(**variant)
         if kk.flood_publish:
             # the injected words once more, as a sender stream
@@ -1287,6 +1315,7 @@ def make_gossip_step(cfg: GossipSimConfig,
                 tick=tick + 1, salt=salt, mesh_b=mesh_b_new)
             gates_new = (*gates_new[:i_tgt], tgt_new,
                          *gates_new[i_tgt + 1:])
+        tel_row = next(outs) if with_t else None
 
         # -- epilogue: possession, mcache ring, deliveries, tick
         recent = state.recent.clone()
@@ -1302,9 +1331,95 @@ def make_gossip_step(cfg: GossipSimConfig,
             scores=scores, iwant_serves=iws_o, gates=gates_new,
             gates_fp=state.gates_fp, salt=salt, tick=tick + 1,
             active=active, mesh_b=mesh_b_new, backoff_b=backoff_b_new)
-        return new_state, delivered_now
+        if tel is None:
+            return new_state, delivered_now
+        kw = {}
+        if tel.counters:
+            def sent(word):
+                # handshake RPCs on the wire: none over a down link or
+                # toward a dead partner
+                return (word if fm is None
+                        else word & fm.send_ok & fm.cand_alive)
+
+            slots = (sel,) if sel_b is None else (sel, sel_b)
+            graft_cnt = sum(popcount32(sent(s_["grafts"])).sum(
+                dtype=torch.int32) for s_ in slots)
+            prune_cnt = sum(popcount32(sent(s_["dropped"])).sum(
+                dtype=torch.int32) for s_ in slots)
+            kw.update(counter_fields(tel_row, graft_cnt, prune_cnt, ws
+                                     if tel.wire else None))
+        if tel.mesh or tel.degree_hist:
+            deg_t = popcount32(mesh_new)
+            if paired:
+                deg_t = deg_t + popcount32(mesh_b_new)
+            kw.update(mesh_fields(tel, deg_t, sub))
+        if (tel.scores or tel.score_hist) and sc is not None:
+            # the start-of-tick scores the gates acted on: one more pass
+            # over the [C, N] counters
+            score_t = compute_scores(sc, params, state)
+            mask_t = graph.expand_bits(cand_sub & sub_all, C)
+            if tel.scores:
+                kw.update(zip(("score_mean", "score_min", "score_frac_neg",
+                               "score_frac_below_gossip"),
+                              _telemetry.score_stats(score_t, mask_t,
+                                                     sc.gossip_threshold)))
+            if tel.score_hist:
+                kw["score_hist"] = _telemetry.score_histogram(
+                    score_t, mask_t, tel.score_bucket_edges)
+        if lat_b:
+            kw["latency_hist"] = tel_row[len(krecv.TEL_ROWS):]
+        if tel.faults and fm is not None:
+            kw["down_peers"], kw["dropped_edge_ticks"] = \
+                _faults.fault_counts(fp, fm, C)
+        return new_state, delivered_now, _telemetry.make_frame(dev, **kw)
 
     return step
+
+
+def counter_fields(sums: torch.Tensor, graft_cnt, prune_cnt,
+                   ws: _telemetry.WireSizes | None) -> dict:
+    """The counters group of a frame from one tick's tally rows (int32
+    [8 + ...], ``krecv.TEL_ROWS`` order) and its GRAFT and PRUNE counts;
+    with ``ws`` the wire bytes, f32 products of the exact counts added in
+    the reference's order."""
+    out = dict(
+        payload_sent=sums[krecv.TEL_PAYLOAD],
+        ihave_rpcs=sums[krecv.TEL_IHAVE_RPCS],
+        ihave_ids=sums[krecv.TEL_IHAVE_IDS],
+        iwant_rpcs=sums[krecv.TEL_IWANT_RPCS],
+        iwant_ids_requested=sums[krecv.TEL_IWANT_REQ],
+        iwant_ids_served=sums[krecv.TEL_IWANT_SERVED],
+        graft_sends=graft_cnt, prune_sends=prune_cnt,
+        dup_suppressed=sums[krecv.TEL_RECV] - sums[krecv.TEL_NEW_IDS])
+    if ws is not None:
+        def f32(x):
+            return x.to(torch.float32)
+
+        out["bytes_payload"] = (
+            f32(out["payload_sent"] + out["iwant_ids_served"])
+            * float(ws.payload_frame))
+        out["bytes_control"] = (
+            f32(out["ihave_rpcs"]) * float(ws.ihave_base)
+            + f32(out["ihave_ids"]) * float(ws.ihave_per_id)
+            + f32(out["iwant_rpcs"]) * float(ws.iwant_base)
+            + f32(out["iwant_ids_requested"]) * float(ws.iwant_per_id)
+            + f32(graft_cnt) * float(ws.graft_frame)
+            + f32(prune_cnt) * float(ws.prune_frame))
+    return out
+
+
+def mesh_fields(tel: _telemetry.TelemetryConfig, deg: torch.Tensor,
+                subscribed: torch.Tensor) -> dict:
+    """The mesh group (and the degree histogram) of a frame from the
+    end-of-tick mesh degrees."""
+    out = {}
+    if tel.mesh:
+        out.update(zip(("mesh_deg_min", "mesh_deg_mean", "mesh_deg_max"),
+                       _telemetry.degree_stats(deg, subscribed)))
+    if tel.degree_hist:
+        out["mesh_deg_hist"] = _telemetry.degree_histogram(
+            deg, subscribed, tel.degree_buckets)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1312,17 +1427,28 @@ def make_gossip_step(cfg: GossipSimConfig,
 # --------------------------------------------------------------------------
 
 
+def window_masks(cfg: GossipSimConfig, fp: _faults.FaultParams | None,
+                 tick0: int, ticks: int) -> list:
+    """Each tick's fault masks of a window (``faults.tick_masks``; none
+    without a schedule)."""
+    if fp is None:
+        return []
+    return [_faults.tick_masks(fp, cfg.offsets, cfg.cinv, tick0 + t)
+            for t in range(ticks)]
+
+
 def window_fault_rows(cfg: GossipSimConfig,
                       fp: _faults.FaultParams | None, tick0: int,
-                      ticks: int) -> dict:
+                      ticks: int, masks: list | None = None) -> dict:
     """A fused window's per-tick fault rows, int32 [T, N] on the device:
     each tick's masks as the step computes them (``alive``, ``send_ok``,
     ``cand_alive``; with cold restart ``rejoin``), or none without a
-    schedule."""
+    schedule; ``masks``, the window's ``window_masks`` when already made
+    (the telemetry window's faults group reads them too)."""
     if fp is None:
         return {}
-    masks = [_faults.tick_masks(fp, cfg.offsets, cfg.cinv, tick0 + t)
-             for t in range(ticks)]
+    if masks is None:
+        masks = window_masks(cfg, fp, tick0, ticks)
     rows = dict(alive=torch.stack([m.alive_w for m in masks]),
                 send_ok=torch.stack([m.send_ok for m in masks]),
                 cand_alive=torch.stack([m.cand_alive for m in masks]))
@@ -1345,7 +1471,13 @@ def make_fused_window(cfg: GossipSimConfig,
     ``state.tick + t``'s delivered words.  Bit-identical to T per-tick
     steps of ``make_gossip_step(cfg, None)``, with Bernoulli or exact-k
     gossip targets, with or without a fault schedule (and cold restart);
-    a sim with PX or direct peers is refused by name.
+    a sim with PX or direct peers is refused by name.  With
+    ``telemetry`` the window returns ``(state, delivered, frames)``, each
+    frame leaf stacked [T, ...] and equal to the per-tick telemetry
+    step's: the counters and latency rows from the kernel's per-tick
+    tally (GRAFT and PRUNE transmitted counted in the kernel), the mesh
+    gauges from its per-tick mesh rows, the faults group from the
+    window's masks.
 
     On the host the window computes the T x 4 lane seeds; the T due
     words and, under faults, the T ticks' fault rows
@@ -1356,10 +1488,17 @@ def make_fused_window(cfg: GossipSimConfig,
     launch) — there is no per-tick fallback."""
     dev = resolve_device(device)
     T = int(ticks_fused)
-    plan.check_fused_window(cfg, score_cfg, T, telemetry=telemetry,
-                            shard_mesh=shard_mesh)
-    k = kfused.fused_consts(cfg)
-    all_c = (1 << cfg.n_candidates) - 1
+    plan.check_fused_window(cfg, score_cfg, T, shard_mesh=shard_mesh)
+    tel = telemetry
+    lat_b = tel.latency_buckets if tel is not None and tel.latency_hist else 0
+    # the kernel's telemetry rows serve the counters, latency and mesh
+    # groups
+    with_t = tel is not None and (tel.counters or lat_b > 0 or tel.mesh
+                                  or tel.degree_hist)
+    ws = _telemetry.wire_sizes(tel) if tel is not None else None
+    k = kfused.fused_consts(cfg, telemetry=with_t, tel_lat_buckets=lat_b)
+    C = cfg.n_candidates
+    all_c = (1 << C) - 1
     step_fp = gates_fingerprint(cfg, None)
 
     def window(params: GossipParams, state: GossipState):
@@ -1379,8 +1518,15 @@ def make_fused_window(cfg: GossipSimConfig,
         ticks = torch.arange(tick0, tick0 + T, dtype=torch.int32,
                              device=dev)
         due = pack_bits(params.publish_tick[None, :] == ticks[:, None])
-        (have, recent, mesh, fanout, last_pub, backoff, tgt, bog,
-         acq) = kfused.fused_gossip_update(
+        fp = params.faults
+        masks = window_masks(cfg, fp, tick0, T)
+        tel_ops = {}
+        if lat_b:
+            tel_ops = dict(lat_masks=_telemetry.latency_bucket_masks(
+                params.publish_tick, ticks[:, None], lat_b,
+                state.have.shape[0]), dlv=params.deliver_words)
+        (have, recent, mesh, fanout, last_pub, backoff, tgt, bog, acq,
+         *tel_out) = kfused.fused_gossip_update(
             k, tick0=tick0, seeds=kfused.window_seeds(tick0, T, state.salt),
             due=due,
             sub_all=torch.where(params.subscribed, all_c, 0).to(
@@ -1389,16 +1535,38 @@ def make_fused_window(cfg: GossipSimConfig,
             have=state.have, recent=state.recent, mesh=state.mesh,
             fanout=state.fanout, last_pub=state.last_pub,
             backoff=state.backoff, tgt=state.gates[0], bog=state.gates[1],
-            **window_fault_rows(cfg, params.faults, tick0, T))
+            **window_fault_rows(cfg, fp, tick0, T, masks), **tel_ops)
         delivered = acq & params.deliver_words[None]
         first_tick = state.first_tick
         for t in range(T):
             first_tick = update_first_tick(first_tick, delivered[t],
                                            tick0 + t)
-        return replace(state, mesh=mesh, fanout=fanout, last_pub=last_pub,
-                       backoff=backoff, have=have, recent=recent,
-                       first_tick=first_tick, gates=(tgt, bog),
-                       tick=tick0 + T), delivered
+        new_state = replace(state, mesh=mesh, fanout=fanout,
+                            last_pub=last_pub, backoff=backoff, have=have,
+                            recent=recent, first_tick=first_tick,
+                            gates=(tgt, bog), tick=tick0 + T)
+        if tel is None:
+            return new_state, delivered
+        mesh_rows, tel_rows = tel_out if with_t else (None, None)
+        n_rows = len(krecv.TEL_ROWS)
+        frames = []
+        for t in range(T):
+            kw = {}
+            if tel.counters:
+                sums = tel_rows[t]
+                kw.update(counter_fields(
+                    sums, sums[n_rows + lat_b], sums[n_rows + lat_b + 1],
+                    ws if tel.wire else None))
+            if tel.mesh or tel.degree_hist:
+                kw.update(mesh_fields(tel, popcount32(mesh_rows[t]),
+                                      params.subscribed))
+            if lat_b:
+                kw["latency_hist"] = tel_rows[t, n_rows:n_rows + lat_b]
+            if tel.faults and fp is not None:
+                kw["down_peers"], kw["dropped_edge_ticks"] = \
+                    _faults.fault_counts(fp, masks[t], C)
+            frames.append(_telemetry.make_frame(dev, **kw))
+        return new_state, delivered, _telemetry.stack_frames(frames)
 
     window.ticks_fused = T
     return window
@@ -1424,7 +1592,7 @@ def gossip_run_curve(params: GossipParams, state: GossipState,
     check_on(dev, subscribed=params.subscribed, mesh=state.mesh)
     rows = []
     for _ in range(n_ticks):
-        state, delivered = step(params, state)
+        state, delivered = step(params, state)[:2]
         rows.append(count_bits_per_position(delivered, n_msgs))
     counts = (torch.stack(rows) if rows else
               torch.zeros((0, n_msgs), dtype=torch.int32, device=dev))
@@ -1446,6 +1614,22 @@ def gossip_run_fused(params: GossipParams, state: GossipState,
     return state
 
 
+def gossip_run_frames_fused(params: GossipParams, state: GossipState,
+                            n_ticks: int, window, *,
+                            device: str | torch.device | None = None):
+    """The telemetry runner over fused windows (``make_fused_window`` with
+    ``telemetry``): ``(state, frames)``, every frame leaf ``[n_ticks,
+    ...]`` and equal to ``telemetry_run`` with the per-tick telemetry
+    step's frames; concatenated once at the end."""
+    dev = resolve_device(device)
+    check_on(dev, subscribed=params.subscribed, mesh=state.mesh)
+    frames = []
+    for _ in range(plan.check_fused_horizon(n_ticks, window.ticks_fused)):
+        state, _, fr = window(params, state)
+        frames.append(fr)
+    return state, _telemetry.concat_frames(frames)
+
+
 def gossip_run_curve_fused(params: GossipParams, state: GossipState,
                            n_ticks: int, window, n_msgs: int, *,
                            device: str | torch.device | None = None):
@@ -1456,7 +1640,7 @@ def gossip_run_curve_fused(params: GossipParams, state: GossipState,
     check_on(dev, subscribed=params.subscribed, mesh=state.mesh)
     rows = []
     for _ in range(plan.check_fused_horizon(n_ticks, window.ticks_fused)):
-        state, delivered = window(params, state)
+        state, delivered = window(params, state)[:2]
         rows += [count_bits_per_position(d, n_msgs) for d in delivered]
     counts = (torch.stack(rows) if rows else
               torch.zeros((0, n_msgs), dtype=torch.int32, device=dev))

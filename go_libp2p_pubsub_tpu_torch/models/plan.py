@@ -11,9 +11,11 @@ direct peers, Bernoulli or exact-k gossip targets, PX candidate rotation
 and the shared-IP gater; and the unscored heartbeat T ticks per launch
 on the fused-window kernel (Bernoulli or exact-k targets; one topic per
 peer, no PX, no direct peers).  Both run under fault schedules (churn,
-link loss, partitions, cold restart); the fault knob stays refused as
-``knobs``, faults with telemetry as ``telemetry`` and with delays as
-``delays``, each by its own name as without faults.  Each
+link loss, partitions, cold restart) and with telemetry frames (the
+per-tick step, faulted or not, on every receive variant; the fused
+window with its per-tick frames); the fault knob stays refused as
+``knobs`` and delays as ``delays``, with or without faults and
+telemetry (both are refused when the sim is built).  Each
 refusal has a stable name (``SliceRefusal.name``) and its own message;
 tests match on the name.
 """
@@ -25,7 +27,6 @@ from __future__ import annotations
 MAX_WINDOW = 64
 
 REFUSALS: dict[str, str] = {
-    "telemetry": "telemetry frames are not ported yet",
     "knobs": "traced parameter knobs (score_knobs / sim_knobs) are not "
              "ported yet",
     "delays": "event-driven delays (DelayConfig and its delay lines) are "
@@ -112,15 +113,13 @@ def check_paired_step(cfg, sc, force_split: bool) -> None:
 
 
 def check_step_options(*, force_split, pipeline_gates, shard_mesh,
-                       telemetry, rpc_probe, invariants) -> None:
+                       rpc_probe, invariants) -> None:
     if force_split:
         refuse("track_p3")
     if not pipeline_gates:
         refuse("pipeline_gates")
     if shard_mesh is not None:
         refuse("shard_mesh")
-    if telemetry is not None:
-        refuse("telemetry")
     if rpc_probe:
         refuse("rpc_probe")
     if invariants is not None:
@@ -143,13 +142,13 @@ def check_sim_options(*, flood_proto, pad_to_block, byzantine,
         refuse("delays")
 
 
-def check_fused_window(cfg, sc, ticks: int, *, telemetry=None,
-                       shard_mesh=None) -> None:
+def check_fused_window(cfg, sc, ticks: int, *, shard_mesh=None) -> None:
     """Refuse a fused window the port does not run (static config).
 
     Delays and knobs are refused by their names when the sim is built
     (``check_sim_options``), so no window ever sees them; a faulted sim
-    runs (its per-tick fault rows ride the launch); the window refuses
+    runs (its per-tick fault rows ride the launch), and so does a window
+    with telemetry (its per-tick rows ride the launch); the window refuses
     the rest here, and PX and direct peers when it is
     handed their params or state (``check_fused_operands``)."""
     if not 1 <= int(ticks) <= MAX_WINDOW:
@@ -159,8 +158,6 @@ def check_fused_window(cfg, sc, ticks: int, *, telemetry=None,
         refuse("fused_scored")
     if cfg.paired_topics:
         refuse("fused_paired")
-    if telemetry is not None:
-        refuse("telemetry")
     if shard_mesh is not None:
         refuse("shard_mesh")
 

@@ -3,11 +3,12 @@ its plain PyTorch version.
 
 Counterpart of ``go_libp2p_pubsub_tpu/ops/pallas/receive.py``
 (``make_fused_gossip_update`` / ``_fused_gossip_kernel``), single
-device, without telemetry or the sharded halo: T ticks of the unscored
-(v1.0) step in one launch, the carry read once and written once per
-window; Bernoulli or exact-k gossip targets
-(``binomial_gossip_sampling``), no PX and no direct peers; with or
-without a fault schedule's per-tick rows, and with cold restart.
+device, without the sharded halo: T ticks of the unscored (v1.0) step in
+one launch, the carry read once and written once per window; Bernoulli
+or exact-k gossip targets (``binomial_gossip_sampling``), no PX and no
+direct peers; with or without a fault schedule's per-tick rows, and with
+cold restart; with or without the per-tick telemetry rows
+(``FusedConsts.telemetry``).
 
 Operands (peer axis last, packed u32 words as int32):
 
@@ -26,10 +27,18 @@ Operands (peer axis last, packed u32 words as int32):
   window), int32 [T, N] rows: ``alive`` (a live peer's all-ones word),
   ``send_ok`` (the edges a peer may send on) and ``cand_alive`` (its live
   candidates); with cold restart also ``rejoin`` (all-ones at a peer
-  coming back up that tick).
+  coming back up that tick);
+- with telemetry and latency buckets (``tel_lat_buckets`` L > 0):
+  ``lat_masks`` int32 [T, L, W], each tick's latency-bucket message masks,
+  and ``dlv`` int32 [W, N], the deliver words.
 
 Returns ``(have, recent, mesh, fanout, last_pub, backoff, tgt, bog, acq
-[T, W, N])`` — the carry after the window and each tick's acquisitions.
+[T, W, N])`` — the carry after the window and each tick's acquisitions;
+with telemetry also ``mesh_rows`` int32 [T, N], each tick's end-of-tick
+mesh, and ``tel`` int32 [T, 8 + L + 2], each tick's tally: the receive
+tally's rows (``receive.TEL_ROWS``, then the L latency-bucket rows) and
+the GRAFTs and PRUNEs transmitted (under faults, over a live link toward
+a live partner), the reference's ``TEL_FUSED_EXTRA``.
 """
 
 from __future__ import annotations
@@ -45,11 +54,15 @@ from ...models import plan
 from . import _build
 from . import receive as krecv
 
-#: launches of the CUDA kernel, without and with fault rows (plain
-#: integers; chip_smoke.py resets them before a main path and reads them
-#: after)
+#: launches of the CUDA kernel, without and with fault rows, and with
+#: telemetry (either; plain integers: chip_smoke.py resets them before a
+#: main path and reads them after)
 launches = 0
 launches_faults = 0
+launches_tel = 0
+
+#: the transmitted GRAFT and PRUNE rows after the receive tally's
+TEL_FUSED_EXTRA = 2
 
 #: (C, W) shapes the CUDA kernel is instantiated for
 KERNEL_SHAPES = {(8, 1), (8, 2), (16, 1), (16, 2)}
@@ -65,19 +78,28 @@ class FusedConsts:
     d_hi: int
     fanout_ttl: int
     history_gossip: int
+    # the per-tick mesh and tally rows, and the tally's latency rows
+    telemetry: bool = False
+    tel_lat_buckets: int = 0
 
     @property
     def n_candidates(self) -> int:
         return self.receive.n_candidates
 
 
-def fused_consts(cfg) -> FusedConsts:
+def fused_consts(cfg, *, telemetry: bool = False,
+                 tel_lat_buckets: int = 0) -> FusedConsts:
     """Check the options (named refusals outside the slice) and fold the
-    constants of the unscored step."""
+    constants of the unscored step; ``telemetry`` adds the per-tick mesh
+    and tally rows, with ``tel_lat_buckets`` latency rows."""
+    if tel_lat_buckets and not telemetry:
+        raise ValueError("latency-bucket rows need telemetry=True")
     return FusedConsts(receive=krecv.receive_consts(cfg, None), d=cfg.d,
                        d_lo=cfg.d_lo, d_hi=cfg.d_hi,
                        fanout_ttl=cfg.fanout_ttl_ticks,
-                       history_gossip=cfg.history_gossip)
+                       history_gossip=cfg.history_gossip,
+                       telemetry=telemetry,
+                       tel_lat_buckets=int(tel_lat_buckets))
 
 
 def window_seeds(tick0: int, ticks: int, salt: int) -> list[tuple]:
@@ -99,17 +121,21 @@ def fused_gossip_update_plain(k: FusedConsts, *, tick0, seeds, due,
                               sub_all, cand_sub, origin, have, recent, mesh,
                               fanout, last_pub, backoff, tgt, bog,
                               alive=None, send_ok=None, cand_alive=None,
-                              rejoin=None):
+                              rejoin=None, lat_masks=None, dlv=None):
     """Plain PyTorch version of the fused kernel: the unscored tick body
     looped over the window (same operands, same outputs,
-    bit-identical), under faults with the step's fault masks."""
+    bit-identical), under faults with the step's fault masks; with
+    telemetry each tick's receive tally and its transmitted GRAFT and
+    PRUNE counts."""
     C = k.n_candidates
     Hg = k.history_gossip
     ALL = (1 << C) - 1
     subbed = sub_all != 0
     faults = alive is not None
-    k_recv = dataclasses.replace(k.receive, faults=faults)
-    acqs = []
+    k_recv = dataclasses.replace(k.receive, faults=faults,
+                                 telemetry=k.telemetry,
+                                 tel_lat_buckets=k.tel_lat_buckets)
+    acqs, mesh_rows, tels = [], [], []
     for t, (s_fan, s_graft, s_prune, s_tgt) in enumerate(seeds):
         tick = tick0 + t
         if rejoin is not None:
@@ -118,11 +144,13 @@ def fused_gossip_update_plain(k: FusedConsts, *, tick0, seeds, due,
             have = have & ~rejoin[t]
             recent = recent & ~rejoin[t]
         fault_ops = {}
-        so = -1                 # the edges a peer may send on: all
+        so = ca = -1            # the edges a peer may send on: all
         if faults:
             aw, so, ca = alive[t], send_ok[t], cand_alive[t]
             up = aw & ALL
             fault_ops["alive_w"] = aw
+        if k.tel_lat_buckets:
+            fault_ops.update(lat_masks=lat_masks[t], dlv_eff=dlv)
         # 1. publish injection
         inj = origin & due[t][:, None] & ~have
         if faults:
@@ -169,7 +197,7 @@ def fused_gossip_update_plain(k: FusedConsts, *, tick0, seeds, due,
         ctrl = krecv.ctrl_bytes(C, out=(mesh | fanout) & so, tgt=targets,
                                 graft=grafts & so, drop=dropped & so,
                                 a=would_accept & so, adv=targets)
-        acq, mesh, backoff, tgt, bog = krecv.receive_update_plain(
+        acq, mesh, backoff, tgt, bog, *tel = krecv.receive_update_plain(
             k_recv, gseeds=(0, s_tgt), ctrl=ctrl, fresh=fresh, adv=adv,
             sub_all=sub_all, cand_sub=cand_sub, fanout=fanout,
             wa=would_accept, grafts=grafts, dropped=dropped,
@@ -179,8 +207,18 @@ def fused_gossip_update_plain(k: FusedConsts, *, tick0, seeds, due,
         recent = recent.clone()
         recent[tick % Hg] = acq
         acqs.append(acq)
-    return (have, recent, mesh, fanout, last_pub, backoff, tgt, bog,
-            torch.stack(acqs))
+        if k.telemetry:
+            # the GRAFTs and PRUNEs on the wire: none over a down link or
+            # toward a dead partner
+            sent = [graph.popcount32(x & so & ca).sum(dtype=torch.int32)
+                    for x in (grafts, dropped)]
+            mesh_rows.append(mesh)
+            tels.append(torch.cat([tel[0], torch.stack(sent)]))
+    out = (have, recent, mesh, fanout, last_pub, backoff, tgt, bog,
+           torch.stack(acqs))
+    if k.telemetry:
+        out += (torch.stack(mesh_rows), torch.stack(tels))
+    return out
 
 
 class _Args(ctypes.Structure):
@@ -204,7 +242,11 @@ class _Args(ctypes.Structure):
         # the fault rows, last
         + [(name, ctypes.c_void_p) for name in (
             "alive", "sok", "cal", "rej")]
-        + [("faults", ctypes.c_int), ("cold", ctypes.c_int)])
+        + [("faults", ctypes.c_int), ("cold", ctypes.c_int)]
+        # the telemetry rows, after those
+        + [(name, ctypes.c_void_p) for name in (
+            "lat_masks", "dlv", "meshrow", "tel")]
+        + [("tel_lat_buckets", ctypes.c_int), ("telemetry", ctypes.c_int)])
 
 
 _CARRY = ("have", "recent", "mesh", "fanout", "last_pub", "backoff", "tgt",
@@ -234,6 +276,15 @@ def _check_operands(k: FusedConsts, ops: dict) -> None:
         raise ValueError(f"fault rows {rows}: alive, send_ok and "
                          "cand_alive go together (rejoin with them)")
     want.update({name: ((T, n), torch.int32) for name in rows})
+    L = k.tel_lat_buckets
+    tel_ops = {name for name in ("lat_masks", "dlv")
+               if ops.get(name) is not None}
+    if tel_ops != ({"lat_masks", "dlv"} if L else set()):
+        raise ValueError(f"telemetry with {L} latency buckets: operands "
+                         f"{sorted(tel_ops)}")
+    if L:
+        want.update(lat_masks=((T, L, W), torch.int32),
+                    dlv=((W, n), torch.int32))
     device = ops["have"].device
     for name, (shape, dtype) in want.items():
         t = ops[name]
@@ -273,7 +324,7 @@ def fused_gossip_update(k: FusedConsts, **ops):
 
     CUDA tensors launch the kernel (a failed build or launch raises);
     CPU tensors run ``fused_gossip_update_plain``."""
-    global launches, launches_faults
+    global launches, launches_faults, launches_tel
     _check_operands(k, ops)
     if ops["have"].device.type == "cpu":
         return fused_gossip_update_plain(k, **ops)
@@ -318,16 +369,31 @@ def fused_gossip_update(k: FusedConsts, **ops):
     for t, tick_seeds in enumerate(ops["seeds"]):
         for i, seed in enumerate(tick_seeds):
             a.seeds[t][i] = int(seed) & graph.MASK32
+    tel = ()
+    if k.telemetry:
+        # the tallies are summed by atomics: zeroed here, on the stream
+        tel = (torch.empty((T, n), dtype=torch.int32, device=dev),
+               torch.zeros((T, len(krecv.TEL_ROWS) + k.tel_lat_buckets
+                            + TEL_FUSED_EXTRA), dtype=torch.int32,
+                           device=dev))
+        a.telemetry = 1
+        a.meshrow, a.tel = (t_.data_ptr() for t_ in tel)
+        a.tel_lat_buckets = k.tel_lat_buckets
+        if k.tel_lat_buckets:
+            a.lat_masks = ops["lat_masks"].data_ptr()
+            a.dlv = ops["dlv"].data_ptr()
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gossip_fused_window(ctypes.byref(a), C, W, stream)
     check_launch(err)
-    if a.faults:
+    if a.telemetry:
+        launches_tel += 1
+    elif a.faults:
         launches_faults += 1
     else:
         launches += 1
-    return (*(outs[name] for name in _CARRY), acq)
+    return (*(outs[name] for name in _CARRY), acq, *tel)
 
 
 def window_operand_bytes(ops: dict) -> int:
@@ -339,7 +405,7 @@ def window_operand_bytes(ops: dict) -> int:
                 for name in _CARRY)
     static = sum(ops[name].numel() * ops[name].element_size()
                  for name in ("sub_all", "cand_sub", "origin", "due",
-                              *FAULT_ROWS)
+                              *FAULT_ROWS, "lat_masks", "dlv")
                  if ops.get(name) is not None)
     W, n = ops["have"].shape
     return 2 * carry + static + 4 * len(ops["seeds"]) * W * n

@@ -12,7 +12,9 @@ targets and the PX trigger word (scored or not); and paired topics
 (``ReceiveConsts.paired``, one more variant with every option of the
 full one): a second topic slot with its own handshake, mesh, backoff
 and, scored, time in mesh; and each of these under fault schedules
-(``ReceiveConsts.faults``).
+(``ReceiveConsts.faults``); and each of these with the telemetry tally
+(``ReceiveConsts.telemetry``, the ``+tel`` variants, from a source of
+their own, ``csrc/receive_tel.cu``).
 The port runs unpadded, so the sender view of edge j is the plain
 ``(p + o_j) mod N`` read — no wrap-extended flats.
 
@@ -53,6 +55,11 @@ faults: ``alive_w`` int32 [N], the receiver's alive word (all-ones, or
 A and broken-promise bits it receives (the senders' masks ride the
 ctrl bytes); with the IWANT flood also ``flood_ok`` int32 [N], the
 edges a flood may cross (sender alive, link up, partner alive).
+With telemetry and latency buckets (``tel_lat_buckets`` L > 0):
+``lat_masks`` int32 [L, W], the tick's latency-bucket message masks
+(``models/telemetry.py`` ``latency_bucket_masks``), and ``dlv_eff``
+int32 [W, N], the deliver words the bucket tallies count against
+(scored: ``deliver_words & ~invalid_words``).
 
 Returns make_receive_update's output order: scored ``(acq [W, N], mesh
 [N], backoff [C, N], *gates (7 x [N]), fd, inv, bp, tim, iws)``,
@@ -63,7 +70,9 @@ backoff gate row after the others; with ``with_px`` one more word last,
 ``px_rot`` int32 [N]: the PRUNEs and PRUNE-responses received (paired:
 either slot's), which trigger the step's PX rotation (the targets row
 of such a launch is written before the rotation and the step overwrites
-it).
+it); with telemetry one more output last, ``tel`` int32 [8 + L]: the
+tick's tally in the reference's row order (``TEL_ROWS``), then the L
+latency-bucket rows.
 """
 
 from __future__ import annotations
@@ -94,11 +103,21 @@ CTRL2_DROP_B = 2   # slot-B PRUNE sent
 CTRL2_A_B = 3      # slot-B "no PRUNE would come back"
 N_GATES = 7        # accept, gossip, publish, nonneg, payload, targets, backoff
 N_GATES_UNSCORED = 2   # targets, backoff
+#: the telemetry tally's rows (ops/pallas/receive.py TEL_*), summed over
+#: the receivers: payload copies sent (eager, slot B, flood), ids
+#: advertised, gossip-pulled ids delivered, received copies (the merged
+#: word after the alive mask), advertised ids the receiver lacked, edges
+#: carrying a nonempty IHAVE, (edge, receiver) pairs with a lacked id,
+#: new acquisitions; the latency-bucket rows follow
+TEL_ROWS = ("payload", "ihave_ids", "iwant_served", "recv", "iwant_req",
+            "ihave_rpcs", "iwant_rpcs", "new_ids")
+(TEL_PAYLOAD, TEL_IHAVE_IDS, TEL_IWANT_SERVED, TEL_RECV, TEL_IWANT_REQ,
+ TEL_IHAVE_RPCS, TEL_IWANT_RPCS, TEL_NEW_IDS) = range(len(TEL_ROWS))
 
 #: launches of the CUDA kernel by variant (``variant(k)``: scored,
 #: unscored, attacks, full, paired, paired_unscored, each also with a
-#: ``_faults`` suffix); chip_smoke.py clears it before a main path and
-#: reads it after
+#: ``_faults`` suffix, and each of those with a ``+tel`` suffix);
+#: chip_smoke.py clears it before a main path and reads it after
 launches: Counter[str] = Counter()
 
 #: (C, W, scored) variants the CUDA kernel is instantiated for
@@ -202,6 +221,9 @@ class ReceiveConsts:
     # the handshake it receives; under the IWANT flood, the flood_ok word
     # gates the flood's accrual
     faults: bool = False
+    # the telemetry tally (one more output) and its latency-bucket rows
+    telemetry: bool = False
+    tel_lat_buckets: int = 0
 
     @property
     def n_candidates(self) -> int:
@@ -233,18 +255,24 @@ def odd_edge_mask(cfg) -> int:
 
 def receive_consts(cfg, sc, *, promise_break: bool = False,
                    px: bool = False, same_ip: bool = False,
-                   faults: bool = False) -> ReceiveConsts:
+                   faults: bool = False, telemetry: bool = False,
+                   tel_lat_buckets: int = 0) -> ReceiveConsts:
     """Check the options (named refusals outside the slice) and fold the
     constants (``sc`` None: the unscored step's).  The receiver tracks
     broken promises when sybils spam IHAVEs or ``promise_break`` (the
     sim has promise breakers); ``px`` (the state has an active set) adds
     the ``px_rot`` output, ``same_ip`` (the params have sibling words)
     the ``same_ip`` operand, ``faults`` (the sim has a fault schedule)
-    the ``alive_w`` operand and, under the IWANT flood, ``flood_ok``."""
+    the ``alive_w`` operand and, under the IWANT flood, ``flood_ok``;
+    ``telemetry`` the tally output, with ``tel_lat_buckets`` latency rows
+    and their ``lat_masks`` and ``dlv_eff`` operands."""
     plan.check_kernel_config(cfg, sc)
     exact_k = not cfg.binomial_gossip_sampling
+    if tel_lat_buckets and not telemetry:
+        raise ValueError("latency-bucket rows need telemetry=True")
     paired = dict(paired=cfg.paired_topics, odd_mask=odd_edge_mask(cfg),
-                  faults=faults)
+                  faults=faults, telemetry=telemetry,
+                  tel_lat_buckets=int(tel_lat_buckets))
     if sc is None:
         if same_ip:
             raise ValueError("same-IP sibling words need a score config")
@@ -396,7 +424,7 @@ def _decay_keep(k: ReceiveConsts, x: torch.Tensor, decay: float,
 
 def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
               gsp=None, valid=None, inj_send=None, ctrl2=None,
-              fresh_b=None, alive_w=None):
+              fresh_b=None, alive_w=None, tel=None):
     """Stage 1 over the C receiving edges: the senders' words heard
     (``news`` per message word), the GRAFT/PRUNE/A bits received and,
     with ``valid`` (scored), the per-edge valid/invalid news counts.
@@ -415,7 +443,10 @@ def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
     the receiver's ``alive_w`` word (all-ones or all-zeros) gates what
     it hears, the handshake bits it receives and its broken promises
     (the senders' masks ride the ctrl bytes); the advert window count
-    stays raw."""
+    stays raw.  With ``tel`` (a list of int64 0-d accumulators, the first
+    seven ``TEL_ROWS``) the telemetry tallies of the combined path: the
+    words sent counted before the receiver's alive mask, the words
+    received, served and requested after it."""
     W = fresh.shape[0]
     n = seen.shape[1]
     z = torch.zeros((n,), dtype=torch.int32, device=seen.device)
@@ -452,6 +483,10 @@ def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
         if k.paired:
             fb_on = ((ctl2 >> CTRL2_OUT_B) & ok_p & 1) != 0
         fd_j = iv_j = z
+        if tel is not None:
+            adv_on = ((ctl >> CTRL_ADV) & 1) != 0   # the sender targeted it
+            req_c = z
+            adv_nz = torch.zeros((n,), dtype=torch.bool, device=seen.device)
         for w in range(W):
             got = torch.where(fwd_on, torch.roll(fresh[w], -o), 0)
             if k.paired:
@@ -460,9 +495,21 @@ def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
             if k.flood_publish:
                 got = got | torch.where(fl_on, torch.roll(inj_send[w], -o),
                                         0)
-            got = got | torch.where(gsp_on, torch.roll(adv[w], -o), 0)
+            fwd_q = got
+            adv_q = torch.roll(adv[w], -o)
+            gsp_q = torch.where(gsp_on, adv_q, 0)
+            got = got | gsp_q
             if k.faults:
                 got = got & alive_w            # a down peer hears nothing
+            if tel is not None:
+                adv_w_q = torch.where(adv_on, adv_q, 0)
+                r_adv = adv_w_q if alive_w is None else adv_w_q & alive_w
+                gsp_m = gsp_q if alive_w is None else gsp_q & alive_w
+                for i, x in enumerate((fwd_q, adv_w_q, gsp_m & ~seen[w],
+                                       got)):
+                    tel[i] += graph.popcount32(x).sum(dtype=torch.int64)
+                req_c = req_c + graph.popcount32(r_adv & ~seen[w])
+                adv_nz = adv_nz | (adv_q != 0)
             news = got & ~seen[w]
             heard[w] = heard[w] | news
             if valid is not None:
@@ -470,6 +517,12 @@ def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
                 iv_j = iv_j + graph.popcount32(news & ~valid[w])
         fd_cnt.append(fd_j)
         iv_cnt.append(iv_j)
+        if tel is not None:
+            # one IHAVE RPC per targeted edge with a nonempty advert, one
+            # IWANT RPC per (edge, receiver) with a lacked id
+            tel[TEL_IWANT_REQ] += req_c.sum(dtype=torch.int64)
+            tel[TEL_IHAVE_RPCS] += (adv_on & adv_nz).sum(dtype=torch.int64)
+            tel[TEL_IWANT_RPCS] += (req_c > 0).sum(dtype=torch.int64)
         if k.track_promises:
             adv_r = (ctl >> CTRL_ADV) & 1
             m_g = (ctl >> CTRL_TGT) & 1
@@ -487,6 +540,34 @@ def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
         hs_b = [x & alive_w for x in hs_b]
     return (heard, graft_recv, prune_recv, a_recv, fd_cnt, iv_cnt, broken,
             padv, hs_b if k.paired else None)
+
+
+def _tel_start(k: ReceiveConsts, device):
+    """The exchange's telemetry accumulators (None without telemetry)."""
+    if not k.telemetry:
+        return None
+    return [torch.zeros((), dtype=torch.int64, device=device)
+            for _ in TEL_ROWS]
+
+
+def _tel_rows(k: ReceiveConsts, tel, heard, sub_all, acq, lat_masks,
+              dlv_eff) -> tuple:
+    """The tally output, ``(int32 [8 + L],)`` (empty without telemetry):
+    the exchange's rows, the new acquisitions (subscribed heard words;
+    injected publishes are no received copy) and the L latency-bucket
+    rows of the delivered acquisitions."""
+    if tel is None:
+        return ()
+    subbed = sub_all != 0
+    for w in range(len(heard)):
+        tel[TEL_NEW_IDS] += graph.popcount32(
+            torch.where(subbed, heard[w], 0)).sum(dtype=torch.int64)
+    rows = list(tel)
+    for b in range(k.tel_lat_buckets):
+        rows.append(sum(graph.popcount32(
+            acq[w] & dlv_eff[w] & lat_masks[b, w]).sum(dtype=torch.int64)
+            for w in range(len(heard))))
+    return (torch.stack(rows).to(torch.int32),)
 
 
 def _acquired(heard, sub_all, injected) -> torch.Tensor:
@@ -536,9 +617,11 @@ def _slot_b(k: ReceiveConsts, hs_b, *, wa_b, grafts_b, dropped_b,
 def _receive_plain_unscored(k: ReceiveConsts, *, gseeds, ctrl, fresh, adv,
                             sub_all, cand_sub, fanout, wa, grafts, dropped,
                             meshsel, seen, injected, backoff, ctrl2=None,
-                            fresh_b=None, alive_w=None, **paired_ops):
+                            fresh_b=None, alive_w=None, lat_masks=None,
+                            dlv_eff=None, **paired_ops):
+    tel = _tel_start(k, seen.device)
     ex = _exchange(k, ctrl, fresh, adv, seen, ctrl2=ctrl2, fresh_b=fresh_b,
-                   alive_w=alive_w)
+                   alive_w=alive_w, tel=tel)
     heard, graft_recv, prune_recv, a_recv = ex[:4]
     mesh, retract = _handshake(meshsel, wa, grafts, graft_recv, prune_recv,
                                a_recv)
@@ -554,8 +637,9 @@ def _receive_plain_unscored(k: ReceiveConsts, *, gseeds, ctrl, fresh, adv,
         mesh_b, bo_b, gate_b = (mb,), (bb,), (gb,)
     tgt = targets_row(k, elig, gseeds[1], mesh.shape[0])
     px = (px_val,) if k.with_px else ()
-    return (_acquired(heard, sub_all, injected), mesh, *mesh_b, bo_new,
-            *bo_b, tgt, bo_gate, *gate_b, *px)
+    acq = _acquired(heard, sub_all, injected)
+    return (acq, mesh, *mesh_b, bo_new, *bo_b, tgt, bo_gate, *gate_b, *px,
+            *_tel_rows(k, tel, heard, sub_all, acq, lat_masks, dlv_eff))
 
 
 def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
@@ -564,12 +648,14 @@ def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
                           backoff, static, fd, inv, bp, tim, iws, syb=None,
                           inj_send=None, same_ip=None, ctrl2=None,
                           fresh_b=None, bo2_b=None, tim_b=None,
-                          alive_w=None, flood_ok=None, **paired_ops):
+                          alive_w=None, flood_ok=None, lat_masks=None,
+                          dlv_eff=None, **paired_ops):
     C = k.n_candidates
     n = pay.shape[0]
+    tel = _tel_start(k, seen.device)
     (heard, graft_recv, prune_recv, a_recv, fd_cnt, iv_cnt, broken,
      padv, hs_b) = _exchange(k, ctrl, fresh, adv, seen, pay, gsp, valid,
-                             inj_send, ctrl2, fresh_b, alive_w)
+                             inj_send, ctrl2, fresh_b, alive_w, tel)
     graft_recv = graft_recv & acc
     prune_recv = prune_recv & acc
     viol = graft_recv & bo2
@@ -648,6 +734,7 @@ def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
     gates = (accept_g, gossip_g, pub_g, nonneg_g, accept_g & gater, tgt,
              bo_gate)
     px = (px_val,) if k.with_px else ()
+    px += _tel_rows(k, tel, heard, sub_all, acq, lat_masks, dlv_eff)
     if not k.paired:
         return (acq, mesh, bo_new, *gates, fd_new, inv_new, bp_new,
                 tim_new, iws_new, *px)
@@ -693,7 +780,11 @@ class _Args(ctypes.Structure):
         + [("odd_mask", ctypes.c_uint), ("paired", ctypes.c_int)]
         # the fault options' fields, after those
         + [(name, ctypes.c_void_p) for name in ("alive_w", "flood_ok")]
-        + [("faults", ctypes.c_int)])
+        + [("faults", ctypes.c_int)]
+        # the telemetry fields, after those
+        + [(name, ctypes.c_void_p) for name in ("lat_masks", "dlv_eff",
+                                                 "tel")]
+        + [("tel_lat_buckets", ctypes.c_int)])
 
 
 _WORDS_N = ("sub_all", "cand_sub", "fanout", "wa", "grafts", "dropped",
@@ -725,12 +816,16 @@ def _check_operands(k: ReceiveConsts, ops: dict) -> None:
         want_names.add("alive_w")
         if k.iwant_spam:
             want_names.add("flood_ok")
+    if k.tel_lat_buckets:
+        want_names |= {"lat_masks", "dlv_eff"}
     if names != want_names:
         variant = ("paired" if k.paired else "full" if k.full else
                    "attack" if k.attacks else
                    "scored" if k.scored else "unscored")
         if k.faults:
             variant += " faulted"
+        if k.telemetry:
+            variant += " telemetry"
         raise ValueError(
             f"{variant} receive operands: "
             f"missing {sorted(want_names - names)}, unexpected "
@@ -750,6 +845,9 @@ def _check_operands(k: ReceiveConsts, ops: dict) -> None:
     for name in ("alive_w", "flood_ok"):
         if name in want_names:
             want[name] = ((n,), torch.int32)
+    if k.tel_lat_buckets:
+        want["lat_masks"] = ((k.tel_lat_buckets, W), torch.int32)
+        want["dlv_eff"] = ((W, n), torch.int32)
     if k.paired:
         want.update({"ctrl2": ((C, n), torch.uint8),
                      "fresh_b": ((W, n), torch.int32),
@@ -863,10 +961,21 @@ def receive_update(k: ReceiveConsts, **ops):
         a.alive_w = ops["alive_w"].data_ptr()
         if "flood_ok" in ops:
             a.flood_ok = ops["flood_ok"].data_ptr()
+    tel = ()
+    if k.telemetry:
+        # the tally is summed by atomics: zeroed here, on the stream
+        tel = (torch.zeros((len(TEL_ROWS) + k.tel_lat_buckets,),
+                           dtype=torch.int32, device=dev),)
+        a.tel = tel[0].data_ptr()
+        a.tel_lat_buckets = k.tel_lat_buckets
+        if k.tel_lat_buckets:
+            a.lat_masks = ops["lat_masks"].data_ptr()
+            a.dlv_eff = ops["dlv_eff"].data_ptr()
     for name, t in outs + paired_outs:
         setattr(a, name, t.data_ptr())
-    lib = _build.load("receive")
-    fn = lib.gossip_receive_update
+    lib = _build.load("receive_tel" if k.telemetry else "receive")
+    fn = (lib.gossip_receive_update_tel if k.telemetry
+          else lib.gossip_receive_update)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -878,7 +987,7 @@ def receive_update(k: ReceiveConsts, **ops):
                  int(k.bp_dtype == torch.bfloat16), stream)
     _build.check(err, "receive_update")
     launches[variant(k)] += 1
-    rest = [t for _, t in outs[4:]]
+    rest = [t for _, t in outs[4:]] + list(tel)
     if not k.paired:
         return (acq, mesh, bo_out, *gates.unbind(0), *rest)
     # the reference's order: each slot-B output after its slot-A twin
@@ -899,7 +1008,9 @@ def variant(k: ReceiveConsts) -> str:
         name = "attacks"
     else:
         name = "scored" if k.scored else "unscored"
-    return name + "_faults" if k.faults else name
+    if k.faults:
+        name += "_faults"
+    return name + "+tel" if k.telemetry else name
 
 
 def operand_bytes(ops: dict, outs) -> int:

@@ -8,10 +8,16 @@ gater, direct peers — alone and all together, scored and unscored), the
 paired step (alone and with everything on, scored and unscored) and the
 unscored fused window on the card against the CPU; each receive variant
 and the fused window under a fault schedule (churn, link loss, a
-partition; the window also with cold restart); and three whole runs at
-100,000 peers (everything-on single-topic and paired for 400 ticks, the
-churn benchmark for its 250), the card against the CPU by a digest of
-every state leaf every 25th tick.  Exact: every output bit for bit.
+partition; the window also with cold restart); each receive family and
+the fused window with telemetry (clean and faulted: each tick's frame and
+state, the card against the CPU; the fused kernel's per-tick mesh and
+tally rows against its plain version); and four whole runs at 100,000
+peers (everything-on single-topic and paired for 400 ticks, the churn
+benchmark for its 250, the telemetry benchmark's flagship for 100 with
+its frames), the card against the CPU by a digest of every state leaf
+(and frame field) every 25th tick.  Exact: every output bit for bit, but
+a frame's ``score_mean``: the mean of non-integer f32 scores, which the
+card and the CPU sum in different orders (relative 1e-5).
 
 They skip without a card; on the card run
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest``
@@ -26,9 +32,15 @@ import numpy as np
 import pytest
 import torch
 
-from go_libp2p_pubsub_tpu_torch import churn, convert, everything
+from go_libp2p_pubsub_tpu_torch import (
+    churn,
+    convert,
+    everything,
+    telemetry_flagship,
+)
 from go_libp2p_pubsub_tpu_torch.models import faults as pfl
 from go_libp2p_pubsub_tpu_torch.models import gossipsub as pgs
+from go_libp2p_pubsub_tpu_torch.models import telemetry as ptl
 from go_libp2p_pubsub_tpu_torch.ops import graph as pg
 from go_libp2p_pubsub_tpu_torch.ops.kernels import fused as pfused
 from go_libp2p_pubsub_tpu_torch.ops.kernels import receive as prc
@@ -724,19 +736,42 @@ def test_faulted_fused_kernel_matches_plain(cuda, cold, c, w_words):
         assert bool(ops["rejoin"].any())
 
 
-def _whole_run(build, ticks, cuda):
+def _frame_digest(frame) -> str:
+    """sha256 of every frame field but ``score_mean`` (bit patterns)."""
+    h = hashlib.sha256()
+    for name, v in sorted(convert.frame_to_numpy(frame).items()):
+        if v is not None and name != "score_mean":
+            h.update(name.encode() + np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+def _assert_score_mean_close(f_c, f_g, where):
+    # the mean of non-integer f32 scores: the card and the CPU sum them
+    # in different orders
+    np.testing.assert_allclose(f_g.score_mean.cpu().numpy(),
+                               f_c.score_mean.numpy(), rtol=1e-5,
+                               atol=1e-6, err_msg=where)
+
+
+def _whole_run(build, ticks, cuda, telemetry=None):
     """Step the sim ``build(device)`` makes on the card and on the CPU
-    for ``ticks`` heartbeats; the digests of both every 25th tick."""
+    for ``ticks`` heartbeats; the digests of both every 25th tick (with
+    ``telemetry``, of the frames too)."""
     cfg, sc, p_c, s_c = build("cpu")[:4]
     _, _, p_g, s_g = build(cuda)[:4]
-    step_c = pgs.make_gossip_step(cfg, sc, device="cpu")
-    step_g = pgs.make_gossip_step(cfg, sc, device=cuda)
+    step_c = pgs.make_gossip_step(cfg, sc, device="cpu", telemetry=telemetry)
+    step_g = pgs.make_gossip_step(cfg, sc, device=cuda, telemetry=telemetry)
     out = []
     for tick in range(1, ticks + 1):
-        s_c = step_c(p_c, s_c)[0]
-        s_g = step_g(p_g, s_g)[0]
+        s_c, _, *f_c = step_c(p_c, s_c)
+        s_g, _, *f_g = step_g(p_g, s_g)
         if tick % 25 == 0:
-            out.append((tick, _state_digest(s_c), _state_digest(s_g)))
+            d_c, d_g = _state_digest(s_c), _state_digest(s_g)
+            if telemetry is not None:
+                d_c += _frame_digest(f_c[0])
+                d_g += _frame_digest(f_g[0])
+                _assert_score_mean_close(f_c[0], f_g[0], f"tick {tick}")
+            out.append((tick, d_c, d_g))
     return out
 
 
@@ -746,6 +781,10 @@ WHOLE_RUNS = {
         lambda d: everything.build(d, n_peers=100_000, paired=True), 400),
     "churn": (lambda d: churn.build(d, n_peers=100_000),
               churn.WARMUP + churn.TIMED),
+    # the telemetry benchmark's flagship with TelemetryConfig() at its
+    # defaults, frames in the digest
+    "telemetry": (lambda d: telemetry_flagship.build(d, n_peers=100_000),
+                  100),
 }
 
 
@@ -754,9 +793,111 @@ def test_whole_run_on_the_card_matches_the_cpu(cuda, path):
     """The card's trajectory against the plain versions' on the CPU at
     100,000 peers (the CPU run equals the reference's XLA step, which
     tests/test_torch_*.py hold at small sizes): equal state digests at
-    every 25th tick."""
+    every 25th tick (the telemetry run: and frame digests)."""
     build, ticks = WHOLE_RUNS[path]
-    digests = _whole_run(build, ticks, cuda)
+    digests = _whole_run(build, ticks, cuda, telemetry=(
+        ptl.TelemetryConfig() if path == "telemetry" else None))
     assert len(digests) == ticks // 25
     for tick, d_c, d_g in digests:
         assert d_c == d_g, f"{path} tick {tick}"
+
+
+#: the telemetry tests' groups: every group, all three histograms
+TEL_ALL = ptl.TelemetryConfig(latency_hist=True, degree_hist=True,
+                              score_hist=True, latency_buckets=16)
+
+
+@pytest.mark.parametrize("family", sorted(FAULTED))
+@pytest.mark.parametrize("faulted", [False, True])
+@pytest.mark.parametrize("c,w_words", [(8, 2), (16, 1)])
+def test_telemetry_step_on_the_card_matches_the_cpu(cuda, family, faulted,
+                                                    c, w_words):
+    """Each receive family's telemetry variant (clean and under
+    ``_sched``) on the card against the CPU: every state leaf and every
+    frame field for 20 ticks, the variant launched once a tick."""
+    build, variant = FAULTED[family]
+    variant = (variant if faulted else variant[:-len("_faults")]) + "+tel"
+    sim_c = build(c, w_words, "cpu")
+    if family == "unscored":
+        cfg, sc, p_c, s_c = sim_c
+        p_g = pgs.GossipParams(**{
+            f: (v.to(cuda) if isinstance(v, torch.Tensor) else v)
+            for f, v in vars(p_c).items()})
+        s_g = convert.state_from_numpy(convert.state_to_numpy(s_c), None,
+                                       cuda)
+        sim_g = (cfg, sc, p_g, s_g)
+    else:
+        sim_g = build(c, w_words, cuda)
+    if faulted:
+        sim_c, sim_g = _faulted(sim_c, "cpu"), _faulted(sim_g, cuda)
+    cfg, sc, p_c, s_c = sim_c
+    _, _, p_g, s_g = sim_g
+    step_c = pgs.make_gossip_step(cfg, sc, device="cpu", telemetry=TEL_ALL)
+    step_g = pgs.make_gossip_step(cfg, sc, device=cuda, telemetry=TEL_ALL)
+    before = prc.launches[variant]
+    payload = 0
+    for tick in range(20):
+        s_c, _, f_c = step_c(p_c, s_c)
+        s_g, _, f_g = step_g(p_g, s_g)
+        assert _state_digest(s_c) == _state_digest(s_g), tick
+        assert _frame_digest(f_c) == _frame_digest(f_g), tick
+        _assert_score_mean_close(f_c, f_g, f"tick {tick}")
+        payload += int(f_g.payload_sent)
+    assert prc.launches[variant] - before == 20
+    assert payload > 0
+
+
+@pytest.mark.parametrize("cold", [None, False, True])
+@pytest.mark.parametrize("c", [8, 16])
+@pytest.mark.parametrize("w_words", [1, 2])
+def test_telemetry_fused_kernel_matches_plain(cuda, cold, c, w_words):
+    """The fused kernel with telemetry (clean, faulted, cold restart)
+    against its plain version: the carry, each tick's acquisitions, mesh
+    row and tally; then 16 heartbeats on windows against the per-tick
+    telemetry step, frames field by field."""
+    cfg, params, state = _unscored_sim(c, w_words)
+    if cold is not None:
+        params = dataclasses.replace(params, faults=pfl.compile_faults(
+            _sched(4096, cold), cfg.offsets, device="cpu"))
+    step = pgs.make_gossip_step(cfg, None, device="cpu")
+    state = pgs.gossip_run(params, state, 5, step, device="cpu")
+    T, L = 8, 16
+    tk = torch.arange(state.tick, state.tick + T, dtype=torch.int32)
+    all_c = (1 << c) - 1
+    ops = dict(
+        tick0=state.tick, seeds=pfused.window_seeds(state.tick, T,
+                                                    state.salt),
+        due=pg.pack_bits(params.publish_tick[None, :] == tk[:, None]),
+        sub_all=torch.where(params.subscribed, all_c, 0).to(torch.int32),
+        cand_sub=params.cand_sub_bits, origin=params.origin_words,
+        have=state.have, recent=state.recent, mesh=state.mesh,
+        fanout=state.fanout, last_pub=state.last_pub,
+        backoff=state.backoff, tgt=state.gates[0], bog=state.gates[1],
+        lat_masks=ptl.latency_bucket_masks(params.publish_tick, tk[:, None],
+                                           L, w_words),
+        dlv=params.deliver_words,
+        **pgs.window_fault_rows(cfg, params.faults, state.tick, T))
+    k = pfused.fused_consts(cfg, telemetry=True, tel_lat_buckets=L)
+    want = pfused.fused_gossip_update_plain(k, **ops)
+    before = pfused.launches_tel
+    got = pfused.fused_gossip_update(k, **_to(ops, cuda))
+    torch.cuda.synchronize()
+    assert pfused.launches_tel == before + 1
+    assert len(got) == len(want) == 11
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g.cpu(), w), f"output {i}"
+    win = pgs.make_fused_window(cfg, None, ticks_fused=T, device=cuda,
+                                telemetry=TEL_ALL)
+    step_g = pgs.make_gossip_step(cfg, None, device=cuda, telemetry=TEL_ALL)
+    p_g = dataclasses.replace(params, **{
+        f: v.to(cuda) for f, v in vars(params).items()
+        if isinstance(v, torch.Tensor)})
+    if params.faults is not None:
+        p_g.faults = pfl.compile_faults(_sched(4096, cold), cfg.offsets,
+                                        device=cuda)
+    s_g = convert.state_from_numpy(convert.state_to_numpy(state), None, cuda)
+    end_f, fr_f = pgs.gossip_run_frames_fused(p_g, s_g, 16, win, device=cuda)
+    end_t, fr_t = ptl.telemetry_run(p_g, s_g, 16, step_g)
+    assert _state_digest(end_f) == _state_digest(end_t)
+    assert _frame_digest(fr_f) == _frame_digest(fr_t)
+    assert int(fr_f.payload_sent.sum()) > 0

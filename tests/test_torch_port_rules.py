@@ -15,6 +15,7 @@ from go_libp2p_pubsub_tpu_torch import device as pdev
 from go_libp2p_pubsub_tpu_torch.models import faults as pfl
 from go_libp2p_pubsub_tpu_torch.models import gossipsub as pgs
 from go_libp2p_pubsub_tpu_torch.models import plan
+from go_libp2p_pubsub_tpu_torch.models import telemetry as ptl
 from go_libp2p_pubsub_tpu_torch.ops.kernels import fused as kfused
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -146,19 +147,11 @@ def _sched(**kw):
         partition_windows=[(8, 12)], seed=3, **kw)
 
 
-def _faulted_step(**kw):
-    """A faulted sim, then a step with ``kw``."""
-    _sim(fault_schedule=_sched())
-    return _step(**kw)
-
-
 REFUSED = {
     # paired overlays step per tick
     "fused_paired": [lambda: _window(cfg=_cfg(paired_topics=True))],
-    # faults with telemetry, knobs or delays keep those options' names
-    "telemetry": [lambda: _step(telemetry=object()),
-                  lambda: _window(telemetry=object()),
-                  lambda: _faulted_step(telemetry=object())],
+    # faults or telemetry with knobs or delays keep those options' names:
+    # they are refused when the sim is built, before any step exists
     "knobs": [lambda: _sim(score_knobs={}), lambda: _sim(sim_knobs={}),
               lambda: _sim(fault_schedule=_sched(),
                            sim_knobs={"drop_prob": 0.1})],
@@ -219,6 +212,23 @@ def test_fault_schedules_run_on_the_step_and_the_window():
     assert state.tick == 16 and params.faults.cold_restart
     with pytest.raises(ValueError, match="fault_schedule.n_peers=255"):
         _sim(fault_schedule=pfl.FaultSchedule(n_peers=N - 1, horizon=40))
+
+
+def test_telemetry_runs_on_the_step_and_the_window():
+    """Telemetry is no longer refused: the step (scored, under faults)
+    returns a frame a tick, the fused window T stacked frames (with cold
+    restart); the ``telemetry`` refusal is gone."""
+    assert "telemetry" not in plan.REFUSALS
+    tcfg = ptl.TelemetryConfig(latency_hist=True)
+    params, state = _sim(fault_schedule=_sched())
+    state, _, frame = _step(telemetry=tcfg)(params, state)
+    assert state.tick == 1 and frame.latency_hist.shape == (16,)
+    assert int(frame.down_peers) > 0 or int(frame.dropped_edge_ticks) > 0
+    params, state = _sim(sc=None, fault_schedule=_sched(cold_restart=True))
+    win = _window(telemetry=tcfg)
+    state, frames = pgs.gossip_run_frames_fused(params, state, 16, win,
+                                                device="cpu")
+    assert state.tick == 16 and frames.payload_sent.shape == (16,)
 
 
 def test_more_refusals():

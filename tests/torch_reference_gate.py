@@ -10,6 +10,8 @@ checked on the JAX reference.
         --everything-paired [--n 100000] [--ticks 400]
     JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --churn \
         [--n 100000]
+    JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --telemetry \
+        [--n 100000] [--port]
 
 Runs the JAX package's unscored per-tick step (XLA) on the resident
 configuration (go_libp2p_pubsub_tpu_torch/resident.py: 10 topics, C = 16,
@@ -55,6 +57,17 @@ and 150 curve ticks, at its CPU size, and prints its rows unrounded: the
 delivery fraction of the settled messages against its gate (above
 0.80), each recovery probe's ticks from heal to 99% of its topic and
 their median (gate: at least one probe recovered).
+
+With ``--telemetry`` it runs the JAX package's telemetry-kernel benchmark
+(bench_suite.py ``bench_gossipsub_telemetry_kernel``: the flagship with
+telemetry off, then on with ``TelemetryConfig()``, 100 warm-up and 3 x 100
+timed heartbeats, each timed window's frames summarized;
+go_libp2p_pubsub_tpu_torch/telemetry_flagship.py) on its unpadded XLA step
+at ``--n`` peers, and prints the control-overhead ratio and the totals
+unrounded, the flagship's gates on both runs and whether the two runs'
+states are equal.  With ``--port`` the port's plain CPU run of the same
+benchmark (``telemetry_flagship.run("cpu", n_peers=n)``, many minutes at
+100,000 peers) must give the same ratio and totals; exits 1 if not.
 """
 
 import argparse
@@ -70,6 +83,7 @@ from go_libp2p_pubsub_tpu_torch import (  # noqa: E402
     adversarial,
     everything,
     resident,
+    telemetry_flagship,
 )
 from torch_ref import imported_reference  # noqa: E402
 
@@ -232,6 +246,66 @@ def churn_gates(n: int) -> int:
     return 0 if ok else 1
 
 
+def telemetry_rows(n: int, port: bool) -> int:
+    """The telemetry benchmark's rows on the reference (and, with
+    ``port``, the port's CPU run against them)."""
+    warmup, ticks, reps = (telemetry_flagship.WARMUP,
+                           telemetry_flagship.TICKS, telemetry_flagship.REPS)
+    horizon = warmup + ticks * reps
+    with imported_reference() as r:
+        gs, tl = r.gs, r.gs._telemetry
+        t, m, C = 100, 32, 16
+        rng = np.random.default_rng(0)
+        cfg = gs.GossipSimConfig(
+            offsets=gs.make_gossip_offsets(t, C, n, seed=0), n_topics=t)
+        sc = gs.ScoreSimConfig()
+        topic = rng.integers(0, t, m)
+        origin = rng.integers(0, n // t, m) * t + topic
+        tick = np.sort(rng.integers(0, horizon, m)).astype(np.int32)
+        ends, summaries = {}, []
+        for mode in ("off", "on"):
+            params, state = gs.make_gossip_sim(
+                cfg, resident.subs_matrix(n, t), topic, origin, tick,
+                score_cfg=sc, track_first_tick=False)
+            step = gs.make_gossip_step(cfg, sc, telemetry=(
+                tl.TelemetryConfig() if mode == "on" else None))
+            if mode == "off":
+                state = gs.gossip_run(params, state, horizon, step)
+            else:
+                state, _ = tl.telemetry_run(params, state, warmup, step)
+                for _ in range(reps):
+                    state, fr = tl.telemetry_run(params, state, ticks, step)
+                    summaries.append(tl.summarize_frames(fr))
+            deg = float(np.asarray(gs.mesh_degrees(state))[
+                np.asarray(params.subscribed)].mean())
+            reach = np.asarray(gs.reach_counts_from_have(params, state))
+            settled = tick < horizon - 30
+            ends[mode] = (np.asarray(state.mesh), np.asarray(state.have),
+                          deg, bool((reach[settled] == n // t).all()))
+    totals = {k: sum(s_[k] for s_ in summaries)
+              for k in telemetry_flagship.TOTALS}
+    ratio = totals["bytes_control"] / totals["bytes_payload"]
+    same = all(np.array_equal(a, b) for a, b in zip(ends["off"][:2],
+                                                    ends["on"][:2]))
+    ok = same and all(e[2] >= cfg.d_lo and e[3] for e in ends.values())
+    print(f"N={n}, {warmup} + {reps} x {ticks} ticks: control overhead "
+          f"ratio {ratio!r}; totals {totals}; mean mesh degree off "
+          f"{ends['off'][2]:.4f}, on {ends['on'][2]:.4f} (Dlo {cfg.d_lo}); "
+          f"settled messages at every member: off {ends['off'][3]}, on "
+          f"{ends['on'][3]}; off and on end states equal: {same}")
+    if port:
+        out = telemetry_flagship.run("cpu", n_peers=n, warmup=warmup,
+                                     ticks=ticks, reps=reps)
+        match = (out["totals"] == totals
+                 and out["control_overhead_ratio"] == ratio)
+        print(f"port (CPU): control overhead ratio "
+              f"{out['control_overhead_ratio']!r}; totals {out['totals']}; "
+              f"checks {out['checks']}; equal to the reference: {match}")
+        ok = ok and match and out["ok"]
+    print("gates", "pass" if ok else "FAIL")
+    return 0 if ok else 1
+
+
 def paired_report(cfg, params, state, honest, gs) -> None:
     """The slot-B mesh degree of the honest subscribed peers, and the
     cross-slot symmetry: the share of mesh edges, both slots', that the
@@ -267,10 +341,14 @@ def main() -> int:
     ap.add_argument("--everything", action="store_true")
     ap.add_argument("--everything-paired", action="store_true")
     ap.add_argument("--churn", action="store_true")
+    ap.add_argument("--telemetry", action="store_true")
+    ap.add_argument("--port", action="store_true")
     ap.add_argument("--ticks", type=int, default=400)
     args = ap.parse_args()
     if args.churn:
         return churn_gates(args.n or 100_000)
+    if args.telemetry:
+        return telemetry_rows(args.n or 100_000, args.port)
     if args.adversarial or args.everything or args.everything_paired:
         return adversarial_gates(
             args.n or 100_000, args.ticks,
