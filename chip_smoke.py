@@ -5,9 +5,10 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. the device: torch's name and count, nvidia-smi's name and power limit;
-2. build the four CUDA sources from ``go_libp2p_pubsub_tpu_torch/csrc``
+2. build the six CUDA sources from ``go_libp2p_pubsub_tpu_torch/csrc``
    (one nvcc per source, concurrently: select, receive, its telemetry
-   twin receive_tel, fused), printing ptxas' register and spill lines;
+   twin receive_tel, their knob twins receive_knobs and
+   receive_tel_knobs, fused), printing ptxas' register and spill lines;
 3. the select kernel against its plain version at 1,000,000 peers,
    C = 16, seeded: bit-identical; both timed with CUDA events;
 4. the receive kernel against its plain version at the flagship shapes
@@ -162,6 +163,33 @@ Phases (any failure exits non-zero; nothing is caught):
    gossip_run_frames_fused (the telemetry fused kernel once per window,
    nothing else) against the same ticks through the per-tick telemetry
    step: frames equal field by field, equal digests;
+5n. the receive kernel's knob variants (the knob vector, ``+knobs``)
+   against their plain versions, each family with and without faults:
+   the flagship's scored options (also with telemetry, L = 16), the
+   attack options (the IHAVE spam; the IWANT flood too on the random
+   operands), the full variant (also with telemetry) and paired (scored)
+   at N = 1,000,000, C = 16, W = 1, unscored and unscored paired at the
+   resident shapes; on seeded random operands with a non-default knob
+   vector and on the operands of a real tick of the family's sim armed at
+   a knob point (the seven kernel knobs off their defaults; the IWANT-flood
+   sims, full and paired, at the hardened defense through score_knobs)
+   and stepped by its step (clean: tick 40, telemetry two ticks after a
+   publish, resident tick 12; faulted, under the churn benchmark's kind of
+   schedule: tick 130, resident tick 30), the knob variant launched once
+   per tick of the run to it and no other: every output bit-identical;
+   the variant, its plain version and its twin without knobs timed on the
+   real tick;
+5o. the slice's main path: the knob sweep (go_libp2p_pubsub_tpu_torch/
+   knob_sweep.py) at 1,000,000 peers: the flagship at baked, ref, d8,
+   gf50_bo30, d5 and gf40, the IHAVE-spam configuration at baked and the
+   tournament's defenses plus hard, the churn benchmark at baked and the
+   fault knob at 0.02 and 0.05 (with a P7 weight of -40); each point armed
+   on one built sim and run by one step (100 warm-up + 100 timed
+   heartbeats; churn 100 + 150), counts reset just before each point and
+   read just after: each knob point's knob variant once per tick and no
+   other, baked its twin; every point's gates; ref's, the reference
+   defense's and the churn point at 0.02's digests of every state leaf
+   equal to baked's; each point's heartbeats/s beside baked's;
 6. the unscored receive kernel against its plain version at the resident
    configuration's shapes (N = 1,048,576, C = 16, W = 1), on seeded random
    operands and on the operands of a real unscored tick: every output
@@ -523,6 +551,7 @@ def main() -> None:
         convert,
         everything,
         flagship,
+        knob_sweep,
         resident,
         telemetry_flagship,
     )
@@ -549,9 +578,9 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
-    # -- 2. build the four kernel sources, concurrently
+    # -- 2. build the six kernel sources, concurrently
     t0 = time.perf_counter()
-    logs = _build.build(("select", "receive", "receive_tel", "fused"))
+    logs = _build.build(("select", *krecv.SOURCES, "fused"))
     for src, log in logs.items():
         for line in ptxas_summary(log):
             print(f"ptxas[{src}]: {line}")
@@ -1848,6 +1877,200 @@ def main() -> None:
             control_overhead_ratio=tot_m["control_overhead_ratio"])
         del params, state, end_f, end_t, fr_f, fr_t, win_m, step_t, step_m
 
+    # -- 5n. B1 with knobs against its plain version, each family with and
+    # without faults (the flagship's options and the full variant also with
+    # telemetry), on seeded random operands with a non-default knob vector
+    # and on a real tick of a knob point's sim stepped by its step
+    knob_k = {}
+    # the seven kernel knobs off their defaults (a SimKnobs point); the
+    # IWANT-flood sims (full, paired) arm a defense through score_knobs
+    knob_point = {"gossip_factor": 0.4, "d_lazy": 4, "backoff_ticks": 6,
+                  "invalid_message_deliveries_weight": -20.0,
+                  "behaviour_penalty_weight": -40.0,
+                  "graylist_threshold": -60.0, "gossip_threshold": -5.0}
+    knob_proto = {key: v for key, v in knob_point.items()
+                  if key in ("gossip_factor", "d_lazy", "backoff_ticks")}
+    defense = knob_sweep.DEFENSE_POINTS["hardened"]
+
+    def knob_vector(k_):
+        """A non-default knob vector in the KNOB_* order."""
+        v = [0.4, 4.0, 13.0] + ([-13.0, -40.0, -60.0, -5.0] if k_.scored
+                                else [])
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    def knob_check(label, sim, target, rand_fn, surface, tcfg=None,
+                   k_rand_kw=None):
+        """The knob variant of ``sim``'s receive, armed through ``surface``
+        (make_gossip_sim's knob keywords), against its plain version on
+        ``rand_fn``'s random operands with a non-default vector and on a
+        real tick of the armed sim stepped by its step (``target``; with
+        ``tcfg`` the telemetry step's, two ticks after a publish), its
+        launches counted over that run; the variant, its plain version and
+        its twin without knobs timed on the tick."""
+        cfg_, sc_, params_, state_ = sim
+        params_ = pg.knob_params(cfg_, sc_, params_, **surface)
+        state_ = pg.refresh_gates(cfg_, sc_, params_, state_)
+        lat = tcfg.latency_buckets if tcfg is not None else 0
+        tick = busy_tick(params_, target) if tcfg is not None else target
+        k_ = krecv.receive_consts(
+            cfg_, sc_, px=state_.active is not None,
+            same_ip=params_.cand_same_ip is not None,
+            faults=params_.faults is not None, telemetry=tcfg is not None,
+            tel_lat_buckets=lat, knobs=True)
+        k_r = dataclasses.replace(k_, **(k_rand_kw or {}))
+        rops = dict(rand_fn(k_r), knobs=knob_vector(k_r))
+        got = krecv.receive_update(k_r, **rops)
+        torch.cuda.synchronize()
+        err = check_identical(f"{label} (random operands)", got,
+                              krecv.receive_update_plain(k_r, **rops))
+        del rops
+        step_ = pg.make_gossip_step(cfg_, sc_, device=dev, telemetry=tcfg)
+        torch.cuda.synchronize()
+        krecv.launches.clear()
+        ops_ = capture_receive(lambda: pg.gossip_run(
+            params_, state_, tick + 1, step_, device=dev), krecv)
+        torch.cuda.synchronize()
+        launched = dict(krecv.launches)
+        if launched != {krecv.variant(k_): tick + 1}:
+            fail(f"{label}: launches {launched}")
+        want = krecv.receive_update_plain(k_, **ops_)
+        got = krecv.receive_update(k_, **ops_)
+        torch.cuda.synchronize()
+        err = max(err, check_identical(f"{label} (tick {tick})", got, want))
+        ms = device_ms(lambda: krecv.receive_update(k_, **ops_), 50)
+        plain = device_ms(lambda: krecv.receive_update_plain(k_, **ops_), 5)
+        k_twin = dataclasses.replace(k_, knobs=False)
+        ops_twin = {key: v for key, v in ops_.items() if key != "knobs"}
+        twin = device_ms(lambda: krecv.receive_update(k_twin, **ops_twin), 50)
+        n_ = ops_["sub_all"].shape[0]
+        nbytes = krecv.operand_bytes(ops_, got)
+        bnd = bound(nbytes, receive_ops(k_, ops_))
+        print(f"{label}: identical at N={n_}, C={C}, W=1 (random operands, "
+              f"tick {tick} of the armed sim); device time: kernel {ms:.4f} "
+              f"ms (without knobs {twin:.4f}), plain {plain:.3f} ms; "
+              f"{nbytes / n_:.1f} B/peer, bound {bnd[0]:.4f} ms ({bnd[1]}); "
+              f"{tick + 1} launches of {krecv.variant(k_)} to tick {tick}")
+        return dict(err=err, ms=ms, plain_ms=plain, twin_ms=twin,
+                    bytes_per_peer=nbytes / n_, bound=bnd,
+                    launches=tick + 1, variant=krecv.variant(k_))
+
+    def attack_rand(k_, n_, seed):
+        """Random operands with a fifth of the peers carrying the sybil
+        word and ledgers around the flood budget."""
+        rand = random_receive_operands(k_, n_, 1, dev, seed)
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + 2)
+        rand["syb"] = torch.where(torch.rand(n_, generator=g, device=dev)
+                                  < 0.2, (1 << C) - 1, 0).to(torch.int32)
+        rand["iws"] = torch.randint(0, 4 * 32, (C, n_), generator=g,
+                                    device=dev).to(torch.int16)
+        return rand
+
+    horizon = WARMUP + TIMED
+    t_clean, t_fault = 40, churn.heal_tick() - 20
+    # (suffix, sim, peers, random operands, knob surface, random-operand
+    # options, with telemetry too); the attack options on the IHAVE spam
+    # (a SimKnobs point cannot ride the IWANT flood; the random operands
+    # turn the flood on); full and paired through score_knobs
+    families = (
+        ("", lambda: flagship.build(dev, horizon=horizon)[:4], n,
+         lambda k_, s: random_receive_operands(k_, n, 1, dev, s),
+         dict(sim_knobs=knob_point), None, True),
+        ("_attacks", lambda: adversarial.build(
+            dev, horizon=horizon, iwant_spam=False)[:4], n,
+         lambda k_, s: attack_rand(k_, n, s), dict(sim_knobs=knob_point),
+         dict(iwant_spam=True), False),
+        ("_full", lambda: everything.build(dev, horizon=horizon)[:4], n,
+         lambda k_, s: full_receive_operands(k_, n, dev, s),
+         dict(score_knobs=defense), dict(exact_k=True), True),
+        ("_paired", lambda: everything.build(dev, horizon=horizon,
+                                             paired=True)[:4], n,
+         lambda k_, s: paired_receive_operands(
+             k_, full_receive_operands(k_, n, dev, s), n, dev, s + 1),
+         dict(score_knobs=defense), dict(flood_publish=True, exact_k=True),
+         False))
+    for suffix, make, n_f, rand_fn, surface, k_rand_kw, with_tel in families:
+        sim = make()
+        for fault_on in (False, True):
+            sim_f = (schedule_on(sim, 1, churn.WARMUP, churn.WARMUP
+                                 + churn.TIMED) if fault_on else sim)
+            for tcfg in ((None, tcfg_k) if with_tel else (None,)):
+                seed = 211 + 7 * len(knob_k)
+
+                def rand(k_, seed=seed, fault_on=fault_on, tcfg=tcfg):
+                    r_ = rand_fn(k_, seed)
+                    if fault_on:
+                        r_ = fault_operands(k_, r_, dev, seed + 3)
+                    return tel_operands(r_, seed + 4) if tcfg else r_
+                name_k = ("receive_update" + suffix
+                          + ("_faults" if fault_on else "")
+                          + ("_tel" if tcfg else "") + "_knobs")
+                knob_k[name_k] = knob_check(
+                    name_k.replace("_", " "), sim_f,
+                    t_fault if fault_on else t_clean, rand, surface, tcfg,
+                    k_rand_kw)
+            del sim_f
+        del sim
+    # unscored and unscored paired at the resident shapes
+    n_r = resident.N_PEERS
+    for suffix, paired_ in (("_unscored", False), ("_paired_unscored", True)):
+        cfg_u, params, state, *_ = resident.build(dev, horizon=RES_WARMUP,
+                                                  paired=paired_)
+        sim = (cfg_u, None, params, state)
+        for fault_on in (False, True):
+            sim_f = schedule_on(sim, 5, 0, RES_WARMUP) if fault_on else sim
+            seed = 311 + 7 * len(knob_k)
+
+            def rand(k_, seed=seed, fault_on=fault_on, paired_=paired_):
+                r_ = random_receive_operands(k_, n_r, 1, dev, seed)
+                if paired_:
+                    r_ = paired_receive_operands(k_, r_, n_r, dev, seed + 1)
+                return (fault_operands(k_, r_, dev, seed + 3) if fault_on
+                        else r_)
+            name_k = ("receive_update" + suffix
+                      + ("_faults" if fault_on else "") + "_knobs")
+            knob_k[name_k] = knob_check(
+                name_k.replace("_", " "), sim_f, 30 if fault_on else 12,
+                rand, dict(sim_knobs=knob_proto))
+            del sim_f
+        del sim, params, state
+
+    # -- 5o. the slice's main path: the knob sweep (knob_sweep.py) at
+    # 1,000,000 peers, each point armed on one built sim and stepped by one
+    # step, counts reset just before each point's run and read just after
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep = knob_sweep.run(dev)
+    t_sweep = time.perf_counter() - t0
+    for kind in knob_sweep.SWEEPS:
+        s_ = sweep[kind]
+        base = s_["rows"]["baked"]["heartbeats_per_s"]
+        for pname, row in s_["rows"].items():
+            gate = {key: row[key] for key in (
+                "mean_mesh_degree", "d_lo", "honest_mean_degree",
+                "delivery_ok", "delivery_fraction", "probe_recovery_ticks")
+                if key in row}
+            print(f"knob sweep {kind} {pname}: {row['heartbeats_per_s']:.2f} "
+                  f"heartbeats/s (baked {base:.2f}), digest {row['digest']}, "
+                  f"{row['variant']} launches {row['launches']}, gates "
+                  f"{'pass' if row['gates_ok'] else 'FAIL'} {gate}")
+        print(f"knob sweep {kind}: identity "
+              f"{s_.get('identity_ok')} ({knob_sweep.IDENTITY[kind]} == "
+              f"baked); digests differing from baked: "
+              f"{s_['differ_from_baked']} [{name}, {smi}]")
+        if not s_["ok"]:
+            fail(f"knob sweep {kind}: {json.dumps(s_)}")
+    print(f"knob sweep: {t_sweep:.1f} s")
+    main_knobs = {kind: sweep[kind] for kind in knob_sweep.SWEEPS}
+    # the main path's launches of its three knob variants
+    main_knob_launches = {}
+    for kind in knob_sweep.SWEEPS:
+        for row in sweep[kind]["rows"].values():
+            v_ = row["variant"]
+            main_knob_launches[v_] = (main_knob_launches.get(v_, 0)
+                                      + row["launches"].get(v_, 0))
+    del sweep
+
     # -- 6. the unscored receive kernel vs plain at the resident shapes
     n_r = resident.N_PEERS
     cfg_r, params, state, msg_topic, _ = resident.build(dev)
@@ -2014,6 +2237,11 @@ def main() -> None:
           f"fused "
           f"{paths['fused']['heartbeats_per_s']:.2f}, per-tick "
           f"{paths['per_tick']['heartbeats_per_s']:.2f}")
+    print(f"knob sweep heartbeats/s [{name}, {smi}]: " + "; ".join(
+        f"{kind} " + ", ".join(
+            f"{pname} {row['heartbeats_per_s']:.2f}"
+            for pname, row in main_knobs[kind]["rows"].items())
+        for kind in knob_sweep.SWEEPS))
     print(f"churn rows [{name}, {smi}]: heartbeats/s {hb_c!r}; delivery "
           f"fraction {main_churn['delivery_fraction']!r} (gate > "
           f"{churn.MIN_DELIVERY_FRACTION}); partition recovery ticks, "
@@ -2118,6 +2346,24 @@ def main() -> None:
             launches=r["launches"], max_abs_err=r["err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=None))
+    # the knob variants: for the main path's three (the flagship's
+    # options, clean and faulted, and the attack options) the sweep's
+    # launches, else those of the run to the checked tick
+    main_variant = {"receive_update_knobs": "scored+knobs",
+                    "receive_update_attacks_knobs": "attacks+knobs",
+                    "receive_update_faults_knobs": "scored_faults+knobs"}
+    for kname, r in knob_k.items():
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source=("go_libp2p_pubsub_tpu_torch/csrc/"
+                    + ("receive_tel_knobs.cu" if "_tel" in kname
+                       else "receive_knobs.cu")),
+            replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
+            launches=(main_knob_launches[main_variant[kname]]
+                      if kname in main_variant else r["launches"]),
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound"][0], bound_by=r["bound"][1],
+            library_ms=None))
     for kname, r in fused_tel.items():
         kernels.append(dict(
             name=kname, route="cuda",
@@ -2144,6 +2390,10 @@ def main() -> None:
         "telemetry_fused": {
             kname: {key: v for key, v in r.items() if key != "bound"}
             for kname, r in fused_tel.items()},
+        "knob_sweep": main_knobs,
+        "knob_receive": {
+            kname: {key: v for key, v in r.items() if key != "bound"}
+            for kname, r in knob_k.items()},
         "eager_ms": {"receive": rcv_eager_ms, "select": sel_eager_ms},
         "full_receive_ms": {"main_path": full_ms, "all_options": full_all_ms,
                             "exact_k_alone": xk_ms},

@@ -48,21 +48,26 @@ def draws(n: int, t: int, horizon: int, seed: int = 0):
 
 
 def build(device, n_peers: int = N_PEERS, n_topics: int = N_TOPICS,
-          horizon: int = 400, seed: int = 0):
+          horizon: int = 400, seed: int = 0, iwant_spam: bool = True,
+          sim_knobs: dict | None = None):
     """(cfg, score_cfg, params, state, msg_topic, msg_publish_tick,
-    sybil); messages are published at ticks drawn over [0, horizon)."""
+    sybil); messages are published at ticks drawn over [0, horizon).
+    ``iwant_spam=False`` leaves the IWANT flood off (the IHAVE spam
+    alone: a knob sweep's defense configuration); ``sim_knobs``
+    (``make_gossip_sim``'s) arms a knob point."""
     n, t = n_peers, n_topics
     sybil, topic, origin, tick = draws(n, t, horizon, seed)
     cfg = gs.GossipSimConfig(
         offsets=gs.make_gossip_offsets(t, N_CAND, n, seed=seed),
         n_topics=t)
     # both gossip-repair attacks at once (gossipsub_spam_test.go:135, :24)
-    sc = gs.ScoreSimConfig(sybil_ihave_spam=True, sybil_iwant_spam=True)
+    sc = gs.ScoreSimConfig(sybil_ihave_spam=True,
+                           sybil_iwant_spam=iwant_spam)
     params, state = gs.make_gossip_sim(cfg, subs_matrix(n, t), topic,
                                        origin, tick, seed=seed,
                                        score_cfg=sc, sybil=sybil,
                                        track_first_tick=False,
-                                       device=device)
+                                       sim_knobs=sim_knobs, device=device)
     return cfg, sc, params, state, topic, tick, sybil
 
 

@@ -69,12 +69,14 @@ def heal_tick(warmup: int = WARMUP) -> int:
 
 
 def build(device, n_peers: int = N_PEERS, n_topics: int = N_TOPICS,
-          warmup: int = WARMUP, ticks: int = TIMED, seed: int = 0):
+          warmup: int = WARMUP, ticks: int = TIMED, seed: int = 0,
+          sim_knobs: dict | None = None):
     """(cfg, score_cfg, params, state, msg_publish_tick, probes) of the
     benchmark over ``warmup + ticks`` heartbeats: messages over
     [0, horizon - 40), the last ``N_PROBES`` published at heal - 2 from
     partition side 0 (``probes``, their indices), then the schedule, in
-    the benchmark's draw order."""
+    the benchmark's draw order; ``sim_knobs`` (``make_gossip_sim``'s, the
+    fault knob ``drop_prob`` too) arms a knob point."""
     n, t = n_peers, n_topics
     horizon = warmup + ticks
     heal = heal_tick(warmup)
@@ -91,7 +93,8 @@ def build(device, n_peers: int = N_PEERS, n_topics: int = N_TOPICS,
     params, state = gs.make_gossip_sim(cfg, subs_matrix(n, t), topic,
                                        origin, tick, seed=seed, score_cfg=sc,
                                        track_first_tick=False,
-                                       fault_schedule=sched, device=device)
+                                       fault_schedule=sched,
+                                       sim_knobs=sim_knobs, device=device)
     return cfg, sc, params, state, tick, probes
 
 

@@ -19,7 +19,11 @@ This module never imports the reference; the caller flattens it.
 - ``faults`` (a nested dict, or None) becomes ``FaultParams``: its
   ``seed`` a host int, the partition windows ``part_start`` /
   ``part_end`` host tuples, the flags ``cold_restart`` and
-  ``directed_drops`` as they are.
+  ``directed_drops`` as they are (a ``drop_prob`` knob's override is the
+  leaf itself);
+- ``score_knobs`` and ``sim_knobs`` (nested dicts of 0-d leaves, or
+  None; ``sim_knobs["score"]`` a nested dict or None) become
+  ``ScoreKnobs`` and ``SimKnobs`` of 0-d tensors, leaf by leaf.
 
 The reverse functions give uint32 words back as uint32 and bf16 leaves
 as their raw uint16 patterns, so two trees compare bit for bit;
@@ -37,10 +41,13 @@ import numpy as np
 import torch
 
 from .models.faults import FaultParams
+from .models.knobs import SIM_KNOB_FIELDS, SimKnobs
 from .models.telemetry import TelemetryFrame
 from .models.gossipsub import (
+    SCORE_KNOB_FIELDS,
     GossipParams,
     GossipState,
+    ScoreKnobs,
     ScoreSimConfig,
     ScoreState,
 )
@@ -124,6 +131,19 @@ def faults_to_numpy(fp: FaultParams | None) -> dict | None:
         **part)
 
 
+def score_knobs_from_numpy(d: dict | None, device) -> ScoreKnobs | None:
+    if d is None:
+        return None
+    return ScoreKnobs(**{f: _tensor(d[f], device) for f in SCORE_KNOB_FIELDS})
+
+
+def sim_knobs_from_numpy(d: dict | None, device) -> SimKnobs | None:
+    if d is None:
+        return None
+    return SimKnobs(score=score_knobs_from_numpy(d["score"], device),
+                    **{f: _tensor(d[f], device) for f in SIM_KNOB_FIELDS})
+
+
 def params_from_numpy(d: dict, device) -> GossipParams:
     """The port's GossipParams from the reference's leaves."""
     kw = {name: (None if d[name] is None else _tensor(d[name], device))
@@ -133,7 +153,9 @@ def params_from_numpy(d: dict, device) -> GossipParams:
         **kw, static_score_weights=(None if weights is None
                                     else tuple(weights)),
         static_score_zero=bool(d["static_score_zero"]),
-        faults=faults_from_numpy(d.get("faults"), device))
+        faults=faults_from_numpy(d.get("faults"), device),
+        score_knobs=score_knobs_from_numpy(d.get("score_knobs"), device),
+        sim_knobs=sim_knobs_from_numpy(d.get("sim_knobs"), device))
 
 
 def state_from_numpy(d: dict, sc: ScoreSimConfig | None,
@@ -165,13 +187,28 @@ def state_from_numpy(d: dict, sc: ScoreSimConfig | None,
         tick=int(np.asarray(d["tick"])))
 
 
+def score_knobs_to_numpy(kn: ScoreKnobs | None) -> dict | None:
+    return (None if kn is None
+            else {f: _array(getattr(kn, f)) for f in SCORE_KNOB_FIELDS})
+
+
+def sim_knobs_to_numpy(kn: SimKnobs | None) -> dict | None:
+    if kn is None:
+        return None
+    out = {f: _array(getattr(kn, f)) for f in SIM_KNOB_FIELDS}
+    out["score"] = score_knobs_to_numpy(kn.score)
+    return out
+
+
 def params_to_numpy(p: GossipParams) -> dict:
     out = {name: (None if getattr(p, name) is None
                   else _array(getattr(p, name), name in PARAM_WORDS))
            for name in PARAM_TENSORS}
     out.update(static_score_weights=p.static_score_weights,
                static_score_zero=p.static_score_zero,
-               faults=faults_to_numpy(p.faults))
+               faults=faults_to_numpy(p.faults),
+               score_knobs=score_knobs_to_numpy(p.score_knobs),
+               sim_knobs=sim_knobs_to_numpy(p.sim_knobs))
     return out
 
 

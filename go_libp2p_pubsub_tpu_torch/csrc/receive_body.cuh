@@ -1,8 +1,9 @@
 // The GossipSub heartbeat's receive half, one thread per peer (Hopper,
 // sm_90a): the argument block and the body that every receive kernel
 // instantiates.  receive.cu holds the kernels without telemetry,
-// receive_tel.cu those with it (TEL); each is its own library, built
-// concurrently.
+// receive_tel.cu those with it (TEL), receive_knobs.cu and
+// receive_tel_knobs.cu their twins with the knob vector (KNB); each is
+// its own library, built concurrently.
 //
 // Replaces: go_libp2p_pubsub_tpu/ops/pallas/receive.py, _receive_kernel
 // (built by make_receive_update), for the options the port runs: the
@@ -36,8 +37,12 @@
 // words it hears and the GRAFT, PRUNE, A and broken-promise bits it
 // receives, and under the IWANT flood the flood_ok word gates the flood's
 // serve accrual per edge; the senders' masks ride the ctrl bytes); and
-// each of these with the telemetry tally (TEL, receive_tel.cu).  No knobs
-// or delays.  Same semantics
+// each of these with the telemetry tally (TEL, receive_tel.cu); and each
+// of those with the knob vector (KNB, receive_knobs.cu and
+// receive_tel_knobs.cu: gossip_factor, d_lazy and backoff_ticks, scored
+// also the P4 and P7 weights and the graylist and gossip thresholds, read
+// in place of the baked launch arguments where each is consumed).  No
+// delays.  Same semantics
 // and op order, so every output is bit-identical to the plain version
 // (ops/kernels/receive.py receive_update_plain):
 //
@@ -234,6 +239,10 @@ struct ReceiveArgs {
   const uint32_t* dlv_eff;   // [W, N] (TEL, L > 0) effective deliver words
   int* tel;                  // [8 + L] (TEL) the tally, zeroed by the caller
   int tel_lat_buckets;       // L
+  // the knob fields, last
+  const float* knobs;        // [3] unscored / [7] scored (KNOB_*), or
+                             // null: the baked arguments above
+  float topic_weight;        // f32(topic_weight) (scored, knobs)
 };
 
 namespace {
@@ -248,6 +257,11 @@ constexpr int TEL_PAYLOAD = 0, TEL_IHAVE_IDS = 1, TEL_IWANT_SERVED = 2,
 // the second ctrl byte (PAIRED); GRAFT, PRUNE and A sit in the same
 // order as on the first, so each byte's handshake is one 3-bit field
 constexpr int CTRL2_OUT_B = 0, CTRL2_GRAFT_B = 1;
+// the knob vector's rows (ops/kernels/receive.py KNOB_*): the protocol
+// scalars, then (scored) the defense knobs; the integer knobs ride as
+// exact f32 values
+constexpr int KNOB_GF = 0, KNOB_DLAZY = 1, KNOB_BT = 2, KNOB_INVW = 3,
+              KNOB_BPW = 4, KNOB_GRAY = 5, KNOB_GSP = 6;
 
 using gossip::lane_u;
 
@@ -284,14 +298,51 @@ __device__ __forceinline__ int floordiv(int a, int b) {
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 
+// (KNB) a knob's value from the vector, else the baked launch argument
+// it replaces; each read where its value is consumed, after the edge
+// loop, so the baked kernels' code stays as it was and the knob reads hold
+// no register through the loop
+template <bool KNB>
+__device__ __forceinline__ float knob(const ReceiveArgs& a, int i,
+                                      float baked) {
+  if constexpr (KNB) {
+    return a.knobs[i];
+  } else {
+    return baked;
+  }
+}
+
+// the backoff restart: backoff_ticks - 1 (exact through the f32 carry)
+template <bool KNB>
+__device__ __forceinline__ int restart_ticks(const ReceiveArgs& a) {
+  if constexpr (KNB) {
+    return (int)a.knobs[KNOB_BT] - 1;
+  } else {
+    return a.backoff_restart;
+  }
+}
+
+// the P4 term's weight: with knobs the f32 product of the rounded topic
+// weight and the knob, as the reference forms it for a traced weight;
+// baked, the f32 rounding of the double product (ScoreConsts.c_inv)
+template <bool KNB>
+__device__ __forceinline__ float p4_weight(const ReceiveArgs& a) {
+  if constexpr (KNB) {
+    return __fmul_rn(a.topic_weight, a.knobs[KNOB_INVW]);
+  } else {
+    return a.c_inv;
+  }
+}
+
 // One thread per peer; the kernels of receive.cu and receive_tel.cu
-// instantiate it.  (TEL) the thread's tally rows go to s_rows[r *
+// instantiate it (with KNB, those of receive_knobs.cu and
+// receive_tel_knobs.cu).  (TEL) the thread's tally rows go to s_rows[r *
 // blockDim.x + threadIdx.x] and its delivered acquisitions to s_dlv[w *
 // blockDim.x + threadIdx.x], both in shared memory, before stage 2.
 template <int C, int W, bool SCORED, bool ATK, bool CBF, bool BBF,
           bool FLOOD = false, bool EXACTK = false, bool PX = false,
           bool SAMEIP = false, bool PAIRED = false, bool FAULTS = false,
-          bool TEL = false>
+          bool TEL = false, bool KNB = false>
 __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
                                              int* s_rows = nullptr,
                                              uint32_t* s_dlv = nullptr) {
@@ -561,7 +612,9 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
   }
 
   // ---- per row: backoff; scored: time in mesh, counters, serve
-  // ledger, score
+  // ledger, score.  (KNB) the backoff restart and (scored) the P4
+  // product, the P7 weight and the two thresholds from the knob vector
+  // (knob, restart_ticks, p4_weight: read where consumed)
   const float dtz = a.decay_to_zero;
   const int H = a.history_length;
   uint32_t bo_gate = 0u, accept_g = 0u, gossip_g = 0u, pub_g = 0u,
@@ -573,7 +626,7 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
   for (int c = 0; c < C; ++c) {
     const long long idx = (long long)c * n + p;
     const int bo = a.backoff[idx];
-    const int bo_new = ((bo_trig >> c) & 1u) ? a.backoff_restart
+    const int bo_new = ((bo_trig >> c) & 1u) ? restart_ticks<KNB>(a)
                                              : (bo - 1 > 0 ? bo - 1 : 0);
     a.backoff_out[idx] = (int16_t)bo_new;
     bo_gate |= (uint32_t)(bo_new > 0) << c;
@@ -583,7 +636,7 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
     if constexpr (PAIRED) {
       const int bob = a.backoff_b[idx];
       const int bob_new = ((bo_trig_b >> c) & 1u)
-                              ? a.backoff_restart
+                              ? restart_ticks<KNB>(a)
                               : (bob - 1 > 0 ? bob - 1 : 0);
       a.backoff_b_out[idx] = (int16_t)bob_new;
       bo_gate_b |= (uint32_t)(bob_new > 0) << c;
@@ -630,7 +683,7 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
                            a.tim_cap);
     float topic = __fadd_rn(
         __fadd_rn(__fmul_rn(a.c_tim, tq), __fmul_rn(a.c_fd, fd_n)),
-        __fmul_rn(__fmul_rn(a.c_inv, inv_n), inv_n));
+        __fmul_rn(__fmul_rn(p4_weight<KNB>(a), inv_n), inv_n));
     if constexpr (PAIRED) {   // slot B's P1, before the cap
       const float tqb = fminf(__fdiv_rn((float)tim_b_new, a.tim_quantum),
                               a.tim_cap);
@@ -640,9 +693,12 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
     const float bp_ex = fmaxf(0.0f, __fsub_rn(bp_n, a.bp_thr));
     if (a.stat != nullptr) topic = __fadd_rn(topic, a.stat[idx]);
     const float score =
-        __fadd_rn(topic, __fmul_rn(__fmul_rn(a.w_bp, bp_ex), bp_ex));
-    accept_g |= (uint32_t)(score >= a.gray_thr) << c;
-    gossip_g |= (uint32_t)(score >= a.gossip_thr) << c;
+        __fadd_rn(topic, __fmul_rn(__fmul_rn(knob<KNB>(a, KNOB_BPW, a.w_bp),
+                                             bp_ex), bp_ex));
+    accept_g |= (uint32_t)(score >= knob<KNB>(a, KNOB_GRAY, a.gray_thr))
+                << c;
+    gossip_g |= (uint32_t)(score >= knob<KNB>(a, KNOB_GSP, a.gossip_thr))
+                << c;
     pub_g |= (uint32_t)(score >= a.publish_thr) << c;
     nonneg_g |= (uint32_t)(score >= 0.0f) << c;
 
@@ -705,8 +761,11 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
   if constexpr (PAIRED) elig &= ~mesh_b;
   if constexpr (SCORED) elig &= gossip_g;
   const int n_el = __popc(elig);
-  const int n_fac = (int)__fmul_rn(a.gossip_factor, (float)n_el);
-  const int n_go = a.d_lazy > n_fac ? a.d_lazy : n_fac;
+  // (KNB) gossip_factor and d_lazy from the knob vector
+  const int n_fac = (int)__fmul_rn(knob<KNB>(a, KNOB_GF, a.gossip_factor),
+                                   (float)n_el);
+  const int d_lazy = KNB ? (int)knob<KNB>(a, KNOB_DLAZY, 0.0f) : a.d_lazy;
+  const int n_go = d_lazy > n_fac ? d_lazy : n_fac;
   uint32_t tgt = 0u;
   bool exact = false;
   if constexpr (EXACTK) {
@@ -750,6 +809,55 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
 // options, ATK the attack options; 1 full; 2 paired), so each library
 // instantiates only its own kernels.
 constexpr int RECEIVE_THREADS = 256;
+
+// (TEL) the body with the tally: the thread's rows and delivered
+// acquisitions left in shared memory, then each warp of the block sums one
+// row over the block's peers (the L latency-bucket rows popcount the
+// delivered acquisitions against the tick's bucket masks here, once) and
+// adds it into the tally with one i32 atomicAdd per block and row; the
+// kernels of receive_tel.cu and receive_tel_knobs.cu instantiate it
+template <int C, int W, bool SCORED, bool ATK, bool CBF, bool BBF,
+          bool FLOOD, bool EXACTK, bool PX, bool SAMEIP, bool PAIRED,
+          bool FAULTS, bool KNB = false>
+__device__ __forceinline__ void receive_tel_body(const ReceiveArgs& a) {
+  __shared__ int s_rows[TEL_ROWS * RECEIVE_THREADS];
+  __shared__ uint32_t s_dlv[W * RECEIVE_THREADS];
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < TEL_ROWS; ++r) s_rows[r * RECEIVE_THREADS + t] = 0;
+#pragma unroll
+  for (int w = 0; w < W; ++w) s_dlv[w * RECEIVE_THREADS + t] = 0u;
+  receive_body<C, W, SCORED, ATK, CBF, BBF, FLOOD, EXACTK, PX, SAMEIP,
+               PAIRED, FAULTS, true, KNB>(a, s_rows, s_dlv);
+  __syncthreads();
+  // warp k sums rows k, k + 8, ...: the block's partial of each row
+  const int warp = t >> 5, lane = t & 31;
+  const int rows = TEL_ROWS + a.tel_lat_buckets;
+  for (int r = warp; r < rows; r += RECEIVE_THREADS / 32) {
+    int v = 0;
+    if (r < TEL_ROWS) {
+      for (int i = lane; i < RECEIVE_THREADS; i += 32) {
+        v += s_rows[r * RECEIVE_THREADS + i];
+      }
+    } else {
+      const int b = r - TEL_ROWS;
+      uint32_t mask[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) mask[w] = a.lat_masks[b * W + w];
+      for (int i = lane; i < RECEIVE_THREADS; i += 32) {
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          v += __popc(s_dlv[w * RECEIVE_THREADS + i] & mask[w]);
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v += __shfl_down_sync(0xFFFFFFFFu, v, off);
+    }
+    if (lane == 0 && v != 0) atomicAdd(&a.tel[r], v);
+  }
+}
 
 // the counter dtypes of a scored launch (unscored ignores them)
 template <class K, int C, int W, int FAMILY, bool ATK, bool FAULTS>

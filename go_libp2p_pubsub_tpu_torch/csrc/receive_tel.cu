@@ -35,49 +35,6 @@ namespace {
 // the paired variant's blocks a multiprocessor (receive.cu PAIRED_BLOCKS)
 constexpr int PAIRED_TEL_BLOCKS = 4;
 
-template <int C, int W, bool SCORED, bool ATK, bool CBF, bool BBF,
-          bool FLOOD, bool EXACTK, bool PX, bool SAMEIP, bool PAIRED,
-          bool FAULTS>
-__device__ __forceinline__ void receive_tel_body(const ReceiveArgs& a) {
-  __shared__ int s_rows[TEL_ROWS * RECEIVE_THREADS];
-  __shared__ uint32_t s_dlv[W * RECEIVE_THREADS];
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int r = 0; r < TEL_ROWS; ++r) s_rows[r * RECEIVE_THREADS + t] = 0;
-#pragma unroll
-  for (int w = 0; w < W; ++w) s_dlv[w * RECEIVE_THREADS + t] = 0u;
-  receive_body<C, W, SCORED, ATK, CBF, BBF, FLOOD, EXACTK, PX, SAMEIP,
-               PAIRED, FAULTS, true>(a, s_rows, s_dlv);
-  __syncthreads();
-  // warp k sums rows k, k + 8, ...: the block's partial of each row
-  const int warp = t >> 5, lane = t & 31;
-  const int rows = TEL_ROWS + a.tel_lat_buckets;
-  for (int r = warp; r < rows; r += RECEIVE_THREADS / 32) {
-    int v = 0;
-    if (r < TEL_ROWS) {
-      for (int i = lane; i < RECEIVE_THREADS; i += 32) {
-        v += s_rows[r * RECEIVE_THREADS + i];
-      }
-    } else {
-      const int b = r - TEL_ROWS;
-      uint32_t mask[W];
-#pragma unroll
-      for (int w = 0; w < W; ++w) mask[w] = a.lat_masks[b * W + w];
-      for (int i = lane; i < RECEIVE_THREADS; i += 32) {
-#pragma unroll
-        for (int w = 0; w < W; ++w) {
-          v += __popc(s_dlv[w * RECEIVE_THREADS + i] & mask[w]);
-        }
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      v += __shfl_down_sync(0xFFFFFFFFu, v, off);
-    }
-    if (lane == 0 && v != 0) atomicAdd(&a.tel[r], v);
-  }
-}
-
 // the variants of receive.cu, each with its twin's launch bound
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
 __global__ void __launch_bounds__(256)

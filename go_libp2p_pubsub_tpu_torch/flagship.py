@@ -31,9 +31,10 @@ N_PEERS, N_TOPICS, N_CAND, N_MSGS = 1_000_000, 100, 16, 32
 
 
 def build(device, n_peers: int = N_PEERS, n_topics: int = N_TOPICS,
-          horizon: int = 400, seed: int = 0):
+          horizon: int = 400, seed: int = 0, sim_knobs: dict | None = None):
     """(cfg, score_cfg, params, state, msg_publish_tick) of the flagship;
-    messages are published at ticks drawn over [0, horizon)."""
+    messages are published at ticks drawn over [0, horizon); ``sim_knobs``
+    (``make_gossip_sim``'s) arms a knob point."""
     n, t = n_peers, n_topics
     rng = np.random.default_rng(seed)
     cfg = gs.GossipSimConfig(
@@ -48,7 +49,7 @@ def build(device, n_peers: int = N_PEERS, n_topics: int = N_TOPICS,
     params, state = gs.make_gossip_sim(cfg, subs, topic, origin, tick,
                                        seed=seed, score_cfg=sc,
                                        track_first_tick=False,
-                                       device=device)
+                                       sim_knobs=sim_knobs, device=device)
     return cfg, sc, params, state, tick
 
 

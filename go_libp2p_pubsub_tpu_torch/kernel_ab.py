@@ -18,7 +18,11 @@ everything-on tick only for the sources that have the full variant,
 bit-identical to the plain version on them, and the builds are timed in
 turns (``chip_smoke.device_ms``: CUDA
 events over a CUDA-graph replay of 50 launches), ``--reps`` times each.
-Prints one JSON line with the card and every build's times.
+Then the knob sweep's ``gf40`` point (``knob_sweep.py``) on the 1M-peer
+flagship: this tree's knob variant (``csrc/receive_knobs.cu``) on tick 40
+of the armed sim, timed in turns beside each build's twin without knobs on
+the same operands.  Prints one JSON line with the card and every build's
+times.
 
     python -m go_libp2p_pubsub_tpu_torch.kernel_ab --ptxas A.cu B.cu [...]
 
@@ -39,7 +43,7 @@ from pathlib import Path
 
 import torch
 
-from . import adversarial, churn, everything, flagship
+from . import adversarial, churn, everything, flagship, knob_sweep
 from .models import gossipsub as gs
 from .ops.kernels import _build
 from .ops.kernels import receive as krecv
@@ -124,8 +128,31 @@ def main() -> None:
                 times[label][src].append(cs.device_ms(
                     lambda: krecv.receive_update(k, **ops), 50))
         del params, state, step, ops, want
+    # a knob point's tick: the knob variant beside each build's twin
+    cfg, sc, params, state = knob_sweep.arm(
+        flagship.build(dev, horizon=400), knob_sweep.FLAGSHIP_POINTS["gf40"])[:4]
+    k_kn = krecv.receive_consts(cfg, sc, knobs=True)
+    k_tw = krecv.receive_consts(cfg, sc)
+    step = gs.make_gossip_step(cfg, sc, device=dev)
+    ops = cs.capture_receive(
+        lambda: gs.gossip_run(params, state, 40, step, device=dev), krecv)
+    ops_tw = {key: v for key, v in ops.items() if key != "knobs"}
+    cs.check_identical("flagship gf40 knobs", krecv.receive_update(k_kn, **ops),
+                       krecv.receive_update_plain(k_kn, **ops))
+    knob_times = {"knobs": [], **{src: [] for src in all_libs}}
+    for rep in range(args.reps):
+        order = ["knobs", *all_libs]
+        for src in (order if rep % 2 == 0 else order[::-1]):
+            if src == "knobs":
+                knob_times[src].append(cs.device_ms(
+                    lambda: krecv.receive_update(k_kn, **ops), 50))
+            else:
+                _build._LIBS["receive"] = all_libs[src]
+                knob_times[src].append(cs.device_ms(
+                    lambda: krecv.receive_update(k_tw, **ops_tw), 50))
     _build._LIBS.pop("receive")
-    print(json.dumps({"card": flagship.card(), "receive_ms": times}))
+    print(json.dumps({"card": flagship.card(), "receive_ms": times,
+                      "gf40_knobs_ms": knob_times}))
 
 
 if __name__ == "__main__":

@@ -15,7 +15,10 @@ or exact-k gossip targets, and paired topics (every peer in its class r
 and r + T/2: one mesh, backoff and P1 per topic slot, one maintenance
 pass per slot, slot-B flags on a second ctrl byte); any of these under a
 fault schedule (churn, link loss, partitions, cold restart:
-``models/faults.py``).  The receive half
+``models/faults.py``) and with traced knobs (``models/knobs.py``: the
+degree family, gossip_factor, the tick counts, the four defense
+parameters and the link-drop rate as 0-d tensors of the params, so one
+step serves any protocol point).  The receive half
 (payload receive, handshake, counter updates, next tick's gates) is one
 kernel launch (``ops/kernels/receive.py``); every random top-k selection
 is one launch of the select kernel (``ops/kernels/select.py``).
@@ -69,6 +72,7 @@ from ..ops.kernels import fused as kfused
 from ..ops.kernels import receive as krecv
 from ..ops.kernels import select as kselect
 from . import faults as _faults
+from . import knobs as _knobs
 from . import plan
 from . import telemetry as _telemetry
 from ._delivery import reach_counts_from_first_tick, update_first_tick
@@ -278,6 +282,48 @@ class ScoreSimConfig:
 # --------------------------------------------------------------------------
 
 
+#: the defense parameters a sweep varies as data (0-d tensors instead of
+#: constants), in ScoreKnobs field order; the rest of ScoreSimConfig
+#: stays static
+SCORE_KNOB_FIELDS = ("invalid_message_deliveries_weight",
+                     "behaviour_penalty_weight",
+                     "graylist_threshold", "gossip_threshold")
+
+
+@dataclass(frozen=True)
+class ScoreKnobs:
+    """The four defense knobs as float32 0-d tensors on the sim's device
+    (the reference's ``ScoreKnobs``): the P4 and P7 weights, the graylist
+    and gossip thresholds.  None on the params bakes the ScoreSimConfig
+    values."""
+
+    invalid_message_deliveries_weight: torch.Tensor   # <= 0
+    behaviour_penalty_weight: torch.Tensor            # <= 0
+    graylist_threshold: torch.Tensor
+    gossip_threshold: torch.Tensor
+
+
+def make_score_knobs(sc: ScoreSimConfig, overrides: dict, surface: str, *,
+                     device) -> ScoreKnobs:
+    """Validated ScoreKnobs over ``sc`` (missing keys take its values);
+    ``surface`` names the argument in the messages (``score_knobs`` or
+    ``sim_knobs``, as the reference words them)."""
+    kv = {f: float(overrides.get(f, getattr(sc, f)))
+          for f in SCORE_KNOB_FIELDS}
+    for f in ("invalid_message_deliveries_weight",
+              "behaviour_penalty_weight"):
+        if kv[f] > 0:
+            raise ValueError(f"{surface}: {f} must be <= 0")
+    if not (kv["graylist_threshold"] <= sc.publish_threshold
+            <= kv["gossip_threshold"] <= 0):
+        raise ValueError(
+            f"{surface}: need graylist <= publish (static) <= "
+            "gossip threshold <= 0")
+    return ScoreKnobs(**{f: torch.tensor(kv[f], dtype=torch.float32,
+                                         device=device)
+                         for f in SCORE_KNOB_FIELDS})
+
+
 @dataclass
 class GossipParams:
     """Per-simulation tensors.  Row c, column p of a [C, N] view
@@ -315,6 +361,11 @@ class GossipParams:
     slot_b_words: torch.Tensor | None = None     # int32 [W, N]
     # the compiled fault schedule (None without one)
     faults: _faults.FaultParams | None = None
+    # the defense knobs armed through the legacy score_knobs surface, or
+    # the protocol knobs (with the defense sub-tree folded in) armed
+    # through sim_knobs; at most one of the two, None = baked
+    score_knobs: ScoreKnobs | None = None
+    sim_knobs: _knobs.SimKnobs | None = None
 
 
 @dataclass
@@ -402,12 +453,22 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
     px_candidates <= C) starts each peer knowing a random subset of that
     size of its candidates, which PX rotation then refreshes.
     fault_schedule (``models/faults.py`` ``FaultSchedule`` over the sim's
-    peers) injects churn, link loss, partitions and cold restarts."""
+    peers) injects churn, link loss, partitions and cold restarts.
+
+    Knobs (``models/knobs.py``): score_knobs, a dict over
+    SCORE_KNOB_FIELDS (needs score_cfg; missing keys take its values), or
+    sim_knobs, a dict mixing the protocol knobs (SIM_KNOB_FIELDS), the
+    same defense fields and the fault knob ``drop_prob`` (it overrides
+    the schedule's link-drop rate: it needs a fault_schedule with a
+    nonzero scalar drop_prob) — one surface or the other.  Each lifts
+    those parameters from constants of the step to 0-d tensors of the
+    params, so one step serves any point; missing keys take the
+    config's own values (``knob_params`` arms built params the same
+    way)."""
     dev = resolve_device(device)
     plan.check_sim_options(
         flood_proto=flood_proto, pad_to_block=pad_to_block,
-        byzantine=byzantine,
-        score_knobs=score_knobs, sim_knobs=sim_knobs, delays=delays,
+        byzantine=byzantine, delays=delays,
         delays_split=delays_split, delays_counters=delays_counters,
         delays_probe=delays_probe)
     plan.check_kernel_config(cfg, score_cfg)
@@ -580,6 +641,8 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
         slot_b_words=(None if slot_b_bits is None
                       else _words(_pack_bits_pm_np(slot_b_bits), dev)),
         **scored)
+    params = knob_params(cfg, sc, params, score_knobs=score_knobs,
+                         sim_knobs=sim_knobs, px_candidates=px_candidates)
     w = params.origin_words.shape[0]
     c = cfg.n_candidates
     i16 = lambda: torch.zeros((c, n), dtype=torch.int16, device=dev)  # noqa: E731
@@ -635,9 +698,89 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
     return params, refresh_gates(cfg, sc, params, state)
 
 
+def knob_params(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
+                params: GossipParams, *, score_knobs: dict | None = None,
+                sim_knobs: dict | None = None,
+                px_candidates: int | None = None) -> GossipParams:
+    """``params`` with the knob leaves of one surface armed (the
+    reference's make_gossip_sim validations and messages): score_knobs
+    sets ``score_knobs``; sim_knobs sets ``sim_knobs`` and, with
+    ``drop_prob``, replaces ``faults.drop_prob`` and nothing else of the
+    schedule.  Neither: ``params`` as they are."""
+    dev = params.subscribed.device
+    out = {}
+    if score_knobs is not None:
+        if sc is None:
+            raise ValueError("score_knobs require score_cfg")
+        unknown = set(score_knobs) - set(SCORE_KNOB_FIELDS)
+        if unknown:
+            raise ValueError(
+                f"score_knobs: unknown knob(s) {sorted(unknown)} — "
+                f"sweepable knobs are {SCORE_KNOB_FIELDS}")
+        out["score_knobs"] = make_score_knobs(sc, score_knobs,
+                                              "score_knobs", device=dev)
+    if sim_knobs is not None:
+        if score_knobs is not None:
+            raise ValueError(
+                "pass parameter overrides through ONE surface: "
+                "sim_knobs (which folds the ScoreKnobs fields in) or "
+                "the legacy score_knobs dict, not both")
+        proto_kv, score_kv, fault_kv, delay_kv = \
+            _knobs.split_knob_overrides(sim_knobs, SCORE_KNOB_FIELDS)
+        if delay_kv:
+            plan.refuse("delays")
+        out["sim_knobs"] = _knobs.make_sim_knobs(
+            cfg, sc, {**proto_kv, **score_kv}, px_candidates=px_candidates,
+            device=dev)
+        if fault_kv:
+            fp0 = params.faults
+            if fp0 is None:
+                raise ValueError(
+                    "sim_knobs: the drop_prob knob overrides a "
+                    "compiled FaultParams leaf — pass a "
+                    "fault_schedule alongside it")
+            if fp0.drop_prob is None or fp0.drop_prob.ndim != 0:
+                raise ValueError(
+                    "sim_knobs: the drop_prob knob needs a schedule "
+                    "with a nonzero SCALAR drop_prob (the link-fault "
+                    "code path must compile in, and the per-edge "
+                    "[C, N] form is not scalar-overridable); knob "
+                    "value 0.0 then disables drops at run time")
+            dpv = float(fault_kv["drop_prob"])
+            if not (0.0 <= dpv <= 1.0):
+                raise ValueError(
+                    f"sim_knobs: drop_prob={dpv} outside [0, 1]")
+            out["faults"] = replace(fp0, drop_prob=torch.tensor(
+                dpv, dtype=torch.float32, device=dev))
+    return replace(params, **out) if out else params
+
+
 # --------------------------------------------------------------------------
 # Scores and gates
 # --------------------------------------------------------------------------
+
+
+def active_score_knobs(params: GossipParams) -> ScoreKnobs | None:
+    """The ScoreKnobs in effect for this sim, whichever surface armed
+    them (make_gossip_sim allows at most one)."""
+    if params.score_knobs is not None:
+        return params.score_knobs
+    if params.sim_knobs is not None:
+        return params.sim_knobs.score
+    return None
+
+
+def knobbed_score_consts(sc: ScoreSimConfig,
+                         params: GossipParams) -> krecv.ScoreConsts:
+    """The score formula's scalars with the armed defense knobs (the P4
+    and P7 weights as 0-d tensors: ``krecv.knob_score_consts``)."""
+    s = krecv.score_consts(sc)
+    kn = active_score_knobs(params)
+    if kn is None:
+        return s
+    return krecv.knob_score_consts(s, krecv._f32(sc.topic_weight),
+                                   kn.invalid_message_deliveries_weight,
+                                   kn.behaviour_penalty_weight)
 
 
 def _static_term(sc: ScoreSimConfig, params: GossipParams):
@@ -663,7 +806,7 @@ def compute_scores(sc: ScoreSimConfig, params: GossipParams,
 
     static = _static_term(sc, params)
     return krecv.score_from_counters(
-        krecv.score_consts(sc), g(s.time_in_mesh).to(torch.float32),
+        knobbed_score_consts(sc, params), g(s.time_in_mesh).to(torch.float32),
         g(s.first_deliveries).to(torch.float32),
         g(s.invalid_deliveries).to(torch.float32),
         g(s.behaviour_penalty).to(torch.float32),
@@ -712,8 +855,11 @@ def gossip_targets_row(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
         elig = elig & ~mesh_b
     if gossip_row is not None:
         elig = elig & gossip_row
-    targets = krecv.targets_row(k, elig, lane_seed(tick, 1, salt),
-                                mesh.shape[0])
+    skn = params.sim_knobs
+    targets = krecv.targets_row(
+        k, elig, lane_seed(tick, 1, salt), mesh.shape[0],
+        gossip_factor=None if skn is None else skn.gossip_factor,
+        d_lazy=None if skn is None else skn.d_lazy)
     if sc is not None and sc.sybil_ihave_spam:
         targets = torch.where(params.sybil, params.cand_sub_bits, targets)
     return targets
@@ -739,8 +885,11 @@ def compute_gates(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
     k = krecv.receive_consts(cfg, sc)
     n = st.mesh.shape[0]
     score = compute_scores(sc, params, st)
-    accept = pack_rows(score >= k.gray_thr)
-    gossip = pack_rows(score >= k.gossip_thr)
+    kn = active_score_knobs(params)
+    accept = pack_rows(score >= (k.gray_thr if kn is None
+                                 else kn.graylist_threshold))
+    gossip = pack_rows(score >= (k.gossip_thr if kn is None
+                                 else kn.gossip_threshold))
     rows = [accept, gossip, pack_rows(score >= k.publish_thr),
             pack_rows(score >= 0)]
     s0 = st.scores
@@ -787,6 +936,21 @@ def refresh_gates(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
 # --------------------------------------------------------------------------
 
 
+def degree_knobs(cfg: GossipSimConfig, params: GossipParams):
+    """Where the step reads the degree family and the fanout TTL: the
+    armed SimKnobs (0-d tensors), else ``cfg`` (ints) — the same field
+    names, so every consumer reads ``K.d``, ``K.d_lo``, ... either way
+    and no Python ``if`` or ``range`` ever reads a knob's value."""
+    return cfg if params.sim_knobs is None else params.sim_knobs
+
+
+def _fill(like: torch.Tensor, v) -> torch.Tensor:
+    """``like``-shaped tensor of ``v``, an int or a 0-d knob tensor."""
+    if isinstance(v, torch.Tensor):
+        return v.to(like.dtype).expand(like.shape)
+    return torch.full_like(like, v)
+
+
 def _prunes(cfg: GossipSimConfig, sc: ScoreSimConfig,
             params: GossipParams, state: GossipState,
             mesh_ng: torch.Tensor, deg: torch.Tensor,
@@ -795,9 +959,10 @@ def _prunes(cfg: GossipSimConfig, sc: ScoreSimConfig,
     at least Dout outbound, random fill to D (v1.1, gossipsub.go:
     1376-1435), on the lane stream of ``phase``.  Per-peer independent,
     so computed on the columns of the over-subscribed peers only — the
-    step's host sync, one per topic slot."""
+    step's host sync, one per topic slot (with or without knobs)."""
     C = cfg.n_candidates
-    idx = torch.nonzero(deg > cfg.d_hi).flatten()
+    K = degree_knobs(cfg, params)
+    idx = torch.nonzero(deg > K.d_hi).flatten()
     prunes = torch.zeros_like(mesh_ng)
     if idx.numel() == 0:
         return prunes
@@ -806,15 +971,14 @@ def _prunes(cfg: GossipSimConfig, sc: ScoreSimConfig,
     rnd = lane_uniform((C, n), state.tick, phase, state.salt, stride=n,
                        device=mesh_ng.device, cols=idx)
     m_s = mesh_ng.index_select(0, idx)
-    top = select_k_by_priority_bits(m_s, score,
-                                    torch.full_like(m_s, cfg.d_score),
+    top = select_k_by_priority_bits(m_s, score, _fill(m_s, K.d_score),
                                     tiebreak=rnd)
     out = cfg.outbound_mask
-    need_out = (cfg.d_out - popcount32(top & out)).clamp(min=0)
+    need_out = (K.d_out - popcount32(top & out)).clamp(min=0)
     taken = top | select_k_by_priority_bits(m_s & ~top & out, rnd,
                                             need_out)
     fill = select_k_by_priority_bits(
-        m_s & ~taken, rnd, (cfg.d - popcount32(taken)).clamp(min=0))
+        m_s & ~taken, rnd, (K.d - popcount32(taken)).clamp(min=0))
     prunes[idx] = m_s & ~(taken | fill)
     return prunes
 
@@ -868,6 +1032,7 @@ def maintain_slot(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
     both ends (folded into ``dropped``), and nobody grafts at or by a
     dead peer.  Scored, one host sync (the prune)."""
     C = cfg.n_candidates
+    K = degree_knobs(cfg, params)
     n = params.subscribed.shape[0]
     tick, salt = state.tick, state.salt
     ph_graft, ph_prune, ph_og = SLOT_PHASES[slot]
@@ -905,13 +1070,13 @@ def maintain_slot(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
         can_graft = can_graft & nonneg_bits
     if fmasks is not None:
         can_graft = can_graft & fmasks.cand_alive & fmasks.alive_all
-    need = torch.where(deg < cfg.d_lo, cfg.d - deg, 0).to(torch.int32)
+    need = torch.where(deg < K.d_lo, K.d - deg, 0).to(torch.int32)
     grafts = sel_k(can_graft, need, ph_graft)
     if sc is None:
         # v1.0 random retention of D where deg > Dhi, drawn for every
         # peer (no host sync; masked to the over-full ones)
-        keep = sel_k(mesh_ng, torch.full_like(deg, cfg.d), ph_prune)
-        prunes = torch.where(deg > cfg.d_hi, mesh_ng & ~keep, 0)
+        keep = sel_k(mesh_ng, _fill(deg, K.d), ph_prune)
+        prunes = torch.where(deg > K.d_hi, mesh_ng & ~keep, 0)
     else:
         prunes = _prunes(cfg, sc, params, state, mesh_ng, deg, ph_prune)
         if tick % sc.opportunistic_graft_ticks == 0:
@@ -1013,6 +1178,18 @@ def make_gossip_step(cfg: GossipSimConfig,
     tick mesh (both slots), the score group the start-of-tick scores (one
     more [C, N] pass), the faults group the tick's masks.  No host sync is
     added.
+
+    Knobs (``params.sim_knobs`` / ``params.score_knobs``,
+    ``make_gossip_sim``): the degree family and the fanout TTL are read
+    from the params' 0-d tensors in the prologue, fanout and maintenance
+    (never by a Python ``if`` or ``range``: no host sync is added);
+    gossip_factor, d_lazy, the backoff restart and the defense knobs ride
+    one f32 vector into the kernel's ``+knobs`` variant (built on the
+    device once per sim), and compute_scores / compute_gates read the
+    defense knobs on the PyTorch side.  A SimKnobs point on an IWANT-flood
+    config raises the reference's ValueError
+    (``plan.MSG_KERNEL_KNOB_IWANT_SPAM``): its serve budget bakes
+    gossip_retransmission.
     """
     dev = resolve_device(device)
     plan.check_paired_step(cfg, score_cfg, force_split)
@@ -1045,8 +1222,40 @@ def make_gossip_step(cfg: GossipSimConfig,
     # the kernel's tally runs for the counters or the latency rows
     with_t = tel is not None and (tel.counters or lat_b > 0)
 
+    # the knob vector of the sim last stepped, keyed by its knob leaves'
+    # identity (built once per sim, on the device, never per tick)
+    knob_cache = []
+
+    def knob_vector(params: GossipParams):
+        """B1's f32 knob operand in the kernel's KNOB_* order (three
+        protocol scalars; scored, the four defense knobs after them), or
+        None for a sim without knobs."""
+        skn, kkn = params.sim_knobs, active_score_knobs(params)
+        if skn is None and kkn is None:
+            return None
+        if knob_cache and knob_cache[0] is skn and knob_cache[1] is kkn:
+            return knob_cache[2]
+        vals = [cfg.gossip_factor, cfg.d_lazy, cfg.backoff_ticks]
+        if skn is not None:
+            vals = [skn.gossip_factor, skn.d_lazy, skn.backoff_ticks]
+        if sc is not None:
+            vals += ([getattr(sc, f) for f in SCORE_KNOB_FIELDS]
+                     if kkn is None else
+                     [getattr(kkn, f) for f in SCORE_KNOB_FIELDS])
+        vec = torch.stack([
+            v.to(torch.float32) if isinstance(v, torch.Tensor)
+            else torch.tensor(float(v), dtype=torch.float32, device=dev)
+            for v in vals])
+        knob_cache[:] = [skn, kkn, vec]
+        return vec
+
     def step(params: GossipParams, state: GossipState):
         check_on(dev, subscribed=params.subscribed, mesh=state.mesh)
+        if (params.sim_knobs is not None and sc is not None
+                and sc.sybil_iwant_spam):
+            # the reference's kernel step bakes gossip_retransmission
+            # into the IWANT flood's serve budget and refuses the point
+            raise ValueError(plan.MSG_KERNEL_KNOB_IWANT_SPAM)
         if len(state.gates) != n_gates:
             raise ValueError(
                 f"state carries {len(state.gates)} gate words, the step "
@@ -1057,6 +1266,11 @@ def make_gossip_step(cfg: GossipSimConfig,
                 "(cfg, score_cfg) than this step's — refresh_gates with "
                 "the new config before stepping")
         tick, salt = state.tick, state.salt
+        # the degree family and fanout TTL: ints, or the armed knobs'
+        # 0-d tensors (gossip_retransmission has no consumer here: its
+        # only one in the reference is the IWANT flood's serve budget,
+        # and a knob point on a flood config is refused above)
+        K = degree_knobs(cfg, params)
         sub = params.subscribed
         n = sub.shape[0]
         sub_all = torch.where(sub, ALL, 0).to(torch.int32)
@@ -1102,9 +1316,9 @@ def make_gossip_step(cfg: GossipSimConfig,
         # -- 1b. fanout TTL + refill (own publishes only; scored: above
         # the publish threshold)
         last_pub = torch.where(publishing, tick, state.last_pub)
-        alive = ~sub & ((tick - last_pub) < cfg.fanout_ttl_ticks)
+        alive = ~sub & ((tick - last_pub) < K.fanout_ttl_ticks)
         fanout = torch.where(alive, state.fanout, 0)
-        f_need = torch.where(alive, cfg.d - popcount32(fanout), 0)
+        f_need = torch.where(alive, K.d - popcount32(fanout), 0)
         f_elig = cand_sub & ~fanout
         if direct is not None:
             # direct peers receive everything anyway
@@ -1244,6 +1458,12 @@ def make_gossip_step(cfg: GossipSimConfig,
             variant["same_ip"] = True
         if fm is not None:
             variant["faults"] = True
+        knob_vec = knob_vector(params)
+        if knob_vec is not None:
+            # gossip_factor, d_lazy and backoff_ticks (and, scored, the
+            # defense knobs) are read in the kernel
+            variant["knobs"] = True
+            ops["knobs"] = knob_vec
         if with_t:
             variant.update(telemetry=True, tel_lat_buckets=lat_b)
             if lat_b:

@@ -13,11 +13,15 @@ on the fused-window kernel (Bernoulli or exact-k targets; one topic per
 peer, no PX, no direct peers).  Both run under fault schedules (churn,
 link loss, partitions, cold restart) and with telemetry frames (the
 per-tick step, faulted or not, on every receive variant; the fused
-window with its per-tick frames); the fault knob stays refused as
-``knobs`` and delays as ``delays``, with or without faults and
-telemetry (both are refused when the sim is built).  Each
-refusal has a stable name (``SliceRefusal.name``) and its own message;
-tests match on the name.
+window with its per-tick frames).  Traced knobs (``score_knobs`` /
+``sim_knobs``, ``models/knobs.py``, the fault knob ``drop_prob`` too)
+run on the per-tick step, on every receive variant, with or without
+faults and telemetry; a knob-carrying sim is refused by the fused window
+(``fused_knobs``), as the reference refuses it.  Delays are refused as
+``delays`` when the sim is built, delay knobs too.  Each refusal has a
+stable name (``SliceRefusal.name``) and its own message; tests match on
+the name.  The reference's own ValueErrors are raised with its messages
+(``MSG_PAIRED_COMBINED``, ``MSG_KERNEL_KNOB_IWANT_SPAM``).
 """
 
 from __future__ import annotations
@@ -27,8 +31,6 @@ from __future__ import annotations
 MAX_WINDOW = 64
 
 REFUSALS: dict[str, str] = {
-    "knobs": "traced parameter knobs (score_knobs / sim_knobs) are not "
-             "ported yet",
     "delays": "event-driven delays (DelayConfig and its delay lines) are "
               "not ported yet",
     "rpc_probe": "the per-RPC probe snapshot is not ported yet",
@@ -69,6 +71,10 @@ REFUSALS: dict[str, str] = {
                     "working set)",
     "fused_grid": "the fused kernel cannot keep one block resident on "
                   "the device, so its cooperative launch cannot run",
+    "fused_knobs": "the fused window does not run knob-carrying sims "
+                   "(sim_knobs): such sims step per tick (the degree-family "
+                   "knobs are consumed in the step's prologue, which the "
+                   "fused window elides)",
 }
 
 
@@ -103,6 +109,15 @@ def check_kernel_config(cfg, sc) -> None:
 MSG_PAIRED_COMBINED = ("paired_topics needs the combined path "
                        "(C<=16, no track_p3/force_split)")
 
+#: the reference's message for a SimKnobs point on an IWANT-flood config:
+#: its kernel step bakes gossip_retransmission into the flood's serve
+#: budget (the legacy score_knobs surface carries no such knob and runs)
+MSG_KERNEL_KNOB_IWANT_SPAM = (
+    "sim_knobs: gossip_retransmission stays XLA-only on the pallas "
+    "step (the in-kernel IWANT serve budget bakes it) — run "
+    "iwant-spam knob sweeps on the XLA path, or drop sybil_iwant_spam "
+    "from the config")
+
 
 def check_paired_step(cfg, sc, force_split: bool) -> None:
     """A paired step runs on the combined (kernel) path only: the
@@ -126,8 +141,7 @@ def check_step_options(*, force_split, pipeline_gates, shard_mesh,
         refuse("invariants")
 
 
-def check_sim_options(*, flood_proto, pad_to_block, byzantine,
-                      score_knobs, sim_knobs, delays,
+def check_sim_options(*, flood_proto, pad_to_block, byzantine, delays,
                       delays_split, delays_counters, delays_probe) -> None:
     if pad_to_block is not None:
         refuse("pad_to_block")
@@ -135,8 +149,6 @@ def check_sim_options(*, flood_proto, pad_to_block, byzantine,
         refuse("flood_proto")
     if byzantine is not None:
         refuse("byzantine")
-    if score_knobs is not None or sim_knobs is not None:
-        refuse("knobs")
     if (delays is not None or delays_split or delays_counters
             or delays_probe):
         refuse("delays")
@@ -145,12 +157,12 @@ def check_sim_options(*, flood_proto, pad_to_block, byzantine,
 def check_fused_window(cfg, sc, ticks: int, *, shard_mesh=None) -> None:
     """Refuse a fused window the port does not run (static config).
 
-    Delays and knobs are refused by their names when the sim is built
+    Delays are refused by name when the sim is built
     (``check_sim_options``), so no window ever sees them; a faulted sim
     runs (its per-tick fault rows ride the launch), and so does a window
     with telemetry (its per-tick rows ride the launch); the window refuses
-    the rest here, and PX and direct peers when it is
-    handed their params or state (``check_fused_operands``)."""
+    the rest here, and knobs, PX and direct peers when it is handed their
+    params or state (``check_fused_operands``)."""
     if not 1 <= int(ticks) <= MAX_WINDOW:
         refuse("fused_window")
     check_kernel_config(cfg, sc)
@@ -163,8 +175,10 @@ def check_fused_window(cfg, sc, ticks: int, *, shard_mesh=None) -> None:
 
 
 def check_fused_operands(params, state) -> None:
-    """Refuse a sim the fused window does not run: one with an active
-    set (PX) or with direct peers."""
+    """Refuse a sim the fused window does not run: one carrying
+    SimKnobs, one with an active set (PX) or with direct peers."""
+    if params.sim_knobs is not None:
+        refuse("fused_knobs")
     if state.active is not None:
         refuse("fused_px")
     if params.cand_direct is not None:

@@ -14,7 +14,9 @@ full one): a second topic slot with its own handshake, mesh, backoff
 and, scored, time in mesh; and each of these under fault schedules
 (``ReceiveConsts.faults``); and each of these with the telemetry tally
 (``ReceiveConsts.telemetry``, the ``+tel`` variants, from a source of
-their own, ``csrc/receive_tel.cu``).
+their own, ``csrc/receive_tel.cu``); and each of these with the knob
+vector (``ReceiveConsts.knobs``, the ``+knobs`` variants, from
+``csrc/receive_knobs.cu`` and ``csrc/receive_tel_knobs.cu``).
 The port runs unpadded, so the sender view of edge j is the plain
 ``(p + o_j) mod N`` read — no wrap-extended flats.
 
@@ -59,7 +61,12 @@ With telemetry and latency buckets (``tel_lat_buckets`` L > 0):
 ``lat_masks`` int32 [L, W], the tick's latency-bucket message masks
 (``models/telemetry.py`` ``latency_bucket_masks``), and ``dlv_eff``
 int32 [W, N], the deliver words the bucket tallies count against
-(scored: ``deliver_words & ~invalid_words``).
+(scored: ``deliver_words & ~invalid_words``).  With knobs:
+``knobs`` float32 [3] unscored, [7] scored, the armed knob values in the
+reference's ``KNOB_*`` order (``gossip_factor``, ``d_lazy``,
+``backoff_ticks``; the P4 and P7 weights, the graylist and gossip
+thresholds), read in place of the baked constants; the integer knobs are
+exact through float32 and cast back where consumed.
 
 Returns make_receive_update's output order: scored ``(acq [W, N], mesh
 [N], backoff [C, N], *gates (7 x [N]), fd, inv, bp, tim, iws)``,
@@ -79,7 +86,7 @@ from __future__ import annotations
 
 import ctypes
 from collections import Counter
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -113,10 +120,15 @@ TEL_ROWS = ("payload", "ihave_ids", "iwant_served", "recv", "iwant_req",
             "ihave_rpcs", "iwant_rpcs", "new_ids")
 (TEL_PAYLOAD, TEL_IHAVE_IDS, TEL_IWANT_SERVED, TEL_RECV, TEL_IWANT_REQ,
  TEL_IHAVE_RPCS, TEL_IWANT_RPCS, TEL_NEW_IDS) = range(len(TEL_ROWS))
+#: the knob vector's rows (ops/pallas/receive.py KNOB_*): the first three
+#: always, the defense knobs scored only
+(KNOB_GF, KNOB_DLAZY, KNOB_BT, KNOB_INVW, KNOB_BPW, KNOB_GRAY,
+ KNOB_GSP) = range(7)
 
 #: launches of the CUDA kernel by variant (``variant(k)``: scored,
 #: unscored, attacks, full, paired, paired_unscored, each also with a
-#: ``_faults`` suffix, and each of those with a ``+tel`` suffix);
+#: ``_faults`` suffix, and each of those with a ``+tel`` suffix, then a
+#: ``+knobs`` suffix);
 #: chip_smoke.py clears it before a main path and reads it after
 launches: Counter[str] = Counter()
 
@@ -162,6 +174,17 @@ class ScoreConsts:
     topic_cap: float
     bp_thr: float
     w_bp: float
+    # (c_inv and w_bp are 0-d float32 tensors where knobs arm them:
+    # knob_score_consts)
+
+
+def knob_score_consts(s: ScoreConsts, topic_weight: float,
+                      w_inv: torch.Tensor, w_bp: torch.Tensor) -> ScoreConsts:
+    """``s`` with the P4 and P7 weights armed as float32 0-d tensors:
+    c_inv is the float32 product of the rounded ``topic_weight`` and the
+    knob (the reference's ``w * w_inv`` with a traced weight), not the
+    rounding of the double product that the baked constant is."""
+    return replace(s, c_inv=topic_weight * w_inv, w_bp=w_bp)
 
 
 def score_consts(sc) -> ScoreConsts:
@@ -224,6 +247,11 @@ class ReceiveConsts:
     # the telemetry tally (one more output) and its latency-bucket rows
     telemetry: bool = False
     tel_lat_buckets: int = 0
+    # the knob vector operand in place of the baked gossip_factor, d_lazy,
+    # backoff restart and (scored) P4/P7 weights and thresholds; scored,
+    # the rounded topic weight its P4 product takes
+    knobs: bool = False
+    topic_weight: float | None = None
 
     @property
     def n_candidates(self) -> int:
@@ -256,7 +284,8 @@ def odd_edge_mask(cfg) -> int:
 def receive_consts(cfg, sc, *, promise_break: bool = False,
                    px: bool = False, same_ip: bool = False,
                    faults: bool = False, telemetry: bool = False,
-                   tel_lat_buckets: int = 0) -> ReceiveConsts:
+                   tel_lat_buckets: int = 0,
+                   knobs: bool = False) -> ReceiveConsts:
     """Check the options (named refusals outside the slice) and fold the
     constants (``sc`` None: the unscored step's).  The receiver tracks
     broken promises when sybils spam IHAVEs or ``promise_break`` (the
@@ -265,14 +294,15 @@ def receive_consts(cfg, sc, *, promise_break: bool = False,
     the ``same_ip`` operand, ``faults`` (the sim has a fault schedule)
     the ``alive_w`` operand and, under the IWANT flood, ``flood_ok``;
     ``telemetry`` the tally output, with ``tel_lat_buckets`` latency rows
-    and their ``lat_masks`` and ``dlv_eff`` operands."""
+    and their ``lat_masks`` and ``dlv_eff`` operands, ``knobs`` (the sim
+    carries knobs) the ``knobs`` operand."""
     plan.check_kernel_config(cfg, sc)
     exact_k = not cfg.binomial_gossip_sampling
     if tel_lat_buckets and not telemetry:
         raise ValueError("latency-bucket rows need telemetry=True")
     paired = dict(paired=cfg.paired_topics, odd_mask=odd_edge_mask(cfg),
                   faults=faults, telemetry=telemetry,
-                  tel_lat_buckets=int(tel_lat_buckets))
+                  tel_lat_buckets=int(tel_lat_buckets), knobs=knobs)
     if sc is None:
         if same_ip:
             raise ValueError("same-IP sibling words need a score config")
@@ -302,7 +332,7 @@ def receive_consts(cfg, sc, *, promise_break: bool = False,
         gray_thr=_f32(sc.graylist_threshold),
         gossip_thr=_f32(sc.gossip_threshold),
         publish_thr=_f32(sc.publish_threshold),
-        score=score_consts(sc))
+        score=score_consts(sc), topic_weight=_f32(sc.topic_weight))
 
 
 def score_from_counters(s: ScoreConsts, tim: torch.Tensor,
@@ -366,14 +396,19 @@ def gater_row(fd: torch.Tensor, inv: torch.Tensor, seed: int,
 
 
 def targets_row(k: ReceiveConsts, elig: torch.Tensor, seed: int,
-                stride: int) -> torch.Tensor:
+                stride: int, gossip_factor: torch.Tensor | None = None,
+                d_lazy: torch.Tensor | None = None) -> torch.Tensor:
     """Lazy-gossip targets over packed ``elig``: Bernoulli(k/|elig|),
     or with ``k.exact_k`` the exact uniform k-subset
-    (``ops.graph.select_k_bits`` on the same lane stream)."""
+    (``ops.graph.select_k_bits`` on the same lane stream); the knobs
+    ``gossip_factor`` (float32) and ``d_lazy`` (int32), 0-d tensors,
+    replace ``k``'s where given."""
     C = k.n_candidates
     n_el = graph.popcount32(elig)
-    n_go = torch.clamp((k.gossip_factor * n_el.to(torch.float32)).to(
-        torch.int32), min=k.d_lazy)
+    gf = k.gossip_factor if gossip_factor is None else gossip_factor
+    n_go = (gf * n_el.to(torch.float32)).to(torch.int32)
+    n_go = (n_go.clamp(min=k.d_lazy) if d_lazy is None
+            else torch.maximum(n_go, d_lazy))
     if k.exact_k:
         return graph.select_k_bits(
             elig, n_go, graph.lane_uniform_from_seed(
@@ -576,12 +611,15 @@ def _acquired(heard, sub_all, injected) -> torch.Tensor:
                         for w in range(len(heard))])
 
 
-def _backoff(k: ReceiveConsts, backoff, bo_trig):
+def _backoff(k: ReceiveConsts, backoff, bo_trig, knobs=None):
     """The backoff write (trigger: restart, else count down to 0) and
-    its packed > 0 gate row."""
+    its packed > 0 gate row; with ``knobs`` the restart is
+    backoff_ticks - 1 from the vector."""
     bo32 = backoff.to(torch.int32)
+    restart = (k.backoff_restart if knobs is None
+               else knobs[KNOB_BT].to(torch.int32) - 1)
     bo_new = torch.where(graph.expand_bits(bo_trig, k.n_candidates),
-                         k.backoff_restart, (bo32 - 1).clamp(min=0))
+                         restart, (bo32 - 1).clamp(min=0))
     return bo_new.to(torch.int16), graph.pack_rows(bo_new > 0)
 
 
@@ -600,8 +638,16 @@ def _handshake(meshsel, wa, grafts, graft_recv, prune_recv, a_recv):
     return ((meshsel | accept) & ~prune_recv) & ~retract, retract
 
 
+def _targets_knobs(knobs) -> dict:
+    """targets_row's knob arguments from the vector (none without)."""
+    if knobs is None:
+        return {}
+    return dict(gossip_factor=knobs[KNOB_GF],
+                d_lazy=knobs[KNOB_DLAZY].to(torch.int32))
+
+
 def _slot_b(k: ReceiveConsts, hs_b, *, wa_b, grafts_b, dropped_b,
-            meshsel_b, backoff_b, acc=None):
+            meshsel_b, backoff_b, acc=None, knobs=None):
     """Slot B's handshake and backoff (paired): (mesh_b, backoff_b,
     backoff gate row, viol_b, px trigger bits); scored, the GRAFTs and
     PRUNEs received pass the accept gate first."""
@@ -610,7 +656,8 @@ def _slot_b(k: ReceiveConsts, hs_b, *, wa_b, grafts_b, dropped_b,
         graft_b, prune_b = graft_b & acc, prune_b & acc
     mesh_b, retract_b = _handshake(meshsel_b, wa_b, grafts_b, graft_b,
                                    prune_b, a_b)
-    bo_b, bo_gate_b = _backoff(k, backoff_b, dropped_b | prune_b | retract_b)
+    bo_b, bo_gate_b = _backoff(k, backoff_b, dropped_b | prune_b | retract_b,
+                               knobs)
     return mesh_b, bo_b, bo_gate_b, graft_b, prune_b | retract_b
 
 
@@ -618,24 +665,26 @@ def _receive_plain_unscored(k: ReceiveConsts, *, gseeds, ctrl, fresh, adv,
                             sub_all, cand_sub, fanout, wa, grafts, dropped,
                             meshsel, seen, injected, backoff, ctrl2=None,
                             fresh_b=None, alive_w=None, lat_masks=None,
-                            dlv_eff=None, **paired_ops):
+                            dlv_eff=None, knobs=None, **paired_ops):
     tel = _tel_start(k, seen.device)
     ex = _exchange(k, ctrl, fresh, adv, seen, ctrl2=ctrl2, fresh_b=fresh_b,
                    alive_w=alive_w, tel=tel)
     heard, graft_recv, prune_recv, a_recv = ex[:4]
     mesh, retract = _handshake(meshsel, wa, grafts, graft_recv, prune_recv,
                                a_recv)
-    bo_new, bo_gate = _backoff(k, backoff, dropped | prune_recv | retract)
+    bo_new, bo_gate = _backoff(k, backoff, dropped | prune_recv | retract,
+                               knobs)
     elig = cand_sub & ~mesh & ~fanout & sub_all
     px_val = prune_recv | retract
     mesh_b = bo_b = ()
     gate_b = ()
     if k.paired:
-        mb, bb, gb, _, px_b = _slot_b(k, ex[-1], **paired_ops)
+        mb, bb, gb, _, px_b = _slot_b(k, ex[-1], knobs=knobs, **paired_ops)
         elig = elig & ~mb
         px_val = px_val | px_b
         mesh_b, bo_b, gate_b = (mb,), (bb,), (gb,)
-    tgt = targets_row(k, elig, gseeds[1], mesh.shape[0])
+    tgt = targets_row(k, elig, gseeds[1], mesh.shape[0],
+                      **_targets_knobs(knobs))
     px = (px_val,) if k.with_px else ()
     acq = _acquired(heard, sub_all, injected)
     return (acq, mesh, *mesh_b, bo_new, *bo_b, tgt, bo_gate, *gate_b, *px,
@@ -649,7 +698,7 @@ def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
                           inj_send=None, same_ip=None, ctrl2=None,
                           fresh_b=None, bo2_b=None, tim_b=None,
                           alive_w=None, flood_ok=None, lat_masks=None,
-                          dlv_eff=None, **paired_ops):
+                          dlv_eff=None, knobs=None, **paired_ops):
     C = k.n_candidates
     n = pay.shape[0]
     tel = _tel_start(k, seen.device)
@@ -663,10 +712,11 @@ def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
                                a_recv)
     px_val = prune_recv | retract
     acq = _acquired(heard, sub_all, injected)
-    bo_new, bo_gate = _backoff(k, backoff, dropped | prune_recv | retract)
+    bo_new, bo_gate = _backoff(k, backoff, dropped | prune_recv | retract,
+                               knobs)
     if k.paired:
         mesh_b, bo_b, bo_gate_b, graft_b, px_b = _slot_b(
-            k, hs_b, acc=acc, **paired_ops)
+            k, hs_b, acc=acc, knobs=knobs, **paired_ops)
         viol_b = graft_b & bo2_b
         px_val = px_val | px_b
 
@@ -711,15 +761,21 @@ def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
     dec = s32 - torch.div(s32 + (H - 1), H, rounding_mode="floor")
     iws_new = (dec + pull).clamp(0, 30000).to(torch.int16)
 
-    # stage 2: next tick's gates from the stored (rounded) counters
+    # stage 2: next tick's gates from the stored (rounded) counters; with
+    # knobs the P4 and P7 weights and the two thresholds from the vector
+    s_c, gray_thr, gossip_thr = k.score, k.gray_thr, k.gossip_thr
+    if knobs is not None:
+        s_c = knob_score_consts(s_c, k.topic_weight, knobs[KNOB_INVW],
+                                knobs[KNOB_BPW])
+        gray_thr, gossip_thr = knobs[KNOB_GRAY], knobs[KNOB_GSP]
     fd_n = fd_new.to(torch.float32)
     inv_n = inv_new.to(torch.float32)
     score = score_from_counters(
-        k.score, tim_new.to(torch.float32), fd_n, inv_n,
+        s_c, tim_new.to(torch.float32), fd_n, inv_n,
         bp_new.to(torch.float32), static,
         tim_b=None if tim_b_new is None else tim_b_new.to(torch.float32))
-    accept_g = graph.pack_rows(score >= k.gray_thr)
-    gossip_g = graph.pack_rows(score >= k.gossip_thr)
+    accept_g = graph.pack_rows(score >= gray_thr)
+    gossip_g = graph.pack_rows(score >= gossip_thr)
     pub_g = graph.pack_rows(score >= k.publish_thr)
     nonneg_g = graph.pack_rows(score >= 0)
     gater = gater_row(fd_n, inv_n, gseeds[0], n, same_ip)
@@ -727,7 +783,7 @@ def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
     if k.paired:
         # one gossip selection for both topic slots, outside either mesh
         elig = elig & ~mesh_b
-    tgt = targets_row(k, elig, gseeds[1], n)
+    tgt = targets_row(k, elig, gseeds[1], n, **_targets_knobs(knobs))
     if k.ihave_spam:
         # IHAVE-spamming sybils target every subscribed candidate
         tgt = (tgt & ~syb) | (cand_sub & syb)
@@ -784,7 +840,9 @@ class _Args(ctypes.Structure):
         # the telemetry fields, after those
         + [(name, ctypes.c_void_p) for name in ("lat_masks", "dlv_eff",
                                                  "tel")]
-        + [("tel_lat_buckets", ctypes.c_int)])
+        + [("tel_lat_buckets", ctypes.c_int)]
+        # the knob fields, last
+        + [("knobs", ctypes.c_void_p), ("topic_weight", ctypes.c_float)])
 
 
 _WORDS_N = ("sub_all", "cand_sub", "fanout", "wa", "grafts", "dropped",
@@ -818,6 +876,8 @@ def _check_operands(k: ReceiveConsts, ops: dict) -> None:
             want_names.add("flood_ok")
     if k.tel_lat_buckets:
         want_names |= {"lat_masks", "dlv_eff"}
+    if k.knobs:
+        want_names.add("knobs")
     if names != want_names:
         variant = ("paired" if k.paired else "full" if k.full else
                    "attack" if k.attacks else
@@ -826,6 +886,8 @@ def _check_operands(k: ReceiveConsts, ops: dict) -> None:
             variant += " faulted"
         if k.telemetry:
             variant += " telemetry"
+        if k.knobs:
+            variant += " knobbed"
         raise ValueError(
             f"{variant} receive operands: "
             f"missing {sorted(want_names - names)}, unexpected "
@@ -848,6 +910,9 @@ def _check_operands(k: ReceiveConsts, ops: dict) -> None:
     if k.tel_lat_buckets:
         want["lat_masks"] = ((k.tel_lat_buckets, W), torch.int32)
         want["dlv_eff"] = ((W, n), torch.int32)
+    if k.knobs:
+        want["knobs"] = ((KNOB_GSP + 1 if k.scored else KNOB_BT + 1,),
+                         torch.float32)
     if k.paired:
         want.update({"ctrl2": ((C, n), torch.uint8),
                      "fresh_b": ((W, n), torch.int32),
@@ -971,11 +1036,16 @@ def receive_update(k: ReceiveConsts, **ops):
         if k.tel_lat_buckets:
             a.lat_masks = ops["lat_masks"].data_ptr()
             a.dlv_eff = ops["dlv_eff"].data_ptr()
+    if k.knobs:
+        # null keeps the baked launch arguments
+        a.knobs = ops["knobs"].data_ptr()
+        if k.scored:
+            a.topic_weight = k.topic_weight
     for name, t in outs + paired_outs:
         setattr(a, name, t.data_ptr())
-    lib = _build.load("receive_tel" if k.telemetry else "receive")
-    fn = (lib.gossip_receive_update_tel if k.telemetry
-          else lib.gossip_receive_update)
+    name = library(k)
+    lib = _build.load(name)
+    fn = getattr(lib, "gossip_" + name.replace("receive", "receive_update"))
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -998,6 +1068,16 @@ def receive_update(k: ReceiveConsts, **ops):
     return (acq, mesh, mesh_b, bo_out, bo_b, *gates.unbind(0), *rest)
 
 
+#: the receive kernels' sources (``csrc/<name>.cu``), one library each:
+#: without and with the telemetry tally, each without and with knobs
+SOURCES = ("receive", "receive_tel", "receive_knobs", "receive_tel_knobs")
+
+
+def library(k: ReceiveConsts) -> str:
+    """The source whose library holds ``k``'s kernel."""
+    return SOURCES[int(k.telemetry) + 2 * int(k.knobs)]
+
+
 def variant(k: ReceiveConsts) -> str:
     """The name of ``k``'s kernel variant, the key of its launch count."""
     if k.paired:
@@ -1010,7 +1090,9 @@ def variant(k: ReceiveConsts) -> str:
         name = "scored" if k.scored else "unscored"
     if k.faults:
         name += "_faults"
-    return name + "+tel" if k.telemetry else name
+    if k.telemetry:
+        name += "+tel"
+    return name + "+knobs" if k.knobs else name
 
 
 def operand_bytes(ops: dict, outs) -> int:

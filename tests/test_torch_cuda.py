@@ -15,7 +15,11 @@ tally rows against its plain version); and four whole runs at 100,000
 peers (everything-on single-topic and paired for 400 ticks, the churn
 benchmark for its 250, the telemetry benchmark's flagship for 100 with
 its frames), the card against the CPU by a digest of every state leaf
-(and frame field) every 25th tick.  Exact: every output bit for bit, but
+(and frame field) every 25th tick, and two knob points of the knob sweep
+at 100,000 peers for 100 ticks the same way; each receive family's knob
+variant (clean and faulted, with and without telemetry) at a non-default
+point, card against CPU, and the knob step's host syncs.  Exact: every
+output bit for bit, but
 a frame's ``score_mean``: the mean of non-integer f32 scores, which the
 card and the CPU sum in different orders (relative 1e-5).
 
@@ -36,6 +40,7 @@ from go_libp2p_pubsub_tpu_torch import (
     churn,
     convert,
     everything,
+    knob_sweep,
     telemetry_flagship,
 )
 from go_libp2p_pubsub_tpu_torch.models import faults as pfl
@@ -785,6 +790,14 @@ WHOLE_RUNS = {
     # defaults, frames in the digest
     "telemetry": (lambda d: telemetry_flagship.build(d, n_peers=100_000),
                   100),
+    # the knob sweep's d8 point on the flagship and its hardened defense
+    # on the IHAVE-spam configuration
+    "knobs_d8": (lambda d: knob_sweep.flagship_sim(
+        d, n_peers=100_000, sim_knobs=knob_sweep.FLAGSHIP_POINTS["d8"]),
+        100),
+    "knobs_hardened": (lambda d: knob_sweep.defense_sim(
+        d, n_peers=100_000,
+        sim_knobs=knob_sweep.DEFENSE_POINTS["hardened"]), 100),
 }
 
 
@@ -800,6 +813,102 @@ def test_whole_run_on_the_card_matches_the_cpu(cuda, path):
     assert len(digests) == ticks // 25
     for tick, d_c, d_g in digests:
         assert d_c == d_g, f"{path} tick {tick}"
+
+
+def _knob_point(cfg, sc) -> dict:
+    """A non-default knob point for the small sims: the degree family,
+    gossip_factor, d_lazy and backoff_ticks off their defaults (within
+    the PX ceiling Dhi + 1) and, scored, the defense knobs; only the
+    defense knobs where the IWANT flood refuses a SimKnobs point."""
+    if cfg.n_candidates == 8:
+        point = {"d": 4, "d_hi": 5, "gossip_factor": 0.5,
+                 "backoff_ticks": 5, "d_lazy": 3}
+    else:
+        point = {"d": 8, "d_lo": 6, "d_hi": 12, "d_lazy": 4,
+                 "gossip_factor": 0.4, "backoff_ticks": 4}
+    defense = {"graylist_threshold": -60.0, "behaviour_penalty_weight": -40.0,
+               "invalid_message_deliveries_weight": -20.0,
+               "gossip_threshold": -5.0}
+    if sc is None:
+        return dict(sim_knobs=point)
+    if sc.sybil_iwant_spam:
+        return dict(score_knobs=defense)
+    return dict(sim_knobs=dict(point, **defense))
+
+
+def _armed(sim, device):
+    """``sim`` armed at ``_knob_point`` on ``device``."""
+    cfg, sc, params, state = sim
+    px = cfg.d_hi + 1 if state.active is not None else None
+    params = pgs.knob_params(cfg, sc, params, px_candidates=px,
+                             **_knob_point(cfg, sc))
+    return cfg, sc, params, pgs.refresh_gates(cfg, sc, params, state)
+
+
+@pytest.mark.parametrize("family", sorted(FAULTED))
+@pytest.mark.parametrize("faulted", [False, True])
+@pytest.mark.parametrize("tel", [False, True])
+@pytest.mark.parametrize("c,w_words", [(8, 2), (16, 1)])
+def test_knob_step_on_the_card_matches_the_cpu(cuda, family, faulted, tel,
+                                               c, w_words):
+    """Each receive family's knob variant (clean and under ``_sched``,
+    with and without telemetry) at a non-default point on the card
+    against its plain version on the CPU: every state leaf (and frame
+    field) for 20 ticks, the variant launched once a tick."""
+    build, variant = FAULTED[family]
+    variant = ((variant if faulted else variant[:-len("_faults")])
+               + ("+tel" if tel else "") + "+knobs")
+    sim_c = build(c, w_words, "cpu")
+    if family == "unscored":
+        cfg, sc, p_c, s_c = sim_c
+        p_g = pgs.GossipParams(**{
+            f: (v.to(cuda) if isinstance(v, torch.Tensor) else v)
+            for f, v in vars(p_c).items()})
+        s_g = convert.state_from_numpy(convert.state_to_numpy(s_c), None,
+                                       cuda)
+        sim_g = (cfg, sc, p_g, s_g)
+    else:
+        sim_g = build(c, w_words, cuda)
+    if faulted:
+        sim_c, sim_g = _faulted(sim_c, "cpu"), _faulted(sim_g, cuda)
+    cfg, sc, p_c, s_c = _armed(sim_c, "cpu")
+    _, _, p_g, s_g = _armed(sim_g, cuda)
+    tcfg = TEL_ALL if tel else None
+    step_c = pgs.make_gossip_step(cfg, sc, device="cpu", telemetry=tcfg)
+    step_g = pgs.make_gossip_step(cfg, sc, device=cuda, telemetry=tcfg)
+    before = prc.launches[variant]
+    for tick in range(20):
+        s_c, _, *f_c = step_c(p_c, s_c)
+        s_g, _, *f_g = step_g(p_g, s_g)
+        assert _state_digest(s_c) == _state_digest(s_g), tick
+        if tel:
+            assert _frame_digest(f_c[0]) == _frame_digest(f_g[0]), tick
+            _assert_score_mean_close(f_c[0], f_g[0], f"tick {tick}")
+    assert prc.launches[variant] - before == 20
+
+
+def test_knob_step_adds_no_host_sync(cuda):
+    """The knob step on the card syncs with the host as often as the
+    baked step does (the scored step's prune ``nonzero``), counted as
+    ``torch.cuda.set_sync_debug_mode("warn")`` warnings."""
+    import warnings
+
+    sims = {"baked": _surface_sim("direct", 16, 1, cuda)}
+    sims["knobs"] = _armed(sims["baked"], cuda)
+    counts = {}
+    for label, (cfg, sc, p, s) in sims.items():
+        step = pgs.make_gossip_step(cfg, sc, device=cuda)
+        s = step(p, s)[0]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                step(p, s)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        counts[label] = len(caught)
+    assert counts["knobs"] == counts["baked"], counts
 
 
 #: the telemetry tests' groups: every group, all three histograms

@@ -150,14 +150,17 @@ def _sched(**kw):
 REFUSED = {
     # paired overlays step per tick
     "fused_paired": [lambda: _window(cfg=_cfg(paired_topics=True))],
-    # faults or telemetry with knobs or delays keep those options' names:
-    # they are refused when the sim is built, before any step exists
-    "knobs": [lambda: _sim(score_knobs={}), lambda: _sim(sim_knobs={}),
-              lambda: _sim(fault_schedule=_sched(),
-                           sim_knobs={"drop_prob": 0.1})],
+    # a knob-carrying sim steps per tick, as in the reference
+    "fused_knobs": [lambda: _fused_run(8, sim_knobs={}),
+                    lambda: _fused_run(8, sim_knobs={"d": 5, "d_lo": 4})],
+    # faults or telemetry with delays keep the delays name, and so do
+    # knobs with delays and the delay knobs: refused when the sim is built
     "delays": [lambda: _sim(delays=object()),
                lambda: _sim(delays_probe=True),
-               lambda: _sim(fault_schedule=_sched(), delays=object())],
+               lambda: _sim(fault_schedule=_sched(), delays=object()),
+               lambda: _sim(sim_knobs={"d": 5}, delays=object()),
+               lambda: _sim(score_knobs={}, delays=object()),
+               lambda: _sim(sim_knobs={"delay_base": 2})],
     "rpc_probe": [lambda: _step(rpc_probe=True)],
     "invariants": [lambda: _step(invariants=object())],
     "byzantine": [
@@ -229,6 +232,35 @@ def test_telemetry_runs_on_the_step_and_the_window():
     state, frames = pgs.gossip_run_frames_fused(params, state, 16, win,
                                                 device="cpu")
     assert state.tick == 16 and frames.payload_sent.shape == (16,)
+
+
+def test_knobs_run_on_the_step_and_keep_the_references_refusals():
+    """Knobs are no longer refused: a knob point builds and steps, with
+    faults (the fault knob too) and telemetry.  A SimKnobs point on an
+    IWANT-flood config raises the reference's ValueError when stepped; the
+    legacy score_knobs surface runs there."""
+    assert "knobs" not in plan.REFUSALS
+    point = {"d": 5, "d_lo": 4, "gossip_factor": 0.5,
+             "graylist_threshold": -60.0}
+    params, state = _sim(sim_knobs=point)
+    assert params.sim_knobs is not None and params.sim_knobs.score is not None
+    state = pgs.gossip_run(params, state, 5, _step(), device="cpu")
+    assert state.tick == 5
+    params, state = _sim(fault_schedule=_sched(),
+                         sim_knobs=dict(point, drop_prob=0.02))
+    state, _, frame = _step(telemetry=ptl.TelemetryConfig())(params, state)
+    assert state.tick == 1 and float(params.faults.drop_prob) == float(
+        np.float32(0.02))
+    flood = pgs.ScoreSimConfig(sybil_ihave_spam=True, sybil_iwant_spam=True)
+    sybil = np.arange(N) % 5 == 0
+    params, state = _sim(sc=flood, sybil=sybil, sim_knobs={})
+    with pytest.raises(ValueError) as err:
+        _step(sc=flood)(params, state)
+    assert str(err.value) == plan.MSG_KERNEL_KNOB_IWANT_SPAM
+    params, state = _sim(sc=flood, sybil=sybil,
+                         score_knobs={"behaviour_penalty_weight": -40.0})
+    state = pgs.gossip_run(params, state, 3, _step(sc=flood), device="cpu")
+    assert state.tick == 3
 
 
 def test_more_refusals():

@@ -12,6 +12,8 @@ checked on the JAX reference.
         [--n 100000]
     JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --telemetry \
         [--n 100000] [--port]
+    JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --knobs \
+        [--n 100000] [--port]
 
 Runs the JAX package's unscored per-tick step (XLA) on the resident
 configuration (go_libp2p_pubsub_tpu_torch/resident.py: 10 topics, C = 16,
@@ -68,6 +70,18 @@ unrounded, the flagship's gates on both runs and whether the two runs'
 states are equal.  With ``--port`` the port's plain CPU run of the same
 benchmark (``telemetry_flagship.run("cpu", n_peers=n)``, many minutes at
 100,000 peers) must give the same ratio and totals; exits 1 if not.
+
+With ``--knobs`` it runs the knob sweep (go_libp2p_pubsub_tpu_torch/
+knob_sweep.py: the flagship at its protocol points, the defenses on the
+IHAVE-spam configuration, the fault knob on the churn benchmark) on the
+JAX package's XLA step at ``--n`` peers, each point's sim built by its
+``make_gossip_sim(sim_knobs=point)`` and stepped as the sweep steps it,
+and prints each point's gates and the digest of every state leaf
+(``knob_sweep.tree_digest``); exits 1 if a gate or an identity (ref,
+reference and the churn point at 0.02 equal to baked) fails.  With
+``--port`` the port's plain CPU run of the same sweep
+(``knob_sweep.run_sweep``, about an hour at 100,000 peers) must give the
+same digests and gates.
 """
 
 import argparse
@@ -81,7 +95,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from go_libp2p_pubsub_tpu_torch import (  # noqa: E402
     adversarial,
+    churn,
     everything,
+    flagship,
+    knob_sweep,
     resident,
     telemetry_flagship,
 )
@@ -306,6 +323,155 @@ def telemetry_rows(n: int, port: bool) -> int:
     return 0 if ok else 1
 
 
+def reference_knob_sims(r, kind: str, n: int):
+    """The reference's sim builder of one sweep at ``n`` peers, in the
+    port's builders' draw order: ``build(point) -> (cfg, sc, params,
+    state, msg_topic, msg_tick, probes)``; and its (warm-up, timed)
+    ticks."""
+    gs = r.gs
+    t, m, C = flagship.N_TOPICS, flagship.N_MSGS, flagship.N_CAND
+    warmup, timed = knob_sweep.SWEEPS[kind][2]
+    horizon = warmup + timed
+    if kind == "churn":
+        def build(point):
+            (cfg, sc, _, _, sched, probes, *_) = reference_churn_sim(r, n)
+            kw = {} if point is None else {"sim_knobs": point}
+            rng = np.random.default_rng(0)
+            topic = rng.integers(0, t, m)
+            origin = rng.integers(0, n // t, m) * t + topic
+            tick = np.sort(rng.integers(0, horizon - 40, m)).astype(np.int32)
+            tick[probes] = churn.heal_tick() - 2
+            origin[probes] = ((origin[probes] % (n // 2 // t)) * t
+                              + topic[probes])
+            params, state = gs.make_gossip_sim(
+                cfg, resident.subs_matrix(n, t), topic, origin, tick,
+                score_cfg=sc, track_first_tick=False, fault_schedule=sched,
+                **kw)
+            return cfg, sc, params, state, topic, tick, probes
+        return build, warmup, timed
+    cfg = gs.GossipSimConfig(offsets=gs.make_gossip_offsets(t, C, n, seed=0),
+                             n_topics=t)
+    if kind == "flagship":
+        rng = np.random.default_rng(0)
+        topic = rng.integers(0, t, m)
+        origin = rng.integers(0, n // t, m) * t + topic
+        tick = np.sort(rng.integers(0, horizon, m)).astype(np.int32)
+        sc, extra = gs.ScoreSimConfig(), {}
+    else:
+        sybil, topic, origin, tick = adversarial.draws(n, t, horizon)
+        sc, extra = gs.ScoreSimConfig(sybil_ihave_spam=True), dict(
+            sybil=sybil)
+
+    def build(point):
+        kw = dict(extra) if point is None else dict(extra, sim_knobs=point)
+        params, state = gs.make_gossip_sim(
+            cfg, resident.subs_matrix(n, t), topic, origin, tick,
+            score_cfg=sc, track_first_tick=False, **kw)
+        return cfg, sc, params, state, topic, tick, None
+    return build, warmup, timed
+
+
+def knob_rows(n: int, port: bool) -> int:
+    """The knob sweep's gates and digests on the reference (and, with
+    ``port``, the port's CPU run against them)."""
+    import jax
+
+    from torch_ref import tree_to_numpy
+
+    ok, want = True, {}
+    with imported_reference() as r:
+        import go_libp2p_pubsub_tpu.models.faults as rfl
+        from go_libp2p_pubsub_tpu.models._delivery import recovery_ticks
+
+        r.faults = rfl
+        gs = r.gs
+        for kind in knob_sweep.SWEEPS:
+            build, warmup, timed = reference_knob_sims(r, kind, n)
+            horizon = warmup + timed
+            steps = {}
+            rows = want[kind] = {}
+            for pname, point in knob_sweep.SWEEPS[kind][1].items():
+                cfg, sc, params, state, topic, tick, probes = build(point)
+                key = point is None
+                if key not in steps:
+                    steps[key] = jax.jit(gs.make_gossip_step(cfg, sc))
+                m = len(topic)
+                counts = []
+                for i in range(horizon):
+                    state, dlv = steps[key](params, state)
+                    if kind == "churn" and i >= warmup:
+                        counts.append(np.asarray(
+                            gs.count_bits_per_position(dlv, m)))
+                row = dict(digest=knob_sweep.tree_digest(
+                    tree_to_numpy(state)))
+                if kind == "flagship":
+                    d_lo = cfg.d_lo if not point else point.get("d_lo",
+                                                                 cfg.d_lo)
+                    deg = float(np.asarray(gs.mesh_degrees(state))[
+                        np.asarray(params.subscribed)].mean())
+                    reach = np.asarray(gs.reach_counts_from_have(params,
+                                                                 state))
+                    settled = tick < horizon - 30
+                    row.update(mean_mesh_degree=deg, d_lo=d_lo,
+                               delivery_ok=bool((reach[settled]
+                                                 == n // cfg.n_topics).all()))
+                    row["gates_ok"] = deg >= d_lo and row["delivery_ok"]
+                elif kind == "defense":
+                    honest = ~np.asarray(params.sybil)
+                    reach = np.asarray(gs.reach_counts_from_have(
+                        params, state, mask=honest))
+                    keep = honest & np.asarray(params.subscribed)
+                    deg = float(np.asarray(gs.mesh_degrees(state))[
+                        keep].mean())
+                    cls = np.arange(n) % cfg.n_topics
+                    members = np.array([(honest & (cls == tau)).sum()
+                                        for tau in topic])
+                    settled = tick < horizon - 30
+                    row.update(honest_mean_degree=deg,
+                               delivery_ok=bool((reach[settled]
+                                                 == members[settled]).all()))
+                    row["gates_ok"] = deg >= cfg.d_lo and row["delivery_ok"]
+                else:
+                    reach = np.asarray(gs.reach_counts_from_have(params,
+                                                                 state))
+                    w_ = np.full(m, n // cfg.n_topics, dtype=np.float32)
+                    settled = np.ones(m, dtype=bool)
+                    settled[probes] = False
+                    frac = float((reach[settled] / w_[settled]).mean())
+                    rec = np.asarray(recovery_ticks(
+                        np.stack(counts), churn.heal_tick() - warmup, w_,
+                        frac=churn.RECOVERY_FRAC))[probes]
+                    row.update(delivery_fraction=frac,
+                               probe_recovery_ticks=rec.tolist(),
+                               delivery_ok=frac
+                               > churn.MIN_DELIVERY_FRACTION)
+                    row["gates_ok"] = row["delivery_ok"] and bool(
+                        (rec >= 0).any())
+                rows[pname] = row
+                ok &= row["gates_ok"]
+                print(f"{kind} {pname}: {row}", flush=True)
+            ident = knob_sweep.IDENTITY[kind]
+            same = rows[ident]["digest"] == rows["baked"]["digest"]
+            ok &= same
+            differ = sorted(p_ for p_, r_ in rows.items()
+                            if r_["digest"] != rows["baked"]["digest"])
+            print(f"{kind}: {ident} == baked: {same}; digests differing "
+                  f"from baked: {differ}", flush=True)
+    if port:
+        for kind in knob_sweep.SWEEPS:
+            got = knob_sweep.run_sweep(kind, "cpu", n)
+            for pname, row in got["rows"].items():
+                w_ = want[kind][pname]
+                match = (row["digest"] == w_["digest"]
+                         and row["gates_ok"] == w_["gates_ok"])
+                ok &= match
+                print(f"port (CPU) {kind} {pname}: digest {row['digest']}, "
+                      f"gates {row['gates_ok']}; equal to the reference: "
+                      f"{match}", flush=True)
+    print("gates", "pass" if ok else "FAIL")
+    return 0 if ok else 1
+
+
 def paired_report(cfg, params, state, honest, gs) -> None:
     """The slot-B mesh degree of the honest subscribed peers, and the
     cross-slot symmetry: the share of mesh edges, both slots', that the
@@ -342,6 +508,7 @@ def main() -> int:
     ap.add_argument("--everything-paired", action="store_true")
     ap.add_argument("--churn", action="store_true")
     ap.add_argument("--telemetry", action="store_true")
+    ap.add_argument("--knobs", action="store_true")
     ap.add_argument("--port", action="store_true")
     ap.add_argument("--ticks", type=int, default=400)
     args = ap.parse_args()
@@ -349,6 +516,8 @@ def main() -> int:
         return churn_gates(args.n or 100_000)
     if args.telemetry:
         return telemetry_rows(args.n or 100_000, args.port)
+    if args.knobs:
+        return knob_rows(args.n or 100_000, args.port)
     if args.adversarial or args.everything or args.everything_paired:
         return adversarial_gates(
             args.n or 100_000, args.ticks,
