@@ -5,10 +5,11 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. the device: torch's name and count, nvidia-smi's name and power limit;
-2. build the six CUDA sources from ``go_libp2p_pubsub_tpu_torch/csrc``
+2. build the seven CUDA sources from ``go_libp2p_pubsub_tpu_torch/csrc``
    (one nvcc per source, concurrently: select, receive, its telemetry
    twin receive_tel, their knob twins receive_knobs and
-   receive_tel_knobs, fused), printing ptxas' register and spill lines;
+   receive_tel_knobs, the delay mode's receive_delays, fused), printing
+   ptxas' register and spill lines;
 3. the select kernel against its plain version at 1,000,000 peers,
    C = 16, seeded: bit-identical; both timed with CUDA events;
 4. the receive kernel against its plain version at the flagship shapes
@@ -190,6 +191,33 @@ Phases (any failure exits non-zero; nothing is caught):
    other, baked its twin; every point's gates; ref's, the reference
    defense's and the churn point at 0.02's digests of every state leaf
    equal to baked's; each point's heartbeats/s beside baked's;
+5p. the receive kernel's delay mode (``+delays``) against its plain
+   version (``delay_variants``): the flagship's scored options, the attack
+   options tracking promises and the full variant (exact-k, PX, the
+   shared-IP gater) at N = 1,000,000, C = 16, W = 1, unscored at the
+   resident shapes, each without and with knobs; on seeded random
+   operands and on a real tick of the family's delayed sim
+   (DelayConfig(4, 2, 8)) with arrivals and retractions (attack: also
+   broken-promise adverts) live, the variant launched once per tick of
+   the run to it and no other: every output bit-identical; the variant,
+   its plain version and its delay-free twin (the same tick of the sim
+   without delays) timed;
+5q. the slice's main path: the JAX package's pipelined-gossip benchmark
+   (go_libp2p_pubsub_tpu_torch/pipelined.py) as written at 100,000 peers
+   and at full width, 1,000,000: the points base1, base2, base4 and
+   base4j2 armed one after another on one built sim (DelayConfig(1, 0, 8),
+   the latency histogram on) and run 48 ticks from build through
+   telemetry_run, counts reset just before each point and read just
+   after: every point's ``scored+delays+knobs`` once a tick and no other
+   receive variant, no kernel library built after the first point; the
+   rows (delivery fraction, latency percentiles, histogram, the p99
+   stretch, the replica heartbeats/s, peak memory) and the benchmark's two
+   gates; then at 1,000,000 peers the K = 1 identity (DelayConfig(1, 0,
+   1) on the flagship for 48 ticks: the digest of every leaf both runs
+   carry equal to the delay-free flagship's) and the steady state
+   (DelayConfig(4, 2, 8) beside no delays, 100 + 100 heartbeats each, then
+   20 delayed ones profiled: the device's idle share, the delay ranges and
+   the top device operations);
 6. the unscored receive kernel against its plain version at the resident
    configuration's shapes (N = 1,048,576, C = 16, W = 1), on seeded random
    operands and on the operands of a real unscored tick: every output
@@ -417,6 +445,178 @@ def fault_operands(k, ops, device, seed: int):
     return out
 
 
+def delay_receive_operands(k, ops, device, seed: int):
+    """``ops`` (a variant's random operands) in the delay mode's form,
+    seeded: the sender streams and (scored) the receiver's gate words left
+    out, random arrivals [C·W, N] (a word in four set) and GRAFT, PRUNE,
+    retraction and (tracking promises) broken-promise advert words in."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    C = k.n_candidates
+    w, n = ops["seen"].shape
+
+    def words(shape, bits=32):
+        hi = torch.randint(0, 1 << 16, shape, generator=g, device=device)
+        lo = torch.randint(0, 1 << 16, shape, generator=g, device=device)
+        v = ((hi << 16) | lo) & ((1 << bits) - 1)
+        return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+    sender = ("ctrl", "fresh", "adv", "inj_send", "pay", "gsp", "acc")
+    out = {key: v for key, v in ops.items() if key not in sender}
+    out.update(arr=words((C * w, n)) & words((C * w, n)),
+               graft_arr=words((n,), C) & words((n,), C),
+               prune_arr=words((n,), C) & words((n,), C),
+               retract=words((n,), C) & words((n,), C))
+    if k.track_promises:
+        out["cheat_arr"] = words((n,), C) & words((n,), C)
+    return out
+
+
+#: the knob point of the delayed variants' real ticks (the seven kernel
+#: knobs off their defaults; unscored, the protocol three)
+DELAY_KNOB_POINT = {"gossip_factor": 0.4, "d_lazy": 4, "backoff_ticks": 6,
+                    "invalid_message_deliveries_weight": -20.0,
+                    "behaviour_penalty_weight": -40.0,
+                    "graylist_threshold": -60.0, "gossip_threshold": -5.0}
+
+
+def delayed_tick(params, state, step, krecv, first: int, last: int,
+                 need_cheat: bool):
+    """Step a delayed sim from its state, capturing each tick's receive
+    operands, up to the first tick in [first, last] whose arrivals and
+    retractions (and, ``need_cheat``, broken-promise adverts) are live:
+    (that tick, its operands, the launches counted on the way)."""
+    real = krecv.receive_update
+    box = []
+
+    def capture(k_, **ops_):
+        box[:] = [ops_]
+        return real(k_, **ops_)
+
+    krecv.launches.clear()
+    krecv.receive_update = capture
+    try:
+        for tick in range(last + 1):
+            state = step(params, state)[0]
+            o = box[0]
+            live = [o["arr"], o["retract"]]
+            if need_cheat:
+                live.append(o["cheat_arr"])
+            if tick >= first and all(bool(x.any()) for x in live):
+                break
+        else:
+            fail(f"no tick in [{first}, {last}] with live delay operands")
+    finally:
+        krecv.receive_update = real
+    torch.cuda.synchronize()
+    return tick, box[0], dict(krecv.launches)
+
+
+def delay_variants(dev, n: int, n_r: int, seed: int = 701) -> dict:
+    """Phase 5p: each delayed receive variant (the flagship's scored
+    options, the attack options tracking promises, the full variant with
+    exact-k, PX and the shared-IP gater at ``n`` peers; unscored at the
+    resident shapes, ``n_r``), each without and with knobs, against its
+    plain version on seeded random operands and on a real tick of the
+    family's delayed sim (``pipelined.family_sim``, DelayConfig(4, 2, 8),
+    messages published over the first 16 ticks (unscored: the resident
+    benchmark's 8); the first tick from 8 on with arrivals, retractions
+    and, for the attack variant, broken-promise adverts live): every output
+    bit-identical; the variant, its plain version and its delay-free twin
+    on the same tick of the sim without delays timed.  One result per
+    kernel name."""
+    import dataclasses
+
+    from go_libp2p_pubsub_tpu_torch import pipelined
+    from go_libp2p_pubsub_tpu_torch.models import gossipsub as pg
+    from go_libp2p_pubsub_tpu_torch.ops.kernels import receive as krecv
+
+    C = 16
+    out = {}
+    for fam in ("scored", "attacks", "full", "unscored"):
+        n_f = n_r if fam == "unscored" else n
+        horizon = 8 if fam == "unscored" else 16
+        for knobs in (False, True):
+            point = None
+            if knobs:
+                point = ({key: DELAY_KNOB_POINT[key] for key in (
+                    "gossip_factor", "d_lazy", "backoff_ticks")}
+                    if fam == "unscored" else DELAY_KNOB_POINT)
+            cfg, sc, params, state = pipelined.family_sim(
+                fam, dev, n_f, horizon=horizon, knobs=point)
+            k = krecv.receive_consts(
+                cfg, sc, px=state.active is not None,
+                same_ip=params.cand_same_ip is not None, knobs=knobs,
+                delays=True)
+            # random operands: the full variant with flood publishing and
+            # exact-k on, the attack options with the IHAVE spam
+            seed += 7
+            if fam == "full":
+                k_r = dataclasses.replace(k, flood_publish=True,
+                                          exact_k=True)
+                rops = full_receive_operands(k_r, n_f, dev, seed)
+            else:
+                k_r = k
+                rops = random_receive_operands(k_r, n_f, 1, dev, seed)
+            if k_r.attacks and "syb" not in rops:
+                g = torch.Generator(device=dev)
+                g.manual_seed(seed + 2)
+                rops["syb"] = torch.where(
+                    torch.rand(n_f, generator=g, device=dev) < 0.2,
+                    (1 << C) - 1, 0).to(torch.int32)
+            rops = delay_receive_operands(k_r, rops, dev, seed + 1)
+            if knobs:
+                v = [0.4, 4.0, 13.0] + ([-13.0, -40.0, -60.0, -5.0]
+                                        if k_r.scored else [])
+                rops["knobs"] = torch.tensor(v, dtype=torch.float32,
+                                             device=dev)
+            got = krecv.receive_update(k_r, **rops)
+            torch.cuda.synchronize()
+            label = ("receive_update"
+                     + ("" if fam == "scored" else "_" + fam)
+                     + "_delays" + ("_knobs" if knobs else ""))
+            err = check_identical(f"{label} (random operands)", got,
+                                  krecv.receive_update_plain(k_r, **rops))
+            del rops, got
+            step = pg.make_gossip_step(cfg, sc, device=dev)
+            tick, ops, launched = delayed_tick(
+                params, state, step, krecv, 8, 60, fam == "attacks")
+            if launched != {krecv.variant(k): tick + 1}:
+                fail(f"{label}: launches {launched}")
+            want = krecv.receive_update_plain(k, **ops)
+            got = krecv.receive_update(k, **ops)
+            torch.cuda.synchronize()
+            err = max(err, check_identical(f"{label} (tick {tick})", got,
+                                           want))
+            ms = device_ms(lambda: krecv.receive_update(k, **ops), 50)
+            plain = device_ms(lambda: krecv.receive_update_plain(k, **ops),
+                              5)
+            nbytes = krecv.operand_bytes(ops, got)
+            bnd = bound(nbytes, receive_ops(k, ops))
+            del want, got, step
+            # the delay-free twin on the same tick of the sim without delays
+            params_t = dataclasses.replace(params, delays=None)
+            state_t = dataclasses.replace(state, pay_line=None,
+                                          ctrl_line=None)
+            k_t = dataclasses.replace(k, delays=False)
+            step_t = pg.make_gossip_step(cfg, sc, device=dev)
+            ops_t = capture_receive(lambda: pg.gossip_run(
+                params_t, state_t, tick + 1, step_t, device=dev), krecv)
+            twin = device_ms(lambda: krecv.receive_update(k_t, **ops_t), 50)
+            print(f"{label}: identical at N={n_f}, C={C}, W=1 (random "
+                  f"operands, tick {tick} of the delayed sim); device time: "
+                  f"kernel {ms:.4f} ms (twin without delays {twin:.4f}), "
+                  f"plain {plain:.3f} ms; {nbytes / n_f:.1f} B/peer, bound "
+                  f"{bnd[0]:.4f} ms ({bnd[1]}); {tick + 1} launches of "
+                  f"{krecv.variant(k)} to tick {tick}")
+            out[label] = dict(err=err, ms=ms, plain_ms=plain, twin_ms=twin,
+                              bytes_per_peer=nbytes / n_f, bound=bnd,
+                              launches=tick + 1, tick=tick,
+                              variant=krecv.variant(k))
+            del ops, ops_t, params, state, params_t, state_t, step_t
+    return out
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per compiled kernel: its name with its template
     arguments (``receive_kernel<16,1,1,0,1,1>``), registers and spill
@@ -455,10 +655,11 @@ def receive_ops(k, ops) -> int:
     rows), ~3 per message word (the new ids) and ~3 per latency row and
     word, and the block's sums (~8 + L a peer)."""
     n = ops["sub_all"].shape[0]
-    W = ops["fresh"].shape[0]
+    W = ops["seen"].shape[0]
     C = k.n_candidates
-    open_words = 0
-    for j, (o, ci) in enumerate(zip(k.offsets, k.cinv)):
+    # (delay mode: every arrival word is read; no ctrl byte to parse)
+    open_words = C * W * n if k.delays else 0
+    for j, (o, ci) in enumerate(() if k.delays else zip(k.offsets, k.cinv)):
         ctl = torch.roll(ops["ctrl"][ci], -o).to(torch.int32)
         ok_p = (ops["pay"] >> j) & 1 if k.scored else 1
         ok_g = ok_p & ((ops["gsp"] >> j) & 1) if k.scored else 1
@@ -552,6 +753,7 @@ def main() -> None:
         everything,
         flagship,
         knob_sweep,
+        pipelined,
         resident,
         telemetry_flagship,
     )
@@ -578,7 +780,7 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
-    # -- 2. build the six kernel sources, concurrently
+    # -- 2. build the seven kernel sources, concurrently
     t0 = time.perf_counter()
     logs = _build.build(("select", *krecv.SOURCES, "fused"))
     for src, log in logs.items():
@@ -2071,6 +2273,65 @@ def main() -> None:
                                       + row["launches"].get(v_, 0))
     del sweep
 
+    # -- 5p. B1's delay mode against its plain version, each family with
+    # and without knobs, on random operands and on a real delayed tick
+    t0 = time.perf_counter()
+    delay_k = delay_variants(dev, n, resident.N_PEERS)
+    print(f"5p: {time.perf_counter() - t0:.1f} s")
+
+    # -- 5q. the slice's main path: the pipelined-gossip benchmark at
+    # 100,000 and 1,000,000 peers, each point's counts reset just before its
+    # run and read just after; then the K = 1 identity and the steady state
+    main_pipe = {}
+    for n_p in (pipelined.N_PEERS, pipelined.FULL_WIDTH):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = pipelined.run(dev, n_p)
+        for pid, row in r["rows"].items():
+            print(f"pipelined {n_p} {pid}: delivery fraction "
+                  f"{row['delivery_fraction']!r}, latency {row['latency']}, "
+                  f"{row['heartbeats_per_s']:.2f} heartbeats/s, peak memory "
+                  f"{row['peak_bytes']} B, launches {row['launches']} "
+                  f"(select {row['select_launches']}), digest "
+                  f"{row['digest']}, histogram {row['hist']}")
+        print(f"pipelined {n_p}: gates {r['gates']}, p99 {r['p99']}, "
+              f"p99_stretch_base4 {r['p99_stretch_base4']!r}, replica "
+              f"heartbeats/s {r['replica_heartbeats_per_s']!r}, launches ok "
+              f"{r['launches_ok']}, a library built after the first point "
+              f"{r['rebuilt_after_first']} ({time.perf_counter() - t0:.1f} s)"
+              f" [{name}, {smi}]")
+        if not r["ok"]:
+            fail(f"pipelined benchmark at {n_p} peers: "
+                 f"{json.dumps({k_: v for k_, v in r.items() if k_ != 'rows'})}")
+        main_pipe[n_p] = r
+    ident = pipelined.identity(dev)
+    print(f"pipelined identity at {pipelined.FULL_WIDTH} peers: K = 1 "
+          f"digest {ident['k1']}, without delays {ident['plain']}")
+    if not ident["ok"]:
+        fail(f"DelayConfig(1, 0, 1) departs from the step without delays: "
+             f"{ident}")
+    steady = pipelined.steady_state(dev)
+    prof_d = steady["profile_delayed"]
+    for label in ("plain", "delayed"):
+        s_ = steady[label]
+        print(f"steady state {label} at {pipelined.FULL_WIDTH} peers: "
+              f"{s_['heartbeats_per_s']:.2f} heartbeats/s "
+              f"({s_['ms_per_tick']:.3f} ms/tick), mean mesh degree "
+              f"{s_['mean_mesh_degree']:.3f}, peak memory {s_['peak_bytes']} "
+              f"B, launches {s_['launches']} [{name}, {smi}]")
+        if s_["launches"] != {"scored" + ("+delays" if label == "delayed"
+                                          else ""): pipelined.STEADY_WARMUP
+                              + pipelined.STEADY_TIMED}:
+            fail(f"steady state {label}: launches {s_['launches']}")
+    print(f"steady state delayed profile: {prof_d['wall_ms_per_tick']:.3f} "
+          f"ms/tick wall, {prof_d['device_busy_ms_per_tick']:.3f} busy, idle "
+          f"share {prof_d['device_idle_share']!r}; ranges "
+          f"{json.dumps(prof_d['ranges'])}; top device operations "
+          f"{json.dumps(prof_d['kernels'][:10])}")
+    main_delay_launches = sum(
+        r_["rows"][pid]["launches"].get(pipelined.VARIANT, 0)
+        for r_ in main_pipe.values() for pid in r_["rows"])
+
     # -- 6. the unscored receive kernel vs plain at the resident shapes
     n_r = resident.N_PEERS
     cfg_r, params, state, msg_topic, _ = resident.build(dev)
@@ -2242,6 +2503,16 @@ def main() -> None:
             f"{pname} {row['heartbeats_per_s']:.2f}"
             for pname, row in main_knobs[kind]["rows"].items())
         for kind in knob_sweep.SWEEPS))
+    print(f"pipelined [{name}, {smi}]: " + "; ".join(
+        f"{n_p} peers replica heartbeats/s "
+        f"{r_['replica_heartbeats_per_s']:.2f}, p99 " + ", ".join(
+            f"{pid} {p99}" for pid, p99 in r_["p99"].items())
+        + f", p99_stretch_base4 {r_['p99_stretch_base4']!r}"
+        for n_p, r_ in main_pipe.items())
+        + f"; steady state at {pipelined.FULL_WIDTH} peers heartbeats/s "
+        f"without delays {steady['plain']['heartbeats_per_s']:.2f}, "
+        f"DelayConfig(4, 2, 8) {steady['delayed']['heartbeats_per_s']:.2f}, "
+        f"delayed idle share {prof_d['device_idle_share']!r}")
     print(f"churn rows [{name}, {smi}]: heartbeats/s {hb_c!r}; delivery "
           f"fraction {main_churn['delivery_fraction']!r} (gate > "
           f"{churn.MIN_DELIVERY_FRACTION}); partition recovery ticks, "
@@ -2364,6 +2635,20 @@ def main() -> None:
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=None))
+    # the delayed variants: for the main path's (the flagship's scored
+    # options with knobs) the pipelined runs' launches, else those of the
+    # run to the checked tick
+    for kname, r in delay_k.items():
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source="go_libp2p_pubsub_tpu_torch/csrc/receive_delays.cu",
+            replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
+            launches=(main_delay_launches
+                      if r["variant"] == pipelined.VARIANT
+                      else r["launches"]),
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound"][0], bound_by=r["bound"][1],
+            library_ms=None))
     for kname, r in fused_tel.items():
         kernels.append(dict(
             name=kname, route="cuda",
@@ -2391,6 +2676,12 @@ def main() -> None:
             kname: {key: v for key, v in r.items() if key != "bound"}
             for kname, r in fused_tel.items()},
         "knob_sweep": main_knobs,
+        "pipelined": {str(n_p): r_ for n_p, r_ in main_pipe.items()},
+        "pipelined_identity": ident,
+        "pipelined_steady_state": steady,
+        "delay_receive": {
+            kname: {key: v for key, v in r.items() if key != "bound"}
+            for kname, r in delay_k.items()},
         "knob_receive": {
             kname: {key: v for key, v in r.items() if key != "bound"}
             for kname, r in knob_k.items()},

@@ -23,7 +23,11 @@ This module never imports the reference; the caller flattens it.
   leaf itself);
 - ``score_knobs`` and ``sim_knobs`` (nested dicts of 0-d leaves, or
   None; ``sim_knobs["score"]`` a nested dict or None) become
-  ``ScoreKnobs`` and ``SimKnobs`` of 0-d tensors, leaf by leaf.
+  ``ScoreKnobs`` and ``SimKnobs`` of 0-d tensors, leaf by leaf;
+- ``delays`` (a nested dict, or None) becomes ``DelayParams``: ``base``,
+  ``jitter`` and ``seed`` 0-d int32 tensors (the seed's u32 bits),
+  ``k_slots`` a host int; the state's delay lines (``pay_line``,
+  ``ctrl_line``, ``gsp_line``, ``adv_line``) are words like the rest.
 
 The reverse functions give uint32 words back as uint32 and bf16 leaves
 as their raw uint16 patterns, so two trees compare bit for bit;
@@ -40,6 +44,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .models.delays import DelayParams
 from .models.faults import FaultParams
 from .models.knobs import SIM_KNOB_FIELDS, SimKnobs
 from .models.telemetry import TelemetryFrame
@@ -60,7 +65,8 @@ PARAM_TENSORS = ("subscribed", *PARAM_WORDS, "publish_tick",
                  "cand_app_score", "cand_colo_excess", "cand_static_score",
                  "cand_sybil", "sybil", "promise_break", "eclipse_sybil",
                  "eclipse_victim")
-STATE_WORDS = ("mesh", "fanout", "have", "recent", "active", "mesh_b")
+STATE_WORDS = ("mesh", "fanout", "have", "recent", "active", "mesh_b",
+               "pay_line", "ctrl_line", "gsp_line", "adv_line")
 STATE_TENSORS = (*STATE_WORDS, "last_pub", "backoff", "first_tick",
                  "iwant_serves", "backoff_b")
 SCORE_TENSORS = ("time_in_mesh", "first_deliveries", "invalid_deliveries",
@@ -144,6 +150,26 @@ def sim_knobs_from_numpy(d: dict | None, device) -> SimKnobs | None:
                     **{f: _tensor(d[f], device) for f in SIM_KNOB_FIELDS})
 
 
+def delays_from_numpy(d: dict | None, device) -> DelayParams | None:
+    """The port's DelayParams from the reference's leaves (None: no
+    delays)."""
+    if d is None:
+        return None
+    return DelayParams(
+        base=_tensor(np.asarray(d["base"], np.int32), device),
+        jitter=_tensor(np.asarray(d["jitter"], np.int32), device),
+        seed=_tensor(np.asarray(d["seed"], np.uint32), device),
+        k_slots=int(d["k_slots"]))
+
+
+def delays_to_numpy(dp: DelayParams | None) -> dict | None:
+    """DelayParams as the reference's leaves (None: no delays)."""
+    if dp is None:
+        return None
+    return dict(base=_array(dp.base), jitter=_array(dp.jitter),
+                seed=_array(dp.seed, True), k_slots=dp.k_slots)
+
+
 def params_from_numpy(d: dict, device) -> GossipParams:
     """The port's GossipParams from the reference's leaves."""
     kw = {name: (None if d[name] is None else _tensor(d[name], device))
@@ -155,14 +181,15 @@ def params_from_numpy(d: dict, device) -> GossipParams:
         static_score_zero=bool(d["static_score_zero"]),
         faults=faults_from_numpy(d.get("faults"), device),
         score_knobs=score_knobs_from_numpy(d.get("score_knobs"), device),
-        sim_knobs=sim_knobs_from_numpy(d.get("sim_knobs"), device))
+        sim_knobs=sim_knobs_from_numpy(d.get("sim_knobs"), device),
+        delays=delays_from_numpy(d.get("delays"), device))
 
 
 def state_from_numpy(d: dict, sc: ScoreSimConfig | None,
                      device) -> GossipState:
     """The port's GossipState from the reference's leaves; ``sc`` gives
     the counter storage dtypes (None: an unscored state)."""
-    kw = {name: (None if d[name] is None else _tensor(d[name], device))
+    kw = {name: (None if d.get(name) is None else _tensor(d[name], device))
           for name in STATE_TENSORS}
     s = d["scores"]
     if (sc is None) != (s is None):
@@ -208,7 +235,8 @@ def params_to_numpy(p: GossipParams) -> dict:
                static_score_zero=p.static_score_zero,
                faults=faults_to_numpy(p.faults),
                score_knobs=score_knobs_to_numpy(p.score_knobs),
-               sim_knobs=sim_knobs_to_numpy(p.sim_knobs))
+               sim_knobs=sim_knobs_to_numpy(p.sim_knobs),
+               delays=delays_to_numpy(p.delays))
     return out
 
 

@@ -41,8 +41,16 @@
 // of those with the knob vector (KNB, receive_knobs.cu and
 // receive_tel_knobs.cu: gossip_factor, d_lazy and backoff_ticks, scored
 // also the P4 and P7 weights and the graylist and gossip thresholds, read
-// in place of the baked launch arguments where each is consumed).  No
-// delays.  Same semantics
+// in place of the baked launch arguments where each is consumed); and
+// the delay mode (DELAY, receive_delays.cu: the flagship options, the
+// attack options, the full variant and unscored, each with and without
+// KNB; no FAULTS, TEL or PAIRED): stage 1 reads this tick's arrivals per
+// receiving edge, dequeued from the step's delay line (arr, row j*W + w,
+// already send-gated, rolled and alive-masked), in place of the sender
+// streams, and the GRAFT, PRUNE and retraction words the step resolved at
+// arrival (graft_arr, prune_arr, retract_in: no ctrl bytes, no accept
+// gating here) and, ATK, the broken-promise adverts arriving (cheat_arr,
+// counted where some id is lacked).  Same semantics
 // and op order, so every output is bit-identical to the plain version
 // (ops/kernels/receive.py receive_update_plain):
 //
@@ -239,10 +247,17 @@ struct ReceiveArgs {
   const uint32_t* dlv_eff;   // [W, N] (TEL, L > 0) effective deliver words
   int* tel;                  // [8 + L] (TEL) the tally, zeroed by the caller
   int tel_lat_buckets;       // L
-  // the knob fields, last
+  // the knob fields, after those
   const float* knobs;        // [3] unscored / [7] scored (KNOB_*), or
                              // null: the baked arguments above
   float topic_weight;        // f32(topic_weight) (scored, knobs)
+  // the delay mode's fields, last (null in every other variant)
+  const uint32_t* arr;       // [C*W, N] (DELAY) arrivals, row j*W + w
+  const uint32_t* graft_arr; // [N] (DELAY) GRAFTs arriving
+  const uint32_t* prune_arr; // [N] (DELAY) PRUNEs arriving
+  const uint32_t* retract_in;  // [N] (DELAY) retractions taking effect
+  const uint32_t* cheat_arr; // [N] (DELAY, ATK tracking promises)
+                             // broken-promise adverts arriving
 };
 
 namespace {
@@ -336,13 +351,13 @@ __device__ __forceinline__ float p4_weight(const ReceiveArgs& a) {
 
 // One thread per peer; the kernels of receive.cu and receive_tel.cu
 // instantiate it (with KNB, those of receive_knobs.cu and
-// receive_tel_knobs.cu).  (TEL) the thread's tally rows go to s_rows[r *
+// receive_tel_knobs.cu; with DELAY, those of receive_delays.cu).  (TEL) the thread's tally rows go to s_rows[r *
 // blockDim.x + threadIdx.x] and its delivered acquisitions to s_dlv[w *
 // blockDim.x + threadIdx.x], both in shared memory, before stage 2.
 template <int C, int W, bool SCORED, bool ATK, bool CBF, bool BBF,
           bool FLOOD = false, bool EXACTK = false, bool PX = false,
           bool SAMEIP = false, bool PAIRED = false, bool FAULTS = false,
-          bool TEL = false, bool KNB = false>
+          bool TEL = false, bool KNB = false, bool DELAY = false>
 __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
                                              int* s_rows = nullptr,
                                              uint32_t* s_dlv = nullptr) {
@@ -350,6 +365,9 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
   static_assert(ATK || !(FLOOD || SAMEIP),
                 "flood publishing and the shared-IP gater ride the attack "
                 "variant's stage 1 and need scoring");
+  static_assert(!DELAY || !(FAULTS || TEL || PAIRED),
+                "the delay mode takes no fault, telemetry or slot-B "
+                "operands");
   constexpr bool FULL = FLOOD || EXACTK || PX || SAMEIP;
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long n = a.n;
@@ -363,9 +381,10 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
     heard[w] = 0u;
     valid[w] = SCORED ? a.valid[w] : 0xFFFFFFFFu;
   }
-  // unscored: every sender's payload and advert pass (no gates)
-  const uint32_t pay = SCORED ? a.pay[p] : ALL;
-  const uint32_t gsp = SCORED ? a.gsp[p] : ALL;
+  // unscored: every sender's payload and advert pass (no gates; DELAY:
+  // the step applied them)
+  const uint32_t pay = (SCORED && !DELAY) ? a.pay[p] : ALL;
+  const uint32_t gsp = (SCORED && !DELAY) ? a.gsp[p] : ALL;
   // (ATK) the sybil word; the receiver lacks some possible id
   // (FULL: no sybil word without an attack option)
   const uint32_t syb = (ATK && (!FULL || a.syb != nullptr)) ? a.syb[p] : 0u;
@@ -389,8 +408,35 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
   // (PAIRED) slot B's GRAFT, PRUNE and A received
   uint32_t graft_b = 0u, prune_b = 0u, a_b = 0u;
   int fdc[C], ivc[C];
+  if constexpr (DELAY) {
+    // this tick's arrivals: per edge the news and (scored) its valid and
+    // invalid counts; the handshake words as the step resolved them
 #pragma unroll
-  for (int j = 0; j < C; ++j) {
+    for (int j = 0; j < C; ++j) {
+      int fd_j = 0, iv_j = 0;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const uint32_t news = a.arr[(long long)(j * W + w) * n + p] &
+                              ~seen[w];
+        heard[w] |= news;
+        if constexpr (SCORED) {
+          fd_j += __popc(news & valid[w]);
+          iv_j += __popc(news & ~valid[w]);
+        }
+      }
+      fdc[j] = fd_j;
+      ivc[j] = iv_j;
+    }
+    graft_recv = a.graft_arr[p];
+    prune_recv = a.prune_arr[p];
+    if constexpr (ATK) {
+      if (track) broken = a.cheat_arr[p] & (lacked != 0u ? ~0u : 0u);
+    }
+  }
+  // the sender edges (none in delay mode)
+  constexpr int C_SEND = DELAY ? 0 : C;
+#pragma unroll
+  for (int j = 0; j < C_SEND; ++j) {
     long long q = p + a.offsets[j];
     if (q >= n) q -= n;
     const uint32_t ctl = a.ctrl[(long long)a.cinv[j] * n + q];
@@ -560,7 +606,8 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
   // ---- handshake resolution
   uint32_t viol = 0u, viol_b = 0u;
   if constexpr (SCORED) {
-    const uint32_t accb = a.acc[p];
+    // (DELAY: the step gated the arrivals)
+    const uint32_t accb = DELAY ? ALL : a.acc[p];
     graft_recv &= accb;
     prune_recv &= accb;
     viol = graft_recv & a.bo2[p];
@@ -571,7 +618,9 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
     }
   }
   const uint32_t accept = graft_recv & a.wa[p];
-  const uint32_t retract = a.grafts[p] & ~a_recv;
+  // (DELAY) the retractions the step resolved: delayed rejections
+  // arriving, immediate ones and failed sends
+  const uint32_t retract = DELAY ? a.retract_in[p] : (a.grafts[p] & ~a_recv);
   const uint32_t mesh = ((a.meshsel[p] | accept) & ~prune_recv) & ~retract;
   a.mesh[p] = mesh;
   const uint32_t bo_trig = a.dropped[p] | prune_recv | retract;
@@ -671,7 +720,7 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
     const float bp_n = store_ctr<BBF>(a.bp_out, idx,
                                       decay_keep(bpv, a.bp_decay, dtz));
 
-    if constexpr (!ATK) {   // (ATK: written in stage 1)
+    if constexpr (!ATK || DELAY) {   // (ATK: written in stage 1)
       const int s = a.iws[idx];
       int srv = s - floordiv(s + (H - 1), H) + fdc[c] + ivc[c];
       srv = srv < 0 ? 0 : (srv > 30000 ? 30000 : srv);

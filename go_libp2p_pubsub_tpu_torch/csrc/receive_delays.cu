@@ -1,0 +1,142 @@
+// The receive kernels' delay mode (Hopper, sm_90a): the flagship options
+// (scored and unscored), the attack options and the full variant with the
+// shared body's DELAY flag on, each also with KNB (the knob vector), in
+// kernels of their own (launch bounds below), so that the kernels of the
+// other sources keep their code; and the C entry point
+// gossip_receive_update_delays.
+//
+// Replaces: go_libp2p_pubsub_tpu/ops/pallas/receive.py, _receive_kernel
+// with with_delays (the operands :335-348; no DMA scratch :406; the
+// arrivals :513-541; the sender-edge loop skipped :544; no fault or
+// accept masking of the control :679, :693; the retraction taken as given
+// :706-709).  The step (models/gossipsub.py delay_exchange) enqueues this
+// tick's sends into the K-slot delay lines and dequeues the slot due now:
+// the kernel reads the dequeued payload words per receiving edge (arr,
+// [C*W, N], row j*W + w: already send-gated, rolled and alive-masked), the
+// GRAFT and PRUNE words arriving (alive-masked and, scored, accept-gated),
+// the retractions taking effect and, with the attack options tracking
+// promises, the broken-promise adverts arriving.  Per edge it splits out
+// the news and (scored) counts its valid and invalid ids; everything after
+// the handshake (backoff, P1/P2/P4/P7 counters, the serve ledger, scores,
+// gates, targets, the PX trigger word) is the body as it stands.  Faults
+// and telemetry are composed in the step (no FAULTS or TEL variant);
+// paired topics and the IWANT flood are refused there, as the reference
+// refuses them.
+//
+// Bound: per peer at C = 16, W = 1 the arrival rows (64 B) and three or
+// four [N] words replace the 16 ctrl bytes, the sender's fresh and advert
+// words and the payload, gossip and accept gate words: the scored flagship
+// options move 536 B/peer against the twin's 496 (attack 544 against 500,
+// full 676 against 636, unscored 192 against 140; PERF.md), all bytes.
+#include "receive_body.cuh"
+
+namespace {
+
+// receive.cu's variants with DELAY on, each with its twin's launch bound,
+// but the flagship options' held to the blocks a multiprocessor their
+// twins reach unbidden, as receive_knobs.cu holds its own: scored four of
+// 256 threads (left free, the scored delay variant takes 72 registers,
+// three blocks, and 0.738 ms against its knob variant's 0.443 at 64 on a
+// 1M-peer tick; H100, 700 W; PERF.md), unscored eight
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256, SCORED ? 4 : 8)
+receive_kernel_delays(const ReceiveArgs a) {
+  receive_body<C, W, SCORED, false, CBF, BBF, false, false, false, false,
+               false, false, false, false, true>(a);
+}
+
+template <int C, int W, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256, 4)
+receive_kernel_attacks_delays(const ReceiveArgs a) {
+  receive_body<C, W, true, true, CBF, BBF, false, false, false, false,
+               false, false, false, false, true>(a);
+}
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256, 4)
+receive_kernel_full_delays(const ReceiveArgs a) {
+  receive_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true, SCORED,
+               false, false, false, false, true>(a);
+}
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256, SCORED ? 4 : 8)
+receive_kernel_delays_knobs(const ReceiveArgs a) {
+  receive_body<C, W, SCORED, false, CBF, BBF, false, false, false, false,
+               false, false, false, true, true>(a);
+}
+
+template <int C, int W, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256, 4)
+receive_kernel_attacks_delays_knobs(const ReceiveArgs a) {
+  receive_body<C, W, true, true, CBF, BBF, false, false, false, false,
+               false, false, false, true, true>(a);
+}
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(256, 4)
+receive_kernel_full_delays_knobs(const ReceiveArgs a) {
+  receive_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true, SCORED,
+               false, false, false, true, true>(a);
+}
+
+// this library's launchers for the dispatch of receive_body.cuh, without
+// and with knobs; the entry point refuses the paired and faulted choices
+// before the dispatch, so those branches launch nothing
+template <bool KNB>
+struct DelayKernels {
+  template <int C, int W, int FAMILY, bool SCORED, bool ATK, bool CBF,
+            bool BBF, bool FAULTS>
+  static void launch(const ReceiveArgs& a, unsigned blocks, cudaStream_t s) {
+    constexpr int T = RECEIVE_THREADS;
+    if constexpr (FAMILY == 2 || FAULTS) {
+      return;
+    } else if constexpr (FAMILY == 1 && KNB) {
+      receive_kernel_full_delays_knobs<C, W, SCORED, CBF, BBF>
+          <<<blocks, T, 0, s>>>(a);
+    } else if constexpr (FAMILY == 1) {
+      receive_kernel_full_delays<C, W, SCORED, CBF, BBF>
+          <<<blocks, T, 0, s>>>(a);
+    } else if constexpr (ATK && KNB) {
+      receive_kernel_attacks_delays_knobs<C, W, CBF, BBF>
+          <<<blocks, T, 0, s>>>(a);
+    } else if constexpr (ATK) {
+      receive_kernel_attacks_delays<C, W, CBF, BBF><<<blocks, T, 0, s>>>(a);
+    } else if constexpr (KNB) {
+      receive_kernel_delays_knobs<C, W, SCORED, CBF, BBF>
+          <<<blocks, T, 0, s>>>(a);
+    } else {
+      receive_kernel_delays<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+    }
+  }
+};
+
+}  // namespace
+
+// gossip_receive_update's arguments (receive.cu) with the delay mode's
+// operands (args->arr, graft_arr, prune_arr, retract_in and, tracking
+// promises, cheat_arr) in place of the sender streams and the payload,
+// gossip and accept gate words; args->knobs non-null launches the knob
+// variant.  The return value as there; cudaErrorInvalidValue for a paired
+// or faulted launch or a missing delay operand.
+extern "C" int gossip_receive_update_delays(const ReceiveArgs* args, int c,
+                                            int w, int scored, int attacks,
+                                            int ctr_bf16, int bp_bf16,
+                                            void* stream) {
+  if (args->n <= 0) return 0;
+  if (args->paired || args->faults || args->arr == nullptr ||
+      args->graft_arr == nullptr || args->prune_arr == nullptr ||
+      args->retract_in == nullptr ||
+      (args->track_promises && args->cheat_arr == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (args->knobs != nullptr) {
+    return launch_receive<DelayKernels<true>>(*args, c, w, scored, attacks,
+                                              ctr_bf16, bp_bf16,
+                                              (cudaStream_t)stream);
+  }
+  return launch_receive<DelayKernels<false>>(*args, c, w, scored, attacks,
+                                             ctr_bf16, bp_bf16,
+                                             (cudaStream_t)stream);
+}

@@ -31,10 +31,12 @@ N_PEERS, N_TOPICS, N_CAND, N_MSGS = 1_000_000, 100, 16, 32
 
 
 def build(device, n_peers: int = N_PEERS, n_topics: int = N_TOPICS,
-          horizon: int = 400, seed: int = 0, sim_knobs: dict | None = None):
+          horizon: int = 400, seed: int = 0, sim_knobs: dict | None = None,
+          delays=None):
     """(cfg, score_cfg, params, state, msg_publish_tick) of the flagship;
     messages are published at ticks drawn over [0, horizon); ``sim_knobs``
-    (``make_gossip_sim``'s) arms a knob point."""
+    and ``delays`` (``make_gossip_sim``'s: a knob point, a DelayConfig)
+    arm those."""
     n, t = n_peers, n_topics
     rng = np.random.default_rng(seed)
     cfg = gs.GossipSimConfig(
@@ -49,7 +51,8 @@ def build(device, n_peers: int = N_PEERS, n_topics: int = N_TOPICS,
     params, state = gs.make_gossip_sim(cfg, subs, topic, origin, tick,
                                        seed=seed, score_cfg=sc,
                                        track_first_tick=False,
-                                       sim_knobs=sim_knobs, device=device)
+                                       sim_knobs=sim_knobs, delays=delays,
+                                       device=device)
     return cfg, sc, params, state, tick
 
 
@@ -61,10 +64,12 @@ def card() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def profile_ticks(run, ticks: int) -> dict:
+def profile_ticks(run, ticks: int, ranges: tuple[str, ...] = ()) -> dict:
     """Time ``run()`` (``ticks`` heartbeats on the GPU) unprofiled, then
     profile a second call: device time per kernel and per PyTorch op,
-    and the device's busy time against the unprofiled wall time."""
+    and the device's busy time against the unprofiled wall time; with
+    ``ranges``, also the device time of the ``record_function`` ranges
+    whose names start with one of those prefixes."""
     from torch.autograd import DeviceType
 
     torch.cuda.synchronize()
@@ -79,7 +84,8 @@ def profile_ticks(run, ticks: int) -> dict:
         torch.cuda.synchronize()
     events = prof.key_averages()
     kernels = sorted(((e.key, e.self_device_time_total, e.count)
-                      for e in events if e.device_type == DeviceType.CUDA),
+                      for e in events if e.device_type == DeviceType.CUDA
+                      and not (ranges and e.key.startswith(ranges))),
                      key=lambda r: -r[1])
     ops = sorted(((e.key, e.device_time_total, e.count) for e in events
                   if e.device_type == DeviceType.CPU
@@ -87,6 +93,10 @@ def profile_ticks(run, ticks: int) -> dict:
                   and e.device_time_total > 0),
                  key=lambda r: -r[1])
     busy_us = sum(r[1] for r in kernels)
+    marked = sorted(((e.key, e.device_time_total, e.count) for e in events
+                     if e.device_type == DeviceType.CPU
+                     and e.key.startswith(ranges) and ranges),
+                    key=lambda r: -r[1])
 
     def per_tick(rows):
         return [{"name": k[:90], "ms_per_tick": us / ticks / 1e3,
@@ -97,6 +107,7 @@ def profile_ticks(run, ticks: int) -> dict:
         "device_busy_ms_per_tick": busy_us / ticks / 1e3,
         "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
         "kernels": per_tick(kernels), "ops": per_tick(ops),
+        **({"ranges": per_tick(marked)} if ranges else {}),
     }
 
 

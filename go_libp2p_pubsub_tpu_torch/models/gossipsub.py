@@ -15,7 +15,9 @@ or exact-k gossip targets, and paired topics (every peer in its class r
 and r + T/2: one mesh, backoff and P1 per topic slot, one maintenance
 pass per slot, slot-B flags on a second ctrl byte); any of these under a
 fault schedule (churn, link loss, partitions, cold restart:
-``models/faults.py``) and with traced knobs (``models/knobs.py``: the
+``models/faults.py``), on event-driven delays (``models/delays.py``:
+K-slot delay lines, paired topics excepted) and with traced knobs
+(``models/knobs.py``: the
 degree family, gossip_factor, the tick counts, the four defense
 parameters and the link-drop rate as 0-d tensors of the params, so one
 step serves any protocol point).  The receive half
@@ -71,6 +73,7 @@ from ..ops.graph import (
 from ..ops.kernels import fused as kfused
 from ..ops.kernels import receive as krecv
 from ..ops.kernels import select as kselect
+from . import delays as _delays
 from . import faults as _faults
 from . import knobs as _knobs
 from . import plan
@@ -366,6 +369,10 @@ class GossipParams:
     # through sim_knobs; at most one of the two, None = baked
     score_knobs: ScoreKnobs | None = None
     sim_knobs: _knobs.SimKnobs | None = None
+    # event-driven delays (``models/delays.py``): base and jitter as 0-d
+    # tensors (the delay knobs replace them), the line depth a host int;
+    # None = one tick per hop
+    delays: _delays.DelayParams | None = None
 
 
 @dataclass
@@ -403,6 +410,17 @@ class GossipState:
     # unpaired)
     mesh_b: torch.Tensor | None = None      # int32 [N]
     backoff_b: torch.Tensor | None = None   # int16 [C, N]
+    # delays: the K-slot circular delay lines (None without delays).
+    # pay_line holds the in-flight payload words per receiving edge (row
+    # j = the receiver's bit for the sender), ctrl_line the in-flight
+    # control words (GRAFT, PRUNE, retraction and, where some peer
+    # withholds what it advertises, the broken-promise advert); with
+    # delays_counters the gossip-class and advert observer lines the
+    # telemetry counters read at arrival
+    pay_line: torch.Tensor | None = None    # int32 [K, C, W, N]
+    ctrl_line: torch.Tensor | None = None   # int32 [K, R, N]
+    gsp_line: torch.Tensor | None = None    # int32 [K, C, W, N]
+    adv_line: torch.Tensor | None = None    # int32 [K, C, W, N]
 
 
 # --------------------------------------------------------------------------
@@ -458,19 +476,32 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
     Knobs (``models/knobs.py``): score_knobs, a dict over
     SCORE_KNOB_FIELDS (needs score_cfg; missing keys take its values), or
     sim_knobs, a dict mixing the protocol knobs (SIM_KNOB_FIELDS), the
-    same defense fields and the fault knob ``drop_prob`` (it overrides
-    the schedule's link-drop rate: it needs a fault_schedule with a
-    nonzero scalar drop_prob) — one surface or the other.  Each lifts
-    those parameters from constants of the step to 0-d tensors of the
-    params, so one step serves any point; missing keys take the
-    config's own values (``knob_params`` arms built params the same
-    way)."""
+    same defense fields, the fault knob ``drop_prob`` (it overrides the
+    schedule's link-drop rate: it needs a fault_schedule with a nonzero
+    scalar drop_prob) and the delay knobs ``delay_base`` /
+    ``delay_jitter`` (they override the DelayConfig's: they need one) —
+    one surface or the other.  Each lifts those parameters from constants
+    of the step to 0-d tensors of the params, so one step serves any
+    point; missing keys take the config's own values (``knob_params``
+    arms built params the same way).
+
+    Delays (``models/delays.py``): ``delays``, a DelayConfig, makes every
+    transfer take base + a per-edge jitter draw ticks through the K-slot
+    delay lines the state then carries (paired topics raise the
+    reference's NotImplementedError); ``delays_counters=True`` adds the
+    observer lines the delayed telemetry counters need.
+    ``delays_split=True`` (the split path) is refused by name as
+    ``delays_split``, ``delays_probe=True`` as ``rpc_probe``."""
     dev = resolve_device(device)
     plan.check_sim_options(
         flood_proto=flood_proto, pad_to_block=pad_to_block,
         byzantine=byzantine, delays=delays,
         delays_split=delays_split, delays_counters=delays_counters,
         delays_probe=delays_probe)
+    if delays is not None and cfg.paired_topics:
+        # per-slot delay lines and delayed cross-slot control routing are
+        # not modelled (the reference's refusal)
+        raise NotImplementedError(plan.MSG_DELAYS_PAIRED)
     plan.check_kernel_config(cfg, score_cfg)
     sc = score_cfg
     n, t = subs.shape
@@ -631,6 +662,8 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
                 f"sim peer count {n}")
         scored["faults"] = _faults.compile_faults(fault_schedule,
                                                   cfg.offsets, device=dev)
+    if delays is not None:
+        scored["delays"] = _delays.compile_delays(delays, dev)
 
     params = GossipParams(
         subscribed=t_(subscribed),
@@ -642,7 +675,8 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
                       else _words(_pack_bits_pm_np(slot_b_bits), dev)),
         **scored)
     params = knob_params(cfg, sc, params, score_knobs=score_knobs,
-                         sim_knobs=sim_knobs, px_candidates=px_candidates)
+                         sim_knobs=sim_knobs, px_candidates=px_candidates,
+                         delays=delays)
     w = params.origin_words.shape[0]
     c = cfg.n_candidates
     i16 = lambda: torch.zeros((c, n), dtype=torch.int16, device=dev)  # noqa: E731
@@ -668,6 +702,12 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
             # direct peers are operator-pinned addresses: always held
             act |= direct_packed
         active0 = _words(act, dev)
+    if delays is None:
+        for flag, on in (("delays_split", delays_split),
+                         ("delays_counters", delays_counters),
+                         ("delays_probe", delays_probe)):
+            if on:
+                raise ValueError(f"{flag}=True needs a DelayConfig")
     scores = None
     paired = cfg.paired_topics
     if sc is not None:
@@ -694,19 +734,62 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
         salt=seed & graph.MASK32, tick=0, active=active0,
         mesh_b=zbits() if paired else None,
         backoff_b=i16() if paired else None)
+    if delays is not None:
+        state = _delay_lines(sc, params, state, delays.k_slots,
+                             delays_counters)
     # seed the gate pipeline: tick 0's gate words
     return params, refresh_gates(cfg, sc, params, state)
+
+
+def _delay_lines(sc: ScoreSimConfig | None, params: GossipParams,
+                 state: GossipState, k_slots: int,
+                 counters: bool) -> GossipState:
+    """``state`` with empty K-slot delay lines; the ctrl line's fourth row
+    (the broken-promise advert) exists iff some peer may withhold what it
+    advertises, and ``counters`` adds the two observer lines."""
+    w, n = state.have.shape
+    c = state.backoff.shape[0]
+    has_cheat = sc is not None and (sc.sybil_ihave_spam
+                                    or params.promise_break is not None)
+
+    def line(*shape):
+        return torch.zeros((int(k_slots), *shape), dtype=torch.int32,
+                           device=state.have.device)
+    lines = dict(pay_line=line(c, w, n), ctrl_line=line(3 + has_cheat, n))
+    if counters:
+        lines.update(gsp_line=line(c, w, n), adv_line=line(c, w, n))
+    return replace(state, **lines)
+
+
+def arm_delays(sc: ScoreSimConfig | None, params: GossipParams,
+               state: GossipState, delays: _delays.DelayConfig, *,
+               delays_counters: bool = False):
+    """(params, state) of a sim built without delays, armed with
+    ``delays`` as ``make_gossip_sim(..., delays=delays,
+    delays_counters=...)`` arms it: the compiled DelayParams and empty
+    lines (paired topics raise the reference's NotImplementedError)."""
+    if state.mesh_b is not None:
+        raise NotImplementedError(plan.MSG_DELAYS_PAIRED)
+    params = replace(params, delays=_delays.compile_delays(
+        delays, params.subscribed.device))
+    return params, _delay_lines(sc, params, state, delays.k_slots,
+                                delays_counters)
 
 
 def knob_params(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
                 params: GossipParams, *, score_knobs: dict | None = None,
                 sim_knobs: dict | None = None,
-                px_candidates: int | None = None) -> GossipParams:
+                px_candidates: int | None = None,
+                delays: _delays.DelayConfig | None = None) -> GossipParams:
     """``params`` with the knob leaves of one surface armed (the
     reference's make_gossip_sim validations and messages): score_knobs
     sets ``score_knobs``; sim_knobs sets ``sim_knobs`` and, with
     ``drop_prob``, replaces ``faults.drop_prob`` and nothing else of the
-    schedule.  Neither: ``params`` as they are."""
+    schedule, with ``delay_base`` / ``delay_jitter`` ``delays.base`` /
+    ``delays.jitter`` (checked against the line depth; ``delays``, the
+    sim's DelayConfig, gives the values a missing key keeps, else they
+    are read from the built params).  Neither: ``params`` as they
+    are."""
     dev = params.subscribed.device
     out = {}
     if score_knobs is not None:
@@ -727,8 +810,6 @@ def knob_params(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
                 "the legacy score_knobs dict, not both")
         proto_kv, score_kv, fault_kv, delay_kv = \
             _knobs.split_knob_overrides(sim_knobs, SCORE_KNOB_FIELDS)
-        if delay_kv:
-            plan.refuse("delays")
         out["sim_knobs"] = _knobs.make_sim_knobs(
             cfg, sc, {**proto_kv, **score_kv}, px_candidates=px_candidates,
             device=dev)
@@ -752,6 +833,26 @@ def knob_params(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
                     f"sim_knobs: drop_prob={dpv} outside [0, 1]")
             out["faults"] = replace(fp0, drop_prob=torch.tensor(
                 dpv, dtype=torch.float32, device=dev))
+        if delay_kv:
+            dp0 = params.delays
+            if dp0 is None:
+                raise ValueError(
+                    "sim_knobs: the delay_base/delay_jitter knobs "
+                    "override compiled DelayParams leaves — pass a "
+                    "DelayConfig alongside them (the delay-line code "
+                    "path must compile in; its k_slots depth bounds "
+                    "the sweepable points)")
+            if delays is None:
+                # the built values (a host read, when arming only)
+                delays = _delays.DelayConfig(
+                    base=int(dp0.base), jitter=int(dp0.jitter),
+                    k_slots=dp0.k_slots)
+            db = int(delay_kv.get("delay_base", delays.base))
+            dj = int(delay_kv.get("delay_jitter", delays.jitter))
+            delays.validate_point(base=db, jitter=dj)
+            out["delays"] = replace(
+                dp0, base=torch.tensor(db, dtype=torch.int32, device=dev),
+                jitter=torch.tensor(dj, dtype=torch.int32, device=dev))
     return replace(params, **out) if out else params
 
 
@@ -934,6 +1035,209 @@ def refresh_gates(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
 # --------------------------------------------------------------------------
 # The step
 # --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class EdgeGeometry:
+    """The device tensors the delay exchange reads a ring's edges with,
+    made once per (config, ring size, device): ``index`` int64 [C, N], row
+    j at lane p holds (p + o_j) mod N (a gather along the peer axis by it
+    reads, at each peer, its candidate j); ``cinv`` and ``bit`` int32
+    [C, 1], the partner bit of each row and the row's own."""
+
+    index: torch.Tensor
+    cinv: torch.Tensor
+    bit: torch.Tensor
+
+    @staticmethod
+    def of(cfg: GossipSimConfig, n: int, device) -> "EdgeGeometry":
+        p = torch.arange(n, dtype=torch.int64, device=device)
+        C = cfg.n_candidates
+        return EdgeGeometry(
+            index=torch.stack([(p + o) % n for o in cfg.offsets]),
+            cinv=torch.tensor(cfg.cinv, dtype=torch.int32,
+                              device=device)[:, None],
+            bit=torch.arange(C, dtype=torch.int32, device=device)[:, None])
+
+
+def transfer_bits(bits: torch.Tensor, cfg: GossipSimConfig,
+                  pair: bool = False,
+                  geo: EdgeGeometry | None = None) -> torch.Tensor:
+    """Packed edge transfer: what each peer's partners sent it.  Bit c of
+    ``bits`` (edge p -> p + o_c), rolled by o_c, lands at the partner's
+    bit cinv[c]: bit j of the result at p is bit cinv[j] of bits[p + o_j].
+    With ``pair`` (C <= 16) the word carries two C-bit masks, in its low
+    and high 16 bits, moved by the same gather.  ``geo``: the ring's
+    ``EdgeGeometry`` (made here where not given)."""
+    if geo is None:
+        geo = EdgeGeometry.of(cfg, bits.shape[0], bits.device)
+    sel = 0x10001 if pair else 1
+    rows = (bits[None, :] >> geo.cinv) & sel     # (C <= 16: no sign bit)
+    got = torch.gather(rows, 1, geo.index)
+    return (got << geo.bit).sum(0, dtype=torch.int32)
+
+
+def delay_exchange(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
+                   params: GossipParams, state: GossipState, *, tick: int,
+                   sel: dict, targets, withhold, out_bits, flood_bits,
+                   fresh, adv, injected, payload_bits, gossip_bits,
+                   accept_bits, fm, counters: bool,
+                   geo: EdgeGeometry) -> dict:
+    """This tick's transfers through the delay lines (the reference's
+    ``delay_exchange(split=False)``, the combined form).
+
+    The sends, exactly the one-hop step's and gated at the send tick
+    (scored: the receiver's payload and gossip gates, carried to the
+    sender by one pair transfer), are rolled to their receivers and
+    enqueued at slot ``(t + d - 1) mod K``, d drawn per directed edge-tick
+    (``delays.edge_delays`` at the receiver's lane); the tick's arrivals
+    dequeue from slot ``t mod K``.  Control: GRAFTs and PRUNEs (under
+    faults only those sent over a live link) ride the ctrl line; at
+    arrival a down peer processes none, the graylist drops them (scored),
+    and a GRAFT that will not be confirmed (would not be accepted, or its
+    confirmation cannot be sent) is retracted: at once over an edge whose
+    draw is 1, else through the ctrl line; a failed local send is known at
+    once.  With ``counters``: the send-side telemetry tallies and the
+    gossip-class and advert observer lines.
+
+    Returns the dequeued payload words ``arr_pay`` [C, W, N] (row j = the
+    receiving bit), the resolved control words ``graft_arr``,
+    ``prune_arr``, ``retract`` and (some peer withholds) ``cheat_arr``,
+    the next lines, and with ``counters`` ``tel_send`` (payload, IHAVE ids
+    and RPCs) and the dequeued observer words ``arr_gsp``, ``arr_adv``.
+    The draw, the payload lines and the control line run inside
+    ``record_function`` ranges ``delays.draw``, ``delays.payload`` and
+    ``delays.control`` (a profile's ``ranges``)."""
+    dl = params.delays
+    K, C = dl.k_slots, cfg.n_candidates
+    n = state.have.shape[1]
+    rf = torch.profiler.record_function
+    with rf("delays.draw"):
+        d_edge = _delays.edge_delays(dl, (C, n), tick, stride=n)
+        slot = (tick + d_edge - 1) % K                       # [C, N]
+        slot_sel = _delays.slot_words(slot, K)               # [K, N]
+        in_slot = (slot[None] == torch.arange(
+            K, dtype=torch.int32, device=slot.device)[:, None, None])
+    cheat_raw = (torch.where(withhold, targets, 0)
+                 if withhold is not None else None)
+
+    # -- the payload and gossip sends, gated at the send tick, rolled to
+    # their receivers and through the payload line
+    with rf("delays.payload"):
+        send_gsp = (targets if withhold is None
+                    else torch.where(withhold, 0, targets))
+        send_fwd, send_flood = out_bits, flood_bits
+        if sc is not None:
+            # the receiver's payload and payload-and-gossip gates, carried to
+            # the sender in one pair transfer (the reference skips it when
+            # every gate is open, which it then equals: no branch here)
+            gate_recv = transfer_bits(
+                payload_bits | ((payload_bits & gossip_bits) << 16), cfg,
+                pair=True, geo=geo)
+            send_fwd = out_bits & gate_recv
+            send_gsp = send_gsp & graph.shr(gate_recv, 16)
+            if flood_bits is not None:
+                send_flood = flood_bits & gate_recv
+        rows = lambda bits: expand_bits(bits, C)[:, None, :]     # noqa: E731
+        pay = torch.where(rows(send_fwd), fresh[None], 0)        # [C, W, N]
+        if send_flood is not None:
+            pay = pay | torch.where(rows(send_flood), injected[None], 0)
+        gsp_words = torch.where(rows(send_gsp), adv[None], 0)
+
+        zero = torch.zeros((), dtype=torch.int32, device=pay.device)
+
+        def rolled(words):
+            """Sender edge c's words at their receivers, in row cinv[c]
+            (the receiver's bit for the sender): row j at p holds row
+            cinv[j] of peer p + o_j."""
+            src = words.index_select(0, geo.cinv[:, 0])
+            return torch.gather(src, 2, geo.index[:, None, :].expand(
+                -1, words.shape[1], -1))
+
+        def enqueue(line, words):
+            """(arrivals, next line): ``words`` at each edge's slot."""
+            return _delays.enqueue_dequeue(line, lambda out: torch.where(
+                in_slot[:, :, None, :], rolled(words)[None], zero,
+                out=out), tick)
+
+        arr_pay, pay_line = enqueue(state.pay_line, pay | gsp_words)
+        out = dict(arr_pay=arr_pay, pay_line=pay_line)
+        if counters:
+            # send-side tallies at the send tick from the pre-roll words (a
+            # popcount does not see the roll); adverts counted from the
+            # targets before withholding, as the reference counts them
+            adv_any = (adv != 0).any(0)
+            adv_words = torch.where(rows(targets), adv[None], 0)
+            out["tel_send"] = dict(
+                payload=popcount32(pay).sum(dtype=torch.int64),
+                ihave_ids=popcount32(adv_words).sum(dtype=torch.int64),
+                ihave_rpcs=torch.where(adv_any, popcount32(targets), 0).sum(
+                    dtype=torch.int64))
+            out["arr_gsp"], out["gsp_line"] = enqueue(state.gsp_line,
+                                                      gsp_words)
+            out["arr_adv"], out["adv_line"] = enqueue(state.adv_line,
+                                                      adv_words)
+    # -- control: enqueue this tick's GRAFTs and PRUNEs (and the
+    # broken-promise adverts), dequeue this tick's arrivals
+    with rf("delays.control"):
+        grafts, dropped = sel["grafts"], sel["dropped"]
+        if fm is not None:
+            grafts_tx, dropped_tx = grafts & fm.send_ok, dropped & fm.send_ok
+        else:
+            grafts_tx, dropped_tx = grafts, dropped
+        zrow = torch.zeros_like(grafts)
+        # GRAFTs and PRUNEs in one pair transfer (C <= 16)
+        hs_fly = transfer_bits(grafts_tx | (dropped_tx << 16), cfg,
+                               pair=True, geo=geo)
+        ctrl = [hs_fly & 0xFFFF, graph.shr(hs_fly, 16), zrow]
+        R = state.ctrl_line.shape[1]
+        if R == 4:
+            # broken-promise adverts, gossip-gated at the send tick like real
+            # gossip, indexed at the receiver
+            cheat_fly = transfer_bits(cheat_raw, cfg, geo=geo)
+            if sc is not None:
+                cheat_fly = cheat_fly & payload_bits & gossip_bits
+            ctrl.append(cheat_fly)
+        arr_ctrl, ctrl_line = _delays.enqueue_dequeue(
+            state.ctrl_line, lambda out: torch.bitwise_and(
+                torch.stack(ctrl)[None], slot_sel[:, None, :], out=out),
+            tick)
+        graft_raw, prune_arr, retr_arr = arr_ctrl[0], arr_ctrl[1], arr_ctrl[2]
+        cheat_arr = arr_ctrl[3] if R == 4 else None
+        if fm is not None:
+            # a down peer processes no inbound control
+            graft_raw = graft_raw & fm.alive_all
+            prune_arr = prune_arr & fm.alive_all
+            retr_arr = retr_arr & fm.alive_all
+            if cheat_arr is not None:
+                cheat_arr = cheat_arr & fm.alive_all
+        graft_arr = graft_raw
+        if sc is not None:
+            # graylisted peers' control dropped at arrival; the retraction is
+            # a PRUNE response and passes
+            graft_arr = graft_raw & accept_bits
+            prune_arr = prune_arr & accept_bits
+
+        # -- the handshake at arrival: a GRAFT that will not be confirmed is
+        # retracted, at once where the grafter's edge draw is 1, else through
+        # the ctrl line (enqueued after the dequeue)
+        conf = sel["a_sent"]
+        if fm is not None:
+            # an unsendable confirmation counts as a rejection
+            conf = conf & fm.send_ok
+        retr_fly = transfer_bits(graft_raw & ~conf, cfg, geo=geo)
+        d1_bits = _delays.pack_edges(d_edge == 1)
+        retract = retr_fly & d1_bits
+        retr_later = retr_fly & ~d1_bits
+        ctrl_line[:, 2] |= retr_later[None] & slot_sel
+        if fm is not None:
+            # a failed local send is known at once; a dead grafter processes
+            # no inbound retraction
+            retract = (retract & fm.alive_all) | (grafts & ~fm.send_ok)
+        out.update(graft_arr=graft_arr, prune_arr=prune_arr,
+                   retract=retract | retr_arr, cheat_arr=cheat_arr,
+                   ctrl_line=ctrl_line)
+    return out
 
 
 def degree_knobs(cfg: GossipSimConfig, params: GossipParams):
@@ -1190,6 +1494,20 @@ def make_gossip_step(cfg: GossipSimConfig,
     config raises the reference's ValueError
     (``plan.MSG_KERNEL_KNOB_IWANT_SPAM``): its serve budget bakes
     gossip_retransmission.
+
+    Delays (``params.delays``, ``make_gossip_sim(delays=...)``): this
+    tick's sends go into the state's delay lines and this tick's arrivals
+    come out (``delay_exchange``); the receive kernel's delay mode
+    (``+delays``) takes the arrivals and the control words resolved at
+    arrival in place of the sender streams.  Faults mask the sends, the
+    arrivals and the control in the step (no faulted delayed variant);
+    telemetry's counters are tallied in the step from the observer lines
+    (``delays_counters=True``) and the latency histogram from the tick's
+    deliveries (``delayed_tally``, ``latency_histogram``).  The reference's
+    errors in its order: paired topics (``plan.MSG_DELAYS_PAIRED``),
+    counters without the observer lines, params without lines, then the
+    IWANT flood (``plan.MSG_KERNEL_DELAY_IWANT_SPAM``).  No host sync is
+    added.
     """
     dev = resolve_device(device)
     plan.check_paired_step(cfg, score_cfg, force_split)
@@ -1225,6 +1543,14 @@ def make_gossip_step(cfg: GossipSimConfig,
     # the knob vector of the sim last stepped, keyed by its knob leaves'
     # identity (built once per sim, on the device, never per tick)
     knob_cache = []
+    # the delay exchange's edge geometry of the ring last stepped
+    geo_cache = {}
+
+    def edge_geometry(n: int) -> EdgeGeometry:
+        if n not in geo_cache:
+            geo_cache.clear()
+            geo_cache[n] = EdgeGeometry.of(cfg, n, dev)
+        return geo_cache[n]
 
     def knob_vector(params: GossipParams):
         """B1's f32 knob operand in the kernel's KNOB_* order (three
@@ -1251,11 +1577,25 @@ def make_gossip_step(cfg: GossipSimConfig,
 
     def step(params: GossipParams, state: GossipState):
         check_on(dev, subscribed=params.subscribed, mesh=state.mesh)
+        # delays: the reference's checks, in its order
+        dl = params.delays
+        if dl is not None:
+            if paired:
+                raise NotImplementedError(plan.MSG_DELAYS_PAIRED)
+            if tel is not None and tel.counters and (
+                    state.adv_line is None or state.gsp_line is None):
+                raise ValueError(plan.MSG_DELAYS_NEED_COUNTER_LINES)
+            if state.pay_line is None or state.ctrl_line is None:
+                raise ValueError(plan.MSG_DELAYS_NEED_LINES)
         if (params.sim_knobs is not None and sc is not None
                 and sc.sybil_iwant_spam):
             # the reference's kernel step bakes gossip_retransmission
             # into the IWANT flood's serve budget and refuses the point
             raise ValueError(plan.MSG_KERNEL_KNOB_IWANT_SPAM)
+        if dl is not None and sc is not None and sc.sybil_iwant_spam:
+            # its flood budget reads partner advert views the delayed
+            # kernel does not stream
+            raise ValueError(plan.MSG_KERNEL_DELAY_IWANT_SPAM)
         if len(state.gates) != n_gates:
             raise ValueError(
                 f"state carries {len(state.gates)} gate words, the step "
@@ -1403,29 +1743,53 @@ def make_gossip_step(cfg: GossipSimConfig,
             the unmasked words)."""
             return word if fm is None else word & fm.send_ok
 
-        # -- the receive kernel: exchange, handshake, counters, gates;
-        # the raw advert (CTRL_ADV) against the delivering one (CTRL_TGT)
-        # is the broken promise the receiver sees
-        tgt_deliver = (targets if withhold is None
-                       else torch.where(withhold, 0, targets))
-        ctrl = krecv.ctrl_bytes(C, out=out_bits, tgt=tgt_deliver,
-                                graft=tx(sel["grafts"]),
-                                drop=tx(sel["dropped"]),
-                                a=tx(sel["a_sent"]), adv=targets,
-                                flood=flood_bits)
         ops = dict(
             gseeds=(lane_seed(tick + 1, 6, salt),
                     lane_seed(tick + 1, 1, salt)),
-            ctrl=ctrl, fresh=fresh, adv=adv, sub_all=sub_all,
-            cand_sub=cand_sub, fanout=fanout, wa=sel["would_accept"],
-            grafts=sel["grafts"], dropped=sel["dropped"],
-            meshsel=sel["mesh_sel"], seen=seen, injected=injected,
-            backoff=state.backoff)
+            sub_all=sub_all, cand_sub=cand_sub, fanout=fanout,
+            wa=sel["would_accept"], grafts=sel["grafts"],
+            dropped=sel["dropped"], meshsel=sel["mesh_sel"], seen=seen,
+            injected=injected, backoff=state.backoff)
+        dex = None
+        if dl is None:
+            # -- the receive kernel: exchange, handshake, counters, gates;
+            # the raw advert (CTRL_ADV) against the delivering one
+            # (CTRL_TGT) is the broken promise the receiver sees
+            tgt_deliver = (targets if withhold is None
+                           else torch.where(withhold, 0, targets))
+            ops.update(ctrl=krecv.ctrl_bytes(
+                C, out=out_bits, tgt=tgt_deliver, graft=tx(sel["grafts"]),
+                drop=tx(sel["dropped"]), a=tx(sel["a_sent"]), adv=targets,
+                flood=flood_bits), fresh=fresh, adv=adv)
+            if sc is not None:
+                ops.update(pay=payload_bits, gsp=gossip_bits,
+                           acc=accept_bits)
+        else:
+            # -- delays: the sends go into the lines and this tick's
+            # arrivals come out (faults masked here: a down peer hears
+            # nothing); the kernel's delay mode takes the arrivals and the
+            # resolved control words in place of the sender streams
+            dex = delay_exchange(
+                cfg, sc, params, state, tick=tick, sel=sel, targets=targets,
+                withhold=withhold, out_bits=out_bits, flood_bits=flood_bits,
+                fresh=fresh, adv=adv, injected=injected,
+                payload_bits=payload_bits if sc is not None else None,
+                gossip_bits=gossip_bits if sc is not None else None,
+                accept_bits=accept_bits, fm=fm,
+                counters=tel is not None and tel.counters,
+                geo=edge_geometry(n))
+            arr = dex["arr_pay"]
+            if fm is not None:
+                arr = arr & fm.alive_w
+            ops.update(arr=arr.reshape(C * arr.shape[1], n),
+                       graft_arr=dex["graft_arr"],
+                       prune_arr=dex["prune_arr"], retract=dex["retract"])
+            if dex["cheat_arr"] is not None:
+                ops["cheat_arr"] = dex["cheat_arr"]
         if sc is not None:
             s0 = state.scores
             ops.update(
-                valid=valid, pay=payload_bits, gsp=gossip_bits,
-                acc=accept_bits, bo2=sel["backoff_bits2"],
+                valid=valid, bo2=sel["backoff_bits2"],
                 static=_static_term(sc, params), fd=s0.first_deliveries,
                 inv=s0.invalid_deliveries, bp=s0.behaviour_penalty,
                 tim=s0.time_in_mesh, iws=state.iwant_serves)
@@ -1456,7 +1820,11 @@ def make_gossip_step(cfg: GossipSimConfig,
             variant["px"] = True
         if params.cand_same_ip is not None:
             variant["same_ip"] = True
-        if fm is not None:
+        if dl is not None:
+            # faults and telemetry are composed in the step, not in the
+            # delayed kernel
+            variant["delays"] = True
+        elif fm is not None:
             variant["faults"] = True
         knob_vec = knob_vector(params)
         if knob_vec is not None:
@@ -1464,7 +1832,7 @@ def make_gossip_step(cfg: GossipSimConfig,
             # defense knobs) are read in the kernel
             variant["knobs"] = True
             ops["knobs"] = knob_vec
-        if with_t:
+        if with_t and dl is None:
             variant.update(telemetry=True, tel_lat_buckets=lat_b)
             if lat_b:
                 # the tick's bucket masks and the deliver words the
@@ -1476,7 +1844,7 @@ def make_gossip_step(cfg: GossipSimConfig,
                     dlv_eff = dlv_eff & ~params.invalid_words[:, None]
                 ops["dlv_eff"] = dlv_eff
         kk = kernel_consts(**variant)
-        if kk.flood_publish:
+        if kk.flood_publish and dl is None:
             # the injected words once more, as a sender stream
             ops["inj_send"] = injected
         if kk.with_same_ip:
@@ -1535,7 +1903,7 @@ def make_gossip_step(cfg: GossipSimConfig,
                 tick=tick + 1, salt=salt, mesh_b=mesh_b_new)
             gates_new = (*gates_new[:i_tgt], tgt_new,
                          *gates_new[i_tgt + 1:])
-        tel_row = next(outs) if with_t else None
+        tel_row = next(outs) if kk.telemetry else None
 
         # -- epilogue: possession, mcache ring, deliveries, tick
         recent = state.recent.clone()
@@ -1550,7 +1918,10 @@ def make_gossip_step(cfg: GossipSimConfig,
                                          tick),
             scores=scores, iwant_serves=iws_o, gates=gates_new,
             gates_fp=state.gates_fp, salt=salt, tick=tick + 1,
-            active=active, mesh_b=mesh_b_new, backoff_b=backoff_b_new)
+            active=active, mesh_b=mesh_b_new, backoff_b=backoff_b_new,
+            **({} if dex is None else {
+                name: dex.get(name) for name in ("pay_line", "ctrl_line",
+                                                 "gsp_line", "adv_line")}))
         if tel is None:
             return new_state, delivered_now
         kw = {}
@@ -1566,7 +1937,9 @@ def make_gossip_step(cfg: GossipSimConfig,
                 dtype=torch.int32) for s_ in slots)
             prune_cnt = sum(popcount32(sent(s_["dropped"])).sum(
                 dtype=torch.int32) for s_ in slots)
-            kw.update(counter_fields(tel_row, graft_cnt, prune_cnt, ws
+            sums = (tel_row if dex is None else delayed_tally(
+                dex, seen, sub_all, None if fm is None else fm.alive_w))
+            kw.update(counter_fields(sums, graft_cnt, prune_cnt, ws
                                      if tel.wire else None))
         if tel.mesh or tel.degree_hist:
             deg_t = popcount32(mesh_new)
@@ -1586,7 +1959,12 @@ def make_gossip_step(cfg: GossipSimConfig,
             if tel.score_hist:
                 kw["score_hist"] = _telemetry.score_histogram(
                     score_t, mask_t, tel.score_bucket_edges)
-        if lat_b:
+        if lat_b and dex is not None:
+            # delays: from the tick's deliveries (the delayed kernel keeps
+            # no tally)
+            kw["latency_hist"] = _telemetry.latency_histogram(
+                delivered_now, params.publish_tick, tick, lat_b)
+        elif lat_b:
             kw["latency_hist"] = tel_row[len(krecv.TEL_ROWS):]
         if tel.faults and fm is not None:
             kw["down_peers"], kw["dropped_edge_ticks"] = \
@@ -1594,6 +1972,33 @@ def make_gossip_step(cfg: GossipSimConfig,
         return new_state, delivered_now, _telemetry.make_frame(dev, **kw)
 
     return step
+
+
+def delayed_tally(dex: dict, seen: torch.Tensor, sub_all: torch.Tensor,
+                  alive_w: torch.Tensor | None) -> torch.Tensor:
+    """The counters' tally rows (``krecv.TEL_ROWS`` order) of a delayed
+    tick: the send side counted at the send tick (``dex["tel_send"]``),
+    the arrival side against this tick's possession ``seen`` from the
+    dequeued payload, gossip-class and advert words (a down receiver's
+    masked by ``alive_w``): copies received, gossip-pulled ids it lacked,
+    advertised ids it lacked and the (edge, receiver) pairs with one, and
+    the subscribers' new ids."""
+    got, g_gsp, g_adv = dex["arr_pay"], dex["arr_gsp"], dex["arr_adv"]
+    if alive_w is not None:
+        got, g_gsp, g_adv = (x & alive_w for x in (got, g_gsp, g_adv))
+    lack = ~seen[None]                                       # [1, W, N]
+    req = popcount32(g_adv & lack).sum(1, dtype=torch.int32)  # [C, N]
+    heard = (got & lack)[0]
+    for j in range(1, got.shape[0]):
+        heard = heard | (got[j] & lack[0])
+    ts = dex["tel_send"]
+    i64 = torch.int64
+    rows = [ts["payload"], ts["ihave_ids"],
+            popcount32(g_gsp & lack).sum(dtype=i64),
+            popcount32(got).sum(dtype=i64), req.sum(dtype=i64),
+            ts["ihave_rpcs"], (req > 0).sum(dtype=i64),
+            popcount32(torch.where(sub_all != 0, heard, 0)).sum(dtype=i64)]
+    return torch.stack(rows).to(torch.int32)
 
 
 def counter_fields(sums: torch.Tensor, graft_cnt, prune_cnt,

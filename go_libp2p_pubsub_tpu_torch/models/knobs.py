@@ -18,8 +18,9 @@ the step, so one built step serves any protocol point:
 
 Shape-bearing and mode-selecting fields stay static and are rejected by
 name (``KnobStaticFieldError``, ``STATIC_KNOB_REASONS``).  The delay
-knobs are named here as the reference names them; the port refuses
-delays (``models/plan.py``).
+knobs ``delay_base`` / ``delay_jitter`` override the compiled
+``DelayParams`` leaves (``models/delays.py``, ``make_gossip_sim``) and are
+not carried on ``SimKnobs`` either.
 
 Knobs at the config's own values give the baked trajectory bit for bit
 (integer compares and float32 products are value-equal), with one
@@ -64,8 +65,8 @@ SIM_KNOB_FIELDS = (
 #: (make_gossip_sim), not carried on SimKnobs
 FAULT_KNOB_FIELDS = ("drop_prob",)
 
-#: delay-line knobs (the reference's DelayConfig base and jitter); the
-#: port refuses delays, so these name a surface it does not run
+#: delay-line knobs: overrides of the compiled DelayParams base and
+#: jitter (make_gossip_sim), not carried on SimKnobs
 DELAY_KNOB_FIELDS = ("delay_base", "delay_jitter")
 
 #: shape-bearing or mode-selecting fields, rejected by name with the

@@ -17,11 +17,18 @@ window with its per-tick frames).  Traced knobs (``score_knobs`` /
 ``sim_knobs``, ``models/knobs.py``, the fault knob ``drop_prob`` too)
 run on the per-tick step, on every receive variant, with or without
 faults and telemetry; a knob-carrying sim is refused by the fused window
-(``fused_knobs``), as the reference refuses it.  Delays are refused as
-``delays`` when the sim is built, delay knobs too.  Each refusal has a
-stable name (``SliceRefusal.name``) and its own message; tests match on
-the name.  The reference's own ValueErrors are raised with its messages
-(``MSG_PAIRED_COMBINED``, ``MSG_KERNEL_KNOB_IWANT_SPAM``).
+(``fused_knobs``), as the reference refuses it.  Event-driven delays
+(``delays``, ``models/delays.py``, the delay knobs too) run on the
+per-tick step, on the flagship, attack, full and unscored receive
+variants, with or without knobs, faults and telemetry; the fused window
+refuses a delay-armed sim (``fused_delays``, with the reference's message
+and its byte count of the lines), the split path's delay line is refused
+as ``delays_split`` and the delayed probe line as ``rpc_probe``.  Each
+refusal has a stable name (``SliceRefusal.name``) and its own message;
+tests match on the name.  The reference's own errors are raised with its
+messages (``MSG_PAIRED_COMBINED``, ``MSG_KERNEL_KNOB_IWANT_SPAM``,
+``MSG_KERNEL_DELAY_IWANT_SPAM``, ``MSG_DELAYS_PAIRED``,
+``MSG_DELAYS_NEED_LINES``, ``MSG_DELAYS_NEED_COUNTER_LINES``).
 """
 
 from __future__ import annotations
@@ -31,8 +38,9 @@ from __future__ import annotations
 MAX_WINDOW = 64
 
 REFUSALS: dict[str, str] = {
-    "delays": "event-driven delays (DelayConfig and its delay lines) are "
-              "not ported yet",
+    "delays_split": "the split path's gossip-class delay line "
+                    "(delays_split=True) is not ported: the split path "
+                    "(track_p3, force_split) is not",
     "rpc_probe": "the per-RPC probe snapshot is not ported yet",
     "invariants": "the in-step invariant checker is not ported yet",
     "byzantine": "byzantine payload mutation (byzantine_mutation, "
@@ -75,19 +83,23 @@ REFUSALS: dict[str, str] = {
                    "(sim_knobs): such sims step per tick (the degree-family "
                    "knobs are consumed in the step's prologue, which the "
                    "fused window elides)",
+    # the message goes on with the lines' byte count (msg_fused_delays)
+    "fused_delays": "kernel_ticks_fused: delay-armed sims stay per-tick",
 }
 
 
 class SliceRefusal(NotImplementedError):
     """An option outside the port, refused by name."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, message: str | None = None):
         self.name = name
-        super().__init__(f"{name}: {REFUSALS[name]}")
+        super().__init__(f"{name}: {message or REFUSALS[name]}")
 
 
-def refuse(name: str):
-    raise SliceRefusal(name)
+def refuse(name: str, message: str | None = None):
+    """Raise the named refusal (``message``: a longer form of its
+    REFUSALS text, which it starts with)."""
+    raise SliceRefusal(name, message)
 
 
 def check_kernel_config(cfg, sc) -> None:
@@ -117,6 +129,40 @@ MSG_KERNEL_KNOB_IWANT_SPAM = (
     "step (the in-kernel IWANT serve budget bakes it) — run "
     "iwant-spam knob sweeps on the XLA path, or drop sybil_iwant_spam "
     "from the config")
+
+
+#: the reference's message for delays on an IWANT-flood config: its kernel
+#: step's flood budget reads the partner advert views the delayed kernel
+#: does not stream
+MSG_KERNEL_DELAY_IWANT_SPAM = (
+    "delays: sybil_iwant_spam stays XLA-only on the pallas step under "
+    "delays (the in-kernel flood budget needs the partner advert "
+    "views the delayed kernel does not stream) — run iwant-spam delay "
+    "sweeps on the XLA path")
+
+#: the reference's delay messages (its step closure and sim build)
+MSG_DELAYS_PAIRED = (
+    "delays: paired-topic mode is not delay-supported (per-slot delay "
+    "lines and delayed cross-slot control routing are not modeled); "
+    "run delays on a single-topic-per-peer config")
+
+MSG_DELAYS_NEED_LINES = (
+    "delay-armed params need delay-line state: build (params, state) "
+    "together through make_gossip_sim(..., delays=DelayConfig(...))")
+
+MSG_DELAYS_NEED_COUNTER_LINES = (
+    "delay-armed telemetry counters need the advert + gossip observer "
+    "delay lines: build the sim with make_gossip_sim(..., "
+    "delays=DelayConfig(...), delays_counters=True)")
+
+
+def msg_fused_delays(extra_bytes: int) -> str:
+    """The reference's fused-window refusal of a delay-armed sim, with the
+    byte count of its delay lines."""
+    return (REFUSALS["fused_delays"] + " — the K-slot "
+            f"delay lines add {int(extra_bytes)} bytes of resident "
+            "carry and the dequeue runs in the XLA prologue between "
+            "kernel ticks")
 
 
 def check_paired_step(cfg, sc, force_split: bool) -> None:
@@ -149,20 +195,21 @@ def check_sim_options(*, flood_proto, pad_to_block, byzantine, delays,
         refuse("flood_proto")
     if byzantine is not None:
         refuse("byzantine")
-    if (delays is not None or delays_split or delays_counters
-            or delays_probe):
-        refuse("delays")
+    # without a DelayConfig these raise the reference's ValueErrors where
+    # the sim is built
+    if delays is not None and delays_split:
+        refuse("delays_split")
+    if delays is not None and delays_probe:
+        refuse("rpc_probe")
 
 
 def check_fused_window(cfg, sc, ticks: int, *, shard_mesh=None) -> None:
     """Refuse a fused window the port does not run (static config).
 
-    Delays are refused by name when the sim is built
-    (``check_sim_options``), so no window ever sees them; a faulted sim
-    runs (its per-tick fault rows ride the launch), and so does a window
-    with telemetry (its per-tick rows ride the launch); the window refuses
-    the rest here, and knobs, PX and direct peers when it is handed their
-    params or state (``check_fused_operands``)."""
+    A faulted sim runs (its per-tick fault rows ride the launch), and so
+    does a window with telemetry (its per-tick rows ride the launch); the
+    window refuses the rest here, and delays, knobs, PX and direct peers
+    when it is handed their params or state (``check_fused_operands``)."""
     if not 1 <= int(ticks) <= MAX_WINDOW:
         refuse("fused_window")
     check_kernel_config(cfg, sc)
@@ -175,8 +222,14 @@ def check_fused_window(cfg, sc, ticks: int, *, shard_mesh=None) -> None:
 
 
 def check_fused_operands(params, state) -> None:
-    """Refuse a sim the fused window does not run: one carrying
+    """Refuse a sim the fused window does not run: a delay-armed one
+    (the reference's message, with its lines' byte count), one carrying
     SimKnobs, one with an active set (PX) or with direct peers."""
+    if params.delays is not None:
+        extra = sum(line.numel() * line.element_size() for line in (
+            state.pay_line, state.ctrl_line, state.gsp_line,
+            state.adv_line) if line is not None)
+        refuse("fused_delays", msg_fused_delays(extra))
     if params.sim_knobs is not None:
         refuse("fused_knobs")
     if state.active is not None:

@@ -16,7 +16,11 @@ and, scored, time in mesh; and each of these under fault schedules
 (``ReceiveConsts.telemetry``, the ``+tel`` variants, from a source of
 their own, ``csrc/receive_tel.cu``); and each of these with the knob
 vector (``ReceiveConsts.knobs``, the ``+knobs`` variants, from
-``csrc/receive_knobs.cu`` and ``csrc/receive_tel_knobs.cu``).
+``csrc/receive_knobs.cu`` and ``csrc/receive_tel_knobs.cu``); and the
+delay mode (``ReceiveConsts.delays``, the ``+delays`` variants of the
+flagship, attack, full and unscored families, with and without knobs,
+from ``csrc/receive_delays.cu``), where the arrivals come from the
+step's delay lines in place of the sender streams.
 The port runs unpadded, so the sender view of edge j is the plain
 ``(p + o_j) mod N`` read — no wrap-extended flats.
 
@@ -61,7 +65,15 @@ With telemetry and latency buckets (``tel_lat_buckets`` L > 0):
 ``lat_masks`` int32 [L, W], the tick's latency-bucket message masks
 (``models/telemetry.py`` ``latency_bucket_masks``), and ``dlv_eff``
 int32 [W, N], the deliver words the bucket tallies count against
-(scored: ``deliver_words & ~invalid_words``).  With knobs:
+(scored: ``deliver_words & ~invalid_words``).  In delay mode
+(``DELAY_OPERANDS``) no ``ctrl``, ``fresh``, ``adv``, ``inj_send`` and,
+scored, no ``pay``, ``gsp``, ``acc``: ``arr`` int32 [C·W, N], this
+tick's arrivals per receiving edge (row j·W + w; send-gated, rolled and
+alive-masked by the step), ``graft_arr`` and ``prune_arr`` [N], the
+GRAFT and PRUNE bits arriving (alive-masked and, scored, accept-gated),
+``retract`` [N], the retractions taking effect, and with the attack
+options tracking promises ``cheat_arr`` [N], the broken-promise adverts
+arriving (a bit counts where the receiver lacks some id).  With knobs:
 ``knobs`` float32 [3] unscored, [7] scored, the armed knob values in the
 reference's ``KNOB_*`` order (``gossip_factor``, ``d_lazy``,
 ``backoff_ticks``; the P4 and P7 weights, the graylist and gossip
@@ -127,8 +139,9 @@ TEL_ROWS = ("payload", "ihave_ids", "iwant_served", "recv", "iwant_req",
 
 #: launches of the CUDA kernel by variant (``variant(k)``: scored,
 #: unscored, attacks, full, paired, paired_unscored, each also with a
-#: ``_faults`` suffix, and each of those with a ``+tel`` suffix, then a
-#: ``+knobs`` suffix);
+#: ``_faults`` suffix, and each of those with a ``+tel`` suffix; the first
+#: four and unscored full with a ``+delays`` suffix; then a ``+knobs``
+#: suffix);
 #: chip_smoke.py clears it before a main path and reads it after
 launches: Counter[str] = Counter()
 
@@ -144,6 +157,11 @@ SCORED_OPERANDS = ("valid", "pay", "gsp", "acc", "bo2", "static", "fd",
 #: scored only)
 PAIRED_OPERANDS = ("ctrl2", "fresh_b", "wa_b", "bo2_b", "grafts_b",
                    "dropped_b", "meshsel_b", "backoff_b", "tim_b")
+
+#: operands of the delay mode (``cheat_arr`` with track_promises only), in
+#: place of the sender streams and, scored, the receiver's gate words
+DELAY_OPERANDS = ("arr", "graft_arr", "prune_arr", "retract", "cheat_arr")
+SENDER_OPERANDS = ("ctrl", "fresh", "adv", "inj_send", "pay", "gsp", "acc")
 
 #: ScoreSimConfig counter_dtype / bp_dtype names -> torch dtypes
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -252,6 +270,9 @@ class ReceiveConsts:
     # the rounded topic weight its P4 product takes
     knobs: bool = False
     topic_weight: float | None = None
+    # the delay mode: arrivals and resolved control words from the step's
+    # delay lines in place of the sender streams
+    delays: bool = False
 
     @property
     def n_candidates(self) -> int:
@@ -285,7 +306,8 @@ def receive_consts(cfg, sc, *, promise_break: bool = False,
                    px: bool = False, same_ip: bool = False,
                    faults: bool = False, telemetry: bool = False,
                    tel_lat_buckets: int = 0,
-                   knobs: bool = False) -> ReceiveConsts:
+                   knobs: bool = False,
+                   delays: bool = False) -> ReceiveConsts:
     """Check the options (named refusals outside the slice) and fold the
     constants (``sc`` None: the unscored step's).  The receiver tracks
     broken promises when sybils spam IHAVEs or ``promise_break`` (the
@@ -295,14 +317,27 @@ def receive_consts(cfg, sc, *, promise_break: bool = False,
     the ``alive_w`` operand and, under the IWANT flood, ``flood_ok``;
     ``telemetry`` the tally output, with ``tel_lat_buckets`` latency rows
     and their ``lat_masks`` and ``dlv_eff`` operands, ``knobs`` (the sim
-    carries knobs) the ``knobs`` operand."""
+    carries knobs) the ``knobs`` operand, ``delays`` (the sim carries
+    delays) the delay mode's operands (``DELAY_OPERANDS``); the step
+    composes faults and telemetry around a delayed launch, so no delayed
+    variant takes them, and paired topics and the IWANT flood raise the
+    reference's errors."""
     plan.check_kernel_config(cfg, sc)
     exact_k = not cfg.binomial_gossip_sampling
     if tel_lat_buckets and not telemetry:
         raise ValueError("latency-bucket rows need telemetry=True")
+    if delays:
+        if cfg.paired_topics:
+            raise NotImplementedError(plan.MSG_DELAYS_PAIRED)
+        if sc is not None and sc.sybil_iwant_spam:
+            raise ValueError(plan.MSG_KERNEL_DELAY_IWANT_SPAM)
+        if faults or telemetry:
+            raise ValueError("the delay mode takes no fault or telemetry "
+                             "operands: the step composes them around it")
     paired = dict(paired=cfg.paired_topics, odd_mask=odd_edge_mask(cfg),
                   faults=faults, telemetry=telemetry,
-                  tel_lat_buckets=int(tel_lat_buckets), knobs=knobs)
+                  tel_lat_buckets=int(tel_lat_buckets), knobs=knobs,
+                  delays=delays)
     if sc is None:
         if same_ip:
             raise ValueError("same-IP sibling words need a score config")
@@ -455,6 +490,35 @@ def _decay_keep(k: ReceiveConsts, x: torch.Tensor, decay: float,
                 dtype: torch.dtype) -> torch.Tensor:
     x = x * decay
     return torch.where(x < k.decay_to_zero, 0.0, x).to(dtype)
+
+
+def _arrivals(k: ReceiveConsts, arr, seen, valid=None, cheat_arr=None):
+    """Stage 1 of the delay mode over the C receiving edges, from this
+    tick's arrivals (``arr`` row j·W + w): the news heard per message word
+    and, with ``valid`` (scored), the per-edge valid/invalid news counts;
+    with ``k.track_promises``, the broken-promise adverts arriving at a
+    receiver that lacks some id."""
+    W, n = seen.shape
+    z = torch.zeros((n,), dtype=torch.int32, device=seen.device)
+    heard = [z] * W
+    fd_cnt, iv_cnt = [], []
+    for j in range(k.n_candidates):
+        fd_j = iv_j = z
+        for w in range(W):
+            news = arr[j * W + w] & ~seen[w]
+            heard[w] = heard[w] | news
+            if valid is not None:
+                fd_j = fd_j + graph.popcount32(news & valid[w])
+                iv_j = iv_j + graph.popcount32(news & ~valid[w])
+        fd_cnt.append(fd_j)
+        iv_cnt.append(iv_j)
+    broken = z
+    if k.track_promises:
+        lacked = torch.zeros((n,), dtype=torch.bool, device=seen.device)
+        for w in range(W):
+            lacked = lacked | (~seen[w] != 0)
+        broken = torch.where(lacked, cheat_arr, 0)
+    return heard, fd_cnt, iv_cnt, broken
 
 
 def _exchange(k: ReceiveConsts, ctrl, fresh, adv, seen, pay=None,
@@ -631,10 +695,14 @@ def receive_update_plain(k: ReceiveConsts, **ops):
     return _receive_plain_unscored(k, **ops)
 
 
-def _handshake(meshsel, wa, grafts, graft_recv, prune_recv, a_recv):
-    """A slot's handshake resolution: (mesh, retract)."""
+def _handshake(meshsel, wa, grafts, graft_recv, prune_recv, a_recv,
+               retract=None):
+    """A slot's handshake resolution: (mesh, retract); the GRAFTs sent
+    that no A bit confirms are retracted, or in delay mode ``retract`` is
+    given."""
     accept = graft_recv & wa
-    retract = grafts & ~a_recv
+    if retract is None:
+        retract = grafts & ~a_recv
     return ((meshsel | accept) & ~prune_recv) & ~retract, retract
 
 
@@ -661,17 +729,24 @@ def _slot_b(k: ReceiveConsts, hs_b, *, wa_b, grafts_b, dropped_b,
     return mesh_b, bo_b, bo_gate_b, graft_b, prune_b | retract_b
 
 
-def _receive_plain_unscored(k: ReceiveConsts, *, gseeds, ctrl, fresh, adv,
-                            sub_all, cand_sub, fanout, wa, grafts, dropped,
-                            meshsel, seen, injected, backoff, ctrl2=None,
-                            fresh_b=None, alive_w=None, lat_masks=None,
-                            dlv_eff=None, knobs=None, **paired_ops):
+def _receive_plain_unscored(k: ReceiveConsts, *, gseeds, sub_all, cand_sub,
+                            fanout, wa, grafts, dropped, meshsel, seen,
+                            injected, backoff, ctrl=None, fresh=None,
+                            adv=None, ctrl2=None, fresh_b=None,
+                            alive_w=None, lat_masks=None, dlv_eff=None,
+                            knobs=None, arr=None, graft_arr=None,
+                            prune_arr=None, retract=None, **paired_ops):
     tel = _tel_start(k, seen.device)
-    ex = _exchange(k, ctrl, fresh, adv, seen, ctrl2=ctrl2, fresh_b=fresh_b,
-                   alive_w=alive_w, tel=tel)
-    heard, graft_recv, prune_recv, a_recv = ex[:4]
+    if k.delays:
+        heard = _arrivals(k, arr, seen)[0]
+        graft_recv, prune_recv, a_recv = graft_arr, prune_arr, None
+        ex = None
+    else:
+        ex = _exchange(k, ctrl, fresh, adv, seen, ctrl2=ctrl2,
+                       fresh_b=fresh_b, alive_w=alive_w, tel=tel)
+        heard, graft_recv, prune_recv, a_recv = ex[:4]
     mesh, retract = _handshake(meshsel, wa, grafts, graft_recv, prune_recv,
-                               a_recv)
+                               a_recv, retract)
     bo_new, bo_gate = _backoff(k, backoff, dropped | prune_recv | retract,
                                knobs)
     elig = cand_sub & ~mesh & ~fanout & sub_all
@@ -691,25 +766,35 @@ def _receive_plain_unscored(k: ReceiveConsts, *, gseeds, ctrl, fresh, adv,
             *_tel_rows(k, tel, heard, sub_all, acq, lat_masks, dlv_eff))
 
 
-def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, ctrl, fresh,
-                          adv, pay, gsp, acc, sub_all, cand_sub, fanout, wa,
-                          bo2, grafts, dropped, meshsel, seen, injected,
-                          backoff, static, fd, inv, bp, tim, iws, syb=None,
+def _receive_plain_scored(k: ReceiveConsts, *, valid, gseeds, sub_all,
+                          cand_sub, fanout, wa, bo2, grafts, dropped,
+                          meshsel, seen, injected, backoff, static, fd, inv,
+                          bp, tim, iws, ctrl=None, fresh=None, adv=None,
+                          pay=None, gsp=None, acc=None, syb=None,
                           inj_send=None, same_ip=None, ctrl2=None,
                           fresh_b=None, bo2_b=None, tim_b=None,
                           alive_w=None, flood_ok=None, lat_masks=None,
-                          dlv_eff=None, knobs=None, **paired_ops):
+                          dlv_eff=None, knobs=None, arr=None,
+                          graft_arr=None, prune_arr=None, retract=None,
+                          cheat_arr=None, **paired_ops):
     C = k.n_candidates
-    n = pay.shape[0]
+    n = sub_all.shape[0]
     tel = _tel_start(k, seen.device)
-    (heard, graft_recv, prune_recv, a_recv, fd_cnt, iv_cnt, broken,
-     padv, hs_b) = _exchange(k, ctrl, fresh, adv, seen, pay, gsp, valid,
-                             inj_send, ctrl2, fresh_b, alive_w, tel)
-    graft_recv = graft_recv & acc
-    prune_recv = prune_recv & acc
+    if k.delays:
+        # the step gated and masked the control words at arrival
+        heard, fd_cnt, iv_cnt, broken = _arrivals(k, arr, seen, valid,
+                                                  cheat_arr)
+        graft_recv, prune_recv, a_recv = graft_arr, prune_arr, None
+        padv = hs_b = None
+    else:
+        (heard, graft_recv, prune_recv, a_recv, fd_cnt, iv_cnt, broken,
+         padv, hs_b) = _exchange(k, ctrl, fresh, adv, seen, pay, gsp, valid,
+                                 inj_send, ctrl2, fresh_b, alive_w, tel)
+        graft_recv = graft_recv & acc
+        prune_recv = prune_recv & acc
     viol = graft_recv & bo2
     mesh, retract = _handshake(meshsel, wa, grafts, graft_recv, prune_recv,
-                               a_recv)
+                               a_recv, retract)
     px_val = prune_recv | retract
     acq = _acquired(heard, sub_all, injected)
     bo_new, bo_gate = _backoff(k, backoff, dropped | prune_recv | retract,
@@ -841,8 +926,11 @@ class _Args(ctypes.Structure):
         + [(name, ctypes.c_void_p) for name in ("lat_masks", "dlv_eff",
                                                  "tel")]
         + [("tel_lat_buckets", ctypes.c_int)]
-        # the knob fields, last
-        + [("knobs", ctypes.c_void_p), ("topic_weight", ctypes.c_float)])
+        # the knob fields, after those
+        + [("knobs", ctypes.c_void_p), ("topic_weight", ctypes.c_float)]
+        # the delay mode's fields, last
+        + [(name, ctypes.c_void_p) for name in (
+            "arr", "graft_arr", "prune_arr", "retract_in", "cheat_arr")])
 
 
 _WORDS_N = ("sub_all", "cand_sub", "fanout", "wa", "grafts", "dropped",
@@ -852,7 +940,7 @@ _WORDS_N_SCORED = ("pay", "gsp", "acc", "bo2")
 
 def _check_operands(k: ReceiveConsts, ops: dict) -> None:
     C = k.n_candidates
-    W, n = ops["fresh"].shape
+    W, n = ops["seen"].shape
     if (C, W, k.scored) not in KERNEL_SHAPES:
         plan.refuse("kernel_shape")
     names = set(ops) - {"gseeds"}
@@ -878,6 +966,9 @@ def _check_operands(k: ReceiveConsts, ops: dict) -> None:
         want_names |= {"lat_masks", "dlv_eff"}
     if k.knobs:
         want_names.add("knobs")
+    if k.delays:
+        want_names = (want_names - set(SENDER_OPERANDS)) | set(
+            DELAY_OPERANDS[:4 + k.track_promises])
     if names != want_names:
         variant = ("paired" if k.paired else "full" if k.full else
                    "attack" if k.attacks else
@@ -886,6 +977,8 @@ def _check_operands(k: ReceiveConsts, ops: dict) -> None:
             variant += " faulted"
         if k.telemetry:
             variant += " telemetry"
+        if k.delays:
+            variant += " delayed"
         if k.knobs:
             variant += " knobbed"
         raise ValueError(
@@ -894,10 +987,12 @@ def _check_operands(k: ReceiveConsts, ops: dict) -> None:
             f"{sorted(names - want_names)}")
     want = {"ctrl": ((C, n), torch.uint8),
             "fresh": ((W, n), torch.int32), "adv": ((W, n), torch.int32),
+            "arr": ((C * W, n), torch.int32),
             "seen": ((W, n), torch.int32),
             "injected": ((W, n), torch.int32),
             "backoff": ((C, n), torch.int16)}
-    want.update({name: ((n,), torch.int32) for name in _WORDS_N})
+    want.update({name: ((n,), torch.int32) for name in
+                 (*_WORDS_N, *DELAY_OPERANDS[1:])})
     if k.attacks:
         want["syb"] = ((n,), torch.int32)
     if k.flood_publish:
@@ -935,6 +1030,8 @@ def _check_operands(k: ReceiveConsts, ops: dict) -> None:
             want["static"] = ((C, n), torch.float32)
     device = ops["sub_all"].device
     for name, (shape, dtype) in want.items():
+        if name not in want_names:
+            continue
         t = ops[name]
         if t.device != device:
             raise ValueError(f"{name} on {t.device}, sub_all on {device}")
@@ -954,7 +1051,7 @@ def receive_update(k: ReceiveConsts, **ops):
     if ops["sub_all"].device.type == "cpu":
         return receive_update_plain(k, **ops)
     C = k.n_candidates
-    W, n = ops["fresh"].shape
+    W, n = ops["seen"].shape
     dev = ops["sub_all"].device
     acq = torch.empty((W, n), dtype=torch.int32, device=dev)
     mesh = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -964,8 +1061,13 @@ def receive_update(k: ReceiveConsts, **ops):
     outs = [("acq", acq), ("mesh", mesh), ("backoff_out", bo_out),
             ("gates", gates)]
     a = _Args()
-    for name in ("ctrl", "fresh", "adv", *_WORDS_N, "seen", "backoff"):
+    streams = DELAY_OPERANDS[:3] if k.delays else ("ctrl", "fresh", "adv")
+    for name in (*streams, *_WORDS_N, "seen", "backoff"):
         setattr(a, name, ops[name].data_ptr())
+    if k.delays:
+        a.retract_in = ops["retract"].data_ptr()
+        if k.track_promises:
+            a.cheat_arr = ops["cheat_arr"].data_ptr()
     a.inj = ops["injected"].data_ptr()
     a.n = n
     for j in range(C):
@@ -984,7 +1086,8 @@ def receive_update(k: ReceiveConsts, **ops):
         outs += [(f"{name}_out", t) for name, t in counters]
         for name in (*_WORDS_N_SCORED, "valid", "fd", "inv", "bp", "tim",
                      "iws"):
-            setattr(a, name, ops[name].data_ptr())
+            if name in ops:         # (delay mode: no pay, gsp, acc)
+                setattr(a, name, ops[name].data_ptr())
         a.stat = (None if ops["static"] is None
                   else ops["static"].data_ptr())
         a.has_topic_cap = int(k.score.topic_cap > 0)
@@ -1003,7 +1106,7 @@ def receive_update(k: ReceiveConsts, **ops):
     a.full = int(k.full)
     a.flood_publish = int(k.flood_publish)
     a.exact_k = int(k.exact_k)
-    if k.flood_publish:
+    if k.flood_publish and not k.delays:
         a.inj_send = ops["inj_send"].data_ptr()
     if k.with_same_ip:
         a.same_ip = ops["same_ip"].data_ptr()
@@ -1069,12 +1172,16 @@ def receive_update(k: ReceiveConsts, **ops):
 
 
 #: the receive kernels' sources (``csrc/<name>.cu``), one library each:
-#: without and with the telemetry tally, each without and with knobs
-SOURCES = ("receive", "receive_tel", "receive_knobs", "receive_tel_knobs")
+#: without and with the telemetry tally, each without and with knobs; the
+#: delay mode, without and with knobs
+SOURCES = ("receive", "receive_tel", "receive_knobs", "receive_tel_knobs",
+           "receive_delays")
 
 
 def library(k: ReceiveConsts) -> str:
     """The source whose library holds ``k``'s kernel."""
+    if k.delays:
+        return "receive_delays"
     return SOURCES[int(k.telemetry) + 2 * int(k.knobs)]
 
 
@@ -1092,6 +1199,8 @@ def variant(k: ReceiveConsts) -> str:
         name += "_faults"
     if k.telemetry:
         name += "+tel"
+    if k.delays:
+        name += "+delays"
     return name + "+knobs" if k.knobs else name
 
 

@@ -18,8 +18,12 @@ its frames), the card against the CPU by a digest of every state leaf
 (and frame field) every 25th tick, and two knob points of the knob sweep
 at 100,000 peers for 100 ticks the same way; each receive family's knob
 variant (clean and faulted, with and without telemetry) at a non-default
-point, card against CPU, and the knob step's host syncs.  Exact: every
-output bit for bit, but
+point, card against CPU, and the knob step's host syncs; each delayed
+variant on a real tick of its delayed sim against its plain version, each
+delayed family's step (clean, at a knob point, under faults, with
+telemetry) card against CPU, and the pipelined benchmark's base4j2 point
+at 100,000 peers card against CPU every 12th tick.  Exact: every output
+bit for bit, but
 a frame's ``score_mean``: the mean of non-integer f32 scores, which the
 card and the CPU sum in different orders (relative 1e-5).
 
@@ -41,8 +45,10 @@ from go_libp2p_pubsub_tpu_torch import (
     convert,
     everything,
     knob_sweep,
+    pipelined,
     telemetry_flagship,
 )
+from go_libp2p_pubsub_tpu_torch.models import delays as pdl
 from go_libp2p_pubsub_tpu_torch.models import faults as pfl
 from go_libp2p_pubsub_tpu_torch.models import gossipsub as pgs
 from go_libp2p_pubsub_tpu_torch.models import telemetry as ptl
@@ -1010,3 +1016,127 @@ def test_telemetry_fused_kernel_matches_plain(cuda, cold, c, w_words):
     assert _state_digest(end_f) == _state_digest(end_t)
     assert _frame_digest(fr_f) == _frame_digest(fr_t)
     assert int(fr_f.payload_sent.sum()) > 0
+
+
+# -- delays -------------------------------------------------------------------
+
+#: each receive family the delay mode serves: its sim (the IWANT flood off:
+#: the delay mode refuses it) and its kernel variant
+DELAYED = {
+    "scored": (lambda c, w: _surface_sim("direct", c, w, "cpu"),
+               "scored+delays"),
+    "unscored": (lambda c, w: (lambda s: (s[0], None, *s[1:]))(
+        _unscored_sim(c, w, n=4060)), "unscored+delays"),
+    "attack": (lambda c, w: _attack_sim(c, w), "attacks+delays"),
+    "full": (lambda c, w: _surface_sim("all", c, w, "cpu"), "full+delays"),
+    "full_unscored": (lambda c, w: _surface_sim("px_unscored", c, w, "cpu"),
+                      "full+delays"),
+}
+DELAYS = pdl.DelayConfig(base=3, jitter=2, k_slots=8)
+
+
+def _delayed(family, c, w_words, mode, counters=False, device="cuda"):
+    """The family's sim on the CPU with ``DELAYS`` armed (and, ``mode``
+    ``knobs``, at ``_knob_point``; ``faults``, under ``_sched``), and its
+    copy on ``device``."""
+    cfg, sc, params, state = DELAYED[family][0](c, w_words)
+    if sc is not None and sc.sybil_iwant_spam:
+        sc = dataclasses.replace(sc, sybil_iwant_spam=False)
+    params, state = pgs.arm_delays(sc, params, state, DELAYS,
+                                   delays_counters=counters)
+    sim = (cfg, sc, params, pgs.refresh_gates(cfg, sc, params, state))
+    if mode == "knobs":
+        sim = _armed(sim, "cpu")
+    if mode == "faults":
+        sim = _faulted(sim, "cpu")
+    cfg, sc, params, state = sim
+    gpu = (cfg, sc, convert.params_from_numpy(
+        convert.params_to_numpy(params), device), convert.state_from_numpy(
+        convert.state_to_numpy(state), sc, device))
+    return sim, gpu
+
+
+@pytest.mark.parametrize("family", sorted(DELAYED))
+@pytest.mark.parametrize("knobs", [False, True])
+@pytest.mark.parametrize("c", [8, 16])
+@pytest.mark.parametrize("w_words", [1, 2])
+def test_delayed_receive_kernel_matches_plain_on_a_real_tick(
+        cuda, family, knobs, c, w_words):
+    """Each delayed variant on the operands of tick 12 of its delayed sim
+    (arrivals and retractions in flight) against its plain version."""
+    (cfg, sc, params, state), _ = _delayed(
+        family, c, w_words, "knobs" if knobs else "plain", device=cuda)
+    step = pgs.make_gossip_step(cfg, sc, device="cpu")
+    captured = []
+    real = prc.receive_update
+
+    def capture(k, **ops):
+        captured[:] = [(k, ops)]
+        return real(k, **ops)
+
+    prc.receive_update = capture
+    try:
+        for _ in range(13):
+            state = step(params, state)[0]
+    finally:
+        prc.receive_update = real
+    k, ops = captured[-1]
+    assert k.delays and k.knobs == knobs and int(ops["arr"].ne(0).sum()) > 0
+    want = prc.receive_update_plain(k, **ops)
+    before = prc.launches[prc.variant(k)]
+    got = prc.receive_update(k, **_to(ops, cuda))
+    torch.cuda.synchronize()
+    assert prc.launches[prc.variant(k)] - before == 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g.cpu(), w), f"output {i}"
+
+
+@pytest.mark.parametrize("family", sorted(DELAYED))
+@pytest.mark.parametrize("mode", ["plain", "knobs", "faults", "telemetry"])
+@pytest.mark.parametrize("c,w_words", [(8, 2), (16, 1)])
+def test_delayed_step_on_the_card_matches_the_cpu(cuda, family, mode, c,
+                                                  w_words):
+    """Each family's delayed step on the card against the CPU for 20 ticks
+    (clean, armed at a knob point, under ``_sched``, and with every
+    telemetry group on the observer lines): every state leaf (and frame
+    field), the delayed variant launched once a tick."""
+    tel = mode == "telemetry"
+    (cfg, sc, p_c, s_c), (_, _, p_g, s_g) = _delayed(
+        family, c, w_words, mode, counters=tel, device=cuda)
+    tcfg = TEL_ALL if tel else None
+    step_c = pgs.make_gossip_step(cfg, sc, device="cpu", telemetry=tcfg)
+    step_g = pgs.make_gossip_step(cfg, sc, device=cuda, telemetry=tcfg)
+    variant = DELAYED[family][1] + ("+knobs" if mode == "knobs" else "")
+    before = prc.launches[variant]
+    for tick in range(20):
+        s_c, _, *f_c = step_c(p_c, s_c)
+        s_g, _, *f_g = step_g(p_g, s_g)
+        assert _state_digest(s_c) == _state_digest(s_g), tick
+        if tel:
+            assert _frame_digest(f_c[0]) == _frame_digest(f_g[0]), tick
+            _assert_score_mean_close(f_c[0], f_g[0], f"tick {tick}")
+    assert prc.launches[variant] - before == 20
+    assert bool(s_g.pay_line.any())
+
+
+def test_pipelined_whole_run_on_the_card_matches_the_cpu(cuda):
+    """The pipelined benchmark's base4j2 point at 100,000 peers, 48 ticks
+    from build with its telemetry: the card against the CPU (which equals
+    the reference's XLA step: tests/torch_reference_gate.py --pipelined
+    --port) by the digest of every state leaf and frame field every 12th
+    tick."""
+    point = pipelined.POINTS["base4j2"]
+    tcfg = ptl.TelemetryConfig(**pipelined.TELEMETRY)
+    runs = {}
+    for dev in ("cpu", cuda):
+        cfg, sc, params, state = pipelined.arm(
+            pipelined.build(dev, pipelined.N_PEERS), point)
+        step = pgs.make_gossip_step(cfg, sc, device=dev, telemetry=tcfg)
+        out = []
+        for tick in range(1, pipelined.TICKS + 1):
+            state, _, frame = step(params, state)
+            if tick % 12 == 0:
+                out.append(_state_digest(state) + _frame_digest(frame))
+        runs[str(dev)] = out
+    assert len(runs["cpu"]) == pipelined.TICKS // 12
+    assert runs["cpu"] == runs[str(cuda)]

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from go_libp2p_pubsub_tpu_torch import device as pdev
+from go_libp2p_pubsub_tpu_torch.models import delays as pdl
 from go_libp2p_pubsub_tpu_torch.models import faults as pfl
 from go_libp2p_pubsub_tpu_torch.models import gossipsub as pgs
 from go_libp2p_pubsub_tpu_torch.models import plan
@@ -153,15 +154,17 @@ REFUSED = {
     # a knob-carrying sim steps per tick, as in the reference
     "fused_knobs": [lambda: _fused_run(8, sim_knobs={}),
                     lambda: _fused_run(8, sim_knobs={"d": 5, "d_lo": 4})],
-    # faults or telemetry with delays keep the delays name, and so do
-    # knobs with delays and the delay knobs: refused when the sim is built
-    "delays": [lambda: _sim(delays=object()),
-               lambda: _sim(delays_probe=True),
-               lambda: _sim(fault_schedule=_sched(), delays=object()),
-               lambda: _sim(sim_knobs={"d": 5}, delays=object()),
-               lambda: _sim(score_knobs={}, delays=object()),
-               lambda: _sim(sim_knobs={"delay_base": 2})],
-    "rpc_probe": [lambda: _step(rpc_probe=True)],
+    # a delay-armed sim steps per tick, as in the reference (with its
+    # message and the lines' byte count), faulted or not
+    "fused_delays": [
+        lambda: _fused_run(8, delays=pdl.DelayConfig(2, 1, 4)),
+        lambda: _fused_run(8, delays=pdl.DelayConfig(1, 0, 1),
+                           fault_schedule=_sched())],
+    # the split path's delay line waits for the split path
+    "delays_split": [lambda: _sim(delays=pdl.DelayConfig(),
+                                  delays_split=True)],
+    "rpc_probe": [lambda: _step(rpc_probe=True),
+                  lambda: _sim(delays=pdl.DelayConfig(), delays_probe=True)],
     "invariants": [lambda: _step(invariants=object())],
     "byzantine": [
         lambda: _step(sc=pgs.ScoreSimConfig(byzantine_mutation=True)),
@@ -261,6 +264,25 @@ def test_knobs_run_on_the_step_and_keep_the_references_refusals():
                          score_knobs={"behaviour_penalty_weight": -40.0})
     state = pgs.gossip_run(params, state, 3, _step(sc=flood), device="cpu")
     assert state.tick == 3
+
+
+def test_delays_run_on_the_step_with_faults_knobs_and_telemetry():
+    """Delays are no longer refused: a delayed sim builds and steps, scored
+    and unscored, with faults, telemetry and the delay knobs; the
+    ``delays`` refusal is gone."""
+    assert "delays" not in plan.REFUSALS
+    dc = pdl.DelayConfig(base=2, jitter=1, k_slots=4)
+    params, state = _sim(delays=dc, fault_schedule=_sched(),
+                         sim_knobs={"d": 5, "d_lo": 4, "delay_base": 3},
+                         delays_counters=True)
+    assert int(params.delays.base) == 3
+    step = _step(telemetry=ptl.TelemetryConfig(latency_hist=True))
+    for _ in range(6):
+        state, _, frame = step(params, state)
+    assert state.tick == 6 and state.pay_line.shape == (4, 16, 1, N)
+    params, state = _sim(sc=None, delays=dc)
+    state = pgs.gossip_run(params, state, 6, _step(sc=None), device="cpu")
+    assert state.tick == 6
 
 
 def test_more_refusals():

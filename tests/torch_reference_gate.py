@@ -14,6 +14,8 @@ checked on the JAX reference.
         [--n 100000] [--port]
     JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --knobs \
         [--n 100000] [--port]
+    JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --pipelined \
+        [--n 100000] [--port]
 
 Runs the JAX package's unscored per-tick step (XLA) on the resident
 configuration (go_libp2p_pubsub_tpu_torch/resident.py: 10 topics, C = 16,
@@ -82,6 +84,18 @@ reference and the churn point at 0.02 equal to baked) fails.  With
 ``--port`` the port's plain CPU run of the same sweep
 (``knob_sweep.run_sweep``, about an hour at 100,000 peers) must give the
 same digests and gates.
+
+With ``--pipelined`` it runs the JAX package's pipelined-gossip benchmark
+(bench_suite.py ``bench_gossipsub_pipelined``; go_libp2p_pubsub_tpu_torch/
+pipelined.py: the delay line DelayConfig(1, 0, 8), the points base1,
+base2, base4 and base4j2 through the delay knobs, the latency histogram
+on) on the JAX package's XLA step at ``--n`` peers, one point after
+another, each point's sim built by its ``make_gossip_sim(sim_knobs=point)``
+and stepped 48 ticks from build, and prints the benchmark's rows
+(delivery fraction, latency percentiles, histogram, the p99 stretch) and
+the digest of every state leaf; exits 1 if one of its two gates fails.
+With ``--port`` the port's plain CPU run (``pipelined.run("cpu", n)``, a
+few minutes at 100,000 peers) must give the same digests and rows.
 """
 
 import argparse
@@ -99,6 +113,7 @@ from go_libp2p_pubsub_tpu_torch import (  # noqa: E402
     everything,
     flagship,
     knob_sweep,
+    pipelined,
     resident,
     telemetry_flagship,
 )
@@ -472,6 +487,73 @@ def knob_rows(n: int, port: bool) -> int:
     return 0 if ok else 1
 
 
+def pipelined_rows(n: int, port: bool) -> int:
+    """The pipelined benchmark's rows, gates and digests on the reference
+    (and, with ``port``, the port's CPU run against them)."""
+    import jax
+
+    from go_libp2p_pubsub_tpu_torch.histutil import hist_percentiles
+    from torch_ref import tree_to_numpy
+
+    with imported_reference() as r:
+        import go_libp2p_pubsub_tpu.models.delays as rdl
+        import go_libp2p_pubsub_tpu.models.telemetry as rtl
+
+        gs = r.gs
+        t, m = pipelined.N_TOPICS, pipelined.N_MSGS
+        rng = np.random.default_rng(0)
+        topic = rng.integers(0, t, m)
+        origin = rng.integers(0, n // t, m) * t + topic
+        tick = np.sort(rng.integers(0, pipelined.MSG_HORIZON, m)).astype(
+            np.int32)
+        cfg = gs.GossipSimConfig(
+            offsets=gs.make_gossip_offsets(t, pipelined.N_CAND, n, seed=7),
+            n_topics=t)
+        sc = gs.ScoreSimConfig()
+        dc = rdl.DelayConfig(base=pipelined.DELAYS.base,
+                             jitter=pipelined.DELAYS.jitter,
+                             k_slots=pipelined.DELAYS.k_slots)
+        step = jax.jit(gs.make_gossip_step(
+            cfg, sc, telemetry=rtl.TelemetryConfig(**pipelined.TELEMETRY)))
+        rows = {}
+        for pid, point in pipelined.POINTS.items():
+            params, state = gs.make_gossip_sim(
+                cfg, resident.subs_matrix(n, t), topic, origin, tick,
+                seed=pipelined.SEED, score_cfg=sc, delays=dc,
+                track_first_tick=False, sim_knobs=point)
+            hist = np.zeros(pipelined.TICKS, dtype=np.int64)
+            for _ in range(pipelined.TICKS):
+                state, _, frame = step(params, state)
+                hist += np.asarray(frame.latency_hist)
+            reach = np.asarray(gs.reach_counts_from_have(params, state))
+            rows[pid] = dict(
+                delay_base=int(point.get("delay_base", dc.base)),
+                delay_jitter=int(point.get("delay_jitter", dc.jitter)),
+                delivery_fraction=float(reach.astype(np.float64).mean())
+                / (n // t), hist=[int(c) for c in hist],
+                latency=hist_percentiles(hist),
+                digest=knob_sweep.tree_digest(tree_to_numpy(state)))
+            print(f"{pid}: {rows[pid]}", flush=True)
+    g = pipelined.gates(rows)
+    p99 = {pid: r_["latency"]["p99"] for pid, r_ in rows.items()}
+    print(f"gates {g}; p99 {p99}; p99_stretch_base4 "
+          f"{p99['base4'] / max(p99['base1'] or 0, 1)!r}", flush=True)
+    ok = g["ok"]
+    if port:
+        got = pipelined.run("cpu", n)
+        for pid, row in got["rows"].items():
+            w_ = rows[pid]
+            match = all(row[k] == w_[k] for k in (
+                "digest", "hist", "latency", "delivery_fraction"))
+            ok &= match
+            print(f"port (CPU) {pid}: digest {row['digest']}, delivery "
+                  f"fraction {row['delivery_fraction']!r}, latency "
+                  f"{row['latency']}; equal to the reference: {match}",
+                  flush=True)
+    print("gates", "pass" if ok else "FAIL")
+    return 0 if ok else 1
+
+
 def paired_report(cfg, params, state, honest, gs) -> None:
     """The slot-B mesh degree of the honest subscribed peers, and the
     cross-slot symmetry: the share of mesh edges, both slots', that the
@@ -509,6 +591,7 @@ def main() -> int:
     ap.add_argument("--churn", action="store_true")
     ap.add_argument("--telemetry", action="store_true")
     ap.add_argument("--knobs", action="store_true")
+    ap.add_argument("--pipelined", action="store_true")
     ap.add_argument("--port", action="store_true")
     ap.add_argument("--ticks", type=int, default=400)
     args = ap.parse_args()
@@ -518,6 +601,8 @@ def main() -> int:
         return telemetry_rows(args.n or 100_000, args.port)
     if args.knobs:
         return knob_rows(args.n or 100_000, args.port)
+    if args.pipelined:
+        return pipelined_rows(args.n or 100_000, args.port)
     if args.adversarial or args.everything or args.everything_paired:
         return adversarial_gates(
             args.n or 100_000, args.ticks,
