@@ -218,6 +218,33 @@ Phases (any failure exits non-zero; nothing is caught):
    (DelayConfig(4, 2, 8) beside no delays, 100 + 100 heartbeats each, then
    20 delayed ones profiled: the device's idle share, the delay ranges and
    the top device operations);
+5r. each per-tick family's step with the invariant checker on
+   (``armed_families``): the flagship, the unscored resident
+   configuration, adversarial, everything-on, paired everything-on and
+   unscored paired at 100,000 peers, each clean, under the churn
+   benchmark's kind of schedule, with every telemetry group and at a knob
+   point, and the delayed flagship, attack, full and unscored sims; each
+   armed and run 24 ticks on the card, then tick 24 on the card (one
+   receive launch), on the CPU from the same state and on the card
+   without the checker: every state leaf and the two carry scalars equal
+   the CPU's, every other leaf, the delivered words and the frames the
+   unarmed step's, the report clean; then the reference's seeded mesh
+   defect trips mesh-subscription on tick 0, on the card as on the CPU;
+5s. the slice's main path: the JAX package's invariants-kernel benchmark
+   as written (bench_suite.py bench_gossipsub_invariants_kernel: the
+   flagship at 1,024,000 peers, the checker off, then armed with
+   InvariantConfig(), each 100 warm-up and 100 timed heartbeats;
+   go_libp2p_pubsub_tpu_torch/invariants_flagship.py): both rates, the
+   overhead, the report with no bits, the flagship's gates on both runs,
+   equal digests of every state leaf but the carry, the flagship variant
+   once per tick and the select kernel as often on both runs, no other
+   receive variant, counts reset just before each run and read just
+   after; then (``invariant_path_kernels``) the receive and select kernels
+   at the path's shapes (N = 1,024,000, whole 256-peer blocks, where
+   phases 3 and 4 hold them at 1,000,000 with a tail block) against their
+   plain versions, on seeded random operands and on every call of a busy
+   tick of the benchmark's sim stepped by its armed step: every output
+   bit-identical; both timed on the tick;
 6. the unscored receive kernel against its plain version at the resident
    configuration's shapes (N = 1,048,576, C = 16, W = 1), on seeded random
    operands and on the operands of a real unscored tick: every output
@@ -254,6 +281,7 @@ import time
 import torch
 
 WARMUP, TIMED = 100, 300
+INV_CHECK_PEERS = 100_000      # 5r: each family's armed tick, card vs CPU
 RES_WARMUP, RES_TIMED = 64, 256     # the resident path, 8-tick windows
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
@@ -617,6 +645,186 @@ def delay_variants(dev, n: int, n_r: int, seed: int = 701) -> dict:
     return out
 
 
+#: 5r's telemetry groups: every group, all three histograms
+INV_TEL = dict(latency_hist=True, degree_hist=True, score_hist=True,
+               latency_buckets=16)
+
+
+def armed_families(dev, n: int, warm: int = 24) -> dict:
+    """Phase 5r: each per-tick family's step with the invariant checker on
+    (``InvariantConfig()``) for one real tick on the card, against the same
+    step on the CPU and the step without the checker on the card.
+
+    The families are the earlier phases' builders at ``n`` peers: the
+    flagship (messages over the first 48 ticks), the unscored resident
+    configuration (over 16), the adversarial one, everything-on, paired
+    everything-on, unscored paired; each clean, under the churn
+    benchmark's kind of schedule from tick 0 (waves from tick 5, the
+    partition from 20), with every telemetry group (``INV_TEL``) and at a
+    knob point (the seven kernel knobs of ``DELAY_KNOB_POINT``; the
+    IWANT-flood sims at the hardened defense through ``score_knobs``;
+    unscored, the three protocol knobs); and the delayed flagship, attack,
+    full and unscored sims (``pipelined.family_sim``, DelayConfig(4, 2,
+    8)).  Each armed sim runs ``warm`` ticks on the card; then tick
+    ``warm`` runs on the card (one receive launch), on the CPU from the
+    same state copied over (``convert``), and on the card without the
+    checker from the unarmed state: every state leaf and the two carry
+    scalars equal the CPU's, every other leaf and the delivered words the
+    unarmed step's, the frames (but ``score_mean``, summed in another
+    order) both; the report clean.  Then the reference's seeded mesh
+    defect (tests/test_invariants.py ``test_seeded_mesh_defect_fires``:
+    240 peers, peer 7 subscribed to nothing, a forged mesh bit to it) on
+    the card and on the CPU: mesh-subscription on tick 0, both the
+    same."""
+    import dataclasses
+
+    import numpy as np
+
+    from go_libp2p_pubsub_tpu_torch import (adversarial, churn, convert,
+                                            everything, flagship,
+                                            invariants_flagship, knob_sweep,
+                                            pipelined, resident)
+    from go_libp2p_pubsub_tpu_torch.knob_sweep import tree_digest
+    from go_libp2p_pubsub_tpu_torch.models import faults
+    from go_libp2p_pubsub_tpu_torch.models import gossipsub as pg
+    from go_libp2p_pubsub_tpu_torch.models import invariants as iv
+    from go_libp2p_pubsub_tpu_torch.models import telemetry as tl
+    from go_libp2p_pubsub_tpu_torch.ops.kernels import receive as krecv
+
+    def unscored(paired):
+        cfg, params, state = resident.build(dev, n_peers=n, horizon=16,
+                                            paired=paired)[:3]
+        return cfg, None, params, state
+
+    bases = {
+        "scored": lambda: flagship.build(dev, n_peers=n, horizon=48)[:4],
+        "unscored": lambda: unscored(False),
+        "attack": lambda: adversarial.build(dev, n_peers=n, horizon=48)[:4],
+        "full": lambda: everything.build(dev, n_peers=n, horizon=48)[:4],
+        "paired": lambda: everything.build(dev, n_peers=n, horizon=48,
+                                           paired=True)[:4],
+        "paired_unscored": lambda: unscored(True),
+    }
+    proto = {key: DELAY_KNOB_POINT[key]
+             for key in ("gossip_factor", "d_lazy", "backoff_ticks")}
+
+    def variant(sim, mode):
+        cfg, sc, params, state = sim
+        if mode == "faults":
+            sched = churn.schedule(n, np.random.default_rng(3), 0, 400)
+            params = dataclasses.replace(params, faults=faults.compile_faults(
+                sched, cfg.offsets, device=dev))
+        elif mode == "knobs":
+            if sc is None:
+                surface = dict(sim_knobs=proto)
+            elif sc.sybil_iwant_spam:
+                surface = dict(
+                    score_knobs=knob_sweep.DEFENSE_POINTS["hardened"])
+            else:
+                surface = dict(sim_knobs=DELAY_KNOB_POINT)
+            params = pg.knob_params(cfg, sc, params, **surface)
+            state = pg.refresh_gates(cfg, sc, params, state)
+        return cfg, sc, params, state
+
+    cases = [(f"{fam}/{mode}", lambda fam=fam, mode=mode: variant(
+        bases[fam](), mode), mode == "telemetry")
+        for fam in bases for mode in ("clean", "faults", "telemetry",
+                                      "knobs")]
+    cases += [(f"{fam}/delays", lambda fam=fam: pipelined.family_sim(
+        fam, dev, n, horizon=16), False)
+        for fam in ("scored", "attacks", "full", "unscored")]
+    icfg = iv.InvariantConfig()
+    out = {}
+    for label, build, with_tel in cases:
+        t0 = time.perf_counter()
+        cfg, sc, params, state = build()
+        tcfg = tl.TelemetryConfig(**INV_TEL) if with_tel else None
+        on = pg.make_gossip_step(cfg, sc, device=dev, telemetry=tcfg,
+                                 invariants=icfg)
+        state = pg.gossip_run(params, iv.attach(state), warm, on,
+                              device=dev)
+        p_c = convert.params_from_numpy(convert.params_to_numpy(params),
+                                        "cpu")
+        s_c = convert.state_from_numpy(convert.state_to_numpy(state), sc,
+                                       "cpu")
+        torch.cuda.synchronize()
+        krecv.launches.clear()
+        s_g, d_g, *f_g = on(params, state)
+        torch.cuda.synchronize()
+        launched = dict(krecv.launches)
+        if sum(launched.values()) != 1:
+            fail(f"5r {label}: receive launches {launched} in one tick")
+        s_cpu, d_cpu, *f_cpu = pg.make_gossip_step(
+            cfg, sc, device="cpu", telemetry=tcfg, invariants=icfg)(p_c, s_c)
+        off = pg.make_gossip_step(cfg, sc, device=dev, telemetry=tcfg)
+        s_off, d_off, *f_off = off(params, invariants_flagship.unarmed(state))
+        g_np = convert.state_to_numpy(s_g)
+        # every leaf, the carry's too, against the CPU's; the other leaves
+        # against the unarmed step's
+        bad = [what for what, ok in (
+            ("state vs CPU", tree_digest(g_np)
+             == tree_digest(convert.state_to_numpy(s_cpu))),
+            ("state vs unarmed", tree_digest(dict(
+                g_np, inv_viol=None, inv_first=None))
+             == tree_digest(convert.state_to_numpy(s_off))),
+            ("delivered vs CPU", torch.equal(d_g.cpu(), d_cpu)),
+            ("delivered vs unarmed", torch.equal(d_g, d_off))) if not ok]
+        if with_tel:
+            fr = [convert.frame_to_numpy(f[0]) for f in (f_g, f_cpu, f_off)]
+            sm = [f.pop("score_mean") for f in fr]
+            if tree_digest(fr[0]) != tree_digest(fr[1]) or not np.allclose(
+                    sm[0], sm[1], rtol=1e-5, atol=1e-6):
+                bad.append("frame vs CPU")
+            if tree_digest(fr[0]) != tree_digest(fr[2]) or not np.array_equal(
+                    sm[0], sm[2]):
+                bad.append("frame vs unarmed")
+        rep = iv.report(s_g)
+        if bad or rep["bits"] != 0 or g_np["inv_viol"] is None:
+            fail(f"5r {label}: {bad} differ; report {rep}")
+        out[label] = dict(report=rep, launches=launched,
+                          tick=int(s_g.tick) - 1,
+                          seconds=time.perf_counter() - t0)
+        print(f"5r {label}: tick {warm} armed on the card == CPU (every "
+              f"leaf, the carry {int(g_np['inv_viol'])}/"
+              f"{int(g_np['inv_first'])}), == unarmed on every other leaf"
+              f"{' and frame' if with_tel else ''}; launches {launched}; "
+              f"{out[label]['seconds']:.1f} s")
+        del params, state, p_c, s_c, s_g, s_cpu, s_off, on, off
+    # the reference's seeded mesh defect, on the card and on the CPU
+    n_d = 240
+    subs = np.zeros((n_d, 2), dtype=bool)
+    subs[np.arange(n_d), np.arange(n_d) % 2] = True
+    subs[7] = False
+    rng = np.random.default_rng(0)
+    topic = rng.integers(0, 2, 8)
+    origin = rng.integers(0, n_d // 2, 8) * 2 + topic
+    origin = np.where(origin == 7, (origin + 2) % n_d, origin)
+    topic = (origin % 2).astype(topic.dtype)
+    ticks = rng.integers(0, 5, 8).astype(np.int32)
+    cfg = pg.GossipSimConfig(offsets=pg.make_gossip_offsets(2, 16, n_d,
+                                                            seed=1),
+                             n_topics=2)
+    sc = pg.ScoreSimConfig()
+    reps = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        params, state = pg.make_gossip_sim(cfg, subs, topic, origin, ticks,
+                                           score_cfg=sc, device=d)
+        mesh = torch.zeros(n_d, dtype=torch.int32, device=d)
+        mesh[(7 - cfg.offsets[0]) % n_d] = 1
+        state = pg.refresh_gates(cfg, sc, params, dataclasses.replace(
+            state, mesh=mesh))
+        state = pg.gossip_run(params, iv.attach(state), 3, pg.make_gossip_step(
+            cfg, sc, device=d, invariants=icfg), device=d)
+        reps[where] = iv.report(state)
+    want = {"violations": ["mesh-subscription"], "bits": 1 << iv.MESH_SUB,
+            "first_tick": 0}
+    print(f"5r seeded mesh defect: card {reps['card']}, CPU {reps['cpu']}")
+    if not reps["card"] == reps["cpu"] == want:
+        fail(f"5r seeded mesh defect: {reps}, want {want}")
+    out["seeded_mesh_defect"] = reps["card"]
+    return out
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per compiled kernel: its name with its template
     arguments (``receive_kernel<16,1,1,0,1,1>``), registers and spill
@@ -706,6 +914,112 @@ def capture_receive(run, krecv):
     return captured[-1]
 
 
+def capture_calls(run, mod, name: str) -> list:
+    """Run ``run()`` with ``mod.<name>`` wrapped; every call's (args,
+    kwargs)."""
+    calls = []
+    real = getattr(mod, name)
+
+    def capture(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(mod, name, capture)
+    try:
+        run()
+    finally:
+        setattr(mod, name, real)
+    return calls
+
+
+def invariant_path_kernels(dev, target: int = 40) -> dict:
+    """Phase 5s's kernel check: the scored receive kernel and the select
+    kernel at the invariants benchmark's shapes (its sim,
+    ``invariants_flagship.build``) against their plain versions, on seeded
+    random operands and on every call of one busy tick (two ticks after
+    the first publish at or after ``target``) of the sim stepped by the
+    benchmark's armed step: every output bit-identical.  Each kernel's
+    largest error, and its device time and its plain version's on the
+    tick (select: the call with the most rows to draw)."""
+    from go_libp2p_pubsub_tpu_torch import invariants_flagship
+    from go_libp2p_pubsub_tpu_torch.models import gossipsub as pg
+    from go_libp2p_pubsub_tpu_torch.models import invariants as iv
+    from go_libp2p_pubsub_tpu_torch.ops import graph
+    from go_libp2p_pubsub_tpu_torch.ops.kernels import receive as krecv
+    from go_libp2p_pubsub_tpu_torch.ops.kernels import select as ksel
+
+    cfg, sc, params, state, _ = invariants_flagship.build(dev)
+    n = params.subscribed.shape[0]
+    C = cfg.n_candidates
+    k = krecv.receive_consts(cfg, sc)
+    ops = random_receive_operands(k, n, 1, dev, seed=101)
+    got = krecv.receive_update(k, **ops)
+    torch.cuda.synchronize()
+    err_r = check_identical("receive (invariants path, random operands)",
+                            got, krecv.receive_update_plain(k, **ops))
+    g = torch.Generator(device=dev)
+    g.manual_seed(103)
+    hi = torch.randint(0, 1 << C, (n,), generator=g, device=dev)
+    lo = torch.randint(0, 1 << C, (n,), generator=g, device=dev)
+    elig = (hi & lo).to(torch.int32)
+    kk = torch.randint(0, C + 3, (n,), generator=g, device=dev).to(
+        torch.int32)
+    sel = ((elig, kk, C, graph.lane_seed(9, 3, 0), n), {})
+    got = ksel.select_k_bits(*sel[0])
+    torch.cuda.synchronize()
+    err_s = check_identical("select (invariants path, random operands)",
+                            (got,), (ksel.select_k_bits_plain(*sel[0]),))
+    del ops, got, hi, lo, elig, kk, sel
+    pt = params.publish_tick.cpu().numpy()
+    tick = int(pt[pt >= target].min()) + 2
+    step = pg.make_gossip_step(cfg, sc, device=dev,
+                               invariants=iv.InvariantConfig())
+    state = pg.gossip_run(params, iv.attach(state), tick, step, device=dev)
+    sels = []
+
+    def one_tick():
+        sels.extend(capture_calls(lambda: step(params, state), ksel,
+                                  "select_k_bits"))
+
+    rcvs = capture_calls(one_tick, krecv, "receive_update")
+    if len(rcvs) != 1 or not sels:
+        fail(f"invariants path tick {tick}: {len(rcvs)} receive calls, "
+             f"{len(sels)} select calls")
+    (k_t,), ops_t = rcvs[0]
+    got = krecv.receive_update(k_t, **ops_t)
+    torch.cuda.synchronize()
+    err_r = max(err_r, check_identical(
+        f"receive (invariants path, tick {tick})", got,
+        krecv.receive_update_plain(k_t, **ops_t)))
+    for i, (args, _) in enumerate(sels):
+        got = ksel.select_k_bits(*args)
+        torch.cuda.synchronize()
+        err_s = max(err_s, check_identical(
+            f"select (invariants path, tick {tick}, call {i})", (got,),
+            (ksel.select_k_bits_plain(*args),)))
+    busiest = max(sels, key=lambda c: int((c[0][1] > 0).sum()))[0]
+    out = dict(
+        n_peers=n, tick=tick, select_calls=len(sels),
+        receive=dict(
+            err=err_r,
+            ms=device_ms(lambda: krecv.receive_update(k_t, **ops_t), 50),
+            plain_ms=device_ms(
+                lambda: krecv.receive_update_plain(k_t, **ops_t), 5)),
+        select=dict(
+            err=err_s,
+            ms=device_ms(lambda: ksel.select_k_bits(*busiest), 200),
+            plain_ms=device_ms(
+                lambda: ksel.select_k_bits_plain(*busiest), 5)))
+    print(f"invariants path kernels: identical at N={n}, C={C}, W=1 "
+          f"(random operands and tick {tick}: 1 receive call, {len(sels)} "
+          f"select calls); device time on the tick: receive "
+          f"{out['receive']['ms']:.4f} ms (plain "
+          f"{out['receive']['plain_ms']:.3f}), select "
+          f"{out['select']['ms']:.4f} ms (plain "
+          f"{out['select']['plain_ms']:.3f})")
+    return out
+
+
 def digest(state) -> str:
     """sha256 of the resident carry and the tick (the JAX package's
     resident-benchmark contract, plus the carried gates)."""
@@ -753,6 +1067,7 @@ def main() -> None:
         everything,
         flagship,
         knob_sweep,
+        invariants_flagship,
         pipelined,
         resident,
         telemetry_flagship,
@@ -2332,6 +2647,39 @@ def main() -> None:
         r_["rows"][pid]["launches"].get(pipelined.VARIANT, 0)
         for r_ in main_pipe.values() for pid in r_["rows"])
 
+    # -- 5r. each per-tick family's armed step for one real tick on the
+    # card against the CPU and against the step without the checker; the
+    # reference's seeded mesh defect
+    t0 = time.perf_counter()
+    armed = armed_families(dev, INV_CHECK_PEERS)
+    print(f"5r: {time.perf_counter() - t0:.1f} s")
+
+    # -- 5s. the slice's main path: the invariants-kernel benchmark as
+    # written, counts reset just before each run and read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0_i = torch.cuda.memory_allocated()
+    inv_main = invariants_flagship.run(dev)
+    peak_i = torch.cuda.max_memory_allocated()
+    hb_ioff = inv_main["off"]["heartbeats_per_s"]
+    hb_ion = inv_main["on"]["heartbeats_per_s"]
+    print(f"invariants path (the benchmark as written): "
+          f"{inv_main['n_peers']} peers x {flagship.N_TOPICS} topics, "
+          f"checker off {hb_ioff:.2f} heartbeats/s "
+          f"({inv_main['off']['ms_per_tick']:.3f} ms/tick), on {hb_ion:.2f} "
+          f"({inv_main['on']['ms_per_tick']:.3f} ms/tick), overhead "
+          f"{inv_main['invariant_overhead_pct']!r}%; report "
+          f"{inv_main['report']}; gates off {inv_main['off']['gates']}, on "
+          f"{inv_main['on']['gates']}; digests {inv_main['off']['digest']} / "
+          f"{inv_main['on']['digest']}; launches off "
+          f"{inv_main['off']['launches']}, on {inv_main['on']['launches']}; "
+          f"peak memory {peak_i} B ({alloc0_i} B at the start) "
+          f"[{name}, {smi}]")
+    if not inv_main["ok"]:
+        fail(f"invariants benchmark: checks {inv_main['checks']}: "
+             f"{inv_main}")
+    inv_k = invariant_path_kernels(dev)
+
     # -- 6. the unscored receive kernel vs plain at the resident shapes
     n_r = resident.N_PEERS
     cfg_r, params, state, msg_topic, _ = resident.build(dev)
@@ -2513,6 +2861,10 @@ def main() -> None:
         f"without delays {steady['plain']['heartbeats_per_s']:.2f}, "
         f"DelayConfig(4, 2, 8) {steady['delayed']['heartbeats_per_s']:.2f}, "
         f"delayed idle share {prof_d['device_idle_share']!r}")
+    print(f"invariants [{name}, {smi}]: {inv_main['n_peers']} peers, "
+          f"checker off {hb_ioff!r} heartbeats/s, on {hb_ion!r}, overhead "
+          f"{inv_main['invariant_overhead_pct']!r}%, bits "
+          f"{inv_main['report']['bits']}")
     print(f"churn rows [{name}, {smi}]: heartbeats/s {hb_c!r}; delivery "
           f"fraction {main_churn['delivery_fraction']!r} (gate > "
           f"{churn.MIN_DELIVERY_FRACTION}); partition recovery ticks, "
@@ -2525,7 +2877,8 @@ def main() -> None:
              source="go_libp2p_pubsub_tpu_torch/csrc/receive.cu",
              replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
              launches=launches["receive"],
-             max_abs_err=max(err_rand, err_tick), ms=rcv_ms,
+             max_abs_err=max(err_rand, err_tick, inv_k["receive"]["err"]),
+             ms=rcv_ms,
              plain_ms=rcv_plain_ms, bound_ms=rcv_bound[0],
              bound_by=rcv_bound[1], library_ms=None),
         dict(name="receive_update_attacks", route="cuda",
@@ -2565,7 +2918,8 @@ def main() -> None:
         dict(name="select_k_bits", route="cuda",
              source="go_libp2p_pubsub_tpu_torch/csrc/select.cu",
              replaces="go_libp2p_pubsub_tpu/ops/pallas/select.py:39",
-             launches=launches["select"], max_abs_err=sel_err,
+             launches=launches["select"],
+             max_abs_err=max(sel_err, inv_k["select"]["err"]),
              ms=sel_ms, plain_ms=sel_plain_ms, bound_ms=sel_bound[0],
              bound_by=sel_bound[1], library_ms=None),
         dict(name="fused_gossip_update", route="cuda",
@@ -2679,6 +3033,9 @@ def main() -> None:
         "pipelined": {str(n_p): r_ for n_p, r_ in main_pipe.items()},
         "pipelined_identity": ident,
         "pipelined_steady_state": steady,
+        "invariants": dict(inv_main, peak_bytes=peak_i, start_bytes=alloc0_i,
+                           kernels=inv_k),
+        "invariants_armed_families": armed,
         "delay_receive": {
             kname: {key: v for key, v in r.items() if key != "bound"}
             for kname, r in delay_k.items()},

@@ -27,7 +27,10 @@ This module never imports the reference; the caller flattens it.
 - ``delays`` (a nested dict, or None) becomes ``DelayParams``: ``base``,
   ``jitter`` and ``seed`` 0-d int32 tensors (the seed's u32 bits),
   ``k_slots`` a host int; the state's delay lines (``pay_line``,
-  ``ctrl_line``, ``gsp_line``, ``adv_line``) are words like the rest.
+  ``ctrl_line``, ``gsp_line``, ``adv_line``) are words like the rest;
+- the invariant checker's carry: ``inv_viol`` (uint32 []) is a word like
+  the rest, ``inv_first`` (int32 []) as it is; both None on an unarmed
+  state.
 
 The reverse functions give uint32 words back as uint32 and bf16 leaves
 as their raw uint16 patterns, so two trees compare bit for bit;
@@ -66,9 +69,9 @@ PARAM_TENSORS = ("subscribed", *PARAM_WORDS, "publish_tick",
                  "cand_sybil", "sybil", "promise_break", "eclipse_sybil",
                  "eclipse_victim")
 STATE_WORDS = ("mesh", "fanout", "have", "recent", "active", "mesh_b",
-               "pay_line", "ctrl_line", "gsp_line", "adv_line")
+               "pay_line", "ctrl_line", "gsp_line", "adv_line", "inv_viol")
 STATE_TENSORS = (*STATE_WORDS, "last_pub", "backoff", "first_tick",
-                 "iwant_serves", "backoff_b")
+                 "iwant_serves", "backoff_b", "inv_first")
 SCORE_TENSORS = ("time_in_mesh", "first_deliveries", "invalid_deliveries",
                  "behaviour_penalty", "time_in_mesh_b")
 

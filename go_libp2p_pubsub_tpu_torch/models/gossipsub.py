@@ -75,6 +75,7 @@ from ..ops.kernels import receive as krecv
 from ..ops.kernels import select as kselect
 from . import delays as _delays
 from . import faults as _faults
+from . import invariants as _invariants
 from . import knobs as _knobs
 from . import plan
 from . import telemetry as _telemetry
@@ -421,6 +422,11 @@ class GossipState:
     ctrl_line: torch.Tensor | None = None   # int32 [K, R, N]
     gsp_line: torch.Tensor | None = None    # int32 [K, C, W, N]
     adv_line: torch.Tensor | None = None    # int32 [K, C, W, N]
+    # the invariant checker's carry (``models/invariants.py``; None until
+    # ``attach``): the cumulative violation mask, a u32 word held as int32,
+    # and the first violating tick (-1 while clean)
+    inv_viol: torch.Tensor | None = None    # int32 []
+    inv_first: torch.Tensor | None = None   # int32 []
 
 
 # --------------------------------------------------------------------------
@@ -1508,13 +1514,22 @@ def make_gossip_step(cfg: GossipSimConfig,
     counters without the observer lines, params without lines, then the
     IWANT flood (``plan.MSG_KERNEL_DELAY_IWANT_SPAM``).  No host sync is
     added.
+
+    Invariants (``invariants``, a ``models/invariants.py``
+    InvariantConfig): after the new state is built, ``apply_invariants``
+    checks it against the start-of-tick possession (before a cold-restart
+    clear, the rejoiners exempt), the tick's delivered words, the fault
+    alive word and the attack bypass mask, and folds the bits into the
+    state's ``inv_viol`` / ``inv_first`` (an unarmed state raises the
+    reference's ValueError).  It reads what the step computed and writes
+    only those two leaves: no kernel and no host sync is added; with
+    telemetry the frame is returned as without it.
     """
     dev = resolve_device(device)
     plan.check_paired_step(cfg, score_cfg, force_split)
     plan.check_step_options(force_split=force_split,
                             pipeline_gates=pipeline_gates,
-                            shard_mesh=shard_mesh, rpc_probe=rpc_probe,
-                            invariants=invariants)
+                            shard_mesh=shard_mesh, rpc_probe=rpc_probe)
     krecv.receive_consts(cfg, score_cfg)     # the options' refusals
     consts = {}
 
@@ -1535,6 +1550,7 @@ def make_gossip_step(cfg: GossipSimConfig,
     paired = cfg.paired_topics
     n_gates = krecv.n_gates(sc is not None, paired)
     tel = telemetry
+    icfg = invariants
     ws = _telemetry.wire_sizes(tel) if tel is not None else None
     lat_b = tel.latency_buckets if tel is not None and tel.latency_hist else 0
     # the kernel's tally runs for the counters or the latency rows
@@ -1574,6 +1590,45 @@ def make_gossip_step(cfg: GossipSimConfig,
             for v in vals])
         knob_cache[:] = [skn, kkn, vec]
         return vec
+
+    def apply_invariants(params, state, new_state, *, have_pre, rejoin_w,
+                         delivered_now, alive_w, sub_all):
+        """One tick's checks folded into ``new_state``'s carry (the
+        reference's ``apply_invariants``): a readout of the step's own
+        values, on the device."""
+        bits = _invariants.delivery_violations(
+            icfg, have_pre, new_state.have, delivered_now, alive_w=alive_w,
+            invalid_words=params.invalid_words if sc is not None else None,
+            allowed_clear_w=rejoin_w)
+        honest_all = None
+        if sc is not None and (sc.sybil_graft_flood or sc.sybil_eclipse):
+            # attackers that bypass their own backoff hold mesh edges
+            # inside it (the partner accepted)
+            bypass = torch.zeros_like(params.subscribed)
+            if sc.sybil_graft_flood and params.sybil is not None:
+                bypass = bypass | params.sybil
+            if sc.sybil_eclipse and params.eclipse_sybil is not None:
+                bypass = bypass | params.eclipse_sybil
+            honest_all = torch.where(bypass, 0, ALL).to(torch.int32)
+        # the mesh words as [C, N] rows, once for both groups
+        rows = {}
+        if icfg.mesh or (icfg.scores and sc is not None):
+            rows["in_mesh"] = _invariants.in_mesh_rows(new_state.mesh, C)
+            if paired:
+                rows["in_mesh_b"] = _invariants.in_mesh_rows(
+                    new_state.mesh_b, C)
+        bits = bits | _invariants.gossip_mesh_violations(
+            icfg, C, mesh_new=new_state.mesh, backoff_new=new_state.backoff,
+            cand_sub_bits=params.cand_sub_bits, sub_all=sub_all,
+            honest_all=honest_all, mesh_b_new=new_state.mesh_b,
+            backoff_b_new=new_state.backoff_b, **rows)
+        if sc is not None and new_state.scores is not None:
+            bits = bits | _invariants.gossip_score_violations(
+                icfg, sc, new_state.scores, mesh_new=new_state.mesh,
+                mesh_b_new=new_state.mesh_b, **rows)
+        viol, first = _invariants.fold(state.inv_viol, state.inv_first,
+                                       bits, state.tick)
+        return replace(new_state, inv_viol=viol, inv_first=first)
 
     def step(params: GossipParams, state: GossipState):
         check_on(dev, subscribed=params.subscribed, mesh=state.mesh)
@@ -1624,11 +1679,15 @@ def make_gossip_step(cfg: GossipSimConfig,
         fm = None
         if fp is not None:
             fm = _faults.tick_masks(fp, cfg.offsets, cfg.cinv, tick)
-            if fp.cold_restart:
-                rejoin_w = _faults.alive_word(
-                    _faults.rejoined_mask(fp, tick))
-                state = replace(state, have=state.have & ~rejoin_w,
-                                recent=state.recent & ~rejoin_w)
+        if icfg is not None:
+            _invariants.require_armed(state, "gossipsub")
+        # the checker's possession-monotonicity exemption: the words before
+        # the clear, and the rejoiners
+        have_pre, rejoin_w = state.have, None
+        if fp is not None and fp.cold_restart:
+            rejoin_w = _faults.alive_word(_faults.rejoined_mask(fp, tick))
+            state = replace(state, have=state.have & ~rejoin_w,
+                            recent=state.recent & ~rejoin_w)
         if sc is not None:
             (accept_bits, gossip_bits, pub_ok_bits, _, payload_bits,
              targets, _) = state.gates[:7]
@@ -1919,9 +1978,15 @@ def make_gossip_step(cfg: GossipSimConfig,
             scores=scores, iwant_serves=iws_o, gates=gates_new,
             gates_fp=state.gates_fp, salt=salt, tick=tick + 1,
             active=active, mesh_b=mesh_b_new, backoff_b=backoff_b_new,
+            inv_viol=state.inv_viol, inv_first=state.inv_first,
             **({} if dex is None else {
                 name: dex.get(name) for name in ("pay_line", "ctrl_line",
                                                  "gsp_line", "adv_line")}))
+        if icfg is not None:
+            new_state = apply_invariants(
+                params, state, new_state, have_pre=have_pre,
+                rejoin_w=rejoin_w, delivered_now=delivered_now,
+                alive_w=None if fm is None else fm.alive_w, sub_all=sub_all)
         if tel is None:
             return new_state, delivered_now
         kw = {}

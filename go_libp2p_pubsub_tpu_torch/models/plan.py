@@ -23,7 +23,11 @@ per-tick step, on the flagship, attack, full and unscored receive
 variants, with or without knobs, faults and telemetry; the fused window
 refuses a delay-armed sim (``fused_delays``, with the reference's message
 and its byte count of the lines), the split path's delay line is refused
-as ``delays_split`` and the delayed probe line as ``rpc_probe``.  Each
+as ``delays_split`` and the delayed probe line as ``rpc_probe``.  The
+invariant checker (``invariants``, ``models/invariants.py``) runs on the
+per-tick step, every family, with all of these; the fused window takes
+no checker, as in the reference, and carries an armed state's two
+scalars through unchanged.  Each
 refusal has a stable name (``SliceRefusal.name``) and its own message;
 tests match on the name.  The reference's own errors are raised with its
 messages (``MSG_PAIRED_COMBINED``, ``MSG_KERNEL_KNOB_IWANT_SPAM``,
@@ -42,7 +46,6 @@ REFUSALS: dict[str, str] = {
                     "(delays_split=True) is not ported: the split path "
                     "(track_p3, force_split) is not",
     "rpc_probe": "the per-RPC probe snapshot is not ported yet",
-    "invariants": "the in-step invariant checker is not ported yet",
     "byzantine": "byzantine payload mutation (byzantine_mutation, "
                  "byzantine) is not ported: the JAX package's kernel path "
                  "refuses it too (it needs per-edge receive loops)",
@@ -174,7 +177,7 @@ def check_paired_step(cfg, sc, force_split: bool) -> None:
 
 
 def check_step_options(*, force_split, pipeline_gates, shard_mesh,
-                       rpc_probe, invariants) -> None:
+                       rpc_probe) -> None:
     if force_split:
         refuse("track_p3")
     if not pipeline_gates:
@@ -183,8 +186,6 @@ def check_step_options(*, force_split, pipeline_gates, shard_mesh,
         refuse("shard_mesh")
     if rpc_probe:
         refuse("rpc_probe")
-    if invariants is not None:
-        refuse("invariants")
 
 
 def check_sim_options(*, flood_proto, pad_to_block, byzantine, delays,

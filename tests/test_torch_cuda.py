@@ -22,7 +22,11 @@ point, card against CPU, and the knob step's host syncs; each delayed
 variant on a real tick of its delayed sim against its plain version, each
 delayed family's step (clean, at a knob point, under faults, with
 telemetry) card against CPU, and the pipelined benchmark's base4j2 point
-at 100,000 peers card against CPU every 12th tick.  Exact: every output
+at 100,000 peers card against CPU every 12th tick; each family's step
+with the invariant checker on (clean, under faults, with telemetry, at a
+knob point; the delayed families) card against CPU with the carry, the
+checker's host syncs (none added), and the invariants benchmark's armed
+flagship at 100,000 peers card against CPU every 10th tick.  Exact: every output
 bit for bit, but
 a frame's ``score_mean``: the mean of non-integer f32 scores, which the
 card and the CPU sum in different orders (relative 1e-5).
@@ -44,6 +48,7 @@ from go_libp2p_pubsub_tpu_torch import (
     churn,
     convert,
     everything,
+    invariants_flagship,
     knob_sweep,
     pipelined,
     telemetry_flagship,
@@ -51,6 +56,7 @@ from go_libp2p_pubsub_tpu_torch import (
 from go_libp2p_pubsub_tpu_torch.models import delays as pdl
 from go_libp2p_pubsub_tpu_torch.models import faults as pfl
 from go_libp2p_pubsub_tpu_torch.models import gossipsub as pgs
+from go_libp2p_pubsub_tpu_torch.models import invariants as piv
 from go_libp2p_pubsub_tpu_torch.models import telemetry as ptl
 from go_libp2p_pubsub_tpu_torch.ops import graph as pg
 from go_libp2p_pubsub_tpu_torch.ops.kernels import fused as pfused
@@ -1140,3 +1146,117 @@ def test_pipelined_whole_run_on_the_card_matches_the_cpu(cuda):
         runs[str(dev)] = out
     assert len(runs["cpu"]) == pipelined.TICKS // 12
     assert runs["cpu"] == runs[str(cuda)]
+
+
+# -- the invariant checker ------------------------------------------------------
+
+@pytest.mark.parametrize("family", sorted(FAULTED))
+@pytest.mark.parametrize("mode", ["clean", "faults", "telemetry", "knobs"])
+@pytest.mark.parametrize("c,w_words", [(8, 2), (16, 1)])
+def test_armed_step_on_the_card_matches_the_cpu(cuda, family, mode, c,
+                                                w_words):
+    """Each receive family's step with the invariant checker on (clean,
+    under ``_sched``, with every telemetry group, at ``_knob_point``) on
+    the card against the CPU for 20 ticks: every state leaf, the two carry
+    scalars too (and every frame field); the report clean."""
+    build = FAULTED[family][0]
+    sim_c = build(c, w_words, "cpu")
+    cfg, sc, p, s = sim_c
+    sim_g = (cfg, sc, convert.params_from_numpy(convert.params_to_numpy(p),
+                                                cuda),
+             convert.state_from_numpy(convert.state_to_numpy(s), sc, cuda))
+    if mode == "faults":
+        sim_c, sim_g = _faulted(sim_c, "cpu"), _faulted(sim_g, cuda)
+    if mode == "knobs":
+        sim_c, sim_g = _armed(sim_c, "cpu"), _armed(sim_g, cuda)
+    cfg, sc, p_c, s_c = sim_c
+    _, _, p_g, s_g = sim_g
+    tcfg = TEL_ALL if mode == "telemetry" else None
+    icfg = piv.InvariantConfig()
+    step_c = pgs.make_gossip_step(cfg, sc, device="cpu", telemetry=tcfg,
+                                  invariants=icfg)
+    step_g = pgs.make_gossip_step(cfg, sc, device=cuda, telemetry=tcfg,
+                                  invariants=icfg)
+    s_c, s_g = piv.attach(s_c), piv.attach(s_g)
+    for tick in range(20):
+        s_c, _, *f_c = step_c(p_c, s_c)
+        s_g, _, *f_g = step_g(p_g, s_g)
+        assert _state_digest(s_c) == _state_digest(s_g), tick
+        if tcfg is not None:
+            assert _frame_digest(f_c[0]) == _frame_digest(f_g[0]), tick
+            _assert_score_mean_close(f_c[0], f_g[0], f"tick {tick}")
+    assert piv.report(s_g) == piv.report(s_c)
+    assert piv.report(s_g)["bits"] == 0
+
+
+@pytest.mark.parametrize("family", sorted(DELAYED))
+@pytest.mark.parametrize("c,w_words", [(8, 2), (16, 1)])
+def test_armed_delayed_step_on_the_card_matches_the_cpu(cuda, family, c,
+                                                        w_words):
+    """Each delayed family's step with the checker on, card against CPU
+    for 20 ticks: every state leaf and the carry."""
+    (cfg, sc, p_c, s_c), (_, _, p_g, s_g) = _delayed(family, c, w_words,
+                                                     "plain", device=cuda)
+    icfg = piv.InvariantConfig()
+    step_c = pgs.make_gossip_step(cfg, sc, device="cpu", invariants=icfg)
+    step_g = pgs.make_gossip_step(cfg, sc, device=cuda, invariants=icfg)
+    s_c, s_g = piv.attach(s_c), piv.attach(s_g)
+    for tick in range(20):
+        s_c = step_c(p_c, s_c)[0]
+        s_g = step_g(p_g, s_g)[0]
+        assert _state_digest(s_c) == _state_digest(s_g), tick
+    assert piv.report(s_g) == piv.report(s_c)
+    assert bool(s_g.pay_line.any())
+
+
+@pytest.mark.parametrize("family", ["scored", "full", "paired",
+                                    "paired_unscored"])
+def test_invariant_checker_adds_no_host_sync(cuda, family):
+    """The armed step on the card syncs with the host as often as the step
+    without the checker (the scored step's prune ``nonzero`` per topic
+    slot), counted as ``torch.cuda.set_sync_debug_mode("warn")`` warnings,
+    under faults so the alive word and the rejoin clear are read too."""
+    import warnings
+
+    cfg, sc, p, s = _faulted(FAULTED[family][0](16, 1, cuda), cuda,
+                             cold=True)
+    counts = {}
+    for label, icfg in (("off", None), ("on", piv.InvariantConfig())):
+        step = pgs.make_gossip_step(cfg, sc, device=cuda, invariants=icfg)
+        s0 = piv.attach(s) if icfg is not None else s
+        s0 = pgs.gossip_run(p, s0, 10, step, device=cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                step(p, s0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        counts[label] = len(caught)
+    assert counts["on"] == counts["off"], counts
+
+
+def test_invariants_whole_run_on_the_card_matches_the_cpu(cuda):
+    """The invariants benchmark's armed flagship at 100,000 peers for its
+    200 ticks (the CPU run equals the reference's XLA step:
+    tests/torch_reference_gate.py --invariants --port): the card against
+    the CPU by the digest of every state leaf, the carry too, every 10th
+    tick; the report clean."""
+    runs = {}
+    for dev in ("cpu", cuda):
+        cfg, sc, params, state, _ = invariants_flagship.build(
+            dev, n_peers=100_000)
+        step = pgs.make_gossip_step(cfg, sc, device=dev,
+                                    invariants=piv.InvariantConfig())
+        state = piv.attach(state)
+        out = []
+        for tick in range(1, invariants_flagship.WARMUP
+                          + invariants_flagship.TICKS + 1):
+            state = step(params, state)[0]
+            if tick % 10 == 0:
+                out.append(_state_digest(state))
+        runs[str(dev)] = (out, piv.report(state))
+    assert len(runs["cpu"][0]) == 20
+    assert runs["cpu"] == runs[str(cuda)]
+    assert runs["cpu"][1]["bits"] == 0

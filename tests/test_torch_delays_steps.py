@@ -16,7 +16,9 @@ telemetry, every frame field equal on every tick:
   unscored; each shown non-vacuous (the lines carried traffic and
   retractions rode them, and the run departs from the one-hop run);
 - ``DelayConfig(1, 0, 1)`` equal to the step without delays on every leaf
-  both carry, scored and unscored.
+  both carry, scored and unscored;
+- scored with opportunistic grafting every 7 ticks for 60 ticks, shown
+  non-vacuous against the same sim grafting every 60 ticks.
 
 Tolerance: exact (packed words and integer counters bitwise, f32/bf16
 leaves by bit pattern; frames as ``test_torch_telemetry`` compares them).
@@ -184,3 +186,28 @@ def test_one_slot_one_hop_equals_the_step_without_delays(ref, name):
     for t, (sa, sb) in enumerate(zip(a, b)):
         assert not sa["pay_line"].any()
         _assert_tree_equal(sb, sa, f"tick {t}")
+
+
+#: opportunistic grafting every 7 ticks, its threshold above the median
+#: scores the delayed meshes reach, so it selects
+OG = dict(opportunistic_graft_ticks=7, opportunistic_graft_threshold=5.0)
+
+
+def test_delayed_opportunistic_graft_matches_reference_60_ticks(
+        ref, monkeypatch):
+    """The scored delayed step with opportunistic grafting every 7 ticks
+    against the reference's XLA step for 60 ticks, every leaf every tick;
+    not vacuous: against the same delayed sim grafting every 60 ticks (at
+    tick 0 only) the mesh is equal through tick 6 and departs from tick 7
+    on."""
+    runs = {}
+    for every in (7, 60):
+        monkeypatch.setitem(tfaults.STEP, "og", dict(
+            sc=dict(OG, opportunistic_graft_ticks=every)))
+        with delayed(ref, DELAYS):
+            ref_sim, port_sim = tfaults._build(ref, "og", faults=False)
+        runs[every] = _run(ref, ref_sim, port_sim, ticks=60,
+                           check=every == 7)
+    differs = [not np.array_equal(a["mesh"], b["mesh"])
+               for a, b in zip(runs[7], runs[60])]
+    assert not any(differs[:7]) and any(differs[7:])

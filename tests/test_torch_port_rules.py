@@ -3,6 +3,7 @@ package, its device is explicit (default ``cuda``, no fallback), and
 every option outside the port raises its named refusal."""
 
 import ast
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -11,10 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from go_libp2p_pubsub_tpu_torch import convert
 from go_libp2p_pubsub_tpu_torch import device as pdev
 from go_libp2p_pubsub_tpu_torch.models import delays as pdl
 from go_libp2p_pubsub_tpu_torch.models import faults as pfl
 from go_libp2p_pubsub_tpu_torch.models import gossipsub as pgs
+from go_libp2p_pubsub_tpu_torch.models import invariants as piv
 from go_libp2p_pubsub_tpu_torch.models import plan
 from go_libp2p_pubsub_tpu_torch.models import telemetry as ptl
 from go_libp2p_pubsub_tpu_torch.ops.kernels import fused as kfused
@@ -165,7 +168,6 @@ REFUSED = {
                                   delays_split=True)],
     "rpc_probe": [lambda: _step(rpc_probe=True),
                   lambda: _sim(delays=pdl.DelayConfig(), delays_probe=True)],
-    "invariants": [lambda: _step(invariants=object())],
     "byzantine": [
         lambda: _step(sc=pgs.ScoreSimConfig(byzantine_mutation=True)),
         lambda: _sim(sc=pgs.ScoreSimConfig(byzantine_mutation=True)),
@@ -264,6 +266,39 @@ def test_knobs_run_on_the_step_and_keep_the_references_refusals():
                          score_knobs={"behaviour_penalty_weight": -40.0})
     state = pgs.gossip_run(params, state, 3, _step(sc=flood), device="cpu")
     assert state.tick == 3
+
+
+def test_invariants_run_on_the_step_and_pass_through_the_window():
+    """The checker is no longer refused: an armed sim steps with it, with
+    faults, knobs and telemetry.  The fused window takes no checker, as the
+    reference's ``make_fused_window`` takes none, and rebuilds the state
+    with ``replace`` (the reference's ``state.replace``): an armed state's
+    two scalars pass through a window untouched and unchecked, and every
+    other leaf equals the unarmed state's window."""
+    assert "invariants" not in plan.REFUSALS
+    params, state = _sim(fault_schedule=_sched(),
+                         sim_knobs={"d": 5, "d_lo": 4})
+    step = _step(invariants=piv.InvariantConfig(),
+                 telemetry=ptl.TelemetryConfig())
+    state, _, frame = step(params, piv.attach(state))
+    assert state.tick == 1 and piv.report(state)["bits"] == 0
+    params, state = _sim(sc=None, fault_schedule=_sched(cold_restart=True))
+    forged = dict(inv_viol=torch.tensor(8, dtype=torch.int32),
+                  inv_first=torch.tensor(5, dtype=torch.int32))
+    armed = dataclasses.replace(piv.attach(state), **forged)
+    out = pgs.gossip_run_fused(params, armed, 16, _window(), device="cpu")
+    plain = pgs.gossip_run_fused(params, state, 16, _window(), device="cpu")
+    assert out.inv_viol is forged["inv_viol"]
+    assert out.inv_first is forged["inv_first"]
+    assert plain.inv_viol is None and plain.tick == out.tick == 16
+    got, want = convert.state_to_numpy(out), convert.state_to_numpy(plain)
+    for name, w in want.items():
+        if name in ("inv_viol", "inv_first"):
+            continue
+        if isinstance(w, list):
+            assert all(np.array_equal(a, b) for a, b in zip(w, got[name]))
+        elif w is not None and not isinstance(w, dict):
+            assert np.array_equal(w, got[name]), name
 
 
 def test_delays_run_on_the_step_with_faults_knobs_and_telemetry():

@@ -16,6 +16,8 @@ checked on the JAX reference.
         [--n 100000] [--port]
     JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --pipelined \
         [--n 100000] [--port]
+    JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --invariants \
+        [--n 100000] [--port]
 
 Runs the JAX package's unscored per-tick step (XLA) on the resident
 configuration (go_libp2p_pubsub_tpu_torch/resident.py: 10 topics, C = 16,
@@ -96,6 +98,19 @@ and stepped 48 ticks from build, and prints the benchmark's rows
 the digest of every state leaf; exits 1 if one of its two gates fails.
 With ``--port`` the port's plain CPU run (``pipelined.run("cpu", n)``, a
 few minutes at 100,000 peers) must give the same digests and rows.
+
+With ``--invariants`` it runs the configuration of the JAX package's
+invariant-overhead benchmark (bench_suite.py ``_bench_invariants``, its XLA
+form ``kernel=False``: the flagship, 32 messages by ``default_rng(0)`` over
+the 200-tick horizon; go_libp2p_pubsub_tpu_torch/invariants_flagship.py)
+on the JAX package's XLA step at ``--n`` peers, the checker off, then
+armed with ``InvariantConfig()``, 100 warm-up and 100 more ticks each, and
+prints the armed run's report, the flagship's gates on both runs and the
+digest of every state leaf (``knob_sweep.tree_digest``) of both end
+states; exits 1 unless the report has no bits, the gates pass and the two
+end states are equal but for the carry.  With ``--port`` the port's plain
+CPU run (``invariants_flagship.run("cpu", n)``, a few minutes at 100,000
+peers) must give the same digests, the carry's too.
 """
 
 import argparse
@@ -112,12 +127,13 @@ from go_libp2p_pubsub_tpu_torch import (  # noqa: E402
     churn,
     everything,
     flagship,
+    invariants_flagship,
     knob_sweep,
     pipelined,
     resident,
     telemetry_flagship,
 )
-from torch_ref import imported_reference  # noqa: E402
+from torch_ref import imported_reference, tree_to_numpy  # noqa: E402
 
 
 def adversarial_gates(n: int, horizon: int, full: bool = False,
@@ -554,6 +570,68 @@ def pipelined_rows(n: int, port: bool) -> int:
     return 0 if ok else 1
 
 
+def invariants_rows(n: int, port: bool) -> int:
+    """The invariant-overhead benchmark's report, gates and digests on the
+    reference's XLA step (and, with ``port``, the port's CPU run against
+    them)."""
+    warmup, ticks = invariants_flagship.WARMUP, invariants_flagship.TICKS
+    horizon = warmup + ticks
+    with imported_reference() as r:
+        import go_libp2p_pubsub_tpu.models.invariants as iv
+        gs = r.gs
+        t, m, C = 100, 32, 16
+        rng = np.random.default_rng(0)
+        cfg = gs.GossipSimConfig(
+            offsets=gs.make_gossip_offsets(t, C, n, seed=0), n_topics=t)
+        sc = gs.ScoreSimConfig()
+        topic = rng.integers(0, t, m)
+        origin = rng.integers(0, n // t, m) * t + topic
+        tick = np.sort(rng.integers(0, horizon, m)).astype(np.int32)
+        digests, gates, report = {}, {}, None
+        for mode in ("off", "on"):
+            params, state = gs.make_gossip_sim(
+                cfg, resident.subs_matrix(n, t), topic, origin, tick,
+                score_cfg=sc, track_first_tick=False)
+            icfg = None
+            if mode == "on":
+                state, icfg = iv.attach(state), iv.InvariantConfig()
+            step = gs.make_gossip_step(cfg, sc, invariants=icfg)
+            state = gs.gossip_run(params, state, warmup, step)
+            state = gs.gossip_run(params, state, ticks, step)
+            tree = tree_to_numpy(state)
+            digests[mode] = knob_sweep.tree_digest(tree)
+            if mode == "on":
+                report = iv.report(state)
+                digests["on_unarmed"] = knob_sweep.tree_digest(
+                    dict(tree, inv_viol=None, inv_first=None))
+            deg = float(np.asarray(gs.mesh_degrees(state))[
+                np.asarray(params.subscribed)].mean())
+            reach = np.asarray(gs.reach_counts_from_have(params, state))
+            settled = tick < horizon - 30
+            gates[mode] = (deg, bool((reach[settled] == n // t).all()))
+    same = digests["off"] == digests["on_unarmed"]
+    ok = (report["bits"] == 0 and same
+          and all(d >= cfg.d_lo and dl for d, dl in gates.values()))
+    print(f"N={n}, {warmup} + {ticks} ticks: report {report}; mean mesh "
+          f"degree off {gates['off'][0]:.4f}, on {gates['on'][0]:.4f} (Dlo "
+          f"{cfg.d_lo}); settled messages at every member: off "
+          f"{gates['off'][1]}, on {gates['on'][1]}; digests off "
+          f"{digests['off']}, on {digests['on']}; off and on end states "
+          f"equal but for the carry: {same}")
+    if port:
+        out = invariants_flagship.run("cpu", n_peers=n, warmup=warmup,
+                                      ticks=ticks)
+        match = (out["off"]["tree_digest"] == digests["off"]
+                 and out["on"]["tree_digest"] == digests["on"]
+                 and out["report"] == report)
+        print(f"port (CPU): report {out['report']}; digests off "
+              f"{out['off']['tree_digest']}, on {out['on']['tree_digest']}; "
+              f"checks {out['checks']}; equal to the reference: {match}")
+        ok = ok and match and out["ok"]
+    print("gates", "pass" if ok else "FAIL")
+    return 0 if ok else 1
+
+
 def paired_report(cfg, params, state, honest, gs) -> None:
     """The slot-B mesh degree of the honest subscribed peers, and the
     cross-slot symmetry: the share of mesh edges, both slots', that the
@@ -592,6 +670,7 @@ def main() -> int:
     ap.add_argument("--telemetry", action="store_true")
     ap.add_argument("--knobs", action="store_true")
     ap.add_argument("--pipelined", action="store_true")
+    ap.add_argument("--invariants", action="store_true")
     ap.add_argument("--port", action="store_true")
     ap.add_argument("--ticks", type=int, default=400)
     args = ap.parse_args()
@@ -603,6 +682,8 @@ def main() -> int:
         return knob_rows(args.n or 100_000, args.port)
     if args.pipelined:
         return pipelined_rows(args.n or 100_000, args.port)
+    if args.invariants:
+        return invariants_rows(args.n or 100_000, args.port)
     if args.adversarial or args.everything or args.everything_paired:
         return adversarial_gates(
             args.n or 100_000, args.ticks,
