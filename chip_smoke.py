@@ -263,8 +263,10 @@ Phases (any failure exits non-zero; nothing is caught):
    other kernel; then the per-tick unscored step over the same ticks
    (make_gossip_step(cfg, None) / gossip_run) for comparison, each with
    its counts reset just before and read just after;
-10. one line with every main path's heartbeats/s, one JSON line with
-    every kernel's numbers;
+10. one line with every main path's heartbeats/s, one line with each
+    kernel's time before B1's and B3's redesign (``PARENT_MS``, copied
+    from PERF.md, not measured by this run), one JSON line with every
+    kernel's numbers as this run measured them;
 11. the last line: ``{"ok": true, "device": {...}}``.
 
 It needs no network and imports nothing of JAX.
@@ -285,6 +287,58 @@ INV_CHECK_PEERS = 100_000      # 5r: each family's armed tick, card vs CPU
 RES_WARMUP, RES_TIMED = 64, 256     # the resident path, 8-tick windows
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+
+
+#: each kernel's time on the card before B1's and B3's redesign, copied
+#: from PERF.md (NVIDIA H100 80GB HBM3, 700 W): printed on a line of its
+#: own, labelled as copied, and kept out of the ``kernels`` line, which
+#: holds only what this run measured
+PARENT_MS = {
+    "receive_update": 0.5226, "receive_update_attacks": 0.5680,
+    "receive_update_full": 0.7479, "receive_update_paired": 0.9403,
+    "receive_update_paired_unscored": 0.2560,
+    "receive_update_unscored": 0.1060, "select_k_bits": 0.0462,
+    "fused_gossip_update": 1.7984, "fused_gossip_update_exact_k": 1.9923,
+    "fused_gossip_update_faults": 1.9090,
+    "fused_gossip_update_tel": 2.0129,
+    "fused_gossip_update_faults_tel": 3.3202,
+    "receive_update_faults": 0.5064, "receive_update_attacks_faults": 0.5694,
+    "receive_update_full_faults": 0.7431,
+    "receive_update_paired_faults": 0.9259,
+    "receive_update_unscored_faults": 0.0972,
+    "receive_update_tel": 0.7087, "receive_update_faults_tel": 0.6334,
+    "receive_update_attacks_tel": 0.6687,
+    "receive_update_attacks_faults_tel": 0.7388,
+    "receive_update_full_tel": 0.8338, "receive_update_full_faults_tel": 0.8067,
+    "receive_update_paired_tel": 1.2363,
+    "receive_update_paired_faults_tel": 1.2423,
+    "receive_update_unscored_tel": 0.1199,
+    "receive_update_unscored_faults_tel": 0.1326,
+    "receive_update_paired_unscored_tel": 0.2736,
+    "receive_update_paired_unscored_faults_tel": 0.2457,
+    "receive_update_knobs": 0.5259, "receive_update_faults_knobs": 0.5090,
+    "receive_update_tel_knobs": 0.6611,
+    "receive_update_faults_tel_knobs": 0.6353,
+    "receive_update_attacks_knobs": 0.6003,
+    "receive_update_attacks_faults_knobs": 0.5845,
+    "receive_update_full_knobs": 0.8007,
+    "receive_update_full_faults_knobs": 0.8000,
+    "receive_update_full_tel_knobs": 0.8975,
+    "receive_update_full_faults_tel_knobs": 0.8989,
+    "receive_update_paired_knobs": 1.0175,
+    "receive_update_paired_faults_knobs": 0.9569,
+    "receive_update_unscored_knobs": 0.1059,
+    "receive_update_unscored_faults_knobs": 0.0965,
+    "receive_update_paired_unscored_knobs": 0.2573,
+    "receive_update_paired_unscored_faults_knobs": 0.2358,
+    "receive_update_delays": 0.4404, "receive_update_delays_knobs": 0.4429,
+    "receive_update_attacks_delays": 0.4473,
+    "receive_update_attacks_delays_knobs": 0.4532,
+    "receive_update_full_delays": 0.6538,
+    "receive_update_full_delays_knobs": 0.6692,
+    "receive_update_unscored_delays": 0.0864,
+    "receive_update_unscored_delays_knobs": 0.0866,
+}
 
 
 def fail(msg: str) -> None:
@@ -852,9 +906,10 @@ def receive_ops(k, ops) -> int:
     row and one draw per row; the attack options, ~12 per edge (broken
     bit, P7 add, flood budget) and ~3 per advert word a sybil receiver
     counts; the router-surface options, ~3 per edge for the flood bit,
-    ~4 per candidate pair for the same-IP sums and ~3 per candidate pair
-    for the exact-k ranks; paired topics, ~8 per edge for the second ctrl
-    byte and its cross-slot routing, ~20 per row for slot B's backoff and
+    ~4 per candidate pair for the same-IP sums and at most a draw per
+    peer for the exact-k targets (C lane hashes, the bitonic network,
+    ~3 per lane); paired topics, ~8 per edge for the second ctrl byte
+    and its cross-slot routing, ~20 per row for slot B's backoff and
     (scored) time in mesh and P1, and ~8 per message word over an edge
     whose slot-B forward is open (this tick's data); faults, ~2 per edge
     and message word (the heard words masked) and ~8 per peer (the
@@ -882,12 +937,40 @@ def receive_ops(k, ops) -> int:
         n_syb = int((ops["syb"] != 0).sum())
         extra = n * C * 12 + 3 * n_syb * C * W
     extra += n * C * (3 * k.flood_publish + 4 * C * k.with_same_ip
-                      + 3 * C * k.exact_k + (8 + 20) * k.paired
+                      + (8 + 20) * k.paired
                       + 2 * W * k.faults) + 8 * n * k.faults
+    # exact-k targets: a draw at every peer, at most
+    extra += n * k.exact_k * (13 * C + 2 * sort_exchanges(C))
     L = k.tel_lat_buckets
     extra += k.telemetry * (n * C * (10 * W + 4)
                             + n * (3 * W + 3 * L * W + 8 + L))
     return n * C * (15 + per_row) + 8 * open_words + extra
+
+
+def sort_exchanges(c: int) -> int:
+    """Compare-exchanges of the bitonic network over c keys (rounded up
+    to a power of two): 80 at c = 16."""
+    size = 1 << (c - 1).bit_length()
+    log = size.bit_length() - 1
+    return size * log * (log + 1) // 4
+
+
+def drawn_rows(elig, kk) -> int:
+    """Selections that draw (0 < k < the eligible count): the others
+    return at once."""
+    from go_libp2p_pubsub_tpu_torch.ops import graph
+
+    return int(((kk > 0) & (kk < graph.popcount32(elig))).sum())
+
+
+def select_ops(elig, kk, c: int) -> int:
+    """Operations a select call needs on these operands: ~6 per peer
+    (the loads, the eligible count, the early outs), and where a draw is
+    needed (0 < k < the eligible count) C lane hashes of ~10, the bitonic
+    network's compare-exchanges (two each; 80 at C = 16) and ~3 per lane
+    for the k-th key and the kept bits."""
+    return 6 * elig.numel() + drawn_rows(elig, kk) * (
+        13 * c + 2 * sort_exchanges(c))
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
@@ -1035,8 +1118,9 @@ def fused_window_ops(k, ops, select_rows: int) -> int:
     """Operations one window needs on these operands: per peer-tick ~90
     for the two fronts, handshake and ring, ~38 per candidate row
     (ctrl pack, edge read, backoff, targets draw), ~6 per message word
-    per edge at most; per selection the data runs (k > 0), C lane-hash
-    draws (~10 each) and C * C rank compares (~3 each); under faults
+    per edge at most; per selection the data draws (0 < k < the eligible
+    count: ``drawn_rows``), C lane-hash draws (~10 each), the bitonic
+    network's compare-exchanges (two each) and ~3 per lane; under faults
     ~16 more per peer-tick (the dead edges, the graft, fanout and send
     masks in both fronts, the handshake masks) and ~2 per message word
     per edge (the heard words masked); with cold restart ~4 per ring
@@ -1049,7 +1133,7 @@ def fused_window_ops(k, ops, select_rows: int) -> int:
     hg = ops["recent"].shape[0]
     return (n * T * (90 + 38 * C + 6 * C * W
                      + faulted * (16 + 2 * C * W) + cold * 4 * hg * W)
-            + select_rows * (10 * C + 3 * C * C))
+            + select_rows * (13 * C + 2 * sort_exchanges(C)))
 
 
 def main() -> None:
@@ -1124,12 +1208,16 @@ def main() -> None:
         lambda: ksel.select_k_bits_plain(elig, kk, C, seed, n), 5)
     sel_eager_ms = eager_ms(
         lambda: ksel.select_k_bits(elig, kk, C, seed, n), 200)
-    n_elig = int(graph.popcount32(elig).sum())
     sel_bytes = 3 * 4 * n                     # elig, k in; word out
-    sel_ops = n_elig * (C + 10)               # rank compares + lane hash
+    sel_ops = select_ops(elig, kk, C)
     print(f"select: identical at N={n}, C={C}; device time: kernel "
           f"{sel_ms:.4f} ms, plain {sel_plain_ms:.3f} ms; issued from "
           f"Python: {sel_eager_ms:.4f} ms per call")
+    sel_cfg = ksel.launch_config(n, C)
+    print(f"select launch: {sel_cfg['tile']} peers a block (4 a thread), "
+          f"{sel_cfg['blocks_per_sm']} blocks a multiprocessor, "
+          f"{sel_cfg['smem_bytes']} B dynamic shared memory, grid "
+          f"{sel_cfg['grid']}")
 
     # -- 4. receive kernel vs plain at the flagship shapes
     cfg, sc, params, state, _ = flagship.build(dev, horizon=WARMUP + TIMED)
@@ -1149,6 +1237,7 @@ def main() -> None:
     rcv_plain_ms = device_ms(
         lambda: krecv.receive_update_plain(k, **tick_ops), 5)
     rcv_eager_ms = eager_ms(lambda: krecv.receive_update(k, **tick_ops), 50)
+    rcv_cfg = krecv.launch_config(k)
     rcv_bytes = krecv.operand_bytes(tick_ops, got)
     rcv_ops = receive_ops(k, tick_ops)
     # (5c) exact-k targets alone, on the same two operand sets
@@ -1168,6 +1257,10 @@ def main() -> None:
           f"tick); device time: kernel {rcv_ms:.4f} ms, plain "
           f"{rcv_plain_ms:.3f} ms; issued from Python: {rcv_eager_ms:.4f} "
           f"ms per call; {rcv_bytes / n:.1f} B/peer")
+    print(f"receive launch (flagship options): tile {rcv_cfg['tile']} "
+          f"peers, {rcv_cfg['blocks_per_sm']} blocks a multiprocessor, "
+          f"{rcv_cfg['smem_bytes']} B dynamic shared memory (one stage), "
+          f"persistent grid {rcv_cfg['grid']}")
     del want, got, ops, tick_ops, params, state, step
 
     # -- 5. the main path, counts reset just before and read just after
@@ -1499,7 +1592,7 @@ def main() -> None:
     real_sel = kfused.select_plain
 
     def count_sel_x(elig, kk, c, seed):
-        sel_rows_x[0] += int((kk > 0).sum())
+        sel_rows_x[0] += drawn_rows(elig, kk)
         return real_sel(elig, kk, c, seed)
 
     kfused.select_plain = count_sel_x
@@ -2011,7 +2104,7 @@ def main() -> None:
     real_sel = kfused.select_plain
 
     def count_sel_c(elig, kk, c, seed):
-        sel_rows_c[0] += int((kk > 0).sum())
+        sel_rows_c[0] += drawn_rows(elig, kk)
         return real_sel(elig, kk, c, seed)
 
     kfused.select_plain = count_sel_c
@@ -2310,7 +2403,7 @@ def main() -> None:
         real_sel = kfused.select_plain
 
         def count_sel_m(elig, kk, c, seed):
-            sel_rows_m[0] += int((kk > 0).sum())
+            sel_rows_m[0] += drawn_rows(elig, kk)
             return real_sel(elig, kk, c, seed)
 
         kfused.select_plain = count_sel_m
@@ -2726,7 +2819,7 @@ def main() -> None:
         sel_rows = [0]
 
         def count_sel(elig, kk, c, seed):
-            sel_rows[0] += int((kk > 0).sum())
+            sel_rows[0] += drawn_rows(elig, kk)
             return real_sel(elig, kk, c, seed)
 
         kfused.select_plain = count_sel
@@ -3046,6 +3139,9 @@ def main() -> None:
         "full_receive_ms": {"main_path": full_ms, "all_options": full_all_ms,
                             "exact_k_alone": xk_ms},
         "seconds": time.perf_counter() - t_start}}))
+    print("parent_ms (copied from PERF.md, before B1's and B3's redesign; "
+          "not measured by this run): " + json.dumps(
+              {kd["name"]: PARENT_MS.get(kd["name"]) for kd in kernels}))
     print(json.dumps({"kernels": kernels}))
     # -- 11. the result
     print(json.dumps({"ok": True, "device": {

@@ -10,105 +10,102 @@
 namespace {
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256) receive_kernel(const ReceiveArgs a) {
-  receive_body<C, W, SCORED, false, CBF, BBF>(a);
-}
-
-// The attack variant, held to four blocks of 256 threads a
-// multiprocessor (at most 64 registers a thread, a few spills), as the
-// others reach unbidden: left free, ptxas gives it 72-100 registers (100
-// with bf16 counters: two blocks), and this latency-bound kernel runs
-// about 1.5x slower on an H100 (kernel_ab.py).  Its own kernel, so that
-// the bound leaves the other variants' code as it is.
-template <int C, int W, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_attacks(const ReceiveArgs a) {
-  receive_body<C, W, true, true, CBF, BBF>(a);
-}
-
-// The full variant: every router-surface option compiled in (scored: on
-// the attack variant's stage 1, with FLOOD and SAMEIP; unscored: EXACTK
-// and PX only), each chosen at run time by the launch's arguments.  Its
-// own kernel, so that the other variants' code stays as it is.  Held to
-// four blocks a multiprocessor (64 registers, with spills) as the attack
-// variant is: on a 1M-peer everything-on tick (H100, 700 W) 0.748 ms against
-// 0.764 at three blocks (80 registers) and 0.938 at two (126, no spills).
-template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_full(const ReceiveArgs a) {
-  receive_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true, SCORED>(a);
-}
-
-// The paired variant: the full variant's options, each again a runtime
-// choice, with the second topic slot compiled in.  Its own kernel, so
-// that the other variants' code stays as it is; held to PAIRED_BLOCKS
-// blocks a multiprocessor (64 registers, with spills): on a 1M-peer
-// paired everything-on tick (H100, 700 W; kernel_ab.py) 0.930 ms against
-// 0.997 at three blocks (80 registers) and 1.280 at two (128, no spills).
-constexpr int PAIRED_BLOCKS = 4;
-
-template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, PAIRED_BLOCKS)
-receive_kernel_paired(const ReceiveArgs a) {
-  receive_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true, SCORED,
-               true>(a);
-}
-
-// Each variant under fault schedules (FAULTS: the alive_w operand, and
-// flood_ok under the IWANT flood), in kernels of their own with the
-// launch bounds of the variant they fault, so that the unfaulted kernels'
-// code stays as it is.
-template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256)
-receive_kernel_faults(const ReceiveArgs a) {
-  receive_body<C, W, SCORED, false, CBF, BBF, false, false, false, false,
-               false, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, SCORED, false))
+receive_kernel(const ReceiveArgs a,
+               const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, SCORED, false, CBF, BBF, false, false, false,
+                false>(a, plan);
 }
 
 template <int C, int W, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_attacks_faults(const ReceiveArgs a) {
-  receive_body<C, W, true, true, CBF, BBF, false, false, false, false,
-               false, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, true, true))
+receive_kernel_attacks(const ReceiveArgs a,
+                       const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, true, true, CBF, BBF, false, false, false,
+                false>(a, plan);
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_full_faults(const ReceiveArgs a) {
-  receive_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true, SCORED,
-               false, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(1, SCORED, false))
+receive_kernel_full(const ReceiveArgs a,
+                    const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 1, SCORED, false, CBF, BBF, false, false, false,
+                false>(a, plan);
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, PAIRED_BLOCKS)
-receive_kernel_paired_faults(const ReceiveArgs a) {
-  receive_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true, SCORED,
-               true, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(2, SCORED, false))
+receive_kernel_paired(const ReceiveArgs a,
+                      const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 2, SCORED, false, CBF, BBF, false, false, false,
+                false>(a, plan);
+}
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, SCORED, false))
+receive_kernel_faults(const ReceiveArgs a,
+                      const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, SCORED, false, CBF, BBF, true, false, false,
+                false>(a, plan);
+}
+
+template <int C, int W, bool CBF, bool BBF>
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, true, true))
+receive_kernel_attacks_faults(const ReceiveArgs a,
+                              const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, true, true, CBF, BBF, true, false, false,
+                false>(a, plan);
+}
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(1, SCORED, false))
+receive_kernel_full_faults(const ReceiveArgs a,
+                           const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 1, SCORED, false, CBF, BBF, true, false, false,
+                false>(a, plan);
+}
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(2, SCORED, false))
+receive_kernel_paired_faults(const ReceiveArgs a,
+                             const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 2, SCORED, false, CBF, BBF, true, false, false,
+                false>(a, plan);
 }
 
 // this library's launcher for the dispatch of receive_body.cuh
 struct Kernels {
   template <int C, int W, int FAMILY, bool SCORED, bool ATK, bool CBF,
             bool BBF, bool FAULTS>
-  static void launch(const ReceiveArgs& a, unsigned blocks, cudaStream_t s) {
-    constexpr int T = RECEIVE_THREADS;
+  static int launch(const ReceiveArgs& a, cudaStream_t s) {
+    ReceiveKernel k;
     if constexpr (FAMILY == 2 && FAULTS) {
-      receive_kernel_paired_faults<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_paired_faults<C, W, SCORED, CBF, BBF>;
     } else if constexpr (FAMILY == 2) {
-      receive_kernel_paired<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_paired<C, W, SCORED, CBF, BBF>;
     } else if constexpr (FAMILY == 1 && FAULTS) {
-      receive_kernel_full_faults<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_full_faults<C, W, SCORED, CBF, BBF>;
     } else if constexpr (FAMILY == 1) {
-      receive_kernel_full<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_full<C, W, SCORED, CBF, BBF>;
     } else if constexpr (ATK && FAULTS) {
-      receive_kernel_attacks_faults<C, W, CBF, BBF><<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_attacks_faults<C, W, CBF, BBF>;
     } else if constexpr (ATK) {
-      receive_kernel_attacks<C, W, CBF, BBF><<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_attacks<C, W, CBF, BBF>;
     } else if constexpr (FAULTS) {
-      receive_kernel_faults<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_faults<C, W, SCORED, CBF, BBF>;
     } else {
-      receive_kernel<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+      k = receive_kernel<C, W, SCORED, CBF, BBF>;
     }
+    return run_tiles<C, W, FAMILY, SCORED, ATK, CBF, BBF, FAULTS, false,
+                     false>(k, a, s);
   }
 };
 

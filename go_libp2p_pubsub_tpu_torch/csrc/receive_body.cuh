@@ -101,42 +101,51 @@
 // eleven packed [N] words, the seen/injected/fresh/advert words) and
 // writes about 228 B/peer: about 0.5 GB per tick at 1M peers, about
 // 150 us at 3.35 TB/s; the attack variant adds the sybil word, 4 B/peer.
-// The unscored tick moves about 140 B/peer at
-// W = 1 (ctrl 16, backoff in and out 64, seven [N] words 28, four
-// [W, N] words 16, acq 4, mesh 4, two gate rows 8).  The arithmetic (a few hundred integer and
-// f32 operations per peer) is far below the card's rate.  Design: each
-// thread keeps its per-edge counts and packed words in registers and
-// touches every [C, N] row once, at c * N + p, so neighbouring threads
-// read neighbouring addresses; the sender's fresh/advert words are read
-// only over edges whose gates are open; (ATK) under the IWANT flood its
-// advert words over every edge, one read serving both the gossip news
-// and the window count, and the ledger is written in stage 1 so no
-// per-edge window count stays live in registers; the attack variant is
-// its own kernel, held to 64 registers a thread (receive_kernel_attacks).
-// The full variant adds, per peer at C = 16 and W = 1, up to 4 B of
-// injected words, 64 B of sibling words and the 4 B trigger word; its
-// flood read happens only over an edge whose flood bit is set (the
-// injected words are zero at almost every sender on almost every tick);
-// the shared-IP gater keeps the C stored first- and invalid-delivery
-// values and the C sibling words in registers for its C x C masked sums.
-// The paired variant adds, per peer at C = 16 and W = 1, the second ctrl
-// byte of each edge (16 B), up to 4 B of slot-B sender words, five
-// slot-B handshake words in (20 B) and the slot-B mesh out (4 B), the
-// slot-B backoff and time-in-mesh rows in and out (128 B) and one gate
-// row (4 B); the second ctrl byte is gathered at the same address as the
-// first, the slot-B words only over an open edge of the sender's slot-B
-// mesh; each row c updates both slots' backoff and time in mesh in the
-// same iteration, so no C-wide array of slot B stays live.  Faults add
-// the alive word (4 B/peer) and, under the IWANT flood, the flood_ok
-// word (4 B/peer); both are read once a thread and applied in registers.
-// Telemetry adds the deliver words (4W B/peer, with latency buckets) and
-// reads the sender's advert words over every edge the sender targeted;
-// its counts are the popcounts of words the thread already holds.
-// Staging the sender windows in shared memory is left for later work.
+// The unscored tick moves about 140 B/peer at W = 1 (ctrl 16, backoff in
+// and out 64, seven [N] words 28, four [W, N] words 16, acq 4, mesh 4,
+// two gate rows 8).  The full variant adds up to 4 B of injected words,
+// 64 B of sibling words and the 4 B trigger word; the paired variant the
+// second ctrl byte (16 B), slot B's handshake words (20 B), mesh (4 B),
+// backoff and time-in-mesh rows in and out (128 B) and one gate row; faults
+// the alive word and, under the IWANT flood, the flood_ok word (4 B
+// each); telemetry the deliver words (4W B with latency buckets).  The
+// arithmetic (a few hundred integer and f32 operations per peer) is far
+// below the card's rate.
+//
+// Design (the tile staged in shared memory).  The first version read each
+// [C, N] operand one 1- or 2-byte element a thread at a time.  Now a
+// persistent grid, as many blocks a multiprocessor as the stage and the
+// launch bound allow, walks tiles of RECEIVE_TILE peers with a static
+// stride; for each tile one warp issues bulk asynchronous tensor copies
+// (TMA, cp.async.bulk.tensor.1d) of every [C, N]-shaped operand the variant
+// reads — the tile's slice of each counter, backoff and time row (and the
+// static score term, the sibling words, the arrivals), and per edge j the
+// sender ctrl bytes at cinv[j] * N + (p0 + o_j) mod N, a second copy where
+// that window wraps past N — into shared memory, completed on an mbarrier
+// with the tile's byte count; the other blocks of the multiprocessor compute
+// meanwhile.  One-dimensional tensor maps (cuTensorMapEncodeTiled, looked up
+// through the CUDA runtime, so the library links no more than before) fill
+// zeros past either end, so any N and the ragged last tile need no other
+// path; a box must start on a 16-byte boundary of the operand and land on a
+// 128-byte boundary of shared memory, so each copy starts at the boundary at
+// or below its first element and takes 16 bytes more (Staged reads past the
+// lead), and the wrapper copies an operand that does not start on a 16-byte
+// boundary.  Each thread runs the body's arithmetic for its peer unchanged,
+// reading its rows from shared memory; its [N] and [W, N] words (4-byte,
+// coalesced) and the sender's fresh, advert, injected and slot-B words (per
+// open edge; at 1M peers [W, N] arrays that stay in L2) are read from device
+// memory through the read-only path.  Outputs are coalesced stores from
+// registers.  Telemetry sums each block's rows across its tiles in shared
+// memory and adds them into the tally once a block.  What bounds it now: not
+// bytes but its instruction chain at the threads a multiprocessor holds
+// (PERF.md): the staging removed the element loads, and the occupancy its
+// shared memory allows decides the rest.
 #pragma once
 
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -280,18 +289,292 @@ constexpr int KNOB_GF = 0, KNOB_DLAZY = 1, KNOB_BT = 2, KNOB_INVW = 3,
 
 using gossip::lane_u;
 
+__device__ __forceinline__ int floordiv(int a, int b) {
+  int q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+// ---- the staged tile
+
+// threads a block; a tile is RECEIVE_TILE peers, one a thread (the last
+// 16 threads of a block run no peer).  112 peers (7 × 16) keep each
+// tile's first peer on a 16-element boundary, and a copy of a 2-byte row
+// with its 16-byte lead fills 240 of a 256-byte row of the stage.
+constexpr int RECEIVE_THREADS = 128;
+constexpr int RECEIVE_TILE = 112;
+
+// The least blocks a multiprocessor each kernel is built for (its launch
+// bound: the registers a thread may take).  At C = 16, W = 1 with bf16
+// counters the flagship and attack options' stage (28 KB) lets seven
+// blocks share a multiprocessor, the full variant's (36 KB) six, the
+// paired variant's (48 KB) four, unscored (8-16 KB) twelve at 40
+// registers (the parent's unscored kernels ran eight blocks of 256
+// threads at 32).  On 1M-peer ticks (H100, 700 W; kernel_ab.py, PERF.md) the
+// flagship options ran 0.506 ms at six blocks (80 registers, no spills)
+// against 0.517 at seven (72, 28 B of spills), the attack options 0.533
+// at seven against 0.602 at six, the full variant 1.203 at five against
+// 1.220 at six.
+__host__ __device__ constexpr int receive_blocks(int family, bool scored,
+                                                 bool atk) {
+  return !scored ? 12 : family == 0 ? (atk ? 7 : 6) : family == 1 ? 5 : 4;
+}
+
+// The operands a tile stages, each in its own slot of a stage: [R, N]
+// rows copied at r * N + p0 (R = C, or C * W for the arrivals), and the
+// ctrl-byte windows (C edges, each with room for its wrap piece).  The
+// static score term comes last: it is null on most launches, and its room
+// is added to the stage only when it is not.
+enum Slot : int {
+  SL_BACKOFF, SL_TIM, SL_FD, SL_INV, SL_BP, SL_IWS, SL_BACKOFF_B, SL_TIM_B,
+  SL_SAMEIP, SL_ARR, SL_CTRL, SL_CTRL2, SL_STAT,
+  N_SLOTS
+};
+
+__host__ __device__ constexpr uint64_t slot_bit(int s) { return 1ull << s; }
+
+// The slots a variant's body reads (FAMILY: 0 the flagship or attack
+// options, 1 full, 2 paired).
+template <int FAMILY, bool SCORED, bool DELAY>
+__host__ __device__ constexpr uint64_t staged_slots() {
+  constexpr bool FULL = FAMILY != 0, PAIRED = FAMILY == 2;
+  uint64_t m = slot_bit(SL_BACKOFF);
+  m |= DELAY ? slot_bit(SL_ARR) : slot_bit(SL_CTRL);
+  if (SCORED) {
+    m |= slot_bit(SL_TIM) | slot_bit(SL_FD) | slot_bit(SL_INV) |
+         slot_bit(SL_BP) | slot_bit(SL_IWS) | slot_bit(SL_STAT);
+  }
+  if (FULL && SCORED) m |= slot_bit(SL_SAMEIP);
+  if (PAIRED) {
+    m |= slot_bit(SL_CTRL2) | slot_bit(SL_BACKOFF_B);
+    if (SCORED) m |= slot_bit(SL_TIM_B);
+  }
+  return m;
+}
+
+// the bytes a box copies: the tile's row and one 16-byte granule more (a
+// box starts on a 16-byte boundary of the operand, at or below the row's
+// first element)
+__host__ __device__ constexpr int box_bytes(int es) {
+  return RECEIVE_TILE * es + 16;
+}
+
+// the shared memory a staged row takes: copies land on 128-byte
+// boundaries
+__host__ __device__ constexpr int row_room(int es) {
+  return (box_bytes(es) + 127) / 128 * 128;
+}
+
+// A variant's stage, laid out at compile time: each slot of MASK, in slot
+// order, rows(s) rows of row_room(es(s)) bytes.
+template <uint64_t MASK, int C, int W, bool CBF, bool BBF>
+struct Layout {
+  __host__ __device__ static constexpr int es(int s) {
+    return s == SL_FD || s == SL_INV ? (CBF ? 2 : 4)
+           : s == SL_BP              ? (BBF ? 2 : 4)
+           : s == SL_SAMEIP || s == SL_ARR || s == SL_STAT ? 4
+           : s == SL_CTRL || s == SL_CTRL2 ? 1
+                                           : 2;
+  }
+  // rows staged (a ctrl window has a second row for its wrap piece)
+  __host__ __device__ static constexpr int rows(int s) {
+    return s == SL_ARR ? C * W : s == SL_CTRL || s == SL_CTRL2 ? 2 * C : C;
+  }
+  // rows copied every tile (wrap pieces aside)
+  __host__ __device__ static constexpr int copies(int s) {
+    return s == SL_ARR ? C * W : C;
+  }
+  __host__ __device__ static constexpr uint32_t off(int s) {
+    uint32_t o = 0;
+    for (int i = 0; i < s; ++i) {
+      if ((MASK >> i) & 1u) o += rows(i) * row_room(es(i));
+    }
+    return o;
+  }
+  // the stage without and with the static score term
+  static constexpr uint32_t base_bytes = off(SL_STAT);
+  static constexpr uint32_t stat_bytes =
+      ((MASK >> SL_STAT) & 1u) ? C * row_room(4) : 0;
+};
+
+// A launch's staging, built on the host (make_plan) and passed as a
+// __grid_constant__ kernel parameter, so the tensor maps stay in
+// parameter space where the copies read them.
+struct StagePlan {
+  CUtensorMap map[N_SLOTS];   // 1-D, box_bytes(es) / es elements a box
+  uint64_t present;           // bit s: slot s is staged
+  uint32_t stage_bytes;       // the stage (a multiple of 128)
+  uint32_t head_bytes;        // the stage's mbarrier and the tally rows
+  uint32_t tile_tx;           // bytes of a tile's copies but wrap pieces
+  // x / history_length for 0 <= x < 2^31 as (x * div_m) >> (31 + div_l)
+  // (div_l = ceil(log2 H), div_m = ceil(2^(31 + div_l) / H): exact), in
+  // place of an integer division per serve-ledger row
+  uint64_t div_m;
+  uint32_t div_l;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t tx) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(smem_addr(bar)), "r"(tx)
+               : "memory");
+}
+
+// Wait for the barrier's phase of this parity to complete.  A copy that
+// never lands would hold the block forever: after about 2^26 tries (many
+// seconds) the kernel traps instead, and the launch reports the fault.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t ready;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(ready)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (ready) return;
+    if (tries == (1u << 26)) __trap();
+  }
+}
+
+// one box of the slot's map at coordinate x (on a 16-byte boundary) into
+// dst (on a 128-byte boundary), completed on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int x, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2}], [%3];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// x rounded down to a 16-byte boundary of elements of es bytes
+__device__ __forceinline__ int granule_floor(int x, int es) {
+  return x & ~(16 / es - 1);
+}
+
+// The first element of edge j's ctrl window: (p0 + o_j) mod N.
+__device__ __forceinline__ long long window_start(const ReceiveArgs& a,
+                                                  long long p0, int j) {
+  long long q0 = p0 + a.offsets[j];
+  return q0 >= a.n ? q0 - a.n : q0;
+}
+
+// Warp 0 stages tile p0 into st: lane 0 arms the stage's barrier with the
+// tile's bytes, then the lanes issue the copies, row r of slot s by lane
+// (s + r) mod 32 (edge j's window and its wrap piece by lane
+// (slot + j) mod 32).
+template <class L, uint64_t MASK, int C>
+__device__ __forceinline__ void stage_tile(const ReceiveArgs& a,
+                                           const StagePlan& plan,
+                                           uint8_t* st, uint64_t* bar,
+                                           long long p0, int lane) {
+  const long long n = a.n;
+  const uint64_t present = plan.present & MASK;
+  const long long active =
+      n - p0 < RECEIVE_TILE ? n - p0 : (long long)RECEIVE_TILE;
+  if (lane == 0) {
+    uint32_t tx = plan.tile_tx;
+#pragma unroll
+    for (int s = SL_CTRL; s <= SL_CTRL2; ++s) {
+      if (!((present >> s) & 1u)) continue;
+      for (int j = 0; j < C; ++j) {
+        if (window_start(a, p0, j) + active > n) tx += box_bytes(1);
+      }
+    }
+    mbar_expect_tx(bar, tx);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < N_SLOTS; ++s) {
+    if (!((MASK >> s) & 1u) || !((present >> s) & 1u)) continue;
+    const int room = row_room(L::es(s));
+    if (s == SL_CTRL || s == SL_CTRL2) {
+      for (int j = (lane - s) & 31; j < C; j += 32) {
+        const long long q0 = window_start(a, p0, j);
+        const int x = (int)((long long)a.cinv[j] * n + q0);
+        tma_load(st + L::off(s) + j * room, &plan.map[s],
+                 granule_floor(x, 1), bar);
+        if (q0 + active > n) {
+          tma_load(st + L::off(s) + (C + j) * room, &plan.map[s],
+                   granule_floor(x - (int)n, 1), bar);
+        }
+      }
+    } else {
+      for (int r = (lane - s) & 31; r < L::copies(s); r += 32) {
+        tma_load(st + L::off(s) + r * room, &plan.map[s],
+                 granule_floor((int)(r * n + p0), L::es(s)), bar);
+      }
+    }
+  }
+}
+
+// A thread's view of its peer's staged operands in one stage: element t
+// of row r of slot s sits ``lead`` bytes into the row's box, the bytes
+// between the 16-byte boundary the copy started at and the row's first
+// element: (r * N * es) mod 16, the same for every tile (p0 is a multiple
+// of 16 elements, each operand 16-byte aligned).
+template <class L>
+struct Staged {
+  const uint8_t* st;
+  long long n;
+  int t;
+  uint64_t div_m;
+  uint32_t div_l;
+
+  // floor(x / history_length) (the reference's floor division)
+  __device__ __forceinline__ int floordiv_h(int x, int h) const {
+    if (x >= 0) return (int)(((uint64_t)x * div_m) >> (31 + div_l));
+    return floordiv(x, h);
+  }
+
+  __device__ __forceinline__ const uint8_t* row(int s, int r) const {
+    const int lead = (r * (int)(n & 15) * L::es(s)) & 15;
+    return st + L::off(s) + r * row_room(L::es(s)) + lead;
+  }
+  template <class T>
+  __device__ __forceinline__ T at(int s, int r) const {
+    return reinterpret_cast<const T*>(row(s, r))[t];
+  }
+  __device__ __forceinline__ uint32_t word(int s, int r) const {
+    return at<uint32_t>(s, r);
+  }
+  __device__ __forceinline__ int i16(int s, int r) const {
+    return at<int16_t>(s, r);
+  }
+  // edge j's ctrl byte: byte t of its window, whose first byte has
+  // coordinate x, or past N byte t of the wrap piece (at x - N)
+  template <int C>
+  __device__ __forceinline__ uint32_t ctrl(int s, int j, int x,
+                                           bool wrapped) const {
+    const uint8_t* w = st + L::off(s) + j * row_room(1);
+    return wrapped ? w[C * row_room(1) + ((x - (int)n) & 15) + t]
+                   : w[(x & 15) + t];
+  }
+};
+
 template <bool BF>
-__device__ __forceinline__ float load_ctr(const void* p, long long i) {
+__device__ __forceinline__ float load_ctr(const void* row, int t) {
   if constexpr (BF) {
-    return __bfloat162float(((const __nv_bfloat16*)p)[i]);
+    return __bfloat162float(((const __nv_bfloat16*)row)[t]);
   } else {
-    return ((const float*)p)[i];
+    return ((const float*)row)[t];
   }
 }
 
 // store in the counter dtype; returns the stored value read back as f32
 template <bool BF>
-__device__ __forceinline__ float store_ctr(void* p, long long i, float x) {
+__device__ __forceinline__ float store_ctr(void* p, int i, float x) {
   if constexpr (BF) {
     __nv_bfloat16 b = __float2bfloat16_rn(x);
     ((__nv_bfloat16*)p)[i] = b;
@@ -306,11 +589,6 @@ __device__ __forceinline__ float store_ctr(void* p, long long i, float x) {
 __device__ __forceinline__ float decay_keep(float x, float decay, float dtz) {
   x = __fmul_rn(x, decay);
   return x < dtz ? 0.0f : x;
-}
-
-__device__ __forceinline__ int floordiv(int a, int b) {
-  int q = a / b;
-  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 
 // (KNB) a knob's value from the vector, else the baked launch argument
@@ -349,18 +627,16 @@ __device__ __forceinline__ float p4_weight(const ReceiveArgs& a) {
   }
 }
 
-// One thread per peer; the kernels of receive.cu and receive_tel.cu
-// instantiate it (with KNB, those of receive_knobs.cu and
-// receive_tel_knobs.cu; with DELAY, those of receive_delays.cu).  (TEL) the thread's tally rows go to s_rows[r *
-// blockDim.x + threadIdx.x] and its delivered acquisitions to s_dlv[w *
-// blockDim.x + threadIdx.x], both in shared memory, before stage 2.
+// One thread per peer of the tile at p0, its receiver operands read from
+// the stage ``in`` (receive_tiles).  (TEL) the thread's tally rows go to
+// s_rows[r * RECEIVE_THREADS + t] and its delivered acquisitions to
+// s_dlv[w * RECEIVE_THREADS + t], both in shared memory, before stage 2.
 template <int C, int W, bool SCORED, bool ATK, bool CBF, bool BBF,
-          bool FLOOD = false, bool EXACTK = false, bool PX = false,
-          bool SAMEIP = false, bool PAIRED = false, bool FAULTS = false,
-          bool TEL = false, bool KNB = false, bool DELAY = false>
+          bool FLOOD, bool EXACTK, bool PX, bool SAMEIP, bool PAIRED,
+          bool FAULTS, bool TEL, bool KNB, bool DELAY, class S>
 __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
-                                             int* s_rows = nullptr,
-                                             uint32_t* s_dlv = nullptr) {
+                                             const S& in, long long p0,
+                                             int* s_rows, uint32_t* s_dlv) {
   static_assert(SCORED || !ATK, "the attack options need scoring");
   static_assert(ATK || !(FLOOD || SAMEIP),
                 "flood publishing and the shared-IP gater ride the attack "
@@ -369,25 +645,33 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
                 "the delay mode takes no fault, telemetry or slot-B "
                 "operands");
   constexpr bool FULL = FLOOD || EXACTK || PX || SAMEIP;
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long n = a.n;
+  // 32-bit indices: make_plan refuses a launch whose rows reach 2^31
+  const int t = in.t;
+  const int n = (int)a.n;
+  const int p = (int)p0 + t;
   if (p >= n) return;
   constexpr uint32_t ALL = (C == 32) ? 0xFFFFFFFFu : ((1u << C) - 1u);
+  // the sender streams, read from device memory over open edges
+  const uint32_t* __restrict__ fresh = a.fresh;
+  const uint32_t* __restrict__ adv = a.adv;
+  const uint32_t* __restrict__ fresh_b = a.fresh_b;
+  const uint32_t* __restrict__ inj_send = a.inj_send;
 
   uint32_t seen[W], heard[W], valid[W];
 #pragma unroll
   for (int w = 0; w < W; ++w) {
-    seen[w] = a.seen[w * n + p];
+    seen[w] = __ldg(&a.seen[w * n + p]);
     heard[w] = 0u;
-    valid[w] = SCORED ? a.valid[w] : 0xFFFFFFFFu;
+    valid[w] = SCORED ? __ldg(&a.valid[w]) : 0xFFFFFFFFu;
   }
   // unscored: every sender's payload and advert pass (no gates; DELAY:
   // the step applied them)
-  const uint32_t pay = (SCORED && !DELAY) ? a.pay[p] : ALL;
-  const uint32_t gsp = (SCORED && !DELAY) ? a.gsp[p] : ALL;
+  const uint32_t pay = (SCORED && !DELAY) ? __ldg(&a.pay[p]) : ALL;
+  const uint32_t gsp = (SCORED && !DELAY) ? __ldg(&a.gsp[p]) : ALL;
   // (ATK) the sybil word; the receiver lacks some possible id
   // (FULL: no sybil word without an attack option)
-  const uint32_t syb = (ATK && (!FULL || a.syb != nullptr)) ? a.syb[p] : 0u;
+  const uint32_t syb =
+      (ATK && (!FULL || a.syb != nullptr)) ? __ldg(&a.syb[p]) : 0u;
   const bool track = ATK && a.track_promises != 0;
   const bool adv_all = ATK && a.iwant_spam != 0;
   const bool flood_rx = adv_all && syb != 0u;
@@ -398,8 +682,8 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
   }
   // (FAULTS) the receiver's alive word, all-ones or 0 at a down peer;
   // under the IWANT flood, the edges a flood may cross
-  const uint32_t alive = FAULTS ? a.alive_w[p] : 0xFFFFFFFFu;
-  const uint32_t fok = (FAULTS && flood_rx) ? a.flood_ok[p] : ALL;
+  const uint32_t alive = FAULTS ? __ldg(&a.alive_w[p]) : 0xFFFFFFFFu;
+  const uint32_t fok = (FAULTS && flood_rx) ? __ldg(&a.flood_ok[p]) : ALL;
 
   // ---- stage 1: the C receiving edges
   // (TEL) the tally rows of this peer's edges
@@ -416,8 +700,7 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
       int fd_j = 0, iv_j = 0;
 #pragma unroll
       for (int w = 0; w < W; ++w) {
-        const uint32_t news = a.arr[(long long)(j * W + w) * n + p] &
-                              ~seen[w];
+        const uint32_t news = in.word(SL_ARR, j * W + w) & ~seen[w];
         heard[w] |= news;
         if constexpr (SCORED) {
           fd_j += __popc(news & valid[w]);
@@ -427,31 +710,35 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
       fdc[j] = fd_j;
       ivc[j] = iv_j;
     }
-    graft_recv = a.graft_arr[p];
-    prune_recv = a.prune_arr[p];
+    graft_recv = __ldg(&a.graft_arr[p]);
+    prune_recv = __ldg(&a.prune_arr[p]);
     if constexpr (ATK) {
-      if (track) broken = a.cheat_arr[p] & (lacked != 0u ? ~0u : 0u);
+      if (track) broken = __ldg(&a.cheat_arr[p]) & (lacked != 0u ? ~0u : 0u);
     }
   }
   // the sender edges (none in delay mode)
   constexpr int C_SEND = DELAY ? 0 : C;
 #pragma unroll
   for (int j = 0; j < C_SEND; ++j) {
-    long long q = p + a.offsets[j];
+    int q = p + a.offsets[j];
     if (q >= n) q -= n;
-    const uint32_t ctl = a.ctrl[(long long)a.cinv[j] * n + q];
+    // past N the window wrapped: the byte sits in the wrap piece
+    const int q0 = (int)window_start(a, p0, j);
+    const bool wrapped = q < q0;
+    const int xw = a.cinv[j] * n + q0;
+    const uint32_t ctl = in.template ctrl<C>(SL_CTRL, j, xw, wrapped);
     uint32_t ctl2 = 0u;
     if constexpr (PAIRED) {
-      ctl2 = a.ctrl2[(long long)a.cinv[j] * n + q];
+      ctl2 = in.template ctrl<C>(SL_CTRL2, j, xw, wrapped);
       // GRAFT, PRUNE, A of each byte as bits 0..2; on an odd edge the
       // sender's slot A is this peer's slot B (odd_mask is a launch
       // argument: the same choice in every thread)
       uint32_t hs = (ctl >> CTRL_GRAFT) & 7u;
       uint32_t hs2 = (ctl2 >> CTRL2_GRAFT_B) & 7u;
       if ((a.odd_mask >> j) & 1u) {
-        const uint32_t t = hs;
+        const uint32_t tmp = hs;
         hs = hs2;
-        hs2 = t;
+        hs2 = tmp;
       }
       graft_recv |= (hs & 1u) << j;
       prune_recv |= ((hs >> 1) & 1u) << j;
@@ -496,16 +783,16 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
       if (any_on) {
 #pragma unroll
         for (int w = 0; w < W; ++w) {
-          uint32_t got = fwd_on ? a.fresh[w * n + q] : 0u;
+          uint32_t got = fwd_on ? __ldg(&fresh[w * n + q]) : 0u;
           if constexpr (PAIRED) {
-            if (fb_on) got |= a.fresh_b[w * n + q];
+            if (fb_on) got |= __ldg(&fresh_b[w * n + q]);
           }
           if constexpr (FLOOD) {
-            if (fl_on) got |= a.inj_send[w * n + q];
+            if (fl_on) got |= __ldg(&inj_send[w * n + q]);
           }
           const uint32_t fwd_q = got;
           const uint32_t adv_q =
-              (gsp_on || adv_all || adv_on) ? a.adv[w * n + q] : 0u;
+              (gsp_on || adv_all || adv_on) ? __ldg(&adv[w * n + q]) : 0u;
           if (gsp_on) got |= adv_q;
           if constexpr (FAULTS) got &= alive;   // a down peer hears 0
           if constexpr (TEL) {
@@ -533,30 +820,29 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
       // window count stays live: a sybil receiver's pull is the
       // partner's whole window while the ledger before decay is under
       // gossip_retransmission windows
-      const long long idx = (long long)j * n + p;
-      const int s = a.iws[idx];
+      const int s = in.i16(SL_IWS, j);
       const int H = a.history_length;
       int pull = fd_j + iv_j;
       if (flood_rx) pull = (s < a.retransmission * pa && pa > 0) ? pa : 0;
       // (FAULTS) no flood over a faulted edge: a dead sybil requests
       // nothing, a dead or cut-off partner serves nothing
       if (FAULTS && flood_rx && !((fok >> j) & 1u)) pull = 0;
-      int srv = s - floordiv(s + (H - 1), H) + pull;
+      int srv = s - in.floordiv_h(s + (H - 1), H) + pull;
       srv = srv < 0 ? 0 : (srv > 30000 ? 30000 : srv);
-      a.iws_out[idx] = (int16_t)srv;
+      a.iws_out[j * n + p] = (int16_t)srv;
     } else {
       if (fwd_on || gsp_on || fb_on || adv_on) {
 #pragma unroll
         for (int w = 0; w < W; ++w) {
           uint32_t got = 0u;
-          if (fwd_on) got |= a.fresh[w * n + q];
+          if (fwd_on) got |= __ldg(&fresh[w * n + q]);
           if constexpr (PAIRED) {
-            if (fb_on) got |= a.fresh_b[w * n + q];
+            if (fb_on) got |= __ldg(&fresh_b[w * n + q]);
           }
           if constexpr (TEL) {
             const uint32_t fwd_q = got;
             const uint32_t adv_q =
-                (gsp_on || adv_on) ? a.adv[w * n + q] : 0u;
+                (gsp_on || adv_on) ? __ldg(&adv[w * n + q]) : 0u;
             if (gsp_on) got |= adv_q;
             if constexpr (FAULTS) got &= alive;   // a down peer hears 0
             const uint32_t adv_w = adv_on ? adv_q : 0u;
@@ -568,7 +854,7 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
             req_c += __popc(adv_w & alive & ~seen[w]);
             adv_nz = adv_nz || adv_q != 0u;
           } else {
-            if (gsp_on) got |= a.adv[w * n + q];
+            if (gsp_on) got |= __ldg(&adv[w * n + q]);
             if constexpr (FAULTS) got &= alive;   // a down peer hears 0
           }
           const uint32_t news = got & ~seen[w];
@@ -607,57 +893,61 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
   uint32_t viol = 0u, viol_b = 0u;
   if constexpr (SCORED) {
     // (DELAY: the step gated the arrivals)
-    const uint32_t accb = DELAY ? ALL : a.acc[p];
+    const uint32_t accb = DELAY ? ALL : __ldg(&a.acc[p]);
     graft_recv &= accb;
     prune_recv &= accb;
-    viol = graft_recv & a.bo2[p];
+    viol = graft_recv & __ldg(&a.bo2[p]);
     if constexpr (PAIRED) {
       graft_b &= accb;
       prune_b &= accb;
-      viol_b = graft_b & a.bo2_b[p];
+      viol_b = graft_b & __ldg(&a.bo2_b[p]);
     }
   }
-  const uint32_t accept = graft_recv & a.wa[p];
+  const uint32_t accept = graft_recv & __ldg(&a.wa[p]);
   // (DELAY) the retractions the step resolved: delayed rejections
   // arriving, immediate ones and failed sends
-  const uint32_t retract = DELAY ? a.retract_in[p] : (a.grafts[p] & ~a_recv);
-  const uint32_t mesh = ((a.meshsel[p] | accept) & ~prune_recv) & ~retract;
+  const uint32_t retract =
+      DELAY ? __ldg(&a.retract_in[p]) : (__ldg(&a.grafts[p]) & ~a_recv);
+  const uint32_t mesh =
+      ((__ldg(&a.meshsel[p]) | accept) & ~prune_recv) & ~retract;
   a.mesh[p] = mesh;
-  const uint32_t bo_trig = a.dropped[p] | prune_recv | retract;
+  const uint32_t bo_trig = __ldg(&a.dropped[p]) | prune_recv | retract;
   // (PAIRED) slot B's handshake, mesh and backoff triggers
   uint32_t mesh_b = 0u, bo_trig_b = 0u, px_b = 0u;
   if constexpr (PAIRED) {
-    const uint32_t accept_b = graft_b & a.wa_b[p];
-    const uint32_t retract_b = a.grafts_b[p] & ~a_b;
-    mesh_b = ((a.meshsel_b[p] | accept_b) & ~prune_b) & ~retract_b;
+    const uint32_t accept_b = graft_b & __ldg(&a.wa_b[p]);
+    const uint32_t retract_b = __ldg(&a.grafts_b[p]) & ~a_b;
+    mesh_b = ((__ldg(&a.meshsel_b[p]) | accept_b) & ~prune_b) & ~retract_b;
     a.mesh_b_out[p] = mesh_b;
-    bo_trig_b = a.dropped_b[p] | prune_b | retract_b;
+    bo_trig_b = __ldg(&a.dropped_b[p]) | prune_b | retract_b;
     px_b = prune_b | retract_b;
   }
   if constexpr (PX) {
     if (a.px_rot != nullptr) a.px_rot[p] = prune_recv | retract | px_b;
   }
-  const uint32_t sub_all = a.sub_all[p];
+  const uint32_t sub_all = __ldg(&a.sub_all[p]);
 #pragma unroll
   for (int w = 0; w < W; ++w) {
-    a.acq[w * n + p] = (sub_all != 0u ? heard[w] : 0u) | a.inj[w * n + p];
+    a.acq[w * n + p] =
+        (sub_all != 0u ? heard[w] : 0u) | __ldg(&a.inj[w * n + p]);
   }
   if constexpr (TEL) {
     // the new acquisitions (injected publishes are no received copy)
     // and, with latency buckets, the delivered acquisitions; handed to
     // the kernel through shared memory so no tally stays live below
-    const int t = threadIdx.x;
 #pragma unroll
     for (int w = 0; w < W; ++w) {
       const uint32_t h = sub_all != 0u ? heard[w] : 0u;
       tr[TEL_NEW_IDS] += __popc(h);
-      s_dlv[w * blockDim.x + t] =
+      s_dlv[w * RECEIVE_THREADS + t] =
           a.tel_lat_buckets > 0
-              ? (h | a.inj[w * n + p]) & a.dlv_eff[w * n + p]
+              ? (h | __ldg(&a.inj[w * n + p])) & __ldg(&a.dlv_eff[w * n + p])
               : 0u;
     }
 #pragma unroll
-    for (int r = 0; r < TEL_ROWS; ++r) s_rows[r * blockDim.x + t] = tr[r];
+    for (int r = 0; r < TEL_ROWS; ++r) {
+      s_rows[r * RECEIVE_THREADS + t] = tr[r];
+    }
   }
 
   // ---- per row: backoff; scored: time in mesh, counters, serve
@@ -673,8 +963,8 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
   float fd_keep[SAMEIP ? C : 1], inv_keep[SAMEIP ? C : 1];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const long long idx = (long long)c * n + p;
-    const int bo = a.backoff[idx];
+    const int idx = c * n + p;
+    const int bo = in.i16(SL_BACKOFF, c);
     const int bo_new = ((bo_trig >> c) & 1u) ? restart_ticks<KNB>(a)
                                              : (bo - 1 > 0 ? bo - 1 : 0);
     a.backoff_out[idx] = (int16_t)bo_new;
@@ -683,14 +973,14 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
     // mesh for the P1 term below
     int tim_b_new = 0;
     if constexpr (PAIRED) {
-      const int bob = a.backoff_b[idx];
+      const int bob = in.i16(SL_BACKOFF_B, c);
       const int bob_new = ((bo_trig_b >> c) & 1u)
                               ? restart_ticks<KNB>(a)
                               : (bob - 1 > 0 ? bob - 1 : 0);
       a.backoff_b_out[idx] = (int16_t)bob_new;
       bo_gate_b |= (uint32_t)(bob_new > 0) << c;
       if constexpr (SCORED) {
-        const int tb = a.tim_b[idx];
+        const int tb = in.i16(SL_TIM_B, c);
         tim_b_new = ((mesh_b >> c) & 1u) ? (tb + 1 < 32766 ? tb + 1 : 32766)
                                          : 0;
         a.tim_b_out[idx] = (int16_t)tim_b_new;
@@ -698,20 +988,22 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
     }
     if constexpr (!SCORED) continue;
 
-    const int tim = a.tim[idx];
+    const int tim = in.i16(SL_TIM, c);
     const int tim_new = ((mesh >> c) & 1u) ? (tim + 1 < 32766 ? tim + 1
                                                                : 32766)
                                            : 0;
     a.tim_out[idx] = (int16_t)tim_new;
 
-    float fdv = __fadd_rn(load_ctr<CBF>(a.fd, idx), (float)fdc[c]);
+    float fdv =
+        __fadd_rn(load_ctr<CBF>(in.row(SL_FD, c), t), (float)fdc[c]);
     fdv = fminf(fdv, a.fd_cap);
     const float fd_n = store_ctr<CBF>(a.fd_out, idx,
                                       decay_keep(fdv, a.fd_decay, dtz));
-    const float invv = __fadd_rn(load_ctr<CBF>(a.inv, idx), (float)ivc[c]);
+    const float invv =
+        __fadd_rn(load_ctr<CBF>(in.row(SL_INV, c), t), (float)ivc[c]);
     const float inv_n = store_ctr<CBF>(a.inv_out, idx,
                                        decay_keep(invv, a.inv_decay, dtz));
-    float bpv = __fadd_rn(load_ctr<BBF>(a.bp, idx),
+    float bpv = __fadd_rn(load_ctr<BBF>(in.row(SL_BP, c), t),
                           (float)((viol >> c) & 1u));
     if constexpr (PAIRED) bpv = __fadd_rn(bpv, (float)((viol_b >> c) & 1u));
     if constexpr (ATK) {
@@ -721,8 +1013,8 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
                                       decay_keep(bpv, a.bp_decay, dtz));
 
     if constexpr (!ATK || DELAY) {   // (ATK: written in stage 1)
-      const int s = a.iws[idx];
-      int srv = s - floordiv(s + (H - 1), H) + fdc[c] + ivc[c];
+      const int s = in.i16(SL_IWS, c);
+      int srv = s - in.floordiv_h(s + (H - 1), H) + fdc[c] + ivc[c];
       srv = srv < 0 ? 0 : (srv > 30000 ? 30000 : srv);
       a.iws_out[idx] = (int16_t)srv;
     }
@@ -740,7 +1032,9 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
     }
     if (a.has_topic_cap) topic = fminf(topic, a.topic_cap);
     const float bp_ex = fmaxf(0.0f, __fsub_rn(bp_n, a.bp_thr));
-    if (a.stat != nullptr) topic = __fadd_rn(topic, a.stat[idx]);
+    if (a.stat != nullptr) {
+      topic = __fadd_rn(topic, in.template at<float>(SL_STAT, c));
+    }
     const float score =
         __fadd_rn(topic, __fmul_rn(__fmul_rn(knob<KNB>(a, KNOB_BPW, a.w_bp),
                                              bp_ex), bp_ex));
@@ -774,7 +1068,7 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
     uint32_t sib[C];
 #pragma unroll
     for (int cc = 0; cc < C; ++cc) {
-      sib[cc] = grouped ? a.same_ip[(long long)cc * n + p] : 0u;
+      sib[cc] = grouped ? in.word(SL_SAMEIP, cc) : 0u;
     }
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -806,7 +1100,8 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
   // next tick's gossip targets (scored: above the gossip threshold;
   // PAIRED: one selection for both slots, outside either mesh):
   // Bernoulli(k/|elig|), or (EXACTK) the exact uniform k-subset
-  uint32_t elig = a.cand_sub[p] & ~mesh & ~a.fanout[p] & sub_all;
+  const uint32_t cand_sub = __ldg(&a.cand_sub[p]);
+  uint32_t elig = cand_sub & ~mesh & ~__ldg(&a.fanout[p]) & sub_all;
   if constexpr (PAIRED) elig &= ~mesh_b;
   if constexpr (SCORED) elig &= gossip_g;
   const int n_el = __popc(elig);
@@ -840,7 +1135,7 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
     a.gates[4 * n + p] = accept_g & gater;
     uint32_t tgt_row = elig & tgt;
     if constexpr (ATK) {
-      if (a.ihave_spam) tgt_row = (tgt_row & ~syb) | (a.cand_sub[p] & syb);
+      if (a.ihave_spam) tgt_row = (tgt_row & ~syb) | (cand_sub & syb);
     }
     a.gates[5 * n + p] = tgt_row;
     a.gates[6 * n + p] = bo_gate;
@@ -852,74 +1147,270 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
   }
 }
 
-// The launch dispatch of both libraries.  K is the library's launcher:
-// K::launch<C, W, FAMILY, SCORED, ATK, CBF, BBF, FAULTS>(a, blocks, s)
-// launches its __global__ for that variant (FAMILY: 0 the flagship
-// options, ATK the attack options; 1 full; 2 paired), so each library
-// instantiates only its own kernels.
-constexpr int RECEIVE_THREADS = 256;
-
-// (TEL) the body with the tally: the thread's rows and delivered
-// acquisitions left in shared memory, then each warp of the block sums one
-// row over the block's peers (the L latency-bucket rows popcount the
-// delivered acquisitions against the tick's bucket masks here, once) and
-// adds it into the tally with one i32 atomicAdd per block and row; the
-// kernels of receive_tel.cu and receive_tel_knobs.cu instantiate it
-template <int C, int W, bool SCORED, bool ATK, bool CBF, bool BBF,
-          bool FLOOD, bool EXACTK, bool PX, bool SAMEIP, bool PAIRED,
-          bool FAULTS, bool KNB = false>
-__device__ __forceinline__ void receive_tel_body(const ReceiveArgs& a) {
-  __shared__ int s_rows[TEL_ROWS * RECEIVE_THREADS];
-  __shared__ uint32_t s_dlv[W * RECEIVE_THREADS];
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int r = 0; r < TEL_ROWS; ++r) s_rows[r * RECEIVE_THREADS + t] = 0;
-#pragma unroll
-  for (int w = 0; w < W; ++w) s_dlv[w * RECEIVE_THREADS + t] = 0u;
-  receive_body<C, W, SCORED, ATK, CBF, BBF, FLOOD, EXACTK, PX, SAMEIP,
-               PAIRED, FAULTS, true, KNB>(a, s_rows, s_dlv);
+// The persistent loop every receive kernel runs.  Block b takes tiles b, b +
+// gridDim.x, ... (a static stride: no counter, so a CUDA graph can replay
+// the launch); warp 0 stages each tile into the block's one stage, and the
+// other blocks of the multiprocessor compute while its copies land.  (A
+// second stage, the next tile's copies landing while the block computes this
+// one, halves the blocks a multiprocessor holds: the flagship ran 1.014 ms
+// with two against 0.556 with one; H100, 700 W; kernel_ab.py, PERF.md.)
+// FAMILY (0 the flagship or attack options, 1 full, 2 paired) sets the
+// body's option flags as the kernels have them; (TEL) each tile's rows are
+// summed into the block's rows in shared memory, added into the tally once
+// at the end.
+template <int C, int W, int FAMILY, bool SCORED, bool ATK, bool CBF,
+          bool BBF, bool FAULTS, bool TEL, bool KNB, bool DELAY>
+__device__ __forceinline__ void receive_tiles(const ReceiveArgs& a,
+                                              const StagePlan& plan) {
+  constexpr int T = RECEIVE_TILE, NT = RECEIVE_THREADS;
+  constexpr bool FULL = FAMILY != 0;
+  constexpr uint64_t MASK = staged_slots<FAMILY, SCORED, DELAY>();
+  using L = Layout<MASK, C, W, CBF, BBF>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base);
+  int* acc_rows = reinterpret_cast<int*>(base + 16);
+  uint8_t* stage = base + plan.head_bytes;
+  __shared__ int s_rows[TEL ? TEL_ROWS * NT : 1];
+  __shared__ uint32_t s_dlv[TEL ? W * NT : 1];
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const long long n = a.n;
+  const long long ntiles = (n + T - 1) / T;
+  const int rows = TEL_ROWS + (TEL ? a.tel_lat_buckets : 0);
+  if (t == 0) {
+    mbar_init(bar);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if constexpr (TEL) {
+    for (int r = t; r < rows; r += NT) acc_rows[r] = 0;
+  }
   __syncthreads();
-  // warp k sums rows k, k + 8, ...: the block's partial of each row
-  const int warp = t >> 5, lane = t & 31;
-  const int rows = TEL_ROWS + a.tel_lat_buckets;
-  for (int r = warp; r < rows; r += RECEIVE_THREADS / 32) {
-    int v = 0;
-    if (r < TEL_ROWS) {
-      for (int i = lane; i < RECEIVE_THREADS; i += 32) {
-        v += s_rows[r * RECEIVE_THREADS + i];
-      }
-    } else {
-      const int b = r - TEL_ROWS;
-      uint32_t mask[W];
+  for (long long tile = blockIdx.x, it = 0; tile < ntiles;
+       tile += gridDim.x, ++it) {
+    if (warp == 0) {
+      stage_tile<L, MASK, C>(a, plan, stage, bar, tile * T, lane);
+    }
+    mbar_wait(bar, (uint32_t)(it & 1));
+    const Staged<L> in{stage, n, t, plan.div_m, plan.div_l};
+    if constexpr (TEL) {
 #pragma unroll
-      for (int w = 0; w < W; ++w) mask[w] = a.lat_masks[b * W + w];
-      for (int i = lane; i < RECEIVE_THREADS; i += 32) {
+      for (int r = 0; r < TEL_ROWS; ++r) s_rows[r * NT + t] = 0;
 #pragma unroll
-        for (int w = 0; w < W; ++w) {
-          v += __popc(s_dlv[w * RECEIVE_THREADS + i] & mask[w]);
+      for (int w = 0; w < W; ++w) s_dlv[w * NT + t] = 0u;
+    }
+    if (t < T) {
+      receive_body<C, W, SCORED, FULL ? SCORED : ATK, CBF, BBF,
+                   FULL && SCORED, FULL, FULL, FULL && SCORED, FAMILY == 2,
+                   FAULTS, TEL, KNB, DELAY>(a, in, tile * T, s_rows, s_dlv);
+    }
+    if constexpr (TEL) {
+      __syncthreads();
+      // warp k sums rows k, k + 4, ...: the tile's partial of each row
+      // (the L latency-bucket rows popcount the delivered acquisitions
+      // against the tick's bucket masks)
+      for (int r = warp; r < rows; r += NT / 32) {
+        int v = 0;
+        if (r < TEL_ROWS) {
+          for (int i = lane; i < NT; i += 32) v += s_rows[r * NT + i];
+        } else {
+          const int b = r - TEL_ROWS;
+          for (int i = lane; i < NT; i += 32) {
+#pragma unroll
+            for (int w = 0; w < W; ++w) {
+              v += __popc(s_dlv[w * NT + i] & a.lat_masks[b * W + w]);
+            }
+          }
         }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          v += __shfl_down_sync(0xFFFFFFFFu, v, off);
+        }
+        if (lane == 0) acc_rows[r] += v;
       }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      v += __shfl_down_sync(0xFFFFFFFFu, v, off);
+    __syncthreads();
+  }
+  if constexpr (TEL) {
+    for (int r = t; r < rows; r += NT) {
+      if (acc_rows[r] != 0) atomicAdd(&a.tel[r], acc_rows[r]);
     }
-    if (lane == 0 && v != 0) atomicAdd(&a.tel[r], v);
   }
 }
+
+// ---- the host side: the plan, the grid and the dispatch
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (nothing more
+// to link); null where the installed CUDA lacks it
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)f;
+  }
+  return fn;
+}
+
+// The plan of a variant's launch (L its layout, MASK its slots): a map
+// of each staged operand (the static score term where it is not null),
+// the stage's bytes, the tile's bytes.  Each staged operand must start on
+// a 16-byte boundary (the wrapper copies one that does not).  Returns a
+// CUDA error code.
+template <class L, uint64_t MASK>
+int make_plan(const ReceiveArgs& a, StagePlan* plan) {
+  // the body's indices and the copies' coordinates are 32-bit
+  if ((long long)(L::copies(SL_ARR) > 8 ? L::copies(SL_ARR) : 8) * a.n >=
+      (1ll << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const void* ptr[N_SLOTS] = {
+      a.backoff, a.tim, a.fd, a.inv, a.bp, a.iws, a.backoff_b, a.tim_b,
+      a.same_ip, a.arr, a.ctrl, a.ctrl2, a.stat};
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  memset(plan, 0, sizeof(*plan));
+  uint32_t tx = 0;
+  for (int s = 0; s < N_SLOTS; ++s) {
+    if (!((MASK >> s) & 1u) || ptr[s] == nullptr) continue;
+    if (reinterpret_cast<uintptr_t>(ptr[s]) & 15u) {
+      return (int)cudaErrorMisalignedAddress;
+    }
+    const int es = L::es(s);
+    const cuuint64_t dim =
+        (cuuint64_t)(s == SL_CTRL || s == SL_CTRL2 ? L::copies(s)
+                                                   : L::rows(s)) * a.n;
+    const cuuint64_t stride = 0;
+    const cuuint32_t box = box_bytes(es) / es, estride = 1;
+    const CUtensorMapDataType dt =
+        es == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                : es == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16
+                          : CU_TENSOR_MAP_DATA_TYPE_UINT32;
+    if (encode(&plan->map[s], dt, 1, const_cast<void*>(ptr[s]), &dim,
+               &stride, &box, &estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+      return (int)cudaErrorInvalidValue;
+    }
+    plan->present |= slot_bit(s);
+    tx += L::copies(s) * box_bytes(es);
+  }
+  plan->stage_bytes =
+      L::base_bytes + (((plan->present >> SL_STAT) & 1u) ? L::stat_bytes : 0);
+  const int h = a.history_length > 0 ? a.history_length : 1;
+  int l = 0;
+  while ((1 << l) < h) ++l;
+  plan->div_l = (uint32_t)l;
+  plan->div_m = ((1ull << (31 + l)) + (uint64_t)h - 1) / (uint64_t)h;
+  plan->head_bytes =
+      (16 + 4 * (TEL_ROWS + a.tel_lat_buckets) + 127) & ~127u;
+  plan->tile_tx = tx;
+  return 0;
+}
+
+using ReceiveKernel = void (*)(const ReceiveArgs, const StagePlan);
+
+// the library's last launch: tile, blocks a multiprocessor, dynamic
+// shared memory (bytes) and grid (gossip_receive_launch_config)
+int last_launch[4] = {0, 0, 0, 0};
+
+// Launch a receive kernel on its persistent grid: as many blocks as fit a
+// multiprocessor at the plan's shared memory, on every multiprocessor, at
+// most one a tile.  The kernel's dynamic shared memory limit is raised
+// once, at its first launch (a table of the kernels seen), and its blocks
+// a multiprocessor cached per shared-memory size.
+inline int launch_tiles(ReceiveKernel kernel, const ReceiveArgs& a,
+                        const StagePlan& plan, cudaStream_t s) {
+  constexpr int NT = RECEIVE_THREADS, T = RECEIVE_TILE;
+  struct Seen {
+    ReceiveKernel kernel;
+    int smem, blocks;
+  };
+  static Seen seen[256];
+  static int n_seen = 0, sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int smem = 128 + (int)plan.head_bytes + (int)plan.stage_bytes;
+  Seen* e = nullptr;
+  for (int i = 0; i < n_seen; ++i) {
+    if (seen[i].kernel == kernel) e = &seen[i];
+  }
+  if (e == nullptr) {
+    if (n_seen == 256) return (int)cudaErrorInvalidValue;
+    int dev = 0, optin = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    cudaFuncAttributes fa;
+    cudaFuncGetAttributes(&fa, (const void*)kernel);
+    cudaFuncSetAttribute((const void*)kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         optin - (int)fa.sharedSizeBytes);
+    e = &seen[n_seen++];
+    *e = {kernel, -1, 0};
+  }
+  if (e->smem != smem) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&e->blocks,
+                                                  (const void*)kernel, NT,
+                                                  smem);
+    e->smem = smem;
+  }
+  if (e->blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+  const long long ntiles = (a.n + T - 1) / T;
+  const long long grid = (long long)e->blocks * sms;
+  const unsigned blocks = (unsigned)(grid < ntiles ? grid : ntiles);
+  kernel<<<blocks, NT, smem, s>>>(a, plan);
+  last_launch[0] = T;
+  last_launch[1] = e->blocks;
+  last_launch[2] = smem;
+  last_launch[3] = (int)blocks;
+  return (int)cudaGetLastError();
+}
+
+// The plan for a variant and its launch.  K's kernels instantiate
+// receive_tiles<C, W, FAMILY, SCORED, ATK, CBF, BBF, FAULTS, TEL, ...>.
+template <int C, int W, int FAMILY, bool SCORED, bool ATK, bool CBF,
+          bool BBF, bool FAULTS, bool TEL, bool DELAY>
+int run_tiles(ReceiveKernel kernel, const ReceiveArgs& a, cudaStream_t s) {
+  constexpr uint64_t MASK = staged_slots<FAMILY, SCORED, DELAY>();
+  StagePlan plan;
+  const int err = make_plan<Layout<MASK, C, W, CBF, BBF>, MASK>(a, &plan);
+  if (err != 0) return err;
+  return launch_tiles(kernel, a, plan, s);
+}
+
+// The launch dispatch of every library.  K is the library's launcher:
+// K::launch<C, W, FAMILY, SCORED, ATK, CBF, BBF, FAULTS>(a, s) launches
+// its __global__ for that variant (FAMILY: 0 the flagship options, ATK
+// the attack options; 1 full; 2 paired) through run_tiles and returns
+// its error code, so each library instantiates only its own kernels.
 
 // the counter dtypes of a scored launch (unscored ignores them)
 template <class K, int C, int W, int FAMILY, bool ATK, bool FAULTS>
 int launch_dtypes(const ReceiveArgs& a, int scored, int ctr_bf16,
                   int bp_bf16, cudaStream_t s) {
-  const unsigned blocks =
-      (unsigned)((a.n + RECEIVE_THREADS - 1) / RECEIVE_THREADS);
   auto go = [&](auto sc, auto cbf, auto bbf) {
     constexpr bool SC = decltype(sc)::value, CB = decltype(cbf)::value,
                    BB = decltype(bbf)::value;
-    K::template launch<C, W, FAMILY, SC, ATK && SC, CB, BB, FAULTS>(
-        a, blocks, s);
-    return (int)cudaGetLastError();
+    return K::template launch<C, W, FAMILY, SC, ATK && SC, CB, BB, FAULTS>(
+        a, s);
   };
   using T = std::true_type;
   using F = std::false_type;
@@ -978,3 +1469,11 @@ int launch_receive(const ReceiveArgs& a, int c, int w, int scored,
 }
 
 }  // namespace
+
+// The last receive launch of this library: out[0] the tile (peers a
+// block's step), out[1] the blocks a multiprocessor, out[2] the dynamic
+// shared memory (bytes), out[3] the grid.
+extern "C" int gossip_receive_launch_config(int* out) {
+  for (int i = 0; i < 4; ++i) out[i] = last_launch[i];
+  return 0;
+}

@@ -32,53 +32,58 @@
 
 namespace {
 
-// receive.cu's variants with DELAY on, each with its twin's launch bound,
-// but the flagship options' held to the blocks a multiprocessor their
-// twins reach unbidden, as receive_knobs.cu holds its own: scored four of
-// 256 threads (left free, the scored delay variant takes 72 registers,
-// three blocks, and 0.738 ms against its knob variant's 0.443 at 64 on a
-// 1M-peer tick; H100, 700 W; PERF.md), unscored eight
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, SCORED, false))
+receive_kernel_delays(const ReceiveArgs a,
+                      const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, SCORED, false, CBF, BBF, false, false, false,
+                true>(a, plan);
+}
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, SCORED ? 4 : 8)
-receive_kernel_delays(const ReceiveArgs a) {
-  receive_body<C, W, SCORED, false, CBF, BBF, false, false, false, false,
-               false, false, false, false, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, SCORED, false))
+receive_kernel_delays_knobs(const ReceiveArgs a,
+                            const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, SCORED, false, CBF, BBF, false, false, true,
+                true>(a, plan);
 }
 
 template <int C, int W, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_attacks_delays(const ReceiveArgs a) {
-  receive_body<C, W, true, true, CBF, BBF, false, false, false, false,
-               false, false, false, false, true>(a);
-}
-
-template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_full_delays(const ReceiveArgs a) {
-  receive_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true, SCORED,
-               false, false, false, false, true>(a);
-}
-
-template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, SCORED ? 4 : 8)
-receive_kernel_delays_knobs(const ReceiveArgs a) {
-  receive_body<C, W, SCORED, false, CBF, BBF, false, false, false, false,
-               false, false, false, true, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, true, true))
+receive_kernel_attacks_delays(const ReceiveArgs a,
+                              const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, true, true, CBF, BBF, false, false, false,
+                true>(a, plan);
 }
 
 template <int C, int W, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_attacks_delays_knobs(const ReceiveArgs a) {
-  receive_body<C, W, true, true, CBF, BBF, false, false, false, false,
-               false, false, false, true, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, true, true))
+receive_kernel_attacks_delays_knobs(const ReceiveArgs a,
+                                    const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, true, true, CBF, BBF, false, false, true,
+                true>(a, plan);
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_full_delays_knobs(const ReceiveArgs a) {
-  receive_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true, SCORED,
-               false, false, false, true, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(1, SCORED, false))
+receive_kernel_full_delays(const ReceiveArgs a,
+                           const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 1, SCORED, false, CBF, BBF, false, false, false,
+                true>(a, plan);
+}
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(1, SCORED, false))
+receive_kernel_full_delays_knobs(const ReceiveArgs a,
+                                 const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 1, SCORED, false, CBF, BBF, false, false, true,
+                true>(a, plan);
 }
 
 // this library's launchers for the dispatch of receive_body.cuh, without
@@ -88,26 +93,26 @@ template <bool KNB>
 struct DelayKernels {
   template <int C, int W, int FAMILY, bool SCORED, bool ATK, bool CBF,
             bool BBF, bool FAULTS>
-  static void launch(const ReceiveArgs& a, unsigned blocks, cudaStream_t s) {
-    constexpr int T = RECEIVE_THREADS;
+  static int launch(const ReceiveArgs& a, cudaStream_t s) {
     if constexpr (FAMILY == 2 || FAULTS) {
-      return;
-    } else if constexpr (FAMILY == 1 && KNB) {
-      receive_kernel_full_delays_knobs<C, W, SCORED, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
-    } else if constexpr (FAMILY == 1) {
-      receive_kernel_full_delays<C, W, SCORED, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
-    } else if constexpr (ATK && KNB) {
-      receive_kernel_attacks_delays_knobs<C, W, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
-    } else if constexpr (ATK) {
-      receive_kernel_attacks_delays<C, W, CBF, BBF><<<blocks, T, 0, s>>>(a);
-    } else if constexpr (KNB) {
-      receive_kernel_delays_knobs<C, W, SCORED, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
+      return (int)cudaErrorInvalidValue;
     } else {
-      receive_kernel_delays<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+      ReceiveKernel k;
+      if constexpr (FAMILY == 1 && KNB) {
+        k = receive_kernel_full_delays_knobs<C, W, SCORED, CBF, BBF>;
+      } else if constexpr (FAMILY == 1) {
+        k = receive_kernel_full_delays<C, W, SCORED, CBF, BBF>;
+      } else if constexpr (ATK && KNB) {
+        k = receive_kernel_attacks_delays_knobs<C, W, CBF, BBF>;
+      } else if constexpr (ATK) {
+        k = receive_kernel_attacks_delays<C, W, CBF, BBF>;
+      } else if constexpr (KNB) {
+        k = receive_kernel_delays_knobs<C, W, SCORED, CBF, BBF>;
+      } else {
+        k = receive_kernel_delays<C, W, SCORED, CBF, BBF>;
+      }
+      return run_tiles<C, W, FAMILY, SCORED, ATK, CBF, BBF, FAULTS, false,
+                       true>(k, a, s);
     }
   }
 };

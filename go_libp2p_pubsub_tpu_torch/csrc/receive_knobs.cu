@@ -22,105 +22,103 @@
 
 namespace {
 
-// receive.cu's PAIRED_BLOCKS
-constexpr int PAIRED_BLOCKS = 4;
-
-// the variants of receive.cu with KNB on, each with its twin's launch
-// bound (TEL off: receive_tel_knobs.cu holds those with telemetry) but
-// the flagship options', held to the blocks a multiprocessor their twins
-// reach unbidden: scored four of 256 threads (left free, the knob reads
-// take them to 66 registers, three blocks, and 0.640 ms against the
-// twin's 0.522 on a 1M-peer tick), unscored eight (a bound of four let
-// them take 39 registers, six blocks, and 0.136 ms against 0.107; H100,
-// 700 W; PERF.md)
-
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, SCORED ? 4 : 8)
-receive_kernel_knobs(const ReceiveArgs a) {
-  receive_body<C, W, SCORED, false, CBF, BBF, false, false, false, false,
-               false, false, false, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, SCORED, false))
+receive_kernel_knobs(const ReceiveArgs a,
+                     const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, SCORED, false, CBF, BBF, false, false, true,
+                false>(a, plan);
 }
 
 template <int C, int W, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_attacks_knobs(const ReceiveArgs a) {
-  receive_body<C, W, true, true, CBF, BBF, false, false, false, false,
-               false, false, false, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, true, true))
+receive_kernel_attacks_knobs(const ReceiveArgs a,
+                             const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, true, true, CBF, BBF, false, false, true,
+                false>(a, plan);
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_full_knobs(const ReceiveArgs a) {
-  receive_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true, SCORED,
-               false, false, false, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(1, SCORED, false))
+receive_kernel_full_knobs(const ReceiveArgs a,
+                          const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 1, SCORED, false, CBF, BBF, false, false, true,
+                false>(a, plan);
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, PAIRED_BLOCKS)
-receive_kernel_paired_knobs(const ReceiveArgs a) {
-  receive_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true, SCORED,
-               true, false, false, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(2, SCORED, false))
+receive_kernel_paired_knobs(const ReceiveArgs a,
+                            const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 2, SCORED, false, CBF, BBF, false, false, true,
+                false>(a, plan);
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, SCORED ? 4 : 8)
-receive_kernel_faults_knobs(const ReceiveArgs a) {
-  receive_body<C, W, SCORED, false, CBF, BBF, false, false, false, false,
-               false, true, false, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, SCORED, false))
+receive_kernel_faults_knobs(const ReceiveArgs a,
+                            const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, SCORED, false, CBF, BBF, true, false, true,
+                false>(a, plan);
 }
 
 template <int C, int W, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_attacks_faults_knobs(const ReceiveArgs a) {
-  receive_body<C, W, true, true, CBF, BBF, false, false, false, false,
-               false, true, false, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, true, true))
+receive_kernel_attacks_faults_knobs(const ReceiveArgs a,
+                                    const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, true, true, CBF, BBF, true, false, true,
+                false>(a, plan);
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_full_faults_knobs(const ReceiveArgs a) {
-  receive_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true, SCORED,
-               false, true, false, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(1, SCORED, false))
+receive_kernel_full_faults_knobs(const ReceiveArgs a,
+                                 const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 1, SCORED, false, CBF, BBF, true, false, true,
+                false>(a, plan);
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, PAIRED_BLOCKS)
-receive_kernel_paired_faults_knobs(const ReceiveArgs a) {
-  receive_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true, SCORED,
-               true, true, false, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(2, SCORED, false))
+receive_kernel_paired_faults_knobs(const ReceiveArgs a,
+                                   const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 2, SCORED, false, CBF, BBF, true, false, true,
+                false>(a, plan);
 }
 
 // this library's launcher for the dispatch of receive_body.cuh
 struct KnobKernels {
   template <int C, int W, int FAMILY, bool SCORED, bool ATK, bool CBF,
             bool BBF, bool FAULTS>
-  static void launch(const ReceiveArgs& a, unsigned blocks, cudaStream_t s) {
-    constexpr int T = RECEIVE_THREADS;
+  static int launch(const ReceiveArgs& a, cudaStream_t s) {
+    ReceiveKernel k;
     if constexpr (FAMILY == 2 && FAULTS) {
-      receive_kernel_paired_faults_knobs<C, W, SCORED, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_paired_faults_knobs<C, W, SCORED, CBF, BBF>;
     } else if constexpr (FAMILY == 2) {
-      receive_kernel_paired_knobs<C, W, SCORED, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_paired_knobs<C, W, SCORED, CBF, BBF>;
     } else if constexpr (FAMILY == 1 && FAULTS) {
-      receive_kernel_full_faults_knobs<C, W, SCORED, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_full_faults_knobs<C, W, SCORED, CBF, BBF>;
     } else if constexpr (FAMILY == 1) {
-      receive_kernel_full_knobs<C, W, SCORED, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_full_knobs<C, W, SCORED, CBF, BBF>;
     } else if constexpr (ATK && FAULTS) {
-      receive_kernel_attacks_faults_knobs<C, W, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_attacks_faults_knobs<C, W, CBF, BBF>;
     } else if constexpr (ATK) {
-      receive_kernel_attacks_knobs<C, W, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_attacks_knobs<C, W, CBF, BBF>;
     } else if constexpr (FAULTS) {
-      receive_kernel_faults_knobs<C, W, SCORED, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_faults_knobs<C, W, SCORED, CBF, BBF>;
     } else {
-      receive_kernel_knobs<C, W, SCORED, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_knobs<C, W, SCORED, CBF, BBF>;
     }
+    return run_tiles<C, W, FAMILY, SCORED, ATK, CBF, BBF, FAULTS, false,
+                     false>(k, a, s);
   }
 };
 

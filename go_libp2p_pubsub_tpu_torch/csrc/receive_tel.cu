@@ -14,11 +14,12 @@
 // partials.  Here blocks run in parallel and in no order: each thread
 // counts its peer's edges in registers through stage 1 (the body), leaves
 // its eight rows and its delivered acquisitions in shared memory before
-// stage 2, and after the body each warp of the block sums one row over
-// the block's 256 peers (the L latency-bucket rows popcount the delivered
+// stage 2, and after the body each warp of the block sums rows over the
+// tile's peers (the L latency-bucket rows popcount the delivered
 // acquisitions against the tick's bucket masks here, once, so no L
-// accumulators stay live through the edge loop) and adds it into the
-// tally with one i32 atomicAdd per block and row.  Integer sums are
+// accumulators stay live through the edge loop) into the block's rows in
+// shared memory; after its last tile the block adds each row into the
+// tally with one i32 atomicAdd (receive_tiles).  Integer sums are
 // order-free, so the tally is exact and the same on every run.  The port
 // runs unpadded, so there are no pad lanes to mask (the reference's
 // :1004-1013): a thread past the last peer leaves zeros.  i32 as in the
@@ -32,89 +33,103 @@
 
 namespace {
 
-// the paired variant's blocks a multiprocessor (receive.cu PAIRED_BLOCKS)
-constexpr int PAIRED_TEL_BLOCKS = 4;
-
-// the variants of receive.cu, each with its twin's launch bound
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256)
-receive_kernel_tel(const ReceiveArgs a) {
-  receive_tel_body<C, W, SCORED, false, CBF, BBF, false, false, false,
-                   false, false, false>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, SCORED, false))
+receive_kernel_tel(const ReceiveArgs a,
+                   const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, SCORED, false, CBF, BBF, false, true, false,
+                false>(a, plan);
 }
 
 template <int C, int W, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_attacks_tel(const ReceiveArgs a) {
-  receive_tel_body<C, W, true, true, CBF, BBF, false, false, false, false,
-                   false, false>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, true, true))
+receive_kernel_attacks_tel(const ReceiveArgs a,
+                           const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, true, true, CBF, BBF, false, true, false,
+                false>(a, plan);
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_full_tel(const ReceiveArgs a) {
-  receive_tel_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true,
-                   SCORED, false, false>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(1, SCORED, false))
+receive_kernel_full_tel(const ReceiveArgs a,
+                        const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 1, SCORED, false, CBF, BBF, false, true, false,
+                false>(a, plan);
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, PAIRED_TEL_BLOCKS)
-receive_kernel_paired_tel(const ReceiveArgs a) {
-  receive_tel_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true,
-                   SCORED, true, false>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(2, SCORED, false))
+receive_kernel_paired_tel(const ReceiveArgs a,
+                          const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 2, SCORED, false, CBF, BBF, false, true, false,
+                false>(a, plan);
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256)
-receive_kernel_faults_tel(const ReceiveArgs a) {
-  receive_tel_body<C, W, SCORED, false, CBF, BBF, false, false, false,
-                   false, false, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, SCORED, false))
+receive_kernel_faults_tel(const ReceiveArgs a,
+                          const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, SCORED, false, CBF, BBF, true, true, false,
+                false>(a, plan);
 }
 
 template <int C, int W, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_attacks_faults_tel(const ReceiveArgs a) {
-  receive_tel_body<C, W, true, true, CBF, BBF, false, false, false, false,
-                   false, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, true, true))
+receive_kernel_attacks_faults_tel(const ReceiveArgs a,
+                                  const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, true, true, CBF, BBF, true, true, false,
+                false>(a, plan);
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_full_faults_tel(const ReceiveArgs a) {
-  receive_tel_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true,
-                   SCORED, false, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(1, SCORED, false))
+receive_kernel_full_faults_tel(const ReceiveArgs a,
+                               const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 1, SCORED, false, CBF, BBF, true, true, false,
+                false>(a, plan);
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, PAIRED_TEL_BLOCKS)
-receive_kernel_paired_faults_tel(const ReceiveArgs a) {
-  receive_tel_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true,
-                   SCORED, true, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(2, SCORED, false))
+receive_kernel_paired_faults_tel(const ReceiveArgs a,
+                                 const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 2, SCORED, false, CBF, BBF, true, true, false,
+                false>(a, plan);
 }
 
 // this library's launcher for the dispatch of receive_body.cuh
 struct TelKernels {
   template <int C, int W, int FAMILY, bool SCORED, bool ATK, bool CBF,
             bool BBF, bool FAULTS>
-  static void launch(const ReceiveArgs& a, unsigned blocks, cudaStream_t s) {
-    constexpr int T = RECEIVE_THREADS;
+  static int launch(const ReceiveArgs& a, cudaStream_t s) {
+    ReceiveKernel k;
     if constexpr (FAMILY == 2 && FAULTS) {
-      receive_kernel_paired_faults_tel<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_paired_faults_tel<C, W, SCORED, CBF, BBF>;
     } else if constexpr (FAMILY == 2) {
-      receive_kernel_paired_tel<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_paired_tel<C, W, SCORED, CBF, BBF>;
     } else if constexpr (FAMILY == 1 && FAULTS) {
-      receive_kernel_full_faults_tel<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_full_faults_tel<C, W, SCORED, CBF, BBF>;
     } else if constexpr (FAMILY == 1) {
-      receive_kernel_full_tel<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_full_tel<C, W, SCORED, CBF, BBF>;
     } else if constexpr (ATK && FAULTS) {
-      receive_kernel_attacks_faults_tel<C, W, CBF, BBF><<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_attacks_faults_tel<C, W, CBF, BBF>;
     } else if constexpr (ATK) {
-      receive_kernel_attacks_tel<C, W, CBF, BBF><<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_attacks_tel<C, W, CBF, BBF>;
     } else if constexpr (FAULTS) {
-      receive_kernel_faults_tel<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_faults_tel<C, W, SCORED, CBF, BBF>;
     } else {
-      receive_kernel_tel<C, W, SCORED, CBF, BBF><<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_tel<C, W, SCORED, CBF, BBF>;
     }
+    return run_tiles<C, W, FAMILY, SCORED, ATK, CBF, BBF, FAULTS, true,
+                     false>(k, a, s);
   }
 };
 

@@ -11,98 +11,103 @@
 
 namespace {
 
-// the paired variant's blocks a multiprocessor (receive.cu PAIRED_BLOCKS)
-constexpr int PAIRED_TEL_BLOCKS = 4;
-
-// the variants of receive_tel.cu with KNB on, each with its twin's
-// launch bound
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256)
-receive_kernel_tel_knobs(const ReceiveArgs a) {
-  receive_tel_body<C, W, SCORED, false, CBF, BBF, false, false, false,
-                   false, false, false, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, SCORED, false))
+receive_kernel_tel_knobs(const ReceiveArgs a,
+                         const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, SCORED, false, CBF, BBF, false, true, true,
+                false>(a, plan);
 }
 
 template <int C, int W, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_attacks_tel_knobs(const ReceiveArgs a) {
-  receive_tel_body<C, W, true, true, CBF, BBF, false, false, false,
-                   false, false, false, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, true, true))
+receive_kernel_attacks_tel_knobs(const ReceiveArgs a,
+                                 const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, true, true, CBF, BBF, false, true, true,
+                false>(a, plan);
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_full_tel_knobs(const ReceiveArgs a) {
-  receive_tel_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true,
-                   SCORED, false, false, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(1, SCORED, false))
+receive_kernel_full_tel_knobs(const ReceiveArgs a,
+                              const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 1, SCORED, false, CBF, BBF, false, true, true,
+                false>(a, plan);
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, PAIRED_TEL_BLOCKS)
-receive_kernel_paired_tel_knobs(const ReceiveArgs a) {
-  receive_tel_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true,
-                   SCORED, true, false, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(2, SCORED, false))
+receive_kernel_paired_tel_knobs(const ReceiveArgs a,
+                                const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 2, SCORED, false, CBF, BBF, false, true, true,
+                false>(a, plan);
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256)
-receive_kernel_faults_tel_knobs(const ReceiveArgs a) {
-  receive_tel_body<C, W, SCORED, false, CBF, BBF, false, false, false,
-                   false, false, true, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, SCORED, false))
+receive_kernel_faults_tel_knobs(const ReceiveArgs a,
+                                const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, SCORED, false, CBF, BBF, true, true, true,
+                false>(a, plan);
 }
 
 template <int C, int W, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_attacks_faults_tel_knobs(const ReceiveArgs a) {
-  receive_tel_body<C, W, true, true, CBF, BBF, false, false, false,
-                   false, false, true, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, true, true))
+receive_kernel_attacks_faults_tel_knobs(
+    const ReceiveArgs a, const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, true, true, CBF, BBF, true, true, true,
+                false>(a, plan);
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, 4)
-receive_kernel_full_faults_tel_knobs(const ReceiveArgs a) {
-  receive_tel_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true,
-                   SCORED, false, true, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(1, SCORED, false))
+receive_kernel_full_faults_tel_knobs(const ReceiveArgs a,
+                                     const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 1, SCORED, false, CBF, BBF, true, true, true,
+                false>(a, plan);
 }
 
 template <int C, int W, bool SCORED, bool CBF, bool BBF>
-__global__ void __launch_bounds__(256, PAIRED_TEL_BLOCKS)
-receive_kernel_paired_faults_tel_knobs(const ReceiveArgs a) {
-  receive_tel_body<C, W, SCORED, SCORED, CBF, BBF, SCORED, true, true,
-                   SCORED, true, true, true>(a);
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(2, SCORED, false))
+receive_kernel_paired_faults_tel_knobs(const ReceiveArgs a,
+                                       const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 2, SCORED, false, CBF, BBF, true, true, true,
+                false>(a, plan);
 }
 
 // this library's launcher for the dispatch of receive_body.cuh
 struct TelKnobKernels {
   template <int C, int W, int FAMILY, bool SCORED, bool ATK, bool CBF,
             bool BBF, bool FAULTS>
-  static void launch(const ReceiveArgs& a, unsigned blocks, cudaStream_t s) {
-    constexpr int T = RECEIVE_THREADS;
+  static int launch(const ReceiveArgs& a, cudaStream_t s) {
+    ReceiveKernel k;
     if constexpr (FAMILY == 2 && FAULTS) {
-      receive_kernel_paired_faults_tel_knobs<C, W, SCORED, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_paired_faults_tel_knobs<C, W, SCORED, CBF, BBF>;
     } else if constexpr (FAMILY == 2) {
-      receive_kernel_paired_tel_knobs<C, W, SCORED, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_paired_tel_knobs<C, W, SCORED, CBF, BBF>;
     } else if constexpr (FAMILY == 1 && FAULTS) {
-      receive_kernel_full_faults_tel_knobs<C, W, SCORED, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_full_faults_tel_knobs<C, W, SCORED, CBF, BBF>;
     } else if constexpr (FAMILY == 1) {
-      receive_kernel_full_tel_knobs<C, W, SCORED, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_full_tel_knobs<C, W, SCORED, CBF, BBF>;
     } else if constexpr (ATK && FAULTS) {
-      receive_kernel_attacks_faults_tel_knobs<C, W, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_attacks_faults_tel_knobs<C, W, CBF, BBF>;
     } else if constexpr (ATK) {
-      receive_kernel_attacks_tel_knobs<C, W, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_attacks_tel_knobs<C, W, CBF, BBF>;
     } else if constexpr (FAULTS) {
-      receive_kernel_faults_tel_knobs<C, W, SCORED, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_faults_tel_knobs<C, W, SCORED, CBF, BBF>;
     } else {
-      receive_kernel_tel_knobs<C, W, SCORED, CBF, BBF>
-          <<<blocks, T, 0, s>>>(a);
+      k = receive_kernel_tel_knobs<C, W, SCORED, CBF, BBF>;
     }
+    return run_tiles<C, W, FAMILY, SCORED, ATK, CBF, BBF, FAULTS, true,
+                     false>(k, a, s);
   }
 };
 

@@ -1,4 +1,4 @@
-// Packed top-k selection, one thread per peer (Hopper, sm_90a).
+// Packed top-k selection, four peers a thread (Hopper, sm_90a).
 //
 // Replaces: go_libp2p_pubsub_tpu/ops/pallas/select.py, _select_kernel
 // (built by select_k_bits_pallas).  Bit-identical to
@@ -12,13 +12,22 @@
 //
 // Bound on this card: bytes.  It moves 12 bytes per peer (elig and k
 // in, the packed word out), 12 MB per call at 1M peers, about 3.6 us at
-// 3.35 TB/s; the operations its data needs (C compares per eligible
-// candidate plus its lane hash) take less.  Design: the C priorities
-// stay in registers (C is a template parameter), each thread reads its
-// two words and writes one, neighbouring threads touch neighbouring
-// addresses.  This first version is bound by instruction issue instead:
-// some lane of every warp has each candidate eligible, so every warp
-// runs all C * C compares of the unrolled loop (PERF.md has its time).
+// 3.35 TB/s; the operations its data needs (one lane hash per candidate
+// and a sorting network over the C keys, where a draw is needed) take
+// less.  Design: each thread takes four neighbouring peers, with one
+// 16-byte load of elig, one of k and one 16-byte store (a scalar path
+// for the ragged last quad), so a warp moves 512 contiguous bytes a row.
+// Every pointer must be 16-byte aligned: the entry point refuses others,
+// and the wrapper (ops/kernels/select.py) copies an operand that starts
+// off a 16-byte boundary, as the receive wrapper does for its staged
+// operands.  The answers that need no draw
+// come first (0 where k <= 0 or no bit is eligible, every eligible bit
+// where k covers them); then the thread draws only for its peers that
+// need it, one at a time, so a warp runs as many draws as its busiest
+// thread needs rather than four.  A draw (lane.cuh select_k) sorts
+// integer keys (the priority's 24 bits, then the lane index for ties) by
+// a bitonic network, 80 compare-exchanges at C = 16, where the first
+// version ran all C * C float compares of every lane in every warp.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -26,14 +35,67 @@
 
 namespace {
 
+constexpr int SELECT_THREADS = 128;
+constexpr int PEERS_PER_THREAD = 4;
+
 template <int CMAX>
-__global__ void select_k_bits_kernel(const uint32_t* __restrict__ elig,
-                                     const int32_t* __restrict__ k,
-                                     uint32_t* __restrict__ out, long long n,
-                                     int c, uint32_t seed, uint32_t stride) {
-  long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  out[p] = gossip::select_k<CMAX>(elig[p], c, k[p], seed, p, stride);
+__global__ void __launch_bounds__(SELECT_THREADS)
+select_k_bits_kernel(const uint32_t* __restrict__ elig,
+                     const int32_t* __restrict__ k,
+                     uint32_t* __restrict__ out, long long n, int c,
+                     uint32_t seed, uint32_t stride) {
+  const long long p0 =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * PEERS_PER_THREAD;
+  if (p0 >= n) return;
+  if (p0 + PEERS_PER_THREAD <= n) {
+    const uint4 e = *reinterpret_cast<const uint4*>(elig + p0);
+    const int4 kk = *reinterpret_cast<const int4*>(k + p0);
+    uint32_t ev[4] = {e.x, e.y, e.z, e.w}, ov[4];
+    int kv[4] = {kk.x, kk.y, kk.z, kk.w};
+    // the early outs first; then only the peers that draw, one at a time
+    uint32_t draw = 0u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t el = c >= 32 ? ev[i] : ev[i] & ((1u << c) - 1u);
+      ov[i] = (kv[i] <= 0 || el == 0u) ? 0u : el;
+      if (kv[i] > 0 && kv[i] < __popc(el)) draw |= 1u << i;
+    }
+    while (draw != 0u) {
+      const int i = __ffs(draw) - 1;
+      draw &= draw - 1u;
+      uint32_t el = 0u, sel = 0u;
+      int ki = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (q == i) { el = ev[q]; ki = kv[q]; }
+      }
+      sel = gossip::select_k<CMAX>(el, c, ki, seed, p0 + i, stride);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (q == i) ov[q] = sel;
+      }
+    }
+    *reinterpret_cast<uint4*>(out + p0) = make_uint4(ov[0], ov[1], ov[2],
+                                                     ov[3]);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < PEERS_PER_THREAD; ++i) {
+    const long long p = p0 + i;
+    if (p < n) out[p] = gossip::select_k<CMAX>(elig[p], c, k[p], seed, p,
+                                                stride);
+  }
+}
+
+template <int CMAX>
+void launch_select(const void* elig, const void* k, void* out, long long n,
+                   int c, uint32_t seed, uint32_t stride, cudaStream_t s) {
+  const long long threads = (n + PEERS_PER_THREAD - 1) / PEERS_PER_THREAD;
+  const unsigned blocks =
+      (unsigned)((threads + SELECT_THREADS - 1) / SELECT_THREADS);
+  select_k_bits_kernel<CMAX><<<blocks, SELECT_THREADS, 0, s>>>(
+      (const uint32_t*)elig, (const int32_t*)k, (uint32_t*)out, n, c, seed,
+      stride);
 }
 
 }  // namespace
@@ -42,23 +104,36 @@ extern "C" int gossip_select_k_bits(const void* elig, const void* k,
                                     void* out, long long n, int c,
                                     unsigned int seed, unsigned int stride,
                                     void* stream) {
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
   cudaStream_t s = (cudaStream_t)stream;
+  if (((reinterpret_cast<uintptr_t>(elig) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(out)) & 15u) != 0u) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (n > 0) {
     if (c <= 8) {
-      select_k_bits_kernel<8><<<blocks, threads, 0, s>>>(
-          (const uint32_t*)elig, (const int32_t*)k, (uint32_t*)out, n, c,
-          seed, stride);
+      launch_select<8>(elig, k, out, n, c, seed, stride, s);
     } else if (c <= 16) {
-      select_k_bits_kernel<16><<<blocks, threads, 0, s>>>(
-          (const uint32_t*)elig, (const int32_t*)k, (uint32_t*)out, n, c,
-          seed, stride);
+      launch_select<16>(elig, k, out, n, c, seed, stride, s);
     } else {
-      select_k_bits_kernel<32><<<blocks, threads, 0, s>>>(
-          (const uint32_t*)elig, (const int32_t*)k, (uint32_t*)out, n, c,
-          seed, stride);
+      launch_select<32>(elig, k, out, n, c, seed, stride, s);
     }
   }
+  return (int)cudaGetLastError();
+}
+
+// The launch of a select call at n peers and c candidates: out[0] peers a
+// block, out[1] blocks a multiprocessor, out[2] dynamic shared memory
+// (none), out[3] the grid.
+extern "C" int gossip_select_launch_config(long long n, int c, int* out) {
+  const void* kernel =
+      c <= 8 ? (const void*)select_k_bits_kernel<8>
+             : c <= 16 ? (const void*)select_k_bits_kernel<16>
+                       : (const void*)select_k_bits_kernel<32>;
+  const long long threads = (n + PEERS_PER_THREAD - 1) / PEERS_PER_THREAD;
+  out[0] = SELECT_THREADS * PEERS_PER_THREAD;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel,
+                                                SELECT_THREADS, 0);
+  out[2] = 0;
+  out[3] = (int)((threads + SELECT_THREADS - 1) / SELECT_THREADS);
   return (int)cudaGetLastError();
 }

@@ -36,6 +36,30 @@ lacks and the lines it adds: a parent's source first, the change's after
 it.  ``--ptxas --parent DIR`` (no sources) compares every source of this
 tree's ``csrc`` that DIR also holds (a parent's ``csrc``) with the
 parent's, all built concurrently.
+
+    python -m go_libp2p_pubsub_tpu_torch.kernel_ab --parent DIR [--reps 3]
+        [--only LABEL,...]
+
+times every kernel of the parent's ``csrc`` (DIR, with its headers: e.g.
+``git archive HEAD~1 go_libp2p_pubsub_tpu_torch/csrc`` unpacked under the
+git-ignored ``build/``) against this tree's, in turns, on one card: each
+source that both hold and the wrapper loads (the five receive libraries,
+``select.cu``, ``fused.cu``) is built in both versions, concurrently;
+each receive family on its real 1M-peer tick (the flagship, exact-k alone
+on the flagship's tick, adversarial, everything-on, paired everything-on,
+churn tick 130, the flagship stepped with telemetry, the knob sweep's
+``gf40`` point, the pipelined ``base4j2`` point, the resident unscored
+configuration), select on ``chip_smoke.py`` phase 3's seeded operands and
+on every call of a flagship tick, and the fused window (clean, exact-k,
+faulted with cold restart, telemetry) at the resident shapes; each
+version checked bit-identical to the plain version first.  Prints one
+JSON line with the card and every time by version.  ``--only`` keeps the
+named receive families (``flagship``, ``flagship_exact_k``,
+``adversarial``, ``everything``, ``everything_paired``, ``churn``,
+``telemetry``, ``gf40_knobs``, ``base4j2_delays``,
+``resident_unscored``) and ``select`` and ``fused`` (all their calls),
+and builds no sim for the others, so that a comparison can be split
+across runs of a bounded length.
 """
 
 from __future__ import annotations
@@ -48,6 +72,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from . import adversarial, churn, everything, flagship, knob_sweep
@@ -64,7 +89,13 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--parent", type=Path, default=None)
+    ap.add_argument("--only", default=None,
+                    help="comma-separated labels (--parent only)")
     args = ap.parse_args()
+    only = None if args.only is None else set(args.only.split(","))
+    if only is not None and only - set(LABEL_LIBRARY):
+        raise SystemExit(
+            f"unknown labels: {sorted(only - set(LABEL_LIBRARY))}")
     if not torch.cuda.is_available():
         raise SystemExit("the comparison needs an NVIDIA GPU")
     sys.path.insert(0, str(ROOT))
@@ -72,8 +103,12 @@ def main() -> None:
 
     out_dir = _build.BUILD_DIR / "kernel_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    if args.parent is not None:
+    if args.parent is not None and args.ptxas:
         ptxas_against_parent(cs, args.parent, out_dir)
+        return
+    if args.parent is not None:
+        print(json.dumps(against_parent(cs, args.parent, out_dir,
+                                        args.reps, only)))
         return
     # one nvcc per source, all at once
     procs = {src: (out_dir / f"libreceive{i}.so", subprocess.Popen(
@@ -197,6 +232,274 @@ def ptxas_against_parent(cs, parent: Path, out_dir: Path) -> None:
             print(f"  missing: {line}")
         for line in sorted(new - old):
             print(f"  added: {line}")
+
+
+#: the library each ``--only`` label times
+LABEL_LIBRARY = {
+    "flagship": "receive", "flagship_exact_k": "receive",
+    "adversarial": "receive", "everything": "receive",
+    "everything_paired": "receive", "churn": "receive",
+    "resident_unscored": "receive", "telemetry": "receive_tel",
+    "gf40_knobs": "receive_knobs", "base4j2_delays": "receive_delays",
+    "select": "select", "fused": "fused"}
+
+
+def build_versions(cs, parent: Path, out_dir: Path, only=None) -> dict:
+    """Build each wrapper-loaded source that ``parent`` also holds (and
+    that a label in ``only`` times, where given), the parent's and this
+    tree's (the tree's reused where ``_build`` has it already),
+    concurrently; print their ptxas lines.  Returns {source name:
+    {"parent": CDLL, "tree": CDLL}}."""
+    wanted = (None if only is None else
+              {LABEL_LIBRARY[label] for label in only})
+    names = [name for name in ("select", "fused", *krecv.SOURCES)
+             if (parent / f"{name}.cu").exists()
+             and (wanted is None or name in wanted)]
+    procs = {}
+    libs = {name: {} for name in names}
+    for name in names:
+        for tag, src in (("parent", parent), ("tree", _build.CSRC)):
+            if tag == "tree" and _build.lib_path(name).exists():
+                libs[name][tag] = ctypes.CDLL(str(_build.lib_path(name)))
+                continue
+            lib = out_dir / f"lib{name}_{tag}.so"
+            procs[(name, tag)] = (lib, subprocess.Popen(
+                [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+                 str(src / f"{name}.cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+    for (name, tag), (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc {tag} {name}.cu failed:\n{log}")
+        for line in cs.ptxas_summary(log):
+            print(f"ptxas[{tag} {name}]: {line}")
+        libs[name][tag] = ctypes.CDLL(str(lib))
+    return {name: dict(sorted(v.items())) for name, v in libs.items()}
+
+
+def in_turns(libs: dict, name: str, fn, reps: int, timer) -> dict:
+    """Time ``fn`` with each version of library ``name`` loaded, in turns
+    (parent, tree, tree, parent, ...)."""
+    out = {tag: [] for tag in libs[name]}
+    for rep in range(reps):
+        order = list(libs[name]) if rep % 2 == 0 else list(libs[name])[::-1]
+        for tag in order:
+            _build._LIBS[name] = libs[name][tag]
+            out[tag].append(timer(fn))
+    _build._LIBS.pop(name)
+    return out
+
+
+def each_version(libs: dict, name: str, fn) -> None:
+    """Run ``fn`` once with each version of library ``name`` loaded."""
+    for lib in libs[name].values():
+        _build._LIBS[name] = lib
+        fn()
+    _build._LIBS.pop(name)
+
+
+def receive_ticks(cs, dev, only=None):
+    """(label, consts, operands) of each receive family's real tick (of
+    the labels in ``only``, where given)."""
+    from .models import telemetry as tl
+
+    def kept(*labels):
+        return only is None or bool(set(labels) & only)
+
+    for label, build, run, kw in (
+            ("flagship", flagship.build, 40, {}),
+            ("adversarial", adversarial.build, 40, {}),
+            ("everything", everything.build, 40, {}),
+            ("everything_paired",
+             lambda dev, horizon: everything.build(dev, horizon=horizon,
+                                                   paired=True), 40, {}),
+            ("churn", lambda dev, horizon: churn.build(dev),
+             churn.heal_tick() - 19, {}),
+            ("telemetry", flagship.build, 40,
+             dict(telemetry=tl.TelemetryConfig(latency_hist=True,
+                                               latency_buckets=16)))):
+        twins = ((label, "flagship_exact_k") if label == "flagship"
+                 else (label,))
+        if not kept(*twins):
+            continue
+        cfg, sc, params, state = build(dev, horizon=400)[:4]
+        tel = kw.get("telemetry")
+        k = krecv.receive_consts(
+            cfg, sc, px=state.active is not None,
+            same_ip=params.cand_same_ip is not None,
+            faults=params.faults is not None, telemetry=tel is not None,
+            tel_lat_buckets=16 if tel is not None else 0)
+        step = gs.make_gossip_step(cfg, sc, device=dev, **kw)
+        ops = cs.capture_receive(
+            lambda: gs.gossip_run(params, state, run, step, device=dev),
+            krecv)
+        if kept(label):
+            yield label, k, ops
+        if label == "flagship" and kept("flagship_exact_k"):
+            yield ("flagship_exact_k", dataclasses.replace(k, exact_k=True),
+                   ops)
+        del params, state, step, ops
+    if kept("gf40_knobs"):
+        yield from _knob_tick(cs, dev)
+    if kept("base4j2_delays"):
+        yield from _delay_tick(cs, dev)
+    if kept("resident_unscored"):
+        yield from _unscored_tick(cs, dev)
+
+
+def _knob_tick(cs, dev):
+    """The knob sweep's ``gf40`` point: tick 40 of the armed flagship."""
+    cfg, sc, params, state = knob_sweep.arm(
+        flagship.build(dev, horizon=400),
+        knob_sweep.FLAGSHIP_POINTS["gf40"])[:4]
+    step = gs.make_gossip_step(cfg, sc, device=dev)
+    yield ("gf40_knobs", krecv.receive_consts(cfg, sc, knobs=True),
+           cs.capture_receive(
+               lambda: gs.gossip_run(params, state, 40, step, device=dev),
+               krecv))
+
+
+def _delay_tick(cs, dev):
+    """The pipelined ``base4j2`` point at 1M peers: tick 41's receive."""
+    from . import pipelined
+
+    cfg, sc, params, state = pipelined.arm(
+        pipelined.build(dev, pipelined.FULL_WIDTH),
+        pipelined.POINTS["base4j2"])
+    step = gs.make_gossip_step(cfg, sc, device=dev)
+    yield ("base4j2_delays",
+           krecv.receive_consts(cfg, sc, knobs=True, delays=True),
+           cs.capture_receive(
+               lambda: gs.gossip_run(params, state, 41, step, device=dev),
+               krecv))
+
+
+def _unscored_tick(cs, dev):
+    """The resident configuration per tick, unscored: tick 12's receive."""
+    from . import resident
+
+    cfg, params, state, *_ = resident.build(dev)
+    step = gs.make_gossip_step(cfg, None, device=dev)
+    yield ("resident_unscored", krecv.receive_consts(cfg, None),
+           cs.capture_receive(
+               lambda: gs.gossip_run(params, state, 12, step, device=dev),
+               krecv))
+
+
+def select_operands(cs, dev):
+    """(label, args) of the select calls timed: phase 3's seeded
+    operands, then every call of tick 41 of the flagship."""
+    from .ops import graph
+    from .ops.kernels import select as ksel
+
+    n, C = flagship.N_PEERS, flagship.N_CAND
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    hi = torch.randint(0, 1 << C, (n,), generator=g, device=dev)
+    lo = torch.randint(0, 1 << C, (n,), generator=g, device=dev)
+    kk = torch.randint(0, C + 3, (n,), generator=g, device=dev)
+    yield "seeded", ((hi & lo).to(torch.int32), kk.to(torch.int32), C,
+                     graph.lane_seed(7, 2, 0), n)
+    cfg, sc, params, state = flagship.build(dev, horizon=400)[:4]
+    step = gs.make_gossip_step(cfg, sc, device=dev)
+    state = gs.gossip_run(params, state, 40, step, device=dev)
+    calls = cs.capture_calls(lambda: step(params, state), ksel,
+                             "select_k_bits")
+    for i, (args, kwargs) in enumerate(calls):
+        yield f"flagship_tick41_call{i}", args
+
+
+def fused_windows(cs, dev):
+    """(label, consts, operands) of the fused windows timed, at the
+    resident shapes as chip_smoke.py checks them: clean from tick 12,
+    exact-k from tick 12, faulted with cold restart from tick 24, clean
+    with telemetry (L = 16) from tick 1."""
+    from . import resident
+    from .models import telemetry as tl
+    from .ops import graph
+    from .ops.kernels import fused as kfused
+
+    Tw = resident.WINDOW
+    sched = churn.schedule(resident.N_PEERS, np.random.default_rng(5), 0,
+                           cs.RES_WARMUP, cold_restart=True)
+    for label, kw, tick, tel in (
+            ("clean", {}, 12, False), ("exact_k", dict(exact_k=True), 12,
+                                       False),
+            ("faulted_cold", dict(fault_schedule=sched), 24, False),
+            ("telemetry", {}, 1, True)):
+        cfg, params, state, *_ = resident.build(dev, horizon=cs.RES_WARMUP,
+                                                **kw)
+        k = kfused.fused_consts(cfg, telemetry=tel,
+                                tel_lat_buckets=16 if tel else 0)
+        step = gs.make_gossip_step(cfg, None, device=dev)
+        st = gs.gossip_run(params, state, tick, step, device=dev)
+        tk = torch.arange(st.tick, st.tick + Tw, dtype=torch.int32,
+                          device=dev)
+        all_c = (1 << cfg.n_candidates) - 1
+        fops = dict(
+            tick0=st.tick, seeds=kfused.window_seeds(st.tick, Tw, st.salt),
+            due=graph.pack_bits(params.publish_tick[None, :] == tk[:, None]),
+            sub_all=torch.where(params.subscribed, all_c, 0).to(torch.int32),
+            cand_sub=params.cand_sub_bits, origin=params.origin_words,
+            have=st.have, recent=st.recent, mesh=st.mesh, fanout=st.fanout,
+            last_pub=st.last_pub, backoff=st.backoff, tgt=st.gates[0],
+            bog=st.gates[1])
+        if params.faults is not None:
+            fops.update(gs.window_fault_rows(cfg, params.faults, st.tick, Tw))
+        if tel:
+            fops.update(lat_masks=tl.latency_bucket_masks(
+                params.publish_tick, tk[:, None], 16, st.have.shape[0]),
+                dlv=params.deliver_words)
+        yield label, k, fops
+        del params, state, step, st, fops
+
+
+def against_parent(cs, parent: Path, out_dir: Path, reps: int,
+                   only=None) -> dict:
+    """Every kernel of the parent's csrc against this tree's, in turns,
+    or those of the labels in ``only`` (module docstring)."""
+    from .ops.kernels import fused as kfused
+    from .ops.kernels import select as ksel
+
+    dev = torch.device("cuda")
+    libs = build_versions(cs, parent, out_dir, only)
+    out = {"card": flagship.card(), "receive_ms": {}, "select_ms": {},
+           "fused_ms": {}}
+    for label, k, ops in (receive_ticks(cs, dev, only)
+                          if set(krecv.SOURCES) & set(libs) else ()):
+        name = krecv.library(k)
+        if name not in libs:
+            continue
+        want = krecv.receive_update_plain(k, **ops)
+        each_version(libs, name, lambda: cs.check_identical(
+            f"{label} receive", krecv.receive_update(k, **ops), want))
+        out["receive_ms"][label] = in_turns(
+            libs, name, lambda: krecv.receive_update(k, **ops), reps,
+            lambda fn: cs.device_ms(fn, 50))
+        print(f"receive {label}: {out['receive_ms'][label]}", flush=True)
+        del want, ops
+    if "select" in libs and (only is None or "select" in only):
+        for label, args in select_operands(cs, dev):
+            want = ksel.select_k_bits_plain(*args)
+            each_version(libs, "select", lambda: cs.check_identical(
+                f"select {label}", (ksel.select_k_bits(*args),), (want,)))
+            out["select_ms"][label] = in_turns(
+                libs, "select", lambda: ksel.select_k_bits(*args), reps,
+                lambda fn: cs.device_ms(fn, 200))
+            print(f"select {label}: {out['select_ms'][label]}", flush=True)
+    if "fused" in libs and (only is None or "fused" in only):
+        for label, k, fops in fused_windows(cs, dev):
+            want = kfused.fused_gossip_update_plain(k, **fops)
+            each_version(libs, "fused", lambda: cs.check_identical(
+                f"fused {label}", kfused.fused_gossip_update(k, **fops),
+                want))
+            # a cooperative launch: CUDA events over back-to-back launches
+            out["fused_ms"][label] = in_turns(
+                libs, "fused", lambda: kfused.fused_gossip_update(k, **fops),
+                reps, lambda fn: cs.eager_ms(fn, 20))
+            print(f"fused {label}: {out['fused_ms'][label]}", flush=True)
+            del want
+    return out
 
 
 def delayed_tick_ms(cs, dev, reps: int) -> dict:

@@ -1050,6 +1050,11 @@ def receive_update(k: ReceiveConsts, **ops):
     _check_operands(k, ops)
     if ops["sub_all"].device.type == "cpu":
         return receive_update_plain(k, **ops)
+    # the kernel stages these by bulk copies, which need 16-byte aligned
+    # operands: a view that starts off one is copied
+    ops = {name: (v.clone() if name in STAGED_OPERANDS and v is not None
+                  and v.data_ptr() % 16 else v)
+           for name, v in ops.items()}
     C = k.n_candidates
     W, n = ops["seen"].shape
     dev = ops["sub_all"].device
@@ -1171,6 +1176,14 @@ def receive_update(k: ReceiveConsts, **ops):
     return (acq, mesh, mesh_b, bo_out, bo_b, *gates.unbind(0), *rest)
 
 
+#: peers a tile of the receive kernels' persistent grid
+#: (``csrc/receive_body.cuh`` RECEIVE_TILE; a block has 128 threads)
+RECEIVE_TILE = 112
+#: the operands the receive kernels stage in shared memory by bulk copies
+#: (each must start on a 16-byte boundary)
+STAGED_OPERANDS = ("backoff", "tim", "fd", "inv", "bp", "iws", "backoff_b",
+                   "tim_b", "same_ip", "arr", "ctrl", "ctrl2", "static")
+
 #: the receive kernels' sources (``csrc/<name>.cu``), one library each:
 #: without and with the telemetry tally, each without and with knobs; the
 #: delay mode, without and with knobs
@@ -1183,6 +1196,17 @@ def library(k: ReceiveConsts) -> str:
     if k.delays:
         return "receive_delays"
     return SOURCES[int(k.telemetry) + 2 * int(k.knobs)]
+
+
+def launch_config(k: ReceiveConsts) -> dict:
+    """The last launch of ``k``'s library: its tile (peers), blocks a
+    multiprocessor, dynamic shared memory (bytes) and grid."""
+    out = (ctypes.c_int * 4)()
+    fn = _build.load(library(k)).gossip_receive_launch_config
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn(out)
+    return dict(zip(("tile", "blocks_per_sm", "smem_bytes", "grid"), out))
 
 
 def variant(k: ReceiveConsts) -> str:

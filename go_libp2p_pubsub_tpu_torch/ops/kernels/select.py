@@ -55,8 +55,11 @@ def select_k_bits(elig: torch.Tensor, k: torch.Tensor, c: int,
     _check(elig, k, c)
     if elig.device.type == "cpu":
         return select_k_bits_plain(elig, k, c, seed, stride)
-    elig = elig.contiguous()
-    k = k.contiguous()
+    # the kernel moves four peers a thread by 16-byte loads and stores:
+    # an operand that starts off a 16-byte boundary is copied (``out`` is
+    # a fresh allocation)
+    elig, k = (v.contiguous() for v in (elig, k))
+    elig, k = (v.clone() if v.data_ptr() % 16 else v for v in (elig, k))
     out = torch.empty_like(elig)
     lib = _build.load("select")
     fn = lib.gossip_select_k_bits
@@ -72,3 +75,15 @@ def select_k_bits(elig: torch.Tensor, k: torch.Tensor, c: int,
     _build.check(err, "select_k_bits")
     launches += 1
     return out
+
+
+def launch_config(n: int, c: int) -> dict:
+    """The kernel's launch at ``n`` peers and ``c`` candidates: peers a
+    block, blocks a multiprocessor, dynamic shared memory (bytes), grid."""
+    out = (ctypes.c_int * 4)()
+    fn = _build.load("select").gossip_select_launch_config
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
+    _build.check(fn(n, c, out), "select launch_config")
+    return dict(zip(("tile", "blocks_per_sm", "smem_bytes", "grid"), out))

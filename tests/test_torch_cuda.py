@@ -1260,3 +1260,208 @@ def test_invariants_whole_run_on_the_card_matches_the_cpu(cuda):
     assert len(runs["cpu"][0]) == 20
     assert runs["cpu"] == runs[str(cuda)]
     assert runs["cpu"][1]["bits"] == 0
+
+
+# -- the receive and select kernels at the edges of their tiles
+
+#: the receive kernel's tile (csrc/receive_body.cuh RECEIVE_THREADS)
+TILE = prc.RECEIVE_TILE
+#: peer counts at the tile's edges: one peer, a tile less one, one tile,
+#: one more, and three tiles and 37 (N % 8 = 5: no [C, N] row past the
+#: first starts 16-byte aligned; the last tile is ragged, and each edge's
+#: ctrl window wraps past N in the middle of some tile)
+EDGE_NS = (1, TILE - 1, TILE, TILE + 1, 3 * TILE + 37)
+SMALL = dict(d=3, d_lo=2, d_hi=6, d_score=2, d_out=1, d_lazy=2,
+             gossip_factor=0.25, backoff_ticks=8)
+#: family: (C, W, scored, score config, receive_consts options, with a
+#: static score term)
+EDGE_FAMILIES = {
+    "scored": (16, 1, True, {}, {}, True),
+    "scored_f32": (16, 2, True, dict(counter_dtype="float32"), {}, False),
+    "unscored": (8, 2, False, None, {}, False),
+    "attacks": (16, 1, True, dict(sybil_ihave_spam=True,
+                                  sybil_iwant_spam=True), {}, False),
+    "full": (16, 1, True, dict(sybil_ihave_spam=True, sybil_iwant_spam=True,
+                               flood_publish=True),
+             dict(px=True, same_ip=True, exact_k=True), False),
+    "paired": (16, 1, True, dict(topic_score_cap=25.0, flood_publish=True),
+               dict(px=True, same_ip=True, exact_k=True), False),
+    "paired_unscored": (8, 2, False, None, dict(px=True, exact_k=True),
+                        False),
+    "faulted": (16, 1, True, dict(sybil_iwant_spam=True),
+                dict(faults=True), False),
+    "paired_faulted": (16, 1, True, {}, dict(px=True, faults=True), False),
+    "telemetry": (16, 1, True, {}, dict(telemetry=True, tel_lat_buckets=5),
+                  False),
+    "full_telemetry": (16, 2, True, dict(sybil_iwant_spam=True,
+                                         flood_publish=True),
+                       dict(px=True, same_ip=True, faults=True,
+                            telemetry=True, tel_lat_buckets=3), False),
+    "knobs": (16, 1, True, dict(sybil_ihave_spam=True), dict(knobs=True),
+              False),
+    "delayed": (16, 1, True, dict(sybil_ihave_spam=True),
+                dict(delays=True), False),
+    "delayed_unscored": (8, 2, False, None, dict(delays=True, knobs=True),
+                         False),
+}
+
+
+def tile_edge_case(family: str, n: int, seed: int = 0):
+    """A family's receive consts at ``n`` peers (random offsets in [0, n))
+    and its seeded operands on the CPU, every option of the family live."""
+    c, w, scored, sc_kw, opts, static = EDGE_FAMILIES[family]
+    opts = dict(opts)
+    exact = opts.pop("exact_k", False)
+    paired = family.startswith("paired")
+    cfg = pgs.GossipSimConfig(
+        offsets=pgs.make_gossip_offsets(4, c, 4096, seed=3, paired=paired),
+        n_topics=4, paired_topics=paired, binomial_gossip_sampling=not exact,
+        **(SMALL if c == 8 else {}))
+    sc = pgs.ScoreSimConfig(**sc_kw) if scored else None
+    k = prc.receive_consts(cfg, sc, **opts)
+    rng = np.random.default_rng(seed)
+    k = dataclasses.replace(k, offsets=tuple(
+        int(o) for o in rng.integers(0, n, size=c)))
+    full = (1 << c) - 1
+
+    def sparse(shape, bits=32):
+        return _words(rng, shape, bits) & _words(rng, shape, bits)
+
+    def ints(hi, shape, dtype):
+        return torch.from_numpy(rng.integers(0, hi, size=shape).astype(dtype))
+
+    ops = dict(
+        gseeds=tuple(int(g) for g in rng.integers(0, 1 << 32, size=2)),
+        ctrl=ints(128 if k.flood_publish else 64, (c, n), np.uint8),
+        fresh=sparse((w, n)), adv=_words(rng, (w, n)),
+        sub_all=torch.from_numpy(np.where(rng.random(n) < 0.8, full, 0)
+                                 .astype(np.int32)),
+        cand_sub=_words(rng, (n,), c), fanout=sparse((n,), c),
+        wa=_words(rng, (n,), c), grafts=sparse((n,), c),
+        dropped=sparse((n,), c), meshsel=_words(rng, (n,), c),
+        seen=sparse((w, n)), injected=sparse((w, n)) & 0x0F0F,
+        backoff=ints(61, (c, n), np.int16))
+    if scored:
+        ctr = k.counter_dtype
+        ops.update(
+            valid=_words(rng, (w,)), pay=_words(rng, (n,), c),
+            gsp=_words(rng, (n,), c), acc=_words(rng, (n,), c),
+            bo2=_words(rng, (n,), c),
+            static=(torch.from_numpy(rng.normal(0, 1, (c, n)).astype(
+                np.float32)) if static else None),
+            fd=torch.from_numpy(rng.random((c, n)) * 60).float().to(ctr),
+            inv=torch.from_numpy(rng.random((c, n)) * 3).float().to(ctr),
+            bp=torch.from_numpy(rng.random((c, n)) * 3).float().to(
+                k.bp_dtype),
+            tim=ints(32767, (c, n), np.int16),
+            iws=ints(4 * 32 * w if k.attacks else 30001, (c, n), np.int16))
+    if k.attacks:
+        ops["syb"] = torch.from_numpy(np.where(rng.random(n) < 0.2, full, 0)
+                                      .astype(np.int32))
+    if k.flood_publish:
+        ops["inj_send"] = (ops["fresh"] & ops["adv"]).contiguous()
+    if k.with_same_ip:
+        group = rng.integers(0, 6, size=(c, n))
+        same = np.zeros((c, n), dtype=np.uint32)
+        for cc in range(c):
+            same |= (group == group[cc][None, :]).astype(np.uint32) << cc
+        ops["same_ip"] = torch.from_numpy(same.view(np.int32))
+    if paired:
+        ops.update(ctrl2=ints(16, (c, n), np.uint8), fresh_b=sparse((w, n)),
+                   wa_b=_words(rng, (n,), c), grafts_b=sparse((n,), c),
+                   dropped_b=sparse((n,), c), meshsel_b=_words(rng, (n,), c),
+                   backoff_b=ints(61, (c, n), np.int16))
+        if scored:
+            ops.update(bo2_b=_words(rng, (n,), c),
+                       tim_b=ints(32767, (c, n), np.int16))
+    if k.faults:
+        ops["alive_w"] = torch.from_numpy(np.where(rng.random(n) < 0.1, 0, -1)
+                                          .astype(np.int32))
+        if k.iwant_spam:
+            ops["flood_ok"] = _words(rng, (n,), c)
+    if k.tel_lat_buckets:
+        pub = torch.from_numpy(rng.integers(0, 40, 32 * w).astype(np.int32))
+        ops["lat_masks"] = ptl.latency_bucket_masks(pub, 30,
+                                                    k.tel_lat_buckets, w)
+        ops["dlv_eff"] = _words(rng, (w, n))
+    if k.knobs:
+        knobs = (0.4, 3.0, 13.0, -10.9, -40.0, -60.0, -5.0)
+        ops["knobs"] = torch.tensor(knobs[:7 if scored else 3],
+                                    dtype=torch.float32)
+    if k.delays:
+        ops = {key: v for key, v in ops.items()
+               if key not in prc.SENDER_OPERANDS}
+        ops.update(arr=sparse((c * w, n)), graft_arr=sparse((n,), c),
+                   prune_arr=sparse((n,), c), retract=sparse((n,), c))
+        if k.track_promises:
+            ops["cheat_arr"] = sparse((n,), c)
+    return k, ops
+
+
+def _identical(got, want):
+    """Every output equal, floats by bit pattern."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.cpu()
+        if g.dtype in (torch.bfloat16, torch.float32):
+            bits = torch.int16 if g.dtype == torch.bfloat16 else torch.int32
+            g, w = g.view(bits), w.view(bits)
+        assert torch.equal(g, w), f"output {i} differs"
+    assert len(got) == len(want)
+
+
+@pytest.mark.parametrize("n", EDGE_NS)
+@pytest.mark.parametrize("family", sorted(EDGE_FAMILIES))
+def test_receive_kernel_at_tile_edges(cuda, family, n):
+    """Each family of the receive kernel against its plain version at the
+    tile's edges (seeded operands, every output bit for bit)."""
+    k, ops = tile_edge_case(family, n)
+    want = prc.receive_update(k, **ops)
+    got = prc.receive_update(k, **_to(ops, cuda))
+    torch.cuda.synchronize()
+    _identical(got, want)
+
+
+@pytest.mark.parametrize("lead", [0, 1, 3])
+@pytest.mark.parametrize("n", [1, 3, 5, 127, 4 * 128 + 2])
+@pytest.mark.parametrize("c", [8, 16])
+def test_select_kernel_at_tile_edges(cuda, c, n, lead):
+    """The select kernel against its plain version at counts off its
+    four-peer quads (N % 4 != 0) and on operands ``lead`` words past a
+    16-byte boundary (which the wrapper copies to an aligned buffer),
+    with k from -1 to C + 2."""
+    rng = np.random.default_rng(n + c)
+    elig = _words(rng, (lead + n,), c)
+    kk = torch.from_numpy(rng.integers(-1, c + 3, size=lead + n).astype(
+        np.int32))
+    seed = pg.lane_seed(5, 2, 1)
+    want = psel.select_k_bits(elig[lead:], kk[lead:], c, seed, n)
+    got = psel.select_k_bits(elig.to(cuda)[lead:], kk.to(cuda)[lead:], c,
+                             seed, n)
+    assert torch.equal(got.cpu(), want)
+
+
+def _to_misaligned(ops, dev):
+    """``ops`` on ``dev``, each tensor a view one element past the start
+    of its allocation (off every 16-byte boundary)."""
+    out = {}
+    for name, v in ops.items():
+        if isinstance(v, torch.Tensor):
+            buf = torch.empty(v.numel() + 1, dtype=v.dtype, device=dev)
+            buf[1:].copy_(v.flatten())
+            v = buf[1:].view(v.shape)
+        out[name] = v
+    return out
+
+
+@pytest.mark.parametrize("family", ["scored", "paired", "delayed",
+                                    "full_telemetry"])
+def test_receive_kernel_on_misaligned_operands(cuda, family):
+    """Receive operands that start off a 16-byte boundary (the wrapper
+    copies each staged one to an aligned buffer; the others are read in
+    place) against the plain version, at the ragged, wrapping peer
+    count."""
+    k, ops = tile_edge_case(family, EDGE_NS[-1], seed=1)
+    want = prc.receive_update(k, **ops)
+    got = prc.receive_update(k, **_to_misaligned(ops, cuda))
+    torch.cuda.synchronize()
+    _identical(got, want)
