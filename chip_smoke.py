@@ -264,7 +264,7 @@ Phases (any failure exits non-zero; nothing is caught):
    (make_gossip_step(cfg, None) / gossip_run) for comparison, each with
    its counts reset just before and read just after;
 10. one line with every main path's heartbeats/s, one line with each
-    kernel's time before B1's and B3's redesign (``PARENT_MS``, copied
+    kernel's time before its redesign (``PARENT_MS``, copied
     from PERF.md, not measured by this run), one JSON line with every
     kernel's numbers as this run measured them;
 11. the last line: ``{"ok": true, "device": {...}}``.
@@ -289,7 +289,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 
 
-#: each kernel's time on the card before B1's and B3's redesign, copied
+#: each kernel's time on the card before its latest redesign, copied
 #: from PERF.md (NVIDIA H100 80GB HBM3, 700 W): printed on a line of its
 #: own, labelled as copied, and kept out of the ``kernels`` line, which
 #: holds only what this run measured
@@ -298,10 +298,10 @@ PARENT_MS = {
     "receive_update_full": 0.7479, "receive_update_paired": 0.9403,
     "receive_update_paired_unscored": 0.2560,
     "receive_update_unscored": 0.1060, "select_k_bits": 0.0462,
-    "fused_gossip_update": 1.7984, "fused_gossip_update_exact_k": 1.9923,
-    "fused_gossip_update_faults": 1.9090,
-    "fused_gossip_update_tel": 2.0129,
-    "fused_gossip_update_faults_tel": 3.3202,
+    "fused_gossip_update": 1.7991, "fused_gossip_update_exact_k": 1.8765,
+    "fused_gossip_update_faults": 1.7642,
+    "fused_gossip_update_tel": 2.0044,
+    "fused_gossip_update_faults_tel": 3.0160,
     "receive_update_faults": 0.5064, "receive_update_attacks_faults": 0.5694,
     "receive_update_full_faults": 0.7431,
     "receive_update_paired_faults": 0.9259,
@@ -1115,24 +1115,26 @@ def digest(state) -> str:
 
 
 def fused_window_ops(k, ops, select_rows: int) -> int:
-    """Operations one window needs on these operands: per peer-tick ~90
-    for the two fronts, handshake and ring, ~38 per candidate row
-    (ctrl pack, edge read, backoff, targets draw), ~6 per message word
-    per edge at most; per selection the data draws (0 < k < the eligible
-    count: ``drawn_rows``), C lane-hash draws (~10 each), the bitonic
-    network's compare-exchanges (two each) and ~3 per lane; under faults
-    ~16 more per peer-tick (the dead edges, the graft, fanout and send
-    masks in both fronts, the handshake masks) and ~2 per message word
-    per edge (the heard words masked); with cold restart ~4 per ring
-    word per peer-tick (the clear in both fronts and the ring write)."""
+    """Operations one window needs on these operands: per peer-tick ~55
+    for its one front (injection, fanout TTL, the degree and the graft,
+    prune, accept and send masks), the handshake and the ring, ~38 per
+    candidate row (ctrl pack, edge read, backoff, targets draw), ~6 per
+    message word per edge at most; per selection the data draws, only
+    where select_k's early outs need them (0 < k < the eligible count:
+    ``drawn_rows``), C lane-hash draws (~10 each), the bitonic network's
+    compare-exchanges (two each) and ~3 per lane; under faults ~10 more
+    per peer-tick (the dead edges, the graft, fanout and send masks, the
+    handshake masks) and ~2 per message word per edge (the heard words
+    masked); with cold restart ~3 per ring word per peer-tick (the clear
+    and the ring write)."""
     C = k.n_candidates
     W, n = ops["have"].shape
     T = len(ops["seeds"])
     faulted = ops.get("alive") is not None
     cold = ops.get("rejoin") is not None
     hg = ops["recent"].shape[0]
-    return (n * T * (90 + 38 * C + 6 * C * W
-                     + faulted * (16 + 2 * C * W) + cold * 4 * hg * W)
+    return (n * T * (55 + 38 * C + 6 * C * W
+                     + faulted * (10 + 2 * C * W) + cold * 3 * hg * W)
             + select_rows * (13 * C + 2 * sort_exchanges(C)))
 
 
@@ -1261,6 +1263,31 @@ def main() -> None:
           f"peers, {rcv_cfg['blocks_per_sm']} blocks a multiprocessor, "
           f"{rcv_cfg['smem_bytes']} B dynamic shared memory (one stage), "
           f"persistent grid {rcv_cfg['grid']}")
+    # B2's launch at the resident shapes (clean and with telemetry, L =
+    # 16), as its wrapper plans it
+    k_res = kfused.fused_consts(pg.GossipSimConfig(
+        offsets=pg.make_gossip_offsets(resident.N_TOPICS, resident.N_CAND,
+                                       resident.N_PEERS,
+                                       seed=resident.OFFSETS_SEED),
+        n_topics=resident.N_TOPICS))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, k_l, tel_rows in (
+            ("clean", k_res, 0),
+            ("telemetry", dataclasses.replace(k_res, telemetry=True,
+                                              tel_lat_buckets=16),
+             len(krecv.TEL_ROWS) + 16 + kfused.TEL_FUSED_EXTRA)):
+        fus_cfg = kfused.launch_config(k_l, resident.N_PEERS)
+        plan_l = kfused.launch_plan(1, resident.N_PEERS, tel_rows, sms=sms)
+        if (fus_cfg["blocks"], fus_cfg["peers"], fus_cfg["smem_bytes"],
+                fus_cfg["front"] == "device") != (
+                plan_l["blocks"], plan_l["peers"], plan_l["smem_bytes"],
+                bool(plan_l["front_global"])):
+            fail(f"fused launch {fus_cfg} != launch_plan {plan_l}")
+        print(f"fused launch ({label}, N={resident.N_PEERS}): "
+              f"{fus_cfg['blocks']} blocks of {fus_cfg['threads']} threads, "
+              f"{fus_cfg['peers']} peers a block (4 a thread's group), "
+              f"{fus_cfg['smem_bytes']} B dynamic shared memory, the front "
+              f"in {fus_cfg['front']} memory")
     del want, got, ops, tick_ops, params, state, step
 
     # -- 5. the main path, counts reset just before and read just after
@@ -3139,7 +3166,7 @@ def main() -> None:
         "full_receive_ms": {"main_path": full_ms, "all_options": full_all_ms,
                             "exact_k_alone": xk_ms},
         "seconds": time.perf_counter() - t_start}}))
-    print("parent_ms (copied from PERF.md, before B1's and B3's redesign; "
+    print("parent_ms (copied from PERF.md, before each kernel's redesign; "
           "not measured by this run): " + json.dumps(
               {kd["name"]: PARENT_MS.get(kd["name"]) for kd in kernels}))
     print(json.dumps({"kernels": kernels}))

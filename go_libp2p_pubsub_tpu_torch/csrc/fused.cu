@@ -29,11 +29,8 @@
 // kernel's rows (receive_body.cuh, TEL) counted per peer in phase B, the
 // L latency-bucket rows of the delivered acquisitions, and the GRAFTs
 // and PRUNEs transmitted (under faults & sok & cal, the reference's
-// :2132-2139).  On the TPU the tick's rows are one 128-lane block per
-// grid step; here each thread sums its peers' rows in registers over the
-// grid-stride loop (the latency rows into shared memory by shared
-// atomics, only for a peer with a delivered acquisition, so no L
-// accumulators stay live), each block reduces its rows by warp shuffles
+// :2132-2139), counted in phase A.  Each thread sums its peers' rows in
+// registers, each block reduces them by warp shuffles and shared atomics
 // and adds them into the tick's tally row with one i32 atomicAdd per
 // block and row before the next tick's barrier.  The wrapper zeroes the
 // tally on the stream; integer sums are order-free, so it is exact.
@@ -41,41 +38,87 @@
 // Design.  On the TPU the whole ring is one block resident in VMEM and
 // the candidate views are whole-ring lane rolls.  Here every tick reads
 // every peer's tick-t sender words at offsets up to N, so consecutive
-// ticks need a grid-wide barrier: one persistent cooperative launch,
-// sized by the occupancy calculator to the blocks that can be resident
-// at once, each thread owning a grid-stride set of peers for all T
-// ticks.  Per tick:
+// ticks need a grid-wide barrier: one persistent cooperative launch of
+// one 512-thread block per multiprocessor.  Block b owns the peers
+// [b P, b P + P), P = N / blocks rounded up to a multiple of 4, for the
+// whole window; its threads own 4-peer groups, and every [N] row moves as
+// one 16-byte access a group (a [C, N] i16 backoff row as 8 bytes), but
+// at the ragged tail and in a row that does not start on a 16-byte
+// boundary, which move a word a peer.  Per tick:
 //
-//   phase A: each peer computes its tick front (injection, fanout,
-//     selections) from its carry and writes its sender words to a
-//     staging buffer in device memory: fresh and advert words [2W, N]
-//     and one ctrl byte per sender edge [C, N];
+//   phase A: each group finishes the previous tick's backoff write (its
+//     edges kept in the front by phase B), so its gate row is at hand;
+//     computes its tick front once (injection, fanout, the graft and
+//     prune selections) from its carry; writes last_pub and fanout (final
+//     by then) to the output carry; keeps what phase B needs in the front
+//     (below); and stages its sender words: fresh and advert words
+//     [2W, SP] and, per edge c, one u32 of four senders' ctrl bytes
+//     [C, SC];
 //   grid.sync();
-//   phase B: each peer recomputes its front (the carry is unchanged
-//     until now, so the same bits), reads its C senders' staged words at
-//     (p + o_j) mod N, resolves the exchange and handshake and writes
-//     its carry in place.
+//   phase B: each group reads its front back, all C ctrl words of its
+//     senders at q = p + o_j mod N (bytes q..q+3 of a row as two aligned
+//     words and a funnel shift), then both payload words of every edge
+//     (unconditional: no second round trip that waits on the ctrl
+//     bytes), resolves the exchange and handshake and writes its carry
+//     but the backoff, whose edges it leaves in the front.
 //
-// The staging buffer is double-buffered by t mod 2, so one barrier per
-// tick is enough: phase A of tick t + 2 cannot start before every block
-// has passed the barrier of tick t + 1, which follows its own phase B of
-// tick t.  Staged words are read with ld.global.cg (L2, never a stale
-// L1 line of the slot's use two ticks earlier).  The carry (68 B/peer at
-// C = 16, W = 1, Hg = 3; 71 MB at 1M peers, more than the 50 MB L2)
-// stays in device memory; keeping it in registers or shared memory is
-// later work.  Window entry reads the input carry and every tick writes
-// the output carry, so inputs are never modified.
+// After the last tick one more pass writes the window's last backoff and
+// gate rows.
 //
-// Bound on this card: bytes.  Per window, the carry is read and written
-// once (2 x 68 B/peer), the static rows read once (12 B/peer at W = 1)
-// and per tick the acquisitions written (4W B/peer) and the stage
-// written and read once (2 x (C + 8W) B/peer): about 564 B/peer for an
-// 8-tick window, 0.59 GB at 1M peers, 0.18 ms at 3.35 TB/s; the fault
-// rows add 12 B/peer a tick (16 with cold restart), read by the peer's
-// own thread in both phases.  This first
-// version also re-reads the carry in both phases of every tick; the
-// selections run only where their k is positive (a selection with k = 0
-// selects nothing).
+// The front: per peer 2W + 4 words, packed at C <= 16 — possession
+// (have | injected) and the injected words, grafts | dropped << 16 (then
+// phase B's backoff edges), the selected mesh | would-accept << 16,
+// fanout | cand_sub << 16, and the flags sub_all | alive << 16 |
+// rejoining << 17 (the fault rows' alive and rejoin words are all-ones or
+// zero, models/faults.py tick_masks).  It lives in dynamic shared memory,
+// [2W + 4, P] a block (24 B/peer at W = 1: 186 KB of the 227 KB a block
+// can have at 1,048,576 peers), with the telemetry tally s_tel after it;
+// where it does not fit (W = 2 at 1M peers, or N above ~1.28M at W = 1)
+// the same code keeps it in a device-memory scratch [2W + 4, blocks P]
+// that the wrapper always passes, sized for any plan; make_plan chooses
+// from the shape before the launch (gossip_fused_launch_config reports
+// its choice).  cand_sub and sub_all, static, are read
+// from the front after tick 0.
+//
+// The stage has one slot a tick ([T, C, SC] bytes, [T, 2W, SP] words),
+// written in phase A of its tick and read after that tick's barrier with
+// plain loads through L1 (a group's C ctrl words and its senders' payload
+// words share lines).  An earlier version kept two slots by t mod 2,
+// read as ld.global.cg, constant in T: on the card the payload a slot a tick
+// through L1 took 1.0920 ms a window against 1.2851 for two .cg slots
+// (PERF.md); two slots through L1 were not measured.  Its price is
+// memory that grows with T: (C SC + 8W SP) bytes a tick, 25.2 MB at
+// C = 16, W = 1 and 1,048,576 peers, so 201 MB at T = 8 and 1.61 GB at
+// T = MAX_WINDOW = 64 (2.15 GB at W = 2), which the wrapper allocates
+// per window.  The reads are correct because grid.sync() orders memory
+// at device scope: each block's master fences before the barrier's
+// arrive and after its wait, and the block's bar.sync follows, so under
+// the PTX memory model every phase-A store of tick t happens before every
+// phase-B load of tick t, whatever cache the load goes through (the
+// acquire fence drops the multiprocessor's L1 lines).  Rows are whole
+// 128-byte lines, so no line holds entries of two slots.  Each staged row has
+// a halo: its first three entries again at N..N+2 (written by the group
+// of peer 0), so a group's four senders q..q+3 never wrap, and the row
+// holds both aligned words of every read.  Window entry reads the input
+// carry and every tick writes the output carry, so inputs are never
+// modified; the carry (68 B/peer at C = 16, W = 1, Hg = 3) is read once
+// and written once a tick.
+//
+// Bound on this card.  The function moves, per window, the carry in and
+// out once (2 x 68 B/peer), the static rows once (12 B/peer at W = 1)
+// and each tick's acquisitions (4W B/peer): ~180 B/peer, 0.056 ms at
+// 1,048,576 peers; its operations (chip_smoke.py fused_window_ops: one
+// front a peer-tick, the selections' draws where select_k's early outs
+// need them) bound it at ~0.1 ms.  The kernel takes ~1 ms: it moves the
+// carry every tick (its rows, 71 MB at 1M peers, do not fit the 50 MB L2
+// nor the chip) and the stage, and at 16 warps a multiprocessor (128
+// registers a thread) its loads' latency shows.  The parent's window
+// (1.77 ms) split on the card (PERF.md): phase B 1.2 ms, phase A
+// 0.16-0.37, a second front cheaper than a device-memory copy of the
+// first; this design's own split: the payload gathers (4x the L2 sectors
+// as .cg loads, one through L1) and the backoff rows (latency after the
+// gathers, now overlapped with phase A's carry loads) were phase B's two
+// largest parts.
 #include <cstdint>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -111,9 +154,9 @@ struct FusedArgs {
   uint32_t* tgt;
   uint32_t* bog;
   uint32_t* acq;             // [T, W, N] per-tick acquisitions
-  // double-buffered staging
-  uint8_t* stage_ctrl;       // [2, C, N] sender ctrl bytes
-  uint32_t* stage_pay;       // [2, 2W, N] sender fresh + advert words
+  // the stage, one slot a tick, rows padded (stage_stride)
+  uint8_t* stage_ctrl;       // [T, C, SC] sender ctrl bytes
+  uint32_t* stage_pay;       // [T, 2W, SP] sender fresh + advert words
   // scalars
   long long n;
   int ticks;
@@ -131,24 +174,33 @@ struct FusedArgs {
   // targets (phase 1 at tick + 1) lane seeds
   unsigned int seeds[MAX_WINDOW][4];
   int exact_k;               // exact-k gossip targets (else Bernoulli)
-  // the fault rows, last: per tick [T, N] words
+  // the fault rows: per tick [T, N] words
   const uint32_t* alive;     // live peer: ~0u, down: 0
   const uint32_t* sok;       // edges a peer may send on
   const uint32_t* cal;       // live candidates
   const uint32_t* rej;       // (cold restart) ~0u at a rejoiner, or null
   int faults;                // launch the faulted kernel
   int cold;                  // ... with cold restart
-  // the telemetry rows, after those
+  // the telemetry rows
   const uint32_t* lat_masks; // [T, L, W] latency-bucket masks (L > 0)
   const uint32_t* dlv;       // [W, N] deliver words (L > 0)
   uint32_t* meshrow;         // [T, N] each tick's end-of-tick mesh
   int* tel;                  // [T, 8 + L + 2] tallies, zeroed by the caller
   int tel_lat_buckets;       // L
   int telemetry;             // launch the telemetry kernel
+  // the front's device-memory scratch (rows of at least blocks * peers),
+  // read only where the front does not fit in shared memory; the launch
+  // sets the rest
+  uint32_t* front;
+  int peers;                 // P: peers a block, a multiple of 4
+  int front_global;          // 1: the front is in ``front``
 };
 
 namespace {
 
+constexpr int THREADS = 512;
+// words of the front a peer (ops/kernels/fused.py front_words)
+__host__ __device__ constexpr int front_words(int w) { return 2 * w + 4; }
 constexpr int CTRL_OUT = 0, CTRL_TGT = 1, CTRL_GRAFT = 2, CTRL_DROP = 3,
               CTRL_A = 4, CTRL_ADV = 5;
 // the tally's rows (ops/kernels/receive.py TEL_ROWS), then the L latency
@@ -156,158 +208,391 @@ constexpr int CTRL_OUT = 0, CTRL_TGT = 1, CTRL_GRAFT = 2, CTRL_DROP = 3,
 constexpr int TEL_PAYLOAD = 0, TEL_IHAVE_IDS = 1, TEL_IWANT_SERVED = 2,
               TEL_RECV = 3, TEL_IWANT_REQ = 4, TEL_IHAVE_RPCS = 5,
               TEL_IWANT_RPCS = 6, TEL_NEW_IDS = 7, TEL_ROWS = 8;
+// the front's flag word: sub_all's C bits, then alive and rejoining
+constexpr uint32_t FL_ALIVE = 1u << 16, FL_REJ = 1u << 17;
 
-// what one peer sends and keeps at the start of tick t (from its carry);
-// under faults its alive word, send-ok bits and (cold restart) rejoin
-// word of the tick
-template <int W>
-struct Front {
-  uint32_t have[W], inj[W];
-  uint32_t sub_all, cand_sub, fanout, grafts, dropped, mesh_sel, wa,
-      out_bits, targets, alive, sok, rej;
-  int lp;
-};
+// the stage's row stride in entries (ctrl bytes, payload words): at least
+// N + 8 (the halo N..N+2 and the second aligned word of a read at N - 1),
+// a whole number of 128-byte lines (no L1 line holds entries of two
+// ticks' slots)
+__host__ __device__ inline long long stage_stride(long long n, int size) {
+  const long long per_line = 128 / size;
+  return (n + 8 + per_line - 1) / per_line * per_line;
+}
 
-template <int C, int W, bool FAULTS, bool COLD>
-__device__ __forceinline__ void tick_front(const FusedArgs& a, int t,
-                                           long long p, Front<W>& f) {
-  const long long n = a.n;
-  const bool first = t == 0;
-  const int tick = a.tick0 + t;
-  const uint32_t* have = first ? a.have_in : a.have;
-  const uint32_t* mesh = first ? a.mesh_in : a.mesh;
-  const uint32_t* fan = first ? a.fan_in : a.fan;
-  const int32_t* lp = first ? a.lp_in : a.lp;
-  const uint32_t* tgt = first ? a.tgt_in : a.tgt;
-  const uint32_t* bog = first ? a.bog_in : a.bog;
-
-  constexpr uint32_t ALL = (1u << C) - 1u;
-  // the tick's fault words (a rejoiner's possession cleared first)
-  const long long tp = (long long)t * n + p;
-  f.alive = FAULTS ? a.alive[tp] : 0xFFFFFFFFu;
-  f.sok = FAULTS ? a.sok[tp] : 0xFFFFFFFFu;
-  f.rej = COLD ? a.rej[tp] : 0u;
-  const uint32_t cal = FAULTS ? a.cal[tp] : ALL;
-  const uint32_t up = f.alive & ALL;
-
-  // 1. publish injection (a down origin's publish is lost)
-  f.sub_all = a.sub_all[p];
-  f.cand_sub = a.cand_sub[p];
-  bool publishing = false;
+// four peers' words of a row from p0 (a multiple of 4): one 16-byte
+// access where all four are peers and the row is 16-byte aligned there,
+// else a word a peer (zero past the last peer)
+template <typename T>
+__device__ __forceinline__ void ld4(const T* row, long long p0, int nv,
+                                    uint32_t (&v)[4]) {
+  static_assert(sizeof(T) == 4, "32-bit rows");
+  const T* s = row + p0;
+  if (nv == 4 && ((uintptr_t)s & 15u) == 0u) {
+    const uint4 x = *reinterpret_cast<const uint4*>(s);
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  } else {
 #pragma unroll
-  for (int w = 0; w < W; ++w) {
-    f.have[w] = have[w * n + p];
-    if constexpr (COLD) f.have[w] &= ~f.rej;
-    f.inj[w] = a.origin[w * n + p] & a.due[t * W + w] & ~f.have[w];
-    if constexpr (FAULTS) f.inj[w] &= f.alive;
-    publishing = publishing || f.inj[w] != 0u;
+    for (int i = 0; i < 4; ++i) v[i] = i < nv ? (uint32_t)s[i] : 0u;
   }
+}
 
-  // 1b. fanout TTL + refill (own publishes only)
-  f.lp = publishing ? tick : lp[p];
-  const bool alive = f.sub_all == 0u && tick - f.lp < a.fanout_ttl;
-  uint32_t fanout = alive ? fan[p] : 0u;
-  const int f_need = alive ? a.d - __popc(fanout) : 0;
-  if (f_need > 0) {
-    uint32_t f_elig = f.cand_sub & ~fanout;
-    // (FAULTS) dead candidates make useless fanout targets
-    if constexpr (FAULTS) f_elig &= cal;
-    fanout |= gossip::select_k<C>(f_elig, C, f_need, a.seeds[t][0], p,
-                                  a.stride);
+template <typename T>
+__device__ __forceinline__ void st4(T* row, long long p0, int nv,
+                                    const uint32_t (&v)[4]) {
+  static_assert(sizeof(T) == 4, "32-bit rows");
+  T* s = row + p0;
+  if (nv == 4 && ((uintptr_t)s & 15u) == 0u) {
+    *reinterpret_cast<uint4*>(s) = make_uint4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i < nv) s[i] = (T)v[i];
+    }
   }
-  f.fanout = fanout;
+}
 
-  // 4. maintenance: graft to D below Dlo, random retention of D above
-  // Dhi (v1.0); (FAULTS) mesh edges to or at a dead peer drop with
-  // PRUNE and backoff at both ends, and nobody grafts at or by a dead
-  // peer
-  const uint32_t mesh0 = mesh[p];
-  const uint32_t bo_row = bog[p];
-  const uint32_t dead = FAULTS ? mesh0 & ~(cal & up) : 0u;
-  const uint32_t mesh_ng = mesh0 & ~dead;
-  const int deg = __popc(mesh_ng);
-  uint32_t can_graft = f.cand_sub & ~mesh_ng & ~bo_row & f.sub_all;
-  if constexpr (FAULTS) can_graft &= cal & up;
-  const int need = deg < a.d_lo ? a.d - deg : 0;
-  f.grafts = need > 0 ? gossip::select_k<C>(can_graft, C, need,
-                                            a.seeds[t][1], p, a.stride)
-                      : 0u;
-  const uint32_t prunes =
-      deg > a.d_hi ? mesh_ng & ~gossip::select_k<C>(mesh_ng, C, a.d,
-                                                    a.seeds[t][2], p,
-                                                    a.stride)
-                   : 0u;
-  f.dropped = prunes | dead;
-  // (grafts never meet dead edges, so this is (mesh_ng | grafts) &
-  // ~prunes)
-  f.mesh_sel = (mesh0 | f.grafts) & ~f.dropped;
-  f.wa = f.sub_all & ~(bo_row | f.dropped);
-  f.out_bits = mesh0 | fanout;
-  f.targets = tgt[p];
+// the same for an i16 row: one 8-byte access
+__device__ __forceinline__ void ld4h(const int16_t* row, long long p0,
+                                     int nv, int (&v)[4]) {
+  const int16_t* s = row + p0;
+  if (nv == 4 && ((uintptr_t)s & 7u) == 0u) {
+    const uint2 x = *reinterpret_cast<const uint2*>(s);
+    v[0] = (int)(int16_t)(x.x & 0xFFFFu);
+    v[1] = (int)(int16_t)(x.x >> 16);
+    v[2] = (int)(int16_t)(x.y & 0xFFFFu);
+    v[3] = (int)(int16_t)(x.y >> 16);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = i < nv ? (int)s[i] : 0;
+  }
+}
+
+__device__ __forceinline__ void st4h(int16_t* row, long long p0, int nv,
+                                     const int (&v)[4]) {
+  int16_t* s = row + p0;
+  if (nv == 4 && ((uintptr_t)s & 7u) == 0u) {
+    *reinterpret_cast<uint2*>(s) = make_uint2(
+        ((uint32_t)v[0] & 0xFFFFu) | ((uint32_t)v[1] << 16),
+        ((uint32_t)v[2] & 0xFFFFu) | ((uint32_t)v[3] << 16));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i < nv) s[i] = (int16_t)v[i];
+    }
+  }
+}
+
+// the front's row r of a group (16-byte aligned: P is a multiple of 4)
+__device__ __forceinline__ void fr_ld(const uint32_t* fr, long long stride,
+                                      int r, int g, uint32_t (&v)[4]) {
+  const uint4 x = *reinterpret_cast<const uint4*>(fr + r * stride + 4 * g);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+
+__device__ __forceinline__ void fr_st(uint32_t* fr, long long stride, int r,
+                                      int g, const uint32_t (&v)[4]) {
+  *reinterpret_cast<uint4*>(fr + r * stride + 4 * g) =
+      make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// select_k's draws and sort, out of line: most calls take an early out
+template <int C>
+__device__ __noinline__ uint32_t select_drawn(uint32_t elig, int k,
+                                              uint32_t seed, long long p,
+                                              uint32_t stride) {
+  return gossip::select_k<C>(elig, C, k, seed, p, stride);
+}
+
+template <int C>
+__device__ __forceinline__ uint32_t select_bits(uint32_t bits, int k,
+                                           uint32_t seed, long long p,
+                                           uint32_t stride) {
+  const uint32_t elig = bits & ((1u << C) - 1u);
+  if (k <= 0 || elig == 0u) return 0u;
+  if (k >= __popc(elig)) return elig;
+  return select_drawn<C>(elig, k, seed, p, stride);
+}
+
+// The backoff write of a tick for one group (i32 detour for max(bo - 1,
+// 0)): rows ``src`` to ``dst``, restarted where ``trig`` has the edge;
+// its gate row (bo > 0) into ``gate``
+template <int C>
+__device__ __forceinline__ void backoff_step(const int16_t* src, int16_t* dst,
+                                             long long n, long long p0,
+                                             int nv, const uint32_t (&trig)[4],
+                                             int restart, uint32_t (&gate)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) gate[i] = 0u;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    int bo[4];
+    ld4h(src + c * n, p0, nv, bo);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int b = ((trig[i] >> c) & 1u) ? restart
+                                          : (bo[i] - 1 > 0 ? bo[i] - 1 : 0);
+      bo[i] = b;
+      gate[i] |= (uint32_t)(b > 0) << c;
+    }
+    st4h(dst + c * n, p0, nv, bo);
+  }
+}
+
+// byte b of each of four words, as one word (byte i from x[i])
+__device__ __forceinline__ uint32_t bytes_of(const uint32_t (&x)[4], int b) {
+  const uint32_t sel = (uint32_t)b | ((uint32_t)(b + 4) << 4);
+  const uint32_t lo = __byte_perm(x[0], x[1], sel);
+  const uint32_t hi = __byte_perm(x[2], x[3], sel);
+  return __byte_perm(lo, hi, 0x5410);
 }
 
 // The window; FAULTS and COLD compile in the fault rows and cold
-// restart, TEL the telemetry rows (all false in fused_window_kernel,
-// whose code stays as it was).  (TEL) s_tel: the block's partial tally
-// of the tick, 8 + L + 2 ints of dynamic shared memory.
-template <int C, int W, bool EXACTK, bool FAULTS, bool COLD,
-          bool TEL = false>
+// restart, TEL the telemetry rows.  ``smem``: the front (where it fits)
+// and then (TEL) s_tel, the block's partial tally of the tick.
+template <int C, int W, bool EXACTK, bool FAULTS, bool COLD, bool TEL>
 __device__ __forceinline__ void fused_body(const FusedArgs& a,
-                                           int* s_tel = nullptr) {
+                                           uint32_t* smem) {
+  static_assert(C <= 16, "the front packs C-bit masks into 16 bits");
+  constexpr uint32_t ALL = (1u << C) - 1u;
+  constexpr int FW = front_words(W);
+  constexpr int FR_SEEN = 0, FR_INJ = W, FR_GD = 2 * W, FR_MA = 2 * W + 1,
+                FR_FC = 2 * W + 2, FR_FL = 2 * W + 3;
   cg::grid_group grid = cg::this_grid();
   const long long n = a.n;
-  const long long first_p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long step = (long long)gridDim.x * blockDim.x;
+  const int P = a.peers;
+  const long long b0 = (long long)blockIdx.x * P;
+  const long long left = n - b0;
+  const int groups = (int)(((left < P ? left : P) + 3) >> 2);
+  uint32_t* fr = a.front_global ? a.front + b0 : smem;
+  const long long fstride =
+      a.front_global ? (long long)gridDim.x * P : (long long)P;
+  int* s_tel = reinterpret_cast<int*>(a.front_global ? smem : smem + FW * P);
+  const long long SC = stage_stride(n, 1), SP = stage_stride(n, 4);
   const int hg = a.hg;
+  const int n_lat = TEL ? a.tel_lat_buckets : 0;
+  const int tel_rows = TEL_ROWS + n_lat + 2;
 
   for (int t = 0; t < a.ticks; ++t) {
     const int tick = a.tick0 + t;
-    const int slot = t & 1;
-    uint8_t* sctl = a.stage_ctrl + (long long)slot * C * n;
-    uint32_t* spay = a.stage_pay + (long long)slot * 2 * W * n;
-    const uint32_t* rec_cur = t == 0 ? a.rec_in : a.rec;
+    const bool first = t == 0;
+    uint8_t* sctl = a.stage_ctrl + (long long)t * C * SC;
+    uint32_t* spay = a.stage_pay + (long long)t * 2 * W * SP;
+    const uint32_t* rec_cur = first ? a.rec_in : a.rec;
+    const long long tn = (long long)t * n;
+    // (TEL) this thread's tally rows over its peers, then the GRAFT and
+    // PRUNE rows (counted in phase A)
+    int tr[TEL_ROWS + 2] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
 
-    // ---- phase A: stage this tick's sender words
-    for (long long p = first_p; p < n; p += step) {
-      Front<W> f;
-      tick_front<C, W, FAULTS, COLD>(a, t, p, f);
+    // ---- phase A: the front, once; stage this tick's sender words
+    for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+      const long long p0 = b0 + 4 * g;
+      const int nv = (int)(n - p0 < 4 ? n - p0 : 4);
+      uint32_t have[W][4], orig[W][4], mesh[4], fan[4], lpw[4], tgt[4],
+          bog[4], sub[4], cand[4], alive[4], sok[4], cal[4], rej[4];
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        ld4(first ? a.have_in + w * n : a.have + w * n, p0, nv, have[w]);
+        ld4(a.origin + w * n, p0, nv, orig[w]);
+      }
+      ld4(first ? a.mesh_in : a.mesh, p0, nv, mesh);
+      ld4(first ? a.fan_in : a.fan, p0, nv, fan);
+      ld4(first ? a.lp_in : a.lp, p0, nv, lpw);
+      ld4(first ? a.tgt_in : a.tgt, p0, nv, tgt);
+      if (first) {
+        ld4(a.bog_in, p0, nv, bog);
+      } else {
+        // the previous tick's backoff write (its edges from phase B, in
+        // the front's grafts | dropped word) and this tick's gate row
+        uint32_t trig[4];
+        fr_ld(fr, fstride, FR_GD, g, trig);
+        backoff_step<C>(t == 1 ? a.bo_in : a.bo, a.bo, n, p0, nv, trig,
+                        a.backoff_restart, bog);
+      }
+      if (first) {
+        ld4(a.sub_all, p0, nv, sub);
+        ld4(a.cand_sub, p0, nv, cand);
+      } else {
+        uint32_t fc[4], fl[4];
+        fr_ld(fr, fstride, FR_FC, g, fc);
+        fr_ld(fr, fstride, FR_FL, g, fl);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          cand[i] = fc[i] >> 16;
+          sub[i] = fl[i] & 0xFFFFu;
+        }
+      }
+      if constexpr (FAULTS) {
+        ld4(a.alive + tn, p0, nv, alive);
+        ld4(a.sok + tn, p0, nv, sok);
+        ld4(a.cal + tn, p0, nv, cal);
+      }
+      if constexpr (COLD) ld4(a.rej + tn, p0, nv, rej);
+
+      uint32_t seen[W][4], inj[W][4], gd[4], ma[4], fc[4], fl[4], fanout[4],
+          lp_new[4], c_out[4], c_tgt[4], c_graft[4], c_drop[4], c_a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const long long p = p0 + i;
+        const uint32_t aw = FAULTS ? alive[i] : 0xFFFFFFFFu;
+        const uint32_t so = FAULTS ? sok[i] : 0xFFFFFFFFu;
+        const uint32_t ca = FAULTS ? cal[i] : ALL;
+        const uint32_t rj = COLD ? rej[i] : 0u;
+        const uint32_t up = aw & ALL;
+        // 1. publish injection (a down origin's publish is lost)
+        bool publishing = false;
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          uint32_t h = have[w][i];
+          if constexpr (COLD) h &= ~rj;
+          uint32_t in = orig[w][i] & a.due[t * W + w] & ~h;
+          if constexpr (FAULTS) in &= aw;
+          publishing = publishing || in != 0u;
+          inj[w][i] = in;
+          seen[w][i] = h | in;
+        }
+        // 1b. fanout TTL + refill (own publishes only)
+        const int lp = publishing ? tick : (int)lpw[i];
+        lp_new[i] = (uint32_t)lp;
+        const bool fan_alive = sub[i] == 0u && tick - lp < a.fanout_ttl;
+        uint32_t fo = fan_alive ? fan[i] : 0u;
+        const int f_need = fan_alive ? a.d - __popc(fo) : 0;
+        if (f_need > 0) {
+          uint32_t f_elig = cand[i] & ~fo;
+          // (FAULTS) dead candidates make useless fanout targets
+          if constexpr (FAULTS) f_elig &= ca;
+          fo |= select_bits<C>(f_elig, f_need, a.seeds[t][0], p, a.stride);
+        }
+        fanout[i] = fo;
+        // 4. maintenance: graft to D below Dlo, random retention of D
+        // above Dhi (v1.0); (FAULTS) mesh edges to or at a dead peer drop
+        // with PRUNE and backoff at both ends, and nobody grafts at or by
+        // a dead peer
+        const uint32_t mesh0 = mesh[i];
+        const uint32_t dead = FAULTS ? mesh0 & ~(ca & up) : 0u;
+        const uint32_t mesh_ng = mesh0 & ~dead;
+        const int deg = __popc(mesh_ng);
+        uint32_t can_graft = cand[i] & ~mesh_ng & ~bog[i] & sub[i];
+        if constexpr (FAULTS) can_graft &= ca & up;
+        const int need = deg < a.d_lo ? a.d - deg : 0;
+        const uint32_t grafts =
+            select_bits<C>(can_graft, need, a.seeds[t][1], p, a.stride);
+        const uint32_t prunes =
+            deg > a.d_hi
+                ? mesh_ng & ~select_bits<C>(mesh_ng, a.d, a.seeds[t][2], p,
+                                       a.stride)
+                : 0u;
+        const uint32_t dropped = prunes | dead;
+        // (grafts never meet dead edges, so this is (mesh_ng | grafts) &
+        // ~prunes)
+        const uint32_t mesh_sel = (mesh0 | grafts) & ~dropped;
+        const uint32_t wa = sub[i] & ~(bog[i] | dropped);
+        gd[i] = (grafts & 0xFFFFu) | (dropped << 16);
+        ma[i] = (mesh_sel & 0xFFFFu) | (wa << 16);
+        fc[i] = (fo & 0xFFFFu) | (cand[i] << 16);
+        fl[i] = (sub[i] & 0xFFFFu) | (aw != 0u ? FL_ALIVE : 0u)
+                | (rj != 0u ? FL_REJ : 0u);
+        // (FAULTS) a dead peer, or either end of a down link, sends
+        // nothing: forwards, adverts and the handshake alike (the local
+        // effects of its drops still apply in phase B)
+        c_out[i] = (mesh0 | fo) & so;
+        c_tgt[i] = tgt[i] & so;
+        c_graft[i] = grafts & so;
+        c_drop[i] = dropped & so;
+        c_a[i] = wa & so;
+        if constexpr (TEL) {
+          if (i < nv) {
+            tr[TEL_ROWS] += __popc(grafts & so & ca);
+            tr[TEL_ROWS + 1] += __popc(dropped & so & ca);
+          }
+        }
+      }
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        fr_st(fr, fstride, FR_SEEN + w, g, seen[w]);
+        fr_st(fr, fstride, FR_INJ + w, g, inj[w]);
+      }
+      fr_st(fr, fstride, FR_GD, g, gd);
+      fr_st(fr, fstride, FR_MA, g, ma);
+      fr_st(fr, fstride, FR_FC, g, fc);
+      fr_st(fr, fstride, FR_FL, g, fl);
+      st4(a.lp, p0, nv, lp_new);
+      st4(a.fan, p0, nv, fanout);
+
       // 2/3a. fresh (the newest ring slot, tick - 1) and advert (the
-      // whole ring) windows; (COLD) a rejoiner's ring reads as cleared
+      // whole ring) windows; (COLD) a rejoiner's ring reads as cleared.
+      // The group of peer 0 also writes the halo: entries N..N+2 hold
+      // peers 0..2 (mod N).
       const int newest = (tick - 1 + hg) % hg;
 #pragma unroll
       for (int w = 0; w < W; ++w) {
-        uint32_t adv = f.inj[w];
-        for (int h = 0; h < hg; ++h) {
-          uint32_t r = rec_cur[(h * W + w) * n + p];
-          if constexpr (COLD) r &= ~f.rej;
-          adv |= r;
-        }
-        uint32_t fresh = rec_cur[(newest * W + w) * n + p];
-        if constexpr (COLD) fresh &= ~f.rej;
-        spay[w * n + p] = fresh | f.inj[w];
-        spay[(W + w) * n + p] = adv;
-      }
-      // (FAULTS) a dead peer, or either end of a down link, sends
-      // nothing: forwards, adverts and the handshake alike (the local
-      // effects of its drops still apply in phase B)
-      const uint32_t out = f.out_bits & f.sok;
-      const uint32_t tgt_tx = f.targets & f.sok;
-      const uint32_t graft_tx = f.grafts & f.sok;
-      const uint32_t drop_tx = f.dropped & f.sok;
-      const uint32_t a_tx = f.wa & f.sok;
+        uint32_t fresh[4], adv[4];
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const uint32_t b = (((out >> c) & 1u) << CTRL_OUT)
-                           | (((tgt_tx >> c) & 1u) << CTRL_TGT)
-                           | (((graft_tx >> c) & 1u) << CTRL_GRAFT)
-                           | (((drop_tx >> c) & 1u) << CTRL_DROP)
-                           | (((a_tx >> c) & 1u) << CTRL_A)
-                           | (((tgt_tx >> c) & 1u) << CTRL_ADV);
-        sctl[c * n + p] = (uint8_t)b;
+        for (int i = 0; i < 4; ++i) fresh[i] = adv[i] = inj[w][i];
+        for (int h = 0; h < hg; ++h) {
+          uint32_t r[4];
+          ld4(rec_cur + (h * W + w) * n, p0, nv, r);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if constexpr (COLD) r[i] &= ~rej[i];
+            adv[i] |= r[i];
+            if (h == newest) fresh[i] = r[i] | inj[w][i];
+          }
+        }
+        uint32_t* f_row = spay + w * SP;
+        uint32_t* a_row = spay + (W + w) * SP;
+        st4(f_row, p0, nv, fresh);
+        st4(a_row, p0, nv, adv);
+        if (p0 == 0) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            const int src = k < n ? k : 0;
+            f_row[n + k] = src == 0 ? fresh[0] : src == 1 ? fresh[1]
+                                                          : fresh[2];
+            a_row[n + k] = src == 0 ? adv[0] : src == 1 ? adv[1] : adv[2];
+          }
+        }
+      }
+      // the ctrl bytes: per edge c one word, byte i peer p0 + i's; built
+      // four edges at a time from the peers' masks (a nibble a peer, then
+      // each edge's bit of each flag into its byte)
+#pragma unroll
+      for (int c0 = 0; c0 < C; c0 += 4) {
+        const int byte = c0 >> 3, nib = (c0 & 4) ? 4 : 0;
+        const uint32_t m_out = (bytes_of(c_out, byte) >> nib) & 0x0F0F0F0Fu;
+        const uint32_t m_tgt = (bytes_of(c_tgt, byte) >> nib) & 0x0F0F0F0Fu;
+        const uint32_t m_graft =
+            (bytes_of(c_graft, byte) >> nib) & 0x0F0F0F0Fu;
+        const uint32_t m_drop = (bytes_of(c_drop, byte) >> nib) & 0x0F0F0F0Fu;
+        const uint32_t m_a = (bytes_of(c_a, byte) >> nib) & 0x0F0F0F0Fu;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const uint32_t word = (((m_out >> k) & 0x01010101u) << CTRL_OUT)
+                                | (((m_tgt >> k) & 0x01010101u) << CTRL_TGT)
+                                | (((m_graft >> k) & 0x01010101u)
+                                   << CTRL_GRAFT)
+                                | (((m_drop >> k) & 0x01010101u) << CTRL_DROP)
+                                | (((m_a >> k) & 0x01010101u) << CTRL_A)
+                                | (((m_tgt >> k) & 0x01010101u) << CTRL_ADV);
+          uint8_t* row = sctl + (c0 + k) * SC;
+          if (nv == 4) {
+            *reinterpret_cast<uint32_t*>(row + p0) = word;
+          } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (i < nv) row[p0 + i] = (uint8_t)(word >> (8 * i));
+            }
+          }
+          if (p0 == 0) {
+#pragma unroll
+            for (int h = 0; h < 3; ++h) {
+              const int src = h < n ? h : 0;
+              row[n + h] = (uint8_t)(word >> (8 * src));
+            }
+          }
+        }
       }
     }
-    const int n_lat = TEL ? a.tel_lat_buckets : 0;
-    const int tel_rows = TEL_ROWS + n_lat + 2;
     if constexpr (TEL) {
       // the block's partial tally of this tick, cleared before the
       // barrier; thread r clears and (after phase B) flushes row r
@@ -317,172 +602,285 @@ __device__ __forceinline__ void fused_body(const FusedArgs& a,
     grid.sync();
 
     // ---- phase B: receive, resolve, write the carry
-    const int16_t* bo_cur = t == 0 ? a.bo_in : a.bo;
     const int ring_slot = tick % hg;
-    // (TEL) this thread's tally rows over its peers, then the GRAFT and
-    // PRUNE rows
-    int tr[TEL_ROWS + 2] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
-    for (long long p = first_p; p < n; p += step) {
-      Front<W> f;
-      tick_front<C, W, FAULTS, COLD>(a, t, p, f);
-      uint32_t heard[W];
+    for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+      const long long p0 = b0 + 4 * g;
+      const int nv = (int)(n - p0 < 4 ? n - p0 : 4);
+      // the senders' ctrl bytes first: bytes q..q+3 of row cinv[j], q =
+      // p0 + o_j mod N, as two aligned words and a funnel shift
+      uint32_t x[C];
+      {
+        uint32_t lo[C], hi[C];
 #pragma unroll
-      for (int w = 0; w < W; ++w) heard[w] = 0u;
-      uint32_t graft_recv = 0u, prune_recv = 0u, a_recv = 0u;
+        for (int j = 0; j < C; ++j) {
+          long long q = p0 + a.offsets[j];
+          if (q >= n) q -= n;
+          const uint32_t* wd = reinterpret_cast<const uint32_t*>(
+              sctl + a.cinv[j] * SC + (q & ~3LL));
+          lo[j] = wd[0];
+          hi[j] = wd[1];
+        }
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          long long q = p0 + a.offsets[j];
+          if (q >= n) q -= n;
+          x[j] = __funnelshift_r(lo[j], hi[j], (uint32_t)(q & 3) * 8u);
+        }
+      }
+      uint32_t seen[W][4], inj[W][4], gd[4], ma[4], fc[4], fl[4];
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        fr_ld(fr, fstride, FR_SEEN + w, g, seen[w]);
+        fr_ld(fr, fstride, FR_INJ + w, g, inj[w]);
+      }
+      fr_ld(fr, fstride, FR_GD, g, gd);
+      fr_ld(fr, fstride, FR_MA, g, ma);
+      fr_ld(fr, fstride, FR_FC, g, fc);
+      fr_ld(fr, fstride, FR_FL, g, fl);
+      uint32_t alive[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        alive[i] = (!FAULTS || (fl[i] & FL_ALIVE)) ? 0xFFFFFFFFu : 0u;
+      }
+
+      // the handshake bits of each peer, edge j at bit j
+      uint32_t graft_recv[4], prune_recv[4], a_recv[4];
+      {
+        uint32_t gl = 0u, gh = 0u, pl = 0u, ph = 0u, al = 0u, ah = 0u;
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          const uint32_t gb = (x[j] >> CTRL_GRAFT) & 0x01010101u;
+          const uint32_t pb = (x[j] >> CTRL_DROP) & 0x01010101u;
+          const uint32_t ab = (x[j] >> CTRL_A) & 0x01010101u;
+          if (j < 8) {
+            gl |= gb << j; pl |= pb << j; al |= ab << j;
+          } else {
+            gh |= gb << (j - 8); ph |= pb << (j - 8); ah |= ab << (j - 8);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t sel = (uint32_t)i | ((uint32_t)(i + 4) << 4);
+          graft_recv[i] = __byte_perm(gl, gh, sel) & ALL;
+          prune_recv[i] = __byte_perm(pl, ph, sel) & ALL;
+          a_recv[i] = __byte_perm(al, ah, sel) & ALL;
+        }
+      }
+
+      // both payload words of every edge, kept where the ctrl bytes ask
+      // for them (unconditional reads: no second round trip after the
+      // ctrl words)
+      uint32_t heard[W][4];
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) heard[w][i] = 0u;
+      }
 #pragma unroll
       for (int j = 0; j < C; ++j) {
-        long long q = p + a.offsets[j];
-        if (q >= n) q -= n;
-        const uint32_t ctl = __ldcg(&sctl[(long long)a.cinv[j] * n + q]);
-        graft_recv |= ((ctl >> CTRL_GRAFT) & 1u) << j;
-        prune_recv |= ((ctl >> CTRL_DROP) & 1u) << j;
-        a_recv |= ((ctl >> CTRL_A) & 1u) << j;
-        const bool fwd_on = ((ctl >> CTRL_OUT) & 1u) != 0u;
-        const bool gsp_on = ((ctl >> CTRL_TGT) & 1u) != 0u;
-        if constexpr (TEL) {
-          // the receive kernel's tallies (receive_body.cuh): sent words
-          // before the alive mask, received, served and requested after
-          const bool adv_on = ((ctl >> CTRL_ADV) & 1u) != 0u;
-          int req_c = 0;
-          bool adv_nz = false;
-          if (fwd_on || gsp_on || adv_on) {
+        long long q0 = p0 + a.offsets[j];
+        if (q0 >= n) q0 -= n;
 #pragma unroll
-            for (int w = 0; w < W; ++w) {
-              const uint32_t fwd_q = fwd_on ? __ldcg(&spay[w * n + q]) : 0u;
-              const uint32_t adv_q =
-                  (gsp_on || adv_on) ? __ldcg(&spay[(W + w) * n + q]) : 0u;
-              const uint32_t gsp_q = gsp_on ? adv_q : 0u;
-              const uint32_t adv_w = adv_on ? adv_q : 0u;
-              const uint32_t seen = f.have[w] | f.inj[w];
-              const uint32_t got = (fwd_q | gsp_q) & f.alive;
-              heard[w] |= got & ~seen;
-              tr[TEL_PAYLOAD] += __popc(fwd_q);
-              tr[TEL_IHAVE_IDS] += __popc(adv_w);
-              tr[TEL_IWANT_SERVED] += __popc(gsp_q & f.alive & ~seen);
-              tr[TEL_RECV] += __popc(got);
-              req_c += __popc(adv_w & f.alive & ~seen);
-              adv_nz = adv_nz || adv_q != 0u;
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t ctl = x[j] >> (8 * i);
+          const bool fwd_on = ((ctl >> CTRL_OUT) & 1u) != 0u;
+          const bool gsp_on = ((ctl >> CTRL_TGT) & 1u) != 0u;
+          const long long q = q0 + i;
+          if constexpr (TEL) {
+            // the receive kernel's tallies (receive_body.cuh): sent words
+            // before the alive mask, received, served and requested after
+            const bool adv_on = ((ctl >> CTRL_ADV) & 1u) != 0u;
+            int req_c = 0;
+            bool adv_nz = false;
+            {
+#pragma unroll
+              for (int w = 0; w < W; ++w) {
+                const uint32_t fv = spay[w * SP + q];
+                const uint32_t av = spay[(W + w) * SP + q];
+                const uint32_t fwd_q = fwd_on ? fv : 0u;
+                const uint32_t adv_q = (gsp_on || adv_on) ? av : 0u;
+                const uint32_t gsp_q = gsp_on ? adv_q : 0u;
+                const uint32_t adv_w = adv_on ? adv_q : 0u;
+                const uint32_t sn = seen[w][i];
+                const uint32_t got = (fwd_q | gsp_q) & alive[i];
+                heard[w][i] |= got & ~sn;
+                if (i < nv) {
+                  tr[TEL_PAYLOAD] += __popc(fwd_q);
+                  tr[TEL_IHAVE_IDS] += __popc(adv_w);
+                  tr[TEL_IWANT_SERVED] += __popc(gsp_q & alive[i] & ~sn);
+                  tr[TEL_RECV] += __popc(got);
+                  req_c += __popc(adv_w & alive[i] & ~sn);
+                }
+                adv_nz = adv_nz || adv_q != 0u;
+              }
             }
-          }
-          tr[TEL_IWANT_REQ] += req_c;
-          tr[TEL_IHAVE_RPCS] += (adv_on && adv_nz) ? 1 : 0;
-          tr[TEL_IWANT_RPCS] += req_c > 0 ? 1 : 0;
-        } else {
-          if (fwd_on || gsp_on) {
+            if (i < nv) {
+              tr[TEL_IWANT_REQ] += req_c;
+              tr[TEL_IHAVE_RPCS] += (adv_on && adv_nz) ? 1 : 0;
+              tr[TEL_IWANT_RPCS] += req_c > 0 ? 1 : 0;
+            }
+          } else {
 #pragma unroll
             for (int w = 0; w < W; ++w) {
-              uint32_t got = 0u;
-              if (fwd_on) got |= __ldcg(&spay[w * n + q]);
-              if (gsp_on) got |= __ldcg(&spay[(W + w) * n + q]);
-              if constexpr (FAULTS) got &= f.alive;   // a down peer hears 0
-              heard[w] |= got & ~(f.have[w] | f.inj[w]);
+              const uint32_t fv = spay[w * SP + q];
+              const uint32_t av = spay[(W + w) * SP + q];
+              uint32_t got = (gsp_on ? av : 0u) | (fwd_on ? fv : 0u);
+              if constexpr (FAULTS) got &= alive[i];  // a down peer hears 0
+              heard[w][i] |= got & ~seen[w][i];
             }
           }
         }
       }
-      if constexpr (FAULTS) {
-        // a down receiver processes no inbound control
-        graft_recv &= f.alive;
-        prune_recv &= f.alive;
-        a_recv &= f.alive;
-      }
-      const uint32_t accept = graft_recv & f.wa;
-      const uint32_t retract = f.grafts & ~a_recv;
-      const uint32_t mesh_new =
-          ((f.mesh_sel | accept) & ~prune_recv) & ~retract;
-      const uint32_t bo_trig = f.dropped | prune_recv | retract;
 
-      if constexpr (TEL) {
-        // the new acquisitions; the delivered ones by latency bucket
-        // (shared atomics, only for a peer with a delivery this tick);
-        // the handshake RPCs on the wire
-        uint32_t dw[W];
-        bool any_dw = false;
+      uint32_t mesh_new[4], bo_trig[4], acq[W][4], have_out[W][4], rej[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t grafts = gd[i] & 0xFFFFu, dropped = gd[i] >> 16;
+        const uint32_t mesh_sel = ma[i] & 0xFFFFu, wa = ma[i] >> 16;
+        uint32_t gr = graft_recv[i], pr = prune_recv[i], ar = a_recv[i];
+        if constexpr (FAULTS) {
+          // a down receiver processes no inbound control
+          gr &= alive[i];
+          pr &= alive[i];
+          ar &= alive[i];
+        }
+        const uint32_t accept = gr & wa;
+        const uint32_t retract = grafts & ~ar;
+        mesh_new[i] = ((mesh_sel | accept) & ~pr) & ~retract;
+        bo_trig[i] = dropped | pr | retract;
+        const bool subscribed = (fl[i] & 0xFFFFu) != 0u;
+        rej[i] = (COLD && (fl[i] & FL_REJ)) ? 0xFFFFFFFFu : 0u;
 #pragma unroll
         for (int w = 0; w < W; ++w) {
-          const uint32_t h = f.sub_all != 0u ? heard[w] : 0u;
-          tr[TEL_NEW_IDS] += __popc(h);
-          dw[w] = n_lat > 0 ? (h | f.inj[w]) & a.dlv[w * n + p] : 0u;
-          any_dw = any_dw || dw[w] != 0u;
+          const uint32_t h = subscribed ? heard[w][i] : 0u;
+          acq[w][i] = h | inj[w][i];
+          have_out[w][i] = seen[w][i] | h;
         }
-        if (any_dw) {
-          for (int b = 0; b < n_lat; ++b) {
-            int c = 0;
+      }
+
+      if constexpr (TEL) {
+        // the new acquisitions (the delivered ones by latency bucket in a
+        // pass of their own, below)
 #pragma unroll
-            for (int w = 0; w < W; ++w) {
-              c += __popc(dw[w] & a.lat_masks[((long long)t * n_lat + b) * W
-                                              + w]);
-            }
-            if (c != 0) atomicAdd(&s_tel[TEL_ROWS + b], c);
+        for (int i = 0; i < 4; ++i) {
+          const bool subscribed = (fl[i] & 0xFFFFu) != 0u;
+#pragma unroll
+          for (int w = 0; w < W; ++w) {
+            if (i < nv) tr[TEL_NEW_IDS] += __popc(subscribed ? heard[w][i]
+                                                             : 0u);
           }
         }
-        const uint32_t cal = FAULTS ? a.cal[(long long)t * n + p] : ~0u;
-        tr[TEL_ROWS] += __popc(f.grafts & f.sok & cal);
-        tr[TEL_ROWS + 1] += __popc(f.dropped & f.sok & cal);
-        a.meshrow[(long long)t * n + p] = mesh_new;
+        st4(a.meshrow + tn, p0, nv, mesh_new);
       }
 
       // acquisitions, possession and the mcache ring slot tick mod Hg
       // (at window entry the other ring rows carry over too)
 #pragma unroll
       for (int w = 0; w < W; ++w) {
-        const uint32_t acq = (f.sub_all != 0u ? heard[w] : 0u) | f.inj[w];
-        a.acq[((long long)t * W + w) * n + p] = acq;
-        a.have[w * n + p] = f.have[w] | acq;
+        st4(a.acq + ((long long)t * W + w) * n, p0, nv, acq[w]);
+        st4(a.have + w * n, p0, nv, have_out[w]);
         for (int h = 0; h < hg; ++h) {
-          const long long r = (long long)(h * W + w) * n + p;
+          uint32_t* row = a.rec + (h * W + w) * n;
           if (h == ring_slot) {
-            a.rec[r] = acq;
-          } else if (t == 0) {
-            a.rec[r] = COLD ? a.rec_in[r] & ~f.rej : a.rec_in[r];
-          } else if (COLD && f.rej != 0u) {
-            a.rec[r] &= ~f.rej;     // a rejoiner's ring comes back clear
+            st4(row, p0, nv, acq[w]);
+          } else if (first) {
+            uint32_t r[4];
+            ld4(a.rec_in + (h * W + w) * n, p0, nv, r);
+            if constexpr (COLD) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) r[i] &= ~rej[i];
+            }
+            st4(row, p0, nv, r);
+          } else if (COLD && (rej[0] | rej[1] | rej[2] | rej[3]) != 0u) {
+            uint32_t r[4];    // a rejoiner's ring comes back clear
+            ld4(row, p0, nv, r);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) r[i] &= ~rej[i];
+            st4(row, p0, nv, r);
           }
         }
       }
 
-      // backoff write + its gate row (i32 detour for max(bo - 1, 0))
-      uint32_t bo_gate = 0u;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const long long idx = (long long)c * n + p;
-        const int bo = bo_cur[idx];
-        const int bo_new = ((bo_trig >> c) & 1u) ? a.backoff_restart
-                                                 : (bo - 1 > 0 ? bo - 1 : 0);
-        a.bo[idx] = (int16_t)bo_new;
-        bo_gate |= (uint32_t)(bo_new > 0) << c;
-      }
+      // the backoff write's edges, for phase A of the next tick (or the
+      // window's last pass)
+      fr_st(fr, fstride, FR_GD, g, bo_trig);
 
       // next tick's gossip targets: Bernoulli(k/|elig|), or the exact
       // uniform k-subset
-      const uint32_t elig = f.cand_sub & ~mesh_new & ~f.fanout & f.sub_all;
-      const int n_el = __popc(elig);
-      const int n_fac = (int)__fmul_rn(a.gossip_factor, (float)n_el);
-      const int n_go = a.d_lazy > n_fac ? a.d_lazy : n_fac;
-      uint32_t tgt = 0u;
-      if constexpr (EXACTK) {
-        tgt = gossip::select_k<C>(elig, C, n_go, a.seeds[t][3], p, a.stride);
-      } else {
-        const float p_g = fminf(
-            1.0f, __fdiv_rn((float)n_go, (float)(n_el > 1 ? n_el : 1)));
+      uint32_t tgt_out[4];
 #pragma unroll
-        for (int c = 0; c < C; ++c) {
-          tgt |= (uint32_t)(gossip::lane_u(a.seeds[t][3], c, p, a.stride)
-                            < p_g) << c;
+      for (int i = 0; i < 4; ++i) {
+        const long long p = p0 + i;
+        const uint32_t elig = (fc[i] >> 16) & ~mesh_new[i] & ~(fc[i] & 0xFFFFu)
+                              & (fl[i] & 0xFFFFu);
+        const int n_el = __popc(elig);
+        const int n_fac = (int)__fmul_rn(a.gossip_factor, (float)n_el);
+        const int n_go = a.d_lazy > n_fac ? a.d_lazy : n_fac;
+        uint32_t tg = 0u;
+        if constexpr (EXACTK) {
+          tg = select_bits<C>(elig, n_go, a.seeds[t][3], p, a.stride);
+        } else {
+          const float p_g = fminf(
+              1.0f, __fdiv_rn((float)n_go, (float)(n_el > 1 ? n_el : 1)));
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            tg |= (uint32_t)(gossip::lane_u(a.seeds[t][3], c, p, a.stride)
+                             < p_g) << c;
+          }
         }
+        tgt_out[i] = elig & tg;
       }
 
-      a.mesh[p] = mesh_new;
-      a.fan[p] = f.fanout;
-      a.lp[p] = f.lp;
-      a.tgt[p] = elig & tgt;
-      a.bog[p] = bo_gate;
+      st4(a.mesh, p0, nv, mesh_new);
+      st4(a.tgt, p0, nv, tgt_out);
     }
     if constexpr (TEL) {
+      // the delivered acquisitions (this tick's, just written by this
+      // thread: acq & dlv) by latency bucket: each warp's groups in step,
+      // a bucket's count summed across the warp and added by one shared
+      // atomic (a shared atomic a peer and bucket contends across the
+      // block's 16 warps)
+      const int lane = threadIdx.x & 31;
+      for (int g0 = threadIdx.x - lane; n_lat > 0 && g0 < groups;
+           g0 += blockDim.x) {
+        const int g = g0 + lane;
+        uint32_t dw[W][4];
+        bool any_dw = false;
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dw[w][i] = 0u;
+          if (g < groups) {
+            const long long p0 = b0 + 4 * g;
+            const int nv = (int)(n - p0 < 4 ? n - p0 : 4);
+            uint32_t dl[4];
+            ld4(a.acq + ((long long)t * W + w) * n, p0, nv, dw[w]);
+            ld4(a.dlv + w * n, p0, nv, dl);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              dw[w][i] &= dl[i];
+              any_dw = any_dw || dw[w][i] != 0u;
+            }
+          }
+        }
+        if (__any_sync(0xFFFFFFFFu, any_dw)) {
+          for (int b = 0; b < n_lat; ++b) {
+            int c = 0;
+#pragma unroll
+            for (int w = 0; w < W; ++w) {
+              const uint32_t m =
+                  a.lat_masks[((long long)t * n_lat + b) * W + w];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) c += __popc(dw[w][i] & m);
+            }
+            c = __reduce_add_sync(0xFFFFFFFFu, c);
+            if (lane == 0 && c != 0) atomicAdd(&s_tel[TEL_ROWS + b], c);
+          }
+        }
+      }
       // the block's partial of each row: warp shuffles, one shared
       // atomic per warp and row, then one global atomic per block and
       // row into the tick's tally
-      const int lane = threadIdx.x & 31;
 #pragma unroll
       for (int r = 0; r < TEL_ROWS + 2; ++r) {
         int v = tr[r];
@@ -499,37 +897,52 @@ __device__ __forceinline__ void fused_body(const FusedArgs& a,
       }
     }
   }
+  // the window's last backoff write and gate row
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+    const long long p0 = b0 + 4 * g;
+    const int nv = (int)(n - p0 < 4 ? n - p0 : 4);
+    uint32_t trig[4], gate[4];
+    fr_ld(fr, fstride, FR_GD, g, trig);
+    backoff_step<C>(a.ticks == 1 ? a.bo_in : a.bo, a.bo, n, p0, nv, trig,
+                    a.backoff_restart, gate);
+    st4(a.bog, p0, nv, gate);
+  }
 }
 
 template <int C, int W, bool EXACTK>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(THREADS, 1)
 fused_window_kernel(const FusedArgs a) {
-  fused_body<C, W, EXACTK, false, false>(a);
+  extern __shared__ uint4 smem_raw[];
+  fused_body<C, W, EXACTK, false, false, false>(
+      a, reinterpret_cast<uint32_t*>(smem_raw));
 }
 
 // The window under a fault schedule: the per-tick alive, send-ok and
 // cand-alive rows, and (COLD) the rejoin row, each read by the peer's own
-// thread at (t, p) in both phases.
+// thread at (t, p) in phase A.
 template <int C, int W, bool EXACTK, bool COLD>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(THREADS, 1)
 fused_window_kernel_faults(const FusedArgs a) {
-  fused_body<C, W, EXACTK, true, COLD>(a);
+  extern __shared__ uint4 smem_raw[];
+  fused_body<C, W, EXACTK, true, COLD, false>(
+      a, reinterpret_cast<uint32_t*>(smem_raw));
 }
 
-// The window with its telemetry rows, without and with fault rows, in
-// kernels of their own, so that the kernels above keep their code.
+// The window with its telemetry rows, without and with fault rows.
 template <int C, int W, bool EXACTK>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(THREADS, 1)
 fused_window_kernel_tel(const FusedArgs a) {
-  extern __shared__ int s_tel[];
-  fused_body<C, W, EXACTK, false, false, true>(a, s_tel);
+  extern __shared__ uint4 smem_raw[];
+  fused_body<C, W, EXACTK, false, false, true>(
+      a, reinterpret_cast<uint32_t*>(smem_raw));
 }
 
 template <int C, int W, bool EXACTK, bool COLD>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(THREADS, 1)
 fused_window_kernel_faults_tel(const FusedArgs a) {
-  extern __shared__ int s_tel[];
-  fused_body<C, W, EXACTK, true, COLD, true>(a, s_tel);
+  extern __shared__ uint4 smem_raw[];
+  fused_body<C, W, EXACTK, true, COLD, true>(
+      a, reinterpret_cast<uint32_t*>(smem_raw));
 }
 
 template <int C, int W, bool EXACTK, bool FAULTS, bool COLD, bool TEL>
@@ -545,75 +958,126 @@ const void* window_kernel() {
   }
 }
 
+// The launch: one block per multiprocessor, each P = ceil(N / SMs)
+// rounded up to a multiple of 4 peers; the front in shared memory where
+// (2W + 4) 4 P bytes and the tally fit in a block's opt-in shared memory,
+// else in device memory.  out: blocks, threads, peers a block, dynamic
+// shared memory a block (bytes), front in device memory (0 / 1).
+struct Plan {
+  int blocks, threads, peers, smem, front_global;
+};
+
 template <int C, int W, bool EXACTK, bool FAULTS, bool COLD, bool TEL>
-int resident_blocks(int threads, size_t smem, int* out) {
-  int per_sm = 0, sms = 0, dev = 0;
+int make_plan(long long n, int tel_lat_buckets, Plan* pl) {
+  int sms = 0, optin = 0, dev = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, window_kernel<C, W, EXACTK, FAULTS, COLD, TEL>(), threads,
-        smem);
-  *out = per_sm * sms;
-  return (int)err;
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long per = (n + sms - 1) / sms;
+  const long long peers = (per + 3) / 4 * 4;
+  const long long tel_bytes =
+      TEL ? ((long long)(TEL_ROWS + tel_lat_buckets + 2) * 4 + 15) / 16 * 16
+          : 0;
+  const long long front_bytes = (long long)front_words(W) * 4 * peers;
+  pl->threads = THREADS;
+  pl->peers = (int)peers;
+  pl->blocks = (int)((n + peers - 1) / peers);
+  pl->front_global = front_bytes + tel_bytes > optin;
+  pl->smem = (int)(pl->front_global ? tel_bytes : front_bytes + tel_bytes);
+  const void* fn = window_kernel<C, W, EXACTK, FAULTS, COLD, TEL>();
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             pl->smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                        THREADS, pl->smem);
+  if (err != cudaSuccess) return (int)err;
+  if ((long long)per_sm * sms < pl->blocks)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  return 0;
 }
 
 template <int C, int W, bool EXACTK, bool FAULTS, bool COLD, bool TEL>
-int launch_variant(const FusedArgs& a, cudaStream_t s) {
-  const int threads = 256;
-  // (TEL) the block's partial tally: 8 + L + 2 ints
-  const size_t smem =
-      TEL ? (size_t)(TEL_ROWS + a.tel_lat_buckets + 2) * sizeof(int) : 0;
-  int resident = 0;
-  int err = resident_blocks<C, W, EXACTK, FAULTS, COLD, TEL>(threads, smem,
-                                                             &resident);
-  if (err != 0) return err;
-  if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const long long want = (a.n + threads - 1) / threads;
-  const int blocks = (int)(want < resident ? want : resident);
-  void* args[] = {(void*)&a};
+int launch_variant(const FusedArgs& args, cudaStream_t s, Plan* only) {
+  Plan pl;
+  int err = make_plan<C, W, EXACTK, FAULTS, COLD, TEL>(
+      args.n, args.tel_lat_buckets, &pl);
+  if (err != 0 || only != nullptr) {
+    if (only != nullptr) *only = pl;
+    return err;
+  }
+  if (pl.front_global && args.front == nullptr)
+    return (int)cudaErrorInvalidValue;
+  FusedArgs a = args;
+  a.peers = pl.peers;
+  a.front_global = pl.front_global;
+  void* kargs[] = {(void*)&a};
   err = (int)cudaLaunchCooperativeKernel(
-      window_kernel<C, W, EXACTK, FAULTS, COLD, TEL>(), dim3(blocks),
-      dim3(threads), args, smem, s);
+      window_kernel<C, W, EXACTK, FAULTS, COLD, TEL>(), dim3(pl.blocks),
+      dim3(pl.threads), kargs, pl.smem, s);
   if (err != 0) return err;
   return (int)cudaGetLastError();
 }
 
 template <int C, int W, bool EXACTK, bool TEL>
-int launch_faults(const FusedArgs& a, cudaStream_t s) {
-  if (!a.faults) return launch_variant<C, W, EXACTK, false, false, TEL>(a, s);
-  if (a.cold) return launch_variant<C, W, EXACTK, true, true, TEL>(a, s);
-  return launch_variant<C, W, EXACTK, true, false, TEL>(a, s);
+int launch_faults(const FusedArgs& a, cudaStream_t s, Plan* only) {
+  if (!a.faults)
+    return launch_variant<C, W, EXACTK, false, false, TEL>(a, s, only);
+  if (a.cold) return launch_variant<C, W, EXACTK, true, true, TEL>(a, s, only);
+  return launch_variant<C, W, EXACTK, true, false, TEL>(a, s, only);
 }
 
 template <int C, int W, bool EXACTK>
-int launch_targets(const FusedArgs& a, cudaStream_t s) {
-  if (a.telemetry) return launch_faults<C, W, EXACTK, true>(a, s);
-  return launch_faults<C, W, EXACTK, false>(a, s);
+int launch_targets(const FusedArgs& a, cudaStream_t s, Plan* only) {
+  if (a.telemetry) return launch_faults<C, W, EXACTK, true>(a, s, only);
+  return launch_faults<C, W, EXACTK, false>(a, s, only);
 }
 
 template <int C, int W>
-int launch(const FusedArgs& a, cudaStream_t s) {
-  if (a.exact_k) return launch_targets<C, W, true>(a, s);
-  return launch_targets<C, W, false>(a, s);
+int launch(const FusedArgs& a, cudaStream_t s, Plan* only) {
+  if (a.exact_k) return launch_targets<C, W, true>(a, s, only);
+  return launch_targets<C, W, false>(a, s, only);
+}
+
+int dispatch(const FusedArgs* args, int c, int w, void* stream,
+             Plan* only) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (c == 16 && w == 1) return launch<16, 1>(*args, s, only);
+  if (c == 16 && w == 2) return launch<16, 2>(*args, s, only);
+  if (c == 8 && w == 1) return launch<8, 1>(*args, s, only);
+  if (c == 8 && w == 2) return launch<8, 2>(*args, s, only);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // c in {8, 16}, w in {1, 2}.  Returns the CUDA error code of the launch:
-// cudaErrorCooperativeLaunchTooLarge when not one block can be resident
-// (the wrapper raises the named refusal; nothing runs), or
+// cudaErrorCooperativeLaunchTooLarge when the grid cannot be resident
+// (the wrapper raises the named refusal; nothing runs),
 // cudaErrorInvalidValue for a shape with no instantiation (the wrapper
-// refuses those first).
+// refuses those first) or a front that needs the device-memory scratch
+// the caller did not give.
 extern "C" int gossip_fused_window(const FusedArgs* args, int c, int w,
                                    void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
   if (args->n <= 0 || args->ticks <= 0) return 0;
   if (args->ticks > MAX_WINDOW) return (int)cudaErrorInvalidValue;
-  if (c == 16 && w == 1) return launch<16, 1>(*args, s);
-  if (c == 16 && w == 2) return launch<16, 2>(*args, s);
-  if (c == 8 && w == 1) return launch<8, 1>(*args, s);
-  if (c == 8 && w == 2) return launch<8, 2>(*args, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(args, c, w, stream, nullptr);
+}
+
+// The launch the window would make for ``args`` (the kernel variant its
+// flags select) at shape (c, w): out = {blocks, threads, peers a block,
+// dynamic shared memory a block, front in device memory}; nothing runs.
+extern "C" int gossip_fused_launch_config(const FusedArgs* args, int c,
+                                          int w, int* out) {
+  Plan pl{};
+  const int err = dispatch(args, c, w, nullptr, &pl);
+  out[0] = pl.blocks;
+  out[1] = pl.threads;
+  out[2] = pl.peers;
+  out[3] = pl.smem;
+  out[4] = pl.front_global;
+  return err;
 }

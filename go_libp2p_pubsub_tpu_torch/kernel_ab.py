@@ -37,6 +37,17 @@ it.  ``--ptxas --parent DIR`` (no sources) compares every source of this
 tree's ``csrc`` that DIR also holds (a parent's ``csrc``) with the
 parent's, all built concurrently.
 
+    python -m go_libp2p_pubsub_tpu_torch.kernel_ab --fused A.cu B.cu [...]
+
+builds variants of ``csrc/fused.cu`` (this tree's C interface, headers
+beside each) concurrently, prints each one's ptxas lines and build
+seconds, and times them in turns on ``chip_smoke.py`` phase 7's two real
+carries at 1,048,576 peers, T = 8 (the built state, mesh formation, and
+the state after 12 per-tick steps): CUDA events over 20 back-to-back
+launches, ``--reps`` times each.  Whether each build's outputs equal the
+plain version's is printed beside its times, and not required: a variant
+that skips part of the window (to split its time) gives other outputs.
+
     python -m go_libp2p_pubsub_tpu_torch.kernel_ab --parent DIR [--reps 3]
         [--only LABEL,...]
 
@@ -51,7 +62,8 @@ churn tick 130, the flagship stepped with telemetry, the knob sweep's
 ``gf40`` point, the pipelined ``base4j2`` point, the resident unscored
 configuration), select on ``chip_smoke.py`` phase 3's seeded operands and
 on every call of a flagship tick, and the fused window (clean, exact-k,
-faulted with cold restart, telemetry) at the resident shapes; each
+faulted with cold restart, telemetry clean and faulted with cold restart)
+at the resident shapes; each
 version checked bit-identical to the plain version first.  Prints one
 JSON line with the card and every time by version.  ``--only`` keeps the
 named receive families (``flagship``, ``flagship_exact_k``,
@@ -89,6 +101,8 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--parent", type=Path, default=None)
+    ap.add_argument("--fused", action="store_true",
+                    help="the sources are variants of csrc/fused.cu")
     ap.add_argument("--only", default=None,
                     help="comma-separated labels (--parent only)")
     args = ap.parse_args()
@@ -105,6 +119,10 @@ def main() -> None:
     out_dir.mkdir(parents=True, exist_ok=True)
     if args.parent is not None and args.ptxas:
         ptxas_against_parent(cs, args.parent, out_dir)
+        return
+    if args.fused:
+        print(json.dumps(fused_variants(cs, args.sources, out_dir,
+                                        args.reps)))
         return
     if args.parent is not None:
         print(json.dumps(against_parent(cs, args.parent, out_dir,
@@ -412,8 +430,9 @@ def select_operands(cs, dev):
 def fused_windows(cs, dev):
     """(label, consts, operands) of the fused windows timed, at the
     resident shapes as chip_smoke.py checks them: clean from tick 12,
-    exact-k from tick 12, faulted with cold restart from tick 24, clean
-    with telemetry (L = 16) from tick 1."""
+    exact-k from tick 12, faulted with cold restart from tick 24, with
+    telemetry (L = 16) clean from tick 1 and faulted with cold restart
+    from tick 24."""
     from . import resident
     from .models import telemetry as tl
     from .ops import graph
@@ -426,7 +445,9 @@ def fused_windows(cs, dev):
             ("clean", {}, 12, False), ("exact_k", dict(exact_k=True), 12,
                                        False),
             ("faulted_cold", dict(fault_schedule=sched), 24, False),
-            ("telemetry", {}, 1, True)):
+            ("telemetry", {}, 1, True),
+            ("telemetry_faulted_cold", dict(fault_schedule=sched), 24,
+             True)):
         cfg, params, state, *_ = resident.build(dev, horizon=cs.RES_WARMUP,
                                                 **kw)
         k = kfused.fused_consts(cfg, telemetry=tel,
@@ -499,6 +520,70 @@ def against_parent(cs, parent: Path, out_dir: Path, reps: int,
                 reps, lambda fn: cs.eager_ms(fn, 20))
             print(f"fused {label}: {out['fused_ms'][label]}", flush=True)
             del want
+    return out
+
+
+def fused_variants(cs, sources: list[str], out_dir: Path,
+                   reps: int) -> dict:
+    """Variants of csrc/fused.cu timed in turns on phase 7's two carries
+    (module docstring)."""
+    import time
+
+    from . import resident
+    from .ops import graph
+    from .ops.kernels import fused as kfused
+
+    procs = {}
+    for i, src in enumerate(sources):
+        lib = out_dir / f"libfused{i}.so"
+        procs[src] = (lib, time.perf_counter(), subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs, build_s = {}, {}
+    for src, (lib, t0, proc) in procs.items():
+        log, _ = proc.communicate()
+        build_s[src] = round(time.perf_counter() - t0, 1)
+        if proc.returncode:
+            raise SystemExit(f"nvcc {src} failed:\n{log}")
+        for line in cs.ptxas_summary(log):
+            if "<16,1," in line:
+                print(f"ptxas[{src}]: {line}")
+        libs[src] = ctypes.CDLL(str(lib))
+    print(f"build seconds: {build_s}", flush=True)
+    dev = torch.device("cuda")
+    cfg, params, state, *_ = resident.build(dev)
+    step = gs.make_gossip_step(cfg, None, device=dev)
+    k = kfused.fused_consts(cfg)
+    Tw = resident.WINDOW
+    all_c = (1 << cfg.n_candidates) - 1
+    out = {"card": flagship.card(), "build_s": build_s, "ms": {},
+           "identical": {}}
+    for label, st in (("formation", state),
+                      ("warm12", gs.gossip_run(params, state, 12, step,
+                                               device=dev))):
+        tk = torch.arange(st.tick, st.tick + Tw, dtype=torch.int32,
+                          device=dev)
+        fops = dict(
+            tick0=st.tick, seeds=kfused.window_seeds(st.tick, Tw, st.salt),
+            due=graph.pack_bits(params.publish_tick[None, :] == tk[:, None]),
+            sub_all=torch.where(params.subscribed, all_c, 0).to(torch.int32),
+            cand_sub=params.cand_sub_bits, origin=params.origin_words,
+            have=st.have, recent=st.recent, mesh=st.mesh, fanout=st.fanout,
+            last_pub=st.last_pub, backoff=st.backoff, tgt=st.gates[0],
+            bog=st.gates[1])
+        want = kfused.fused_gossip_update_plain(k, **fops)
+        out["identical"][label] = {}
+        for src, lib in libs.items():
+            _build._LIBS["fused"] = lib
+            got = kfused.fused_gossip_update(k, **fops)
+            out["identical"][label][src] = all(
+                torch.equal(g, w) for g, w in zip(got, want))
+        out["ms"][label] = in_turns({"fused": libs}, "fused",
+                                    lambda: kfused.fused_gossip_update(
+                                        k, **fops),
+                                    reps, lambda fn: cs.eager_ms(fn, 20))
+        print(f"fused {label}: {out['ms'][label]}", flush=True)
+        del want, got, fops
     return out
 
 

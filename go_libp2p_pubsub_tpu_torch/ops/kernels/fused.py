@@ -246,7 +246,10 @@ class _Args(ctypes.Structure):
         # the telemetry rows, after those
         + [(name, ctypes.c_void_p) for name in (
             "lat_masks", "dlv", "meshrow", "tel")]
-        + [("tel_lat_buckets", ctypes.c_int), ("telemetry", ctypes.c_int)])
+        + [("tel_lat_buckets", ctypes.c_int), ("telemetry", ctypes.c_int)]
+        # the front's device-memory scratch; the launch sets the other two
+        + [("front", ctypes.c_void_p), ("peers", ctypes.c_int),
+           ("front_global", ctypes.c_int)])
 
 
 _CARRY = ("have", "recent", "mesh", "fanout", "last_pub", "backoff", "tgt",
@@ -301,6 +304,46 @@ def _check_operands(k: FusedConsts, ops: dict) -> None:
 #: the kernel resident, so its cooperative grid cannot run
 COOPERATIVE_TOO_LARGE = 720
 
+#: threads a block (csrc/fused.cu THREADS): each owns 4-peer groups
+THREADS = 512
+#: the card ``launch_plan`` restates csrc/fused.cu ``make_plan`` for, which
+#: reads these from the device: an H100's multiprocessors and the shared
+#: memory one block may opt in to
+H100 = {"sms": 132, "smem_optin": 232_448}
+
+
+def front_words(w: int) -> int:
+    """Words of the kernel's front a peer: possession and injected words
+    (W each), grafts | dropped, selected mesh | would-accept, fanout |
+    cand_sub (16 bits each) and the flags."""
+    return 2 * w + 4
+
+
+def stage_strides(n: int) -> tuple[int, int]:
+    """Row strides of the stage: ctrl bytes and payload words, each row
+    at least N + 8 long (its halo at N..N+2 repeats entries 0..2, and a
+    read at N - 1 takes a second aligned word) and a whole number of
+    128-byte lines (a slot is one tick's, read through L1: no line holds
+    entries of two slots)."""
+    return (n + 8 + 127) // 128 * 128, (n + 8 + 31) // 32 * 32
+
+
+def launch_plan(w: int, n: int, tel_rows: int = 0, sms: int = H100["sms"],
+                smem_optin: int = H100["smem_optin"]) -> dict:
+    """The kernel's launch as csrc/fused.cu ``make_plan`` computes it: one
+    block a multiprocessor, each owning P = ceil(N / SMs) peers rounded up
+    to a multiple of 4 (the last block the ragged rest), the front in
+    shared memory where its (2W + 4) 4 P bytes and the telemetry tally
+    (``tel_rows`` ints, 16-byte rounded) fit a block's opt-in shared
+    memory, else in device memory."""
+    peers = -(-(-(-n // sms)) // 4) * 4
+    tel_bytes = -(-tel_rows * 4 // 16) * 16
+    front = front_words(w) * 4 * peers
+    front_global = front + tel_bytes > smem_optin
+    return dict(blocks=-(-n // peers), threads=THREADS, peers=peers,
+                smem_bytes=tel_bytes if front_global else front + tel_bytes,
+                front_global=int(front_global))
+
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused")
@@ -318,26 +361,71 @@ def check_launch(err: int) -> None:
     _build.check(err, "fused_gossip_update")
 
 
+def _config_args(k: FusedConsts, n: int, faults: bool = False,
+                 cold: bool = False) -> _Args:
+    """The argument block's fields that select the kernel variant and its
+    launch."""
+    a = _Args()
+    a.n = n
+    a.exact_k = int(k.receive.exact_k)
+    a.faults, a.cold = int(faults), int(cold)
+    a.telemetry = int(k.telemetry)
+    a.tel_lat_buckets = k.tel_lat_buckets
+    return a
+
+
+def launch_config(k: FusedConsts, n: int, w: int = 1, faults: bool = False,
+                  cold: bool = False) -> dict:
+    """The kernel's launch for a window of ``k`` at ``n`` peers and ``w``
+    message words (the clean, faulted or cold-restart variant): blocks,
+    threads, peers a block, dynamic shared memory a block (bytes) and
+    where the front is kept (``front``: "shared" or "device")."""
+    out = (ctypes.c_int * 5)()
+    a = _config_args(k, n, faults, cold)
+    fn = _lib().gossip_fused_launch_config
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
+    check_launch(fn(ctypes.byref(a), k.n_candidates, w, out))
+    cfg = dict(zip(("blocks", "threads", "peers", "smem_bytes"), out))
+    cfg["front"] = "device" if out[4] else "shared"
+    return cfg
+
+
 def fused_gossip_update(k: FusedConsts, **ops):
     """T unscored ticks in one launch (operands and outputs: module
     docstring).
 
     CUDA tensors launch the kernel (a failed build or launch raises);
     CPU tensors run ``fused_gossip_update_plain``."""
-    global launches, launches_faults, launches_tel
     _check_operands(k, ops)
     if ops["have"].device.type == "cpu":
         return fused_gossip_update_plain(k, **ops)
+    return _launch(k, ops)
+
+
+def _launch(k: FusedConsts, ops: dict):
+    global launches, launches_faults, launches_tel
     C = k.n_candidates
     W, n = ops["have"].shape
     T = len(ops["seeds"])
     Hg = k.history_gossip
     dev = ops["have"].device
+    faults = ops.get("alive") is not None
+    cold = ops.get("rejoin") is not None
     outs = {name: torch.empty_like(ops[name]) for name in _CARRY}
     acq = torch.empty((T, W, n), dtype=torch.int32, device=dev)
-    stage_ctrl = torch.empty((2, C, n), dtype=torch.uint8, device=dev)
-    stage_pay = torch.empty((2, 2 * W, n), dtype=torch.int32, device=dev)
-    a = _Args()
+    sc, sp = stage_strides(n)
+    stage_ctrl = torch.empty((T, C, sc), dtype=torch.uint8, device=dev)
+    stage_pay = torch.empty((T, 2 * W, sp), dtype=torch.int32, device=dev)
+    # the front's device-memory scratch, sized for any plan: blocks * P
+    # stays below N + 4 SMs (P is N / SMs rounded up to 4 peers).  The
+    # launch reads it only where the front does not fit in shared memory
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    front = torch.empty((front_words(W), n + 4 * sms), dtype=torch.int32,
+                        device=dev)
+    a = _config_args(k, n, faults, cold)
+    a.front = front.data_ptr()
     for name in ("sub_all", "cand_sub", "origin", "due"):
         setattr(a, name, ops[name].data_ptr())
     for field, name in (("have", "have"), ("rec", "recent"),
@@ -350,7 +438,7 @@ def fused_gossip_update(k: FusedConsts, **ops):
     a.stage_ctrl = stage_ctrl.data_ptr()
     a.stage_pay = stage_pay.data_ptr()
     r = k.receive
-    a.n, a.ticks, a.tick0, a.hg = n, T, int(ops["tick0"]), Hg
+    a.ticks, a.tick0, a.hg = T, int(ops["tick0"]), Hg
     for j in range(C):
         a.offsets[j] = r.offsets[j] % n
         a.cinv[j] = r.cinv[j]
@@ -360,12 +448,9 @@ def fused_gossip_update(k: FusedConsts, **ops):
     a.d_lazy = r.d_lazy
     a.gossip_factor = r.gossip_factor
     a.stride = n & graph.MASK32
-    a.exact_k = int(r.exact_k)
     for field, name in zip(("alive", "sok", "cal", "rej"), FAULT_ROWS):
         if ops.get(name) is not None:
             setattr(a, field, ops[name].data_ptr())
-    a.faults = int(ops.get("alive") is not None)
-    a.cold = int(ops.get("rejoin") is not None)
     for t, tick_seeds in enumerate(ops["seeds"]):
         for i, seed in enumerate(tick_seeds):
             a.seeds[t][i] = int(seed) & graph.MASK32
@@ -376,9 +461,7 @@ def fused_gossip_update(k: FusedConsts, **ops):
                torch.zeros((T, len(krecv.TEL_ROWS) + k.tel_lat_buckets
                             + TEL_FUSED_EXTRA), dtype=torch.int32,
                            device=dev))
-        a.telemetry = 1
         a.meshrow, a.tel = (t_.data_ptr() for t_ in tel)
-        a.tel_lat_buckets = k.tel_lat_buckets
         if k.tel_lat_buckets:
             a.lat_masks = ops["lat_masks"].data_ptr()
             a.dlv = ops["dlv"].data_ptr()
@@ -414,6 +497,6 @@ def window_operand_bytes(ops: dict) -> int:
 def stage_bytes(k: FusedConsts, ops: dict) -> int:
     """Bytes of this kernel's stage over a window: each tick's ctrl bytes
     and fresh and advert words written once and read once (an
-    intermediate of the design, which fits in L2 at 1M peers)."""
+    intermediate of the design, one slot a tick)."""
     W, n = ops["have"].shape
     return 2 * len(ops["seeds"]) * n * (k.n_candidates + 8 * W)

@@ -1271,8 +1271,10 @@ TILE = prc.RECEIVE_TILE
 #: first starts 16-byte aligned; the last tile is ragged, and each edge's
 #: ctrl window wraps past N in the middle of some tile)
 EDGE_NS = (1, TILE - 1, TILE, TILE + 1, 3 * TILE + 37)
-SMALL = dict(d=3, d_lo=2, d_hi=6, d_score=2, d_out=1, d_lazy=2,
-             gossip_factor=0.25, backoff_ticks=8)
+#: the edge cases' C = 8 config (a name of its own: the sim functions
+#: above read ``SMALL`` and pass their own ``backoff_ticks``)
+EDGE_SMALL = dict(d=3, d_lo=2, d_hi=6, d_score=2, d_out=1, d_lazy=2,
+                  gossip_factor=0.25, backoff_ticks=8)
 #: family: (C, W, scored, score config, receive_consts options, with a
 #: static score term)
 EDGE_FAMILIES = {
@@ -1316,7 +1318,7 @@ def tile_edge_case(family: str, n: int, seed: int = 0):
     cfg = pgs.GossipSimConfig(
         offsets=pgs.make_gossip_offsets(4, c, 4096, seed=3, paired=paired),
         n_topics=4, paired_topics=paired, binomial_gossip_sampling=not exact,
-        **(SMALL if c == 8 else {}))
+        **(EDGE_SMALL if c == 8 else {}))
     sc = pgs.ScoreSimConfig(**sc_kw) if scored else None
     k = prc.receive_consts(cfg, sc, **opts)
     rng = np.random.default_rng(seed)
@@ -1465,3 +1467,131 @@ def test_receive_kernel_on_misaligned_operands(cuda, family):
     got = prc.receive_update(k, **_to_misaligned(ops, cuda))
     torch.cuda.synchronize()
     _identical(got, want)
+
+
+# -- the fused window at the edges of its peer ranges ---------------------------
+
+#: (C, W, N, offsets) of the fused-window edge cases: N off the kernel's
+#: 4-peer groups, N below one block's 512 threads' groups (every block
+#: ragged), offsets +-1..+-8 (most senders of every group wrap at N), W = 2
+#: at C = 8 and C = 16, the largest N a smoke phase runs (1,048,576, the
+#: front in shared memory) and W = 2 there (the front in device memory)
+FUSED_EDGES = {
+    "ragged": (16, 1, 4094, None),
+    "ragged_w2": (8, 2, 4093, None),
+    "below_block": (16, 1, 1001, None),
+    "tiny": (8, 1, 37, None),
+    "wrap": (16, 1, 4096, tuple(s * k for k in range(1, 9)
+                                for s in (1, -1))),
+    "w2_c8": (8, 2, 4096, None),
+    "w2_c16": (16, 2, 4096, None),
+    "largest": (16, 1, 1 << 20, None),
+    "largest_w2": (16, 2, 1 << 20, None),
+}
+FUSED_VARIANTS = ("clean", "exact_k", "faulted", "cold", "telemetry",
+                  "telemetry_cold")
+
+
+def fused_edge_case(case: str, variant: str, seed: int = 0, ticks: int = 8):
+    """(consts, operands) of a fused window at ``FUSED_EDGES[case]`` with
+    seeded operands: C-bit masks (mesh degrees on both sides of Dlo and
+    Dhi, so the graft and prune draws run), a few publishers due in the
+    window, backoffs in [0, 60], the fault rows' alive and rejoin words
+    all-ones or zero as ``window_fault_rows`` makes them."""
+    c, w, n, offsets = FUSED_EDGES[case]
+    if offsets is None:
+        offsets = pg.make_circulant_offsets(1, c, max(n, 2 * c + 3),
+                                            seed=seed)
+        offsets = tuple(int(o) for o in offsets)
+    cfg = pgs.GossipSimConfig(
+        offsets=offsets[:c], n_topics=1,
+        binomial_gossip_sampling=variant != "exact_k",
+        **(EDGE_SMALL if c == 8 else {}))
+    rng = np.random.default_rng(seed + n)
+    all_c = (1 << c) - 1
+
+    def masks(p=0.5, shape=(n,)):
+        bits = rng.random(shape + (c,)) < p
+        return torch.from_numpy((bits * (1 << np.arange(c))).sum(-1)
+                                .astype(np.int32))
+
+    def sparse_words(shape, p):
+        return torch.where(torch.from_numpy(rng.random(shape) < p),
+                           _words(rng, shape), 0)
+
+    hg, tick0 = cfg.history_gossip, 40
+    ops = dict(
+        tick0=tick0, seeds=pfused.window_seeds(tick0, ticks, seed),
+        due=sparse_words((ticks, w), 0.3),
+        sub_all=torch.where(torch.from_numpy(rng.random(n) < 0.9), all_c,
+                            0).to(torch.int32),
+        cand_sub=masks(0.9), origin=sparse_words((w, n), 0.01),
+        have=_words(rng, (w, n)), recent=_words(rng, (hg, w, n)),
+        mesh=masks(float(rng.uniform(0.1, 0.6))), fanout=masks(0.3),
+        last_pub=torch.from_numpy(rng.integers(tick0 - 70, tick0 + 1, n)
+                                  .astype(np.int32)),
+        backoff=torch.from_numpy(rng.integers(0, 61, (c, n))
+                                 .astype(np.int16)),
+        tgt=masks(0.4), bog=masks(0.2))
+    if variant in ("faulted", "cold", "telemetry_cold"):
+        def all_or_none(p):
+            return torch.where(torch.from_numpy(rng.random((ticks, n)) < p),
+                               -1, 0).to(torch.int32)
+        ops.update(alive=all_or_none(0.9), send_ok=_words(rng, (ticks, n)),
+                   cand_alive=masks(0.9, (ticks, n)))
+        if variant != "faulted":
+            ops["rejoin"] = all_or_none(0.05)
+    tel = variant.startswith("telemetry")
+    if tel:
+        ops.update(lat_masks=_words(rng, (ticks, 16, w)),
+                   dlv=_words(rng, (w, n)))
+    return pfused.fused_consts(cfg, telemetry=tel,
+                               tel_lat_buckets=16 if tel else 0), ops
+
+
+def _fused_launches():
+    return pfused.launches + pfused.launches_faults + pfused.launches_tel
+
+
+@pytest.mark.parametrize("variant", FUSED_VARIANTS)
+@pytest.mark.parametrize("case", sorted(FUSED_EDGES))
+def test_fused_kernel_at_range_edges(cuda, case, variant):
+    """Each variant of the fused kernel against its plain version at
+    ``FUSED_EDGES`` (the plain version on the card at 1M peers), every
+    output bit for bit, one launch; the front where ``launch_plan`` puts
+    it, and the card's launch configuration equal to that plan."""
+    k, ops = fused_edge_case(case, variant)
+    c, w, n, _ = FUSED_EDGES[case]
+    ops_g = _to(ops, cuda)
+    want = pfused.fused_gossip_update_plain(
+        k, **(ops_g if n > 100_000 else ops))
+    before = _fused_launches()
+    got = pfused.fused_gossip_update(k, **ops_g)
+    torch.cuda.synchronize()
+    assert _fused_launches() == before + 1
+    assert len(got) == len(want)
+    for i, (g, x) in enumerate(zip(got, want)):
+        assert torch.equal(g.cpu(), x.cpu()), f"output {i}"
+    faults = ops.get("alive") is not None
+    cfg = pfused.launch_config(k, n, w, faults, ops.get("rejoin") is not None)
+    tel_rows = (len(prc.TEL_ROWS) + k.tel_lat_buckets
+                + pfused.TEL_FUSED_EXTRA) if k.telemetry else 0
+    plan = pfused.launch_plan(
+        w, n, tel_rows,
+        sms=torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert cfg == {**{key: plan[key] for key in (
+        "blocks", "threads", "peers", "smem_bytes")},
+        "front": "device" if plan["front_global"] else "shared"}
+    assert (cfg["front"] == "device") == (case == "largest_w2")
+
+
+@pytest.mark.parametrize("variant", ["clean", "telemetry_cold"])
+def test_fused_kernel_on_misaligned_operands(cuda, variant):
+    """Fused operands that start off a 16-byte boundary (every row moves
+    a word a peer) against the plain version, at a ragged N."""
+    k, ops = fused_edge_case("ragged", variant, seed=1)
+    want = pfused.fused_gossip_update_plain(k, **ops)
+    got = pfused.fused_gossip_update(k, **_to_misaligned(ops, cuda))
+    torch.cuda.synchronize()
+    for i, (g, x) in enumerate(zip(got, want)):
+        assert torch.equal(g.cpu(), x), f"output {i}"
