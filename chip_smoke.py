@@ -245,6 +245,33 @@ Phases (any failure exits non-zero; nothing is caught):
    plain versions, on seeded random operands and on every call of a busy
    tick of the benchmark's sim stepped by its armed step: every output
    bit-identical; both timed on the tick;
+5t. the select kernel's C = 32 instantiation against its plain version:
+   seeded operands at N = 1,000,000 (bit 31 live) and every call of a
+   real tick of phase 5w's C = 32 sim (100,000 peers, after 10
+   heartbeats): bit-identical; both timed on the seeded operands;
+5u. the receive loops' combined form at full width
+   (go_libp2p_pubsub_tpu_torch/loops_flagship.py ``byzantine``: the
+   tournament's byzantine x reference cell at the flagship's widths,
+   1,000,000 peers x 100 topics, C = 16, M = 32, 20% mutating relays,
+   honest origins, the checker armed), 50 warm-up and 100 timed
+   heartbeats, counts reset just before and read just after: every
+   settled message at every honest member of its topic, P4 on some edge
+   from a mutator and on no other edge, the report clean, the receive
+   kernel never launched and the select kernel launched; the rate, a
+   10-tick profile (device busy ms a tick, idle share, launches a tick),
+   peak memory;
+5v. the loops' split form at full width (``p3``: the flagship with the
+   JAX package's P3/P3b test configuration and one message a tick), the
+   same counts and records: delivery of the settled messages, P3 credit on
+   a mesh edge, a P3b penalty somewhere, no receive-kernel launch;
+5w. the split loops at C = 32 (``wide``: 100,000 peers, 30 ticks): the
+   digest of every state leaf on the card equal to the CPU's;
+5x. the JAX package's attack x defense tournament as written
+   (go_libp2p_pubsub_tpu_torch/tournament.py ``run_tournament(20000, 20,
+   24, 150)``): its 20 cells one after another on the card, every row
+   printed beside TOURNEY_r12.json's, no cell with an invariant bit, no
+   receive-kernel launch; the byzantine x reference cell also on the CPU,
+   its digest equal to the card's; the replica heartbeats/s;
 6. the unscored receive kernel against its plain version at the resident
    configuration's shapes (N = 1,048,576, C = 16, W = 1), on seeded random
    operands and on the operands of a real unscored tick: every output
@@ -279,12 +306,15 @@ import json
 import re
 import sys
 import time
+from pathlib import Path
 
 import torch
 
 WARMUP, TIMED = 100, 300
 INV_CHECK_PEERS = 100_000      # 5r: each family's armed tick, card vs CPU
 RES_WARMUP, RES_TIMED = 64, 256     # the resident path, 8-tick windows
+WIDE_PEERS, WIDE_TICKS = 100_000, 30   # 5t/5w: the C = 32 split loops
+TOURNEY_SHAPE = (20_000, 20, 24, 150)  # 5x: the tournament as written
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 
@@ -1154,9 +1184,11 @@ def main() -> None:
         flagship,
         knob_sweep,
         invariants_flagship,
+        loops_flagship,
         pipelined,
         resident,
         telemetry_flagship,
+        tournament,
     )
     from go_libp2p_pubsub_tpu_torch.models import faults
     from go_libp2p_pubsub_tpu_torch.models import gossipsub as pg
@@ -2800,6 +2832,164 @@ def main() -> None:
              f"{inv_main}")
     inv_k = invariant_path_kernels(dev)
 
+    # -- 5t. B3 at C = 32 against its plain version: seeded operands at
+    # 1,000,000 peers, and every call of a real tick of the C = 32 split
+    # loops (phase 5w's sim at 100,000 peers, after 10 heartbeats)
+    t0 = time.perf_counter()
+    C32 = 32
+    g = torch.Generator(device=dev)
+    g.manual_seed(32)
+    hi = torch.randint(0, 1 << 32, (n,), generator=g, device=dev)
+    lo = torch.randint(0, 1 << 32, (n,), generator=g, device=dev)
+    elig32 = graph.to_i32(hi | lo)                       # bit 31 live
+    kk32 = torch.randint(0, C32 + 3, (n,), generator=g, device=dev).to(
+        torch.int32)
+    seed32 = graph.lane_seed(7, 2, 0)
+    s32_err = check_identical(
+        "select C=32 (seeded)",
+        (ksel.select_k_bits(elig32, kk32, C32, seed32, n),),
+        (ksel.select_k_bits_plain(elig32, kk32, C32, seed32, n),))
+    s32_ms = device_ms(
+        lambda: ksel.select_k_bits(elig32, kk32, C32, seed32, n), 200)
+    s32_plain_ms = device_ms(
+        lambda: ksel.select_k_bits_plain(elig32, kk32, C32, seed32, n), 3)
+    s32_bound = bound(3 * 4 * n, select_ops(elig32, kk32, C32))
+    del hi, lo, elig32, kk32
+    cfg_w, sc_w, p_w, s_w, _ = loops_flagship.build(
+        "wide", dev, n_peers=WIDE_PEERS, horizon=WIDE_TICKS)
+    step_w = pg.make_gossip_step(cfg_w, sc_w, device=dev)
+    s_w = pg.gossip_run(p_w, s_w, 10, step_w, device=dev)
+    calls = capture_calls(lambda: step_w(p_w, s_w), ksel, "select_k_bits")
+    for args, _ in calls:
+        s32_err = max(s32_err, check_identical(
+            "select C=32 (a real tick)", (ksel.select_k_bits(*args),),
+            (ksel.select_k_bits_plain(*args),)))
+    if not calls or any(a[2] != C32 for a, _ in calls):
+        fail(f"C=32 tick: select calls at C {[a[2] for a, _ in calls]}")
+    del p_w, s_w, step_w
+    print(f"select C=32: identical at N={n} (seeded, bit 31 live) and on "
+          f"the {len(calls)} calls of a real C=32 tick at N={WIDE_PEERS}; "
+          f"device time: kernel {s32_ms:.4f} ms, plain {s32_plain_ms:.3f} "
+          f"ms, bound {s32_bound[0]:.4f} ms ({s32_bound[1]}) "
+          f"[{name}, {smi}]; {time.perf_counter() - t0:.1f} s")
+
+    # -- 5u, 5v. the receive loops at full width, combined (the
+    # tournament's byzantine cell) and split (P3/P3b), counts reset just
+    # before each run and read just after (loops_flagship.run)
+    loops_main = {}
+    for kind in ("byzantine", "p3"):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        alloc0_l = torch.cuda.memory_allocated()
+        out = loops_flagship.run(kind, dev)
+        st_l, p_l, step_l = out.pop("state"), out.pop("params"), \
+            out.pop("step")
+        box = [st_l]
+
+        def more():
+            box[0] = pg.gossip_run(p_l, box[0], 10, step_l, device=dev)
+        prof = flagship.profile_ticks(more, 10)
+        out.update(start_bytes=alloc0_l, profile={
+            key: prof[key] for key in (
+                "wall_ms_per_tick", "device_busy_ms_per_tick",
+                "device_idle_share", "launches_per_tick")},
+            select_launches_per_tick=out["launches"]["select"] / (
+                out["warmup"] + out["timed"]),
+            seconds=time.perf_counter() - t0)
+        print(f"loops {kind} (full width): {out['n_peers']} peers x "
+              f"{flagship.N_TOPICS} topics, C={out['n_candidates']}, "
+              f"M={out['n_msgs']}: {out['heartbeats_per_s']:.2f} "
+              f"heartbeats/s ({out['ms_per_tick']:.3f} ms/tick), device "
+              f"busy {prof['device_busy_ms_per_tick']:.3f} ms/tick, idle "
+              f"share {prof['device_idle_share']:.4f}, "
+              f"{prof['launches_per_tick']:.1f} launches/tick, launches "
+              f"{out['launches']}, gates {out['gates']}, peak memory "
+              f"{out['peak_bytes']} B ({alloc0_l} B at the start) "
+              f"[{name}, {smi}]; {out['seconds']:.1f} s")
+        if not out["ok"]:
+            fail(f"loops {kind}: {out}")
+        loops_main[kind] = out
+        del st_l, p_l, step_l, box, out
+
+    # -- 5w. C = 32 on the split loops at 100,000 peers: the card's state
+    # digest against the CPU's after WIDE_TICKS heartbeats
+    t0 = time.perf_counter()
+    digests = {}
+    for d in (dev, torch.device("cpu")):
+        cfg_w, sc_w, p_w, s_w, _ = loops_flagship.build(
+            "wide", d, n_peers=WIDE_PEERS, horizon=WIDE_TICKS)
+        step_w = pg.make_gossip_step(cfg_w, sc_w, device=d)
+        if d == dev:
+            krecv.launches.clear()
+            ksel.launches = 0
+        s_w = pg.gossip_run(p_w, s_w, WIDE_TICKS, step_w, device=d)
+        if d == dev:
+            wide_launches = {"receive": sum(krecv.launches.values()),
+                             "select": ksel.launches}
+        digests[d.type] = knob_sweep.tree_digest(
+            convert.state_to_numpy(s_w))
+    if digests["cuda"] != digests["cpu"] or wide_launches["receive"]:
+        fail(f"C=32 split loops: digests {digests}, launches "
+             f"{wide_launches}")
+    wide_deg = float(pg.mesh_degrees(s_w).to(torch.float64).mean())
+    del p_w, s_w, step_w
+    print(f"loops C=32 at {WIDE_PEERS} peers, {WIDE_TICKS} ticks: card "
+          f"digest {digests['cuda']} == CPU {digests['cpu']}, mean mesh "
+          f"degree {wide_deg:.3f}, launches {wide_launches}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 5x. the tournament as written: 20 cells at 20,000 x 20 x 24 x
+    # 150, one after another; the byzantine x reference cell on the CPU
+    t0 = time.perf_counter()
+    cells = []
+    krecv.launches.clear()
+    ksel.launches = 0
+    tourney = tournament.run_tournament(*TOURNEY_SHAPE, device=dev,
+                                        cells=cells)
+    torch.cuda.synchronize()
+    dt_t = time.perf_counter() - t0
+    tourney_launches = {"receive": sum(krecv.launches.values()),
+                        "select": ksel.launches}
+    committed = json.loads((Path(__file__).resolve().parent
+                            / "TOURNEY_r12.json").read_text())
+    for row in tourney["rows"]:
+        old = next(c for c in committed["rows"]
+                   if (c["attack"], c["defense"]) == (row["attack"],
+                                                      row["defense"]))
+        print(f"tournament row {json.dumps(row)}  TOURNEY_r12.json "
+              f"{json.dumps(old)}")
+    if tourney["invariant_violations"] or tourney_launches["receive"]:
+        fail(f"tournament: {tourney['invariant_violations']} cells with "
+             f"invariant bits, launches {tourney_launches}")
+    i_byz = next(i for i, r in enumerate(tourney["rows"])
+                 if (r["attack"], r["defense"]) == ("byzantine",
+                                                    "reference"))
+    cpu_cells = []
+    tournament.run_tournament(*TOURNEY_SHAPE, device="cpu",
+                              attacks=("byzantine",),
+                              defenses={"reference": {}}, cells=cpu_cells)
+    d_byz = [knob_sweep.tree_digest(convert.state_to_numpy(c[1]))
+             for c in (cells[i_byz], cpu_cells[0])]
+    if d_byz[0] != d_byz[1]:
+        fail(f"tournament byzantine x reference: card {d_byz[0]} != CPU "
+             f"{d_byz[1]}")
+    tourney_main = dict(
+        rows_equal_committed=tourney["rows"] == committed["rows"],
+        worst_case=tourney["worst_case"],
+        invariant_violations=tourney["invariant_violations"],
+        replica_heartbeats_per_s=tourney["replicas"] * TOURNEY_SHAPE[3]
+        / dt_t, wall_s=dt_t, launches=tourney_launches,
+        byzantine_digest=d_byz[0])
+    del cells, cpu_cells
+    print(f"tournament (as written, cell by cell): {tourney['replicas']} "
+          f"cells at {TOURNEY_SHAPE}: "
+          f"{tourney_main['replica_heartbeats_per_s']:.2f} replica "
+          f"heartbeats/s ({dt_t:.1f} s), rows equal to TOURNEY_r12.json: "
+          f"{tourney_main['rows_equal_committed']}, worst case "
+          f"{tourney['worst_case']}, byzantine x reference card digest "
+          f"{d_byz[0]} == CPU, launches {tourney_launches} "
+          f"[{name}, {smi}]; {time.perf_counter() - t0:.1f} s")
+
     # -- 6. the unscored receive kernel vs plain at the resident shapes
     n_r = resident.N_PEERS
     cfg_r, params, state, msg_topic, _ = resident.build(dev)
@@ -3042,6 +3232,12 @@ def main() -> None:
              max_abs_err=max(sel_err, inv_k["select"]["err"]),
              ms=sel_ms, plain_ms=sel_plain_ms, bound_ms=sel_bound[0],
              bound_by=sel_bound[1], library_ms=None),
+        dict(name="select_k_bits_c32", route="cuda",
+             source="go_libp2p_pubsub_tpu_torch/csrc/select.cu",
+             replaces="go_libp2p_pubsub_tpu/ops/pallas/select.py:39",
+             launches=wide_launches["select"], max_abs_err=s32_err,
+             ms=s32_ms, plain_ms=s32_plain_ms, bound_ms=s32_bound[0],
+             bound_by=s32_bound[1], library_ms=None),
         dict(name="fused_gossip_update", route="cuda",
              source="go_libp2p_pubsub_tpu_torch/csrc/fused.cu",
              replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:1662",
@@ -3156,6 +3352,11 @@ def main() -> None:
         "invariants": dict(inv_main, peak_bytes=peak_i, start_bytes=alloc0_i,
                            kernels=inv_k),
         "invariants_armed_families": armed,
+        "loops": loops_main,
+        "loops_c32": dict(n_peers=WIDE_PEERS, ticks=WIDE_TICKS,
+                          digests=digests, launches=wide_launches,
+                          mean_mesh_degree=wide_deg),
+        "tournament": tourney_main,
         "delay_receive": {
             kname: {key: v for key, v in r.items() if key != "bound"}
             for kname, r in delay_k.items()},

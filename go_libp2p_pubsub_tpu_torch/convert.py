@@ -30,7 +30,11 @@ This module never imports the reference; the caller flattens it.
   ``ctrl_line``, ``gsp_line``, ``adv_line``) are words like the rest;
 - the invariant checker's carry: ``inv_viol`` (uint32 []) is a word like
   the rest, ``inv_first`` (int32 []) as it is; both None on an unarmed
-  state.
+  state;
+- the byzantine mutators ``byzantine`` (bool [N]) and ``cand_byz`` (a
+  word like the rest), and the P3/P3b counters ``mesh_deliveries`` and
+  ``mesh_failure_penalty`` (counter dtype, under ``scores``), None where
+  the sim has none.
 
 The reverse functions give uint32 words back as uint32 and bf16 leaves
 as their raw uint16 patterns, so two trees compare bit for bit;
@@ -63,17 +67,18 @@ from .ops.kernels.receive import DTYPES
 
 PARAM_WORDS = ("cand_sub_bits", "origin_words", "deliver_words",
                "invalid_words", "cand_victim_bits", "cand_same_ip",
-               "cand_direct", "slot_b_words")
+               "cand_direct", "slot_b_words", "cand_byz")
 PARAM_TENSORS = ("subscribed", *PARAM_WORDS, "publish_tick",
                  "cand_app_score", "cand_colo_excess", "cand_static_score",
                  "cand_sybil", "sybil", "promise_break", "eclipse_sybil",
-                 "eclipse_victim")
+                 "eclipse_victim", "byzantine")
 STATE_WORDS = ("mesh", "fanout", "have", "recent", "active", "mesh_b",
                "pay_line", "ctrl_line", "gsp_line", "adv_line", "inv_viol")
 STATE_TENSORS = (*STATE_WORDS, "last_pub", "backoff", "first_tick",
                  "iwant_serves", "backoff_b", "inv_first")
 SCORE_TENSORS = ("time_in_mesh", "first_deliveries", "invalid_deliveries",
-                 "behaviour_penalty", "time_in_mesh_b")
+                 "behaviour_penalty", "time_in_mesh_b", "mesh_deliveries",
+                 "mesh_failure_penalty")
 
 
 def _tensor(a: np.ndarray, device, dtype: torch.dtype | None = None
@@ -201,6 +206,9 @@ def state_from_numpy(d: dict, sc: ScoreSimConfig | None,
     scores = None
     if sc is not None:
         cdt, bdt = DTYPES[sc.counter_dtype], DTYPES[sc.bp_dtype]
+        p3 = {name: (None if s[name] is None
+                     else _tensor(s[name], device, cdt))
+              for name in ("mesh_deliveries", "mesh_failure_penalty")}
         scores = ScoreState(
             time_in_mesh=_tensor(s["time_in_mesh"], device),
             first_deliveries=_tensor(s["first_deliveries"], device, cdt),
@@ -208,7 +216,7 @@ def state_from_numpy(d: dict, sc: ScoreSimConfig | None,
                                        cdt),
             behaviour_penalty=_tensor(s["behaviour_penalty"], device, bdt),
             time_in_mesh_b=(None if s["time_in_mesh_b"] is None
-                            else _tensor(s["time_in_mesh_b"], device)))
+                            else _tensor(s["time_in_mesh_b"], device)), **p3)
     key = np.asarray(d["key"]).astype(np.uint32)
     return GossipState(
         **kw, scores=scores,

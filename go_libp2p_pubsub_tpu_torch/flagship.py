@@ -67,7 +67,8 @@ def card() -> str:
 def profile_ticks(run, ticks: int, ranges: tuple[str, ...] = ()) -> dict:
     """Time ``run()`` (``ticks`` heartbeats on the GPU) unprofiled, then
     profile a second call: device time per kernel and per PyTorch op,
-    and the device's busy time against the unprofiled wall time; with
+    the kernel launches a tick, and the device's busy time against the
+    unprofiled wall time; with
     ``ranges``, also the device time of the ``record_function`` ranges
     whose names start with one of those prefixes."""
     from torch.autograd import DeviceType
@@ -106,6 +107,7 @@ def profile_ticks(run, ticks: int, ranges: tuple[str, ...] = ()) -> dict:
         "ticks": ticks, "wall_ms_per_tick": wall_us / ticks / 1e3,
         "device_busy_ms_per_tick": busy_us / ticks / 1e3,
         "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
+        "launches_per_tick": sum(r[2] for r in kernels) / ticks,
         "kernels": per_tick(kernels), "ops": per_tick(ops),
         **({"ranges": per_tick(marked)} if ranges else {}),
     }

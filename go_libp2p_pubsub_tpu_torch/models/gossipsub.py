@@ -22,9 +22,14 @@ degree family, gossip_factor, the tick counts, the four defense
 parameters and the link-drop rate as 0-d tensors of the params, so one
 step serves any protocol point).  The receive half
 (payload receive, handshake, counter updates, next tick's gates) is one
-kernel launch (``ops/kernels/receive.py``); every random top-k selection
-is one launch of the select kernel (``ops/kernels/select.py``).
-Everything else is plain PyTorch, as the reference leaves it to XLA.
+kernel launch (``ops/kernels/receive.py``), or, where the reference's own
+kernel planner refuses the sim (byzantine payload mutation, P3/P3b and
+``force_split``, C > 16, a SimKnobs point on an IWANT-flood config), the
+reference's per-edge receive loops in plain PyTorch
+(``models/_receive_loops.py``; ``plan.receive_path`` routes); every
+random top-k selection is one launch of the select kernel
+(``ops/kernels/select.py``).  Everything else is plain PyTorch, as the
+reference leaves it to XLA.
 
 The unscored heartbeat also runs T ticks per launch: ``make_fused_window``
 (the fused-window kernel, ``ops/kernels/fused.py``) and its runners
@@ -77,6 +82,7 @@ from . import delays as _delays
 from . import faults as _faults
 from . import invariants as _invariants
 from . import knobs as _knobs
+from . import _receive_loops as _loops
 from . import plan
 from . import telemetry as _telemetry
 from ._delivery import reach_counts_from_first_tick, update_first_tick
@@ -355,6 +361,11 @@ class GossipParams:
     eclipse_sybil: torch.Tensor | None = None    # bool [N]
     eclipse_victim: torch.Tensor | None = None   # bool [N]
     cand_victim_bits: torch.Tensor | None = None  # int32 [N]
+    # byzantine payload mutators (score_cfg.byzantine_mutation): bit c of
+    # cand_byz[p] = candidate p + o_c corrupts every copy it relays or
+    # serves (the id kept: the receiver's validator rejects it)
+    byzantine: torch.Tensor | None = None        # bool [N]
+    cand_byz: torch.Tensor | None = None         # int32 [N]
     # same-IP sibling words, built only when some address is shared: bit
     # c of cand_same_ip[cc, p] = candidates c and cc of p share an IP
     cand_same_ip: torch.Tensor | None = None     # int32 [C, N]
@@ -386,6 +397,9 @@ class ScoreState:
     invalid_deliveries: torch.Tensor  # counter dtype (P4)
     behaviour_penalty: torch.Tensor   # bp dtype (P7)
     time_in_mesh_b: torch.Tensor | None = None  # int16, slot B's P1
+    # P3 and P3b, counter dtype, only under score_cfg.track_p3
+    mesh_deliveries: torch.Tensor | None = None        # P3
+    mesh_failure_penalty: torch.Tensor | None = None   # P3b, deficit²
 
 
 @dataclass
@@ -471,8 +485,10 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
     gater's statistics by source IP), promise_break [N] flags
     unflagged peers that withhold the payloads they advertise, and
     eclipse_sybil / eclipse_victim [N] (disjoint, both or neither) are
-    the eclipse formation of ``score_cfg.sybil_eclipse``.  Scored or
-    not: direct_edges bool [N, C] pins operator-configured direct peers
+    the eclipse formation of ``score_cfg.sybil_eclipse``, byzantine [N]
+    the payload mutators of ``score_cfg.byzantine_mutation`` (live only
+    with both, as in the reference; the step then runs the receive
+    loops).  Scored or not: direct_edges bool [N, C] pins operator-configured direct peers
     (symmetric: both ends configure the edge), and px_candidates (Dhi <
     px_candidates <= C) starts each peer knowing a random subset of that
     size of its candidates, which PX rotation then refreshes.
@@ -500,8 +516,7 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
     ``delays_split``, ``delays_probe=True`` as ``rpc_probe``."""
     dev = resolve_device(device)
     plan.check_sim_options(
-        flood_proto=flood_proto, pad_to_block=pad_to_block,
-        byzantine=byzantine, delays=delays,
+        flood_proto=flood_proto, pad_to_block=pad_to_block, delays=delays,
         delays_split=delays_split, delays_counters=delays_counters,
         delays_probe=delays_probe)
     if delays is not None and cfg.paired_topics:
@@ -658,6 +673,13 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
                 "(an attacker cannot eclipse itself)")
         scored.update(eclipse_sybil=t_(es), eclipse_victim=t_(ev),
                       cand_victim_bits=_words(cand_bits(ev), dev))
+    if byzantine is not None:
+        if sc is None:
+            raise ValueError(
+                "byzantine requires score_cfg (mutated copies feed "
+                "the validation-reject P4 path)")
+        bz = np.asarray(byzantine, dtype=bool)
+        scored.update(byzantine=t_(bz), cand_byz=_words(cand_bits(bz), dev))
 
     if fault_schedule is not None:
         # the schedule covers the true peer count (the port runs
@@ -718,13 +740,17 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
     paired = cfg.paired_topics
     if sc is not None:
         cdt = krecv.DTYPES[sc.counter_dtype]
+
+        def zc():
+            return torch.zeros((c, n), dtype=cdt, device=dev)
         scores = ScoreState(
-            time_in_mesh=i16(),
-            first_deliveries=torch.zeros((c, n), dtype=cdt, device=dev),
-            invalid_deliveries=torch.zeros((c, n), dtype=cdt, device=dev),
+            time_in_mesh=i16(), first_deliveries=zc(),
+            invalid_deliveries=zc(),
             behaviour_penalty=torch.zeros(
                 (c, n), dtype=krecv.DTYPES[sc.bp_dtype], device=dev),
-            time_in_mesh_b=i16() if paired else None)
+            time_in_mesh_b=i16() if paired else None,
+            mesh_deliveries=zc() if sc.track_p3 else None,
+            mesh_failure_penalty=zc() if sc.track_p3 else None)
     state = GossipState(
         mesh=zbits(), fanout=zbits(),
         last_pub=torch.full((n,), -(10 ** 9), dtype=torch.int32,
@@ -912,14 +938,29 @@ def compute_scores(sc: ScoreSimConfig, params: GossipParams,
         return x if cols is None else x.index_select(1, cols)
 
     static = _static_term(sc, params)
+    tim = g(s.time_in_mesh).to(torch.float32)
+    p3 = None
+    if sc.track_p3:
+        # P3: the squared delivery deficit of an active mesh edge; P3b:
+        # the sticky prune penalty (score.go:256-333)
+        f = krecv._f32
+        mesh = st.mesh if cols is None else st.mesh.index_select(0, cols)
+        in_mesh = expand_bits(mesh, tim.shape[0])
+        deficit = (f(sc.mesh_message_deliveries_threshold)
+                   - g(s.mesh_deliveries).to(torch.float32)).clamp(min=0.0)
+        active = tim > sc.mesh_message_deliveries_activation
+        p3 = (f(sc.topic_weight * sc.mesh_message_deliveries_weight)
+              * torch.where(in_mesh & active, deficit * deficit, 0.0),
+              f(sc.topic_weight * sc.mesh_failure_penalty_weight)
+              * g(s.mesh_failure_penalty).to(torch.float32))
     return krecv.score_from_counters(
-        knobbed_score_consts(sc, params), g(s.time_in_mesh).to(torch.float32),
+        knobbed_score_consts(sc, params), tim,
         g(s.first_deliveries).to(torch.float32),
         g(s.invalid_deliveries).to(torch.float32),
         g(s.behaviour_penalty).to(torch.float32),
         None if static is None else g(static),
         tim_b=(None if s.time_in_mesh_b is None
-               else g(s.time_in_mesh_b).to(torch.float32)))
+               else g(s.time_in_mesh_b).to(torch.float32)), p3=p3)
 
 
 def gates_fingerprint(cfg: GossipSimConfig,
@@ -1497,9 +1538,16 @@ def make_gossip_step(cfg: GossipSimConfig,
     one f32 vector into the kernel's ``+knobs`` variant (built on the
     device once per sim), and compute_scores / compute_gates read the
     defense knobs on the PyTorch side.  A SimKnobs point on an IWANT-flood
-    config raises the reference's ValueError
-    (``plan.MSG_KERNEL_KNOB_IWANT_SPAM``): its serve budget bakes
-    gossip_retransmission.
+    config runs on the receive loops, where the flood's serve budget reads
+    ``gossip_retransmission`` (the reference's kernel bakes it and
+    refuses the point).
+
+    The receive loops (``models/_receive_loops.py``): where
+    ``plan.receive_path`` leaves the kernel — live byzantine mutation,
+    P3/P3b, ``force_split``, C > 16, a SimKnobs point on an IWANT flood —
+    the reference's XLA receive half runs in PyTorch, combined or split,
+    then PX and the next tick's gates from the new state; the loops take
+    no telemetry, delays or paired topics (``loops_*`` refusals).
 
     Delays (``params.delays``, ``make_gossip_sim(delays=...)``): this
     tick's sends go into the state's delay lines and this tick's arrivals
@@ -1527,8 +1575,7 @@ def make_gossip_step(cfg: GossipSimConfig,
     """
     dev = resolve_device(device)
     plan.check_paired_step(cfg, score_cfg, force_split)
-    plan.check_step_options(force_split=force_split,
-                            pipeline_gates=pipeline_gates,
+    plan.check_step_options(pipeline_gates=pipeline_gates,
                             shard_mesh=shard_mesh, rpc_probe=rpc_probe)
     krecv.receive_consts(cfg, score_cfg)     # the options' refusals
     consts = {}
@@ -1642,15 +1689,15 @@ def make_gossip_step(cfg: GossipSimConfig,
                 raise ValueError(plan.MSG_DELAYS_NEED_COUNTER_LINES)
             if state.pay_line is None or state.ctrl_line is None:
                 raise ValueError(plan.MSG_DELAYS_NEED_LINES)
-        if (params.sim_knobs is not None and sc is not None
-                and sc.sybil_iwant_spam):
-            # the reference's kernel step bakes gossip_retransmission
-            # into the IWANT flood's serve budget and refuses the point
-            raise ValueError(plan.MSG_KERNEL_KNOB_IWANT_SPAM)
         if dl is not None and sc is not None and sc.sybil_iwant_spam:
             # its flood budget reads partner advert views the delayed
             # kernel does not stream
             raise ValueError(plan.MSG_KERNEL_DELAY_IWANT_SPAM)
+        # the kernel, or the receive loops where the reference's kernel
+        # planner refuses the sim (models/plan.py receive_path)
+        route = plan.receive_path(cfg, sc, params, force_split=force_split)
+        if route != plan.KERNEL:
+            plan.check_loops(paired=paired, telemetry=tel, delays=dl)
         if len(state.gates) != n_gates:
             raise ValueError(
                 f"state carries {len(state.gates)} gate words, the step "
@@ -1662,13 +1709,13 @@ def make_gossip_step(cfg: GossipSimConfig,
                 "the new config before stepping")
         tick, salt = state.tick, state.salt
         # the degree family and fanout TTL: ints, or the armed knobs'
-        # 0-d tensors (gossip_retransmission has no consumer here: its
-        # only one in the reference is the IWANT flood's serve budget,
-        # and a knob point on a flood config is refused above)
+        # 0-d tensors (gossip_retransmission's one consumer, the IWANT
+        # flood's serve budget, is in the receive loops: a knob point on
+        # a flood config runs there)
         K = degree_knobs(cfg, params)
         sub = params.subscribed
         n = sub.shape[0]
-        sub_all = torch.where(sub, ALL, 0).to(torch.int32)
+        sub_all = torch.where(sub, graph.i32(ALL), 0).to(torch.int32)
         cand_sub = params.cand_sub_bits
         direct, active = params.cand_direct, state.active
         # -- fault masks, once per tick on the device from the host tick;
@@ -1801,6 +1848,59 @@ def make_gossip_step(cfg: GossipSimConfig,
             mesh removal and own backoff, still apply: the kernel reads
             the unmasked words)."""
             return word if fm is None else word & fm.send_ok
+
+        def finish(acq, **fields):
+            """The new state from the receive half's outputs (possession,
+            mcache ring, deliveries, tick; the gates emitted from the new
+            state where ``fields`` brings none) and the delivered words,
+            with the checker's bits folded in."""
+            recent = state.recent.clone()
+            recent[tick % Hg] = acq
+            delivered = acq & params.deliver_words
+            if sc is not None:
+                delivered = delivered & ~params.invalid_words[:, None]
+            new = GossipState(
+                fanout=fanout, last_pub=last_pub, have=state.have | acq,
+                recent=recent,
+                first_tick=update_first_tick(state.first_tick, delivered,
+                                             tick),
+                gates_fp=state.gates_fp, salt=salt, tick=tick + 1,
+                inv_viol=state.inv_viol, inv_first=state.inv_first,
+                **{"gates": (), **fields})
+            if not new.gates:
+                new = replace(new, gates=compute_gates(cfg, sc, params, new,
+                                                       salt))
+            if icfg is not None:
+                new = apply_invariants(
+                    params, state, new, have_pre=have_pre,
+                    rejoin_w=rejoin_w, delivered_now=delivered,
+                    alive_w=None if fm is None else fm.alive_w,
+                    sub_all=sub_all)
+            return new, delivered
+
+        if route != plan.KERNEL:
+            # -- the receive loops (models/_receive_loops.py), then PX
+            # (4b) and the next tick's gates from the new state
+            rx = _loops.receive(
+                cfg, sc, params, state, split=route == plan.SPLIT,
+                geo=edge_geometry(n), fm=fm, sub_all=sub_all, sel=sel,
+                injected=injected, fresh=fresh, adv=adv, seen=seen,
+                targets=targets, withhold=withhold, out_bits=out_bits,
+                flood_bits=flood_bits,
+                payload_bits=payload_bits if sc is not None else None,
+                gossip_bits=gossip_bits if sc is not None else None,
+                accept_bits=accept_bits,
+                valid=valid if sc is not None else None)
+            if active is not None and cfg.px_rotation:
+                rot = rx["px_rot"]
+                if sel["neg"] is not None:
+                    rot = rot | sel["neg"]
+                active = px_rotate(cfg, params, active=active, rot=rot,
+                                   keep=rx["mesh"] | fanout, sel_k=sel_k)
+            return finish(
+                rx["acq"], mesh=rx["mesh"], backoff=rx["backoff"],
+                scores=(None if sc is None else ScoreState(**rx["scores"])),
+                iwant_serves=rx.get("iwant_serves"), active=active)
 
         ops = dict(
             gseeds=(lane_seed(tick + 1, 6, salt),
@@ -1965,28 +2065,13 @@ def make_gossip_step(cfg: GossipSimConfig,
         tel_row = next(outs) if kk.telemetry else None
 
         # -- epilogue: possession, mcache ring, deliveries, tick
-        recent = state.recent.clone()
-        recent[tick % Hg] = acq
-        delivered_now = acq & params.deliver_words
-        if sc is not None:
-            delivered_now = delivered_now & ~params.invalid_words[:, None]
-        new_state = GossipState(
-            mesh=mesh_new, fanout=fanout, last_pub=last_pub,
-            backoff=backoff_new, have=state.have | acq, recent=recent,
-            first_tick=update_first_tick(state.first_tick, delivered_now,
-                                         tick),
-            scores=scores, iwant_serves=iws_o, gates=gates_new,
-            gates_fp=state.gates_fp, salt=salt, tick=tick + 1,
-            active=active, mesh_b=mesh_b_new, backoff_b=backoff_b_new,
-            inv_viol=state.inv_viol, inv_first=state.inv_first,
+        new_state, delivered_now = finish(
+            acq, mesh=mesh_new, backoff=backoff_new, scores=scores,
+            iwant_serves=iws_o, gates=gates_new, active=active,
+            mesh_b=mesh_b_new, backoff_b=backoff_b_new,
             **({} if dex is None else {
                 name: dex.get(name) for name in ("pay_line", "ctrl_line",
                                                  "gsp_line", "adv_line")}))
-        if icfg is not None:
-            new_state = apply_invariants(
-                params, state, new_state, have_pre=have_pre,
-                rejoin_w=rejoin_w, delivered_now=delivered_now,
-                alive_w=None if fm is None else fm.alive_w, sub_all=sub_all)
         if tel is None:
             return new_state, delivered_now
         kw = {}

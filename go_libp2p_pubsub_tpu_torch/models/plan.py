@@ -27,7 +27,13 @@ as ``delays_split`` and the delayed probe line as ``rpc_probe``.  The
 invariant checker (``invariants``, ``models/invariants.py``) runs on the
 per-tick step, every family, with all of these; the fused window takes
 no checker, as in the reference, and carries an armed state's two
-scalars through unchanged.  Each
+scalars through unchanged.  What the receive kernel refuses in the
+reference (byzantine payload mutation, P3/P3b with ``force_split``, 17 to
+32 candidates, a SimKnobs point on an IWANT-flood config) runs on the
+per-edge receive loops (``models/_receive_loops.py``): ``receive_path``
+is the one place the route is chosen, by the reference's own ladder;
+the loops take no paired topics, telemetry or delays yet
+(``loops_paired``, ``loops_telemetry``, ``loops_delays``).  Each
 refusal has a stable name (``SliceRefusal.name``) and its own message;
 tests match on the name.  The reference's own errors are raised with its
 messages (``MSG_PAIRED_COMBINED``, ``MSG_KERNEL_KNOB_IWANT_SPAM``,
@@ -43,24 +49,29 @@ MAX_WINDOW = 64
 
 REFUSALS: dict[str, str] = {
     "delays_split": "the split path's gossip-class delay line "
-                    "(delays_split=True) is not ported: the split path "
-                    "(track_p3, force_split) is not",
+                    "(delays_split=True) is not ported: the receive loops "
+                    "take no delays (loops_delays)",
     "rpc_probe": "the per-RPC probe snapshot is not ported yet",
-    "byzantine": "byzantine payload mutation (byzantine_mutation, "
-                 "byzantine) is not ported: the JAX package's kernel path "
-                 "refuses it too (it needs per-edge receive loops)",
     "flood_proto": "mixed-protocol overlays (flood_proto) are not "
                    "ported yet",
-    "track_p3": "P3/P3b mesh-delivery bookkeeping (track_p3, "
-                "force_split) is not ported yet",
     "shard_mesh": "multi-device sharding (shard_mesh) is not ported yet",
     "pad_to_block": "the port runs unpadded: pad_to_block exists only "
                     "for the TPU kernel's tile alignment",
     "pipeline_gates": "the port always carries pipelined gates "
                       "(pipeline_gates=False is not ported)",
-    "wide_candidates": "the receive kernel takes at most 16 candidates",
     "kernel_shape": "the receive kernel is built for C in {8, 16} "
                     "candidates and W in {1, 2} message words (M <= 64)",
+    "loops_paired": "paired topics run on the receive kernel only: a "
+                    "paired sim the kernel refuses (byzantine mutation, "
+                    "a SimKnobs point on an IWANT-flood config) would need "
+                    "the per-edge receive loops, which take one topic a "
+                    "peer",
+    "loops_telemetry": "the per-edge receive loops (byzantine, P3/P3b, "
+                       "force_split, C > 16, a SimKnobs point on an "
+                       "IWANT-flood config) keep no telemetry tally yet",
+    "loops_delays": "the per-edge receive loops (byzantine, P3/P3b, "
+                    "force_split, C > 16, a SimKnobs point on an "
+                    "IWANT-flood config) take no delay lines yet",
     "no_messages": "a sim without messages (W = 0) has no payload "
                    "stream for the receive kernel",
     "counter_dtype": "counter_dtype must be 'bfloat16' or 'float32'",
@@ -70,6 +81,9 @@ REFUSALS: dict[str, str] = {
                     "launch",
     "fused_horizon": "the run's horizon is not a whole number of fused "
                      "windows",
+    "fused_loops": "the fused window runs what the receive kernel runs: "
+                   "byzantine mutation, P3/P3b and more than 16 "
+                   "candidates step per tick on the receive loops",
     "fused_scored": "the fused window runs the unscored (v1.0) step only: "
                     "scored sims step per tick",
     "fused_px": "the fused window does not run PX candidate rotation "
@@ -106,18 +120,48 @@ def refuse(name: str, message: str | None = None):
 
 
 def check_kernel_config(cfg, sc) -> None:
-    """Refuse a static config the step and receive kernel do not run
-    (``sc`` None is the unscored v1.0 step)."""
-    if cfg.n_candidates > 16:
-        refuse("wide_candidates")
-    if sc is None:
-        return
-    if sc.track_p3:
-        refuse("track_p3")
-    if sc.byzantine_mutation:
-        refuse("byzantine")
-    if sc.counter_dtype not in ("bfloat16", "float32"):
+    """Refuse a static score config the step does not run (``sc`` None
+    is the unscored v1.0 step)."""
+    if sc is not None and sc.counter_dtype not in ("bfloat16", "float32"):
         refuse("counter_dtype")
+
+
+#: the three routes of the per-tick receive half
+KERNEL, COMBINED, SPLIT = "kernel", "combined", "split"
+
+
+def receive_path(cfg, sc, params, *, force_split: bool = False) -> str:
+    """The route of one step's receive half: ``"kernel"`` (B1),
+    ``"combined"`` or ``"split"`` (the per-edge receive loops), by the
+    reference's ladder — its kernel planner (``plan_kernel_step``)
+    refuses C > 16, P3/P3b (``track_p3``), live byzantine mutation
+    (``byzantine_mutation`` with the flag array ``params.cand_byz``) and
+    a SimKnobs point on an IWANT-flood config, and ``force_split`` pins
+    the split loops; off the kernel the combined loop runs where C <= 16
+    without P3/P3b or ``force_split`` (its ``combined`` test), else the
+    split loops.  Plain Python on static config and on which params
+    exist: no host sync, and never a kernel's failure."""
+    live_byz = (sc is not None and sc.byzantine_mutation
+                and params.cand_byz is not None)
+    knob_flood = (sc is not None and sc.sybil_iwant_spam
+                  and params.sim_knobs is not None)
+    track_p3 = sc is not None and sc.track_p3
+    if not (force_split or cfg.n_candidates > 16 or track_p3 or live_byz
+            or knob_flood):
+        return KERNEL
+    if cfg.n_candidates <= 16 and not track_p3 and not force_split:
+        return COMBINED
+    return SPLIT
+
+
+def check_loops(*, paired: bool, telemetry, delays) -> None:
+    """Refuse what the receive loops do not run yet, by name."""
+    if paired:
+        refuse("loops_paired")
+    if telemetry is not None:
+        refuse("loops_telemetry")
+    if delays is not None:
+        refuse("loops_delays")
 
 
 #: the reference's message for a paired step off its combined path
@@ -176,10 +220,7 @@ def check_paired_step(cfg, sc, force_split: bool) -> None:
         raise ValueError(MSG_PAIRED_COMBINED)
 
 
-def check_step_options(*, force_split, pipeline_gates, shard_mesh,
-                       rpc_probe) -> None:
-    if force_split:
-        refuse("track_p3")
+def check_step_options(*, pipeline_gates, shard_mesh, rpc_probe) -> None:
     if not pipeline_gates:
         refuse("pipeline_gates")
     if shard_mesh is not None:
@@ -188,14 +229,12 @@ def check_step_options(*, force_split, pipeline_gates, shard_mesh,
         refuse("rpc_probe")
 
 
-def check_sim_options(*, flood_proto, pad_to_block, byzantine, delays,
-                      delays_split, delays_counters, delays_probe) -> None:
+def check_sim_options(*, flood_proto, pad_to_block, delays, delays_split,
+                      delays_counters, delays_probe) -> None:
     if pad_to_block is not None:
         refuse("pad_to_block")
     if flood_proto is not None:
         refuse("flood_proto")
-    if byzantine is not None:
-        refuse("byzantine")
     # without a DelayConfig these raise the reference's ValueErrors where
     # the sim is built
     if delays is not None and delays_split:
@@ -209,11 +248,18 @@ def check_fused_window(cfg, sc, ticks: int, *, shard_mesh=None) -> None:
 
     A faulted sim runs (its per-tick fault rows ride the launch), and so
     does a window with telemetry (its per-tick rows ride the launch); the
-    window refuses the rest here, and delays, knobs, PX and direct peers
-    when it is handed their params or state (``check_fused_operands``)."""
+    window refuses the rest here (a byzantine config by its static
+    toggle: the window is built before its flag arrays are seen), and
+    delays, knobs, PX and direct peers when it is handed their params or
+    state (``check_fused_operands``)."""
     if not 1 <= int(ticks) <= MAX_WINDOW:
         refuse("fused_window")
     check_kernel_config(cfg, sc)
+    if cfg.n_candidates > 16 or (sc is not None and (
+            sc.track_p3 or sc.byzantine_mutation)):
+        # the reference's fused planner refuses what its kernel planner
+        # refuses, before the scored refusal
+        refuse("fused_loops")
     if sc is not None:
         refuse("fused_scored")
     if cfg.paired_topics:

@@ -374,16 +374,21 @@ def score_from_counters(s: ScoreConsts, tim: torch.Tensor,
                         fd: torch.Tensor, inv: torch.Tensor,
                         bp: torch.Tensor,
                         static: torch.Tensor | None,
-                        tim_b: torch.Tensor | None = None) -> torch.Tensor:
+                        tim_b: torch.Tensor | None = None,
+                        p3: tuple | None = None) -> torch.Tensor:
     """The peer-score formula on f32 counters, in the reference's op
     order (compute_scores / the kernel's stage 2); paired topics add
-    slot B's P1 (``tim_b``) to the topic part before its cap."""
+    slot B's P1 (``tim_b``) to the topic part before its cap, and
+    ``p3``, the weighted P3 and P3b terms (the receive loops' P3/P3b
+    bookkeeping), are added after it, before the cap."""
     tq = tim / torch.full_like(tim, s.tim_quantum)
     topic = (s.c_tim * tq.clamp(max=s.tim_cap) + s.c_fd * fd
              + s.c_inv * inv * inv)
     if tim_b is not None:
         tqb = tim_b / torch.full_like(tim_b, s.tim_quantum)
         topic = topic + s.c_tim * tqb.clamp(max=s.tim_cap)
+    if p3 is not None:
+        topic = topic + p3[0] + p3[1]
     if s.topic_cap > 0:
         topic = topic.clamp(max=s.topic_cap)
     bp_ex = (bp - s.bp_thr).clamp(min=0.0)

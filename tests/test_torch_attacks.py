@@ -297,13 +297,26 @@ def test_attack_inputs_are_validated_as_the_reference_does(match):
 
 
 def test_byzantine_mutation_is_refused_by_name():
+    """Byzantine mutation builds and steps (on the receive loops where it
+    is live, on the kernel where it is not); what the loops do not run
+    yet is refused by name: its telemetry."""
     (subs, topic, origin, ticks), _ = _inputs({})
     cfg = pgs.GossipSimConfig(offsets=pgs.make_gossip_offsets(T, 16, N),
                               n_topics=T)
-    for sc, kw in ((pgs.ScoreSimConfig(byzantine_mutation=True), {}),
-                   (pgs.ScoreSimConfig(), {"byzantine": np.zeros(N, bool)})):
-        with pytest.raises(plan.SliceRefusal) as err:
-            pgs.make_gossip_sim(cfg, subs, topic, origin, ticks,
-                                score_cfg=sc, device="cpu", **kw)
-        assert err.value.name == "byzantine"
-        assert "kernel path refuses it too" in str(err.value)
+    from go_libp2p_pubsub_tpu_torch.models import telemetry as ptl
+    for sc, kw, route in (
+            (pgs.ScoreSimConfig(byzantine_mutation=True), {}, plan.KERNEL),
+            (pgs.ScoreSimConfig(), {"byzantine": np.zeros(N, bool)},
+             plan.KERNEL),
+            (pgs.ScoreSimConfig(byzantine_mutation=True),
+             {"byzantine": np.arange(N) % 5 == 0}, plan.COMBINED)):
+        params, state = pgs.make_gossip_sim(cfg, subs, topic, origin, ticks,
+                                            score_cfg=sc, device="cpu", **kw)
+        assert plan.receive_path(cfg, sc, params) == route
+        assert pgs.make_gossip_step(cfg, sc, device="cpu")(
+            params, state)[0].tick == 1
+    with pytest.raises(plan.SliceRefusal) as err:
+        pgs.make_gossip_step(cfg, sc, device="cpu",
+                             telemetry=ptl.TelemetryConfig())(params, state)
+    assert err.value.name == "loops_telemetry"
+    assert "keep no telemetry tally" in str(err.value)

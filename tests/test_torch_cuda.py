@@ -26,7 +26,10 @@ at 100,000 peers card against CPU every 12th tick; each family's step
 with the invariant checker on (clean, under faults, with telemetry, at a
 knob point; the delayed families) card against CPU with the carry, the
 checker's host syncs (none added), and the invariants benchmark's armed
-flagship at 100,000 peers card against CPU every 10th tick.  Exact: every output
+flagship at 100,000 peers card against CPU every 10th tick; the select
+kernel at C = 32 on a real tick of the C = 32 split loops, and the receive
+loops' two forms (the tournament's byzantine cell, the P3/P3b flagship)
+at 100,000 peers card against CPU every 25th tick.  Exact: every output
 bit for bit, but
 a frame's ``score_mean``: the mean of non-integer f32 scores, which the
 card and the CPU sum in different orders (relative 1e-5).
@@ -50,6 +53,7 @@ from go_libp2p_pubsub_tpu_torch import (
     everything,
     invariants_flagship,
     knob_sweep,
+    loops_flagship,
     pipelined,
     telemetry_flagship,
 )
@@ -92,6 +96,34 @@ def test_select_kernel_matches_plain(cuda, c):
     torch.cuda.synchronize()
     assert psel.launches == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+def test_select_kernel_at_c32_on_a_real_tick(cuda):
+    """B3's C = 32 instantiation against its plain version on every call
+    of a real tick of the C = 32 split loops (bit 31 an edge)."""
+    cfg, sc, params, state, _ = loops_flagship.build("wide", "cpu",
+                                                     n_peers=20_000,
+                                                     horizon=30)
+    step = pgs.make_gossip_step(cfg, sc, device="cpu")
+    state = pgs.gossip_run(params, state, 8, step, device="cpu")
+    calls = []
+    real = psel.select_k_bits
+
+    def capture(*args):
+        calls.append(args)
+        return real(*args)
+    psel.select_k_bits = capture
+    try:
+        step(params, state)
+    finally:
+        psel.select_k_bits = real
+    assert calls and all(a[2] == 32 for a in calls)
+    assert any(bool(((a[0] >> 31) & 1).any()) for a in calls)
+    for elig, k, c, seed, stride in calls:
+        got = psel.select_k_bits(elig.to(cuda), k.to(cuda), c, seed, stride)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(),
+                           psel.select_k_bits_plain(elig, k, c, seed, stride))
 
 
 RECEIVE_CASES = {
@@ -810,6 +842,12 @@ WHOLE_RUNS = {
     "knobs_hardened": (lambda d: knob_sweep.defense_sim(
         d, n_peers=100_000,
         sim_knobs=knob_sweep.DEFENSE_POINTS["hardened"]), 100),
+    # the receive loops: combined (the tournament's byzantine cell at the
+    # flagship's widths) and split (P3/P3b, one message a tick)
+    "loops_byzantine": (lambda d: loops_flagship.build(
+        "byzantine", d, n_peers=100_000, horizon=100), 100),
+    "loops_p3": (lambda d: loops_flagship.build(
+        "p3", d, n_peers=100_000, horizon=50), 50),
 }
 
 

@@ -126,6 +126,33 @@ def _cfg(**kw):
     return pgs.GossipSimConfig(offsets=cfg.offsets, n_topics=4, **kw)
 
 
+#: byzantine mutation compiled in
+BYZ = pgs.ScoreSimConfig(byzantine_mutation=True)
+
+
+def _loops_step(*, paired=False, knob_flood=False, telemetry=None,
+                delays=None, force_split=False):
+    """One step of a sim the receive loops take (byzantine mutators; with
+    ``knob_flood`` a SimKnobs point on an IWANT-flood config instead),
+    paired or not, with ``telemetry`` or ``delays``."""
+    cfg, _, (subs, topic, origin, ticks) = _small()
+    if paired:
+        cfg = _cfg(paired_topics=True)
+        idx = np.arange(len(subs))
+        subs = subs.copy()
+        subs[idx, (idx % 4 + 2) % 4] = True
+    if knob_flood:
+        sc = pgs.ScoreSimConfig(sybil_iwant_spam=True)
+        kw = dict(sybil=np.arange(N) % 5 == 0, sim_knobs={})
+    else:
+        sc, kw = BYZ, dict(byzantine=np.arange(N) % 5 == 0)
+    params, state = pgs.make_gossip_sim(cfg, subs, topic, origin, ticks,
+                                        score_cfg=sc, device="cpu",
+                                        delays=delays, **kw)
+    return pgs.make_gossip_step(cfg, sc, device="cpu", telemetry=telemetry,
+                                force_split=force_split)(params, state)
+
+
 def _window(**kw):
     cfg, _, _ = _small()
     cfg = kw.pop("cfg", cfg)
@@ -168,15 +195,26 @@ REFUSED = {
                                   delays_split=True)],
     "rpc_probe": [lambda: _step(rpc_probe=True),
                   lambda: _sim(delays=pdl.DelayConfig(), delays_probe=True)],
-    "byzantine": [
-        lambda: _step(sc=pgs.ScoreSimConfig(byzantine_mutation=True)),
-        lambda: _sim(sc=pgs.ScoreSimConfig(byzantine_mutation=True)),
-        lambda: _sim(byzantine=np.zeros(N, bool))],
     "flood_proto": [lambda: _sim(flood_proto=np.zeros(N, bool))],
-    "track_p3": [
-        lambda: _step(sc=pgs.ScoreSimConfig(
+    # what the receive loops do not run yet: a paired sim off the kernel,
+    # telemetry and delays on the loops
+    "loops_paired": [lambda: _loops_step(paired=True),
+                     lambda: _loops_step(paired=True, knob_flood=True)],
+    "loops_telemetry": [
+        lambda: _loops_step(telemetry=ptl.TelemetryConfig()),
+        lambda: _loops_step(telemetry=ptl.TelemetryConfig(),
+                            force_split=True)],
+    "loops_delays": [lambda: _loops_step(delays=pdl.DelayConfig()),
+                     lambda: _loops_step(delays=pdl.DelayConfig(),
+                                         force_split=True)],
+    # the fused window runs what the receive kernel runs
+    "fused_loops": [
+        lambda: _window(sc=BYZ),
+        lambda: _window(sc=pgs.ScoreSimConfig(
             mesh_message_deliveries_weight=-1.0)),
-        lambda: _step(force_split=True)],
+        lambda: _window(cfg=pgs.GossipSimConfig(
+            offsets=pgs.make_gossip_offsets(4, 20, 1024, seed=0),
+            n_topics=4))],
     "shard_mesh": [lambda: _step(shard_mesh=object()),
                    lambda: _window(shard_mesh=object())],
     "pad_to_block": [lambda: _sim(pad_to_block=128)],
@@ -242,8 +280,9 @@ def test_telemetry_runs_on_the_step_and_the_window():
 def test_knobs_run_on_the_step_and_keep_the_references_refusals():
     """Knobs are no longer refused: a knob point builds and steps, with
     faults (the fault knob too) and telemetry.  A SimKnobs point on an
-    IWANT-flood config raises the reference's ValueError when stepped; the
-    legacy score_knobs surface runs there."""
+    IWANT-flood config runs on the receive loops, as the reference's XLA
+    step runs it, and the legacy score_knobs surface on the kernel; under
+    delays the flood keeps the reference's ValueError."""
     assert "knobs" not in plan.REFUSALS
     point = {"d": 5, "d_lo": 4, "gossip_factor": 0.5,
              "graylist_threshold": -60.0}
@@ -259,9 +298,14 @@ def test_knobs_run_on_the_step_and_keep_the_references_refusals():
     flood = pgs.ScoreSimConfig(sybil_ihave_spam=True, sybil_iwant_spam=True)
     sybil = np.arange(N) % 5 == 0
     params, state = _sim(sc=flood, sybil=sybil, sim_knobs={})
+    assert plan.receive_path(_small()[0], flood, params) == plan.COMBINED
+    state = pgs.gossip_run(params, state, 3, _step(sc=flood), device="cpu")
+    assert state.tick == 3
+    params, state = _sim(sc=flood, sybil=sybil, sim_knobs={},
+                         delays=pdl.DelayConfig())
     with pytest.raises(ValueError) as err:
         _step(sc=flood)(params, state)
-    assert str(err.value) == plan.MSG_KERNEL_KNOB_IWANT_SPAM
+    assert str(err.value) == plan.MSG_KERNEL_DELAY_IWANT_SPAM
     params, state = _sim(sc=flood, sybil=sybil,
                          score_knobs={"behaviour_penalty_weight": -40.0})
     state = pgs.gossip_run(params, state, 3, _step(sc=flood), device="cpu")
@@ -326,11 +370,15 @@ def test_more_refusals():
         pgs.make_gossip_sim(cfg, subs, topic[:0], origin[:0], ticks[:0],
                             score_cfg=sc, device="cpu")
     assert err.value.name == "no_messages"
-    wide = pgs.make_gossip_offsets(4, 20, 1024, seed=0)
-    with pytest.raises(plan.SliceRefusal) as err:
-        pgs.make_gossip_step(pgs.GossipSimConfig(offsets=wide, n_topics=4),
-                             sc, device="cpu")
-    assert err.value.name == "wide_candidates"
+    # more than 16 candidates run on the split loops: not refused
+    wide = pgs.GossipSimConfig(
+        offsets=pgs.make_gossip_offsets(4, 20, 1024, seed=0), n_topics=4)
+    params, state = pgs.make_gossip_sim(
+        wide, np.eye(4, dtype=bool)[np.arange(1024) % 4], topic % 4,
+        origin % 4, ticks, score_cfg=sc, device="cpu")
+    assert plan.receive_path(wide, sc, params) == plan.SPLIT
+    assert pgs.make_gossip_step(wide, sc, device="cpu")(
+        params, state)[0].tick == 1
     rng = np.random.default_rng(0)
     params, state = pgs.make_gossip_sim(
         cfg, subs, topic, origin, ticks, score_cfg=sc, device="cpu",
@@ -347,5 +395,4 @@ def test_more_refusals():
     assert err.value.name == "kernel_shape"
     # every named refusal is raised somewhere the tests reach
     assert set(plan.REFUSALS) == set(REFUSED) | {
-        "no_messages", "wide_candidates", "reweighted_static",
-        "kernel_shape"}
+        "no_messages", "reweighted_static", "kernel_shape"}

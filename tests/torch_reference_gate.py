@@ -18,6 +18,8 @@ checked on the JAX reference.
         [--n 100000] [--port]
     JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --invariants \
         [--n 100000] [--port]
+    JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --tournament \
+        [--n 20000] [--port]
 
 Runs the JAX package's unscored per-tick step (XLA) on the resident
 configuration (go_libp2p_pubsub_tpu_torch/resident.py: 10 topics, C = 16,
@@ -111,6 +113,15 @@ states; exits 1 unless the report has no bits, the gates pass and the two
 end states are equal but for the carry.  With ``--port`` the port's plain
 CPU run (``invariants_flagship.run("cpu", n)``, a few minutes at 100,000
 peers) must give the same digests, the carry's too.
+
+With ``--tournament`` it runs the JAX package's attack × defense
+tournament (``models/tournament.py`` ``run_tournament(n, 20, 24, 150)``,
+bench_suite.py ``bench_gossipsub_tournament``, 20 cells as one batched
+dispatch) on the CPU at ``--n`` peers (default 20,000, the benchmark's),
+prints each row beside TOURNEY_r12.json's and whether the run reproduces
+that file; exits 1 if any cell has an invariant bit.  With ``--port`` the
+port's cell-by-cell CPU run (``tournament.run_tournament(..., device=
+"cpu")``) must give the same report.
 """
 
 import argparse
@@ -632,6 +643,54 @@ def invariants_rows(n: int, port: bool) -> int:
     return 0 if ok else 1
 
 
+def tournament_rows(n: int, port: bool) -> int:
+    """The reference's attack × defense tournament at its benchmark shape
+    (``run_tournament(n, 20, 24, 150)``, one batched dispatch on the
+    CPU): its rows beside the JAX package's committed TOURNEY_r12.json,
+    and with ``port`` the port's cell-by-cell CPU run, whose rows must
+    equal the reference's."""
+    import json
+    import time
+    from pathlib import Path
+
+    from go_libp2p_pubsub_tpu_torch import tournament as ptn
+
+    t, m, ticks = 20, 24, 150
+    with imported_reference() as r:
+        import go_libp2p_pubsub_tpu.models.tournament as rtn
+        t0 = time.perf_counter()
+        rep = rtn.run_tournament(n, t, m, ticks, seed=0)
+        dt = time.perf_counter() - t0
+    committed = json.loads((Path(__file__).resolve().parents[1]
+                            / "TOURNEY_r12.json").read_text())
+    same_shape = (committed["n_peers"], committed["n_topics"],
+                  committed["n_msgs"], committed["ticks"]) == (n, t, m, ticks)
+    reproduces = same_shape and committed["rows"] == rep["rows"]
+    print(f"reference run_tournament({n}, {t}, {m}, {ticks}) on the CPU in "
+          f"{dt:.1f} s ({rep['replicas'] * ticks / dt:.2f} replica "
+          f"heartbeats/s)")
+    for row in rep["rows"]:
+        old = next((c for c in committed["rows"]
+                    if (c["attack"], c["defense"])
+                    == (row["attack"], row["defense"])), None)
+        print(f"  {json.dumps(row)}  committed: {json.dumps(old)}")
+    print(f"worst case {rep['worst_case']}; invariant violations "
+          f"{rep['invariant_violations']}; reproduces TOURNEY_r12.json: "
+          f"{reproduces}")
+    ok = rep["invariant_violations"] == 0
+    if port:
+        t0 = time.perf_counter()
+        mine = ptn.run_tournament(n, t, m, ticks, seed=0, device="cpu")
+        dt = time.perf_counter() - t0
+        match = mine == rep
+        print(f"port (CPU, cell by cell) in {dt:.1f} s: rows equal to the "
+              f"reference's: {mine['rows'] == rep['rows']}; report equal: "
+              f"{match}")
+        ok = ok and match
+    print("gates", "pass" if ok else "FAIL")
+    return 0 if ok else 1
+
+
 def paired_report(cfg, params, state, honest, gs) -> None:
     """The slot-B mesh degree of the honest subscribed peers, and the
     cross-slot symmetry: the share of mesh edges, both slots', that the
@@ -671,6 +730,7 @@ def main() -> int:
     ap.add_argument("--knobs", action="store_true")
     ap.add_argument("--pipelined", action="store_true")
     ap.add_argument("--invariants", action="store_true")
+    ap.add_argument("--tournament", action="store_true")
     ap.add_argument("--port", action="store_true")
     ap.add_argument("--ticks", type=int, default=400)
     args = ap.parse_args()
@@ -684,6 +744,8 @@ def main() -> int:
         return pipelined_rows(args.n or 100_000, args.port)
     if args.invariants:
         return invariants_rows(args.n or 100_000, args.port)
+    if args.tournament:
+        return tournament_rows(args.n or 20_000, args.port)
     if args.adversarial or args.everything or args.everything_paired:
         return adversarial_gates(
             args.n or 100_000, args.ticks,
