@@ -268,10 +268,35 @@ Phases (any failure exits non-zero; nothing is caught):
    digest of every state leaf on the card equal to the CPU's;
 5x. the JAX package's attack x defense tournament as written
    (go_libp2p_pubsub_tpu_torch/tournament.py ``run_tournament(20000, 20,
-   24, 150)``): its 20 cells one after another on the card, every row
-   printed beside TOURNEY_r12.json's, no cell with an invariant bit, no
-   receive-kernel launch; the byzantine x reference cell also on the CPU,
-   its digest equal to the card's; the replica heartbeats/s;
+   24, 150)``) as one dispatch: its 20 cells stacked on a replica axis,
+   one step a tick, every row equal to TOURNEY_r12.json's, no cell with
+   an invariant bit, no receive-kernel launch, B3's launches for the
+   grid equal to one cell's alone; the byzantine x reference cell in the
+   grid, alone on the card and on the CPU, one digest; the replica
+   heartbeats/s, and 10 profiled ticks of the grid and of one cell
+   (launches a tick, device busy time, idle share);
+5y. B3 with a replica axis against its plain version and against one
+   launch a replica: 4 x 1,000,000 seeded peers with distinct seeds at
+   C = 16 and C = 32, the tournament's 20 x 20,000 and 20 x 20,002 (a
+   quad straddles two replicas): bit-identical; each timed beside the
+   single launches;
+5z. the JAX package's batched flagship benchmark as written
+   (go_libp2p_pubsub_tpu_torch/batched_flagship.py: 4 replicas of the
+   1M-peer flagship, mesh seeds 0-3, 100 + 3 x 100 ticks on one step a
+   tick): every replica's gates, B1 launched once a batched tick and B3
+   as often as a seed-0 replica alone over the same ticks, replica 0's
+   digest equal to that replica alone, the replica heartbeats/s, 20
+   profiled ticks, the peak memory; then B1 with a replica axis (the
+   flagship's options, with knobs, under faults, the attack options,
+   unscored, unscored under faults) on a real tick of it and on seeded
+   operands whose replicas differ (unscored at 1,048,576): each
+   bit-identical to its plain version and to four single launches, timed
+   beside them; and each of those families through the user's batched
+   runner at 4 x 100,000 peers for 10 ticks (their launches);
+5aa. ``tune_defense`` at the tournament's shape (coordinate descent
+   over TUNE_SPACE, one batched grid a step): its dict, its wall time,
+   and its tuned point's worst case, column mean and eclipse takeover
+   beside the JAX package's record (0.9139, 0.98278, 0.2987);
 6. the unscored receive kernel against its plain version at the resident
    configuration's shapes (N = 1,048,576, C = 16, W = 1), on seeded random
    operands and on the operands of a real unscored tick: every output
@@ -315,6 +340,7 @@ INV_CHECK_PEERS = 100_000      # 5r: each family's armed tick, card vs CPU
 RES_WARMUP, RES_TIMED = 64, 256     # the resident path, 8-tick windows
 WIDE_PEERS, WIDE_TICKS = 100_000, 30   # 5t/5w: the C = 32 split loops
 TOURNEY_SHAPE = (20_000, 20, 24, 150)  # 5x: the tournament as written
+BATCHED_PATH_PEERS, BATCHED_PATH_TICKS = 100_000, 10   # 5z: B1's families
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 
@@ -483,6 +509,169 @@ def random_receive_operands(k, n: int, w: int, device, seed: int):
                           device=device).to(torch.int16),
         iws=torch.randint(0, 30001, (C, n), generator=g,
                           device=device).to(torch.int16))
+
+
+def stack_receive_operands(reps: list) -> dict:
+    """B replicas' receive operands as one replica stack: every tensor
+    stacked [B, ...], ``gseeds`` two [B] int64 seed tensors."""
+    out = {}
+    for name, v in reps[0].items():
+        if name == "gseeds":
+            out[name] = tuple(torch.tensor(
+                [int(r[name][i]) & 0xFFFFFFFF for r in reps],
+                dtype=torch.int64, device=reps[0]["sub_all"].device)
+                for i in range(2))
+        elif isinstance(v, torch.Tensor):
+            out[name] = torch.stack([r[name] for r in reps]).contiguous()
+        else:
+            out[name] = v
+    return out
+
+
+def replica_operands(k, n: int, device, seed: int, reps: int = 4,
+                     attack: bool = False, faults: bool = False,
+                     knobs: bool = False) -> list:
+    """``reps`` replicas' seeded random receive operands, each from its
+    own seed (distinct seeds, knob vectors and fault words, so a
+    replica mix-up shows): the attack variant's sybil word and ledgers,
+    the faulted variant's alive word, a non-default knob vector."""
+    out = []
+    C = k.n_candidates
+    for b in range(reps):
+        ops = random_receive_operands(k, n, 1, device, seed + 17 * b)
+        ops["gseeds"] = (0x9E3779B9 ^ (b * 0x1234567),
+                         0x85EBCA6B ^ (b * 0x7654321))
+        if attack:
+            g = torch.Generator(device=device)
+            g.manual_seed(seed + 17 * b + 2)
+            ops["syb"] = torch.where(
+                torch.rand(n, generator=g, device=device) < 0.2,
+                (1 << C) - 1, 0).to(torch.int32)
+            ops["iws"] = torch.randint(0, 4 * 32, (C, n), generator=g,
+                                       device=device).to(torch.int16)
+        if faults:
+            ops = fault_operands(k, ops, device, seed + 17 * b + 5)
+        if knobs:
+            v = [0.3 + 0.1 * b, 3.0 + b, 9.0 + 2 * b]
+            if k.scored:
+                v += [-10.0 - b, -20.0 - 5 * b, -60.0 - b, -5.0 + b]
+            ops["knobs"] = torch.tensor(v, dtype=torch.float32,
+                                        device=device)
+        out.append(ops)
+    return out
+
+
+def check_batched_receive(name: str, k, reps: list, krecv,
+                          timed: bool = True) -> dict:
+    """One launch of the receive kernel on the stack of ``reps`` against
+    its plain version on the stack and against one launch per replica:
+    every output bit-identical (raw bits); the batched launch timed
+    beside the replicas' single launches."""
+    ops = stack_receive_operands(reps)
+    got = krecv.receive_update(k, **ops)
+    want = krecv.receive_update_plain(k, **ops)
+    err = check_identical(f"{name} batched vs plain", got, want)
+    singles = [krecv.receive_update(k, **r) for r in reps]
+    for b, one in enumerate(singles):
+        check_identical(f"{name} batched replica {b} vs its single launch",
+                        [g[b] for g in got], one)
+    out = dict(max_abs_err=err, replicas=len(reps))
+    if timed:
+        out["ms"] = device_ms(lambda: krecv.receive_update(k, **ops), 10)
+        out["singles_ms"] = device_ms(
+            lambda: [krecv.receive_update(k, **r) for r in reps], 10)
+        out["plain_ms"] = eager_ms(
+            lambda: krecv.receive_update_plain(k, **ops), 2)
+        out["bytes"] = krecv.operand_bytes(ops, got)
+    return out
+
+
+def check_batched_select(name: str, elig, kk, c: int, seeds, kselect,
+                         timed: bool = True) -> dict:
+    """One select launch over the stack ``elig``/``kk`` [B, N] with the
+    [B] ``seeds`` against its plain version and against B single
+    launches: bit-identical; timed beside the single launches."""
+    n = elig.shape[1]
+    got = kselect.select_k_bits(elig, kk, c, seeds, n)
+    want = kselect.select_k_bits_plain(elig, kk, c, seeds, n)
+    err = check_identical(f"{name} batched vs plain", [got], [want])
+    host = [int(x) & 0xFFFFFFFF for x in seeds.tolist()]
+    for b in range(elig.shape[0]):
+        one = kselect.select_k_bits(elig[b].contiguous(),
+                                    kk[b].contiguous(), c, host[b], n)
+        check_identical(f"{name} replica {b} vs its single launch",
+                        [got[b]], [one])
+    out = dict(max_abs_err=err, replicas=int(elig.shape[0]))
+    if timed:
+        rows = [(elig[b].contiguous(), kk[b].contiguous())
+                for b in range(elig.shape[0])]
+        out["ms"] = device_ms(
+            lambda: kselect.select_k_bits(elig, kk, c, seeds, n), 20)
+        out["singles_ms"] = device_ms(
+            lambda: [kselect.select_k_bits(e, q, c, h, n)
+                     for (e, q), h in zip(rows, host)], 20)
+        out["plain_ms"] = eager_ms(
+            lambda: kselect.select_k_bits_plain(elig, kk, c, seeds, n), 2)
+    return out
+
+
+def batched_paths(dev, pg, krecv, ksel, flagship) -> dict:
+    """B1's other families on a replica stack, each through the user's
+    runner (gossip_run_knob_batch / gossip_run_batch) for
+    BATCHED_PATH_TICKS ticks at 4 x BATCHED_PATH_PEERS flagship-drawn
+    peers, counts reset just before and read just after: the knob batch
+    (a SimKnobs point a replica), unscored and scored under a fault
+    schedule a replica (distinct fault seeds and churn), unscored, the
+    attack options (20% sybils a replica).  Returns each run's launches; B1
+    must run once a tick, its family only."""
+    import numpy as np
+
+    from go_libp2p_pubsub_tpu_torch.models import faults as pfl
+
+    n_p, ticks = BATCHED_PATH_PEERS, BATCHED_PATH_TICKS
+    cfg, subs, topic, origin, tick = flagship.inputs(n_p, horizon=40)
+    common = dict(subs=subs, msg_topic=topic, msg_origin=origin,
+                  msg_publish_tick=tick, track_first_tick=False)
+    atk = pg.ScoreSimConfig(sybil_ihave_spam=True, sybil_iwant_spam=True)
+
+    def sched(r):
+        rng = np.random.default_rng(r)
+        down = np.flatnonzero(rng.random(n_p) < 0.05)
+        return pfl.FaultSchedule(
+            n_peers=n_p, horizon=40, seed=11 + r, drop_prob=0.02,
+            down_intervals=[(int(p), 2, 6) for p in down])
+
+    runs = {
+        "scored+knobs": (pg.ScoreSimConfig(), lambda r: dict(
+            sim_knobs={"gossip_factor": 0.2 + 0.1 * r,
+                       "behaviour_penalty_weight": -5.0 * (r + 1)})),
+        "unscored": (None, lambda r: {}),
+        "unscored_faults": (None, lambda r: dict(fault_schedule=sched(r))),
+        "scored_faults": (pg.ScoreSimConfig(), lambda r: dict(
+            fault_schedule=sched(r))),
+        "attacks": (atk, lambda r: dict(
+            sybil=np.random.default_rng(r).random(n_p) < 0.2)),
+    }
+    out = {}
+    for variant, (sc, extra) in runs.items():
+        params, state = pg.stack_sims(
+            cfg, [dict(seed=r, **extra(r)) for r in range(4)],
+            score_cfg=sc, device=dev, **common)
+        step = pg.make_gossip_step(cfg, sc, device=dev)
+        torch.cuda.synchronize()
+        krecv.launches.clear()
+        ksel.launches = 0
+        state, reach = pg.gossip_run_knob_batch(params, state, ticks, step,
+                                                device=dev)
+        torch.cuda.synchronize()
+        got = dict(krecv.launches)
+        if got != {variant: ticks} or ksel.launches <= 0:
+            fail(f"batched {variant}: launches {got}, select "
+                 f"{ksel.launches}")
+        out[variant] = dict(receive=got[variant], select=ksel.launches,
+                            reached=int((reach > 0).sum()))
+        del params, state, step
+    return out
 
 
 def full_receive_operands(k, n: int, device, seed: int):
@@ -1178,6 +1367,7 @@ def main() -> None:
 
     from go_libp2p_pubsub_tpu_torch import (
         adversarial,
+        batched_flagship,
         churn,
         convert,
         everything,
@@ -2938,8 +3128,10 @@ def main() -> None:
           f"degree {wide_deg:.3f}, launches {wide_launches}; "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # -- 5x. the tournament as written: 20 cells at 20,000 x 20 x 24 x
-    # 150, one after another; the byzantine x reference cell on the CPU
+    # -- 5x. the tournament as one dispatch: 20 cells at 20,000 x 20 x 24
+    # x 150 stacked, one step a tick (gossip_run_tournament); its launches
+    # a batched tick beside one cell's; the byzantine x reference cell on
+    # the card (in the grid and alone) against the CPU's
     t0 = time.perf_counter()
     cells = []
     krecv.launches.clear()
@@ -2958,37 +3150,203 @@ def main() -> None:
                                                       row["defense"]))
         print(f"tournament row {json.dumps(row)}  TOURNEY_r12.json "
               f"{json.dumps(old)}")
-    if tourney["invariant_violations"] or tourney_launches["receive"]:
+    if (tourney["invariant_violations"] or tourney_launches["receive"]
+            or tourney["rows"] != committed["rows"]):
         fail(f"tournament: {tourney['invariant_violations']} cells with "
-             f"invariant bits, launches {tourney_launches}")
+             f"invariant bits, launches {tourney_launches}, rows equal to "
+             f"TOURNEY_r12.json: {tourney['rows'] == committed['rows']}")
     i_byz = next(i for i, r in enumerate(tourney["rows"])
                  if (r["attack"], r["defense"]) == ("byzantine",
                                                     "reference"))
+    one_cells = []
+    ksel.launches = 0
+    tournament.run_tournament(*TOURNEY_SHAPE, device=dev,
+                              attacks=("byzantine",),
+                              defenses={"reference": {}}, cells=one_cells)
+    one_select = ksel.launches
+    if one_select != tourney_launches["select"]:
+        fail(f"tournament: B3 launches {tourney_launches['select']} for 20 "
+             f"cells, {one_select} for one")
     cpu_cells = []
     tournament.run_tournament(*TOURNEY_SHAPE, device="cpu",
                               attacks=("byzantine",),
                               defenses={"reference": {}}, cells=cpu_cells)
     d_byz = [knob_sweep.tree_digest(convert.state_to_numpy(c[1]))
-             for c in (cells[i_byz], cpu_cells[0])]
-    if d_byz[0] != d_byz[1]:
-        fail(f"tournament byzantine x reference: card {d_byz[0]} != CPU "
-             f"{d_byz[1]}")
+             for c in (cells[i_byz], one_cells[0], cpu_cells[0])]
+    if len(set(d_byz)) != 1:
+        fail(f"tournament byzantine x reference: card in the grid "
+             f"{d_byz[0]}, card alone {d_byz[1]}, CPU {d_byz[2]}")
+    del cells, one_cells, cpu_cells
+    t_prof = {}
+    for label, kw in (("grid", {}), ("one_cell", dict(
+            attacks=("byzantine",), defenses={"reference": {}}))):
+        _, _, p_g, s_g, step_g, _, _ = tournament.stack_grid(
+            *TOURNEY_SHAPE, device=dev, **kw)
+        box = [pg.gossip_run_batch(p_g, s_g, 10, step_g, device=dev)]
+
+        def more():
+            box[0] = pg.gossip_run_batch(p_g, box[0], 10, step_g,
+                                         device=dev)
+        prof = flagship.profile_ticks(more, 10)
+        t_prof[label] = {key: prof[key] for key in (
+            "wall_ms_per_tick", "device_busy_ms_per_tick",
+            "device_idle_share", "launches_per_tick")}
+        del p_g, s_g, box
     tourney_main = dict(
         rows_equal_committed=tourney["rows"] == committed["rows"],
         worst_case=tourney["worst_case"],
         invariant_violations=tourney["invariant_violations"],
         replica_heartbeats_per_s=tourney["replicas"] * TOURNEY_SHAPE[3]
         / dt_t, wall_s=dt_t, launches=tourney_launches,
+        select_launches_one_cell=one_select, profile=t_prof,
         byzantine_digest=d_byz[0])
-    del cells, cpu_cells
-    print(f"tournament (as written, cell by cell): {tourney['replicas']} "
-          f"cells at {TOURNEY_SHAPE}: "
-          f"{tourney_main['replica_heartbeats_per_s']:.2f} replica "
-          f"heartbeats/s ({dt_t:.1f} s), rows equal to TOURNEY_r12.json: "
-          f"{tourney_main['rows_equal_committed']}, worst case "
-          f"{tourney['worst_case']}, byzantine x reference card digest "
-          f"{d_byz[0]} == CPU, launches {tourney_launches} "
+    print(f"tournament (as one dispatch): {tourney['replicas']} cells at "
+          f"{TOURNEY_SHAPE}: {tourney_main['replica_heartbeats_per_s']:.2f}"
+          f" replica heartbeats/s ({dt_t:.1f} s), rows equal to "
+          f"TOURNEY_r12.json: {tourney_main['rows_equal_committed']}, "
+          f"worst case {tourney['worst_case']}, launches {tourney_launches}"
+          f" (B3 for one cell alone: {one_select}); launches a tick: grid "
+          f"{t_prof['grid']['launches_per_tick']:.1f}, one cell "
+          f"{t_prof['one_cell']['launches_per_tick']:.1f}; device busy "
+          f"{t_prof['grid']['device_busy_ms_per_tick']:.3f} ms a batched "
+          f"tick (one cell {t_prof['one_cell']['device_busy_ms_per_tick']:.3f}"
+          f"), idle share {t_prof['grid']['device_idle_share']:.4f}; "
+          f"byzantine x reference digest {d_byz[0]} == alone == CPU "
           f"[{name}, {smi}]; {time.perf_counter() - t0:.1f} s")
+
+    # -- 5y. B3 with a replica axis against its plain version and against
+    # one launch a replica: 4 x 1,000,000 seeded peers with distinct seeds
+    # at C = 16 and 32, the tournament's 20 x 20,000 (N = 0 mod 4) and 20
+    # x 20,002 (N = 2 mod 4: quads straddle replicas); each timed
+    t0 = time.perf_counter()
+    sel_b = {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(59)
+    for reps_b, n_b, c_b in ((4, n, 16), (4, n, 32), (20, 20_000, 16),
+                             (20, 20_002, 16)):
+        hi = torch.randint(0, 1 << 32, (reps_b, n_b), generator=g,
+                           device=dev)
+        lo = torch.randint(0, 1 << 32, (reps_b, n_b), generator=g,
+                           device=dev)
+        el = graph.to_i32(hi & lo) & (-1 if c_b == 32 else (1 << c_b) - 1)
+        kb = torch.randint(0, c_b + 3, (reps_b, n_b), generator=g,
+                           device=dev).to(torch.int32)
+        seeds_b = graph.lane_seed(5, 2, torch.arange(
+            reps_b, dtype=torch.int64, device=dev) * 7919 + 3)
+        r = check_batched_select(f"select batched {reps_b}x{n_b} C={c_b}",
+                                 el, kb, c_b, seeds_b, ksel)
+        r["bound"] = bound(3 * 4 * el.numel(), select_ops(el, kb, c_b))
+        sel_b[f"{reps_b}x{n_b}_c{c_b}"] = r
+        print(f"select batched {reps_b} x {n_b}, C={c_b}: identical to "
+              f"plain and to {reps_b} single launches; device time "
+              f"{r['ms']:.4f} ms against {r['singles_ms']:.4f} ms for the "
+              f"single launches, plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) [{name}, {smi}]")
+        del hi, lo, el, kb
+    print(f"5y: {time.perf_counter() - t0:.1f} s")
+
+    # -- 5z. the batched flagship as written (batched_flagship.run: 4
+    # replicas of the 1M-peer flagship, mesh seeds 0-3, 100 + 3 x 100
+    # ticks, the gates of every replica, counts reset just before the
+    # timed blocks and read just after), replica 0 against a seed-0 sim
+    # alone; then B1 with a replica axis on a real tick of it and on
+    # seeded operands whose replicas differ, each family
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    alloc0_b = torch.cuda.memory_allocated()
+    bf = batched_flagship.run(dev, check_replica0=True)
+    p_b, st_b, step_b = bf.pop("params"), bf.pop("state"), bf.pop("step")
+    lb = bf["launches_per_batched_tick"]
+    if (lb.get("scored") != 1.0 or set(lb) != {"select", "scored"}
+            or lb["select"] != bf["select_launches_one_replica"]):
+        fail(f"batched flagship launches a tick {lb}, one replica's B3 "
+             f"{bf['select_launches_one_replica']}")
+    bf.update(start_bytes=alloc0_b, seconds=time.perf_counter() - t0)
+    print(f"batched flagship (the benchmark as written): {bf['replicas']} x "
+          f"{bf['n_peers']} peers: {bf['replica_heartbeats_per_s']:.2f} "
+          f"replica heartbeats/s ({bf['wall_s']:.2f} s for 3 x 100 "
+          f"batched ticks), launches a batched tick {lb} (B3 for one "
+          f"replica alone {bf['select_launches_one_replica']}), profile "
+          f"{bf['profile']}, gates {bf['gates']}, replica 0 digest "
+          f"{bf['replica0_digest']} == the seed-0 sim alone, peak memory "
+          f"{bf['peak_memory_gb']:.2f} GB ({alloc0_b} B at the start) "
+          f"[{name}, {smi}]; {bf['seconds']:.1f} s")
+    ops_b = capture_receive(lambda: step_b(p_b, st_b), krecv)
+    del st_b, step_b
+    t0 = time.perf_counter()
+    reps_tick = [krecv._replica_ops(ops_b, b) for b in range(4)]
+    cfg_b = pg.GossipSimConfig(offsets=flagship.inputs(n)[0].offsets,
+                               n_topics=flagship.N_TOPICS)
+    sc_atk = pg.ScoreSimConfig(sybil_ihave_spam=True, sybil_iwant_spam=True)
+    unscored_names = set(reps_tick[0]) - set(krecv.SCORED_OPERANDS)
+    b1_b = {}
+    for label, scfg, var, extra in (
+            ("scored", pg.ScoreSimConfig(), {}, {}),
+            ("knobs", pg.ScoreSimConfig(), dict(knobs=True),
+             dict(knobs=True)),
+            ("faults", pg.ScoreSimConfig(), dict(faults=True),
+             dict(faults=True)),
+            ("attacks", sc_atk, {}, dict(attack=True)),
+            ("unscored", None, {}, {}),
+            ("unscored_faults", None, dict(faults=True),
+             dict(faults=True))):
+        k_b = krecv.receive_consts(cfg_b, scfg, **var)
+        n_rand = 1_048_576 if scfg is None else n
+        rand = replica_operands(k_b, n_rand, dev, 300, **extra)
+        # the real tick's operands, adapted to the family: the extra
+        # operands each replica's own (the seeded draws of ``rand`` at N)
+        adds = replica_operands(k_b, n, dev, 700, **extra)
+        tick_reps = []
+        for b in range(4):
+            ops_t = dict(reps_tick[b])
+            if scfg is None:
+                ops_t = {key: v for key, v in ops_t.items()
+                         if key in unscored_names}
+            for key in ("knobs", "alive_w", "flood_ok", "syb"):
+                if key in adds[b]:
+                    ops_t[key] = adds[b][key]
+            tick_reps.append(ops_t)
+        r_rand = check_batched_receive(f"{label} batched (seeded)", k_b,
+                                       rand, krecv, timed=False)
+        r_tick = check_batched_receive(f"{label} batched (a real tick)",
+                                       k_b, tick_reps, krecv)
+        stacked = stack_receive_operands(tick_reps)
+        r_tick["bound"] = bound(r_tick["bytes"], sum(
+            receive_ops(k_b, t_) for t_ in tick_reps))
+        r_tick["err"] = max(r_rand["max_abs_err"], r_tick["max_abs_err"])
+        r_tick["variant"] = krecv.variant(k_b)
+        b1_b[label] = r_tick
+        print(f"receive batched {label} ({krecv.variant(k_b)}): 4 replicas "
+              f"identical to plain and to 4 single launches, seeded at N="
+              f"{n_rand} and on a real batched flagship tick at N={n}; "
+              f"device time {r_tick['ms']:.4f} ms against "
+              f"{r_tick['singles_ms']:.4f} ms for 4 single launches, plain "
+              f"{r_tick['plain_ms']:.3f} ms, bound "
+              f"{r_tick['bound'][0]:.4f} ms ({r_tick['bound'][1]}) "
+              f"[{name}, {smi}]")
+        del rand, adds, tick_reps, stacked
+    del ops_b, reps_tick, p_b
+    b_paths = batched_paths(dev, pg, krecv, ksel, flagship)
+    print(f"batched paths at 4 x {BATCHED_PATH_PEERS} peers, "
+          f"{BATCHED_PATH_TICKS} ticks each: launches {b_paths} "
+          f"[{name}, {smi}]; {time.perf_counter() - t0:.1f} s")
+
+    # -- 5aa. tune_defense at the tournament's shape: coordinate descent
+    # over TUNE_SPACE, each step one batched grid
+    t0 = time.perf_counter()
+    tuned = tournament.tune_defense(*TOURNEY_SHAPE, device=dev)
+    torch.cuda.synchronize()
+    tuned["wall_s"] = time.perf_counter() - t0
+    want_t = dict(worst=0.9139, mean=0.98278, takeover=0.2987)
+    got_t = dict(worst=tuned["tuned_worst_case"]["delivery_fraction"],
+                 mean=tuned["tuned_mean"], takeover=tuned["tuned_takeover"])
+    print(f"tune_defense at {TOURNEY_SHAPE}: {json.dumps(tuned)}")
+    print(f"tune_defense: tuned point {tuned['tuned']}, worst case "
+          f"{got_t['worst']} (the JAX package's record 0.9139), column mean "
+          f"{got_t['mean']} (0.98278), eclipse takeover "
+          f"{got_t['takeover']} (0.2987): "
+          f"{'the same' if got_t == want_t else 'DIFFERENT'}; wall "
+          f"{tuned['wall_s']:.1f} s [{name}, {smi}]")
 
     # -- 6. the unscored receive kernel vs plain at the resident shapes
     n_r = resident.N_PEERS
@@ -3327,6 +3685,36 @@ def main() -> None:
             launches=r["launches"], max_abs_err=r["err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=None))
+    # the replica axis: B3 on the batched flagship (its launches) timed
+    # at 4 x 1M, C = 16; B1's families on a real batched flagship tick,
+    # the flagship's launches from its run, the others' from theirs (5z)
+    sb_ = sel_b[f"4x{n}_c16"]
+    kernels.append(dict(
+        name="select_k_bits_batched", route="cuda",
+        source="go_libp2p_pubsub_tpu_torch/csrc/select.cu",
+        replaces="go_libp2p_pubsub_tpu/ops/pallas/select.py:39",
+        launches=int(round(bf["launches_per_batched_tick"]["select"]
+                           * batched_flagship.TIMED
+                           * batched_flagship.BLOCKS)),
+        max_abs_err=max(r["max_abs_err"] for r in sel_b.values()),
+        ms=sb_["ms"], plain_ms=sb_["plain_ms"], bound_ms=sb_["bound"][0],
+        bound_by=sb_["bound"][1], library_ms=None))
+    for label, r in b1_b.items():
+        launches_b = (int(round(bf["launches_per_batched_tick"]["scored"]
+                                * batched_flagship.TIMED
+                                * batched_flagship.BLOCKS))
+                      if label == "scored"
+                      else b_paths.get(r["variant"], {}).get("receive", 0))
+        kernels.append(dict(
+            name=f"receive_update_{label}_batched",
+            route="cuda",
+            source=("go_libp2p_pubsub_tpu_torch/csrc/receive_knobs.cu"
+                    if label == "knobs"
+                    else "go_libp2p_pubsub_tpu_torch/csrc/receive.cu"),
+            replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
+            launches=launches_b, max_abs_err=r["err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+            bound_by=r["bound"][1], library_ms=None))
     print(json.dumps({"main_path": {
         "flagship": main_flagship, "adversarial": main_adversarial,
         "everything": main_everything, "everything_paired": main_paired,
@@ -3357,6 +3745,15 @@ def main() -> None:
                           digests=digests, launches=wide_launches,
                           mean_mesh_degree=wide_deg),
         "tournament": tourney_main,
+        "batched_flagship": bf,
+        "batched_select": {key: {k_: v for k_, v in r.items()
+                                 if k_ != "bound"}
+                           for key, r in sel_b.items()},
+        "batched_receive": {key: {k_: v for k_, v in r.items()
+                                  if k_ != "bound"}
+                            for key, r in b1_b.items()},
+        "batched_paths": b_paths,
+        "tune_defense": tuned,
         "delay_receive": {
             kname: {key: v for key, v in r.items() if key != "bound"}
             for kname, r in delay_k.items()},

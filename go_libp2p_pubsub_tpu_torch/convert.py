@@ -36,6 +36,13 @@ This module never imports the reference; the caller flattens it.
   ``mesh_failure_penalty`` (counter dtype, under ``scores``), None where
   the sim has none.
 
+A replica stack (the reference's ``stack_trees`` output, every leaf with
+a leading ``[B]``) converts both ways too: ``key`` [B, 2] becomes the
+stack's salt tensor (int64 [B] of its last words) and back, ``tick`` [B]
+the one host tick (replicas at different ticks raise ``batched_ticks``),
+the fault ``seed`` [B] an int64 tensor, the partition windows [B, P]
+the one host tuple (replicas that differ raise ``batched_partitions``).
+
 The reverse functions give uint32 words back as uint32 and bf16 leaves
 as their raw uint16 patterns, so two trees compare bit for bit;
 ``frame_to_numpy`` gives a telemetry frame (one tick's, or frames stacked
@@ -51,6 +58,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .models import plan
 from .models.delays import DelayParams
 from .models.faults import FaultParams
 from .models.knobs import SIM_KNOB_FIELDS, SimKnobs
@@ -112,13 +120,21 @@ def faults_from_numpy(f: dict | None, device) -> FaultParams | None:
     schedule)."""
     if f is None:
         return None
-    part = {name: (None if f[name] is None
-                   else tuple(int(v) for v in np.asarray(f[name])))
-            for name in ("part_start", "part_end")}
+    seed = np.asarray(f["seed"]).astype(np.uint32)
+    part = {}
+    for name in ("part_start", "part_end"):
+        v = None if f[name] is None else np.asarray(f[name])
+        if v is not None and seed.ndim:
+            # a stack's windows: one host tuple for every replica
+            if not (v == v[:1]).all():
+                plan.refuse("batched_partitions")
+            v = v[0]
+        part[name] = None if v is None else tuple(int(x) for x in v)
     return FaultParams(
         down_start=_tensor(f["down_start"], device),
         down_end=_tensor(f["down_end"], device),
-        seed=int(np.asarray(f["seed"])),
+        seed=(torch.from_numpy(seed.astype(np.int64)).to(device)
+              if seed.ndim else int(seed)),
         drop_prob=(None if f["drop_prob"] is None
                    else _tensor(np.asarray(f["drop_prob"], np.float32),
                                 device)),
@@ -132,12 +148,19 @@ def faults_to_numpy(fp: FaultParams | None) -> dict | None:
     """FaultParams as the reference's leaves (None: no schedule)."""
     if fp is None:
         return None
-    part = {name: (None if getattr(fp, name) is None
-                   else np.asarray(getattr(fp, name), dtype=np.int32))
-            for name in ("part_start", "part_end")}
+    stacked = isinstance(fp.seed, torch.Tensor)
+    part = {}
+    for name in ("part_start", "part_end"):
+        v = getattr(fp, name)
+        v = None if v is None else np.asarray(v, dtype=np.int32)
+        if v is not None and stacked:
+            v = np.tile(v, (fp.seed.shape[0], 1))
+        part[name] = v
+    seed = (fp.seed.detach().cpu().numpy() if stacked
+            else np.asarray(fp.seed))
     return dict(
         down_start=_array(fp.down_start), down_end=_array(fp.down_end),
-        seed=np.asarray(fp.seed, dtype=np.uint32),
+        seed=seed.astype(np.uint32),
         drop_prob=None if fp.drop_prob is None else _array(fp.drop_prob),
         cross_bits=(None if fp.cross_bits is None
                     else _array(fp.cross_bits, True)),
@@ -218,11 +241,15 @@ def state_from_numpy(d: dict, sc: ScoreSimConfig | None,
             time_in_mesh_b=(None if s["time_in_mesh_b"] is None
                             else _tensor(s["time_in_mesh_b"], device)), **p3)
     key = np.asarray(d["key"]).astype(np.uint32)
+    tick = np.asarray(d["tick"]).reshape(-1)
+    if (tick != tick[0]).any():
+        plan.refuse("batched_ticks")
+    salt = (torch.from_numpy(key[:, -1].astype(np.int64)).to(device)
+            if key.ndim == 2 else int(key[-1]))
     return GossipState(
         **kw, scores=scores,
         gates=tuple(_tensor(g, device) for g in d["gates"]),
-        gates_fp=int(d["gates_fp"]), salt=int(key[-1]),
-        tick=int(np.asarray(d["tick"])))
+        gates_fp=int(d["gates_fp"]), salt=salt, tick=int(tick[0]))
 
 
 def score_knobs_to_numpy(kn: ScoreKnobs | None) -> dict | None:
@@ -260,9 +287,14 @@ def state_to_numpy(s: GossipState) -> dict:
                              else _array(getattr(s.scores, name)))
                       for name in SCORE_TENSORS})
     out["gates"] = [_array(g, True) for g in s.gates]
-    out.update(gates_fp=s.gates_fp,
-               key=np.array([0, s.salt], dtype=np.uint32),
-               tick=np.int32(s.tick))
+    if isinstance(s.salt, torch.Tensor):
+        salt = s.salt.detach().cpu().numpy().astype(np.uint32)
+        key = np.stack([np.zeros_like(salt), salt], -1)
+        tick = np.full(salt.shape, s.tick, dtype=np.int32)
+    else:
+        key = np.array([0, s.salt], dtype=np.uint32)
+        tick = np.int32(s.tick)
+    out.update(gates_fp=s.gates_fp, key=key, tick=tick)
     return out
 
 

@@ -140,6 +140,24 @@
 // bytes but its instruction chain at the threads a multiprocessor holds
 // (PERF.md): the staging removed the element loads, and the occupancy its
 // shared memory allows decides the rest.
+//
+// The replica axis (ReceiveArgs.reps): a stack of B sims of N peers each is
+// one launch.  Every [R, N] operand is a [B * R, N] array of rows, replica
+// b's row r at row b * R + r, so the tiles walk B times a replica's tiles,
+// a tile never straddles two replicas, and its staged rows and a wrapping
+// ctrl window's second box stay inside its replica's rows (the wrap at N is
+// the replica's own).  The body reads its replica's rows by an index
+// offset (o1 = b * N elements a row) from the launch's base pointers, and
+// its per-replica scalars by b: the two lane seeds (ReceiveArgs.seeds),
+// the validity words ([B, W]) and the knob row ([B, K]).  A 16-byte lead is
+// the same in every replica (each staged slot's rows are 16-byte multiples
+// of N).  The replica is a template flag (REPS) of the flagship and attack
+// options' kernels, with and without faults and knobs (the families a
+// stack runs): one sim (reps 0 or 1) launches the kernels without it, whose
+// offsets fold to 0, so a stack's index arithmetic costs one sim nothing
+// (an offset in every body, one sim's too, ran the flagship's receive 7.8%
+// and the attack options' 31% slower on 1M-peer ticks, H100, 700 W,
+// kernel_ab.py --parent: registers at the launch bound).
 #pragma once
 
 #include <cstdint>
@@ -184,7 +202,8 @@ struct ReceiveArgs {
   uint32_t* acq;             // [W, N]
   uint32_t* mesh;            // [N]
   int16_t* backoff_out;      // [C, N]
-  uint32_t* gates;           // [7, N] scored, [2, N] unscored
+  uint32_t* gates;           // [7, N] scored, [2, N] unscored (a stack:
+                             // [7, reps, N], [2, reps, N])
   // (scored) the updated counters
   void* fd_out;
   void* inv_out;
@@ -267,6 +286,13 @@ struct ReceiveArgs {
   const uint32_t* retract_in;  // [N] (DELAY) retractions taking effect
   const uint32_t* cheat_arr; // [N] (DELAY, ATK tracking promises)
                              // broken-promise adverts arriving
+  // the replica axis, last: a stack of reps sims of n peers each, every
+  // [R, N] operand a [reps * R, N] array of rows (replica b's row r is row
+  // b * R + r; a [W] or knob operand likewise [reps, W], [reps, K]); 0
+  // or 1 is one sim and reads the seeds above
+  int reps;
+  const uint32_t* seeds;     // [reps, 2] (gater, targets) lane seeds
+  int knob_stride;           // K, the knob vector's length (KNB)
 };
 
 namespace {
@@ -292,6 +318,14 @@ using gossip::lane_u;
 __device__ __forceinline__ int floordiv(int a, int b) {
   int q = a / b;
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+// replica rb's lane seed (which: 0 the gater's, 1 the targets'): from
+// the stack's [reps, 2] seeds, else the one sim's launch arguments
+__device__ __forceinline__ uint32_t seed_of(const ReceiveArgs& a, int rb,
+                                            int which) {
+  if (a.seeds != nullptr) return __ldg(&a.seeds[2 * rb + which]);
+  return which ? a.seed_targets : a.seed_gater;
 }
 
 // ---- the staged tile
@@ -478,7 +512,7 @@ template <class L, uint64_t MASK, int C>
 __device__ __forceinline__ void stage_tile(const ReceiveArgs& a,
                                            const StagePlan& plan,
                                            uint8_t* st, uint64_t* bar,
-                                           long long p0, int lane) {
+                                           long long p0, int rb, int lane) {
   const long long n = a.n;
   const uint64_t present = plan.present & MASK;
   const long long active =
@@ -502,7 +536,7 @@ __device__ __forceinline__ void stage_tile(const ReceiveArgs& a,
     if (s == SL_CTRL || s == SL_CTRL2) {
       for (int j = (lane - s) & 31; j < C; j += 32) {
         const long long q0 = window_start(a, p0, j);
-        const int x = (int)((long long)a.cinv[j] * n + q0);
+        const int x = (int)((long long)(rb * C + a.cinv[j]) * n + q0);
         tma_load(st + L::off(s) + j * room, &plan.map[s],
                  granule_floor(x, 1), bar);
         if (q0 + active > n) {
@@ -513,7 +547,9 @@ __device__ __forceinline__ void stage_tile(const ReceiveArgs& a,
     } else {
       for (int r = (lane - s) & 31; r < L::copies(s); r += 32) {
         tma_load(st + L::off(s) + r * room, &plan.map[s],
-                 granule_floor((int)(r * n + p0), L::es(s)), bar);
+                 granule_floor((int)((rb * L::copies(s) + r) * n + p0),
+                               L::es(s)),
+                 bar);
       }
     }
   }
@@ -523,12 +559,16 @@ __device__ __forceinline__ void stage_tile(const ReceiveArgs& a,
 // of row r of slot s sits ``lead`` bytes into the row's box, the bytes
 // between the 16-byte boundary the copy started at and the row's first
 // element: (r * N * es) mod 16, the same for every tile (p0 is a multiple
-// of 16 elements, each operand 16-byte aligned).
+// of 16 elements, each operand 16-byte aligned).  In a replica stack the
+// replica's first row adds rep * copies(s) * N * es bytes, a multiple of
+// 16 (every staged row slot has copies(s) * es >= 16: C >= 8 rows of 2 or
+// 4 bytes), so the lead is the same in every replica.
 template <class L>
 struct Staged {
   const uint8_t* st;
   long long n;
   int t;
+  int rep;      // the tile's replica (the body's rows: rep * R + r)
   uint64_t div_m;
   uint32_t div_l;
 
@@ -596,10 +636,10 @@ __device__ __forceinline__ float decay_keep(float x, float decay, float dtz) {
 // loop, so the baked kernels' code stays as it was and the knob reads hold
 // no register through the loop
 template <bool KNB>
-__device__ __forceinline__ float knob(const ReceiveArgs& a, int i,
+__device__ __forceinline__ float knob(const ReceiveArgs& a, int rb, int i,
                                       float baked) {
   if constexpr (KNB) {
-    return a.knobs[i];
+    return a.knobs[rb * a.knob_stride + i];
   } else {
     return baked;
   }
@@ -607,9 +647,9 @@ __device__ __forceinline__ float knob(const ReceiveArgs& a, int i,
 
 // the backoff restart: backoff_ticks - 1 (exact through the f32 carry)
 template <bool KNB>
-__device__ __forceinline__ int restart_ticks(const ReceiveArgs& a) {
+__device__ __forceinline__ int restart_ticks(const ReceiveArgs& a, int rb) {
   if constexpr (KNB) {
-    return (int)a.knobs[KNOB_BT] - 1;
+    return (int)a.knobs[rb * a.knob_stride + KNOB_BT] - 1;
   } else {
     return a.backoff_restart;
   }
@@ -619,9 +659,10 @@ __device__ __forceinline__ int restart_ticks(const ReceiveArgs& a) {
 // weight and the knob, as the reference forms it for a traced weight;
 // baked, the f32 rounding of the double product (ScoreConsts.c_inv)
 template <bool KNB>
-__device__ __forceinline__ float p4_weight(const ReceiveArgs& a) {
+__device__ __forceinline__ float p4_weight(const ReceiveArgs& a, int rb) {
   if constexpr (KNB) {
-    return __fmul_rn(a.topic_weight, a.knobs[KNOB_INVW]);
+    return __fmul_rn(a.topic_weight,
+                     a.knobs[rb * a.knob_stride + KNOB_INVW]);
   } else {
     return a.c_inv;
   }
@@ -633,7 +674,7 @@ __device__ __forceinline__ float p4_weight(const ReceiveArgs& a) {
 // s_dlv[w * RECEIVE_THREADS + t], both in shared memory, before stage 2.
 template <int C, int W, bool SCORED, bool ATK, bool CBF, bool BBF,
           bool FLOOD, bool EXACTK, bool PX, bool SAMEIP, bool PAIRED,
-          bool FAULTS, bool TEL, bool KNB, bool DELAY, class S>
+          bool FAULTS, bool TEL, bool KNB, bool DELAY, bool REPS, class S>
 __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
                                              const S& in, long long p0,
                                              int* s_rows, uint32_t* s_dlv) {
@@ -650,8 +691,14 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
   const int n = (int)a.n;
   const int p = (int)p0 + t;
   if (p >= n) return;
+  // (REPS) the tile's replica: its [R, N] operands' rows start at row
+  // rb * R, element o1 * R; one sim's kernels fold both to 0
+  const int rb = REPS ? in.rep : 0;
+  const int o1 = REPS ? rb * n : 0;
   constexpr uint32_t ALL = (C == 32) ? 0xFFFFFFFFu : ((1u << C) - 1u);
-  // the sender streams, read from device memory over open edges
+  // the sender streams, read from device memory over open edges (the
+  // replica's rows, from element o1 * W: its senders are its own peers;
+  // an index offset, so the launch arguments stay the base pointers)
   const uint32_t* __restrict__ fresh = a.fresh;
   const uint32_t* __restrict__ adv = a.adv;
   const uint32_t* __restrict__ fresh_b = a.fresh_b;
@@ -660,18 +707,18 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
   uint32_t seen[W], heard[W], valid[W];
 #pragma unroll
   for (int w = 0; w < W; ++w) {
-    seen[w] = __ldg(&a.seen[w * n + p]);
+    seen[w] = __ldg(&a.seen[o1 * W + w * n + p]);
     heard[w] = 0u;
-    valid[w] = SCORED ? __ldg(&a.valid[w]) : 0xFFFFFFFFu;
+    valid[w] = SCORED ? __ldg(&a.valid[rb * W + w]) : 0xFFFFFFFFu;
   }
   // unscored: every sender's payload and advert pass (no gates; DELAY:
   // the step applied them)
-  const uint32_t pay = (SCORED && !DELAY) ? __ldg(&a.pay[p]) : ALL;
-  const uint32_t gsp = (SCORED && !DELAY) ? __ldg(&a.gsp[p]) : ALL;
+  const uint32_t pay = (SCORED && !DELAY) ? __ldg(&a.pay[o1 + p]) : ALL;
+  const uint32_t gsp = (SCORED && !DELAY) ? __ldg(&a.gsp[o1 + p]) : ALL;
   // (ATK) the sybil word; the receiver lacks some possible id
   // (FULL: no sybil word without an attack option)
   const uint32_t syb =
-      (ATK && (!FULL || a.syb != nullptr)) ? __ldg(&a.syb[p]) : 0u;
+      (ATK && (!FULL || a.syb != nullptr)) ? __ldg(&a.syb[o1 + p]) : 0u;
   const bool track = ATK && a.track_promises != 0;
   const bool adv_all = ATK && a.iwant_spam != 0;
   const bool flood_rx = adv_all && syb != 0u;
@@ -682,8 +729,8 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
   }
   // (FAULTS) the receiver's alive word, all-ones or 0 at a down peer;
   // under the IWANT flood, the edges a flood may cross
-  const uint32_t alive = FAULTS ? __ldg(&a.alive_w[p]) : 0xFFFFFFFFu;
-  const uint32_t fok = (FAULTS && flood_rx) ? __ldg(&a.flood_ok[p]) : ALL;
+  const uint32_t alive = FAULTS ? __ldg(&a.alive_w[o1 + p]) : 0xFFFFFFFFu;
+  const uint32_t fok = (FAULTS && flood_rx) ? __ldg(&a.flood_ok[o1 + p]) : ALL;
 
   // ---- stage 1: the C receiving edges
   // (TEL) the tally rows of this peer's edges
@@ -710,10 +757,10 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
       fdc[j] = fd_j;
       ivc[j] = iv_j;
     }
-    graft_recv = __ldg(&a.graft_arr[p]);
-    prune_recv = __ldg(&a.prune_arr[p]);
+    graft_recv = __ldg(&a.graft_arr[o1 + p]);
+    prune_recv = __ldg(&a.prune_arr[o1 + p]);
     if constexpr (ATK) {
-      if (track) broken = __ldg(&a.cheat_arr[p]) & (lacked != 0u ? ~0u : 0u);
+      if (track) broken = __ldg(&a.cheat_arr[o1 + p]) & (lacked != 0u ? ~0u : 0u);
     }
   }
   // the sender edges (none in delay mode)
@@ -725,7 +772,8 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
     // past N the window wrapped: the byte sits in the wrap piece
     const int q0 = (int)window_start(a, p0, j);
     const bool wrapped = q < q0;
-    const int xw = a.cinv[j] * n + q0;
+    // (the replica's row: the byte's 16-byte lead counts from it)
+    const int xw = (rb * C + a.cinv[j]) * n + q0;
     const uint32_t ctl = in.template ctrl<C>(SL_CTRL, j, xw, wrapped);
     uint32_t ctl2 = 0u;
     if constexpr (PAIRED) {
@@ -783,16 +831,16 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
       if (any_on) {
 #pragma unroll
         for (int w = 0; w < W; ++w) {
-          uint32_t got = fwd_on ? __ldg(&fresh[w * n + q]) : 0u;
+          uint32_t got = fwd_on ? __ldg(&fresh[o1 * W + w * n + q]) : 0u;
           if constexpr (PAIRED) {
-            if (fb_on) got |= __ldg(&fresh_b[w * n + q]);
+            if (fb_on) got |= __ldg(&fresh_b[o1 * W + w * n + q]);
           }
           if constexpr (FLOOD) {
-            if (fl_on) got |= __ldg(&inj_send[w * n + q]);
+            if (fl_on) got |= __ldg(&inj_send[o1 * W + w * n + q]);
           }
           const uint32_t fwd_q = got;
           const uint32_t adv_q =
-              (gsp_on || adv_all || adv_on) ? __ldg(&adv[w * n + q]) : 0u;
+              (gsp_on || adv_all || adv_on) ? __ldg(&adv[o1 * W + w * n + q]) : 0u;
           if (gsp_on) got |= adv_q;
           if constexpr (FAULTS) got &= alive;   // a down peer hears 0
           if constexpr (TEL) {
@@ -829,20 +877,20 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
       if (FAULTS && flood_rx && !((fok >> j) & 1u)) pull = 0;
       int srv = s - in.floordiv_h(s + (H - 1), H) + pull;
       srv = srv < 0 ? 0 : (srv > 30000 ? 30000 : srv);
-      a.iws_out[j * n + p] = (int16_t)srv;
+      a.iws_out[o1 * C + j * n + p] = (int16_t)srv;
     } else {
       if (fwd_on || gsp_on || fb_on || adv_on) {
 #pragma unroll
         for (int w = 0; w < W; ++w) {
           uint32_t got = 0u;
-          if (fwd_on) got |= __ldg(&fresh[w * n + q]);
+          if (fwd_on) got |= __ldg(&fresh[o1 * W + w * n + q]);
           if constexpr (PAIRED) {
-            if (fb_on) got |= __ldg(&fresh_b[w * n + q]);
+            if (fb_on) got |= __ldg(&fresh_b[o1 * W + w * n + q]);
           }
           if constexpr (TEL) {
             const uint32_t fwd_q = got;
             const uint32_t adv_q =
-                (gsp_on || adv_on) ? __ldg(&adv[w * n + q]) : 0u;
+                (gsp_on || adv_on) ? __ldg(&adv[o1 * W + w * n + q]) : 0u;
             if (gsp_on) got |= adv_q;
             if constexpr (FAULTS) got &= alive;   // a down peer hears 0
             const uint32_t adv_w = adv_on ? adv_q : 0u;
@@ -854,7 +902,7 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
             req_c += __popc(adv_w & alive & ~seen[w]);
             adv_nz = adv_nz || adv_q != 0u;
           } else {
-            if (gsp_on) got |= __ldg(&adv[w * n + q]);
+            if (gsp_on) got |= __ldg(&adv[o1 * W + w * n + q]);
             if constexpr (FAULTS) got &= alive;   // a down peer hears 0
           }
           const uint32_t news = got & ~seen[w];
@@ -893,43 +941,43 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
   uint32_t viol = 0u, viol_b = 0u;
   if constexpr (SCORED) {
     // (DELAY: the step gated the arrivals)
-    const uint32_t accb = DELAY ? ALL : __ldg(&a.acc[p]);
+    const uint32_t accb = DELAY ? ALL : __ldg(&a.acc[o1 + p]);
     graft_recv &= accb;
     prune_recv &= accb;
-    viol = graft_recv & __ldg(&a.bo2[p]);
+    viol = graft_recv & __ldg(&a.bo2[o1 + p]);
     if constexpr (PAIRED) {
       graft_b &= accb;
       prune_b &= accb;
-      viol_b = graft_b & __ldg(&a.bo2_b[p]);
+      viol_b = graft_b & __ldg(&a.bo2_b[o1 + p]);
     }
   }
-  const uint32_t accept = graft_recv & __ldg(&a.wa[p]);
+  const uint32_t accept = graft_recv & __ldg(&a.wa[o1 + p]);
   // (DELAY) the retractions the step resolved: delayed rejections
   // arriving, immediate ones and failed sends
   const uint32_t retract =
-      DELAY ? __ldg(&a.retract_in[p]) : (__ldg(&a.grafts[p]) & ~a_recv);
+      DELAY ? __ldg(&a.retract_in[o1 + p]) : (__ldg(&a.grafts[o1 + p]) & ~a_recv);
   const uint32_t mesh =
-      ((__ldg(&a.meshsel[p]) | accept) & ~prune_recv) & ~retract;
-  a.mesh[p] = mesh;
-  const uint32_t bo_trig = __ldg(&a.dropped[p]) | prune_recv | retract;
+      ((__ldg(&a.meshsel[o1 + p]) | accept) & ~prune_recv) & ~retract;
+  a.mesh[o1 + p] = mesh;
+  const uint32_t bo_trig = __ldg(&a.dropped[o1 + p]) | prune_recv | retract;
   // (PAIRED) slot B's handshake, mesh and backoff triggers
   uint32_t mesh_b = 0u, bo_trig_b = 0u, px_b = 0u;
   if constexpr (PAIRED) {
-    const uint32_t accept_b = graft_b & __ldg(&a.wa_b[p]);
-    const uint32_t retract_b = __ldg(&a.grafts_b[p]) & ~a_b;
-    mesh_b = ((__ldg(&a.meshsel_b[p]) | accept_b) & ~prune_b) & ~retract_b;
-    a.mesh_b_out[p] = mesh_b;
-    bo_trig_b = __ldg(&a.dropped_b[p]) | prune_b | retract_b;
+    const uint32_t accept_b = graft_b & __ldg(&a.wa_b[o1 + p]);
+    const uint32_t retract_b = __ldg(&a.grafts_b[o1 + p]) & ~a_b;
+    mesh_b = ((__ldg(&a.meshsel_b[o1 + p]) | accept_b) & ~prune_b) & ~retract_b;
+    a.mesh_b_out[o1 + p] = mesh_b;
+    bo_trig_b = __ldg(&a.dropped_b[o1 + p]) | prune_b | retract_b;
     px_b = prune_b | retract_b;
   }
   if constexpr (PX) {
-    if (a.px_rot != nullptr) a.px_rot[p] = prune_recv | retract | px_b;
+    if (a.px_rot != nullptr) a.px_rot[o1 + p] = prune_recv | retract | px_b;
   }
-  const uint32_t sub_all = __ldg(&a.sub_all[p]);
+  const uint32_t sub_all = __ldg(&a.sub_all[o1 + p]);
 #pragma unroll
   for (int w = 0; w < W; ++w) {
-    a.acq[w * n + p] =
-        (sub_all != 0u ? heard[w] : 0u) | __ldg(&a.inj[w * n + p]);
+    a.acq[o1 * W + w * n + p] =
+        (sub_all != 0u ? heard[w] : 0u) | __ldg(&a.inj[o1 * W + w * n + p]);
   }
   if constexpr (TEL) {
     // the new acquisitions (injected publishes are no received copy)
@@ -941,7 +989,8 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
       tr[TEL_NEW_IDS] += __popc(h);
       s_dlv[w * RECEIVE_THREADS + t] =
           a.tel_lat_buckets > 0
-              ? (h | __ldg(&a.inj[w * n + p])) & __ldg(&a.dlv_eff[w * n + p])
+              ? (h | __ldg(&a.inj[o1 * W + w * n + p])) &
+                    __ldg(&a.dlv_eff[o1 * W + w * n + p])
               : 0u;
     }
 #pragma unroll
@@ -956,6 +1005,8 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
   // (knob, restart_ticks, p4_weight: read where consumed)
   const float dtz = a.decay_to_zero;
   const int H = a.history_length;
+  // (REPS) the replica's lane seeds, read once
+  const uint32_t seed_gater = REPS ? seed_of(a, rb, 0) : a.seed_gater;
   uint32_t bo_gate = 0u, accept_g = 0u, gossip_g = 0u, pub_g = 0u,
            nonneg_g = 0u, gater = 0u, bo_gate_b = 0u;
   float inv_tot = 0.0f, del_tot = 0.0f;
@@ -963,9 +1014,9 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
   float fd_keep[SAMEIP ? C : 1], inv_keep[SAMEIP ? C : 1];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const int idx = c * n + p;
+    const int idx = o1 * C + c * n + p;
     const int bo = in.i16(SL_BACKOFF, c);
-    const int bo_new = ((bo_trig >> c) & 1u) ? restart_ticks<KNB>(a)
+    const int bo_new = ((bo_trig >> c) & 1u) ? restart_ticks<KNB>(a, rb)
                                              : (bo - 1 > 0 ? bo - 1 : 0);
     a.backoff_out[idx] = (int16_t)bo_new;
     bo_gate |= (uint32_t)(bo_new > 0) << c;
@@ -975,7 +1026,7 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
     if constexpr (PAIRED) {
       const int bob = in.i16(SL_BACKOFF_B, c);
       const int bob_new = ((bo_trig_b >> c) & 1u)
-                              ? restart_ticks<KNB>(a)
+                              ? restart_ticks<KNB>(a, rb)
                               : (bob - 1 > 0 ? bob - 1 : 0);
       a.backoff_b_out[idx] = (int16_t)bob_new;
       bo_gate_b |= (uint32_t)(bob_new > 0) << c;
@@ -1024,7 +1075,7 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
                            a.tim_cap);
     float topic = __fadd_rn(
         __fadd_rn(__fmul_rn(a.c_tim, tq), __fmul_rn(a.c_fd, fd_n)),
-        __fmul_rn(__fmul_rn(p4_weight<KNB>(a), inv_n), inv_n));
+        __fmul_rn(__fmul_rn(p4_weight<KNB>(a, rb), inv_n), inv_n));
     if constexpr (PAIRED) {   // slot B's P1, before the cap
       const float tqb = fminf(__fdiv_rn((float)tim_b_new, a.tim_quantum),
                               a.tim_cap);
@@ -1036,11 +1087,11 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
       topic = __fadd_rn(topic, in.template at<float>(SL_STAT, c));
     }
     const float score =
-        __fadd_rn(topic, __fmul_rn(__fmul_rn(knob<KNB>(a, KNOB_BPW, a.w_bp),
+        __fadd_rn(topic, __fmul_rn(__fmul_rn(knob<KNB>(a, rb, KNOB_BPW, a.w_bp),
                                              bp_ex), bp_ex));
-    accept_g |= (uint32_t)(score >= knob<KNB>(a, KNOB_GRAY, a.gray_thr))
+    accept_g |= (uint32_t)(score >= knob<KNB>(a, rb, KNOB_GRAY, a.gray_thr))
                 << c;
-    gossip_g |= (uint32_t)(score >= knob<KNB>(a, KNOB_GSP, a.gossip_thr))
+    gossip_g |= (uint32_t)(score >= knob<KNB>(a, rb, KNOB_GSP, a.gossip_thr))
                 << c;
     pub_g |= (uint32_t)(score >= a.publish_thr) << c;
     nonneg_g |= (uint32_t)(score >= 0.0f) << c;
@@ -1055,7 +1106,7 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
       const float one_fd = __fadd_rn(1.0f, fd_n);
       const float goodput =
           __fdiv_rn(one_fd, __fadd_rn(one_fd, __fmul_rn(16.0f, inv_n)));
-      gater |= (uint32_t)(lane_u(a.seed_gater, c, p, a.stride) < goodput)
+      gater |= (uint32_t)(lane_u(seed_gater, c, p, a.stride) < goodput)
                << c;
     }
   }
@@ -1086,7 +1137,7 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
       const float one_fd = __fadd_rn(1.0f, fd_g);
       const float goodput =
           __fdiv_rn(one_fd, __fadd_rn(one_fd, __fmul_rn(16.0f, inv_g)));
-      gater |= (uint32_t)(lane_u(a.seed_gater, c, p, a.stride) < goodput)
+      gater |= (uint32_t)(lane_u(seed_gater, c, p, a.stride) < goodput)
                << c;
     }
   }
@@ -1100,22 +1151,23 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
   // next tick's gossip targets (scored: above the gossip threshold;
   // PAIRED: one selection for both slots, outside either mesh):
   // Bernoulli(k/|elig|), or (EXACTK) the exact uniform k-subset
-  const uint32_t cand_sub = __ldg(&a.cand_sub[p]);
-  uint32_t elig = cand_sub & ~mesh & ~__ldg(&a.fanout[p]) & sub_all;
+  const uint32_t cand_sub = __ldg(&a.cand_sub[o1 + p]);
+  uint32_t elig = cand_sub & ~mesh & ~__ldg(&a.fanout[o1 + p]) & sub_all;
   if constexpr (PAIRED) elig &= ~mesh_b;
   if constexpr (SCORED) elig &= gossip_g;
   const int n_el = __popc(elig);
+  const uint32_t seed_targets = REPS ? seed_of(a, rb, 1) : a.seed_targets;
   // (KNB) gossip_factor and d_lazy from the knob vector
-  const int n_fac = (int)__fmul_rn(knob<KNB>(a, KNOB_GF, a.gossip_factor),
+  const int n_fac = (int)__fmul_rn(knob<KNB>(a, rb, KNOB_GF, a.gossip_factor),
                                    (float)n_el);
-  const int d_lazy = KNB ? (int)knob<KNB>(a, KNOB_DLAZY, 0.0f) : a.d_lazy;
+  const int d_lazy = KNB ? (int)knob<KNB>(a, rb, KNOB_DLAZY, 0.0f) : a.d_lazy;
   const int n_go = d_lazy > n_fac ? d_lazy : n_fac;
   uint32_t tgt = 0u;
   bool exact = false;
   if constexpr (EXACTK) {
     exact = a.exact_k != 0;
     if (exact) {
-      tgt = gossip::select_k<C>(elig, C, n_go, a.seed_targets, p, a.stride);
+      tgt = gossip::select_k<C>(elig, C, n_go, seed_targets, p, a.stride);
     }
   }
   if (!exact) {
@@ -1123,27 +1175,31 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
         fminf(1.0f, __fdiv_rn((float)n_go, (float)(n_el > 1 ? n_el : 1)));
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      tgt |= (uint32_t)(lane_u(a.seed_targets, c, p, a.stride) < p_g) << c;
+      tgt |= (uint32_t)(lane_u(seed_targets, c, p, a.stride) < p_g) << c;
     }
   }
 
+  // the gate rows: gate g of replica rb at row g * reps + rb (each gate a
+  // contiguous [reps, N] block, as the step carries it)
+  const int gn = (REPS && a.reps > 1) ? a.reps * n : n;
+  uint32_t* __restrict__ gates = a.gates;
   if constexpr (SCORED) {
-    a.gates[0 * n + p] = accept_g;
-    a.gates[1 * n + p] = gossip_g;
-    a.gates[2 * n + p] = pub_g;
-    a.gates[3 * n + p] = nonneg_g;
-    a.gates[4 * n + p] = accept_g & gater;
+    gates[o1 + 0 * gn + p] = accept_g;
+    gates[o1 + 1 * gn + p] = gossip_g;
+    gates[o1 + 2 * gn + p] = pub_g;
+    gates[o1 + 3 * gn + p] = nonneg_g;
+    gates[o1 + 4 * gn + p] = accept_g & gater;
     uint32_t tgt_row = elig & tgt;
     if constexpr (ATK) {
       if (a.ihave_spam) tgt_row = (tgt_row & ~syb) | (cand_sub & syb);
     }
-    a.gates[5 * n + p] = tgt_row;
-    a.gates[6 * n + p] = bo_gate;
-    if constexpr (PAIRED) a.gates[7 * n + p] = bo_gate_b;
+    gates[o1 + 5 * gn + p] = tgt_row;
+    gates[o1 + 6 * gn + p] = bo_gate;
+    if constexpr (PAIRED) gates[o1 + 7 * gn + p] = bo_gate_b;
   } else {
-    a.gates[0 * n + p] = elig & tgt;
-    a.gates[1 * n + p] = bo_gate;
-    if constexpr (PAIRED) a.gates[2 * n + p] = bo_gate_b;
+    gates[o1 + 0 * gn + p] = elig & tgt;
+    gates[o1 + 1 * gn + p] = bo_gate;
+    if constexpr (PAIRED) gates[o1 + 2 * gn + p] = bo_gate_b;
   }
 }
 
@@ -1159,7 +1215,8 @@ __device__ __forceinline__ void receive_body(const ReceiveArgs& a,
 // summed into the block's rows in shared memory, added into the tally once
 // at the end.
 template <int C, int W, int FAMILY, bool SCORED, bool ATK, bool CBF,
-          bool BBF, bool FAULTS, bool TEL, bool KNB, bool DELAY>
+          bool BBF, bool FAULTS, bool TEL, bool KNB, bool DELAY,
+          bool REPS = false>
 __device__ __forceinline__ void receive_tiles(const ReceiveArgs& a,
                                               const StagePlan& plan) {
   constexpr int T = RECEIVE_TILE, NT = RECEIVE_THREADS;
@@ -1176,7 +1233,10 @@ __device__ __forceinline__ void receive_tiles(const ReceiveArgs& a,
   __shared__ uint32_t s_dlv[TEL ? W * NT : 1];
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const long long n = a.n;
-  const long long ntiles = (n + T - 1) / T;
+  // tiles over the replicas, each replica's peers in its own tiles
+  const long long ntiles_rep = (n + T - 1) / T;
+  const long long ntiles =
+      REPS ? ntiles_rep * (a.reps > 1 ? a.reps : 1) : ntiles_rep;
   const int rows = TEL_ROWS + (TEL ? a.tel_lat_buckets : 0);
   if (t == 0) {
     mbar_init(bar);
@@ -1188,11 +1248,13 @@ __device__ __forceinline__ void receive_tiles(const ReceiveArgs& a,
   __syncthreads();
   for (long long tile = blockIdx.x, it = 0; tile < ntiles;
        tile += gridDim.x, ++it) {
+    const int rb = REPS ? (int)(tile / ntiles_rep) : 0;
+    const long long p0 = (tile - rb * ntiles_rep) * T;
     if (warp == 0) {
-      stage_tile<L, MASK, C>(a, plan, stage, bar, tile * T, lane);
+      stage_tile<L, MASK, C>(a, plan, stage, bar, p0, rb, lane);
     }
     mbar_wait(bar, (uint32_t)(it & 1));
-    const Staged<L> in{stage, n, t, plan.div_m, plan.div_l};
+    const Staged<L> in{stage, n, t, rb, plan.div_m, plan.div_l};
     if constexpr (TEL) {
 #pragma unroll
       for (int r = 0; r < TEL_ROWS; ++r) s_rows[r * NT + t] = 0;
@@ -1202,7 +1264,7 @@ __device__ __forceinline__ void receive_tiles(const ReceiveArgs& a,
     if (t < T) {
       receive_body<C, W, SCORED, FULL ? SCORED : ATK, CBF, BBF,
                    FULL && SCORED, FULL, FULL, FULL && SCORED, FAMILY == 2,
-                   FAULTS, TEL, KNB, DELAY>(a, in, tile * T, s_rows, s_dlv);
+                   FAULTS, TEL, KNB, DELAY, REPS>(a, in, p0, s_rows, s_dlv);
     }
     if constexpr (TEL) {
       __syncthreads();
@@ -1273,8 +1335,10 @@ inline EncodeTiled encode_tiled() {
 // CUDA error code.
 template <class L, uint64_t MASK>
 int make_plan(const ReceiveArgs& a, StagePlan* plan) {
-  // the body's indices and the copies' coordinates are 32-bit
-  if ((long long)(L::copies(SL_ARR) > 8 ? L::copies(SL_ARR) : 8) * a.n >=
+  // the body's indices and the copies' coordinates are 32-bit: over a
+  // replica stack, reps * max(8, C * W) rows of n
+  const long long reps = a.reps > 1 ? a.reps : 1;
+  if (reps * (L::copies(SL_ARR) > 8 ? L::copies(SL_ARR) : 8) * a.n >=
       (1ll << 31)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1293,7 +1357,8 @@ int make_plan(const ReceiveArgs& a, StagePlan* plan) {
     const int es = L::es(s);
     const cuuint64_t dim =
         (cuuint64_t)(s == SL_CTRL || s == SL_CTRL2 ? L::copies(s)
-                                                   : L::rows(s)) * a.n;
+                                                   : L::rows(s)) *
+        a.n * reps;
     const cuuint64_t stride = 0;
     const cuuint32_t box = box_bytes(es) / es, estride = 1;
     const CUtensorMapDataType dt =
@@ -1373,7 +1438,7 @@ inline int launch_tiles(ReceiveKernel kernel, const ReceiveArgs& a,
     e->smem = smem;
   }
   if (e->blocks <= 0) return (int)cudaErrorInvalidConfiguration;
-  const long long ntiles = (a.n + T - 1) / T;
+  const long long ntiles = (a.n + T - 1) / T * (a.reps > 1 ? a.reps : 1);
   const long long grid = (long long)e->blocks * sms;
   const unsigned blocks = (unsigned)(grid < ntiles ? grid : ntiles);
   kernel<<<blocks, NT, smem, s>>>(a, plan);

@@ -95,11 +95,66 @@ receive_kernel_paired_faults_knobs(const ReceiveArgs a,
 }
 
 // this library's launcher for the dispatch of receive_body.cuh
+// (REPS) the flagship and attack options over a replica stack, with and
+// without faults: one launch for every replica's tiles
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, SCORED, false))
+receive_kernel_knobs_reps(const ReceiveArgs a,
+                     const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, SCORED, false, CBF, BBF, false, false, true,
+                false, true>(a, plan);
+}
+
+template <int C, int W, bool CBF, bool BBF>
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, true, true))
+receive_kernel_attacks_knobs_reps(const ReceiveArgs a,
+                             const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, true, true, CBF, BBF, false, false, true,
+                false, true>(a, plan);
+}
+
+template <int C, int W, bool SCORED, bool CBF, bool BBF>
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, SCORED, false))
+receive_kernel_faults_knobs_reps(const ReceiveArgs a,
+                            const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, SCORED, false, CBF, BBF, true, false, true,
+                false, true>(a, plan);
+}
+
+template <int C, int W, bool CBF, bool BBF>
+__global__ void __launch_bounds__(RECEIVE_THREADS,
+                                  receive_blocks(0, true, true))
+receive_kernel_attacks_faults_knobs_reps(
+    const ReceiveArgs a, const __grid_constant__ StagePlan plan) {
+  receive_tiles<C, W, 0, true, true, CBF, BBF, true, false, true,
+                false, true>(a, plan);
+}
+
 struct KnobKernels {
   template <int C, int W, int FAMILY, bool SCORED, bool ATK, bool CBF,
             bool BBF, bool FAULTS>
   static int launch(const ReceiveArgs& a, cudaStream_t s) {
     ReceiveKernel k;
+    if (a.reps > 1) {
+      // a replica stack: the flagship and attack options only (the step
+      // refuses the others in a stack)
+      if constexpr (FAMILY != 0) {
+        return (int)cudaErrorInvalidValue;
+      } else if constexpr (ATK && FAULTS) {
+        k = receive_kernel_attacks_faults_knobs_reps<C, W, CBF, BBF>;
+      } else if constexpr (ATK) {
+        k = receive_kernel_attacks_knobs_reps<C, W, CBF, BBF>;
+      } else if constexpr (FAULTS) {
+        k = receive_kernel_faults_knobs_reps<C, W, SCORED, CBF, BBF>;
+      } else {
+        k = receive_kernel_knobs_reps<C, W, SCORED, CBF, BBF>;
+      }
+      return run_tiles<C, W, FAMILY, SCORED, ATK, CBF, BBF, FAULTS, false,
+                       false>(k, a, s);
+    }
     if constexpr (FAMILY == 2 && FAULTS) {
       k = receive_kernel_paired_faults_knobs<C, W, SCORED, CBF, BBF>;
     } else if constexpr (FAMILY == 2) {

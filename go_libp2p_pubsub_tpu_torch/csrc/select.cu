@@ -38,12 +38,32 @@ namespace {
 constexpr int SELECT_THREADS = 128;
 constexpr int PEERS_PER_THREAD = 4;
 
-template <int CMAX>
+// A replica stack (BATCHED): elig, k and out are [B, N] rows of n_rep
+// peers each, replica b drawing from seeds[b] on the lanes of its own peer
+// index; a quad that straddles two replicas (n_rep not a multiple of 4)
+// takes each peer's replica and local index apart.
+template <bool BATCHED>
+__device__ __forceinline__ void replica_of(long long g, long long n_rep,
+                                           const uint32_t* seeds,
+                                           uint32_t seed, uint32_t& s,
+                                           long long& p) {
+  if constexpr (BATCHED) {
+    const long long b = g / n_rep;
+    s = __ldg(&seeds[b]);
+    p = g - b * n_rep;
+  } else {
+    s = seed;
+    p = g;
+  }
+}
+
+template <int CMAX, bool BATCHED>
 __global__ void __launch_bounds__(SELECT_THREADS)
 select_k_bits_kernel(const uint32_t* __restrict__ elig,
                      const int32_t* __restrict__ k,
                      uint32_t* __restrict__ out, long long n, int c,
-                     uint32_t seed, uint32_t stride) {
+                     uint32_t seed, uint32_t stride,
+                     const uint32_t* __restrict__ seeds, long long n_rep) {
   const long long p0 =
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) * PEERS_PER_THREAD;
   if (p0 >= n) return;
@@ -69,7 +89,10 @@ select_k_bits_kernel(const uint32_t* __restrict__ elig,
       for (int q = 0; q < 4; ++q) {
         if (q == i) { el = ev[q]; ki = kv[q]; }
       }
-      sel = gossip::select_k<CMAX>(el, c, ki, seed, p0 + i, stride);
+      uint32_t s;
+      long long p;
+      replica_of<BATCHED>(p0 + i, n_rep, seeds, seed, s, p);
+      sel = gossip::select_k<CMAX>(el, c, ki, s, p, stride);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         if (q == i) ov[q] = sel;
@@ -81,21 +104,42 @@ select_k_bits_kernel(const uint32_t* __restrict__ elig,
   }
 #pragma unroll
   for (int i = 0; i < PEERS_PER_THREAD; ++i) {
-    const long long p = p0 + i;
-    if (p < n) out[p] = gossip::select_k<CMAX>(elig[p], c, k[p], seed, p,
-                                                stride);
+    const long long g = p0 + i;
+    if (g < n) {
+      uint32_t s;
+      long long p;
+      replica_of<BATCHED>(g, n_rep, seeds, seed, s, p);
+      out[g] = gossip::select_k<CMAX>(elig[g], c, k[g], s, p, stride);
+    }
   }
 }
 
-template <int CMAX>
+template <int CMAX, bool BATCHED>
 void launch_select(const void* elig, const void* k, void* out, long long n,
-                   int c, uint32_t seed, uint32_t stride, cudaStream_t s) {
+                   int c, uint32_t seed, uint32_t stride,
+                   const uint32_t* seeds, long long n_rep, cudaStream_t s) {
   const long long threads = (n + PEERS_PER_THREAD - 1) / PEERS_PER_THREAD;
   const unsigned blocks =
       (unsigned)((threads + SELECT_THREADS - 1) / SELECT_THREADS);
-  select_k_bits_kernel<CMAX><<<blocks, SELECT_THREADS, 0, s>>>(
+  select_k_bits_kernel<CMAX, BATCHED><<<blocks, SELECT_THREADS, 0, s>>>(
       (const uint32_t*)elig, (const int32_t*)k, (uint32_t*)out, n, c, seed,
-      stride);
+      stride, seeds, n_rep);
+}
+
+template <bool BATCHED>
+void dispatch(const void* elig, const void* k, void* out, long long n, int c,
+              uint32_t seed, uint32_t stride, const uint32_t* seeds,
+              long long n_rep, cudaStream_t s) {
+  if (c <= 8) {
+    launch_select<8, BATCHED>(elig, k, out, n, c, seed, stride, seeds,
+                              n_rep, s);
+  } else if (c <= 16) {
+    launch_select<16, BATCHED>(elig, k, out, n, c, seed, stride, seeds,
+                               n_rep, s);
+  } else {
+    launch_select<32, BATCHED>(elig, k, out, n, c, seed, stride, seeds,
+                               n_rep, s);
+  }
 }
 
 }  // namespace
@@ -109,15 +153,27 @@ extern "C" int gossip_select_k_bits(const void* elig, const void* k,
         reinterpret_cast<uintptr_t>(out)) & 15u) != 0u) {
     return (int)cudaErrorInvalidValue;
   }
-  if (n > 0) {
-    if (c <= 8) {
-      launch_select<8>(elig, k, out, n, c, seed, stride, s);
-    } else if (c <= 16) {
-      launch_select<16>(elig, k, out, n, c, seed, stride, s);
-    } else {
-      launch_select<32>(elig, k, out, n, c, seed, stride, s);
-    }
+  if (n > 0) dispatch<false>(elig, k, out, n, c, seed, stride, nullptr, n, s);
+  return (int)cudaGetLastError();
+}
+
+// A replica stack in one launch: elig, k and out are [reps, n_rep] (one
+// row of n_rep peers a replica), seeds the replicas' mixed lane seeds
+// [reps], each replica's lanes indexed by its own peers (stride: n_rep).
+extern "C" int gossip_select_k_bits_batched(const void* elig, const void* k,
+                                            void* out, long long reps,
+                                            long long n_rep, int c,
+                                            const void* seeds,
+                                            unsigned int stride,
+                                            void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (((reinterpret_cast<uintptr_t>(elig) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(out)) & 15u) != 0u ||
+      n_rep <= 0 || reps <= 0) {
+    return (int)cudaErrorInvalidValue;
   }
+  dispatch<true>(elig, k, out, reps * n_rep, c, 0u, stride,
+                 (const uint32_t*)seeds, n_rep, s);
   return (int)cudaGetLastError();
 }
 
@@ -126,9 +182,9 @@ extern "C" int gossip_select_k_bits(const void* elig, const void* k,
 // (none), out[3] the grid.
 extern "C" int gossip_select_launch_config(long long n, int c, int* out) {
   const void* kernel =
-      c <= 8 ? (const void*)select_k_bits_kernel<8>
-             : c <= 16 ? (const void*)select_k_bits_kernel<16>
-                       : (const void*)select_k_bits_kernel<32>;
+      c <= 8 ? (const void*)select_k_bits_kernel<8, false>
+             : c <= 16 ? (const void*)select_k_bits_kernel<16, false>
+                       : (const void*)select_k_bits_kernel<32, false>;
   const long long threads = (n + PEERS_PER_THREAD - 1) / PEERS_PER_THREAD;
   out[0] = SELECT_THREADS * PEERS_PER_THREAD;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel,

@@ -30,6 +30,25 @@ from .models import gossipsub as gs
 N_PEERS, N_TOPICS, N_CAND, N_MSGS = 1_000_000, 100, 16, 32
 
 
+def inputs(n_peers: int = N_PEERS, n_topics: int = N_TOPICS,
+           horizon: int = 400, seed: int = 0):
+    """The flagship's draws from ``seed``, as the JAX package's benchmark
+    draws them: ``(cfg, subs, msg_topic, msg_origin, msg_publish_tick)``,
+    the ring offsets and the messages (published at ticks over [0,
+    horizon))."""
+    n, t = n_peers, n_topics
+    rng = np.random.default_rng(seed)
+    cfg = gs.GossipSimConfig(
+        offsets=gs.make_gossip_offsets(t, N_CAND, n, seed=seed),
+        n_topics=t)
+    subs = np.zeros((n, t), dtype=bool)
+    subs[np.arange(n), np.arange(n) % t] = True
+    topic = rng.integers(0, t, N_MSGS)
+    origin = rng.integers(0, n // t, N_MSGS) * t + topic
+    tick = np.sort(rng.integers(0, horizon, N_MSGS)).astype(np.int32)
+    return cfg, subs, topic, origin, tick
+
+
 def build(device, n_peers: int = N_PEERS, n_topics: int = N_TOPICS,
           horizon: int = 400, seed: int = 0, sim_knobs: dict | None = None,
           delays=None):
@@ -37,17 +56,9 @@ def build(device, n_peers: int = N_PEERS, n_topics: int = N_TOPICS,
     messages are published at ticks drawn over [0, horizon); ``sim_knobs``
     and ``delays`` (``make_gossip_sim``'s: a knob point, a DelayConfig)
     arm those."""
-    n, t = n_peers, n_topics
-    rng = np.random.default_rng(seed)
-    cfg = gs.GossipSimConfig(
-        offsets=gs.make_gossip_offsets(t, N_CAND, n, seed=seed),
-        n_topics=t)
+    cfg, subs, topic, origin, tick = inputs(n_peers, n_topics, horizon,
+                                            seed)
     sc = gs.ScoreSimConfig()
-    subs = np.zeros((n, t), dtype=bool)
-    subs[np.arange(n), np.arange(n) % t] = True
-    topic = rng.integers(0, t, N_MSGS)
-    origin = rng.integers(0, n // t, N_MSGS) * t + topic
-    tick = np.sort(rng.integers(0, horizon, N_MSGS)).astype(np.int32)
     params, state = gs.make_gossip_sim(cfg, subs, topic, origin, tick,
                                        seed=seed, score_cfg=sc,
                                        track_first_tick=False,

@@ -15,13 +15,14 @@ from ..ops.graph import WORD_BITS
 def update_first_tick(first_tick: torch.Tensor | None,
                       delivered_now: torch.Tensor,
                       tick: int) -> torch.Tensor | None:
-    """Record ``tick`` for bits of delivered_now ([W, N] words) that are
-    newly delivered.  No-op when tracking is off (None)."""
+    """Record ``tick`` for bits of delivered_now ([W, N] words; a replica
+    stack's [B, W, N]) that are newly delivered.  No-op when tracking is
+    off (None)."""
     if first_tick is None:
         return None
     shifts = torch.arange(WORD_BITS, dtype=torch.int32,
                           device=delivered_now.device)
-    bits = ((delivered_now[:, None, :] >> shifts[None, :, None]) & 1) != 0
+    bits = ((delivered_now[..., :, None, :] >> shifts[:, None]) & 1) != 0
     newly = bits & (first_tick < 0)
     tick16 = first_tick.new_full((), min(tick, 32766))
     return torch.where(newly, tick16, first_tick)

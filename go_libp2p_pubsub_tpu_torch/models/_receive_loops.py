@@ -54,42 +54,44 @@ from ..ops.kernels.receive import _f32
 
 def _rows(bits: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     """bool [C, 1, N]: row j is bit ``order[j]`` of the packed ``bits``
-    ([N]; ``order`` int32 [C, 1])."""
-    return (((bits[None, :] >> order) & 1) != 0)[:, None, :]
+    ([N]; ``order`` int32 [C, 1]); a replica stack's [B, C, 1, N]."""
+    return (((bits[..., None, :] >> order) & 1) != 0)[..., None, :]
 
 
 def _arrive(words_of, geo) -> torch.Tensor:
     """int32 [C, W, N]: row j at peer p holds what candidate p + o_j sent
     p over its bit cinv[j]; ``words_of(order)`` builds the send words with
-    row j taken from the sender's bit ``order[j]``."""
+    row j taken from the sender's bit ``order[j]`` (a replica stack's
+    [B, C, W, N], each replica's ring its own)."""
     sent = words_of(geo.cinv)
-    return torch.gather(sent, 2, geo.index[:, None, :].expand(
-        -1, sent.shape[1], -1))
+    return torch.gather(sent, -1, geo.index[:, None, :].expand(sent.shape))
 
 
 def _or_rows(x: torch.Tensor) -> torch.Tensor:
-    """Bitwise OR over the leading axis ([C, ...] -> [...])."""
-    while x.shape[0] > 1:
-        half = x.shape[0] // 2
-        top = x[:half] | x[half:2 * half]
-        x = top if x.shape[0] % 2 == 0 else torch.cat([top, x[2 * half:]])
-    return x[0]
+    """Bitwise OR over the candidate axis ([..., C, W, N] -> [..., W,
+    N])."""
+    while x.shape[-3] > 1:
+        half = x.shape[-3] // 2
+        top = x[..., :half, :, :] | x[..., half:2 * half, :, :]
+        x = (top if x.shape[-3] % 2 == 0
+             else torch.cat([top, x[..., 2 * half:, :, :]], -3))
+    return x[..., 0, :, :]
 
 
 def _news(got, seen, byz):
     """(news, accepted): the ids new to the receiver, and of those the
     ones it acquires — a mutator's copies are rejected (``byz``, bool
     [C, 1, N]: the row's sender mutates; None: no mutators)."""
-    news = got & ~seen[None]
+    news = got & ~seen[..., None, :, :]
     return news, (news if byz is None else torch.where(byz, 0, news))
 
 
 def _counts(news, accepted, valid):
     """Per edge, int32 [C, N]: valid ids acquired (P2) and the rest of
     the news, invalid or rejected (P4)."""
-    v = valid[None, :, None]
-    fd = popcount32(accepted & v).sum(1, dtype=torch.int32)
-    return fd, popcount32(news).sum(1, dtype=torch.int32) - fd
+    v = valid[..., None, :, None]
+    fd = popcount32(accepted & v).sum(-2, dtype=torch.int32)
+    return fd, popcount32(news).sum(-2, dtype=torch.int32) - fd
 
 
 def receive(cfg, sc, params, state, *, split: bool, geo, fm, sub_all, sel,
@@ -108,7 +110,7 @@ def receive(cfg, sc, params, state, *, split: bool, geo, fm, sub_all, sel,
     new acquisitions), ``mesh``, ``backoff``, ``px_rot`` (the PRUNEs and
     PRUNE-responses received) and, scored, ``scores`` (a dict of the
     counters) and ``iwant_serves``."""
-    from .gossipsub import transfer_bits     # (gossipsub imports this)
+    from .gossipsub import _lead, transfer_bits  # (gossipsub imports this)
 
     def transfer(bits, pair):
         return transfer_bits(bits, cfg, pair, geo)
@@ -118,10 +120,12 @@ def receive(cfg, sc, params, state, *, split: bool, geo, fm, sub_all, sel,
     byz = None
     if scored and sc.byzantine_mutation and params.cand_byz is not None:
         byz = _rows(params.cand_byz, geo.bit)
-    alive_w = None if fm is None else fm.alive_w
+    # (a down receiver's word, against [..., C, W, N] arrivals)
+    alive_w = None if fm is None else fm.alive_w[..., None, None, :]
 
     def words(bits, w):
-        return lambda order: torch.where(_rows(bits, order), w[None], 0)
+        return lambda order: torch.where(_rows(bits, order),
+                                         w[..., None, :, :], 0)
 
     # broken promises: a withholding peer's IHAVE claims ids the receiver
     # lacks (reference :3510-3530)
@@ -129,7 +133,7 @@ def receive(cfg, sc, params, state, *, split: bool, geo, fm, sub_all, sel,
                  if withhold is not None else None)
     lack_all = None
     if cheat_src is not None:
-        lack = (~seen != 0).any(0)
+        lack = (~seen != 0).any(-2)
         if fm is not None:
             lack = lack & fm.alive
         lack_all = torch.where(lack, graph.i32((1 << C) - 1), 0)
@@ -186,8 +190,9 @@ def receive(cfg, sc, params, state, *, split: bool, geo, fm, sub_all, sel,
                 # duplicates included, a mutator's excepted
                 ok = got if byz is None else torch.where(byz, 0, got)
                 md_new = popcount32(
-                    ok & valid[None, :, None] & ~state.have[None]).sum(
-                        1, dtype=torch.int32)
+                    ok & valid[..., None, :, None]
+                    & ~state.have[..., None, :, :]).sum(-2,
+                                                        dtype=torch.int32)
         # -- 3. the gossip transfer (:3915-3988), against what the eager
         # transfer delivered
         send_gsp = (targets if withhold is None
@@ -208,7 +213,7 @@ def receive(cfg, sc, params, state, *, split: bool, geo, fm, sub_all, sel,
             broken = transfer(cheat_src, False) & lack_all
             if gate_g is not None:
                 broken = broken & gate_g
-    acq = torch.where(sub_all[None] != 0, heard, 0) | injected
+    acq = torch.where(sub_all[..., None, :] != 0, heard, 0) | injected
 
     # -- 4. the handshake (:4008-4145): GRAFT, PRUNE and the "no PRUNE
     # would come back" word A, as sent (under faults only over a live
@@ -247,7 +252,7 @@ def receive(cfg, sc, params, state, *, split: bool, geo, fm, sub_all, sel,
     # B - 1, else it counts down to 0
     skn = params.sim_knobs
     restart = (cfg.backoff_ticks - 1 if skn is None
-               else (skn.backoff_ticks - 1).to(torch.int16))
+               else (_lead(skn.backoff_ticks, 2) - 1).to(torch.int16))
     bo = state.backoff
     backoff = torch.where(expand_bits(bo_trig, C), restart,
                           (bo - 1).clamp(min=0)).to(torch.int16)
@@ -265,6 +270,7 @@ def _counters(cfg, sc, params, state, *, fm, geo, adv, mesh, fd_add,
               iv_add, md_new, violation, broken) -> dict:
     """The score epilogue (reference :4171-4307): the serve ledger, the
     P2/P3/P3b/P4/P7 updates in f32, decay, the counter dtype's write."""
+    from .gossipsub import _lead
     C = cfg.n_candidates
     s0 = state.scores
     f32 = torch.float32
@@ -276,17 +282,17 @@ def _counters(cfg, sc, params, state, *, fm, geo, adv, mesh, fd_add,
     s32 = state.iwant_serves.to(torch.int32)
     pulls = fd_add + iv_add
     if sc.sybil_iwant_spam and params.sybil is not None:
-        adv_count = popcount32(adv).sum(0, dtype=torch.int32)
-        partner_adv = adv_count[geo.index]                     # [C, N]
+        adv_count = popcount32(adv).sum(-2, dtype=torch.int32)
+        partner_adv = adv_count[..., geo.index]                # [C, N]
         skn = params.sim_knobs
         retrans = (cfg.gossip_retransmission if skn is None
-                   else skn.gossip_retransmission)
+                   else _lead(skn.gossip_retransmission, 2))
         flood = torch.where((s32 < retrans * partner_adv)
                             & (partner_adv > 0), partner_adv, 0)
         if fm is not None:
             # no flood over a faulted edge
             flood = torch.where(expand_bits(fm.flood_ok, C), flood, 0)
-        pulls = torch.where(params.sybil[None, :], flood, pulls)
+        pulls = torch.where(params.sybil[..., None, :], flood, pulls)
     H = cfg.history_length
     decayed = s32 - torch.div(s32 + (H - 1), H, rounding_mode="floor")
     iws = (decayed + pulls).clamp(0, 30000).to(torch.int16)

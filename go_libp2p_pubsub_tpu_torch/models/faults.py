@@ -236,11 +236,12 @@ def _down_tables(schedule: FaultSchedule):
 # -- per-tick masks (device tensors from the host tick) ---------------------
 
 def alive_mask(fp: FaultParams, tick: int) -> torch.Tensor:
-    """bool [N]: peer up at ``tick`` (no down interval covers it)."""
-    if fp.down_start.shape[1] == 0:
-        return torch.ones(fp.down_start.shape[0], dtype=torch.bool,
+    """bool [N]: peer up at ``tick`` (no down interval covers it); a
+    replica stack's [B, N]."""
+    if fp.down_start.shape[-1] == 0:
+        return torch.ones(fp.down_start.shape[:-1], dtype=torch.bool,
                           device=fp.down_start.device)
-    return ~((tick >= fp.down_start) & (tick < fp.down_end)).any(1)
+    return ~((tick >= fp.down_start) & (tick < fp.down_end)).any(-1)
 
 
 def rejoined_mask(fp: FaultParams, tick: int) -> torch.Tensor:
@@ -258,7 +259,8 @@ def cand_alive_bits(alive: torch.Tensor, offsets) -> torch.Tensor:
     """int32 [N]: bit c set iff candidate p + offsets[c] is alive."""
     out = torch.zeros(alive.shape, dtype=torch.int32, device=alive.device)
     for c, off in enumerate(offsets):
-        out = out | (torch.roll(alive, -int(off)).to(torch.int32) << c)
+        out = out | (torch.roll(alive, -int(off), -1).to(torch.int32)
+                     << c)
     return out
 
 
@@ -269,10 +271,12 @@ def _partition_active(fp: FaultParams, tick: int) -> bool:
 def _link_drop_draw(fp: FaultParams, C: int, n: int, tick: int,
                     stride: int) -> torch.Tensor:
     """bool [C, N]: this tick's directed drop coins (fault-seeded lane
-    hash, phase ``LINK_PHASE``)."""
+    hash, phase ``LINK_PHASE``); a replica stack's [B, C, N], each replica
+    on its own fault seed and drop rate."""
     u = lane_uniform((C, n), tick, LINK_PHASE, fp.seed, stride=stride,
                      device=fp.down_start.device)
-    return u < fp.drop_prob
+    dp = fp.drop_prob
+    return u < (dp.view(-1, 1, 1) if dp.dim() == 1 else dp)
 
 
 def link_ok_bits(fp: FaultParams, offsets, cinv, tick: int,
@@ -284,8 +288,9 @@ def link_ok_bits(fp: FaultParams, offsets, cinv, tick: int,
     if fp.drop_prob is None and fp.cross_bits is None:
         return None
     C = len(offsets)
-    n = fp.down_start.shape[0]
-    drop = torch.zeros((n,), dtype=torch.int32, device=fp.down_start.device)
+    n = fp.down_start.shape[-2]
+    drop = torch.zeros(fp.down_start.shape[:-1], dtype=torch.int32,
+                       device=fp.down_start.device)
     if fp.drop_prob is not None:
         draw_f = _link_drop_draw(fp, C, n, tick,
                                  n if n_stream is None else n_stream)
@@ -299,7 +304,8 @@ def link_ok_bits(fp: FaultParams, offsets, cinv, tick: int,
                 if int(off) <= 0:
                     continue
                 bit = (draw >> c) & 1
-                mirror = mirror | (torch.roll(bit, int(off)) << cinv[c])
+                mirror = mirror | (torch.roll(bit, int(off), -1)
+                                   << cinv[c])
             drop = draw | mirror
     if fp.cross_bits is not None and _partition_active(fp, tick):
         drop = drop | fp.cross_bits

@@ -78,6 +78,7 @@ from ..ops.graph import (
 from ..ops.kernels import fused as kfused
 from ..ops.kernels import receive as krecv
 from ..ops.kernels import select as kselect
+from . import _batch
 from . import delays as _delays
 from . import faults as _faults
 from . import invariants as _invariants
@@ -85,6 +86,7 @@ from . import knobs as _knobs
 from . import _receive_loops as _loops
 from . import plan
 from . import telemetry as _telemetry
+from ._batch import index_trees, stack_trees, tree_copy  # noqa: F401
 from ._delivery import reach_counts_from_first_tick, update_first_tick
 
 
@@ -903,17 +905,30 @@ def active_score_knobs(params: GossipParams) -> ScoreKnobs | None:
     return None
 
 
-def knobbed_score_consts(sc: ScoreSimConfig,
-                         params: GossipParams) -> krecv.ScoreConsts:
+def _lead(v, nd: int):
+    """A knob value as the step consumes it against a [..., N] (``nd``
+    1) or [..., C, N] (``nd`` 2) operand: an int or a 0-d tensor as it
+    is, a replica stack's [B] leaf with ``nd`` unit axes after it."""
+    if isinstance(v, torch.Tensor) and v.dim() == 1:
+        return v.view(-1, *([1] * nd))
+    return v
+
+
+def knobbed_score_consts(sc: ScoreSimConfig, params: GossipParams,
+                         pick=None) -> krecv.ScoreConsts:
     """The score formula's scalars with the armed defense knobs (the P4
-    and P7 weights as 0-d tensors: ``krecv.knob_score_consts``)."""
+    and P7 weights as 0-d tensors: ``krecv.knob_score_consts``); a
+    replica stack's [B] weights shaped by ``pick`` (default: against
+    [B, C, N] counters)."""
     s = krecv.score_consts(sc)
     kn = active_score_knobs(params)
     if kn is None:
         return s
-    return krecv.knob_score_consts(s, krecv._f32(sc.topic_weight),
-                                   kn.invalid_message_deliveries_weight,
-                                   kn.behaviour_penalty_weight)
+    pick = pick or (lambda v: _lead(v, 2))
+    return krecv.knob_score_consts(
+        s, krecv._f32(sc.topic_weight),
+        pick(kn.invalid_message_deliveries_weight),
+        pick(kn.behaviour_penalty_weight))
 
 
 def _static_term(sc: ScoreSimConfig, params: GossipParams):
@@ -931,11 +946,28 @@ def compute_scores(sc: ScoreSimConfig, params: GossipParams,
                    cols: torch.Tensor | None = None) -> torch.Tensor:
     """The peer-score formula, densified: f32 [C, N] — peer p's opinion
     of candidate p + o_c (score.go:256-333).  ``cols`` (int64 peer
-    indices) computes only those columns."""
+    indices) computes only those columns; on a replica stack ([B, C, N])
+    ``cols`` is a pair (replica, peer) of int64 indices, and the result
+    [C, K] holds each pair's column."""
     s = st.scores
+    pick = None
+    if isinstance(cols, tuple):
+        bi, pi = cols
 
-    def g(x):
-        return x if cols is None else x.index_select(1, cols)
+        def g(x):
+            return x[bi, :, pi].T
+
+        def g_word(x):
+            return x[bi, pi]
+
+        def pick(v):
+            return v[bi] if isinstance(v, torch.Tensor) and v.dim() else v
+    else:
+        def g(x):
+            return x if cols is None else x.index_select(-1, cols)
+
+        def g_word(x):
+            return x if cols is None else x.index_select(-1, cols)
 
     static = _static_term(sc, params)
     tim = g(s.time_in_mesh).to(torch.float32)
@@ -944,8 +976,7 @@ def compute_scores(sc: ScoreSimConfig, params: GossipParams,
         # P3: the squared delivery deficit of an active mesh edge; P3b:
         # the sticky prune penalty (score.go:256-333)
         f = krecv._f32
-        mesh = st.mesh if cols is None else st.mesh.index_select(0, cols)
-        in_mesh = expand_bits(mesh, tim.shape[0])
+        in_mesh = expand_bits(g_word(st.mesh), tim.shape[-2])
         deficit = (f(sc.mesh_message_deliveries_threshold)
                    - g(s.mesh_deliveries).to(torch.float32)).clamp(min=0.0)
         active = tim > sc.mesh_message_deliveries_activation
@@ -954,7 +985,7 @@ def compute_scores(sc: ScoreSimConfig, params: GossipParams,
               f(sc.topic_weight * sc.mesh_failure_penalty_weight)
               * g(s.mesh_failure_penalty).to(torch.float32))
     return krecv.score_from_counters(
-        knobbed_score_consts(sc, params), tim,
+        knobbed_score_consts(sc, params, pick), tim,
         g(s.first_deliveries).to(torch.float32),
         g(s.invalid_deliveries).to(torch.float32),
         g(s.behaviour_penalty).to(torch.float32),
@@ -1005,9 +1036,9 @@ def gossip_targets_row(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
         elig = elig & gossip_row
     skn = params.sim_knobs
     targets = krecv.targets_row(
-        k, elig, lane_seed(tick, 1, salt), mesh.shape[0],
-        gossip_factor=None if skn is None else skn.gossip_factor,
-        d_lazy=None if skn is None else skn.d_lazy)
+        k, elig, lane_seed(tick, 1, salt), mesh.shape[-1],
+        gossip_factor=None if skn is None else _lead(skn.gossip_factor, 1),
+        d_lazy=None if skn is None else _lead(skn.d_lazy, 1))
     if sc is not None and sc.sybil_ihave_spam:
         targets = torch.where(params.sybil, params.cand_sub_bits, targets)
     return targets
@@ -1031,13 +1062,13 @@ def compute_gates(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
                                    salt=salt, mesh_b=st.mesh_b),
                 pack_rows(st.backoff > 0), *bo_b)
     k = krecv.receive_consts(cfg, sc)
-    n = st.mesh.shape[0]
+    n = st.mesh.shape[-1]
     score = compute_scores(sc, params, st)
     kn = active_score_knobs(params)
     accept = pack_rows(score >= (k.gray_thr if kn is None
-                                 else kn.graylist_threshold))
+                                 else _lead(kn.graylist_threshold, 2)))
     gossip = pack_rows(score >= (k.gossip_thr if kn is None
-                                 else kn.gossip_threshold))
+                                 else _lead(kn.gossip_threshold, 2)))
     rows = [accept, gossip, pack_rows(score >= k.publish_thr),
             pack_rows(score >= 0)]
     s0 = st.scores
@@ -1117,11 +1148,11 @@ def transfer_bits(bits: torch.Tensor, cfg: GossipSimConfig,
     and high 16 bits, moved by the same gather.  ``geo``: the ring's
     ``EdgeGeometry`` (made here where not given)."""
     if geo is None:
-        geo = EdgeGeometry.of(cfg, bits.shape[0], bits.device)
+        geo = EdgeGeometry.of(cfg, bits.shape[-1], bits.device)
     sel = 0x10001 if pair else 1
-    rows = (bits[None, :] >> geo.cinv) & sel     # (C <= 16: no sign bit)
-    got = torch.gather(rows, 1, geo.index)
-    return (got << geo.bit).sum(0, dtype=torch.int32)
+    rows = (bits[..., None, :] >> geo.cinv) & sel  # (C <= 16: no sign bit)
+    got = torch.gather(rows, -1, geo.index.expand(rows.shape))
+    return (got << geo.bit).sum(-2, dtype=torch.int32)
 
 
 def delay_exchange(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
@@ -1313,24 +1344,41 @@ def _prunes(cfg: GossipSimConfig, sc: ScoreSimConfig,
     step's host sync, one per topic slot (with or without knobs)."""
     C = cfg.n_candidates
     K = degree_knobs(cfg, params)
-    idx = torch.nonzero(deg > K.d_hi).flatten()
+    n = mesh_ng.shape[-1]
+    # a replica stack: the over-subscribed columns of every replica in
+    # one sync, each column with its replica's salt and knobs
+    idx = torch.nonzero((deg > _lead(K.d_hi, 1)).flatten()).flatten()
     prunes = torch.zeros_like(mesh_ng)
     if idx.numel() == 0:
         return prunes
-    n = mesh_ng.shape[0]
-    score = compute_scores(sc, params, state, cols=idx)
-    rnd = lane_uniform((C, n), state.tick, phase, state.salt, stride=n,
-                       device=mesh_ng.device, cols=idx)
-    m_s = mesh_ng.index_select(0, idx)
-    top = select_k_by_priority_bits(m_s, score, _fill(m_s, K.d_score),
+    if mesh_ng.dim() == 2:
+        bi = torch.div(idx, n, rounding_mode="floor")
+        cols = (bi, idx - bi * n)
+
+        def per(v):
+            return v[bi] if isinstance(v, torch.Tensor) and v.dim() else v
+        salt = lane_seed(state.tick, phase, state.salt)[bi]
+        rnd = graph.lane_uniform_from_seed((C, n), salt, stride=n,
+                                           device=mesh_ng.device,
+                                           cols=cols[1])
+    else:
+        cols = idx
+
+        def per(v):
+            return v
+        rnd = lane_uniform((C, n), state.tick, phase, state.salt, stride=n,
+                           device=mesh_ng.device, cols=idx)
+    score = compute_scores(sc, params, state, cols=cols)
+    m_s = mesh_ng.reshape(-1).index_select(0, idx)
+    top = select_k_by_priority_bits(m_s, score, _fill(m_s, per(K.d_score)),
                                     tiebreak=rnd)
     out = cfg.outbound_mask
-    need_out = (K.d_out - popcount32(top & out)).clamp(min=0)
+    need_out = (per(K.d_out) - popcount32(top & out)).clamp(min=0)
     taken = top | select_k_by_priority_bits(m_s & ~top & out, rnd,
                                             need_out)
     fill = select_k_by_priority_bits(
-        m_s & ~taken, rnd, (K.d - popcount32(taken)).clamp(min=0))
-    prunes[idx] = m_s & ~(taken | fill)
+        m_s & ~taken, rnd, (per(K.d) - popcount32(taken)).clamp(min=0))
+    prunes.view(-1)[idx] = m_s & ~(taken | fill)
     return prunes
 
 
@@ -1341,18 +1389,18 @@ def _opportunistic(sc: ScoreSimConfig, params: GossipParams,
     median score is below the threshold, up to opportunistic_graft_peers
     graftable candidates scoring above the median.  Returns the
     selection's (eligible bits, k)."""
-    C = state.backoff.shape[0]
+    C = state.backoff.shape[-2]
     score = compute_scores(sc, params, state)
     in_mesh = expand_bits(mesh_ng, C)
     # median = the mesh bit at descending rank C-1-deg//2 (non-mesh bits
     # pinned to +inf rank first); one pick per peer with deg > 0, so
     # the sum over C is exact in any order
     mesh_rank = ranks_desc(torch.where(in_mesh, score, torch.inf))
-    med_pick = in_mesh & (mesh_rank == (C - 1 - deg // 2)[None, :])
+    med_pick = in_mesh & (mesh_rank == (C - 1 - deg // 2)[..., None, :])
     median = torch.where(deg > 0,
-                         torch.where(med_pick, score, 0.0).sum(0), 0.0)
+                         torch.where(med_pick, score, 0.0).sum(-2), 0.0)
     og_row = (median < sc.opportunistic_graft_threshold) & params.subscribed
-    og_elig = can_graft & pack_rows(score > median[None, :])
+    og_elig = can_graft & pack_rows(score > median[..., None, :])
     og_need = torch.where(og_row, sc.opportunistic_graft_peers, 0)
     return og_elig, og_need.to(torch.int32)
 
@@ -1384,7 +1432,7 @@ def maintain_slot(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
     dead peer.  Scored, one host sync (the prune)."""
     C = cfg.n_candidates
     K = degree_knobs(cfg, params)
-    n = params.subscribed.shape[0]
+    n = params.subscribed.shape[-1]
     tick, salt = state.tick, state.salt
     ph_graft, ph_prune, ph_og = SLOT_PHASES[slot]
     mesh0 = state.mesh_b if slot else state.mesh
@@ -1421,13 +1469,14 @@ def maintain_slot(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
         can_graft = can_graft & nonneg_bits
     if fmasks is not None:
         can_graft = can_graft & fmasks.cand_alive & fmasks.alive_all
-    need = torch.where(deg < K.d_lo, K.d - deg, 0).to(torch.int32)
+    need = torch.where(deg < _lead(K.d_lo, 1), _lead(K.d, 1) - deg,
+                       0).to(torch.int32)
     grafts = sel_k(can_graft, need, ph_graft)
     if sc is None:
         # v1.0 random retention of D where deg > Dhi, drawn for every
         # peer (no host sync; masked to the over-full ones)
-        keep = sel_k(mesh_ng, _fill(deg, K.d), ph_prune)
-        prunes = torch.where(deg > K.d_hi, mesh_ng & ~keep, 0)
+        keep = sel_k(mesh_ng, _fill(deg, _lead(K.d, 1)), ph_prune)
+        prunes = torch.where(deg > _lead(K.d_hi, 1), mesh_ng & ~keep, 0)
     else:
         prunes = _prunes(cfg, sc, params, state, mesh_ng, deg, ph_prune)
         if tick % sc.opportunistic_graft_ticks == 0:
@@ -1631,10 +1680,14 @@ def make_gossip_step(cfg: GossipSimConfig,
             vals += ([getattr(sc, f) for f in SCORE_KNOB_FIELDS]
                      if kkn is None else
                      [getattr(kkn, f) for f in SCORE_KNOB_FIELDS])
+        # (a replica stack's [B] leaves give its [B, K] rows; a baked
+        # value is the same in every row)
+        lead = next((v.shape for v in vals if isinstance(v, torch.Tensor)),
+                    ())
         vec = torch.stack([
             v.to(torch.float32) if isinstance(v, torch.Tensor)
-            else torch.tensor(float(v), dtype=torch.float32, device=dev)
-            for v in vals])
+            else torch.full(lead, float(v), dtype=torch.float32, device=dev)
+            for v in vals], -1)
         knob_cache[:] = [skn, kkn, vec]
         return vec
 
@@ -1708,13 +1761,17 @@ def make_gossip_step(cfg: GossipSimConfig,
                 "(cfg, score_cfg) than this step's — refresh_gates with "
                 "the new config before stepping")
         tick, salt = state.tick, state.salt
+        if _batch.is_stacked(state):
+            # a replica stack: one step for all (B1 once, B3 as often as
+            # for one replica)
+            plan.check_batched(cfg, sc, params, state, telemetry=tel)
         # the degree family and fanout TTL: ints, or the armed knobs'
         # 0-d tensors (gossip_retransmission's one consumer, the IWANT
         # flood's serve budget, is in the receive loops: a knob point on
         # a flood config runs there)
         K = degree_knobs(cfg, params)
         sub = params.subscribed
-        n = sub.shape[0]
+        n = sub.shape[-1]
         sub_all = torch.where(sub, graph.i32(ALL), 0).to(torch.int32)
         cand_sub = params.cand_sub_bits
         direct, active = params.cand_direct, state.active
@@ -1733,8 +1790,9 @@ def make_gossip_step(cfg: GossipSimConfig,
         have_pre, rejoin_w = state.have, None
         if fp is not None and fp.cold_restart:
             rejoin_w = _faults.alive_word(_faults.rejoined_mask(fp, tick))
-            state = replace(state, have=state.have & ~rejoin_w,
-                            recent=state.recent & ~rejoin_w)
+            clear = ~rejoin_w[..., None, :]
+            state = replace(state, have=state.have & clear,
+                            recent=state.recent & clear[..., None, :, :])
         if sc is not None:
             (accept_bits, gossip_bits, pub_ok_bits, _, payload_bits,
              targets, _) = state.gates[:7]
@@ -1743,7 +1801,7 @@ def make_gossip_step(cfg: GossipSimConfig,
                 # control and payload (AcceptFrom gossipsub.go:578)
                 accept_bits = accept_bits | direct
                 payload_bits = payload_bits | direct
-            valid = ~params.invalid_words                   # [W]
+            valid = ~params.invalid_words                   # [W] ([B, W])
         else:
             targets, accept_bits = state.gates[0], None
 
@@ -1753,18 +1811,18 @@ def make_gossip_step(cfg: GossipSimConfig,
 
         # -- 1. publish injection
         due = pack_bits(params.publish_tick == tick)        # [W]
-        injected = params.origin_words & due[:, None] & ~state.have
+        injected = params.origin_words & due[..., None] & ~state.have
         if fm is not None:
             # a down origin's publish is lost, not deferred
-            injected = injected & fm.alive_w
-        publishing = (injected != 0).any(0)
+            injected = injected & fm.alive_w[..., None, :]
+        publishing = (injected != 0).any(-2)
 
         # -- 1b. fanout TTL + refill (own publishes only; scored: above
         # the publish threshold)
         last_pub = torch.where(publishing, tick, state.last_pub)
-        alive = ~sub & ((tick - last_pub) < K.fanout_ttl_ticks)
+        alive = ~sub & ((tick - last_pub) < _lead(K.fanout_ttl_ticks, 1))
         fanout = torch.where(alive, state.fanout, 0)
-        f_need = torch.where(alive, K.d - popcount32(fanout), 0)
+        f_need = torch.where(alive, _lead(K.d, 1) - popcount32(fanout), 0)
         f_elig = cand_sub & ~fanout
         if direct is not None:
             # direct peers receive everything anyway
@@ -1780,14 +1838,14 @@ def make_gossip_step(cfg: GossipSimConfig,
 
         # -- 2. eager-forward and 3. advert words (scored: honest peers
         # drop invalid messages; sybils forward them)
-        fresh = state.recent[(tick - 1) % Hg] | injected
+        fresh = state.recent.select(-3, (tick - 1) % Hg) | injected
         adv = injected
         for h in range(Hg):
-            adv = adv | state.recent[h]
+            adv = adv | state.recent.select(-3, h)
         if sc is not None:
-            syb = params.sybil[None, :]
-            fresh = torch.where(syb, fresh, fresh & valid[:, None])
-            adv = torch.where(syb, adv, adv & valid[:, None])
+            syb = params.sybil[..., None, :]
+            fresh = torch.where(syb, fresh, fresh & valid[..., None])
+            adv = torch.where(syb, adv, adv & valid[..., None])
         fresh_b = None
         if paired:
             # split by the sender's topic slot: slot-B messages forward
@@ -1855,10 +1913,10 @@ def make_gossip_step(cfg: GossipSimConfig,
             state where ``fields`` brings none) and the delivered words,
             with the checker's bits folded in."""
             recent = state.recent.clone()
-            recent[tick % Hg] = acq
+            recent.select(-3, tick % Hg).copy_(acq)
             delivered = acq & params.deliver_words
             if sc is not None:
-                delivered = delivered & ~params.invalid_words[:, None]
+                delivered = delivered & ~params.invalid_words[..., None]
             new = GossipState(
                 fanout=fanout, last_pub=last_pub, have=state.have | acq,
                 recent=recent,
@@ -2422,6 +2480,106 @@ def gossip_run_curve_fused(params: GossipParams, state: GossipState,
     return state, counts
 
 
+# --------------------------------------------------------------------------
+# Replica batching: B sims of one static config, one step a tick
+# --------------------------------------------------------------------------
+
+
+#: the make_gossip_sim options that shape the step and must agree across
+#: the replicas of a stack (the reference's list)
+STACK_STATIC_KEYS = ("score_cfg", "track_first_tick", "pad_to_block",
+                     "px_candidates")
+
+
+def stack_sims(cfg: GossipSimConfig, specs, *, device=None, **common):
+    """Build B replicas of ONE static config and stack them for the
+    batched runners: ``specs`` is a list of make_gossip_sim keyword dicts
+    (subs, msg_topic, msg_origin, msg_publish_tick, seed, ...), ``common``
+    the keywords every replica shares.  Returns ``(params_B, state_B)``,
+    every leaf with a leading replica axis (``models/_batch.py``).  A
+    spec that disagrees on static config (STACK_STATIC_KEYS) raises here,
+    naming the key, with the reference's message."""
+    merged = [{**common, **spec} for spec in specs]
+    for key in STACK_STATIC_KEYS:
+        vals = [m.get(key) for m in merged]
+        for i, v in enumerate(vals[1:], start=1):
+            if v != vals[0]:
+                raise ValueError(
+                    f"stack_sims: replica {i} spec disagrees with "
+                    f"replica 0 on static config {key!r} "
+                    f"({v!r} vs {vals[0]!r}) — all replicas of a batch "
+                    "share one compiled step, so static config must "
+                    "match (vary arrays instead)")
+    builds = [make_gossip_sim(cfg, device=device, **m) for m in merged]
+    return (stack_trees([b[0] for b in builds]),
+            stack_trees([b[1] for b in builds]))
+
+
+def _check_stack(params: GossipParams, state: GossipState, dev) -> None:
+    check_on(dev, subscribed=params.subscribed, mesh=state.mesh)
+    if not _batch.is_stacked(state) or params.subscribed.dim() != 2:
+        raise ValueError("the batched runners take a replica stack "
+                         "(stack_sims / stack_trees): one sim runs on "
+                         "gossip_run")
+
+
+def gossip_run_batch(params: GossipParams, state: GossipState,
+                     n_ticks: int, step, *,
+                     device: str | torch.device | None = None
+                     ) -> GossipState:
+    """Advance B stacked replicas (``stack_sims`` / ``stack_trees``)
+    ``n_ticks`` heartbeats, ONE step a tick for the whole stack (B1 once,
+    B3 as often as for one replica).  Per replica the trajectory is
+    bit-identical to ``gossip_run`` on that replica alone."""
+    dev = resolve_device(device)
+    _check_stack(params, state, dev)
+    for _ in range(n_ticks):
+        state = step(params, state)[0]
+    return state
+
+
+def gossip_run_curve_batch(params: GossipParams, state: GossipState,
+                           n_ticks: int, step, n_msgs: int, *,
+                           device: str | torch.device | None = None):
+    """``gossip_run_curve`` over B stacked replicas: returns ``(state_B,
+    counts int32 [n_ticks, B, n_msgs])``."""
+    dev = resolve_device(device)
+    _check_stack(params, state, dev)
+    rows = []
+    for _ in range(n_ticks):
+        state, delivered = step(params, state)[:2]
+        rows.append(count_bits_per_position(delivered, n_msgs))
+    b = params.subscribed.shape[0]
+    counts = (torch.stack(rows) if rows else
+              torch.zeros((0, b, n_msgs), dtype=torch.int32, device=dev))
+    return state, counts
+
+
+def gossip_run_knob_batch(params: GossipParams, state: GossipState,
+                          n_ticks: int, step, honest=None, *,
+                          device: str | torch.device | None = None):
+    """The sweep engine: B stacked replicas, each with its own SimKnobs
+    point, fault tables, attack formation flags, seed and message
+    schedule under ONE static config, ``n_ticks`` heartbeats on one step
+    a tick, then every replica's final per-message reach from the
+    possession words, honest-masked where ``honest`` (bool [B, N], a
+    tensor or a numpy array) is given.  Returns ``(state_B, reach int32
+    [B, M])``; with invariant-armed states each replica's carry is in
+    ``state_B.inv_viol`` / ``inv_first`` ([B])."""
+    dev = resolve_device(device)
+    state = gossip_run_batch(params, state, n_ticks, step, device=dev)
+    mask = None
+    if honest is not None:
+        mask = torch.as_tensor(np.asarray(honest, dtype=bool)
+                               if not isinstance(honest, torch.Tensor)
+                               else honest, device=dev)
+    return state, reach_counts_from_have(params, state, mask)
+
+
+#: the tournament's name for the knob batch (the reference's alias)
+gossip_run_tournament = gossip_run_knob_batch
+
+
 def reach_counts(params: GossipParams, state: GossipState) -> torch.Tensor:
     return reach_counts_from_first_tick(state.first_tick,
                                         params.publish_tick.shape[0])
@@ -2431,14 +2589,16 @@ def reach_counts_from_have(params: GossipParams, state: GossipState,
                            mask: torch.Tensor | None = None
                            ) -> torch.Tensor:
     """Per-message reached-peer counts from the possession words
-    (optional bool [N] ``mask`` restricts the count)."""
-    m = params.publish_tick.shape[0]
+    (optional bool [N] ``mask`` restricts the count); a replica stack's
+    [B, M], ``mask`` [B, N]."""
+    m = params.publish_tick.shape[-1]
     shifts = torch.arange(WORD_BITS, dtype=torch.int32,
                           device=state.have.device)
-    bits = (state.have[:, None, :] >> shifts[None, :, None]) & 1
+    bits = (state.have[..., :, None, :] >> shifts[:, None]) & 1
     if mask is not None:
-        bits = bits * mask.to(torch.int32)[None, None, :]
-    return bits.sum(2, dtype=torch.int32).reshape(-1)[:m]
+        bits = bits * mask.to(torch.int32)[..., None, None, :]
+    counts = bits.sum(-1, dtype=torch.int32)
+    return counts.reshape(*counts.shape[:-2], -1)[..., :m]
 
 
 def mesh_degrees(state: GossipState) -> torch.Tensor:

@@ -102,11 +102,13 @@ class InvariantConfig:
 
 def attach(state):
     """``state`` armed for the checker: ``inv_viol`` 0 and ``inv_first``
-    -1, 0-d int32 tensors on the state's device."""
+    -1, 0-d int32 tensors on the state's device (a replica stack's: [B],
+    one carry a replica)."""
     dev = state.mesh.device
+    shape = state.mesh.shape[:-1]
     return replace(state,
-                   inv_viol=torch.zeros((), dtype=torch.int32, device=dev),
-                   inv_first=torch.full((), -1, dtype=torch.int32,
+                   inv_viol=torch.zeros(shape, dtype=torch.int32, device=dev),
+                   inv_first=torch.full(shape, -1, dtype=torch.int32,
                                         device=dev))
 
 
@@ -139,6 +141,20 @@ def report(state) -> dict:
                            else [int(x) for x in first])}
 
 
+def report_batch(state) -> list:
+    """A replica stack's carries on the host: ``report``'s dict for each
+    replica, in replica order (one sync)."""
+    viol = state.inv_viol.detach().cpu().reshape(-1).tolist()
+    first = state.inv_first.detach().cpu().reshape(-1).tolist()
+    out = []
+    for v, f in zip(viol, first):
+        bits = int(v) & 0xFFFFFFFF
+        out.append({"violations": [n for i, n in enumerate(VIOLATION_NAMES)
+                                   if bits >> i & 1],
+                    "bits": bits, "first_tick": int(f)})
+    return out
+
+
 # --------------------------------------------------------------------------
 # The checks (reductions on the device; shapes as the step's, peer axis last)
 # --------------------------------------------------------------------------
@@ -158,15 +174,24 @@ def _consts(dev: torch.device) -> dict:
     return _CONSTS[dev]
 
 
-def _pack(conds: list, first: int, like: torch.Tensor) -> torch.Tensor:
+def _any(x: torch.Tensor, batched: bool) -> torch.Tensor:
+    """``x.any()``, per replica for a stack (bool [B])."""
+    return x.flatten(1).any(1) if batched else x.any()
+
+
+def _pack(conds: list, first: int, like: torch.Tensor,
+          batched: bool = False) -> torch.Tensor:
     """0-d int32 with bit ``first + i`` set where the 0-d bool ``conds[i]``
-    holds (None: the check is off), in four launches."""
+    holds (None: the check is off), in four launches; a stack's [B], from
+    [B] conditions."""
     k = _consts(like.device)
+    shape = like.shape[:1] if batched else ()
     if all(c is None for c in conds):
-        return torch.zeros((), dtype=torch.int32, device=like.device)
-    held = torch.stack([k["false"] if c is None else c for c in conds])
+        return torch.zeros(shape, dtype=torch.int32, device=like.device)
+    held = torch.stack([k["false"].expand(shape) if c is None else c
+                        for c in conds], -1)
     return (held.to(torch.int32) * k["bit"][first:first + len(conds)]).sum(
-        dtype=torch.int32)
+        -1, dtype=torch.int32)
 
 
 def delivery_violations(icfg: InvariantConfig, have_old, have_new,
@@ -180,17 +205,19 @@ def delivery_violations(icfg: InvariantConfig, have_old, have_new,
     check is off); ``allowed_clear_w``: int32 [N], all ones at the peers
     whose possession was cleared by a cold-restart rejoin this tick —
     a lost bit anywhere else is a violation."""
+    bt = have_new.dim() == 3
     if not icfg.delivery:
-        return _pack([None], 0, have_new)
+        return _pack([None], 0, have_new, bt)
     down = invalid = None
     if alive_w is not None:
-        down = (delivered_now & ~alive_w).any()
+        down = _any(delivered_now & alive_w[..., None, :].bitwise_not(), bt)
     if invalid_words is not None:
-        invalid = (delivered_now & invalid_words[:, None]).any()
+        invalid = _any(delivered_now & invalid_words[..., None], bt)
     shrink = have_old & ~have_new
     if allowed_clear_w is not None:
-        shrink = shrink & ~allowed_clear_w
-    return _pack([down, invalid, shrink.any()], DELIVERY_DOWN, have_new)
+        shrink = shrink & ~allowed_clear_w[..., None, :]
+    return _pack([down, invalid, _any(shrink, bt)], DELIVERY_DOWN,
+                 have_new, bt)
 
 
 def in_mesh_rows(mesh: torch.Tensor, C: int) -> torch.Tensor:
@@ -200,7 +227,7 @@ def in_mesh_rows(mesh: torch.Tensor, C: int) -> torch.Tensor:
     if C not in k:
         k[C] = 1 << torch.arange(C, dtype=torch.int32,
                                  device=mesh.device)[:, None]
-    return (mesh[None, :] & k[C]) != 0
+    return (mesh[..., None, :] & k[C]) != 0
 
 
 def gossip_mesh_violations(icfg: InvariantConfig, C: int, *, mesh_new,
@@ -216,8 +243,9 @@ def gossip_mesh_violations(icfg: InvariantConfig, C: int, *, mesh_new,
     edges inside their own backoff: the partner accepted); None: every
     peer honest.  ``in_mesh`` / ``in_mesh_b``: the mesh words as rows
     (``in_mesh_rows``), where the caller has them already."""
+    bt = mesh_new.dim() == 2
     if not icfg.mesh:
-        return _pack([None], MESH_SUB, mesh_new)
+        return _pack([None], MESH_SUB, mesh_new, bt)
     ok_edges = cand_sub_bits & sub_all
     stray = mesh_new & ~ok_edges
     if mesh_b_new is not None:
@@ -230,12 +258,12 @@ def gossip_mesh_violations(icfg: InvariantConfig, C: int, *, mesh_new,
             rows = in_mesh_rows(mesh & honest_all, C)
         elif rows is None:
             rows = in_mesh_rows(mesh, C)
-        return ((backoff > 0) & rows).any()
+        return _any((backoff > 0) & rows, bt)
 
     clashed = clash(mesh_new, in_mesh, backoff_new)
     if mesh_b_new is not None:
         clashed = clashed | clash(mesh_b_new, in_mesh_b, backoff_b_new)
-    return _pack([stray.any(), clashed], MESH_SUB, mesh_new)
+    return _pack([_any(stray, bt), clashed], MESH_SUB, mesh_new, bt)
 
 
 def _bf16_floor(x: float) -> float:
@@ -269,21 +297,22 @@ def gossip_score_violations(icfg: InvariantConfig, sc, scores_new, *,
     in f32).  ``in_mesh`` / ``in_mesh_b`` as ``gossip_mesh_violations``
     takes them."""
     s = scores_new
+    bt = mesh_new.dim() == 2
     if not icfg.scores or s is None:
-        return _pack([None], SCORE_P1_OFF_MESH, mesh_new)
-    C = s.time_in_mesh.shape[0]
+        return _pack([None], SCORE_P1_OFF_MESH, mesh_new, bt)
+    C = s.time_in_mesh.shape[-2]
     if in_mesh is None:
         in_mesh = in_mesh_rows(mesh_new, C)
     # (a & ~b on bools is a > b)
-    p1_stray = torch.gt(s.time_in_mesh > 0, in_mesh).any()
+    p1_stray = _any(torch.gt(s.time_in_mesh > 0, in_mesh), bt)
     if s.time_in_mesh_b is not None:
         if in_mesh_b is None:
             in_mesh_b = in_mesh_rows(mesh_b_new, C)
-        p1_stray = p1_stray | torch.gt(s.time_in_mesh_b > 0,
-                                       in_mesh_b).any()
+        p1_stray = p1_stray | _any(torch.gt(s.time_in_mesh_b > 0,
+                                            in_mesh_b), bt)
     cap = float(np.float32(sc.first_message_deliveries_cap * _CAP_SLACK))
     fd = s.first_deliveries
-    bad = (_above(fd, cap).any() | (fd < 0).any()
-           | (s.invalid_deliveries < 0).any()
-           | (s.behaviour_penalty < 0).any())
-    return _pack([p1_stray, bad], SCORE_P1_OFF_MESH, mesh_new)
+    bad = (_any(_above(fd, cap), bt) | _any(fd < 0, bt)
+           | _any(s.invalid_deliveries < 0, bt)
+           | _any(s.behaviour_penalty < 0, bt))
+    return _pack([p1_stray, bad], SCORE_P1_OFF_MESH, mesh_new, bt)

@@ -102,6 +102,24 @@ REFUSALS: dict[str, str] = {
                    "fused window elides)",
     # the message goes on with the lines' byte count (msg_fused_delays)
     "fused_delays": "kernel_ticks_fused: delay-armed sims stay per-tick",
+    "batched_ticks": "a replica stack moves in lockstep on one host tick: "
+                     "stacked states must share their tick (the "
+                     "reference carries a tick per replica)",
+    "batched_delays": "replica batching of delay-armed sims (the K-slot "
+                      "delay lines) is not ported yet",
+    "batched_telemetry": "telemetry frames of a replica stack "
+                         "(telemetry_run_batch, the pipelined benchmark "
+                         "as one batched run) are not ported yet",
+    "batched_paired": "paired-topic sims are not batched yet",
+    "batched_fused": "the fused window takes one sim: a replica stack "
+                     "steps per tick (the reference has no batched fused "
+                     "runner)",
+    "batched_partitions": "stacked fault schedules must share their "
+                          "partition windows: the port decides a "
+                          "window's activity on the host tick",
+    "batched_surface": "the router surface (PX candidate rotation, direct "
+                       "peers, flood publishing, exact-k gossip targets, "
+                       "shared addresses) is not batched yet",
 }
 
 
@@ -152,6 +170,21 @@ def receive_path(cfg, sc, params, *, force_split: bool = False) -> str:
     if cfg.n_candidates <= 16 and not track_p3 and not force_split:
         return COMBINED
     return SPLIT
+
+
+def check_batched(cfg, sc, params, state, *, telemetry) -> None:
+    """Refuse what a replica stack does not run yet, by name (a stacked
+    sim's route is the single sim's: ``receive_path``)."""
+    if cfg.paired_topics:
+        refuse("batched_paired")
+    if telemetry is not None:
+        refuse("batched_telemetry")
+    if params.delays is not None:
+        refuse("batched_delays")
+    if (not cfg.binomial_gossip_sampling or params.cand_direct is not None
+            or params.cand_same_ip is not None or state.active is not None
+            or (sc is not None and sc.flood_publish)):
+        refuse("batched_surface")
 
 
 def check_loops(*, paired: bool, telemetry, delays) -> None:
@@ -271,7 +304,10 @@ def check_fused_window(cfg, sc, ticks: int, *, shard_mesh=None) -> None:
 def check_fused_operands(params, state) -> None:
     """Refuse a sim the fused window does not run: a delay-armed one
     (the reference's message, with its lines' byte count), one carrying
-    SimKnobs, one with an active set (PX) or with direct peers."""
+    SimKnobs, one with an active set (PX) or with direct peers, a
+    replica stack (its salt a [B] tensor)."""
+    if not isinstance(state.salt, int):
+        refuse("batched_fused")
     if params.delays is not None:
         extra = sum(line.numel() * line.element_size() for line in (
             state.pay_line, state.ctrl_line, state.gsp_line,

@@ -12,7 +12,11 @@ CPU ``uint32`` has no shifts:
 
 Host-side scalars (lane seeds, salts, ticks) are plain Python ints holding
 u32 values.  Layouts match the reference: words ``[W, N]`` and candidate
-rows ``[C, N]``, peer axis last.
+rows ``[C, N]``, peer axis last.  A stack of replicas (``models/_batch.py``)
+puts a leading ``[B]`` axis before them: every helper here reads its rows
+from the end (the row axis is dim -2), and a replica's salt and lane seeds
+are then ``[B]`` tensors (``lane_seed`` on a tensor salt), each drawing the
+lanes ``r * stride + p`` of its own replica.
 """
 
 from __future__ import annotations
@@ -66,10 +70,26 @@ def fmix32(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def lane_seed(tick: int, phase: int, salt: int) -> int:
-    """The mixed per-(tick, phase, salt) u32 seed feeding lane_uniform."""
+def lane_seed(tick: int, phase: int, salt):
+    """The mixed per-(tick, phase, salt) u32 seed feeding lane_uniform: a
+    host int, or for a replica stack's salt (int64 [B] of u32 values) an
+    int32 [B] tensor of the replicas' seeds, computed on its device."""
+    if isinstance(salt, torch.Tensor):
+        mixed = ((tick * 0x9E3779B9) & MASK32) ^ (
+            (salt + phase * 0x85EBCA6B) & MASK32)
+        return fmix32(to_i32(mixed))
     return fmix32_int(((tick * 0x9E3779B9) & MASK32)
                       ^ ((salt + phase * 0x85EBCA6B) & MASK32))
+
+
+def _seed64(seed, lead: int) -> torch.Tensor | int:
+    """A lane seed to XOR into int64 lanes: a host int as it is, a tensor
+    of u32 bits (int32 or int64 [B]) as int64 with ``lead`` unit axes
+    after its own."""
+    if not isinstance(seed, torch.Tensor):
+        return seed
+    s = seed.to(torch.int64) & MASK32
+    return s.reshape(*s.shape, *([1] * lead))
 
 
 def lane_uniform_from_seed(shape: tuple[int, ...], seed: int,
@@ -82,7 +102,16 @@ def lane_uniform_from_seed(shape: tuple[int, ...], seed: int,
     For a 2-D ``(R, N)`` shape the lane is ``r * stride + p`` (u32 wrap,
     ``stride`` defaults to N).  ``cols`` (int64 peer indices) draws only
     those columns of the ``(R, N)`` stream — the same values as slicing
-    the full field."""
+    the full field.  A ``[B]`` tensor ``seed`` (a replica stack's lane
+    seeds) gives ``[B, R, N]``, replica b drawn from its own seed; with
+    ``cols`` a tensor ``seed`` is per column instead (``[len(cols)]``, the
+    seed of each column's replica)."""
+    if isinstance(seed, torch.Tensor) and cols is not None:
+        rows = torch.arange(shape[0], dtype=torch.int64, device=device)
+        stride = shape[1] if stride is None else stride
+        lane = rows[:, None] * stride + cols[None, :]
+        h = fmix32(to_i32(lane ^ _seed64(seed, 0)[None, :]))
+        return shr(h, 8).to(torch.float32) * (1.0 / (1 << 24))
     if len(shape) == 2:
         rows = torch.arange(shape[0], dtype=torch.int64, device=device)
         if cols is None:
@@ -93,7 +122,7 @@ def lane_uniform_from_seed(shape: tuple[int, ...], seed: int,
         total = int(np.prod(shape))
         lane = torch.arange(total, dtype=torch.int64,
                             device=device).reshape(shape)
-    h = fmix32(to_i32(lane ^ seed))
+    h = fmix32(to_i32(lane ^ _seed64(seed, lane.dim())))
     return shr(h, 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
@@ -114,15 +143,16 @@ def _cidx(c: int, device) -> torch.Tensor:
 
 
 def expand_bits(bits: torch.Tensor, c: int) -> torch.Tensor:
-    """int32 [N] candidate bitmask -> bool [C, N] (bit i = row i)."""
-    return ((bits[None, :] >> _cidx(c, bits.device)) & 1) != 0
+    """int32 [..., N] candidate bitmask -> bool [..., C, N] (bit i = row
+    i)."""
+    return ((bits[..., None, :] >> _cidx(c, bits.device)) & 1) != 0
 
 
 def pack_rows(bools: torch.Tensor) -> torch.Tensor:
-    """bool [C, N] -> int32 [N] bitmask (row i -> bit i)."""
-    c = bools.shape[0]
+    """bool [..., C, N] -> int32 [..., N] bitmask (row i -> bit i)."""
+    c = bools.shape[-2]
     shifts = torch.arange(c, dtype=torch.int64, device=bools.device)
-    return to_i32((bools.to(torch.int64) << shifts[:, None]).sum(0))
+    return to_i32((bools.to(torch.int64) << shifts[:, None]).sum(-2))
 
 
 def bit_row(bits: torch.Tensor, c: int) -> torch.Tensor:
@@ -144,34 +174,34 @@ popcount_words = popcount32
 def ranks_desc(prio: torch.Tensor,
                tiebreak: torch.Tensor | None = None) -> torch.Tensor:
     """Rank of each candidate row per peer under DESCENDING priority
-    ([C, N] -> int32 [C, N]); ties break by ascending ``tiebreak`` when
-    given, else by candidate index."""
-    pi, pj = prio[:, None, :], prio[None, :, :]
+    ([..., C, N] -> int32 [..., C, N]); ties break by ascending
+    ``tiebreak`` when given, else by candidate index."""
+    pi, pj = prio[..., :, None, :], prio[..., None, :, :]
     beats = pj > pi                              # [i, j, N]: j outranks i
     if tiebreak is None:
-        cidx = torch.arange(prio.shape[0], device=prio.device)
+        cidx = torch.arange(prio.shape[-2], device=prio.device)
         beats |= (pj == pi) & (cidx[None, :, None] < cidx[:, None, None])
     else:
-        ti, tj = tiebreak[:, None, :], tiebreak[None, :, :]
+        ti, tj = tiebreak[..., :, None, :], tiebreak[..., None, :, :]
         beats |= (pj == pi) & (tj < ti)
-    return beats.sum(1, dtype=torch.int32)
+    return beats.sum(-2, dtype=torch.int32)
 
 
 def select_k_bits(elig_bits: torch.Tensor, k: torch.Tensor,
                   rand) -> torch.Tensor:
     """Uniformly choose up to k[n] set bits of elig_bits[n].
 
-    ``rand``: f32 [C, N] priorities, or a lane_uniform spec
-    ``(c, tick, phase, salt[, stride])``.  Returns packed int32 [N]."""
+    ``rand``: f32 [..., C, N] priorities, or a lane_uniform spec
+    ``(c, tick, phase, salt[, stride])``.  Returns packed int32 [..., N]."""
     if isinstance(rand, tuple):
         c, tick, phase, salt = rand[:4]
         stride = rand[4] if len(rand) > 4 else None
-        rand = lane_uniform((c, elig_bits.shape[0]), tick, phase, salt,
+        rand = lane_uniform((c, elig_bits.shape[-1]), tick, phase, salt,
                             stride=stride, device=elig_bits.device)
-    c = rand.shape[0]
+    c = rand.shape[-2]
     elig = expand_bits(elig_bits, c)
     prio = torch.where(elig, rand, -1.0)
-    sel = elig & (ranks_desc(prio) < k[None, :])
+    sel = elig & (ranks_desc(prio) < k[..., None, :])
     return pack_rows(sel)
 
 
@@ -179,12 +209,12 @@ def select_k_by_priority_bits(elig_bits: torch.Tensor,
                               priority: torch.Tensor, k: torch.Tensor,
                               tiebreak: torch.Tensor | None = None
                               ) -> torch.Tensor:
-    """Top-k of the eligible bits by descending f32 [C, N] priority, ties
-    by ascending ``tiebreak``."""
-    c = priority.shape[0]
+    """Top-k of the eligible bits by descending f32 [..., C, N] priority,
+    ties by ascending ``tiebreak``."""
+    c = priority.shape[-2]
     elig = expand_bits(elig_bits, c)
     prio = torch.where(elig, priority, -torch.inf)
-    sel = elig & (ranks_desc(prio, tiebreak) < k[None, :])
+    sel = elig & (ranks_desc(prio, tiebreak) < k[..., None, :])
     return pack_rows(sel)
 
 
@@ -218,10 +248,12 @@ def unpack_bits(words: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def count_bits_per_position(words: torch.Tensor, m: int) -> torch.Tensor:
-    """Peer-minor words [W, N] -> int32 [m]: peers with bit j set."""
+    """Peer-minor words [..., W, N] -> int32 [..., m]: peers with bit j
+    set."""
     shifts = torch.arange(WORD_BITS, dtype=torch.int32, device=words.device)
-    bits = (words[:, None, :] >> shifts[None, :, None]) & 1
-    return bits.sum(2, dtype=torch.int32).reshape(-1)[:m]
+    bits = (words[..., :, None, :] >> shifts[:, None]) & 1
+    counts = bits.sum(-1, dtype=torch.int32)
+    return counts.reshape(*counts.shape[:-2], -1)[..., :m]
 
 
 def make_circulant_offsets(n_classes: int, degree: int, n_peers: int,

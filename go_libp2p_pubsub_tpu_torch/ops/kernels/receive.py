@@ -92,6 +92,14 @@ of such a launch is written before the rotation and the step overwrites
 it); with telemetry one more output last, ``tel`` int32 [8 + L]: the
 tick's tally in the reference's row order (``TEL_ROWS``), then the L
 latency-bucket rows.
+
+A replica stack (``models/_batch.py``): every operand with a leading
+[B] (``valid`` [B, W], ``knobs`` [B, K]) and ``gseeds`` two int [B]
+tensors, one launch for the B replicas (the flagship and attack options' stack
+kernels, ``*_reps``), every output with a leading [B] (each gate a
+contiguous [B, N] block); the plain version runs each replica's operands
+in turn.  Telemetry, delays, paired topics and the full variant take one
+sim (``batched_*`` refusals).
 """
 
 from __future__ import annotations
@@ -400,9 +408,9 @@ def score_from_counters(s: ScoreConsts, tim: torch.Tensor,
 def sum_rows(x: torch.Tensor) -> torch.Tensor:
     """Sum over the candidate axis in c = 0..C-1 order from 0.0 (the
     kernel's sequential sum; torch's own reduction order is not fixed)."""
-    acc = torch.zeros_like(x[0])
-    for c in range(x.shape[0]):
-        acc = acc + x[c]
+    acc = torch.zeros_like(x[..., 0, :])
+    for c in range(x.shape[-2]):
+        acc = acc + x[..., c, :]
     return acc
 
 
@@ -415,7 +423,7 @@ def gater_row(fd: torch.Tensor, inv: torch.Tensor, seed: int,
     [C, N]) each edge's goodput uses the sums over its same-IP siblings
     (peer_gater.go:119-151), added in candidate order; the pressure
     uses the ungrouped totals."""
-    C = fd.shape[0]
+    C = fd.shape[-2]
     inv_tot = sum_rows(inv)
     del_tot = sum_rows(fd)
     pressure = 16.0 * inv_tot / (1.0 + del_tot + 16.0 * inv_tot)
@@ -424,12 +432,13 @@ def gater_row(fd: torch.Tensor, inv: torch.Tensor, seed: int,
         inv_g = torch.zeros_like(inv)
         fd_g = torch.zeros_like(fd)
         for cc in range(C):
-            sib = graph.expand_bits(same_ip[cc], C)
-            inv_g = inv_g + torch.where(sib, inv[cc][None, :], 0.0)
-            fd_g = fd_g + torch.where(sib, fd[cc][None, :], 0.0)
+            sib = graph.expand_bits(same_ip[..., cc, :], C)
+            inv_g = inv_g + torch.where(sib, inv[..., cc, None, :], 0.0)
+            fd_g = fd_g + torch.where(sib, fd[..., cc, None, :], 0.0)
         inv, fd = inv_g, fd_g
     goodput = (1.0 + fd) / (1.0 + fd + 16.0 * inv)
-    u = graph.lane_uniform_from_seed(fd.shape, seed, stride, fd.device)
+    u = graph.lane_uniform_from_seed(tuple(fd.shape[-2:]), seed, stride,
+                                     fd.device)
     all_c = (1 << C) - 1
     return graph.pack_rows(u < goodput) | torch.where(
         gater_on, 0, all_c).to(torch.int32)
@@ -452,23 +461,23 @@ def targets_row(k: ReceiveConsts, elig: torch.Tensor, seed: int,
     if k.exact_k:
         return graph.select_k_bits(
             elig, n_go, graph.lane_uniform_from_seed(
-                (C, elig.shape[0]), seed, stride, elig.device))
+                (C, elig.shape[-1]), seed, stride, elig.device))
     p_g = (n_go.to(torch.float32)
            / n_el.clamp(min=1).to(torch.float32)).clamp(max=1.0)
-    u = graph.lane_uniform_from_seed((C, elig.shape[0]), seed, stride,
+    u = graph.lane_uniform_from_seed((C, elig.shape[-1]), seed, stride,
                                      elig.device)
-    return elig & graph.pack_rows(u < p_g[None, :])
+    return elig & graph.pack_rows(u < p_g[..., None, :])
 
 
 def _pack_ctrl(C: int, words) -> torch.Tensor:
     """uint8 [C, N]: byte c of sender p packs bit c of each (position,
-    flag word) pair at its position."""
+    flag word) pair at its position (a replica stack's [B, C, N])."""
     out = words[0][1]
     cidx = torch.arange(C, dtype=torch.int32, device=out.device)[:, None]
-    ctrl = torch.zeros((C, out.shape[0]), dtype=torch.uint8,
-                       device=out.device)
+    ctrl = torch.zeros((*out.shape[:-1], C, out.shape[-1]),
+                       dtype=torch.uint8, device=out.device)
     for bit, word in words:
-        ctrl |= (((word[None, :] >> cidx) & 1) << bit).to(torch.uint8)
+        ctrl |= (((word[..., None, :] >> cidx) & 1) << bit).to(torch.uint8)
     return ctrl
 
 
@@ -692,9 +701,30 @@ def _backoff(k: ReceiveConsts, backoff, bo_trig, knobs=None):
     return bo_new.to(torch.int16), graph.pack_rows(bo_new > 0)
 
 
+def _replica_ops(ops: dict, b: int) -> dict:
+    """Replica ``b``'s operands of a stacked receive call (``gseeds`` a
+    pair of [B] seed tensors; every tensor operand with its leading
+    [B])."""
+    out = {}
+    for name, v in ops.items():
+        if name == "gseeds":
+            out[name] = tuple(int(g[b]) & graph.MASK32 for g in v)
+        elif isinstance(v, torch.Tensor):
+            out[name] = v[b]
+        else:
+            out[name] = v
+    return out
+
+
 def receive_update_plain(k: ReceiveConsts, **ops):
     """Plain PyTorch version of the receive kernel (same operands, same
-    outputs, bit-identical)."""
+    outputs, bit-identical).  A replica stack's operands (every one with
+    a leading [B], ``gseeds`` two [B] seed tensors) give every output
+    stacked [B, ...]: each replica's outputs are its own call's."""
+    if ops["sub_all"].dim() == 2:
+        outs = [receive_update_plain(k, **_replica_ops(ops, b))
+                for b in range(ops["sub_all"].shape[0])]
+        return tuple(torch.stack(x) for x in zip(*outs))
     if k.scored:
         return _receive_plain_scored(k, **ops)
     return _receive_plain_unscored(k, **ops)
@@ -933,9 +963,12 @@ class _Args(ctypes.Structure):
         + [("tel_lat_buckets", ctypes.c_int)]
         # the knob fields, after those
         + [("knobs", ctypes.c_void_p), ("topic_weight", ctypes.c_float)]
-        # the delay mode's fields, last
+        # the delay mode's fields, after those
         + [(name, ctypes.c_void_p) for name in (
-            "arr", "graft_arr", "prune_arr", "retract_in", "cheat_arr")])
+            "arr", "graft_arr", "prune_arr", "retract_in", "cheat_arr")]
+        # the replica axis, last
+        + [("reps", ctypes.c_int), ("seeds", ctypes.c_void_p),
+           ("knob_stride", ctypes.c_int)])
 
 
 _WORDS_N = ("sub_all", "cand_sub", "fanout", "wa", "grafts", "dropped",
@@ -943,11 +976,27 @@ _WORDS_N = ("sub_all", "cand_sub", "fanout", "wa", "grafts", "dropped",
 _WORDS_N_SCORED = ("pay", "gsp", "acc", "bo2")
 
 
-def _check_operands(k: ReceiveConsts, ops: dict) -> None:
+def _check_operands(k: ReceiveConsts, ops: dict) -> int | None:
+    """Check the operands' names, shapes, dtypes and layout; returns B
+    for a replica stack (every operand with a leading [B]), else None."""
     C = k.n_candidates
-    W, n = ops["seen"].shape
+    *lead, W, n = ops["seen"].shape
     if (C, W, k.scored) not in KERNEL_SHAPES:
         plan.refuse("kernel_shape")
+    B = lead[0] if lead else None
+    if B is not None:
+        if k.telemetry:
+            plan.refuse("batched_telemetry")
+        if k.delays:
+            plan.refuse("batched_delays")
+        if k.paired:
+            plan.refuse("batched_paired")
+        if k.full:
+            plan.refuse("batched_surface")
+        for g in ops["gseeds"]:
+            if not isinstance(g, torch.Tensor) or tuple(g.shape) != (B,):
+                raise ValueError("a replica stack's gseeds are two [B] "
+                                 "seed tensors")
     names = set(ops) - {"gseeds"}
     want_names = {"ctrl", "fresh", "adv", "seen", "injected", "backoff",
                   *_WORDS_N}
@@ -1040,19 +1089,24 @@ def _check_operands(k: ReceiveConsts, ops: dict) -> None:
         t = ops[name]
         if t.device != device:
             raise ValueError(f"{name} on {t.device}, sub_all on {device}")
+        if B is not None:
+            shape = (B, *shape)
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{name}: want {dtype} {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return B
 
 
 def receive_update(k: ReceiveConsts, **ops):
     """One tick's receive half (operands and outputs: module docstring).
 
     CUDA tensors launch the kernel (a failed build or launch raises);
-    CPU tensors run ``receive_update_plain``."""
-    _check_operands(k, ops)
+    CPU tensors run ``receive_update_plain``.  A replica stack (every
+    operand with a leading [B], ``gseeds`` two [B] seed tensors) is ONE
+    launch over the B replicas' tiles, each output stacked [B, ...]."""
+    B = _check_operands(k, ops)
     if ops["sub_all"].device.type == "cpu":
         return receive_update_plain(k, **ops)
     # the kernel stages these by bulk copies, which need 16-byte aligned
@@ -1061,13 +1115,14 @@ def receive_update(k: ReceiveConsts, **ops):
                   and v.data_ptr() % 16 else v)
            for name, v in ops.items()}
     C = k.n_candidates
-    W, n = ops["seen"].shape
+    *lead, W, n = ops["seen"].shape
     dev = ops["sub_all"].device
-    acq = torch.empty((W, n), dtype=torch.int32, device=dev)
-    mesh = torch.empty((n,), dtype=torch.int32, device=dev)
-    bo_out = torch.empty((C, n), dtype=torch.int16, device=dev)
-    gates = torch.empty((n_gates(k.scored, k.paired), n), dtype=torch.int32,
-                        device=dev)
+    acq = torch.empty((*lead, W, n), dtype=torch.int32, device=dev)
+    mesh = torch.empty((*lead, n), dtype=torch.int32, device=dev)
+    bo_out = torch.empty((*lead, C, n), dtype=torch.int16, device=dev)
+    # gate g of every replica in one contiguous [B, N] block
+    gates = torch.empty((n_gates(k.scored, k.paired), *lead, n),
+                        dtype=torch.int32, device=dev)
     outs = [("acq", acq), ("mesh", mesh), ("backoff_out", bo_out),
             ("gates", gates)]
     a = _Args()
@@ -1083,8 +1138,16 @@ def receive_update(k: ReceiveConsts, **ops):
     for j in range(C):
         a.offsets[j] = k.offsets[j] % n
         a.cinv[j] = k.cinv[j]
-    a.seed_gater, a.seed_targets = (int(g) & graph.MASK32
-                                    for g in ops["gseeds"])
+    seeds = None
+    if B is None:
+        a.seed_gater, a.seed_targets = (int(g) & graph.MASK32
+                                        for g in ops["gseeds"])
+    else:
+        # each replica's (gater, targets) lane seeds, [B, 2]
+        seeds = torch.stack([g.to(torch.int32) for g in ops["gseeds"]],
+                            -1).contiguous()
+        a.reps = B
+        a.seeds = seeds.data_ptr()
     a.stride = n & graph.MASK32
     a.backoff_restart = k.backoff_restart
     a.d_lazy = k.d_lazy
@@ -1132,7 +1195,7 @@ def receive_update(k: ReceiveConsts, **ops):
         if k.scored:
             paired_outs.append(("tim_b_out", torch.empty_like(ops["tim"])))
     if k.with_px:
-        outs.append(("px_rot", torch.empty((n,), dtype=torch.int32,
+        outs.append(("px_rot", torch.empty((*lead, n), dtype=torch.int32,
                                            device=dev)))
     if k.faults:
         a.faults = 1
@@ -1152,6 +1215,7 @@ def receive_update(k: ReceiveConsts, **ops):
     if k.knobs:
         # null keeps the baked launch arguments
         a.knobs = ops["knobs"].data_ptr()
+        a.knob_stride = ops["knobs"].shape[-1]
         if k.scored:
             a.topic_weight = k.topic_weight
     for name, t in outs + paired_outs:

@@ -22,37 +22,52 @@ from . import _build
 launches = 0
 
 
-def _check(elig: torch.Tensor, k: torch.Tensor, c: int) -> None:
+def _check(elig: torch.Tensor, k: torch.Tensor, c: int, seed) -> None:
     if elig.device != k.device:
         raise ValueError(f"elig on {elig.device}, k on {k.device}")
     if elig.dtype != torch.int32 or k.dtype != torch.int32:
         raise TypeError("elig and k must be int32")
-    if elig.dim() != 1 or k.shape != elig.shape:
+    if isinstance(seed, torch.Tensor):
+        if (elig.dim() != 2 or k.shape != elig.shape
+                or tuple(seed.shape) != (elig.shape[0],)):
+            raise ValueError("a replica stack takes matching [B, N] elig "
+                             "and k and [B] seeds")
+        if seed.dtype not in (torch.int32, torch.int64):
+            raise TypeError("seeds must be int32 or int64 u32 values")
+        if seed.device != elig.device:
+            raise ValueError(f"seeds on {seed.device}, elig on "
+                             f"{elig.device}")
+    elif elig.dim() != 1 or k.shape != elig.shape:
         raise ValueError("elig and k must be matching 1-D [N] tensors")
     if not (1 <= c <= 32):
         raise ValueError(f"c={c} outside [1, 32]")
 
 
 def select_k_bits_plain(elig: torch.Tensor, k: torch.Tensor, c: int,
-                        seed: int, stride: int) -> torch.Tensor:
+                        seed, stride: int) -> torch.Tensor:
     """Plain version: ops.graph.select_k_bits on the lane stream of the
-    already-mixed ``seed`` (graph.lane_seed) with row ``stride``."""
-    _check(elig, k, c)
-    rand = graph.lane_uniform_from_seed((c, elig.shape[0]), seed,
+    already-mixed ``seed`` (graph.lane_seed) with row ``stride``; a
+    replica stack's [B] seeds draw each row of ``elig`` [B, N] from its
+    own."""
+    _check(elig, k, c, seed)
+    rand = graph.lane_uniform_from_seed((c, elig.shape[-1]), seed,
                                         stride=stride, device=elig.device)
     return graph.select_k_bits(elig, k, rand)
 
 
 def select_k_bits(elig: torch.Tensor, k: torch.Tensor, c: int,
-                  seed: int, stride: int) -> torch.Tensor:
+                  seed, stride: int) -> torch.Tensor:
     """Uniformly choose up to k[p] of the C eligible bits of elig[p].
 
     elig, k: int32 [N]; seed: the mixed u32 lane seed; stride: the lane
-    stream's row stride (the true peer count).  Returns int32 [N].
+    stream's row stride (the true peer count).  Returns int32 [N].  A
+    replica stack: elig and k int32 [B, N], seed a [B] tensor of the
+    replicas' lane seeds (``graph.lane_seed`` on a stacked salt), one
+    launch for the B rows, each drawing the lanes of its own peers.
     CUDA tensors launch the kernel (a failed build or launch raises);
     CPU tensors run the plain version."""
     global launches
-    _check(elig, k, c)
+    _check(elig, k, c, seed)
     if elig.device.type == "cpu":
         return select_k_bits_plain(elig, k, c, seed, stride)
     # the kernel moves four peers a thread by 16-byte loads and stores:
@@ -62,6 +77,21 @@ def select_k_bits(elig: torch.Tensor, k: torch.Tensor, c: int,
     elig, k = (v.clone() if v.data_ptr() % 16 else v for v in (elig, k))
     out = torch.empty_like(elig)
     lib = _build.load("select")
+    if isinstance(seed, torch.Tensor):
+        seeds = seed.to(torch.int32).contiguous()
+        fn = lib.gossip_select_k_bits_batched
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p]
+        with torch.cuda.device(elig.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(elig.data_ptr(), k.data_ptr(), out.data_ptr(),
+                     elig.shape[0], elig.shape[1], c, seeds.data_ptr(),
+                     stride & graph.MASK32, stream)
+        _build.check(err, "select_k_bits")
+        launches += 1
+        return out
     fn = lib.gossip_select_k_bits
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

@@ -1,4 +1,4 @@
-"""Attack × defense tournament, cell by cell.
+"""Attack × defense tournament, one dispatch for the whole grid.
 
 Counterpart of ``go_libp2p_pubsub_tpu/models/tournament.py``: every
 attack formation {clean, spam, eclipse, byzantine, cold_restart} against
@@ -12,19 +12,21 @@ so every cell runs the receive loops' combined form
 (``models/_receive_loops.py``), as every cell of the reference runs its
 XLA step.
 
-The reference runs the grid as one batched dispatch (its replicas
-stacked and its step vmapped); here ``run_tournament`` steps each cell
-in turn on one device, and reduces each cell's honest-masked reach as
-the reference's ``gossip_run_tournament`` does.  The report has the
-reference's keys and values.  One dispatch for the whole grid and the
-reference's ``tune_defense`` (coordinate descent over the defense knobs,
-one grid per step) are not ported yet.
+``run_tournament`` stacks the cells' builds on a replica axis
+(``models/_batch.py``) and advances the whole grid with ONE step a tick
+(``gossip_run_tournament``: B3 as often as one cell's tick launches it),
+then reduces each cell's honest-masked reach, as the reference's one
+batched dispatch does; the report has the reference's keys and values.
+``tune_defense`` is the reference's coordinate descent over the defense
+knobs (``TUNE_SPACE``), each step one batched grid.
 
-    python -m go_libp2p_pubsub_tpu_torch.tournament [--n 20000] [--ticks 150]
+    python -m go_libp2p_pubsub_tpu_torch.tournament [--n 20000] [--ticks 150] [--tune]
 
 runs the grid at the reference benchmark's shape (20,000 peers, 20
 topics, 24 messages, 150 ticks) on the GPU and prints the report with
-its replica heartbeats per second and the card.
+its replica heartbeats per second and the card; ``--tune`` runs
+``tune_defense`` at that shape instead and prints its result and wall
+time.
 """
 
 from __future__ import annotations
@@ -139,51 +141,87 @@ def tournament_grid(n: int, t: int, m: int, horizon: int, *,
                               subs=subs)
 
 
-def run_tournament(n: int, t: int, m: int, n_ticks: int, *,
-                   n_candidates: int = 16, seed: int = 0, attacks=ATTACKS,
-                   defenses=None, invariants: bool = True, device=None,
-                   cells: list | None = None) -> dict:
-    """Build and run the grid, one cell after another on ``device``
-    (default ``cuda``); returns the reference's report: ``{"rows":
-    [{attack, defense, delivery_fraction[, eclipse_takeover], inv_bits,
-    inv_first}, ...], "worst_case": {defense: {delivery_fraction,
-    attack}}, ...}``.  Delivery fraction is the honest population's mean
-    over messages of reached / wanted.  ``cells``, a list, receives each
-    cell's ``(params, final state)``."""
+#: one step per (cfg, sc, invariants, device): a defense point is data of
+#: the params, so every run_tournament / tune_defense over one shape steps
+#: with the same step object (its cached constants and edge geometry)
+_STEP_CACHE: dict = {}
+
+
+def _cached_step(cfg, sc, invariants: bool, device=None):
     dev = resolve_device(device)
-    defenses = DEFENSES if defenses is None else defenses
+    key = (cfg, sc, invariants, dev)
+    if key not in _STEP_CACHE:
+        _STEP_CACHE[key] = gs.make_gossip_step(
+            cfg, sc, device=dev,
+            invariants=_inv.InvariantConfig() if invariants else None)
+    return _STEP_CACHE[key]
+
+
+def stack_grid(n: int, t: int, m: int, n_ticks: int, *,
+               n_candidates: int = 16, seed: int = 0, attacks=ATTACKS,
+               defenses=None, invariants: bool = True, device=None):
+    """The grid built and stacked on ``device``: ``(cfg, sc, params_B,
+    state_B, step, meta, ctx)``, every cell a replica (states armed with
+    the checker where ``invariants``), ``step`` the shape's cached
+    step."""
+    dev = resolve_device(device)
     offsets = gs.make_gossip_offsets(t, n_candidates, n, seed=seed)
     cfg, sc = tournament_static_config(offsets, t)
     builds, meta, ctx = tournament_grid(n, t, m, n_ticks, seed=seed,
                                         attacks=attacks, defenses=defenses)
-    step = gs.make_gossip_step(
-        cfg, sc, device=dev,
-        invariants=_inv.InvariantConfig() if invariants else None)
+    pairs = [gs.make_gossip_sim(cfg, score_cfg=sc, device=dev, **b)
+             for b in builds]
+    states = [p[1] for p in pairs]
+    if invariants:
+        states = [_inv.attach(s) for s in states]
+    params = gs.stack_trees([p[0] for p in pairs])
+    state = gs.stack_trees(states)
+    return (cfg, sc, params, state, _cached_step(cfg, sc, invariants, dev),
+            meta, ctx)
+
+
+def run_tournament(n: int, t: int, m: int, n_ticks: int, *,
+                   n_candidates: int = 16, seed: int = 0, attacks=ATTACKS,
+                   defenses=None, invariants: bool = True, device=None,
+                   cells: list | None = None) -> dict:
+    """Build the grid, stack its cells and run them as one batched
+    dispatch on ``device`` (default ``cuda``); returns the reference's
+    report: ``{"rows": [{attack, defense, delivery_fraction[,
+    eclipse_takeover], inv_bits, inv_first}, ...], "worst_case":
+    {defense: {delivery_fraction, attack}}, ...}``.  Delivery fraction is
+    the honest population's mean over messages of reached / wanted.
+    ``cells``, a list, receives each cell's ``(params, final state)``
+    (views of the stack)."""
+    dev = resolve_device(device)
+    defenses = DEFENSES if defenses is None else defenses
+    cfg, _, params, state, step, meta, ctx = stack_grid(
+        n, t, m, n_ticks, n_candidates=n_candidates, seed=seed,
+        attacks=attacks, defenses=defenses, invariants=invariants,
+        device=dev)
     honest_row = ~ctx["attackers"]      # victims and churners are honest
-    honest = torch.from_numpy(honest_row).to(dev)
+    honest = np.broadcast_to(honest_row, (len(meta), n)).copy()
+    state, reach = gs.gossip_run_tournament(params, state, n_ticks, step,
+                                            honest, device=dev)
+    reach = reach.cpu().numpy()
     members = np.arange(n) % t
     want = np.array([(honest_row & (members == tau)).sum()
                      for tau in ctx["topic"]], dtype=np.float64)
+    inv = _inv.report_batch(state) if invariants else None
     rows = []
-    for b, mrow in zip(builds, meta):
-        params, state = gs.make_gossip_sim(cfg, score_cfg=sc, device=dev,
-                                           **b)
-        if invariants:
-            state = _inv.attach(state)
-        state = gs.gossip_run(params, state, n_ticks, step, device=dev)
-        reach = gs.reach_counts_from_have(params, state,
-                                          mask=honest).cpu().numpy()
+    for b, mrow in enumerate(meta):
         row = dict(mrow, delivery_fraction=round(
-            float((reach / want).mean()), 4))
+            float((reach[b] / want).mean()), 4))
+        if mrow["attack"] == "eclipse" or cells is not None:
+            p_b, s_b = gs.index_trees(params, b), gs.index_trees(state, b)
         if mrow["attack"] == "eclipse":
             row["eclipse_takeover"] = round(
-                gs.eclipse_takeover(state, params, cfg), 4)
+                gs.eclipse_takeover(s_b, p_b, cfg), 4)
         if invariants:
-            row["inv_bits"] = int(state.inv_viol) & 0xFFFFFFFF
-            row["inv_first"] = int(state.inv_first)
+            row["inv_bits"] = inv[b]["bits"]
+            row["inv_first"] = inv[b]["first_tick"]
         rows.append(row)
         if cells is not None:
-            cells.append((params, state))
+            cells.append((p_b, s_b))
     worst = {}
     for dname in defenses:
         w = min((r for r in rows if r["defense"] == dname),
@@ -192,13 +230,112 @@ def run_tournament(n: int, t: int, m: int, n_ticks: int, *,
                         "attack": w["attack"]}
     return {
         "n_peers": n, "n_topics": t, "n_msgs": m, "ticks": n_ticks,
-        "replicas": len(builds),
+        "replicas": len(meta),
         "attacks": list(attacks), "defenses": list(defenses),
         "rows": rows, "worst_case": worst,
         "reference_worst_case_delivery":
             worst.get("reference", {}).get("delivery_fraction"),
         "invariant_violations": sum(r.get("inv_bits", 0) != 0
                                     for r in rows),
+    }
+
+
+# --------------------------------------------------------------------------
+# Defense auto-tuning: coordinate descent over the defense knobs, each
+# step one batched grid (the reference's tune_defense)
+# --------------------------------------------------------------------------
+
+#: the coordinate-descent search space (graylist candidates respect the
+#: static publish threshold, -50: graylist <= publish is a build
+#: invariant)
+TUNE_SPACE = {
+    "invalid_message_deliveries_weight": (-5.0, -10.0, -20.0, -40.0),
+    "behaviour_penalty_weight": (-5.0, -10.0, -20.0, -40.0),
+    "graylist_threshold": (-80.0, -65.0, -50.0),
+    "gossip_threshold": (-10.0, -5.0, -2.0),
+}
+
+
+def tune_defense(n: int, t: int, m: int, n_ticks: int, *,
+                 seed: int = 0, passes: int = 1, space=None,
+                 attacks=ATTACKS, start=None, log=None,
+                 device=None) -> dict:
+    """Coordinate descent over the ScoreKnobs defense space, maximizing
+    the worst-case honest delivery fraction across the attack column
+    (the reference's, step for step): each coordinate step runs every
+    candidate value × every attack as ONE batched ``run_tournament``.
+
+    Objective, lexicographic: (worst-case delivery, attack-column mean
+    delivery, minus the eclipse takeover).  Returns ``{"tuned": point,
+    "tuned_worst_case", "tuned_mean", "tuned_takeover",
+    "reference_worst_case", "reference_mean", "reference_takeover",
+    "delta", "delta_mean", "delta_takeover", "history", "shape"}``, the
+    reference's dict."""
+    space = dict(TUNE_SPACE if space is None else space)
+    point = dict(start or {})
+    history = []
+
+    def takeover_of(report, dname):
+        tk = [r.get("eclipse_takeover") for r in report["rows"]
+              if r["defense"] == dname
+              and r.get("eclipse_takeover") is not None]
+        return tk[0] if tk else 0.0
+
+    def objective(report, dname):
+        col = [r["delivery_fraction"] for r in report["rows"]
+               if r["defense"] == dname]
+        return (report["worst_case"][dname]["delivery_fraction"],
+                round(sum(col) / len(col), 6),
+                -takeover_of(report, dname))
+
+    def grid(defenses):
+        return run_tournament(n, t, m, n_ticks, seed=seed, attacks=attacks,
+                              defenses=defenses, device=device)
+
+    # the reference row rides along once for the delta
+    base = grid({"reference": {}, "start": dict(point)})
+    ref_worst = base["worst_case"]["reference"]
+    best = objective(base, "start")
+    if log:
+        log(f"tune: start (worst, mean)={best} "
+            f"(reference worst {ref_worst['delivery_fraction']:.4f})")
+    for p in range(passes):
+        for coord, values in space.items():
+            cands = {f"{coord}={v}": dict(point, **{coord: v})
+                     for v in values}
+            rep = grid(cands)
+            scored = {name: objective(rep, name) for name in cands}
+            name, val = max(scored.items(), key=lambda kv: kv[1])
+            history.append({"pass": p, "coord": coord,
+                            "candidates": scored})
+            if val > best:
+                best = val
+                point = dict(cands[name])
+                if log:
+                    log(f"tune: {name} -> (worst, mean)={val} "
+                        "(new best)")
+            elif log:
+                log(f"tune: {coord} best candidate {name} "
+                    f"(worst, mean)={val} <= {best}, keeping point")
+    final = grid({"reference": {}, "tuned": dict(point)})
+    tuned_worst = final["worst_case"]["tuned"]
+    ref_worst = final["worst_case"]["reference"]
+    tuned_obj = objective(final, "tuned")
+    ref_obj = objective(final, "reference")
+    return {
+        "tuned": point,
+        "tuned_worst_case": tuned_worst,
+        "tuned_mean": tuned_obj[1],
+        "tuned_takeover": -tuned_obj[2],
+        "reference_worst_case": ref_worst,
+        "reference_mean": ref_obj[1],
+        "reference_takeover": -ref_obj[2],
+        "delta": round(tuned_worst["delivery_fraction"]
+                       - ref_worst["delivery_fraction"], 4),
+        "delta_mean": round(tuned_obj[1] - ref_obj[1], 6),
+        "delta_takeover": round(ref_obj[2] - tuned_obj[2], 4),
+        "history": history,
+        "shape": {"n": n, "t": t, "m": m, "ticks": n_ticks},
     }
 
 
@@ -210,7 +347,16 @@ def main() -> None:
     ap.add_argument("--topics", type=int, default=20)
     ap.add_argument("--msgs", type=int, default=24)
     ap.add_argument("--ticks", type=int, default=150)
+    ap.add_argument("--tune", action="store_true",
+                    help="run tune_defense at this shape instead")
     args = ap.parse_args()
+    if args.tune:
+        t0 = time.perf_counter()
+        res = tune_defense(args.n, args.topics, args.msgs, args.ticks)
+        torch.cuda.synchronize()
+        res.update(wall_s=time.perf_counter() - t0, card=card())
+        print(json.dumps(res))
+        return
     t0 = time.perf_counter()
     rep = run_tournament(args.n, args.topics, args.msgs, args.ticks)
     torch.cuda.synchronize()

@@ -1633,3 +1633,102 @@ def test_fused_kernel_on_misaligned_operands(cuda, variant):
     torch.cuda.synchronize()
     for i, (g, x) in enumerate(zip(got, want)):
         assert torch.equal(g.cpu(), x), f"output {i}"
+
+
+# -- replica batching: B1 and B3 with a replica axis --------------------------
+
+
+@pytest.mark.parametrize("c", [16, 32])
+@pytest.mark.parametrize("n", [4_000, 4_002, 4_099])
+def test_batched_select_kernel_matches_plain(cuda, c, n):
+    """One launch over a [B, N] stack with [B] seeds against the plain
+    version and against one launch a replica (N = 2 mod 4 and odd: quads
+    straddle replicas)."""
+    rng = np.random.default_rng(n + c)
+    B = 5
+    elig = _words(rng, (B, n), c)
+    k = torch.from_numpy(rng.integers(0, c + 3, (B, n)).astype(np.int32))
+    seeds = pg.lane_seed(9, 2, torch.tensor([1, 2, 3, 0xFFFFFFF0, 77],
+                                            dtype=torch.int64))
+    want = psel.select_k_bits_plain(elig, k, c, seeds, n)
+    before = psel.launches
+    got = psel.select_k_bits(elig.to(cuda), k.to(cuda), c, seeds.to(cuda),
+                             n)
+    torch.cuda.synchronize()
+    assert psel.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    for b in range(B):
+        one = psel.select_k_bits(elig[b].to(cuda), k[b].to(cuda), c,
+                                 int(seeds[b]) & 0xFFFFFFFF, n)
+        assert torch.equal(one.cpu(), want[b]), b
+
+
+@pytest.mark.parametrize("name", ["scored", "unscored", "attack",
+                                  "unscored_faults", "scored_knobs",
+                                  "attack_faults_knobs"])
+@pytest.mark.parametrize("n", [1_000, 1_003])
+@pytest.mark.parametrize("c", [8, 16])
+def test_batched_receive_kernel_matches_plain(cuda, name, n, c):
+    """One launch of B1 over three replicas whose operands differ (seeds,
+    knob vectors, alive words), against the plain version on the stack
+    and against one launch a replica (at C = 8 and an odd N a replica's
+    ctrl rows start off a 16-byte boundary)."""
+    from test_torch_batch import PLAIN_VARIANTS, _receive_ops
+
+    scored, sc_kw, kw = PLAIN_VARIANTS[name]
+    cfg = pgs.GossipSimConfig(offsets=pgs.make_gossip_offsets(
+        2, c, n - n % 2, seed=3), n_topics=2, **(SMALL if c == 8 else {}))
+    k = prc.receive_consts(cfg, pgs.ScoreSimConfig(**sc_kw)
+                           if scored else None,
+                           faults=kw.get("faults", False),
+                           knobs=kw.get("knobs", False))
+    reps = [_receive_ops(k, n, 20 + b, **kw) for b in range(3)]
+    stacked = {}
+    for key, v in reps[0].items():
+        if key == "gseeds":
+            stacked[key] = tuple(torch.tensor([r[key][i] for r in reps],
+                                              dtype=torch.int64)
+                                 for i in range(2))
+        elif isinstance(v, torch.Tensor):
+            stacked[key] = torch.stack([r[key] for r in reps])
+        else:
+            stacked[key] = v
+    want = prc.receive_update_plain(k, **stacked)
+
+    def to(ops):
+        return {key: (tuple(x.to(cuda) for x in v) if key == "gseeds"
+                      and isinstance(v[0], torch.Tensor)
+                      else v.to(cuda) if isinstance(v, torch.Tensor) else v)
+                for key, v in ops.items()}
+    before = sum(prc.launches.values())
+    got = prc.receive_update(k, **to(stacked))
+    torch.cuda.synchronize()
+    assert sum(prc.launches.values()) == before + 1
+    for i, (g, x) in enumerate(zip(got, want)):
+        assert torch.equal(g.cpu(), x), f"output {i}"
+    for b, r in enumerate(reps):
+        one = prc.receive_update(k, **to(r))
+        for i, (g, x) in enumerate(zip(one, want)):
+            assert torch.equal(g.cpu(), x[b]), (b, i)
+
+
+@pytest.mark.parametrize("scored", [True, False])
+def test_batched_step_on_the_card_matches_the_cpu(cuda, scored):
+    """A stack of three replicas, 20 ticks on one step a tick: the card's
+    final stack equals the CPU's leaf for leaf, B1 launched once a tick."""
+    from test_torch_batch import replica_specs
+
+    make_cfg, specs = replica_specs(n=3_002, t=2, seeds=(1, 2, 3))
+    cfg = make_cfg(pgs)
+    sc = pgs.ScoreSimConfig() if scored else None
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params, state = pgs.stack_sims(cfg, specs, score_cfg=sc,
+                                       device=dev)
+        step = pgs.make_gossip_step(cfg, sc, device=dev)
+        before = sum(prc.launches.values())
+        out[dev.type] = pgs.gossip_run_batch(params, state, 20, step,
+                                             device=dev)
+        if dev == cuda:
+            assert sum(prc.launches.values()) == before + 20
+    assert _state_digest(out["cuda"]) == _state_digest(out["cpu"])

@@ -169,6 +169,22 @@ def _fused_run(n_ticks, **kw):
 N = 256
 
 
+def _stack(seeds=(1, 2), **kw):
+    """Two of the small sims stacked on a replica axis (``_sim``'s
+    keywords; a list value gives each replica its own)."""
+    builds = [_sim(seed=s, **{k: (v[i] if isinstance(v, list) else v)
+                              for k, v in kw.items()})
+              for i, s in enumerate(seeds)]
+    return (pgs.stack_trees([p for p, _ in builds]),
+            pgs.stack_trees([s for _, s in builds]))
+
+
+def _batched_step(step_kw=None, **kw):
+    """One step of a replica stack of the small sim."""
+    params, state = _stack(**kw)
+    return _step(**(step_kw or {}))(params, state)
+
+
 def _sched(**kw):
     """A schedule over the small sim's peers: churn, loss, a partition."""
     return pfl.FaultSchedule(
@@ -231,7 +247,54 @@ REFUSED = {
         lambda: _fused_run(8, direct_edges=np.zeros((N, 16), bool))],
     # the launch's own error when not one block of the grid is resident
     "fused_grid": [lambda: kfused.check_launch(kfused.COOPERATIVE_TOO_LARGE)],
+    # what a replica stack does not run yet
+    "batched_delays": [lambda: _batched_step(delays=pdl.DelayConfig())],
+    "batched_telemetry": [lambda: _batched_step(
+        step_kw=dict(telemetry=ptl.TelemetryConfig()))],
+    "batched_paired": [lambda: _paired_stack_step()],
+    "batched_surface": [
+        lambda: _batched_step(px_candidates=14),
+        lambda: _batched_step(direct_edges=np.zeros((N, 16), bool)),
+        lambda: _batched_step(sc=pgs.ScoreSimConfig(flood_publish=True),
+                              step_kw=dict(sc=pgs.ScoreSimConfig(
+                                  flood_publish=True))),
+        lambda: _batched_step(
+            cfg=_cfg(binomial_gossip_sampling=False),
+            step_kw=dict(cfg=_cfg(binomial_gossip_sampling=False)))],
+    "batched_fused": [lambda: _window()(*_stack(sc=None))],
+    "batched_ticks": [lambda: pgs.stack_trees([
+        _sim(seed=1)[1], pgs.replace(_sim(seed=2)[1], tick=5)])],
+    "batched_partitions": [lambda: _stack(fault_schedule=[
+        _sched(), pfl.FaultSchedule(
+            n_peers=N, horizon=40, seed=4, drop_prob=0.05,
+            down_intervals=[(p, 2, 6) for p in range(0, N, 9)],
+            partition_group=np.arange(N) % 2,
+            partition_windows=[(9, 12)])])],
 }
+
+
+def _paired_stack_step():
+    """One step of a stack of two paired sims (both topics of each
+    peer's pair subscribed)."""
+    cfg, _, (subs, topic, origin, ticks) = _small()
+    cfg = _cfg(paired_topics=True)
+    idx = np.arange(len(subs))
+    subs = subs.copy()
+    subs[idx, (idx % 4 + 2) % 4] = True
+    builds = [pgs.make_gossip_sim(cfg, subs, topic, origin, ticks, seed=s,
+                                  device="cpu") for s in (1, 2)]
+    return pgs.make_gossip_step(cfg, device="cpu")(
+        pgs.stack_trees([p for p, _ in builds]),
+        pgs.stack_trees([s for _, s in builds]))
+
+
+def test_batch_modules_are_under_the_import_check():
+    """The replica-batching modules are among the files the import rule
+    reads."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"go_libp2p_pubsub_tpu_torch/models/_batch.py",
+            "go_libp2p_pubsub_tpu_torch/batched_flagship.py",
+            "go_libp2p_pubsub_tpu_torch/tournament.py"} <= names
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))

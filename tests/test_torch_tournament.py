@@ -94,3 +94,64 @@ def test_run_tournament_equals_the_references(ref):
     byz = next(st for (r, (_, st)) in zip(got["rows"], cells)
                if r["attack"] == "byzantine")
     assert float(byz.scores.invalid_deliveries.float().max()) > 0
+
+
+#: tune_defense at a small size: two coordinates × two values, three
+#: attacks
+TUNE_SPACE = {"behaviour_penalty_weight": (-5.0, -20.0),
+              "graylist_threshold": (-80.0, -65.0)}
+TUNE_ATTACKS = ("clean", "eclipse", "cold_restart")
+
+
+def test_tune_defense_equals_the_references(ref):
+    want = ref.tournament.tune_defense(N, T, M, TICKS, space=TUNE_SPACE,
+                                       attacks=TUNE_ATTACKS)
+    got = ptn.tune_defense(N, T, M, TICKS, space=TUNE_SPACE,
+                           attacks=TUNE_ATTACKS, device="cpu")
+    assert got.keys() == want.keys()
+    for key in want:
+        assert got[key] == want[key], key
+    assert len(got["history"]) == len(TUNE_SPACE)
+
+
+@pytest.mark.parametrize("cells", [2, 6])
+def test_batched_step_launches_do_not_grow_with_cells(cells, monkeypatch):
+    """The grid's step on a stack of ``cells`` cells calls select_k_bits
+    (B3) as often a tick as on one cell, and the receive half runs once
+    a tick (the loops here: no receive kernel call at all)."""
+    from go_libp2p_pubsub_tpu_torch.models import gossipsub as pgs
+    from go_libp2p_pubsub_tpu_torch.models import invariants as piv
+    from go_libp2p_pubsub_tpu_torch.ops.kernels import receive as krecv
+    from go_libp2p_pubsub_tpu_torch.ops.kernels import select as kselect
+
+    n = 256
+    offsets = pgs.make_gossip_offsets(T, 16, n, seed=0)
+    cfg, sc = ptn.tournament_static_config(offsets, T)
+    builds, _, _ = ptn.tournament_grid(n, T, M, 40, seed=0)
+    builds = builds[:cells]
+    pairs = [pgs.make_gossip_sim(cfg, score_cfg=sc, device="cpu", **b)
+             for b in builds]
+    counts = {"select": 0, "receive": 0}
+    orig_sel, orig_recv = kselect.select_k_bits, krecv.receive_update
+
+    def sel(*a, **k):
+        counts["select"] += 1
+        return orig_sel(*a, **k)
+
+    def recv(*a, **k):
+        counts["receive"] += 1
+        return orig_recv(*a, **k)
+    monkeypatch.setattr(kselect, "select_k_bits", sel)
+    monkeypatch.setattr(krecv, "receive_update", recv)
+    step = pgs.make_gossip_step(cfg, sc, device="cpu",
+                                invariants=piv.InvariantConfig())
+    one = []
+    for p, s in pairs[:1]:
+        pgs.gossip_run(p, piv.attach(s), 12, step, device="cpu")
+        one.append(dict(counts))
+    counts.update(select=0, receive=0)
+    params = pgs.stack_trees([p for p, _ in pairs])
+    state = pgs.stack_trees([piv.attach(s) for _, s in pairs])
+    pgs.gossip_run_batch(params, state, 12, step, device="cpu")
+    assert counts == one[0]
+    assert counts["select"] > 0 and counts["receive"] == 0

@@ -20,6 +20,8 @@ checked on the JAX reference.
         [--n 100000] [--port]
     JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --tournament \
         [--n 20000] [--port]
+    JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --batched \
+        [--n 100000] [--port]
 
 Runs the JAX package's unscored per-tick step (XLA) on the resident
 configuration (go_libp2p_pubsub_tpu_torch/resident.py: 10 topics, C = 16,
@@ -683,9 +685,78 @@ def tournament_rows(n: int, port: bool) -> int:
         mine = ptn.run_tournament(n, t, m, ticks, seed=0, device="cpu")
         dt = time.perf_counter() - t0
         match = mine == rep
-        print(f"port (CPU, cell by cell) in {dt:.1f} s: rows equal to the "
+        print(f"port (CPU, one dispatch) in {dt:.1f} s: rows equal to the "
               f"reference's: {mine['rows'] == rep['rows']}; report equal: "
               f"{match}")
+        ok = ok and match
+    print("gates", "pass" if ok else "FAIL")
+    return 0 if ok else 1
+
+
+def batched_rows(n: int, port: bool, replicas: int = 4) -> int:
+    """The JAX package's batched flagship benchmark at its CPU shape
+    (``bench_gossipsub_v11_batched``: ``replicas`` flagship replicas,
+    mesh seeds 0..B-1, the ring and the messages drawn with seed 0, 100
+    warm-up and 3 × 100 ticks through ``gossip_run_batch``) with its
+    gates per replica (the mean mesh degree of every replica's subscribed
+    peers against Dlo, every settled message at every topic member, the
+    IWANT-serve ledgers under the flood cap) and each replica's digest;
+    with ``port`` the port's CPU run of ``batched_flagship`` (the same
+    build, ``gossip_run_batch``) replica by replica against them."""
+    import time
+
+    from go_libp2p_pubsub_tpu_torch import batched_flagship as bf
+    from go_libp2p_pubsub_tpu_torch import convert
+    from go_libp2p_pubsub_tpu_torch import flagship as pflag
+    from go_libp2p_pubsub_tpu_torch.models import gossipsub as pgs
+
+    horizon = bf.WARMUP + bf.TIMED * bf.BLOCKS
+    cfg_p, subs, topic, origin, tick = pflag.inputs(n, horizon=horizon)
+    with imported_reference() as r:
+        gs = r.gs
+        cfg = gs.GossipSimConfig(offsets=cfg_p.offsets, n_topics=100)
+        sc = gs.ScoreSimConfig()
+        builds = [gs.make_gossip_sim(cfg, subs, topic, origin, tick, seed=b,
+                                     score_cfg=sc, track_first_tick=False)
+                  for b in range(replicas)]
+        params = gs.stack_trees([b[0] for b in builds])
+        state = gs.stack_trees([b[1] for b in builds])
+        step = gs.make_gossip_step(cfg, sc)
+        t0 = time.perf_counter()
+        state = gs.gossip_run_batch(params, state, horizon, step)
+        dt = time.perf_counter() - t0
+        sub = np.asarray(params.subscribed)
+        deg = float(np.asarray(gs.mesh_degrees(state))[sub].mean())
+        settled = tick < horizon - 30
+        reach = np.stack([np.asarray(gs.reach_counts_from_have(
+            gs.index_trees(params, b), gs.index_trees(state, b)))
+            for b in range(replicas)])
+        serves = int(np.asarray(state.iwant_serves).max())
+        digests = [knob_sweep.tree_digest(tree_to_numpy(
+            gs.index_trees(state, b))) for b in range(replicas)]
+    cap = (cfg.gossip_retransmission + 1) * 32
+    ok = (deg >= cfg.d_lo and (reach[:, settled] == n // 100).all()
+          and serves < cap)
+    print(f"reference batched flagship, {replicas} x {n} peers, "
+          f"{horizon} ticks on the CPU in {dt:.1f} s: mean mesh degree "
+          f"{deg:.4f} (Dlo {cfg.d_lo}); settled messages at every member "
+          f"in every replica: {bool((reach[:, settled] == n // 100).all())}"
+          f"; IWANT serves max {serves} (cap {cap}); digests "
+          f"{[d[:16] for d in digests]}")
+    if port:
+        c_p, s_p, p_p, st_p, _ = bf.build("cpu", n, replicas)
+        t0 = time.perf_counter()
+        st_p = pgs.gossip_run_batch(p_p, st_p, horizon,
+                                    pgs.make_gossip_step(c_p, s_p,
+                                                         device="cpu"),
+                                    device="cpu")
+        dt = time.perf_counter() - t0
+        mine = [knob_sweep.tree_digest(convert.state_to_numpy(
+            pgs.index_trees(st_p, b))) for b in range(replicas)]
+        gates = bf.gates(c_p, p_p, st_p, tick, horizon)
+        match = mine == digests
+        print(f"port (CPU) in {dt:.1f} s: gates {gates}; every replica's "
+              f"digest equal to the reference's: {match}")
         ok = ok and match
     print("gates", "pass" if ok else "FAIL")
     return 0 if ok else 1
@@ -731,6 +802,7 @@ def main() -> int:
     ap.add_argument("--pipelined", action="store_true")
     ap.add_argument("--invariants", action="store_true")
     ap.add_argument("--tournament", action="store_true")
+    ap.add_argument("--batched", action="store_true")
     ap.add_argument("--port", action="store_true")
     ap.add_argument("--ticks", type=int, default=400)
     args = ap.parse_args()
@@ -746,6 +818,8 @@ def main() -> int:
         return invariants_rows(args.n or 100_000, args.port)
     if args.tournament:
         return tournament_rows(args.n or 20_000, args.port)
+    if args.batched:
+        return batched_rows(args.n or 100_000, args.port)
     if args.adversarial or args.everything or args.everything_paired:
         return adversarial_gates(
             args.n or 100_000, args.ticks,
