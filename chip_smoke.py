@@ -5,11 +5,14 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. the device: torch's name and count, nvidia-smi's name and power limit;
-2. build the seven CUDA sources from ``go_libp2p_pubsub_tpu_torch/csrc``
+2. build the ten CUDA sources from ``go_libp2p_pubsub_tpu_torch/csrc``
    (one nvcc per source, concurrently: select, receive, its telemetry
    twin receive_tel, their knob twins receive_knobs and
-   receive_tel_knobs, the delay mode's receive_delays, fused), printing
-   ptxas' register and spill lines;
+   receive_tel_knobs, the delay mode's receive_delays, the replica
+   stack's delay mode receive_delays_reps and telemetry tally
+   receive_tel_reps and receive_tel_knobs_reps, fused), printing ptxas'
+   register and spill lines and each source's compile seconds on a line
+   of its own;
 3. the select kernel against its plain version at 1,000,000 peers,
    C = 16, seeded: bit-identical; both timed with CUDA events;
 4. the receive kernel against its plain version at the flagship shapes
@@ -204,12 +207,14 @@ Phases (any failure exits non-zero; nothing is caught):
    without delays) timed;
 5q. the slice's main path: the JAX package's pipelined-gossip benchmark
    (go_libp2p_pubsub_tpu_torch/pipelined.py) as written at 100,000 peers
-   and at full width, 1,000,000: the points base1, base2, base4 and
-   base4j2 armed one after another on one built sim (DelayConfig(1, 0, 8),
-   the latency histogram on) and run 48 ticks from build through
-   telemetry_run, counts reset just before each point and read just
-   after: every point's ``scored+delays+knobs`` once a tick and no other
-   receive variant, no kernel library built after the first point; the
+   and at full width, 1,000,000, one point after another
+   (``pipelined.run_sequential``; 5ad runs it as one dispatch): the points
+   base1, base2, base4 and base4j2 armed one after another on one built
+   sim (DelayConfig(1, 0, 8), the latency histogram on) and run 48 ticks
+   from build through telemetry_run, counts reset just before each point
+   and read just after: every point's ``scored+delays+knobs`` once a tick
+   and no other receive variant, no kernel library built after the first
+   point; the
    rows (delivery fraction, latency percentiles, histogram, the p99
    stretch, the replica heartbeats/s, peak memory) and the benchmark's two
    gates; then at 1,000,000 peers the K = 1 identity (DelayConfig(1, 0,
@@ -297,6 +302,33 @@ Phases (any failure exits non-zero; nothing is caught):
    over TUNE_SPACE, one batched grid a step): its dict, its wall time,
    and its tuned point's worst case, column mean and eclipse takeover
    beside the JAX package's record (0.9139, 0.98278, 0.2987);
+5ab. B1's delay mode with a replica axis (csrc/receive_delays_reps.cu:
+   the flagship's scored options, the attack options tracking promises,
+   unscored; each without and with knobs): one launch for four replicas on
+   a real delayed batched tick (the pipelined benchmark's four points
+   stacked at 1,000,000 peers, stepped to the first tick from 8 on with
+   arrivals and retractions live; the operands adapted to the family, its
+   extra operands each replica's own), on seeded random operands at
+   1,000,000 and at C = 8 on a ring of 100,003 peers: bit-identical to its
+   plain version and to four single launches; timed beside them;
+5ac. B1's telemetry tally with a replica axis (csrc/receive_tel_reps.cu,
+   receive_tel_knobs_reps.cu: the same three families, each without and
+   with faults and knobs, L = 16): the same three ways, the real tick 5z's
+   batched flagship stepped with telemetry; the [4, 8 + L] tally equal to
+   the four single launches' tallies;
+5ad. the slice's main path: the pipelined benchmark as the JAX package
+   runs it (``pipelined.run``: the four points built with their knobs,
+   stacked, 48 ticks as ONE dispatch of telemetry_run_batch) at 100,000
+   and 1,000,000 peers, counts reset just before and read just after: the
+   rows, the gates, the p99 stretch, the replica heartbeats/s, the peak
+   memory; the delayed knob stack variant once a batched tick (48) and no
+   other receive variant, B3 launched, no library built during the run;
+5ae. every replica of the 100,000-peer batched run against its point run
+   alone (5q): equal digests of every state leaf, equal histograms, B3
+   launched as often a batched tick as for one point; then each stack
+   kernel of 5ab and 5ac through the user's batched runner
+   (gossip_run_batch / telemetry_run_batch) at 4 x 20,000 peers for 10
+   ticks, once a tick and no other receive variant (their launches);
 6. the unscored receive kernel against its plain version at the resident
    configuration's shapes (N = 1,048,576, C = 16, W = 1), on seeded random
    operands and on the operands of a real unscored tick: every output
@@ -671,6 +703,246 @@ def batched_paths(dev, pg, krecv, ksel, flagship) -> dict:
         out[variant] = dict(receive=got[variant], select=ksel.launches,
                             reached=int((reach > 0).sum()))
         del params, state, step
+    return out
+
+
+#: the families of B1's delay-mode and telemetry stack kernels: the score
+#: keywords (None: unscored) and replica_operands' keywords; the delay
+#: mode's attack options track promises on the IHAVE spam alone (it
+#: refuses the IWANT flood), the telemetry tally's run both spams
+STACK_DELAY_FAMILIES = {
+    "scored": ({}, {}),
+    "attacks": (dict(sybil_ihave_spam=True), dict(attack=True)),
+    "unscored": (None, {})}
+STACK_TEL_FAMILIES = {
+    "scored": ({}, {}),
+    "attacks": (dict(sybil_ihave_spam=True, sybil_iwant_spam=True),
+                dict(attack=True)),
+    "unscored": (None, {})}
+#: 5ac's latency-bucket rows and the stack paths' size (5ae)
+STACK_TEL_BUCKETS = 16
+STACK_PATH_PEERS, STACK_PATH_TICKS = 20_000, 10
+#: a ring of odd N at C = 8: a replica's staged rows start off a 16-byte
+#: boundary of the stack
+ODD_PEERS = 100_003
+
+
+def stack_label(fam: str, mode: str, knobs: bool,
+                faults: bool = False) -> str:
+    """A stack kernel's name in the kernels line."""
+    return ("receive_update" + ("" if fam == "scored" else "_" + fam)
+            + ("_faults" if faults else "") + "_" + mode
+            + ("_knobs" if knobs else "") + "_batched")
+
+
+def tel_receive_operands(k, ops, device, seed: int):
+    """``ops`` with the telemetry tally's latency-bucket operands, seeded:
+    the bucket masks [L, W] and the deliver words [W, N]."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    w, n = ops["seen"].shape
+    out = dict(ops)
+    if k.tel_lat_buckets:
+        out["lat_masks"] = torch.randint(
+            0, 1 << 30, (k.tel_lat_buckets, w), generator=g,
+            device=device).to(torch.int32)
+        out["dlv_eff"] = torch.randint(0, 1 << 30, (w, n), generator=g,
+                                       device=device).to(torch.int32)
+    return out
+
+
+def odd_ring_cfg(pg):
+    """A C = 8 ring of ODD_PEERS peers and a degree family that fits."""
+    return pg.GossipSimConfig(
+        offsets=pg.make_gossip_offsets(2, 8, ODD_PEERS - 1, seed=3),
+        n_topics=2, d=3, d_lo=2, d_hi=6, d_score=2, d_out=1, d_lazy=2)
+
+
+def stack_kernel_rows(mode: str, tick_reps: list, cfg, n: int, dev,
+                      label_tick: str) -> dict:
+    """Phases 5ab (``mode`` "delays") and 5ac ("tel"): each stack kernel of
+    the mode's families (the flagship's options, the attack options,
+    unscored; each with and without knobs, the telemetry tally also with
+    and without faults) on the real batched tick ``tick_reps`` (four
+    replicas' operands, adapted to the family: the extra operands each
+    replica's own seeded draws), on seeded random operands at ``n`` and at
+    C = 8 on a ring of ODD_PEERS: one launch for the four replicas,
+    bit-identical to its plain version and to four single launches; timed
+    on the real tick beside the single launches and the plain version."""
+    from go_libp2p_pubsub_tpu_torch.models import gossipsub as pg
+    from go_libp2p_pubsub_tpu_torch.ops.kernels import receive as krecv
+
+    name = torch.cuda.get_device_name(0)
+    families = STACK_DELAY_FAMILIES if mode == "delays" else \
+        STACK_TEL_FAMILIES
+    faults_opts = (False,) if mode == "delays" else (False, True)
+    unscored_names = set(tick_reps[0]) - set(krecv.SCORED_OPERANDS)
+    cfg8 = odd_ring_cfg(pg)
+    out = {}
+    seed = 901
+    for fam, (sc_kw, extra) in families.items():
+        scfg = None if sc_kw is None else pg.ScoreSimConfig(**sc_kw)
+        for faults in faults_opts:
+            for knobs in (False, True):
+                kw = dict(knobs=knobs)
+                if mode == "delays":
+                    kw["delays"] = True
+                else:
+                    kw.update(telemetry=True, faults=faults,
+                              tel_lat_buckets=STACK_TEL_BUCKETS)
+                label = stack_label(fam, mode, knobs, faults)
+                seed += 10
+
+                def seeded(k_, n_, s_):
+                    reps = replica_operands(k_, n_, dev, s_, faults=faults,
+                                            knobs=knobs, **extra)
+                    if mode == "delays":
+                        return [delay_receive_operands(k_, r, dev, s_ + b)
+                                for b, r in enumerate(reps)]
+                    return [tel_receive_operands(k_, r, dev, s_ + b)
+                            for b, r in enumerate(reps)]
+                k = krecv.receive_consts(cfg, scfg, **kw)
+                k8 = krecv.receive_consts(cfg8, scfg, **kw)
+                r_rand = check_batched_receive(
+                    f"{label} (seeded, N={n})", k, seeded(k, n, seed),
+                    krecv, timed=False)
+                r_odd = check_batched_receive(
+                    f"{label} (seeded, C=8, N={ODD_PEERS})", k8,
+                    seeded(k8, ODD_PEERS, seed + 5), krecv, timed=False)
+                adds = seeded(k, n, seed + 3)
+                reps = []
+                for b in range(len(tick_reps)):
+                    ops_t = dict(tick_reps[b])
+                    if scfg is None:
+                        ops_t = {key: v for key, v in ops_t.items()
+                                 if key in unscored_names}
+                    ops_t.pop("knobs", None)
+                    for key in ("knobs", "alive_w", "flood_ok", "syb",
+                                "cheat_arr"):
+                        if key in adds[b]:
+                            ops_t[key] = adds[b][key]
+                    reps.append(ops_t)
+                r = check_batched_receive(f"{label} ({label_tick})", k,
+                                          reps, krecv)
+                r["bound"] = bound(r["bytes"], sum(receive_ops(k, t_)
+                                                   for t_ in reps))
+                r["err"] = max(r_rand["max_abs_err"], r_odd["max_abs_err"],
+                               r["max_abs_err"])
+                r["variant"] = krecv.variant(k)
+                r["library"] = krecv.library(k, stacked=True)
+                out[label] = r
+                print(f"{label} ({r['variant']}, {r['library']}.cu): 4 "
+                      f"replicas identical to plain and to 4 single "
+                      f"launches, seeded at N={n} and at C=8, "
+                      f"N={ODD_PEERS}, and on {label_tick} at N={n}; "
+                      f"device time {r['ms']:.4f} ms against "
+                      f"{r['singles_ms']:.4f} ms for 4 single launches, "
+                      f"plain {r['plain_ms']:.3f} ms, bound "
+                      f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), "
+                      f"{r['bytes'] / (4 * n):.1f} B/peer [{name}]")
+                del reps, adds
+    return out
+
+
+def stack_paths(dev, flagship) -> dict:
+    """Phase 5ae: each delay-mode and telemetry stack kernel through the
+    user's batched runner (``gossip_run_batch`` / ``telemetry_run_batch``)
+    for STACK_PATH_TICKS ticks at 4 x STACK_PATH_PEERS flagship-drawn
+    peers, counts reset just before and read just after: delayed stacks
+    (DelayConfig(4, 2, 8), a delay seed a replica; with knobs a delay and
+    protocol point a replica), telemetry stacks (the latency histogram on;
+    with faults a schedule a replica, with knobs a point a replica; the
+    attack options with knobs on the IHAVE spam alone, since a knob point
+    on an IWANT flood runs on the receive loops).  B1 must run once a
+    tick, its variant only.  Returns each run's launches."""
+    import numpy as np
+
+    from go_libp2p_pubsub_tpu_torch.models import delays as pdl
+    from go_libp2p_pubsub_tpu_torch.models import faults as pfl
+    from go_libp2p_pubsub_tpu_torch.models import gossipsub as pg
+    from go_libp2p_pubsub_tpu_torch.models import telemetry as tl
+    from go_libp2p_pubsub_tpu_torch.ops.kernels import receive as krecv
+    from go_libp2p_pubsub_tpu_torch.ops.kernels import select as ksel
+
+    n_p, ticks = STACK_PATH_PEERS, STACK_PATH_TICKS
+    cfg, subs, topic, origin, tick = flagship.inputs(n_p, horizon=8)
+    common = dict(subs=subs, msg_topic=topic, msg_origin=origin,
+                  msg_publish_tick=tick, track_first_tick=False)
+
+    def sched(r):
+        rng = np.random.default_rng(r)
+        down = np.flatnonzero(rng.random(n_p) < 0.05)
+        return pfl.FaultSchedule(
+            n_peers=n_p, horizon=40, seed=11 + r, drop_prob=0.02,
+            down_intervals=[(int(p), 2, 6) for p in down])
+
+    out = {}
+    for mode, families in (("delays", STACK_DELAY_FAMILIES),
+                           ("tel", STACK_TEL_FAMILIES)):
+        for fam, (sc_kw, _) in families.items():
+            for faults in ((False,) if mode == "delays" else (False, True)):
+                for knobs in (False, True):
+                    kw_sc = dict(sc_kw or {})
+                    if knobs and mode == "tel":
+                        kw_sc.pop("sybil_iwant_spam", None)
+                    sc = None if sc_kw is None else pg.ScoreSimConfig(**kw_sc)
+
+                    def extra(r, fam=fam, faults=faults, knobs=knobs,
+                              mode=mode):
+                        e = {}
+                        if fam == "attacks":
+                            e["sybil"] = (np.random.default_rng(r).random(n_p)
+                                          < 0.2)
+                        if faults:
+                            e["fault_schedule"] = sched(r)
+                        point = {}
+                        if knobs:
+                            point = {"gossip_factor": 0.2 + 0.1 * r,
+                                     "d_lazy": 4 + r}
+                        if mode == "delays":
+                            e["delays"] = pdl.DelayConfig(4, 2, 8,
+                                                          seed=3 + r)
+                            if knobs:
+                                point.update(delay_base=1 + r,
+                                             delay_jitter=r % 3)
+                        if point:
+                            e["sim_knobs"] = point
+                        return e
+                    params, state = pg.stack_sims(
+                        cfg, [dict(seed=r, **extra(r)) for r in range(4)],
+                        score_cfg=sc, device=dev, **common)
+                    tcfg = (tl.TelemetryConfig(
+                        latency_hist=True, latency_buckets=STACK_TEL_BUCKETS)
+                        if mode == "tel" else None)
+                    step = pg.make_gossip_step(cfg, sc, device=dev,
+                                               telemetry=tcfg)
+                    variant = krecv.variant(krecv.receive_consts(
+                        cfg, sc, faults=faults, knobs=knobs,
+                        delays=mode == "delays", telemetry=mode == "tel",
+                        tel_lat_buckets=STACK_TEL_BUCKETS
+                        if mode == "tel" else 0))
+                    torch.cuda.synchronize()
+                    krecv.launches.clear()
+                    ksel.launches = 0
+                    if mode == "tel":
+                        state, frames = tl.telemetry_run_batch(
+                            params, state, ticks, step)
+                        live = int(frames.payload_sent.sum())
+                    else:
+                        state = pg.gossip_run_batch(params, state, ticks,
+                                                    step, device=dev)
+                        live = int(state.pay_line.ne(0).sum())
+                    torch.cuda.synchronize()
+                    got = dict(krecv.launches)
+                    if got != {variant: ticks} or ksel.launches <= 0 \
+                            or live <= 0:
+                        fail(f"stack path {mode} {fam} faults={faults} "
+                             f"knobs={knobs}: launches {got}, select "
+                             f"{ksel.launches}, live {live}")
+                    out[stack_label(fam, mode, knobs, faults)] = dict(
+                        variant=variant, receive=got[variant],
+                        select=ksel.launches, live=live)
+                    del params, state, step
     return out
 
 
@@ -1405,10 +1677,15 @@ def main() -> None:
 
     # -- 2. build the seven kernel sources, concurrently
     t0 = time.perf_counter()
-    logs = _build.build(("select", *krecv.SOURCES, "fused"))
+    build_s = {}
+    logs = _build.build(("select", *krecv.SOURCES, "fused"),
+                        on_done=lambda src: build_s.setdefault(
+                            src, time.perf_counter() - t0))
     for src, log in logs.items():
         for line in ptxas_summary(log):
             print(f"ptxas[{src}]: {line}")
+    for src, sec in sorted(build_s.items(), key=lambda kv: kv[1]):
+        print(f"build seconds [{src}.cu]: {sec:.1f}")
     print(f"build: {time.perf_counter() - t0:.1f} s")
 
     n, C = flagship.N_PEERS, flagship.N_CAND
@@ -2943,7 +3220,7 @@ def main() -> None:
     for n_p in (pipelined.N_PEERS, pipelined.FULL_WIDTH):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r = pipelined.run(dev, n_p)
+        r = pipelined.run_sequential(dev, n_p)
         for pid, row in r["rows"].items():
             print(f"pipelined {n_p} {pid}: delivery fraction "
                   f"{row['delivery_fraction']!r}, latency {row['latency']}, "
@@ -3272,7 +3549,13 @@ def main() -> None:
           f"{bf['peak_memory_gb']:.2f} GB ({alloc0_b} B at the start) "
           f"[{name}, {smi}]; {bf['seconds']:.1f} s")
     ops_b = capture_receive(lambda: step_b(p_b, st_b), krecv)
-    del st_b, step_b
+    # (5ac) the same tick stepped with telemetry (the latency rows on)
+    step_tb = pg.make_gossip_step(
+        flagship.inputs(n)[0], pg.ScoreSimConfig(), device=dev,
+        telemetry=tl.TelemetryConfig(latency_hist=True,
+                                     latency_buckets=STACK_TEL_BUCKETS))
+    ops_tb = capture_receive(lambda: step_tb(p_b, st_b), krecv)
+    del st_b, step_b, step_tb
     t0 = time.perf_counter()
     reps_tick = [krecv._replica_ops(ops_b, b) for b in range(4)]
     cfg_b = pg.GossipSimConfig(offsets=flagship.inputs(n)[0].offsets,
@@ -3347,6 +3630,84 @@ def main() -> None:
           f"{got_t['takeover']} (0.2987): "
           f"{'the same' if got_t == want_t else 'DIFFERENT'}; wall "
           f"{tuned['wall_s']:.1f} s [{name}, {smi}]")
+
+    # -- 5ab. B1's delay mode with a replica axis: each stack kernel on a
+    # real delayed batched tick (the pipelined benchmark's four points
+    # stacked at 1M, stepped to the first tick from 8 on with arrivals and
+    # retractions live) and on seeded operands (C = 16 at 1M, C = 8 at an
+    # odd N)
+    t0 = time.perf_counter()
+    cfg_d, sc_d, p_d, s_d = pipelined.build_stack(dev, n)
+    step_d = pg.make_gossip_step(cfg_d, sc_d, device=dev,
+                                 telemetry=tl.TelemetryConfig(
+                                     **pipelined.TELEMETRY))
+    tick_d, ops_d, launched_d = delayed_tick(p_d, s_d, step_d, krecv, 8, 40,
+                                             False)
+    if launched_d != {pipelined.VARIANT: tick_d + 1}:
+        fail(f"the delayed stack's launches to tick {tick_d}: {launched_d}")
+    del p_d, s_d, step_d
+    reps_d = [krecv._replica_ops(ops_d, b) for b in range(4)]
+    del ops_d
+    delay_b = stack_kernel_rows("delays", reps_d, cfg_d, n, dev,
+                                f"tick {tick_d} of the pipelined stack")
+    del reps_d
+    print(f"5ab: {time.perf_counter() - t0:.1f} s")
+
+    # -- 5ac. B1's telemetry tally with a replica axis: each stack kernel
+    # on a real batched telemetry tick (5z's batched flagship, stepped with
+    # the latency rows on) and on seeded operands, the [B, 8 + L] tally
+    # equal to the single launches' tallies
+    t0 = time.perf_counter()
+    reps_t = [krecv._replica_ops(ops_tb, b) for b in range(4)]
+    del ops_tb
+    tel_b = stack_kernel_rows("tel", reps_t, flagship.inputs(n)[0], n, dev,
+                              "a real batched flagship telemetry tick")
+    del reps_t
+    print(f"5ac: {time.perf_counter() - t0:.1f} s")
+
+    # -- 5ad. the slice's main path: the pipelined benchmark as the JAX
+    # package runs it, its four points stacked and advanced as ONE batched
+    # dispatch (telemetry_run_batch), at 100,000 and 1,000,000 peers, the
+    # counts reset just before and read just after; then (5ae) every
+    # replica of the 100,000-peer run against its point run alone (5q)
+    main_pipe_b = {}
+    for n_p in (pipelined.N_PEERS, pipelined.FULL_WIDTH):
+        torch.cuda.synchronize()
+        alloc0_p = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        r = pipelined.run(dev, n_p)
+        for pid, row in r["rows"].items():
+            print(f"pipelined batched {n_p} {pid}: delivery fraction "
+                  f"{row['delivery_fraction']!r}, latency {row['latency']}, "
+                  f"digest {row['digest']}, histogram {row['hist']}")
+        print(f"pipelined batched {n_p} (one dispatch, 4 x {n_p}): gates "
+              f"{r['gates']}, p99 {r['p99']}, p99_stretch_base4 "
+              f"{r['p99_stretch_base4']!r}, replica heartbeats/s "
+              f"{r['replica_heartbeats_per_s']!r} ({r['wall_s']:.3f} s for "
+              f"{r['ticks']} batched ticks), launches {r['launches']} "
+              f"(select {r['select_launches']}), libraries built during the "
+              f"run {r['libraries_built']}, peak memory {r['peak_bytes']} B "
+              f"({alloc0_p} B at the start) "
+              f"({time.perf_counter() - t0:.1f} s) [{name}, {smi}]")
+        if not r["ok"]:
+            fail(f"pipelined batched at {n_p} peers: "
+                 f"{json.dumps({k_: v for k_, v in r.items() if k_ != 'rows'})}")
+        r["start_bytes"] = alloc0_p
+        main_pipe_b[n_p] = r
+    cross = pipelined.cross_check(main_pipe_b[pipelined.N_PEERS],
+                                  main_pipe[pipelined.N_PEERS])
+    print(f"pipelined cross-check at {pipelined.N_PEERS} peers: every "
+          f"replica's digest and histogram equal to its point run alone "
+          f"{cross['rows']}, B3 launches batched {cross['select_batched']} "
+          f"against one point's {cross['select_one_point']}")
+    if not cross["ok"]:
+        fail(f"pipelined batched != sequential: {cross}")
+    # the stack kernels through the user's batched runners (their launches)
+    t0 = time.perf_counter()
+    s_paths = stack_paths(dev, flagship)
+    print(f"stack paths at 4 x {STACK_PATH_PEERS} peers, "
+          f"{STACK_PATH_TICKS} ticks each: {json.dumps(s_paths)} "
+          f"[{name}, {smi}]; {time.perf_counter() - t0:.1f} s")
 
     # -- 6. the unscored receive kernel vs plain at the resident shapes
     n_r = resident.N_PEERS
@@ -3519,7 +3880,11 @@ def main() -> None:
             f"{pname} {row['heartbeats_per_s']:.2f}"
             for pname, row in main_knobs[kind]["rows"].items())
         for kind in knob_sweep.SWEEPS))
-    print(f"pipelined [{name}, {smi}]: " + "; ".join(
+    print(f"pipelined batched (one dispatch) [{name}, {smi}]: " + "; ".join(
+        f"{n_p} peers replica heartbeats/s "
+        f"{r_['replica_heartbeats_per_s']:.2f}, peak memory "
+        f"{r_['peak_bytes']} B" for n_p, r_ in main_pipe_b.items()))
+    print(f"pipelined sequential [{name}, {smi}]: " + "; ".join(
         f"{n_p} peers replica heartbeats/s "
         f"{r_['replica_heartbeats_per_s']:.2f}, p99 " + ", ".join(
             f"{pid} {p99}" for pid, p99 in r_["p99"].items())
@@ -3715,6 +4080,22 @@ def main() -> None:
             launches=launches_b, max_abs_err=r["err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=None))
+    # the delay-mode and telemetry stack kernels: the main path's (the
+    # delayed knob stack of the flagship's options) the batched pipelined
+    # runs' launches, the others their stack path's (5ab-5ae)
+    main_delay_b = sum(r_["launches"].get(pipelined.VARIANT, 0)
+                       for r_ in main_pipe_b.values())
+    for label, r in {**delay_b, **tel_b}.items():
+        kernels.append(dict(
+            name=label, route="cuda",
+            source=f"go_libp2p_pubsub_tpu_torch/csrc/{r['library']}.cu",
+            replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
+            launches=(main_delay_b if r["variant"] == pipelined.VARIANT
+                      and "_delays" in label
+                      else s_paths[label]["receive"]),
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound"][0], bound_by=r["bound"][1],
+            library_ms=None))
     print(json.dumps({"main_path": {
         "flagship": main_flagship, "adversarial": main_adversarial,
         "everything": main_everything, "everything_paired": main_paired,
@@ -3735,6 +4116,13 @@ def main() -> None:
             for kname, r in fused_tel.items()},
         "knob_sweep": main_knobs,
         "pipelined": {str(n_p): r_ for n_p, r_ in main_pipe.items()},
+        "pipelined_batched": {str(n_p): r_
+                              for n_p, r_ in main_pipe_b.items()},
+        "pipelined_cross_check": cross,
+        "stack_receive": {
+            kname: {key: v for key, v in r.items() if key != "bound"}
+            for kname, r in {**delay_b, **tel_b}.items()},
+        "stack_paths": s_paths,
         "pipelined_identity": ident,
         "pipelined_steady_state": steady,
         "invariants": dict(inv_main, peak_bytes=peak_i, start_bytes=alloc0_i,

@@ -125,9 +125,10 @@ struct Kernels {
             bool BBF, bool FAULTS>
   static int launch(const ReceiveArgs& a, cudaStream_t s) {
     ReceiveKernel k;
-    if (a.reps > 1) {
-      // a replica stack: the flagship and attack options only (the step
-      // refuses the others in a stack)
+    if (a.seeds != nullptr) {
+      // a replica stack (of any size: its lane seeds are per replica): the
+      // flagship and attack options only (the step refuses the others in a
+      // stack)
       if constexpr (FAMILY != 0) {
         return (int)cudaErrorInvalidValue;
       } else if constexpr (ATK && FAULTS) {

@@ -153,7 +153,13 @@
 // the same in every replica (each staged slot's rows are 16-byte multiples
 // of N).  The replica is a template flag (REPS) of the flagship and attack
 // options' kernels, with and without faults and knobs (the families a
-// stack runs): one sim (reps 0 or 1) launches the kernels without it, whose
+// stack runs), in their delay mode (receive_delays_reps.cu: the arrival
+// rows [C * W, N] and the handshake words of the tile's replica) and with
+// the telemetry tally (receive_tel_reps.cu, receive_tel_knobs_reps.cu:
+// the tally [reps, 8 + L], the bucket masks [reps, L, W]; a block's tiles
+// run replica by replica, and its rows are added into a replica's row
+// block at each change of replica, so no replica's counts reach
+// another's): one sim (no seeds) launches the kernels without it, whose
 // offsets fold to 0, so a stack's index arithmetic costs one sim nothing
 // (an offset in every body, one sim's too, ran the flagship's receive 7.8%
 // and the attack options' 31% slower on 1M-peer ticks, H100, 700 W,
@@ -288,8 +294,9 @@ struct ReceiveArgs {
                              // broken-promise adverts arriving
   // the replica axis, last: a stack of reps sims of n peers each, every
   // [R, N] operand a [reps * R, N] array of rows (replica b's row r is row
-  // b * R + r; a [W] or knob operand likewise [reps, W], [reps, K]); 0
-  // or 1 is one sim and reads the seeds above
+  // b * R + r; a [W] or knob operand likewise [reps, W], [reps, K], the
+  // tally [reps, 8 + L], the bucket masks [reps, L, W]); a stack has
+  // seeds, one sim none (reps 0) and reads the seeds above
   int reps;
   const uint32_t* seeds;     // [reps, 2] (gater, targets) lane seeds
   int knob_stride;           // K, the knob vector's length (KNB)
@@ -1245,11 +1252,28 @@ __device__ __forceinline__ void receive_tiles(const ReceiveArgs& a,
   if constexpr (TEL) {
     for (int r = t; r < rows; r += NT) acc_rows[r] = 0;
   }
+  // (TEL && REPS) the replica whose tally the block's rows hold: its tiles
+  // run replica by replica, and at each change of replica the rows are
+  // added into that replica's tally row block and cleared
+  int tel_rb = 0;
   __syncthreads();
   for (long long tile = blockIdx.x, it = 0; tile < ntiles;
        tile += gridDim.x, ++it) {
     const int rb = REPS ? (int)(tile / ntiles_rep) : 0;
     const long long p0 = (tile - rb * ntiles_rep) * T;
+    if constexpr (TEL && REPS) {
+      // (the last tile's rows are final: its loop ended on a barrier, and
+      // the next writes to them come after the barrier below the body)
+      if (rb != tel_rb) {
+        for (int r = t; r < rows; r += NT) {
+          if (acc_rows[r] != 0) {
+            atomicAdd(&a.tel[tel_rb * rows + r], acc_rows[r]);
+          }
+          acc_rows[r] = 0;
+        }
+        tel_rb = rb;
+      }
+    }
     if (warp == 0) {
       stage_tile<L, MASK, C>(a, plan, stage, bar, p0, rb, lane);
     }
@@ -1277,10 +1301,13 @@ __device__ __forceinline__ void receive_tiles(const ReceiveArgs& a,
           for (int i = lane; i < NT; i += 32) v += s_rows[r * NT + i];
         } else {
           const int b = r - TEL_ROWS;
+          // (REPS) the replica's [L, W] bucket masks
+          const uint32_t* lm =
+              a.lat_masks + (REPS ? rb * a.tel_lat_buckets * W : 0);
           for (int i = lane; i < NT; i += 32) {
 #pragma unroll
             for (int w = 0; w < W; ++w) {
-              v += __popc(s_dlv[w * NT + i] & a.lat_masks[b * W + w]);
+              v += __popc(s_dlv[w * NT + i] & lm[b * W + w]);
             }
           }
         }
@@ -1294,8 +1321,11 @@ __device__ __forceinline__ void receive_tiles(const ReceiveArgs& a,
     __syncthreads();
   }
   if constexpr (TEL) {
+    // (REPS) the last replica's rows, into its row block of the [reps,
+    // rows] tally
+    const int tel_base = REPS ? tel_rb * rows : 0;
     for (int r = t; r < rows; r += NT) {
-      if (acc_rows[r] != 0) atomicAdd(&a.tel[r], acc_rows[r]);
+      if (acc_rows[r] != 0) atomicAdd(&a.tel[tel_base + r], acc_rows[r]);
     }
   }
 }

@@ -124,13 +124,15 @@ struct DelayKernels {
 // promises, cheat_arr) in place of the sender streams and the payload,
 // gossip and accept gate words; args->knobs non-null launches the knob
 // variant.  The return value as there; cudaErrorInvalidValue for a paired
-// or faulted launch or a missing delay operand.
+// or faulted launch, a missing delay operand or a replica stack (with
+// seeds: receive_delays_reps.cu's).
 extern "C" int gossip_receive_update_delays(const ReceiveArgs* args, int c,
                                             int w, int scored, int attacks,
                                             int ctr_bf16, int bp_bf16,
                                             void* stream) {
   if (args->n <= 0) return 0;
-  if (args->paired || args->faults || args->arr == nullptr ||
+  if (args->seeds != nullptr || args->paired || args->faults ||
+      args->arr == nullptr ||
       args->graft_arr == nullptr || args->prune_arr == nullptr ||
       args->retract_in == nullptr ||
       (args->track_promises && args->cheat_arr == nullptr)) {

@@ -137,12 +137,16 @@ struct TelKernels {
 
 // gossip_receive_update's arguments (receive.cu) with args->tel, the
 // zeroed tally [8 + L], and with L = args->tel_lat_buckets > 0 the
-// latency-bucket masks and deliver words; the return value as there.
+// latency-bucket masks and deliver words; the return value as there (a
+// replica stack, with seeds, is receive_tel_reps.cu's:
+// cudaErrorInvalidValue).
 extern "C" int gossip_receive_update_tel(const ReceiveArgs* args, int c,
                                          int w, int scored, int attacks,
                                          int ctr_bf16, int bp_bf16,
                                          void* stream) {
-  if (args->n > 0 && args->tel == nullptr) return (int)cudaErrorInvalidValue;
+  if (args->n > 0 && (args->tel == nullptr || args->seeds != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   return launch_receive<TelKernels>(*args, c, w, scored, attacks, ctr_bf16,
                                     bp_bf16, (cudaStream_t)stream);
 }

@@ -115,12 +115,13 @@ struct TelKnobKernels {
 
 // gossip_receive_update_tel's arguments (receive_tel.cu) with the knob
 // vector of gossip_receive_update_knobs (receive_knobs.cu); the return
-// value as there.
+// value as there (a replica stack: receive_tel_knobs_reps.cu's).
 extern "C" int gossip_receive_update_tel_knobs(const ReceiveArgs* args,
                                                int c, int w, int scored,
                                                int attacks, int ctr_bf16,
                                                int bp_bf16, void* stream) {
-  if (args->n > 0 && (args->tel == nullptr || args->knobs == nullptr)) {
+  if (args->n > 0 && (args->tel == nullptr || args->knobs == nullptr ||
+                      args->seeds != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   return launch_receive<TelKnobKernels>(*args, c, w, scored, attacks,

@@ -18,6 +18,10 @@ What the port keeps on the host, per sim, becomes per replica:
   at different ticks raise the named refusal ``batched_ticks`` (the
   reference carries the tick as a ``[B]`` leaf; every batched run of it
   starts its replicas at tick 0 together);
+- a delay-armed stack's ``DelayParams`` leaves (``base``, ``jitter``,
+  ``seed``) stack to [B] like any tensor leaf, and its K-slot lines to
+  ``[B, K, ...]`` (``index_trees`` gives one sim's ``[K, ...]`` lines as
+  views);
 - every other host field (``gates_fp``, the static score weights, the
   fault schedule's flags and partition windows, the delay line depth) is
   static config: replicas that differ there raise a ``ValueError``

@@ -26,6 +26,13 @@ an integer number of ticks:
 receiver's acquisition at ``t``, so ``DelayConfig(1, 0, 1)`` steps
 bit-identically to the step without delays.
 
+A replica stack (``models/_batch.py``) stacks ``base``, ``jitter`` and
+``seed`` to ``[B]`` tensors (``k_slots`` stays one host int: stacks that
+differ in it raise a ``ValueError`` naming ``delays.k_slots``); the draws
+are then ``[B, C, N]``, each replica's at its own seed and knobs, and a
+line ``[B, K, ...]`` has its slot axis second (``enqueue_dequeue``'s
+``axis``).
+
 Nothing here reads a tensor on the host: ``base``, ``jitter`` and the seed
 stay on the device, and the tick is the step's host int.  The source-history
 rings of floodsub and randomsub (``arrive_now``'s replayed draws) are not
@@ -119,12 +126,12 @@ class DelayConfig:
 @dataclass(frozen=True)
 class DelayParams:
     """The compiled form: ``base``, ``jitter`` and ``seed`` (the u32 salt
-    held as int32) are 0-d int32 tensors on the sim's device; ``k_slots``
-    is a host int."""
+    held as int32) are 0-d int32 tensors on the sim's device (a replica
+    stack's ``[B]``); ``k_slots`` is a host int."""
 
-    base: torch.Tensor      # int32 []
-    jitter: torch.Tensor    # int32 []
-    seed: torch.Tensor      # int32 [] (u32 bits)
+    base: torch.Tensor      # int32 [] ([B])
+    jitter: torch.Tensor    # int32 [] ([B])
+    seed: torch.Tensor      # int32 [] ([B]) (u32 bits)
     k_slots: int = 1
 
 
@@ -137,9 +144,16 @@ def compile_delays(dcfg: DelayConfig, device) -> DelayParams:
                        seed=i32(dcfg.seed), k_slots=int(dcfg.k_slots))
 
 
+def _per_replica(v: torch.Tensor, nd: int) -> torch.Tensor:
+    """A delay leaf against an ``nd``-axis draw: a 0-d tensor as it is, a
+    replica stack's [B] with ``nd`` unit axes after it."""
+    return v.view(-1, *([1] * nd)) if v.dim() == 1 else v
+
+
 def _lane_seed(tick: int, seed: torch.Tensor) -> torch.Tensor:
     """``lane_seed(tick, DELAY_PHASE, seed)`` with the salt a device
-    tensor: a 0-d int32 tensor of the mixed u32 seed."""
+    tensor: an int32 tensor of the mixed u32 seed (0-d, or a stack's
+    [B])."""
     salt = seed.to(torch.int64) & graph.MASK32
     x = (((tick * 0x9E3779B9) & graph.MASK32)
          ^ ((salt + DELAY_PHASE * 0x85EBCA6B) & graph.MASK32))
@@ -150,7 +164,8 @@ def _uniform(shape: tuple[int, int], seed: torch.Tensor,
              stride: int | None) -> torch.Tensor:
     """``graph.lane_uniform_from_seed`` with a device seed, its lanes
     ``r * stride + c`` in int32 where no lane passes 2^31 (the u32 lanes'
-    bits, without the int64 passes), else as it draws them."""
+    bits, without the int64 passes), else as it draws them; a stack's [B]
+    seeds give [B, rows, cols], each replica drawn at its own."""
     rows, cols = shape
     stride = cols if stride is None else stride
     if (rows - 1) * stride + cols > graph.MASK32 >> 1:
@@ -158,7 +173,7 @@ def _uniform(shape: tuple[int, int], seed: torch.Tensor,
     dev = seed.device
     lane = (torch.arange(rows, dtype=torch.int32, device=dev)[:, None] * stride
             + torch.arange(cols, dtype=torch.int32, device=dev))
-    h = graph.fmix32(lane ^ seed)
+    h = graph.fmix32(lane ^ _per_replica(seed, 2))
     return graph.shr(h, 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
@@ -168,11 +183,13 @@ def edge_delays(dp: DelayParams, shape: tuple[int, int], tick: int,
     directed edge-lane for transfers sent at ``tick``.  Row = the
     receiver's candidate bit for the sender, drawn at the receiver's lane
     (``stride``: the lane stream's row stride).  Stateless: a past tick's
-    draws can be made again."""
+    draws can be made again.  A replica stack's params give ``[B,
+    *shape]``, each replica at its own seed, base and jitter."""
     u = _uniform(shape, _lane_seed(tick, dp.seed), stride)
+    jitter = _per_replica(dp.jitter, 2)
     extra = torch.minimum(
-        (u * (dp.jitter + 1).to(torch.float32)).to(torch.int32), dp.jitter)
-    return (dp.base + extra).clamp(1, dp.k_slots)
+        (u * (jitter + 1).to(torch.float32)).to(torch.int32), jitter)
+    return (_per_replica(dp.base, 2) + extra).clamp(1, dp.k_slots)
 
 
 def arrive_now(dp: DelayParams, shape, send_tick: int, lag: int,
@@ -192,12 +209,13 @@ def slot_select_words(d_edge: torch.Tensor, tick: int,
 
 
 def pack_edges(bools: torch.Tensor) -> torch.Tensor:
-    """bool [C, N] -> int32 [N] words, row c -> bit c (``graph.pack_rows``'
-    bits, summed in int32: the bits are disjoint, so no sum carries)."""
-    c = bools.shape[0]
+    """bool [..., C, N] -> int32 [..., N] words, row c -> bit c
+    (``graph.pack_rows``' bits, summed in int32: the bits are disjoint, so
+    no sum carries)."""
+    c = bools.shape[-2]
     bit = torch.ones((c, 1), dtype=torch.int32, device=bools.device) << (
         torch.arange(c, dtype=torch.int32, device=bools.device)[:, None])
-    return torch.where(bools, bit, 0).sum(0, dtype=torch.int32)
+    return torch.where(bools, bit, 0).sum(-2, dtype=torch.int32)
 
 
 def line_dequeue(line: torch.Tensor, tick: int):
@@ -210,29 +228,31 @@ def line_dequeue(line: torch.Tensor, tick: int):
 
 
 def slot_words(slot: torch.Tensor, k_slots: int) -> torch.Tensor:
-    """int32 [K, N]: ``slot_select_words`` from the edges' slots
-    (int32 [C, N]) in one scatter: the bits are disjoint, so their sum is
-    their union."""
-    c, n = slot.shape
+    """int32 [..., K, N]: ``slot_select_words`` from the edges' slots
+    (int32 [..., C, N]) in one scatter: the bits are disjoint, so their sum
+    is their union."""
+    *lead, c, n = slot.shape
     bit = torch.ones((c, 1), dtype=torch.int32, device=slot.device) << (
         torch.arange(c, dtype=torch.int32, device=slot.device)[:, None])
-    return torch.zeros((k_slots, n), dtype=torch.int32,
+    return torch.zeros((*lead, k_slots, n), dtype=torch.int32,
                        device=slot.device).scatter_add_(
-        0, slot.to(torch.int64), bit.expand(c, n))
+        -2, slot.to(torch.int64), bit.expand(slot.shape))
 
 
-def enqueue_dequeue(line: torch.Tensor, fill, tick: int):
-    """One tick of a [K, ...] line: ``fill(out)`` writes this tick's
+def enqueue_dequeue(line: torch.Tensor, fill, tick: int, axis: int = 0):
+    """One tick of a line whose slot axis is ``axis`` ([K, ...]; a replica
+    stack's [B, K, ...] at axis 1): ``fill(out)`` writes this tick's
     words for every slot into ``out`` (shaped as the line: the rolled words
     at the receivers, each selected for the slot it lands in), they are
     enqueued, then slot ``tick mod K`` is dequeued: ``(arrivals, next
-    line)``, equal to ``line_dequeue(line | words, tick)``.  The next line
-    is written in place of the words (the input line is read, never
-    written), so the step allocates no [K, ...] temporary beside it."""
-    cur = tick % line.shape[0]
+    line)``, equal to ``line_dequeue(line | words, tick)`` on one sim's
+    line.  The next line is written in place of the words (the input line
+    is read, never written), so the step allocates no [K, ...] temporary
+    beside it."""
+    cur = tick % line.shape[axis]
     out = torch.empty_like(line)
     fill(out)
     out |= line
-    arr = out[cur].clone()
-    out[cur].zero_()
+    arr = out.select(axis, cur).clone()
+    out.select(axis, cur).zero_()
     return arr, out

@@ -347,14 +347,15 @@ def tick_masks(fp: FaultParams, offsets, cinv, tick: int) -> TickMasks:
 
 def fault_counts(fp: FaultParams, masks: TickMasks, n_candidates: int):
     """The telemetry ``faults`` group of one tick's masks, int32 0-d
-    tensors ``(down_peers, dropped_edge_ticks)``.  Undirected drops show
-    on both views of an edge, so their count is halved to undirected
-    edge-ticks; directed drops count each down direction (a partition cut
-    counts 2); without link faults nothing drops."""
-    down = (~masks.alive).sum(dtype=torch.int32)
+    tensors ``(down_peers, dropped_edge_ticks)`` (a replica stack's [B]
+    each).  Undirected drops show on both views of an edge, so their count
+    is halved to undirected edge-ticks; directed drops count each down
+    direction (a partition cut counts 2); without link faults nothing
+    drops."""
+    down = (~masks.alive).sum(-1, dtype=torch.int32)
     if masks.link is None:
-        return down, torch.zeros((), dtype=torch.int32, device=down.device)
+        return down, torch.zeros_like(down)
     cut = popcount32(~masks.link & ((1 << n_candidates) - 1)).sum(
-        dtype=torch.int32)
+        -1, dtype=torch.int32)
     return down, torch.div(cut, 1 if fp.directed_drops else 2,
                            rounding_mode="floor")

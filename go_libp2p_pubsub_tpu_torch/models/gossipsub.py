@@ -1183,21 +1183,31 @@ def delay_exchange(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
     ``prune_arr``, ``retract`` and (some peer withholds) ``cheat_arr``,
     the next lines, and with ``counters`` ``tel_send`` (payload, IHAVE ids
     and RPCs) and the dequeued observer words ``arr_gsp``, ``arr_adv``.
+    A replica stack (every operand and line with a leading [B], the draws
+    at each replica's seed and knobs) gives each of these with a leading
+    [B], the tallies per replica.
     The draw, the payload lines and the control line run inside
     ``record_function`` ranges ``delays.draw``, ``delays.payload`` and
     ``delays.control`` (a profile's ``ranges``)."""
     dl = params.delays
     K, C = dl.k_slots, cfg.n_candidates
-    n = state.have.shape[1]
+    n = state.have.shape[-1]
+    # (a replica stack: the replica axis leads every word, and a line's
+    # slot axis is its second)
+    lead = state.have.dim() - 2
     rf = torch.profiler.record_function
     with rf("delays.draw"):
         d_edge = _delays.edge_delays(dl, (C, n), tick, stride=n)
-        slot = (tick + d_edge - 1) % K                       # [C, N]
-        slot_sel = _delays.slot_words(slot, K)               # [K, N]
-        in_slot = (slot[None] == torch.arange(
+        slot = (tick + d_edge - 1) % K                       # [.., C, N]
+        slot_sel = _delays.slot_words(slot, K)               # [.., K, N]
+        in_slot = (slot.unsqueeze(-3) == torch.arange(
             K, dtype=torch.int32, device=slot.device)[:, None, None])
     cheat_raw = (torch.where(withhold, targets, 0)
                  if withhold is not None else None)
+
+    def total(x):
+        """A tally over every axis but the replica's."""
+        return x.reshape(*x.shape[:lead], -1).sum(-1, dtype=torch.int64)
 
     # -- the payload and gossip sends, gated at the send tick, rolled to
     # their receivers and through the payload line
@@ -1216,27 +1226,28 @@ def delay_exchange(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
             send_gsp = send_gsp & graph.shr(gate_recv, 16)
             if flood_bits is not None:
                 send_flood = flood_bits & gate_recv
-        rows = lambda bits: expand_bits(bits, C)[:, None, :]     # noqa: E731
-        pay = torch.where(rows(send_fwd), fresh[None], 0)        # [C, W, N]
+        rows = lambda bits: expand_bits(bits, C).unsqueeze(-2)  # noqa: E731
+        pay = torch.where(rows(send_fwd), fresh.unsqueeze(-3), 0)  # [C, W, N]
         if send_flood is not None:
-            pay = pay | torch.where(rows(send_flood), injected[None], 0)
-        gsp_words = torch.where(rows(send_gsp), adv[None], 0)
+            pay = pay | torch.where(rows(send_flood), injected.unsqueeze(-3),
+                                    0)
+        gsp_words = torch.where(rows(send_gsp), adv.unsqueeze(-3), 0)
 
         zero = torch.zeros((), dtype=torch.int32, device=pay.device)
 
         def rolled(words):
             """Sender edge c's words at their receivers, in row cinv[c]
             (the receiver's bit for the sender): row j at p holds row
-            cinv[j] of peer p + o_j."""
-            src = words.index_select(0, geo.cinv[:, 0])
-            return torch.gather(src, 2, geo.index[:, None, :].expand(
-                -1, words.shape[1], -1))
+            cinv[j] of peer p + o_j (a stack: within each replica)."""
+            src = words.index_select(-3, geo.cinv[:, 0])
+            return torch.gather(src, -1,
+                                geo.index[:, None, :].expand(src.shape))
 
         def enqueue(line, words):
             """(arrivals, next line): ``words`` at each edge's slot."""
             return _delays.enqueue_dequeue(line, lambda out: torch.where(
-                in_slot[:, :, None, :], rolled(words)[None], zero,
-                out=out), tick)
+                in_slot.unsqueeze(-2), rolled(words).unsqueeze(-4), zero,
+                out=out), tick, axis=lead)
 
         arr_pay, pay_line = enqueue(state.pay_line, pay | gsp_words)
         out = dict(arr_pay=arr_pay, pay_line=pay_line)
@@ -1244,13 +1255,13 @@ def delay_exchange(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
             # send-side tallies at the send tick from the pre-roll words (a
             # popcount does not see the roll); adverts counted from the
             # targets before withholding, as the reference counts them
-            adv_any = (adv != 0).any(0)
-            adv_words = torch.where(rows(targets), adv[None], 0)
+            adv_any = (adv != 0).any(-2)
+            adv_words = torch.where(rows(targets), adv.unsqueeze(-3), 0)
             out["tel_send"] = dict(
-                payload=popcount32(pay).sum(dtype=torch.int64),
-                ihave_ids=popcount32(adv_words).sum(dtype=torch.int64),
-                ihave_rpcs=torch.where(adv_any, popcount32(targets), 0).sum(
-                    dtype=torch.int64))
+                payload=total(popcount32(pay)),
+                ihave_ids=total(popcount32(adv_words)),
+                ihave_rpcs=total(torch.where(adv_any, popcount32(targets),
+                                             0)))
             out["arr_gsp"], out["gsp_line"] = enqueue(state.gsp_line,
                                                       gsp_words)
             out["arr_adv"], out["adv_line"] = enqueue(state.adv_line,
@@ -1268,7 +1279,7 @@ def delay_exchange(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
         hs_fly = transfer_bits(grafts_tx | (dropped_tx << 16), cfg,
                                pair=True, geo=geo)
         ctrl = [hs_fly & 0xFFFF, graph.shr(hs_fly, 16), zrow]
-        R = state.ctrl_line.shape[1]
+        R = state.ctrl_line.shape[-2]
         if R == 4:
             # broken-promise adverts, gossip-gated at the send tick like real
             # gossip, indexed at the receiver
@@ -1278,10 +1289,13 @@ def delay_exchange(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
             ctrl.append(cheat_fly)
         arr_ctrl, ctrl_line = _delays.enqueue_dequeue(
             state.ctrl_line, lambda out: torch.bitwise_and(
-                torch.stack(ctrl)[None], slot_sel[:, None, :], out=out),
-            tick)
-        graft_raw, prune_arr, retr_arr = arr_ctrl[0], arr_ctrl[1], arr_ctrl[2]
-        cheat_arr = arr_ctrl[3] if R == 4 else None
+                torch.stack(ctrl, -2).unsqueeze(-3), slot_sel.unsqueeze(-2),
+                out=out),
+            tick, axis=lead)
+        # (a stack's rows are strided views: the kernel reads them whole)
+        graft_raw, prune_arr, retr_arr = (arr_ctrl[..., r, :].contiguous()
+                                          for r in range(3))
+        cheat_arr = arr_ctrl[..., 3, :].contiguous() if R == 4 else None
         if fm is not None:
             # a down peer processes no inbound control
             graft_raw = graft_raw & fm.alive_all
@@ -1307,7 +1321,7 @@ def delay_exchange(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
         d1_bits = _delays.pack_edges(d_edge == 1)
         retract = retr_fly & d1_bits
         retr_later = retr_fly & ~d1_bits
-        ctrl_line[:, 2] |= retr_later[None] & slot_sel
+        ctrl_line[..., 2, :] |= retr_later.unsqueeze(-2) & slot_sel
         if fm is not None:
             # a failed local send is known at once; a dead grafter processes
             # no inbound retraction
@@ -1612,6 +1626,13 @@ def make_gossip_step(cfg: GossipSimConfig,
     IWANT flood (``plan.MSG_KERNEL_DELAY_IWANT_SPAM``).  No host sync is
     added.
 
+    A replica stack (``stack_sims`` / ``stack_trees``) steps as one sim
+    does, delay-armed or with telemetry too: the delay lines are ``[B, K,
+    ...]`` and the draws per replica (``delay_exchange``), B1 runs its
+    stack kernel once (``+delays``, ``+tel``), and every frame field is a
+    ``[B]`` tensor, each replica's own reduction (``telemetry_run_batch``
+    stacks them ``[T, B]``).
+
     Invariants (``invariants``, a ``models/invariants.py``
     InvariantConfig): after the new state is built, ``apply_invariants``
     checks it against the start-of-tick possession (before a cold-restart
@@ -1764,7 +1785,7 @@ def make_gossip_step(cfg: GossipSimConfig,
         if _batch.is_stacked(state):
             # a replica stack: one step for all (B1 once, B3 as often as
             # for one replica)
-            plan.check_batched(cfg, sc, params, state, telemetry=tel)
+            plan.check_batched(cfg, sc, params, state)
         # the degree family and fanout TTL: ints, or the armed knobs'
         # 0-d tensors (gossip_retransmission's one consumer, the IWANT
         # flood's serve budget, is in the receive loops: a knob point on
@@ -1997,8 +2018,8 @@ def make_gossip_step(cfg: GossipSimConfig,
                 geo=edge_geometry(n))
             arr = dex["arr_pay"]
             if fm is not None:
-                arr = arr & fm.alive_w
-            ops.update(arr=arr.reshape(C * arr.shape[1], n),
+                arr = arr & fm.alive_w[..., None, None, :]
+            ops.update(arr=arr.reshape(*arr.shape[:-3], C * arr.shape[-2], n),
                        graft_arr=dex["graft_arr"],
                        prune_arr=dex["prune_arr"], retract=dex["retract"])
             if dex["cheat_arr"] is not None:
@@ -2055,10 +2076,10 @@ def make_gossip_step(cfg: GossipSimConfig,
                 # the tick's bucket masks and the deliver words the
                 # bucket rows count against
                 ops["lat_masks"] = _telemetry.latency_bucket_masks(
-                    params.publish_tick, tick, lat_b, state.have.shape[0])
+                    params.publish_tick, tick, lat_b, state.have.shape[-2])
                 dlv_eff = params.deliver_words
                 if sc is not None:
-                    dlv_eff = dlv_eff & ~params.invalid_words[:, None]
+                    dlv_eff = dlv_eff & ~params.invalid_words[..., None]
                 ops["dlv_eff"] = dlv_eff
         kk = kernel_consts(**variant)
         if kk.flood_publish and dl is None:
@@ -2132,6 +2153,8 @@ def make_gossip_step(cfg: GossipSimConfig,
                                                  "gsp_line", "adv_line")}))
         if tel is None:
             return new_state, delivered_now
+        # (a replica stack: every field of the frame a [B] tensor, each
+        # replica's own reduction)
         kw = {}
         if tel.counters:
             def sent(word):
@@ -2142,9 +2165,9 @@ def make_gossip_step(cfg: GossipSimConfig,
 
             slots = (sel,) if sel_b is None else (sel, sel_b)
             graft_cnt = sum(popcount32(sent(s_["grafts"])).sum(
-                dtype=torch.int32) for s_ in slots)
+                -1, dtype=torch.int32) for s_ in slots)
             prune_cnt = sum(popcount32(sent(s_["dropped"])).sum(
-                dtype=torch.int32) for s_ in slots)
+                -1, dtype=torch.int32) for s_ in slots)
             sums = (tel_row if dex is None else delayed_tally(
                 dex, seen, sub_all, None if fm is None else fm.alive_w))
             kw.update(counter_fields(sums, graft_cnt, prune_cnt, ws
@@ -2166,18 +2189,20 @@ def make_gossip_step(cfg: GossipSimConfig,
                                                      sc.gossip_threshold)))
             if tel.score_hist:
                 kw["score_hist"] = _telemetry.score_histogram(
-                    score_t, mask_t, tel.score_bucket_edges)
+                    score_t, mask_t, tel.score_bucket_edges,
+                    batch_dims=sub.dim() - 1)
         if lat_b and dex is not None:
             # delays: from the tick's deliveries (the delayed kernel keeps
             # no tally)
             kw["latency_hist"] = _telemetry.latency_histogram(
                 delivered_now, params.publish_tick, tick, lat_b)
         elif lat_b:
-            kw["latency_hist"] = tel_row[len(krecv.TEL_ROWS):]
+            kw["latency_hist"] = tel_row[..., len(krecv.TEL_ROWS):]
         if tel.faults and fm is not None:
             kw["down_peers"], kw["dropped_edge_ticks"] = \
                 _faults.fault_counts(fp, fm, C)
-        return new_state, delivered_now, _telemetry.make_frame(dev, **kw)
+        return new_state, delivered_now, _telemetry.make_frame(
+            dev, shape=sub.shape[:-1], **kw)
 
     return step
 
@@ -2190,40 +2215,48 @@ def delayed_tally(dex: dict, seen: torch.Tensor, sub_all: torch.Tensor,
     dequeued payload, gossip-class and advert words (a down receiver's
     masked by ``alive_w``): copies received, gossip-pulled ids it lacked,
     advertised ids it lacked and the (edge, receiver) pairs with one, and
-    the subscribers' new ids."""
+    the subscribers' new ids.  int32 [8]; a replica stack's [B, 8], each
+    replica's own sums."""
     got, g_gsp, g_adv = dex["arr_pay"], dex["arr_gsp"], dex["arr_adv"]
     if alive_w is not None:
-        got, g_gsp, g_adv = (x & alive_w for x in (got, g_gsp, g_adv))
-    lack = ~seen[None]                                       # [1, W, N]
-    req = popcount32(g_adv & lack).sum(1, dtype=torch.int32)  # [C, N]
-    heard = (got & lack)[0]
-    for j in range(1, got.shape[0]):
-        heard = heard | (got[j] & lack[0])
+        a_w = alive_w[..., None, None, :]
+        got, g_gsp, g_adv = (x & a_w for x in (got, g_gsp, g_adv))
+    lead = seen.dim() - 2
+    lack = ~seen.unsqueeze(-3)                               # [1, W, N]
+    req = popcount32(g_adv & lack).sum(-2, dtype=torch.int32)  # [C, N]
+    heard = (got & lack).select(-3, 0)
+    for j in range(1, got.shape[-3]):
+        heard = heard | (got.select(-3, j) & lack.select(-3, 0))
+
+    def total(x):
+        return x.reshape(*x.shape[:lead], -1).sum(-1, dtype=torch.int64)
+
     ts = dex["tel_send"]
-    i64 = torch.int64
-    rows = [ts["payload"], ts["ihave_ids"],
-            popcount32(g_gsp & lack).sum(dtype=i64),
-            popcount32(got).sum(dtype=i64), req.sum(dtype=i64),
-            ts["ihave_rpcs"], (req > 0).sum(dtype=i64),
-            popcount32(torch.where(sub_all != 0, heard, 0)).sum(dtype=i64)]
-    return torch.stack(rows).to(torch.int32)
+    rows = [ts["payload"], ts["ihave_ids"], total(popcount32(g_gsp & lack)),
+            total(popcount32(got)), total(req), ts["ihave_rpcs"],
+            total(req > 0),
+            total(popcount32(torch.where(sub_all[..., None, :] != 0, heard,
+                                         0)))]
+    return torch.stack(rows, -1).to(torch.int32)
 
 
 def counter_fields(sums: torch.Tensor, graft_cnt, prune_cnt,
                    ws: _telemetry.WireSizes | None) -> dict:
     """The counters group of a frame from one tick's tally rows (int32
-    [8 + ...], ``krecv.TEL_ROWS`` order) and its GRAFT and PRUNE counts;
+    [8 + ...], ``krecv.TEL_ROWS`` order; a replica stack's [B, 8 + ...])
+    and its GRAFT and PRUNE counts;
     with ``ws`` the wire bytes, f32 products of the exact counts added in
     the reference's order."""
     out = dict(
-        payload_sent=sums[krecv.TEL_PAYLOAD],
-        ihave_rpcs=sums[krecv.TEL_IHAVE_RPCS],
-        ihave_ids=sums[krecv.TEL_IHAVE_IDS],
-        iwant_rpcs=sums[krecv.TEL_IWANT_RPCS],
-        iwant_ids_requested=sums[krecv.TEL_IWANT_REQ],
-        iwant_ids_served=sums[krecv.TEL_IWANT_SERVED],
+        payload_sent=sums[..., krecv.TEL_PAYLOAD],
+        ihave_rpcs=sums[..., krecv.TEL_IHAVE_RPCS],
+        ihave_ids=sums[..., krecv.TEL_IHAVE_IDS],
+        iwant_rpcs=sums[..., krecv.TEL_IWANT_RPCS],
+        iwant_ids_requested=sums[..., krecv.TEL_IWANT_REQ],
+        iwant_ids_served=sums[..., krecv.TEL_IWANT_SERVED],
         graft_sends=graft_cnt, prune_sends=prune_cnt,
-        dup_suppressed=sums[krecv.TEL_RECV] - sums[krecv.TEL_NEW_IDS])
+        dup_suppressed=sums[..., krecv.TEL_RECV]
+        - sums[..., krecv.TEL_NEW_IDS])
     if ws is not None:
         def f32(x):
             return x.to(torch.float32)

@@ -105,11 +105,6 @@ REFUSALS: dict[str, str] = {
     "batched_ticks": "a replica stack moves in lockstep on one host tick: "
                      "stacked states must share their tick (the "
                      "reference carries a tick per replica)",
-    "batched_delays": "replica batching of delay-armed sims (the K-slot "
-                      "delay lines) is not ported yet",
-    "batched_telemetry": "telemetry frames of a replica stack "
-                         "(telemetry_run_batch, the pipelined benchmark "
-                         "as one batched run) are not ported yet",
     "batched_paired": "paired-topic sims are not batched yet",
     "batched_fused": "the fused window takes one sim: a replica stack "
                      "steps per tick (the reference has no batched fused "
@@ -172,15 +167,12 @@ def receive_path(cfg, sc, params, *, force_split: bool = False) -> str:
     return SPLIT
 
 
-def check_batched(cfg, sc, params, state, *, telemetry) -> None:
+def check_batched(cfg, sc, params, state) -> None:
     """Refuse what a replica stack does not run yet, by name (a stacked
-    sim's route is the single sim's: ``receive_path``)."""
+    sim's route is the single sim's: ``receive_path``; delays and
+    telemetry run in a stack)."""
     if cfg.paired_topics:
         refuse("batched_paired")
-    if telemetry is not None:
-        refuse("batched_telemetry")
-    if params.delays is not None:
-        refuse("batched_delays")
     if (not cfg.binomial_gossip_sampling or params.cand_direct is not None
             or params.cand_same_ip is not None or state.active is not None
             or (sc is not None and sc.flood_publish)):

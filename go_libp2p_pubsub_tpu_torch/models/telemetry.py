@@ -194,9 +194,11 @@ class TelemetryFrame:
     score_hist: torch.Tensor | None = None     # int32 [n_edges + 1]
 
 
-def make_frame(device, **kw) -> TelemetryFrame:
+def make_frame(device, shape=(), **kw) -> TelemetryFrame:
     """A frame with the given fields set and the rest zero, each cast to
-    its field's dtype on ``device``; histogram fields default to None."""
+    its field's dtype on ``device``; histogram fields default to None.
+    ``shape``: a scalar field's (a replica stack's ``(B,)``: each field a
+    [B] tensor, the zeros too)."""
     vals = {}
     for name, dt, zero in ([(f, torch.int32, 0) for f in I32_FIELDS]
                            + [(f, torch.float32, 0.0) for f in F32_FIELDS]):
@@ -204,7 +206,8 @@ def make_frame(device, **kw) -> TelemetryFrame:
         # a fill on the device, never a copy from the host (which would
         # sync the stream every tick)
         vals[name] = (v.to(dt) if isinstance(v, torch.Tensor)
-                      else torch.full((), v, dtype=dt, device=device))
+                      else torch.full(tuple(shape), v, dtype=dt,
+                                      device=device))
     for name in HIST_FIELDS:
         vals[name] = kw.pop(name, None)
     if kw:
@@ -233,14 +236,15 @@ def concat_frames(frames) -> TelemetryFrame:
 
 def degree_stats(deg: torch.Tensor, subscribed: torch.Tensor):
     """(min i32, mean f32, max i32) of ``deg`` over subscribed peers, all
-    zero when nobody subscribes (no host sync)."""
+    zero when nobody subscribes (no host sync); a replica stack's [B, N]
+    gives [B] each."""
     sub = subscribed
-    n_sub = sub.sum(dtype=torch.int32).clamp(min=1)
-    any_sub = sub.any()
+    n_sub = sub.sum(-1, dtype=torch.int32).clamp(min=1)
+    any_sub = sub.any(-1)
     big = torch.iinfo(torch.int32).max
-    mn = torch.where(sub, deg, big).min()
-    mx = torch.where(sub, deg, -1).max()
-    mean = torch.where(sub, deg, 0).sum(dtype=torch.float32) / n_sub
+    mn = torch.where(sub, deg, big).amin(-1)
+    mx = torch.where(sub, deg, -1).amax(-1)
+    mean = torch.where(sub, deg, 0).sum(-1, dtype=torch.float32) / n_sub
     return (torch.where(any_sub, mn, 0).to(torch.int32),
             torch.where(any_sub, mean, 0.0),
             torch.where(any_sub, mx, 0).to(torch.int32))
@@ -254,14 +258,17 @@ def score_stats(score: torch.Tensor, mask: torch.Tensor,
                 gossip_threshold: float):
     """(mean, min, fraction below 0, fraction below the gossip
     threshold) of the [C, N] per-edge score over edges where ``mask``
-    holds, all zero without a live edge."""
-    n_live = mask.sum(dtype=torch.int32).clamp(min=1)
-    any_live = mask.any()
-    mean = torch.where(mask, score, 0.0).sum(dtype=torch.float32) / n_live
-    mn = torch.where(mask, score, torch.inf).min()
-    frac_neg = (mask & (score < 0.0)).sum(dtype=torch.float32) / n_live
+    holds, all zero without a live edge; a replica stack's [B, C, N]
+    gives [B] each."""
+    dims = (-2, -1)
+    n_live = mask.sum(dims, dtype=torch.int32).clamp(min=1)
+    any_live = mask.any(-1).any(-1)
+    mean = torch.where(mask, score, 0.0).sum(dims, dtype=torch.float32) \
+        / n_live
+    mn = torch.where(mask, score, torch.inf).amin(dims)
+    frac_neg = (mask & (score < 0.0)).sum(dims, dtype=torch.float32) / n_live
     frac_gsp = (mask & (score < _f32(gossip_threshold))).sum(
-        dtype=torch.float32) / n_live
+        dims, dtype=torch.float32) / n_live
     return tuple(torch.where(any_live, x, 0.0)
                  for x in (mean, mn, frac_neg, frac_gsp))
 
@@ -271,14 +278,15 @@ def latency_histogram(delivered_now: torch.Tensor,
                       n_buckets: int) -> torch.Tensor:
     """i32 [n_buckets]: this tick's deliveries by latency in ticks since
     publish (bucket b = latency b, the last absorbing the rest); sums to
-    the tick's delivered count."""
-    m = publish_tick.shape[0]
-    per_msg = count_bits_per_position(delivered_now, m)
+    the tick's delivered count.  A replica stack's words [B, W, N] and
+    publish ticks [B, M] give [B, n_buckets]."""
+    m = publish_tick.shape[-1]
+    per_msg = count_bits_per_position(delivered_now, m)       # [.., M]
     lat = (tick - publish_tick).clamp(0, n_buckets - 1)
-    onehot = lat[None, :] == torch.arange(
+    onehot = lat.unsqueeze(-2) == torch.arange(
         n_buckets, dtype=lat.dtype, device=lat.device)[:, None]
-    return torch.where(onehot, per_msg[None, :], 0).sum(
-        1, dtype=torch.int32)
+    return torch.where(onehot, per_msg.unsqueeze(-2), 0).sum(
+        -1, dtype=torch.int32)
 
 
 def latency_bucket_masks(publish_tick: torch.Tensor, tick,
@@ -287,7 +295,8 @@ def latency_bucket_masks(publish_tick: torch.Tensor, tick,
     latency this tick lands in bucket b (``latency_histogram``'s
     bucketing) — the receive and fused kernels' bucket operand, made on
     the device from the host ``tick`` (an int, or an int32 [T, 1] tensor
-    of ticks for a stack of masks)."""
+    of ticks for a stack of masks); a replica stack's publish ticks [B, M]
+    give [B, n_buckets, w_words]."""
     lat = (tick - publish_tick).clamp(0, n_buckets - 1)       # [..., M]
     sel = lat[..., None, :] == torch.arange(
         n_buckets, dtype=lat.dtype, device=lat.device)[:, None]
@@ -301,27 +310,33 @@ def latency_bucket_masks(publish_tick: torch.Tensor, tick,
 def degree_histogram(deg: torch.Tensor, subscribed: torch.Tensor,
                      n_buckets: int) -> torch.Tensor:
     """i32 [n_buckets]: subscribed peers by mesh degree (the last bucket
-    absorbing the overflow)."""
+    absorbing the overflow); a replica stack's [B, N] gives [B,
+    n_buckets]."""
     b = deg.clamp(0, n_buckets - 1)
-    onehot = ((b[None, :] == torch.arange(
+    onehot = ((b.unsqueeze(-2) == torch.arange(
         n_buckets, dtype=b.dtype, device=b.device)[:, None])
-        & subscribed[None, :])
-    return onehot.sum(1, dtype=torch.int32)
+        & subscribed.unsqueeze(-2))
+    return onehot.sum(-1, dtype=torch.int32)
 
 
 def score_histogram(score: torch.Tensor, mask: torch.Tensor,
-                    edges: tuple) -> torch.Tensor:
+                    edges: tuple, batch_dims: int = 0) -> torch.Tensor:
     """i32 [len(edges) + 1]: masked scores against the ascending
     ``edges`` (bucket 0 below the first edge, bucket i in [edges[i-1],
-    edges[i]), the last at or above the final edge)."""
+    edges[i]), the last at or above the final edge), summed over every
+    axis but the first ``batch_dims`` (a replica stack's: [B, len(edges)
+    + 1] with ``batch_dims`` 1)."""
     idx = torch.zeros(score.shape, dtype=torch.int32, device=score.device)
     for e in edges:
         idx = idx + (score >= _f32(e)).to(torch.int32)
     n_b = len(edges) + 1
     lanes = torch.arange(n_b, dtype=torch.int32, device=score.device)
-    onehot = (idx[None] == lanes.reshape((n_b,) + (1,) * score.ndim)) \
-        & mask[None]
-    return onehot.sum(dim=tuple(range(1, onehot.ndim)), dtype=torch.int32)
+    nd = score.ndim - batch_dims
+    onehot = ((idx.unsqueeze(batch_dims)
+               == lanes.reshape((n_b,) + (1,) * nd))
+              & mask.unsqueeze(batch_dims))
+    return onehot.sum(dim=tuple(range(batch_dims + 1, onehot.ndim)),
+                      dtype=torch.int32)
 
 
 # -- runners (any step returning (state, delivered, frame)) -----------------
@@ -348,10 +363,26 @@ def telemetry_run_curve(params, state, n_ticks: int, step, n_msgs: int):
     return state, torch.stack(rows), stack_frames(frames)
 
 
+def telemetry_run_batch(params, state, n_ticks: int, step):
+    """``telemetry_run`` over B stacked replicas (``stack_sims`` /
+    ``stack_trees``): ONE step a tick for the whole stack (B1 once, B3 as
+    often as for one replica), ``(state_B, frames)`` with every scalar
+    frame leaf ``[n_ticks, B]`` and every histogram ``[n_ticks, B, L]``.
+    Per replica the frames and the state equal ``telemetry_run`` on that
+    replica alone (the reference's ``telemetry_run_batch``)."""
+    if not isinstance(state.salt, torch.Tensor) or \
+            params.subscribed.dim() != 2:
+        raise ValueError("telemetry_run_batch takes a replica stack "
+                         "(stack_sims / stack_trees): one sim runs on "
+                         "telemetry_run")
+    return telemetry_run(params, state, n_ticks, step)
+
+
 # -- host-side aggregation ----------------------------------------------------
 
 def frames_to_arrays(frames: TelemetryFrame) -> dict:
-    """Frame -> {field: np.ndarray}; histogram fields only when their
+    """Frame -> {field: np.ndarray} (whatever leading axes the runner
+    gave: ``[T]``, a stack's ``[T, B]``); histogram fields only when their
     group was on."""
     out = {name: getattr(frames, name).cpu().numpy()
            for name in I32_FIELDS + F32_FIELDS}
@@ -364,8 +395,9 @@ def frames_to_arrays(frames: TelemetryFrame) -> dict:
 
 def summarize_frames(frames: TelemetryFrame) -> dict:
     """Whole-run totals and the control-overhead ratio (control bytes /
-    payload bytes): counts summed over every axis, the mesh gauge's
-    final-tick value (the reference's ``summarize_frames``)."""
+    payload bytes): counts summed over every axis (a stack's replicas
+    too), the mesh gauge's last value (the reference's
+    ``summarize_frames``)."""
     arrs = frames_to_arrays(frames)
     totals = {name: int(arrs[name].sum()) for name in I32_FIELDS
               if name not in ("mesh_deg_min", "mesh_deg_max",

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -53,11 +54,13 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: tuple[str, ...]) -> dict[str, str]:
+def build(names: tuple[str, ...], on_done=None) -> dict[str, str]:
     """Compile the named sources concurrently (those not built yet).
 
-    Returns each compiled source's ptxas report (registers, spills).
-    Raises with nvcc's output if any build fails."""
+    Returns each compiled source's ptxas report (registers, spills);
+    ``on_done(name)`` is called as each source's nvcc exits (a caller
+    that times the build reads its clock there).  Raises with nvcc's
+    output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -65,14 +68,29 @@ def build(names: tuple[str, ...]) -> dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log_path = out.with_suffix(f".{os.getpid()}.log")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True), tmp, out)
+        # (the report goes to a file, so a long one cannot fill a pipe
+        # while the others are waited on)
+        with open(log_path, "w") as log_f:
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=log_f, stderr=subprocess.STDOUT), tmp, out,
+                log_path)
+    def wait(name, proc):
+        proc.wait()
+        if on_done is not None:
+            on_done(name)
+    waiters = [threading.Thread(target=wait, args=(name, proc))
+               for name, (proc, *_) in procs.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+    for name, (proc, tmp, out, log_path) in procs.items():
+        log = log_path.read_text()
+        log_path.unlink()
         logs[name] = log
         if proc.returncode != 0:
             failed.append(f"nvcc {name}.cu failed:\n{log}")

@@ -94,12 +94,16 @@ tick's tally in the reference's row order (``TEL_ROWS``), then the L
 latency-bucket rows.
 
 A replica stack (``models/_batch.py``): every operand with a leading
-[B] (``valid`` [B, W], ``knobs`` [B, K]) and ``gseeds`` two int [B]
-tensors, one launch for the B replicas (the flagship and attack options' stack
-kernels, ``*_reps``), every output with a leading [B] (each gate a
-contiguous [B, N] block); the plain version runs each replica's operands
-in turn.  Telemetry, delays, paired topics and the full variant take one
-sim (``batched_*`` refusals).
+[B] (``valid`` [B, W], ``knobs`` [B, K], ``lat_masks`` [B, L, W]) and
+``gseeds`` two int [B] tensors, one launch for the B replicas (the
+flagship and attack options' stack kernels, ``*_reps``: with and without
+faults and knobs in ``csrc/receive.cu`` and ``csrc/receive_knobs.cu``,
+their delay mode in ``csrc/receive_delays_reps.cu``, their telemetry
+tally in ``csrc/receive_tel_reps.cu`` and ``csrc/receive_tel_knobs_reps.cu``),
+every output with a leading [B] (each gate a contiguous [B, N] block, the
+tally [B, 8 + L]); the plain version runs each replica's operands in
+turn.  Paired topics and the full variant take one sim (``batched_*``
+refusals).
 """
 
 from __future__ import annotations
@@ -149,7 +153,8 @@ TEL_ROWS = ("payload", "ihave_ids", "iwant_served", "recv", "iwant_req",
 #: unscored, attacks, full, paired, paired_unscored, each also with a
 #: ``_faults`` suffix, and each of those with a ``+tel`` suffix; the first
 #: four and unscored full with a ``+delays`` suffix; then a ``+knobs``
-#: suffix);
+#: suffix), a replica stack's launch (one for B replicas) under its
+#: variant's key;
 #: chip_smoke.py clears it before a main path and reads it after
 launches: Counter[str] = Counter()
 
@@ -985,10 +990,6 @@ def _check_operands(k: ReceiveConsts, ops: dict) -> int | None:
         plan.refuse("kernel_shape")
     B = lead[0] if lead else None
     if B is not None:
-        if k.telemetry:
-            plan.refuse("batched_telemetry")
-        if k.delays:
-            plan.refuse("batched_delays")
         if k.paired:
             plan.refuse("batched_paired")
         if k.full:
@@ -1204,8 +1205,9 @@ def receive_update(k: ReceiveConsts, **ops):
             a.flood_ok = ops["flood_ok"].data_ptr()
     tel = ()
     if k.telemetry:
-        # the tally is summed by atomics: zeroed here, on the stream
-        tel = (torch.zeros((len(TEL_ROWS) + k.tel_lat_buckets,),
+        # the tally is summed by atomics: zeroed here, on the stream (a
+        # stack's: a row block a replica)
+        tel = (torch.zeros((*lead, len(TEL_ROWS) + k.tel_lat_buckets),
                            dtype=torch.int32, device=dev),)
         a.tel = tel[0].data_ptr()
         a.tel_lat_buckets = k.tel_lat_buckets
@@ -1220,7 +1222,7 @@ def receive_update(k: ReceiveConsts, **ops):
             a.topic_weight = k.topic_weight
     for name, t in outs + paired_outs:
         setattr(a, name, t.data_ptr())
-    name = library(k)
+    name = library(k, stacked=B is not None)
     lib = _build.load(name)
     fn = getattr(lib, "gossip_" + name.replace("receive", "receive_update"))
     fn.restype = ctypes.c_int
@@ -1255,23 +1257,31 @@ STAGED_OPERANDS = ("backoff", "tim", "fd", "inv", "bp", "iws", "backoff_b",
 
 #: the receive kernels' sources (``csrc/<name>.cu``), one library each:
 #: without and with the telemetry tally, each without and with knobs; the
-#: delay mode, without and with knobs
+#: delay mode, without and with knobs; a replica stack's delay mode and
+#: telemetry tally (the stacks of the others are in ``receive.cu`` and
+#: ``receive_knobs.cu``)
 SOURCES = ("receive", "receive_tel", "receive_knobs", "receive_tel_knobs",
-           "receive_delays")
+           "receive_delays", "receive_delays_reps", "receive_tel_reps",
+           "receive_tel_knobs_reps")
 
 
-def library(k: ReceiveConsts) -> str:
-    """The source whose library holds ``k``'s kernel."""
+def library(k: ReceiveConsts, stacked: bool = False) -> str:
+    """The source whose library holds ``k``'s kernel (``stacked``: for a
+    replica stack)."""
     if k.delays:
-        return "receive_delays"
-    return SOURCES[int(k.telemetry) + 2 * int(k.knobs)]
+        name = "receive_delays"
+    else:
+        name = SOURCES[int(k.telemetry) + 2 * int(k.knobs)]
+    if stacked and (k.delays or k.telemetry):
+        name += "_reps"
+    return name
 
 
-def launch_config(k: ReceiveConsts) -> dict:
+def launch_config(k: ReceiveConsts, stacked: bool = False) -> dict:
     """The last launch of ``k``'s library: its tile (peers), blocks a
     multiprocessor, dynamic shared memory (bytes) and grid."""
     out = (ctypes.c_int * 4)()
-    fn = _build.load(library(k)).gossip_receive_launch_config
+    fn = _build.load(library(k, stacked)).gossip_receive_launch_config
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
     fn(out)

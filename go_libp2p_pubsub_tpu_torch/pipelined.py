@@ -12,25 +12,36 @@ the latency histogram alone (48 buckets).  ``build`` makes it at any size
 
 Its points sweep the heartbeat/RTT ratio through the delay knobs
 (``POINTS``): ``base1`` (one tick a hop: the one-hop timing), ``base2``,
-``base4`` and ``base4j2`` (jitter 2).  The reference runs them as one
-knob-batched dispatch; replica batching is not ported yet, so here one
-sim is built, each point is armed on it (``arm``: the params and gates
-``make_gossip_sim(..., sim_knobs=point)`` builds) and run for 48 ticks
-from build through ``telemetry_run`` by one step, one point after another.
-Every point launches the same receive variant, ``scored+delays+knobs``,
-once a tick and no other (the reference's ``compiles <= 1``), and no
-kernel library is built after the first point.
+``base4`` and ``base4j2`` (jitter 2).  As the reference runs them
+(``bench_suite.py:1231-1244``), ``run`` builds the four points with
+``make_gossip_sim(..., sim_knobs=point)``, stacks them (``stack_trees``: a
+replica stack whose delay knobs are ``[4]`` leaves) and advances the stack
+48 ticks from build as ONE dispatch: ``telemetry_run_batch`` under one
+telemetry step, one step a tick for the four replicas.  A batched tick
+launches the delayed knob stack variant of the receive kernel,
+``scored+delays+knobs``, once (48 launches) and no other receive variant,
+the select kernel as often as one replica alone launches it, and no kernel
+library is built during the timed run (the reference's ``compiles <=
+1``).
 
-Rows per point: the delivery fraction (the mean over messages of
-``reach_counts_from_have`` over the members per topic), the latency
-percentiles p50/p90/p99 of the run's summed histogram
-(``histutil.hist_percentiles``) and the histogram, the digest of every
-state leaf (``knob_sweep.tree_digest``), the launches; then
-``p99_stretch_base4`` (base4's p99 over base1's) and the replica
-heartbeats/s (4 x 48 over the points' summed wall time, as the benchmark
-computes it).  Gates, the benchmark's own: every point's delivery fraction
-(rounded to 4 places, as the benchmark rounds it) at least base1's minus
-0.05, and every point with base > 1 filling at least two latency buckets.
+Rows per point, read from its replica: the delivery fraction (the mean
+over messages of ``reach_counts_from_have`` over the members per topic),
+the latency percentiles p50/p90/p99 of its summed histogram
+(``frames.latency_hist.sum(0)[i]``, ``histutil.hist_percentiles``) and the
+histogram, the digest of every leaf of its state
+(``knob_sweep.tree_digest``); then ``p99_stretch_base4`` (base4's p99
+over base1's), the replica heartbeats/s (4 x 48 over the dispatch's wall
+time, as the benchmark computes it), the launches and the peak memory.
+Gates, the benchmark's own: every point's delivery fraction (rounded to 4
+places, as the benchmark rounds it) at least base1's minus 0.05, and
+every point with base > 1 filling at least two latency buckets.
+
+``run_sequential`` is the same benchmark one point after another (one
+built sim, each point armed on it by ``arm``: the params and gates
+``make_gossip_sim(..., sim_knobs=point)`` builds, and run through
+``telemetry_run``), each point's counts reset just before its run and
+read just after; ``cross_check`` holds every replica of the batched run
+to its point run alone, digest and histogram.
 
 Two more checks (``identity``, ``steady_state``), at 1,000,000 peers on
 the card: ``DelayConfig(1, 0, 1)`` on the flagship (``flagship.build``)
@@ -42,8 +53,8 @@ payload lines and the control line as ranges of their own).
 
     python -m go_libp2p_pubsub_tpu_torch.pipelined [--n 1000000] [--profile 20]
 
-runs the benchmark at ``--n`` peers and the two checks on the GPU and
-prints one JSON object.
+runs the benchmark (one batched dispatch) at ``--n`` peers and the two
+checks on the GPU and prints one JSON object.
 
 ``family_sim`` builds the delayed sims of the receive families the delay
 mode serves (the flagship's scored options, the attack options, the full
@@ -65,6 +76,7 @@ from . import adversarial, convert, everything, flagship, resident
 from .flagship import card, profile_ticks
 from .histutil import hist_percentiles
 from .knob_sweep import tree_digest
+from .models import _batch
 from .models import gossipsub as gs
 from .models import telemetry as tl
 from .models.delays import DelayConfig
@@ -123,6 +135,79 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def build_stack(device, n_peers: int = N_PEERS) -> tuple:
+    """(cfg, score_cfg, params, state): the four points built with their
+    knobs (``build(..., sim_knobs=point)``) and stacked, replica i the
+    i-th of ``POINTS``."""
+    builds = [build(device, n_peers, sim_knobs=point)
+              for point in POINTS.values()]
+    cfg, sc = builds[0][:2]
+    params = gs.stack_trees([b[2] for b in builds])
+    state = gs.stack_trees([b[3] for b in builds])
+    return cfg, sc, params, state
+
+
+def _row(point: dict, reach: torch.Tensor, per_topic: int, hist: list,
+         state) -> dict:
+    return dict(
+        delay_base=int(point.get("delay_base", DELAYS.base)),
+        delay_jitter=int(point.get("delay_jitter", DELAYS.jitter)),
+        delivery_fraction=float(reach.to(torch.float64).mean()) / per_topic,
+        latency=hist_percentiles(hist), hist=hist,
+        digest=tree_digest(convert.state_to_numpy(state)))
+
+
+def run(device, n_peers: int = N_PEERS, ticks: int = TICKS) -> dict:
+    """The benchmark as the reference runs it: the four points stacked
+    and advanced as ONE dispatch (``telemetry_run_batch`` under one
+    telemetry step), the launch counts reset just before and read just
+    after.  The rows (each from its replica), the gates, the stretch, the
+    replica rate, the launches (``launches_ok``: the delayed knob stack
+    variant once a tick and no other receive variant, the select kernel
+    launched) and whether a library was built during the run."""
+    cfg, sc, params, state = build_stack(device, n_peers)
+    step = gs.make_gossip_step(cfg, sc, device=device,
+                               telemetry=tl.TelemetryConfig(**TELEMETRY))
+    dev = params.subscribed.device
+    if dev.type == "cuda":
+        # the stack kernel's library, built (or loaded) before the clock
+        _build.load(krecv.library(krecv.receive_consts(
+            cfg, sc, delays=True, knobs=True), stacked=True))
+    libs0 = set(_build._LIBS)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    krecv.launches.clear()
+    ksel.launches = 0
+    t0 = time.perf_counter()
+    state, frames = tl.telemetry_run_batch(params, state, ticks, step)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launched = dict(krecv.launches)
+    select_launches = ksel.launches
+    built = sorted(set(_build._LIBS) - libs0)
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    hists = frames.latency_hist.sum(0).cpu().tolist()           # [B, L]
+    reach = gs.reach_counts_from_have(params, state)            # [B, M]
+    per_topic = params.subscribed.shape[-1] // cfg.n_topics
+    rows = {pid: _row(point, reach[i], per_topic, [int(c) for c in hists[i]],
+                      _batch.index_trees(state, i))
+            for i, (pid, point) in enumerate(POINTS.items())}
+    del params, state, step, frames
+    g = gates(rows)
+    p99 = {pid: r["latency"]["p99"] for pid, r in rows.items()}
+    # (the plain versions on the CPU launch nothing)
+    launches_ok = (launched == {VARIANT: ticks} and select_launches > 0
+                   or dev.type == "cpu")
+    return dict(
+        n_peers=n_peers, ticks=ticks, rows=rows, gates=g, p99=p99,
+        p99_stretch_base4=p99["base4"] / max(p99["base1"] or 0, 1),
+        wall_s=wall, replica_heartbeats_per_s=len(rows) * ticks / wall,
+        launches=launched, select_launches=select_launches,
+        launches_ok=launches_ok, libraries_built=built, peak_bytes=peak,
+        ok=g["ok"] and launches_ok and not built)
+
+
 def run_point(sim: tuple, step, point: dict, ticks: int = TICKS) -> dict:
     """One point armed on ``sim`` and run ``ticks`` from build by ``step``
     (the telemetry step), its launch counts reset just before and read
@@ -141,19 +226,16 @@ def run_point(sim: tuple, step, point: dict, ticks: int = TICKS) -> dict:
     wall = time.perf_counter() - t0
     launched = dict(krecv.launches)
     hist = [int(c) for c in frames.latency_hist.sum(0).cpu().tolist()]
-    reach = gs.reach_counts_from_have(params, state).to(torch.float64)
-    frac = float(reach.mean()) / (params.subscribed.shape[0] // cfg.n_topics)
+    reach = gs.reach_counts_from_have(params, state)
+    row = _row(point, reach, params.subscribed.shape[0] // cfg.n_topics,
+               hist, state)
     return dict(
-        delay_base=int(point.get("delay_base", DELAYS.base)),
-        delay_jitter=int(point.get("delay_jitter", DELAYS.jitter)),
-        delivery_fraction=frac, latency=hist_percentiles(hist), hist=hist,
-        wall_s=wall, heartbeats_per_s=ticks / wall, launches=launched,
+        row, wall_s=wall, heartbeats_per_s=ticks / wall, launches=launched,
         select_launches=ksel.launches,
         launches_ok=launched == {VARIANT: ticks} and ksel.launches > 0,
         libraries_built=sorted(set(_build._LIBS) - libs0),
         peak_bytes=(torch.cuda.max_memory_allocated()
-                    if dev.type == "cuda" else None),
-        digest=tree_digest(convert.state_to_numpy(state)))
+                    if dev.type == "cuda" else None))
 
 
 def gates(rows: dict) -> dict:
@@ -168,10 +250,12 @@ def gates(rows: dict) -> dict:
                 ok=all(delivery.values()) and all(buckets.values()))
 
 
-def run(device, n_peers: int = N_PEERS, ticks: int = TICKS) -> dict:
-    """Every point on one built sim and one telemetry step: the rows, the
-    gates, the stretch and the replica rate, and the launch checks (every
-    point's variant once a tick, no library built after the first)."""
+def run_sequential(device, n_peers: int = N_PEERS,
+                   ticks: int = TICKS) -> dict:
+    """The benchmark one point after another: every point armed on one
+    built sim and run by one telemetry step; the rows, the gates, the
+    stretch and the replica rate, and the launch checks (every point's
+    variant once a tick, no library built after the first)."""
     sim = build(device, n_peers)
     step = gs.make_gossip_step(sim[0], sim[1], device=device,
                                telemetry=tl.TelemetryConfig(**TELEMETRY))
@@ -191,6 +275,21 @@ def run(device, n_peers: int = N_PEERS, ticks: int = TICKS) -> dict:
         replica_heartbeats_per_s=len(rows) * ticks / wall,
         launches_ok=launches_ok, rebuilt_after_first=any(later),
         ok=g["ok"] and launches_ok and not any(later))
+
+
+def cross_check(batched: dict, sequential: dict) -> dict:
+    """Every replica of the batched run against its point run alone: the
+    digest of every state leaf and the histogram equal, and the select
+    kernel launched as often a batched tick as for one point."""
+    same = {pid: row["digest"] == sequential["rows"][pid]["digest"]
+            and row["hist"] == sequential["rows"][pid]["hist"]
+            for pid, row in batched["rows"].items()}
+    one = {r["select_launches"] for r in sequential["rows"].values()}
+    select_same = one == {batched["select_launches"]}
+    return dict(rows=same, select_one_point=sorted(one),
+                select_batched=batched["select_launches"],
+                ok=all(same.values()) and (
+                    select_same or not batched["launches"]))
 
 
 def _shared_digest(state) -> str:

@@ -11,7 +11,8 @@ equals the port's ``gossip_run`` of that replica alone.  Tolerance: exact
 a copied carry, a permutation of the replicas, a ring of N = 2 mod 4
 peers (B3's quads straddle replicas), the plain B1 and B3 with a replica
 axis, ``stack_trees``' and ``stack_sims``' named errors, the conversion of
-stacked trees, and every batched refusal by name.
+stacked trees, every batched refusal by name, and a stack grafting
+opportunistically after tick 0.
 """
 
 import hashlib
@@ -138,6 +139,29 @@ def test_batch_matches_reference_and_sequential(ref, scored):
     assert (pgs.reach_counts_from_have(params, final) == 100).all()
 
 
+def test_batch_grafts_opportunistically_after_tick_0(ref):
+    """The scored stack, armed, with opportunistic grafting every 7 ticks
+    (threshold 5) for 80 ticks: leaf for leaf the reference's
+    ``gossip_run_batch`` and the port's sequential runs; non-vacuous, the
+    meshes differ from the same stack at the default 60-tick cadence."""
+    make_cfg, specs = replica_specs()
+    og = dict(opportunistic_graft_ticks=7,
+              opportunistic_graft_threshold=5.0)
+    _, final, _, _ = run_both(ref, make_cfg, lambda fl: specs, 80,
+                              sc_kw=og, arm=True)
+    cfg = make_cfg(pgs)
+    sc = pgs.ScoreSimConfig(opportunistic_graft_threshold=5.0)
+    params, state = pgs.stack_sims(cfg, specs, score_cfg=sc, device="cpu")
+    slow = pgs.gossip_run_batch(params, piv.attach(state), 80,
+                                pgs.make_gossip_step(
+                                    cfg, sc, device="cpu",
+                                    invariants=piv.InvariantConfig()),
+                                device="cpu")
+    for i in range(len(specs)):
+        assert not torch.equal(final.mesh[i], slow.mesh[i]), i
+    assert (final.inv_viol == 0).all() and (slow.inv_viol == 0).all()
+
+
 def test_batch_on_a_ring_of_n_2_mod_4(ref):
     """302 peers: B3's four-peer quads straddle the replicas' rows."""
     make_cfg, specs = replica_specs(n=302, t=2, seeds=(4, 5, 6))
@@ -247,6 +271,10 @@ def test_plain_select_takes_a_replica_axis(c, n):
 
 
 def _receive_ops(k, n, seed, *, attack=False, faults=False, knobs=False):
+    """Seeded random operands of ``k``'s receive variant at ``n`` peers
+    (W = 1): the sender streams, or in delay mode the arrivals and the
+    resolved control words; with telemetry's latency rows the bucket masks
+    and deliver words."""
     g = torch.Generator().manual_seed(seed)
     C = k.n_candidates
 
@@ -287,7 +315,93 @@ def _receive_ops(k, n, seed, *, attack=False, faults=False, knobs=False):
         if k.scored:
             v += [-5.0 - seed % 4, -10.0 - seed % 3, -70.0, -8.0]
         ops["knobs"] = torch.tensor(v, dtype=torch.float32)
+    if k.delays:
+        for name in krecv.SENDER_OPERANDS:
+            ops.pop(name, None)
+        ops.update(arr=words((C, n)) & words((C, n)),
+                   graft_arr=words((n,), C) & words((n,), C),
+                   prune_arr=words((n,), C) & words((n,), C),
+                   retract=words((n,), C) & words((n,), C))
+        if k.track_promises:
+            ops["cheat_arr"] = words((n,), C) & words((n,), C)
+    if k.tel_lat_buckets:
+        ops.update(lat_masks=words((k.tel_lat_buckets, 1)),
+                   dlv_eff=words((1, n)))
     return ops
+
+
+#: the delay mode's and the telemetry tally's families on a stack: (scored,
+#: the ScoreSimConfig's attack keywords, receive_consts' keywords, the
+#: operands' keywords)
+IHAVE = dict(sybil_ihave_spam=True)
+ATK2 = dict(sybil_ihave_spam=True, sybil_iwant_spam=True)
+STACK_VARIANTS = {
+    "scored_delays": (True, {}, dict(delays=True), {}),
+    "unscored_delays": (False, {}, dict(delays=True), {}),
+    "attack_delays": (True, IHAVE, dict(delays=True), dict(attack=True)),
+    "scored_delays_knobs": (True, {}, dict(delays=True, knobs=True),
+                            dict(knobs=True)),
+    "unscored_delays_knobs": (False, {}, dict(delays=True, knobs=True),
+                              dict(knobs=True)),
+    "attack_delays_knobs": (True, IHAVE, dict(delays=True, knobs=True),
+                            dict(attack=True, knobs=True)),
+    "scored_tel": (True, {}, dict(telemetry=True, tel_lat_buckets=5), {}),
+    "unscored_tel": (False, {}, dict(telemetry=True, tel_lat_buckets=5), {}),
+    "attack_tel": (True, ATK2, dict(telemetry=True, tel_lat_buckets=5),
+                   dict(attack=True)),
+    "scored_faults_tel": (True, {}, dict(telemetry=True, faults=True,
+                                         tel_lat_buckets=5),
+                          dict(faults=True)),
+    "unscored_faults_tel": (False, {}, dict(telemetry=True, faults=True),
+                            dict(faults=True)),
+    "attack_faults_tel": (True, ATK2, dict(telemetry=True, faults=True,
+                                           tel_lat_buckets=16),
+                          dict(attack=True, faults=True)),
+    "scored_tel_knobs": (True, {}, dict(telemetry=True, knobs=True,
+                                        tel_lat_buckets=5),
+                         dict(knobs=True)),
+    "unscored_faults_tel_knobs": (False, {}, dict(
+        telemetry=True, faults=True, knobs=True, tel_lat_buckets=5),
+        dict(faults=True, knobs=True)),
+    "attack_tel_knobs": (True, ATK2, dict(telemetry=True, knobs=True),
+                         dict(attack=True, knobs=True)),
+    "attack_faults_tel_knobs": (True, ATK2, dict(
+        telemetry=True, faults=True, knobs=True, tel_lat_buckets=5),
+        dict(attack=True, faults=True, knobs=True)),
+}
+
+
+def stack_case(name, n, c, seed, reps=3, cfg_kw=None):
+    """``(k, reps' operands, the stack)`` of a ``STACK_VARIANTS`` family at
+    ``n`` peers and C = ``c`` (C = 8: a degree family that fits): each
+    replica's operands from its own seed (distinct seeds, words, knob
+    vectors and bucket masks, so a mix-up shows), stacked [B, ...] with
+    ``gseeds`` two [B] tensors."""
+    scored, sc_kw, k_kw, o_kw = STACK_VARIANTS[name]
+    if cfg_kw is None and c == 8:
+        cfg_kw = dict(d=3, d_lo=2, d_hi=6, d_score=2, d_out=1, d_lazy=2)
+    cfg = pgs.GossipSimConfig(offsets=pgs.make_gossip_offsets(
+        2, c, n - n % 2, seed=3), n_topics=2, **(cfg_kw or {}))
+    k = krecv.receive_consts(cfg, pgs.ScoreSimConfig(**sc_kw)
+                             if scored else None, **k_kw)
+    ops = [_receive_ops(k, n, seed + 17 * b, **o_kw) for b in range(reps)]
+    return k, ops, stack_ops(ops)
+
+
+def stack_ops(reps):
+    """Replicas' receive operands stacked [B, ...], ``gseeds`` two [B]
+    int64 tensors."""
+    stacked = {}
+    for key, v in reps[0].items():
+        if key == "gseeds":
+            stacked[key] = tuple(torch.tensor([r[key][i] for r in reps],
+                                              dtype=torch.int64)
+                                 for i in range(2))
+        elif isinstance(v, torch.Tensor):
+            stacked[key] = torch.stack([r[key] for r in reps])
+        else:
+            stacked[key] = v
+    return stacked
 
 
 PLAIN_VARIANTS = {
@@ -394,16 +508,21 @@ def test_batched_refusals_by_name():
         pgs.stack_trees([sims[0][1], later])
     assert e.value.name == "batched_ticks"
 
+    # a delay-armed stack and a stack with telemetry now step (their
+    # refusals are gone): one step for the stack, the lines [B, K, ...] and
+    # the frame's fields [B]
+    assert "batched_delays" not in plan.REFUSALS
+    assert "batched_telemetry" not in plan.REFUSALS
     cfg, sc, params, state = _stack(make_cfg, specs,
                                     delays=DelayConfig(1, 1, 4))
-    with pytest.raises(plan.SliceRefusal, match="batched_delays"):
-        pgs.make_gossip_step(cfg, sc, device="cpu")(params, state)
+    state = pgs.make_gossip_step(cfg, sc, device="cpu")(params, state)[0]
+    assert state.tick == 1 and state.pay_line.shape[:2] == (2, 4)
 
     cfg, sc, params, state = _stack(make_cfg, specs)
     tstep = pgs.make_gossip_step(cfg, sc, device="cpu",
                                  telemetry=ptel.TelemetryConfig())
-    with pytest.raises(plan.SliceRefusal, match="batched_telemetry"):
-        tstep(params, state)
+    state, _, frame = tstep(params, state)
+    assert state.tick == 1 and frame.payload_sent.shape == (2,)
     window = pgs.make_fused_window(cfg, ticks_fused=4, device="cpu")
     with pytest.raises(plan.SliceRefusal, match="batched_fused"):
         window(params, state)
@@ -445,19 +564,19 @@ def test_batched_runners_take_a_stack():
 
 
 @pytest.mark.parametrize("option,refusal", [
-    ("telemetry", "batched_telemetry"), ("full", "batched_surface")])
+    ("paired", "batched_paired"), ("full", "batched_surface")])
 def test_receive_wrapper_refuses_what_a_stack_does_not_run(option,
                                                           refusal):
     """B1's stack kernels are the flagship and attack options' (with and
-    without faults and knobs): the wrapper refuses a stack of the other
-    variants by name before any launch."""
+    without faults and knobs, in delay mode, with the telemetry tally):
+    the wrapper refuses a stack of the other variants by name before any
+    launch."""
     n = 50
-    cfg = pgs.GossipSimConfig(offsets=pgs.make_gossip_offsets(2, 16, n,
-                                                              seed=3),
-                              n_topics=2)
-    kw = ({"telemetry": True} if option == "telemetry"
-          else {"px": True})
-    k = krecv.receive_consts(cfg, pgs.ScoreSimConfig(), **kw)
+    paired = option == "paired"
+    cfg = pgs.GossipSimConfig(offsets=pgs.make_gossip_offsets(
+        2, 16, n, seed=3, paired=paired), n_topics=2, paired_topics=paired)
+    k = krecv.receive_consts(cfg, pgs.ScoreSimConfig(),
+                             **({} if paired else {"px": True}))
     ops = _receive_ops(k, n, 5)
     stacked = {key: (tuple(torch.tensor([v_, v_]) for v_ in v)
                      if key == "gseeds" else

@@ -1732,3 +1732,123 @@ def test_batched_step_on_the_card_matches_the_cpu(cuda, scored):
         if dev == cuda:
             assert sum(prc.launches.values()) == before + 20
     assert _state_digest(out["cuda"]) == _state_digest(out["cpu"])
+
+
+def _to_card(ops, cuda):
+    return {key: (tuple(x.to(cuda) for x in v) if key == "gseeds"
+                  and isinstance(v[0], torch.Tensor)
+                  else v.to(cuda) if isinstance(v, torch.Tensor) else v)
+            for key, v in ops.items()}
+
+
+#: ``test_torch_batch.STACK_VARIANTS``' families (named here, so that
+#: collection imports nothing more)
+STACK_NAMES = (
+    "scored_delays", "unscored_delays", "attack_delays",
+    "scored_delays_knobs", "unscored_delays_knobs", "attack_delays_knobs",
+    "scored_tel", "unscored_tel", "attack_tel", "scored_faults_tel",
+    "unscored_faults_tel", "attack_faults_tel", "scored_tel_knobs",
+    "unscored_faults_tel_knobs", "attack_tel_knobs",
+    "attack_faults_tel_knobs")
+
+
+@pytest.mark.parametrize("name", STACK_NAMES)
+@pytest.mark.parametrize("n", [1_000, 1_003])
+@pytest.mark.parametrize("c", [8, 16])
+def test_batched_delay_and_telemetry_receive_matches_plain(cuda, name, n,
+                                                           c):
+    """B1's delay mode and telemetry tally over three replicas whose
+    operands differ (words, seeds, knob vectors, bucket masks) in one
+    launch of their stack kernel, against the plain version on the stack
+    and against one launch a replica: every output, the [B, 8 + L] tally
+    too (at C = 8 and an odd N a replica's arrival rows start off a
+    16-byte boundary of the stack)."""
+    from test_torch_batch import STACK_VARIANTS, stack_case
+
+    assert set(STACK_NAMES) == set(STACK_VARIANTS)
+    k, reps, stacked = stack_case(name, n, c, 40)
+    want = prc.receive_update_plain(k, **stacked)
+    before = sum(prc.launches.values())
+    got = prc.receive_update(k, **_to_card(stacked, cuda))
+    torch.cuda.synchronize()
+    assert sum(prc.launches.values()) == before + 1
+    for i, (g, x) in enumerate(zip(got, want)):
+        assert torch.equal(g.cpu(), x), f"output {i}"
+    for b, r in enumerate(reps):
+        one = prc.receive_update(k, **_to_card(r, cuda))
+        for i, (g, x) in enumerate(zip(one, want)):
+            assert torch.equal(g.cpu(), x[b]), (b, i)
+
+
+@pytest.mark.parametrize("case", ["delays_scored_faults_knobs",
+                                  "delays_attacks", "delays_unscored",
+                                  "tel_scored_faults", "tel_attacks_knobs",
+                                  "tel_delays_counters"])
+def test_batched_delay_and_telemetry_step_on_the_card_matches_the_cpu(
+        cuda, case):
+    """A stack of three replicas, 20 ticks on one step a tick: delay-armed
+    (a delay seed a replica; with knobs a delay point a replica) or with
+    telemetry (every group and histogram), under fault schedules where the
+    case says; the card's final stack equals the CPU's leaf for leaf, and
+    every frame field (``[T, B]``) the CPU's, B1 launched once a tick in
+    its stack variant."""
+    from test_torch_batch import replica_specs
+
+    make_cfg, specs = replica_specs(n=3_002, t=2, seeds=(1, 2, 3))
+    cfg = make_cfg(pgs)
+    n = 3_002
+    sc = None if "unscored" in case else pgs.ScoreSimConfig(
+        **(dict(sybil_ihave_spam=True) if "attacks" in case else {}))
+    tcfg = (ptl.TelemetryConfig(latency_hist=True, degree_hist=True,
+                                score_hist=sc is not None, latency_buckets=12)
+            if case.startswith("tel") else None)
+    grp = np.arange(n) % 2
+
+    def extra(b):
+        e = {}
+        if "attacks" in case:
+            e["sybil"] = np.random.default_rng(b).random(n) < 0.2
+        if "faults" in case:
+            e["fault_schedule"] = pfl.FaultSchedule(
+                n_peers=n, horizon=40, seed=20 + b, drop_prob=0.03,
+                down_intervals=[(p, 3, 9) for p in range(b, n, 37)],
+                partition_group=grp, partition_windows=[(6, 10)])
+        if "knobs" in case:
+            e["sim_knobs"] = {"gossip_factor": 0.2 + 0.1 * b}
+        if "delays" in case:
+            e["delays"] = pdl.DelayConfig(3, 2, 8, seed=5 + b)
+            if "knobs" in case:
+                e["sim_knobs"].update(delay_base=1 + b, delay_jitter=b)
+            if tcfg is not None:
+                e["delays_counters"] = True
+        return e
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params, state = pgs.stack_sims(
+            cfg, [dict(s, **extra(b)) for b, s in enumerate(specs)],
+            score_cfg=sc, device=dev)
+        step = pgs.make_gossip_step(cfg, sc, device=dev, telemetry=tcfg)
+        before = sum(prc.launches.values())
+        if tcfg is None:
+            fin, frames = pgs.gossip_run_batch(params, state, 20, step,
+                                               device=dev), None
+        else:
+            fin, frames = ptl.telemetry_run_batch(params, state, 20, step)
+        if dev == cuda:
+            assert sum(prc.launches.values()) == before + 20
+        out[dev.type] = (fin, frames)
+    assert _state_digest(out["cuda"][0]) == _state_digest(out["cpu"][0])
+    if tcfg is not None:
+        got = convert.frame_to_numpy(out["cuda"][1])
+        want = convert.frame_to_numpy(out["cpu"][1])
+        assert got["payload_sent"].shape == (20, 3)
+        for name, w in want.items():
+            if w is None:
+                assert got[name] is None, name
+            elif name == "score_mean":
+                # the card and the CPU sum non-integer f32 scores in
+                # different orders
+                np.testing.assert_allclose(got[name], w, rtol=1e-5,
+                                           atol=1e-6)
+            else:
+                np.testing.assert_array_equal(got[name], w, err_msg=name)

@@ -280,6 +280,10 @@ def test_pipelined_benchmark_rows_and_gates_at_3000_peers():
     assert p99["base1"] < p99["base2"] < p99["base4"] <= p99["base4j2"]
     assert out["p99_stretch_base4"] == p99["base4"] / max(p99["base1"], 1)
     assert len({r["digest"] for r in rows.values()}) == len(rows)
+    # the one batched dispatch against the points run one after another
+    check = pipelined.cross_check(out, pipelined.run_sequential("cpu",
+                                                                3_000))
+    assert check["ok"] and all(check["rows"].values()), check
 
 
 # -- refusals and the reference's errors --------------------------------------

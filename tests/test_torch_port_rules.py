@@ -248,9 +248,6 @@ REFUSED = {
     # the launch's own error when not one block of the grid is resident
     "fused_grid": [lambda: kfused.check_launch(kfused.COOPERATIVE_TOO_LARGE)],
     # what a replica stack does not run yet
-    "batched_delays": [lambda: _batched_step(delays=pdl.DelayConfig())],
-    "batched_telemetry": [lambda: _batched_step(
-        step_kw=dict(telemetry=ptl.TelemetryConfig()))],
     "batched_paired": [lambda: _paired_stack_step()],
     "batched_surface": [
         lambda: _batched_step(px_candidates=14),
@@ -305,6 +302,24 @@ def test_option_outside_the_port_is_refused_by_name(name):
             trigger()
         assert err.value.name == name
         assert plan.REFUSALS[name] in str(err.value)
+
+
+def test_delays_and_telemetry_run_in_a_stack():
+    """A replica stack of delay-armed sims and a stack stepped with
+    telemetry run (the ``batched_delays`` and ``batched_telemetry``
+    refusals are gone): one step for the stack, the lines ``[B, K, ...]``,
+    each frame field ``[B]``, the histograms ``[B, L]``."""
+    assert "batched_delays" not in plan.REFUSALS
+    assert "batched_telemetry" not in plan.REFUSALS
+    params, state = _stack(delays=pdl.DelayConfig(2, 1, 4))
+    state = _step()(params, state)[0]
+    assert state.tick == 1 and tuple(state.ctrl_line.shape[:2]) == (2, 4)
+    params, state = _stack(fault_schedule=_sched())
+    state, frames = ptl.telemetry_run_batch(
+        params, state, 2, _step(telemetry=ptl.TelemetryConfig(
+            latency_hist=True)))
+    assert state.tick == 2 and frames.payload_sent.shape == (2, 2)
+    assert frames.latency_hist.shape == (2, 2, 16)
 
 
 def test_fault_schedules_run_on_the_step_and_the_window():

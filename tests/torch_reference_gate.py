@@ -95,13 +95,15 @@ With ``--pipelined`` it runs the JAX package's pipelined-gossip benchmark
 (bench_suite.py ``bench_gossipsub_pipelined``; go_libp2p_pubsub_tpu_torch/
 pipelined.py: the delay line DelayConfig(1, 0, 8), the points base1,
 base2, base4 and base4j2 through the delay knobs, the latency histogram
-on) on the JAX package's XLA step at ``--n`` peers, one point after
-another, each point's sim built by its ``make_gossip_sim(sim_knobs=point)``
-and stepped 48 ticks from build, and prints the benchmark's rows
-(delivery fraction, latency percentiles, histogram, the p99 stretch) and
-the digest of every state leaf; exits 1 if one of its two gates fails.
-With ``--port`` the port's plain CPU run (``pipelined.run("cpu", n)``, a
-few minutes at 100,000 peers) must give the same digests and rows.
+on) on the JAX package's XLA step at ``--n`` peers as the benchmark runs
+it: each point's sim built by its ``make_gossip_sim(sim_knobs=point)``,
+the four stacked and stepped 48 ticks from build as one batched dispatch
+(``telemetry_run_batch``), and prints the benchmark's rows (delivery
+fraction, latency percentiles, histogram, the p99 stretch) and the digest
+of every leaf of each replica's state; exits 1 if one of its two gates
+fails.  With ``--port`` the port's plain CPU run of the batched form
+(``pipelined.run("cpu", n)``, a few minutes at 100,000 peers) must give
+the same digests and rows.
 
 With ``--invariants`` it runs the configuration of the JAX package's
 invariant-overhead benchmark (bench_suite.py ``_bench_invariants``, its XLA
@@ -542,26 +544,33 @@ def pipelined_rows(n: int, port: bool) -> int:
         dc = rdl.DelayConfig(base=pipelined.DELAYS.base,
                              jitter=pipelined.DELAYS.jitter,
                              k_slots=pipelined.DELAYS.k_slots)
-        step = jax.jit(gs.make_gossip_step(
-            cfg, sc, telemetry=rtl.TelemetryConfig(**pipelined.TELEMETRY)))
+        step = gs.make_gossip_step(
+            cfg, sc, telemetry=rtl.TelemetryConfig(**pipelined.TELEMETRY))
+        # as the benchmark runs them: the four points built with their
+        # knobs, stacked, and advanced as one batched dispatch
+        builds = [gs.make_gossip_sim(
+            cfg, resident.subs_matrix(n, t), topic, origin, tick,
+            seed=pipelined.SEED, score_cfg=sc, delays=dc,
+            track_first_tick=False, sim_knobs=point)
+            for point in pipelined.POINTS.values()]
+        params = gs.stack_trees([p_ for p_, _ in builds])
+        state, frames = rtl.telemetry_run_batch(
+            params, gs.stack_trees([s_ for _, s_ in builds]),
+            pipelined.TICKS, step)
+        hists = np.asarray(frames.latency_hist).sum(0)           # [B, L]
+        reach = np.asarray(jax.vmap(gs.reach_counts_from_have)(params,
+                                                               state))
         rows = {}
-        for pid, point in pipelined.POINTS.items():
-            params, state = gs.make_gossip_sim(
-                cfg, resident.subs_matrix(n, t), topic, origin, tick,
-                seed=pipelined.SEED, score_cfg=sc, delays=dc,
-                track_first_tick=False, sim_knobs=point)
-            hist = np.zeros(pipelined.TICKS, dtype=np.int64)
-            for _ in range(pipelined.TICKS):
-                state, _, frame = step(params, state)
-                hist += np.asarray(frame.latency_hist)
-            reach = np.asarray(gs.reach_counts_from_have(params, state))
+        for i, (pid, point) in enumerate(pipelined.POINTS.items()):
+            hist = hists[i]
             rows[pid] = dict(
                 delay_base=int(point.get("delay_base", dc.base)),
                 delay_jitter=int(point.get("delay_jitter", dc.jitter)),
-                delivery_fraction=float(reach.astype(np.float64).mean())
+                delivery_fraction=float(reach[i].astype(np.float64).mean())
                 / (n // t), hist=[int(c) for c in hist],
                 latency=hist_percentiles(hist),
-                digest=knob_sweep.tree_digest(tree_to_numpy(state)))
+                digest=knob_sweep.tree_digest(tree_to_numpy(
+                    gs.index_trees(state, i))))
             print(f"{pid}: {rows[pid]}", flush=True)
     g = pipelined.gates(rows)
     p99 = {pid: r_["latency"]["p99"] for pid, r_ in rows.items()}
