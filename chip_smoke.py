@@ -226,7 +226,7 @@ Phases (any failure exits non-zero; nothing is caught):
 5r. each per-tick family's step with the invariant checker on
    (``armed_families``): the flagship, the unscored resident
    configuration, adversarial, everything-on, paired everything-on and
-   unscored paired at 100,000 peers, each clean, under the churn
+   unscored paired at 50,000 peers, each clean, under the churn
    benchmark's kind of schedule, with every telemetry group and at a knob
    point, and the delayed flagship, attack, full and unscored sims; each
    armed and run 24 ticks on the card, then tick 24 on the card (one
@@ -252,7 +252,7 @@ Phases (any failure exits non-zero; nothing is caught):
    bit-identical; both timed on the tick;
 5t. the select kernel's C = 32 instantiation against its plain version:
    seeded operands at N = 1,000,000 (bit 31 live) and every call of a
-   real tick of phase 5w's C = 32 sim (100,000 peers, after 10
+   real tick of phase 5w's C = 32 sim (50,000 peers, after 10
    heartbeats): bit-identical; both timed on the seeded operands;
 5u. the receive loops' combined form at full width
    (go_libp2p_pubsub_tpu_torch/loops_flagship.py ``byzantine``: the
@@ -269,7 +269,7 @@ Phases (any failure exits non-zero; nothing is caught):
    JAX package's P3/P3b test configuration and one message a tick), the
    same counts and records: delivery of the settled messages, P3 credit on
    a mesh edge, a P3b penalty somewhere, no receive-kernel launch;
-5w. the split loops at C = 32 (``wide``: 100,000 peers, 30 ticks): the
+5w. the split loops at C = 32 (``wide``: 50,000 peers, 30 ticks): the
    digest of every state leaf on the card equal to the CPU's;
 5x. the JAX package's attack x defense tournament as written
    (go_libp2p_pubsub_tpu_torch/tournament.py ``run_tournament(20000, 20,
@@ -329,6 +329,27 @@ Phases (any failure exits non-zero; nothing is caught):
    kernel of 5ab and 5ac through the user's batched runner
    (gossip_run_batch / telemetry_run_batch) at 4 x 20,000 peers for 10
    ticks, once a tick and no other receive variant (their launches);
+5af. FloodSub (models/floodsub.py; the reference leaves it to XLA, so no
+   hand-written kernel runs): (a) the circulant and gather cores at
+   20,000 peers, 40 ticks, in each form of floodsub_flagship.FORMS
+   (plain; churn waves, 2% link loss and a partition window; with
+   TelemetryConfig(); with DelayConfig(4, 2, 8); armed with the checker)
+   on the card and on the CPU (the CPU's in a child process started
+   during phase 2, once five sources are built): every digest of state
+   leaves, delivered words and frame fields equal; (b)
+   floodsub_flagship.run at 1,000,000
+   peers on both cores (50 + 3 x 100 ticks): gates, heartbeats/s, peak
+   memory, reach_by_hops at 16 hops, a profile of 20 more ticks;
+5ag. RandomSub (models/randomsub.py): (a) the same matrix for the
+   circulant step (C = 128, 20,000 peers) and the dense step (1,000
+   peers, two topics); (b) randomsub_10k.run(dense=True), the JAX
+   package's RandomSub-10k benchmark as written (10,000 peers, C = 128,
+   the dense step, 50 + 3 x 100 ticks, every message at all 10,000);
+   (c) the circulant step at 1,000,000 peers, 100 topics, C = 128, the
+   same ticks and full reach; each with heartbeats/s, peak memory, a
+   20-tick profile (idle share, launches a tick).  Across 5af and 5ag
+   the receive, fused and select kernels launch zero times and no
+   library is built (counts reset before, read after);
 6. the unscored receive kernel against its plain version at the resident
    configuration's shapes (N = 1,048,576, C = 16, W = 1), on seeded random
    operands and on the operands of a real unscored tick: every output
@@ -358,8 +379,10 @@ It needs no network and imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
 import json
+import multiprocessing
 import re
 import sys
 import time
@@ -368,9 +391,9 @@ from pathlib import Path
 import torch
 
 WARMUP, TIMED = 100, 300
-INV_CHECK_PEERS = 100_000      # 5r: each family's armed tick, card vs CPU
+INV_CHECK_PEERS = 50_000       # 5r: each family's armed tick, card vs CPU
 RES_WARMUP, RES_TIMED = 64, 256     # the resident path, 8-tick windows
-WIDE_PEERS, WIDE_TICKS = 100_000, 30   # 5t/5w: the C = 32 split loops
+WIDE_PEERS, WIDE_TICKS = 50_000, 30    # 5t/5w: the C = 32 split loops
 TOURNEY_SHAPE = (20_000, 20, 24, 150)  # 5x: the tournament as written
 BATCHED_PATH_PEERS, BATCHED_PATH_TICKS = 100_000, 10   # 5z: B1's families
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -1629,6 +1652,22 @@ def fused_window_ops(k, ops, select_rows: int) -> int:
             + select_rows * (13 * C + 2 * sort_exchanges(C)))
 
 
+def meshless_cpu_forms() -> dict:
+    """The CPU half of 5af/5ag's card-against-CPU matrix: each step form's
+    digests on the CPU and their seconds.  It runs in a child process
+    while the last kernel sources build, on the cores their nvcc leave
+    idle (three threads)."""
+    torch.set_num_threads(3)
+    from go_libp2p_pubsub_tpu_torch import floodsub_flagship, randomsub_10k
+
+    out = {}
+    for phase, mod in (("5af", floodsub_flagship), ("5ag", randomsub_10k)):
+        t0 = time.perf_counter()
+        digests = mod.forms(torch.device("cpu"))
+        out[phase] = (digests, time.perf_counter() - t0)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs "
@@ -1644,10 +1683,12 @@ def main() -> None:
         convert,
         everything,
         flagship,
+        floodsub_flagship,
         knob_sweep,
         invariants_flagship,
         loops_flagship,
         pipelined,
+        randomsub_10k,
         resident,
         telemetry_flagship,
         tournament,
@@ -1678,9 +1719,20 @@ def main() -> None:
     # -- 2. build the seven kernel sources, concurrently
     t0 = time.perf_counter()
     build_s = {}
-    logs = _build.build(("select", *krecv.SOURCES, "fused"),
-                        on_done=lambda src: build_s.setdefault(
-                            src, time.perf_counter() - t0))
+    # 5af/5ag's CPU half starts once five sources are built: the other
+    # nvcc then leave three cores idle (one child process, stopped after
+    # 5ag reads it)
+    cpu_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    cpu_forms = []
+
+    def built(src):
+        build_s.setdefault(src, time.perf_counter() - t0)
+        if len(build_s) == 5 and not cpu_forms:
+            cpu_forms.append(cpu_pool.submit(meshless_cpu_forms))
+    logs = _build.build(("select", *krecv.SOURCES, "fused"), on_done=built)
+    if not cpu_forms:
+        cpu_forms.append(cpu_pool.submit(meshless_cpu_forms))
     for src, log in logs.items():
         for line in ptxas_summary(log):
             print(f"ptxas[{src}]: {line}")
@@ -3301,7 +3353,7 @@ def main() -> None:
 
     # -- 5t. B3 at C = 32 against its plain version: seeded operands at
     # 1,000,000 peers, and every call of a real tick of the C = 32 split
-    # loops (phase 5w's sim at 100,000 peers, after 10 heartbeats)
+    # loops (phase 5w's sim at 50,000 peers, after 10 heartbeats)
     t0 = time.perf_counter()
     C32 = 32
     g = torch.Generator(device=dev)
@@ -3378,7 +3430,7 @@ def main() -> None:
         loops_main[kind] = out
         del st_l, p_l, step_l, box, out
 
-    # -- 5w. C = 32 on the split loops at 100,000 peers: the card's state
+    # -- 5w. C = 32 on the split loops at 50,000 peers: the card's state
     # digest against the CPU's after WIDE_TICKS heartbeats
     t0 = time.perf_counter()
     digests = {}
@@ -3709,6 +3761,75 @@ def main() -> None:
           f"{STACK_PATH_TICKS} ticks each: {json.dumps(s_paths)} "
           f"[{name}, {smi}]; {time.perf_counter() - t0:.1f} s")
 
+    # -- 5af, 5ag. the mesh-less simulators (no hand-written kernel: the
+    # reference leaves them to XLA, the dense hop to a matmul): the card's
+    # step forms against the CPU's digest for digest, then the full-width
+    # runs; no B1, B2 or B3 launch and no library built across both
+    libs_m = floodsub_flagship.reset_kernel_counts()
+    t0 = time.perf_counter()
+    cpu_all = cpu_forms[0].result()
+    cpu_pool.shutdown()
+    meshless = {}
+    for phase, mod in (("5af", floodsub_flagship), ("5ag", randomsub_10k)):
+        t1 = time.perf_counter()
+        card_d = mod.forms(dev)
+        t_card = time.perf_counter() - t1
+        cpu_d, t_cpu = cpu_all[phase]
+        bad = {k_: (card_d[k_], cpu_d[k_]) for k_ in card_d
+               if card_d[k_] != cpu_d[k_]}
+        print(f"{phase} forms card == CPU: {json.dumps(card_d)} (card "
+              f"{t_card:.1f} s, CPU {t_cpu:.1f} s in the child process)")
+        if bad or set(card_d) != set(cpu_d):
+            fail(f"{phase}: the card's forms differ from the CPU's: {bad}")
+        meshless[phase] = dict(forms=card_d, card_s=t_card, cpu_s=t_cpu)
+    rows_m = {}
+    for key, call in (
+            ("floodsub circulant 1M",
+             lambda: floodsub_flagship.run("circulant", dev,
+                                           profile_ticks=20)),
+            ("floodsub gather 1M",
+             lambda: floodsub_flagship.run("gather", dev, profile_ticks=20)),
+            ("randomsub dense 10k (the benchmark as written)",
+             lambda: randomsub_10k.run(True, dev, profile_ticks=20)),
+            ("randomsub circulant 1M",
+             lambda: randomsub_10k.run(False, dev, profile_ticks=20))):
+        torch.cuda.synchronize()
+        alloc0_m = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        r = call()
+        prof = r.pop("profile")
+        r["idle_share"] = prof["device_idle_share"]
+        r["launches_per_tick"] = prof["launches_per_tick"]
+        r["device_busy_ms_per_tick"] = prof["device_busy_ms_per_tick"]
+        r["top_ops"] = prof["ops"][:5]
+        r["start_bytes"] = alloc0_m
+        print(f"{key}: {r['heartbeats_per_s']!r} heartbeats/s "
+              f"({r['wall_s']:.3f} s for {floodsub_flagship.REPS} x "
+              f"{floodsub_flagship.TIMED} ticks), gate "
+              f"{r['gate']} (reach min {r['reach_min']} of "
+              f"{r['reach_want']}), peak memory {r['peak_bytes']} B "
+              f"({alloc0_m} B at the start), idle share "
+              f"{r['idle_share']!r}, launches a tick "
+              f"{r['launches_per_tick']!r}, device busy "
+              f"{r['device_busy_ms_per_tick']!r} ms a tick, kernels "
+              f"{r['launches']}, digest {r['digest']} "
+              f"({time.perf_counter() - t1:.1f} s) [{name}, {smi}]")
+        if "reach_by_hops_16" in r:
+            print(f"{key} reach_by_hops (16 hops, summed over the "
+                  f"messages): {r['reach_by_hops_16']}; in ticks since "
+                  f"publish: {r['reach_by_hops_since_publish_16']}")
+        if not r["ok"]:
+            fail(f"{key}: {json.dumps(r)}")
+        rows_m[key] = r
+    launched_m = floodsub_flagship.kernel_counts(libs_m)
+    print(f"5af-5ag: kernels across the phases {launched_m} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if (launched_m["receive"] or launched_m["fused"] or launched_m["select"]
+            or launched_m["libraries_built"]):
+        fail(f"5af-5ag launched or built a kernel: {launched_m}")
+    meshless["rows"] = rows_m
+    meshless["kernels"] = launched_m
+
     # -- 6. the unscored receive kernel vs plain at the resident shapes
     n_r = resident.N_PEERS
     cfg_r, params, state, msg_topic, _ = resident.build(dev)
@@ -3874,7 +3995,9 @@ def main() -> None:
           f"unscored "
           f"fused "
           f"{paths['fused']['heartbeats_per_s']:.2f}, per-tick "
-          f"{paths['per_tick']['heartbeats_per_s']:.2f}")
+          f"{paths['per_tick']['heartbeats_per_s']:.2f}; " + "; ".join(
+              f"{key} {r_['heartbeats_per_s']:.2f}"
+              for key, r_ in rows_m.items()))
     print(f"knob sweep heartbeats/s [{name}, {smi}]: " + "; ".join(
         f"{kind} " + ", ".join(
             f"{pname} {row['heartbeats_per_s']:.2f}"
@@ -3894,6 +4017,10 @@ def main() -> None:
         f"without delays {steady['plain']['heartbeats_per_s']:.2f}, "
         f"DelayConfig(4, 2, 8) {steady['delayed']['heartbeats_per_s']:.2f}, "
         f"delayed idle share {prof_d['device_idle_share']!r}")
+    print(f"mesh-less [{name}, {smi}]: " + "; ".join(
+        f"{key} peak memory {r_['peak_bytes']} B, idle share "
+        f"{r_['idle_share']!r}, launches a tick {r_['launches_per_tick']!r}"
+        for key, r_ in rows_m.items()))
     print(f"invariants [{name}, {smi}]: {inv_main['n_peers']} peers, "
           f"checker off {hb_ioff!r} heartbeats/s, on {hb_ion!r}, overhead "
           f"{inv_main['invariant_overhead_pct']!r}%, bits "
@@ -4142,6 +4269,7 @@ def main() -> None:
                             for key, r in b1_b.items()},
         "batched_paths": b_paths,
         "tune_defense": tuned,
+        "meshless": meshless,
         "delay_receive": {
             kname: {key: v for key, v in r.items() if key != "bound"}
             for kname, r in delay_k.items()},

@@ -31,6 +31,10 @@ This module never imports the reference; the caller flattens it.
 - the invariant checker's carry: ``inv_viol`` (uint32 []) is a word like
   the rest, ``inv_first`` (int32 []) as it is; both None on an unarmed
   state;
+- the mesh-less simulators (``FloodParams`` / ``FloodState``,
+  ``RandomSubParams`` / ``RandomSubState``): words as above, the gather
+  table ``nbrs`` int32, the fault leaves ``cross_rows`` / ``cross_nk`` /
+  ``group`` as they are, a randomsub ``key`` as its salt;
 - the byzantine mutators ``byzantine`` (bool [N]) and ``cand_byz`` (a
   word like the rest), and the P3/P3b counters ``mesh_deliveries`` and
   ``mesh_failure_penalty`` (counter dtype, under ``scores``), None where
@@ -61,6 +65,8 @@ import torch
 from .models import plan
 from .models.delays import DelayParams
 from .models.faults import FaultParams
+from .models.floodsub import FloodParams, FloodState
+from .models.randomsub import RandomSubParams, RandomSubState
 from .models.knobs import SIM_KNOB_FIELDS, SimKnobs
 from .models.telemetry import TelemetryFrame
 from .models.gossipsub import (
@@ -84,6 +90,18 @@ STATE_WORDS = ("mesh", "fanout", "have", "recent", "active", "mesh_b",
                "pay_line", "ctrl_line", "gsp_line", "adv_line", "inv_viol")
 STATE_TENSORS = (*STATE_WORDS, "last_pub", "backoff", "first_tick",
                  "iwant_serves", "backoff_b", "inv_first")
+#: the mesh-less simulators' forms of the partition crossings
+MESHLESS_FAULT_TENSORS = ("cross_rows", "cross_nk", "group")
+#: FloodParams / RandomSubParams and their states' tensors (words: u32)
+FLOOD_PARAM_TENSORS = ("nbrs", "nbr_mask", "fwd_words", "deliver_words",
+                       "origin_words", "publish_tick")
+RANDOMSUB_PARAM_TENSORS = ("subscribed", "cand_subscribed", "send_prob",
+                           "origin_words", "deliver_words", "publish_tick")
+MESHLESS_WORDS = ("fwd_words", "deliver_words", "origin_words", "have",
+                  "fresh", "src_ring", "inv_viol")
+FLOOD_STATE_TENSORS = ("have", "first_tick", "inv_viol", "inv_first",
+                       "src_ring")
+RANDOMSUB_STATE_TENSORS = ("have", "fresh", *FLOOD_STATE_TENSORS[1:])
 SCORE_TENSORS = ("time_in_mesh", "first_deliveries", "invalid_deliveries",
                  "behaviour_penalty", "time_in_mesh_b", "mesh_deliveries",
                  "mesh_failure_penalty")
@@ -141,7 +159,9 @@ def faults_from_numpy(f: dict | None, device) -> FaultParams | None:
         cross_bits=(None if f["cross_bits"] is None
                     else _tensor(f["cross_bits"], device)),
         cold_restart=bool(f["cold_restart"]),
-        directed_drops=bool(f["directed_drops"]), **part)
+        directed_drops=bool(f["directed_drops"]), **part,
+        **{name: (None if f.get(name) is None else _tensor(f[name], device))
+           for name in MESHLESS_FAULT_TENSORS})
 
 
 def faults_to_numpy(fp: FaultParams | None) -> dict | None:
@@ -165,7 +185,10 @@ def faults_to_numpy(fp: FaultParams | None) -> dict | None:
         cross_bits=(None if fp.cross_bits is None
                     else _array(fp.cross_bits, True)),
         cold_restart=fp.cold_restart, directed_drops=fp.directed_drops,
-        **part)
+        **part,
+        **{name: (None if getattr(fp, name) is None
+                  else _array(getattr(fp, name)))
+           for name in MESHLESS_FAULT_TENSORS})
 
 
 def score_knobs_from_numpy(d: dict | None, device) -> ScoreKnobs | None:
@@ -296,6 +319,77 @@ def state_to_numpy(s: GossipState) -> dict:
         tick = np.int32(s.tick)
     out.update(gates_fp=s.gates_fp, key=key, tick=tick)
     return out
+
+
+# -- the mesh-less simulators ---------------------------------------------------
+
+def _leaves_from(d: dict, names, device) -> dict:
+    return {name: (None if d.get(name) is None else _tensor(d[name], device))
+            for name in names}
+
+
+def _leaves_to(obj, names) -> dict:
+    return {name: (None if getattr(obj, name) is None
+                   else _array(getattr(obj, name), name in MESHLESS_WORDS))
+            for name in names}
+
+
+def _tick_from(d: dict) -> int:
+    return int(np.asarray(d["tick"]).reshape(-1)[0])
+
+
+def flood_params_from_numpy(d: dict, device) -> FloodParams:
+    """The port's FloodParams from the reference's leaves."""
+    return FloodParams(**_leaves_from(d, FLOOD_PARAM_TENSORS, device),
+                       faults=faults_from_numpy(d.get("faults"), device),
+                       delays=delays_from_numpy(d.get("delays"), device))
+
+
+def flood_params_to_numpy(p: FloodParams) -> dict:
+    return dict(_leaves_to(p, FLOOD_PARAM_TENSORS),
+                faults=faults_to_numpy(p.faults),
+                delays=delays_to_numpy(p.delays))
+
+
+def flood_state_from_numpy(d: dict, device) -> FloodState:
+    """The port's FloodState from the reference's leaves (``tick`` a
+    host int)."""
+    return FloodState(**_leaves_from(d, FLOOD_STATE_TENSORS, device),
+                      tick=_tick_from(d))
+
+
+def flood_state_to_numpy(s: FloodState) -> dict:
+    return dict(_leaves_to(s, FLOOD_STATE_TENSORS), tick=np.int32(s.tick))
+
+
+def randomsub_params_from_numpy(d: dict, device) -> RandomSubParams:
+    """The port's RandomSubParams from the reference's leaves."""
+    return RandomSubParams(
+        **_leaves_from(d, RANDOMSUB_PARAM_TENSORS, device),
+        faults=faults_from_numpy(d.get("faults"), device),
+        delays=delays_from_numpy(d.get("delays"), device))
+
+
+def randomsub_params_to_numpy(p: RandomSubParams) -> dict:
+    return dict(_leaves_to(p, RANDOMSUB_PARAM_TENSORS),
+                faults=faults_to_numpy(p.faults),
+                delays=delays_to_numpy(p.delays))
+
+
+def randomsub_state_from_numpy(d: dict, device) -> RandomSubState:
+    """The port's RandomSubState from the reference's leaves: the PRNG
+    key (uint32 [2]) becomes the salt, its last word."""
+    key = np.asarray(d["key"]).astype(np.uint32)
+    return RandomSubState(**_leaves_from(d, RANDOMSUB_STATE_TENSORS, device),
+                          salt=int(key[-1]), tick=_tick_from(d))
+
+
+def randomsub_state_to_numpy(s: RandomSubState) -> dict:
+    """The reference's leaves, the salt as the key ``[0, salt]``
+    (``PRNGKey(seed)`` for a seed below 2^32)."""
+    return dict(_leaves_to(s, RANDOMSUB_STATE_TENSORS),
+                key=np.array([0, s.salt], dtype=np.uint32),
+                tick=np.int32(s.tick))
 
 
 def frame_to_numpy(frame: TelemetryFrame) -> dict:

@@ -42,6 +42,17 @@ def reach_counts_from_first_tick(first_tick: torch.Tensor,
     return counts.reshape(w * b)[:m]
 
 
+def reach_by_hops_from_first_tick(first_tick: torch.Tensor, m: int,
+                                  max_hops: int) -> torch.Tensor:
+    """int32 [M, max_hops]: cumulative deliveries by hop count (a
+    first-delivery tick of h counts at hop h, as the reference counts
+    it), one hop at a time so no [hops, N, M] temporary is made."""
+    ft = first_tick_to_matrix(first_tick, m)
+    per_hop = torch.stack([(ft == h).sum(0, dtype=torch.int32)
+                           for h in range(max_hops)])      # [hops, M]
+    return torch.cumsum(per_hop, 0, dtype=torch.int32).T
+
+
 # -- degradation and recovery under faults -----------------------------------
 
 def delivery_fraction_curve(counts: torch.Tensor,

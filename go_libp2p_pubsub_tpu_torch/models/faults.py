@@ -21,8 +21,17 @@ positive-offset bit and mirrored to the partner's bit; asymmetric, one
 coin per direction, ``directed_drops``); while a partition window is
 active every edge between two groups is cut.  With ``cold_restart`` a
 peer coming back up clears its possession words and mcache ring at the
-rejoin tick.  The floodsub and randomsub forms (gather tables, dense
-all-pairs) come with those routers.
+rejoin tick.
+
+The mesh-less simulators (``models/floodsub.py``, ``models/randomsub.py``)
+take three more forms: the unpacked circulant form (``compile_faults(...,
+pack_links=False)``, partition crossings as bool ``[C, N]`` rows, any C,
+masks from ``link_ok_rows``), the gather-table form
+(``compile_faults_gather``, crossings as bool ``[N, K]`` slots,
+``link_ok_gather``) and the dense all-pairs form (``compile_faults_dense``,
+the raw group assignment, ``link_ok_dense``).  The last two take a scalar
+drop rate only, one coin per undirected pair keyed on its canonical
+``(min, max)`` lane (``_pair_uniform``).
 """
 
 from __future__ import annotations
@@ -32,7 +41,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.graph import lane_uniform, pack_rows, popcount32
+from ..ops.graph import (MASK32, fmix32, i32, lane_seed, lane_uniform,
+                         pack_rows, popcount32, shr, to_i32)
 
 #: lane_uniform phase of the per-tick link draws, disjoint from the
 #: simulator's phases (1-7, 12, 13, 15)
@@ -166,13 +176,21 @@ class FaultParams:
     part_end: tuple[int, ...] | None = None
     cold_restart: bool = False
     directed_drops: bool = False              # one coin per direction
+    # the mesh-less simulators' forms of the partition crossings (at most
+    # one of cross_bits / cross_rows / cross_nk / group is set)
+    cross_rows: torch.Tensor | None = None    # bool [C, N] (any C)
+    cross_nk: torch.Tensor | None = None      # bool [N, K] gather slots
+    group: torch.Tensor | None = None         # int32 [N] (dense all-pairs)
 
 
-def compile_faults(schedule: FaultSchedule, offsets, *,
-                   device) -> FaultParams:
+def compile_faults(schedule: FaultSchedule, offsets, *, device,
+                   pack_links: bool | None = None) -> FaultParams:
     """Lower ``schedule`` against the circulant ``offsets`` (closed under
-    negation, no 0) into tensors on ``device``; partition-crossing edges
-    are packed into one word per peer."""
+    negation, no 0) into tensors on ``device``.  ``pack_links=True``
+    packs the partition-crossing edges into one word per peer (C <= 32,
+    the gossipsub form); ``False`` keeps them as bool ``[C, N]`` rows
+    (the floodsub and randomsub form, any C).  Default: packed iff
+    C <= 32."""
     offs = tuple(int(o) for o in offsets)
     C = len(offs)
     n = schedule.n_peers
@@ -184,8 +202,10 @@ def compile_faults(schedule: FaultSchedule, offsets, *,
     if 0 in idx:
         raise ValueError("offsets must not contain 0 (self-edges have "
                          "no link to drop)")
-    if C > 32:
-        raise ValueError("packed link words need C <= 32")
+    if pack_links is None:
+        pack_links = C <= 32
+    if pack_links and C > 32:
+        raise ValueError("pack_links needs C <= 32")
     down_start, down_end = _down_tables(schedule)
 
     def t_(a):
@@ -209,15 +229,89 @@ def compile_faults(schedule: FaultSchedule, offsets, *,
                                        device=device)
     if schedule.partition_windows:
         grp = schedule.partition_group
-        bits = np.zeros(n, dtype=np.uint32)
-        for c, o in enumerate(offs):
-            bits |= (grp != np.roll(grp, -o)).astype(np.uint32) << c
-        kw["cross_bits"] = t_(bits.view(np.int32))
-        kw["part_start"] = tuple(s for s, _ in schedule.partition_windows)
-        kw["part_end"] = tuple(e for _, e in schedule.partition_windows)
+        if pack_links:
+            bits = np.zeros(n, dtype=np.uint32)
+            for c, o in enumerate(offs):
+                bits |= (grp != np.roll(grp, -o)).astype(np.uint32) << c
+            kw["cross_bits"] = t_(bits.view(np.int32))
+        else:
+            kw["cross_rows"] = t_(np.stack([grp != np.roll(grp, -o)
+                                            for o in offs]))
+        kw.update(_windows(schedule))
     return FaultParams(down_start=t_(down_start), down_end=t_(down_end),
                        seed=int(schedule.seed) & 0xFFFFFFFF,
                        cold_restart=bool(schedule.cold_restart), **kw)
+
+
+def _windows(schedule: FaultSchedule) -> dict:
+    return dict(part_start=tuple(s for s, _ in schedule.partition_windows),
+                part_end=tuple(e for _, e in schedule.partition_windows))
+
+
+def _scalar_drop(schedule: FaultSchedule, path: str, device):
+    """The gather and dense forms' drop rate: a 0-d f32 tensor, or None
+    at 0; the per-edge ``[C, N]`` form raises (it is keyed to circulant
+    offsets)."""
+    dp = schedule.drop_prob
+    if isinstance(dp, np.ndarray):
+        raise ValueError(
+            f"drop_prob: the per-edge [C, N] form needs circulant "
+            f"offsets; the {path} path draws per-undirected-edge "
+            "coins from a canonical pair hash and takes a SCALAR "
+            "probability only")
+    if float(dp) <= 0.0:
+        return None
+    return torch.tensor(float(dp), dtype=torch.float32, device=device)
+
+
+def compile_faults_gather(schedule: FaultSchedule, nbrs, nbr_mask, *,
+                          device) -> FaultParams:
+    """Lower ``schedule`` against a gather neighbor table (int ``nbrs``
+    [N, K], bool ``nbr_mask`` [N, K]): the churn tables as the circulant
+    form's, a scalar drop rate (one coin per undirected pair,
+    ``link_ok_gather``), the partition-crossing slots as bool [N, K]."""
+    nbrs = np.asarray(nbrs)
+    if nbrs.shape[0] != schedule.n_peers:
+        raise ValueError(
+            f"nbrs table has {nbrs.shape[0]} rows but the schedule "
+            f"covers n_peers={schedule.n_peers}")
+    down_start, down_end = _down_tables(schedule)
+    kw = {}
+    dp = _scalar_drop(schedule, "gather", device)
+    if dp is not None:
+        kw["drop_prob"] = dp
+    if schedule.partition_windows:
+        grp = schedule.partition_group
+        # the sentinel slot (index N) reads the pad group -1: masked anyway
+        grp_pad = np.concatenate([grp, np.full(1, -1, grp.dtype)])
+        kw["cross_nk"] = torch.from_numpy(
+            (grp[:, None] != grp_pad[nbrs]) & np.asarray(nbr_mask)).to(
+            device)
+        kw.update(_windows(schedule))
+    return FaultParams(
+        down_start=torch.from_numpy(down_start).to(device),
+        down_end=torch.from_numpy(down_end).to(device),
+        seed=int(schedule.seed) & MASK32, **kw)
+
+
+def compile_faults_dense(schedule: FaultSchedule, *, device) -> FaultParams:
+    """Lower ``schedule`` for the dense all-pairs step (randomsub's
+    matmul hop): a scalar drop rate with one canonical-pair coin per
+    undirected pair drawn on the fly (``link_ok_dense``), the partitions
+    as the raw group assignment."""
+    down_start, down_end = _down_tables(schedule)
+    kw = {}
+    dp = _scalar_drop(schedule, "dense", device)
+    if dp is not None:
+        kw["drop_prob"] = dp
+    if schedule.partition_windows:
+        kw["group"] = torch.from_numpy(
+            np.asarray(schedule.partition_group, dtype=np.int32)).to(device)
+        kw.update(_windows(schedule))
+    return FaultParams(
+        down_start=torch.from_numpy(down_start).to(device),
+        down_end=torch.from_numpy(down_end).to(device),
+        seed=int(schedule.seed) & MASK32, **kw)
 
 
 def _down_tables(schedule: FaultSchedule):
@@ -359,3 +453,90 @@ def fault_counts(fp: FaultParams, masks: TickMasks, n_candidates: int):
         -1, dtype=torch.int32)
     return down, torch.div(cut, 1 if fp.directed_drops else 2,
                            rounding_mode="floor")
+
+
+# -- the mesh-less simulators' link masks ------------------------------------
+
+def link_ok_rows(fp: FaultParams, offsets, cinv, tick: int,
+                 n_stream: int | None = None) -> torch.Tensor | None:
+    """bool [C, N]: edge (p, p + offsets[c]) up this tick (the unpacked
+    form, any C); None without link faults.  Symmetric drops are drawn
+    at the positive offsets' rows and rolled onto the partner's row
+    ``cinv[c]``; directed drops draw every row."""
+    if fp.drop_prob is None and fp.cross_rows is None:
+        return None
+    C = len(offsets)
+    n = fp.down_start.shape[-2]
+    up = torch.ones((C, n), dtype=torch.bool, device=fp.down_start.device)
+    if fp.drop_prob is not None:
+        draw = _link_drop_draw(fp, C, n, tick,
+                               n if n_stream is None else n_stream)
+        if fp.directed_drops:
+            up = ~draw
+        else:
+            rows = [None] * C
+            for c, off in enumerate(offsets):
+                if int(off) > 0:
+                    rows[c] = draw[c]
+                    rows[cinv[c]] = torch.roll(draw[c], int(off), -1)
+            up = ~torch.stack(rows)
+    if fp.cross_rows is not None and _partition_active(fp, tick):
+        up = up & ~fp.cross_rows
+    return up
+
+
+def _pair_uniform(lo: torch.Tensor, hi: torch.Tensor, span: int,
+                  tick: int, seed: int) -> torch.Tensor:
+    """f32 uniforms keyed on the canonical undirected pair ``(lo, hi)``
+    (equal for both directed views): the lane is ``lo * span + hi`` in
+    u32 with wrap, as the reference computes it, so past 2^32 lanes
+    (``span`` near 1M) distinct pairs may share a coin exactly as there.
+    The lanes are int32 while none passes 2^31, else int64 masked to
+    their low 32 bits."""
+    if (span - 1) * span + span - 1 <= MASK32 >> 1:
+        lane = lo.to(torch.int32) * span + hi.to(torch.int32)
+    else:
+        lane = to_i32(lo.to(torch.int64) * span + hi.to(torch.int64))
+    h = fmix32(lane ^ i32(lane_seed(tick, LINK_PHASE, seed)))
+    return shr(h, 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def link_ok_gather(fp: FaultParams, nbrs: torch.Tensor,
+                   tick: int) -> torch.Tensor | None:
+    """bool [N, K]: table slot (i, k) carries this tick (its undirected
+    link is up); None without link faults.  Both views of an edge share
+    the canonical ``(min, max)`` coin."""
+    if fp.drop_prob is None and fp.cross_nk is None:
+        return None
+    n = nbrs.shape[0]
+    up = torch.ones(nbrs.shape, dtype=torch.bool, device=nbrs.device)
+    if fp.drop_prob is not None:
+        i = torch.arange(n, dtype=nbrs.dtype, device=nbrs.device)[:, None]
+        u = _pair_uniform(torch.minimum(i, nbrs), torch.maximum(i, nbrs),
+                          n, tick, fp.seed)
+        up = u >= fp.drop_prob
+    if fp.cross_nk is not None and _partition_active(fp, tick):
+        up = up & ~fp.cross_nk
+    return up
+
+
+def link_ok_dense(fp: FaultParams, n: int,
+                  tick: int) -> torch.Tensor | None:
+    """bool [N, N]: adjacency entry (receiver p, sender q) carries this
+    tick; None without link faults.  One canonical-pair coin per
+    undirected pair, the diagonal always up (a self-pair has no link);
+    partitions cut the group-crossing pairs."""
+    if fp.drop_prob is None and fp.group is None:
+        return None
+    dev = fp.down_start.device
+    up = torch.ones((n, n), dtype=torch.bool, device=dev)
+    if fp.drop_prob is not None:
+        p = torch.arange(n, dtype=torch.int32, device=dev)
+        u = _pair_uniform(torch.minimum(p[:, None], p[None, :]),
+                          torch.maximum(p[:, None], p[None, :]), n, tick,
+                          fp.seed)
+        up = (u >= fp.drop_prob) | torch.eye(n, dtype=torch.bool,
+                                             device=dev)
+    if fp.group is not None and _partition_active(fp, tick):
+        up = up & (fp.group[:, None] == fp.group[None, :])
+    return up

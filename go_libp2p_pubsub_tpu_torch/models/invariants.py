@@ -103,9 +103,12 @@ class InvariantConfig:
 def attach(state):
     """``state`` armed for the checker: ``inv_viol`` 0 and ``inv_first``
     -1, 0-d int32 tensors on the state's device (a replica stack's: [B],
-    one carry a replica)."""
-    dev = state.mesh.device
-    shape = state.mesh.shape[:-1]
+    one carry a replica).  Any simulator's state: the GossipSub state's
+    mesh words [N] or the mesh-less states' possession words [W, N] give
+    the shape."""
+    dev = state.have.device
+    mesh = getattr(state, "mesh", None)
+    shape = mesh.shape[:-1] if mesh is not None else state.have.shape[:-2]
     return replace(state,
                    inv_viol=torch.zeros(shape, dtype=torch.int32, device=dev),
                    inv_first=torch.full(shape, -1, dtype=torch.int32,
@@ -218,6 +221,28 @@ def delivery_violations(icfg: InvariantConfig, have_old, have_new,
         shrink = shrink & ~allowed_clear_w[..., None, :]
     return _pack([down, invalid, _any(shrink, bt)], DELIVERY_DOWN,
                  have_new, bt)
+
+
+def wrap_step_delivery(core, icfg: InvariantConfig, sim: str):
+    """The ``delivery``-group checks (bits 0 and 2, the mesh-less
+    simulators' subset) folded around a floodsub or randomsub step core:
+    a pure readout, the wrapped core's trajectory is the bare one's.
+    ``sim`` names the simulator in ``require_armed``'s message."""
+    from . import faults as _faults
+
+    def core_inv(params, state):
+        require_armed(state, sim)
+        aw = None
+        if params.faults is not None:
+            aw = _faults.alive_word(
+                _faults.alive_mask(params.faults, state.tick))
+        out = core(params, state)
+        bits = delivery_violations(icfg, state.have, out[0].have, out[1],
+                                   alive_w=aw)
+        viol, first = fold(state.inv_viol, state.inv_first, bits,
+                           state.tick)
+        return (replace(out[0], inv_viol=viol, inv_first=first), *out[1:])
+    return core_inv
 
 
 def in_mesh_rows(mesh: torch.Tensor, C: int) -> torch.Tensor:

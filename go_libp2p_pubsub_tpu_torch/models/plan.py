@@ -33,7 +33,11 @@ reference (byzantine payload mutation, P3/P3b with ``force_split``, 17 to
 per-edge receive loops (``models/_receive_loops.py``): ``receive_path``
 is the one place the route is chosen, by the reference's own ladder;
 the loops take no paired topics, telemetry or delays yet
-(``loops_paired``, ``loops_telemetry``, ``loops_delays``).  Each
+(``loops_paired``, ``loops_telemetry``, ``loops_delays``).  The
+mesh-less simulators (``models/floodsub.py``, ``models/randomsub.py``)
+refuse cold-restart schedules when the sim is built, by the names
+``flood.cold-restart`` and ``randomsub.cold-restart``
+(``MeshlessRefusal``, a ``ValueError`` with the reference's message).  Each
 refusal has a stable name (``SliceRefusal.name``) and its own message;
 tests match on the name.  The reference's own errors are raised with its
 messages (``MSG_PAIRED_COMBINED``, ``MSG_KERNEL_KNOB_IWANT_SPAM``,
@@ -226,6 +230,42 @@ MSG_DELAYS_NEED_COUNTER_LINES = (
     "delay-armed telemetry counters need the advert + gossip observer "
     "delay lines: build the sim with make_gossip_sim(..., "
     "delays=DelayConfig(...), delays_counters=True)")
+
+
+# -- the mesh-less simulators (refused when the sim is built) ----------------
+
+MSG_FLOOD_COLD_RESTART = (
+    "cold_restart: the floodsub simulator refuses cold-restart "
+    "schedules (a cold rejoiner has no IHAVE/IWANT repair path to "
+    "recover through) — run it on the gossipsub simulator")
+
+MSG_RANDOMSUB_COLD_RESTART = (
+    "cold_restart: the randomsub simulator refuses cold-restart "
+    "schedules (a cold rejoiner has no IHAVE/IWANT repair path to "
+    "recover through) — run it on the gossipsub simulator")
+
+#: the mesh-less simulators' refusals by name, with the reference's
+#: messages (its planner's ``plan_circulant`` names)
+MESHLESS_REFUSALS: dict[str, str] = {
+    "flood.cold-restart": MSG_FLOOD_COLD_RESTART,
+    "randomsub.cold-restart": MSG_RANDOMSUB_COLD_RESTART,
+}
+
+
+class MeshlessRefusal(ValueError):
+    """A mesh-less sim build the reference refuses: a ``ValueError``
+    whose text is the reference's message, with a stable ``name``."""
+
+    def __init__(self, name: str):
+        self.name = name
+        super().__init__(MESHLESS_REFUSALS[name])
+
+
+def check_meshless_faults(sim: str, schedule) -> None:
+    """``sim`` ("flood" or "randomsub") refuses a cold-restart schedule
+    (no gossip repair would bring a cold rejoiner back)."""
+    if schedule is not None and schedule.cold_restart:
+        raise MeshlessRefusal(f"{sim}.cold-restart")
 
 
 def msg_fused_delays(extra_bytes: int) -> str:

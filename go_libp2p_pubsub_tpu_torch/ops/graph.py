@@ -113,10 +113,21 @@ def lane_uniform_from_seed(shape: tuple[int, ...], seed: int,
         h = fmix32(to_i32(lane ^ _seed64(seed, 0)[None, :]))
         return shr(h, 8).to(torch.float32) * (1.0 / (1 << 24))
     if len(shape) == 2:
+        stride = shape[1] if stride is None else stride
+        if (cols is None and not isinstance(seed, torch.Tensor)
+                and (shape[0] - 1) * stride + shape[1] <= MASK32 >> 1):
+            # no lane passes 2^31: the u32 lanes' bits in int32, without
+            # the int64 passes (a [128, 1M] or [10k, 10k] field holds 4
+            # bytes a lane)
+            lane = (torch.arange(shape[0], dtype=torch.int32,
+                                 device=device)[:, None] * stride
+                    + torch.arange(shape[1], dtype=torch.int32,
+                                   device=device))
+            h = fmix32(lane ^ i32(seed))
+            return shr(h, 8).to(torch.float32) * (1.0 / (1 << 24))
         rows = torch.arange(shape[0], dtype=torch.int64, device=device)
         if cols is None:
             cols = torch.arange(shape[1], dtype=torch.int64, device=device)
-        stride = shape[1] if stride is None else stride
         lane = rows[:, None] * stride + cols[None, :]
     else:
         total = int(np.prod(shape))
@@ -269,3 +280,125 @@ def make_circulant_offsets(n_classes: int, degree: int, n_peers: int,
     ks = rng.choice(np.arange(1, half + 1), size=degree // 2, replace=False)
     offs = np.concatenate([ks, -ks]) * n_classes
     return offs.astype(np.int64)
+
+
+# -- the mesh-less simulators' hops --------------------------------------------
+
+def propagate_circulant(words: torch.Tensor, offsets) -> torch.Tensor:
+    """One hop over a circulant graph: the OR of the possession words
+    (peer-minor [W, N]) rolled along the peer axis by each offset."""
+    out = torch.zeros_like(words)
+    for off in offsets:
+        out |= torch.roll(words, int(off), -1)
+    return out
+
+
+def slot_index(nbrs: torch.Tensor) -> torch.Tensor:
+    """A table [N, K]'s indices slot-major and flat ([K * N]), as
+    ``gather_slots`` reads them (a step makes it once per table)."""
+    return nbrs.T.reshape(-1)
+
+
+def gather_slots(words: torch.Tensor, nbrs: torch.Tensor,
+                 flat: torch.Tensor | None = None) -> torch.Tensor:
+    """Peer-minor words [W, N] read at each table slot: int32 [W, K, N],
+    ``out[w, k, p] = words[w, nbrs[p, k]]``, the sentinel index N reading
+    zero (the reference's ``mode="fill", fill_value=0`` gather: a zero
+    column is padded on, so no index runs out of range).  Slot-major, so
+    each slot's row is contiguous for the OR fold.  ``flat``: the table's
+    ``slot_index``, if made already."""
+    n, k = nbrs.shape
+    padded = torch.nn.functional.pad(words, (0, 1))
+    idx = slot_index(nbrs) if flat is None else flat
+    return padded.index_select(1, idx).view(words.shape[0], k, n)
+
+
+def or_fold(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Bitwise-OR reduction of ``x`` over ``dim`` (PyTorch has none): the
+    halves ORed together until one row is left, log2 of the axis' length
+    passes; over an empty axis, zeros."""
+    if x.shape[dim] == 0:
+        return x.sum(dim, dtype=x.dtype)
+    while x.shape[dim] > 1:
+        k = x.shape[dim]
+        h = k // 2
+        folded = x.narrow(dim, 0, h) | x.narrow(dim, h, h)
+        if k % 2:
+            folded.narrow(dim, 0, 1).bitwise_or_(x.narrow(dim, 2 * h, 1))
+        x = folded
+    return x.squeeze(dim)
+
+
+def propagate_pm(words: torch.Tensor, nbrs: torch.Tensor,
+                 nbr_mask: torch.Tensor) -> torch.Tensor:
+    """One hop over a gather table, peer-minor: words [W, N], nbrs int32
+    [N, K] (sentinel N), nbr_mask bool [N, K] -> [W, N], the OR of each
+    peer's valid neighbors' words."""
+    g = gather_slots(words, nbrs)
+    return or_fold(torch.where(nbr_mask.T[None], g, 0), 1)
+
+
+def propagate(words: torch.Tensor, nbrs: torch.Tensor,
+              nbr_mask: torch.Tensor) -> torch.Tensor:
+    """``propagate_pm`` for peer-major words [N, W] -> [N, W]."""
+    return propagate_pm(words.T, nbrs, nbr_mask).T
+
+
+# -- numpy graph builders (host side, the reference's draws) -----------------
+
+def build_random_graph(n_peers: int, degree: int, seed: int = 0,
+                       max_degree: int | None = None):
+    """An undirected random graph as a padded neighbor table: each peer
+    draws ``degree`` random neighbors, edges symmetrized.  Returns
+    ``(nbrs int32 [N, K] padded with N, nbr_mask bool [N, K])``."""
+    rng = np.random.default_rng(seed)
+    src = np.repeat(np.arange(n_peers, dtype=np.int64), degree)
+    dst = rng.integers(0, n_peers, size=n_peers * degree, dtype=np.int64)
+    keep = src != dst
+    return _edges_to_table(src[keep], dst[keep], n_peers, max_degree)
+
+
+def _edges_to_table(src: np.ndarray, dst: np.ndarray, n_peers: int,
+                    max_degree: int | None):
+    """Symmetrize and dedup an edge list into a padded fixed-degree
+    neighbor table (sentinel ``n_peers``; peers over ``max_degree`` are
+    truncated)."""
+    a = np.concatenate([src, dst]).astype(np.int64)
+    b = np.concatenate([dst, src]).astype(np.int64)
+    edges = np.unique(a * n_peers + b)
+    a, b = edges // n_peers, edges % n_peers
+    counts = np.bincount(a, minlength=n_peers)
+    K = max_degree or int(counts.max() if len(a) else 1)
+    starts = np.zeros(n_peers + 1, dtype=np.int64)
+    np.cumsum(counts, out=starts[1:])
+    slot = np.arange(len(a)) - starts[a]
+    ok = slot < K
+    nbrs = np.full((n_peers, K), n_peers, dtype=np.int32)
+    nbrs[a[ok], slot[ok]] = b[ok]
+    return nbrs, nbrs != n_peers
+
+
+def build_topic_graph(subs: np.ndarray, degree: int, seed: int = 0,
+                      max_degree: int | None = None):
+    """The union of per-topic random graphs among each topic's
+    subscribers (bool ``subs`` [N, T]), as ``build_random_graph``'s
+    padded table; with no topic of two subscribers, an edgeless one."""
+    rng = np.random.default_rng(seed)
+    n_peers, n_topics = subs.shape
+    srcs, dsts = [], []
+    for t in range(n_topics):
+        members = np.nonzero(subs[:, t])[0]
+        if len(members) < 2:
+            continue
+        d = min(degree, len(members) - 1)
+        src = np.repeat(members, d)
+        dst = members[rng.integers(0, len(members), size=len(members) * d)]
+        keep = src != dst
+        srcs.append(src[keep])
+        dsts.append(dst[keep])
+    if not srcs:
+        K = max_degree or 1
+        nbrs = np.full((n_peers, K), n_peers, dtype=np.int32)
+        return nbrs, nbrs != n_peers
+    return _edges_to_table(np.concatenate(srcs), np.concatenate(dsts),
+                           n_peers, max_degree)

@@ -1852,3 +1852,22 @@ def test_batched_delay_and_telemetry_step_on_the_card_matches_the_cpu(
                                            atol=1e-6)
             else:
                 np.testing.assert_array_equal(got[name], w, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sim", ["floodsub", "randomsub"])
+def test_meshless_forms_on_the_card_match_the_cpu(cuda, sim):
+    """The mesh-less simulators (no hand-written kernel: the reference
+    leaves them to XLA): each step form (plain, faulted, with telemetry,
+    delayed, armed) of the FloodSub circulant and gather cores and of the
+    RandomSub circulant step at 20,000 peers and dense step at 1,000, 40
+    ticks, the card's digest of every state leaf, delivered word and frame
+    field equal to the CPU's; no kernel launched and no library built."""
+    from go_libp2p_pubsub_tpu_torch import floodsub_flagship, randomsub_10k
+
+    mod = floodsub_flagship if sim == "floodsub" else randomsub_10k
+    libs0 = floodsub_flagship.reset_kernel_counts()
+    card = mod.forms(cuda)
+    counts = floodsub_flagship.kernel_counts(libs0)
+    assert card == mod.forms(torch.device("cpu"))
+    assert counts == dict(receive=0, fused=0, select=0, libraries_built=[])

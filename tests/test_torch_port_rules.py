@@ -474,3 +474,59 @@ def test_more_refusals():
     # every named refusal is raised somewhere the tests reach
     assert set(plan.REFUSALS) == set(REFUSED) | {
         "no_messages", "reweighted_static", "kernel_shape"}
+
+
+def test_meshless_modules_are_under_the_import_check():
+    """The FloodSub and RandomSub simulators and their entry modules are
+    among the files the import rule reads."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"go_libp2p_pubsub_tpu_torch/models/floodsub.py",
+            "go_libp2p_pubsub_tpu_torch/models/randomsub.py",
+            "go_libp2p_pubsub_tpu_torch/floodsub_flagship.py",
+            "go_libp2p_pubsub_tpu_torch/randomsub_10k.py"} <= names
+
+
+def _meshless_entry_points():
+    from go_libp2p_pubsub_tpu_torch import floodsub_flagship, randomsub_10k
+    from go_libp2p_pubsub_tpu_torch.models import floodsub as pfs
+    from go_libp2p_pubsub_tpu_torch.models import randomsub as prs
+
+    n = 60
+    subs = np.ones((n, 1), dtype=bool)
+    msgs = (np.array([0]), np.array([0]), np.zeros(1, np.int32))
+    cfg = prs.RandomSubSimConfig(offsets=prs.make_randomsub_offsets(1, 4, n))
+    fp, fst = pfs.make_flood_sim(None, None, subs, None, *msgs,
+                                 device="cpu")
+    rp, rst = prs.make_randomsub_sim(cfg, subs, *msgs, device="cpu")
+    step = prs.make_randomsub_step(cfg)
+    return {
+        "make_flood_sim": lambda **k: pfs.make_flood_sim(
+            None, None, subs, None, *msgs, **k),
+        "make_randomsub_sim": lambda **k: prs.make_randomsub_sim(
+            cfg, subs, *msgs, **k),
+        "flood_run": lambda **k: pfs.flood_run(fp, fst, 1, **k),
+        "flood_run_curve": lambda **k: pfs.flood_run_curve(
+            fp, fst, 1, pfs.make_gather_step_core(), 1, **k),
+        "randomsub_run": lambda **k: prs.randomsub_run(rp, rst, 1, step,
+                                                       **k),
+        "randomsub_run_curve": lambda **k: prs.randomsub_run_curve(
+            rp, rst, 1, step, 1, **k),
+        "floodsub_flagship.run": lambda **k: floodsub_flagship.run(
+            "circulant", **k),
+        "floodsub_flagship.forms": lambda **k: floodsub_flagship.forms(**k),
+        "randomsub_10k.run": lambda **k: randomsub_10k.run(True, **k),
+        "randomsub_10k.forms": lambda **k: randomsub_10k.forms(**k),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "make_flood_sim", "make_randomsub_sim", "flood_run", "flood_run_curve",
+    "randomsub_run", "randomsub_run_curve", "floodsub_flagship.run",
+    "floodsub_flagship.forms", "randomsub_10k.run", "randomsub_10k.forms"])
+def test_meshless_entry_points_default_to_cuda(name):
+    """The mesh-less simulators' entry points run on the card unless the
+    caller asks for the CPU, and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _meshless_entry_points()[name]()

@@ -22,6 +22,8 @@ checked on the JAX reference.
         [--n 20000] [--port]
     JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --batched \
         [--n 100000] [--port]
+    JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --randomsub \
+        [--n 10000] [--port]
 
 Runs the JAX package's unscored per-tick step (XLA) on the resident
 configuration (go_libp2p_pubsub_tpu_torch/resident.py: 10 topics, C = 16,
@@ -126,6 +128,14 @@ prints each row beside TOURNEY_r12.json's and whether the run reproduces
 that file; exits 1 if any cell has an invariant bit.  With ``--port`` the
 port's cell-by-cell CPU run (``tournament.run_tournament(..., device=
 "cpu")``) must give the same report.
+
+With ``--randomsub`` it runs the JAX package's RandomSub-10k benchmark
+(bench_suite.py ``bench_randomsub_10k``: one topic, 32 messages, C = 128,
+the dense step, 50 + 300 ticks; go_libp2p_pubsub_tpu_torch/randomsub_10k.py)
+on the reference at ``--n`` peers (default 10,000, the benchmark's) and
+prints its reach gate (every message at every peer) and the digest of
+every state leaf; with ``--port`` the port's plain CPU run must give the
+same reach and digest.
 """
 
 import argparse
@@ -654,6 +664,44 @@ def invariants_rows(n: int, port: bool) -> int:
     return 0 if ok else 1
 
 
+def randomsub_rows(n: int, port: bool) -> int:
+    """The JAX package's RandomSub-10k benchmark (``bench_randomsub_10k``:
+    one topic, M = 32 by ``default_rng(0)`` over [0, 320), C = 128, the
+    dense step, 50 + 300 ticks) on the reference at ``n`` peers: its reach
+    gate and a digest of every state leaf (and, with ``port``, the port's
+    plain CPU run, ``randomsub_10k.run(True, "cpu", n)``, against them)."""
+    from go_libp2p_pubsub_tpu_torch import randomsub_10k
+
+    t, m, c = 1, 32, randomsub_10k.N_CAND
+    ticks = 50 + 3 * 100
+    with imported_reference() as r:
+        import go_libp2p_pubsub_tpu.models.randomsub as rs
+        rng = np.random.default_rng(0)
+        cfg = rs.RandomSubSimConfig(
+            offsets=rs.make_randomsub_offsets(t, c, n, seed=0), n_topics=t)
+        topic = rng.integers(0, t, m)
+        origin = rng.integers(0, n // t, m) * t + topic
+        tick = np.sort(rng.integers(0, ticks - 30, m)).astype(np.int32)
+        params, state = rs.make_randomsub_sim(
+            cfg, resident.subs_matrix(n, t), topic, origin, tick, dense=True)
+        state = rs.randomsub_run(params, state, ticks,
+                                 rs.make_randomsub_dense_step(cfg))
+        reach = np.asarray(rs.reach_counts(params, state))
+        digest = knob_sweep.tree_digest(tree_to_numpy(state))
+    ok = bool((reach == n).all())
+    print(f"N={n}, {ticks} ticks, dense step: reach {reach.tolist()} "
+          f"(gate: every message at all {n}): {ok}; digest {digest}")
+    if port:
+        out = randomsub_10k.run(True, "cpu", n_peers=n)
+        match = out["digest"] == digest and out["reach_min"] == reach.min()
+        print(f"port (CPU): reach min {out['reach_min']}, digest "
+              f"{out['digest']}, {out['heartbeats_per_s']!r} heartbeats/s "
+              f"on this CPU; equal to the reference: {match}")
+        ok = ok and match and out["ok"]
+    print("gates", "pass" if ok else "FAIL")
+    return 0 if ok else 1
+
+
 def tournament_rows(n: int, port: bool) -> int:
     """The reference's attack × defense tournament at its benchmark shape
     (``run_tournament(n, 20, 24, 150)``, one batched dispatch on the
@@ -812,6 +860,7 @@ def main() -> int:
     ap.add_argument("--invariants", action="store_true")
     ap.add_argument("--tournament", action="store_true")
     ap.add_argument("--batched", action="store_true")
+    ap.add_argument("--randomsub", action="store_true")
     ap.add_argument("--port", action="store_true")
     ap.add_argument("--ticks", type=int, default=400)
     args = ap.parse_args()
@@ -829,6 +878,8 @@ def main() -> int:
         return tournament_rows(args.n or 20_000, args.port)
     if args.batched:
         return batched_rows(args.n or 100_000, args.port)
+    if args.randomsub:
+        return randomsub_rows(args.n or 10_000, args.port)
     if args.adversarial or args.everything or args.everything_paired:
         return adversarial_gates(
             args.n or 100_000, args.ticks,
