@@ -350,6 +350,33 @@ Phases (any failure exits non-zero; nothing is caught):
    20-tick profile (idle share, launches a tick).  Across 5af and 5ag
    the receive, fused and select kernels launch zero times and no
    library is built (counts reset before, read after);
+5ah. the RPC probe (make_gossip_step(rpc_probe=True)) at 20,000 peers on
+   every per-tick family (trace_export.PROBE_FORMS: the flagship, the
+   unscored resident configuration, the adversarial one, everything-on,
+   paired everything-on and unscored paired, each clean, under the churn
+   benchmark's kind of schedule, faulted with every telemetry group, at a
+   knob point and faulted with the checker armed; the delayed flagship,
+   attack, full and unscored sims with the probe line; the receive
+   loops' byzantine, P3 and C = 32 forms), 8 ticks each: the digest of
+   every tick's snapshot and the end state on the card equal to the
+   CPU's (the CPU's in 5af's child process, after the build), and
+   the card's end state equal to the probe-free step's but for the probe
+   line; then the trace-export pipeline at 20,000 peers (collected on
+   the card, exported in a child process) writes the pb bytes the CPU's
+   run writes (SHA-256);
+5ai. the slice's main path: the JAX package's trace-export benchmark as
+   written (bench_suite.py _trace_export_run, unpadded; trace_export.py:
+   100,000 peers, 100 topics, M = 16, C = 16, ScoreSimConfig(), two
+   invalid messages from sybil origins, ~0.2% of the peers down, 2% link
+   loss; telemetry for 6 ticks, acquisition snapshots for 6, the RPC
+   probe for 2), collected on the card right after phase 2 (counts reset
+   just before, read just after: B1 and B3 launched, B2 not; B1's
+   variants printed), its host-side export in a child process while the
+   later phases run: 13/13 event types, the trace's SHA-256 equal to the
+   reference's (trace_export.REFERENCE_SHA256), the port's tracestat
+   --check against the committed OBS_r10.json clean; its rows
+   (n_events, bytes_total, collect_s, export_s, write_s, events/s,
+   bytes/event, peak memory);
 6. the unscored receive kernel against its plain version at the resident
    configuration's shapes (N = 1,048,576, C = 16, W = 1), on seeded random
    operands and on the operands of a real unscored tick: every output
@@ -385,6 +412,7 @@ import json
 import multiprocessing
 import re
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1668,6 +1696,119 @@ def meshless_cpu_forms() -> dict:
     return out
 
 
+def trace_cpu_half() -> dict:
+    """The CPU half of 5ah: each probe form's digest and the 20,000-peer
+    pipeline's trace digest on the CPU, with their seconds.  It runs in
+    the child process of ``meshless_cpu_forms``, submitted once the build
+    is done (three threads)."""
+    torch.set_num_threads(3)
+    from go_libp2p_pubsub_tpu_torch import trace_export
+
+    t0 = time.perf_counter()
+    forms = trace_export.probe_forms(torch.device("cpu"))
+    t_forms = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = trace_export.export(
+            trace_export.collect("cpu", trace_export.FORM_PEERS), tmp)
+    return dict(forms=forms, forms_s=t_forms, sha256=rows["sha256"],
+                n_events=rows["n_events"],
+                pipeline_s=time.perf_counter() - t0 - t_forms)
+
+
+def trace_start(dev, name: str, smi: str) -> dict:
+    """5ai's device half (the benchmark collected on the card, counts
+    reset just before and read just after) and the 20,000-peer pipeline's
+    collection for 5ah; both exports start in a child process (two
+    workers, one each), writing into a temporary directory, while the
+    later phases run."""
+    from go_libp2p_pubsub_tpu_torch import floodsub_flagship, trace_export
+
+    libs0 = floodsub_flagship.reset_kernel_counts()
+    t0 = time.perf_counter()
+    bundle = trace_export.collect(dev)
+    torch.cuda.synchronize()
+    launched = floodsub_flagship.kernel_counts(libs0)
+    variants = dict(bundle["receive_launches"])
+    print(f"5ai collected on the card: {trace_export.N_PEERS} peers, "
+          f"{trace_export.T_TEL} telemetry + {trace_export.T_ACQ} "
+          f"acquisition + {trace_export.T_RPC} probe ticks in "
+          f"{bundle['collect_s']!r} s, peak memory {bundle['peak_bytes']} "
+          f"B; launches B1 {launched['receive']} ({variants}), B3 "
+          f"{launched['select']}, B2 {launched['fused']} [{name}, {smi}]")
+    if launched["fused"] or not launched["receive"] or not launched["select"]:
+        fail(f"5ai kernels: {launched}")
+    small = trace_export.collect(dev, trace_export.FORM_PEERS)
+    tmp = tempfile.TemporaryDirectory()
+    pool = concurrent.futures.ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    return dict(
+        tmp=tmp, pool=pool, launches=launched, variants=variants,
+        collect_s=bundle["collect_s"], peak_bytes=bundle["peak_bytes"],
+        seconds=time.perf_counter() - t0,
+        export=pool.submit(trace_export.export, bundle,
+                           Path(tmp.name) / "main"),
+        small=pool.submit(trace_export.export, small,
+                          Path(tmp.name) / "small", None))
+
+
+def trace_finish(dev, started: dict, cpu_half: dict, name: str,
+                 smi: str) -> dict:
+    """5ah on the card against the CPU half, and 5ai's export read back:
+    the checks and rows of both phases (the child process stopped, the
+    temporary directory removed)."""
+    from go_libp2p_pubsub_tpu_torch import trace_export
+
+    t0 = time.perf_counter()
+    card = trace_export.probe_forms(dev, check_plain=True)
+    t_card = time.perf_counter() - t0
+    bad = {label: (row, cpu_half["forms"].get(label))
+           for label, row in card.items()
+           if not row["plain_equal"]
+           or row["digest"] != cpu_half["forms"].get(label, {}).get("digest")}
+    print(f"5ah probe forms at {trace_export.FORM_PEERS} peers, "
+          f"{trace_export.FORM_TICKS} ticks: {len(card)} card == CPU and "
+          f"== the probe-free step: {not bad} (card {t_card:.1f} s, CPU "
+          f"{cpu_half['forms_s']:.1f} s in the child process); "
+          + json.dumps({k: v["digest"] for k, v in card.items()}))
+    if bad or set(card) != set(cpu_half["forms"]):
+        fail(f"5ah probe forms differ: {bad}")
+    small = started["small"].result()
+    print(f"5ah pipeline at {trace_export.FORM_PEERS} peers: card trace "
+          f"sha256 {small['sha256']}, CPU {cpu_half['sha256']} "
+          f"({small['n_events']} events; CPU run "
+          f"{cpu_half['pipeline_s']:.1f} s)")
+    if (small["sha256"] != cpu_half["sha256"]
+            or small["n_events"] != cpu_half["n_events"]):
+        fail("5ah: the card's 20,000-peer trace differs from the CPU's")
+    rows = started["export"].result()
+    started["pool"].shutdown()
+    started["tmp"].cleanup()
+    rows.pop("tracestat")
+    rows.pop("trace")
+    rows.pop("frames")
+    rows.update(launches=started["launches"],
+                receive_variants=started["variants"])
+    ok = (rows["n_types"] == 13 and rows["check_problems"] == []
+          and rows["sha256"] == trace_export.REFERENCE_SHA256)
+    print(f"5ai the trace-export benchmark as written: {rows['n_events']} "
+          f"events, {rows['bytes_total']} B, {rows['n_types']}/13 types, "
+          f"collect {rows['collect_s']!r} s (card), export "
+          f"{rows['export_s']!r} s, write {rows['write_s']!r} s (host, the "
+          f"child process), {rows['events_per_s']!r} events/s, "
+          f"{rows['bytes_per_event']!r} B/event, sha256 {rows['sha256']} "
+          f"(the reference's: {rows['sha256'] == trace_export.REFERENCE_SHA256}"
+          f"), tracestat --check OBS_r10.json problems "
+          f"{rows['check_problems']}, peak memory {rows['peak_bytes']} B, "
+          f"launches {rows['launches']} ({rows['receive_variants']}) "
+          f"[{name}, {smi}]")
+    print(f"5ai types: {json.dumps(rows['types'])}")
+    if not ok:
+        fail(f"5ai: {json.dumps(rows)}")
+    return dict(main=rows, forms={k: v["digest"] for k, v in card.items()},
+                forms_card_s=t_card, forms_cpu_s=cpu_half["forms_s"],
+                pipeline_20k_sha256=small["sha256"])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs "
@@ -1733,12 +1874,19 @@ def main() -> None:
     logs = _build.build(("select", *krecv.SOURCES, "fused"), on_done=built)
     if not cpu_forms:
         cpu_forms.append(cpu_pool.submit(meshless_cpu_forms))
+    # 5ah's CPU half follows in the same child once no nvcc is left
+    cpu_forms.append(cpu_pool.submit(trace_cpu_half))
     for src, log in logs.items():
         for line in ptxas_summary(log):
             print(f"ptxas[{src}]: {line}")
     for src, sec in sorted(build_s.items(), key=lambda kv: kv[1]):
         print(f"build seconds [{src}.cu]: {sec:.1f}")
     print(f"build: {time.perf_counter() - t0:.1f} s")
+
+    # -- 5ai (its device half). the trace-export benchmark collected on
+    # the card; its host-side export (and 5ah's 20,000-peer one) runs in a
+    # child process while the later phases run (read before phase 10)
+    trace_started = trace_start(dev, name, smi)
 
     n, C = flagship.N_PEERS, flagship.N_CAND
 
@@ -3830,6 +3978,13 @@ def main() -> None:
     meshless["rows"] = rows_m
     meshless["kernels"] = launched_m
 
+    # -- 5ah, 5ai. the RPC probe's forms card against CPU, the 20,000-peer
+    # pipeline's bytes, and the trace-export benchmark's export read back
+    t0 = time.perf_counter()
+    trace_main = trace_finish(dev, trace_started, cpu_forms[1].result(),
+                              name, smi)
+    print(f"5ah-5ai: {time.perf_counter() - t0:.1f} s")
+
     # -- 6. the unscored receive kernel vs plain at the resident shapes
     n_r = resident.N_PEERS
     cfg_r, params, state, msg_topic, _ = resident.build(dev)
@@ -4270,6 +4425,7 @@ def main() -> None:
         "batched_paths": b_paths,
         "tune_defense": tuned,
         "meshless": meshless,
+        "trace_export": trace_main,
         "delay_receive": {
             kname: {key: v for key, v in r.items() if key != "bound"}
             for kname, r in delay_k.items()},

@@ -27,7 +27,8 @@ This module never imports the reference; the caller flattens it.
 - ``delays`` (a nested dict, or None) becomes ``DelayParams``: ``base``,
   ``jitter`` and ``seed`` 0-d int32 tensors (the seed's u32 bits),
   ``k_slots`` a host int; the state's delay lines (``pay_line``,
-  ``ctrl_line``, ``gsp_line``, ``adv_line``) are words like the rest;
+  ``ctrl_line``, ``gsp_line``, ``adv_line``, ``probe_line``) are words
+  like the rest;
 - the invariant checker's carry: ``inv_viol`` (uint32 []) is a word like
   the rest, ``inv_first`` (int32 []) as it is; both None on an unarmed
   state;
@@ -87,7 +88,8 @@ PARAM_TENSORS = ("subscribed", *PARAM_WORDS, "publish_tick",
                  "cand_sybil", "sybil", "promise_break", "eclipse_sybil",
                  "eclipse_victim", "byzantine")
 STATE_WORDS = ("mesh", "fanout", "have", "recent", "active", "mesh_b",
-               "pay_line", "ctrl_line", "gsp_line", "adv_line", "inv_viol")
+               "pay_line", "ctrl_line", "gsp_line", "adv_line", "probe_line",
+               "inv_viol")
 STATE_TENSORS = (*STATE_WORDS, "last_pub", "backoff", "first_tick",
                  "iwant_serves", "backoff_b", "inv_first")
 #: the mesh-less simulators' forms of the partition crossings

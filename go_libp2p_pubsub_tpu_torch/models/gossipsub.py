@@ -87,7 +87,11 @@ from . import _receive_loops as _loops
 from . import plan
 from . import telemetry as _telemetry
 from ._batch import index_trees, stack_trees, tree_copy  # noqa: F401
-from ._delivery import reach_counts_from_first_tick, update_first_tick
+from ._delivery import (
+    first_tick_to_matrix,
+    reach_counts_from_first_tick,
+    update_first_tick,
+)
 
 
 # --------------------------------------------------------------------------
@@ -438,6 +442,10 @@ class GossipState:
     ctrl_line: torch.Tensor | None = None   # int32 [K, R, N]
     gsp_line: torch.Tensor | None = None    # int32 [K, C, W, N]
     adv_line: torch.Tensor | None = None    # int32 [K, C, W, N]
+    # with delays_probe, the probe's observer line: the three send-class
+    # attempt words (eager forward, IHAVE advert, publish flood) of the
+    # RPCs in flight, receiver-indexed
+    probe_line: torch.Tensor | None = None  # int32 [K, 3, N]
     # the invariant checker's carry (``models/invariants.py``; None until
     # ``attach``): the cumulative violation mask, a u32 word held as int32,
     # and the first violating tick (-1 while clean)
@@ -513,14 +521,14 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
     transfer take base + a per-edge jitter draw ticks through the K-slot
     delay lines the state then carries (paired topics raise the
     reference's NotImplementedError); ``delays_counters=True`` adds the
-    observer lines the delayed telemetry counters need.
-    ``delays_split=True`` (the split path) is refused by name as
-    ``delays_split``, ``delays_probe=True`` as ``rpc_probe``."""
+    observer lines the delayed telemetry counters need, and
+    ``delays_probe=True`` the probe line a delay-armed ``rpc_probe`` step
+    dequeues its arrival masks from.  ``delays_split=True`` (the split
+    path) is refused by name as ``delays_split``."""
     dev = resolve_device(device)
     plan.check_sim_options(
         flood_proto=flood_proto, pad_to_block=pad_to_block, delays=delays,
-        delays_split=delays_split, delays_counters=delays_counters,
-        delays_probe=delays_probe)
+        delays_split=delays_split, delays_counters=delays_counters)
     if delays is not None and cfg.paired_topics:
         # per-slot delay lines and delayed cross-slot control routing are
         # not modelled (the reference's refusal)
@@ -770,17 +778,18 @@ def make_gossip_sim(cfg: GossipSimConfig, subs: np.ndarray,
         backoff_b=i16() if paired else None)
     if delays is not None:
         state = _delay_lines(sc, params, state, delays.k_slots,
-                             delays_counters)
+                             delays_counters, delays_probe)
     # seed the gate pipeline: tick 0's gate words
     return params, refresh_gates(cfg, sc, params, state)
 
 
 def _delay_lines(sc: ScoreSimConfig | None, params: GossipParams,
                  state: GossipState, k_slots: int,
-                 counters: bool) -> GossipState:
+                 counters: bool, probe: bool = False) -> GossipState:
     """``state`` with empty K-slot delay lines; the ctrl line's fourth row
     (the broken-promise advert) exists iff some peer may withhold what it
-    advertises, and ``counters`` adds the two observer lines."""
+    advertises, ``counters`` adds the two observer lines and ``probe`` the
+    probe line."""
     w, n = state.have.shape
     c = state.backoff.shape[0]
     has_cheat = sc is not None and (sc.sybil_ihave_spam
@@ -792,22 +801,25 @@ def _delay_lines(sc: ScoreSimConfig | None, params: GossipParams,
     lines = dict(pay_line=line(c, w, n), ctrl_line=line(3 + has_cheat, n))
     if counters:
         lines.update(gsp_line=line(c, w, n), adv_line=line(c, w, n))
+    if probe:
+        lines["probe_line"] = line(3, n)
     return replace(state, **lines)
 
 
 def arm_delays(sc: ScoreSimConfig | None, params: GossipParams,
                state: GossipState, delays: _delays.DelayConfig, *,
-               delays_counters: bool = False):
+               delays_counters: bool = False, delays_probe: bool = False):
     """(params, state) of a sim built without delays, armed with
     ``delays`` as ``make_gossip_sim(..., delays=delays,
-    delays_counters=...)`` arms it: the compiled DelayParams and empty
-    lines (paired topics raise the reference's NotImplementedError)."""
+    delays_counters=..., delays_probe=...)`` arms it: the compiled
+    DelayParams and empty lines (paired topics raise the reference's
+    NotImplementedError)."""
     if state.mesh_b is not None:
         raise NotImplementedError(plan.MSG_DELAYS_PAIRED)
     params = replace(params, delays=_delays.compile_delays(
         delays, params.subscribed.device))
     return params, _delay_lines(sc, params, state, delays.k_slots,
-                                delays_counters)
+                                delays_counters, delays_probe)
 
 
 def knob_params(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
@@ -1160,7 +1172,7 @@ def delay_exchange(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
                    sel: dict, targets, withhold, out_bits, flood_bits,
                    fresh, adv, injected, payload_bits, gossip_bits,
                    accept_bits, fm, counters: bool,
-                   geo: EdgeGeometry) -> dict:
+                   geo: EdgeGeometry, probe=None) -> dict:
     """This tick's transfers through the delay lines (the reference's
     ``delay_exchange(split=False)``, the combined form).
 
@@ -1176,7 +1188,10 @@ def delay_exchange(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
     confirmation cannot be sent) is retracted: at once over an edge whose
     draw is 1, else through the ctrl line; a failed local send is known at
     once.  With ``counters``: the send-side telemetry tallies and the
-    gossip-class and advert observer lines.
+    gossip-class and advert observer lines.  With ``probe`` (the RPC
+    probe's three post-fault send words: eager forward, IHAVE advert,
+    publish flood, each or None) they ride the probe line to their
+    receivers, and ``arr_probe`` [3, N] is this tick's arrivals.
 
     Returns the dequeued payload words ``arr_pay`` [C, W, N] (row j = the
     receiving bit), the resolved control words ``graft_arr``,
@@ -1328,7 +1343,20 @@ def delay_exchange(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
             retract = (retract & fm.alive_all) | (grafts & ~fm.send_ok)
         out.update(graft_arr=graft_arr, prune_arr=prune_arr,
                    retract=retract | retr_arr, cheat_arr=cheat_arr,
-                   ctrl_line=ctrl_line)
+                   ctrl_line=ctrl_line, probe_line=state.probe_line)
+    if probe is not None:
+        # the probe's observer line: the attempt words of the sends that
+        # entered the network, at their receivers (a readout: possession
+        # never reads it)
+        fwd_w, adv_w, flood_w = (zrow if w_ is None else w_ for w_ in probe)
+        fly = transfer_bits(fwd_w | (adv_w << 16), cfg, pair=True, geo=geo)
+        rows_p = [fly & 0xFFFF, graph.shr(fly, 16),
+                  transfer_bits(flood_w, cfg, geo=geo)]
+        out["arr_probe"], out["probe_line"] = _delays.enqueue_dequeue(
+            state.probe_line, lambda o: torch.bitwise_and(
+                torch.stack(rows_p, -2).unsqueeze(-3),
+                slot_sel.unsqueeze(-2), out=o),
+            tick, axis=lead)
     return out
 
 
@@ -1642,11 +1670,22 @@ def make_gossip_step(cfg: GossipSimConfig,
     reference's ValueError).  It reads what the step computed and writes
     only those two leaves: no kernel and no host sync is added; with
     telemetry the frame is returned as without it.
+
+    RPC probe (``rpc_probe=True``): the step also returns, last (after
+    the frame with telemetry), the reference's per-edge probe dict
+    (``probe_snapshot``): the attempt masks before fault masking, the
+    content words and the tick's fault words; paired, slot B's masks and
+    the slot-split payload; delay-armed (the state built with
+    ``delays_probe=True``, else the reference's ValueError), the arrival
+    masks dequeued from the probe line.  Every value is one the step
+    computes anyway: B1 is launched as without the probe, the trajectory
+    is the probe-free step's (but for the probe line) and no host sync is
+    added.  A replica stack refuses it (``batched_probe``).
     """
     dev = resolve_device(device)
     plan.check_paired_step(cfg, score_cfg, force_split)
     plan.check_step_options(pipeline_gates=pipeline_gates,
-                            shard_mesh=shard_mesh, rpc_probe=rpc_probe)
+                            shard_mesh=shard_mesh)
     krecv.receive_consts(cfg, score_cfg)     # the options' refusals
     consts = {}
 
@@ -1758,6 +1797,8 @@ def make_gossip_step(cfg: GossipSimConfig,
         if dl is not None:
             if paired:
                 raise NotImplementedError(plan.MSG_DELAYS_PAIRED)
+            if rpc_probe and state.probe_line is None:
+                raise ValueError(plan.MSG_DELAYS_NEED_PROBE_LINE)
             if tel is not None and tel.counters and (
                     state.adv_line is None or state.gsp_line is None):
                 raise ValueError(plan.MSG_DELAYS_NEED_COUNTER_LINES)
@@ -1785,7 +1826,7 @@ def make_gossip_step(cfg: GossipSimConfig,
         if _batch.is_stacked(state):
             # a replica stack: one step for all (B1 once, B3 as often as
             # for one replica)
-            plan.check_batched(cfg, sc, params, state)
+            plan.check_batched(cfg, sc, params, state, rpc_probe=rpc_probe)
         # the degree family and fanout TTL: ints, or the armed knobs'
         # 0-d tensors (gossip_retransmission's one consumer, the IWANT
         # flood's serve budget, is in the receive loops: a knob point on
@@ -1867,7 +1908,7 @@ def make_gossip_step(cfg: GossipSimConfig,
             syb = params.sybil[..., None, :]
             fresh = torch.where(syb, fresh, fresh & valid[..., None])
             adv = torch.where(syb, adv, adv & valid[..., None])
-        fresh_b = None
+        fresh_all, fresh_b = fresh, None
         if paired:
             # split by the sender's topic slot: slot-B messages forward
             # on mesh_b; unsubscribed (fanout-only) peers send all they
@@ -1897,6 +1938,28 @@ def make_gossip_step(cfg: GossipSimConfig,
             if flood_bits is not None:
                 flood_bits = torch.where(params.eclipse_sybil, 0,
                                          flood_bits)
+        out_b = None
+        if paired:
+            # slot B's eager forwards (direct peers on every topic; eclipse
+            # attackers silent)
+            out_b = state.mesh_b
+            if direct is not None:
+                out_b = out_b | (direct & cand_sub)
+            if eclipse:
+                out_b = torch.where(params.eclipse_sybil, 0, out_b)
+        probe_raw = None
+        if rpc_probe:
+            # the RPC probe's attempt masks: the edge words before fault
+            # masking; the flood word is every candidate above the publish
+            # threshold, as the reference records it (the exporter reads
+            # it only where the sender injects)
+            flood_raw = None
+            if sc is not None and sc.flood_publish:
+                flood_raw = cand_sub & pub_ok_bits
+                if eclipse:
+                    flood_raw = torch.where(params.eclipse_sybil, 0,
+                                            flood_raw)
+            probe_raw = (out_bits, targets, flood_raw)
         if fm is not None:
             # faults cut sends at their source: a down peer, or either
             # end of a down link, forwards, gossips and floods nothing
@@ -1920,6 +1983,16 @@ def make_gossip_step(cfg: GossipSimConfig,
         sel_b = (maintain_slot(cfg, sc, params, state, 1, sub_all=sub_all,
                                accept_bits=accept_bits, fmasks=fm)
                  if paired else None)
+
+        snap = None
+        if rpc_probe:
+            snap = probe_snapshot(
+                probe_raw, sel=sel, sel_b=sel_b, fm=fm, injected=injected,
+                withhold=withhold, fresh=fresh_all, adv=adv, seen=seen,
+                all_bits=ALL)
+            if paired:
+                # slot B's attempt masks and the slot-split payload words
+                snap.update(fwd_b=out_b, fresh_a=fresh, fresh_b=fresh_b)
 
         def tx(word):
             """A handshake word as sent: under faults a dead peer or a
@@ -1976,10 +2049,11 @@ def make_gossip_step(cfg: GossipSimConfig,
                     rot = rot | sel["neg"]
                 active = px_rotate(cfg, params, active=active, rot=rot,
                                    keep=rx["mesh"] | fanout, sel_k=sel_k)
-            return finish(
+            out = finish(
                 rx["acq"], mesh=rx["mesh"], backoff=rx["backoff"],
                 scores=(None if sc is None else ScoreState(**rx["scores"])),
                 iwant_serves=rx.get("iwant_serves"), active=active)
+            return out if snap is None else (*out, snap)
 
         ops = dict(
             gseeds=(lane_seed(tick + 1, 6, salt),
@@ -2006,7 +2080,14 @@ def make_gossip_step(cfg: GossipSimConfig,
             # -- delays: the sends go into the lines and this tick's
             # arrivals come out (faults masked here: a down peer hears
             # nothing); the kernel's delay mode takes the arrivals and the
-            # resolved control words in place of the sender streams
+            # resolved control words in place of the sender streams; the
+            # probe's words as sent (after fault masking) ride its line
+            probe_sent = None
+            if snap is not None:
+                flood_sent = probe_raw[2]
+                if flood_sent is not None and fm is not None:
+                    flood_sent = flood_sent & fm.send_ok
+                probe_sent = (out_bits, targets, flood_sent)
             dex = delay_exchange(
                 cfg, sc, params, state, tick=tick, sel=sel, targets=targets,
                 withhold=withhold, out_bits=out_bits, flood_bits=flood_bits,
@@ -2015,7 +2096,15 @@ def make_gossip_step(cfg: GossipSimConfig,
                 gossip_bits=gossip_bits if sc is not None else None,
                 accept_bits=accept_bits, fm=fm,
                 counters=tel is not None and tel.counters,
-                geo=edge_geometry(n))
+                geo=edge_geometry(n), probe=probe_sent)
+            if snap is not None:
+                # the arrival masks: the probe line's three rows and the
+                # control resolved at arrival
+                snap.update(arr_fwd=dex["arr_probe"][0],
+                            arr_ihave=dex["arr_probe"][1],
+                            arr_flood=dex["arr_probe"][2],
+                            arr_graft=dex["graft_arr"],
+                            arr_prune=dex["prune_arr"])
             arr = dex["arr_pay"]
             if fm is not None:
                 arr = arr & fm.alive_w[..., None, None, :]
@@ -2033,13 +2122,7 @@ def make_gossip_step(cfg: GossipSimConfig,
                 tim=s0.time_in_mesh, iws=state.iwant_serves)
         if paired:
             # slot B's sender flags on a second ctrl byte: its eager
-            # forwards (direct peers on every topic; eclipse attackers
-            # silent) and its handshake
-            out_b = state.mesh_b
-            if direct is not None:
-                out_b = out_b | (direct & cand_sub)
-            if eclipse:
-                out_b = torch.where(params.eclipse_sybil, 0, out_b)
+            # forwards and its handshake
             ops.update(
                 ctrl2=krecv.ctrl2_bytes(C, out_b=tx(out_b),
                                         graft_b=tx(sel_b["grafts"]),
@@ -2150,9 +2233,11 @@ def make_gossip_step(cfg: GossipSimConfig,
             mesh_b=mesh_b_new, backoff_b=backoff_b_new,
             **({} if dex is None else {
                 name: dex.get(name) for name in ("pay_line", "ctrl_line",
-                                                 "gsp_line", "adv_line")}))
+                                                 "gsp_line", "adv_line",
+                                                 "probe_line")}))
         if tel is None:
-            return new_state, delivered_now
+            return ((new_state, delivered_now) if snap is None
+                    else (new_state, delivered_now, snap))
         # (a replica stack: every field of the frame a [B] tensor, each
         # replica's own reduction)
         kw = {}
@@ -2201,10 +2286,43 @@ def make_gossip_step(cfg: GossipSimConfig,
         if tel.faults and fm is not None:
             kw["down_peers"], kw["dropped_edge_ticks"] = \
                 _faults.fault_counts(fp, fm, C)
-        return new_state, delivered_now, _telemetry.make_frame(
-            dev, shape=sub.shape[:-1], **kw)
+        frame = _telemetry.make_frame(dev, shape=sub.shape[:-1], **kw)
+        return ((new_state, delivered_now, frame) if snap is None
+                else (new_state, delivered_now, frame, snap))
 
     return step
+
+
+def probe_snapshot(probe_raw, *, sel: dict, sel_b: dict | None, fm,
+                   injected, withhold, fresh, adv, seen,
+                   all_bits: int) -> dict:
+    """One tick's RPC probe dict (the reference's ``rpc_snap``): the
+    attempt masks before fault masking (``fwd`` eager forward, ``ihave``
+    the advert targets, ``graft`` / ``prune`` the handshake, ``flood``
+    the publish flood), the content words (``inj`` the injected publishes,
+    ``fresh`` the eager-forward set, ``adv`` the advert window, ``seen``
+    the possession with this tick's publishes) and the fault words
+    (``send_ok``, ``alive``; all-healthy constants without a schedule);
+    ``withhold`` the promise breakers (bool).  ``sel_b``, paired: slot B's
+    handshake.  Every value is the step's own: a readout."""
+    fwd, ihave, flood = probe_raw
+    n = fwd.shape[-1]
+    dev = fwd.device
+    snap = dict(
+        fwd=fwd, ihave=ihave, graft=sel["grafts"], prune=sel["dropped"],
+        flood=(flood if flood is not None
+               else torch.zeros((n,), dtype=torch.int32, device=dev)),
+        inj=injected,
+        withhold=(withhold if withhold is not None
+                  else torch.zeros((n,), dtype=torch.bool, device=dev)),
+        send_ok=(fm.send_ok if fm is not None else torch.full(
+            (n,), graph.i32(all_bits), dtype=torch.int32, device=dev)),
+        alive=(fm.alive if fm is not None
+               else torch.ones((n,), dtype=torch.bool, device=dev)),
+        fresh=fresh, adv=adv, seen=seen)
+    if sel_b is not None:
+        snap.update(graft_b=sel_b["grafts"], prune_b=sel_b["dropped"])
+    return snap
 
 
 def delayed_tally(dex: dict, seen: torch.Tensor, sub_all: torch.Tensor,
@@ -2513,6 +2631,66 @@ def gossip_run_curve_fused(params: GossipParams, state: GossipState,
     return state, counts
 
 
+def _snapshot_run(params: GossipParams, state: GossipState, n_ticks: int,
+                  step, take, device) -> tuple:
+    """Advance ``n_ticks`` collecting ``take(step output)`` (a dict of
+    tensors) each tick; the rows stay on the device and are stacked once,
+    at the end, every leaf ``[n_ticks, ...]``."""
+    dev = resolve_device(device)
+    check_on(dev, subscribed=params.subscribed, mesh=state.mesh)
+    if _batch.is_stacked(state):
+        plan.refuse("batched_probe")
+    rows = []
+    for _ in range(n_ticks):
+        out = step(params, state)
+        state = out[0]
+        rows.append(take(out))
+    return state, ({k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+                   if rows else {})
+
+
+def _mesh_rows(s: GossipState, have: bool) -> dict:
+    snap = {"have": s.have} if have else {}
+    snap["mesh"] = s.mesh
+    if s.mesh_b is not None:
+        snap["mesh_b"] = s.mesh_b
+    return snap
+
+
+def gossip_run_mesh_snapshots(params: GossipParams, state: GossipState,
+                              n_ticks: int, step, *,
+                              device: str | torch.device | None = None):
+    """Advance ``n_ticks`` collecting the end-of-tick mesh word: ``(state,
+    snaps)``, ``snaps["mesh"]`` int32 [n_ticks, N] (and ``"mesh_b"``
+    paired), row k the mesh after tick ``start + k`` — the input of
+    ``interop.export.mesh_trace_events``.  Any step, with telemetry or
+    not."""
+    return _snapshot_run(params, state, n_ticks, step,
+                         lambda out: _mesh_rows(out[0], False), device)
+
+
+def gossip_run_acq_snapshots(params: GossipParams, state: GossipState,
+                             n_ticks: int, step, *,
+                             device: str | torch.device | None = None):
+    """Advance ``n_ticks`` collecting the end-of-tick possession and mesh
+    words: ``snaps["have"]`` int32 [n_ticks, W, N], ``snaps["mesh"]``
+    [n_ticks, N] (and ``"mesh_b"`` paired) — the input of
+    ``interop.export.reject_events`` and ``duplicate_events``."""
+    return _snapshot_run(params, state, n_ticks, step,
+                         lambda out: _mesh_rows(out[0], True), device)
+
+
+def gossip_run_rpc_snapshots(params: GossipParams, state: GossipState,
+                             n_ticks: int, step, *,
+                             device: str | torch.device | None = None):
+    """Advance ``n_ticks`` collecting the RPC probe dict, the step's last
+    output (``make_gossip_step(..., rpc_probe=True)``, with telemetry or
+    not): every probe leaf gains a leading [n_ticks] — the input of
+    ``interop.export.rpc_events``."""
+    return _snapshot_run(params, state, n_ticks, step,
+                         lambda out: out[-1], device)
+
+
 # --------------------------------------------------------------------------
 # Replica batching: B sims of one static config, one step a tick
 # --------------------------------------------------------------------------
@@ -2636,6 +2814,118 @@ def reach_counts_from_have(params: GossipParams, state: GossipState,
 
 def mesh_degrees(state: GossipState) -> torch.Tensor:
     return popcount32(state.mesh)
+
+
+def first_tick_matrix(state: GossipState, m: int) -> torch.Tensor:
+    """int16 [N, M]: the tick peer p first held message m, -1 never."""
+    return first_tick_to_matrix(state.first_tick, m)
+
+
+def reach_by_hops(params: GossipParams, state: GossipState, max_hops: int,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """int32 [M, max_hops]: cumulative deliveries by hop (ticks after the
+    publish); ``mask`` (bool [N]) counts a peer subset only (say, the
+    honest peers).  One hop at a time: no [hops, N, M] temporary."""
+    m = params.publish_tick.shape[0]
+    ft = first_tick_to_matrix(state.first_tick, m).to(torch.int32)
+    rel = torch.where(ft >= 0, ft - params.publish_tick[None, :], -1)
+    if mask is not None:
+        rel = torch.where(torch.as_tensor(mask, device=rel.device)[:, None],
+                          rel, -1)
+    per_hop = torch.stack([(rel == h).sum(0, dtype=torch.int32)
+                           for h in range(max_hops)])
+    return torch.cumsum(per_hop, 0, dtype=torch.int32).T
+
+
+def transfer_mask(mask: torch.Tensor, cfg: GossipSimConfig) -> torch.Tensor:
+    """The edge transfer of an unpacked bool [C, N] mask: row cinv[c] is
+    row c rolled by o_c (``transfer_bits`` on packed words)."""
+    rows = [None] * cfg.n_candidates
+    for c, off in enumerate(cfg.offsets):
+        rows[cfg.cinv[c]] = torch.roll(mask[c], int(off), 0)
+    return torch.stack(rows)
+
+
+def mesh_matrix(state: GossipState, cfg: GossipSimConfig) -> torch.Tensor:
+    """The mesh word as bool [C, N]."""
+    return expand_bits(state.mesh, cfg.n_candidates)
+
+
+def mesh_symmetry_fraction(state: GossipState,
+                           cfg: GossipSimConfig) -> torch.Tensor:
+    """f32 []: the share of mesh edges whose partner holds the edge too."""
+    partner = transfer_bits(state.mesh, cfg)
+    agree = popcount32(state.mesh & partner).sum(dtype=torch.int32)
+    total = popcount32(state.mesh).sum(dtype=torch.int32)
+    return agree.to(torch.float32) / total.clamp(min=1).to(torch.float32)
+
+
+def score_snapshot(sc: ScoreSimConfig, params: GossipParams,
+                   st: GossipState) -> dict:
+    """Every edge's score by component (the reference's
+    ``WithPeerScoreInspect`` readout): f32 [C, N] weighted contributions
+    ``p1_time_in_mesh``, ``p2_first_deliveries``,
+    ``p3_mesh_delivery_deficit`` and ``p3b_mesh_failure_penalty`` (zero
+    without P3 tracking), ``p4_invalid_deliveries``, ``p5_app_specific``,
+    ``p6_ip_colocation``, ``p7_behaviour_penalty``, paired also
+    ``p1b_time_in_mesh``, and their sum ``score`` (the topic part capped
+    at ``topic_score_cap``), in the reference's operation order."""
+    s = st.scores
+    c = s.time_in_mesh.shape[-2]
+    f32 = lambda x: x.to(torch.float32)  # noqa: E731
+    tim = f32(s.time_in_mesh)
+    invd = f32(s.invalid_deliveries)
+    w = sc.topic_weight
+    kn = active_score_knobs(params)
+    w_inv = (kn.invalid_message_deliveries_weight if kn is not None
+             else sc.invalid_message_deliveries_weight)
+    w_bp = (kn.behaviour_penalty_weight if kn is not None
+            else sc.behaviour_penalty_weight)
+    out = {
+        "p1_time_in_mesh": w * sc.time_in_mesh_weight * torch.clamp(
+            tim / sc.time_in_mesh_quantum, max=sc.time_in_mesh_cap),
+        "p2_first_deliveries": (w * sc.first_message_deliveries_weight
+                                * f32(s.first_deliveries)),
+        "p4_invalid_deliveries": w * w_inv * invd * invd,
+        "p5_app_specific": sc.app_specific_weight * params.cand_app_score,
+        "p6_ip_colocation": (sc.ip_colocation_factor_weight
+                             * params.cand_colo_excess
+                             * params.cand_colo_excess),
+    }
+    if sc.track_p3:
+        in_mesh = expand_bits(st.mesh, c)
+        deficit = torch.clamp(sc.mesh_message_deliveries_threshold
+                              - f32(s.mesh_deliveries), min=0.0)
+        active = tim > sc.mesh_message_deliveries_activation
+        out["p3_mesh_delivery_deficit"] = (
+            w * sc.mesh_message_deliveries_weight
+            * torch.where(in_mesh & active, deficit * deficit, 0.0))
+        out["p3b_mesh_failure_penalty"] = (
+            w * sc.mesh_failure_penalty_weight
+            * f32(s.mesh_failure_penalty))
+    else:
+        out["p3_mesh_delivery_deficit"] = torch.zeros_like(tim)
+        out["p3b_mesh_failure_penalty"] = torch.zeros_like(tim)
+    if s.time_in_mesh_b is not None:
+        out["p1b_time_in_mesh"] = w * sc.time_in_mesh_weight * torch.clamp(
+            f32(s.time_in_mesh_b) / sc.time_in_mesh_quantum,
+            max=sc.time_in_mesh_cap)
+    bp_excess = torch.clamp(f32(s.behaviour_penalty)
+                            - sc.behaviour_penalty_threshold, min=0.0)
+    out["p7_behaviour_penalty"] = w_bp * bp_excess * bp_excess
+    topic_part = (out["p1_time_in_mesh"] + out["p2_first_deliveries"]
+                  + out["p3_mesh_delivery_deficit"]
+                  + out["p3b_mesh_failure_penalty"]
+                  + out["p4_invalid_deliveries"])
+    if "p1b_time_in_mesh" in out:
+        topic_part = topic_part + out["p1b_time_in_mesh"]
+    if sc.topic_score_cap > 0:
+        # the cap binds the summed topic part only (score.go:256-268)
+        topic_part = torch.clamp(topic_part, max=sc.topic_score_cap)
+    out["score"] = (topic_part + out["p5_app_specific"]
+                    + out["p6_ip_colocation"]
+                    + out["p7_behaviour_penalty"])
+    return out
 
 
 def eclipse_takeover(state: GossipState, params: GossipParams,

@@ -22,8 +22,10 @@ faults and telemetry; a knob-carrying sim is refused by the fused window
 per-tick step, on the flagship, attack, full and unscored receive
 variants, with or without knobs, faults and telemetry; the fused window
 refuses a delay-armed sim (``fused_delays``, with the reference's message
-and its byte count of the lines), the split path's delay line is refused
-as ``delays_split`` and the delayed probe line as ``rpc_probe``.  The
+and its byte count of the lines) and the split path's delay line is
+refused as ``delays_split``.  The per-RPC probe (``rpc_probe``) is a
+readout of every per-tick path, its delayed form too (the probe line,
+``delays_probe=True``); a replica stack refuses it (``batched_probe``).  The
 invariant checker (``invariants``, ``models/invariants.py``) runs on the
 per-tick step, every family, with all of these; the fused window takes
 no checker, as in the reference, and carries an armed state's two
@@ -42,7 +44,10 @@ refusal has a stable name (``SliceRefusal.name``) and its own message;
 tests match on the name.  The reference's own errors are raised with its
 messages (``MSG_PAIRED_COMBINED``, ``MSG_KERNEL_KNOB_IWANT_SPAM``,
 ``MSG_KERNEL_DELAY_IWANT_SPAM``, ``MSG_DELAYS_PAIRED``,
-``MSG_DELAYS_NEED_LINES``, ``MSG_DELAYS_NEED_COUNTER_LINES``).
+``MSG_DELAYS_NEED_LINES``, ``MSG_DELAYS_NEED_COUNTER_LINES``,
+``MSG_DELAYS_NEED_PROBE_LINE``).  Mixed-protocol overlays, which the
+reference's probe refuses (``MSG_PROBE_MIXED_PROTOCOL``), are refused
+when the sim is built (``flood_proto``).
 """
 
 from __future__ import annotations
@@ -55,7 +60,6 @@ REFUSALS: dict[str, str] = {
     "delays_split": "the split path's gossip-class delay line "
                     "(delays_split=True) is not ported: the receive loops "
                     "take no delays (loops_delays)",
-    "rpc_probe": "the per-RPC probe snapshot is not ported yet",
     "flood_proto": "mixed-protocol overlays (flood_proto) are not "
                    "ported yet",
     "shard_mesh": "multi-device sharding (shard_mesh) is not ported yet",
@@ -116,6 +120,8 @@ REFUSALS: dict[str, str] = {
     "batched_partitions": "stacked fault schedules must share their "
                           "partition windows: the port decides a "
                           "window's activity on the host tick",
+    "batched_probe": "the per-RPC probe (rpc_probe=True) steps one sim: "
+                     "a replica stack's snapshot is not collected",
     "batched_surface": "the router surface (PX candidate rotation, direct "
                        "peers, flood publishing, exact-k gossip targets, "
                        "shared addresses) is not batched yet",
@@ -171,10 +177,13 @@ def receive_path(cfg, sc, params, *, force_split: bool = False) -> str:
     return SPLIT
 
 
-def check_batched(cfg, sc, params, state) -> None:
+def check_batched(cfg, sc, params, state, *, rpc_probe: bool = False
+                  ) -> None:
     """Refuse what a replica stack does not run yet, by name (a stacked
     sim's route is the single sim's: ``receive_path``; delays and
     telemetry run in a stack)."""
+    if rpc_probe:
+        refuse("batched_probe")
     if cfg.paired_topics:
         refuse("batched_paired")
     if (not cfg.binomial_gossip_sampling or params.cand_direct is not None
@@ -225,6 +234,13 @@ MSG_DELAYS_PAIRED = (
 MSG_DELAYS_NEED_LINES = (
     "delay-armed params need delay-line state: build (params, state) "
     "together through make_gossip_sim(..., delays=DelayConfig(...))")
+
+#: the reference's message for a delay-armed probe step on a sim built
+#: without the probe line
+MSG_DELAYS_NEED_PROBE_LINE = (
+    "delay-armed rpc_probe needs the probe delay line: build the sim "
+    "with make_gossip_sim(..., delays=DelayConfig(...), "
+    "delays_probe=True)")
 
 MSG_DELAYS_NEED_COUNTER_LINES = (
     "delay-armed telemetry counters need the advert + gossip observer "
@@ -285,17 +301,15 @@ def check_paired_step(cfg, sc, force_split: bool) -> None:
         raise ValueError(MSG_PAIRED_COMBINED)
 
 
-def check_step_options(*, pipeline_gates, shard_mesh, rpc_probe) -> None:
+def check_step_options(*, pipeline_gates, shard_mesh) -> None:
     if not pipeline_gates:
         refuse("pipeline_gates")
     if shard_mesh is not None:
         refuse("shard_mesh")
-    if rpc_probe:
-        refuse("rpc_probe")
 
 
 def check_sim_options(*, flood_proto, pad_to_block, delays, delays_split,
-                      delays_counters, delays_probe) -> None:
+                      delays_counters) -> None:
     if pad_to_block is not None:
         refuse("pad_to_block")
     if flood_proto is not None:
@@ -304,8 +318,6 @@ def check_sim_options(*, flood_proto, pad_to_block, delays, delays_split,
     # the sim is built
     if delays is not None and delays_split:
         refuse("delays_split")
-    if delays is not None and delays_probe:
-        refuse("rpc_probe")
 
 
 def check_fused_window(cfg, sc, ticks: int, *, shard_mesh=None) -> None:

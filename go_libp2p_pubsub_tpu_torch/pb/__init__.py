@@ -1,7 +1,8 @@
 """Wire format layer: the port's copies of the JAX package's proto2 codec
-(``proto.py``) and RPC schema (``rpc.py``).  The telemetry layer measures
-its wire-size constants from these encodings (``models/telemetry.py``
-``wire_sizes``)."""
+(``proto.py``), RPC schema (``rpc.py``) and trace schema (``trace.py``).
+The telemetry layer measures its wire-size constants from these encodings
+(``models/telemetry.py`` ``wire_sizes``); the trace exporter
+(``interop/export.py``) writes trace events in them."""
 
 from .proto import (  # noqa: F401
     Field,
@@ -24,3 +25,4 @@ from .rpc import (  # noqa: F401
     PubMessage,
     SubOpts,
 )
+from .trace import TraceEvent, TraceEventBatch, TraceType  # noqa: F401

@@ -359,14 +359,16 @@ def steady_state(device, n_peers: int = FULL_WIDTH,
 
 def family_sim(name: str, device, n_peers: int = FULL_WIDTH,
                delays: DelayConfig = PROBE_DELAYS, horizon: int = 400,
-               knobs: dict | None = None) -> tuple:
+               knobs: dict | None = None,
+               delays_probe: bool = False) -> tuple:
     """(cfg, score_cfg, params, state) of a delayed sim of one receive
     family: ``scored`` the flagship, ``attacks`` the adversarial
     configuration without the IWANT flood (which the delay mode refuses),
     ``full`` the everything-on configuration without it and with exact-k
     targets (flood publishing, PX, direct peers, the shared-IP gater),
     ``unscored`` the resident configuration (``horizon`` its messages'
-    publish window); ``knobs``, a point armed on it."""
+    publish window); ``knobs``, a point armed on it; ``delays_probe``, the
+    RPC probe's line too."""
     if name == "scored":
         cfg, sc, params, state = flagship.build(
             device, n_peers=n_peers, horizon=horizon)[:4]
@@ -384,7 +386,8 @@ def family_sim(name: str, device, n_peers: int = FULL_WIDTH,
         sc = None
     else:
         raise ValueError(f"no delayed receive family {name!r}")
-    params, state = gs.arm_delays(sc, params, state, delays)
+    params, state = gs.arm_delays(sc, params, state, delays,
+                                  delays_probe=delays_probe)
     if knobs is not None:
         params = gs.knob_params(cfg, sc, params, sim_knobs=knobs,
                                 delays=delays)

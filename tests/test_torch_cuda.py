@@ -29,7 +29,11 @@ checker's host syncs (none added), and the invariants benchmark's armed
 flagship at 100,000 peers card against CPU every 10th tick; the select
 kernel at C = 32 on a real tick of the C = 32 split loops, and the receive
 loops' two forms (the tournament's byzantine cell, the P3/P3b flagship)
-at 100,000 peers card against CPU every 25th tick.  Exact: every output
+at 100,000 peers card against CPU every 25th tick; the RPC probe on every
+per-tick family's forms at 20,000 peers (``trace_export.PROBE_FORMS``),
+card against CPU by digest and against the probe-free step, and the
+trace-export pipeline at 20,000 peers writing the CPU's bytes.  Exact:
+every output
 bit for bit, but
 a frame's ``score_mean``: the mean of non-integer f32 scores, which the
 card and the CPU sum in different orders (relative 1e-5).
@@ -56,6 +60,7 @@ from go_libp2p_pubsub_tpu_torch import (
     loops_flagship,
     pipelined,
     telemetry_flagship,
+    trace_export,
 )
 from go_libp2p_pubsub_tpu_torch.models import delays as pdl
 from go_libp2p_pubsub_tpu_torch.models import faults as pfl
@@ -1871,3 +1876,42 @@ def test_meshless_forms_on_the_card_match_the_cpu(cuda, sim):
     counts = floodsub_flagship.kernel_counts(libs0)
     assert card == mod.forms(torch.device("cpu"))
     assert counts == dict(receive=0, fused=0, select=0, libraries_built=[])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted({
+    label.split("/")[0] for label in trace_export.PROBE_FORMS}))
+def test_probe_forms_on_the_card_match_the_cpu(cuda, family):
+    """The RPC probe (``make_gossip_step(rpc_probe=True)``) on each of a
+    family's forms (``trace_export.PROBE_FORMS``) at 20,000 peers, 8
+    ticks: the card's digest of every tick's snapshot and the end state
+    equal to the CPU's, and its end state equal to the probe-free step's
+    but for the probe line."""
+    labels = [lb for lb in trace_export.PROBE_FORMS
+              if lb.split("/")[0] == family]
+    card = trace_export.probe_forms(cuda, labels=labels, check_plain=True)
+    cpu = trace_export.probe_forms(torch.device("cpu"), labels=labels)
+    for label in labels:
+        assert card[label]["plain_equal"], label
+        assert card[label]["digest"] == cpu[label]["digest"], label
+
+
+@pytest.mark.cuda
+def test_trace_pipeline_on_the_card_writes_the_cpus_bytes(cuda, tmp_path):
+    """The trace-export pipeline at 20,000 peers (the benchmark's draws):
+    collected on the card, it writes the trace and frames bytes of the
+    CPU's run, all 13 event types; B1 and B3 launched, B2 not."""
+    from go_libp2p_pubsub_tpu_torch import floodsub_flagship
+
+    n = trace_export.FORM_PEERS
+    libs0 = floodsub_flagship.reset_kernel_counts()
+    bundle = trace_export.collect(cuda, n)
+    counts = floodsub_flagship.kernel_counts(libs0)
+    assert counts["receive"] and counts["select"] and not counts["fused"]
+    got = trace_export.export(bundle, tmp_path / "card", None)
+    want = trace_export.export(trace_export.collect("cpu", n),
+                               tmp_path / "cpu", None)
+    assert got["n_types"] == 13
+    for key in ("trace", "frames"):
+        with open(got[key], "rb") as f, open(want[key], "rb") as g:
+            assert f.read() == g.read(), key

@@ -15,8 +15,8 @@ Same configs, seeds and build inputs (numpy) go to both packages:
   ``pipelined.arm``) equal the sim built with them, and the reference's;
 - each named refusal and the reference's errors: paired topics (build and
   step), the IWANT flood on the kernel step, the fused window
-  (``fused_delays``, with the lines' byte count), ``delays_split``,
-  ``delays_probe`` (as ``rpc_probe``), the ``delays_*`` flags and the
+  (``fused_delays``, with the lines' byte count), ``delays_split``
+  (``delays_probe`` builds the probe line), the ``delays_*`` flags and the
   delay knobs without a DelayConfig, params without lines, telemetry
   counters without the observer lines;
 - a delayed step reads tensor values on the host as often as one without
@@ -349,13 +349,20 @@ def _small_sim():
 
 
 def test_split_and_probe_lines_are_refused_by_name():
+    """The split path's delay line is refused by name; the probe line is
+    built (int32 [K, 3, N], empty) since the RPC probe runs delayed."""
     cfg, sc, args = _small_sim()
-    for kw, name in ((dict(delays_split=True), "delays_split"),
-                     (dict(delays_probe=True), "rpc_probe")):
-        with pytest.raises(plan.SliceRefusal) as err:
-            pgs.make_gossip_sim(cfg, *args, score_cfg=sc, device="cpu",
-                                delays=pdl.DelayConfig(), **kw)
-        assert err.value.name == name
+    with pytest.raises(plan.SliceRefusal) as err:
+        pgs.make_gossip_sim(cfg, *args, score_cfg=sc, device="cpu",
+                            delays=pdl.DelayConfig(), delays_split=True)
+    assert err.value.name == "delays_split"
+    dc = pdl.DelayConfig()
+    _, state = pgs.make_gossip_sim(cfg, *args, score_cfg=sc, device="cpu",
+                                   delays=dc, delays_probe=True)
+    n = args[0].shape[0]
+    assert state.probe_line.shape == (dc.k_slots, 3, n)
+    assert state.probe_line.dtype == torch.int32
+    assert not state.probe_line.any()
 
 
 @pytest.mark.parametrize("flag", ["delays_split", "delays_counters",

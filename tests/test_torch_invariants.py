@@ -577,3 +577,79 @@ def test_padded_reference_equals_unpadded_and_the_port(ref):
                        "port")
     assert piv.report(out) == ref.iv.report(s_pad) == {
         "violations": [], "bits": 0, "first_tick": -1}
+
+
+def _trim(tree: dict, n: int, n_pad: int) -> dict:
+    """A padded sim's leaves cut to the true peers: every axis of the
+    padded ring length keeps its first ``n`` lanes."""
+    out = {}
+    for name, v in tree.items():
+        if isinstance(v, dict):
+            out[name] = _trim(v, n, n_pad)
+        elif isinstance(v, list):
+            out[name] = [g[..., :n] if g.shape[-1] == n_pad else g
+                         for g in v]
+        elif isinstance(v, np.ndarray) and v.ndim and v.shape[-1] == n_pad:
+            out[name] = v[..., :n]
+        else:
+            out[name] = v
+    return out
+
+
+def test_padded_reference_at_a_ragged_size_equals_unpadded_and_the_port(
+        ref):
+    """At 1,000 peers (not a multiple of 128: the reference pads to 1,024)
+    the trace-export benchmark's sim — scored, two invalid messages from
+    sybil origins, down intervals and 2% link loss — built with
+    ``pad_to_block=128`` and stepped on the reference's kernel path
+    (``receive_block=128``, interpret mode) for 6 ticks equals, on the
+    true peers and leaf for leaf, its unpadded XLA run and the port's
+    unpadded run: the ground for running the benchmark unpadded."""
+    import jax
+
+    n, t, m = 1_000, 20, 16
+    offsets = ref.gs.make_gossip_offsets(t, 16, n, seed=0)
+    rng = np.random.default_rng(0)
+    topic = rng.integers(0, t, m)
+    origin = rng.integers(0, n // t, m) * t + topic
+    ticks = np.sort(rng.integers(0, 4, m)).astype(np.int32)
+    subs = np.zeros((n, t), dtype=bool)
+    subs[np.arange(n), np.arange(n) % t] = True
+    invalid = np.zeros(m, dtype=bool)
+    invalid[:2] = True
+    sybil = np.zeros(n, dtype=bool)
+    sybil[origin[:2]] = True
+    victims = np.flatnonzero(rng.random(n) < 0.02)
+    sched_kw = dict(n_peers=n, horizon=6, drop_prob=0.02, seed=1,
+                    down_intervals=[(int(p), 1 + int(p % 2), 4 + int(p % 2))
+                                    for p in victims])
+    args = (subs, topic, origin, ticks)
+    kw = dict(sybil=sybil, msg_invalid=invalid)
+    cfg_r = ref.gs.GossipSimConfig(offsets=offsets, n_topics=t)
+    sc_r = ref.gs.ScoreSimConfig()
+    runs = {}
+    for pad in (128, None):
+        p, s = ref.gs.make_gossip_sim(
+            cfg_r, *args, score_cfg=sc_r, pad_to_block=pad, **kw,
+            fault_schedule=ref.faults.FaultSchedule(**sched_kw))
+        step = (ref.gs.make_gossip_step(cfg_r, sc_r, receive_block=128,
+                                        receive_interpret=True) if pad
+                else jax.jit(ref.gs.make_gossip_step(
+                    cfg_r, sc_r, use_pallas_receive=False)))
+        runs[pad] = (p, ref.gs.gossip_run(p, s, 6, step))
+    (p_pad, s_pad), (p_un, s_un) = runs[128], runs[None]
+    n_pad = int(np.asarray(s_pad.mesh).shape[-1])
+    assert p_pad.n_true == n and n_pad == 1_024 and p_un.n_true is None
+    want = tree_to_numpy(s_un)
+    _assert_tree_equal(want, _trim(tree_to_numpy(s_pad), n, n_pad),
+                       "padded")
+    cfg_p = pgs.GossipSimConfig(offsets=offsets, n_topics=t)
+    sc_p = pgs.ScoreSimConfig()
+    p, s = pgs.make_gossip_sim(cfg_p, *args, score_cfg=sc_p, device="cpu",
+                               fault_schedule=pfl.FaultSchedule(**sched_kw),
+                               **kw)
+    out = pgs.gossip_run(p, s, 6, pgs.make_gossip_step(cfg_p, sc_p,
+                                                       device="cpu"),
+                         device="cpu")
+    _assert_tree_equal(want, convert.state_to_numpy(out), "port")
+    assert (np.asarray(s_un.have) != 0).any()

@@ -209,8 +209,6 @@ REFUSED = {
     # the split path's delay line waits for the split path
     "delays_split": [lambda: _sim(delays=pdl.DelayConfig(),
                                   delays_split=True)],
-    "rpc_probe": [lambda: _step(rpc_probe=True),
-                  lambda: _sim(delays=pdl.DelayConfig(), delays_probe=True)],
     "flood_proto": [lambda: _sim(flood_proto=np.zeros(N, bool))],
     # what the receive loops do not run yet: a paired sim off the kernel,
     # telemetry and delays on the loops
@@ -259,6 +257,11 @@ REFUSED = {
             cfg=_cfg(binomial_gossip_sampling=False),
             step_kw=dict(cfg=_cfg(binomial_gossip_sampling=False)))],
     "batched_fused": [lambda: _window()(*_stack(sc=None))],
+    # the RPC probe steps one sim (the step and its runner)
+    "batched_probe": [
+        lambda: _batched_step(step_kw=dict(rpc_probe=True)),
+        lambda: pgs.gossip_run_rpc_snapshots(
+            *_stack(), 1, _step(rpc_probe=True), device="cpu")],
     "batched_ticks": [lambda: pgs.stack_trees([
         _sim(seed=1)[1], pgs.replace(_sim(seed=2)[1], tick=5)])],
     "batched_partitions": [lambda: _stack(fault_schedule=[
@@ -530,3 +533,37 @@ def test_meshless_entry_points_default_to_cuda(name):
         pytest.skip("a CUDA device is present: nothing to refuse")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _meshless_entry_points()[name]()
+
+
+def test_trace_modules_are_under_the_import_check():
+    """The trace-export modules (the probe's runners live in
+    ``models/gossipsub.py``) are among the files the import rule reads."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"go_libp2p_pubsub_tpu_torch/pb/trace.py",
+            "go_libp2p_pubsub_tpu_torch/artifacts.py",
+            "go_libp2p_pubsub_tpu_torch/interop/export.py",
+            "go_libp2p_pubsub_tpu_torch/interop/replay.py",
+            "go_libp2p_pubsub_tpu_torch/tracestat.py",
+            "go_libp2p_pubsub_tpu_torch/trace_export.py"} <= names
+
+
+@pytest.mark.parametrize("name", ["trace_export.run", "trace_export.collect",
+                                  "trace_export.probe_forms",
+                                  "gossip_run_rpc_snapshots",
+                                  "gossip_run_acq_snapshots",
+                                  "gossip_run_mesh_snapshots"])
+def test_trace_entry_points_default_to_cuda(name):
+    """The trace path's entry points run on the card unless the caller
+    asks for the CPU, and raise without one."""
+    from go_libp2p_pubsub_tpu_torch import trace_export
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    if name.startswith("trace_export."):
+        call = getattr(trace_export, name.split(".")[1])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        return
+    params, state = _sim()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(pgs, name)(params, state, 1, _step(rpc_probe=True))

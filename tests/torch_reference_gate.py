@@ -24,6 +24,8 @@ checked on the JAX reference.
         [--n 100000] [--port]
     JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --randomsub \
         [--n 10000] [--port]
+    JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --trace-export \
+        [--n 100000] [--port] [--out DIR]
 
 Runs the JAX package's unscored per-tick step (XLA) on the resident
 configuration (go_libp2p_pubsub_tpu_torch/resident.py: 10 topics, C = 16,
@@ -136,10 +138,26 @@ on the reference at ``--n`` peers (default 10,000, the benchmark's) and
 prints its reach gate (every message at every peer) and the digest of
 every state leaf; with ``--port`` the port's plain CPU run must give the
 same reach and digest.
+
+With ``--trace-export`` it runs the JAX package's trace-export benchmark
+(bench_suite.py ``_trace_export_run``, its XLA twin: the faulted 100-topic
+sim, telemetry for 6 ticks, acquisition snapshots for 6, the RPC probe for
+2, the six exporter streams merged into the 13-type trace;
+go_libp2p_pubsub_tpu_torch/trace_export.py) on the reference at ``--n``
+peers (default 100,000, the benchmark's), unpadded, writes the pb trace and
+the frames sidecar into ``--out`` (a temporary directory by default), and
+prints the trace's SHA-256, the per-type counts and the JAX package's
+``tools/tracestat.py`` report with ``--check OBS_r10.json``; with
+``--port`` the port's plain CPU run (``trace_export.collect("cpu", n)``,
+then ``export``) must write the same bytes and give the same report.  At
+100,000 peers the reference's digest must also equal
+``trace_export.REFERENCE_SHA256``.
 """
 
 import argparse
+import os
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -702,6 +720,162 @@ def randomsub_rows(n: int, port: bool) -> int:
     return 0 if ok else 1
 
 
+def reference_trace_export(n: int, out_dir) -> dict:
+    """The JAX package's ``_trace_export_run`` body on its XLA step
+    (``use_pallas_receive=False``, unpadded) at ``n`` peers, its files
+    written into ``out_dir``: the trace's digest, per-type counts and
+    event count, and the paths."""
+    import hashlib
+    import os
+    from collections import Counter
+
+    with imported_reference() as r:
+        import go_libp2p_pubsub_tpu.models.faults as fl
+        import go_libp2p_pubsub_tpu.models.telemetry as tl
+        from go_libp2p_pubsub_tpu.interop import export as ex
+        gs = r.gs
+        t, m, C = 100, 16, 16
+        T, T_rpc = 6, 2
+        rng = np.random.default_rng(0)
+        cfg = gs.GossipSimConfig(
+            offsets=gs.make_gossip_offsets(t, C, n, seed=0), n_topics=t)
+        sc = gs.ScoreSimConfig()
+        topic = rng.integers(0, t, m)
+        origin = rng.integers(0, n // t, m) * t + topic
+        tick = np.sort(rng.integers(0, 4, m)).astype(np.int32)
+        subs = np.zeros((n, t), dtype=bool)
+        subs[np.arange(n), np.arange(n) % t] = True
+        invalid = np.zeros(m, dtype=bool)
+        invalid[:2] = True
+        sybil = np.zeros(n, dtype=bool)
+        sybil[origin[:2]] = True
+        victims = np.flatnonzero(rng.random(n) < 0.002)
+        sched = fl.FaultSchedule(
+            n_peers=n, horizon=T,
+            down_intervals=[(int(p), 1 + int(p % 2), 4 + int(p % 2))
+                            for p in victims],
+            drop_prob=0.02, seed=1)
+        peer_topic = (np.arange(n) % t).astype(np.int64)
+        step_kw = dict(use_pallas_receive=False)
+        params, state = gs.make_gossip_sim(
+            cfg, subs, topic, origin, tick, score_cfg=sc, sybil=sybil,
+            msg_invalid=invalid, fault_schedule=sched)
+        tcfg = tl.TelemetryConfig(latency_hist=True, latency_buckets=16)
+        out, counts, frames = tl.telemetry_run_curve(
+            params, gs.tree_copy(state), T,
+            gs.make_gossip_step(cfg, sc, telemetry=tcfg, **step_kw), m)
+        _, snaps = gs.gossip_run_acq_snapshots(
+            params, gs.tree_copy(state), T,
+            gs.make_gossip_step(cfg, sc, **step_kw))
+        _, rsnaps = gs.gossip_run_rpc_snapshots(
+            params, state, T_rpc,
+            gs.make_gossip_step(cfg, sc, rpc_probe=True, **step_kw))
+        have_s = np.asarray(snaps["have"])[:, :, :n]
+        mesh_s = np.asarray(snaps["mesh"])[:, :n]
+        rsnaps = {k: np.asarray(v) for k, v in rsnaps.items()}
+        ftm = np.asarray(gs.first_tick_matrix(out, m))[:n]
+        merged = ex.merge_event_streams(
+            ex.events_from_sim(ftm, topic, origin, tick,
+                               fault_schedule=sched, peer_topic=peer_topic),
+            ex.mesh_trace_events(mesh_s, cfg.offsets, peer_topic),
+            ex.reject_events(have_s, invalid, topic),
+            ex.duplicate_events(have_s, mesh_s, cfg.offsets, topic),
+            ex.peer_events(cfg.offsets, n, fault_schedule=sched),
+            ex.rpc_events(rsnaps, cfg.offsets, topic, peer_topic,
+                          n_true=n))
+        path = os.path.join(out_dir, "gossipsub_trace_export.pb")
+        fr_path = os.path.join(out_dir, "gossipsub_trace_export_frames.json")
+        ex.write_pb_trace(path, merged)
+        ex.write_telemetry_frames(
+            fr_path, frames, tcfg, counts=np.asarray(counts),
+            publish_tick=tick, msg_topic=topic)
+        types = Counter(ex.TraceType.NAMES[e.type] for e in merged)
+    with open(path, "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    return dict(sha256=sha, types=dict(sorted(types.items())),
+                n_events=sum(types.values()), trace=path, frames=fr_path)
+
+
+def _tools_tracestat(trace: str, frames: str, *extra) -> tuple:
+    """The JAX package's ``tools/tracestat.py`` over a trace and its
+    frames sidecar: (exit code, stdout, stderr)."""
+    import subprocess
+
+    root = Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "tools/tracestat.py", trace,
+                        "--frames", frames, *extra], cwd=root,
+                       capture_output=True, text=True)
+    return r.returncode, r.stdout, r.stderr
+
+
+def trace_export_rows(n: int, port: bool, out: str | None) -> int:
+    """The trace-export benchmark's XLA twin on the reference at ``n``
+    peers: its digest, per-type counts and tracestat report (with
+    ``--check OBS_r10.json``); with ``port`` the port's plain CPU run must
+    write the same bytes and report."""
+    import json
+    import tempfile
+
+    from go_libp2p_pubsub_tpu_torch import trace_export
+
+    root = Path(__file__).resolve().parents[1]
+    baseline = str(root / "OBS_r10.json")
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = out or tmp
+        ref_dir = os.path.join(out_dir, "reference")
+        os.makedirs(ref_dir, exist_ok=True)
+        t0 = time.perf_counter()
+        ref = reference_trace_export(n, ref_dir)
+        ref_s = time.perf_counter() - t0
+        rc, rep_json, err = _tools_tracestat(ref["trace"], ref["frames"],
+                                             "--json")
+        rep = json.loads(rep_json) if rc == 0 else None
+        rc_check, _, err_check = _tools_tracestat(
+            ref["trace"], ref["frames"], "--check", baseline)
+        with open(baseline) as f:
+            obs = json.load(f)
+        print(f"N={n}, reference XLA twin ({ref_s:.1f} s): sha256 "
+              f"{ref['sha256']}; {ref['n_events']} events, "
+              f"{len(ref['types'])} types: {ref['types']}")
+        print(f"tools/tracestat.py --json: exit {rc}; latency_ticks "
+              f"{None if rep is None else rep.get('latency_ticks')}; "
+              f"coverage {None if rep is None else rep['coverage']['covered']}"
+              f"/13")
+        print(f"tools/tracestat.py --check OBS_r10.json: exit {rc_check} "
+              f"({err_check.strip()})")
+        same_obs = rep is not None and rep["events"] == obs["events"]
+        print(f"event counts equal to OBS_r10.json's: {same_obs}"
+              + ("" if same_obs or rep is None else
+                 f" (OBS_r10.json {obs['events']})"))
+        ok = rc == 0 and rc_check == 0 and len(ref["types"]) == 13
+        if n == trace_export.N_PEERS:
+            match = ref["sha256"] == trace_export.REFERENCE_SHA256
+            print(f"equal to trace_export.REFERENCE_SHA256: {match}")
+            ok = ok and match
+        if port:
+            port_dir = os.path.join(out_dir, "port")
+            bundle = trace_export.collect("cpu", n)
+            rows = trace_export.export(bundle, port_dir)
+            with open(rows["trace"], "rb") as f, \
+                    open(ref["trace"], "rb") as g:
+                same_bytes = f.read() == g.read()
+            with open(rows["frames"], "rb") as f, \
+                    open(ref["frames"], "rb") as g:
+                same_frames = f.read() == g.read()
+            same_report = rows["tracestat"] == rep
+            print(f"port (CPU): sha256 {rows['sha256']}; "
+                  f"{rows['n_events']} events; collect "
+                  f"{rows['collect_s']!r} s, export {rows['export_s']!r} s, "
+                  f"write {rows['write_s']!r} s on this CPU; trace bytes "
+                  f"equal: {same_bytes}; frames equal: {same_frames}; "
+                  f"tracestat report equal: {same_report}; check "
+                  f"{rows['check_problems']}")
+            ok = (ok and same_bytes and same_frames and same_report
+                  and not rows["check_problems"])
+    print("gates", "pass" if ok else "FAIL")
+    return 0 if ok else 1
+
+
 def tournament_rows(n: int, port: bool) -> int:
     """The reference's attack × defense tournament at its benchmark shape
     (``run_tournament(n, 20, 24, 150)``, one batched dispatch on the
@@ -861,6 +1035,8 @@ def main() -> int:
     ap.add_argument("--tournament", action="store_true")
     ap.add_argument("--batched", action="store_true")
     ap.add_argument("--randomsub", action="store_true")
+    ap.add_argument("--trace-export", action="store_true")
+    ap.add_argument("--out", default=None)
     ap.add_argument("--port", action="store_true")
     ap.add_argument("--ticks", type=int, default=400)
     args = ap.parse_args()
@@ -880,6 +1056,8 @@ def main() -> int:
         return batched_rows(args.n or 100_000, args.port)
     if args.randomsub:
         return randomsub_rows(args.n or 10_000, args.port)
+    if args.trace_export:
+        return trace_export_rows(args.n or 100_000, args.port, args.out)
     if args.adversarial or args.everything or args.everything_paired:
         return adversarial_gates(
             args.n or 100_000, args.ticks,
