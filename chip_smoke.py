@@ -377,6 +377,37 @@ Phases (any failure exits non-zero; nothing is caught):
    --check against the committed OBS_r10.json clean; its rows
    (n_events, bytes_total, collect_s, export_s, write_s, events/s,
    bytes/event, peak memory);
+5aj. the sweep server as written (sweepd_bench.run_sweepd, the JAX
+   package's gossipsub_sweepd row: the batched SweepServer at 10,000
+   peers, 10 topics, M = 16, 60 ticks, batch 6, the 24 seed replicas then
+   the 24 scenarios; counts reset just before and read just after): every
+   row equal to the JAX package's (sweepd_bench.REFERENCE_ROWS), all ok,
+   no invariant bit, compiles() == 1, the sweep/seed wall ratio <= 2.0,
+   no source built by ops/kernels/_build.py; replica heartbeats/s, B3's
+   batched launches, B1's (0: the tournament config's cells run on the
+   receive loops), the peak memory;
+5ak. the kernel server (batch 1) at 512 peers (the benchmark's shape) and
+   at 10,000 (the CLI's default shape): rows equal to the JAX package's,
+   B1's attacks_faults+knobs variant launched once a tick of every
+   scenario and no other variant, no receive-loop pass, each scenario's
+   last tick's operands kernel == plain, compiles() == 1 and no source
+   built by ops/kernels/_build.py;
+5al. the checkpoint benchmark as written at 1,000,000 peers
+   (checkpoint_bench.run: single, segmented S2 and S4, kill_resume;
+   snapshots in a temporary directory removed after): every digest equal
+   to the JAX package's (checkpoint_bench.REFERENCE_DIGEST), the port's
+   ckptstat exits 0; snapshot bytes, each row's wall seconds, B1 and B3
+   launches;
+5am. ckpt_gossip_run_fused at the resident shape: 4 windows of 8 ticks,
+   segmented by 2 windows, the stop flag up (interrupted after the first
+   segment) then resumed: the unsegmented fused run's digest, B2 launched
+   once a window;
+5an. the server as a process on the card (sweepd_bench.restart_check, run
+   in a thread once select.cu and five more sources are built: its one
+   kernel is B3): an uninterrupted run of nine scenarios; a run sent
+   SIGTERM after its first batch, which drains and exits 0; a restart on
+   the same journal, SIGKILLed with a partial batch journaled; a restart
+   that replays it; every scenario's row equal to the uninterrupted run's;
 6. the unscored receive kernel against its plain version at the resident
    configuration's shapes (N = 1,048,576, C = 16, W = 1), on seeded random
    operands and on the operands of a real unscored tick: every output
@@ -1656,6 +1687,65 @@ def digest(state) -> str:
     return h.hexdigest()[:16]
 
 
+def sweepd_kernel_phase(dev, shape: str, krecv, ksel, pg) -> dict:
+    """5ak at one shape: the kernel server's six scenarios (batch 1) with
+    the receive launches counted by variant, the receive loops' passes
+    counted, and the operands of each scenario's last tick kept; each kept
+    tick's kernel output is then held against the plain version (those
+    launches counted apart).  Fails unless the rows equal the JAX
+    package's, ``attacks_faults+knobs`` ran once a tick of every scenario
+    and nothing else did, ``compiles() == 1`` and no source was built."""
+    from go_libp2p_pubsub_tpu_torch import sweepd_bench
+    from go_libp2p_pubsub_tpu_torch.ops.kernels import _build
+
+    ticks = sweepd_bench.KERNEL_SHAPES[shape][3]
+    kept, calls = [], [0]
+    real = krecv.receive_update
+
+    def keep(k_, **ops_):
+        calls[0] += 1
+        if calls[0] % ticks == 0:               # each scenario's last tick
+            kept.append((k_, {key: (v.clone() if isinstance(v, torch.Tensor)
+                                    else v) for key, v in ops_.items()}))
+        return real(k_, **ops_)
+
+    loop_passes = []
+    krecv.launches.clear()
+    ksel.launches = 0
+    built0 = _build.compiled
+    krecv.receive_update = keep
+    try:
+        out = {}
+        loop_passes = capture_calls(
+            lambda: out.update(sweepd_bench.run_kernel(dev, shape)),
+            pg._loops, "receive")
+    finally:
+        krecv.receive_update = real
+    launches = dict(krecv.launches)
+    select = ksel.launches
+    n_req = len(sweepd_bench.KERNEL_REQUESTS)
+    want = {"attacks_faults+knobs": n_req * ticks}
+    errs = [check_identical(f"5ak {shape}: kernel server tick {i}",
+                            krecv.receive_update(k_, **ops_),
+                            krecv.receive_update_plain(k_, **ops_))
+            for i, (k_, ops_) in enumerate(kept)]
+    rows_ok = sweepd_bench.rows_equal(
+        out["rows"], sweepd_bench.REFERENCE_KERNEL_ROWS[shape])
+    if not rows_ok:
+        fail(f"5ak {shape}: rows {out['rows']} != the JAX package's "
+             f"{sweepd_bench.REFERENCE_KERNEL_ROWS[shape]}")
+    if launches != want or loop_passes:
+        fail(f"5ak {shape}: receive launches {launches} (want {want}), "
+             f"receive-loop passes {len(loop_passes)} (want 0)")
+    if len(kept) != n_req or out["compiles"] != 1 \
+            or _build.compiled != built0:
+        fail(f"5ak {shape}: kept {len(kept)} ticks, compiles "
+             f"{out['compiles']}, sources built {_build.compiled - built0}")
+    return dict(out, launches=launches, select=select,
+                loop_passes=len(loop_passes), max_abs_err=max(errs),
+                rows_equal_reference=rows_ok)
+
+
 def fused_window_ops(k, ops, select_rows: int) -> int:
     """Operations one window needs on these operands: per peer-tick ~55
     for its one front (injection, fanout TTL, the degree and the graft,
@@ -1820,7 +1910,9 @@ def main() -> None:
     from go_libp2p_pubsub_tpu_torch import (
         adversarial,
         batched_flagship,
+        checkpoint_bench,
         churn,
+        ckptstat,
         convert,
         everything,
         flagship,
@@ -1831,6 +1923,7 @@ def main() -> None:
         pipelined,
         randomsub_10k,
         resident,
+        sweepd_bench,
         telemetry_flagship,
         tournament,
     )
@@ -1842,6 +1935,7 @@ def main() -> None:
     from go_libp2p_pubsub_tpu_torch.ops.kernels import fused as kfused
     from go_libp2p_pubsub_tpu_torch.ops.kernels import receive as krecv
     from go_libp2p_pubsub_tpu_torch.ops.kernels import select as ksel
+    from go_libp2p_pubsub_tpu_torch.parallel import checkpoint as ckpt
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -1867,13 +1961,26 @@ def main() -> None:
         1, mp_context=multiprocessing.get_context("spawn"))
     cpu_forms = []
 
+    # 5an (the sweep server killed and restarted as a process on the card,
+    # B3 its one kernel) runs in a thread once select.cu and five more
+    # sources are built; read after 5am
+    restart_pool = concurrent.futures.ThreadPoolExecutor(1)
+    restart_run = []
+
     def built(src):
         build_s.setdefault(src, time.perf_counter() - t0)
         if len(build_s) == 5 and not cpu_forms:
             cpu_forms.append(cpu_pool.submit(meshless_cpu_forms))
+        if ("select" in build_s and len(build_s) >= 6
+                and not restart_run):
+            restart_run.append(restart_pool.submit(
+                sweepd_bench.restart_check, dev))
     logs = _build.build(("select", *krecv.SOURCES, "fused"), on_done=built)
     if not cpu_forms:
         cpu_forms.append(cpu_pool.submit(meshless_cpu_forms))
+    if not restart_run:
+        restart_run.append(restart_pool.submit(sweepd_bench.restart_check,
+                                               dev))
     # 5ah's CPU half follows in the same child once no nvcc is left
     cpu_forms.append(cpu_pool.submit(trace_cpu_half))
     for src, log in logs.items():
@@ -3985,6 +4092,140 @@ def main() -> None:
                               name, smi)
     print(f"5ah-5ai: {time.perf_counter() - t0:.1f} s")
 
+    # -- 5aj. the sweep server as written (sweepd_bench.run_sweepd: the
+    # batched server at 10,000 peers, the 24 seed replicas then the 24
+    # scenarios, every gate of bench_suite.py:1044-1150), counts reset just
+    # before and read just after; its rows against the JAX package's
+    t0 = time.perf_counter()
+    krecv.launches.clear()
+    ksel.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0_s = torch.cuda.memory_allocated()
+    built0 = _build.compiled
+    sw = sweepd_bench.run_sweepd(dev)
+    torch.cuda.synchronize()
+    sw.update(select=ksel.launches, receive=sum(krecv.launches.values()),
+              sources_built=_build.compiled - built0,
+              peak_bytes=torch.cuda.max_memory_allocated(),
+              start_bytes=alloc0_s)
+    sw["rows_equal_reference"] = (
+        sweepd_bench.rows_equal(sw["rows"],
+                                sweepd_bench.REFERENCE_ROWS["sweep"])
+        and sweepd_bench.rows_equal(sw["seed_rows"],
+                                    sweepd_bench.REFERENCE_ROWS["seed"]))
+    print(f"5aj sweepd at {sweepd_bench.SHAPE}: {sw['replica_hbps']!r} "
+          f"replica heartbeats/s ({sw['sweep_wall_s_unrounded']!r} s for "
+          f"the 24 scenarios), sweep/seed wall ratio "
+          f"{sw['sweep_vs_seed_ratio']!r} (gate <= 2.0), compiles "
+          f"{sw['compiles']}, B3 launches (batched) {sw['select']}, B1 "
+          f"launches {sw['receive']} (the receive loops serve), sources "
+          f"built {sw['sources_built']}, peak memory "
+          f"{sw['peak_bytes']} B ({alloc0_s} B at the start), rows equal "
+          f"to the JAX package's: {sw['rows_equal_reference']} "
+          f"({time.perf_counter() - t0:.1f} s) [{name}, {smi}]")
+    if (not sw["rows_equal_reference"] or sw["receive"] or not sw["select"]
+            or sw["sources_built"]):
+        fail(f"5aj: rows {sw['rows']}, seed rows {sw['seed_rows']}, B1 "
+             f"{sw['receive']}, B3 {sw['select']}, sources built "
+             f"{sw['sources_built']}")
+
+    # -- 5ak. the kernel server (batch 1) at 512 and at 10,000 peers: B1's
+    # attacks_faults+knobs variant every tick, checked against plain
+    t0 = time.perf_counter()
+    swk = {shape: sweepd_kernel_phase(dev, shape, krecv, ksel, pg)
+           for shape in sweepd_bench.KERNEL_SHAPES}
+    for shape, r in swk.items():
+        print(f"5ak kernel server {shape} "
+              f"{sweepd_bench.KERNEL_SHAPES[shape]}: rows equal to the JAX "
+              f"package's, receive launches {r['launches']}, select "
+              f"{r['select']}, receive-loop passes {r['loop_passes']}, kept "
+              f"ticks kernel == plain (max abs err {r['max_abs_err']!r}), "
+              f"compiles {r['compiles']}, {r['replica_hbps']!r} replica "
+              f"heartbeats/s [{name}, {smi}]")
+    print(f"5ak: {time.perf_counter() - t0:.1f} s")
+
+    # -- 5al. the checkpoint benchmark as written at 1,000,000 peers
+    # (checkpoint_bench.run: single, S2, S4, kill_resume; snapshots in a
+    # temporary directory removed after), counts reset just before and
+    # read just after; every digest the JAX package's; ckptstat as written
+    # (its table and exit code printed), its identity and compile gates
+    # clean.  Its overhead gate (segmented <= 10x single, set against the
+    # reference's 8.8 s CPU run) is reported: on the card 8 ticks take
+    # ~0.03 s and each 248 MB snapshot ~1 s of host copy, npz, CRC and
+    # fsync, timed apart below
+    t0 = time.perf_counter()
+    krecv.launches.clear()
+    ksel.launches = 0
+    ck_art = checkpoint_bench.run(dev)
+    ck_launch = dict(receive=dict(krecv.launches), select=ksel.launches)
+    digests = {r_["id"]: r_["digest"] for r_ in ck_art["rows"]}
+    with tempfile.TemporaryDirectory() as td:
+        art_path = str(Path(td) / "checkpoint.json")
+        Path(art_path).write_text(json.dumps(ck_art))
+        rc_stat = ckptstat.main([art_path])
+    stat_gates = ckptstat.gates(ck_art["rows"])
+    rows_s = {r_["id"]: r_ for r_ in ck_art["rows"]}
+    print(f"5al checkpoint at {checkpoint_bench.N_PEERS} peers: digests "
+          f"{digests} (the JAX package's {checkpoint_bench.REFERENCE_DIGEST})"
+          f", single {rows_s['single']['wall_s_unrounded']!r} s, S2 "
+          f"{rows_s['segmented_S2']['wall_s_unrounded']!r} s "
+          f"({rows_s['segmented_S2']['snapshot_bytes']} B of snapshots), S4 "
+          f"{rows_s['segmented_S4']['wall_s_unrounded']!r} s "
+          f"({rows_s['segmented_S4']['snapshot_bytes']} B), kill_resume "
+          f"from tick {rows_s['kill_resume']['resumed_from_tick']}, "
+          f"compiles {[r_.get('compiles') for r_ in ck_art['rows']]}, "
+          f"launches {ck_launch}, ckptstat rc {rc_stat}, its failing "
+          f"gates {sorted({g for g, _ in stat_gates})} "
+          f"({time.perf_counter() - t0:.1f} s) [{name}, {smi}]")
+    print("5al one snapshot's host seconds: " + json.dumps(
+        checkpoint_bench.snapshot_seconds(dev)) + f" [{name}, {smi}]")
+    if (set(digests.values()) != {checkpoint_bench.REFERENCE_DIGEST}
+            or {g for g, _ in stat_gates} - {"overhead"}):
+        fail(f"5al: {json.dumps(ck_art)}")
+
+    # -- 5am. the fused runner segmented at the resident shape: 4 windows
+    # of 8, segmented by 2 windows, killed after the first segment and
+    # resumed, against the unsegmented fused run; B2 once a window
+    t0 = time.perf_counter()
+    cfg_f, params_f, state_f, *_ = resident.build(dev)
+    window_f = pg.make_fused_window(cfg_f, None, ticks_fused=8, device=dev)
+    d_whole = digest(pg.gossip_run_fused(params_f, pg.tree_copy(state_f), 32,
+                                         window_f, device=dev))
+    kfused.launches = 0
+    with tempfile.TemporaryDirectory() as td:
+        ckc_f = ckpt.CheckpointConfig(directory=td, every=16)
+        ckpt.request_stop()
+        try:
+            ckpt.ckpt_gossip_run_fused(params_f, pg.tree_copy(state_f), 32,
+                                       window_f, ckc_f, device=dev)
+            fail("5am: the stop flag did not interrupt the fused run")
+        except ckpt.CheckpointInterrupt as e:
+            killed_at = e.ticks_done
+        finally:
+            ckpt.clear_stop()
+        resumed = ckpt.ckpt_gossip_run_fused(params_f, pg.tree_copy(state_f),
+                                             32, window_f, ckc_f, device=dev)
+        d_resumed = digest(resumed)
+    b2_fused = kfused.launches
+    print(f"5am fused segmented at the resident shape: killed after "
+          f"{killed_at} ticks, resumed digest {d_resumed} against the "
+          f"unsegmented {d_whole}, B2 launches {b2_fused} for 4 windows "
+          f"({time.perf_counter() - t0:.1f} s) [{name}, {smi}]")
+    if d_resumed != d_whole or killed_at != 16 or b2_fused != 4:
+        fail(f"5am: {killed_at} {d_resumed} {d_whole} {b2_fused}")
+    del params_f, state_f, resumed
+
+    # -- 5an. the server as a process on the card (run during the build):
+    # SIGTERM drains and exits 0, a SIGKILLed server's journal replays,
+    # every row equal to an uninterrupted run's
+    restart = restart_run[0].result()
+    restart_pool.shutdown()
+    print("5an sweepd restart: " + json.dumps(
+        {k_: v for k_, v in restart.items() if k_ != "rows"}))
+    if not restart["ok"]:
+        fail(f"5an: {json.dumps(restart)}")
+
     # -- 6. the unscored receive kernel vs plain at the resident shapes
     n_r = resident.N_PEERS
     cfg_r, params, state, msg_topic, _ = resident.build(dev)
@@ -4191,7 +4432,8 @@ def main() -> None:
         dict(name="receive_update", route="cuda",
              source="go_libp2p_pubsub_tpu_torch/csrc/receive.cu",
              replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
-             launches=launches["receive"],
+             launches=(launches["receive"]
+                       + ck_launch["receive"].get("scored", 0)),
              max_abs_err=max(err_rand, err_tick, inv_k["receive"]["err"]),
              ms=rcv_ms,
              plain_ms=rcv_plain_ms, bound_ms=rcv_bound[0],
@@ -4233,7 +4475,8 @@ def main() -> None:
         dict(name="select_k_bits", route="cuda",
              source="go_libp2p_pubsub_tpu_torch/csrc/select.cu",
              replaces="go_libp2p_pubsub_tpu/ops/pallas/select.py:39",
-             launches=launches["select"],
+             launches=(launches["select"] + ck_launch["select"]
+                       + sum(r_["select"] for r_ in swk.values())),
              max_abs_err=max(sel_err, inv_k["select"]["err"]),
              ms=sel_ms, plain_ms=sel_plain_ms, bound_ms=sel_bound[0],
              bound_by=sel_bound[1], library_ms=None),
@@ -4246,7 +4489,7 @@ def main() -> None:
         dict(name="fused_gossip_update", route="cuda",
              source="go_libp2p_pubsub_tpu_torch/csrc/fused.cu",
              replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:1662",
-             launches=paths["fused"]["launches"]["fused"],
+             launches=paths["fused"]["launches"]["fused"] + b2_fused,
              max_abs_err=err_fused, ms=fused_ms, plain_ms=fused_plain_ms,
              bound_ms=fused_bound[0], bound_by=fused_bound[1],
              library_ms=None),
@@ -4298,6 +4541,9 @@ def main() -> None:
     main_variant = {"receive_update_knobs": "scored+knobs",
                     "receive_update_attacks_knobs": "attacks+knobs",
                     "receive_update_faults_knobs": "scored_faults+knobs"}
+    # the kernel server's variant: 5ak's launches added
+    served_k = sum(r_["launches"].get("attacks_faults+knobs", 0)
+                   for r_ in swk.values())
     for kname, r in knob_k.items():
         kernels.append(dict(
             name=kname, route="cuda",
@@ -4306,7 +4552,9 @@ def main() -> None:
                        else "receive_knobs.cu")),
             replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
             launches=(main_knob_launches[main_variant[kname]]
-                      if kname in main_variant else r["launches"]),
+                      if kname in main_variant else r["launches"])
+            + (served_k if kname == "receive_update_attacks_faults_knobs"
+               else 0),
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=None))
@@ -4342,7 +4590,7 @@ def main() -> None:
         replaces="go_libp2p_pubsub_tpu/ops/pallas/select.py:39",
         launches=int(round(bf["launches_per_batched_tick"]["select"]
                            * batched_flagship.TIMED
-                           * batched_flagship.BLOCKS)),
+                           * batched_flagship.BLOCKS)) + sw["select"],
         max_abs_err=max(r["max_abs_err"] for r in sel_b.values()),
         ms=sb_["ms"], plain_ms=sb_["plain_ms"], bound_ms=sb_["bound"][0],
         bound_by=sb_["bound"][1], library_ms=None))
@@ -4426,6 +4674,13 @@ def main() -> None:
         "tune_defense": tuned,
         "meshless": meshless,
         "trace_export": trace_main,
+        "sweepd": {key: v for key, v in sw.items()
+                   if key not in ("rows", "seed_rows")},
+        "sweepd_kernel": swk,
+        "checkpoint": dict(ck_art, launches=ck_launch),
+        "checkpoint_fused": dict(killed_at=killed_at, digest=d_resumed,
+                                 launches=b2_fused),
+        "sweepd_restart": restart,
         "delay_receive": {
             kname: {key: v for key, v in r.items() if key != "bound"}
             for kname, r in delay_k.items()},

@@ -11,6 +11,12 @@ each counterpart is easy to find:
 - ``models/_delivery.py`` first-delivery bookkeeping
 - ``models/plan.py``      named refusals for options outside the port
 - ``convert.py``          carrying params/state across from the reference
+- ``parallel/checkpoint.py``, ``utils/checkpoint.py``
+                          segmented runs and snapshots, in the
+                          reference's file format
+- ``sweepd.py``, ``obs/`` the resident scenario server and its
+                          observability plane (the reference's
+                          ``tools/sweepd.py`` and ``obs/``)
 
 Packed u32 words are ``torch.int32`` tensors holding the u32 bit patterns
 (torch's CPU ``uint32`` has no shifts).  Every entry point takes an

@@ -1127,6 +1127,25 @@ def refresh_gates(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
 # --------------------------------------------------------------------------
 
 
+def kernel_capability(cfg: GossipSimConfig, sc: ScoreSimConfig | None,
+                      params: GossipParams, state: GossipState) -> str | None:
+    """None where the step's receive half takes the receive kernel (B1);
+    else the reason, in the reference's words: a SimKnobs point on an
+    IWANT-flood config (``MSG_KERNEL_KNOB_IWANT_SPAM``) and any other
+    config ``plan.receive_path`` sends to the receive loops (byzantine
+    mutators, P3/P3b, more than 16 candidates: ``MSG_KERNEL_CONFIG``), and
+    delays on an IWANT-flood config, which the step refuses
+    (``MSG_KERNEL_DELAY_IWANT_SPAM``)."""
+    iwant_spam = sc is not None and sc.sybil_iwant_spam
+    if params.sim_knobs is not None and iwant_spam:
+        return plan.MSG_KERNEL_KNOB_IWANT_SPAM
+    if params.delays is not None and iwant_spam:
+        return plan.MSG_KERNEL_DELAY_IWANT_SPAM
+    if plan.receive_path(cfg, sc, params) != plan.KERNEL:
+        return plan.MSG_KERNEL_CONFIG
+    return None
+
+
 @dataclass(frozen=True)
 class EdgeGeometry:
     """The device tensors the delay exchange reads a ring's edges with,

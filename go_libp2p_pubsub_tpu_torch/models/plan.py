@@ -47,10 +47,17 @@ messages (``MSG_PAIRED_COMBINED``, ``MSG_KERNEL_KNOB_IWANT_SPAM``,
 ``MSG_DELAYS_NEED_LINES``, ``MSG_DELAYS_NEED_COUNTER_LINES``,
 ``MSG_DELAYS_NEED_PROBE_LINE``).  Mixed-protocol overlays, which the
 reference's probe refuses (``MSG_PROBE_MIXED_PROTOCOL``), are refused
-when the sim is built (``flood_proto``).
+when the sim is built (``flood_proto``).  The sweep server's execution
+path is chosen by ``plan_serving`` (an ``ExecutionPlan`` or one named
+``Refusal``: the reference's ``serve.kernel-batch`` and
+``serve.kernel-devices``, and ``serve_devices`` for a batched server
+over several devices); ``serve_multi`` refuses its multi-tenant front
+end and ``sharded_checkpoint`` the sharded segmented runners.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 #: the longest fused window: its lane seeds ride the launch's argument
 #: block (4 u32 per tick)
@@ -125,6 +132,18 @@ REFUSALS: dict[str, str] = {
     "batched_surface": "the router surface (PX candidate rotation, direct "
                        "peers, flood publishing, exact-k gossip targets, "
                        "shared addresses) is not batched yet",
+    "sharded_checkpoint": "the sharded checkpoint runners "
+                          "(ckpt_sharded_gossip_run, _run_fused, "
+                          "_run_knob_batch) run on a multi-device peer "
+                          "mesh, which the port does not build yet (A9)",
+    "serve_devices": "sweepd --devices (the batched dispatch sharded over a "
+                     "D-device peer mesh) needs the sharded step, which the "
+                     "port does not build yet (A9)",
+    "serve_multi": "sweepd --multi, the multi-tenant front end, and its "
+                   "flags (--max-buckets, --queue-cap, --aot-dir, "
+                   "--long-ticks, --ckpt-dir, --ckpt-every) come with the "
+                   "serving slice (A8: serving/buckets.py, "
+                   "serving/frontend.py)",
 }
 
 
@@ -214,6 +233,14 @@ MSG_KERNEL_KNOB_IWANT_SPAM = (
     "step (the in-kernel IWANT serve budget bakes it) — run "
     "iwant-spam knob sweeps on the XLA path, or drop sybil_iwant_spam "
     "from the config")
+
+
+#: the reference's message for a config its kernel step refuses (the port
+#: runs these on the receive loops: ``receive_path``)
+MSG_KERNEL_CONFIG = (
+    "config not supported by the pallas step (needs C<=16, W>=1, "
+    "carried gates, matching static score weights, no "
+    "flood_proto/track_p3/byzantine)")
 
 
 #: the reference's message for delays on an IWANT-flood config: its kernel
@@ -370,3 +397,77 @@ def check_fused_horizon(n_ticks: int, ticks: int) -> int:
     if n_ticks < 0 or n_ticks % ticks:
         refuse("fused_horizon")
     return n_ticks // ticks
+
+
+# -- checkpointed runs and the sweep server ------------------------------------
+
+def msg_ckpt_mid_window(every: int, ticks_fused: int) -> str:
+    """The reference's refusal of a segment length that splits a fused
+    window (snapshots are taken between launches)."""
+    return ("ckpt segment boundary mid-window: CheckpointConfig."
+            f"every={int(every)} is not a multiple of "
+            f"ticks_fused={int(ticks_fused)} — align the segment "
+            "length to the fused window")
+
+
+#: the reference's serving refusals (its planner's ``plan_serving``)
+MSG_SERVE_KERNEL_BATCH = (
+    "kernel-path sweepd serves scenarios sequentially (no vmap rule "
+    "for the pallas step): use batch=1")
+
+MSG_SERVE_KERNEL_DEVICES = (
+    "sweepd: --devices shards the batched XLA dispatch; the "
+    "kernel-path server is the sequential demonstration — drive the "
+    "sharded kernel through make_gossip_step(shard_mesh=...) "
+    "directly instead")
+
+
+@dataclasses.dataclass(frozen=True)
+class Refusal:
+    """One named reason a request cannot be planned: ``code`` the stable
+    name, ``message`` the text the entry point raises, ``exc`` its
+    exception class (``SliceRefusal`` for the port's own names)."""
+
+    code: str
+    message: str
+    exc: type = ValueError
+
+    def raise_(self):
+        if self.exc is SliceRefusal:
+            raise SliceRefusal(self.code)
+        raise self.exc(self.message)
+
+
+@dataclasses.dataclass(frozen=True)
+class OperandLayout:
+    """How the carried state is shaped for the chosen path (the fields
+    ``plan_serving`` fills: the port runs unpadded)."""
+
+    padded: bool = False
+    batch: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPlan:
+    """The planner's positive verdict: the path and the operand layout."""
+
+    path: str
+    layout: OperandLayout = dataclasses.field(default_factory=OperandLayout)
+
+
+def plan_serving(*, kernel: bool = False, batch: int = 1,
+                 devices: int = 0) -> ExecutionPlan | Refusal:
+    """The sweep server's execution-path choices: the kernel server
+    serves one scenario at a time (batch 1) on one device; a batched
+    server sharded over ``devices`` waits for the sharded step
+    (``serve_devices``)."""
+    if kernel and batch != 1:
+        return Refusal("serve.kernel-batch", MSG_SERVE_KERNEL_BATCH)
+    if kernel and devices:
+        return Refusal("serve.kernel-devices", MSG_SERVE_KERNEL_DEVICES)
+    if devices:
+        return Refusal("serve_devices",
+                       f"serve_devices: {REFUSALS['serve_devices']}",
+                       SliceRefusal)
+    return ExecutionPlan("gossip-kernel" if kernel else "gossip-xla",
+                         OperandLayout(batch=int(batch) or 1))

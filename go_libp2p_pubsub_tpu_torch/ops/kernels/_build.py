@@ -32,6 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: the sources this process has compiled (one nvcc each)
+compiled = 0
 
 
 def nvcc_path() -> str:
@@ -61,6 +63,7 @@ def build(names: tuple[str, ...], on_done=None) -> dict[str, str]:
     ``on_done(name)`` is called as each source's nvcc exits (a caller
     that times the build reads its clock there).  Raises with nvcc's
     output if any build fails."""
+    global compiled
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -73,16 +76,19 @@ def build(names: tuple[str, ...], on_done=None) -> dict[str, str]:
                str(CSRC / f"{name}.cu")]
         # (the report goes to a file, so a long one cannot fill a pipe
         # while the others are waited on)
+        compiled += 1
         with open(log_path, "w") as log_f:
             procs[name] = (subprocess.Popen(
                 cmd, stdout=log_f, stderr=subprocess.STDOUT), tmp, out,
                 log_path)
-    def wait(name, proc):
+    def wait(name, proc, tmp, out):
         proc.wait()
+        if proc.returncode == 0:
+            tmp.replace(out)        # loadable as soon as its nvcc is done
         if on_done is not None:
             on_done(name)
-    waiters = [threading.Thread(target=wait, args=(name, proc))
-               for name, (proc, *_) in procs.items()]
+    waiters = [threading.Thread(target=wait, args=(name, proc, tmp, out))
+               for name, (proc, tmp, out, _) in procs.items()]
     for w in waiters:
         w.start()
     for w in waiters:
@@ -94,8 +100,6 @@ def build(names: tuple[str, ...], on_done=None) -> dict[str, str]:
         logs[name] = log
         if proc.returncode != 0:
             failed.append(f"nvcc {name}.cu failed:\n{log}")
-            continue
-        tmp.replace(out)
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs

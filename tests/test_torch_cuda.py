@@ -32,7 +32,11 @@ loops' two forms (the tournament's byzantine cell, the P3/P3b flagship)
 at 100,000 peers card against CPU every 25th tick; the RPC probe on every
 per-tick family's forms at 20,000 peers (``trace_export.PROBE_FORMS``),
 card against CPU by digest and against the probe-free step, and the
-trace-export pipeline at 20,000 peers writing the CPU's bytes.  Exact:
+trace-export pipeline at 20,000 peers writing the CPU's bytes; the sweep
+server's rows at 2,000 peers (batched: B3 with a replica axis on the
+receive loops; kernel: B1 every tick) card against CPU, and the
+checkpoint benchmark's sim at 20,000 peers segmented, killed and resumed
+on the card against the CPU's unsegmented run.  Exact:
 every output
 bit for bit, but
 a frame's ``score_mean``: the mean of non-integer f32 scores, which the
@@ -1915,3 +1919,67 @@ def test_trace_pipeline_on_the_card_writes_the_cpus_bytes(cuda, tmp_path):
     for key in ("trace", "frames"):
         with open(got[key], "rb") as f, open(want[key], "rb") as g:
             assert f.read() == g.read(), key
+
+
+#: the sweep server's card twins: 2,000 peers, 10 topics, 16 messages
+SWEEPD_TWIN = dict(n=2_000, t=10, m=16, ticks=20, seed=0)
+SWEEPD_TWIN_REQUESTS = [
+    {"id": "ref"}, {"id": "d8", "knobs": {"d": 8, "d_hi": 12}},
+    {"id": "loss", "drop_prob": 0.1, "churn": True},
+    {"id": "spam", "attack": "spam", "attack_frac": 0.15},
+    {"id": "eclipse", "attack": "eclipse", "attack_frac": 0.15},
+    {"id": "byz", "attack": "byzantine", "attack_frac": 0.1},
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [False, True], ids=["batched", "kernel"])
+def test_sweepd_rows_on_the_card_match_the_cpu(cuda, kernel):
+    """The batched server (batch 3: B3 with a replica axis, the receive
+    loops) and the kernel server (batch 1: B1 every tick) give the CPU's
+    rows on the card."""
+    from go_libp2p_pubsub_tpu_torch.sweepd import SweepServer
+
+    kw = dict(SWEEPD_TWIN, batch=1 if kernel else 3, kernel=kernel)
+    reqs = [r for r in SWEEPD_TWIN_REQUESTS
+            if not (kernel and r["id"] == "byz")]
+    card = SweepServer(device=cuda, **kw).submit([dict(r) for r in reqs])
+    cpu = SweepServer(device="cpu", **kw).submit([dict(r) for r in reqs])
+    assert card == cpu
+    assert all(r["ok"] for r in card)
+
+
+@pytest.mark.cuda
+def test_segmented_scored_run_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The checkpoint benchmark's sim at 20,000 peers, segmented every 3
+    ticks of 8 on the card, killed after the first segment and resumed:
+    every state leaf equal to the CPU's unsegmented run."""
+    from go_libp2p_pubsub_tpu_torch import checkpoint_bench
+    from go_libp2p_pubsub_tpu_torch.parallel import checkpoint as ck
+
+    n = 20_000
+    cfg, sc, params, state = checkpoint_bench.build(cuda, n)
+    ckc = ck.CheckpointConfig(directory=str(tmp_path), every=3,
+                              fingerprint=ck.config_fingerprint(cfg, sc))
+    step = pgs.make_gossip_step(cfg, sc, device=cuda)
+    ck.request_stop()
+    try:
+        with pytest.raises(ck.CheckpointInterrupt):
+            ck.ckpt_gossip_run(params, pgs.tree_copy(state), 8, step, ckc,
+                               device=cuda)
+    finally:
+        ck.clear_stop()
+    card = ck.ckpt_gossip_run(params, state, 8, step, ckc, device=cuda)
+    cfg, sc, params, state = checkpoint_bench.build("cpu", n)
+    cpu = pgs.gossip_run(params, state, 8,
+                         pgs.make_gossip_step(cfg, sc, device="cpu"),
+                         device="cpu")
+    want, got = convert.state_to_numpy(cpu), convert.state_to_numpy(card)
+    for key in ("mesh", "have", "backoff", "fanout", "last_pub",
+                "iwant_serves"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    for key, w in want["scores"].items():
+        if w is not None:
+            np.testing.assert_array_equal(got["scores"][key], w,
+                                          err_msg=key)
+    assert checkpoint_bench.digest(card) == checkpoint_bench.digest(cpu)

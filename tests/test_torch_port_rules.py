@@ -270,7 +270,27 @@ REFUSED = {
             down_intervals=[(p, 2, 6) for p in range(0, N, 9)],
             partition_group=np.arange(N) % 2,
             partition_windows=[(9, 12)])])],
+    # the sharded checkpoint runners wait for the sharded step (A9)
+    "sharded_checkpoint": [lambda: _ckpt().ckpt_sharded_gossip_run(
+        None, None, 1, None, None, None)],
+    # the sweep server: a batched dispatch over D devices (A9), the
+    # multi-tenant front end (the serving slice)
+    "serve_devices": [lambda: _sweepd().SweepServer(
+        n=64, t=1, m=2, ticks=4, batch=2, devices=2, device="cpu")],
+    "serve_multi": [lambda: _sweepd().check_flags(
+        _sweepd().parser().parse_args(argv)) for argv in (
+            ["--multi"], ["--queue-cap", "9"], ["--aot-dir", "x"])],
 }
+
+
+def _ckpt():
+    from go_libp2p_pubsub_tpu_torch.parallel import checkpoint
+    return checkpoint
+
+
+def _sweepd():
+    from go_libp2p_pubsub_tpu_torch import sweepd
+    return sweepd
 
 
 def _paired_stack_step():
@@ -567,3 +587,62 @@ def test_trace_entry_points_default_to_cuda(name):
     params, state = _sim()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         getattr(pgs, name)(params, state, 1, _step(rpc_probe=True))
+
+
+#: the sweep server's and checkpoints' modules (tools/ is the JAX package's
+#: command-line side: the port keeps its own copies)
+SLICE_19 = ("go_libp2p_pubsub_tpu_torch/sweepd.py",
+            "go_libp2p_pubsub_tpu_torch/sweepd_bench.py",
+            "go_libp2p_pubsub_tpu_torch/checkpoint_bench.py",
+            "go_libp2p_pubsub_tpu_torch/ckptstat.py",
+            "go_libp2p_pubsub_tpu_torch/parallel/checkpoint.py",
+            "go_libp2p_pubsub_tpu_torch/utils/checkpoint.py",
+            "go_libp2p_pubsub_tpu_torch/obs/__init__.py",
+            "go_libp2p_pubsub_tpu_torch/obs/metrics.py",
+            "go_libp2p_pubsub_tpu_torch/obs/spans.py",
+            "go_libp2p_pubsub_tpu_torch/obs/scrape.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_19)
+def test_sweep_and_checkpoint_modules_import_no_jax_nor_tools(rel):
+    """The new modules are under the import rule, and import nothing of
+    ``tools/`` either (nor ``ml_dtypes``, which the card's machine lacks:
+    bf16 crosses as its bits)."""
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert rel in names
+    tree = ast.parse((ROOT / rel).read_text(), filename=rel)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in mods if _forbidden(n) or n.split(".")[0] in (
+            "tools", "ml_dtypes")]
+        assert not bad, f"{rel} imports {bad}"
+
+
+@pytest.mark.parametrize("name", ["sweepd.SweepServer",
+                                  "sweepd_bench.run_sweepd",
+                                  "sweepd_bench.run_kernel",
+                                  "checkpoint_bench.run",
+                                  "ckpt_gossip_run"])
+def test_sweep_and_checkpoint_entry_points_default_to_cuda(name):
+    """The server, both benches and the segmented runners run on the card
+    unless the caller asks for the CPU, and raise without one."""
+    from go_libp2p_pubsub_tpu_torch import checkpoint_bench, sweepd_bench
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    calls = {
+        "sweepd.SweepServer": lambda: _sweepd().SweepServer(
+            n=64, t=1, m=2, ticks=4, batch=2),
+        "sweepd_bench.run_sweepd": sweepd_bench.run_sweepd,
+        "sweepd_bench.run_kernel": sweepd_bench.run_kernel,
+        "checkpoint_bench.run": checkpoint_bench.run,
+        "ckpt_gossip_run": lambda: _ckpt().ckpt_gossip_run(
+            *_sim(), 1, _step(), _ckpt().CheckpointConfig("unused")),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[name]()
+

@@ -26,6 +26,9 @@ checked on the JAX reference.
         [--n 10000] [--port]
     JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --trace-export \
         [--n 100000] [--port] [--out DIR]
+    JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --sweepd [--port]
+    JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --checkpoint \
+        [--n 1000000] [--port]
 
 Runs the JAX package's unscored per-tick step (XLA) on the resident
 configuration (go_libp2p_pubsub_tpu_torch/resident.py: 10 topics, C = 16,
@@ -152,6 +155,30 @@ prints the trace's SHA-256, the per-type counts and the JAX package's
 then ``export``) must write the same bytes and give the same report.  At
 100,000 peers the reference's digest must also equal
 ``trace_export.REFERENCE_SHA256``.
+
+With ``--sweepd`` it runs the JAX package's two sweep-server benchmarks'
+requests (bench_suite.py ``bench_gossipsub_sweepd`` and
+``bench_gossipsub_sweepd_kernel``; go_libp2p_pubsub_tpu_torch/
+sweepd_bench.py) on its ``tools/sweepd.SweepServer``: the batched server
+at 10,000 peers (the seed batch, then the 24 scenarios), the kernel server
+(its interpret-mode kernel, padded to 128) at 512 peers, and the kernel
+server's config on its unpadded XLA step at 512 (which must agree) and at
+the CLI's 10,000 (where its padded kernel path fails: the [n] honest mask
+meets the padded state in ``reach_counts_from_have``); it prints each list of rows as JSON (``sweepd_bench.
+REFERENCE_ROWS`` / ``REFERENCE_KERNEL_ROWS`` hold them) and whether they
+equal the committed ones; with ``--port`` the port's plain CPU server
+(``sweepd_bench.run_sweepd("cpu")`` / ``run_kernel``) must give the same
+rows.  Exits 1 on a difference.
+
+With ``--checkpoint`` it runs the JAX package's checkpointed-execution
+benchmark's sim (bench_suite.py ``bench_gossipsub_checkpoint``; go_libp2p_
+pubsub_tpu_torch/checkpoint_bench.py: the scored flagship options at
+``--n`` peers, default 1,000,000, 10 topics, M = 24, 8 ticks) on its XLA
+step, once uninterrupted and once through its ``ckpt_gossip_run`` at
+``every`` = 4, and prints the digest of both (SHA-256 over have, mesh,
+backoff, tick), against CKPT_r15.json's and
+``checkpoint_bench.REFERENCE_DIGEST``; with ``--port`` the port's plain
+CPU run (``checkpoint_bench.run("cpu", n)``) must give the same digest.
 """
 
 import argparse
@@ -1021,6 +1048,140 @@ def paired_report(cfg, params, state, honest, gs) -> None:
           f"time in mesh {int(np.asarray(state.scores.time_in_mesh_b).max())}")
 
 
+def sweepd_rows(port: bool) -> int:
+    """The JAX package's sweep-server rows for the two benchmarks'
+    requests (and, with ``port``, the port's plain CPU server's)."""
+    import json
+
+    from go_libp2p_pubsub_tpu_torch import sweepd_bench as sb
+
+    out = {}
+    with imported_reference() as r:
+        from tools.sweepd import SweepServer
+        n, t, m, ticks, b = sb.SHAPE
+        t0 = time.perf_counter()
+        srv = SweepServer(n=n, t=t, m=m, ticks=ticks, batch=b, seed=0)
+        out["seed"] = srv.submit([dict(r) for r in sb.SEED_REQUESTS])
+        out["sweep"] = srv.submit([dict(r) for r in sb.SWEEP_REQUESTS])
+        print(f"batched server, {n} peers: {time.perf_counter() - t0:.1f} "
+              f"s, compiles {srv.compiles()}", flush=True)
+        kernel, xla_twin = {}, {}
+        for name, (n, t, m, ticks) in sb.KERNEL_SHAPES.items():
+            t0 = time.perf_counter()
+            if n % 128 == 0:
+                srv = SweepServer(n=n, t=t, m=m, ticks=ticks, batch=1,
+                                  kernel=True, receive_block=128,
+                                  interpret=True, seed=0)
+                kernel[name] = srv.submit([dict(r)
+                                           for r in sb.KERNEL_REQUESTS])
+                print(f"kernel server {name}, {n} peers: "
+                      f"{time.perf_counter() - t0:.1f} s, compiles "
+                      f"{srv.compiles()}", flush=True)
+            # the kernel server's config on the reference's unpadded XLA
+            # step: its padded kernel path fails at a peer count that is
+            # not a multiple of the block (reach_counts_from_have
+            # broadcasts the [n] honest mask against the padded state),
+            # and its padded and unpadded runs agree on the true peers
+            t0 = time.perf_counter()
+            srv = SweepServer(n=n, t=t, m=m, ticks=ticks, batch=1,
+                              kernel=True, receive_block=128,
+                              interpret=True, seed=0)
+            srv.sim_fixed_kw = {}
+            srv.step = r.gs.make_gossip_step(srv.cfg, srv.sc,
+                                             invariants=srv.invariants)
+            xla_twin[name] = srv.submit([dict(r_)
+                                         for r_ in sb.KERNEL_REQUESTS])
+            print(f"kernel server {name} on the unpadded XLA step, {n} "
+                  f"peers: {time.perf_counter() - t0:.1f} s; equal to "
+                  f"the kernel path: "
+                  f"{xla_twin[name] == kernel.get(name, xla_twin[name])}",
+                  flush=True)
+            kernel.setdefault(name, xla_twin[name])
+    print("REFERENCE_ROWS = " + json.dumps(out))
+    print("REFERENCE_KERNEL_ROWS = " + json.dumps(kernel))
+    ok = all(row["ok"] for rows in (*out.values(), *kernel.values())
+             for row in rows)
+    ok &= all(xla_twin[k] == kernel[k] for k in kernel)
+    same = out == sb.REFERENCE_ROWS and kernel == sb.REFERENCE_KERNEL_ROWS
+    print(f"every row ok: {ok}; equal to the committed rows: {same}")
+    if port:
+        mine = sb.run_sweepd("cpu")
+        match = (mine["seed_rows"] == out["seed"]
+                 and mine["rows"] == out["sweep"])
+        for name in sb.KERNEL_SHAPES:
+            match &= sb.run_kernel("cpu", name)["rows"] == kernel[name]
+        print(f"port (CPU): rows equal to the reference's: {match}")
+        ok &= match
+    print("gates", "pass" if ok else "FAIL")
+    return 0 if ok else 1
+
+
+def checkpoint_rows(n: int, port: bool) -> int:
+    """The JAX package's checkpoint benchmark digest at ``n`` peers, run
+    whole and segmented (and, with ``port``, the port's plain CPU run)."""
+    import hashlib
+    import json
+    import shutil
+    import tempfile
+
+    from go_libp2p_pubsub_tpu_torch import checkpoint_bench as cb
+
+    def digest(out):
+        h = hashlib.sha256()
+        for leaf in (out.have, out.mesh, out.backoff, out.tick):
+            h.update(np.asarray(leaf).tobytes())
+        return h.hexdigest()[:16]
+
+    with imported_reference() as r:
+        from go_libp2p_pubsub_tpu.parallel import checkpoint as ck
+        gs = r.gs
+        t, m = cb.N_TOPICS, cb.N_MSGS
+        rng = np.random.default_rng(0)
+        cfg = gs.GossipSimConfig(
+            offsets=gs.make_gossip_offsets(t, 16, n, seed=7), n_topics=t)
+        sc = gs.ScoreSimConfig()
+        subs = resident.subs_matrix(n, t)
+        topic = rng.integers(0, t, m)
+        origin = rng.integers(0, n // t, m) * t + topic
+        pub = np.sort(rng.integers(0, 3, m)).astype(np.int32)
+        step = gs.make_gossip_step(cfg, sc)
+
+        def build():
+            return gs.make_gossip_sim(cfg, subs, topic, origin, pub, seed=3,
+                                      score_cfg=sc, track_first_tick=False)
+        t0 = time.perf_counter()
+        params, state = build()
+        whole = digest(gs.gossip_run(params, state, cb.TICKS, step))
+        d = tempfile.mkdtemp(prefix="ckpt_gate_")
+        try:
+            params, state = build()
+            seg = digest(ck.ckpt_gossip_run(
+                params, state, cb.TICKS, step,
+                ck.CheckpointConfig(directory=d, every=4,
+                                    fingerprint=ck.config_fingerprint(
+                                        cfg, sc))))
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    with open(Path(__file__).resolve().parents[1] / "CKPT_r15.json") as f:
+        r15 = json.load(f)["rows"][0]["digest"]
+    print(f"N={n}, {cb.TICKS} ticks: reference digest {whole}, segmented "
+          f"(every 4) {seg} ({time.perf_counter() - t0:.1f} s); "
+          f"CKPT_r15.json {r15}; checkpoint_bench.REFERENCE_DIGEST "
+          f"{cb.REFERENCE_DIGEST}")
+    ok = whole == seg
+    if n == cb.N_PEERS:
+        print(f"equal to CKPT_r15.json: {whole == r15}; to the committed "
+              f"constant: {whole == cb.REFERENCE_DIGEST}")
+    if port:
+        art = cb.run("cpu", n)
+        mine = art["rows"][0]["digest"]
+        print(f"port (CPU): digest {mine}, rows "
+              f"{[(r_['id'], r_['digest']) for r_ in art['rows']]}")
+        ok &= mine == whole
+    print("gates", "pass" if ok else "FAIL")
+    return 0 if ok else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int)
@@ -1036,6 +1197,8 @@ def main() -> int:
     ap.add_argument("--batched", action="store_true")
     ap.add_argument("--randomsub", action="store_true")
     ap.add_argument("--trace-export", action="store_true")
+    ap.add_argument("--sweepd", action="store_true")
+    ap.add_argument("--checkpoint", action="store_true")
     ap.add_argument("--out", default=None)
     ap.add_argument("--port", action="store_true")
     ap.add_argument("--ticks", type=int, default=400)
@@ -1058,6 +1221,10 @@ def main() -> int:
         return randomsub_rows(args.n or 10_000, args.port)
     if args.trace_export:
         return trace_export_rows(args.n or 100_000, args.port, args.out)
+    if args.sweepd:
+        return sweepd_rows(args.port)
+    if args.checkpoint:
+        return checkpoint_rows(args.n or 1_000_000, args.port)
     if args.adversarial or args.everything or args.everything_paired:
         return adversarial_gates(
             args.n or 100_000, args.ticks,
