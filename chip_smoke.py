@@ -408,6 +408,36 @@ Phases (any failure exits non-zero; nothing is caught):
    SIGTERM after its first batch, which drains and exits 0; a restart on
    the same journal, SIGKILLed with a partial batch journaled; a restart
    that replays it; every scenario's row equal to the uninterrupted run's;
+5ao. the serving row as written (serving_bench.run, the JAX package's
+   gossipsub_serving row: the multi-tenant front end under 2,000 Zipf /
+   Poisson requests over five bucket shapes, the overload burst, a child
+   server SIGKILLed mid long scenario and restarted, the cold start
+   traced then from runner records), run in a spawned child once
+   select.cu is built and joined before phase 3 (the wait printed): the
+   accounting identity with no error or transient row, compiles ==
+   traced buckets == 5 with evictions, no invariant bit, the overload's
+   176 admitted and 124 rejected, the kill digest and the cold rows the
+   JAX package's (serving_bench.REFERENCE_KILL_DIGEST,
+   REFERENCE_COLD_ROWS), the AOT pass with 0 compiles and 2 loads, B1 0
+   and B3 (batched) > 0 launches in the load phase, no source built in
+   any child; each phase's seconds and launches;
+5ap. the front end at the sweepd CLI's full width (serving_bench.
+   full_width: 36 requests over 10,000 / 5,000 / 20,000 peers x 10
+   topics x 16 messages, max_buckets 2, batch 6): compiles == the 3
+   distinct shapes, evictions, the accounting identity, no error or
+   transient row, every row equal to SweepServer.submit's at its
+   bucket's shape; served/s, replica heartbeats/s, launches, peak memory;
+5aq. the metrics row as written (metrics_bench.run: a `sweepd --multi
+   --socket --metrics-port 0` child on the card driven by the port's
+   loadgen fleet while scraped mid-flight, the span ledger, delay parity
+   on B1 with telemetry and the delayed path): 18 rows for 18 sent, the
+   identity on every scrape, the stats row equal to the scrape, a
+   non-empty /trace.json, traces == admissions with no open span or
+   dropped event, parity 0 and the JAX package's totals
+   (metrics_bench.REFERENCE_PARITY);
+5ar. the port's servestat --check SERVE_r18.json on 5ao's artifact and
+   obsstat --check METRICS_r19.json on 5aq's: their tables and exit
+   codes (0);
 6. the unscored receive kernel against its plain version at the resident
    configuration's shapes (N = 1,048,576, C = 16, W = 1), on seeded random
    operands and on the operands of a real unscored tick: every output
@@ -1786,6 +1816,45 @@ def meshless_cpu_forms() -> dict:
     return out
 
 
+def counted_phases(phases: dict):
+    """A ``hook(phase)`` for the benches' runs: each phase's seconds and
+    the B1 (by variant) and B3 launches it made, the counts reset on
+    entry and read after a synchronize."""
+    import contextlib
+
+    from go_libp2p_pubsub_tpu_torch.ops.kernels import receive as krecv
+    from go_libp2p_pubsub_tpu_torch.ops.kernels import select as ksel
+
+    @contextlib.contextmanager
+    def hook(phase):
+        krecv.launches.clear()
+        ksel.launches = 0
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        phases[phase] = dict(seconds=time.perf_counter() - t0,
+                             receive=dict(krecv.launches),
+                             select=ksel.launches)
+    return hook
+
+
+def serving_row() -> dict:
+    """5ao: the serving row as written on the card, in a child process
+    spawned once select.cu (its one kernel) is built, while the other
+    sources compile; each phase's seconds and launches, and the sources
+    this process built."""
+    from go_libp2p_pubsub_tpu_torch import serving_bench
+    from go_libp2p_pubsub_tpu_torch.ops.kernels import _build
+
+    t0 = time.perf_counter()
+    phases: dict = {}
+    art = serving_bench.run(torch.device("cuda"),
+                            hook=counted_phases(phases))
+    art.update(phases=phases, child_sources_built=_build.compiled,
+               seconds=time.perf_counter() - t0)
+    return art
+
+
 def trace_cpu_half() -> dict:
     """The CPU half of 5ah: each probe form's digest and the 20,000-peer
     pipeline's trace digest on the CPU, with their seconds.  It runs in
@@ -1920,9 +1989,13 @@ def main() -> None:
         knob_sweep,
         invariants_flagship,
         loops_flagship,
+        metrics_bench,
+        obsstat,
         pipelined,
         randomsub_10k,
         resident,
+        servestat,
+        serving_bench,
         sweepd_bench,
         telemetry_flagship,
         tournament,
@@ -1966,9 +2039,16 @@ def main() -> None:
     # sources are built; read after 5am
     restart_pool = concurrent.futures.ThreadPoolExecutor(1)
     restart_run = []
+    # 5ao (the serving row as written, B3 its one kernel) runs in a
+    # spawned child once select.cu is built; joined before phase 3
+    serving_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    serving_run = []
 
     def built(src):
         build_s.setdefault(src, time.perf_counter() - t0)
+        if "select" in build_s and not serving_run:
+            serving_run.append(serving_pool.submit(serving_row))
         if len(build_s) == 5 and not cpu_forms:
             cpu_forms.append(cpu_pool.submit(meshless_cpu_forms))
         if ("select" in build_s and len(build_s) >= 6
@@ -1981,6 +2061,8 @@ def main() -> None:
     if not restart_run:
         restart_run.append(restart_pool.submit(sweepd_bench.restart_check,
                                                dev))
+    if not serving_run:
+        serving_run.append(serving_pool.submit(serving_row))
     # 5ah's CPU half follows in the same child once no nvcc is left
     cpu_forms.append(cpu_pool.submit(trace_cpu_half))
     for src, log in logs.items():
@@ -1989,6 +2071,47 @@ def main() -> None:
     for src, sec in sorted(build_s.items(), key=lambda kv: kv[1]):
         print(f"build seconds [{src}.cu]: {sec:.1f}")
     print(f"build: {time.perf_counter() - t0:.1f} s")
+
+    # -- 5ao (joined). the serving row as written, run in its child during
+    # the build: its gates
+    t0 = time.perf_counter()
+    serve = serving_run[0].result()
+    serving_pool.shutdown()
+    print(f"5ao joined {time.perf_counter() - t0:.1f} s after the build "
+          f"(the row took {serve['seconds']:.1f} s in its child)")
+    sv_load, sv_over = serve["load"], serve["overload"]
+    sv_kill, sv_cold = serve["kill_recovery"], serve["cold_start"]
+    sv_ph = serve["phases"]
+    print(f"5ao serving as written [{name}, {smi}]: load "
+          f"{sv_load['throughput_rps']!r} rps served ({sv_load['served']} "
+          f"of {sv_load['admitted']}, {sv_load['timeouts']} timeouts, "
+          f"{sv_load['errors']} errors, {sv_load['transient_failures']} "
+          f"transient), p50 queue {sv_load['p50_queue_s']!r} s, p99 "
+          f"{sv_load['p99_queue_s']!r} s, wall "
+          f"{sv_load['wall_s_unrounded']!r} s, compiles "
+          f"{serve['compiles']} for {serve['traced_buckets']} traced "
+          f"buckets, evictions {serve['evictions']}; overload admitted "
+          f"{sv_over['admitted']} rejected {sv_over['rejected_overload']}; "
+          f"kill digest {sv_kill['digest']} (the JAX package's "
+          f"{serving_bench.REFERENCE_KILL_DIGEST}); cold start traced "
+          f"{sv_cold['traced_s']!r} s / {sv_cold['traced_total_s']!r} s, "
+          f"AOT {sv_cold['aot_s']!r} s / {sv_cold['aot_total_s']!r} s "
+          f"(compiles {sv_cold['aot_compiles']}, loads "
+          f"{sv_cold['aot_loads']}); sources built in the children "
+          f"{serve['sources_built']} and the row's own "
+          f"{serve['child_sources_built']}; phases " + json.dumps(sv_ph))
+    if (sv_load["errors"] or sv_load["transient_failures"]
+            or sv_over["errors"] or sv_over["transient_failures"]
+            or sv_kill["errors"] or sv_kill["transient_failures"]
+            or sv_over["admitted"] != 176
+            or sv_over["rejected_overload"] != 124
+            or sv_kill["digest"] != serving_bench.REFERENCE_KILL_DIGEST
+            or sv_cold["aot_compiles"] != 0 or sv_cold["aot_loads"] != 2
+            or not sv_cold["bit_identical"]
+            or serve["cold_rows"] != serving_bench.REFERENCE_COLD_ROWS
+            or sv_ph["load"]["receive"] or not sv_ph["load"]["select"]
+            or any(serve["sources_built"]) or serve["child_sources_built"]):
+        fail("5ao: " + json.dumps(serve))
 
     # -- 5ai (its device half). the trace-export benchmark collected on
     # the card; its host-side export (and 5ah's 20,000-peer one) runs in a
@@ -4226,6 +4349,86 @@ def main() -> None:
     if not restart["ok"]:
         fail(f"5an: {json.dumps(restart)}")
 
+    # -- 5ap. the front end at the sweepd CLI's full width: three shapes
+    # drawn Zipf, two resident buckets, batch 6; its rows against
+    # SweepServer.submit's at each bucket's shape
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0_w = torch.cuda.memory_allocated()
+    built0 = _build.compiled
+    fw_ph: dict = {}
+    fw = serving_bench.full_width(dev, hook=counted_phases(fw_ph))
+    fw.update(phases=fw_ph, sources_built=_build.compiled - built0,
+              peak_bytes=torch.cuda.max_memory_allocated(),
+              start_bytes=alloc0_w)
+    fw_st = fw["stats"]
+    print(f"5ap front end at full width {fw['pool']} [{name}, {smi}]: "
+          f"served {fw_st['served']} of {fw_st['admitted']} "
+          f"({fw_st['timeouts']} timeouts), {fw['served_per_s']!r} served/s,"
+          f" {fw['replica_hbps']!r} replica heartbeats/s, compiles "
+          f"{fw_st['compiles']} for {fw['distinct_shapes']} shapes, "
+          f"evictions {fw_st['evictions']}, rows equal to SweepServer."
+          f"submit's: {fw['rows_equal_submit']}, launches "
+          f"{json.dumps(fw_ph)}, peak memory {fw['peak_bytes']} B "
+          f"({alloc0_w} B at the start) "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if (fw_st["compiles"] != fw["distinct_shapes"]
+            or fw["distinct_shapes"] != 3 or not fw_st["evictions"]
+            or fw_st["errors"] or fw_st["transient_failures"]
+            or fw_st["admitted"] != fw_st["served"] + fw_st["errors"]
+            + fw_st["timeouts"] + fw_st["transient_failures"]
+            + fw_st["queued"] + fw_st["parked"]
+            or not fw["rows_equal_submit"]
+            or fw_ph["front_end"]["receive"]
+            or not fw_ph["front_end"]["select"] or fw["sources_built"]):
+        fail("5ap: " + json.dumps(fw))
+
+    # -- 5aq. the metrics row as written: the fleet against a sweepd
+    # --multi child on the card, the span ledger, delay parity on B1
+    t0 = time.perf_counter()
+    met_ph: dict = {}
+    met = metrics_bench.run(dev, hook=counted_phases(met_ph))
+    mf, msp, mpar = met["fleet"], met["spans"], met["delay_parity"]
+    print(f"5aq metrics as written [{name}, {smi}]: fleet {mf['rps']!r} rps"
+          f" ({mf['rows_received']} rows for {mf['requests_sent']} sent), "
+          f"{mf['scrape_count']} scrapes ({mf['mid_flight_scrapes']} "
+          f"mid-flight), identity {mf['identity_ok']}, cross "
+          f"{mf['cross_match']}, spans {mf['spans_match']}, trace events "
+          f"{mf['trace_events']}; spans traces {msp['traces']} for "
+          f"{msp['admitted']} admitted, open {msp['open_spans']}, dropped "
+          f"{msp['dropped_events']}; parity {json.dumps(mpar)} (the JAX "
+          f"package's {json.dumps(metrics_bench.REFERENCE_PARITY)}); "
+          f"phases {json.dumps(met_ph)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if (mf["rows_received"] != 18 or mf["requests_sent"] != 18
+            or not mf["identity_ok"] or not mf["cross_match"]
+            or not mf["spans_match"] or not mf["trace_events"]
+            or msp["traces"] != msp["admitted"] or msp["open_spans"]
+            or msp["dropped_events"]
+            or any(mpar[k] != v
+                   for k, v in metrics_bench.REFERENCE_PARITY.items())
+            or not met_ph["delay_parity"]["receive"]):
+        fail("5aq: " + json.dumps(met))
+    parity_launches = met_ph["delay_parity"]["receive"]
+
+    # -- 5ar. servestat and obsstat as written on 5ao's and 5aq's
+    # artifacts, against the JAX package's committed baselines
+    with tempfile.TemporaryDirectory() as td:
+        serve_path, met_path = Path(td) / "serving.json", Path(td) / "m.json"
+        serve_path.write_text(json.dumps(serve))
+        met_path.write_text(json.dumps(met))
+        here = Path(__file__).resolve().parent
+        print("5ar servestat --check SERVE_r18.json:", flush=True)
+        rc_serve = servestat.main([str(serve_path), "--check",
+                                   str(here / "SERVE_r18.json")])
+        print("5ar obsstat --check METRICS_r19.json:", flush=True)
+        rc_obs = obsstat.main([str(met_path), "--check",
+                               str(here / "METRICS_r19.json")])
+    print(f"5ar servestat rc {rc_serve}, obsstat rc {rc_obs}")
+    if rc_serve or rc_obs:
+        fail(f"5ar: servestat rc {rc_serve}, obsstat rc {rc_obs}")
+
     # -- 6. the unscored receive kernel vs plain at the resident shapes
     n_r = resident.N_PEERS
     cfg_r, params, state, msg_topic, _ = resident.build(dev)
@@ -4526,7 +4729,8 @@ def main() -> None:
     rows_tel = dict(tel_k, receive_update_tel=dict(
         tel_main_k, err=max(tel_k["receive_update_tel"]["err"],
                             tel_main_k["err"]),
-        launches=tel_main["on"]["launches"]["scored+tel"]))
+        launches=tel_main["on"]["launches"]["scored+tel"]
+        + parity_launches.get("scored+tel", 0)))
     for kname, r in rows_tel.items():
         kernels.append(dict(
             name=kname, route="cuda",
@@ -4568,7 +4772,8 @@ def main() -> None:
             replaces="go_libp2p_pubsub_tpu/ops/pallas/receive.py:293",
             launches=(main_delay_launches
                       if r["variant"] == pipelined.VARIANT
-                      else r["launches"]),
+                      else r["launches"])
+            + parity_launches.get(r["variant"], 0),
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=None))
@@ -4590,7 +4795,9 @@ def main() -> None:
         replaces="go_libp2p_pubsub_tpu/ops/pallas/select.py:39",
         launches=int(round(bf["launches_per_batched_tick"]["select"]
                            * batched_flagship.TIMED
-                           * batched_flagship.BLOCKS)) + sw["select"],
+                           * batched_flagship.BLOCKS)) + sw["select"]
+        + sv_ph["load"]["select"] + sv_ph["overload"]["select"]
+        + fw_ph["front_end"]["select"] + met_ph["spans"]["select"],
         max_abs_err=max(r["max_abs_err"] for r in sel_b.values()),
         ms=sb_["ms"], plain_ms=sb_["plain_ms"], bound_ms=sb_["bound"][0],
         bound_by=sb_["bound"][1], library_ms=None))
@@ -4681,6 +4888,10 @@ def main() -> None:
         "checkpoint_fused": dict(killed_at=killed_at, digest=d_resumed,
                                  launches=b2_fused),
         "sweepd_restart": restart,
+        "serving": {k_: v for k_, v in serve.items() if k_ != "cold_rows"},
+        "serving_full_width": fw,
+        "metrics": dict(met, phases=met_ph, servestat_rc=rc_serve,
+                        obsstat_rc=rc_obs),
         "delay_receive": {
             kname: {key: v for key, v in r.items() if key != "bound"}
             for kname, r in delay_k.items()},

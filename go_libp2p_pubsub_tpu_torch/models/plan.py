@@ -51,8 +51,9 @@ when the sim is built (``flood_proto``).  The sweep server's execution
 path is chosen by ``plan_serving`` (an ``ExecutionPlan`` or one named
 ``Refusal``: the reference's ``serve.kernel-batch`` and
 ``serve.kernel-devices``, and ``serve_devices`` for a batched server
-over several devices); ``serve_multi`` refuses its multi-tenant front
-end and ``sharded_checkpoint`` the sharded segmented runners.
+over several devices); ``sharded_checkpoint`` refuses the sharded
+segmented runners.  The multi-tenant front end (``serving/``) serves a
+bucket whose server is refused by name as one terminal error row.
 """
 
 from __future__ import annotations
@@ -139,11 +140,6 @@ REFUSALS: dict[str, str] = {
     "serve_devices": "sweepd --devices (the batched dispatch sharded over a "
                      "D-device peer mesh) needs the sharded step, which the "
                      "port does not build yet (A9)",
-    "serve_multi": "sweepd --multi, the multi-tenant front end, and its "
-                   "flags (--max-buckets, --queue-cap, --aot-dir, "
-                   "--long-ticks, --ckpt-dir, --ckpt-every) come with the "
-                   "serving slice (A8: serving/buckets.py, "
-                   "serving/frontend.py)",
 }
 
 

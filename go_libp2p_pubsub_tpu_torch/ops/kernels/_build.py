@@ -48,12 +48,18 @@ def nvcc_path() -> str:
     return found
 
 
-def lib_path(name: str) -> Path:
+def source_hash(name: str) -> str:
+    """The content hash a library is keyed by: its source, the shared
+    headers and the flags (16 hex digits)."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{source_hash(name)}.so"
 
 
 def build(names: tuple[str, ...], on_done=None) -> dict[str, str]:

@@ -13,6 +13,8 @@ per-scenario delivery and invariant rows.
         [--msgs 16] [--ticks 100] [--batch 6] [--seed 0] [--no-invariants]
         [--kernel] [--k-slots K] [--socket PATH] [--journal PATH]
         [--metrics-port PORT] [--device cpu]
+        [--multi [--max-buckets 4] [--queue-cap 512] [--aot-dir DIR]
+         [--long-ticks T --ckpt-dir DIR [--ckpt-every K]]]
 
 Protocol: JSON lines on stdin (default) or a Unix socket (``--socket``,
 one thread per connection, all sharing the one server).  One scenario
@@ -53,11 +55,23 @@ after any number of scenarios — the step is built once per shape and
 every scenario is data of its params (PyTorch keeps no compile cache; the
 CUDA kernels are built once per source by ``ops/kernels/_build.py``).
 
+``--multi`` swaps the one-shape engine for the multi-tenant front end
+(``serving/``): requests may carry their own shape (``n``/``t``/``m``/
+``ticks``/``k_slots``) plus ``deadline_s`` and ``priority``; shapes
+quantize into ``--max-buckets`` LRU-managed resident bucket servers
+(``--peers``/``--topics``/``--msgs``/``--ticks`` become the default
+shape), ``--aot-dir`` keeps each bucket's runner record across restarts,
+``--queue-cap`` admission control rejects overloads by name, and requests
+past ``--long-ticks`` run through the checkpointed runner, so a kill -9
+mid-scenario resumes to the bit-identical digest.  Same line protocol,
+same ``--socket`` / ``--journal`` / ``--metrics-port`` plumbing.
+
 Refused by name: ``--devices`` (the sharded step, A9: ``serve_devices``;
-with ``--kernel`` the reference's ``serve.kernel-devices``), ``--multi``
-and its flags (the serving slice: ``serve_multi``), ``--k-slots`` on the
-batched server (its receive loops take no delay lines: ``loops_delays``),
-a kernel server with a batch other than 1 (``serve.kernel-batch``).
+with ``--kernel`` the reference's ``serve.kernel-devices``), ``--k-slots``
+on the batched server (its receive loops take no delay lines:
+``loops_delays``; under ``--multi`` a ``k_slots`` request's row names it),
+a kernel server with a batch other than 1 (``serve.kernel-batch``),
+``--multi --kernel`` (the reference's message).
 """
 
 from __future__ import annotations
@@ -251,6 +265,10 @@ class SweepServer:
         #: undispatched scenarios a crash must not lose)
         self._pending_raw: list[str] = []
         self._journal: str | None = None
+        #: the front end's hook (serving/buckets.py): a checked
+        #: bucket-runner record's dispatch, substituted for the batched
+        #: dispatch of a bucket loaded from an AOT directory
+        self._aot_runner = None
         self._t0 = time.perf_counter()
 
     # -- request validation / build ------------------------------------
@@ -353,8 +371,12 @@ class SweepServer:
         else:
             params = gs.stack_trees([b[0] for b in builds])
             state = gs.stack_trees(states)
-            state, reach = gs.gossip_run_knob_batch(
-                params, state, self.ticks, self.step, honest, device=dev)
+            if self._aot_runner is not None:
+                state, reach = self._aot_runner(params, state, honest)
+            else:
+                state, reach = gs.gossip_run_knob_batch(
+                    params, state, self.ticks, self.step, honest,
+                    device=dev)
         reach = reach.cpu().numpy()
         if self.invariants is None:
             return reach, None, None
@@ -462,7 +484,7 @@ class SweepServer:
                       "ticks": self.ticks, "batch": self.batch,
                       "kernel": self.kernel,
                       "k_slots": self.k_slots,
-                      "aot": False,
+                      "aot": self._aot_runner is not None,
                       "devices": 1},
         }
 
@@ -607,11 +629,6 @@ class SweepServer:
             emit(self.stats())
 
 
-#: the flags of the multi-tenant front end and their defaults
-MULTI_FLAGS = {"max_buckets": 4, "queue_cap": 512, "aot_dir": None,
-               "long_ticks": 0, "ckpt_dir": None, "ckpt_every": 0}
-
-
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m go_libp2p_pubsub_tpu_torch.sweepd",
@@ -647,29 +664,66 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     ap.add_argument("--multi", action="store_true",
-                    help="refused: the multi-tenant front end comes with "
-                         "the serving slice")
-    ap.add_argument("--max-buckets", type=int, default=4)
-    ap.add_argument("--queue-cap", type=int, default=512)
-    ap.add_argument("--aot-dir", metavar="DIR")
-    ap.add_argument("--long-ticks", type=int, default=0)
-    ap.add_argument("--ckpt-dir", metavar="DIR")
-    ap.add_argument("--ckpt-every", type=int, default=0)
+                    help="the multi-tenant front end: requests may carry "
+                         "their own shape (n/t/m/ticks/k_slots) plus "
+                         "deadline_s and priority; shapes quantize into "
+                         "LRU-managed resident buckets, --peers/--topics/"
+                         "--msgs/--ticks become the default shape")
+    ap.add_argument("--max-buckets", type=int, default=4,
+                    help="resident bucket cap (LRU eviction)")
+    ap.add_argument("--queue-cap", type=int, default=512,
+                    help="admission-control queue depth; admissions past "
+                         "it come back as explicit 'overloaded' rows")
+    ap.add_argument("--aot-dir", metavar="DIR",
+                    help="keep each bucket's runner record here; a "
+                         "restarted server loads it instead of "
+                         "registering a new runner")
+    ap.add_argument("--long-ticks", type=int, default=0,
+                    help="route requests with ticks >= this through the "
+                         "checkpointed runner (preemption-surviving; "
+                         "needs --ckpt-dir)")
+    ap.add_argument("--ckpt-dir", metavar="DIR",
+                    help="snapshot root for long scenarios")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="segment length for long scenarios (0 = "
+                         "horizon/4)")
     return ap
 
 
-def check_flags(ns: argparse.Namespace) -> None:
-    """Refuse ``--multi`` and its flags by name (``serve_multi``)."""
-    if ns.multi or any(getattr(ns, k) != v for k, v in MULTI_FLAGS.items()):
-        plan.refuse("serve_multi")
+#: the reference's refusal of ``--multi --kernel``
+MSG_MULTI_KERNEL = ("sweepd: --multi refuses --kernel — the kernel-path "
+                    "server is the sequential demonstration (batch=1, one "
+                    "shape); serve it without --multi")
+
+
+def make_server(ns: argparse.Namespace, obs):
+    """The server ``main`` serves: the multi-tenant front end under
+    ``--multi``, else the one-shape engine."""
+    if ns.multi:
+        from .serving import FrontendConfig, ScenarioFrontend
+        server_kw = {"seed": ns.seed, "invariants": not ns.no_invariants}
+        if ns.devices:
+            server_kw["devices"] = ns.devices
+        if ns.device is not None:
+            server_kw["device"] = ns.device
+        return ScenarioFrontend(FrontendConfig(
+            max_buckets=ns.max_buckets, batch=ns.batch,
+            queue_cap=ns.queue_cap,
+            default_shape=(ns.peers, ns.topics, ns.msgs, ns.ticks),
+            aot_dir=ns.aot_dir, long_ticks=ns.long_ticks,
+            ckpt_dir=ns.ckpt_dir, ckpt_every=ns.ckpt_every,
+            server_kw=server_kw), obs=obs)
+    return SweepServer(n=ns.peers, t=ns.topics, m=ns.msgs, ticks=ns.ticks,
+                       batch=(1 if ns.kernel else ns.batch), seed=ns.seed,
+                       invariants=not ns.no_invariants, kernel=ns.kernel,
+                       devices=ns.devices, k_slots=ns.k_slots, obs=obs,
+                       device=ns.device)
 
 
 def main(argv=None) -> int:
     ns = parser().parse_args(argv)
-    try:
-        check_flags(ns)
-    except plan.SliceRefusal as e:
-        print(f"sweepd: {e}", file=sys.stderr)
+    if ns.multi and ns.kernel:
+        print(MSG_MULTI_KERNEL, file=sys.stderr)
         return 2
     # deferred SIGTERM/SIGINT: the handler only sets a flag; the serve
     # loops drain the pending batch, emit its rows and exit cleanly
@@ -677,12 +731,7 @@ def main(argv=None) -> int:
     from . import obs as _obs
     obs = _obs.Observability()
     try:
-        srv = SweepServer(n=ns.peers, t=ns.topics, m=ns.msgs,
-                          ticks=ns.ticks,
-                          batch=(1 if ns.kernel else ns.batch),
-                          seed=ns.seed, invariants=not ns.no_invariants,
-                          kernel=ns.kernel, devices=ns.devices,
-                          k_slots=ns.k_slots, obs=obs, device=ns.device)
+        srv = make_server(ns, obs)
     except plan.SliceRefusal as e:
         ck._restore_handlers(prev)
         print(f"sweepd: {e}", file=sys.stderr)
@@ -708,9 +757,10 @@ def main(argv=None) -> int:
     return 0
 
 
-def _serve_socket(srv: SweepServer, path: str, journal) -> None:
+def _serve_socket(srv, path: str, journal) -> None:
     """A Unix socket, a thread per connection: a shared RLock serializes
-    line handling inside the one server; the stop flag is polled between
+    line handling inside the one server (a ``SweepServer`` or, under
+    ``--multi``, a ``ScenarioFrontend``); the stop flag is polled between
     accepts (1 s timeout), so a SIGTERM with no client exits promptly."""
     import socket as sk
     import threading

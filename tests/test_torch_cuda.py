@@ -36,7 +36,10 @@ trace-export pipeline at 20,000 peers writing the CPU's bytes; the sweep
 server's rows at 2,000 peers (batched: B3 with a replica axis on the
 receive loops; kernel: B1 every tick) card against CPU, and the
 checkpoint benchmark's sim at 20,000 peers segmented, killed and resumed
-on the card against the CPU's unsegmented run.  Exact:
+on the card against the CPU's unsegmented run; the multi-tenant front
+end's rows over three bucket specs, its long path stopped and resumed,
+and its runner records written and loaded, on the card against the
+CPU.  Exact:
 every output
 bit for bit, but
 a frame's ``score_mean``: the mean of non-integer f32 scores, which the
@@ -1983,3 +1986,92 @@ def test_segmented_scored_run_on_the_card_matches_the_cpu(cuda, tmp_path):
             np.testing.assert_array_equal(got["scores"][key], w,
                                           err_msg=key)
     assert checkpoint_bench.digest(card) == checkpoint_bench.digest(cpu)
+
+
+#: the front end's card twin: a small stream over three bucket specs
+SERVING_TWIN = [dict({"n": 64, "t": 2, "m": 4, "ticks": 4}, **kw) for kw in (
+    dict(id="a", seed=1), dict(id="b", seed=2, priority=1),
+    dict(id="c", n=128, seed=3), dict(id="d", n=128, attack="spam"),
+    dict(id="e", ticks=8, seed=5), dict(id="f", ticks=8, churn=True),
+    dict(id="g", knobs={"d": 5, "d_lo": 4, "d_hi": 8}),
+    dict(id="h", attack="byzantine", attack_frac=0.1))]
+
+
+def _serving_rows(device, aot_dir=None):
+    from go_libp2p_pubsub_tpu_torch.serving import (FrontendConfig,
+                                                    ScenarioFrontend)
+    fe = ScenarioFrontend(FrontendConfig(
+        batch=2, max_buckets=2, tick_quantum=4, aot_dir=aot_dir,
+        server_kw={"seed": 0, "device": str(device)}))
+    rows = []
+    for i, req in enumerate(SERVING_TWIN):
+        assert fe.admit(dict(req), now=10.0 + i) is None
+        rows += fe.dispatch_ready(now=10.5 + i)
+    while fe.queued():
+        rows += fe.dispatch_ready(force=True, now=20.0)
+    return rows, fe.stats()
+
+
+@pytest.mark.cuda
+def test_serving_frontend_on_the_card_matches_the_cpu(cuda):
+    """The front end's rows (B3 batched on every bucket dispatch), its
+    compiles and evictions, on the card as on the CPU."""
+    card, st_card = _serving_rows(cuda)
+    cpu, st_cpu = _serving_rows("cpu")
+    assert card == cpu and all(r["ok"] for r in card)
+    for k in ("traced_buckets", "evictions", "served"):
+        assert st_card[k] == st_cpu[k], k
+    assert st_card["evictions"] > 0
+    assert st_card["compiles"] <= st_card["traced_buckets"] == 3
+
+
+@pytest.mark.cuda
+def test_serving_long_path_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The long path's digest on the card, resumed after a stop, equals
+    the CPU's uninterrupted one."""
+    import io
+    import json
+
+    from go_libp2p_pubsub_tpu_torch.parallel import checkpoint as ck
+    from go_libp2p_pubsub_tpu_torch.serving import (FrontendConfig,
+                                                    ScenarioFrontend)
+    raw = json.dumps({"id": "L", "n": 256, "t": 2, "m": 8, "ticks": 24,
+                      "seed": 1})
+
+    def serve(device, tag, lines, journal=None):
+        fe = ScenarioFrontend(FrontendConfig(
+            batch=2, long_ticks=16, ckpt_dir=str(tmp_path / tag),
+            ckpt_every=4, server_kw={"seed": 0, "device": str(device)}))
+        buf = io.StringIO()
+        fe.serve_lines(lines, buf, journal=journal)
+        return [json.loads(x) for x in buf.getvalue().splitlines()]
+
+    want = next(r for r in serve("cpu", "cpu", [raw]) if r.get("long"))
+    journal = str(tmp_path / "serve.journal")
+    ck.request_stop()
+    try:
+        rows = serve(cuda, "card", [raw], journal)
+    finally:
+        ck.clear_stop()
+    assert any(r.get("interrupted") for r in rows)
+    got = next(r for r in serve(cuda, "card", [], journal) if r.get("long"))
+    assert got["resumed"] and got["digest"] == want["digest"]
+    assert got == dict(want, resumed=True)
+
+
+@pytest.mark.cuda
+def test_serving_runner_records_on_the_card(cuda, tmp_path):
+    """A bucket's runner record written on the card loads on the card
+    (compiles 0, the same rows) and names select.cu's hash."""
+    import json
+    import os
+
+    from go_libp2p_pubsub_tpu_torch.ops.kernels import _build
+    aot = str(tmp_path / "aot")
+    first, st1 = _serving_rows(cuda, aot)
+    again, st2 = _serving_rows(cuda, aot)
+    assert st1["aot_exports"] == 3 and st2["aot_loads"] >= 3
+    assert st2["compiles"] == 0 and again == first
+    for name in os.listdir(aot):
+        rec = json.loads((tmp_path / "aot" / name).read_text())
+        assert rec["libraries"] == {"select": _build.source_hash("select")}

@@ -273,13 +273,9 @@ REFUSED = {
     # the sharded checkpoint runners wait for the sharded step (A9)
     "sharded_checkpoint": [lambda: _ckpt().ckpt_sharded_gossip_run(
         None, None, 1, None, None, None)],
-    # the sweep server: a batched dispatch over D devices (A9), the
-    # multi-tenant front end (the serving slice)
+    # the sweep server: a batched dispatch over D devices (A9)
     "serve_devices": [lambda: _sweepd().SweepServer(
         n=64, t=1, m=2, ticks=4, batch=2, devices=2, device="cpu")],
-    "serve_multi": [lambda: _sweepd().check_flags(
-        _sweepd().parser().parse_args(argv)) for argv in (
-            ["--multi"], ["--queue-cap", "9"], ["--aot-dir", "x"])],
 }
 
 
@@ -646,3 +642,88 @@ def test_sweep_and_checkpoint_entry_points_default_to_cuda(name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[name]()
 
+
+
+#: the serving slice's modules (the front end, and the port's own copies
+#: of the reference's tools/loadgen.py, servestat.py and obsstat.py)
+SLICE_20 = ("go_libp2p_pubsub_tpu_torch/serving/__init__.py",
+            "go_libp2p_pubsub_tpu_torch/serving/buckets.py",
+            "go_libp2p_pubsub_tpu_torch/serving/frontend.py",
+            "go_libp2p_pubsub_tpu_torch/loadgen.py",
+            "go_libp2p_pubsub_tpu_torch/servestat.py",
+            "go_libp2p_pubsub_tpu_torch/obsstat.py",
+            "go_libp2p_pubsub_tpu_torch/serving_bench.py",
+            "go_libp2p_pubsub_tpu_torch/metrics_bench.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_20)
+def test_serving_modules_import_no_jax_nor_tools(rel):
+    """The serving slice's modules are under the import rule and import
+    nothing of ``tools/`` (the reference's command-line side)."""
+    test_sweep_and_checkpoint_modules_import_no_jax_nor_tools(rel)
+
+
+@pytest.mark.parametrize("rel", ["go_libp2p_pubsub_tpu_torch/loadgen.py",
+                                 "go_libp2p_pubsub_tpu_torch/servestat.py",
+                                 "go_libp2p_pubsub_tpu_torch/obsstat.py"])
+def test_client_tools_import_the_standard_library_only(rel):
+    """The port's loadgen / servestat / obsstat use the stdlib only, as
+    the reference's do: a client needs neither torch nor numpy."""
+    import sys as _sys
+    tree = ast.parse((ROOT / rel).read_text(), filename=rel)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""] if node.level == 0 else ["."]
+        else:
+            continue
+        assert all(m.split(".")[0] in _sys.stdlib_module_names
+                   or m == "__future__" for m in mods), (rel, mods)
+
+
+def test_the_multi_tenant_front_end_is_no_longer_refused():
+    """``serve_multi`` is gone: ``sweepd --multi`` parses into a front end
+    (its flags wired as the reference's), and a bucket the port refuses
+    comes back as a row naming the refusal instead."""
+    assert "serve_multi" not in plan.REFUSALS
+    sw = _sweepd()
+    ns = sw.parser().parse_args([
+        "--multi", "--max-buckets", "3", "--queue-cap", "9", "--aot-dir",
+        "a", "--long-ticks", "16", "--ckpt-dir", "c", "--ckpt-every", "4",
+        "--peers", "64", "--topics", "1", "--msgs", "2", "--ticks", "4",
+        "--batch", "2", "--seed", "5", "--device", "cpu"])
+    fe = sw.make_server(ns, None)
+    cfg = fe.cfg
+    assert (cfg.max_buckets, cfg.queue_cap, cfg.aot_dir, cfg.long_ticks,
+            cfg.ckpt_dir, cfg.ckpt_every, cfg.batch, cfg.default_shape) == (
+        3, 9, "a", 16, "c", 4, 2, (64, 1, 2, 4))
+    assert cfg.server_kw == {"seed": 5, "invariants": True,
+                             "device": "cpu"}
+
+
+@pytest.mark.parametrize("name", ["ScenarioFrontend.dispatch_ready",
+                                  "serving_bench.run",
+                                  "serving_bench.full_width",
+                                  "metrics_bench.run",
+                                  "metrics_bench.delay_parity"])
+def test_serving_entry_points_default_to_cuda(name):
+    """The front end's buckets, both benches and delay parity run on the
+    card unless the caller asks for the CPU, and raise without one."""
+    from go_libp2p_pubsub_tpu_torch import metrics_bench, serving_bench
+    from go_libp2p_pubsub_tpu_torch.serving import (FrontendConfig,
+                                                    ScenarioFrontend)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+
+    def frontend():
+        fe = ScenarioFrontend(FrontendConfig(batch=2))
+        fe.admit({"id": "x", "n": 64, "t": 1, "m": 2, "ticks": 4})
+        fe.dispatch_ready(force=True)
+    calls = {"ScenarioFrontend.dispatch_ready": frontend,
+             "serving_bench.run": serving_bench.run,
+             "serving_bench.full_width": serving_bench.full_width,
+             "metrics_bench.run": metrics_bench.run,
+             "metrics_bench.delay_parity": metrics_bench.delay_parity}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[name]()

@@ -17,9 +17,10 @@ against the JAX package's ``tools/sweepd.py``.
   ``serve_lines(lock=)``; ``main`` over stdin in a subprocess with
   ``--device cpu``; SIGTERM drains and a SIGKILLed server's journal
   replays (``sweepd_bench.restart_check`` at 200 peers).
-- Every refusal by name: ``--devices``, ``--multi`` and its flags,
-  ``--k-slots`` on the batched server, the kernel server's batch; the
-  kernel server's attack axis and its refusal hints equal the
+- Every refusal by name: ``--devices``, ``--k-slots`` on the batched
+  server, the kernel server's batch, and under ``--multi`` (served since
+  the serving slice) ``--kernel`` and the front end's own config errors;
+  the kernel server's attack axis and its refusal hints equal the
   reference's.
 """
 
@@ -298,9 +299,9 @@ def test_main_over_stdin_on_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("args,name", [
     (["--devices", "2"], "serve_devices"),
-    (["--multi"], "serve_multi"),
-    (["--max-buckets", "8"], "serve_multi"),
-    (["--ckpt-dir", "x", "--long-ticks", "9"], "serve_multi"),
+    (["--multi", "--kernel"], "sweepd: --multi refuses --kernel"),
+    (["--multi", "--batch", "1"], "batch=1 is sweepd's sequential"),
+    (["--multi", "--long-ticks", "9"], "long_ticks > 0 needs ckpt_dir"),
     (["--k-slots", "4"], "loops_delays"),
     (["--kernel", "--devices", "2"], "sweepd: --devices shards"),
 ])

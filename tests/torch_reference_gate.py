@@ -29,6 +29,8 @@ checked on the JAX reference.
     JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --sweepd [--port]
     JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --checkpoint \
         [--n 1000000] [--port]
+    JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --serving [--port]
+    JAX_PLATFORMS=cpu python tests/torch_reference_gate.py --metrics [--port]
 
 Runs the JAX package's unscored per-tick step (XLA) on the resident
 configuration (go_libp2p_pubsub_tpu_torch/resident.py: 10 topics, C = 16,
@@ -179,6 +181,22 @@ step, once uninterrupted and once through its ``ckpt_gossip_run`` at
 backoff, tick), against CKPT_r15.json's and
 ``checkpoint_bench.REFERENCE_DIGEST``; with ``--port`` the port's plain
 CPU run (``checkpoint_bench.run("cpu", n)``) must give the same digest.
+
+With ``--serving`` it runs the JAX package's serving benchmark's two
+deterministic pieces (bench_suite.py ``bench_gossipsub_serving``;
+go_libp2p_pubsub_tpu_torch/serving_bench.py) on its front end
+(``go_libp2p_pubsub_tpu.serving``): the kill scenario (256 peers, 2
+topics, 8 messages, ``--ticks`` 400, seed 1) served uninterrupted on the
+long path, whose digest it prints against SERVE_r18.json's and
+``serving_bench.REFERENCE_KILL_DIGEST``, and the cold-start children's
+eight requests, whose rows it prints (``REFERENCE_COLD_ROWS``); with
+``--port`` the port's plain CPU front end must give the same digest and
+rows.  With ``--metrics`` it runs the metrics benchmark's delay-parity
+phase (bench_suite.py ``bench_gossipsub_metrics``) on the reference's
+64-peer telemetry step and prints the three totals against
+METRICS_r19.json's and ``metrics_bench.REFERENCE_PARITY``; with
+``--port`` the port's plain CPU run (``metrics_bench.delay_parity("cpu")``)
+must give the same totals.
 """
 
 import argparse
@@ -1182,6 +1200,126 @@ def checkpoint_rows(n: int, port: bool) -> int:
     return 0 if ok else 1
 
 
+def serving_rows(port: bool, kill_ticks: int) -> int:
+    """The JAX package's kill-scenario digest and cold-start rows (and,
+    with ``port``, the port's plain CPU front end's)."""
+    import io
+    import json
+    import shutil
+    import tempfile
+
+    from go_libp2p_pubsub_tpu_torch import serving_bench as sbn
+
+    work = tempfile.mkdtemp(prefix="serving_gate_")
+    raw = sbn.kill_line(kill_ticks)
+    try:
+        with imported_reference():
+            import tools.sweepd  # noqa: F401  (the front end's lazy import)
+            from go_libp2p_pubsub_tpu.serving import (FrontendConfig,
+                                                      ScenarioFrontend)
+            t0 = time.perf_counter()
+            fe = ScenarioFrontend(FrontendConfig(
+                batch=2, max_buckets=2, long_ticks=kill_ticks // 2,
+                ckpt_dir=os.path.join(work, "ref"),
+                ckpt_every=max(kill_ticks // 2, 1), server_kw={"seed": 0}))
+            buf = io.StringIO()
+            fe.serve_lines([raw], buf)
+            row = next(json.loads(ln) for ln in buf.getvalue().splitlines()
+                       if json.loads(ln).get("long"))
+            print(f"kill scenario, {kill_ticks} ticks: digest "
+                  f"{row['digest']} ({time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+            fe = ScenarioFrontend(FrontendConfig(
+                batch=4, max_buckets=4, server_kw={"seed": 0}))
+            cold = sbn.cold_table(sbn.cold_rows(fe)[0])
+        with open(Path(__file__).resolve().parents[1]
+                  / "SERVE_r18.json") as f:
+            r18 = json.load(f)["kill_recovery"]["digest"]
+        print("REFERENCE_COLD_ROWS = " + json.dumps(cold))
+        print(f"SERVE_r18.json digest {r18}; equal: {row['digest'] == r18}"
+              f"; to REFERENCE_KILL_DIGEST: "
+              f"{row['digest'] == sbn.REFERENCE_KILL_DIGEST}; cold rows "
+              f"equal to REFERENCE_COLD_ROWS: "
+              f"{cold == sbn.REFERENCE_COLD_ROWS}")
+        ok = row["ok"] and all(r[1] is not None for r in cold)
+        if port:
+            mine = sbn.uninterrupted_digest("cpu", kill_ticks,
+                                            os.path.join(work, "port"))
+            fe = sbn.ScenarioFrontend(sbn.FrontendConfig(
+                batch=4, max_buckets=4,
+                server_kw={"seed": 0, "device": "cpu"}))
+            mine_cold = sbn.cold_table(sbn.cold_rows(fe)[0])
+            match = mine["digest"] == row["digest"] and mine_cold == cold
+            print(f"port (CPU): digest {mine['digest']}, cold rows equal: "
+                  f"{mine_cold == cold}")
+            ok &= match
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("gates", "pass" if ok else "FAIL")
+    return 0 if ok else 1
+
+
+def metrics_rows(port: bool) -> int:
+    """The JAX package's delay-parity totals (and, with ``port``, the
+    port's plain CPU run's)."""
+    import json
+
+    from go_libp2p_pubsub_tpu_torch import metrics_bench as mb
+
+    with imported_reference() as r:
+        import go_libp2p_pubsub_tpu.models.telemetry as tl
+        from go_libp2p_pubsub_tpu.models.delays import DelayConfig
+        gs = r.gs
+        pn, pt, pm, pticks = 64, 2, 4, 6
+        subs = np.zeros((pn, pt), dtype=bool)
+        subs[np.arange(pn), np.arange(pn) % pt] = True
+        rng = np.random.default_rng(0)
+        ptopic = rng.integers(0, pt, pm)
+        porigin = rng.integers(0, pn // pt, pm) * pt + ptopic
+        ptks = np.zeros(pm, dtype=np.int32)
+        pcfg = gs.GossipSimConfig(
+            offsets=gs.make_gossip_offsets(pt, 8, pn, seed=1),
+            n_topics=pt, d=3, d_lo=2, d_hi=6, d_score=2, d_out=1,
+            d_lazy=2, backoff_ticks=8)
+        psc = gs.ScoreSimConfig()
+
+        def totals(delays):
+            kw = dict(score_cfg=psc, delays=delays)
+            if delays is not None:
+                kw["delays_counters"] = True
+            params, state = gs.make_gossip_sim(pcfg, subs, ptopic, porigin,
+                                               ptks, **kw)
+            step = gs.make_gossip_step(pcfg, psc,
+                                       telemetry=tl.TelemetryConfig())
+            out = []
+            for _ in range(pticks):
+                state, _d, frame = step(params, state)
+                out.append(np.array([np.asarray(getattr(frame, f)).sum()
+                                     for f in mb.FIELDS], dtype=np.int64))
+            return np.stack(out)
+
+        ref = totals(None)
+        idn = totals(DelayConfig(base=1, jitter=0, k_slots=1))
+        spread = totals(DelayConfig(base=2, jitter=1, k_slots=4))
+    got = {"max_abs_diff": int(np.abs(ref - idn).max()),
+           "identity_counter_total": int(idn.sum()),
+           "delayed_counter_total": int(spread.sum())}
+    with open(Path(__file__).resolve().parents[1] / "METRICS_r19.json") as f:
+        r19 = json.load(f)["delay_parity"]
+    print("REFERENCE_PARITY = " + json.dumps(got))
+    print(f"METRICS_r19.json equal: "
+          f"{all(r19[k] == v for k, v in got.items())}; to "
+          f"REFERENCE_PARITY: {got == mb.REFERENCE_PARITY}")
+    ok = got["max_abs_diff"] == 0
+    if port:
+        mine = mb.delay_parity("cpu")
+        match = all(mine[k] == v for k, v in got.items())
+        print(f"port (CPU): {json.dumps(mine)}; equal: {match}")
+        ok &= match
+    print("gates", "pass" if ok else "FAIL")
+    return 0 if ok else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int)
@@ -1199,6 +1337,8 @@ def main() -> int:
     ap.add_argument("--trace-export", action="store_true")
     ap.add_argument("--sweepd", action="store_true")
     ap.add_argument("--checkpoint", action="store_true")
+    ap.add_argument("--serving", action="store_true")
+    ap.add_argument("--metrics", action="store_true")
     ap.add_argument("--out", default=None)
     ap.add_argument("--port", action="store_true")
     ap.add_argument("--ticks", type=int, default=400)
@@ -1225,6 +1365,10 @@ def main() -> int:
         return sweepd_rows(args.port)
     if args.checkpoint:
         return checkpoint_rows(args.n or 1_000_000, args.port)
+    if args.serving:
+        return serving_rows(args.port, args.ticks)
+    if args.metrics:
+        return metrics_rows(args.port)
     if args.adversarial or args.everything or args.everything_paired:
         return adversarial_gates(
             args.n or 100_000, args.ticks,
